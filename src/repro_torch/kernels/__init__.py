@@ -1,0 +1,2 @@
+"""Hand-written Hopper kernels of the port, their wrappers and plain
+versions (see ``ops``)."""
