@@ -12,7 +12,8 @@ Phases; any failure raises and the script exits non-zero:
    plain version's time, the least time the card could take (bound) and a
    library yardstick where one PyTorch call computes the same function;
 4. reference: a small DBRX-shaped model in bf16 on the card (kernels)
-   against the same weights in fp32 on the CPU (plain versions);
+   against the same weights in fp32 on the CPU (plain versions), once
+   with every expert active and once routed top-2 of 8 with overflow;
 5. serve: DBRX-132B at full width, depth cut to 4 layers, random seeded
    weights, 4 prompts x 512 tokens, 32 new tokens greedy, through
    ``ServeEngine.generate``, with the kernels' launch counts.
@@ -127,6 +128,15 @@ def kernel_phase() -> dict:
         ("stage3", pack_inputs(3200, h, 16, bf16, valid_rows=2048, k=4,
                                seed=2), 16, 640),
     ]
+    # the three of one decode round, which make up all but 12 of the main
+    # path's launches: N = 4 tokens, one slot per expert, so stage 3 drops
+    # rows and its scan stops at capacity on every step
+    decode = [
+        ("decode1", pack_inputs(4, h, 1, bf16, valid_rows=4, seed=7), 1, 5),
+        ("decode2", pack_inputs(5, h, 1, bf16, valid_rows=4, seed=8), 1, 6),
+        ("decode3", pack_inputs(6, h, 16, bf16, valid_rows=4, k=4, seed=9),
+         16, 1),
+    ]
     edge = [
         ("d31-bf16", pack_inputs(1024, 256, 31, bf16, seed=3), 31, 40),
         ("d31-f32", pack_inputs(1024, 256, 31, torch.float32, seed=4),
@@ -134,10 +144,10 @@ def kernel_phase() -> dict:
         ("overflow", pack_inputs(4096, 128, 4, torch.float32, seed=5), 4, 100),
         ("odd-rows", pack_inputs(300, 6, 5, bf16, seed=6), 5, 70),
     ]
-    for label, args, d, c in stages + edge:
+    for label, args, d, c in stages + decode + edge:
         check_pack(failures, label, args, d, c)
     pk = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for label, args, d, c in stages:
+    for label, args, d, c in stages + decode:
         tokens = args[0]
         n, esize = tokens.shape[0], tokens.element_size()
         # bytes this data needs: the bitmap and valid flags, the rows that
@@ -151,10 +161,11 @@ def kernel_phase() -> dict:
         bnd, _ = bound_ms(nbytes)
         print(f"  dispatch_pack {label} time: kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms, bound {bnd:.4f} ms ({rows_read} rows read, "
-              f"{nbytes / 1e6:.1f} MB)")
-        pk["ms"] += ms
-        pk["plain_ms"] += plain
-        pk["bound_ms"] += bnd
+              f"{nbytes / 1e6:.3f} MB)")
+        if label.startswith("stage"):    # the kernels line: one prefill layer
+            pk["ms"] += ms
+            pk["plain_ms"] += plain
+            pk["bound_ms"] += bnd
 
     # attention: the DBRX prefill shape in the main path's layout (views of
     # [B, S, heads, D] buffers), then small shapes over the mask set
@@ -229,48 +240,128 @@ def kernel_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 def reference_phase() -> None:
+    from repro_torch.configs.base import get_config
+
+    # head_dim 128 as at full width
+    dbrx = get_config(ARCH)
+    small = dict(d_model=512, n_heads=4, n_kv_heads=2, d_ff=256, vocab=1024)
+    # every expert active: no routing choice, no drops
+    compare_small_model("all experts", dbrx.reduced(
+        **small, num_experts=4, top_k=4), seed=7)
+    # top-2 of 8 at DBRX's capacity factor: partial bitmaps, and experts
+    # that overflow their slots (one slot each at decode)
+    compare_small_model("routed", dbrx.reduced(
+        **small, num_experts=8, top_k=2, moe_capacity=dbrx.moe_capacity),
+        seed=8)
+
+
+def compare_small_model(label: str, cfg, *, seed: int) -> None:
+    """Prefill and 3 decode steps of ``cfg`` in bf16 on the card (kernels)
+    and in fp32 on the CPU (plain versions), same weights and tokens.
+
+    bf16 rounding can flip an expert choice where two router logits nearly
+    tie, and one flip changes which rows overflow.  So the CPU run takes the
+    card's expert choices (its gates come from its own logits), and every
+    choice it would have made otherwise must be a near tie in its logits.
+    """
+    from unittest import mock
+
     import numpy as np
     import torch
 
-    from repro_torch.configs.base import get_config
+    from repro_torch.core import collectives as cl
     from repro_torch.models import transformer as T
     from repro_torch.models.api import build_model
 
-    # head_dim 128 as at full width; every expert active (top_k ==
-    # num_experts) so the routing is continuous and bf16 rounding cannot
-    # flip an expert choice between the two runs
-    cfg = get_config(ARCH).reduced(d_model=512, n_heads=4, n_kv_heads=2,
-                                   d_ff=256, vocab=1024, num_experts=4,
-                                   top_k=4)
+    route, dispatch = cl.route_topk, cl.hierarchical_dispatch
+    card_ids: list = []          # the card's choices, one entry per MoE call
+    tally = {"pairs": 0, "kept": 0, "flips": 0, "gap": 0.0}
+
+    def card_route(logits, k):
+        gates, ids = route(logits, k)
+        card_ids.append(ids.cpu())
+        return gates, ids
+
+    def card_dispatch(tokens, ids, gates, dcfg, mesh):
+        out = dispatch(tokens, ids, gates, dcfg, mesh)
+        tally["pairs"] += ids.numel()
+        tally["kept"] += int((out[2].map_exp >= 0).sum())
+        return out
+
+    def cpu_route(logits, k):
+        ids = card_ids.pop(0).long()
+        own = route(logits, k)[1].long()
+        flips = (own.sort(-1).values != ids.sort(-1).values).any(-1)
+        kth = logits.topk(k, dim=-1).values[..., -1:]
+        gap = ((kth - logits.gather(-1, ids)).max().clamp(min=0)
+               / logits.abs().max()).item()
+        tally["flips"] += int(flips.sum())
+        tally["gap"] = max(tally["gap"], gap)
+        probs = torch.softmax(logits.float(), dim=-1).gather(-1, ids)
+        return probs / probs.sum(-1, keepdim=True), ids.to(torch.int32)
+
     gpu = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
+    gen.manual_seed(seed)
     params = gpu.init(gen)
     cpu = build_model(cfg, device="cpu", dtype=torch.float32)
     cpu_params = T.Transformer(cfg, device="cpu", dtype=torch.float32)
     cpu_params.load_state_dict({k: v.float().cpu()
                                 for k, v in params.state_dict().items()})
-    toks = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab, size=(2, 64)).astype(np.int32))
+    b, s = 4, 64
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(b, s)).astype(np.int32))
+
+    def on_card(fn, *args):
+        with mock.patch.object(cl, "route_topk", card_route), \
+                mock.patch.object(cl, "hierarchical_dispatch", card_dispatch):
+            return fn(*args)
+
+    def on_cpu(fn, *args):
+        with mock.patch.object(cl, "route_topk", cpu_route):
+            return fn(*args)
+
     with torch.inference_mode():
-        cache_g = gpu.init_cache(2, 80)
-        cache_c = cpu.init_cache(2, 80)
-        lg, cache_g = gpu.prefill(params, {"tokens": toks.cuda()}, cache_g)
-        lc, cache_c = cpu.prefill(cpu_params, {"tokens": toks}, cache_c)
+        cache_g = gpu.init_cache(b, s + 16)
+        cache_c = cpu.init_cache(b, s + 16)
+        lg, cache_g = on_card(gpu.prefill, params, {"tokens": toks.cuda()},
+                              cache_g)
+        lc, cache_c = on_cpu(cpu.prefill, cpu_params, {"tokens": toks},
+                             cache_c)
         worst = 0.0
         for step in range(4):
             rel = ((lg.float().cpu() - lc).abs().max()
                    / lc.abs().max()).item()
             worst = max(worst, rel)
             if not rel < REF_TOL:
-                raise AssertionError(f"reference step {step}: card logits "
-                                     f"off by {rel:.3e} of max |logit|")
+                raise AssertionError(f"reference {label} step {step}: card "
+                                     f"logits off by {rel:.3e} of max "
+                                     f"|logit|")
+            if step == 3:
+                break
             nxt = lc.argmax(-1).to(torch.int32)[:, None]
-            lg, cache_g = gpu.decode(params, {"tokens": nxt.cuda()}, cache_g)
-            lc, cache_c = cpu.decode(cpu_params, {"tokens": nxt}, cache_c)
-    print(f"  small DBRX-shaped model ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}): card bf16 vs CPU fp32 logits over prefill + 3 "
-          f"decode steps, worst {worst:.3e} of max |logit| (limit {REF_TOL})")
+            lg, cache_g = on_card(gpu.decode, params,
+                                  {"tokens": nxt.cuda()}, cache_g)
+            lc, cache_c = on_cpu(cpu.decode, cpu_params, {"tokens": nxt},
+                                 cache_c)
+    dropped = tally["pairs"] - tally["kept"]
+    print(f"  small DBRX-shaped model, {label} ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, top-{cfg.top_k} of {cfg.num_experts}, "
+          f"capacity factor {cfg.moe_capacity}): card bf16 vs CPU fp32 "
+          f"logits over prefill + 3 decode steps, worst {worst:.3e} of max "
+          f"|logit| (limit {REF_TOL}); {tally['pairs']} token-expert pairs, "
+          f"{dropped} dropped; {tally['flips']} rows where the CPU would "
+          f"have routed otherwise, widest gap {tally['gap']:.3e} of max "
+          f"|router logit| (limit {REF_TOL})")
+    if card_ids:
+        raise AssertionError(f"reference {label}: {len(card_ids)} MoE calls "
+                             f"on the card had no CPU counterpart")
+    if tally["gap"] > REF_TOL:
+        raise AssertionError(f"reference {label}: the card chose an expert "
+                             f"{tally['gap']:.3e} of max |router logit| "
+                             f"below the CPU's k-th choice")
+    if cfg.top_k < cfg.num_experts and dropped == 0:
+        raise AssertionError(f"reference {label}: no expert overflowed")
 
 
 # ---------------------------------------------------------------------------

@@ -121,7 +121,7 @@ class ServeEngine:
                                max_new=max_new))
         sched = BatchScheduler(
             queue=queue,
-            admission=AdmissionController(capacity=b, policy="greedy"),
+            admission=AdmissionController(capacity=b),
             engine=self, eos_id=self.cfg.eos_id, seed=seed)
         sched.run_until_drained()
         out = np.zeros((b, max_new), np.int32)

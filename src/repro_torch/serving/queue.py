@@ -116,11 +116,6 @@ class RequestQueue:
     def ready_count(self, now: float) -> int:
         return sum(1 for r in self._pending if r.arrival_s <= now)
 
-    def oldest_wait_s(self, now: float) -> float:
-        waits = [now - r.arrival_s for r in self._pending
-                 if r.arrival_s <= now]
-        return max(waits) if waits else 0.0
-
     def next_arrival_s(self, now: Optional[float] = None) -> Optional[float]:
         """Earliest future arrival (or earliest at all when ``now`` is
         None); None when the queue is empty."""

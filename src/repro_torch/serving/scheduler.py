@@ -83,7 +83,6 @@ class BatchScheduler:
         self.completed: List[Request] = []
         self.iterations = 0
         self.max_in_flight = 0
-        self.bound_bucket: Optional[int] = None
         self.wall = {"prefill_s": 0.0, "decode_s": 0.0}
 
     # -- introspection -------------------------------------------------------
@@ -103,10 +102,8 @@ class BatchScheduler:
         joiners: List[Request] = []
         ready = self.queue.ready_count(self.now)
         if ready:
-            dec = self.admission.decide(
-                in_flight=self.in_flight, ready=ready,
-                oldest_wait_s=self.queue.oldest_wait_s(self.now),
-                bound_bucket=self.bound_bucket)
+            dec = self.admission.decide(in_flight=self.in_flight,
+                                        ready=ready)
             if dec.admit > 0:
                 joiners = self.queue.pop_ready(self.now, dec.admit)
         if not joiners and not self.cohorts:
@@ -134,9 +131,6 @@ class BatchScheduler:
             raise ValueError("one cohort = one prompt_len (pad upstream)")
         for r in joiners:
             r.admit_s = self.now
-        if self.bound_bucket is None:
-            self.bound_bucket = batch_bucket(max(1, self.in_flight
-                                                 + len(joiners)))
         cohort = _Cohort(requests=joiners)
         prompts = np.stack([np.asarray(r.prompt, np.int32) for r in joiners])
         state, toks, wall = self.engine.start_cohort(

@@ -27,8 +27,8 @@ def test_pack_kernel_matches_plain_on_card(dtype):
     gen = torch.Generator(device="cuda").manual_seed(0)
     n, h, d, c = 1000, 256, 31, 40
     tokens = torch.randn((n, h), generator=gen, device="cuda").to(dtype)
-    bitmap = torch.randint(0, 1 << 30, (n,), generator=gen, device="cuda",
-                           dtype=torch.int32)
+    bitmap = torch.randint(0, 1 << d, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
     valid = torch.rand(n, generator=gen, device="cuda") > 0.25
     got_t, got_i = ops.dispatch_pack(tokens, bitmap, valid, num_dests=d,
                                      capacity=c)

@@ -75,7 +75,7 @@ def test_staggered_continuous_matches_one_shot(engines):
         q.push(Request(rid=i, arrival_s=0.002 * i, prompt=prompts[i],
                        max_new=6))
     sched = BatchScheduler(
-        queue=q, admission=AdmissionController(capacity=2, policy="greedy"),
+        queue=q, admission=AdmissionController(capacity=2),
         engine=teng, seed=0)
     sched.run_until_drained()
     assert len(sched.completed) == 4
@@ -124,8 +124,8 @@ def test_queue_and_admission_copies():
     dec = adm.decide(in_flight=1, ready=5)
     assert (dec.admit, dec.target_batch, dec.reason) == (2, 3, "greedy")
     assert adm.decide(in_flight=3, ready=1).reason == "capacity"
-    with pytest.raises(ValueError, match="policy"):
-        AdmissionController(policy="planner")
+    assert adm.decide(in_flight=0, ready=0).reason == "idle"
+    assert AdmissionController(capacity=0).capacity == 1
     assert [batch_bucket(b) for b in (0, 1, 3, 4, 5, 33)] == \
         [1, 1, 4, 4, 8, 64]
 
