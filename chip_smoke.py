@@ -6,17 +6,23 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (no CUDA device is an error);
-2. build: compile every kernel under ``src/repro_torch/kernels/csrc``;
+2. build: compile every kernel under ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it plus edge cases, with its time, the
+   the shapes the main paths give it plus edge cases, with its time, the
    plain version's time, the least time the card could take (bound) and a
    library yardstick where one PyTorch call computes the same function;
-4. reference: a small DBRX-shaped model in bf16 on the card (kernels)
-   against the same weights in fp32 on the CPU (plain versions), once
-   with every expert active and once routed top-2 of 8 with overflow;
-5. serve: DBRX-132B at full width, depth cut to 4 layers, random seeded
-   weights, 4 prompts x 512 tokens, 32 new tokens greedy, through
-   ``ServeEngine.generate``, with the kernels' launch counts.
+   and the DBRX prefill combine run twice on the same inputs, which must be
+   bit-identical;
+4. reference: small models in bf16 on the card (kernels) against the same
+   weights in fp32 on the CPU (plain versions): DBRX-shaped with every
+   expert active and routed top-2 of 8 with overflow, then Zamba2-shaped
+   (attention at head_dim 112) and RWKV6-shaped;
+5. serve: through ``ServeEngine.generate``, random seeded weights, 4
+   prompts x 512 tokens, 32 new tokens greedy, one model at a time, each
+   freed before the next: DBRX-132B at full width with its depth cut to 4
+   layers, then Zamba2-7B and RWKV6-7B at full width and full depth; each
+   with the kernels' launch counts over its own run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -37,10 +43,13 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
-ARCH = "dbrx_132b"
-LAYERS = 4
+# (arch, depth cut or None for the published depth), served in this order
+SERVES = (("dbrx_132b", 4), ("zamba2_7b", None), ("rwkv6_7b", None))
 PROMPTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 kernel vs fp32 plain
+# bf16 scans vs the fp32 per-step recurrence: the reference kernel tests'
+# bf16 tolerance (tests/test_kernels.py)
+SCAN_TOL = dict(atol=5e-2, rtol=5e-2)
 REF_TOL = 5e-2                          # of max |logit|, bf16 vs fp32 model
 
 
@@ -179,6 +188,7 @@ def kernel_phase() -> dict:
 
     attn_cases = [  # b, heads, kv heads, Sq, Sk, D, causal, window, softcap
         ("dbrx", (4, 48, 8, 512, 512, 128), True, None, None),
+        ("zamba2", (4, 32, 32, 512, 512, 112), True, None, None),
         ("window", (2, 4, 2, 100, 100, 128), True, 32, None),
         ("softcap", (2, 4, 2, 64, 64, 64), True, None, 30.0),
         ("cross", (2, 4, 1, 40, 72, 128), False, None, None),
@@ -200,21 +210,24 @@ def kernel_phase() -> dict:
               f"{'within' if ok else 'OUTSIDE'} atol=rtol=2e-2")
         if not ok:
             failures.append(f"flash_attention {label}")
-        if label == "dbrx":
-            attn_err = err
-            b, hq, g, s, t, d = shape
-            fa_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
-            fa_plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
-                               iters=5)
-            fa_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        if label in ("dbrx", "zamba2"):
+            b, hq, g, sq, t, d = shape
+            ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+            plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                            iters=5)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))
-            nbytes = 2 * (2 * b * hq * s * d + 2 * b * g * t * d)
-            flops = 4 * b * hq * d * (s * (s + 1) // 2)   # causal pairs
-            fa_bound, fa_by = bound_ms(nbytes, flops)
-            print(f"  flash_attention dbrx time: kernel {fa_ms:.4f} ms, "
-                  f"plain {fa_plain:.4f} ms, scaled_dot_product_attention "
-                  f"{fa_lib:.4f} ms, bound {fa_bound:.4f} ms ({fa_by}; "
+            nbytes = 2 * (2 * b * hq * sq * d + 2 * b * g * t * d)
+            flops = 4 * b * hq * d * (sq * (sq + 1) // 2)   # causal pairs
+            bnd, by = bound_ms(nbytes, flops)
+            print(f"  flash_attention {label} time: kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, scaled_dot_product_attention "
+                  f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            if label == "dbrx":       # the kernels line: DBRX's shape
+                attn_err = err
+                fa_ms, fa_plain, fa_lib, fa_bound, fa_by = \
+                    ms, plain, lib, bnd, by
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
@@ -235,6 +248,203 @@ def kernel_phase() -> dict:
     return rows
 
 
+def scan_inputs_mamba2(batch, heads, s, groups, seed):
+    """Zamba2-like scan inputs on the card: conv-output-sized x, dt from a
+    softplus, A = -exp(A_log), B/C per group (``shared``: one group per
+    sequence, read by all of its heads through a head stride of 0)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    rows = batch * heads
+    g = batch if groups == "shared" else rows
+    x = rn(rows, s, 64).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(rn(rows, s) - 1.0)
+    a = -torch.exp(rn(rows) * 0.5)
+    d = rn(rows)
+    b, c = (rn(g, s, 64).to(torch.bfloat16) for _ in range(2))
+    return x, dt, a, b, c, d
+
+
+def scan_inputs_rwkv6(batch, heads, s, seed):
+    """RWKV6-7B-like scan inputs on the card.  logw is made as
+    ``models/rwkv.py::_decay_logw`` makes it at full width (d 4096, LoRA
+    64, the reference's init scales, w0 = 0) from unit-variance inputs, so
+    one 32-step chunk's log-decays sum to about -70 at the extreme."""
+    import torch
+    from repro_torch.models.layers import truncated_normal_
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dmodel, lora, dk = heads * 64, 64, 64
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def to_heads(t):
+        return t.reshape(batch, s, heads, dk).transpose(1, 2).reshape(
+            batch * heads, s, dk).contiguous()
+
+    wa = truncated_normal_(torch.empty((dmodel, lora), device="cuda"),
+                           dmodel ** -0.5, gen)
+    wb = truncated_normal_(torch.empty((lora, dmodel), device="cuda"),
+                           lora ** -0.5, gen)
+    xw = rn(batch, s, dmodel)
+    logw = to_heads(-torch.exp(torch.tanh(xw @ wa) @ wb))
+    r, k, v = (to_heads(rn(batch, s, dmodel)).to(torch.bfloat16)
+               for _ in range(3))
+    u = truncated_normal_(torch.empty((heads, dk), device="cuda"), 0.3,
+                          gen).repeat(batch, 1)
+    return r, k, v, logw, u
+
+
+def _check_scan(failures, name, label, got, exp) -> float:
+    import torch
+    (y, st), (ey, est) = got, exp
+    torch.cuda.synchronize()
+    y_err = (y.float() - ey).abs().max().item()
+    st_err = (st - est).abs().max().item()
+    ok = (torch.isfinite(y).all().item()
+          and torch.allclose(y.float(), ey, **SCAN_TOL)
+          and torch.allclose(st, est, **SCAN_TOL))
+    print(f"  {name} {label}: y max|err| {y_err:.3e} (max|y| "
+          f"{ey.abs().max().item():.3e}), final state max|err| {st_err:.3e} "
+          f"(max|state| {est.abs().max().item():.3e}): "
+          f"{'within' if ok else 'OUTSIDE'} atol=rtol=5e-2 of the fp32 "
+          f"per-step recurrence")
+    if not ok:
+        failures.append(f"{name} {label}")
+    return y_err
+
+
+def scan_phase() -> dict:
+    """The two scan kernels against the per-step recurrence (fp32, which
+    cannot overflow), y and final state, at the serving shapes, a ragged
+    S = 500 and, for mamba2, B/C per head as well as shared; times at the
+    serving shapes against the chunked plain versions."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mamba2_scan import (CHUNK as MQ,
+                                                 expand_groups,
+                                                 mamba2_scan_plain)
+    from repro_torch.kernels.rwkv6_scan import CHUNK as RQ, rwkv6_scan_plain
+
+    failures: list = []
+    rows = {}
+    # Zamba2-7B prefill: 4 sequences x 112 heads of 64, ds 64, one B/C
+    # group per sequence
+    for label, (batch, heads, s, groups) in (
+            ("zamba2", (4, 112, 512, "shared")),
+            ("ragged", (4, 112, 500, "shared")),
+            ("per-head", (2, 16, 300, "per-head"))):
+        args = scan_inputs_mamba2(batch, heads, s, groups, seed=20)
+        x, dt, a, b, c, d = args
+        n = x.shape[0]
+        exp = ref.mamba2_ref(x.float(), dt, a, expand_groups(b, n).float(),
+                             expand_groups(c, n).float(), d,
+                             return_final=True)
+        err = _check_scan(failures, "mamba2_scan", label,
+                          ops.mamba2_scan(*args), exp)
+        if label != "zamba2":
+            continue
+        ms = time_ms(lambda: ops.mamba2_scan(*args))
+        plain = time_ms(lambda: mamba2_scan_plain(*args), iters=5)
+        dh, ds = x.shape[-1], b.shape[-1]
+        nbytes = (x.numel() * 2 * 2 + dt.numel() * 4 + (a.numel() + d.numel())
+                  * 4 + (b.numel() + c.numel()) * 2 + n * ds * dh * 4)
+        chunks = -(-s // MQ)
+        tri = MQ * (MQ + 1) // 2        # causal pairs of a chunk
+        flops = 2 * n * chunks * (tri * ds + tri * dh + 2 * MQ * ds * dh)
+        bnd, by = bound_ms(nbytes, flops)
+        print(f"  mamba2_scan zamba2 time: kernel {ms:.4f} ms, plain "
+              f"(chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        rows["mamba2_scan"] = dict(
+            name="mamba2_scan", route="cuda",
+            source="src/repro_torch/kernels/csrc/mamba2_scan.cu",
+            replaces="src/repro/kernels/mamba2_scan.py:100",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=None)
+    # RWKV6-7B prefill: 4 sequences x 64 heads of 64
+    for label, (batch, s) in (("rwkv6", (4, 512)), ("ragged", (4, 500))):
+        args = scan_inputs_rwkv6(batch, 64, s, seed=21)
+        r, k, v, logw, u = args
+        chunk_sum = logw[:, :RQ].sum(dim=1).min().item()
+        print(f"  rwkv6_scan {label}: most negative first-chunk sum of "
+              f"logw {chunk_sum:.2f}")
+        exp = ref.rwkv6_ref(r.float(), k.float(), v.float(), logw, u,
+                            return_final=True)
+        err = _check_scan(failures, "rwkv6_scan", label,
+                          ops.rwkv6_scan(*args), exp)
+        if label != "rwkv6":
+            continue
+        ms = time_ms(lambda: ops.rwkv6_scan(*args))
+        plain = time_ms(lambda: rwkv6_scan_plain(*args), iters=5)
+        n, _, dk = r.shape
+        dv = v.shape[-1]
+        nbytes = ((r.numel() + k.numel() + v.numel()) * 2 + logw.numel() * 4
+                  + u.numel() * 4 + v.numel() * 2 + n * dk * dv * 4)
+        chunks = -(-s // RQ)
+        low = RQ * (RQ - 1) // 2        # strictly-lower pairs of a chunk
+        flops = 2 * n * chunks * (low * dk + RQ * dk + (low + RQ) * dv
+                                  + 2 * RQ * dk * dv)
+        bnd, by = bound_ms(nbytes, flops)
+        print(f"  rwkv6_scan rwkv6 time: kernel {ms:.4f} ms, plain "
+              f"(chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        rows["rwkv6_scan"] = dict(
+            name="rwkv6_scan", route="cuda",
+            source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            replaces="src/repro/kernels/rwkv6_scan.py:97",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=None)
+    if failures:
+        raise AssertionError(f"scan kernels disagree with the per-step "
+                             f"recurrence: {failures}")
+    return rows
+
+
+def combine_phase() -> None:
+    """The DBRX prefill combine (4 x 512 tokens, top-4 of 16, capacity
+    factor 1.25) twice on the same inputs: the outputs must be
+    bit-identical."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import collectives as cl
+    from repro_torch.models.moe import balanced_capacities
+
+    cfg = get_config("dbrx_132b")
+    n, h = PROMPTS * PROMPT_LEN, cfg.d_model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(30)
+    tokens = torch.randn((n, h), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    logits = torch.randn((n, cfg.num_experts), generator=gen, device="cuda")
+    gates, ids = cl.route_topk(logits, cfg.top_k)
+    mesh = cl.EPMesh(pod_axis=None, ep_axis="_none", num_pods=1,
+                     ep_per_pod=1)
+    dcfg = balanced_capacities(n, cfg.top_k, 1, 1, cfg.num_experts,
+                               cfg.moe_capacity)
+    exp_tok, exp_gate, state = cl.hierarchical_dispatch(tokens, ids, gates,
+                                                        dcfg, mesh)
+    expert_out = torch.randn(exp_tok.shape, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+    first = cl.hierarchical_combine(expert_out, exp_gate, state)
+    second = cl.hierarchical_combine(expert_out, exp_gate, state)
+    torch.cuda.synchronize()
+    same = torch.equal(first.view(torch.int32), second.view(torch.int32))
+    kept = int((state.map_exp >= 0).sum())
+    print(f"  DBRX prefill combine [{n}, {h}] from {kept} expert slots, "
+          f"twice on the same inputs: "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("the combine is not deterministic")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: small model, card (bf16 kernels) vs CPU (fp32 plain versions)
 # ---------------------------------------------------------------------------
@@ -243,7 +453,7 @@ def reference_phase() -> None:
     from repro_torch.configs.base import get_config
 
     # head_dim 128 as at full width
-    dbrx = get_config(ARCH)
+    dbrx = get_config("dbrx_132b")
     small = dict(d_model=512, n_heads=4, n_kv_heads=2, d_ff=256, vocab=1024)
     # every expert active: no routing choice, no drops
     compare_small_model("all experts", dbrx.reduced(
@@ -253,6 +463,93 @@ def reference_phase() -> None:
     compare_small_model("routed", dbrx.reduced(
         **small, num_experts=8, top_k=2, moe_capacity=dbrx.moe_capacity),
         seed=8)
+    # Zamba2-shaped: mamba heads of 64 with ds 64 as at full width, and the
+    # shared block at head_dim 112 (4 heads over d_model 448), shared after
+    # every 2 of 4 mamba layers
+    compare_small_recurrent("Zamba2-shaped", get_config("zamba2_7b").reduced(
+        n_layers=4, d_model=448, n_heads=4, n_kv_heads=4, d_ff=512,
+        vocab=1024, ssm_state=64, ssm_head_dim=64, shared_attn_every=2),
+        seed=9)
+    # RWKV6-shaped: wkv heads of 64 and a LoRA of 64 as at full width
+    compare_small_recurrent("RWKV6-shaped", get_config("rwkv6_7b").reduced(
+        n_layers=2, d_model=512, d_ff=1024, vocab=1024, rwkv_head_dim=64,
+        rwkv_decay_lora=64), seed=10)
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def logits_gap(label: str, card, host, toks) -> float:
+    """Prefill ``toks`` and take 3 greedy decode steps (the CPU's choices)
+    on both sides; ``card`` and ``host`` are (model, params, call), where
+    ``call(fn, *args)`` runs one model call.  Raises when the card's logits
+    are off by ``REF_TOL`` of max |logit| at any step; returns the worst."""
+    import torch
+    (gpu, params, on_card), (cpu, cpu_params, on_cpu) = card, host
+    b, s = toks.shape
+    worst = 0.0
+    with torch.inference_mode():
+        cache_g = gpu.init_cache(b, s + 16)
+        cache_c = cpu.init_cache(b, s + 16)
+        lg, cache_g = on_card(gpu.prefill, params, {"tokens": toks.cuda()},
+                              cache_g)
+        lc, cache_c = on_cpu(cpu.prefill, cpu_params, {"tokens": toks},
+                             cache_c)
+        for step in range(4):
+            rel = ((lg.float().cpu() - lc).abs().max()
+                   / lc.abs().max()).item()
+            worst = max(worst, rel)
+            if not rel < REF_TOL:
+                raise AssertionError(f"reference {label} step {step}: card "
+                                     f"logits off by {rel:.3e} of max "
+                                     f"|logit|")
+            if step == 3:
+                return worst
+            nxt = lc.argmax(-1).to(torch.int32)[:, None]
+            lg, cache_g = on_card(gpu.decode, params,
+                                  {"tokens": nxt.cuda()}, cache_g)
+            lc, cache_c = on_cpu(cpu.decode, cpu_params, {"tokens": nxt},
+                                 cache_c)
+
+
+def compare_small_recurrent(label: str, cfg, *, seed: int) -> None:
+    """Prefill (100 tokens: ragged chunks for both scans) and 3 decode
+    steps of a hybrid or rwkv ``cfg`` in bf16 on the card (kernels) and in
+    fp32 on the CPU (plain versions), same weights and tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model, param_module
+
+    gpu = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = gpu.init(gen)
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32)
+    cpu_params = param_module(cfg, device="cpu", dtype=torch.float32)
+    cpu_params.load_state_dict({k: v.float().cpu()
+                                for k, v in params.state_dict().items()})
+    b, s = 4, 100
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(b, s)).astype(np.int32))
+    ops.reset_launches()
+    worst = logits_gap(label, (gpu, params, _call), (cpu, cpu_params, _call),
+                       toks)
+    counts = {k: v for k, v in ops.launches().items() if v}
+    heads = (f"attention head_dim {cfg.head_dim}" if cfg.family == "hybrid"
+             else f"wkv head_dim {cfg.rwkv_head_dim}")
+    print(f"  small {label} model ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {heads}): card bf16 vs "
+          f"CPU fp32 logits over prefill + 3 decode steps, worst "
+          f"{worst:.3e} of max |logit| (limit {REF_TOL}); kernel launches "
+          f"{counts}")
+    scan = "mamba2_scan" if cfg.family == "hybrid" else "rwkv6_scan"
+    if counts.get(scan) != cfg.n_layers:
+        raise AssertionError(f"reference {label}: {scan} launched "
+                             f"{counts.get(scan)} times, not "
+                             f"{cfg.n_layers}")
 
 
 def compare_small_model(label: str, cfg, *, seed: int) -> None:
@@ -321,29 +618,8 @@ def compare_small_model(label: str, cfg, *, seed: int) -> None:
         with mock.patch.object(cl, "route_topk", cpu_route):
             return fn(*args)
 
-    with torch.inference_mode():
-        cache_g = gpu.init_cache(b, s + 16)
-        cache_c = cpu.init_cache(b, s + 16)
-        lg, cache_g = on_card(gpu.prefill, params, {"tokens": toks.cuda()},
-                              cache_g)
-        lc, cache_c = on_cpu(cpu.prefill, cpu_params, {"tokens": toks},
-                             cache_c)
-        worst = 0.0
-        for step in range(4):
-            rel = ((lg.float().cpu() - lc).abs().max()
-                   / lc.abs().max()).item()
-            worst = max(worst, rel)
-            if not rel < REF_TOL:
-                raise AssertionError(f"reference {label} step {step}: card "
-                                     f"logits off by {rel:.3e} of max "
-                                     f"|logit|")
-            if step == 3:
-                break
-            nxt = lc.argmax(-1).to(torch.int32)[:, None]
-            lg, cache_g = on_card(gpu.decode, params,
-                                  {"tokens": nxt.cuda()}, cache_g)
-            lc, cache_c = on_cpu(cpu.decode, cpu_params, {"tokens": nxt},
-                                 cache_c)
+    worst = logits_gap(label, (gpu, params, on_card),
+                       (cpu, cpu_params, on_cpu), toks)
     dropped = tally["pairs"] - tally["kept"]
     print(f"  small DBRX-shaped model, {label} ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, top-{cfg.top_k} of {cfg.num_experts}, "
@@ -365,17 +641,36 @@ def compare_small_model(label: str, cfg, *, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serve DBRX at full width
+# phase 5: serve each model at full width
 # ---------------------------------------------------------------------------
 
-def serve_phase() -> dict:
+def expected_launches(cfg, forwards: int) -> dict:
+    """Kernel launches of one ``generate``: ``forwards`` = 1 prefill plus
+    the decode rounds.  Attention and the scans run at prefill only; the
+    dispatch pack runs three times per MoE layer in every forward."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.ssm import n_shared_calls
+    want = dict.fromkeys(ops.launches(), 0)
+    if cfg.family == "moe":
+        want["dispatch_pack"] = 3 * cfg.n_layers * forwards
+        want["flash_attention"] = cfg.n_layers
+    elif cfg.family == "hybrid":
+        want["mamba2_scan"] = cfg.n_layers
+        want["flash_attention"] = n_shared_calls(cfg)
+    elif cfg.family == "rwkv":
+        want["rwkv6_scan"] = cfg.n_layers
+    return want
+
+
+def serve_phase(arch: str, layers) -> dict:
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine, make_prompts, \
         serve_config
 
-    cfg = serve_config(ARCH, layers=LAYERS, smoke=False)
+    cfg = serve_config(arch, layers=layers, smoke=False)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     engine = build_engine(cfg, device="cuda", dtype=torch.bfloat16, seed=0,
                           max_new=MAX_NEW)
@@ -383,11 +678,18 @@ def serve_phase() -> dict:
     nparams = sum(p.numel() for p in engine.params.parameters())
     nbytes = sum(p.numel() * p.element_size()
                  for p in engine.params.parameters())
+    shape = (f"{cfg.num_experts} experts top-{cfg.top_k}, d_ff "
+             f"{cfg.expert_d_ff}" if cfg.family == "moe" else
+             f"ssm state {cfg.ssm_state}, head_dim {cfg.ssm_head_dim}, "
+             f"shared block every {cfg.shared_attn_every}, d_ff {cfg.d_ff}"
+             if cfg.family == "hybrid" else
+             f"wkv head_dim {cfg.rwkv_head_dim}, decay LoRA "
+             f"{cfg.rwkv_decay_lora}, d_ff {cfg.d_ff}")
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, {cfg.num_experts} "
-          f"experts top-{cfg.top_k}, d_ff {cfg.expert_d_ff}, vocab "
-          f"{cfg.vocab}: {nparams / 1e9:.2f} B parameters, "
-          f"{nbytes / 1e9:.2f} GB, random init {time.monotonic() - t0:.1f} s")
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv (head_dim "
+          f"{cfg.head_dim}), {shape}, vocab {cfg.vocab}: "
+          f"{nparams / 1e9:.2f} B parameters, {nbytes / 1e9:.2f} GB, random "
+          f"init {time.monotonic() - t0:.1f} s")
     prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
     engine.generate(prompts, max_new=2)          # warm-up, not counted
     engine.stats.update(prefill_s=0.0, decode_s=0.0, tokens=0)
@@ -405,9 +707,7 @@ def serve_phase() -> dict:
     if st["nonfinite_logits"]:
         raise AssertionError(f"{st['nonfinite_logits']} steps with "
                              f"non-finite logits")
-    forwards = MAX_NEW          # 1 prefill + MAX_NEW - 1 decode rounds
-    want = {"dispatch_pack": 3 * cfg.n_layers * forwards,
-            "flash_attention": cfg.n_layers}
+    want = expected_launches(cfg, forwards=MAX_NEW)
     print(f"  launches during generate: {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -419,6 +719,8 @@ def serve_phase() -> dict:
           f"tokens/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"  first tokens: {out[:, :8].tolist()}")
+    del engine
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -450,13 +752,19 @@ def main() -> None:
 
     print("phase 3: kernels vs plain versions")
     rows = kernel_phase()
+    rows.update(scan_phase())
+    combine_phase()
     print("phase 4: small-model reference")
     reference_phase()
     print("phase 5: serve")
-    counts = serve_phase()
+    by_path = {}
+    for arch, layers in SERVES:
+        by_path[arch] = serve_phase(arch, layers)
 
     for name, row in rows.items():
-        row["launches"] = counts[name]
+        row["launches"] = sum(c[name] for c in by_path.values())
+        row["launches_by_path"] = {arch: c[name]
+                                   for arch, c in by_path.items()}
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

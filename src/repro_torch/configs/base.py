@@ -112,10 +112,11 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
-ARCH_IDS = ["dbrx_132b"]
+ARCH_IDS = ["dbrx_132b", "zamba2_7b", "rwkv6_7b"]
 
 # canonical dash-style aliases
-ALIASES = {"dbrx-132b": "dbrx_132b"}
+ALIASES = {"dbrx-132b": "dbrx_132b", "zamba2-7b": "zamba2_7b",
+           "rwkv6-7b": "rwkv6_7b"}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -221,17 +221,43 @@ def _gate_for_expert(ids: torch.Tensor, gates: torch.Tensor,
     return torch.where(want, rows_gates, 0.0).sum(dim=-1)          # [E_l, Ce]
 
 
-def _scatter_add_rows(index: torch.Tensor, rows: torch.Tensor,
-                      num_slots: int) -> torch.Tensor:
-    """fp32 [num_slots, H] buffer with ``rows`` added at ``index``; an index
-    of -1 lands in one overflow slot past the end that is cut off (the
-    reference's ``.at[].add`` into ``num_slots + 1`` rows)."""
+def _sum_rows_into(index: torch.Tensor, rows: torch.Tensor, num_slots: int,
+                   width: int) -> torch.Tensor:
+    """fp32 [num_slots, H]: slot m holds the sum of the ``rows`` whose
+    ``index`` is m (the reference's ``.at[].add`` into ``num_slots + 1``
+    rows, the last, for index -1, cut off).
+
+    index [R, C] gives each of the R * C rows its slot; one group r holds a
+    slot at most once, so a slot gathers at most ``width`` <= R rows.  No
+    atomics: the index is inverted into a [num_slots, width] table (column
+    j of slot m: the j-th group, in group order, that holds m; every write
+    has its own destination), and the rows are gathered and added column by
+    column.  So the fp32 sums come out in a fixed order, bit-identical from
+    run to run, where ``index_add_`` on the card adds in whatever order its
+    atomics land."""
+    r, c = index.shape
     h = rows.shape[-1]
-    buf = torch.zeros((num_slots + 1, h), dtype=torch.float32,
-                      device=rows.device)
-    idx = torch.where(index >= 0, index, num_slots).reshape(-1).long()
-    buf.index_add_(0, idx, rows.reshape(-1, h).float())
-    return buf[:num_slots]
+    dev = rows.device
+    held = index >= 0
+    slot = torch.where(held, index, num_slots).long()          # [R, C]
+    # scatters only: an index assignment of a Python number copies it from
+    # the host, and that copy waits for the stream
+    if width == 1:
+        col = torch.zeros_like(slot)
+    else:
+        occ = torch.zeros((r, num_slots + 1), dtype=torch.int32, device=dev)
+        occ.scatter_(1, slot, 1)                  # group g holds slot m
+        col = torch.where(held, (occ.cumsum(dim=0) - 1).gather(1, slot), 0)
+    table = torch.full(((num_slots + 1) * width,), -1, dtype=torch.int32,
+                       device=dev)
+    table.scatter_(0, (slot * width + col).reshape(-1),
+                   torch.arange(r * c, dtype=torch.int32, device=dev))
+    table = table.reshape(num_slots + 1, width)
+    flat = rows.reshape(r * c, h)
+    out = gather_rows(flat, table[:num_slots, 0]).float()
+    for j in range(1, width):
+        out += gather_rows(flat, table[:num_slots, j]).float()
+    return out
 
 
 def hierarchical_combine(expert_out: torch.Tensor, exp_gate: torch.Tensor,
@@ -243,18 +269,21 @@ def hierarchical_combine(expert_out: torch.Tensor, exp_gate: torch.Tensor,
     """
     mesh = state.mesh
     p, d = mesh.num_pods, mesh.ep_per_pod
-    h = expert_out.shape[-1]
     cd = state.map_ep.shape[1]
     cp = state.map_pod.shape[1]
+    e_local = state.map_exp.shape[0]
     if d > 1:
         raise NotImplementedError(_MULTI_RANK.format(f"{d} ep ranks"))
     if mesh.pod_axis is not None and p > 1:
         raise NotImplementedError(_MULTI_RANK.format(f"{p} pods"))
 
-    # ---- apply gates, scatter-add expert slots back to stage-2 slots ------
+    # ---- apply gates, sum expert slots back into stage-2 slots: a token
+    # sits in at most top_k of this rank's experts --------------------------
     weighted = expert_out * exp_gate[..., None]
-    flat2 = _scatter_add_rows(state.map_exp, weighted, d * cd)
+    flat2 = _sum_rows_into(state.map_exp, weighted, d * cd,
+                           min(state.cfg.top_k, e_local))
     # ---- relay-side reduction: sum per stage-1 slot over ep ranks ----------
-    flat1 = _scatter_add_rows(state.map_ep, flat2, p * cp)
-    # ---- scatter-add into source rows --------------------------------------
-    return _scatter_add_rows(state.map_pod, flat1, state.n_tokens)
+    flat1 = _sum_rows_into(state.map_ep, flat2.reshape(d, cd, -1), p * cp, d)
+    # ---- sum into source rows -----------------------------------------------
+    return _sum_rows_into(state.map_pod, flat1.reshape(p, cp, -1),
+                          state.n_tokens, p)

@@ -18,7 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-KERNELS = ("dispatch_pack", "flash_attention")
+KERNELS = ("dispatch_pack", "flash_attention", "mamba2_scan",
+           "rwkv6_scan")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -39,7 +39,11 @@ namespace {
 constexpr int kBlockM = 64;   // q rows per block (16 per warp)
 constexpr int kBlockN = 64;   // kv rows per tile
 constexpr int kThreads = 128;
-constexpr int kPad = 8;       // bf16 padding per shared row: conflict-free fragments
+// bf16 padding per shared row.  Row pitches of 72, 120 and 136 bf16 (36, 60
+// and 68 words) put the 8 rows of every fragment load and ldmatrix in
+// distinct banks, and keep each row 16-byte aligned.  Head dims are
+// multiples of 16 (the m16n8k16 k-step): 112 = 7 x 16 for Zamba2.
+constexpr int kPad = 8;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -266,8 +270,8 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 
 // q [B, H, Sq, D], k/v [B, G, Sk, D], o [B, H, Sq, D], bf16, each given by
 // element strides (batch, head, seq) with a contiguous head dimension D in
-// {64, 128}.  window <= 0 and softcap <= 0 mean none.  Launches on `stream`;
-// returns cudaGetLastError() after the launch.
+// {64, 112, 128}.  window <= 0 and softcap <= 0 mean none.  Launches on
+// `stream`; returns cudaGetLastError() after the launch.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss,
@@ -291,6 +295,8 @@ extern "C" int flash_attention(
   cudaError_t err;
   if (head_dim == 128) {
     err = launch<128>(p, batch, s);
+  } else if (head_dim == 112) {
+    err = launch<112>(p, batch, s);
   } else if (head_dim == 64) {
     err = launch<64>(p, batch, s);
   } else {

@@ -24,8 +24,8 @@ reference takes them.  The kernel reads them through strides, so views of
 
 For tensors on the CPU the wrapper runs the plain version (dense fp32
 attention, :func:`repro_torch.kernels.ref.attention_ref`, over repeated kv
-heads); for CUDA tensors it launches the kernel (bf16, head_dim 64 or 128),
-or raises.  ``flash_attention.launches`` counts kernel launches.
+heads); for CUDA tensors it launches the kernel (bf16, head_dim 64, 112 or
+128), or raises.  ``flash_attention.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 
 
 def _lib() -> ctypes.CDLL:

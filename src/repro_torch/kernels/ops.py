@@ -4,9 +4,12 @@ Each op goes by the device of its tensors alone: the hand-written CUDA
 kernel for CUDA tensors, its plain PyTorch version for CPU tensors.  There
 is no switch and no fallback.  Decode attention is a plain op on every
 device, as in the reference (``src/repro/kernels/ops.py::decode_attention``):
-one query token per sequence is a memory-bound matrix-vector product.
+one query token per sequence is a memory-bound matrix-vector product.  So
+are the one-token Mamba2 and RWKV-6 state updates of decode
+(``ref.mamba2_decode_step``, ``ref.rwkv6_decode_step``), plain in both
+packages.
 
-Launch counts: ``dispatch_pack.launches`` and ``flash_attention.launches``.
+Launch counts: ``<op>.launches`` for each op of ``KERNEL_OPS``.
 """
 
 from __future__ import annotations
@@ -14,11 +17,13 @@ from __future__ import annotations
 from repro_torch.kernels import ref
 from repro_torch.kernels.dispatch_pack import dispatch_pack
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba2_scan import mamba2_scan
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
-__all__ = ["dispatch_pack", "flash_attention", "decode_attention",
-           "reset_launches", "launches"]
+__all__ = ["dispatch_pack", "flash_attention", "mamba2_scan", "rwkv6_scan",
+           "decode_attention", "reset_launches", "launches"]
 
-KERNEL_OPS = (dispatch_pack, flash_attention)
+KERNEL_OPS = (dispatch_pack, flash_attention, mamba2_scan, rwkv6_scan)
 
 
 def decode_attention(q, k, v, kv_len=None, *, scale=None, softcap=None,

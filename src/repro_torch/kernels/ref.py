@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
 These are the correctness references, written for clarity: dense masked
-attention, grouped decode attention over a KV cache, and scatter-based
-packing.  A kernel wrapper runs its plain version for tensors on the CPU
+attention, grouped decode attention over a KV cache, scatter-based
+packing, and the Mamba2 and RWKV-6 scans (per-step recurrences, their
+one-token decode steps, and the chunked forms that the reference's serving
+path runs).  A kernel wrapper runs its plain version for tensors on the CPU
 (the CPU tests, which hold it against the JAX package); for a CUDA tensor it
 launches the kernel.  ``chip_smoke.py`` holds each kernel against its plain
 version on the card.
@@ -72,6 +74,145 @@ def decode_attention_ref(q, k, v, kv_len=None, *, scale=None, softcap=None,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrt,btgd->bgrd", p.to(q.dtype).float(), v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba2_ref(x, dt, a, b, c, d, *, return_final=False):
+    """Per-step recurrence, in fp32.  x [BH, S, dh]; dt [BH, S]; a, d [BH];
+    b, c [BH, S, ds].  Returns y [BH, S, dh] in x's dtype (and the final
+    state [BH, ds, dh] fp32)."""
+    bh, s, dh = x.shape
+    ds = b.shape[-1]
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b, c))
+    af, df = a.float(), d.float()
+    h = torch.zeros((bh, ds, dh), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        h, y = mamba2_decode_step(h, xf[:, t], dtf[:, t], af, bf[:, t],
+                                  cf[:, t], df)
+        ys.append(y)
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return (y, h) if return_final else y
+
+
+def mamba2_decode_step(h, xt, dtt, a, bt, ct, d):
+    """One step: returns (h_new, y_t).  h [BH, ds, dh]; xt [BH, dh];
+    dtt, a, d [BH]; bt, ct [BH, ds]."""
+    decay = torch.exp(dtt * a)[:, None, None]
+    h = decay * h + (dtt[:, None] * bt)[:, :, None] * xt[:, None, :]
+    y = torch.einsum("bs,bsd->bd", ct, h) + d[:, None] * xt
+    return h, y
+
+
+def mamba2_chunked(x, dt, a, b, c, d, *, chunk=64, return_final=False):
+    """Chunk-parallel SSD scan (the reference's ``mamba2_chunked_jnp``).
+    Shapes as :func:`mamba2_ref`."""
+    bh, s, dh = x.shape
+    ds = b.shape[-1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b, c))
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, pad))
+        dtf = torch.nn.functional.pad(dtf, (0, pad))
+        bf = torch.nn.functional.pad(bf, (0, 0, 0, pad))
+        cf = torch.nn.functional.pad(cf, (0, 0, 0, pad))
+    nc = xf.shape[1] // chunk
+    af = a.float()
+    ii = torch.arange(chunk, device=x.device)
+    tri = ii[:, None] >= ii[None, :]
+    h = torch.zeros((bh, ds, dh), dtype=torch.float32, device=x.device)
+    ys = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        xq, dtq, bq, cq = xf[:, sl], dtf[:, sl], bf[:, sl], cf[:, sl]
+        cum = torch.cumsum(dtq * af[:, None], dim=1)            # [bh, Q]
+        sqq = torch.einsum("bqs,bks->bqk", cq, bq)
+        decay = torch.where(tri[None], torch.exp(cum[:, :, None]
+                                                 - cum[:, None, :]), 0.0)
+        y = torch.einsum("bqk,bkd->bqd", sqq * decay * dtq[:, None, :], xq)
+        y = y + torch.exp(cum)[..., None] * torch.einsum("bqs,bsd->bqd",
+                                                         cq, h)
+        total = cum[:, -1]
+        w = torch.exp(total[:, None] - cum) * dtq
+        h = (torch.exp(total)[:, None, None] * h
+             + torch.einsum("bqs,bqd->bsd", bq * w[..., None], xq))
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :s]
+    y = (y + d.float()[:, None, None] * xf[:, :s]).to(x.dtype)
+    return (y, h) if return_final else y
+
+
+# ---------------------------------------------------------------------------
+# rwkv6
+# ---------------------------------------------------------------------------
+
+def rwkv6_ref(r, k, v, logw, u, *, return_final=False):
+    """Per-step recurrence, in fp32.  r, k, logw [BH, S, dk]; v [BH, S, dv];
+    u [BH, dk].  Returns y [BH, S, dv] in v's dtype (and the final state
+    [BH, dk, dv] fp32)."""
+    bh, s, dk = r.shape
+    dv = v.shape[-1]
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, logw))
+    uf = u.float()
+    state = torch.zeros((bh, dk, dv), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(s):
+        state, y = rwkv6_decode_step(state, rf[:, t], kf[:, t], vf[:, t],
+                                     wf[:, t], uf)
+        ys.append(y)
+    y = torch.stack(ys, dim=1).to(v.dtype)
+    return (y, state) if return_final else y
+
+
+def rwkv6_decode_step(state, rt, kt, vt, logwt, u):
+    """One step: returns (state_new, y_t).  state [BH, dk, dv]; rt, kt,
+    logwt, u [BH, dk]; vt [BH, dv]."""
+    y = torch.einsum("bk,bkv->bv", rt,
+                     state + (u * kt)[:, :, None] * vt[:, None, :])
+    state = (torch.exp(logwt)[:, :, None] * state
+             + kt[:, :, None] * vt[:, None, :])
+    return state, y
+
+
+def rwkv6_chunked(r, k, v, logw, u, *, chunk=32, return_final=False):
+    """Chunk-parallel RWKV-6 scan (the reference's ``rwkv6_chunked_jnp``,
+    including its r * exp(cum_prev), k * exp(-cum) factorisation).  Shapes
+    as :func:`rwkv6_ref`."""
+    bh, s, dk = r.shape
+    dv = v.shape[-1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, logw))
+    if pad:
+        rf, kf, vf, wf = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                          for t in (rf, kf, vf, wf))
+    nc = rf.shape[1] // chunk
+    uf = u.float()
+    ii = torch.arange(chunk, device=r.device)
+    lower = ii[:, None] > ii[None, :]
+    state = torch.zeros((bh, dk, dv), dtype=torch.float32, device=r.device)
+    ys = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        rq, kq, vq, wq = rf[:, sl], kf[:, sl], vf[:, sl], wf[:, sl]
+        cum = torch.cumsum(wq, dim=1)
+        r_s = rq * torch.exp(cum - wq)
+        k_s = kq * torch.exp(-cum)
+        att = torch.where(lower[None], torch.einsum("bqk,bsk->bqs", r_s, k_s),
+                          0.0)
+        bonus = torch.einsum("bqk,bqk->bq", rq * uf[:, None], kq)
+        y = torch.einsum("bqs,bsv->bqv", att, vq) + bonus[..., None] * vq
+        y = y + torch.einsum("bqk,bkv->bqv", r_s, state)
+        k_up = kq * torch.exp(cum[:, -1:] - cum)
+        state = (torch.exp(cum[:, -1])[..., None] * state
+                 + torch.einsum("bqk,bqv->bkv", k_up, vq))
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :s].to(v.dtype)
+    return (y, state) if return_final else y
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """Where the serving time goes on the card: a torch.profiler breakdown.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 4 \
-      --prompts 4 --prompt-len 512 --decode-steps 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch dbrx_132b --layers 4 --prompts 4 --prompt-len 512 --decode-steps 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch zamba2_7b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch rwkv6_7b
 
-Builds the DBRX-132B engine as ``launch.serve`` does (published widths,
-depth cut, random weights from seed 0) and warms it up.  Then, for one
+Builds the engine of ``--arch`` as ``launch.serve`` does (published widths,
+full depth unless ``--layers`` cuts it, random weights from seed 0) and
+warms it up.  Then, for one
 prefill and for ``--decode-steps`` decode rounds: the wall time per call
 without the profiler (host clock around work that ends in a synchronize),
 and under ``torch.profiler`` the summed device time of the kernels, the
@@ -72,7 +75,9 @@ def _timed(fn) -> tuple[object, float]:
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--arch", default="dbrx_132b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (DBRX-132B fits one card at 4)")
     ap.add_argument("--prompts", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--decode-steps", type=int, default=8)
@@ -82,7 +87,7 @@ def main(argv=None) -> list:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
 
-    cfg = serve_config("dbrx_132b", layers=args.layers, smoke=False)
+    cfg = serve_config(args.arch, layers=args.layers, smoke=False)
     max_new = args.decode_steps + 1
     engine = build_engine(cfg, device="cuda", max_new=max_new)
     prompts = make_prompts(cfg, args.prompts, args.prompt_len)

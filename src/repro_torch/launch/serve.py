@@ -1,10 +1,12 @@
 """Serving launcher: batched greedy generation with the port's ServeEngine.
 
-On the card, DBRX-132B at full width with its depth cut to 4 layers and
-random weights:
+On the card, with random weights: DBRX-132B at full width with its depth
+cut to 4 layers, and Zamba2-7B and RWKV6-7B whole:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \
       --layers 4 --prompts 4 --prompt-len 512 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b
 
 On the CPU, the reduced config through the kernels' plain versions:
 
@@ -63,7 +65,8 @@ def make_prompts(cfg: ModelConfig, prompts: int, prompt_len: int,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="dbrx_132b, zamba2_7b or rwkv6_7b")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths stay "
                          "the published ones)")

@@ -2,9 +2,9 @@
 
 Port of ``src/repro/models/moe.py`` for one rank (``pctx=None``): router ->
 top-k -> ``hierarchical_dispatch`` (three ``dispatch_pack`` launches) ->
-per-expert gated FFN -> ``hierarchical_combine`` (fp32 scatter-adds).  The
-expert products are batched matrix products outside any kernel of the
-reference, so they go to ``torch.bmm``.  The multi-rank path (a
+per-expert gated FFN -> ``hierarchical_combine`` (fp32 sums in a fixed
+order).  The expert products are batched matrix products outside any kernel
+of the reference, so they go to ``torch.bmm``.  The multi-rank path (a
 ``ParallelContext`` with pods and ep ranks) is a later slice.
 """
 

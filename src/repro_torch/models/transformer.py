@@ -24,8 +24,9 @@ def _dims(cfg: ModelConfig) -> L.AttnDims:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The features of the dense/moe families this slice implements."""
-    if cfg.family not in ("dense", "moe"):
+    """The families the port serves (dense, moe, hybrid, rwkv) and the
+    features of them it implements."""
+    if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     missing = [name for name, on in (
         ("post_norm", cfg.post_norm),

@@ -150,7 +150,10 @@ def test_unported_families_raise():
     import dataclasses
     cfg = get_config("dbrx_132b").reduced()
     with pytest.raises(NotImplementedError, match="family"):
-        build_model(dataclasses.replace(cfg, family="rwkv"), device="cpu")
+        build_model(dataclasses.replace(cfg, family="encdec"), device="cpu")
+    with pytest.raises(NotImplementedError, match="input_mode=embeddings"):
+        build_model(dataclasses.replace(cfg, input_mode="embeddings"),
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="post_norm"):
         build_model(dataclasses.replace(cfg, post_norm=True), device="cpu")
     with pytest.raises(ValueError, match="no config"):
