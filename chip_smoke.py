@@ -7,13 +7,16 @@ Phases; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (no CUDA device is an error);
 2. build: compile every kernel under ``src/repro_torch/kernels/csrc``, one
-   ``nvcc`` each, all started together;
+   ``nvcc`` each, all started together; print ptxas's registers and
+   spills, and count the wgmma/TMA (flash attention) and tensor-core
+   (mamba2) instructions in the SASS where the toolkit has ``cuobjdump``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it plus edge cases, with its time, the
-   plain version's time, the least time the card could take (bound) and a
-   library yardstick where one PyTorch call computes the same function;
-   and the DBRX prefill combine run twice on the same inputs, which must be
-   bit-identical;
+   the shapes the main paths give it plus edge cases (tile edges), with its
+   device time (20 calls captured in one CUDA graph), its host issue time
+   per call, the plain version's time, the least time the card could take
+   (bound) and a library yardstick timed the same way where one PyTorch
+   call computes the same function; and the DBRX prefill combine run twice
+   on the same inputs, which must be bit-identical;
 4. reference: small models in bf16 on the card (kernels) against the same
    weights in fp32 on the CPU (plain versions): DBRX-shaped with every
    expert active and routed top-2 of 8 with overflow, then Zamba2-shaped
@@ -54,6 +57,9 @@ REF_TOL = 5e-2                          # of max |logit|, bf16 vs fp32 model
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean wall of ``iters`` calls issued back to back, between CUDA
+    events: device time while the device is the slower side, host issue
+    time once the calls are shorter than their issue."""
     import torch
     for _ in range(warmup):
         fn()
@@ -66,6 +72,74 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph
+    and replayed, so no host work sits between the kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Host issue time per call: the host clock over ``iters`` calls
+    without waiting for the device (launches queue up behind each other)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+# instructions each redesigned kernel's SASS must hold: (all of, any of)
+SASS_WANTS = {
+    "flash_attention": (("HGMMA", "UTMALDG"), ()),
+    "mamba2_scan": ((), ("HMMA", "HGMMA")),
+}
+
+
+def sass_phase() -> None:
+    """Count the tensor-core and TMA instructions in the built libraries
+    with ``cuobjdump -sass``; says "not checked" where the toolkit has no
+    ``cuobjdump``, and fails where an instruction is missing."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name, (every, some) in SASS_WANTS.items():
+        if not Path(tool).exists():
+            print(f"  {name} SASS: not checked (no cuobjdump)")
+            continue
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        counts = {op: sass.count(op) for op in every + some}
+        print(f"  {name} SASS: {counts}")
+        if not all(counts[op] for op in every) or (
+                some and not any(counts[op] for op in some)):
+            raise AssertionError(f"{name}: SASS lacks {every or some}")
 
 
 def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
@@ -164,13 +238,16 @@ def kernel_phase() -> dict:
         _, idx = ref.pack_ref(*args, d, c)
         rows_read = torch.unique(idx[idx >= 0]).numel()
         nbytes = n * 5 + rows_read * h * esize + d * c * (h * esize + 4)
-        ms = time_ms(lambda: ops.dispatch_pack(*args, num_dests=d,
-                                               capacity=c))
+        def call():
+            return ops.dispatch_pack(*args, num_dests=d, capacity=c)
+        ms = device_ms(call)
+        issue = host_ms(call)
         plain = time_ms(lambda: ref.pack_ref(*args, d, c))
         bnd, _ = bound_ms(nbytes)
-        print(f"  dispatch_pack {label} time: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {bnd:.4f} ms ({rows_read} rows read, "
-              f"{nbytes / 1e6:.3f} MB)")
+        print(f"  dispatch_pack {label} time (device): kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({rows_read} rows "
+              f"read, {nbytes / 1e6:.3f} MB)")
+        print(f"  dispatch_pack {label} host issue per call: {issue:.4f} ms")
         if label.startswith("stage"):    # the kernels line: one prefill layer
             pk["ms"] += ms
             pk["plain_ms"] += plain
@@ -195,6 +272,11 @@ def kernel_phase() -> dict:
         ("noncausal", (1, 2, 2, 130, 130, 64), False, None, None),
         ("causal-ragged", (2, 4, 2, 200, 200, 128), True, None, None),
         ("all-masks", (1, 4, 2, 96, 160, 128), True, 48, 20.0),
+        # edges of the 128-row q and kv tiles
+        ("ragged-112", (2, 8, 2, 300, 300, 112), True, None, None),
+        ("cross-112-g1", (2, 4, 1, 77, 333, 112), False, None, None),
+        ("q-short", (1, 4, 4, 129, 257, 64), False, None, None),
+        ("window-long", (1, 4, 2, 700, 700, 128), True, 150, None),
     ]
     attn_err = 0.0
     for i, (label, shape, causal, window, softcap) in enumerate(attn_cases):
@@ -212,18 +294,22 @@ def kernel_phase() -> dict:
             failures.append(f"flash_attention {label}")
         if label in ("dbrx", "zamba2"):
             b, hq, g, sq, t, d = shape
-            ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+            ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw))
             plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
                             iters=5)
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))
+            issue = host_ms(lambda: ops.flash_attention(q, k, v, **kw))
             nbytes = 2 * (2 * b * hq * sq * d + 2 * b * g * t * d)
             flops = 4 * b * hq * d * (sq * (sq + 1) // 2)   # causal pairs
             bnd, by = bound_ms(nbytes, flops)
-            print(f"  flash_attention {label} time: kernel {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms, scaled_dot_product_attention "
-                  f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            print(f"  flash_attention {label} time (device, CUDA graph of "
+                  f"20 calls): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"scaled_dot_product_attention {lib:.4f} ms, bound "
+                  f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP); kernel/sdpa {ms / lib:.2f}")
+            print(f"  flash_attention {label} host issue per call: "
+                  f"{issue:.4f} ms")
             if label == "dbrx":       # the kernels line: DBRX's shape
                 attn_err = err
                 fa_ms, fa_plain, fa_lib, fa_bound, fa_by = \
@@ -339,7 +425,12 @@ def scan_phase() -> dict:
     for label, (batch, heads, s, groups) in (
             ("zamba2", (4, 112, 512, "shared")),
             ("ragged", (4, 112, 500, "shared")),
-            ("per-head", (2, 16, 300, "per-head"))):
+            ("per-head", (2, 16, 300, "per-head")),
+            # edges of the 64-step chunk, and heads that do not pair up
+            ("s1", (2, 4, 1, "shared")),
+            ("s63", (2, 4, 63, "shared")),
+            ("s65", (2, 3, 65, "per-head")),
+            ("odd-heads", (2, 3, 130, "shared"))):
         args = scan_inputs_mamba2(batch, heads, s, groups, seed=20)
         x, dt, a, b, c, d = args
         n = x.shape[0]
@@ -350,7 +441,8 @@ def scan_phase() -> dict:
                           ops.mamba2_scan(*args), exp)
         if label != "zamba2":
             continue
-        ms = time_ms(lambda: ops.mamba2_scan(*args))
+        ms = device_ms(lambda: ops.mamba2_scan(*args))
+        issue = host_ms(lambda: ops.mamba2_scan(*args))
         plain = time_ms(lambda: mamba2_scan_plain(*args), iters=5)
         dh, ds = x.shape[-1], b.shape[-1]
         nbytes = (x.numel() * 2 * 2 + dt.numel() * 4 + (a.numel() + d.numel())
@@ -359,9 +451,10 @@ def scan_phase() -> dict:
         tri = MQ * (MQ + 1) // 2        # causal pairs of a chunk
         flops = 2 * n * chunks * (tri * ds + tri * dh + 2 * MQ * ds * dh)
         bnd, by = bound_ms(nbytes, flops)
-        print(f"  mamba2_scan zamba2 time: kernel {ms:.4f} ms, plain "
-              f"(chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
+        print(f"  mamba2_scan zamba2 time (device): kernel {ms:.4f} ms, "
+              f"plain (chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        print(f"  mamba2_scan zamba2 host issue per call: {issue:.4f} ms")
         rows["mamba2_scan"] = dict(
             name="mamba2_scan", route="cuda",
             source="src/repro_torch/kernels/csrc/mamba2_scan.cu",
@@ -381,7 +474,8 @@ def scan_phase() -> dict:
                           ops.rwkv6_scan(*args), exp)
         if label != "rwkv6":
             continue
-        ms = time_ms(lambda: ops.rwkv6_scan(*args))
+        ms = device_ms(lambda: ops.rwkv6_scan(*args))
+        issue = host_ms(lambda: ops.rwkv6_scan(*args))
         plain = time_ms(lambda: rwkv6_scan_plain(*args), iters=5)
         n, _, dk = r.shape
         dv = v.shape[-1]
@@ -392,9 +486,10 @@ def scan_phase() -> dict:
         flops = 2 * n * chunks * (low * dk + RQ * dk + (low + RQ) * dv
                                   + 2 * RQ * dk * dv)
         bnd, by = bound_ms(nbytes, flops)
-        print(f"  rwkv6_scan rwkv6 time: kernel {ms:.4f} ms, plain "
-              f"(chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
+        print(f"  rwkv6_scan rwkv6 time (device): kernel {ms:.4f} ms, "
+              f"plain (chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        print(f"  rwkv6_scan rwkv6 host issue per call: {issue:.4f} ms")
         rows["rwkv6_scan"] = dict(
             name="rwkv6_scan", route="cuda",
             source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
@@ -749,6 +844,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    sass_phase()
 
     print("phase 3: kernels vs plain versions")
     rows = kernel_phase()

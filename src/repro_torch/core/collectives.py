@@ -33,11 +33,11 @@ _MULTI_RANK = ("all_to_all transport across {} ranks is the multi-rank "
 def route_topk(logits: torch.Tensor, k: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k gating.  Returns (gates [.., k] fp32 normalized, ids [.., k]
-    int32).  ``torch.topk`` promises no order among equal probabilities,
-    where ``lax.top_k`` takes the lower index first, so the parity tests
-    use distinct logits."""
+    int32).  Among equal probabilities the lower index comes first, as
+    ``lax.top_k`` orders them: a stable descending sort cut to k."""
     probs = torch.softmax(logits.float(), dim=-1)
-    gates, ids = torch.topk(probs, k, dim=-1)
+    gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, ids = gates[..., :k], ids[..., :k]
     gates = gates / gates.sum(dim=-1, keepdim=True)
     return gates, ids.to(torch.int32)
 

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use into a shared library with
 a plain C interface under ``build/kernels/`` at the root of the checkout,
-for ``sm_90a`` (Hopper).  The file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+for ``sm_90a`` (Hopper).  The file name carries a hash of the source, of
+every ``csrc`` header it includes (``#include "x.cuh"``, followed through
+headers) and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.
 :func:`build` starts one ``nvcc`` per missing library, all at once.
 
 There is no fallback: a missing compiler or a failed build raises.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,11 +39,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, transitively."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / inc.decode()
+            if header not in found:
+                found.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> list[str]:

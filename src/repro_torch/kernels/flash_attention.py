@@ -1,4 +1,4 @@
-"""FlashAttention-2 prefill attention: the wrapper of
+"""FlashAttention prefill attention on wgmma and TMA: the wrapper of
 ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
@@ -8,19 +8,25 @@ block (``models/layers.py::attention``).
 What bounds it on an H100: at the DBRX prefill shape (q [4, 48, 512, 128],
 kv [4, 8, 512, 128], bf16, causal) the bytes of q, k, v and o (about 59 MB,
 17.5 us at 3.35 TB/s) and the causal half of the two products (12.9 GFLOP,
-13 us at 989 TFLOP/s bf16) are close, so the kernel must keep both the
-scores and the repeated kv heads out of device memory.
+13 us at 989 TFLOP/s bf16) are close, so the kernel must keep the scores
+and the repeated kv heads out of device memory, overlap its loads with its
+products and run the products at the wgmma rate.
 
-Design: one block per (batch, head, 64-row q tile) loops over 64-row kv
-tiles in shared memory; the running max, sum and accumulator stay in fp32
-registers; both products run on the tensor cores (``mma.sync``).  Grouped kv
-is read directly, so the reference's ``jnp.repeat`` of the kv heads is never
-materialised, and tiles wholly outside the causal or window mask are skipped.
+Design: one block per (batch, head, 128-row q tile); a producer warpgroup
+(one thread issues) keeps TMA loads of the next kv tile in flight (a two-stage ring in swizzled
+shared memory, on mbarriers) while two consumer warpgroups of 64 q rows
+run S = Q K^T and O += P V as ``wgmma`` (P from registers, V through the
+transpose bit) with the running max, sum and accumulator in fp32
+registers.  The heaviest causal q tiles launch first; tiles wholly outside
+a warpgroup's causal or window mask are skipped; grouped kv is read
+directly, so the reference's ``jnp.repeat`` of the kv heads is never
+materialised.
 
 Layout: q [B, H, S, D] and grouped k/v [B, G, T, D] (H = G * rep, query head
 h reads kv head h // rep), as ``layers.flash_attention_jnp`` of the
-reference takes them.  The kernel reads them through strides, so views of
-[B, S, H, D] buffers need no copy.
+reference takes them.  The kernel describes each to TMA through its strides
+(4-D tensor maps made on every call), so views of [B, S, H, D] buffers
+need no copy; the output is such a view.
 
 For tensors on the CPU the wrapper runs the plain version (dense fp32
 attention, :func:`repro_torch.kernels.ref.attention_ref`, over repeated kv

@@ -11,15 +11,20 @@ What bounds it on an H100: bytes.  At the Zamba2-7B prefill shape (x
 and B/C once and writes y and the final state, about 68 MB (0.020 ms at
 3.35 TB/s), against 7.5 GFLOP of chunk products.
 
-Design: one block per (batch, head) row loops over 64-step chunks and keeps
-the [ds, dh] state in shared memory; the chunk products run in fp32 on the
-CUDA cores with 4 x 4 register tiles; B and C are read per group, so the
-group shared by all heads is never repeated in memory (see the ``.cu``).
+Design: a block owns two heads of one sequence (one where the heads of a
+group do not pair up), one warpgroup each, and walks their 64-step chunks
+with the [ds, dh] states in shared memory; the two heads share each
+chunk's B/C loads, which arrive with ``cp.async`` into a double buffer
+while the previous chunk computes.  The four chunk products are ``wgmma``
+m64n64k16 on the tensor cores; the operands made in fp32 (decayed C B^T,
+weighted B, the state) enter as bf16 hi + lo pairs, so the result keeps
+fp32 accuracy up to the bf16 rounding of y (see the ``.cu``).  Two blocks
+per SM run Zamba2's 448 rows in one wave.
 
 For tensors on the CPU the wrapper runs the plain version (the chunked scan
 of :func:`repro_torch.kernels.ref.mamba2_chunked`); for CUDA tensors it
-launches the kernel (bf16 x/B/C, dh and ds up to 64), or raises.
-``mamba2_scan.launches`` counts kernel launches.
+launches the kernel (bf16 x/B/C, dh and ds multiples of 8 up to 64), or
+raises.  ``mamba2_scan.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -91,9 +96,9 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise TypeError(f"mamba2_scan: the kernel takes bf16 x/b/c and fp32 "
                         f"dt/a/d, got {x.dtype}, {b.dtype}, {c.dtype}, "
                         f"{dt.dtype}, {a.dtype}, {d.dtype}")
-    if dh > MAX_DIM or ds > MAX_DIM:
-        raise ValueError(f"mamba2_scan: dh {dh} and ds {ds} must be <= "
-                         f"{MAX_DIM}")
+    if not (dh <= MAX_DIM and ds <= MAX_DIM and dh % 8 == ds % 8 == 0):
+        raise ValueError(f"mamba2_scan: dh {dh} and ds {ds} must be "
+                         f"multiples of 8 up to {MAX_DIM}")
     if not all(t.is_contiguous() for t in (x, dt, a, b, c, d)):
         raise ValueError("mamba2_scan: inputs must be contiguous")
     y = torch.empty_like(x)

@@ -66,12 +66,35 @@ def test_attention_kernel_at_head_dim_112_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("groups", ["per-head", "shared"])
-def test_mamba2_kernel_matches_plain_on_card(groups):
+@pytest.mark.parametrize("hq,g,sq,sk,d,causal", [
+    (8, 2, 300, 300, 112, True),     # ragged last q and kv tiles
+    (4, 1, 77, 333, 112, False),     # one kv head for every q head
+    (4, 4, 129, 257, 64, False),     # one row / one key past a tile
+    (4, 2, 1, 1, 128, True),         # a single query and key
+])
+def test_attention_kernel_at_tile_edges_on_card(hq, g, sq, sk, d, causal):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((2, sq, hq, d), generator=gen, device="cuda")
+    k = torch.randn((2, sk, g, d), generator=gen, device="cuda")
+    v = torch.randn((2, sk, g, d), generator=gen, device="cuda")
+    q, k, v = (x.to(torch.bfloat16).transpose(1, 2) for x in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=causal).float()
+    exp = flash_attention_plain(q.float(), k.float(), v.float(),
+                                causal=causal)
+    torch.testing.assert_close(got, exp, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups,heads,s", [
+    ("per-head", 3, 100), ("shared", 3, 100),   # 2 chunks, ragged
+    ("shared", 4, 1), ("shared", 4, 63), ("per-head", 3, 65),
+])
+def test_mamba2_kernel_matches_plain_on_card(groups, heads, s):
     _need_cuda()
     from repro_torch.kernels.mamba2_scan import expand_groups
     gen = torch.Generator(device="cuda").manual_seed(3)
-    batch, heads, s = 2, 3, 100                    # 2 chunks, ragged
+    batch = 2
     rows = batch * heads
     g = rows if groups == "per-head" else batch
 

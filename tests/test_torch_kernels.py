@@ -178,11 +178,24 @@ def test_build_raises_without_a_compiler(monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-def test_library_names_follow_the_source():
+def test_library_names_follow_the_source(monkeypatch, tmp_path):
     a = _build.library_path("dispatch_pack")
     b = _build.library_path("flash_attention")
     assert a.parent == b.parent == _build.BUILD_DIR
     assert a.name.startswith("libdispatch_pack-") and a.suffix == ".so"
     assert a != b
     for name in _build.KERNELS:
-        assert (_build.CSRC / f"{name}.cu").is_file()
+        for path in _build.sources(name):
+            assert path.is_file()
+    # an edited header, even one included through another header, renames
+    # every library that includes it
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    (tmp_path / "other.cu").write_text("// no local header\n")
+    assert [p.name for p in _build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    before = _build.library_path("k"), _build.library_path("other")
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    after = _build.library_path("k"), _build.library_path("other")
+    assert before[0] != after[0] and before[1] == after[1]

@@ -57,6 +57,24 @@ def _dispatch_both(n, h, e, k, cf, seed):
     return rng, jout, tout
 
 
+@pytest.mark.parametrize("kind", ["zeros", "integers"])
+def test_route_topk_breaks_ties_as_reference(kind):
+    """Tied router logits: both packages take the lower expert index first
+    (``lax.top_k``'s order), so ids and gates agree exactly."""
+    if kind == "zeros":
+        logits = np.zeros((8, 16), np.float32)
+    else:
+        logits = np.random.default_rng(3).integers(
+            -2, 3, size=(64, 16)).astype(np.float32)
+    for k in (1, 2, 4):
+        jg, ji = jcl.route_topk(jnp.asarray(logits), k)
+        tg, ti = tcl.route_topk(torch.from_numpy(logits), k)
+        np.testing.assert_array_equal(_np(ti), np.asarray(ji))
+        np.testing.assert_allclose(_np(tg), np.asarray(jg), **TOL)
+    if kind == "zeros":
+        assert _np(ti)[0].tolist() == [0, 1, 2, 3]
+
+
 @pytest.mark.parametrize("n,h,e,k,cf", [
     (64, 16, 16, 4, 1.25),     # DBRX routing and capacity factor
     (64, 16, 16, 4, 0.5),      # drops at every stage
