@@ -9,9 +9,11 @@ Phases; any failure raises and the script exits non-zero:
 2. build: compile every kernel under ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` each, all started together; print ptxas's registers and
    spills, and count the wgmma/TMA (flash attention) and tensor-core
-   (mamba2) instructions in the SASS where the toolkit has ``cuobjdump``;
+   (both scans) instructions in the SASS where the toolkit has
+   ``cuobjdump``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it plus edge cases (tile edges), with its
+   the shapes the main paths give it plus edge cases (tile and chunk
+   edges, no decay and fast decay, one row, empty and full slots), with its
    device time (20 calls captured in one CUDA graph), its host issue time
    per call, the plain version's time, the least time the card could take
    (bound) and a library yardstick timed the same way where one PyTorch
@@ -99,24 +101,30 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def host_ms(fn, iters: int = 20) -> float:
-    """Host issue time per call: the host clock over ``iters`` calls
-    without waiting for the device (launches queue up behind each other)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) * 1e3 / iters
+def host_ms(fn) -> tuple[float, float]:
+    """Host issue time per call: the host clock over a run of calls without
+    waiting for the device (launches queue up behind each other).  Returns
+    the median of 7 runs of 40 calls (the host is shared and noisy), and
+    one run of 20 calls right after a warm call: the single figure this
+    script printed before it took medians, kept so that readings on both
+    footings can be compared."""
+    import statistics
+
+    from repro_torch.launch.host_issue import runs
+    single = runs(fn, 1, calls=20)[0]
+    return statistics.median(runs(fn, 7, calls=40)), single
+
+
+def issue_text(issue: tuple[float, float]) -> str:
+    return (f"{issue[0]:.4f} ms (median of 7 runs of 40 calls; one run of "
+            f"20 calls: {issue[1]:.4f} ms)")
 
 
 # instructions each redesigned kernel's SASS must hold: (all of, any of)
 SASS_WANTS = {
     "flash_attention": (("HGMMA", "UTMALDG"), ()),
     "mamba2_scan": ((), ("HMMA", "HGMMA")),
+    "rwkv6_scan": ((), ("HMMA", "HGMMA")),
 }
 
 
@@ -226,10 +234,18 @@ def kernel_phase() -> dict:
          31, 40),
         ("overflow", pack_inputs(4096, 128, 4, torch.float32, seed=5), 4, 100),
         ("odd-rows", pack_inputs(300, 6, 5, bf16, seed=6), 5, 70),
+        # one row; more slots than kept rows (an empty tail); one slot
+        # with many candidates; N not a multiple of the 2,048-row rank step
+        ("n1", pack_inputs(1, 64, 3, bf16, seed=11), 3, 4),
+        ("empty-tail", pack_inputs(50, 128, 2, bf16, seed=12), 2, 200),
+        ("capacity1", pack_inputs(3000, 64, 7, bf16, seed=13), 7, 1),
+        ("n2049", pack_inputs(2049, 64, 1, bf16, seed=15), 1, 2049),
+        ("n1500", pack_inputs(1500, 256, 9, torch.float32, seed=14), 9, 700),
     ]
     for label, args, d, c in stages + decode + edge:
         check_pack(failures, label, args, d, c)
-    pk = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    pk = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "decode_ms": [],
+          "decode_bound_ms": [], "decode_host_ms": []}
     for label, args, d, c in stages + decode:
         tokens = args[0]
         n, esize = tokens.shape[0], tokens.element_size()
@@ -247,11 +263,22 @@ def kernel_phase() -> dict:
         print(f"  dispatch_pack {label} time (device): kernel {ms:.4f} ms, "
               f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({rows_read} rows "
               f"read, {nbytes / 1e6:.3f} MB)")
-        print(f"  dispatch_pack {label} host issue per call: {issue:.4f} ms")
+        print(f"  dispatch_pack {label} host issue per call: "
+              f"{issue_text(issue)}")
         if label.startswith("stage"):    # the kernels line: one prefill layer
             pk["ms"] += ms
             pk["plain_ms"] += plain
             pk["bound_ms"] += bnd
+            # yardstick, not a port path: a device copy of the same bytes
+            src = torch.empty(nbytes // 4, dtype=torch.int16, device="cuda")
+            dst = torch.empty_like(src)
+            print(f"  dispatch_pack {label}: a device copy_ of the same "
+                  f"{nbytes / 1e6:.3f} MB moved takes "
+                  f"{device_ms(lambda: dst.copy_(src)):.4f} ms")
+        else:
+            pk["decode_ms"].append(ms)
+            pk["decode_bound_ms"].append(bnd)
+            pk["decode_host_ms"].append(issue[0])
 
     # attention: the DBRX prefill shape in the main path's layout (views of
     # [B, S, heads, D] buffers), then small shapes over the mask set
@@ -309,7 +336,7 @@ def kernel_phase() -> dict:
                   f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP); kernel/sdpa {ms / lib:.2f}")
             print(f"  flash_attention {label} host issue per call: "
-                  f"{issue:.4f} ms")
+                  f"{issue_text(issue)}")
             if label == "dbrx":       # the kernels line: DBRX's shape
                 attn_err = err
                 fa_ms, fa_plain, fa_lib, fa_bound, fa_by = \
@@ -323,7 +350,10 @@ def kernel_phase() -> dict:
             source="src/repro_torch/kernels/csrc/dispatch_pack.cu",
             replaces="src/repro/kernels/dispatch_pack.py:97",
             max_abs_err=0.0, ms=pk["ms"], plain_ms=pk["plain_ms"],
-            bound_ms=pk["bound_ms"], bound_by="bytes", library_ms=None),
+            bound_ms=pk["bound_ms"], bound_by="bytes", library_ms=None,
+            decode_ms=max(pk["decode_ms"]),
+            decode_bound_ms=max(pk["decode_bound_ms"]),
+            decode_host_ms=max(pk["decode_host_ms"])),
         "flash_attention": dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -386,6 +416,21 @@ def scan_inputs_rwkv6(batch, heads, s, seed):
     return r, k, v, logw, u
 
 
+def rwkv6_fast_decay_inputs(rows, s, seed):
+    """The card test's fast decays: logw = -exp(1.5 N(0, 1)), so a 32-step
+    chunk of logw sums far below fp32's exp range."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = (rn(rows, s, 64).to(torch.bfloat16) for _ in range(3))
+    logw = -torch.exp(rn(rows, s, 64) * 1.5)
+    return r, k, v, logw, rn(rows, 64) * 0.3
+
+
 def _check_scan(failures, name, label, got, exp) -> float:
     import torch
     (y, st), (ey, est) = got, exp
@@ -416,7 +461,7 @@ def scan_phase() -> dict:
     from repro_torch.kernels.mamba2_scan import (CHUNK as MQ,
                                                  expand_groups,
                                                  mamba2_scan_plain)
-    from repro_torch.kernels.rwkv6_scan import CHUNK as RQ, rwkv6_scan_plain
+    from repro_torch.kernels.rwkv6_scan import PLAIN_CHUNK, rwkv6_scan_plain
 
     failures: list = []
     rows = {}
@@ -454,20 +499,34 @@ def scan_phase() -> dict:
         print(f"  mamba2_scan zamba2 time (device): kernel {ms:.4f} ms, "
               f"plain (chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        print(f"  mamba2_scan zamba2 host issue per call: {issue:.4f} ms")
+        print(f"  mamba2_scan zamba2 host issue per call: {issue_text(issue)}")
         rows["mamba2_scan"] = dict(
             name="mamba2_scan", route="cuda",
             source="src/repro_torch/kernels/csrc/mamba2_scan.cu",
             replaces="src/repro/kernels/mamba2_scan.py:100",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
             bound_by=by, library_ms=None)
-    # RWKV6-7B prefill: 4 sequences x 64 heads of 64
-    for label, (batch, s) in (("rwkv6", (4, 512)), ("ragged", (4, 500))):
-        args = scan_inputs_rwkv6(batch, 64, s, seed=21)
+    # RWKV6-7B prefill: 4 sequences x 64 heads of 64; then the edges of the
+    # kernel's 64-step chunk and 16-step sub-chunks, no decay (logw = 0),
+    # and decays fast enough that one 32-step chunk of logw sums below -89
+    # (the reference's factorised chunked form overflows there)
+    for label, (batch, heads, s) in (
+            ("rwkv6", (4, 64, 512)), ("ragged", (4, 64, 500)),
+            ("s1", (2, 4, 1)), ("s15", (2, 4, 15)), ("s17", (2, 4, 17)),
+            ("s63", (2, 4, 63)), ("s65", (2, 4, 65)),
+            ("no-decay", (2, 4, 130)), ("fast-decay", (6, 1, 100))):
+        if label == "fast-decay":
+            args = rwkv6_fast_decay_inputs(batch, s, seed=4)
+        else:
+            args = scan_inputs_rwkv6(batch, heads, s, seed=21)
+        if label == "no-decay":
+            args[3].zero_()
         r, k, v, logw, u = args
-        chunk_sum = logw[:, :RQ].sum(dim=1).min().item()
+        chunk_sum = logw[:, :PLAIN_CHUNK].sum(dim=1).min().item()
         print(f"  rwkv6_scan {label}: most negative first-chunk sum of "
               f"logw {chunk_sum:.2f}")
+        if label == "fast-decay" and not chunk_sum < -89.0:
+            raise AssertionError("rwkv6_scan fast-decay: decays too slow")
         exp = ref.rwkv6_ref(r.float(), k.float(), v.float(), logw, u,
                             return_final=True)
         err = _check_scan(failures, "rwkv6_scan", label,
@@ -481,15 +540,27 @@ def scan_phase() -> dict:
         dv = v.shape[-1]
         nbytes = ((r.numel() + k.numel() + v.numel()) * 2 + logw.numel() * 4
                   + u.numel() * 4 + v.numel() * 2 + n * dk * dv * 4)
-        chunks = -(-s // RQ)
-        low = RQ * (RQ - 1) // 2        # strictly-lower pairs of a chunk
-        flops = 2 * n * chunks * (low * dk + RQ * dk + (low + RQ) * dv
-                                  + 2 * RQ * dk * dv)
+        # the work of the chunked form at the reference's chunk of 32,
+        # whatever tile the kernel takes
+        q = PLAIN_CHUNK
+        chunks = -(-s // q)
+        low = q * (q - 1) // 2          # strictly-lower pairs of a chunk
+        flops = 2 * n * chunks * (low * dk + q * dk + (low + q) * dv
+                                  + 2 * q * dk * dv)
         bnd, by = bound_ms(nbytes, flops)
         print(f"  rwkv6_scan rwkv6 time (device): kernel {ms:.4f} ms, "
               f"plain (chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        print(f"  rwkv6_scan rwkv6 host issue per call: {issue:.4f} ms")
+        print(f"  rwkv6_scan rwkv6 host issue per call: {issue_text(issue)}")
+        # one block (one row) an SM, then two, as the serving shape's 256
+        # rows run: twice the time means the second block found no idle
+        # issue slots, so more warps an SM would not help
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        occ = [device_ms(lambda a=scan_inputs_rwkv6(1, m * sms, 512, seed=22):
+                         ops.rwkv6_scan(*a)) for m in (1, 2)]
+        print(f"  rwkv6_scan occupancy: {sms} rows (one block an SM) "
+              f"{occ[0]:.4f} ms, {2 * sms} rows (two an SM) {occ[1]:.4f} ms,"
+              f" ratio {occ[1] / occ[0]:.3f}")
         rows["rwkv6_scan"] = dict(
             name="rwkv6_scan", route="cuda",
             source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",

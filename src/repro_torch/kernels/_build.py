@@ -14,12 +14,15 @@ There is no fallback: a missing compiler or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 KERNELS = ("dispatch_pack", "flash_attention", "mamba2_scan",
            "rwkv6_scan")
@@ -108,3 +111,20 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code}: "
                            f"{lib.error_string(code).decode()}")
+
+
+def stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a launch.
+
+    Every wrapper launches through this one lookup.  It reads the handle as
+    PyTorch's own compiled launchers do (Inductor's ``get_raw_stream``),
+    without building the Python ``Stream`` object that
+    ``torch.cuda.current_stream(...).cuda_stream`` makes on every call.
+    """
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -73,8 +73,6 @@ namespace {
 
 using namespace sm90;
 
-
-
 constexpr int kQ = 64;             // chunk length
 constexpr int kMaxD = 64;          // dh, ds <= 64, multiples of 8
 constexpr int kTile = kQ * 64;     // bf16 elements of one 64 x 64 tile
@@ -92,13 +90,6 @@ struct Params {
   int seq, dh, ds, heads_per_group;
 };
 
-// element offset of (r, col) in a 64 x 64 tile: 16-byte chunks of each
-// 128-byte row XOR-swizzled by the row, so 8 rows at one column hit 8
-// distinct bank groups
-__device__ __forceinline__ int swz(int r, int col) {
-  return r * 64 + ((((col >> 3) ^ r) & 7) << 3) + (col & 7);
-}
-
 template <int HPB>
 struct Smem {
   // [2 buffers] x (B tile, C tile, HPB x tiles); [HPB] h hi; [HPB] h lo;
@@ -107,31 +98,6 @@ struct Smem {
   static constexpr int kTiles = 2 * kBufTiles + 2 * HPB;
   static constexpr int kBytes = kTiles * kTile * 2 + 2 * 2 * HPB * kQ * 4 + 1024;
 };
-
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16x2(v0 - hf.x, v1 - hf.y);
-}
-
-// v[t] of lane tig holds columns 8t + 2tig, +1 of a row; afterwards v[k] of
-// lane tig holds columns 8tig + 2k, +1: the 4 x 4 transpose of 32-bit pairs
-// over the 4 lanes of the row
-__device__ __forceinline__ void transpose_quad(uint32_t (&v)[4], int tig) {
-  const bool odd = tig & 1;
-  uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
-  uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
-  if (odd) { v[0] = r0; v[2] = r1; } else { v[1] = r0; v[3] = r1; }
-  const bool upper = tig & 2;
-  r0 = __shfl_xor_sync(0xffffffffu, upper ? v[0] : v[2], 2);
-  r1 = __shfl_xor_sync(0xffffffffu, upper ? v[1] : v[3], 2);
-  if (upper) { v[0] = r0; v[1] = r1; } else { v[2] = r0; v[3] = r1; }
-}
-
-__device__ __forceinline__ float2 unpack2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
 
 template <int HPB>
 __global__ void __launch_bounds__(128 * HPB, 2)

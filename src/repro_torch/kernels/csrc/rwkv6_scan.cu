@@ -7,34 +7,64 @@
 //
 //   y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T),   S_t = diag(w_t) S_{t-1} + k_t v_t^T
 //
-// evaluated chunk by chunk (Q = 32 steps): with cum the inclusive cumsum of
-// logw inside the chunk and cp = cum - logw,
+// evaluated chunk by chunk (Q = 64 steps): with cum the inclusive cumsum of
+// logw inside the chunk and cp = cum - logw (the exclusive one),
 //
-//   y_i = sum_{j<i} (sum_c r_ic k_jc exp(cp_ic - cum_jc)) v_j
-//         + (sum_c r_ic u_c k_ic) v_i + (r_i * exp(cp_i))^T S_prev
+//   y_i = sum_{j<i} A_ij v_j + (sum_c r_ic u_c k_ic) v_i + (r_i * exp(cp_i))^T S_prev
+//   A_ij = sum_c r_ic k_jc exp(cp_ic - cum_jc)
 //   S   = diag(exp(cum_Q)) S_prev + sum_j (k_j * exp(cum_Q - cum_j)) v_j^T
 //
-// The TPU kernel factorises the intra-chunk term as (r exp(cp)) (k exp(-cum))^T
-// and masks the product afterwards.  Its k exp(-cum) grows as e^{-cum}: at
-// RWKV6-7B's width one chunk's log-decays already sum to about -72, near
-// fp32's e^88.7 limit, and faster decays overflow.  This kernel never forms
-// a positive exponent: each pair j < i takes exp(cp_i - cum_j) <= 0 per
-// channel, and the state terms use exp(cp_i) and exp(cum_Q - cum_j), both
-// <= 1.  The price is one exp per (i, j, channel) of the lower triangle,
-// 32 x 31 / 2 x 64 per chunk.
+// The TPU kernel factorises A as (r exp(cp)) (k exp(-cum))^T; its
+// k exp(-cum) grows as e^{-cum}, which at RWKV6-7B's decays (chunk sums of
+// logw near -70 per 32 steps, far lower at 64) overflows fp32.  This kernel
+// never forms a positive exponent.  Sub-chunk reference points: the chunk
+// is cut into 4 sub-chunks of L = 16 rows, one per warp.  For sub-chunk a
+// with ref_a = cum at the step before its first row, and every column j
+// before it,
 //
-// On the TPU the chunk axis is the inner, sequential grid axis and S lives
-// in VMEM scratch.  Here one block of 256 threads owns one (batch, head)
-// row and loops over the chunks; S stays in shared memory and is written
-// out once at the end (the prefill's decode state).  The per-channel
-// cumulative log-decays come from warp shuffle scans (lane = step).
+//   A[i in a, j < 16a] = r^_i . k^_j,  r^_i = r_i exp(cp_i - ref_a),  k^_j = k_j exp(ref_a - cum_j)
 //
-// What bounds it on an H100: at the RWKV6-7B prefill shape (256 rows of 512
-// steps, dk = dv = 64) the bytes are r, k, v (bf16, 50 MB), logw (fp32,
-// 34 MB), y and the final state, about 105 MB or 0.031 ms at 3.35 TB/s; the
-// products are about 3 GFLOP.  This first version computes them in fp32 on
-// the CUDA cores from padded shared-memory tiles (pitch 65 floats); wgmma,
-// TMA and a cheaper safe factorisation are later work.
+// with both exponents <= 0: where one factor underflows, the true weight
+// exp(cp_i - cum_j) is smaller still.  Inside each diagonal 16 x 16 block
+// the same holds one level down: its rows 8..15 against its columns 0..7
+// factorise around the cum of its 8th row.  Only the 8 triangles of 8
+// steps left on the diagonal take one exp per (i, j, channel), 8 x 28 x 64
+// a chunk of 64 steps, spread over the lanes, more to the warps that form
+// fewer off-diagonal scores (the old kernel took 63,488 exps per 64 steps,
+// on an uneven triangle).  All exps are 2^x on the special-function unit, the
+// log-decays kept in log2 units.
+//
+// What bounds it on an H100: bytes.  At the RWKV6-7B prefill shape (256
+// rows of 512 steps, dk = dv = 64) it reads r, k, v (bf16, 50 MB) and logw
+// (fp32, 34 MB) and writes y and the final state, about 105 MB or 0.031 ms
+// at 3.35 TB/s, against about 3 GFLOP.  The chunk-to-chunk chain of a head
+// is serial, so what sets the time is what each chunk step issues.  The
+// design:
+//
+//   * Tensor cores.  One warpgroup owns one head (one block of 128
+//     threads).  Warp a forms its sub-chunk's off-diagonal scores r^ k^T
+//     with mma.sync m16n8k16 (k^ differs per sub-chunk, so it cannot be one
+//     wgmma B operand); the scores never leave registers and, with the
+//     diagonal block and the bonus u on its diagonal, become the register A
+//     operand of the wgmma m64n64k16 products A v, as P does in flash
+//     attention.  r~ S_prev (r~ = r exp(cp)) and the state update
+//     (k exp(cum_Q - cum))^T v are wgmma m64n64k16 too.  Operands made in
+//     fp32 (r^, k^, A, r~, the decayed k and the state) enter as split
+//     pairs hi + lo of bf16, two or three products each, which keeps them
+//     to about 2^-16 of their value; r, k and v are bf16 and exact.
+//   * Loads.  Each chunk's r, k, v tiles (64 x 64 bf16, 128-byte rows,
+//     XOR-swizzled as wgmma's 128-byte layout expects) and logw tile (fp32,
+//     rows padded to 68 floats so that 8 rows at one column hit 8 bank
+//     groups) arrive with 16-byte cp.async into a double buffer while the
+//     block computes on the previous chunk.
+//   * Stores.  y leaves in 16-byte stores (a 4 x 4 transpose over the 4
+//     lanes of each accumulator row); the state is kept in shared memory
+//     as a hi + lo pair of bf16 tiles, the wgmma B operand, and written out
+//     once in fp32 at the end (the prefill's decode state).
+//   * Parallelism.  About 104 KB of shared memory puts two blocks on each
+//     SM, so RWKV6's 256 rows run in one wave.  Four block barriers per
+//     chunk: after the chunk lands, after its cumsum, after the diagonal
+//     blocks, before the state is rewritten.
 //
 // Ragged tail: steps past S load as r = k = v = 0 and logw = 0, so they
 // leave the state unchanged and their y rows are not written.
@@ -44,14 +74,31 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kQ = 32;        // chunk length (one warp lane per step)
-constexpr int kMaxD = 64;     // dk, dv <= 64
-constexpr int kPitch = kMaxD + 1;
-constexpr int kAttPitch = kQ + 1;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace sm90;
+
+constexpr int kQ = 64;                     // chunk length
+constexpr int kL = 16;                     // sub-chunk length: one warp's rows
+constexpr int kMaxD = 64;                  // dk, dv: multiples of 8 up to 64
+constexpr int kTile = kQ * 64;             // bf16 elements of one 64 x 64 tile
+constexpr int kWP = 68;                    // fp32 pitch of the log-decay tile
+constexpr int kDP = kL + 1;                // fp32 pitch of a diagonal block
+constexpr int kTri = 8 * 7 / 2;            // strictly-lower pairs of an 8-step triangle
+constexpr int kPairs = 4 * 2 * kTri;       // the triangles of the 4 diagonal blocks
+constexpr int kMaxRounds = 2;              // rounds of 32 pairs a warp, at most
+constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// [2 buffers] x (r, k, v) tiles and the state's hi and lo tiles (bf16), then
+// fp32 [2 buffers][kQ][kWP] log-decays, [4 warps][kL][kDP] diagonal blocks
+// and [kMaxD] bonus
+constexpr int kBf16Tiles = 2 * 3 + 2;
+constexpr int kLogwFloats = kQ * kWP;
+constexpr int kSmemBytes =
+    kBf16Tiles * kTile * 2 + (2 * kLogwFloats + 4 * kL * kDP + kMaxD) * 4 + 1024;
 
 struct Params {
   const __nv_bfloat16* r;   // [BH, S, dk]
@@ -64,198 +111,431 @@ struct Params {
   int seq, dk, dv;
 };
 
-constexpr int kSmemFloats =
-    5 * kQ * kPitch + kQ * kAttPitch + kMaxD * kPitch + kMaxD;
+// 8 bf16 of a 16-byte word as floats
+__device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 t = unpack2(words[q]);
+    f[2 * q] = t.x;
+    f[2 * q + 1] = t.y;
+  }
+}
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 rwkv6_scan_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* Rs = smem;                 // [Q][pitch] r, then r * exp(cp)
-  float* Ks = Rs + kQ * kPitch;     // [Q][pitch] k, then k * exp(cum_Q - cum)
-  float* Vs = Ks + kQ * kPitch;     // [Q][pitch] v
-  float* Cm = Vs + kQ * kPitch;     // [Q][pitch] logw, then cum
-  float* Cp = Cm + kQ * kPitch;     // [Q][pitch] cum - logw
-  float* Att = Cp + kQ * kPitch;    // [Q][Q + 1] intra-chunk weights
-  float* Ss = Att + kQ * kAttPitch; // [dk][pitch] running state
-  float* Us = Ss + kMaxD * kPitch;  // [dk] bonus
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // wgmma reads the tiles through 128-byte-swizzle descriptors: 1024-aligned
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
+  float* wbuf = reinterpret_cast<float*>(tiles + kBf16Tiles * kTile);
+  float* diag_all = wbuf + 2 * kLogwFloats;
+  float* us = diag_all + 4 * kL * kDP;
 
-  const int row = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long base_k = (long long)row * p.seq * p.dk;
-  const long long base_v = (long long)row * p.seq * p.dv;
-  const __nv_bfloat16* rb = p.r + base_k;
-  const __nv_bfloat16* kb = p.k + base_k;
-  const __nv_bfloat16* vb = p.v + base_v;
-  const float* wb = p.logw + base_k;
-  __nv_bfloat16* yb = p.y + base_v;
+  const int w = tid / 32;         // sub-chunk rows 16w..16w+15, state rows too
+  const int lane = tid % 32;
+  const int gid = lane / 4;
+  const int tig = lane % 4;
+  const int row = blockIdx.x;
+  const int S = p.seq;
+  const int n_chunks = (S + kQ - 1) / kQ;
+  const long long base_k = (long long)row * S * p.dk;
+  const long long base_v = (long long)row * S * p.dv;
 
-  for (int e = tid; e < kMaxD * kPitch; e += kThreads) Ss[e] = 0.f;
+  auto tile = [&](int buf, int t) { return tiles + (buf * 3 + t) * kTile; };
+  __nv_bfloat16* Shi = tiles + 6 * kTile;
+  __nv_bfloat16* Slo = tiles + 7 * kTile;
+  float* diag = diag_all + w * kL * kDP;
+
+  // one chunk's r, k, v and logw into buffer `buf`, 16 bytes a copy,
+  // zero-filled past S and past dk / dv
+  auto issue = [&](int chunk, int buf) {
+    const int t0 = chunk * kQ;
+    for (int e = tid; e < 3 * kQ * 8; e += kThreads) {
+      const int t = e / (kQ * 8);
+      const int r = (e / 8) % kQ;
+      const int col = (e % 8) * 8;
+      const int width = t == 2 ? p.dv : p.dk;
+      const __nv_bfloat16* src =
+          (t == 0 ? p.r + base_k : t == 1 ? p.k + base_k : p.v + base_v) +
+          (long long)(t0 + r) * width + col;
+      const bool in = (t0 + r < S) && (col < width);
+      cp_async16(smem_addr(tile(buf, t) + swz(r, col)), in ? src : p.r, in ? 16 : 0);
+    }
+    float* wdst = wbuf + buf * kLogwFloats;
+    for (int e = tid; e < kQ * 16; e += kThreads) {
+      const int r = e / 16;
+      const int col = (e % 16) * 4;
+      const bool in = (t0 + r < S) && (col < p.dk);
+      const float* src = p.logw + base_k + (long long)(t0 + r) * p.dk + col;
+      cp_async16(smem_addr(wdst + r * kWP + col), in ? src : p.logw, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
   for (int c = tid; c < kMaxD; c += kThreads)
-    Us[c] = c < p.dk ? p.u[(long long)row * p.dk + c] : 0.f;
+    us[c] = c < p.dk ? p.u[(long long)row * p.dk + c] : 0.f;
+  issue(0, 0);
+  for (int e = tid; e < kTile; e += kThreads)   // S hi and lo: 2 x kTile bf16
+    reinterpret_cast<uint32_t*>(Shi)[e] = 0u;
 
-  for (int t0 = 0; t0 < p.seq; t0 += kQ) {
-    // ---- load the chunk (zeros past the end and past dk / dv) -----------
-    for (int e = tid; e < kQ * kMaxD; e += kThreads) {
-      const int t = e / kMaxD, col = e % kMaxD;
-      const bool in = t0 + t < p.seq;
-      float rv = 0.f, kv = 0.f, vv = 0.f, wv = 0.f;
-      if (in && col < p.dk) {
-        const long long off = (long long)(t0 + t) * p.dk + col;
-        rv = __bfloat162float(rb[off]);
-        kv = __bfloat162float(kb[off]);
-        wv = wb[off];
-      }
-      if (in && col < p.dv) vv = __bfloat162float(vb[(long long)(t0 + t) * p.dv + col]);
-      Rs[t * kPitch + col] = rv;
-      Ks[t * kPitch + col] = kv;
-      Vs[t * kPitch + col] = vv;
-      Cm[t * kPitch + col] = wv;
-    }
-    __syncthreads();
-
-    // ---- per-channel inclusive scan over the 32 steps: lane = step --------
-    for (int c = warp; c < p.dk; c += kWarps) {
-      const float w = Cm[lane * kPitch + c];
-      float incl = w;
+  // this lane's pairs (i > j, rows of the chunk) of the 8 triangles of 8
+  // steps on the diagonal, 224 pairs in 7 rounds of 32: two rounds each to
+  // warps 0-2, one to warp 3, which forms the most off-diagonal scores (the
+  // fastest split on the card, against 3-2-1-1, 3-2-2-0 and 3-3-1-0).
+  // pdst is the pair's place among the diagonal blocks, -1 for the lanes
+  // past the last pair (which repeat a valid pair and do not write).
+  const int r_begin = 2 * w;
+  const int n_rounds = w < 3 ? 2 : 1;
+  int pli[kMaxRounds], plj[kMaxRounds], pdst[kMaxRounds];
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += v;
+  for (int q = 0; q < kMaxRounds; ++q) {
+    const int g = 32 * (r_begin + q) + lane;
+    const bool valid = q < n_rounds && g < kPairs;
+    const int pr = valid ? g : 0;
+    const int blk = pr / (2 * kTri), tri = pr % (2 * kTri) / kTri, pt = pr % kTri;
+    int li = 1;
+    while ((li + 1) * li / 2 <= pt) ++li;
+    const int lj = pt - li * (li - 1) / 2;
+    pli[q] = kL * blk + 8 * tri + li;
+    plj[q] = kL * blk + 8 * tri + lj;
+    pdst[q] = valid ? blk * kL * kDP + (8 * tri + li) * kDP + 8 * tri + lj : -1;
+  }
+
+  const int i0 = kL * w + gid;     // this thread's chunk rows (y) and state rows (S)
+  const int i1 = i0 + 8;
+
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const int t0 = chunk * kQ;
+    const int buf = chunk & 1;
+    float* cum = wbuf + buf * kLogwFloats;
+    cp_async_wait<0>();
+    fence_proxy_async();   // the copies and the state writes, to wgmma's reads
+    __syncthreads();       // the chunk's tiles and the state are in place
+    if (chunk + 1 < n_chunks) issue(chunk + 1, buf ^ 1);
+    // log2-domain inclusive cumsum of logw over the 64 steps, in place, one
+    // channel a thread
+    if (tid < kMaxD) {
+      float acc = 0.f;
+#pragma unroll 16
+      for (int t = 0; t < kQ; ++t) {
+        acc = fmaf(cum[t * kWP + tid], kLog2e, acc);
+        cum[t * kWP + tid] = acc;
       }
-      Cm[lane * kPitch + c] = incl;
-      Cp[lane * kPitch + c] = incl - w;
     }
     __syncthreads();
 
-    // ---- Att[i][j] = sum_c r_ic k_jc exp(cp_ic - cum_jc), j < i;
-    //      Att[i][i] = sum_c r_ic u_c k_ic; zero above ---------------------
+    const __nv_bfloat16* R = tile(buf, 0);
+    const __nv_bfloat16* K = tile(buf, 1);
+    const __nv_bfloat16* V = tile(buf, 2);
+
+    // ---- the diagonal block: A[i][j], j < i inside this warp's sub-chunk.
+    //      Inside each half (8 steps) one exp per (i, j, channel), the pairs
+    //      of all four blocks spread over the warps and lanes; the quadrant of the second half's
+    //      rows against the first half's columns factorises around
+    //      ref' = cum at the block's 8th row (below, on mma.sync) ----
+#pragma unroll
+    for (int q = 0; q < kMaxRounds; ++q) {
+      if (q >= n_rounds) break;
+      const int i = pli[q], j = plj[q];
+      const float* ci = cum + (i - 1) * kWP;   // cp_i = cum_{i-1}
+      const float* cj = cum + j * kWP;
+      float acc = 0.f;
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        float rv[8], kv[8];
+        unpack8(*reinterpret_cast<const uint4*>(R + swz(i, 8 * g)), rv);
+        unpack8(*reinterpret_cast<const uint4*>(K + swz(j, 8 * g)), kv);
+        const float4 a0 = *reinterpret_cast<const float4*>(ci + 8 * g);
+        const float4 a1 = *reinterpret_cast<const float4*>(ci + 8 * g + 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(cj + 8 * g);
+        const float4 b1 = *reinterpret_cast<const float4*>(cj + 8 * g + 4);
+        const float dexp[8] = {a0.x - b0.x, a0.y - b0.y, a0.z - b0.z, a0.w - b0.w,
+                               a1.x - b1.x, a1.y - b1.y, a1.z - b1.z, a1.w - b1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(rv[e] * kv[e], fast_exp2(dexp[e]), acc);
+      }
+      if (pdst[q] >= 0) diag_all[pdst[q]] = acc;
+    }
+    // the bonus on the diagonal: sum_c r_ic u_c k_ic, half the channels a lane
     {
-      const int i = tid >> 3;          // 32 rows, 8 threads each
-      const int g = tid & 7;           // columns g, g + 8, g + 16, g + 24
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      float bonus = 0.f;
-      if (i > g) {                     // some column of this thread is < i
-        for (int c = 0; c < p.dk; ++c) {
-          const float rc = Rs[i * kPitch + c];
-          const float cpc = Cp[i * kPitch + c];
+      const int li = lane & 15, half = lane >> 4;
+      const int i = kL * w + li;
+      float acc = 0.f;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int j = g + 8 * q;
-            if (j < i)
-              acc[q] = fmaf(rc * Ks[j * kPitch + c],
-                            __expf(cpc - Cm[j * kPitch + c]), acc[q]);
+      for (int g = 0; g < 4; ++g) {
+        const int c = 32 * half + 8 * g;
+        float rv[8], kv[8];
+        unpack8(*reinterpret_cast<const uint4*>(R + swz(i, c)), rv);
+        unpack8(*reinterpret_cast<const uint4*>(K + swz(i, c)), kv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(rv[e] * us[c + e], kv[e], acc);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+      if (half == 0) diag[li * kDP + li] = acc;
+    }
+
+    // ---- the off-diagonal scores of this sub-chunk, r^ k^T over the
+    //      columns before it (n-tiles 0 .. 2w-1), on mma.sync ----
+    float off[6][4];
+#pragma unroll
+    for (int n = 0; n < 6; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) off[n][e] = 0.f;
+    if (w > 0) {
+      const float* ref = cum + (kL * w - 1) * kWP;
+      uint32_t rh[4][4], rl[4][4];   // r^ as mma.sync A fragments, k = channel
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (e & 1) ? i1 : i0;
+          const int c = 16 * kk + 2 * tig + ((e & 2) ? 8 : 0);
+          const float2 rv = unpack2(*reinterpret_cast<const uint32_t*>(R + swz(i, c)));
+          const float2 cp = *reinterpret_cast<const float2*>(cum + (i - 1) * kWP + c);
+          const float2 rf = *reinterpret_cast<const float2*>(ref + c);
+          split2(rv.x * fast_exp2(cp.x - rf.x), rv.y * fast_exp2(cp.y - rf.y),
+                 rh[kk][e], rl[kk][e]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 6; ++n) {
+        if (n < 2 * w) {
+          const int j = 8 * n + gid;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t bh[2], bl[2];
+#pragma unroll
+            for (int hc = 0; hc < 2; ++hc) {
+              const int c = 16 * kk + 2 * tig + 8 * hc;
+              const float2 kv = unpack2(*reinterpret_cast<const uint32_t*>(K + swz(j, c)));
+              const float2 cj = *reinterpret_cast<const float2*>(cum + j * kWP + c);
+              const float2 rf = *reinterpret_cast<const float2*>(ref + c);
+              split2(kv.x * fast_exp2(rf.x - cj.x), kv.y * fast_exp2(rf.y - cj.y),
+                     bh[hc], bl[hc]);
+            }
+            mma_m16n8k16(off[n], rh[kk], bh[0], bh[1]);
+            mma_m16n8k16(off[n], rh[kk], bl[0], bl[1]);
+            mma_m16n8k16(off[n], rl[kk], bh[0], bh[1]);
           }
         }
       }
-      if (g == (i & 7)) {              // the thread whose columns hold j = i
-        for (int c = 0; c < p.dk; ++c)
-          bonus = fmaf(Rs[i * kPitch + c] * Us[c], Ks[i * kPitch + c], bonus);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = g + 8 * q;
-        Att[i * kAttPitch + j] = j < i ? acc[q] : (j == i ? bonus : 0.f);
-      }
     }
-    __syncthreads();
-
-    // ---- r <- r * exp(cp); k <- k * exp(cum_Q - cum) (exponents <= 0) ----
-    for (int e = tid; e < kQ * p.dk; e += kThreads) {
-      const int t = e / p.dk, c = e % p.dk;
-      Rs[t * kPitch + c] *= __expf(Cp[t * kPitch + c]);
-      Ks[t * kPitch + c] *= __expf(Cm[(kQ - 1) * kPitch + c] - Cm[t * kPitch + c]);
-    }
-    __syncthreads();
-
-    // ---- y = Att v + (r exp(cp)) S_prev ----------------------------------
+    // the quadrant: rows 8..15 (the A operand's upper rows, its lower rows
+    // zero) against columns 0..7 of this warp's block; its rows land in
+    // quad[2], quad[3], where n-tile 2w of A keeps them
+    float quad[4] = {0.f, 0.f, 0.f, 0.f};
     {
-      const int tx = lane;             // columns tx, tx + 32
-      const int ty = warp;             // rows ty + 8 m, m < 4
-      float acc[4][2] = {};
-      for (int j = 0; j < kQ; ++j) {
-        const float v0 = Vs[j * kPitch + tx], v1 = Vs[j * kPitch + tx + 32];
+      const float* refm = cum + (kL * w + 7) * kWP;
+      uint32_t qh[4][4], ql[4][4];
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const float a = Att[(ty + 8 * m) * kAttPitch + j];
-          acc[m][0] = fmaf(a, v0, acc[m][0]);
-          acc[m][1] = fmaf(a, v1, acc[m][1]);
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qh[kk][e] = ql[kk][e] = 0u;
+          if (e & 1) {
+            const int c = 16 * kk + 2 * tig + ((e & 2) ? 8 : 0);
+            const float2 rv = unpack2(*reinterpret_cast<const uint32_t*>(R + swz(i1, c)));
+            const float2 cp = *reinterpret_cast<const float2*>(cum + (i1 - 1) * kWP + c);
+            const float2 rf = *reinterpret_cast<const float2*>(refm + c);
+            split2(rv.x * fast_exp2(cp.x - rf.x), rv.y * fast_exp2(cp.y - rf.y),
+                   qh[kk][e], ql[kk][e]);
+          }
         }
       }
-      for (int c = 0; c < p.dk; ++c) {
-        const float s0 = Ss[c * kPitch + tx], s1 = Ss[c * kPitch + tx + 32];
+      const int j = kL * w + gid;
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const float rr = Rs[(ty + 8 * m) * kPitch + c];
-          acc[m][0] = fmaf(rr, s0, acc[m][0]);
-          acc[m][1] = fmaf(rr, s1, acc[m][1]);
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int hc = 0; hc < 2; ++hc) {
+          const int c = 16 * kk + 2 * tig + 8 * hc;
+          const float2 kv = unpack2(*reinterpret_cast<const uint32_t*>(K + swz(j, c)));
+          const float2 cj = *reinterpret_cast<const float2*>(cum + j * kWP + c);
+          const float2 rf = *reinterpret_cast<const float2*>(refm + c);
+          split2(kv.x * fast_exp2(rf.x - cj.x), kv.y * fast_exp2(rf.y - cj.y), bh[hc], bl[hc]);
         }
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int i = ty + 8 * m;
-        if (t0 + i >= p.seq) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int col = tx + 32 * h;
-          if (col < p.dv)
-            yb[(long long)(t0 + i) * p.dv + col] = __float2bfloat16(acc[m][h]);
-        }
+        mma_m16n8k16(quad, qh[kk], bh[0], bh[1]);
+        mma_m16n8k16(quad, qh[kk], bl[0], bl[1]);
+        mma_m16n8k16(quad, ql[kk], bh[0], bh[1]);
       }
     }
-    __syncthreads();  // every thread has read S_prev
+    __syncthreads();   // the diagonal blocks are in shared memory
 
-    // ---- S = diag(exp(cum_Q)) S_prev + sum_j k~_j v_j^T -------------------
+    // Three wgmma phases: A v, then r~ S_prev (its operands made while A v
+    // runs), then dS, each waited on before the next, so that few register
+    // fragments are live at a time (all of them live at once spilled, and
+    // ptxas then serialised the wgmma).
+    const uint32_t vs = smem_addr(V), shs = smem_addr(Shi), sls = smem_addr(Slo);
+
+    // ---- A (rows 16w.., all 64 columns) as hi + lo register A operands of
+    //      A v: k-step jj covers columns 16jj..16jj+15 ----
+    uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = 2 * jj + h;
+        float m[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int li = (e < 2) ? gid : gid + 8;
+          const int lj = 8 * h + 2 * tig + (e & 1);
+          m[e] = jj < w ? off[n < 6 ? n : 0][e]
+                 : jj != w || lj > li ? 0.f
+                 : h == 0 && e >= 2 ? quad[e] : diag[li * kDP + lj];
+        }
+        split2(m[0], m[1], ahi[jj][2 * h], alo[jj][2 * h]);
+        split2(m[2], m[3], ahi[jj][2 * h + 1], alo[jj][2 * h + 1]);
+      }
+    }
+    float y[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) y[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_sw128(vs + kk * 2048, 8192);
+      wgmma_rs_n64(y, ahi[kk], db);
+      wgmma_rs_n64(y, alo[kk], db);
+    }
+    wgmma_commit();
+
+    // ---- y += r~ S_prev, r~ = r exp(cp) as hi + lo register A operands,
+    //      k = channel ----
+    if (chunk > 0) {
+      uint32_t thi[4][4], tlo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (e & 1) ? i1 : i0;
+          const int c = 16 * kk + 2 * tig + ((e & 2) ? 8 : 0);
+          const float2 rv = unpack2(*reinterpret_cast<const uint32_t*>(R + swz(i, c)));
+          const float2 cp = i > 0 ? *reinterpret_cast<const float2*>(cum + (i - 1) * kWP + c)
+                                  : make_float2(0.f, 0.f);
+          split2(rv.x * fast_exp2(cp.x), rv.y * fast_exp2(cp.y), thi[kk][e], tlo[kk][e]);
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dh = desc_sw128(shs + kk * 2048, 8192);
+        const uint64_t dl = desc_sw128(sls + kk * 2048, 8192);
+        wgmma_rs_n64(y, thi[kk], dh);
+        wgmma_rs_n64(y, thi[kk], dl);
+        wgmma_rs_n64(y, tlo[kk], dh);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+    } else {
+      wgmma_wait_all();
+    }
+    fence_operands(y);
+
+    // ---- y packed to bf16; a 4 x 4 transpose over the 4 lanes of a row
+    //      gives each lane 8 consecutive columns, one 16-byte store ----
+    __nv_bfloat16* yb = p.y + base_v;
+#pragma unroll
+    for (int yh = 0; yh < 2; ++yh) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = half ? i1 : i0;
+        uint32_t v[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int n = 4 * yh + t;
+          v[t] = pack_bf16x2(y[4 * n + 2 * half], y[4 * n + 2 * half + 1]);
+        }
+        transpose_quad(v, tig);
+        const int col = 32 * yh + 8 * tig;
+        if (t0 + i < S && col < p.dv)
+          *reinterpret_cast<uint4*>(yb + (long long)(t0 + i) * p.dv + col) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+
+    // ---- dS = (k exp(cum_Q - cum))^T v: state rows c = i0, i1 as hi + lo
+    //      register A operands, k = step (ldmatrix.trans of the k tile) ----
+    const float q0 = cum[(kQ - 1) * kWP + i0];
+    const float q1 = cum[(kQ - 1) * kWP + i1];
+    float ds[32];
     {
-      const int tx = lane;             // columns tx, tx + 32
-      const int ty = warp;             // channels ty + 8 m, m < 8
-      float acc[8][2];
+      uint32_t khi[4][4], klo[4][4];
 #pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int c = ty + 8 * m;
-        const float decay = __expf(Cm[(kQ - 1) * kPitch + c]);
-        acc[m][0] = decay * Ss[c * kPitch + tx];
-        acc[m][1] = decay * Ss[c * kPitch + tx + 32];
-      }
-      for (int j = 0; j < kQ; ++j) {
-        const float v0 = Vs[j * kPitch + tx], v1 = Vs[j * kPitch + tx + 32];
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t kt[4];
+        ldmatrix_x4_trans(kt, smem_addr(K + swz(16 * kk + (lane & 7) + (lane >> 4) * 8,
+                                                kL * w + ((lane >> 3) & 1) * 8)));
 #pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          const float kk = Ks[j * kPitch + ty + 8 * m];
-          acc[m][0] = fmaf(kk, v0, acc[m][0]);
-          acc[m][1] = fmaf(kk, v1, acc[m][1]);
+        for (int e = 0; e < 4; ++e) {
+          const int c = (e & 1) ? i1 : i0;
+          const float qc = (e & 1) ? q1 : q0;
+          const int j = 16 * kk + 2 * tig + ((e & 2) ? 8 : 0);
+          const float2 kv = unpack2(kt[e]);
+          split2(kv.x * fast_exp2(qc - cum[j * kWP + c]),
+                 kv.y * fast_exp2(qc - cum[(j + 1) * kWP + c]), khi[kk][e], klo[kk][e]);
         }
       }
 #pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int c = ty + 8 * m;
-        Ss[c * kPitch + tx] = acc[m][0];
-        Ss[c * kPitch + tx + 32] = acc[m][1];
+      for (int e = 0; e < 32; ++e) ds[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_sw128(vs + kk * 2048, 8192);
+        wgmma_rs_n64(ds, khi[kk], db);
+        wgmma_rs_n64(ds, klo[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(ds);
+    }
+    __syncthreads();   // every warp has read S_prev
+
+    // ---- S = diag(exp(cum_Q)) S_prev + dS, state rows i0, i1 ----
+    const float d0 = fast_exp2(q0), d1 = fast_exp2(q1);
+    const bool last = chunk + 1 == n_chunks;
+    float* sb = p.s_out + (long long)row * p.dk * p.dv;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int col = 8 * t + 2 * tig;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = half ? i1 : i0;
+        const float dec = half ? d1 : d0;
+        uint32_t* phi = reinterpret_cast<uint32_t*>(Shi + swz(c, col));
+        uint32_t* plo = reinterpret_cast<uint32_t*>(Slo + swz(c, col));
+        const float2 oh = unpack2(*phi), ol = unpack2(*plo);
+        const float v0 = dec * (oh.x + ol.x) + ds[4 * t + 2 * half];
+        const float v1 = dec * (oh.y + ol.y) + ds[4 * t + 2 * half + 1];
+        split2(v0, v1, *phi, *plo);
+        if (last && c < p.dk && col < p.dv)
+          *reinterpret_cast<float2*>(sb + c * p.dv + col) = make_float2(v0, v1);
       }
     }
-    __syncthreads();  // the next chunk overwrites r, k, v, cum
-  }
-
-  float* sb = p.s_out + (long long)row * p.dk * p.dv;
-  for (int e = tid; e < p.dk * p.dv; e += kThreads) {
-    const int c = e / p.dv, col = e % p.dv;
-    sb[e] = Ss[c * kPitch + col];
   }
 }
 
 }  // namespace
 
 // r/k [BH, S, dk] bf16, v [BH, S, dv] bf16, logw [BH, S, dk] f32 (<= 0),
-// u [BH, dk] f32, all contiguous; dk, dv <= 64.  Writes y [BH, S, dv] bf16
-// and the final state [BH, dk, dv] f32.  Launches on `stream`; returns
-// cudaGetLastError() after the launch.
+// u [BH, dk] f32, all contiguous and 16-byte aligned; dk, dv multiples of 8
+// up to 64.  Writes y [BH, S, dv] bf16 and the final state [BH, dk, dv]
+// f32.  Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
                           const void* logw, const void* u, void* y,
                           void* s_out, int rows, int seq, int dk, int dv,
                           void* stream) {
-  if (dk < 1 || dk > kMaxD || dv < 1 || dv > kMaxD)
+  if (dk < 8 || dk > kMaxD || dk % 8 || dv < 8 || dv > kMaxD || dv % 8 || seq < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;   // once per process
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        rwkv6_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
   Params p;
   p.r = static_cast<const __nv_bfloat16*>(r);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -265,11 +545,7 @@ extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
   p.y = static_cast<__nv_bfloat16*>(y);
   p.s_out = static_cast<float*>(s_out);
   p.seq = seq; p.dk = dk; p.dv = dv;
-  const int smem = kSmemFloats * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rwkv6_scan_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  rwkv6_scan_kernel<<<rows, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

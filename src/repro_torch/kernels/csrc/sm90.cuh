@@ -1,6 +1,7 @@
 // PTX wrappers for Hopper (sm_90a) shared by the port's kernels: mbarriers,
-// TMA tile loads and stores, wgmma descriptors and instructions, ldmatrix
-// and cp.async.  Header-only; every function is inline device code.
+// TMA tile loads and stores, wgmma descriptors and instructions, mma.sync,
+// ldmatrix, cp.async, and the swizzled 64 x 64 bf16 tile helpers of the two
+// scans.  Header-only; every function is inline device code.
 //
 // The wgmma helpers below list every accumulator register by hand, as PTX
 // requires: wgmma_ss_n128 and wgmma_ss_n64 (both operands in shared memory,
@@ -287,6 +288,20 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+// ---- mma.sync ---------------------------------------------------------------
+
+// d[4] += A[16x16] B[16x8] for one warp, bf16 in, fp32 accumulate; the
+// fragments in mma.sync's row.col layout (A rows gid, gid + 8 and k
+// columns 2tig, 2tig + 8; B column gid and k rows 2tig, 2tig + 8)
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // ---- exp2, ldmatrix, cp.async, packing -----------------------------------------
 
 // 2^x on the special-function unit (relative error about 2^-22)
@@ -307,6 +322,41 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// ---- 64 x 64 bf16 tiles, fp32 splits and register shuffles --------------------
+
+// element offset of (r, col) in a 64 x 64 tile: 16-byte chunks of each
+// 128-byte row XOR-swizzled by the row, so 8 rows at one column hit 8
+// distinct bank groups
+__device__ __forceinline__ int swz(int r, int col) {
+  return r * 64 + ((((col >> 3) ^ r) & 7) << 3) + (col & 7);
+}
+
+// (v0, v1) as a pair hi + lo of bf16x2 words, v = hi + lo to about 2^-16 of v
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16x2(v0 - hf.x, v1 - hf.y);
+}
+
+// v[t] of lane tig holds columns 8t + 2tig, +1 of a row; afterwards v[k] of
+// lane tig holds columns 8tig + 2k, +1: the 4 x 4 transpose of 32-bit pairs
+// over the 4 lanes of the row
+__device__ __forceinline__ void transpose_quad(uint32_t (&v)[4], int tig) {
+  const bool odd = tig & 1;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+  if (odd) { v[0] = r0; v[2] = r1; } else { v[1] = r0; v[3] = r1; }
+  const bool upper = tig & 2;
+  r0 = __shfl_xor_sync(0xffffffffu, upper ? v[0] : v[2], 2);
+  r1 = __shfl_xor_sync(0xffffffffu, upper ? v[1] : v[3], 2);
+  if (upper) { v[0] = r0; v[1] = r1; } else { v[2] = r0; v[3] = r1; }
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 // 16 bytes global -> shared, zero-filled past `src_bytes` (0 or 16)

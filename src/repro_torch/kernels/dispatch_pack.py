@@ -11,11 +11,13 @@ shapes (N = 2048 tokens, H = 6144, bf16) the three stages move about 57, 63
 and 165 MB: 17, 19 and 49 us at 3.35 TB/s.
 
 Design: the TPU kernel's sequential grid with an SMEM slot counter cannot
-carry over, since Hopper runs blocks in no order.  Pass 1 runs one block per
-destination that scans the bitmap column and writes the slot map; pass 2
-runs one warp per slot that copies its row with 16-byte loads and stores.
-The copy moves raw bytes, so the kernel is bit-exact against the plain
-version for every element type.
+carry over, since Hopper runs blocks in no order.  One launch per call: a
+grid of (slot tile, destination) blocks, 1 to 16 slots a tile, each of
+which ranks its destination's rows itself (warp ballots over the bitmap,
+read from L2), writes its part of the slot map and copies its slots' rows
+as one flat run of 16-byte words, eight loads in flight a thread.  The
+copy moves raw bytes, so the kernel is bit-exact against the plain version
+for every element type.
 
 For tensors on the CPU the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.pack_ref`); for CUDA tensors it launches the
@@ -25,6 +27,7 @@ kernel, or raises.  ``dispatch_pack.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,14 +38,14 @@ NAME = "dispatch_pack"
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library(NAME)
-    fn = lib.dispatch_pack
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, ctypes.c_longlong, I, I, I, P]
-        fn.restype = ctypes.c_int
-    return lib
+@functools.cache
+def _entry():
+    """The C entry point, looked up and typed once per process."""
+    fn = _build.library(NAME).dispatch_pack
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, I, ctypes.c_longlong, I, I, I, I, P]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def dispatch_pack(tokens: torch.Tensor, bitmap: torch.Tensor,
@@ -54,18 +57,17 @@ def dispatch_pack(tokens: torch.Tensor, bitmap: torch.Tensor,
     Returns (out [D, C, H] in tokens' dtype, src_idx [D, C] int32 with -1
     for empty slots).
     """
-    devices = {tokens.device, bitmap.device, valid.device}
-    if len(devices) != 1:
-        raise ValueError(f"dispatch_pack: tensors on several devices "
-                         f"{sorted(map(str, devices))}")
+    device = tokens.device
+    if bitmap.device != device or valid.device != device:
+        names = sorted({str(t.device) for t in (tokens, bitmap, valid)})
+        raise ValueError(f"dispatch_pack: tensors on several devices {names}")
     if not 1 <= num_dests <= 31 or capacity < 1:
         raise ValueError(f"dispatch_pack: need 1 <= num_dests <= 31 and "
                          f"capacity >= 1, got {num_dests}, {capacity}")
-    if tokens.device.type == "cpu":
+    if device.type == "cpu":
         return pack_ref(tokens, bitmap, valid, num_dests, capacity)
-    if tokens.device.type != "cuda":
-        raise ValueError(f"dispatch_pack: no kernel for device "
-                         f"{tokens.device}")
+    if device.type != "cuda":
+        raise ValueError(f"dispatch_pack: no kernel for device {device}")
     n, h = tokens.shape
     if tokens.dtype not in DTYPES:
         raise TypeError(f"dispatch_pack: tokens dtype {tokens.dtype}")
@@ -78,19 +80,20 @@ def dispatch_pack(tokens: torch.Tensor, bitmap: torch.Tensor,
     if not (tokens.is_contiguous() and bitmap.is_contiguous()
             and valid.is_contiguous()):
         raise ValueError("dispatch_pack: inputs must be contiguous")
-    out = torch.empty((num_dests, capacity, h), dtype=tokens.dtype,
-                      device=tokens.device)
-    src_idx = torch.empty((num_dests, capacity), dtype=torch.int32,
-                          device=tokens.device)
+    # new_empty takes dtype and device from its tensor; on the card it costs
+    # less than torch.empty, and one buffer cut by views costs more
+    out = tokens.new_empty((num_dests, capacity, h))
+    src_idx = bitmap.new_empty((num_dests, capacity))
     row_bytes = h * tokens.element_size()
-    vec16 = int(row_bytes % 16 == 0 and tokens.data_ptr() % 16 == 0
-                and out.data_ptr() % 16 == 0)
-    lib = _lib()
-    code = lib.dispatch_pack(
-        tokens.data_ptr(), bitmap.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), src_idx.data_ptr(), n, row_bytes, num_dests,
-        capacity, vec16, torch.cuda.current_stream(tokens.device).cuda_stream)
-    _build.check(lib, NAME, code)
+    tok = tokens.data_ptr()
+    # a fresh allocation is 16-byte aligned: only the tokens can break vec16
+    vec16 = int(row_bytes % 16 == 0 and tok % 16 == 0)
+    code = _entry()(tok, bitmap.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                    src_idx.data_ptr(), n, row_bytes, num_dests, capacity,
+                    vec16, _build.sm_count(device.index),
+                    _build.stream(device))
+    if code:
+        _build.check(_build.library(NAME), NAME, code)
     dispatch_pack.launches += 1
     return out, src_idx
 

@@ -124,7 +124,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         d ** -0.5 if scale is None else scale,
         0.0 if softcap is None else softcap,
         int(causal), 0 if window is None else int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.stream(q.device))
     _build.check(lib, NAME, code)
     flash_attention.launches += 1
     return out

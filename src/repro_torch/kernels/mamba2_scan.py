@@ -107,7 +107,7 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     code = lib.mamba2_scan(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), d.data_ptr(), y.data_ptr(), h.data_ptr(), rows, s, dh,
-        ds, rows // g, torch.cuda.current_stream(x.device).cuda_stream)
+        ds, rows // g, _build.stream(x.device))
     _build.check(lib, NAME, code)
     mamba2_scan.launches += 1
     return y, h

@@ -4,7 +4,8 @@ These are the correctness references, written for clarity: dense masked
 attention, grouped decode attention over a KV cache, scatter-based
 packing, and the Mamba2 and RWKV-6 scans (per-step recurrences, their
 one-token decode steps, and the chunked forms that the reference's serving
-path runs).  A kernel wrapper runs its plain version for tensors on the CPU
+path runs), and, for the tests alone, the RWKV-6 kernel's sub-chunk
+factorisation.  A kernel wrapper runs its plain version for tensors on the CPU
 (the CPU tests, which hold it against the JAX package); for a CUDA tensor it
 launches the kernel.  ``chip_smoke.py`` holds each kernel against its plain
 version on the card.
@@ -210,6 +211,74 @@ def rwkv6_chunked(r, k, v, logw, u, *, chunk=32, return_final=False):
         k_up = kq * torch.exp(cum[:, -1:] - cum)
         state = (torch.exp(cum[:, -1])[..., None] * state
                  + torch.einsum("bqk,bqv->bkv", k_up, vq))
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :s].to(v.dtype)
+    return (y, state) if return_final else y
+
+
+def rwkv6_subchunk(r, k, v, logw, u, *, chunk=64, sub=16,
+                   return_final=False):
+    """The CUDA kernel's factorisation in plain PyTorch, for the tests only
+    (no model calls it).  Inside a chunk, the scores of sub-chunk a against
+    the columns before it are (r exp(cp - ref_a)) (k exp(ref_a - cum))^T
+    with ref_a the cumsum at the step before a.  Inside a diagonal sub x sub
+    block the same holds one level down: its second half's rows against its
+    first half's columns factorise around the cumsum at the end of the first
+    half, and only the two triangles of sub / 2 steps left on the diagonal
+    take exp(cp_i - cum_j) per channel.  No exponent is positive.  Shapes
+    as :func:`rwkv6_ref`."""
+    bh, s, dk = r.shape
+    dv = v.shape[-1]
+    half = sub // 2
+    pad = (-s) % chunk
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, logw))
+    if pad:
+        rf, kf, vf, wf = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                          for t in (rf, kf, vf, wf))
+    nc = rf.shape[1] // chunk
+    uf = u.float()
+    ii = torch.arange(half, device=r.device)
+    lower = (ii[:, None] > ii[None, :])[None, :, :, None]
+    eye = torch.eye(sub, device=r.device)
+
+    def factorised(rq, kq, cp, cum, rows, cols, ref):
+        """Scores of ``rows`` against the earlier ``cols`` around the
+        cumsum ``ref`` [bh, 1, dk] between them."""
+        r_hat = rq[:, rows] * torch.exp(cp[:, rows] - ref)
+        k_hat = kq[:, cols] * torch.exp(ref - cum[:, cols])
+        return torch.einsum("bic,bjc->bij", r_hat, k_hat)
+
+    state = torch.zeros((bh, dk, dv), dtype=torch.float32, device=r.device)
+    ys = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        rq, kq, vq, wq = rf[:, sl], kf[:, sl], vf[:, sl], wf[:, sl]
+        cum = torch.cumsum(wq, dim=1)
+        cp = cum - wq
+        att = torch.zeros((bh, chunk, chunk), device=r.device)
+        for a0 in range(0, chunk, sub):
+            blk = slice(a0, a0 + sub)
+            for t0 in (a0, a0 + half):          # the two triangles
+                tri = slice(t0, t0 + half)
+                gap = torch.where(lower, cp[:, tri, None] - cum[:, None, tri],
+                                  float("-inf"))
+                att[:, tri, tri] = torch.einsum(
+                    "bic,bjc,bijc->bij", rq[:, tri], kq[:, tri],
+                    torch.exp(gap))
+            lo, hi = slice(a0, a0 + half), slice(a0 + half, a0 + sub)
+            att[:, hi, lo] = factorised(rq, kq, cp, cum, hi, lo,
+                                        cum[:, a0 + half - 1, None])
+            bonus = torch.einsum("bic,bic->bi", rq[:, blk] * uf[:, None],
+                                 kq[:, blk])
+            att[:, blk, blk] += bonus[:, :, None] * eye
+            if a0:
+                att[:, blk, :a0] = factorised(rq, kq, cp, cum, blk,
+                                              slice(0, a0),
+                                              cum[:, a0 - 1, None])
+        y = att @ vq + (rq * torch.exp(cp)) @ state
+        k_up = kq * torch.exp(cum[:, -1:] - cum)
+        state = (torch.exp(cum[:, -1])[..., None] * state
+                 + k_up.transpose(1, 2) @ vq)
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s].to(v.dtype)
     return (y, state) if return_final else y

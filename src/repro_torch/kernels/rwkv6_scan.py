@@ -11,16 +11,23 @@ What bounds it on an H100: bytes.  At the RWKV6-7B prefill shape (r/k/v
 and the final state, about 105 MB (0.031 ms at 3.35 TB/s), against about
 3 GFLOP.
 
-Design: one block per (batch, head) row loops over 32-step chunks and keeps
-the [dk, dv] state in shared memory.  The intra-chunk weights take
-exp(cum_prev_i - cum_j) per channel only for j < i, so no exponent is
-positive: the TPU kernel's k * exp(-cum) factor would reach about e^72 at
-full width (see the ``.cu``).
+Design: one warpgroup per (batch, head) row walks 64-step chunks with the
+[dk, dv] state in shared memory.  Each warp owns a 16-step sub-chunk: its
+scores against earlier sub-chunks factorise around a reference point at
+the sub-chunk's start (``mma.sync``), and its 16 x 16 diagonal block once
+more around its middle, so only 8-step triangles take one exp per (i, j,
+channel), and no exponent is ever positive (the TPU kernel's
+k * exp(-cum) factor would overflow at full width).  The chunk
+products A v, r~ S_prev and the state update are ``wgmma`` m64n64k16, with
+fp32-made operands split into hi + lo bf16 pairs; r, k, v, logw arrive by
+``cp.async`` into a double buffer (see the ``.cu``).
 
 For tensors on the CPU the wrapper runs the plain version (the chunked scan
-of :func:`repro_torch.kernels.ref.rwkv6_chunked`); for CUDA tensors it
-launches the kernel (bf16 r/k/v, fp32 logw/u, dk and dv up to 64), or
-raises.  ``rwkv6_scan.launches`` counts kernel launches.
+of :func:`repro_torch.kernels.ref.rwkv6_chunked` at the reference's chunk
+of 32, whatever tile the kernel takes); for CUDA tensors it launches the
+kernel (bf16 r/k/v, fp32 logw/u, dk and dv multiples of 8 up to 64,
+contiguous and 16-byte aligned), or raises.  ``rwkv6_scan.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,8 +40,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rwkv6_chunked
 
 NAME = "rwkv6_scan"
-CHUNK = 32          # the kernel's chunk length, and the plain version's
-MAX_DIM = 64        # dk, dv
+PLAIN_CHUNK = 32    # the plain version's chunk: the reference's default
+MAX_DIM = 64        # dk, dv: multiples of 8 up to 64
 
 
 def _lib() -> ctypes.CDLL:
@@ -50,7 +57,8 @@ def _lib() -> ctypes.CDLL:
 def rwkv6_scan_plain(r, k, v, logw, u):
     """Plain version: the chunked scan in fp32.  Returns (y in v's dtype,
     final state fp32)."""
-    return rwkv6_chunked(r, k, v, logw, u, chunk=CHUNK, return_final=True)
+    return rwkv6_chunked(r, k, v, logw, u, chunk=PLAIN_CHUNK,
+                         return_final=True)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,18 +89,20 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"rwkv6_scan: the kernel takes bf16 r/k/v and fp32 "
                         f"logw/u, got {r.dtype}, {k.dtype}, {v.dtype}, "
                         f"{logw.dtype}, {u.dtype}")
-    if dk > MAX_DIM or dv > MAX_DIM:
-        raise ValueError(f"rwkv6_scan: dk {dk} and dv {dv} must be <= "
-                         f"{MAX_DIM}")
-    if not all(t.is_contiguous() for t in (r, k, v, logw, u)):
-        raise ValueError("rwkv6_scan: inputs must be contiguous")
+    if not (dk <= MAX_DIM and dv <= MAX_DIM and dk % 8 == dv % 8 == 0):
+        raise ValueError(f"rwkv6_scan: dk {dk} and dv {dv} must be "
+                         f"multiples of 8 up to {MAX_DIM}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (r, k, v, logw, u)):
+        raise ValueError("rwkv6_scan: inputs must be contiguous and 16-byte "
+                         "aligned")
     y = torch.empty_like(v)
     state = torch.empty((rows, dk, dv), dtype=torch.float32, device=r.device)
     lib = _lib()
     code = lib.rwkv6_scan(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), y.data_ptr(), state.data_ptr(), rows, s, dk, dv,
-        torch.cuda.current_stream(r.device).cuda_stream)
+        _build.stream(r.device))
     _build.check(lib, NAME, code)
     rwkv6_scan.launches += 1
     return y, state

@@ -38,6 +38,29 @@ def test_pack_kernel_matches_plain_on_card(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,h,d,c", [
+    (1, 64, 3, 4),          # one row
+    (50, 128, 2, 200),      # more slots than kept rows: an empty tail
+    (3000, 64, 7, 1),       # one slot, many candidates
+    (2049, 64, 1, 2049),    # N past the 2,048-row rank step
+    (1500, 256, 9, 700),    # N not a multiple of it
+])
+def test_pack_kernel_at_edges_on_card(n, h, d, c):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randn((n, h), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bitmap = torch.randint(0, 1 << d, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.25
+    got_t, got_i = ops.dispatch_pack(tokens, bitmap, valid, num_dests=d,
+                                     capacity=c)
+    exp_t, exp_i = tref.pack_ref(tokens, bitmap, valid, d, c)
+    assert torch.equal(got_i, exp_i)
+    assert torch.equal(got_t.view(torch.int16), exp_t.view(torch.int16))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal,window,softcap", [
     (True, None, None), (True, 32, None), (False, None, 30.0)])
 def test_attention_kernel_matches_plain_on_card(causal, window, softcap):
@@ -133,5 +156,30 @@ def test_rwkv6_kernel_matches_plain_on_card():
     ey, es = tref.rwkv6_ref(r.float(), k.float(), v.float(), logw, u,
                             return_final=True)
     assert logw[:, :32].sum(1).min() < -89.0
+    torch.testing.assert_close(y.float(), ey, atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(state, es, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,decay", [
+    (1, True), (15, True), (17, True), (63, True), (65, True),
+    (130, False),           # logw = 0: no decay
+])
+def test_rwkv6_kernel_at_chunk_edges_on_card(s, decay):
+    """Edges of the kernel's 64-step chunk and 16-step sub-chunks."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    rows = 8
+    r, k, v = (rn(rows, s, 64).to(torch.bfloat16) for _ in range(3))
+    logw = -torch.exp(rn(rows, s, 64) - 0.5) if decay else torch.zeros(
+        (rows, s, 64), device="cuda")
+    u = rn(rows, 64) * 0.3
+    y, state = ops.rwkv6_scan(r, k, v, logw, u)
+    ey, es = tref.rwkv6_ref(r.float(), k.float(), v.float(), logw, u,
+                            return_final=True)
     torch.testing.assert_close(y.float(), ey, atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(state, es, atol=5e-2, rtol=5e-2)

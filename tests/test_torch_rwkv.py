@@ -24,6 +24,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.rwkv6_scan import PLAIN_CHUNK, rwkv6_scan_plain
 from repro_torch.models import rwkv as trwkv
 from repro_torch.models.api import build_model
 from repro_torch.runtime.server import ServeConfig, ServeEngine
@@ -117,6 +118,71 @@ def test_per_step_recurrence_survives_fast_decays():
         np.testing.assert_allclose(_np(y[:, t]), y64, **_tol("float32"))
         s64 = np.exp(logw[:, t])[:, :, None] * s64 + kv
     np.testing.assert_allclose(_np(state), s64, **_tol("float32"))
+
+
+# ---------------------------------------------------------------------------
+# the plain version's chunk, and the CUDA kernel's factorisation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [17, 64, 100])
+def test_plain_version_is_the_chunked_scan_at_32(s):
+    """The wrapper's plain version is the reference's chunked form at its
+    default chunk of 32, whatever tile the CUDA kernel takes."""
+    r, k, v, logw, u = _scan_inputs(2, s, 16, 8, seed=41 + s)
+    args = [torch.from_numpy(t) for t in (r, k, v, logw, u)]
+    assert PLAIN_CHUNK == 32
+    y, state = rwkv6_scan_plain(*args)
+    ey, es = tref.rwkv6_chunked(*args, chunk=32, return_final=True)
+    assert torch.equal(y, ey) and torch.equal(state, es)
+    jy, js = jref.rwkv6_chunked_jnp(*(jnp.asarray(t) for t in
+                                      (r, k, v, logw, u)), chunk=32,
+                                    return_final=True)
+    np.testing.assert_allclose(_np(y), _np(jy), **_tol("float32"))
+    np.testing.assert_allclose(_np(state), _np(js), **_tol("float32"))
+
+
+def _decays(shape, scale, shift, seed):
+    """logw = -exp(scale * N(0, 1) + shift)."""
+    rng = np.random.default_rng(seed)
+    return (-np.exp(rng.normal(size=shape) * scale + shift)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("s", [1, 15, 17, 63, 65, 130])
+def test_subchunk_factorisation_matches_reference(s):
+    """The kernel's factorisation in plain PyTorch (sub-chunk reference
+    points, 64-step chunks) against the reference's per-step oracle and its
+    chunked twin's final state, at RWKV6-7B-like decays (chunk sums of
+    logw down to about -50 per 32 steps), across the chunk's edges."""
+    r, k, v, _, u = _scan_inputs(2, s, 64, 64, seed=50 + s)
+    logw = _decays(r.shape, 1.0, -0.5, seed=60 + s)
+    y, state = tref.rwkv6_subchunk(*(torch.from_numpy(t) for t in
+                                     (r, k, v, logw, u)), return_final=True)
+    jargs = [jnp.asarray(t) for t in (r, k, v, logw, u)]
+    np.testing.assert_allclose(_np(y), _np(jref.rwkv6_ref(*jargs)),
+                               **_tol("float32"))
+    _, js = jref.rwkv6_chunked_jnp(*jargs, chunk=32, return_final=True)
+    np.testing.assert_allclose(_np(state), _np(js), **_tol("float32"))
+
+
+def test_subchunk_factorisation_survives_chunk_sums_below_minus_89():
+    """Decays of the card test's fast case, -exp(1.5 N(0, 1)): a 32-step
+    chunk sums below -89, so the reference's chunked form k * exp(-cum)
+    overflows fp32.  The kernel's factorisation forms no positive exponent:
+    it stays finite and equals the per-step recurrence.  To 1e-3, not the
+    fp32 1e-4: its fp32 cumsums reach about -160 here, and their rounding
+    (about 1e-5 each) enters every exponent; the per-step recurrence forms
+    no cumsum."""
+    r, k, v, _, u = _scan_inputs(2, 100, 16, 8, seed=29)
+    logw = _decays(r.shape, 1.5, 0.0, seed=31)
+    assert logw[:, :32].sum(1).min() < -89.0
+    args = [torch.from_numpy(t) for t in (r, k, v, logw, u)]
+    assert not torch.isfinite(tref.rwkv6_chunked(*args, chunk=32)).all()
+    y, state = tref.rwkv6_subchunk(*args, return_final=True)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    ey, es = tref.rwkv6_ref(*args, return_final=True)
+    np.testing.assert_allclose(_np(y), _np(ey), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(_np(state), _np(es), atol=1e-3, rtol=1e-3)
 
 
 # ---------------------------------------------------------------------------
