@@ -27,7 +27,16 @@ Phases; any failure raises and the script exits non-zero:
    prompts x 512 tokens, 32 new tokens greedy, one model at a time, each
    freed before the next: DBRX-132B at full width with its depth cut to 4
    layers, then Zamba2-7B and RWKV6-7B at full width and full depth; each
-   with the kernels' launch counts over its own run.
+   with the kernels' launch counts over its own run;
+6. ranks: DBRX-132B (4 layers) over 4 spawned ranks, 2 pods x 2 ep ranks
+   of 4 experts, one prompt a rank, under the three MoE scheme pairs
+   (nccl with a card a rank where there are 4 cards, else gloo with all
+   ranks on card 0): every rank's tokens equal, equal across the pairs and
+   to a one-rank run up to near ties, exact launch counts, and the
+   pod-group bytes of one prefill dispatch below the baseline's.
+
+Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
+2 x 2 ranks.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -50,6 +59,8 @@ BF16_FLOP_PER_S = 989e12
 
 # (arch, depth cut or None for the published depth), served in this order
 SERVES = (("dbrx_132b", 4), ("zamba2_7b", None), ("rwkv6_7b", None))
+RANKS = (2, 2)                          # phase 6: pods x ep ranks
+RANKS_CF = 4.0                          # phase 6: num_experts / top_k
 PROMPTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 kernel vs fp32 plain
 # bf16 scans vs the fp32 per-step recurrence: the reference kernel tests'
@@ -160,9 +171,13 @@ def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def pack_inputs(n, h, d, dtype, *, valid_rows=None, k=None, seed=0):
+def pack_inputs(n, h, d, dtype, *, valid_rows=None, k=None, holes=None,
+                seed=0):
     """Rows, destination bitmaps (all d bits random, or k distinct of d,
-    or bit 0 only when d == 1) and valid flags on the card."""
+    or bit 0 only when d == 1) and valid flags on the card: random, the
+    first ``valid_rows``, or ``holes`` = (blocks, filled): rows off a
+    transport, each of ``blocks`` received blocks filled to ``filled`` rows
+    with holes behind."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -176,7 +191,10 @@ def pack_inputs(n, h, d, dtype, *, valid_rows=None, k=None, seed=0):
     else:
         bitmap = torch.randint(0, 1 << d, (n,), generator=gen, device="cuda",
                                dtype=torch.int64).to(torch.int32)
-    if valid_rows is None:
+    if holes is not None:
+        blocks, filled = holes
+        valid = torch.arange(n, device="cuda") % (n // blocks) < filled
+    elif valid_rows is None:
         valid = torch.rand(n, generator=gen, device="cuda") > 0.25
     else:
         valid = torch.arange(n, device="cuda") < valid_rows
@@ -228,6 +246,18 @@ def kernel_phase() -> dict:
         ("decode3", pack_inputs(6, h, 16, bf16, valid_rows=4, k=4, seed=9),
          16, 1),
     ]
+    # the three of one DBRX prefill MoE layer at 2 pods x 2 ep ranks (512
+    # tokens a rank, capacity factor 1.25): stage 2 and stage 3 pack rows
+    # received from 2 senders (about 490 of 640 and 720 of 1,600 filled);
+    # phase 6 checks its own packs (factor 4) on the path
+    ranked = [
+        ("rank-stage1", pack_inputs(512, h, 2, bf16, valid_rows=512,
+                                    seed=16), 2, 640),
+        ("rank-stage2", pack_inputs(1280, h, 2, bf16, holes=(2, 490),
+                                    seed=17), 2, 1600),
+        ("rank-stage3", pack_inputs(3200, h, 4, bf16, holes=(2, 720),
+                                    seed=18), 4, 640),
+    ]
     edge = [
         ("d31-bf16", pack_inputs(1024, 256, 31, bf16, seed=3), 31, 40),
         ("d31-f32", pack_inputs(1024, 256, 31, torch.float32, seed=4),
@@ -242,11 +272,12 @@ def kernel_phase() -> dict:
         ("n2049", pack_inputs(2049, 64, 1, bf16, seed=15), 1, 2049),
         ("n1500", pack_inputs(1500, 256, 9, torch.float32, seed=14), 9, 700),
     ]
-    for label, args, d, c in stages + decode + edge:
+    for label, args, d, c in stages + decode + ranked + edge:
         check_pack(failures, label, args, d, c)
     pk = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "decode_ms": [],
-          "decode_bound_ms": [], "decode_host_ms": []}
-    for label, args, d, c in stages + decode:
+          "decode_bound_ms": [], "decode_host_ms": [], "rank_ms": 0.0,
+          "rank_bound_ms": 0.0}
+    for label, args, d, c in stages + decode + ranked:
         tokens = args[0]
         n, esize = tokens.shape[0], tokens.element_size()
         # bytes this data needs: the bitmap and valid flags, the rows that
@@ -265,7 +296,10 @@ def kernel_phase() -> dict:
               f"read, {nbytes / 1e6:.3f} MB)")
         print(f"  dispatch_pack {label} host issue per call: "
               f"{issue_text(issue)}")
-        if label.startswith("stage"):    # the kernels line: one prefill layer
+        if label.startswith("rank-"):
+            pk["rank_ms"] += ms
+            pk["rank_bound_ms"] += bnd
+        elif label.startswith("stage"):  # the kernels line: one prefill layer
             pk["ms"] += ms
             pk["plain_ms"] += plain
             pk["bound_ms"] += bnd
@@ -279,6 +313,10 @@ def kernel_phase() -> dict:
             pk["decode_ms"].append(ms)
             pk["decode_bound_ms"].append(bnd)
             pk["decode_host_ms"].append(issue[0])
+
+    print(f"  dispatch_pack one DBRX prefill layer at 2 pods x 2 ep ranks "
+          f"(3 packs a rank): {pk['rank_ms']:.4f} ms, bound "
+          f"{pk['rank_bound_ms']:.4f} ms")
 
     # attention: the DBRX prefill shape in the main path's layout (views of
     # [B, S, heads, D] buffers), then small shapes over the mask set
@@ -353,7 +391,9 @@ def kernel_phase() -> dict:
             bound_ms=pk["bound_ms"], bound_by="bytes", library_ms=None,
             decode_ms=max(pk["decode_ms"]),
             decode_bound_ms=max(pk["decode_bound_ms"]),
-            decode_host_ms=max(pk["decode_host_ms"])),
+            decode_host_ms=max(pk["decode_host_ms"]),
+            rank_stages_ms=pk["rank_ms"],
+            rank_stages_bound_ms=pk["rank_bound_ms"]),
         "flash_attention": dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -890,6 +930,186 @@ def serve_phase(arch: str, layers) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: DBRX over 4 ranks, 2 pods x 2 ep ranks
+# ---------------------------------------------------------------------------
+
+def ranks_phase() -> dict:
+    """DBRX-132B (4 layers) served over 4 spawned ranks, 2 pods x 2 ep
+    ranks with 4 experts each, under the three scheme pairs, against a
+    one-rank ``generate`` of the same seeded weights run here first.  The
+    capacity factor is num_experts / top_k = 4, at which no stage of either
+    path drops a (token, expert) pair: at 1.25 the two paths drop different
+    pairs, since drop priority follows the order of arrival.  Each rank's
+    warm-up run (a prefill and a decode step, the measured run's shapes)
+    holds every pack of the path against its plain version on the inputs
+    the transports gave it.  Returns the kernel launches of the measured
+    4-rank runs, summed over ranks and pairs."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import ranks
+    from repro_torch.launch.serve import make_prompts, serve_config
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.server import ServeConfig
+
+    cfg = dataclasses.replace(serve_config("dbrx_132b", layers=4,
+                                           smoke=False),
+                              moe_capacity=RANKS_CF)
+    world = RANKS[0] * RANKS[1]
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    where = ("nccl, one card a rank over NVLink: no pod link is slower"
+             if backend == "nccl" else
+             f"gloo, {world} processes on one card, host-staged transport: "
+             f"no fabric measured")
+    print(f"  {cards} card(s): {world} ranks over {where}")
+    prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
+
+    # the one-rank reference: the same weights, capacity factor and prompts
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    one = ranks.RecordingEngine(model, model.init(gen),
+                                ServeConfig(max_new_tokens=MAX_NEW),
+                                device="cuda")
+    expected = one.generate(prompts)
+    one_logits = one.step_logits          # [B, V] at each of MAX_NEW steps
+    # the same model one prompt at a time: how far the bf16 products at a
+    # rank's shapes (512 rows, not 2,048) move the logits on their own
+    with torch.inference_mode():
+        alone = torch.cat([model.prefill(
+            one.params, {"tokens": torch.from_numpy(prompts[i:i + 1]).cuda()},
+            model.init_cache(1, PROMPT_LEN))[0].float().cpu()
+            for i in range(PROMPTS)])
+    shape_rel = ((alone - one_logits[0]).abs().max()
+                 / one_logits[0].abs().max()).item()
+    del one, model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(world=world, pods=RANKS[0], ep=RANKS[1], backend=backend,
+                    device="cuda:0", init_method=f"file://{tmp}/store",
+                    timeout_s=120, out_dir=f"{tmp}/out", threads=2, cfg=cfg,
+                    dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
+                    prompts=prompts, max_new=MAX_NEW,
+                    schemes=ranks.SCHEME_PAIRS, warmup=True)
+        t0 = time.monotonic()
+        results = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900)
+    print(f"  {world} ranks spawned, served and joined in "
+          f"{time.monotonic() - t0:.1f} s; peak memory a rank "
+          f"{max(r['peak_gb'] for r in results):.2f} GB")
+
+    failures = []
+    total: dict = {}
+    want = {"dispatch_pack": 0, "flash_attention": cfg.n_layers,
+            "mamba2_scan": 0, "rwkv6_scan": 0}
+    pairs = [f"{a}+{b}" for a, b in ranks.SCHEME_PAIRS]
+    first = results[0]["pairs"][pairs[0]]["tokens"]
+    for pair in pairs:
+        runs = [r["pairs"][pair] for r in results]
+        # (a) every rank returns the same global tokens
+        if not all(np.array_equal(run["tokens"], runs[0]["tokens"])
+                   for run in runs):
+            failures.append(f"{pair}: ranks returned different tokens")
+        # (c) the three scheme pairs give the same tokens
+        if not np.array_equal(runs[0]["tokens"], first):
+            failures.append(f"{pair}: tokens differ from {pairs[0]}")
+        # (d) exact launch counts on each rank
+        packs = 3 if pair.startswith("hierarchical") else 2
+        want["dispatch_pack"] = packs * cfg.n_layers * MAX_NEW
+        for r, run in zip(results, runs):
+            if run["launches"] != want:
+                failures.append(f"{pair} rank {r['rank']}: launches "
+                                f"{run['launches']} != {want}")
+            if run["nonfinite_logits"]:
+                failures.append(f"{pair} rank {r['rank']}: non-finite "
+                                f"logits")
+            for name, n in run["launches"].items():
+                total[name] = total.get(name, 0) + n
+        # every pack of the warm-up run (a prefill and a decode step, the
+        # shapes of the measured run) against pack_ref on the same inputs
+        shapes: dict = {}
+        for r, run in zip(results, runs):
+            if len(run["packs"]) != 2 * packs * cfg.n_layers:
+                failures.append(f"{pair} rank {r['rank']}: "
+                                f"{len(run['packs'])} packs checked")
+            for n, valid, d, c, exact in run["packs"]:
+                lo, hi, ok = shapes.get((n, d, c), (valid, valid, True))
+                shapes[(n, d, c)] = (min(lo, valid), max(hi, valid),
+                                     ok and exact)
+        for (n, d, c), (lo, hi, ok) in shapes.items():
+            print(f"  {pair}: dispatch_pack N={n} ({lo}-{hi} rows valid) "
+                  f"D={d} C={c} on the path, all ranks: "
+                  f"{'bit-exact' if ok else 'MISMATCH'} against pack_ref")
+            if not ok:
+                failures.append(f"{pair}: dispatch_pack N={n} D={d} C={c}")
+        st = runs[0]
+        decode_ms = st["decode_s"] * 1e3 / (MAX_NEW - 1)
+        print(f"  {pair}: prefill {st['prefill_s'] * 1e3:.3f} ms, decode "
+              f"{decode_ms:.3f} ms/token (the slowest rank's walls; "
+              f"{where}); launches a rank "
+              f"{runs[0]['launches']}")
+        # (e) pod-group bytes of the first prefill dispatch
+        for r, run in zip(results, runs):
+            b = run["pod_bytes"]
+            kind = "multiwrite" if pair.startswith("hier") else "baseline"
+            # dispatch_pod_bytes counts for a source in pod 0
+            analytic = (f"; dispatch_pod_bytes {run['analytic_pod_bytes']}"
+                        if run["pod"] == 0 else "")
+            print(f"    rank {r['rank']} (pod {run['pod']}): pod-group "
+                  f"bytes of one prefill dispatch: {b['whole']} whole "
+                  f"buffers, {b['occupied']} occupied rows{analytic}")
+            if run["pod"] == 0 and b["occupied"] != \
+                    run["analytic_pod_bytes"][kind]:
+                failures.append(f"{pair} rank {r['rank']}: occupied pod "
+                                f"bytes {b['occupied']} != dispatch_pod_bytes")
+    for r in results:
+        mw = r["pairs"][pairs[0]]["pod_bytes"]
+        base = r["pairs"][pairs[2]]["pod_bytes"]
+        ok = all(mw[key] < base[key] for key in ("whole", "occupied"))
+        print(f"  rank {r['rank']}: multiwrite {mw} vs baseline {base} pod-"
+              f"group bytes: {'multiwrite < baseline' if ok else 'NOT LESS'}")
+        if not ok:
+            failures.append(f"rank {r['rank']}: multiwrite pod bytes not "
+                            f"below the baseline's")
+
+    # (b) against the one-rank run: prefill logits, then greedy tokens up to
+    # each row's first difference, which must be a near tie one rank sees
+    ranked_logits = torch.cat([r["pairs"][pairs[0]]["prefill_logits"]
+                               for r in results])
+    ref = one_logits[0]
+    rel = ((ranked_logits - ref).abs().max() / ref.abs().max()).item()
+    print(f"  last-position prefill logits, 4 ranks vs one: {rel:.3e} of "
+          f"max |logit| (limit {REF_TOL}); one rank, a prompt at a time vs "
+          f"four at once: {shape_rel:.3e}")
+    if not rel < REF_TOL:
+        failures.append(f"prefill logits off by {rel:.3e}")
+    worst_gap, split_rows = 0.0, 0
+    for row in range(PROMPTS):
+        diff = np.flatnonzero(first[row] != expected[row])
+        if not diff.size:
+            continue
+        split_rows += 1
+        step = int(diff[0])
+        lg = one_logits[step][row]
+        gap = ((lg.max() - lg[int(first[row, step])]) / lg.abs().max()).item()
+        worst_gap = max(worst_gap, gap)
+    print(f"  tokens vs one rank: {PROMPTS - split_rows} of {PROMPTS} rows "
+          f"equal over {MAX_NEW} tokens; rows that part do so at a near tie "
+          f"of the one-rank logits, widest gap {worst_gap:.3e} of max "
+          f"|logit| (limit {REF_TOL})")
+    if worst_gap > REF_TOL:
+        failures.append(f"a token parts from the one-rank run "
+                        f"{worst_gap:.3e} below its best logit")
+    if failures:
+        raise AssertionError(f"phase 6: {failures}")
+    return total
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -927,6 +1147,8 @@ def main() -> None:
     by_path = {}
     for arch, layers in SERVES:
         by_path[arch] = serve_phase(arch, layers)
+    print("phase 6: DBRX over 2 pods x 2 ep ranks")
+    by_path["dbrx_132b_2x2_ranks"] = ranks_phase()
 
     for name, row in rows.items():
         row["launches"] = sum(c[name] for c in by_path.values())

@@ -9,7 +9,9 @@ Stacked [L, ...] trees are unstacked into one block per layer.  Matrices are
 rounded once to ``dtype``, which gives the values the reference's per-use
 ``.astype(dt)`` gives; what the reference keeps or computes with in fp32
 (norms, router, ``A_log``, ``D``, ``dt_bias``, ``w0``, ``wA``, ``wB``,
-``u``) stays fp32: each module creates those parameters in fp32.
+``u``) stays fp32: each module creates those parameters in fp32.  With a
+``pctx`` the result is one rank's shard: the experts ``[first, first +
+per_rank)`` of each MoE layer, everything else whole.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ from repro_torch.models.api import param_module
 
 
 def params_from_jax(np_params: dict, cfg: ModelConfig, *, device=None,
-                    dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+                    dtype: torch.dtype = torch.bfloat16,
+                    pctx=None) -> nn.Module:
     dev = resolve_device(device)
-    params = param_module(cfg, device=dev, dtype=dtype)
+    params = param_module(cfg, device=dev, dtype=dtype, pctx=pctx)
 
     def put(dst: torch.Tensor, src) -> None:
         src = np.array(src, dtype=np.float32)     # a writable copy
@@ -60,8 +63,15 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *, device=None,
         blocks, stacked = params.blocks, np_params["layers"]
         prefix = np_params.get("layers_prefix", [])
     for i, blk in enumerate(blocks):
-        put_tree(blk, prefix[i] if i < len(prefix)
-                 else _tree_index(stacked, i - len(prefix)))
+        tree = (prefix[i] if i < len(prefix)
+                else _tree_index(stacked, i - len(prefix)))
+        moe = getattr(blk, "moe", None)
+        if moe is not None:         # this rank's experts
+            lo, hi = moe.first, moe.first + moe.w1.shape[0]
+            tree = {**tree, "moe": {key: (val if key == "router"
+                                          else val[lo:hi])
+                                    for key, val in tree["moe"].items()}}
+        put_tree(blk, tree)
     return params
 
 

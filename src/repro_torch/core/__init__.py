@@ -1,1 +1,1 @@
-"""Single-rank MoE dispatch / combine (the multi-rank lowering comes later)."""
+"""MoE dispatch / combine over ranks and the rank-bitmap helpers."""

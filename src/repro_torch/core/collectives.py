@@ -1,29 +1,31 @@
-"""MultiWrite MoE dispatch / combine on tensors: the single-rank half.
+"""MultiWrite MoE dispatch / combine on tensors, over ``torch.distributed``.
 
 Port of the MoE half of ``src/repro/core/collectives.py``.  The MultiWrite
 dispatch sends ONE copy of each token per destination pod across the slow
 axis (stage 1), relays replicate it inside the pod (stage 2), and each rank
 groups its arrivals per local expert (stage 3); the combine walks the same
-pack maps back with fp32 scatter-adds.  Every stage packs with the
-bitmap-driven ``dispatch_pack`` kernel (three launches per dispatch).
+pack maps back with fp32 sums in a fixed order.  Every stage packs with the
+bitmap-driven ``dispatch_pack`` kernel (three launches per dispatch).  The
+baseline (unicast) dispatch sends one copy per (token, destination rank)
+instead, ``ceil(R / 31)`` packs and one more for the experts.
 
-This slice runs one rank (``num_pods == ep_per_pod == 1``): the stages keep
-their packing and pack maps and the transports between them are identities.
-Where the reference moves data with ``lax.all_to_all`` (``num_pods > 1`` or
-``ep_per_pod > 1``) the port raises ``NotImplementedError``: that lowering
-over ``torch.distributed`` is the multi-rank slice.
+Transports: the reference's ``lax.all_to_all(split_axis=0, concat_axis=0,
+tiled=True)`` on a named axis is :func:`_all_to_all`
+(``dist.all_to_all_single``) on that axis's subgroup of the
+:class:`EPMesh`'s rank mesh, and ``lax.axis_index`` is the rank's
+coordinate on it.  With one pod and one ep rank (``pctx=None``) the
+transports are identities and no process group is needed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
-
-_MULTI_RANK = ("all_to_all transport across {} ranks is the multi-rank "
-               "slice of the port; this slice runs one rank")
 
 
 # ===========================================================================
@@ -72,15 +74,39 @@ def gather_rows(tokens: torch.Tensor, src_idx: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class EPMesh:
-    """Static description of the expert-parallel mesh slice."""
+    """Static description of the expert-parallel mesh slice.  ``ranks``
+    (a :class:`~repro_torch.parallel.mesh.RankMesh`) holds the axes'
+    process groups; it may be None when both levels have one rank."""
     pod_axis: str | None        # slow axis; None = single level
     ep_axis: str                # fast axis
     num_pods: int
     ep_per_pod: int
+    ranks: object = None
 
     @property
     def num_ranks(self) -> int:
         return self.num_pods * self.ep_per_pod
+
+    def group(self, axis: str):
+        if self.ranks is None:
+            raise ValueError(f"a transport over {axis!r} needs a rank mesh")
+        return self.ranks.group(axis)
+
+    def axis_index(self, axis: str) -> int:
+        if self.ranks is None:
+            raise ValueError(f"the index on {axis!r} needs a rank mesh")
+        return self.ranks.axis_index(axis)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``lax.all_to_all(x, split_axis=0, concat_axis=0, tiled=True)`` over
+    ``group``: the R equal blocks of dim 0 go one to each group rank, and
+    the blocks received are stacked in group-rank order.  Metadata travels
+    in its own dtype (bool, int32)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,11 +189,17 @@ def hierarchical_dispatch(tokens: torch.Tensor, expert_ids: torch.Tensor,
     ids_dst = gather_rows(expert_ids, map_pod.reshape(-1)).reshape(p, cp, k)
     gates_dst = gather_rows(gates, map_pod.reshape(-1)).reshape(p, cp, k)
 
-    # ---- stage 1 transport over the pod axis ------------------------------
+    # ---- stage 1 transport: all_to_all over the pod axis -------------------
     if mesh.pod_axis is not None and p > 1:
-        raise NotImplementedError(_MULTI_RANK.format(f"{p} pods"))
-    recv_tok, recv_ep = send_tok, ep_bits_dst
-    recv_src, recv_ids, recv_gates = meta_src, ids_dst, gates_dst
+        pod = mesh.group(mesh.pod_axis)
+        recv_tok = _all_to_all(send_tok, pod)                       # [P,Cp,H]
+        recv_ep = _all_to_all(ep_bits_dst, pod)
+        recv_src = _all_to_all(meta_src, pod)
+        recv_ids = _all_to_all(ids_dst, pod)
+        recv_gates = _all_to_all(gates_dst, pod)
+    else:
+        recv_tok, recv_ep = send_tok, ep_bits_dst
+        recv_src, recv_ids, recv_gates = meta_src, ids_dst, gates_dst
 
     # ---- stage 2: relay replication over the ep axis (cs_relay) ------------
     flat_tok = recv_tok.reshape(p * cp, h)
@@ -180,12 +212,17 @@ def hierarchical_dispatch(tokens: torch.Tensor, expert_ids: torch.Tensor,
     relay_gates = gather_rows(recv_gates.reshape(p * cp, k),
                               map_ep.reshape(-1)).reshape(d, cd, k)
     if d > 1:
-        raise NotImplementedError(_MULTI_RANK.format(f"{d} ep ranks"))
-    got_tok, got_ids, got_gates = relay_tok, relay_ids, relay_gates
-    got_valid = map_ep >= 0
+        ep = mesh.group(mesh.ep_axis)
+        got_tok = _all_to_all(relay_tok, ep)                        # [D,Cd,H]
+        got_ids = _all_to_all(relay_ids, ep)
+        got_gates = _all_to_all(relay_gates, ep)
+        got_valid = _all_to_all(map_ep >= 0, ep)
+    else:
+        got_tok, got_ids, got_gates = relay_tok, relay_ids, relay_gates
+        got_valid = map_ep >= 0
 
     # ---- stage 3: local per-expert grouping (zero comm) --------------------
-    my_rank = 0
+    my_rank = _my_rank(mesh)
     flat2_tok = got_tok.reshape(d * cd, h)
     flat2_ids = got_ids.reshape(d * cd, k)
     flat2_gates = got_gates.reshape(d * cd, k)
@@ -260,30 +297,217 @@ def _sum_rows_into(index: torch.Tensor, rows: torch.Tensor, num_slots: int,
     return out
 
 
+def _my_rank(mesh: EPMesh) -> int:
+    """This rank's index in the flattened (pod, ep) EP domain."""
+    my_pod = (mesh.axis_index(mesh.pod_axis)
+              if (mesh.pod_axis and mesh.num_pods > 1) else 0)
+    my_ep = mesh.axis_index(mesh.ep_axis) if mesh.ep_per_pod > 1 else 0
+    return my_pod * mesh.ep_per_pod + my_ep
+
+
+def _back_to_relays(expert_out, exp_gate, state: DispatchState):
+    """Gate the expert rows, sum each token's local experts into its
+    stage-2 slot, and send the partials back over the ep axis to the relays
+    that sent them: [D, Cd, H] fp32, block j from ep rank j."""
+    mesh = state.mesh
+    d = mesh.ep_per_pod
+    cd = state.map_ep.shape[1]
+    # a token sits in at most top_k of this rank's experts
+    weighted = expert_out * exp_gate[..., None]
+    flat2 = _sum_rows_into(state.map_exp, weighted, d * cd,
+                           min(state.cfg.top_k, state.map_exp.shape[0]))
+    flat2 = flat2.reshape(d, cd, -1)
+    return _all_to_all(flat2, mesh.group(mesh.ep_axis)) if d > 1 else flat2
+
+
+def _over_pod(x: torch.Tensor, mesh: EPMesh) -> torch.Tensor:
+    """All_to_all over the pod axis of x [P, ...] (it is its own reverse)."""
+    if mesh.pod_axis is not None and mesh.num_pods > 1:
+        return _all_to_all(x, mesh.group(mesh.pod_axis))
+    return x
+
+
 def hierarchical_combine(expert_out: torch.Tensor, exp_gate: torch.Tensor,
                          state: DispatchState) -> torch.Tensor:
     """Return path with relay-side partial reduction: per-(token, pod)
-    partials are pre-reduced at the relay before crossing the pod axis.
+    partials are pre-reduced at the relay before crossing the pod axis, ONE
+    partial per (token, pod) on the slow axis.
 
     Returns [N, H] fp32 combined outputs aligned with the dispatch rows.
+    A token's sum runs over its experts on each rank, then over the ep
+    ranks of each pod (at the relay), then over the pods, each in index
+    order.
     """
     mesh = state.mesh
     p, d = mesh.num_pods, mesh.ep_per_pod
-    cd = state.map_ep.shape[1]
     cp = state.map_pod.shape[1]
-    e_local = state.map_exp.shape[0]
-    if d > 1:
-        raise NotImplementedError(_MULTI_RANK.format(f"{d} ep ranks"))
-    if mesh.pod_axis is not None and p > 1:
-        raise NotImplementedError(_MULTI_RANK.format(f"{p} pods"))
-
-    # ---- apply gates, sum expert slots back into stage-2 slots: a token
-    # sits in at most top_k of this rank's experts --------------------------
-    weighted = expert_out * exp_gate[..., None]
-    flat2 = _sum_rows_into(state.map_exp, weighted, d * cd,
-                           min(state.cfg.top_k, e_local))
+    back = _back_to_relays(expert_out, exp_gate, state)          # [D, Cd, H]
     # ---- relay-side reduction: sum per stage-1 slot over ep ranks ----------
-    flat1 = _sum_rows_into(state.map_ep, flat2.reshape(d, cd, -1), p * cp, d)
-    # ---- sum into source rows -----------------------------------------------
-    return _sum_rows_into(state.map_pod, flat1.reshape(p, cp, -1),
-                          state.n_tokens, p)
+    flat1 = _sum_rows_into(state.map_ep, back, p * cp, d)
+    # ---- reverse pod a2a, then sum into source rows --------------------------
+    home = _over_pod(flat1.reshape(p, cp, -1), mesh)
+    return _sum_rows_into(state.map_pod, home, state.n_tokens, p)
+
+
+def hierarchical_combine_unicast(expert_out: torch.Tensor,
+                                 exp_gate: torch.Tensor,
+                                 state: DispatchState) -> torch.Tensor:
+    """Unicast return path for the hierarchical dispatch: NO relay-side
+    reduction, every (token, ep-rank) partial crosses the pod axis on its
+    own (up to ``ep_per_pod`` x the slow-axis bytes of
+    :func:`hierarchical_combine`) and is reduced at the home rank.  The sums
+    run in the same order as :func:`hierarchical_combine`'s (a missing
+    partial is a zero row, and adding zero changes no sum), so the two give
+    bit-identical outputs."""
+    mesh = state.mesh
+    p, d = mesh.num_pods, mesh.ep_per_pod
+    cp = state.map_pod.shape[1]
+    back = _back_to_relays(expert_out, exp_gate, state)          # [D, Cd, H]
+    # ---- NO relay reduction: one slot per (stage-1 slot, ep rank) ----------
+    sl = state.map_ep
+    ep_of = torch.arange(d, dtype=sl.dtype, device=sl.device)[:, None]
+    unred = _sum_rows_into(torch.where(sl >= 0, sl * d + ep_of, -1), back,
+                           p * cp * d, 1)
+    # ---- reverse pod a2a: d unreduced partials per stage-1 slot ------------
+    home = _over_pod(unred.reshape(p, cp, d, -1), mesh)
+    # ---- reduce AFTER crossing, in ep order, then into source rows ----------
+    red = home[:, :, 0]
+    for j in range(1, d):
+        red = red + home[:, :, j]
+    return _sum_rows_into(state.map_pod, red, state.n_tokens, p)
+
+
+# ===========================================================================
+# Baseline (unicast) dispatch / combine: one copy per (token, dest rank)
+# ===========================================================================
+
+def _exchange_ranks(x: torch.Tensor, mesh: EPMesh, *,
+                    back: bool = False) -> torch.Tensor:
+    """The baseline's flattened-domain exchange of x [R, Cr, ...] (R =
+    (pod, ep) ranks, row-major): an all_to_all over ep that splits axis 1
+    of the [P, D, Cr, ...] view, then one over pod that splits axis 0
+    (``back``: pod first, then ep)."""
+    p, d = mesh.num_pods, mesh.ep_per_pod
+    rest = x.shape[1:]
+    x = x.reshape(p, d, *rest)
+    for step in ((_over_pod, _over_ep) if back else (_over_ep, _over_pod)):
+        x = step(x, mesh)
+    return x.reshape(p * d, *rest)
+
+
+def _over_ep(x: torch.Tensor, mesh: EPMesh) -> torch.Tensor:
+    """All_to_all over ep of axis 1 of x [P, D, ...]: that axis goes to the
+    front, is exchanged, and goes back."""
+    if mesh.ep_per_pod == 1:
+        return x
+    return _all_to_all(x.movedim(1, 0), mesh.group(mesh.ep_axis)
+                       ).movedim(0, 1)
+
+
+@dataclasses.dataclass
+class BaselineState:
+    map_rank: torch.Tensor   # [R, Cr]  source row per destination-rank slot
+    map_exp: torch.Tensor    # [E_local, Ce]
+    n_tokens: int
+    cfg: DispatchConfig
+    mesh: EPMesh
+
+
+def baseline_dispatch(tokens: torch.Tensor, expert_ids: torch.Tensor,
+                      gates: torch.Tensor, cfg: DispatchConfig,
+                      mesh: EPMesh):
+    """Unicast dispatch: pack one copy per (token, destination RANK) and
+    exchange over the flattened (pod, ep) domain, so each token's copies to
+    every remote rank cross the pod axis (the paper's baseline).  Packs in
+    ``ceil(R / 31)`` bitmap words, then once per local expert."""
+    n, h = tokens.shape
+    k = expert_ids.shape[-1]
+    dev = tokens.device
+    per_rank = expert_placement(cfg, mesh)
+    p, d = mesh.num_pods, mesh.ep_per_pod
+    r = p * d
+    rank_of = expert_ids // per_rank                               # [N, K]
+    rank_any = (rank_of[..., None]
+                == torch.arange(r, device=dev)).any(dim=1)          # [N, R]
+    cr = max(1, int(round(n * cfg.pod_capacity)))
+    valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    outs, maps = [], []
+    for w in range((r + 30) // 31):
+        nd = min(31, r - w * 31)
+        o, m = pack_by_bitmap(tokens, _bits(rank_any[:, w * 31:w * 31 + nd]),
+                              valid, nd, cr)
+        outs.append(o)
+        maps.append(m)
+    send_tok = torch.cat(outs)                                      # [R,Cr,H]
+    map_rank = torch.cat(maps)                                      # [R, Cr]
+    ids_send = gather_rows(expert_ids, map_rank.reshape(-1)).reshape(r, cr, k)
+    gates_send = gather_rows(gates, map_rank.reshape(-1)).reshape(r, cr, k)
+
+    got_tok = _exchange_ranks(send_tok, mesh)
+    got_ids = _exchange_ranks(ids_send, mesh)
+    got_gates = _exchange_ranks(gates_send, mesh)
+    got_valid = _exchange_ranks(map_rank >= 0, mesh)
+
+    my_rank = _my_rank(mesh)
+    flat_tok = got_tok.reshape(r * cr, h)
+    flat_ids = got_ids.reshape(r * cr, k)
+    flat_gates = got_gates.reshape(r * cr, k)
+    local_e = flat_ids - my_rank * per_rank
+    mine = (local_e >= 0) & (local_e < per_rank)
+    exp_bits = torch.where(mine, 1 << local_e.clamp(0, 30), 0).sum(
+        dim=-1, dtype=torch.int32)
+    ce = max(1, int(round(r * cr * cfg.expert_capacity)))
+    exp_tok, map_exp = pack_by_bitmap(flat_tok, exp_bits,
+                                      got_valid.reshape(r * cr), per_rank, ce)
+    exp_gate = _gate_for_expert(flat_ids, flat_gates, map_exp,
+                                my_rank * per_rank, per_rank)
+    state = BaselineState(map_rank=map_rank, map_exp=map_exp, n_tokens=n,
+                          cfg=cfg, mesh=mesh)
+    return exp_tok, exp_gate, state
+
+
+def baseline_combine(expert_out: torch.Tensor, exp_gate: torch.Tensor,
+                     state: BaselineState) -> torch.Tensor:
+    """Unicast combine: per-(token, expert-rank) outputs return one by one
+    over both axes (pod, then ep; no relay reduction) and are summed at the
+    source.  The sum runs over the ep ranks of each pod, then over the
+    pods, as :func:`hierarchical_combine` adds them, so the two give
+    bit-identical outputs."""
+    mesh = state.mesh
+    p, d = mesh.num_pods, mesh.ep_per_pod
+    r = p * d
+    cr = state.map_rank.shape[1]
+    weighted = expert_out * exp_gate[..., None]
+    flat = _sum_rows_into(state.map_exp, weighted, r * cr,
+                          min(state.cfg.top_k, state.map_exp.shape[0]))
+    home = _exchange_ranks(flat.reshape(r, cr, -1), mesh, back=True)
+    out = None
+    for pod in range(p):
+        rows = slice(pod * d, (pod + 1) * d)
+        part = _sum_rows_into(state.map_rank[rows], home[rows],
+                              state.n_tokens, d)
+        out = part if out is None else out + part
+    return out
+
+
+# ===========================================================================
+# Analytic pod-axis byte accounting
+# ===========================================================================
+
+def dispatch_pod_bytes(expert_ids, cfg: DispatchConfig, mesh: EPMesh,
+                       h: int, elem_bytes: int = 2):
+    """(baseline_bytes, multiwrite_bytes) crossing the pod axis per rank,
+    the Table-1 quantity at pod scale.  expert_ids: [N, K] (numpy or a
+    tensor), from a rank of pod 0."""
+    ids = np.asarray(expert_ids.cpu() if isinstance(expert_ids, torch.Tensor)
+                     else expert_ids)
+    per_rank = cfg.num_experts // mesh.num_ranks
+    rank = ids // per_rank
+    pod = rank // mesh.ep_per_pod
+    # ranks/pods distinct per token, restricted to REMOTE pods
+    base = mw = 0
+    for row_rank, row_pod in zip(rank, pod):
+        remote = row_pod != 0
+        base += len(set(row_rank[remote]))
+        mw += len(set(row_pod[remote]))
+    return base * h * elem_bytes, mw * h * elem_bytes

@@ -12,21 +12,37 @@ On the CPU, the reduced config through the kernels' plain versions:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \
       --device cpu --smoke --prompt-len 16 --max-new 4
+
+Over ranks, under ``torchrun``: ``--pods P --ep D`` lays the P * D ranks out
+as P pods of D ep ranks (DBRX's 16 experts: 4 a rank over 2 x 2), each rank
+serving its share of the prompts.  ``--backend`` is required there: ``nccl``
+gives each rank the card of its local rank (there must be that many cards),
+``gloo`` puts every rank on the device ``--device`` names:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch dbrx_132b --layers 4 --pods 2 --ep 2 --backend gloo
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.api import build_model
+from repro_torch.parallel.context import ParallelContext
+from repro_torch.parallel.mesh import RankMesh
 from repro_torch.runtime.server import ServeConfig, ServeEngine
+
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=120)
 
 
 def serve_config(arch: str, *, layers: int | None, smoke: bool
@@ -42,18 +58,49 @@ def serve_config(arch: str, *, layers: int | None, smoke: bool
 
 
 def build_engine(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
-                 seed: int = 0, max_new: int = 32,
-                 temperature: float = 0.0) -> ServeEngine:
-    """Model with random weights from a seeded generator of ``device``,
-    wrapped in a ServeEngine."""
+                 seed: int = 0, max_new: int = 32, temperature: float = 0.0,
+                 cache_dtype=torch.bfloat16, pctx=None) -> ServeEngine:
+    """Model with random weights from a seeded generator of ``device``
+    (this rank's experts only, with a ``pctx``), wrapped in a
+    ServeEngine."""
     dev = resolve_device(device)
-    model = build_model(cfg, device=dev, dtype=dtype)
+    model = build_model(cfg, device=dev, dtype=dtype, pctx=pctx)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = model.init(gen)
     return ServeEngine(model, params,
                        ServeConfig(max_new_tokens=max_new,
-                                   temperature=temperature), device=dev)
+                                   temperature=temperature,
+                                   cache_dtype=cache_dtype),
+                       device=dev, pctx=pctx)
+
+
+def join_ranks(pods: int, ep: int, backend: str | None, device):
+    """Join the ``torchrun`` process group (its environment gives rank and
+    world size) as ``pods`` x ``ep`` ranks.  Returns (pctx, device); (None,
+    device) for one rank."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if pods * ep != world:
+        raise ValueError(f"--pods {pods} x --ep {ep} != world size {world}")
+    if world == 1:
+        return None, device
+    if backend == "nccl":
+        local = int(os.environ["LOCAL_RANK"])
+        cards = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if torch.cuda.device_count() < cards:
+            raise RuntimeError(f"nccl: {cards} ranks on this host, "
+                               f"{torch.cuda.device_count()} cards")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    elif backend == "gloo":
+        device = resolve_device(device)
+    else:
+        raise ValueError("--backend nccl or gloo is required over ranks")
+    dist.init_process_group(backend, timeout=COLLECTIVE_TIMEOUT,
+                            device_id=device if backend == "nccl" else None)
+    mesh = RankMesh((pods, ep, 1), timeout=COLLECTIVE_TIMEOUT)
+    return ParallelContext(mesh, pod_axis="pod" if pods > 1 else None), \
+        device
 
 
 def make_prompts(cfg: ModelConfig, prompts: int, prompt_len: int,
@@ -79,24 +126,37 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods of the rank mesh (under torchrun)")
+    ap.add_argument("--ep", type=int, default=1,
+                    help="ep ranks a pod (under torchrun)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="required over ranks: nccl (one card a rank) or "
+                         "gloo (every rank on --device)")
     args = ap.parse_args(argv)
 
     cfg = serve_config(args.arch, layers=args.layers, smoke=args.smoke)
+    pctx, device = join_ranks(args.pods, args.ep, args.backend, args.device)
     engine = build_engine(
-        cfg, device=args.device,
+        cfg, device=device,
         dtype=torch.float32 if args.smoke else torch.bfloat16,
-        seed=args.seed, max_new=args.max_new, temperature=args.temperature)
+        seed=args.seed, max_new=args.max_new, temperature=args.temperature,
+        pctx=pctx)
     prompts = make_prompts(cfg, args.prompts, args.prompt_len, args.seed)
     out = engine.generate(prompts)
+    if pctx is not None:
+        dist.destroy_process_group()
     st = engine.stats
     result = {
         "arch": cfg.name, "layers": cfg.n_layers, "device": str(engine.device),
+        "ranks": f"{args.pods} pods x {args.ep} ep",
         "shape": list(out.shape), "prefill_s": st["prefill_s"],
         "decode_s": st["decode_s"], "tokens": st["tokens"],
         "nonfinite_logits": st["nonfinite_logits"],
         "first_tokens": out[:, :8].tolist(),
     }
-    print(json.dumps(result))
+    if pctx is None or pctx.mesh.rank == 0:
+        print(json.dumps(result))
     return result
 
 

@@ -10,6 +10,8 @@
 
 Batches: ``{"tokens": [B, S] int}`` for prefill, ``{"tokens": [B, 1]}`` for
 decode.  The model runs on CUDA unless it is built with ``device="cpu"``.
+Built with a ``pctx`` (dense and moe families), a model holds one rank's
+experts and its batches are that rank's data-parallel rows.
 """
 
 from __future__ import annotations
@@ -31,13 +33,15 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def param_module(cfg: ModelConfig, *, device, dtype) -> nn.Module:
-    """The family's parameter module, uninitialised."""
+def param_module(cfg: ModelConfig, *, device, dtype,
+                 pctx=None) -> nn.Module:
+    """The family's parameter module, uninitialised (one rank's shard of
+    it with a ``pctx``)."""
     if cfg.family == "hybrid":
         return ssm.Zamba2(cfg, device=device, dtype=dtype)
     if cfg.family == "rwkv":
         return rwkv.RWKV6(cfg, device=device, dtype=dtype)
-    return T.Transformer(cfg, device=device, dtype=dtype)
+    return T.Transformer(cfg, device=device, dtype=dtype, pctx=pctx)
 
 
 @dataclasses.dataclass
@@ -45,15 +49,20 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     dtype: torch.dtype
+    pctx: object = None
 
     def init(self, generator: torch.Generator) -> nn.Module:
         """Random parameters on the model's device, drawn from
         ``generator`` (a generator of that device)."""
-        init = {"hybrid": ssm.init_zamba2,
-                "rwkv": rwkv.init_rwkv6}.get(self.cfg.family,
-                                             T.init_transformer)
-        return init(self.cfg, generator=generator, device=self.device,
-                    dtype=self.dtype)
+        if self.cfg.family == "hybrid":
+            return ssm.init_zamba2(self.cfg, generator=generator,
+                                   device=self.device, dtype=self.dtype)
+        if self.cfg.family == "rwkv":
+            return rwkv.init_rwkv6(self.cfg, generator=generator,
+                                   device=self.device, dtype=self.dtype)
+        return T.init_transformer(self.cfg, generator=generator,
+                                  device=self.device, dtype=self.dtype,
+                                  pctx=self.pctx)
 
     def _embed(self, params, tokens) -> torch.Tensor:
         x = L.embed(params.embed, tokens.to(self.device))
@@ -82,7 +91,7 @@ class Model:
         else:
             logits, cache = T.prefill(params, self.cfg, x,
                                       _positions(*toks.shape, self.device),
-                                      cache)
+                                      cache, self.pctx)
         return logits[:, 0], cache
 
     def decode(self, params, batch: dict, cache: dict):
@@ -94,16 +103,22 @@ class Model:
             h, cache = step(params, self.cfg, x, cache)
             logits = T.logits_fn(params, self.cfg, h, last_only=True)
         else:
-            logits, cache = T.decode_step(params, self.cfg, x, cache)
+            logits, cache = T.decode_step(params, self.cfg, x, cache,
+                                          self.pctx)
         return logits[:, 0], cache
 
 
 def build_model(cfg: ModelConfig, *, device=None,
-                dtype: torch.dtype = torch.bfloat16) -> Model:
+                dtype: torch.dtype = torch.bfloat16, pctx=None) -> Model:
     """Dense, moe, hybrid and rwkv families; encdec and the embeddings
-    input are later slices of the port."""
+    input are later slices of the port, and so are the hybrid and rwkv
+    families over ranks."""
     T.check_supported(cfg)
-    return Model(cfg=cfg, device=resolve_device(device), dtype=dtype)
+    if pctx is not None and cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {cfg.family!r} over a "
+                                  f"ParallelContext is not ported yet")
+    return Model(cfg=cfg, device=resolve_device(device), dtype=dtype,
+                 pctx=pctx)
 
 
 def make_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,

@@ -1,10 +1,12 @@
 """Decoder-only transformer stacks (dense and MoE) with KV-cache serving.
 
 Port of the decoder half of ``src/repro/models/transformer.py`` for the
-dense and moe families on one rank.  The reference scans stacked [L, ...]
-parameters; the port keeps one ``Block`` module per layer (the converter
-unstacks the reference's pytree) and runs the layers in a Python loop.
-Caches are per-layer buffers updated in place.
+dense and moe families.  The reference scans stacked [L, ...] parameters;
+the port keeps one ``Block`` module per layer (the converter unstacks the
+reference's pytree) and runs the layers in a Python loop.  Caches are
+per-layer buffers updated in place.  With a ``pctx`` each rank holds its
+data-parallel rows and its experts; every layer but the MoE exchange is
+rank-local (the model axis is 1).
 """
 
 from __future__ import annotations
@@ -45,14 +47,17 @@ def check_supported(cfg: ModelConfig) -> None:
 class Block(nn.Module):
     """One decoder layer: attention, then an MoE or dense FFN."""
 
-    def __init__(self, cfg: ModelConfig, *, moe: bool, device, dtype):
+    def __init__(self, cfg: ModelConfig, *, moe: bool, device, dtype,
+                 pctx=None):
         super().__init__()
         self.ln1 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
         self.attn = L.Attention(_dims(cfg), device=device, dtype=dtype)
         self.ln2 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
         if moe:
+            first, local = M.expert_shard(pctx, cfg.num_experts)
             self.moe = M.MoE(cfg.d_model, cfg.expert_d_ff, cfg.num_experts,
-                             device=device, dtype=dtype)
+                             device=device, dtype=dtype, first=first,
+                             local=local)
             self.mlp = None
         else:
             self.moe = None
@@ -63,16 +68,18 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """Parameters of a decoder stack: embedding, blocks (the
     ``first_k_dense`` dense layers of an MoE stack first), final norm and
-    an untied unembedding [D, V] unless the config ties them."""
+    an untied unembedding [D, V] unless the config ties them.  With a
+    ``pctx`` the MoE blocks hold this rank's experts only."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, cfg: ModelConfig, *, device, dtype, pctx=None):
         super().__init__()
         check_supported(cfg)
         n_dense = cfg.first_k_dense if cfg.is_moe else cfg.n_layers
         self.embed = L.Embedding(cfg.vocab, cfg.d_model, device=device,
                                  dtype=dtype)
         self.blocks = nn.ModuleList(
-            Block(cfg, moe=i >= n_dense, device=device, dtype=dtype)
+            Block(cfg, moe=i >= n_dense, device=device, dtype=dtype,
+                  pctx=pctx)
             for i in range(cfg.n_layers))
         self.final_norm = L.RMSNorm(cfg.d_model, device=device,
                                     eps=cfg.norm_eps)
@@ -82,15 +89,19 @@ class Transformer(nn.Module):
 
 
 def init_transformer(cfg: ModelConfig, *, generator: torch.Generator,
-                     device, dtype) -> Transformer:
+                     device, dtype, pctx=None) -> Transformer:
     """Random weights drawn from ``generator`` (truncated normal at the
-    reference's scales; norms start at zero), filled in place."""
-    params = Transformer(cfg, device=device, dtype=dtype)
+    reference's scales; norms start at zero), filled in place.  Experts
+    come from generators of their own (``moe.expert_seed``), so a rank's
+    experts equal the one-rank model's."""
+    params = Transformer(cfg, device=device, dtype=dtype, pctx=pctx)
     params.embed.reset_parameters(generator)
-    for blk in params.blocks:
+    for i, blk in enumerate(params.blocks):
         blk.attn.reset_parameters(generator)
-        (blk.moe if blk.moe is not None else blk.mlp).reset_parameters(
-            generator)
+        if blk.moe is not None:
+            blk.moe.reset_parameters(generator, layer=i)
+        else:
+            blk.mlp.reset_parameters(generator)
     if params.unembed is not None:
         L.truncated_normal_(params.unembed, cfg.d_model ** -0.5, generator)
     return params
@@ -123,11 +134,13 @@ def _attn_part(lp: Block, x, positions, cfg, *, window, causal=True,
                        rope_theta=cfg.rope_theta, return_kv=return_kv)
 
 
-def _ffn_part(lp: Block, x, cfg):
+def _ffn_part(lp: Block, x, cfg, pctx=None):
+    """The FFN half of a block; serving drops the MoE aux loss, so it is
+    never computed (nor averaged over the ranks)."""
     h = lp.ln2(x)
     if lp.moe is not None:
-        return M.moe_ffn(lp.moe, h, cfg)
-    return L.mlp(lp.mlp, h, cfg.act), torch.zeros((), device=x.device)
+        return M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=False)[0]
+    return L.mlp(lp.mlp, h, cfg.act)
 
 
 def _decode_attn(lp: Block, x, ck, cv, cur: int, cfg, *, window):
@@ -161,7 +174,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     }
 
 
-def prefill(params: Transformer, cfg, x, positions, cache):
+def prefill(params: Transformer, cfg, x, positions, cache, pctx=None):
     """Forward pass over the prompt that also fills the cache (in place:
     the reference pads the new k, v into fresh buffers).  x: [B, S, D].
     Returns (last-position logits [B, 1, V], cache)."""
@@ -172,7 +185,7 @@ def prefill(params: Transformer, cfg, x, positions, cache):
                                window=None if wins is None else wins[i],
                                return_kv=True)
         x = x + a
-        f, _ = _ffn_part(lp, x, cfg)
+        f = _ffn_part(lp, x, cfg, pctx)
         x = x + f
         cache["k"][i][:, :seq] = k.to(cache["k"][i].dtype)
         cache["v"][i][:, :seq] = v.to(cache["v"][i].dtype)
@@ -181,7 +194,7 @@ def prefill(params: Transformer, cfg, x, positions, cache):
     return logits_fn(params, cfg, x, last_only=True), cache
 
 
-def decode_step(params: Transformer, cfg, x, cache):
+def decode_step(params: Transformer, cfg, x, cache, pctx=None):
     """One decode token.  x: [B, 1, D] hidden input; the caches are
     updated in place.  Returns (logits [B, 1, V], cache)."""
     wins = window_schedule(cfg, cfg.n_layers)
@@ -190,7 +203,7 @@ def decode_step(params: Transformer, cfg, x, cache):
         a = _decode_attn(lp, x, cache["k"][i], cache["v"][i], cur, cfg,
                          window=None if wins is None else wins[i])
         x = x + a
-        f, _ = _ffn_part(lp, x, cfg)
+        f = _ffn_part(lp, x, cfg, pctx)
         x = x + f
     cache["len"] = cur + 1
     x = params.final_norm(x)

@@ -61,6 +61,31 @@ def test_pack_kernel_at_edges_on_card(n, h, d, c):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,d,c,blocks,filled", [
+    (512, 2, 640, 1, 512),      # stage 1: 512 tokens a rank to 2 pods
+    (1280, 2, 1600, 2, 490),    # stage 2: rows from 2 pods, with holes
+    (3200, 4, 640, 2, 720),     # stage 3: rows from 2 relays, 4 experts
+])
+def test_pack_kernel_at_two_by_two_rank_stages_on_card(n, d, c, blocks,
+                                                       filled):
+    """The packs of one DBRX prefill MoE layer at 2 pods x 2 ep ranks
+    (capacity factor 1.25): the stage-2 and stage-3 inputs come off a
+    transport, each received block filled to its sender's count."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    tokens = torch.randn((n, 6144), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bitmap = torch.randint(1, 1 << d, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+    valid = torch.arange(n, device="cuda") % (n // blocks) < filled
+    got_t, got_i = ops.dispatch_pack(tokens, bitmap, valid, num_dests=d,
+                                     capacity=c)
+    exp_t, exp_i = tref.pack_ref(tokens, bitmap, valid, d, c)
+    assert torch.equal(got_i, exp_i)
+    assert torch.equal(got_t.view(torch.int16), exp_t.view(torch.int16))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal,window,softcap", [
     (True, None, None), (True, 32, None), (False, None, 30.0)])
 def test_attention_kernel_matches_plain_on_card(causal, window, softcap):

@@ -105,16 +105,73 @@ def test_dispatch_combine_match_reference(n, h, e, k, cf):
     np.testing.assert_allclose(_np(tcomb), np.asarray(jcomb), **TOL)
 
 
-def test_multi_rank_transport_is_not_in_this_slice():
-    mesh = tcl.EPMesh(pod_axis="pod", ep_axis="data", num_pods=2,
-                      ep_per_pod=1)
-    cfg = tcl.DispatchConfig(num_experts=4, top_k=1)
-    ids = torch.zeros((4, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="multi-rank"):
-        tcl.hierarchical_dispatch(torch.zeros((4, 8)), ids,
-                                  torch.ones((4, 1)), cfg, mesh)
-    with pytest.raises(NotImplementedError, match="multi-rank"):
-        tmoe.moe_ffn(None, torch.zeros((1, 2, 8)), None, pctx=object())
+def test_planner_and_tensor_parallel_slices_raise():
+    """What the fixed-policy context does not take raises, naming the slice
+    of the port that brings it."""
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.parallel.mesh import RankMesh
+    mesh = RankMesh((1, 1, 1))
+    with pytest.raises(NotImplementedError, match="item 3"):
+        ParallelContext(mesh, plan_policy="auto")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        ParallelContext(mesh, moe_microbatch=2)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        RankMesh((1, 1, 2))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ParallelContext(mesh, moe_deferred_tp_reduce=True)
+    pctx = ParallelContext(mesh, moe_scheme="baseline",
+                           moe_combine="hierarchical")
+    assert pctx.moe_pipeline_kwargs() == {"moe_scheme": "baseline",
+                                          "moe_combine": "baseline"}
+
+
+@pytest.mark.parametrize("scheme", ["unicast_combine", "baseline"])
+def test_one_rank_schemes_match_reference(scheme):
+    """The unicast combine and the baseline round trip on one rank (no
+    transport) against the reference's."""
+    n, h, e, k, cf = 24, 8, 8, 2, 1.25
+    rng, (jtok, jgate, jst), (ttok, tgate, tst) = _dispatch_both(
+        n, h, e, k, cf, seed=4)
+    if scheme == "baseline":
+        jmesh = jst.mesh
+        tmesh = tst.mesh
+        jcfg = jmoe.unicast_capacities(jst.cfg, n, k, 1, e, cf)
+        tcfg = tmoe.unicast_capacities(tst.cfg, n, k, 1, e, cf)
+        assert jcfg.__dict__ == tcfg.__dict__
+        tok = rng.normal(size=(n, h)).astype(np.float32)
+        logits = rng.normal(size=(n, e)).astype(np.float32)
+        jg, ji = jcl.route_topk(jnp.asarray(logits), k)
+        tg, ti = tcl.route_topk(torch.from_numpy(logits), k)
+        jtok, jgate, jst = jax.jit(jcl.baseline_dispatch,
+                                   static_argnums=(3, 4))(
+            jnp.asarray(tok), ji, jg, jcfg, jmesh)
+        ttok, tgate, tst = tcl.baseline_dispatch(torch.from_numpy(tok), ti,
+                                                 tg, tcfg, tmesh)
+        for name in ("map_rank", "map_exp"):
+            np.testing.assert_array_equal(_np(getattr(tst, name)),
+                                          np.asarray(getattr(jst, name)))
+        jcombine, tcombine = jcl.baseline_combine, tcl.baseline_combine
+    else:
+        jcombine = jcl.hierarchical_combine_unicast
+        tcombine = tcl.hierarchical_combine_unicast
+    np.testing.assert_array_equal(_np(ttok), np.asarray(jtok))
+    expert_out = rng.normal(size=ttok.shape).astype(np.float32)
+    jcomb = jax.jit(jcombine)(jnp.asarray(expert_out), jgate, jst)
+    tcomb = tcombine(torch.from_numpy(expert_out), tgate, tst)
+    np.testing.assert_allclose(_np(tcomb), np.asarray(jcomb), **TOL)
+
+
+@pytest.mark.parametrize("n_tokens,k,ranks,per_rank,cf", [
+    (512, 4, 4, 4, 1.25), (1, 4, 4, 4, 4.0), (24, 2, 4, 2, 1.0),
+    (7, 8, 32, 12, 1.1)])
+def test_unicast_capacities_copy_reference(n_tokens, k, ranks, per_rank, cf):
+    base_t = tmoe.balanced_capacities(n_tokens, k, 2, ranks // 2, per_rank,
+                                      cf)
+    base_j = jmoe.balanced_capacities(n_tokens, k, 2, ranks // 2, per_rank,
+                                      cf)
+    assert tmoe.unicast_capacities(base_t, n_tokens, k, ranks, per_rank,
+                                   cf).__dict__ == jmoe.unicast_capacities(
+        base_j, n_tokens, k, ranks, per_rank, cf).__dict__
 
 
 def test_gather_rows_matches_reference():
@@ -133,6 +190,44 @@ def test_capacities_copy_reference(n_tokens, k, p, d, per_rank, cf):
     assert tmoe.balanced_capacities(n_tokens, k, p, d, per_rank, cf) \
         .__dict__ == jmoe.balanced_capacities(
             n_tokens, k, p, d, per_rank, cf).__dict__
+
+
+class _RankOf:
+    """Just enough of a ParallelContext for the expert sharding: EP rank
+    ``index`` of ``ranks`` over (pod, data)."""
+    pod_axis, data_axis = "pod", "data"
+
+    def __init__(self, index: int, ranks: int):
+        self.index, self.ranks, self.mesh = index, ranks, self
+
+    def ep_ranks(self, num_experts):
+        return True, self.ranks
+
+    def axis_index(self, *names):
+        return self.index
+
+
+def test_rank_shard_draws_the_one_rank_experts():
+    """A rank's experts, drawn alone from their own seeds, equal the same
+    experts of the one-rank model; the router and attention are whole."""
+    from repro_torch.models import transformer as T
+    cfg = get_config("dbrx_132b").reduced()
+
+    def init(pctx):
+        return T.init_transformer(cfg, generator=torch.Generator().manual_seed(
+            3), device="cpu", dtype=torch.float32, pctx=pctx)
+
+    # rank 2 of 4 EP ranks holds experts 4 and 5 of 8
+    whole, shard = init(None), init(_RankOf(2, 4))
+    for b_whole, b_shard in zip(whole.blocks, shard.blocks):
+        if b_whole.moe is None:
+            continue
+        assert b_shard.moe.first == 4 and b_shard.moe.w1.shape[0] == 2
+        for name in ("w1", "w3", "w2"):
+            assert torch.equal(getattr(b_shard.moe, name),
+                               getattr(b_whole.moe, name)[4:6])
+        assert torch.equal(b_shard.moe.router, b_whole.moe.router)
+        assert torch.equal(b_shard.attn.wq, b_whole.attn.wq)
 
 
 @pytest.fixture(scope="module")
@@ -237,3 +332,21 @@ def test_dense_tied_windowed_model_matches_reference():
                                       {"tokens": torch.from_numpy(nxt)},
                                       tcache)
             np.testing.assert_allclose(_np(tl), np.asarray(jl), **LOGIT_TOL)
+
+
+def test_converter_takes_a_rank_shard(reduced):
+    """``params_from_jax`` with a pctx keeps the rank's experts of the
+    reference's tree and everything else whole."""
+    cfg, _, _, jparams, tparams = reduced
+    np_params = jax.tree_util.tree_map(np.asarray, jparams)
+    shard = params_from_jax(np_params, cfg, device="cpu",
+                            dtype=torch.float32, pctx=_RankOf(3, 4))
+    for b_whole, b_shard in zip(tparams.blocks, shard.blocks):
+        if b_whole.moe is None:
+            continue
+        for name in ("w1", "w3", "w2"):
+            assert torch.equal(getattr(b_shard.moe, name),
+                               getattr(b_whole.moe, name)[6:8])
+        assert torch.equal(b_shard.moe.router, b_whole.moe.router)
+    assert torch.equal(shard.unembed, tparams.unembed)
+

@@ -146,6 +146,27 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_engine_over_ranks_checks_its_context_and_batch(engines):
+    """The engine takes the model's own context, and a batch that does not
+    divide over the data-parallel ranks raises before any work."""
+    cfg, _, teng = engines
+
+    class FourRanks:                   # dp rank 1 of 4
+        dp_size, dp_index = 4, 1
+
+    pctx = FourRanks()
+    with pytest.raises(ValueError, match="ParallelContext"):
+        ServeEngine(teng.model, teng.params, device="cpu", pctx=pctx)
+    model = build_model(cfg, device="cpu", dtype=torch.float32, pctx=pctx)
+    eng = ServeEngine(model, teng.params, device="cpu", pctx=pctx)
+    np.testing.assert_array_equal(eng._my_rows(np.arange(8)), [2, 3])
+    with pytest.raises(ValueError, match="does not divide"):
+        eng.start_cohort(np.zeros((3, 4), np.int32))
+    with pytest.raises(NotImplementedError, match="ParallelContext"):
+        build_model(get_config("zamba2_7b").reduced(), device="cpu",
+                    pctx=pctx)
+
+
 def test_unported_families_raise():
     import dataclasses
     cfg = get_config("dbrx_132b").reduced()
@@ -193,6 +214,9 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(mods) >= 20, mods\n"
+        "assert {'repro_torch.parallel.mesh', 'repro_torch.parallel.context',\n"
+        "        'repro_torch.core.bitmap', 'repro_torch.launch.ranks'\n"
+        "        } <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -214,6 +238,9 @@ def _imports(path: Path):
 def test_no_source_of_the_port_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 20
+    assert {PORT / "parallel" / "mesh.py", PORT / "parallel" / "context.py",
+            PORT / "core" / "bitmap.py", PORT / "launch" / "ranks.py"
+            } <= set(files)
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
