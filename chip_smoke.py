@@ -29,10 +29,13 @@ Phases; any failure raises and the script exits non-zero:
    layers, then Zamba2-7B and RWKV6-7B at full width and full depth; each
    with the kernels' launch counts over its own run;
 6. ranks: DBRX-132B (4 layers) over 4 spawned ranks, 2 pods x 2 ep ranks
-   of 4 experts, one prompt a rank, under the three MoE scheme pairs
-   (nccl with a card a rank where there are 4 cards, else gloo with all
-   ranks on card 0): every rank's tokens equal, equal across the pairs and
-   to a one-rank run up to near ties, exact launch counts, and the
+   of 4 experts, one prompt a rank (nccl with a card a rank where there are
+   4 cards, else gloo with all ranks on card 0): the three MoE scheme pairs
+   at one chunk, the hierarchical pair at G = 4 chunks, and a run under the
+   planner's plan for the fabric the ranks measured, with the planner's
+   decisions on that fabric and on a slow pod link; every rank's tokens
+   equal, equal across the pairs and to a one-rank run up to near ties,
+   exact launch counts, every pack of each warm-up bit-exact, and the
    pod-group bytes of one prefill dispatch below the baseline's.
 
 Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
@@ -40,6 +43,11 @@ Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
+
+  python3 chip_smoke.py --ranks-only 4 1.25 --trace chiprun_out/t.json
+
+runs phase 6 alone, once at each capacity factor (on four cards: nccl),
+after the device and build phases.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ BF16_FLOP_PER_S = 989e12
 SERVES = (("dbrx_132b", 4), ("zamba2_7b", None), ("rwkv6_7b", None))
 RANKS = (2, 2)                          # phase 6: pods x ep ranks
 RANKS_CF = 4.0                          # phase 6: num_experts / top_k
+PIPE_G = 4                              # phase 6: chunks of the G > 1 run
 PROMPTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 kernel vs fp32 plain
 # bf16 scans vs the fp32 per-step recurrence: the reference kernel tests'
@@ -934,17 +943,38 @@ def serve_phase(arch: str, layers) -> dict:
 # phase 6: DBRX over 4 ranks, 2 pods x 2 ep ranks
 # ---------------------------------------------------------------------------
 
-def ranks_phase() -> dict:
+def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
     """DBRX-132B (4 layers) served over 4 spawned ranks, 2 pods x 2 ep
-    ranks with 4 experts each, under the three scheme pairs, against a
-    one-rank ``generate`` of the same seeded weights run here first.  The
-    capacity factor is num_experts / top_k = 4, at which no stage of either
-    path drops a (token, expert) pair: at 1.25 the two paths drop different
-    pairs, since drop priority follows the order of arrival.  Each rank's
-    warm-up run (a prefill and a decode step, the measured run's shapes)
-    holds every pack of the path against its plain version on the inputs
-    the transports gave it.  Returns the kernel launches of the measured
-    4-rank runs, summed over ranks and pairs."""
+    ranks with 4 experts each, at capacity factor ``cf``.
+
+    Runs, in order: the three fixed scheme pairs at one chunk; the
+    hierarchical pair at G = 4 chunks; one run under the plan of
+    ``build_collective_program`` for prefill and decode, bound on the
+    fabric the ranks measured (over nccl: the per-pair rate of one
+    ``all_to_all_single`` at the stage-1 prefill size, ``2x2@R:R``; over
+    gloo nothing is measured and the planner scores on the reference's
+    mesh-derived default); and its twin, the fixed run at the (scheme,
+    combine, G) the plan resolved for prefill.  The ranks also report the planner's decisions
+    on that fabric and on the same fabric with its pod link slowed to 12.5
+    GB/s, and the host time of one ``moe_pipeline_kwargs`` call.
+
+    Gates: every rank's tokens, launch counts (from each run's resolved
+    G), finite logits, every pack of each run's warm-up (a prefill and a
+    decode step at the measured shapes, chunked ones included) bit-exact
+    against its plain version, the same plan on every rank, and MultiWrite's
+    pod-group bytes below the baseline's.  At ``cf`` = num_experts / top_k
+    = 4 no stage of either path drops a (token, expert) pair, so also: the
+    three pairs give the same tokens, the 4-rank logits are within
+    ``REF_TOL`` of a one-rank run of the same weights, the G = 4 run parts
+    from the first run only at near ties, and the planned run from its
+    twin.  Below that the paths drop different pairs (drop priority
+    follows the order of arrival, and a chunk's capacity is its own), so
+    the one-rank run and the other configurations are no reference (a
+    planned run and its twin still agree), and only the ranks are held
+    to each other.  ``trace`` names a file for a ``torch.profiler`` trace of
+    one G = 4 prefill layer (on the card, every rank traced, rank 0's
+    written).  Returns the kernel launches of the measured runs, summed
+    over ranks and runs."""
     import dataclasses
     import tempfile
 
@@ -957,8 +987,8 @@ def ranks_phase() -> dict:
     from repro_torch.runtime.server import ServeConfig
 
     cfg = dataclasses.replace(serve_config("dbrx_132b", layers=4,
-                                           smoke=False),
-                              moe_capacity=RANKS_CF)
+                                           smoke=False), moe_capacity=cf)
+    exact = cf >= cfg.num_experts / cfg.top_k
     world = RANKS[0] * RANKS[1]
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= world else "gloo"
@@ -966,37 +996,58 @@ def ranks_phase() -> dict:
              if backend == "nccl" else
              f"gloo, {world} processes on one card, host-staged transport: "
              f"no fabric measured")
-    print(f"  {cards} card(s): {world} ranks over {where}")
+    print(f"  {cards} card(s): {world} ranks over {where}; capacity factor "
+          f"{cf}")
     prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
 
-    # the one-rank reference: the same weights, capacity factor and prompts
-    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    one = ranks.RecordingEngine(model, model.init(gen),
-                                ServeConfig(max_new_tokens=MAX_NEW),
-                                device="cuda")
-    expected = one.generate(prompts)
-    one_logits = one.step_logits          # [B, V] at each of MAX_NEW steps
-    # the same model one prompt at a time: how far the bf16 products at a
-    # rank's shapes (512 rows, not 2,048) move the logits on their own
-    with torch.inference_mode():
-        alone = torch.cat([model.prefill(
-            one.params, {"tokens": torch.from_numpy(prompts[i:i + 1]).cuda()},
-            model.init_cache(1, PROMPT_LEN))[0].float().cpu()
-            for i in range(PROMPTS)])
-    shape_rel = ((alone - one_logits[0]).abs().max()
-                 / one_logits[0].abs().max()).item()
-    del one, model
-    torch.cuda.empty_cache()
+    if exact:
+        # the one-rank reference: the same weights, capacity factor, prompts
+        model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        one = ranks.RecordingEngine(model, model.init(gen),
+                                    ServeConfig(max_new_tokens=MAX_NEW),
+                                    device="cuda")
+        expected = one.generate(prompts)
+        one_logits = one.step_logits      # [B, V] at each of MAX_NEW steps
+        # the same model one prompt at a time: how far the bf16 products at
+        # a rank's shapes (512 rows, not 2,048) move the logits on their own
+        with torch.inference_mode():
+            alone = torch.cat([model.prefill(
+                one.params,
+                {"tokens": torch.from_numpy(prompts[i:i + 1]).cuda()},
+                model.init_cache(1, PROMPT_LEN))[0].float().cpu()
+                for i in range(PROMPTS)])
+        shape_rel = ((alone - one_logits[0]).abs().max()
+                     / one_logits[0].abs().max()).item()
+        del one, model
+        torch.cuda.empty_cache()
+    else:
+        print(f"  capacity factor {cf} < {cfg.num_experts // cfg.top_k}: the "
+              f"paths drop different pairs, so no one-rank run is a "
+              f"reference; only the ranks are held to each other")
 
+    # the stage-1 send buffer of one prefill dispatch a rank: P x Cp rows
+    stage1 = ranks.link_probe_bytes(cfg, PROMPTS * PROMPT_LEN // world,
+                                    *RANKS)
+    nccl = backend == "nccl"
+    runs = ranks.fixed_runs() + [
+        dict(scheme="hierarchical", combine="hierarchical",
+             microbatch=PIPE_G),
+        dict(label="planned", policy="auto",
+             fabric="measured" if nccl else None, bind=True),
+        dict(label="planned-fixed", twin="planned")]
     with tempfile.TemporaryDirectory() as tmp:
         spec = dict(world=world, pods=RANKS[0], ep=RANKS[1], backend=backend,
                     device="cuda:0", init_method=f"file://{tmp}/store",
                     timeout_s=120, out_dir=f"{tmp}/out", threads=2, cfg=cfg,
                     dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
-                    prompts=prompts, max_new=MAX_NEW,
-                    schemes=ranks.SCHEME_PAIRS, warmup=True)
+                    prompts=prompts, max_new=MAX_NEW, runs=runs, warmup=True,
+                    measure_link=stage1 if nccl else None,
+                    decide=(["measured", "measured-pod:12.5"] if nccl
+                            else [None]),
+                    trace=(dict(run=ranks.run_label(runs[3]), path=trace)
+                           if trace else None))
         t0 = time.monotonic()
         results = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900)
     print(f"  {world} ranks spawned, served and joined in "
@@ -1005,116 +1056,223 @@ def ranks_phase() -> dict:
 
     failures = []
     total: dict = {}
-    want = {"dispatch_pack": 0, "flash_attention": cfg.n_layers,
-            "mamba2_scan": 0, "rwkv6_scan": 0}
-    pairs = [f"{a}+{b}" for a, b in ranks.SCHEME_PAIRS]
-    first = results[0]["pairs"][pairs[0]]["tokens"]
-    for pair in pairs:
-        runs = [r["pairs"][pair] for r in results]
+    r0 = results[0]
+    if "link" in r0:
+        link = r0["link"]
+        print(f"  link: all_to_all_single of {link['bytes']} bytes a rank "
+              f"over the {world} ranks: {link['pair_rate'] / 1e9:.3f} GB/s "
+              f"a pair (10 exchanges back to back, the median of 3 rounds, "
+              f"the slowest rank's) -> fabric "
+              f"{link['fabric']}")
+    else:
+        print("  link: no fabric measured (gloo stages every exchange "
+              "through the host); the planner scores on the reference's "
+              "default, the mesh-derived topology")
+    for dec in r0["decisions"]:
+        host = dec["host_us"]
+        print(f"  planner on {dec['fabric']} [{dec['fingerprint']}] (model "
+              f"decision): " + "; ".join(
+                  f"{ph} {d['scheme']}+{d['combine']} G={d['microbatch']}, "
+                  f"modelled serial {d['serial_s'] * 1e6:.1f} us, pipelined "
+                  f"{d['pipelined_s'] * 1e6:.1f} us"
+                  for ph, d in dec["phases"].items()))
+        print(f"    one moe_pipeline_kwargs call, host: bound plan "
+              f"{host['bound'][0]:.1f} us first, {host['bound'][1]:.1f} us "
+              f"repeated; ad-hoc auto {host['auto'][0]:.1f} us first, "
+              f"{host['auto'][1]:.1f} us repeated")
+    for r in results:
+        if [d["fingerprint"] for d in r["decisions"]] != \
+                [d["fingerprint"] for d in r0["decisions"]]:
+            failures.append(f"rank {r['rank']}: other planner decisions")
+
+    labels = [ranks.run_label(run) for run in runs]
+    pairs = labels[:3]
+    first = r0["runs"][labels[0]]["tokens"]
+    packs = {"hierarchical": 3, "baseline": 2}   # packs a dispatch chunk
+    walls = {}
+    for label in labels:
+        runs_ = [r["runs"][label] for r in results]
+        res = runs_[0]["resolved"]
+        if any(run["resolved"] != res or run["plan"] != runs_[0]["plan"]
+               for run in runs_):
+            failures.append(f"{label}: ranks resolved different plans")
+        (ps, pc, pg), (ds, dc, dg) = res["prefill"], res["decode"]
+        print(f"  {label}: prefill {ps}+{pc} G={pg}, decode {ds}+{dc} "
+              f"G={dg}" + (f" (plan {runs_[0]['plan']})"
+                           if runs_[0]["plan"] else ""))
         # (a) every rank returns the same global tokens
-        if not all(np.array_equal(run["tokens"], runs[0]["tokens"])
-                   for run in runs):
-            failures.append(f"{pair}: ranks returned different tokens")
+        if not all(np.array_equal(run["tokens"], runs_[0]["tokens"])
+                   for run in runs_):
+            failures.append(f"{label}: ranks returned different tokens")
         # (c) the three scheme pairs give the same tokens
-        if not np.array_equal(runs[0]["tokens"], first):
-            failures.append(f"{pair}: tokens differ from {pairs[0]}")
+        if exact and label in pairs and \
+                not np.array_equal(runs_[0]["tokens"], first):
+            failures.append(f"{label}: tokens differ from {labels[0]}")
         # (d) exact launch counts on each rank
-        packs = 3 if pair.startswith("hierarchical") else 2
-        want["dispatch_pack"] = packs * cfg.n_layers * MAX_NEW
-        for r, run in zip(results, runs):
+        want = {"dispatch_pack": cfg.n_layers * (
+                    packs[ps] * pg + packs[ds] * dg * (MAX_NEW - 1)),
+                "flash_attention": cfg.n_layers, "mamba2_scan": 0,
+                "rwkv6_scan": 0}
+        warm = cfg.n_layers * (packs[ps] * pg + packs[ds] * dg)
+        for r, run in zip(results, runs_):
             if run["launches"] != want:
-                failures.append(f"{pair} rank {r['rank']}: launches "
+                failures.append(f"{label} rank {r['rank']}: launches "
                                 f"{run['launches']} != {want}")
             if run["nonfinite_logits"]:
-                failures.append(f"{pair} rank {r['rank']}: non-finite "
+                failures.append(f"{label} rank {r['rank']}: non-finite "
                                 f"logits")
+            if len(run["packs"]) != warm:
+                failures.append(f"{label} rank {r['rank']}: "
+                                f"{len(run['packs'])} packs checked, not "
+                                f"{warm}")
             for name, n in run["launches"].items():
                 total[name] = total.get(name, 0) + n
         # every pack of the warm-up run (a prefill and a decode step, the
         # shapes of the measured run) against pack_ref on the same inputs
         shapes: dict = {}
-        for r, run in zip(results, runs):
-            if len(run["packs"]) != 2 * packs * cfg.n_layers:
-                failures.append(f"{pair} rank {r['rank']}: "
-                                f"{len(run['packs'])} packs checked")
-            for n, valid, d, c, exact in run["packs"]:
-                lo, hi, ok = shapes.get((n, d, c), (valid, valid, True))
+        for run in runs_:
+            for n, valid, d, c, ok in run["packs"]:
+                lo, hi, same = shapes.get((n, d, c), (valid, valid, True))
                 shapes[(n, d, c)] = (min(lo, valid), max(hi, valid),
-                                     ok and exact)
+                                     same and ok)
         for (n, d, c), (lo, hi, ok) in shapes.items():
-            print(f"  {pair}: dispatch_pack N={n} ({lo}-{hi} rows valid) "
-                  f"D={d} C={c} on the path, all ranks: "
+            print(f"    dispatch_pack N={n} ({lo}-{hi} rows valid) D={d} "
+                  f"C={c} on the path, all ranks: "
                   f"{'bit-exact' if ok else 'MISMATCH'} against pack_ref")
             if not ok:
-                failures.append(f"{pair}: dispatch_pack N={n} D={d} C={c}")
-        st = runs[0]
-        decode_ms = st["decode_s"] * 1e3 / (MAX_NEW - 1)
-        print(f"  {pair}: prefill {st['prefill_s'] * 1e3:.3f} ms, decode "
-              f"{decode_ms:.3f} ms/token (the slowest rank's walls; "
-              f"{where}); launches a rank "
-              f"{runs[0]['launches']}")
-        # (e) pod-group bytes of the first prefill dispatch
-        for r, run in zip(results, runs):
+                failures.append(f"{label}: dispatch_pack N={n} D={d} C={c}")
+        st = max(runs_, key=lambda run: run["prefill_s"])
+        walls[label] = (st["prefill_s"] * 1e3,
+                        st["decode_s"] * 1e3 / (MAX_NEW - 1))
+        print(f"    prefill {walls[label][0]:.3f} ms, decode "
+              f"{walls[label][1]:.3f} ms/token (the slowest rank's walls; "
+              f"{where}); launches a rank {runs_[0]['launches']}")
+        # the G = 4 run against the first and the plan's twin against the
+        # planned run: rows equal, and a row that parts does so at a near
+        # tie of the other run's logits
+        if label not in pairs and label != "planned":
+            against = runs_[0]["vs"]["run"]
+            equal = sum(run["vs"]["rows_equal"] for run in runs_)
+            gap = max(run["vs"]["widest_gap"] for run in runs_)
+            print(f"    tokens vs {against}: {equal} of {PROMPTS} rows "
+                  f"equal over {MAX_NEW} tokens; widest near-tie gap "
+                  f"{gap:.3e} of max |logit| (limit {REF_TOL}"
+                  f"{'' if exact else ', not gated below factor 4'})")
+            if exact and gap > REF_TOL:
+                failures.append(f"{label}: a token parts from "
+                                f"{against} {gap:.3e} below its best logit")
+        twin = runs[labels.index(label)].get("twin")
+        if twin is not None:
+            # the twin runs the plan's prefill triple; its decode (one row
+            # a rank, so G = 1) may take another scheme pair, and at G = 1
+            # the pairs give the same bits (gate c)
+            plan = r0["runs"][twin]["resolved"]
+            print(f"    fixed at the plan's prefill {plan['prefill']}; "
+                  f"decode {res['decode']} for the plan's {plan['decode']}")
+            if res["prefill"] != plan["prefill"] or \
+                    res["decode"][2] != 1 or plan["decode"][2] != 1:
+                failures.append(f"{label}: resolved {res}, the plan {plan}")
+        # (e) pod-group bytes of the first prefill dispatch (chunk 0 at G > 1)
+        for r, run in zip(results, runs_):
             b = run["pod_bytes"]
-            kind = "multiwrite" if pair.startswith("hier") else "baseline"
-            # dispatch_pod_bytes counts for a source in pod 0
+            kind = "multiwrite" if ps == "hierarchical" else "baseline"
             analytic = (f"; dispatch_pod_bytes {run['analytic_pod_bytes']}"
                         if run["pod"] == 0 else "")
             print(f"    rank {r['rank']} (pod {run['pod']}): pod-group "
-                  f"bytes of one prefill dispatch: {b['whole']} whole "
+                  f"bytes of the first prefill dispatch: {b['whole']} whole "
                   f"buffers, {b['occupied']} occupied rows{analytic}")
             if run["pod"] == 0 and b["occupied"] != \
                     run["analytic_pod_bytes"][kind]:
-                failures.append(f"{pair} rank {r['rank']}: occupied pod "
+                failures.append(f"{label} rank {r['rank']}: occupied pod "
                                 f"bytes {b['occupied']} != dispatch_pod_bytes")
+    g4 = labels[3]
+    print(f"  {g4} against {labels[0]}: prefill {walls[g4][0]:.3f} against "
+          f"{walls[labels[0]][0]:.3f} ms, decode {walls[g4][1]:.3f} against "
+          f"{walls[labels[0]][1]:.3f} ms/token")
     for r in results:
-        mw = r["pairs"][pairs[0]]["pod_bytes"]
-        base = r["pairs"][pairs[2]]["pod_bytes"]
+        mw = r["runs"][pairs[0]]["pod_bytes"]
+        base = r["runs"][pairs[2]]["pod_bytes"]
         ok = all(mw[key] < base[key] for key in ("whole", "occupied"))
         print(f"  rank {r['rank']}: multiwrite {mw} vs baseline {base} pod-"
               f"group bytes: {'multiwrite < baseline' if ok else 'NOT LESS'}")
         if not ok:
             failures.append(f"rank {r['rank']}: multiwrite pod bytes not "
                             f"below the baseline's")
+    if trace:
+        for label, w in r0["layer_walls"].items():
+            print(f"  one MoE layer at the prefill rows, {label}, rank 0: "
+                  f"host issue {w['issue_ms']:.3f} ms, wall "
+                  f"{w['wall_ms']:.3f} ms (medians of 5)")
+        tr = r0["trace"]
+        print(f"  trace of one {g4} prefill layer, rank 0 ({trace}): "
+              f"{tr['kernels']} kernels, {tr['launch_calls']} "
+              f"cudaLaunchKernel calls; exchange kernels "
+              f"{tr['exchange_us']:.1f} us on streams "
+              f"{tr['exchange_streams']}, GEMMs {tr['gemm_us']:.1f} us on "
+              f"streams {tr['gemm_streams']}; exchange time overlapped by "
+              f"GEMMs {tr['overlap_us']:.1f} us")
 
-    # (b) against the one-rank run: prefill logits, then greedy tokens up to
-    # each row's first difference, which must be a near tie one rank sees
-    ranked_logits = torch.cat([r["pairs"][pairs[0]]["prefill_logits"]
-                               for r in results])
-    ref = one_logits[0]
-    rel = ((ranked_logits - ref).abs().max() / ref.abs().max()).item()
-    print(f"  last-position prefill logits, 4 ranks vs one: {rel:.3e} of "
-          f"max |logit| (limit {REF_TOL}); one rank, a prompt at a time vs "
-          f"four at once: {shape_rel:.3e}")
-    if not rel < REF_TOL:
-        failures.append(f"prefill logits off by {rel:.3e}")
-    worst_gap, split_rows = 0.0, 0
-    for row in range(PROMPTS):
-        diff = np.flatnonzero(first[row] != expected[row])
-        if not diff.size:
-            continue
-        split_rows += 1
-        step = int(diff[0])
-        lg = one_logits[step][row]
-        gap = ((lg.max() - lg[int(first[row, step])]) / lg.abs().max()).item()
-        worst_gap = max(worst_gap, gap)
-    print(f"  tokens vs one rank: {PROMPTS - split_rows} of {PROMPTS} rows "
-          f"equal over {MAX_NEW} tokens; rows that part do so at a near tie "
-          f"of the one-rank logits, widest gap {worst_gap:.3e} of max "
-          f"|logit| (limit {REF_TOL})")
-    if worst_gap > REF_TOL:
-        failures.append(f"a token parts from the one-rank run "
-                        f"{worst_gap:.3e} below its best logit")
+    if exact:
+        # (b) against the one-rank run: prefill logits, then greedy tokens
+        # up to each row's first difference, which must be a near tie
+        ranked_logits = torch.cat([r["runs"][pairs[0]]["prefill_logits"]
+                                   for r in results])
+        ref = one_logits[0]
+        rel = ((ranked_logits - ref).abs().max() / ref.abs().max()).item()
+        print(f"  last-position prefill logits, 4 ranks vs one: {rel:.3e} "
+              f"of max |logit| (limit {REF_TOL}); one rank, a prompt at a "
+              f"time vs four at once: {shape_rel:.3e}")
+        if not rel < REF_TOL:
+            failures.append(f"prefill logits off by {rel:.3e}")
+        worst_gap, split_rows = 0.0, 0
+        for row in range(PROMPTS):
+            diff = np.flatnonzero(first[row] != expected[row])
+            if not diff.size:
+                continue
+            split_rows += 1
+            step = int(diff[0])
+            lg = one_logits[step][row]
+            gap = ((lg.max() - lg[int(first[row, step])])
+                   / lg.abs().max()).item()
+            worst_gap = max(worst_gap, gap)
+        print(f"  tokens vs one rank: {PROMPTS - split_rows} of {PROMPTS} "
+              f"rows equal over {MAX_NEW} tokens; rows that part do so at a "
+              f"near tie of the one-rank logits, widest gap "
+              f"{worst_gap:.3e} of max |logit| (limit {REF_TOL})")
+        if worst_gap > REF_TOL:
+            failures.append(f"a token parts from the one-rank run "
+                            f"{worst_gap:.3e} below its best logit")
     if failures:
         raise AssertionError(f"phase 6: {failures}")
     return total
 
 
-def main() -> None:
+def build_phase() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.monotonic()
+    built = _build.build()
+    print(f"  built {built or 'nothing (cached)'} in "
+          f"{time.monotonic() - t0:.1f} s")
+    for name, log in _build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+
+def main(argv=None) -> None:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ranks-only", type=float, nargs="+", metavar="CF",
+                    help="phases 1, 2 and 6 only, phase 6 once at each "
+                         "capacity factor given (four cards: nccl)")
+    ap.add_argument("--trace", default=None,
+                    help="with --ranks-only: write a torch.profiler trace "
+                         "of one G = 4 prefill layer (rank 0) here")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
-    from repro_torch.kernels import _build
 
     print("phase 1: device")
     kind = torch.cuda.get_device_name(0)
@@ -1127,34 +1285,32 @@ def main() -> None:
     print(smi.strip())
 
     print("phase 2: build")
-    t0 = time.monotonic()
-    built = _build.build()
-    print(f"  built {built or 'nothing (cached)'} in "
-          f"{time.monotonic() - t0:.1f} s")
-    for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
-    sass_phase()
+    build_phase()
+    if args.ranks_only:
+        for i, cf in enumerate(args.ranks_only):
+            print(f"phase 6: DBRX over 2 pods x 2 ep ranks, capacity factor "
+                  f"{cf}")
+            ranks_phase(cf, trace=args.trace if i == 0 else None)
+    else:
+        sass_phase()
+        print("phase 3: kernels vs plain versions")
+        rows = kernel_phase()
+        rows.update(scan_phase())
+        combine_phase()
+        print("phase 4: small-model reference")
+        reference_phase()
+        print("phase 5: serve")
+        by_path = {}
+        for arch, layers in SERVES:
+            by_path[arch] = serve_phase(arch, layers)
+        print("phase 6: DBRX over 2 pods x 2 ep ranks")
+        by_path["dbrx_132b_2x2_ranks"] = ranks_phase()
 
-    print("phase 3: kernels vs plain versions")
-    rows = kernel_phase()
-    rows.update(scan_phase())
-    combine_phase()
-    print("phase 4: small-model reference")
-    reference_phase()
-    print("phase 5: serve")
-    by_path = {}
-    for arch, layers in SERVES:
-        by_path[arch] = serve_phase(arch, layers)
-    print("phase 6: DBRX over 2 pods x 2 ep ranks")
-    by_path["dbrx_132b_2x2_ranks"] = ranks_phase()
-
-    for name, row in rows.items():
-        row["launches"] = sum(c[name] for c in by_path.values())
-        row["launches_by_path"] = {arch: c[name]
-                                   for arch, c in by_path.items()}
-    print(json.dumps({"kernels": list(rows.values())}))
+        for name, row in rows.items():
+            row["launches"] = sum(c[name] for c in by_path.values())
+            row["launches_by_path"] = {arch: c[name]
+                                       for arch, c in by_path.items()}
+        print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,14 @@ host, spawned and joined with a deadline.
 
 ``chip_smoke.py`` spawns :func:`serve_worker` as 4 ranks (2 pods x 2 ep
 ranks) serving DBRX-132B on the card; the CPU tests spawn it and
-:func:`dispatch_worker` as 4 gloo ranks at small sizes.  This module
+:func:`dispatch_worker` as 4 gloo ranks at small sizes.
+
+A run names the MoE round trip it executes (:func:`run_context`): a fixed
+``(scheme, combine, microbatch)`` triple, a bound ``ExecutionPlan``
+(``"plan"``), or ``policy="auto"`` on a fabric, planned ad hoc at each
+layer or bound once from ``build_collective_program`` (``"bind"``).
+``fabric="measured"`` takes the fabric that :func:`measure_link` timed on
+these ranks.  This module
 imports neither JAX nor the reference package, because a spawned child
 re-imports the module that defines its target.
 
@@ -28,9 +35,13 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch.core import collectives as cl
+from repro_torch.core.h100 import fabric_spec, moe_compute_s
+from repro_torch.core.topology import get_fabric
 from repro_torch.kernels import ops, ref
+from repro_torch.models import moe as M
 from repro_torch.models.api import build_model
-from repro_torch.parallel.context import ParallelContext
+from repro_torch.parallel.context import (ParallelContext,
+                                          build_collective_program)
 from repro_torch.parallel.mesh import RankMesh
 from repro_torch.runtime.server import ServeConfig, ServeEngine
 
@@ -38,6 +49,22 @@ from repro_torch.runtime.server import ServeConfig, ServeEngine
 SCHEME_PAIRS = (("hierarchical", "hierarchical"),
                 ("hierarchical", "baseline"),
                 ("baseline", "baseline"))
+
+
+def fixed_runs(pairs=SCHEME_PAIRS, microbatch: int = 1) -> list[dict]:
+    """Run specs of fixed scheme pairs at one chunk count."""
+    return [dict(scheme=s, combine=c, microbatch=microbatch)
+            for s, c in pairs]
+
+
+def run_label(run: dict) -> str:
+    """``scheme+combine`` (``@G<g>`` above one chunk) of a fixed run, else
+    the run's own ``label``."""
+    if "label" in run:
+        return run["label"]
+    g = run.get("microbatch", 1)
+    return (f"{run['scheme']}+{run['combine']}"
+            + (f"@G{g}" if g > 1 else ""))
 
 
 def run_ranks(fn, spec: dict, *, timeout_s: float) -> list:
@@ -159,27 +186,299 @@ def _checked_packs(record: list):
     return mock.patch.object(cl, "pack_by_bitmap", call)
 
 
+def run_context(mesh: RankMesh, pods: int, run: dict, *, fabric=None,
+                cfg=None, phases=None, itemsize: int = 2
+                ) -> ParallelContext:
+    """The context a run executes under.  ``run``: ``scheme``/``combine``/
+    ``microbatch`` (the fixed knobs), ``policy`` ("fixed" or "auto"),
+    ``fabric`` (a spec ``get_fabric`` takes, "measured" for ``fabric``, or
+    None for the mesh-derived topology), ``plan`` (an ExecutionPlan to
+    bind), ``program`` (a CollectiveProgram to plan on the context's
+    fabric and bind) or ``bind`` (plan ``phases`` of ``cfg`` with
+    ``build_collective_program`` at ``itemsize`` and bind the result)."""
+    spec = run.get("fabric")
+    if spec == "measured":
+        spec = fabric
+    pctx = ParallelContext(
+        mesh, pod_axis="pod" if pods > 1 else None,
+        plan_policy=run.get("policy", "fixed"),
+        moe_scheme=run.get("scheme", "hierarchical"),
+        moe_combine=run.get("combine"),
+        moe_microbatch=run.get("microbatch", 1),
+        fabric=get_fabric(spec) if spec else None)
+    if run.get("plan") is not None:
+        pctx = pctx.bind(run["plan"])
+    elif run.get("program") is not None:
+        pctx = pctx.bind(pctx.plan_collectives(run["program"]))
+    elif run.get("bind"):
+        program = build_collective_program(cfg, pctx, "serve", phases,
+                                           itemsize=itemsize)
+        pctx = pctx.bind(pctx.plan_collectives(program))
+    return pctx
+
+
+def resolved(pctx, cfg, phases: dict, itemsize: int) -> dict:
+    """phase -> the ``(scheme, combine, G)`` an MoE layer of ``cfg`` runs
+    under ``pctx`` on one rank's rows of the phase's (batch, seq)."""
+    out = {}
+    for phase, (batch, seq) in phases.items():
+        n = max(1, batch * seq // pctx.dp_size)
+        kw = M.pipeline_config(pctx, cfg, n, cfg.d_model, cfg.expert_d_ff,
+                               itemsize)
+        out[phase] = (kw["moe_scheme"], kw["moe_combine"], kw["microbatch"])
+    return out
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_link(mesh: RankMesh, nbytes: int, device, *, reps: int = 10,
+                 rounds: int = 3) -> float:
+    """The per-pair rate of an ``all_to_all_single`` over every rank of the
+    mesh: ``nbytes`` a rank (one block of ``nbytes / world`` to each rank)
+    in bytes a second of one block.  Each round issues ``reps`` exchanges
+    back to back between two synchronisations, so the ranks' skew at the
+    start falls on the first alone; the median round, the slowest rank's.
+    Every rank returns the same number."""
+    world = dist.get_world_size()
+    n = nbytes // 2 // world * world
+    send = torch.ones(n, dtype=torch.bfloat16, device=device)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send)                    # warm-up
+    walls = []
+    for _ in range(rounds):
+        dist.barrier()
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dist.all_to_all_single(recv, send)
+        _sync(device)
+        walls.append((time.perf_counter() - t0) / reps)
+    wall = torch.tensor([float(np.median(walls))], dtype=torch.float64,
+                        device=device)
+    dist.all_reduce(wall, op=dist.ReduceOp.MAX)
+    return (n * 2 / world) / float(wall)
+
+
+def link_probe_bytes(cfg, rows: int, pods: int, ep: int,
+                     itemsize: int = 2) -> int:
+    """Bytes a rank sends in the stage-1 (pod) exchange of one dispatch of
+    ``rows`` rows a rank at ``cfg``'s capacity factor: P x Cp rows of
+    ``d_model`` elements, the size :func:`measure_link` times."""
+    dcfg = M.balanced_capacities(rows, cfg.top_k, pods, ep,
+                                 max(1, cfg.num_experts // (pods * ep)),
+                                 cfg.moe_capacity)
+    return pods * max(1, round(rows * dcfg.pod_capacity)) * cfg.d_model \
+        * itemsize
+
+
+def plan_decisions(mesh: RankMesh, pods: int, cfg, phases: dict,
+                   spec: str | None, itemsize: int = 2) -> dict:
+    """What the planner decides for ``cfg``'s serve program on fabric
+    ``spec`` (None: the mesh-derived topology): per phase the coupled
+    (scheme, combine, G) and the modelled serial and pipelined seconds of
+    the round trip, and the host time of one ``moe_pipeline_kwargs`` call
+    under the bound plan and under ad-hoc ``auto`` (first call on a fresh
+    context, then a repeated call)."""
+    auto = run_context(mesh, pods, {"policy": "auto", "fabric": spec})
+    program = build_collective_program(cfg, auto, "serve", phases,
+                                       itemsize=itemsize)
+    eplan = auto.plan_collectives(program)
+    out = {"fabric": spec or "mesh-derived", "fingerprint":
+           eplan.fingerprint, "phases": {}, "host_us": {}}
+    for phase in phases:
+        anchor = f"{phase}/moe_dispatch"
+        d = eplan.joint[anchor]
+        kw = eplan.site_kwargs(anchor)
+        out["phases"][phase] = dict(
+            scheme=kw["moe_scheme"], combine=kw.get("moe_combine"),
+            microbatch=kw.get("microbatch", 1), plan=d.plan,
+            serial_s=d.predicted_serial_s, pipelined_s=d.predicted_s)
+    batch, seq = phases["prefill"]
+    n = batch * seq // auto.dp_size
+    ask = dict(tokens_per_rank=n, token_bytes=cfg.d_model * itemsize,
+               compute_s=moe_compute_s(n, cfg.top_k, cfg.d_model,
+                                       cfg.expert_d_ff))
+    for name, pctx in (("bound", auto.bind(eplan)),
+                       ("auto", run_context(mesh, pods, {
+                           "policy": "auto", "fabric": spec}))):
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pctx.moe_pipeline_kwargs(cfg.num_experts, cfg.top_k, **ask)
+            walls.append((time.perf_counter() - t0) * 1e6)
+        out["host_us"][name] = walls
+    return out
+
+
+# kernel names in a device trace: the exchanges, and the GEMMs (cuBLAS's
+# gemm/nvjet/xmma kernels and CUTLASS's)
+EXCHANGE_KERNELS = ("nccl",)
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def _layer_input(moe, cfg, rows: int, device) -> torch.Tensor:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    return torch.randn((1, rows, cfg.d_model), generator=gen, device=device
+                       ).to(moe.w1.dtype)
+
+
+def layer_walls(moe, cfg, pctx, rows: int, device, reps: int = 5) -> dict:
+    """One MoE layer's ``moe_ffn`` on ``rows`` random tokens a rank, after
+    two warm-up calls: the host time until the call returns (``issue_ms``)
+    and until the device is done (``wall_ms``), medians of ``reps``.  All
+    ranks run it together."""
+    x = _layer_input(moe, cfg, rows, device)
+    issue, wall = [], []
+    with torch.inference_mode():
+        for i in range(reps + 2):
+            _sync(device)
+            dist.barrier()
+            _sync(device)
+            t0 = time.perf_counter()
+            M.moe_ffn(moe, x, cfg, pctx, with_aux=False)
+            t1 = time.perf_counter()
+            _sync(device)
+            if i >= 2:
+                issue.append((t1 - t0) * 1e3)
+                wall.append((time.perf_counter() - t0) * 1e3)
+    return {"issue_ms": float(np.median(issue)),
+            "wall_ms": float(np.median(wall))}
+
+
+def trace_moe_layer(moe, cfg, pctx, rows: int, device, path: str) -> dict:
+    """One MoE layer's ``moe_ffn`` on ``rows`` random tokens a rank, traced
+    with ``torch.profiler`` (two untraced calls first) on every rank; rank 0
+    writes the Chrome trace to ``path``.  Returns from this rank's trace the
+    device time of the exchange kernels, of the GEMMs, and how much of the
+    exchanges' time the GEMMs overlap, with the streams each ran on."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+    x = _layer_input(moe, cfg, rows, device)
+    with torch.inference_mode():
+        for _ in range(2):
+            M.moe_ffn(moe, x, cfg, pctx, with_aux=False)
+        _sync(device)
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+                ) as prof:
+            M.moe_ffn(moe, x, cfg, pctx, with_aux=False)
+            _sync(device)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(path).with_suffix(f".rank{dist.get_rank()}.json")
+    prof.export_chrome_trace(str(tmp))
+    events = json.loads(tmp.read_text())["traceEvents"]
+    if dist.get_rank() == 0:
+        os.replace(tmp, path)
+    else:
+        tmp.unlink()
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    def spans(names):
+        return [(e["ts"], e["ts"] + e["dur"], e.get("tid"))
+                for e in kernels
+                if any(n in e["name"].lower() for n in names)]
+    exch, gemm = spans(EXCHANGE_KERNELS), spans(GEMM_KERNELS)
+    overlap = 0.0
+    for a0, a1, _ in exch:
+        cover = sorted((max(a0, b0), min(a1, b1)) for b0, b1, _ in gemm
+                       if b0 < a1 and b1 > a0)
+        end = a0
+        for c0, c1 in cover:                 # the union of the GEMMs in it
+            if c1 > end:
+                overlap += c1 - max(c0, end)
+                end = c1
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name") == "cudaLaunchKernel"]
+    return {"kernels": len(kernels), "launch_calls": len(launches),
+            "exchange_us": sum(b - a for a, b, _ in exch),
+            "gemm_us": sum(b - a for a, b, _ in gemm),
+            "overlap_us": overlap,
+            "exchange_streams": sorted({str(t) for *_, t in exch}),
+            "gemm_streams": sorted({str(t) for *_, t in gemm})}
+
+
+def _near_ties(mine, tokens, ref_tokens, ref_logits) -> tuple[int, float]:
+    """(rows of ``mine`` whose tokens equal the reference run's, the widest
+    gap) where a row parts from the reference at step t: the gap is how far
+    below its best logit the reference run put the token this run took,
+    over max |logit|."""
+    equal, worst = 0, 0.0
+    for local, row in enumerate(mine):
+        diff = np.flatnonzero(tokens[row] != ref_tokens[row])
+        if not diff.size:
+            equal += 1
+            continue
+        lg = ref_logits[int(diff[0])][local]
+        took = int(tokens[row, diff[0]])
+        worst = max(worst, ((lg.max() - lg[took]) / lg.abs().max()).item())
+    return equal, worst
+
+
 def serve_worker(rank: int, spec: dict) -> None:
     """One rank of ``spec["cfg"]`` served through ``ServeEngine.generate``
-    for each (scheme, combine) pair of ``spec["schemes"]``, on weights drawn
-    from ``spec["seed"]`` (this rank's experts only).  Every rank passes the
-    global ``spec["prompts"]``.  Per pair it records the global tokens, the
-    walls, the kernel launches of the measured run, the logits of its rows
-    at prefill, and the pod-group bytes of the first (prefill) dispatch.
-    With ``spec["warmup"]`` an unmeasured run (a prefill and one decode
-    step) comes first and holds every pack against its plain version
-    (:func:`_checked_packs`); with ``spec["temperature"]`` a sampled
-    ``generate`` follows the measured one, seeded from
-    ``spec["sample_seed"]``."""
+    for each run of ``spec["runs"]`` (default: the fixed scheme pairs of
+    ``spec["schemes"]``), on weights drawn from ``spec["seed"]`` (this
+    rank's experts only).  Every rank passes the global ``spec["prompts"]``.
+
+    Per run it records the resolved ``(scheme, combine, G)`` of prefill and
+    decode, the global tokens, the walls, the kernel launches of the
+    measured run, the logits of its rows at prefill, the pod-group bytes of
+    the first (prefill) dispatch, and how its tokens stand against the
+    first run's (rows equal, widest near-tie gap).  A run with ``twin`` (an
+    earlier run's label) runs fixed at the triple its twin resolved for
+    prefill and is held against the twin instead.  With ``spec["warmup"]``
+    every run first makes an unmeasured run (a prefill and one decode step)
+    that holds every pack against its plain version (:func:`_checked_packs`);
+    with ``spec["temperature"]`` a
+    sampled ``generate`` follows the measured one, seeded from
+    ``spec["sample_seed"]``, unless the run says ``sample=False``.  With
+    ``spec["measure_link"]`` (bytes a rank) the ranks first time the
+    exchange (:func:`measure_link`), and ``spec["decide"]`` lists fabrics
+    (specs, "measured", "measured-pod:<GB/s>", or None) whose planner
+    decisions are reported.  ``spec["trace"]``
+    (``{"run": label, "path": ...}``) times one MoE layer at the prefill
+    rows under each run's context (:func:`layer_walls`) and traces it under
+    that run's (:func:`trace_moe_layer`)."""
     mesh = init_rank(rank, spec)
     dev = rank_device(rank, spec)
     cfg, prompts = spec["cfg"], spec["prompts"]
-    results = {"rank": rank, "device": str(dev), "pairs": {}}
+    phases = {"prefill": prompts.shape, "decode": (prompts.shape[0], 1)}
+    itemsize = spec["dtype"].itemsize
+    runs = spec.get("runs") or fixed_runs(spec["schemes"])
+    results = {"rank": rank, "device": str(dev), "runs": {},
+               "decisions": []}
+    fabric = rate = None
+    if spec.get("measure_link"):
+        rate = measure_link(mesh, spec["measure_link"], dev)
+        fabric = fabric_spec(spec["pods"], spec["ep"], rate)
+        results["link"] = {"bytes": spec["measure_link"], "pair_rate": rate,
+                           "fabric": fabric}
+    for want in spec.get("decide", ()):
+        if want is not None and want.startswith("measured"):
+            if rate is None:
+                raise ValueError(f"fabric {want!r} needs measure_link")
+            pod = want.partition(":")[2]
+            want = fabric_spec(spec["pods"], spec["ep"], rate,
+                               float(pod) * 1e9 if pod else None)
+        results["decisions"].append(plan_decisions(
+            mesh, spec["pods"], cfg, phases, want, itemsize))
     params = None
-    for scheme, combine in spec["schemes"]:
-        pctx = ParallelContext(mesh, pod_axis="pod" if spec["pods"] > 1
-                               else None, moe_scheme=scheme,
-                               moe_combine=combine)
+    contexts, refs = {}, {}
+    for run in runs:
+        label = run_label(run)
+        if "twin" in run:
+            scheme, combine, g = \
+                results["runs"][run["twin"]]["resolved"]["prefill"]
+            run = dict(run, scheme=scheme, combine=combine, microbatch=g)
+        pctx = contexts[label] = run_context(
+            mesh, spec["pods"], run, fabric=fabric, cfg=cfg, phases=phases,
+            itemsize=itemsize)
         model = build_model(cfg, device=dev, dtype=spec["dtype"], pctx=pctx)
         if params is None:
             gen = torch.Generator(device=dev)
@@ -189,6 +488,7 @@ def serve_worker(rank: int, spec: dict) -> None:
             model, params, ServeConfig(max_new_tokens=spec["max_new"],
                                        cache_dtype=spec["cache_dtype"]),
             device=dev, pctx=pctx)
+        mine = engine._my_rows(np.arange(prompts.shape[0]))
         packs: list = []
         if spec.get("warmup"):
             with _checked_packs(packs):
@@ -207,7 +507,7 @@ def serve_worker(rank: int, spec: dict) -> None:
                 patch.stop()
         counts = ops.launches()
         sampled = None
-        if spec.get("temperature"):
+        if spec.get("temperature") and run.get("sample", True):
             sampled = ServeEngine(
                 model, params, ServeConfig(
                     max_new_tokens=spec["max_new"],
@@ -220,17 +520,34 @@ def serve_worker(rank: int, spec: dict) -> None:
         base, mw = cl.dispatch_pod_bytes(
             record["ids"], record["state"].cfg, record["state"].mesh,
             record["row_bytes"], elem_bytes=1)
-        results["pairs"][f"{scheme}+{combine}"] = {
+        refs[label] = (out, list(engine.step_logits))
+        against = run.get("twin", run_label(runs[0]))
+        equal, gap = _near_ties(mine, out, *refs[against])
+        results["runs"][label] = {
+            "resolved": resolved(pctx, cfg, phases, itemsize),
+            "plan": (pctx.execution_plan.fingerprint
+                     if pctx.execution_plan is not None else None),
             "tokens": out, "launches": counts,
             "prefill_s": engine.stats["prefill_s"],
             "decode_s": engine.stats["decode_s"],
             "nonfinite_logits": engine.stats["nonfinite_logits"],
             "prefill_logits": engine.step_logits[0],
+            "vs": {"run": against, "rows_equal": equal, "rows": len(mine),
+                   "widest_gap": gap},
             "pod_bytes": {"whole": whole, "occupied": occupied},
             "analytic_pod_bytes": {"baseline": base, "multiwrite": mw},
             "pod": mesh.coords["pod"], "packs": packs, "sampled": sampled}
     if dev.type == "cuda":
         results["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if spec.get("trace"):
+        moe = next(b.moe for b in params.blocks if b.moe is not None)
+        rows = prompts.size // mesh.axis_size("pod", "data")
+        results["layer_walls"] = {
+            label: layer_walls(moe, cfg, contexts[label], rows, dev)
+            for label in contexts}
+        results["trace"] = trace_moe_layer(
+            moe, cfg, contexts[spec["trace"]["run"]], rows, dev,
+            spec["trace"]["path"])
     dist.barrier()
     dist.destroy_process_group()
     _save(rank, spec, results)
@@ -281,29 +598,36 @@ def dispatch_worker(rank: int, spec: dict) -> None:
 
 
 def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
-    """``moe_ffn`` of layer 0 of ``spec["moe"]["cfg"]`` with a fixed pctx,
-    on this rank's rows of ``spec["moe"]["x"]`` and its experts of the
-    layer's reference weights ``spec["moe"]["weights"]``, for every scheme
-    pair."""
-    from repro_torch.models import moe as M
-    job = spec["moe"]
-    cfg, weights = job["cfg"], job["weights"]
-    x = torch.from_numpy(job["x"])
-    per = x.shape[0] // spec["world"]
-    x = x[rank * per:(rank + 1) * per]
+    """``moe_ffn`` for each job of ``spec["moe"]``: the job's MoE layer
+    (``cfg``, its reference weights ``weights``) on this rank's rows of
+    ``x`` and its experts, under each run of ``runs`` (default: the fixed
+    scheme pairs at one chunk).  Returns per job and run label the output,
+    the aux and the resolved round trip."""
     out = {}
-    for scheme, combine in SCHEME_PAIRS:
-        pctx = ParallelContext(mesh, pod_axis="pod", moe_scheme=scheme,
-                               moe_combine=combine)
-        first, local = M.expert_shard(pctx, cfg.num_experts)
-        layer = M.MoE(cfg.d_model, cfg.expert_d_ff, cfg.num_experts,
-                      device="cpu", dtype=torch.float32, first=first,
-                      local=local)
-        with torch.no_grad():
-            layer.router.copy_(torch.from_numpy(weights["router"]))
-            for key in ("w1", "w3", "w2"):
-                getattr(layer, key).copy_(torch.from_numpy(
-                    weights[key][first:first + local]))
-        y, aux = M.moe_ffn(layer, x, cfg, pctx)
-        out[f"{scheme}+{combine}"] = {"y": y.numpy(), "aux": float(aux)}
+    for job in spec["moe"]:
+        cfg, weights = job["cfg"], job["weights"]
+        x = torch.from_numpy(job["x"])
+        per = x.shape[0] // spec["world"]
+        x = x[rank * per:(rank + 1) * per]
+        layer = None
+        res = out[job["name"]] = {}
+        for run in job.get("runs") or fixed_runs():
+            pctx = run_context(mesh, spec["pods"], run)
+            if layer is None:
+                first, local = M.expert_shard(pctx, cfg.num_experts)
+                d_ff = weights["w1"].shape[-1]
+                layer = M.MoE(cfg.d_model, d_ff, cfg.num_experts,
+                              device="cpu", dtype=torch.float32,
+                              first=first, local=local)
+                with torch.no_grad():
+                    layer.router.copy_(torch.from_numpy(weights["router"]))
+                    for key in ("w1", "w3", "w2"):
+                        getattr(layer, key).copy_(torch.from_numpy(
+                            weights[key][first:first + local]))
+            y, aux = M.moe_ffn(layer, x, cfg, pctx)
+            kw = M.pipeline_config(pctx, cfg, x.shape[0] * x.shape[1],
+                                   cfg.d_model, layer.w1.shape[-1],
+                                   x.element_size())
+            res[run_label(run)] = {"y": y.numpy(), "aux": float(aux),
+                                   "resolved": kw}
     return out

@@ -21,6 +21,16 @@ gives each rank the card of its local rank (there must be that many cards),
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch dbrx_132b --layers 4 --pods 2 --ep 2 --backend gloo
+
+Over ranks the MoE round trip (dispatch scheme, return scheme, pipeline
+depth G) comes from the planner under ``--plan-policy auto`` (the default,
+as in the reference): both serving phases are declared as one collective
+program, planned on ``--fabric`` (a registered name such as ``2x8``, or an
+inline ``SxP[rR][@INTER[:INTRA]]`` in GB/s) and bound before the model is
+built; rank 0 prints the plan.  Without ``--fabric`` the nccl ranks time
+their link and plan on it; gloo ranks plan on the reference's mesh-derived
+TPU fabric and say so.
+``--plan-policy fixed`` runs the hierarchical pair at one chunk.
 """
 
 from __future__ import annotations
@@ -36,9 +46,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.core.h100 import fabric_spec
+from repro_torch.core.topology import get_fabric
 from repro_torch.device import resolve_device
+from repro_torch.launch.ranks import link_probe_bytes, measure_link
 from repro_torch.models.api import build_model
-from repro_torch.parallel.context import ParallelContext
+from repro_torch.parallel.context import (ParallelContext,
+                                          build_collective_program)
 from repro_torch.parallel.mesh import RankMesh
 from repro_torch.runtime.server import ServeConfig, ServeEngine
 
@@ -103,6 +117,31 @@ def join_ranks(pods: int, ep: int, backend: str | None, device):
         device
 
 
+def planning_fabric(pctx, cfg: ModelConfig, args, device) -> str | None:
+    """The fabric ``--plan-policy auto`` plans on: ``--fabric`` when given.
+    Otherwise over nccl the ranks time one ``all_to_all_single`` of a
+    prefill dispatch's stage-1 size and plan on ``PxD@R:R`` from the
+    measured per-pair rate; over gloo (host-staged, no link of the card to
+    time) on the reference's mesh-derived TPU fabric, with a warning."""
+    if args.fabric:
+        return args.fabric
+    rank0 = pctx.mesh.rank == 0
+    if args.backend != "nccl":
+        if rank0:
+            print("warning: no --fabric over gloo: the planner scores on "
+                  "the reference's mesh-derived TPU fabric")
+        return None
+    rows = max(1, args.prompts * args.prompt_len // pctx.dp_size)
+    nbytes = link_probe_bytes(cfg, rows, args.pods, args.ep,
+                              4 if args.smoke else 2)
+    rate = measure_link(pctx.mesh, nbytes, device)
+    spec = fabric_spec(args.pods, args.ep, rate)
+    if rank0:
+        print(f"link: all_to_all_single of {nbytes} bytes a rank, "
+              f"{rate / 1e9:.3f} GB/s a pair -> fabric {spec}")
+    return spec
+
+
 def make_prompts(cfg: ModelConfig, prompts: int, prompt_len: int,
                  seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
@@ -133,10 +172,45 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                     help="required over ranks: nccl (one card a rank) or "
                          "gloo (every rank on --device)")
+    ap.add_argument("--plan-policy", choices=("auto", "fixed"),
+                    default="auto",
+                    help="over ranks, auto: the planner picks each phase's "
+                         "MoE dispatch, combine and pipeline depth")
+    ap.add_argument("--fabric", default=None,
+                    help="fabric the planner scores on: a registered name "
+                         "(2x8, 4x8, 2x8r2, 2x8asym, ...) or an inline spec "
+                         "'SxP[rR][@INTER[:INTRA]]' in GB/s (default: "
+                         "over nccl the measured link, over gloo the "
+                         "reference's mesh-derived fabric)")
+    ap.add_argument("--decode-slo-us", type=float, default=None,
+                    help="decode-phase latency budget (us): the planner "
+                         "rejects prefill plan combinations whose shared-"
+                         "link traffic would push the decode round trip "
+                         "past this cap")
     args = ap.parse_args(argv)
 
     cfg = serve_config(args.arch, layers=args.layers, smoke=args.smoke)
     pctx, device = join_ranks(args.pods, args.ep, args.backend, args.device)
+    plan = fabric = None
+    if pctx is not None:
+        pctx = dataclasses.replace(pctx, plan_policy=args.plan_policy)
+        if args.plan_policy == "auto" and cfg.is_moe:
+            fabric = planning_fabric(pctx, cfg, args, device)
+            pctx = dataclasses.replace(
+                pctx, fabric=get_fabric(fabric) if fabric else None)
+            # bind the plan of both phases before the model is built; site
+            # keys embed the payload, so the itemsize is the model's
+            budgets = ({"decode": args.decode_slo_us * 1e-6}
+                       if args.decode_slo_us else None)
+            program = build_collective_program(
+                cfg, pctx, "serve",
+                {"prefill": (args.prompts, args.prompt_len),
+                 "decode": (args.prompts, 1)},
+                itemsize=4 if args.smoke else 2, phase_budgets=budgets)
+            plan = pctx.plan_collectives(program)
+            pctx = pctx.bind(plan)
+            if pctx.mesh.rank == 0:
+                print(plan.summary())
     engine = build_engine(
         cfg, device=device,
         dtype=torch.float32 if args.smoke else torch.bfloat16,
@@ -150,6 +224,8 @@ def main(argv=None) -> dict:
     result = {
         "arch": cfg.name, "layers": cfg.n_layers, "device": str(engine.device),
         "ranks": f"{args.pods} pods x {args.ep} ep",
+        "plan": plan.fingerprint if plan is not None else None,
+        "fabric": fabric,
         "shape": list(out.shape), "prefill_s": st["prefill_s"],
         "decode_s": st["decode_s"], "tokens": st["tokens"],
         "nonfinite_logits": st["nonfinite_logits"],

@@ -10,7 +10,13 @@ With a :class:`~repro_torch.parallel.context.ParallelContext` every rank
 runs its own data-parallel rows (the reference's ``shard_map`` in_spec over
 the dp axes) and holds ``per_rank`` experts: EP spans (pod, data) when the
 arch has enough experts (DBRX: 16 over 2 x 2 ranks), else the data axis
-alone.  Only ``plan_policy="fixed"`` at one pipeline chunk is ported.
+alone.  The dispatch scheme, the return-path scheme and the pipeline chunk
+count G are one decision, ``pctx.moe_pipeline_kwargs`` (a bound plan, the
+planner under ``plan_policy="auto"``, or the fixed knobs).  G > 1 runs the
+reference's double-buffered chunk pipeline: chunk k+1's dispatch is issued
+before chunk k's expert FFN and combine.  On the card it runs on a second
+stream that the layer owns, so its packs and exchanges can overlap chunk
+k's expert products; each chunk's outputs equal the serial loop's.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core import collectives as cl
+from repro_torch.core.h100 import moe_compute_s
 from repro_torch.models import layers as L
 
 
@@ -60,6 +67,15 @@ class MoE(nn.Module):
             L.truncated_normal_(self.w3[i], sc_d, gen)
             L.truncated_normal_(self.w2[i], sc_f, gen)
         return self
+
+    def dispatch_stream(self) -> torch.cuda.Stream:
+        """The stream the layer's G > 1 pipeline issues chunk k+1's
+        dispatch on (made at first use, on the weights' card)."""
+        stream = getattr(self, "_dispatch_stream", None)
+        if stream is None:
+            stream = self._dispatch_stream = torch.cuda.Stream(
+                device=self.w1.device)
+        return stream
 
 
 def expert_seed(seed: int, layer: int, expert: int) -> int:
@@ -141,17 +157,38 @@ def load_balance_loss(logits, ids, num_experts: int):
     return num_experts * torch.sum(f * probs.mean(dim=0))
 
 
+def pipeline_config(pctx, cfg, n: int, d: int, d_ff: int,
+                    itemsize: int) -> dict:
+    """The round trip an MoE layer runs on ``n`` rows a rank of width ``d``
+    (``itemsize`` bytes an element, expert hidden width ``d_ff``):
+    ``{"moe_scheme", "moe_combine", "microbatch"}``.  The reference's
+    order: the overlap context (priced at the H100's peak), the joint
+    decision, G clamped to a divisor of ``n``, and the decision taken again
+    at the G that runs."""
+    ask = dict(tokens_per_rank=n, token_bytes=d * itemsize,
+               compute_s=moe_compute_s(n, cfg.top_k, d, d_ff,
+                                       tp=pctx.model_size))
+    kw = pctx.moe_pipeline_kwargs(cfg.num_experts, cfg.top_k, **ask)
+    g = math.gcd(max(1, int(kw["microbatch"])), n) or 1
+    if g != int(kw["microbatch"]):
+        kw = pctx.moe_pipeline_kwargs(cfg.num_experts, cfg.top_k,
+                                      microbatch=g, **ask)
+    return kw
+
+
 def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
             with_aux: bool = True):
     """x: [B, S, D] -> ([B, S, D], aux_loss).  With a ``pctx``, x holds this
     rank's data-parallel rows and ``params`` its experts.  ``with_aux=False``
     skips the aux loss (and its mean over the dp ranks) and returns None in
-    its place: serving has no use for it."""
+    its place: serving has no use for it.  With G > 1 chunks the aux is the
+    mean over the chunks of each chunk's dp-mean."""
     b, s, d = x.shape
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity
     n = b * s
     tokens = x.reshape(n, d)
+    g = 1
     if pctx is None:
         epmesh = cl.EPMesh(pod_axis=None, ep_axis="_none", num_pods=1,
                            ep_per_pod=1)
@@ -162,31 +199,120 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
                            ep_axis=pctx.data_axis,
                            num_pods=pctx.num_pods if use_pod else 1,
                            ep_per_pod=pctx.data_size, ranks=pctx.mesh)
-        kw = pctx.moe_pipeline_kwargs()
+        kw = pipeline_config(pctx, cfg, n, d, params.w1.shape[-1],
+                             x.element_size())
         scheme, combine_scheme = kw["moe_scheme"], kw["moe_combine"]
+        g = kw["microbatch"]
     p, dd = epmesh.num_pods, epmesh.ep_per_pod
     per_rank = cfg.num_experts // (p * dd)
+    # fractions of each stage's no-drop worst case, sized for the rank's
+    # rows: each chunk's dispatch takes max(1, round(chunk rows * fraction))
     dcfg = balanced_capacities(n, cfg.top_k, p, dd, per_rank,
                                capacity_factor)
     if scheme == "baseline":
         dcfg = unicast_capacities(dcfg, n, cfg.top_k, p * dd, per_rank,
                                   capacity_factor)
-
-    logits = tokens.float() @ params.router
-    gates, ids = cl.route_topk(logits, cfg.top_k)
-    aux = None
-    if with_aux:
-        aux = load_balance_loss(logits, ids, cfg.num_experts)
-        if pctx is not None and pctx.dp_size > 1:   # lax.pmean over dp axes
-            dist.all_reduce(aux, group=pctx.mesh.group(*pctx.dp_axes))
-            aux = aux / pctx.dp_size
     dispatch = (cl.hierarchical_dispatch if scheme == "hierarchical"
                 else cl.baseline_dispatch)
-    exp_tok, exp_gate, st = dispatch(tokens, ids, gates, dcfg, epmesh)
-    exp_out = _expert_ffn(params.w1, params.w3, params.w2, exp_tok, cfg.act)
     combine = {("hierarchical", "hierarchical"): cl.hierarchical_combine,
                ("hierarchical", "baseline"): cl.hierarchical_combine_unicast,
                ("baseline", "baseline"): cl.baseline_combine,
                }[(scheme, combine_scheme)]
-    out = combine(exp_out, exp_gate, st)
-    return out.reshape(b, s, d).to(x.dtype), aux
+    dp_group = (pctx.mesh.group(*pctx.dp_axes)
+                if with_aux and pctx is not None and pctx.dp_size > 1
+                else None)
+
+    def dispatch_chunk(tok):
+        """Router, top-k, the aux when asked for, and the dispatch."""
+        logits = tok.float() @ params.router
+        gates, ids = cl.route_topk(logits, cfg.top_k)
+        aux = None
+        if with_aux:
+            aux = load_balance_loss(logits, ids, cfg.num_experts)
+            if dp_group is not None:              # lax.pmean over dp axes
+                dist.all_reduce(aux, group=dp_group)
+                aux = aux / pctx.dp_size
+        return dispatch(tok, ids, gates, dcfg, epmesh), aux
+
+    def finish_chunk(pack):
+        """The expert FFN and the combine."""
+        exp_tok, exp_gate, st = pack
+        exp_out = _expert_ffn(params.w1, params.w3, params.w2, exp_tok,
+                              cfg.act)
+        return combine(exp_out, exp_gate, st).to(x.dtype)
+
+    if g == 1:
+        pack, aux = dispatch_chunk(tokens)
+        out = finish_chunk(pack)
+    else:
+        chunks = tokens.reshape(g, n // g, d)
+        issue, wait = _dispatch_hooks(chunks, dispatch_chunk, params)
+        outs, auxs = _pipeline(chunks, issue, wait, finish_chunk)
+        out = torch.cat(outs)
+        if with_aux:
+            aux = (auxs[0] + torch.stack(auxs[1:]).sum()) / g
+    return out.reshape(b, s, d), (aux if with_aux else None)
+
+
+def _pipeline(chunks, issue, wait, finish_chunk):
+    """The double-buffered chunk loop: chunk k+1's dispatch is issued before
+    chunk k is finished (the reference's scan body), so every rank issues
+    its exchanges in the same order.  ``issue(tok)`` dispatches a chunk and
+    returns ``(pack, aux, handle)``; ``wait(handle)`` orders the chunk's
+    finish after its dispatch.  Returns the outputs and the auxes, chunk by
+    chunk."""
+    outs, auxs = [], []
+    pack, aux, handle = issue(chunks[0])
+    auxs.append(aux)
+    for k in range(1, len(chunks) + 1):
+        if k < len(chunks):
+            nxt = issue(chunks[k])
+            auxs.append(nxt[1])
+        wait(handle)
+        outs.append(finish_chunk(pack))
+        if k < len(chunks):
+            pack, _, handle = nxt
+    return outs, auxs
+
+
+def _dispatch_hooks(chunks, dispatch_chunk, params):
+    """``(issue, wait)`` of :func:`_pipeline` for ``dispatch_chunk``.  On
+    the CPU the chunks run in issue order on one thread.  On the card every
+    dispatch goes on the layer's own stream: its packs and
+    ``all_to_all_single`` calls run there (NCCL makes the stream current at
+    the call wait for the exchange), and an event makes the main stream
+    wait before the chunk is finished, so chunk k+1's exchanges can overlap
+    chunk k's expert products on the main stream.  Tensors made on the
+    dispatch stream and read on the main one are recorded on it, so that
+    the caching allocator does not hand their memory to the dispatch
+    stream while the main stream may still read them."""
+    if not chunks.is_cuda:
+        return (lambda tok: (*dispatch_chunk(tok), None),
+                lambda handle: None)
+    main = torch.cuda.current_stream(chunks.device)
+    side = params.dispatch_stream()
+    side.wait_stream(main)                  # the tokens come from main
+
+    def issue(tok):
+        with torch.cuda.stream(side):
+            pack, aux = dispatch_chunk(tok)
+            done = torch.cuda.Event()
+            done.record(side)
+        for t in _tensors((pack, aux)):
+            t.record_stream(main)
+        return pack, aux, done
+
+    return issue, main.wait_event
+
+
+def _tensors(obj):
+    """Every tensor in a nest of tuples and dataclasses (a dispatch's
+    outputs and state)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for item in obj:
+            yield from _tensors(item)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))

@@ -1,5 +1,5 @@
-"""Parallelism context: the fixed-policy subset of the reference's
-``src/repro/parallel/context.py::ParallelContext``.
+"""Parallelism context: the port of ``src/repro/parallel/context.py``'s
+``ParallelContext`` and ``build_collective_program``.
 
 A :class:`ParallelContext` travels with a model.  ``pctx=None`` means one
 rank.  Axis roles over a :class:`~repro_torch.parallel.mesh.RankMesh`:
@@ -9,10 +9,14 @@ rank.  Axis roles over a :class:`~repro_torch.parallel.mesh.RankMesh`:
   data   fast axis: data parallel, and EP for MoE layers;
   model  tensor parallel (only a size of 1 is ported).
 
-Only ``plan_policy="fixed"`` is ported: ``moe_scheme`` and ``moe_combine``
-are taken verbatim and the pipeline runs one chunk.  The planner, the plan
-IR, ``plan_policy="auto"`` and the G > 1 chunk pipeline are the next slice
-of the port (queue 1 item 3); asking for any of them raises.
+The MoE round trip (dispatch scheme, return-path scheme and the pipeline
+chunk count G) resolves as the reference resolves it: a bound
+:class:`~repro_torch.core.plan.ExecutionPlan` first, then the planner under
+``plan_policy="auto"``, then the declared knobs.  The planner scores on the
+explicit ``fabric`` or, without one, on the reference's mesh-derived
+topology, so that both packages give the same plans for the same inputs.
+Telemetry calibration (queue 1 item 7) and tensor parallelism (item 6) are
+later slices of the port; asking for either raises.
 """
 
 from __future__ import annotations
@@ -20,10 +24,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from repro_torch.core.h100 import H100_BF16_PEAK_FLOPS, moe_compute_s
 from repro_torch.parallel.mesh import RankMesh
-
-_PLANNER_SLICE = ("is the planner slice of the port (queue 1 item 3); this "
-                  "slice takes plan_policy='fixed' only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,27 +34,33 @@ class ParallelContext:
     pod_axis: Optional[str] = None    # None on a single-pod mesh
     data_axis: str = "data"
     model_axis: str = "model"
-    plan_policy: str = "fixed"
+    plan_policy: str = "fixed"        # "auto": the planner picks the MoE
+    #   round trip per workload; "fixed": the knobs below, verbatim
     moe_scheme: str = "hierarchical"  # hierarchical (MultiWrite) | baseline
     moe_combine: Optional[str] = None  # hierarchical | baseline | None =
     #                                    follow moe_scheme
-    moe_microbatch: int = 1           # dispatch chunks G (1 only)
-    moe_deferred_tp_reduce: bool = False
-    execution_plan: Optional[object] = None
-    fabric: Optional[object] = None
+    fabric: Optional[object] = None   # core.topology.Topology the planner
+    #   scores on (--fabric); None = derived from the mesh shape.  It
+    #   changes which plan wins, not where the exchanges run.
     calibration: Optional[object] = None
+    moe_skew: float = 0.0             # hot-expert routing skew the planner
+    #                                   prices dispatch/combine under
+    moe_deferred_tp_reduce: bool = False
+    moe_microbatch: int = 1           # dispatch chunks G under "fixed"
+    execution_plan: Optional[object] = None  # a bound
+    #   core.plan.ExecutionPlan (install with ``pctx.bind(plan)``)
+    _resolved: dict = dataclasses.field(default_factory=dict, init=False,
+                                        repr=False, compare=False)
 
     def __post_init__(self):
-        if self.plan_policy != "fixed":
+        if self.calibration is not None:
             raise NotImplementedError(
-                f"plan_policy={self.plan_policy!r} {_PLANNER_SLICE}")
-        for name in ("execution_plan", "fabric", "calibration"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"{name} {_PLANNER_SLICE}")
-        if self.moe_microbatch != 1:
-            raise NotImplementedError(
-                f"moe_microbatch={self.moe_microbatch}: the G > 1 chunk "
-                f"pipeline {_PLANNER_SLICE}")
+                "calibration (the telemetry CalibrationStore) is queue 1 "
+                "item 7 of the port")
+        if self.plan_policy not in ("fixed", "auto"):
+            raise ValueError(f"plan_policy {self.plan_policy!r}")
+        if int(self.moe_microbatch) < 1:
+            raise ValueError(f"moe_microbatch {self.moe_microbatch}")
         if self.moe_deferred_tp_reduce or self.model_size != 1:
             raise NotImplementedError(
                 "tensor parallelism inside experts (model axis above 1, "
@@ -99,15 +107,271 @@ class ParallelContext:
             return True, self.num_pods * self.data_size
         return False, self.data_size
 
-    # -- the MoE round trip ----------------------------------------------------
-    def moe_pipeline_kwargs(self) -> dict:
-        """``{"moe_scheme", "moe_combine"}`` of every MoE layer under
-        ``plan_policy="fixed"``: the declared knobs, normalized as the
-        reference's ``_norm_moe_kwargs`` does.  The combine follows the
-        dispatch scheme unless set, and the baseline (unicast) dispatch
-        forces the unicast return path (no relay state exists for a
-        relay-reduced combine).  The pipeline runs one chunk."""
-        combine = self.moe_combine or self.moe_scheme
-        if self.moe_scheme == "baseline":
+    # -- planner consumption -------------------------------------------------
+    def _plan_topo_hw(self, num_experts: int):
+        """(topology, hardware model) the EP planner ops score against: the
+        explicit ``fabric`` (or the reference's mesh-derived shape) and the
+        datasheet model (None; calibration is not ported)."""
+        from repro_torch.core.planner import _ep_topology
+        use_pod, _ = self.ep_ranks(num_experts)
+        topo = _ep_topology(self.num_pods if use_pod else 1,
+                            self.data_size, self.fabric)
+        return topo, None
+
+    # -- declarative collective programs -------------------------------------
+    def bind(self, plan) -> "ParallelContext":
+        """Install a jointly planned ExecutionPlan (returns the bound
+        context: the dataclass is frozen).  A plan fingerprinted on a
+        foreign fabric raises; failure variants of this context's fabric
+        are accepted, as are pinned plans."""
+        if (plan is not None and self.fabric is not None
+                and plan.topo_fingerprint != ("pinned",)):
+            from repro_torch.core.topology import same_fabric_fingerprint
+            fp = self.fabric.fingerprint()
+            if not same_fabric_fingerprint(plan.topo_fingerprint, fp):
+                raise ValueError(
+                    f"ExecutionPlan {plan.fingerprint} was planned on "
+                    f"{plan.topo_fingerprint[0]!r}, but this context's "
+                    f"fabric is {fp[0]!r} — replan the program for the "
+                    f"active fabric before binding")
+        if plan is not None:
+            from repro_torch.telemetry import metrics as _m
+            _m.default_registry()["repro_plan_bind_total"].inc(
+                program=plan.program.name, fingerprint=plan.fingerprint)
+        return dataclasses.replace(self, execution_plan=plan)
+
+    def moe_sites(self, phase: str, *, num_experts: int, top_k: int,
+                  tokens_per_rank: int, token_bytes: int,
+                  compute_s: float = 0.0) -> tuple:
+        """This context's coupled MoE (dispatch, combine) site pair for one
+        phase, priced under the declared ``moe_skew``."""
+        from repro_torch.core import plan as plan_ir
+        return plan_ir.moe_sites(
+            phase, num_experts=num_experts, top_k=top_k,
+            tokens_per_rank=tokens_per_rank, token_bytes=token_bytes,
+            skew=self.moe_skew, compute_s=compute_s)
+
+    def split_tp_gather_site(self, phase: str, *, global_batch: int,
+                             seq_len: int, d_model: int, itemsize: int = 2):
+        """The split-TP AllGather site of one phase: None.  The reference
+        declares one only with two TP subgroups on a model axis above 1,
+        and a model axis above 1 is queue 1 item 6 of the port."""
+        return None
+
+    def grad_sync_site(self, phase: str, *, num_params: int,
+                       tokens_per_rank: int,
+                       peak_flops: float = H100_BF16_PEAK_FLOPS):
+        """The per-step gradient AllReduce site of one training phase, or
+        None without data-parallel replicas.  Payload: fp32 gradients;
+        overlap context: the modelled backward pass at ``peak_flops``;
+        fabric: the full DP span, pods included."""
+        dp = self.num_pods * self.data_size
+        if dp <= 1:
+            return None
+        from repro_torch.core import plan as plan_ir
+        from repro_torch.core.latency_model import backward_compute_s
+        from repro_torch.core.planner import _ep_topology
+        payload = float(num_params) * 4.0 / max(1, self.model_size)
+        compute = backward_compute_s(num_params, tokens_per_rank,
+                                     tp=self.model_size,
+                                     peak_flops=peak_flops)
+        topo = _ep_topology(self.num_pods, self.data_size, self.fabric)
+        return plan_ir.grad_sync_site(phase, payload_bytes=payload,
+                                      compute_s=compute, topo=topo)
+
+    def plan_collectives(self, program):
+        """Jointly plan a declared program on this context's fabric
+        (``pctx = pctx.bind(pctx.plan_collectives(program))``)."""
+        from repro_torch.core.planner import default_planner
+        num_experts = max((dict(s.scenario_kw).get("num_experts", 0)
+                           for s in program.sites), default=0)
+        topo, hw = self._plan_topo_hw(num_experts)
+        return default_planner().plan_program(program, topo, hw)
+
+    def bound_plan_stale(self, planner=None) -> Optional[bool]:
+        """Whether the bound plan was superseded by a replan (True), is
+        current (False), or cannot be judged (None)."""
+        if self.execution_plan is None:
+            return None
+        if planner is None:
+            from repro_torch.core.planner import default_planner
+            planner = default_planner()
+        return planner.plan_is_stale(self.execution_plan)
+
+    # -- site resolution -----------------------------------------------------
+    def moe_pipeline_kwargs(self, num_experts: int, top_k: int,
+                            tokens_per_rank: int, token_bytes: int,
+                            compute_s: float = 0.0,
+                            microbatch: Optional[int] = None) -> dict:
+        """The MoE round trip one layer executes: ``{"moe_scheme",
+        "moe_combine", "microbatch"}``, decided together.
+
+        Resolution order: (1) a bound ExecutionPlan whose declared dispatch
+        site matches this workload; (2) under ``plan_policy="auto"``, an
+        ad-hoc single-phase program through the planner; (3) the declared
+        knobs.  A unicast dispatch always returns by the unicast path.
+        ``microbatch`` constrains the result to the chunk count the layer
+        actually runs (the best joint candidate at that G).
+
+        Eager torch asks at every MoE call, where the reference asks once
+        at trace time; the answer for one set of arguments never changes
+        on a context (its plan is immutable and the planner has no
+        calibration), so it is kept on the context after the first call."""
+        key = (num_experts, top_k, tokens_per_rank, token_bytes,
+               float(compute_s), microbatch)
+        kw = self._resolved.get(key)
+        if kw is None:
+            kw = self._resolved[key] = self._resolve_pipeline_kwargs(
+                num_experts, top_k, tokens_per_rank, token_bytes,
+                compute_s, microbatch)
+        return dict(kw)
+
+    def _resolve_pipeline_kwargs(self, num_experts, top_k, tokens_per_rank,
+                                 token_bytes, compute_s, microbatch) -> dict:
+        payload = float(tokens_per_rank) * token_bytes
+        scen = dict(num_experts=num_experts, top_k=top_k,
+                    token_bytes=token_bytes)
+        decision = None
+        if self.execution_plan is not None:
+            role = self.execution_plan.find_role(
+                "dispatch", payload, skew=self.moe_skew,
+                compute_s=compute_s, **scen)
+            if role is not None:
+                anchor = self.execution_plan.group_of.get(role)
+                decision = (self.execution_plan.joint.get(anchor)
+                            if anchor is not None else None)
+                if decision is None:
+                    kw = self.execution_plan.site_kwargs(role)
+                    return self._norm_moe_kwargs(
+                        self._kwargs_at_g(None, kw, microbatch))
+        if decision is None:
+            if self.plan_policy != "auto":
+                return self._norm_moe_kwargs(self._kwargs_at_g(
+                    None, {"moe_scheme": self.moe_scheme,
+                           "moe_combine": self.moe_combine,
+                           "microbatch": max(1, int(self.moe_microbatch))},
+                    microbatch))
+            from repro_torch.core import plan as plan_ir
+            sites = self.moe_sites(
+                "auto", num_experts=num_experts, top_k=top_k,
+                tokens_per_rank=tokens_per_rank, token_bytes=token_bytes,
+                compute_s=compute_s)
+            eplan = self.plan_collectives(
+                plan_ir.CollectiveProgram("moe/auto", sites))
+            decision = eplan.joint.get(sites[0].role)
+            if decision is None:
+                return self._norm_moe_kwargs(self._kwargs_at_g(
+                    None, eplan.site_kwargs(sites[0].role), microbatch))
+        return self._norm_moe_kwargs(self._kwargs_at_g(
+            decision, dict(decision.shard_map_kwargs), microbatch))
+
+    @staticmethod
+    def _kwargs_at_g(decision, kwargs: dict,
+                     microbatch: Optional[int]) -> dict:
+        """Constrain a resolved configuration to an executed chunk count:
+        the best joint candidate at that G when the decision carries a
+        candidate sweep, else the same kwargs with G overridden."""
+        if microbatch is None or \
+                int(microbatch) == int(kwargs.get("microbatch", 1)):
+            return kwargs
+        g = max(1, int(microbatch))
+        for name, kn, _ in sorted(
+                getattr(decision, "candidates", None) or (),
+                key=lambda c: c[2]):
+            if dict(kn).get("microbatch", 1) != g or "+" not in name:
+                continue
+            from repro_torch.core import plan as plan_ir
+            d_name, _, c_name = name.partition("+")
+            kw = plan_ir.get_plan("dispatch", d_name).shard_map_kwargs(
+                microbatch=g)
+            kw.update(plan_ir.get_plan("combine", c_name).shard_map_kwargs(
+                microbatch=g))
+            return kw
+        return {**kwargs, "microbatch": g}
+
+    @staticmethod
+    def _norm_moe_kwargs(kw: dict) -> dict:
+        """The combine follows the dispatch scheme unless set, and the
+        baseline (unicast) dispatch forces the unicast return path (no
+        relay state exists for a relay-reduced combine)."""
+        scheme = kw.get("moe_scheme", "hierarchical")
+        combine = kw.get("moe_combine") or scheme
+        if scheme == "baseline":
             combine = "baseline"
-        return {"moe_scheme": self.moe_scheme, "moe_combine": combine}
+        return {"moe_scheme": scheme, "moe_combine": combine,
+                "microbatch": max(1, int(kw.get("microbatch", 1)))}
+
+    def allgather_plan(self, frag_bytes: float, num_domains: int = 2):
+        """Decision for the split-TP AllGather at one fragment size:
+        bound-plan lookup first, then the planner under "auto", None under
+        "fixed"."""
+        if self.execution_plan is not None:
+            role = self.execution_plan.find_role(
+                "allgather", frag_bytes, num_domains=num_domains)
+            if role is not None:
+                return self.execution_plan.decision(role)
+        if self.plan_policy != "auto":
+            return None
+        from repro_torch.core.planner import default_planner
+        from repro_torch.core.topology import split_tp_full_mesh
+        n = self.model_size
+        topo, _ = split_tp_full_mesh(n, tp=max(1, n // num_domains))
+        return default_planner().choose(
+            "allgather", float(frag_bytes), topo, executable_only=True,
+            num_domains=num_domains)
+
+
+def param_count(cfg) -> int:
+    """Parameters of the port's model for ``cfg``, counted on the meta
+    device (nothing allocated)."""
+    import torch
+
+    from repro_torch.models.api import param_module
+    return sum(p.numel() for p in param_module(
+        cfg, device="meta", dtype=torch.float32).parameters())
+
+
+def build_collective_program(cfg, pctx: ParallelContext, name: str,
+                             phases: dict, *, itemsize: int = 2,
+                             phase_budgets: Optional[dict] = None,
+                             peak_flops: float = H100_BF16_PEAK_FLOPS):
+    """The declared collective program of one launch surface.
+
+    ``phases`` maps a phase name ("train" | "prefill" | "decode") to its
+    ``(global_batch, seq_len)`` workload.  Per phase this declares the
+    coupled MoE (dispatch, combine) pair of an MoE arch, and for "train"
+    the gradient AllReduce: exactly the sites ``moe_ffn`` looks up, from
+    the same shard math.  ``itemsize`` must match the activation dtype the
+    model runs in (site keys embed the payload bucket).  The overlap
+    contexts are priced at ``peak_flops``, the H100's bf16 peak, as
+    ``moe_ffn`` prices them; the reference's ``TPU_PEAK_FLOPS`` gives the
+    reference's program.  ``phase_budgets`` (phase -> seconds) caps a
+    phase's latency in the planner's contention-aware sweep."""
+    from repro_torch.core import plan as plan_ir
+    sites = []
+    for phase, (global_batch, seq_len) in phases.items():
+        dp = pctx.num_pods * pctx.data_size
+        n_rank = max(1, (global_batch * seq_len) // dp)
+        if getattr(cfg, "is_moe", False):
+            d_ff = getattr(cfg, "expert_d_ff", cfg.d_model)
+            compute_s = moe_compute_s(n_rank, cfg.top_k, cfg.d_model, d_ff,
+                                      tp=pctx.model_size,
+                                      peak_flops=peak_flops)
+            sites.extend(pctx.moe_sites(
+                phase, num_experts=cfg.num_experts, top_k=cfg.top_k,
+                tokens_per_rank=n_rank, token_bytes=cfg.d_model * itemsize,
+                compute_s=compute_s))
+        if seq_len > 1:
+            ag = pctx.split_tp_gather_site(
+                phase, global_batch=global_batch, seq_len=seq_len,
+                d_model=cfg.d_model, itemsize=itemsize)
+            if ag is not None:
+                sites.append(ag)
+        if phase == "train":
+            gs = pctx.grad_sync_site(phase, num_params=param_count(cfg),
+                                     tokens_per_rank=n_rank,
+                                     peak_flops=peak_flops)
+            if gs is not None:
+                sites.append(gs)
+    return plan_ir.CollectiveProgram(name, tuple(sites),
+                                     phase_budgets=dict(phase_budgets or {}))

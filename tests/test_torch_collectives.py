@@ -14,10 +14,16 @@ The 2 x 2 counterpart of ``tests/multidev/check_collectives.py``'s
 
 Pack maps and expert gates must be bit-exact rank by rank; combined outputs
 and ``moe_ffn`` within 1e-5 (fp32), and within the reference's 1e-4 of the
-dense oracle.  A reduced DBRX served over the 4 ranks must give the
-one-rank engine's tokens under all three scheme pairs.
+dense oracle.  ``moe_ffn`` is also held at G = 4 pipeline chunks
+(``run_moe_pipeline_checks``: bit-exact against G = 1, within 1e-5 of the
+reference's G = 4), under bound plans (``run_execution_plan_checks``: a
+pinned plan against contrasting knobs, a planned bind against ad-hoc
+``auto``, both bit-exact), and with EP over the data axis alone (2 experts
+over 2 x 2 ranks, the pods pure DP).  A reduced DBRX served over the 4
+ranks must give the one-rank engine's tokens under all three scheme pairs.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -39,6 +45,28 @@ CASES = (("hier", "hierarchical", "hierarchical", True),
 PAIRS = ("hierarchical+hierarchical", "hierarchical+baseline",
          "baseline+baseline")
 SPAWN_TIMEOUT_S = 300
+PIPE_G = 4
+# the pinned plans of run_execution_plan_checks: (scheme, combine, G)
+PINNED = (("hierarchical", "hierarchical", 4),
+          ("hierarchical", "baseline", 4),
+          ("baseline", "baseline", 2))
+
+
+def pipe_config():
+    """``run_moe_pipeline_checks``' layer: 8 experts, top-2, capacity factor
+    4 (no stage drops a pair), d_model 16, d_ff 32, over [4, 16] tokens, so
+    16 rows a rank and 4 rows a chunk at G = 4."""
+    import types
+    return types.SimpleNamespace(num_experts=8, top_k=2, act="silu",
+                                 moe_capacity=4.0, d_model=16), 32
+
+
+def ep_data_config(get_config):
+    """Reduced DBRX with 2 experts, top-1: fewer experts than the 4 ranks,
+    so EP runs over the data axis alone and the pods are pure DP."""
+    import dataclasses
+    return dataclasses.replace(
+        get_config("dbrx_132b").reduced(num_experts=2), top_k=1)
 
 
 def case_config(name: str) -> dict:
@@ -138,26 +166,34 @@ def jax_reference(path: str) -> None:
             out[f"{name}/{key}"] = (val if key == "out" else
                                     val.reshape(WORLD, -1, *val.shape[1:]))
 
-    # moe_ffn of a reduced DBRX layer under a fixed pctx, each scheme pair
-    cfg = get_config("dbrx_132b").reduced()
-    params = init_moe(jax.random.key(0), cfg.d_model, cfg.expert_d_ff,
-                      cfg.num_experts)
-    x = np.random.default_rng(5).normal(
-        size=(WORLD, 8, cfg.d_model)).astype(np.float32)
+    # moe_ffn under a fixed pctx, each scheme pair: a reduced DBRX layer;
+    # run_moe_pipeline_checks' layer at G = 4; EP over the data axis alone
     mesh3 = jax.make_mesh((PODS, EPS, 1), ("pod", "data", "model"))
-    for key, val in params.items():
-        out[f"moe/{key}"] = np.asarray(val)
-    out["moe/x"] = x
-    for pair in PAIRS:
-        scheme, combine = pair.split("+")
-        pctx = ParallelContext(mesh=mesh3, pod_axis="pod", data_axis="data",
-                               model_axis="model", plan_policy="fixed",
-                               moe_scheme=scheme, moe_combine=combine)
-        with mesh3:
-            y, aux = jax.jit(lambda xx, p=pctx: moe_ffn(params, xx, cfg, p))(
-                jnp.asarray(x))
-        out[f"moe/{pair}/y"] = np.asarray(y)
-        out[f"moe/{pair}/aux"] = np.asarray(aux)
+    pipe_cfg, pipe_ff = pipe_config()
+    jobs = (("moe", get_config("dbrx_132b").reduced(), None, (WORLD, 8), 5,
+             1),
+            ("pipe", pipe_cfg, pipe_ff, (4, 16), 5, PIPE_G),
+            ("epdata", ep_data_config(get_config), None, (WORLD, 8), 6, 1))
+    for job, cfg, d_ff, shape, seed, g in jobs:
+        params = init_moe(jax.random.key(0), cfg.d_model,
+                          d_ff or cfg.expert_d_ff, cfg.num_experts)
+        x = np.random.default_rng(seed).normal(
+            size=shape + (cfg.d_model,)).astype(np.float32)
+        for key, val in params.items():
+            out[f"{job}/{key}"] = np.asarray(val)
+        out[f"{job}/x"] = x
+        for pair in PAIRS:
+            scheme, combine = pair.split("+")
+            pctx = ParallelContext(mesh=mesh3, pod_axis="pod",
+                                   data_axis="data", model_axis="model",
+                                   plan_policy="fixed", moe_scheme=scheme,
+                                   moe_combine=combine, moe_microbatch=g)
+            with mesh3:
+                y, aux = jax.jit(
+                    lambda xx, p=pctx, c=cfg, w=params: moe_ffn(w, xx, c, p)
+                )(jnp.asarray(x))
+            out[f"{job}/{pair}/y"] = np.asarray(y)
+            out[f"{job}/{pair}/aux"] = np.asarray(aux)
     np.savez(path, **out)
 
 
@@ -196,16 +232,52 @@ def reference(tmp_path_factory):
     return dict(np.load(path))
 
 
+MOE_JOBS = ("moe", "pipe", "epdata")
+
+
+def pipe_runs() -> list:
+    """The runs of the pipeline layer: the fixed pairs at G = 1 and G = 4
+    and the baseline at G = 2; each pinned plan, bound to a context whose
+    knobs contrast with it; the planner ad hoc (``auto``) and its plan for
+    the same workload, bound (``planned``)."""
+    from repro_torch.core import plan as plan_ir
+    from repro_torch.core.h100 import moe_compute_s
+    cfg, d_ff = pipe_config()
+    n_local = 4 * 16 // WORLD
+    sites = plan_ir.moe_sites(
+        "train", num_experts=cfg.num_experts, top_k=cfg.top_k,
+        tokens_per_rank=n_local, token_bytes=cfg.d_model * 4,
+        compute_s=moe_compute_s(n_local, cfg.top_k, cfg.d_model, d_ff))
+    program = plan_ir.CollectiveProgram("train", sites)
+    runs = (ranks.fixed_runs() + ranks.fixed_runs(microbatch=PIPE_G)
+            + ranks.fixed_runs((("baseline", "baseline"),), microbatch=2))
+    for scheme, combine, g in PINNED:
+        pinned = plan_ir.pinned_execution_plan(
+            program, {"train/moe_dispatch": {"moe_scheme": scheme,
+                                             "moe_combine": combine,
+                                             "microbatch": g}})
+        runs.append(dict(label=f"pinned {scheme}+{combine}@G{g}",
+                         scheme="baseline", microbatch=1, plan=pinned))
+    runs.append(dict(label="auto", policy="auto"))
+    runs.append(dict(label="planned", policy="auto", program=program))
+    return runs
+
+
 @pytest.fixture(scope="module")
 def torch_ranks(reference, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ranks")
-    np.savez(tmp / "inputs.npz", **{k: v for k, v in reference.items()
-                                    if not k.startswith("moe/")})
+    np.savez(tmp / "inputs.npz", **{
+        k: v for k, v in reference.items()
+        if k.split("/")[0] not in MOE_JOBS})
     cases = [dict(name=n, scheme=s, combine=c, scaled=sc,
                   dcfg=case_config(n)["dcfg"]) for n, s, c, sc in CASES]
-    moe = dict(cfg=get_config("dbrx_132b").reduced(), x=reference["moe/x"],
-               weights={k: reference[f"moe/{k}"]
-                        for k in ("router", "w1", "w3", "w2")})
+    cfgs = {"moe": get_config("dbrx_132b").reduced(),
+            "pipe": pipe_config()[0], "epdata": ep_data_config(get_config)}
+    moe = [dict(name=job, cfg=cfgs[job], x=reference[f"{job}/x"],
+                weights={k: reference[f"{job}/{k}"]
+                         for k in ("router", "w1", "w3", "w2")},
+                runs=pipe_runs() if job == "pipe" else None)
+           for job in MOE_JOBS]
     spec = _spec(tmp, inputs=str(tmp / "inputs.npz"), cases=cases, moe=moe)
     return ranks.run_ranks(ranks.dispatch_worker, spec,
                            timeout_s=SPAWN_TIMEOUT_S)
@@ -245,11 +317,76 @@ def test_combined_outputs_match_reference(reference, torch_ranks, name):
 
 @pytest.mark.parametrize("pair", PAIRS)
 def test_moe_ffn_over_ranks_matches_reference(reference, torch_ranks, pair):
-    got = np.concatenate([r["moe_ffn"][pair]["y"] for r in torch_ranks])
+    got = np.concatenate([r["moe_ffn"]["moe"][pair]["y"]
+                          for r in torch_ranks])
     np.testing.assert_allclose(got, reference[f"moe/{pair}/y"], **TOL)
     for r in torch_ranks:
-        np.testing.assert_allclose(r["moe_ffn"][pair]["aux"],
+        np.testing.assert_allclose(r["moe_ffn"]["moe"][pair]["aux"],
                                    float(reference[f"moe/{pair}/aux"]),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+def test_moe_ffn_pipeline_matches_serial_and_reference(reference,
+                                                       torch_ranks, pair):
+    """G = 4 chunks, double-buffered, against G = 1: bit-exact; and within
+    TOL of the reference's G = 4 ``shard_map``, aux included (the mean of
+    the chunks' dp-means)."""
+    runs = [r["moe_ffn"]["pipe"] for r in torch_ranks]
+    for rank, run in enumerate(runs):
+        scheme, combine = pair.split("+")
+        assert run[f"{pair}@G{PIPE_G}"]["resolved"] == {
+            "moe_scheme": scheme, "moe_combine": combine,
+            "microbatch": PIPE_G}
+        np.testing.assert_array_equal(run[f"{pair}@G{PIPE_G}"]["y"],
+                                      run[pair]["y"],
+                                      err_msg=f"rank {rank}")
+        np.testing.assert_allclose(run[f"{pair}@G{PIPE_G}"]["aux"],
+                                   float(reference[f"pipe/{pair}/aux"]),
+                                   **TOL)
+    got = np.concatenate([run[f"{pair}@G{PIPE_G}"]["y"] for run in runs])
+    np.testing.assert_allclose(got, reference[f"pipe/{pair}/y"], **TOL)
+
+
+@pytest.mark.parametrize("scheme,combine,g", PINNED)
+def test_bound_plan_equals_the_knobs_it_pins(torch_ranks, scheme, combine,
+                                             g):
+    """A pinned ExecutionPlan bound to a context whose knobs say otherwise
+    (baseline, G = 1): only the plan lookup gives the pinned round trip, and
+    the output equals the fixed knobs' bit for bit."""
+    for r in torch_ranks:
+        run = r["moe_ffn"]["pipe"]
+        pinned = run[f"pinned {scheme}+{combine}@G{g}"]
+        assert pinned["resolved"] == {"moe_scheme": scheme,
+                                      "moe_combine": combine,
+                                      "microbatch": g}
+        label = f"{scheme}+{combine}@G{g}"
+        np.testing.assert_array_equal(pinned["y"], run[label]["y"])
+        assert pinned["aux"] == run[label]["aux"]
+
+
+def test_planned_bind_equals_ad_hoc_auto(torch_ranks):
+    """The planner's plan for the workload, bound, and the planner asked ad
+    hoc at the layer resolve alike and give the same output bit for bit;
+    every rank resolves the same round trip."""
+    first = torch_ranks[0]["moe_ffn"]["pipe"]["planned"]["resolved"]
+    for r in torch_ranks:
+        run = r["moe_ffn"]["pipe"]
+        assert run["planned"]["resolved"] == run["auto"]["resolved"] == first
+        np.testing.assert_array_equal(run["planned"]["y"], run["auto"]["y"])
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+def test_moe_ffn_with_ep_over_data_alone_matches_reference(
+        reference, torch_ranks, pair):
+    """2 experts over 2 pods x 2 ep ranks: EP spans the data axis alone (one
+    expert a rank, the same on both pods) and the pods are pure DP."""
+    got = np.concatenate([r["moe_ffn"]["epdata"][pair]["y"]
+                          for r in torch_ranks])
+    np.testing.assert_allclose(got, reference[f"epdata/{pair}/y"], **TOL)
+    for r in torch_ranks:
+        np.testing.assert_allclose(r["moe_ffn"]["epdata"][pair]["aux"],
+                                   float(reference[f"epdata/{pair}/aux"]),
                                    **TOL)
 
 
@@ -268,24 +405,74 @@ def served(tmp_path_factory):
     one.cfg.temperature = 1.0
     sampled = one.generate(prompts, seed=7)
     tmp = tmp_path_factory.mktemp("serve")
+    runs = ranks.fixed_runs() + [
+        dict(scheme="hierarchical", combine="hierarchical", microbatch=PIPE_G,
+             sample=False),
+        dict(label="planned", policy="auto", fabric="measured", bind=True,
+             sample=False),
+        dict(label="planned-fixed", twin="planned", sample=False)]
     spec = _spec(tmp, cfg=cfg, dtype=torch.float32,
                  cache_dtype=torch.float32, seed=3, prompts=prompts,
-                 max_new=5, schemes=ranks.SCHEME_PAIRS, warmup=True,
-                 temperature=1.0, sample_seed=7)
+                 max_new=5, runs=runs, warmup=True, temperature=1.0,
+                 sample_seed=7, measure_link=1 << 16,
+                 decide=["measured", "measured-pod:12.5"])
     return cfg, expected, sampled, ranks.run_ranks(
         ranks.serve_worker, spec, timeout_s=SPAWN_TIMEOUT_S)
 
 
+SERVED_RUNS = PAIRS + (f"hierarchical+hierarchical@G{PIPE_G}", "planned",
+                       "planned-fixed")
+
+
 def test_generate_over_ranks_equals_one_rank(served):
+    """Every scheme pair, the pipeline at G = 4, the planned run and its
+    fixed twin give the one-rank engine's tokens (fp32: each chunk's rows equal the serial
+    loop's, so no near ties arise)."""
     cfg, expected, _, results = served
     assert expected.shape == (WORLD, 5)
     for r in results:
-        for pair in PAIRS:
-            got = r["pairs"][pair]
+        for label in SERVED_RUNS:
+            got = r["runs"][label]
             np.testing.assert_array_equal(got["tokens"], expected,
-                                          err_msg=f"rank {r['rank']} {pair}")
+                                          err_msg=f"rank {r['rank']} {label}")
             assert got["nonfinite_logits"] == 0
             assert got["prefill_logits"].shape == (1, cfg.vocab)
+            against = "planned" if label == "planned-fixed" else PAIRS[0]
+            assert got["vs"] == {"run": against, "rows_equal": 1, "rows": 1,
+                                 "widest_gap": 0.0}
+        g4 = r["runs"][SERVED_RUNS[3]]["resolved"]
+        assert g4 == {"prefill": ("hierarchical", "hierarchical", PIPE_G),
+                      "decode": ("hierarchical", "hierarchical", 1)}
+
+
+def test_planned_serving_follows_the_measured_fabric(served):
+    """The ranks measure one exchange and agree on its rate; the planner's
+    decisions on that fabric (and on its pod link slowed to 12.5 GB/s) are
+    the same on every rank, the planned run executes its plan, clamped to
+    the rows a rank has, and its twin runs the plan's prefill triple
+    fixed."""
+    _, _, _, results = served
+    first = results[0]
+    fabric = first["link"]["fabric"]
+    assert fabric.startswith("2x2@")
+    assert [d["fabric"] for d in first["decisions"]] == [
+        fabric, f"2x2@12.5:{fabric.partition(':')[2]}"]
+    for r in results:
+        assert r["link"] == first["link"]
+        assert r["decisions"] == [
+            {**d, "host_us": r_d["host_us"]}
+            for d, r_d in zip(first["decisions"], r["decisions"])]
+        planned = r["runs"]["planned"]
+        assert planned["plan"] == first["runs"]["planned"]["plan"]
+        assert planned["plan"] == first["decisions"][0]["fingerprint"]
+        for phase, rows in (("prefill", 8), ("decode", 1)):
+            want = first["decisions"][0]["phases"][phase]
+            assert planned["resolved"][phase] == (
+                want["scheme"], want["combine"],
+                math.gcd(want["microbatch"], rows))
+        twin = r["runs"]["planned-fixed"]
+        assert twin["plan"] is None
+        assert twin["resolved"]["prefill"] == planned["resolved"]["prefill"]
 
 
 def test_pod_bytes_count_the_send_buffers(served):
@@ -294,8 +481,8 @@ def test_pod_bytes_count_the_send_buffers(served):
     MultiWrite puts no more on the pod group than the baseline."""
     _, _, _, results = served
     for r in results:
-        hier = r["pairs"]["hierarchical+hierarchical"]
-        base = r["pairs"]["baseline+baseline"]
+        hier = r["runs"]["hierarchical+hierarchical"]
+        base = r["runs"]["baseline+baseline"]
         assert hier["pod_bytes"]["occupied"] <= base["pod_bytes"]["occupied"]
         assert 0 < hier["pod_bytes"]["occupied"] <= hier["pod_bytes"]["whole"]
         if hier["pod"] == 0:
@@ -313,18 +500,20 @@ def test_sampling_over_ranks_equals_one_rank(served):
     for r in results:
         for pair in PAIRS:
             np.testing.assert_array_equal(
-                r["pairs"][pair]["sampled"], sampled,
+                r["runs"][pair]["sampled"], sampled,
                 err_msg=f"rank {r['rank']} {pair}")
 
 
 def test_every_pack_of_a_step_is_checked(served):
     """The warm-up run (a prefill and a decode step) holds each pack of the
-    path against its plain version: 3 a layer for the hierarchical dispatch,
-    2 for the baseline at 4 ranks."""
+    path against its plain version: 3 a layer and chunk for the
+    hierarchical dispatch, 2 for the baseline at 4 ranks."""
     cfg, _, _, results = served
+    per_chunk = {"hierarchical": 3, "baseline": 2}
     for r in results:
-        for pair in PAIRS:
-            packs = r["pairs"][pair]["packs"]
-            per_layer = 3 if pair.startswith("hierarchical") else 2
-            assert len(packs) == 2 * per_layer * cfg.n_layers
-            assert all(exact for *_, exact in packs)
+        for label in SERVED_RUNS:
+            run = r["runs"][label]
+            want = sum(per_chunk[scheme] * g for scheme, _, g
+                       in run["resolved"].values())
+            assert len(run["packs"]) == want * cfg.n_layers, label
+            assert all(exact for *_, exact in run["packs"])

@@ -208,3 +208,47 @@ def test_rwkv6_kernel_at_chunk_edges_on_card(s, decay):
                             return_final=True)
     torch.testing.assert_close(y.float(), ey, atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(state, es, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [2, 4])
+def test_moe_pipeline_on_its_own_stream_matches_serial_on_card(g):
+    """``moe_ffn`` at G chunks on the card (one rank; each chunk's dispatch
+    on the layer's own stream) against G = 1 and the CPU plain version, in
+    fp32 without TF32: the same rows, in the same order.  The aux is the
+    mean of the chunks' auxes, so it is held to the CPU's at the same G.
+    The layer's stream is made once and reused."""
+    _need_cuda()
+    import types
+
+    from repro_torch.models import moe as M
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.parallel.mesh import RankMesh
+    cfg = types.SimpleNamespace(num_experts=8, top_k=2, act="silu",
+                                moe_capacity=4.0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    layer = M.init_moe(64, 128, 8, generator=gen, device="cuda",
+                       dtype=torch.float32)
+    x = torch.randn((2, 256, 64), generator=gen, device="cuda")
+    mesh = RankMesh((1, 1, 1))
+    outs = {}
+    for chunks in (1, g):
+        pctx = ParallelContext(mesh, moe_microbatch=chunks)
+        assert M.pipeline_config(pctx, cfg, 512, 64, 128, 4)[
+            "microbatch"] == chunks
+        y, aux = M.moe_ffn(layer, x, cfg, pctx)
+        outs[chunks] = (y, aux)
+    stream = layer.dispatch_stream()
+    assert stream is layer.dispatch_stream()
+    assert stream != torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    (y1, a1), (yg, ag) = outs[1], outs[g]
+    assert torch.isfinite(yg).all()
+    torch.testing.assert_close(yg, y1, atol=1e-5, rtol=1e-5)
+    cpu = M.MoE(64, 128, 8, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    yc, ac = M.moe_ffn(cpu, x.cpu(), cfg, ParallelContext(
+        mesh, moe_microbatch=g))
+    torch.testing.assert_close(yg.cpu(), yc, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ag.cpu(), ac, atol=1e-5, rtol=1e-5)
+    assert torch.isfinite(a1)

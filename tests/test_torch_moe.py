@@ -106,23 +106,26 @@ def test_dispatch_combine_match_reference(n, h, e, k, cf):
 
 
 def test_planner_and_tensor_parallel_slices_raise():
-    """What the fixed-policy context does not take raises, naming the slice
-    of the port that brings it."""
+    """The context takes the planner's knobs; what it does not take raises,
+    naming the slice of the port that brings it: calibration (telemetry,
+    item 7) and tensor parallelism (item 6)."""
     from repro_torch.parallel.context import ParallelContext
     from repro_torch.parallel.mesh import RankMesh
     mesh = RankMesh((1, 1, 1))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ParallelContext(mesh, plan_policy="auto")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ParallelContext(mesh, moe_microbatch=2)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ParallelContext(mesh, calibration="calibration.jsonl")
     with pytest.raises(NotImplementedError, match="item 6"):
         RankMesh((1, 1, 2))
     with pytest.raises(NotImplementedError, match="item 6"):
         ParallelContext(mesh, moe_deferred_tp_reduce=True)
+    with pytest.raises(ValueError, match="moe_microbatch"):
+        ParallelContext(mesh, moe_microbatch=0)
+    assert ParallelContext(mesh, plan_policy="auto").plan_policy == "auto"
     pctx = ParallelContext(mesh, moe_scheme="baseline",
-                           moe_combine="hierarchical")
-    assert pctx.moe_pipeline_kwargs() == {"moe_scheme": "baseline",
-                                          "moe_combine": "baseline"}
+                           moe_combine="hierarchical", moe_microbatch=2)
+    assert pctx.moe_pipeline_kwargs(16, 4, 64, 128) == {
+        "moe_scheme": "baseline", "moe_combine": "baseline",
+        "microbatch": 2}
 
 
 @pytest.mark.parametrize("scheme", ["unicast_combine", "baseline"])

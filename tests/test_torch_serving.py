@@ -199,6 +199,37 @@ def test_serve_cli_smoke(capsys):
                                 False)
 
 
+def test_launcher_plans_on_the_given_or_measured_fabric(tmp_path, capsys):
+    """``--fabric`` is taken as given.  Without it gloo ranks plan on the
+    reference's mesh-derived fabric and say so, and nccl ranks time their
+    link and plan on ``PxD@R:R`` from the measured rate (here one gloo
+    rank stands in for the timing)."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.parallel.mesh import RankMesh
+    cfg = serve_cli.serve_config("dbrx_132b", layers=None, smoke=True)
+    pctx = ParallelContext(RankMesh((1, 1, 1)), pod_axis=None)
+    args = argparse.Namespace(fabric="2x8", backend="gloo", prompts=4,
+                              prompt_len=16, pods=1, ep=1, smoke=True)
+    assert serve_cli.planning_fabric(pctx, cfg, args, "cpu") == "2x8"
+    args.fabric = None
+    assert serve_cli.planning_fabric(pctx, cfg, args, "cpu") is None
+    assert "mesh-derived TPU fabric" in capsys.readouterr().out
+    args.backend = "nccl"
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        spec = serve_cli.planning_fabric(pctx, cfg, args,
+                                         torch.device("cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert spec.startswith("1x1@") and f"fabric {spec}" in \
+        capsys.readouterr().out
+
+
 # ---------------------------------------------------------------------------
 # the port stands alone: no JAX, nothing of the reference package
 # ---------------------------------------------------------------------------
@@ -215,8 +246,12 @@ def test_importing_the_port_loads_no_jax():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(mods) >= 20, mods\n"
         "assert {'repro_torch.parallel.mesh', 'repro_torch.parallel.context',\n"
-        "        'repro_torch.core.bitmap', 'repro_torch.launch.ranks'\n"
-        "        } <= set(mods), mods\n"
+        "        'repro_torch.core.bitmap', 'repro_torch.launch.ranks',\n"
+        "        'repro_torch.core.planner', 'repro_torch.core.plan',\n"
+        "        'repro_torch.core.schedules', 'repro_torch.core.topology',\n"
+        "        'repro_torch.core.latency_model',\n"
+        "        'repro_torch.core.multiwrite', 'repro_torch.core.h100',\n"
+        "        'repro_torch.telemetry.metrics'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -239,8 +274,12 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 20
     assert {PORT / "parallel" / "mesh.py", PORT / "parallel" / "context.py",
-            PORT / "core" / "bitmap.py", PORT / "launch" / "ranks.py"
-            } <= set(files)
+            PORT / "core" / "bitmap.py", PORT / "launch" / "ranks.py",
+            PORT / "core" / "planner.py", PORT / "core" / "plan.py",
+            PORT / "core" / "schedules.py", PORT / "core" / "topology.py",
+            PORT / "core" / "latency_model.py",
+            PORT / "core" / "multiwrite.py", PORT / "core" / "h100.py",
+            PORT / "telemetry" / "metrics.py"} <= set(files)
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
