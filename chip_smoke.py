@@ -21,8 +21,10 @@ Phases; any failure raises and the script exits non-zero:
    on the same inputs, which must be bit-identical;
 4. reference: small models in bf16 on the card (kernels) against the same
    weights in fp32 on the CPU (plain versions): DBRX-shaped with every
-   expert active and routed top-2 of 8 with overflow, then Zamba2-shaped
-   (attention at head_dim 112) and RWKV6-shaped;
+   expert active and routed top-2 of 8 with overflow, Kimi-shaped (head_dim
+   112 over one kv head, a dense first layer, 24 experts top-8, a shared
+   expert), then Zamba2-shaped (attention at head_dim 112) and
+   RWKV6-shaped;
 5. serve: through ``ServeEngine.generate``, random seeded weights, 4
    prompts x 512 tokens, 32 new tokens greedy, one model at a time, each
    freed before the next: DBRX-132B at full width with its depth cut to 4
@@ -36,10 +38,18 @@ Phases; any failure raises and the script exits non-zero:
    decisions on that fabric and on a slow pod link; every rank's tokens
    equal, equal across the pairs and to a one-rank run up to near ties,
    exact launch counts, every pack of each warm-up bit-exact, and the
-   pod-group bytes of one prefill dispatch below the baseline's.
+   pod-group bytes of one prefill dispatch below the baseline's;
+7. Kimi-K2-1T at full width (depth 2 on one card, 4 on four) over 16
+   spawned gloo ranks, 2 pods x 8 ep ranks of 24 experts, laid over the
+   cards present, the non-expert weights made once a card and shared with
+   its ranks as CUDA IPC handles: the three scheme pairs, a planned run
+   and its fixed twin, one prompt of 512 tokens a rank, capacity factor 2;
+   gates as phase 6's where they apply, plus the pairs each run drops and
+   each rank's memory.
 
 Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
-2 x 2 ranks.
+2 x 2 ranks and of one Kimi-K2 prefill layer at 2 x 8 (capacity factors
+2 and 1.25), and attention at Kimi's rank shape (GQA groups of 8).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -47,7 +57,12 @@ last line is ``{"ok": true, "device": {...}}``.
   python3 chip_smoke.py --ranks-only 4 1.25 --trace chiprun_out/t.json
 
 runs phase 6 alone, once at each capacity factor (on four cards: nccl),
-after the device and build phases.
+after the device and build phases;
+
+  python3 chip_smoke.py --kimi-only
+
+runs phase 7 alone after them (on four cards at depth 4 with 32 new
+tokens).
 """
 
 from __future__ import annotations
@@ -67,7 +82,13 @@ BF16_FLOP_PER_S = 989e12
 
 # (arch, depth cut or None for the published depth), served in this order
 SERVES = (("dbrx_132b", 4), ("zamba2_7b", None), ("rwkv6_7b", None))
+KIMI_H = 7168                           # Kimi-K2's d_model
 RANKS = (2, 2)                          # phase 6: pods x ep ranks
+KIMI_RANKS = (2, 8)                     # phase 7: pods x ep ranks
+KIMI_CF = 2.0                           # phase 7: capacity factor
+KIMI_PROMPT_LEN = 512                   # phase 7: one prompt a rank
+# phase 7's (depth, new tokens) on one card and on four
+KIMI_DEPTH = {1: (2, 8), 4: (4, 32)}
 RANKS_CF = 4.0                          # phase 6: num_experts / top_k
 PIPE_G = 4                              # phase 6: chunks of the G > 1 run
 PROMPTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
@@ -267,6 +288,23 @@ def kernel_phase() -> dict:
         ("rank-stage3", pack_inputs(3200, h, 4, bf16, holes=(2, 720),
                                     seed=18), 4, 640),
     ]
+    # the three of one Kimi-K2 prefill MoE layer at 2 pods x 8 ep ranks
+    # (512 tokens a rank, top-8 of 384, 24 experts a rank) at capacity
+    # factors 2 (phase 7's) and 1.25 (the config's): stage 2 packs rows
+    # from 2 senders (about 510 of each block filled), stage 3 rows from 8
+    # relays (about 410 each, most hitting one local expert)
+    kimi = []
+    for cf, cp, cd, ce in ((2, 1024, 2048, 341), (1.25, 640, 800, 213)):
+        kimi += [
+            (f"kimi-cf{cf}-stage1", pack_inputs(512, KIMI_H, 2, bf16,
+                                                valid_rows=512, seed=40),
+             2, cp),
+            (f"kimi-cf{cf}-stage2", pack_inputs(2 * cp, KIMI_H, 8, bf16,
+                                                holes=(2, 510), seed=41),
+             8, cd),
+            (f"kimi-cf{cf}-stage3", pack_inputs(8 * cd, KIMI_H, 24, bf16,
+                                                holes=(8, 410), k=1, seed=42),
+             24, ce)]
     edge = [
         ("d31-bf16", pack_inputs(1024, 256, 31, bf16, seed=3), 31, 40),
         ("d31-f32", pack_inputs(1024, 256, 31, torch.float32, seed=4),
@@ -281,19 +319,21 @@ def kernel_phase() -> dict:
         ("n2049", pack_inputs(2049, 64, 1, bf16, seed=15), 1, 2049),
         ("n1500", pack_inputs(1500, 256, 9, torch.float32, seed=14), 9, 700),
     ]
-    for label, args, d, c in stages + decode + ranked + edge:
+    for label, args, d, c in stages + decode + ranked + kimi + edge:
         check_pack(failures, label, args, d, c)
     pk = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "decode_ms": [],
           "decode_bound_ms": [], "decode_host_ms": [], "rank_ms": 0.0,
-          "rank_bound_ms": 0.0}
-    for label, args, d, c in stages + decode + ranked:
+          "rank_bound_ms": 0.0, "kimi": {}}
+    for label, args, d, c in stages + decode + ranked + kimi:
         tokens = args[0]
-        n, esize = tokens.shape[0], tokens.element_size()
+        n, width = tokens.shape
+        esize = tokens.element_size()
         # bytes this data needs: the bitmap and valid flags, the rows that
         # land in some slot (read once), the packed buffer and slot map
         _, idx = ref.pack_ref(*args, d, c)
         rows_read = torch.unique(idx[idx >= 0]).numel()
-        nbytes = n * 5 + rows_read * h * esize + d * c * (h * esize + 4)
+        nbytes = (n * 5 + rows_read * width * esize
+                  + d * c * (width * esize + 4))
         def call():
             return ops.dispatch_pack(*args, num_dests=d, capacity=c)
         ms = device_ms(call)
@@ -305,7 +345,14 @@ def kernel_phase() -> dict:
               f"read, {nbytes / 1e6:.3f} MB)")
         print(f"  dispatch_pack {label} host issue per call: "
               f"{issue_text(issue)}")
-        if label.startswith("rank-"):
+        if label.startswith("kimi-"):
+            cf = label.split("-")[1]
+            sums = pk["kimi"].setdefault(cf, {"ms": 0.0, "plain_ms": 0.0,
+                                              "bound_ms": 0.0})
+            sums["ms"] += ms
+            sums["plain_ms"] += plain
+            sums["bound_ms"] += bnd
+        elif label.startswith("rank-"):
             pk["rank_ms"] += ms
             pk["rank_bound_ms"] += bnd
         elif label.startswith("stage"):  # the kernels line: one prefill layer
@@ -326,6 +373,11 @@ def kernel_phase() -> dict:
     print(f"  dispatch_pack one DBRX prefill layer at 2 pods x 2 ep ranks "
           f"(3 packs a rank): {pk['rank_ms']:.4f} ms, bound "
           f"{pk['rank_bound_ms']:.4f} ms")
+    for cf, sums in pk["kimi"].items():
+        print(f"  dispatch_pack one Kimi-K2 prefill layer at 2 pods x 8 ep "
+              f"ranks, capacity factor {cf[2:]} (3 packs a rank): "
+              f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, bound "
+              f"{sums['bound_ms']:.4f} ms")
 
     # attention: the DBRX prefill shape in the main path's layout (views of
     # [B, S, heads, D] buffers), then small shapes over the mask set
@@ -340,6 +392,8 @@ def kernel_phase() -> dict:
     attn_cases = [  # b, heads, kv heads, Sq, Sk, D, causal, window, softcap
         ("dbrx", (4, 48, 8, 512, 512, 128), True, None, None),
         ("zamba2", (4, 32, 32, 512, 512, 112), True, None, None),
+        # a Kimi-K2 rank's prefill: one prompt, GQA groups of 8
+        ("kimi", (1, 64, 8, 512, 512, 112), True, None, None),
         ("window", (2, 4, 2, 100, 100, 128), True, 32, None),
         ("softcap", (2, 4, 2, 64, 64, 64), True, None, 30.0),
         ("cross", (2, 4, 1, 40, 72, 128), False, None, None),
@@ -366,7 +420,7 @@ def kernel_phase() -> dict:
               f"{'within' if ok else 'OUTSIDE'} atol=rtol=2e-2")
         if not ok:
             failures.append(f"flash_attention {label}")
-        if label in ("dbrx", "zamba2"):
+        if label in ("dbrx", "zamba2", "kimi"):
             b, hq, g, sq, t, d = shape
             ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw))
             plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
@@ -388,6 +442,10 @@ def kernel_phase() -> dict:
                 attn_err = err
                 fa_ms, fa_plain, fa_lib, fa_bound, fa_by = \
                     ms, plain, lib, bnd, by
+            elif label == "kimi":
+                fa_kimi = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                               bound_by=by, library_ms=lib,
+                               max_abs_err=err)
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
@@ -402,13 +460,15 @@ def kernel_phase() -> dict:
             decode_bound_ms=max(pk["decode_bound_ms"]),
             decode_host_ms=max(pk["decode_host_ms"]),
             rank_stages_ms=pk["rank_ms"],
-            rank_stages_bound_ms=pk["rank_bound_ms"]),
+            rank_stages_bound_ms=pk["rank_bound_ms"],
+            kimi_rank_stages=pk["kimi"]),
         "flash_attention": dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:112",
             max_abs_err=attn_err, ms=fa_ms, plain_ms=fa_plain,
-            bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib),
+            bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib,
+            kimi_rank=fa_kimi),
     }
     return rows
 
@@ -678,6 +738,14 @@ def reference_phase() -> None:
     compare_small_model("routed", dbrx.reduced(
         **small, num_experts=8, top_k=2, moe_capacity=dbrx.moe_capacity),
         seed=8)
+    # Kimi-shaped: head_dim 112 with 8 q heads over 1 kv head, a dense first
+    # layer, 24 experts (a rank's share at 2 x 8) top-8 at the config's
+    # capacity factor, and one shared expert
+    kimi = get_config("kimi_k2_1t")
+    compare_small_model("Kimi-shaped", kimi.reduced(
+        d_model=896, n_heads=8, n_kv_heads=1, d_ff=512, vocab=1024,
+        num_experts=24, top_k=8, moe_d_ff=256,
+        moe_capacity=kimi.moe_capacity), seed=12)
     # Zamba2-shaped: mamba heads of 64 with ds 64 as at full width, and the
     # shared block at head_dim 112 (4 heads over d_model 448), shared after
     # every 2 of 4 mamba layers
@@ -836,9 +904,12 @@ def compare_small_model(label: str, cfg, *, seed: int) -> None:
     worst = logits_gap(label, (gpu, params, on_card),
                        (cpu, cpu_params, on_cpu), toks)
     dropped = tally["pairs"] - tally["kept"]
-    print(f"  small DBRX-shaped model, {label} ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, top-{cfg.top_k} of {cfg.num_experts}, "
-          f"capacity factor {cfg.moe_capacity}): card bf16 vs CPU fp32 "
+    print(f"  small {cfg.name} model, {label} ({cfg.n_layers} layers, "
+          f"{cfg.first_k_dense} dense, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, top-"
+          f"{cfg.top_k} of {cfg.num_experts}, {cfg.n_shared_experts} shared "
+          f"expert(s), capacity factor {cfg.moe_capacity}): card bf16 vs "
+          f"CPU fp32 "
           f"logits over prefill + 3 decode steps, worst {worst:.3e} of max "
           f"|logit| (limit {REF_TOL}); {tally['pairs']} token-expert pairs, "
           f"{dropped} dropped; {tally['flips']} rows where the CPU would "
@@ -1054,150 +1125,18 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
           f"{time.monotonic() - t0:.1f} s; peak memory a rank "
           f"{max(r['peak_gb'] for r in results):.2f} GB")
 
-    failures = []
-    total: dict = {}
+    failures = report_planner(results, world)
+    found, total, walls = check_served(results, runs, cfg, MAX_NEW, where,
+                                       exact)
+    failures += found
     r0 = results[0]
-    if "link" in r0:
-        link = r0["link"]
-        print(f"  link: all_to_all_single of {link['bytes']} bytes a rank "
-              f"over the {world} ranks: {link['pair_rate'] / 1e9:.3f} GB/s "
-              f"a pair (10 exchanges back to back, the median of 3 rounds, "
-              f"the slowest rank's) -> fabric "
-              f"{link['fabric']}")
-    else:
-        print("  link: no fabric measured (gloo stages every exchange "
-              "through the host); the planner scores on the reference's "
-              "default, the mesh-derived topology")
-    for dec in r0["decisions"]:
-        host = dec["host_us"]
-        print(f"  planner on {dec['fabric']} [{dec['fingerprint']}] (model "
-              f"decision): " + "; ".join(
-                  f"{ph} {d['scheme']}+{d['combine']} G={d['microbatch']}, "
-                  f"modelled serial {d['serial_s'] * 1e6:.1f} us, pipelined "
-                  f"{d['pipelined_s'] * 1e6:.1f} us"
-                  for ph, d in dec["phases"].items()))
-        print(f"    one moe_pipeline_kwargs call, host: bound plan "
-              f"{host['bound'][0]:.1f} us first, {host['bound'][1]:.1f} us "
-              f"repeated; ad-hoc auto {host['auto'][0]:.1f} us first, "
-              f"{host['auto'][1]:.1f} us repeated")
-    for r in results:
-        if [d["fingerprint"] for d in r["decisions"]] != \
-                [d["fingerprint"] for d in r0["decisions"]]:
-            failures.append(f"rank {r['rank']}: other planner decisions")
-
     labels = [ranks.run_label(run) for run in runs]
     pairs = labels[:3]
     first = r0["runs"][labels[0]]["tokens"]
-    packs = {"hierarchical": 3, "baseline": 2}   # packs a dispatch chunk
-    walls = {}
-    for label in labels:
-        runs_ = [r["runs"][label] for r in results]
-        res = runs_[0]["resolved"]
-        if any(run["resolved"] != res or run["plan"] != runs_[0]["plan"]
-               for run in runs_):
-            failures.append(f"{label}: ranks resolved different plans")
-        (ps, pc, pg), (ds, dc, dg) = res["prefill"], res["decode"]
-        print(f"  {label}: prefill {ps}+{pc} G={pg}, decode {ds}+{dc} "
-              f"G={dg}" + (f" (plan {runs_[0]['plan']})"
-                           if runs_[0]["plan"] else ""))
-        # (a) every rank returns the same global tokens
-        if not all(np.array_equal(run["tokens"], runs_[0]["tokens"])
-                   for run in runs_):
-            failures.append(f"{label}: ranks returned different tokens")
-        # (c) the three scheme pairs give the same tokens
-        if exact and label in pairs and \
-                not np.array_equal(runs_[0]["tokens"], first):
-            failures.append(f"{label}: tokens differ from {labels[0]}")
-        # (d) exact launch counts on each rank
-        want = {"dispatch_pack": cfg.n_layers * (
-                    packs[ps] * pg + packs[ds] * dg * (MAX_NEW - 1)),
-                "flash_attention": cfg.n_layers, "mamba2_scan": 0,
-                "rwkv6_scan": 0}
-        warm = cfg.n_layers * (packs[ps] * pg + packs[ds] * dg)
-        for r, run in zip(results, runs_):
-            if run["launches"] != want:
-                failures.append(f"{label} rank {r['rank']}: launches "
-                                f"{run['launches']} != {want}")
-            if run["nonfinite_logits"]:
-                failures.append(f"{label} rank {r['rank']}: non-finite "
-                                f"logits")
-            if len(run["packs"]) != warm:
-                failures.append(f"{label} rank {r['rank']}: "
-                                f"{len(run['packs'])} packs checked, not "
-                                f"{warm}")
-            for name, n in run["launches"].items():
-                total[name] = total.get(name, 0) + n
-        # every pack of the warm-up run (a prefill and a decode step, the
-        # shapes of the measured run) against pack_ref on the same inputs
-        shapes: dict = {}
-        for run in runs_:
-            for n, valid, d, c, ok in run["packs"]:
-                lo, hi, same = shapes.get((n, d, c), (valid, valid, True))
-                shapes[(n, d, c)] = (min(lo, valid), max(hi, valid),
-                                     same and ok)
-        for (n, d, c), (lo, hi, ok) in shapes.items():
-            print(f"    dispatch_pack N={n} ({lo}-{hi} rows valid) D={d} "
-                  f"C={c} on the path, all ranks: "
-                  f"{'bit-exact' if ok else 'MISMATCH'} against pack_ref")
-            if not ok:
-                failures.append(f"{label}: dispatch_pack N={n} D={d} C={c}")
-        st = max(runs_, key=lambda run: run["prefill_s"])
-        walls[label] = (st["prefill_s"] * 1e3,
-                        st["decode_s"] * 1e3 / (MAX_NEW - 1))
-        print(f"    prefill {walls[label][0]:.3f} ms, decode "
-              f"{walls[label][1]:.3f} ms/token (the slowest rank's walls; "
-              f"{where}); launches a rank {runs_[0]['launches']}")
-        # the G = 4 run against the first and the plan's twin against the
-        # planned run: rows equal, and a row that parts does so at a near
-        # tie of the other run's logits
-        if label not in pairs and label != "planned":
-            against = runs_[0]["vs"]["run"]
-            equal = sum(run["vs"]["rows_equal"] for run in runs_)
-            gap = max(run["vs"]["widest_gap"] for run in runs_)
-            print(f"    tokens vs {against}: {equal} of {PROMPTS} rows "
-                  f"equal over {MAX_NEW} tokens; widest near-tie gap "
-                  f"{gap:.3e} of max |logit| (limit {REF_TOL}"
-                  f"{'' if exact else ', not gated below factor 4'})")
-            if exact and gap > REF_TOL:
-                failures.append(f"{label}: a token parts from "
-                                f"{against} {gap:.3e} below its best logit")
-        twin = runs[labels.index(label)].get("twin")
-        if twin is not None:
-            # the twin runs the plan's prefill triple; its decode (one row
-            # a rank, so G = 1) may take another scheme pair, and at G = 1
-            # the pairs give the same bits (gate c)
-            plan = r0["runs"][twin]["resolved"]
-            print(f"    fixed at the plan's prefill {plan['prefill']}; "
-                  f"decode {res['decode']} for the plan's {plan['decode']}")
-            if res["prefill"] != plan["prefill"] or \
-                    res["decode"][2] != 1 or plan["decode"][2] != 1:
-                failures.append(f"{label}: resolved {res}, the plan {plan}")
-        # (e) pod-group bytes of the first prefill dispatch (chunk 0 at G > 1)
-        for r, run in zip(results, runs_):
-            b = run["pod_bytes"]
-            kind = "multiwrite" if ps == "hierarchical" else "baseline"
-            analytic = (f"; dispatch_pod_bytes {run['analytic_pod_bytes']}"
-                        if run["pod"] == 0 else "")
-            print(f"    rank {r['rank']} (pod {run['pod']}): pod-group "
-                  f"bytes of the first prefill dispatch: {b['whole']} whole "
-                  f"buffers, {b['occupied']} occupied rows{analytic}")
-            if run["pod"] == 0 and b["occupied"] != \
-                    run["analytic_pod_bytes"][kind]:
-                failures.append(f"{label} rank {r['rank']}: occupied pod "
-                                f"bytes {b['occupied']} != dispatch_pod_bytes")
     g4 = labels[3]
     print(f"  {g4} against {labels[0]}: prefill {walls[g4][0]:.3f} against "
           f"{walls[labels[0]][0]:.3f} ms, decode {walls[g4][1]:.3f} against "
           f"{walls[labels[0]][1]:.3f} ms/token")
-    for r in results:
-        mw = r["runs"][pairs[0]]["pod_bytes"]
-        base = r["runs"][pairs[2]]["pod_bytes"]
-        ok = all(mw[key] < base[key] for key in ("whole", "occupied"))
-        print(f"  rank {r['rank']}: multiwrite {mw} vs baseline {base} pod-"
-              f"group bytes: {'multiwrite < baseline' if ok else 'NOT LESS'}")
-        if not ok:
-            failures.append(f"rank {r['rank']}: multiwrite pod bytes not "
-                            f"below the baseline's")
     if trace:
         for label, w in r0["layer_walls"].items():
             print(f"  one MoE layer at the prefill rows, {label}, rank 0: "
@@ -1247,6 +1186,339 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7: Kimi-K2-1T over 16 ranks, 2 pods x 8 ep ranks
+# ---------------------------------------------------------------------------
+
+def kimi_phase(layers: int, max_new: int) -> dict:
+    """Kimi-K2-1T at full width with its depth cut to ``layers`` (the dense
+    first layer, then MoE layers of 384 experts top-8 and one shared
+    expert) served over 16 spawned gloo ranks, 2 pods x 8 ep ranks of 24
+    experts, laid over the cards present in blocks.  This process makes the
+    non-expert weights once a card and hands them to that card's ranks as
+    CUDA IPC handles; each rank draws only its own experts.  One prompt of
+    512 tokens a rank, ``max_new`` greedy tokens, capacity factor 2 (the
+    least at which neither pair's stage 1 or 2 can drop a pair).
+
+    Runs, in order: the three fixed scheme pairs at one chunk; a run under
+    the planner's plan for prefill and decode on gloo's mesh-derived
+    default fabric; and its twin, fixed at the plan's prefill triple.
+    Each run's warm-up (a prefill and a decode step) holds every pack
+    against its plain version.  Gates: those of :func:`check_served` (every
+    rank's tokens and plan equal, finite logits, exact launch counts,
+    every pack bit-exact, MultiWrite's pod-group bytes below the
+    baseline's in whole buffers and occupied rows), no rank holding a copy
+    of the shared weights, the twin's prefill logits within ``REF_TOL``
+    of the planned run's, and, where no run drops a (token, expert) pair
+    at prefill, the pairs' prefill logits within ``REF_TOL`` of each
+    other.  Prints the planner's decisions, the pairs each run drops, the
+    most loaded expert, each rank's memory and the card's free memory.
+    Returns the kernel launches of the measured runs, summed over ranks and
+    runs."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import ranks
+    from repro_torch.launch.serve import make_prompts, serve_config
+
+    cfg = dataclasses.replace(serve_config("kimi_k2_1t", layers=layers,
+                                           smoke=False),
+                              moe_capacity=KIMI_CF)
+    world = KIMI_RANKS[0] * KIMI_RANKS[1]
+    cards = torch.cuda.device_count()
+    where = (f"gloo, {world} processes over {cards} card(s), host-staged "
+             f"transport: no fabric measured")
+    print(f"  {cfg.name}: {cfg.n_layers} layers ({cfg.first_k_dense} "
+          f"dense), d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv (head_dim {cfg.head_dim}), {cfg.num_experts}"
+          f" experts top-{cfg.top_k}, d_ff {cfg.expert_d_ff}, "
+          f"{cfg.n_shared_experts} shared expert, vocab {cfg.vocab}; {where};"
+          f" capacity factor {cfg.moe_capacity}, {max_new} new tokens")
+    prompts = make_prompts(cfg, world, KIMI_PROMPT_LEN, seed=0)
+    runs = ranks.fixed_runs() + [
+        dict(label="planned", policy="auto", bind=True),
+        dict(label="planned-fixed", twin="planned")]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(world=world, pods=KIMI_RANKS[0], ep=KIMI_RANKS[1],
+                    backend="gloo", device="cuda",
+                    init_method=f"file://{tmp}/store", timeout_s=300,
+                    out_dir=f"{tmp}/out", threads=1, cfg=cfg,
+                    dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
+                    prompts=prompts, max_new=max_new, runs=runs, warmup=True,
+                    decide=[None])
+        t0 = time.monotonic()
+        shared = ranks.shared_weights(spec)
+        shared_gb = {str(dev): sum(t.numel() * t.element_size()
+                                   for t in weights.values()) / 1e9
+                     for dev, weights in shared.items()}
+        free = [torch.cuda.mem_get_info(c)[0] / 1e9 for c in range(cards)]
+        print(f"  non-expert weights made once a card: {shared_gb} GB in "
+              f"{time.monotonic() - t0:.1f} s; free on the card(s) before "
+              f"the ranks start: {[round(f, 3) for f in free]} GB")
+        results = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900,
+                                  shared=shared)
+        del shared
+        torch.cuda.empty_cache()
+    print(f"  {world} ranks spawned, served and joined in "
+          f"{time.monotonic() - t0:.1f} s")
+    failures = report_planner(results, world)
+    failures += check_kimi(results, runs, cfg, max_new)
+    found, total, _ = check_served(results, runs, cfg, max_new, where,
+                                   exact=False)
+    failures += found
+    if failures:
+        raise AssertionError(f"phase 7: {failures}")
+    return total
+
+
+def check_kimi(results: list, runs: list, cfg, max_new: int) -> list:
+    """Phase 7's own gates and prints (memory, drops, expert load, prefill
+    logits across the pairs and against the twin).  Returns the
+    failures."""
+    import numpy as np
+
+    from repro_torch.launch import ranks
+    failures = []
+    for r in results:
+        mem = r["memory"]
+        print(f"  rank {r['rank']} on {r['device']}: weights "
+              f"{mem['all_gb']:.2f} GB, its experts {mem['experts_gb']:.2f} "
+              f"GB, allocated by the rank after building them "
+              f"{mem['own_gb']:.2f} GB (reserved {mem['reserved_gb']:.2f}); "
+              f"card free once all ranks built {mem['card_free_gb']:.2f} GB;"
+              f" peak {r['peak_gb']:.2f} GB")
+        # the shared weights were opened, not copied: the rank allocated
+        # little beyond its experts
+        if mem["own_gb"] > mem["experts_gb"] + 1.0:
+            failures.append(f"rank {r['rank']} allocated {mem['own_gb']:.2f}"
+                            f" GB for {mem['experts_gb']:.2f} GB of experts")
+    labels = [ranks.run_label(run) for run in runs]
+    moe_layers = cfg.n_layers - cfg.first_k_dense
+    dropped = {}
+    for label in labels:
+        res = results[0]["runs"][label]["resolved"]
+        per_call = np.array([r["runs"][label]["pairs"] for r in results]
+                            ).sum(axis=0)            # [calls, (given, kept)]
+        pre = moe_layers * res["prefill"][2]
+        given, kept = per_call[:pre, 0].sum(), per_call[:pre, 1].sum()
+        dgiven, dkept = per_call[pre:, 0].sum(), per_call[pre:, 1].sum()
+        dropped[label] = (int(given - kept), int(dgiven - dkept))
+        print(f"  {label}: (token, expert) pairs dropped over all ranks: "
+              f"prefill {given - kept} of {given}, decode {dgiven - dkept} "
+              f"of {dgiven} over {max_new - 1} steps")
+    load = sum(r["runs"][labels[0]]["expert_load"] for r in results)
+    mean = load.sum() / cfg.num_experts
+    # an expert's slots at prefill, as moe.balanced_capacities sizes them
+    slots = round(KIMI_PROMPT_LEN * cfg.top_k * len(results)
+                  / cfg.num_experts * cfg.moe_capacity)
+    print(f"  expert load of the first prefill MoE layer ({labels[0]}): max "
+          f"{load.max()} against a mean of {mean:.1f} (ratio "
+          f"{load.max() / mean:.3f}), min {load.min()}; {slots} slots an "
+          f"expert")
+
+    def logits(label):
+        return np.concatenate([r["runs"][label]["prefill_logits"].numpy()
+                               for r in results])
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    # the pairs drop as many pairs at each expert, but not the same ones
+    # (drops follow the order of arrival), so they are held to each other
+    # only where no run drops a pair at prefill
+    exact = not any(pre for pre, _ in dropped.values())
+    first = logits(labels[0])
+    for label in labels[1:3]:
+        gap = rel(logits(label), first)
+        mine = results[0]["runs"][label]["tokens"]
+        equal = sum(np.array_equal(a, b) for a, b in zip(
+            mine, results[0]["runs"][labels[0]]["tokens"]))
+        print(f"  {label} vs {labels[0]}: prefill logits {gap:.3e} of max "
+              f"|logit|, {equal} of {len(mine)} rows' tokens equal (limit "
+              f"{REF_TOL}{'' if exact else ', not gated: prefill drops'})")
+        if exact and not gap < REF_TOL:
+            failures.append(f"{label}: prefill logits off by {gap:.3e}")
+    gap = rel(logits("planned-fixed"), logits("planned"))
+    print(f"  prefill logits, planned-fixed vs planned: {gap:.3e} of max "
+          f"|logit| (limit {REF_TOL})")
+    if not gap < REF_TOL:
+        failures.append(f"planned-fixed: prefill logits off by {gap:.3e}")
+    return failures
+
+
+def report_planner(results: list, world: int) -> list:
+    """Print the link the ranks timed (if any) and the planner's decisions
+    with the host time of one ``moe_pipeline_kwargs`` call; every rank must
+    have reached the same decisions.  Returns the failures."""
+    failures = []
+    r0 = results[0]
+    if "link" in r0:
+        link = r0["link"]
+        print(f"  link: all_to_all_single of {link['bytes']} bytes a rank "
+              f"over the {world} ranks: {link['pair_rate'] / 1e9:.3f} GB/s "
+              f"a pair (10 exchanges back to back, the median of 3 rounds, "
+              f"the slowest rank's) -> fabric "
+              f"{link['fabric']}")
+    else:
+        print("  link: no fabric measured (gloo stages every exchange "
+              "through the host); the planner scores on the reference's "
+              "default, the mesh-derived topology")
+    for dec in r0["decisions"]:
+        host = dec["host_us"]
+        print(f"  planner on {dec['fabric']} [{dec['fingerprint']}] (model "
+              f"decision): " + "; ".join(
+                  f"{ph} {d['scheme']}+{d['combine']} G={d['microbatch']}, "
+                  f"modelled serial {d['serial_s'] * 1e6:.1f} us, pipelined "
+                  f"{d['pipelined_s'] * 1e6:.1f} us"
+                  for ph, d in dec["phases"].items()))
+        print(f"    one moe_pipeline_kwargs call, host: bound plan "
+              f"{host['bound'][0]:.1f} us first, {host['bound'][1]:.1f} us "
+              f"repeated; ad-hoc auto {host['auto'][0]:.1f} us first, "
+              f"{host['auto'][1]:.1f} us repeated")
+    for r in results:
+        if [d["fingerprint"] for d in r["decisions"]] != \
+                [d["fingerprint"] for d in r0["decisions"]]:
+            failures.append(f"rank {r['rank']}: other planner decisions")
+    return failures
+
+
+def check_served(results: list, runs: list, cfg, max_new: int, where: str,
+                 exact: bool) -> tuple[list, dict, dict]:
+    """The gates of a served ranks phase, over every rank's results of each
+    run: (a) every rank returns the same global tokens and resolves the
+    same plan; (c) where ``exact`` (no stage of any run drops a pair) the
+    three fixed scheme pairs give the same tokens, and a further run parts
+    from the one it is held against only at near ties; (d) exact launch
+    counts from each run's resolved G, finite logits, and every pack of the
+    warm-up run bit-exact against its plain version; a twin runs its
+    plan's prefill triple; (e) the occupied pod-group bytes of the first
+    prefill dispatch equal ``dispatch_pod_bytes``, and MultiWrite's are
+    below the baseline's in whole buffers and occupied rows.  Prints each
+    run's plan, packs, walls and bytes.  Returns (failures, the kernel
+    launches summed over ranks and runs, the walls by run label)."""
+    import numpy as np
+
+    from repro_torch.launch import ranks
+    failures: list = []
+    total: dict = {}
+    r0 = results[0]
+    moe_layers = cfg.n_layers - cfg.first_k_dense
+    rows = len(r0["runs"][ranks.run_label(runs[0])]["tokens"])
+    labels = [ranks.run_label(run) for run in runs]
+    pairs = labels[:3]
+    first = r0["runs"][labels[0]]["tokens"]
+    packs = {"hierarchical": 3, "baseline": 2}   # packs a dispatch chunk
+    walls = {}
+    for label in labels:
+        runs_ = [r["runs"][label] for r in results]
+        res = runs_[0]["resolved"]
+        if any(run["resolved"] != res or run["plan"] != runs_[0]["plan"]
+               for run in runs_):
+            failures.append(f"{label}: ranks resolved different plans")
+        (ps, pc, pg), (ds, dc, dg) = res["prefill"], res["decode"]
+        print(f"  {label}: prefill {ps}+{pc} G={pg}, decode {ds}+{dc} "
+              f"G={dg}" + (f" (plan {runs_[0]['plan']})"
+                           if runs_[0]["plan"] else ""))
+        # (a) every rank returns the same global tokens
+        if not all(np.array_equal(run["tokens"], runs_[0]["tokens"])
+                   for run in runs_):
+            failures.append(f"{label}: ranks returned different tokens")
+        # (c) the three scheme pairs give the same tokens
+        if exact and label in pairs and \
+                not np.array_equal(runs_[0]["tokens"], first):
+            failures.append(f"{label}: tokens differ from {labels[0]}")
+        # (d) exact launch counts on each rank
+        want = {"dispatch_pack": moe_layers * (
+                    packs[ps] * pg + packs[ds] * dg * (max_new - 1)),
+                "flash_attention": cfg.n_layers, "mamba2_scan": 0,
+                "rwkv6_scan": 0}
+        warm = moe_layers * (packs[ps] * pg + packs[ds] * dg)
+        for r, run in zip(results, runs_):
+            if run["launches"] != want:
+                failures.append(f"{label} rank {r['rank']}: launches "
+                                f"{run['launches']} != {want}")
+            if run["nonfinite_logits"]:
+                failures.append(f"{label} rank {r['rank']}: non-finite "
+                                f"logits")
+            if len(run["packs"]) != warm:
+                failures.append(f"{label} rank {r['rank']}: "
+                                f"{len(run['packs'])} packs checked, not "
+                                f"{warm}")
+            for name, n in run["launches"].items():
+                total[name] = total.get(name, 0) + n
+        # every pack of the warm-up run (a prefill and a decode step, the
+        # shapes of the measured run) against pack_ref on the same inputs
+        shapes: dict = {}
+        for run in runs_:
+            for n, valid, d, c, ok in run["packs"]:
+                lo, hi, same = shapes.get((n, d, c), (valid, valid, True))
+                shapes[(n, d, c)] = (min(lo, valid), max(hi, valid),
+                                     same and ok)
+        for (n, d, c), (lo, hi, ok) in shapes.items():
+            print(f"    dispatch_pack N={n} ({lo}-{hi} rows valid) D={d} "
+                  f"C={c} on the path, all ranks: "
+                  f"{'bit-exact' if ok else 'MISMATCH'} against pack_ref")
+            if not ok:
+                failures.append(f"{label}: dispatch_pack N={n} D={d} C={c}")
+        st = max(runs_, key=lambda run: run["prefill_s"])
+        walls[label] = (st["prefill_s"] * 1e3,
+                        st["decode_s"] * 1e3 / (max_new - 1))
+        print(f"    prefill {walls[label][0]:.3f} ms, decode "
+              f"{walls[label][1]:.3f} ms/token (the slowest rank's walls; "
+              f"{where}); launches a rank {runs_[0]['launches']}")
+        # the G = 4 run against the first and the plan's twin against the
+        # planned run: rows equal, and a row that parts does so at a near
+        # tie of the other run's logits
+        if label not in pairs and label != "planned":
+            against = runs_[0]["vs"]["run"]
+            equal = sum(run["vs"]["rows_equal"] for run in runs_)
+            gap = max(run["vs"]["widest_gap"] for run in runs_)
+            print(f"    tokens vs {against}: {equal} of {rows} rows "
+                  f"equal over {max_new} tokens; widest near-tie gap "
+                  f"{gap:.3e} of max |logit| (limit {REF_TOL}"
+                  f"{'' if exact else ', not gated where pairs drop'})")
+            if exact and gap > REF_TOL:
+                failures.append(f"{label}: a token parts from "
+                                f"{against} {gap:.3e} below its best logit")
+        twin = runs[labels.index(label)].get("twin")
+        if twin is not None:
+            # the twin runs the plan's prefill triple; its decode (one row
+            # a rank, so G = 1) may take another scheme pair, and at G = 1
+            # the pairs give the same bits (gate c)
+            plan = r0["runs"][twin]["resolved"]
+            print(f"    fixed at the plan's prefill {plan['prefill']}; "
+                  f"decode {res['decode']} for the plan's {plan['decode']}")
+            if res["prefill"] != plan["prefill"] or \
+                    res["decode"][2] != 1 or plan["decode"][2] != 1:
+                failures.append(f"{label}: resolved {res}, the plan {plan}")
+        # (e) pod-group bytes of the first prefill dispatch (chunk 0 at G > 1)
+        for r, run in zip(results, runs_):
+            b = run["pod_bytes"]
+            kind = "multiwrite" if ps == "hierarchical" else "baseline"
+            analytic = (f"; dispatch_pod_bytes {run['analytic_pod_bytes']}"
+                        if run["pod"] == 0 else "")
+            print(f"    rank {r['rank']} (pod {run['pod']}): pod-group "
+                  f"bytes of the first prefill dispatch: {b['whole']} whole "
+                  f"buffers, {b['occupied']} occupied rows{analytic}")
+            if run["pod"] == 0 and b["occupied"] != \
+                    run["analytic_pod_bytes"][kind]:
+                failures.append(f"{label} rank {r['rank']}: occupied pod "
+                                f"bytes {b['occupied']} != dispatch_pod_bytes")
+    for r in results:
+        mw = r["runs"][pairs[0]]["pod_bytes"]
+        base = r["runs"][pairs[2]]["pod_bytes"]
+        ok = all(mw[key] < base[key] for key in ("whole", "occupied"))
+        print(f"  rank {r['rank']}: multiwrite {mw} vs baseline {base} pod-"
+              f"group bytes: {'multiwrite < baseline' if ok else 'NOT LESS'}")
+        if not ok:
+            failures.append(f"rank {r['rank']}: multiwrite pod bytes not "
+                            f"below the baseline's")
+    return failures, total, walls
+
+
 def build_phase() -> None:
     from repro_torch.kernels import _build
     t0 = time.monotonic()
@@ -1270,6 +1542,9 @@ def main(argv=None) -> None:
     ap.add_argument("--trace", default=None,
                     help="with --ranks-only: write a torch.profiler trace "
                          "of one G = 4 prefill layer (rank 0) here")
+    ap.add_argument("--kimi-only", action="store_true",
+                    help="phases 1, 2 and 7 only (on four cards: depth 4 "
+                         "and 32 new tokens)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1286,7 +1561,13 @@ def main(argv=None) -> None:
 
     print("phase 2: build")
     build_phase()
-    if args.ranks_only:
+    depth, kimi_new = KIMI_DEPTH[4 if torch.cuda.device_count() >= 4 else 1]
+    kimi_title = (f"phase 7: Kimi-K2-1T over 2 pods x 8 ep ranks, depth "
+                  f"{depth}")
+    if args.kimi_only:
+        print(kimi_title)
+        kimi_phase(depth, kimi_new)
+    elif args.ranks_only:
         for i, cf in enumerate(args.ranks_only):
             print(f"phase 6: DBRX over 2 pods x 2 ep ranks, capacity factor "
                   f"{cf}")
@@ -1305,6 +1586,8 @@ def main(argv=None) -> None:
             by_path[arch] = serve_phase(arch, layers)
         print("phase 6: DBRX over 2 pods x 2 ep ranks")
         by_path["dbrx_132b_2x2_ranks"] = ranks_phase()
+        print(kimi_title)
+        by_path["kimi_k2_1t_2x8_ranks"] = kimi_phase(depth, kimi_new)
 
         for name, row in rows.items():
             row["launches"] = sum(c[name] for c in by_path.values())

@@ -61,11 +61,10 @@ def pack_by_bitmap(tokens: torch.Tensor, bitmap: torch.Tensor,
 
 
 def gather_rows(tokens: torch.Tensor, src_idx: torch.Tensor) -> torch.Tensor:
-    """Gather rows by a pack map (-1 -> zeros)."""
+    """Gather rows by a pack map (-1 -> zeros, filled in place)."""
     rows = tokens[src_idx.clamp(min=0).long()]
     keep = (src_idx >= 0).reshape(src_idx.shape + (1,) * (tokens.dim() - 1))
-    return torch.where(keep, rows, torch.zeros((), dtype=tokens.dtype,
-                                               device=tokens.device))
+    return rows.masked_fill_(~keep, 0)
 
 
 # ===========================================================================
@@ -258,6 +257,9 @@ def _gate_for_expert(ids: torch.Tensor, gates: torch.Tensor,
     return torch.where(want, rows_gates, 0.0).sum(dim=-1)          # [E_l, Ce]
 
 
+SUM_BLOCK_BYTES = 64 << 20    # a block of gathered rows in _sum_rows_into
+
+
 def _sum_rows_into(index: torch.Tensor, rows: torch.Tensor, num_slots: int,
                    width: int) -> torch.Tensor:
     """fp32 [num_slots, H]: slot m holds the sum of the ``rows`` whose
@@ -289,11 +291,18 @@ def _sum_rows_into(index: torch.Tensor, rows: torch.Tensor, num_slots: int,
                        device=dev)
     table.scatter_(0, (slot * width + col).reshape(-1),
                    torch.arange(r * c, dtype=torch.int32, device=dev))
-    table = table.reshape(num_slots + 1, width)
+    table = table.reshape(num_slots + 1, width)[:num_slots]
     flat = rows.reshape(r * c, h)
-    out = gather_rows(flat, table[:num_slots, 0]).float()
-    for j in range(1, width):
-        out += gather_rows(flat, table[:num_slots, j]).float()
+    out = torch.empty((num_slots, h), dtype=torch.float32, device=dev)
+    # slots in blocks, so that a gather's temporary stays small beside the
+    # [num_slots, H] sums (the stage-2 partials of a Kimi-K2 layer are
+    # 470 MB a rank); each sum adds its rows in column order as before
+    step = max(1, SUM_BLOCK_BYTES // max(1, h * flat.element_size()))
+    for lo in range(0, num_slots, step):
+        blk = out[lo:lo + step]
+        blk.copy_(gather_rows(flat, table[lo:lo + step, 0]))
+        for j in range(1, width):
+            blk += gather_rows(flat, table[lo:lo + step, j])
     return out
 
 
@@ -312,9 +321,10 @@ def _back_to_relays(expert_out, exp_gate, state: DispatchState):
     mesh = state.mesh
     d = mesh.ep_per_pod
     cd = state.map_ep.shape[1]
-    # a token sits in at most top_k of this rank's experts
-    weighted = expert_out * exp_gate[..., None]
-    flat2 = _sum_rows_into(state.map_exp, weighted, d * cd,
+    # a token sits in at most top_k of this rank's experts; the gated rows
+    # are freed before the exchange
+    flat2 = _sum_rows_into(state.map_exp, expert_out * exp_gate[..., None],
+                           d * cd,
                            min(state.cfg.top_k, state.map_exp.shape[0]))
     flat2 = flat2.reshape(d, cd, -1)
     return _all_to_all(flat2, mesh.group(mesh.ep_axis)) if d > 1 else flat2
@@ -368,6 +378,7 @@ def hierarchical_combine_unicast(expert_out: torch.Tensor,
     ep_of = torch.arange(d, dtype=sl.dtype, device=sl.device)[:, None]
     unred = _sum_rows_into(torch.where(sl >= 0, sl * d + ep_of, -1), back,
                            p * cp * d, 1)
+    del back                                 # freed before the exchange
     # ---- reverse pod a2a: d unreduced partials per stage-1 slot ------------
     home = _over_pod(unred.reshape(p, cp, d, -1), mesh)
     # ---- reduce AFTER crossing, in ep order, then into source rows ----------
@@ -477,8 +488,8 @@ def baseline_combine(expert_out: torch.Tensor, exp_gate: torch.Tensor,
     p, d = mesh.num_pods, mesh.ep_per_pod
     r = p * d
     cr = state.map_rank.shape[1]
-    weighted = expert_out * exp_gate[..., None]
-    flat = _sum_rows_into(state.map_exp, weighted, r * cr,
+    flat = _sum_rows_into(state.map_exp, expert_out * exp_gate[..., None],
+                          r * cr,
                           min(state.cfg.top_k, state.map_exp.shape[0]))
     home = _exchange_ranks(flat.reshape(r, cr, -1), mesh, back=True)
     out = None

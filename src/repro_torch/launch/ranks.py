@@ -2,8 +2,11 @@
 host, spawned and joined with a deadline.
 
 ``chip_smoke.py`` spawns :func:`serve_worker` as 4 ranks (2 pods x 2 ep
-ranks) serving DBRX-132B on the card; the CPU tests spawn it and
-:func:`dispatch_worker` as 4 gloo ranks at small sizes.
+ranks) serving DBRX-132B and as 16 gloo ranks (2 pods x 8) serving
+Kimi-K2-1T on the card(s); the CPU tests spawn it and
+:func:`dispatch_worker` as 4 or 16 gloo ranks at small sizes.  The ranks
+of one card can share one copy of the non-expert weights
+(:func:`shared_weights`, ``run_ranks(shared=...)``).
 
 A run names the MoE round trip it executes (:func:`run_context`): a fixed
 ``(scheme, combine, microbatch)`` triple, a bound ``ExecutionPlan``
@@ -26,6 +29,9 @@ from __future__ import annotations
 import datetime
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
+from multiprocessing.connection import wait
+from multiprocessing.reduction import ForkingPickler
 from pathlib import Path
 from unittest import mock
 
@@ -39,6 +45,7 @@ from repro_torch.core.h100 import fabric_spec, moe_compute_s
 from repro_torch.core.topology import get_fabric
 from repro_torch.kernels import ops, ref
 from repro_torch.models import moe as M
+from repro_torch.models import transformer as T
 from repro_torch.models.api import build_model
 from repro_torch.parallel.context import (ParallelContext,
                                           build_collective_program)
@@ -67,36 +74,102 @@ def run_label(run: dict) -> str:
             + (f"@G{g}" if g > 1 else ""))
 
 
-def run_ranks(fn, spec: dict, *, timeout_s: float) -> list:
+def run_ranks(fn, spec: dict, *, timeout_s: float, shared=None) -> list:
     """Spawn ``spec["world"]`` processes running ``fn(rank, spec)``, wait
     for all of them at most ``timeout_s`` seconds, and return each rank's
     results.  A rank that raises or dies fails the run (the others are
-    terminated); so does one still running at the deadline."""
+    killed); so does one still running at the deadline.
+
+    ``shared`` maps a device (:func:`rank_device`) to what the ranks on it
+    take as ``spec["shared"]``, such as :func:`shared_weights`: each rank
+    is given its own device's alone, its tensors pickled by
+    ``torch.multiprocessing`` as CUDA IPC handles (shared memory on the
+    CPU).  A handle that does not open fails the rank.  The caller keeps
+    ``shared`` referenced until this returns, when every rank has
+    exited."""
     world = spec["world"]
     out_dir = Path(spec["out_dir"])
     out_dir.mkdir(parents=True, exist_ok=True)
-    ctx = mp.spawn(fn, args=(spec,), nprocs=world, join=False)
+    ctx = mp.get_context("spawn")
+
+    def pickled(rank: int) -> bytes:
+        mine = spec if shared is None else dict(
+            spec, shared=shared[rank_device(rank, spec)])
+        return bytes(ForkingPickler.dumps(mine))
+
+    # each rank's spec pickled here, one after another (a storage is moved
+    # to shared memory the first time it is pickled); the processes start
+    # together, since a start blocks until its child has imported its
+    # modules when the pickle outgrows the pipe
+    procs = [ctx.Process(target=_rank_main, name=f"rank {rank}",
+                         args=(fn, rank, pickled(rank)))
+             for rank in range(world)]
     deadline = time.monotonic() + timeout_s
     try:
-        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{world} ranks still running after "
-                                   f"{timeout_s} s")
+        with ThreadPoolExecutor(world) as pool:
+            list(pool.map(lambda proc: proc.start(), procs))
+        running = list(procs)
+        while running:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{len(running)} of {world} ranks still "
+                                   f"running after {timeout_s} s")
+            wait([proc.sentinel for proc in running], timeout=left)
+            for proc in [p for p in running if p.exitcode is not None]:
+                running.remove(proc)
+                if proc.exitcode != 0:
+                    raise RuntimeError(f"{proc.name} of {world} exited with "
+                                       f"code {proc.exitcode}")
     finally:
-        for proc in ctx.processes:
+        for proc in procs:
             if proc.is_alive():
                 proc.kill()
-            proc.join(timeout=30)
+            if proc.pid is not None:
+                proc.join(timeout=30)
     return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
 
 
+def _rank_main(fn, rank: int, spec: bytes) -> None:
+    # set before the rank's first CUDA call: its allocator then grows its
+    # segments in place, so a peak strands no reserved blocks (16 ranks
+    # share one card's memory in chip_smoke's phase 7)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    fn(rank, ForkingPickler.loads(spec))
+
+
 def rank_device(rank: int, spec: dict) -> torch.device:
-    """nccl: the card of the rank's index (one card a rank); gloo: the
-    device the spec names, shared by every rank."""
+    """nccl: the card of the rank's index (one card a rank).  gloo: the
+    device the spec names; a CUDA device without an index lays the ranks
+    over the cards present in blocks, rank r on card ``r * cards //
+    world``."""
     if spec["backend"] == "nccl":
         return torch.device("cuda", rank)
-    return torch.device(spec["device"])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", rank * torch.cuda.device_count()
+                            // spec["world"])
+    return dev
+
+
+def shared_weights(spec: dict) -> dict:
+    """One copy of ``spec["cfg"]``'s non-expert weights for each device the
+    ranks of ``spec`` run on, drawn from ``spec["seed"]`` as each rank's own
+    draw would be (``transformer.shared_weights``): device -> tensors by
+    name, for ``run_ranks(shared=...)``."""
+    out = {}
+    for rank in range(spec["world"]):
+        dev = rank_device(rank, spec)
+        if dev in out:
+            continue
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(spec["seed"])
+        out[dev] = T.shared_weights(spec["cfg"], generator=gen, device=dev,
+                                    dtype=spec["dtype"])
+        if dev.type == "cuda":          # the draws' fp32 temporaries
+            torch.cuda.empty_cache()
+    return out
 
 
 def init_rank(rank: int, spec: dict) -> RankMesh:
@@ -149,15 +222,20 @@ class RecordingEngine(ServeEngine):
         return super()._sample(state)
 
 
-def _first_dispatch(record: dict):
+def _dispatches(record: dict):
     """Patches that keep the expert ids, state and row bytes of the first
-    MoE dispatch made while they are in place."""
+    MoE dispatch made while they are in place, and append to
+    ``record["pairs"]`` each dispatch's (token, expert) pairs given and
+    kept at this rank's experts (a device count, read after the run)."""
+    record["pairs"] = []
+
     def wrap(fn):
         def call(tokens, ids, gates, dcfg, mesh):
             out = fn(tokens, ids, gates, dcfg, mesh)
-            if not record:
+            if "state" not in record:
                 record.update(ids=ids, state=out[2], row_bytes=tokens.shape[1]
                               * tokens.element_size())
+            record["pairs"].append((ids.numel(), (out[2].map_exp >= 0).sum()))
             return out
         return call
     return [mock.patch.object(cl, name, wrap(getattr(cl, name)))
@@ -420,22 +498,53 @@ def _near_ties(mine, tokens, ref_tokens, ref_logits) -> tuple[int, float]:
     return equal, worst
 
 
+def _memory(params, device) -> dict:
+    """Bytes of this rank's expert weights and of all its weights.  On the
+    CPU, whether its non-expert weights lie in shared memory; on the card
+    what the rank itself holds (``memory_allocated``, which does not count
+    memory opened from another process's IPC handle) and the card's free
+    memory once every rank has built its weights."""
+    weights = {"experts": 0, "all": 0}
+    for name, t in params.named_parameters():
+        nbytes = t.numel() * t.element_size()
+        weights["all"] += nbytes
+        if T.is_expert_weight(name):
+            weights["experts"] += nbytes
+    out = {f"{key}_gb": val / 1e9 for key, val in weights.items()}
+    dist.barrier()
+    if device.type == "cpu":
+        out["weights_shared"] = all(
+            t.is_shared() for name, t in params.named_parameters()
+            if not T.is_expert_weight(name))
+    else:
+        torch.cuda.synchronize(device)
+        out["own_gb"] = torch.cuda.memory_allocated(device) / 1e9
+        out["reserved_gb"] = torch.cuda.memory_reserved(device) / 1e9
+        out["card_free_gb"] = torch.cuda.mem_get_info(device)[0] / 1e9
+    return out
+
+
 def serve_worker(rank: int, spec: dict) -> None:
     """One rank of ``spec["cfg"]`` served through ``ServeEngine.generate``
     for each run of ``spec["runs"]`` (default: the fixed scheme pairs of
     ``spec["schemes"]``), on weights drawn from ``spec["seed"]`` (this
-    rank's experts only).  Every rank passes the global ``spec["prompts"]``.
+    rank's experts only; with ``spec["shared"]`` the non-expert weights are
+    those tensors, made once for the card).  Every rank passes the global
+    ``spec["prompts"]``.  ``results["memory"]`` holds the bytes of the
+    rank's weights and, on the card, what it holds itself.
 
     Per run it records the resolved ``(scheme, combine, G)`` of prefill and
     decode, the global tokens, the walls, the kernel launches of the
-    measured run, the logits of its rows at prefill, the pod-group bytes of
-    the first (prefill) dispatch, and how its tokens stand against the
-    first run's (rows equal, widest near-tie gap).  A run with ``twin`` (an
-    earlier run's label) runs fixed at the triple its twin resolved for
-    prefill and is held against the twin instead.  With ``spec["warmup"]``
-    every run first makes an unmeasured run (a prefill and one decode step)
-    that holds every pack against its plain version (:func:`_checked_packs`);
-    with ``spec["temperature"]`` a
+    measured run, the logits of its rows at prefill, the pod-group bytes and
+    the load of each expert from this rank's rows in the first (prefill)
+    dispatch, the (token, expert) pairs each dispatch was given and kept at
+    this rank's experts (in call order, prefill first), and how its tokens
+    stand against the first run's (rows equal, widest near-tie gap).  A run
+    with ``twin`` (an earlier run's label) runs fixed at the triple its twin
+    resolved for prefill and is held against the twin instead.  With
+    ``spec["warmup"]`` every run first makes an unmeasured run (a prefill
+    and one decode step) that holds every pack against its plain version
+    (:func:`_checked_packs`); with ``spec["temperature"]`` a
     sampled ``generate`` follows the measured one, seeded from
     ``spec["sample_seed"]``, unless the run says ``sample=False``.  With
     ``spec["measure_link"]`` (bytes a rank) the ranks first time the
@@ -483,7 +592,8 @@ def serve_worker(rank: int, spec: dict) -> None:
         if params is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(spec["seed"])
-            params = model.init(gen)
+            params = model.init(gen, shared=spec.get("shared"))
+            results["memory"] = _memory(params, dev)
         engine = RecordingEngine(
             model, params, ServeConfig(max_new_tokens=spec["max_new"],
                                        cache_dtype=spec["cache_dtype"]),
@@ -496,7 +606,7 @@ def serve_worker(rank: int, spec: dict) -> None:
             engine.stats.update(prefill_s=0.0, decode_s=0.0, tokens=0)
         engine.step_logits.clear()
         record: dict = {}
-        patches = _first_dispatch(record)
+        patches = _dispatches(record)
         for patch in patches:
             patch.start()
         ops.reset_launches()
@@ -536,6 +646,10 @@ def serve_worker(rank: int, spec: dict) -> None:
                    "widest_gap": gap},
             "pod_bytes": {"whole": whole, "occupied": occupied},
             "analytic_pod_bytes": {"baseline": base, "multiwrite": mw},
+            "pairs": [(given, int(kept)) for given, kept in record["pairs"]],
+            "expert_load": torch.bincount(
+                record["ids"].reshape(-1).long(),
+                minlength=cfg.num_experts).cpu().numpy(),
             "pod": mesh.coords["pod"], "packs": packs, "sampled": sampled}
     if dev.type == "cuda":
         results["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9

@@ -14,13 +14,20 @@ On the CPU, the reduced config through the kernels' plain versions:
       --device cpu --smoke --prompt-len 16 --max-new 4
 
 Over ranks, under ``torchrun``: ``--pods P --ep D`` lays the P * D ranks out
-as P pods of D ep ranks (DBRX's 16 experts: 4 a rank over 2 x 2), each rank
-serving its share of the prompts.  ``--backend`` is required there: ``nccl``
-gives each rank the card of its local rank (there must be that many cards),
-``gloo`` puts every rank on the device ``--device`` names:
+as P pods of D ep ranks (DBRX's 16 experts: 4 a rank over 2 x 2; Kimi's
+384: 24 a rank over 2 x 8), each rank serving its share of the prompts.
+``--backend`` is required there: ``nccl`` gives each rank the card of its
+local rank (there must be that many cards), ``gloo`` puts every rank on the
+device ``--device`` names, and on a CUDA device without an index (the
+default) local rank r on card ``r * cards // local ranks``.  Every rank
+holds its non-expert weights whole, so Kimi at full width runs on four
+cards at a cut depth:
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch dbrx_132b --layers 4 --pods 2 --ep 2 --backend gloo
+  PYTHONPATH=src torchrun --nproc-per-node 16 -m repro_torch.launch.serve \
+      --arch kimi_k2_1t --layers 4 --pods 2 --ep 8 --backend gloo \
+      --prompts 16
 
 Over ranks the MoE round trip (dispatch scheme, return scheme, pipeline
 depth G) comes from the planner under ``--plan-policy auto`` (the default,
@@ -82,6 +89,10 @@ def build_engine(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = model.init(gen)
+    if dev.type == "cuda":
+        # the draws' fp32 temporaries (4.7 GB for Kimi-K2's embedding) go
+        # back to the card, which the other ranks of a host may share
+        torch.cuda.empty_cache()
     return ServeEngine(model, params,
                        ServeConfig(max_new_tokens=max_new,
                                    temperature=temperature,
@@ -108,6 +119,12 @@ def join_ranks(pods: int, ep: int, backend: str | None, device):
         torch.cuda.set_device(device)
     elif backend == "gloo":
         device = resolve_device(device)
+        if device.type == "cuda" and device.index is None:
+            # the host's ranks in blocks over its cards
+            local = int(os.environ["LOCAL_RANK"])
+            device = torch.device("cuda", local * torch.cuda.device_count()
+                                  // int(os.environ["LOCAL_WORLD_SIZE"]))
+            torch.cuda.set_device(device)
     else:
         raise ValueError("--backend nccl or gloo is required over ranks")
     dist.init_process_group(backend, timeout=COLLECTIVE_TIMEOUT,
@@ -152,7 +169,7 @@ def make_prompts(cfg: ModelConfig, prompts: int, prompt_len: int,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="dbrx_132b, zamba2_7b or rwkv6_7b")
+                    help="dbrx_132b, kimi_k2_1t, zamba2_7b or rwkv6_7b")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths stay "
                          "the published ones)")
@@ -171,7 +188,9 @@ def main(argv=None) -> dict:
                     help="ep ranks a pod (under torchrun)")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                     help="required over ranks: nccl (one card a rank) or "
-                         "gloo (every rank on --device)")
+                         "gloo (every rank on --device; without a card "
+                         "index the host's ranks are laid over its cards "
+                         "in blocks)")
     ap.add_argument("--plan-policy", choices=("auto", "fixed"),
                     default="auto",
                     help="over ranks, auto: the planner picks each phase's "

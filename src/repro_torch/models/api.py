@@ -51,9 +51,11 @@ class Model:
     dtype: torch.dtype
     pctx: object = None
 
-    def init(self, generator: torch.Generator) -> nn.Module:
+    def init(self, generator: torch.Generator, shared=None) -> nn.Module:
         """Random parameters on the model's device, drawn from
-        ``generator`` (a generator of that device)."""
+        ``generator`` (a generator of that device).  ``shared`` (dense and
+        moe families): ``transformer.shared_weights`` of the same seed,
+        held as they are; only this rank's experts are drawn."""
         if self.cfg.family == "hybrid":
             return ssm.init_zamba2(self.cfg, generator=generator,
                                    device=self.device, dtype=self.dtype)
@@ -62,7 +64,7 @@ class Model:
                                    device=self.device, dtype=self.dtype)
         return T.init_transformer(self.cfg, generator=generator,
                                   device=self.device, dtype=self.dtype,
-                                  pctx=self.pctx)
+                                  pctx=self.pctx, shared=shared)
 
     def _embed(self, params, tokens) -> torch.Tensor:
         x = L.embed(params.embed, tokens.to(self.device))

@@ -56,13 +56,18 @@ class MoE(nn.Module):
         generator of its own, seeded from ``generator``'s seed, the layer
         and the expert index.  So a rank draws only its own experts, and
         they equal the same experts of the one-rank model."""
+        d = self.router.shape[0]
+        L.truncated_normal_(self.router, 1.0 / math.sqrt(d), generator)
+        return self.reset_experts(generator.initial_seed(), layer)
+
+    def reset_experts(self, seed: int, layer: int = 0) -> "MoE":
+        """This module's experts alone, each from its own generator seeded
+        from (``seed``, ``layer``, expert index)."""
         _, d, f = self.w1.shape
         sc_d, sc_f = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-        L.truncated_normal_(self.router, sc_d, generator)
         for i in range(self.w1.shape[0]):
             gen = torch.Generator(device=self.w1.device)
-            gen.manual_seed(expert_seed(generator.initial_seed(), layer,
-                                        self.first + i))
+            gen.manual_seed(expert_seed(seed, layer, self.first + i))
             L.truncated_normal_(self.w1[i], sc_d, gen)
             L.truncated_normal_(self.w3[i], sc_d, gen)
             L.truncated_normal_(self.w2[i], sc_f, gen)
@@ -232,13 +237,17 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
             if dp_group is not None:              # lax.pmean over dp axes
                 dist.all_reduce(aux, group=dp_group)
                 aux = aux / pctx.dp_size
-        return dispatch(tok, ids, gates, dcfg, epmesh), aux
+        return list(dispatch(tok, ids, gates, dcfg, epmesh)), aux
 
     def finish_chunk(pack):
-        """The expert FFN and the combine."""
+        """The expert FFN and the combine.  Empties ``pack``, so that the
+        packed rows are freed once the experts have read them, before the
+        combine's exchanges (a Kimi-K2 rank's are 117 MB)."""
         exp_tok, exp_gate, st = pack
+        pack.clear()
         exp_out = _expert_ffn(params.w1, params.w3, params.w2, exp_tok,
                               cfg.act)
+        del exp_tok
         return combine(exp_out, exp_gate, st).to(x.dtype)
 
     if g == 1:

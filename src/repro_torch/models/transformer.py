@@ -32,7 +32,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     missing = [name for name, on in (
         ("post_norm", cfg.post_norm),
-        ("n_shared_experts", cfg.n_shared_experts),
         ("mrope_sections", cfg.mrope_sections),
         ("input_mode=embeddings", cfg.input_mode != "tokens")) if on]
     if missing:
@@ -45,22 +44,28 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One decoder layer: attention, then an MoE or dense FFN."""
+    """One decoder layer: attention, then an MoE or dense FFN.  An MoE
+    layer of a config with shared experts also holds ``shared_mlp``, the
+    always-on experts as one MLP of width ``expert_d_ff *
+    n_shared_experts``, whole on every rank (EP does not shard it)."""
 
     def __init__(self, cfg: ModelConfig, *, moe: bool, device, dtype,
-                 pctx=None):
+                 pctx=None, experts: bool = True):
         super().__init__()
         self.ln1 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
         self.attn = L.Attention(_dims(cfg), device=device, dtype=dtype)
         self.ln2 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
+        self.moe = self.mlp = self.shared_mlp = None
         if moe:
             first, local = M.expert_shard(pctx, cfg.num_experts)
             self.moe = M.MoE(cfg.d_model, cfg.expert_d_ff, cfg.num_experts,
                              device=device, dtype=dtype, first=first,
-                             local=local)
-            self.mlp = None
+                             local=local if experts else 0)
+            if cfg.n_shared_experts:
+                self.shared_mlp = L.MLP(
+                    cfg.d_model, cfg.expert_d_ff * cfg.n_shared_experts,
+                    cfg.mlp_gated, device=device, dtype=dtype)
         else:
-            self.moe = None
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated,
                              device=device, dtype=dtype)
 
@@ -69,9 +74,11 @@ class Transformer(nn.Module):
     """Parameters of a decoder stack: embedding, blocks (the
     ``first_k_dense`` dense layers of an MoE stack first), final norm and
     an untied unembedding [D, V] unless the config ties them.  With a
-    ``pctx`` the MoE blocks hold this rank's experts only."""
+    ``pctx`` the MoE blocks hold this rank's experts only; with
+    ``experts=False`` they hold none (the weights every rank shares)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype, pctx=None):
+    def __init__(self, cfg: ModelConfig, *, device, dtype, pctx=None,
+                 experts: bool = True):
         super().__init__()
         check_supported(cfg)
         n_dense = cfg.first_k_dense if cfg.is_moe else cfg.n_layers
@@ -79,7 +86,7 @@ class Transformer(nn.Module):
                                  dtype=dtype)
         self.blocks = nn.ModuleList(
             Block(cfg, moe=i >= n_dense, device=device, dtype=dtype,
-                  pctx=pctx)
+                  pctx=pctx, experts=experts)
             for i in range(cfg.n_layers))
         self.final_norm = L.RMSNorm(cfg.d_model, device=device,
                                     eps=cfg.norm_eps)
@@ -89,21 +96,77 @@ class Transformer(nn.Module):
 
 
 def init_transformer(cfg: ModelConfig, *, generator: torch.Generator,
-                     device, dtype, pctx=None) -> Transformer:
+                     device, dtype, pctx=None, shared=None) -> Transformer:
     """Random weights drawn from ``generator`` (truncated normal at the
     reference's scales; norms start at zero), filled in place.  Experts
     come from generators of their own (``moe.expert_seed``), so a rank's
-    experts equal the one-rank model's."""
+    experts equal the one-rank model's.
+
+    With ``shared`` (:func:`shared_weights` of the same config and seed)
+    the module holds those tensors themselves, copying nothing, and only
+    this rank's experts are drawn (from ``generator``'s seed alone)."""
+    if shared is not None:
+        return _around_shared(cfg, shared, generator.initial_seed(),
+                              device=device, dtype=dtype, pctx=pctx)
     params = Transformer(cfg, device=device, dtype=dtype, pctx=pctx)
+    _draw(params, cfg, generator)
+    return params
+
+
+def _draw(params: Transformer, cfg: ModelConfig,
+          generator: torch.Generator) -> None:
     params.embed.reset_parameters(generator)
     for i, blk in enumerate(params.blocks):
         blk.attn.reset_parameters(generator)
         if blk.moe is not None:
             blk.moe.reset_parameters(generator, layer=i)
+            if blk.shared_mlp is not None:
+                blk.shared_mlp.reset_parameters(generator)
         else:
             blk.mlp.reset_parameters(generator)
     if params.unembed is not None:
         L.truncated_normal_(params.unembed, cfg.d_model ** -0.5, generator)
+
+
+EXPERT_WEIGHTS = ("w1", "w3", "w2")
+
+
+def is_expert_weight(name: str) -> bool:
+    """Whether a parameter name of :class:`Transformer` is an expert
+    weight (``blocks.<i>.moe.w1``, ``.w3``, ``.w2``)."""
+    return name.split(".")[-2:] in [["moe", w] for w in EXPERT_WEIGHTS]
+
+
+def shared_weights(cfg: ModelConfig, *, generator: torch.Generator, device,
+                   dtype) -> dict:
+    """Every parameter but the experts, by name, drawn from ``generator``
+    in :func:`init_transformer`'s order: the same values each rank's own
+    draw gives.  Serving only reads them, so the ranks of one card can hold
+    one copy (passed to them as CUDA IPC handles)."""
+    params = Transformer(cfg, device=device, dtype=dtype, experts=False)
+    _draw(params, cfg, generator)
+    return {name: t for name, t in params.state_dict().items()
+            if not is_expert_weight(name)}
+
+
+def _around_shared(cfg: ModelConfig, shared: dict, seed: int, *, device,
+                   dtype, pctx) -> Transformer:
+    """A rank's module made on the meta device, then given the shared
+    tensors (assigned, not copied) and its own experts, drawn on
+    ``device``."""
+    params = Transformer(cfg, device="meta", dtype=dtype, pctx=pctx)
+    missing, unexpected = params.load_state_dict(shared, strict=False,
+                                                 assign=True)
+    if unexpected or not all(is_expert_weight(name) for name in missing):
+        raise ValueError(f"shared weights do not fit {cfg.name}: missing "
+                         f"{missing}, unexpected {unexpected}")
+    for i, blk in enumerate(params.blocks):
+        if blk.moe is None:
+            continue
+        for name in EXPERT_WEIGHTS:
+            setattr(blk.moe, name, L.parameter(
+                getattr(blk.moe, name).shape, device=device, dtype=dtype))
+        blk.moe.reset_experts(seed, layer=i)
     return params
 
 
@@ -138,9 +201,12 @@ def _ffn_part(lp: Block, x, cfg, pctx=None):
     """The FFN half of a block; serving drops the MoE aux loss, so it is
     never computed (nor averaged over the ranks)."""
     h = lp.ln2(x)
-    if lp.moe is not None:
-        return M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=False)[0]
-    return L.mlp(lp.mlp, h, cfg.act)
+    if lp.moe is None:
+        return L.mlp(lp.mlp, h, cfg.act)
+    out = M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=False)[0]
+    if lp.shared_mlp is not None:
+        out = out + L.mlp(lp.shared_mlp, h, cfg.act)
+    return out
 
 
 def _decode_attn(lp: Block, x, ck, cv, cur: int, cfg, *, window):

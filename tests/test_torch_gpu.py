@@ -86,6 +86,46 @@ def test_pack_kernel_at_two_by_two_rank_stages_on_card(n, d, c, blocks,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,d,c,blocks,filled", [
+    (512, 2, 1024, 1, 512),       # stage 1: 512 tokens a rank to 2 pods
+    (2048, 8, 2048, 2, 510),      # stage 2: rows from 2 pods to 8 ep ranks
+    (16384, 24, 341, 8, 410),     # stage 3: rows from 8 relays, 24 experts
+    (6400, 24, 213, 8, 410),      # stage 3 at capacity factor 1.25
+])
+def test_pack_kernel_at_kimi_rank_stages_on_card(n, d, c, blocks, filled):
+    """The packs of one Kimi-K2 prefill MoE layer at 2 pods x 8 ep ranks
+    (d_model 7168, capacity factor 2, and stage 3 at 1.25): rows off a
+    transport, each received block filled to its sender's count."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    tokens = torch.randn((n, 7168), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bitmap = torch.randint(1, 1 << d, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+    valid = torch.arange(n, device="cuda") % (n // blocks) < filled
+    got_t, got_i = ops.dispatch_pack(tokens, bitmap, valid, num_dests=d,
+                                     capacity=c)
+    exp_t, exp_i = tref.pack_ref(tokens, bitmap, valid, d, c)
+    assert torch.equal(got_i, exp_i)
+    assert torch.equal(got_t.view(torch.int16), exp_t.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_attention_kernel_at_kimi_rank_shape_on_card():
+    """A Kimi-K2 rank's prefill: 64 q heads over 8 kv heads of 112, 512
+    tokens, in the main path's [B, S, heads, D] layout."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((1, 512, 64, 112), generator=gen, device="cuda")
+    k = torch.randn((1, 512, 8, 112), generator=gen, device="cuda")
+    v = torch.randn((1, 512, 8, 112), generator=gen, device="cuda")
+    q, k, v = (x.to(torch.bfloat16).transpose(1, 2) for x in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=True).float()
+    exp = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+    torch.testing.assert_close(got, exp, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal,window,softcap", [
     (True, None, None), (True, 32, None), (False, None, 30.0)])
 def test_attention_kernel_matches_plain_on_card(causal, window, softcap):

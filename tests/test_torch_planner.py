@@ -388,3 +388,44 @@ def test_moe_skew_prices_as_reference(fabric):
         predicted[skew] = plans[1].decision("prefill/moe_dispatch"
                                             ).predicted_s
     assert predicted[2.0] != predicted[0.0]
+
+
+# ---------------------------------------------------------------------------
+# Kimi-K2-1T at 2 pods x 8 ep ranks (384 experts, 24 a rank)
+# ---------------------------------------------------------------------------
+
+# one prompt of 512 tokens a rank over the 16 ranks
+KIMI_SERVE = {"prefill": (16, 512), "decode": (16, 1)}
+
+
+@pytest.mark.parametrize("fabric", [None, "2x8"],
+                         ids=["mesh-derived", "2x8"])
+def test_kimi_at_2x8_plans_as_reference(fabric):
+    """``moe_pipeline_kwargs(384, 8, ...)`` at Kimi's prefill and decode
+    rows a rank, and the ExecutionPlan of its serve program, on the
+    mesh-derived default fabric and on ``2x8``: the reference's decisions
+    and fingerprint, EP over all 16 ranks."""
+    mesh = StandInMesh(2, 8)
+    jp = jctx.ParallelContext(
+        mesh=mesh, pod_axis="pod", plan_policy="auto",
+        fabric=jtopo.get_fabric(fabric) if fabric else None)
+    tp = tctx.ParallelContext(
+        mesh, pod_axis="pod", plan_policy="auto",
+        fabric=ttopo.get_fabric(fabric) if fabric else None)
+    assert tp.ep_ranks(384) == jp.ep_ranks(384) == (True, 16)
+    jcfg, tcfg = jax_get_config("kimi_k2_1t"), get_config("kimi_k2_1t")
+    for batch, seq in KIMI_SERVE.values():
+        n = batch * seq // 16
+        ask = dict(tokens_per_rank=n, token_bytes=tcfg.d_model * 2,
+                   compute_s=expert_compute_time_s(n, 8, 7168, 2048))
+        assert (tp.moe_pipeline_kwargs(384, 8, **ask)
+                == jp.moe_pipeline_kwargs(384, 8, **ask))
+    jprog = jctx.build_collective_program(jcfg, jp, "serve", KIMI_SERVE)
+    tprog = tctx.build_collective_program(tcfg, tp, "serve", KIMI_SERVE,
+                                          peak_flops=ttopo.TPU_PEAK_FLOPS)
+    assert tprog.cache_key() == jprog.cache_key()
+    plans = [planner.Planner().plan_program(prog, *pctx._plan_topo_hw(384))
+             for pctx, prog, planner in ((jp, jprog, jplanner),
+                                         (tp, tprog, tplanner))]
+    assert plans[1].fingerprint == plans[0].fingerprint
+    assert decisions(plans[1]) == decisions(plans[0])

@@ -178,7 +178,7 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="post_norm"):
         build_model(dataclasses.replace(cfg, post_norm=True), device="cpu")
     with pytest.raises(ValueError, match="no config"):
-        get_config("kimi_k2_1t")
+        get_config("gemma2_9b")
 
 
 def test_serve_cli_smoke(capsys):
