@@ -29,7 +29,14 @@ Phases; any failure raises and the script exits non-zero:
    prompts x 512 tokens, 32 new tokens greedy, one model at a time, each
    freed before the next: DBRX-132B at full width with its depth cut to 4
    layers, then Zamba2-7B and RWKV6-7B at full width and full depth; each
-   with the kernels' launch counts over its own run;
+   with the kernels' launch counts over its own run, decode replayed from
+   a CUDA graph (captures and replays counted), a second call of the same
+   shape that replays without a capture, and an eager loop of the model's
+   own prefill and decode on the same prompts: greedy tokens equal, the
+   logits' gap and both decode times printed; then DBRX serves a seeded
+   Poisson stream through the continuous-batching scheduler under planner
+   admission on ``2x8`` (12 requests, capacity 4, cohorts of unequal
+   size);
 6. ranks: DBRX-132B (4 layers) over 4 spawned ranks, 2 pods x 2 ep ranks
    of 4 experts, one prompt a rank (nccl with a card a rank where there are
    4 cards, else gloo with all ranks on card 0): the three MoE scheme pairs
@@ -38,7 +45,10 @@ Phases; any failure raises and the script exits non-zero:
    decisions on that fabric and on a slow pod link; every rank's tokens
    equal, equal across the pairs and to a one-rank run up to near ties,
    exact launch counts, every pack of each warm-up bit-exact, and the
-   pod-group bytes of one prefill dispatch below the baseline's;
+   pod-group bytes of one prefill dispatch below the baseline's; decode
+   eager over gloo (its exchanges are host-staged) and graphed over nccl;
+   and a continuous run under planner admission whose batch crosses a
+   bucket: every request completed, a plan swap and no cold retrace;
 7. Kimi-K2-1T at full width (depth 2 on one card, 4 on four) over 16
    spawned gloo ranks, 2 pods x 8 ep ranks of 24 experts, laid over the
    cards present, the non-expert weights made once a card and shared with
@@ -67,6 +77,7 @@ tokens).
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -92,6 +103,12 @@ KIMI_DEPTH = {1: (2, 8), 4: (4, 32)}
 RANKS_CF = 4.0                          # phase 6: num_experts / top_k
 PIPE_G = 4                              # phase 6: chunks of the G > 1 run
 PROMPTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
+# phase 5's continuous DBRX stream: 12 requests of 512 tokens, 8 new each,
+# Poisson at 500 a second of the virtual clock (cohorts of 1 to 3)
+CONTINUOUS = dict(requests=12, prompt_len=512, max_new=8, arrival_rate=500.0)
+# phase 6's: groups of one request a rank, a batch bucket crossed
+RANKS_CONTINUOUS = dict(requests=12, prompt_len=512, max_new=8, rate=1e5,
+                        capacity=8)
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 kernel vs fp32 plain
 # bf16 scans vs the fp32 per-step recurrence: the reference kernel tests'
 # bf16 tolerance (tests/test_kernels.py)
@@ -949,6 +966,18 @@ def expected_launches(cfg, forwards: int) -> dict:
 
 
 def serve_phase(arch: str, layers) -> dict:
+    """One model served at full width through ``ServeEngine.generate``,
+    decode replayed from a CUDA graph: a warm-up call, the measured call
+    (its first decode round eager, the second captured, the rest
+    replayed), a second call of the same shape (every round a replay of
+    the same graph, the logits kept), and an eager loop of
+    ``model.prefill`` / ``model.decode`` with argmax on the same prompts
+    and a fresh cache.  Gates: exact launch counts in all three, greedy
+    tokens equal, ``captures >= 1`` and ``replays == rounds -
+    eager_rounds`` in the measured call, no capture in the second.  DBRX
+    also serves a continuous stream (:func:`continuous_phase`).  Returns
+    the kernel launches of the measured call."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels import ops
@@ -979,13 +1008,23 @@ def serve_phase(arch: str, layers) -> dict:
     prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
     engine.generate(prompts, max_new=2)          # warm-up, not counted
     engine.stats.update(prefill_s=0.0, decode_s=0.0, tokens=0)
+    graph = engine.stats["decode_graph"]
+    print(f"  decode mode: {graph['mode']} ({graph['reason']})")
+    if graph["mode"] != "graph":
+        raise AssertionError(f"one rank on CUDA decodes {graph['mode']}")
     torch.cuda.reset_peak_memory_stats()
+    want = expected_launches(cfg, forwards=MAX_NEW)
+    rounds = MAX_NEW - 1
 
+    before = dict(graph)
     ops.reset_launches()
     out = engine.generate(prompts)
     counts = ops.launches()
-
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = engine.stats
+    captured = {key: graph[key] - before[key]
+                for key in ("captures", "replays", "eager_rounds",
+                            "capture_s")}
     if out.shape != (PROMPTS, MAX_NEW):
         raise AssertionError(f"generate returned {out.shape}")
     if not ((out >= 0) & (out < cfg.vocab)).all():
@@ -993,21 +1032,145 @@ def serve_phase(arch: str, layers) -> dict:
     if st["nonfinite_logits"]:
         raise AssertionError(f"{st['nonfinite_logits']} steps with "
                              f"non-finite logits")
-    want = expected_launches(cfg, forwards=MAX_NEW)
     print(f"  launches during generate: {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    decode_ms = st["decode_s"] * 1e3 / (MAX_NEW - 1)
+    print(f"  decode graph, measured call: {captured['captures']} "
+          f"capture(s) in {captured['capture_s'] * 1e3:.3f} ms (host), "
+          f"{captured['replays']} replays, {captured['eager_rounds']} eager "
+          f"round(s) of {rounds}")
+    if captured["captures"] < 1 or \
+            captured["replays"] != rounds - captured["eager_rounds"]:
+        raise AssertionError(f"decode graph counts {captured} over {rounds} "
+                             f"rounds")
+    decode_ms = st["decode_s"] * 1e3 / rounds
     total_s = st["prefill_s"] + st["decode_s"]
     print(f"  generate [{PROMPTS} x {PROMPT_LEN}] -> {list(out.shape)}: "
           f"prefill {st['prefill_s'] * 1e3:.3f} ms, decode "
-          f"{decode_ms:.3f} ms/token, {PROMPTS * MAX_NEW / total_s:.1f} "
-          f"tokens/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+          f"{decode_ms:.3f} ms/token (one eager round and the capture "
+          f"included), {PROMPTS * MAX_NEW / total_s:.1f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB")
     print(f"  first tokens: {out[:, :8].tolist()}")
+
+    # the same shape again: its slot's graph replays every round; the
+    # logits are kept (a host copy a round, as the eager loop keeps them)
+    engine.stats.update(prefill_s=0.0, decode_s=0.0)
+    before = dict(graph)
+    ops.reset_launches()
+    again, kept = generate_keeping_logits(engine, prompts)
+    counts2 = ops.launches()
+    replayed = graph["replays"] - before["replays"]
+    graph_ms = engine.stats["decode_s"] * 1e3 / rounds
+    if counts2 != want or graph["captures"] != before["captures"] or \
+            replayed != rounds or not np.array_equal(again, out):
+        raise AssertionError(f"second call: launches {counts2}, "
+                             f"{graph['captures'] - before['captures']} "
+                             f"captures, {replayed} replays, tokens equal "
+                             f"{np.array_equal(again, out)}")
+
+    # the eager loop: the model's own prefill and decode, argmax
+    eager, eager_ms, eager_counts = eager_loop(engine, prompts)
+    gap = max(((g - e).abs().max() / e.abs().max()).item()
+              for g, e in zip(kept, eager["logits"]))
+    same = np.array_equal(eager["tokens"], out)
+    print(f"  graph vs eager loop: tokens {'equal' if same else 'DIFFER'} "
+          f"over {MAX_NEW}; logits max gap {gap:.3e} of max |logit| over "
+          f"{MAX_NEW} steps; decode {graph_ms:.3f} ms/token replayed "
+          f"against {eager_ms:.3f} eager (both keep the logits on the "
+          f"host); launches of the loop {eager_counts}")
+    if not same:
+        raise AssertionError("graph decode tokens differ from the eager "
+                             "loop's")
+    if eager_counts != want:
+        raise AssertionError(f"eager loop launches {eager_counts} != {want}")
+    if arch == "dbrx_132b":
+        continuous_phase(engine, cfg)
+    # the engine's plan binder calls back into the engine: a cycle, which
+    # only the collector frees (with the weights it holds)
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+def generate_keeping_logits(engine, prompts):
+    """``engine.generate(prompts)`` with each sampling step's logits kept
+    on the host.  Returns (tokens, logits by step)."""
+    kept = []
+    sample = engine._sample
+
+    def keep(state):
+        kept.append(state.logits.float().cpu())
+        return sample(state)
+    engine._sample = keep
+    try:
+        return engine.generate(prompts), kept
+    finally:
+        del engine._sample
+
+
+def eager_loop(engine, prompts):
+    """Greedy decoding by the engine's model directly: ``prefill`` on a
+    fresh cache, then ``MAX_NEW - 1`` calls of ``decode``, argmax after
+    each, every step's logits kept on the host.  Returns ({"tokens",
+    "logits"}, decode ms a token, the kernel launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    model, params = engine.model, engine.params
+    ops.reset_launches()
+    logits_kept = []
+    with torch.inference_mode():
+        cache = model.init_cache(len(prompts), PROMPT_LEN + MAX_NEW)
+        logits, _ = model.prefill(
+            params, {"tokens": torch.from_numpy(prompts).cuda()}, cache)
+        tok = torch.argmax(logits, dim=-1)
+        logits_kept.append(logits.float().cpu())
+        toks = [tok.cpu()]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(MAX_NEW - 1):
+            logits, _ = model.decode(
+                params, {"tokens": tok.to(torch.int32)[:, None]}, cache)
+            tok = torch.argmax(logits, dim=-1)
+            logits_kept.append(logits.float().cpu())
+            toks.append(tok.cpu())
+        ms = (time.monotonic() - t0) * 1e3 / (MAX_NEW - 1)
+    tokens = torch.stack(toks, dim=1).numpy().astype(np.int32)
+    return {"tokens": tokens, "logits": logits_kept}, ms, ops.launches()
+
+
+def continuous_phase(engine, cfg) -> None:
+    """DBRX on one rank through ``launch.serve.serve_continuous``: seeded
+    Poisson arrivals (``CONTINUOUS``) under planner admission on ``2x8``
+    at capacity 4, which forms cohorts of unequal size; every request must
+    complete.  Prints the report (times on the scheduler's virtual clock:
+    the planner's predicted collective times), the measured walls and the
+    graph slots captured."""
+    import argparse
+
+    from repro_torch.launch.serve import serve_continuous
+    graph = engine.stats["decode_graph"]
+    before = dict(graph)
+    args = argparse.Namespace(smoke=False, fabric="2x8", prompts=4,
+                              tpot_slo_us=None, ttft_slo_us=None, seed=0,
+                              **CONTINUOUS)
+    rep = serve_continuous(args, cfg, engine, None)
+    print(f"  continuous: {rep['completed']}/{args.requests} completed in "
+          f"{rep['iterations']} iterations, max in flight "
+          f"{rep['max_in_flight']}, admission holds "
+          f"{rep['admission_holds']}; virtual TTFT p50/p99 "
+          f"{rep['ttft_p50_s'] * 1e3:.3f}/{rep['ttft_p99_s'] * 1e3:.3f} ms, "
+          f"TPOT p50/p99 {rep['tpot_p50_s'] * 1e6:.1f}/"
+          f"{rep['tpot_p99_s'] * 1e6:.1f} us; measured walls prefill "
+          f"{rep['wall']['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{rep['wall']['decode_s'] * 1e3:.3f} ms; graph slots captured "
+          f"{graph['captures'] - before['captures']}, replays "
+          f"{graph['replays'] - before['replays']}, eager rounds "
+          f"{graph['eager_rounds'] - before['eager_rounds']}")
+    if rep["completed"] != args.requests or rep["pending"]:
+        raise AssertionError(f"continuous run: {rep}")
 
 
 # ---------------------------------------------------------------------------
@@ -1092,6 +1255,7 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
         shape_rel = ((alone - one_logits[0]).abs().max()
                      / one_logits[0].abs().max()).item()
         del one, model
+        gc.collect()                    # the engine's binder cycle
         torch.cuda.empty_cache()
     else:
         print(f"  capacity factor {cf} < {cfg.num_experts // cfg.top_k}: the "
@@ -1115,6 +1279,7 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
                     dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
                     prompts=prompts, max_new=MAX_NEW, runs=runs, warmup=True,
                     measure_link=stage1 if nccl else None,
+                    continuous=RANKS_CONTINUOUS,
                     decide=(["measured", "measured-pod:12.5"] if nccl
                             else [None]),
                     trace=(dict(run=ranks.run_label(runs[3]), path=trace)
@@ -1129,6 +1294,8 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
     found, total, walls = check_served(results, runs, cfg, MAX_NEW, where,
                                        exact)
     failures += found
+    failures += check_decode_mode(results, backend)
+    failures += check_continuous(results)
     r0 = results[0]
     labels = [ranks.run_label(run) for run in runs]
     pairs = labels[:3]
@@ -1469,6 +1636,11 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
         print(f"    prefill {walls[label][0]:.3f} ms, decode "
               f"{walls[label][1]:.3f} ms/token (the slowest rank's walls; "
               f"{where}); launches a rank {runs_[0]['launches']}")
+        if runs_[0]["replay_decode_s"] is not None:
+            replay = max(run["replay_decode_s"] for run in runs_)
+            print(f"    decode of a second call of the same shape, every "
+                  f"round a graph replay: {replay * 1e3 / (max_new - 1):.3f} "
+                  f"ms/token (the slowest rank's)")
         # the G = 4 run against the first and the plan's twin against the
         # planned run: rows equal, and a row that parts does so at a near
         # tie of the other run's logits
@@ -1517,6 +1689,65 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
             failures.append(f"rank {r['rank']}: multiwrite pod bytes not "
                             f"below the baseline's")
     return failures, total, walls
+
+
+def check_decode_mode(results: list, backend: str) -> list:
+    """Every rank's engines decode by the rule: eager over gloo (its
+    exchanges are staged through the host), a CUDA graph over nccl.
+    Returns the failures."""
+    want = "graph" if backend == "nccl" else "eager"
+    failures = []
+    modes = {(run["decode_graph"]["mode"], run["decode_graph"]["reason"])
+             for r in results for run in r["runs"].values()}
+    for mode, reason in sorted(modes):
+        print(f"  decode over {backend}: {mode} ({reason})")
+        if mode != want:
+            failures.append(f"decode {mode} over {backend}, not {want}")
+    if want == "graph":
+        for r in results:
+            for label, run in r["runs"].items():
+                g = run["decode_graph"]
+                if g["captures"] < 1:
+                    failures.append(f"{label} rank {r['rank']}: no capture")
+    return failures
+
+
+def check_continuous(results: list) -> list:
+    """The ranks' continuous run (``RANKS_CONTINUOUS``, planner admission
+    with the plan bound for one row a rank): every request completed, the
+    same report and tokens on every rank, at least one plan swap when the
+    batch crossed a bucket, and no cold retrace.  Returns the failures."""
+    failures = []
+    c0 = results[0]["continuous"]
+    rep = c0["report"]
+    g = c0["decode_graph"]
+    print(f"  continuous over the ranks: {rep['completed']}/"
+          f"{RANKS_CONTINUOUS['requests']} completed in {rep['iterations']} "
+          f"iterations, max in flight {rep['max_in_flight']}, bucket "
+          f"{c0['bound_bucket']} bound at the end; plan prefetches "
+          f"{rep['prefetch_rebinds']}, swaps {rep['plan_swaps']}, cold "
+          f"retraces {rep['cold_retraces']}; virtual TTFT p50/p99 "
+          f"{rep['ttft_p50_s'] * 1e3:.3f}/{rep['ttft_p99_s'] * 1e3:.3f} ms, "
+          f"TPOT p50/p99 {rep['tpot_p50_s'] * 1e6:.1f}/"
+          f"{rep['tpot_p99_s'] * 1e6:.1f} us; measured walls (rank 0) "
+          f"prefill {c0['wall']['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{c0['wall']['decode_s'] * 1e3:.3f} ms; decode {g['mode']}: "
+          f"{g['captures']} captures, {g['replays']} replays, "
+          f"{g['eager_rounds']} eager rounds")
+    if rep["completed"] != RANKS_CONTINUOUS["requests"] or rep["pending"]:
+        failures.append(f"continuous: {rep['completed']} completed")
+    if rep["plan_swaps"] < 1 or rep["cold_retraces"] != 0:
+        failures.append(f"continuous: {rep['plan_swaps']} swaps, "
+                        f"{rep['cold_retraces']} cold retraces")
+    for r in results[1:]:
+        c = r["continuous"]
+        same = {key: c["report"][key] for key in ("completed", "plan_swaps",
+                                                  "iterations")} == \
+            {key: rep[key] for key in ("completed", "plan_swaps",
+                                       "iterations")}
+        if not same or c["tokens"] != c0["tokens"]:
+            failures.append(f"continuous: rank {r['rank']} differs")
+    return failures
 
 
 def build_phase() -> None:

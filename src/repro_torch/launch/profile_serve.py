@@ -7,14 +7,17 @@
 
 Builds the engine of ``--arch`` as ``launch.serve`` does (published widths,
 full depth unless ``--layers`` cuts it, random weights from seed 0) and
-warms it up.  Then, for one
-prefill and for ``--decode-steps`` decode rounds: the wall time per call
-without the profiler (host clock around work that ends in a synchronize),
-and under ``torch.profiler`` the summed device time of the kernels, the
-number of kernel launches per call and the kernels that take the most
-device time.  The device's busy share is that kernel time over the
-unprofiled wall.  ``--trace`` writes a Chrome trace of the decode window.
-Needs a CUDA device.
+warms it up, its decode graph captured by one cohort that then retires, so
+that the measured cohorts take its slot and replay the graph.  Then, for
+one prefill and for ``--decode-steps`` decode rounds of the engine, and for
+as many rounds of an eager loop of the model's own ``decode`` (argmax and a
+host copy of the tokens a round, as the engine samples): the wall time per
+call without the profiler (host clock around work that ends in a
+synchronize), and under ``torch.profiler`` the summed device time of the
+kernels, the number of kernels per call and the kernels that take the
+most device time.  The device's busy share is that kernel time over the
+unprofiled wall.  ``--trace`` writes a Chrome trace of the engine's decode
+window.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -104,8 +107,16 @@ def main(argv=None) -> list:
     def prefill():
         return engine.start_cohort(prompts, max_new=max_new)[:2]
 
+    def cohort():
+        state, toks = prefill()
+        state, toks = decode_rounds(state, toks)
+        engine.end_cohort(state)
+        return state
+
+    cohort()                                # captures the decode graph
     (state, toks), prefill_wall = _timed(prefill)
     _, decode_wall = _timed(lambda: decode_rounds(state, toks))
+    engine.end_cohort(state)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         state, toks = prefill()
@@ -114,11 +125,37 @@ def main(argv=None) -> list:
     with profile(activities=activities) as prof:
         state, toks = decode_rounds(state, toks)
         torch.cuda.synchronize()
-    results.append(_report("decode", prof, decode_wall, args.decode_steps))
+    engine.end_cohort(state)
+    g = engine.stats["decode_graph"]
+    results.append(_report(f"decode ({g['mode']})", prof, decode_wall,
+                           args.decode_steps))
     if args.trace:
         prof.export_chrome_trace(args.trace)
     if not torch.isfinite(state.logits).all():
         raise RuntimeError("non-finite logits")
+
+    model, params = engine.model, engine.params
+    with torch.inference_mode():
+        cache = model.init_cache(args.prompts,
+                                 args.prompt_len + 2 * args.decode_steps)
+        logits, _ = model.prefill(
+            params, {"tokens": torch.from_numpy(prompts).cuda()}, cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+
+        def eager_rounds(tok):
+            for _ in range(args.decode_steps):
+                logits, _ = model.decode(params, {"tokens": tok[:, None]},
+                                         cache)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                tok.cpu()
+            return tok
+
+        tok, eager_wall = _timed(lambda: eager_rounds(tok))
+        with profile(activities=activities) as prof:
+            eager_rounds(tok)
+            torch.cuda.synchronize()
+    results.append(_report("decode (eager loop)", prof, eager_wall,
+                           args.decode_steps))
     print(json.dumps(results))
     return results
 

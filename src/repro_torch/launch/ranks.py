@@ -51,6 +51,9 @@ from repro_torch.parallel.context import (ParallelContext,
                                           build_collective_program)
 from repro_torch.parallel.mesh import RankMesh
 from repro_torch.runtime.server import ServeConfig, ServeEngine
+from repro_torch.serving import (AdmissionController, BatchScheduler,
+                                 RequestQueue, TrafficConfig,
+                                 TrafficGenerator)
 
 # (moe_scheme, moe_combine) pairs the workers run, in this order
 SCHEME_PAIRS = (("hierarchical", "hierarchical"),
@@ -524,6 +527,65 @@ def _memory(params, device) -> dict:
     return out
 
 
+def grouped_requests(cfg, *, requests: int, group: int, prompt_len: int,
+                     max_new: int, rate: float, seed: int) -> list:
+    """The seeded Poisson stream of ``TrafficGenerator`` with its requests
+    arriving in groups of ``group``, each at its first request's time: the
+    cohorts a scheduler forms from it then hold a multiple of ``group``
+    rows, as the data-parallel ranks need (one row a rank)."""
+    reqs = TrafficGenerator(TrafficConfig(
+        arrival_rate_rps=rate, num_requests=requests,
+        prompt_lens=(prompt_len,), max_news=(max_new,), vocab=cfg.vocab,
+        seed=seed)).requests()
+    for i, req in enumerate(reqs):
+        req.arrival_s = reqs[i - i % group].arrival_s
+    return reqs
+
+
+def continuous_run(mesh: RankMesh, spec: dict, params, device, fabric
+                   ) -> dict:
+    """Serve ``spec["continuous"]`` (``requests``, ``prompt_len``,
+    ``max_new``, ``rate``, ``capacity``) through the continuous-batching
+    scheduler under planner admission, with the plan bound for one row a
+    rank and the plan of each batch bucket the admission grows into staged
+    through the engine's ``PlanBinder`` (a TPOT SLO of twice the probe's
+    step at capacity, so nothing is held).  Returns the report, the decode
+    mode and counts, the walls and each request's tokens."""
+    cont, cfg = spec["continuous"], spec["cfg"]
+    group = mesh.axis_size("pod", "data")
+    itemsize = spec["dtype"].itemsize
+    phases = {"prefill": (group, cont["prompt_len"]), "decode": (group, 1)}
+    pctx = run_context(mesh, spec["pods"], {
+        "policy": "auto", "fabric": "measured" if fabric else None,
+        "bind": True}, fabric=fabric, cfg=cfg, phases=phases,
+        itemsize=itemsize)
+    model = build_model(cfg, device=device, dtype=spec["dtype"], pctx=pctx)
+    engine = ServeEngine(model, params, ServeConfig(
+        max_new_tokens=cont["max_new"], cache_dtype=spec["cache_dtype"]),
+        device=device, pctx=pctx)
+    probe = engine.plan_probe(itemsize)
+    tpot_slo_s = 2.0 * probe.decode_step_s(cont["capacity"])
+    queue = RequestQueue()
+    for req in grouped_requests(
+            cfg, requests=cont["requests"], group=group,
+            prompt_len=cont["prompt_len"], max_new=cont["max_new"],
+            rate=cont["rate"], seed=spec["seed"]):
+        queue.push(req)
+    sched = BatchScheduler(
+        queue=queue, admission=AdmissionController(
+            probe, capacity=cont["capacity"], policy="planner",
+            tpot_slo_s=tpot_slo_s, ttft_slo_s=0.08),
+        engine=engine, probe=probe, binder=engine.plan_binder,
+        plan_for_bucket=lambda b: engine.bucket_plan(b, cont["prompt_len"]),
+        seed=spec["seed"])
+    sched.run_until_drained()
+    engine.close()
+    return {"report": sched.report(ttft_slo_s=0.08, tpot_slo_s=tpot_slo_s),
+            "decode_graph": dict(engine.stats["decode_graph"]),
+            "wall": dict(sched.wall), "bound_bucket": sched.bound_bucket,
+            "tokens": {r.rid: list(r.tokens) for r in sched.completed}}
+
+
 def serve_worker(rank: int, spec: dict) -> None:
     """One rank of ``spec["cfg"]`` served through ``ServeEngine.generate``
     for each run of ``spec["runs"]`` (default: the fixed scheme pairs of
@@ -553,7 +615,14 @@ def serve_worker(rank: int, spec: dict) -> None:
     decisions are reported.  ``spec["trace"]``
     (``{"run": label, "path": ...}``) times one MoE layer at the prefill
     rows under each run's context (:func:`layer_walls`) and traces it under
-    that run's (:func:`trace_moe_layer`)."""
+    that run's (:func:`trace_moe_layer`).  ``spec["continuous"]`` adds a
+    run through the continuous-batching scheduler (:func:`continuous_run`)
+    after the others.  Each run records its engine's decode mode and graph
+    counts (``decode_graph``) and, under a graph, the decode wall of a
+    second call of the same shape, every round a replay
+    (``replay_decode_s``); under a graph (nccl) the dispatch patches
+    see the prefill and the first two decode rounds only, since a replay
+    runs no Python."""
     mesh = init_rank(rank, spec)
     dev = rank_device(rank, spec)
     cfg, prompts = spec["cfg"], spec["prompts"]
@@ -616,21 +685,28 @@ def serve_worker(rank: int, spec: dict) -> None:
             for patch in patches:
                 patch.stop()
         counts = ops.launches()
+        logits = list(engine.step_logits)
+        stats = dict(engine.stats)
+        if stats["decode_graph"]["mode"] == "graph":
+            # the same shape again: every decode round a replay
+            engine.stats.update(prefill_s=0.0, decode_s=0.0)
+            engine.generate(prompts)
+            stats["replay_decode_s"] = engine.stats["decode_s"]
+        engine.close()
         sampled = None
         if spec.get("temperature") and run.get("sample", True):
-            sampled = ServeEngine(
-                model, params, ServeConfig(
-                    max_new_tokens=spec["max_new"],
-                    temperature=spec["temperature"],
-                    cache_dtype=spec["cache_dtype"]),
-                device=dev, pctx=pctx).generate(prompts,
-                                                seed=spec["sample_seed"])
+            hot = ServeEngine(model, params, ServeConfig(
+                max_new_tokens=spec["max_new"],
+                temperature=spec["temperature"],
+                cache_dtype=spec["cache_dtype"]), device=dev, pctx=pctx)
+            sampled = hot.generate(prompts, seed=spec["sample_seed"])
+            hot.close()
         whole, occupied = pod_send_bytes(record["state"],
                                          record["row_bytes"])
         base, mw = cl.dispatch_pod_bytes(
             record["ids"], record["state"].cfg, record["state"].mesh,
             record["row_bytes"], elem_bytes=1)
-        refs[label] = (out, list(engine.step_logits))
+        refs[label] = (out, logits)
         against = run.get("twin", run_label(runs[0]))
         equal, gap = _near_ties(mine, out, *refs[against])
         results["runs"][label] = {
@@ -638,10 +714,11 @@ def serve_worker(rank: int, spec: dict) -> None:
             "plan": (pctx.execution_plan.fingerprint
                      if pctx.execution_plan is not None else None),
             "tokens": out, "launches": counts,
-            "prefill_s": engine.stats["prefill_s"],
-            "decode_s": engine.stats["decode_s"],
-            "nonfinite_logits": engine.stats["nonfinite_logits"],
-            "prefill_logits": engine.step_logits[0],
+            "prefill_s": stats["prefill_s"],
+            "decode_s": stats["decode_s"],
+            "replay_decode_s": stats.get("replay_decode_s"),
+            "nonfinite_logits": stats["nonfinite_logits"],
+            "prefill_logits": logits[0],
             "vs": {"run": against, "rows_equal": equal, "rows": len(mine),
                    "widest_gap": gap},
             "pod_bytes": {"whole": whole, "occupied": occupied},
@@ -650,7 +727,11 @@ def serve_worker(rank: int, spec: dict) -> None:
             "expert_load": torch.bincount(
                 record["ids"].reshape(-1).long(),
                 minlength=cfg.num_experts).cpu().numpy(),
-            "pod": mesh.coords["pod"], "packs": packs, "sampled": sampled}
+            "pod": mesh.coords["pod"], "packs": packs, "sampled": sampled,
+            "decode_graph": dict(stats["decode_graph"])}
+    if spec.get("continuous"):
+        results["continuous"] = continuous_run(mesh, spec, params, dev,
+                                               fabric)
     if dev.type == "cuda":
         results["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     if spec.get("trace"):

@@ -38,6 +38,18 @@ built; rank 0 prints the plan.  Without ``--fabric`` the nccl ranks time
 their link and plan on it; gloo ranks plan on the reference's mesh-derived
 TPU fabric and say so.
 ``--plan-policy fixed`` runs the hierarchical pair at one chunk.
+
+``--continuous`` drains a seeded open-loop Poisson stream (``--requests``
+at ``--arrival-rate`` a second of the scheduler's virtual clock) through
+the continuous-batching scheduler under planner admission, ``--prompts``
+requests in flight at most, instead of one batched ``generate``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \
+      --device cpu --smoke --continuous --requests 8 --prompt-len 16 \
+      --max-new 4
+
+Decode runs as a CUDA graph per cohort shape on the card (eager on the CPU
+and over gloo); the last lines say which, and count captures and replays.
 """
 
 from __future__ import annotations
@@ -159,6 +171,92 @@ def planning_fabric(pctx, cfg: ModelConfig, args, device) -> str | None:
     return spec
 
 
+def serve_continuous(args, cfg: ModelConfig, engine: ServeEngine,
+                     pctx) -> dict:
+    """Drain a seeded Poisson arrival stream through the continuous-
+    batching scheduler against the live engine, under planner admission;
+    returns the scheduler's report.  Without a ``pctx`` the admission
+    probe scores on ``--fabric`` (default ``2x8``)."""
+    from repro_torch.serving import (AdmissionController, BatchScheduler,
+                                     PlannerProbe, RequestQueue,
+                                     TrafficConfig, TrafficGenerator)
+
+    itemsize = 4 if args.smoke else 2
+    probe = engine.plan_probe(itemsize)
+    if probe is None:
+        probe = PlannerProbe(
+            get_fabric(args.fabric or "2x8"),
+            token_bytes=cfg.d_model * itemsize,
+            num_experts=getattr(cfg, "num_experts", 0) or 64,
+            top_k=getattr(cfg, "top_k", 0) or 8)
+    xover = probe.crossover_batch()
+    anchor = int(xover) if xover != float("inf") else max(1, args.prompts)
+    tpot_slo_s = (args.tpot_slo_us * 1e-6 if args.tpot_slo_us
+                  else probe.decode_step_s(anchor) * 1.15)
+    ttft_slo_s = (args.ttft_slo_us * 1e-6 if args.ttft_slo_us else 0.08)
+    queue = RequestQueue()
+    traffic = TrafficConfig(
+        arrival_rate_rps=args.arrival_rate, num_requests=args.requests,
+        prompt_lens=(args.prompt_len,), max_news=(args.max_new,),
+        vocab=cfg.vocab, seed=args.seed)
+    for req in TrafficGenerator(traffic).requests():
+        queue.push(req)
+    admission = AdmissionController(
+        probe, capacity=args.prompts, policy="planner",
+        tpot_slo_s=tpot_slo_s, ttft_slo_s=ttft_slo_s)
+    sched = BatchScheduler(
+        queue=queue, admission=admission, engine=engine, probe=probe,
+        binder=engine.plan_binder if pctx is not None else None,
+        plan_for_bucket=lambda b: engine.bucket_plan(b, args.prompt_len),
+        eos_id=None, seed=args.seed)
+    sched.run_until_drained()
+    if pctx is None or pctx.mesh.rank == 0:
+        print(f"continuous serving: capacity {args.prompts}, crossover "
+              f"batch {anchor if xover != float('inf') else 'none'}, TPOT "
+              f"SLO {tpot_slo_s * 1e6:.0f}us, TTFT SLO "
+              f"{ttft_slo_s * 1e3:.0f}ms")
+    rep = sched.report(ttft_slo_s=ttft_slo_s, tpot_slo_s=tpot_slo_s)
+    rep["wall"] = dict(sched.wall)
+    return rep
+
+
+def print_plans(plans: dict) -> None:
+    """The reference launcher's lines for ``engine.stats["plans"]``."""
+    for phase, per_op in plans.items():
+        if phase == "execution_plan":
+            print(f"execution plan fingerprint: {per_op}")
+        elif phase == "stale":
+            print(f"bound plan stale: {per_op}")
+        elif phase == "planner":
+            print(f"planner: {'/'.join(per_op['search'])} search, "
+                  f"{per_op['combos_scored']}/{per_op['product']} "
+                  f"combination(s) scored across {per_op['phases']} "
+                  f"phase(s) in {per_op['planning_wall_s'] * 1e3:.1f}ms")
+        elif phase == "phases":
+            for ph, rep in per_op.items():
+                line = (f"phase[{ph}]: {rep['score_s'] * 1e6:.1f}us "
+                        f"(contention +{rep['contention_s'] * 1e6:.1f}us)")
+                if rep.get("budget_s"):
+                    line += (f", budget {rep['budget_s'] * 1e6:.0f}us "
+                             f"{'ok' if rep.get('budget_ok') else 'VIOLATED'}")
+                print(line)
+        else:
+            for op, rep in per_op.items():
+                if rep:
+                    print(f"planner[{phase}/{op}]: {rep['plan']} "
+                          f"predicted={rep['predicted_us']:.1f}us "
+                          f"vs baseline={rep['baseline_us']:.1f}us "
+                          f"({rep['speedup_pct']:+.1f}%)")
+
+
+def graph_line(stats: dict) -> str:
+    """One line for ``engine.stats["decode_graph"]``."""
+    g = stats["decode_graph"]
+    return (f"decode: {g['mode']} ({g['reason']}); {g['captures']} "
+            f"capture(s) in {g['capture_s'] * 1e3:.1f} ms, {g['replays']} "
+            f"replay(s), {g['eager_rounds']} eager round(s)")
+
+
 def make_prompts(cfg: ModelConfig, prompts: int, prompt_len: int,
                  seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
@@ -206,6 +304,27 @@ def main(argv=None) -> dict:
                          "rejects prefill plan combinations whose shared-"
                          "link traffic would push the decode round trip "
                          "past this cap")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching serving tier: seeded open-"
+                         "loop Poisson arrivals drain through the "
+                         "iteration-level scheduler under planner "
+                         "admission (at most --prompts in flight), instead "
+                         "of one batched generate")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="continuous mode: requests in the arrival stream")
+    ap.add_argument("--arrival-rate", type=float, default=100.0,
+                    help="continuous mode: Poisson arrival rate (requests "
+                         "a second of the scheduler's virtual clock)")
+    ap.add_argument("--ttft-slo-us", type=float, default=None,
+                    help="continuous mode: time-to-first-token SLO (us) for "
+                         "admission pressure and the SLO-good count "
+                         "(default 80000)")
+    ap.add_argument("--tpot-slo-us", type=float, default=None,
+                    help="continuous mode: time-per-output-token SLO (us); "
+                         "admission holds the decode batch at the largest "
+                         "size whose predicted step meets it (default: "
+                         "1.15 x the predicted step at the scheme-"
+                         "crossover batch)")
     args = ap.parse_args(argv)
 
     cfg = serve_config(args.arch, layers=args.layers, smoke=args.smoke)
@@ -235,8 +354,37 @@ def main(argv=None) -> dict:
         dtype=torch.float32 if args.smoke else torch.bfloat16,
         seed=args.seed, max_new=args.max_new, temperature=args.temperature,
         pctx=pctx)
+    rank0 = pctx is None or pctx.mesh.rank == 0
+    if args.continuous:
+        rep = serve_continuous(args, cfg, engine, pctx)
+        engine.close()
+        if pctx is not None:
+            dist.destroy_process_group()
+        if rank0:
+            print(f"served {rep['completed']}/{args.requests} request(s) in "
+                  f"{rep['iterations']} iteration(s), horizon "
+                  f"{rep['horizon_s'] * 1e3:.3f}ms, max in-flight "
+                  f"{rep['max_in_flight']}")
+            print(f"TTFT p50/p99 {rep['ttft_p50_s'] * 1e3:.3f}/"
+                  f"{rep['ttft_p99_s'] * 1e3:.3f}ms, TPOT p50/p99 "
+                  f"{rep['tpot_p50_s'] * 1e6:.1f}/"
+                  f"{rep['tpot_p99_s'] * 1e6:.1f}us (virtual clock: the "
+                  f"planner's predicted collective times), queue-wait p99 "
+                  f"{rep['queue_wait_p99_s'] * 1e3:.3f}ms")
+            print(f"admission: holds={rep['admission_holds']} "
+                  f"rejects={sum(rep['admission_rejects'].values())}; plan "
+                  f"prefetches={rep['prefetch_rebinds']} "
+                  f"swaps={rep.get('plan_swaps', 0)} cold retraces="
+                  f"{rep.get('cold_retraces', 0)}; SLO-good "
+                  f"{rep['slo_good']}/{rep['completed']} (goodput "
+                  f"{rep['goodput_rps']:.1f}/s)")
+            print(f"measured walls: prefill {rep['wall']['prefill_s']:.3f} "
+                  f"s, decode {rep['wall']['decode_s']:.3f} s")
+            print(graph_line(engine.stats))
+        return {"report": rep, "decode_graph": engine.stats["decode_graph"]}
     prompts = make_prompts(cfg, args.prompts, args.prompt_len, args.seed)
     out = engine.generate(prompts)
+    engine.close()
     if pctx is not None:
         dist.destroy_process_group()
     st = engine.stats
@@ -248,9 +396,12 @@ def main(argv=None) -> dict:
         "shape": list(out.shape), "prefill_s": st["prefill_s"],
         "decode_s": st["decode_s"], "tokens": st["tokens"],
         "nonfinite_logits": st["nonfinite_logits"],
+        "decode_graph": st["decode_graph"],
         "first_tokens": out[:, :8].tolist(),
     }
-    if pctx is None or pctx.mesh.rank == 0:
+    if rank0:
+        print_plans(st.get("plans", {}))
+        print(graph_line(st))
         print(json.dumps(result))
     return result
 

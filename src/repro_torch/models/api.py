@@ -6,6 +6,8 @@
   init(generator)                -> params (the family's ``nn.Module``)
   prefill(params, batch, cache)  -> (next-token logits [B, V], cache)
   decode(params, batch, cache)   -> (logits [B, V], cache)
+  decode_step(params, batch, cache) -> the same, leaving the cache's host
+                                    length alone (what a CUDA graph holds)
   init_cache(batch, max_len)     -> per-layer KV buffers or recurrent states
 
 Batches: ``{"tokens": [B, S] int}`` for prefill, ``{"tokens": [B, 1]}`` for
@@ -97,6 +99,18 @@ class Model:
         return logits[:, 0], cache
 
     def decode(self, params, batch: dict, cache: dict):
+        """One decode token (:meth:`decode_step`), then the cache's host
+        length advanced.  Raises on a full KV cache (on the card a write
+        past its end would be a device-side fault)."""
+        check_room(cache)
+        logits, cache = self.decode_step(params, batch, cache)
+        cache["len"] += 1
+        return logits, cache
+
+    def decode_step(self, params, batch: dict, cache: dict):
+        """The device work of one decode token: reads the position from
+        the cache's device scalar and advances it, and reads nothing of
+        the host, so a CUDA graph of it replays at any position."""
         x = self._embed(params, batch["tokens"])
         fam = self.cfg.family
         if fam in ("hybrid", "rwkv"):
@@ -108,6 +122,14 @@ class Model:
             logits, cache = T.decode_step(params, self.cfg, x, cache,
                                           self.pctx)
         return logits[:, 0], cache
+
+
+def check_room(cache: dict) -> None:
+    """Raise when a decode cache has no room for one more token's k, v."""
+    kv = cache.get("k")
+    if kv and cache["len"] >= kv[0].shape[1]:
+        raise ValueError(f"decode cache full: {cache['len']} of "
+                         f"{kv[0].shape[1]} positions")
 
 
 def build_model(cfg: ModelConfig, *, device=None,

@@ -162,26 +162,36 @@ def attention(p: Attention, x, positions, dims: AttnDims, *, causal=True,
     return (out, (k, v)) if return_kv else out
 
 
-def decode_attention_block(p: Attention, x, cache_k, cache_v, cur_len: int,
-                           dims: AttnDims, *, window=None, softcap=None,
-                           rope_theta=1e4):
-    """Single-token decode.  x: [B, 1, D]; cache_[kv]: [B, Smax, G, dh];
-    cur_len: tokens already in the cache.
+def position(device) -> torch.Tensor:
+    """A decode cache's filled length on the device: an int64 scalar."""
+    return torch.zeros((), dtype=torch.int64, device=device)
 
-    The new k, v are written into the caches IN PLACE at ``cur_len`` (the
-    reference returns updated caches from ``dynamic_update_slice``).
-    Returns out [B, 1, D]."""
+
+def decode_attention_block(p: Attention, x, cache_k, cache_v,
+                           pos: torch.Tensor, dims: AttnDims, *, window=None,
+                           softcap=None, rope_theta=1e4):
+    """Single-token decode.  x: [B, 1, D]; cache_[kv]: [B, Smax, G, dh];
+    pos: int64 scalar tensor on x's device, the tokens already in the
+    cache.
+
+    The position is read on the device only (RoPE, the cache write, the
+    mask bound), so a captured step stays right when it is replayed at a
+    later position.  The new k, v are written into the caches IN PLACE at
+    ``pos`` (the reference returns updated caches from
+    ``dynamic_update_slice``), and attention masks over the whole cache by
+    comparison, so every shape is static.  Returns out [B, 1, D]."""
     b = x.shape[0]
     h, g, dh = dims.n_heads, dims.n_kv, dims.d_head
     q = (x @ p.wq).reshape(b, 1, h, dh)
     k = (x @ p.wk).reshape(b, 1, g, dh)
     v = (x @ p.wv).reshape(b, 1, g, dh)
-    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, rope_theta)
-    k = apply_rope(k, pos, rope_theta)
-    cache_k[:, cur_len] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, cur_len] = v[:, 0].to(cache_v.dtype)
-    o = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len=cur_len + 1,
+    positions = pos.expand(b, 1)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    at = pos.view(1)
+    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+    o = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len=pos + 1,
                              softcap=softcap, window=window)
     return o.reshape(b, 1, h * dh).to(x.dtype) @ p.wo
 

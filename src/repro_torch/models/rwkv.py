@@ -198,6 +198,7 @@ def rwkv6_init_state(cfg: ModelConfig, batch: int, *, device,
                               device=device),
         "wkv": torch.zeros((n, batch, heads, dk, dk), dtype=torch.float32,
                            device=device),
+        "pos": L.position(device),
         "len": 0,
     }
 
@@ -216,13 +217,15 @@ def rwkv6_prefill(params: RWKV6, cfg: ModelConfig, x, cache: dict):
         cache["tshift"][li] = tsh.to(cache["tshift"].dtype)
         cache["cshift"][li] = csh.to(cache["cshift"].dtype)
         cache["wkv"][li] = wkv.reshape(b, heads, dk, dk)
+    cache["pos"].fill_(x.shape[1])
     cache["len"] = x.shape[1]
     return params.final_norm(x), cache
 
 
 def rwkv6_decode_step(params: RWKV6, cfg: ModelConfig, x, cache: dict):
-    """One token; states updated in place.  x [B, 1, D].  Returns
-    (final-normed hidden [B, 1, D], cache)."""
+    """One token; states and the device position updated in place (the
+    host ``len`` is the caller's).  x [B, 1, D].  Returns (final-normed
+    hidden [B, 1, D], cache)."""
     x = params.ln_in(x)
     for li, lp in enumerate(params.layers):
         t, tsh, wkv = time_mix_decode(lp, lp.ln1(x), cache["tshift"][li],
@@ -233,5 +236,5 @@ def rwkv6_decode_step(params: RWKV6, cfg: ModelConfig, x, cache: dict):
         cache["tshift"][li] = tsh.to(cache["tshift"].dtype)
         cache["cshift"][li] = csh.to(cache["cshift"].dtype)
         cache["wkv"][li] = wkv
-    cache["len"] += 1
+    cache["pos"].add_(1)
     return params.final_norm(x), cache

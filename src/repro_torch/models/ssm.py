@@ -208,6 +208,7 @@ def zamba2_init_state(cfg: ModelConfig, batch: int, max_len: int, *,
               for _ in range(n_shared)],
         "v": [torch.zeros(kv_shape, dtype=dtype, device=device)
               for _ in range(n_shared)],
+        "pos": L.position(device),
         "len": 0,
     }
 
@@ -238,14 +239,16 @@ def zamba2_prefill(params: Zamba2, cfg: ModelConfig, x, cache: dict):
             cache["k"][si][:, :s] = k.to(cache["k"][si].dtype)
             cache["v"][si][:, :s] = v.to(cache["v"][si].dtype)
             si += 1
+    cache["pos"].fill_(s)
     cache["len"] = s
     return params.final_norm(x), cache
 
 
 def zamba2_decode_step(params: Zamba2, cfg: ModelConfig, x, cache: dict):
-    """One token through the hybrid stack; caches updated in place.
-    x [B, 1, D].  Returns (final-normed hidden [B, 1, D], cache)."""
-    cur = cache["len"]
+    """One token through the hybrid stack; caches and the device position
+    updated in place (the host ``len`` is the caller's).  x [B, 1, D].
+    Returns (final-normed hidden [B, 1, D], cache)."""
+    pos = cache["pos"]
     si = 0
     for li, lp in enumerate(params.mamba):
         y, conv_tail, ssd = mamba2_block_decode(
@@ -255,10 +258,10 @@ def zamba2_decode_step(params: Zamba2, cfg: ModelConfig, x, cache: dict):
         cache["ssd"][li] = ssd
         if _shared_after(li, cfg):
             a = T._decode_attn(params.shared, x, cache["k"][si],
-                               cache["v"][si], cur, cfg, window=None)
+                               cache["v"][si], pos, cfg, window=None)
             x = x + a
             f = T._ffn_part(params.shared, x, cfg)
             x = x + f
             si += 1
-    cache["len"] = cur + 1
+    pos.add_(1)
     return params.final_norm(x), cache

@@ -209,10 +209,10 @@ def _ffn_part(lp: Block, x, cfg, pctx=None):
     return out
 
 
-def _decode_attn(lp: Block, x, ck, cv, cur: int, cfg, *, window):
+def _decode_attn(lp: Block, x, ck, cv, pos, cfg, *, window):
     h = lp.ln1(x)
     return L.decode_attention_block(
-        lp.attn, h, ck, cv, cur, _dims(cfg), window=window,
+        lp.attn, h, ck, cv, pos, _dims(cfg), window=window,
         softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
 
 
@@ -228,7 +228,9 @@ def logits_fn(params: Transformer, cfg, x, last_only=False):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                dtype=torch.bfloat16):
-    """Per-layer KV buffers [B, max_len, G, dh] and the filled length."""
+    """Per-layer KV buffers [B, max_len, G, dh] and the filled length, as
+    an int64 scalar on the device (``pos``, what decode reads) and as a
+    host int (``len``, bookkeeping)."""
     g, dh = cfg.n_kv_heads, cfg.head_dim
     shape = (batch, max_len, g, dh)
     return {
@@ -236,6 +238,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
               for _ in range(cfg.n_layers)],
         "v": [torch.zeros(shape, dtype=dtype, device=device)
               for _ in range(cfg.n_layers)],
+        "pos": L.position(device),
         "len": 0,
     }
 
@@ -255,22 +258,24 @@ def prefill(params: Transformer, cfg, x, positions, cache, pctx=None):
         x = x + f
         cache["k"][i][:, :seq] = k.to(cache["k"][i].dtype)
         cache["v"][i][:, :seq] = v.to(cache["v"][i].dtype)
+    cache["pos"].fill_(seq)
     cache["len"] = seq
     x = params.final_norm(x)
     return logits_fn(params, cfg, x, last_only=True), cache
 
 
 def decode_step(params: Transformer, cfg, x, cache, pctx=None):
-    """One decode token.  x: [B, 1, D] hidden input; the caches are
-    updated in place.  Returns (logits [B, 1, V], cache)."""
+    """One decode token.  x: [B, 1, D] hidden input; the caches and the
+    device position are updated in place (the host ``len`` is the
+    caller's: ``Model.decode``).  Returns (logits [B, 1, V], cache)."""
     wins = window_schedule(cfg, cfg.n_layers)
-    cur = cache["len"]
+    pos = cache["pos"]
     for i, lp in enumerate(params.blocks):
-        a = _decode_attn(lp, x, cache["k"][i], cache["v"][i], cur, cfg,
+        a = _decode_attn(lp, x, cache["k"][i], cache["v"][i], pos, cfg,
                          window=None if wins is None else wins[i])
         x = x + a
         f = _ffn_part(lp, x, cfg, pctx)
         x = x + f
-    cache["len"] = cur + 1
+    pos.add_(1)
     x = params.final_norm(x)
     return logits_fn(params, cfg, x, last_only=True), cache

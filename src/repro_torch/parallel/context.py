@@ -17,6 +17,10 @@ explicit ``fabric`` or, without one, on the reference's mesh-derived
 topology, so that both packages give the same plans for the same inputs.
 Telemetry calibration (queue 1 item 7) and tensor parallelism (item 6) are
 later slices of the port; asking for either raises.
+
+:class:`PlanBinder` is a verbatim copy of the reference's (``repro.`` read
+as ``repro_torch.``): the serving engine's double-buffered plan binding,
+whose artifacts are the port's lowerings (``runtime/server.py``).
 """
 
 from __future__ import annotations
@@ -375,3 +379,140 @@ def build_collective_program(cfg, pctx: ParallelContext, name: str,
                 sites.append(gs)
     return plan_ir.CollectiveProgram(name, tuple(sites),
                                      phase_budgets=dict(phase_budgets or {}))
+
+
+class PlanBinder:
+    """Double-buffered :class:`~repro_torch.core.plan.ExecutionPlan` binding
+    with a traced-lowering cache keyed on plan fingerprint — the hot
+    re-bind mechanic that turns plan churn into a runtime non-event
+    (ROADMAP: millions-of-users path).
+
+    ``trace_fn(plan)`` builds the traced/lowered artifact that executes
+    under ``plan`` (e.g. jitted prefill/decode closures over the bound
+    context).  The binder keeps two buffers:
+
+    - the **active** (plan, artifact) pair the step loop executes;
+    - a **pending** plan staged by :meth:`stage` — its artifact is built
+      (or found in the cache) at stage time, OFF the step path.
+
+    :meth:`swap_if_pending` is called at step boundaries and is a pure
+    pointer swap when the staged lowering is cached (the invariant the
+    stress soak asserts: zero cold retraces).  A swap whose artifact is
+    missing — evicted, or staged around the cache — builds it AT the
+    swap point and counts it as a cold retrace, so regressions are
+    observable rather than silent.  Re-binding to a previously-seen
+    fingerprint (recovery flipping back to the pre-failure plan) is a
+    cache hit: no retrace at all.
+    """
+
+    def __init__(self, trace_fn, plan=None, *, cache_size: int = 8) -> None:
+        import collections
+        self._trace_fn = trace_fn
+        self._cache: "collections.OrderedDict" = collections.OrderedDict()
+        self.cache_size = max(1, int(cache_size))
+        self.swaps = 0
+        self.cold_retraces = 0
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self._pending = None          # staged plan awaiting a boundary
+        self._active = (None, None)   # (plan, artifact)
+        if plan is not None or trace_fn is not None:
+            # the initial bind traces at construction (startup, not a
+            # swap): the step loop starts with a warm active buffer
+            self._active = (plan, self._build(plan))
+
+    @staticmethod
+    def _key(plan):
+        return plan.fingerprint if plan is not None else None
+
+    @staticmethod
+    def _program(plan) -> str:
+        return plan.program.name if plan is not None else "none"
+
+    def _metrics(self):
+        from repro_torch.telemetry import metrics as _m
+        return _m.default_registry()
+
+    def _build(self, plan):
+        """Artifact for ``plan`` through the fingerprint-keyed cache."""
+        key = self._key(plan)
+        if key in self._cache:
+            self._cache.move_to_end(key)
+            self.cache_hits += 1
+            self._metrics()["repro_lowering_cache_hits_total"].inc(
+                program=self._program(plan))
+            return self._cache[key]
+        self.cache_misses += 1
+        self._metrics()["repro_lowering_cache_misses_total"].inc(
+            program=self._program(plan))
+        art = self._trace_fn(plan)
+        self._cache[key] = art
+        while len(self._cache) > self.cache_size:
+            self._cache.popitem(last=False)
+        return art
+
+    @property
+    def plan(self):
+        return self._active[0]
+
+    @property
+    def artifact(self):
+        return self._active[1]
+
+    @property
+    def pending(self) -> bool:
+        return self._pending is not None
+
+    def stage(self, plan) -> bool:
+        """Stage ``plan`` for the next step boundary, building its
+        lowering NOW (double-buffered: the active plan keeps serving
+        while the replacement traces).  Returns False when ``plan`` is
+        already active with nothing pending — there is nothing to swap."""
+        if self._pending is None and self._key(plan) == \
+                self._key(self._active[0]):
+            return False
+        self._build(plan)
+        self._pending = plan
+        return True
+
+    def prefetch(self, plan) -> bool:
+        """Warm the traced-lowering cache for ``plan`` WITHOUT staging a
+        swap — the serving tier's batch-bucket prefetch.  The
+        neighboring bucket's lowering is built here, off the step path,
+        so a later :meth:`stage` + :meth:`swap_if_pending` when the
+        decode batch grows across the bucket boundary is a pure pointer
+        flip (mirroring the failover swap).  Returns True when this
+        call built the artifact; False when it was already cached (or
+        already active)."""
+        key = self._key(plan)
+        if key == self._key(self._active[0]) or key in self._cache:
+            return False
+        self._build(plan)
+        self._metrics()["repro_plan_prefetch_total"].inc(
+            program=self._program(plan))
+        return True
+
+    def swap_if_pending(self) -> bool:
+        """Make the staged plan active (call between steps).  A pure
+        pointer swap when the staged lowering is cached; a cache miss
+        here IS the cold retrace the double-buffering exists to avoid,
+        and is counted as such."""
+        if self._pending is None:
+            return False
+        plan = self._pending
+        self._pending = None
+        key = self._key(plan)
+        if key in self._cache:
+            self._cache.move_to_end(key)
+            art = self._cache[key]
+        else:
+            self.cold_retraces += 1
+            self._metrics()["repro_rebind_cold_retrace_total"].inc(
+                program=self._program(plan))
+            art = self._build(plan)
+        self._active = (plan, art)
+        self.swaps += 1
+        self._metrics()["repro_plan_rebind_total"].inc(
+            program=self._program(plan),
+            fingerprint=(plan.fingerprint if plan is not None else "none"))
+        return True

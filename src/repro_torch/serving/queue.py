@@ -1,17 +1,17 @@
-"""Request lifecycle + the deadline-class-aware admission queue (own copy
-of the reference's ``repro/serving/queue.py``).
+"""Request lifecycle + the deadline-class-aware admission queue.
 
-A :class:`Request` carries its whole serving lifecycle in the scheduler's
-clock (seconds; the port's engine-mode scheduler advances it by measured
-phase walls): arrival, admission (queue exit), first token (TTFT) and
-finish — the quantities the per-request SLO classes cut.
+A :class:`Request` carries its whole serving lifecycle in virtual time
+(seconds on the scheduler's clock, never the wall): arrival, admission
+(queue exit), first token (TTFT) and finish — the quantities the
+per-request SLO classes and the serving histograms cut.
 
 :class:`RequestQueue` is an arrival-time-gated priority FIFO: only
 requests whose ``arrival_s`` has passed are visible, and within the
 visible set the deadline classes pop in priority order
 (``interactive`` before ``standard`` before ``batch``), FIFO inside a
 class.  The queue never drops — backpressure is the admission
-controller's job.
+controller's job, and the stress soak asserts a dark rail drains the
+queue without losing a request.
 """
 
 from __future__ import annotations
@@ -115,6 +115,11 @@ class RequestQueue:
 
     def ready_count(self, now: float) -> int:
         return sum(1 for r in self._pending if r.arrival_s <= now)
+
+    def oldest_wait_s(self, now: float) -> float:
+        waits = [now - r.arrival_s for r in self._pending
+                 if r.arrival_s <= now]
+        return max(waits) if waits else 0.0
 
     def next_arrival_s(self, now: Optional[float] = None) -> Optional[float]:
         """Earliest future arrival (or earliest at all when ``now`` is

@@ -292,3 +292,138 @@ def test_moe_pipeline_on_its_own_stream_matches_serial_on_card(g):
     torch.testing.assert_close(yg.cpu(), yc, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(ag.cpu(), ac, atol=1e-5, rtol=1e-5)
     assert torch.isfinite(a1)
+
+
+# ---------------------------------------------------------------------------
+# decode as a CUDA graph (runtime/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_NEW = 6           # new tokens: one eager round, a capture, 3 more
+
+
+# small configs at the kernels' widths (head_dim 128 / 112, scan heads of
+# 64), as chip_smoke.py's phase 4 sizes them
+SMALL = {
+    "dbrx_132b": dict(d_model=512, n_heads=4, n_kv_heads=2, d_ff=256,
+                      vocab=1024, num_experts=8, top_k=2),
+    "zamba2_7b": dict(n_layers=4, d_model=448, n_heads=4, n_kv_heads=4,
+                      d_ff=512, vocab=1024, ssm_state=64, ssm_head_dim=64,
+                      shared_attn_every=2),
+    "rwkv6_7b": dict(n_layers=2, d_model=512, d_ff=1024, vocab=1024,
+                     rwkv_head_dim=64, rwkv_decay_lora=64),
+}
+
+
+def _graph_engine(arch):
+    """A small model of ``arch`` in bf16 on the card, in an engine."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import build_engine
+    cfg = get_config(arch).reduced(**SMALL[arch])
+    return build_engine(cfg, device="cuda", dtype=torch.bfloat16, seed=0,
+                        max_new=GRAPH_NEW)
+
+
+def _eager_tokens(engine, prompts):
+    """Greedy tokens and logits of the model's own prefill and decode on a
+    fresh cache (no engine, no graph)."""
+    model, params = engine.model, engine.params
+    logits_kept, toks = [], []
+    with torch.inference_mode():
+        cache = model.init_cache(len(prompts), prompts.shape[1] + GRAPH_NEW)
+        logits, _ = model.prefill(
+            params, {"tokens": torch.from_numpy(prompts).cuda()}, cache)
+        for step in range(GRAPH_NEW):
+            if step:
+                logits, _ = model.decode(
+                    params, {"tokens": tok.to(torch.int32)[:, None]}, cache)
+            tok = torch.argmax(logits, dim=-1)
+            logits_kept.append(logits.float().cpu())
+            toks.append(tok.cpu())
+    return torch.stack(toks, dim=1).numpy(), logits_kept
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dbrx_132b", "zamba2_7b", "rwkv6_7b"])
+def test_decode_graph_equals_eager_on_card(arch):
+    """Graph decode gives the eager loop's greedy tokens; the logits' gap
+    is printed (a replay runs the captured kernels on the same inputs)."""
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.launch.serve import make_prompts
+    engine = _graph_engine(arch)
+    prompts = make_prompts(engine.model.cfg, 4, 16, seed=1)
+    kept = []
+    sample = engine._sample
+    engine._sample = lambda state: (kept.append(state.logits.float().cpu()),
+                                    sample(state))[1]
+    out = engine.generate(prompts)
+    g = engine.stats["decode_graph"]
+    assert (g["mode"], g["captures"], g["replays"], g["eager_rounds"]) == \
+        ("graph", 1, GRAPH_NEW - 2, 1)
+    tokens, logits = _eager_tokens(engine, prompts)
+    gap = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(kept, logits))
+    print(f"{arch}: graph vs eager logits gap {gap:.3e} of max |logit|")
+    np.testing.assert_array_equal(out, tokens)
+    assert gap <= 1e-2
+
+
+@pytest.mark.gpu
+def test_second_cohort_of_a_shape_replays_on_card():
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.launch.serve import make_prompts
+    engine = _graph_engine("zamba2_7b")
+    prompts = make_prompts(engine.model.cfg, 4, 16, seed=2)
+    first = engine.generate(prompts)
+    g = engine.stats["decode_graph"]
+    before = dict(g)
+    np.testing.assert_array_equal(engine.generate(prompts), first)
+    assert g["captures"] == before["captures"] == 1
+    assert g["replays"] - before["replays"] == GRAPH_NEW - 1
+    assert g["eager_rounds"] == before["eager_rounds"]
+    # another shape is a slot, and a capture, of its own
+    engine.generate(prompts[:2])
+    assert g["captures"] == 2
+
+
+@pytest.mark.gpu
+def test_graph_launch_counts_are_exact_on_card():
+    """The dispatch pack's launches of a graphed generate: three a MoE
+    layer in every forward, replays included, the capture not."""
+    _need_cuda()
+    from repro_torch.launch.serve import make_prompts
+    engine = _graph_engine("dbrx_132b")
+    cfg = engine.model.cfg
+    prompts = make_prompts(cfg, 4, 16, seed=3)
+    for _ in range(2):                  # a capture, then replays only
+        ops.reset_launches()
+        engine.generate(prompts)
+        assert ops.launches() == {
+            "dispatch_pack": 3 * cfg.n_layers * GRAPH_NEW,
+            "flash_attention": cfg.n_layers, "mamba2_scan": 0,
+            "rwkv6_scan": 0}
+    assert engine.stats["decode_graph"]["captures"] == 1
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_on_card():
+    """A step that cannot be captured (here: it reads a device value on
+    the host) fails the round that captures it; nothing decodes on
+    eagerly in its place."""
+    _need_cuda()
+    from repro_torch.launch.serve import make_prompts
+    engine = _graph_engine("dbrx_132b")
+    step = engine.model.decode_step
+
+    def syncing_step(params, batch, cache):
+        int(cache["pos"])                   # a host read of the device
+        return step(params, batch, cache)
+    engine.model.decode_step = syncing_step
+    prompts = make_prompts(engine.model.cfg, 2, 16, seed=4)
+    with pytest.raises(RuntimeError):
+        engine.generate(prompts)
+    g = engine.stats["decode_graph"]
+    assert (g["eager_rounds"], g["captures"], g["replays"]) == (1, 0, 0)

@@ -151,8 +151,9 @@ def test_engine_over_ranks_checks_its_context_and_batch(engines):
     divide over the data-parallel ranks raises before any work."""
     cfg, _, teng = engines
 
-    class FourRanks:                   # dp rank 1 of 4
+    class FourRanks:                   # dp rank 1 of 4, no plan bound
         dp_size, dp_index = 4, 1
+        execution_plan = None
 
     pctx = FourRanks()
     with pytest.raises(ValueError, match="ParallelContext"):
