@@ -55,11 +55,20 @@ Phases; any failure raises and the script exits non-zero:
    its ranks as CUDA IPC handles: the three scheme pairs, a planned run
    and its fixed twin, one prompt of 512 tokens a rank, capacity factor 2;
    gates as phase 6's where they apply, plus the pairs each run drops and
-   each rank's memory.
+   each rank's memory;
+8. tensor parallelism over 4 spawned ranks (nccl with a card a rank where
+   there are 4 cards, else gloo on card 0): Mistral-NeMo-12B at full width
+   over (1, 1, 4) at ``tp_subgroups`` 1, 2 fixed and 2 planned, against a
+   one-rank run of the same weights, and the split-TP MultiWrite gather
+   alone at the served fragment; then DBRX (4 layers) over (1, 2, 2) with
+   the experts' TP reduction per expert and deferred.  Within a run every
+   rank's tokens equal, the three Mistral runs bit-identical, near ties
+   against one rank, the gather bit-exact, every pack bit-exact.
 
 Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
 2 x 2 ranks and of one Kimi-K2 prefill layer at 2 x 8 (capacity factors
-2 and 1.25), and attention at Kimi's rank shape (GQA groups of 8).
+2 and 1.25), and attention at Kimi's rank shape (GQA groups of 8) and at
+the tensor-parallel rank shapes of phase 8.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -72,7 +81,11 @@ after the device and build phases;
   python3 chip_smoke.py --kimi-only
 
 runs phase 7 alone after them (on four cards at depth 4 with 32 new
-tokens).
+tokens);
+
+  python3 chip_smoke.py --tp-only
+
+runs phase 8 alone after them (on four cards over nccl, decode graphed).
 """
 
 from __future__ import annotations
@@ -100,7 +113,11 @@ KIMI_CF = 2.0                           # phase 7: capacity factor
 KIMI_PROMPT_LEN = 512                   # phase 7: one prompt a rank
 # phase 7's (depth, new tokens) on one card and on four
 KIMI_DEPTH = {1: (2, 8), 4: (4, 32)}
-RANKS_CF = 4.0                          # phase 6: num_experts / top_k
+RANKS_CF = 4.0                          # phases 6, 8: num_experts / top_k
+TP_MESH = (1, 1, 4)                     # phase 8: pods x data x model
+DBRX_TP_MESH = (1, 2, 2)
+# phase 8's Mistral-NeMo depth on one card and on four
+TP_DEPTH = {1: 40, 4: 40}
 PIPE_G = 4                              # phase 6: chunks of the G > 1 run
 PROMPTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
 # phase 5's continuous DBRX stream: 12 requests of 512 tokens, 8 new each,
@@ -411,6 +428,11 @@ def kernel_phase() -> dict:
         ("zamba2", (4, 32, 32, 512, 512, 112), True, None, None),
         # a Kimi-K2 rank's prefill: one prompt, GQA groups of 8
         ("kimi", (1, 64, 8, 512, 512, 112), True, None, None),
+        # a tensor-parallel rank's prefill: Mistral-NeMo over 4 model ranks
+        # (8 of 32 heads, 2 of 8 kv heads), DBRX over 2 (24 of 48, 4 of 8)
+        # at 2 prompts a data-parallel rank
+        ("mistral-tp4", (4, 8, 2, 512, 512, 128), True, None, None),
+        ("dbrx-tp2", (2, 24, 4, 512, 512, 128), True, None, None),
         ("window", (2, 4, 2, 100, 100, 128), True, 32, None),
         ("softcap", (2, 4, 2, 64, 64, 64), True, None, 30.0),
         ("cross", (2, 4, 1, 40, 72, 128), False, None, None),
@@ -424,6 +446,7 @@ def kernel_phase() -> dict:
         ("window-long", (1, 4, 2, 700, 700, 128), True, 150, None),
     ]
     attn_err = 0.0
+    rank_shapes = {}
     for i, (label, shape, causal, window, softcap) in enumerate(attn_cases):
         q, k, v = attn_inputs(*shape, seed=10 + i)
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -437,7 +460,7 @@ def kernel_phase() -> dict:
               f"{'within' if ok else 'OUTSIDE'} atol=rtol=2e-2")
         if not ok:
             failures.append(f"flash_attention {label}")
-        if label in ("dbrx", "zamba2", "kimi"):
+        if label in ("dbrx", "zamba2", "kimi", "mistral-tp4", "dbrx-tp2"):
             b, hq, g, sq, t, d = shape
             ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw))
             plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
@@ -459,10 +482,10 @@ def kernel_phase() -> dict:
                 attn_err = err
                 fa_ms, fa_plain, fa_lib, fa_bound, fa_by = \
                     ms, plain, lib, bnd, by
-            elif label == "kimi":
-                fa_kimi = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
-                               bound_by=by, library_ms=lib,
-                               max_abs_err=err)
+            elif label != "zamba2":
+                rank_shapes[label] = dict(
+                    shape=list(shape), ms=ms, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by, library_ms=lib, max_abs_err=err)
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
@@ -485,7 +508,7 @@ def kernel_phase() -> dict:
             replaces="src/repro/kernels/flash_attention.py:112",
             max_abs_err=attn_err, ms=fa_ms, plain_ms=fa_plain,
             bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib,
-            kimi_rank=fa_kimi),
+            rank_shapes=rank_shapes),
     }
     return rows
 
@@ -1212,7 +1235,6 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
     import dataclasses
     import tempfile
 
-    import numpy as np
     import torch
 
     from repro_torch.launch import ranks
@@ -1330,18 +1352,9 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
               f"time vs four at once: {shape_rel:.3e}")
         if not rel < REF_TOL:
             failures.append(f"prefill logits off by {rel:.3e}")
-        worst_gap, split_rows = 0.0, 0
-        for row in range(PROMPTS):
-            diff = np.flatnonzero(first[row] != expected[row])
-            if not diff.size:
-                continue
-            split_rows += 1
-            step = int(diff[0])
-            lg = one_logits[step][row]
-            gap = ((lg.max() - lg[int(first[row, step])])
-                   / lg.abs().max()).item()
-            worst_gap = max(worst_gap, gap)
-        print(f"  tokens vs one rank: {PROMPTS - split_rows} of {PROMPTS} "
+        equal, worst_gap = ranks.near_ties(range(PROMPTS), first, expected,
+                                           one_logits)
+        print(f"  tokens vs one rank: {equal} of {PROMPTS} "
               f"rows equal over {MAX_NEW} tokens; rows that part do so at a "
               f"near tie of the one-rank logits, widest gap "
               f"{worst_gap:.3e} of max |logit| (limit {REF_TOL})")
@@ -1514,6 +1527,247 @@ def check_kimi(results: list, runs: list, cfg, max_new: int) -> list:
     if not gap < REF_TOL:
         failures.append(f"planned-fixed: prefill logits off by {gap:.3e}")
     return failures
+
+# ---------------------------------------------------------------------------
+# phase 8: tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+def tp_spec(tmp: str, mesh: tuple, backend: str, cfg, runs: list,
+            **kw) -> dict:
+    """A phase 8 spec for :func:`ranks.serve_worker` over ``mesh``."""
+    import torch
+    pods, ep, tp = mesh
+    return dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
+                backend=backend, device="cuda:0",
+                init_method=f"file://{tmp}/store", timeout_s=300,
+                out_dir=f"{tmp}/out", threads=2, cfg=cfg,
+                dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
+                max_new=MAX_NEW, runs=runs, warmup=True, **kw)
+
+
+def tp_phase() -> dict:
+    """Tensor parallelism over 4 spawned ranks: nccl with a card a rank
+    where there are 4 cards, else gloo with all ranks on card 0.
+
+    Mistral-NeMo-12B at full width over (1, 1, 4), 4 prompts x 512 tokens,
+    32 new, greedy, seed 0 (``TP_DEPTH``: 40 layers on four cards, cut on
+    one card): ``tp_subgroups`` 1 (a plain gather of the sequence at each
+    block), 2 fixed (MultiWrite paired relaying at the analytic split) and
+    2 under ``plan_policy="auto"`` with the serve program's plan bound (the
+    planner's decision for the gather site printed), against a one-rank
+    run of the same weights; and the split-TP gather alone at the served
+    fragment ([4, 128, 5120] bf16 a rank).  Then DBRX-132B (4 layers) over
+    (1, 2, 2), 8 experts a data rank, half of each expert's hidden width a
+    model rank, capacity factor 4, with ``moe_deferred_tp_reduce`` off and
+    on.
+
+    Gates: within a run every rank's tokens equal; the three Mistral runs
+    give the same bits (logits at every step, tokens); their tokens match
+    the one-rank run's up to near ties (phase 6's gate: prefill logits
+    within ``REF_TOL`` of max |logit|, a row parts only at a gap below it);
+    the gather alone bit-exact against the plain ``all_gather`` under every
+    scheme; DBRX's deferred run equals its per-expert run up to near ties,
+    and every pack of the warm-ups is bit-exact; exact launch counts;
+    decode eager over gloo, graphed over nccl (captures and replays
+    counted).  Returns the kernel launches of the measured runs, summed
+    over ranks and runs."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import ranks
+    from repro_torch.launch.serve import make_prompts, serve_config
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.server import ServeConfig
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 4 else "gloo"
+    depth = TP_DEPTH[4 if cards >= 4 else 1]
+    cfg = serve_config("mistral_nemo_12b", layers=depth, smoke=False)
+    where = ("nccl, one card a rank" if backend == "nccl" else
+             "gloo, 4 processes on one card, host-staged transport: the "
+             "walls time the host's copies")
+    print(f"  {cards} card(s): 4 ranks over {where}; Mistral-NeMo-12B at "
+          f"full width, depth {depth} of 40"
+          + ("" if depth == 40 else " (cut on one card to stay within the "
+             "script's time)"))
+    prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
+
+    # the one-rank reference: the same weights (each rank draws every
+    # tensor whole from the same seed and keeps its block)
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    one = ranks.RecordingEngine(model, model.init(gen),
+                                ServeConfig(max_new_tokens=MAX_NEW),
+                                device="cuda")
+    torch.cuda.empty_cache()
+    one.generate(prompts, max_new=2)    # the first call's one-time costs
+    one.step_logits.clear()
+    one.stats.update(prefill_s=0.0, decode_s=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    expected = one.generate(prompts)
+    one_logits = list(one.step_logits)
+    walls = (one.stats["prefill_s"], one.stats["decode_s"])
+    one.stats.update(prefill_s=0.0, decode_s=0.0)
+    one.generate(prompts)               # the same shape: every round replayed
+    print(f"  one rank, after a warm-up call: prefill {walls[0] * 1e3:.3f} "
+          f"ms, decode {walls[1] * 1e3 / (MAX_NEW - 1):.3f} ms/token (a "
+          f"second call, every round replayed: "
+          f"{one.stats['decode_s'] * 1e3 / (MAX_NEW - 1):.3f}); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    one.close()
+    del one, model
+    gc.collect()                        # the engine's binder cycle
+    torch.cuda.empty_cache()
+
+    runs = [dict(label="tp_subgroups=1", tp_subgroups=1),
+            dict(label="tp_subgroups=2 fixed", tp_subgroups=2),
+            dict(label="tp_subgroups=2 auto", tp_subgroups=2, policy="auto",
+                 bind=True)]
+    frag = (PROMPTS, PROMPT_LEN // 4, cfg.d_model)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        results = ranks.run_ranks(ranks.serve_worker, tp_spec(
+            tmp, TP_MESH, backend, cfg, runs, prompts=prompts,
+            gather=dict(shape=frag, reps=5)), timeout_s=900)
+    print(f"  4 ranks spawned, served and joined in "
+          f"{time.monotonic() - t0:.1f} s")
+    failures = check_decode_mode(results, backend)
+    total: dict = {}
+    labels = [run["label"] for run in runs]
+    r0 = results[0]
+    for r in results:
+        mem = r["memory"]
+        print(f"  rank {r['rank']} on {r['device']}: weights "
+              f"{mem['all_gb']:.2f} GB, peak {r['peak_gb']:.2f} GB")
+    g = r0["gather"]
+    print(f"  split-TP gather alone, {g['shape']} bf16 a rank "
+          f"({g['bytes'] / 1e6:.2f} MB), 2 domains of 2: walls ({backend}"
+          f"{', host-staged' if backend == 'gloo' else ''}; median of 5, "
+          f"the slowest rank's) " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in g["wall_ms"].items())
+          + f"; the planner picks {g['plan']} (mode {g['mode']}, split "
+          f"{g['split']})")
+    for r in results:
+        if not all(r["gather"]["exact"].values()):
+            failures.append(f"rank {r['rank']}: gather not bit-exact "
+                            f"{r['gather']['exact']}")
+    want = {"dispatch_pack": 0, "flash_attention": cfg.n_layers,
+            "mamba2_scan": 0, "rwkv6_scan": 0}
+    for label in labels:
+        runs_ = [r["runs"][label] for r in results]
+        run0 = runs_[0]
+        if not all(np.array_equal(run["tokens"], run0["tokens"])
+                   for run in runs_):
+            failures.append(f"{label}: ranks returned different tokens")
+        for r, run in zip(results, runs_):
+            if run["launches"] != want:
+                failures.append(f"{label} rank {r['rank']}: launches "
+                                f"{run['launches']} != {want}")
+            if run["nonfinite_logits"]:
+                failures.append(f"{label} rank {r['rank']}: non-finite")
+            for name, n in run["launches"].items():
+                total[name] = total.get(name, 0) + n
+        if label != labels[0]:
+            same = all(run["same_logits"] for run in runs_) and \
+                np.array_equal(run0["tokens"], r0["runs"][labels[0]]["tokens"])
+            print(f"    {label} vs {labels[0]}: logits at every step and "
+                  f"tokens {'bit-identical' if same else 'DIFFER'}")
+            if not same:
+                failures.append(f"{label}: not the bits of {labels[0]}")
+        st = max(runs_, key=lambda run: run["prefill_s"])
+        line = (f"  {label}: prefill {st['prefill_s'] * 1e3:.3f} ms, decode "
+                f"{st['decode_s'] * 1e3 / (MAX_NEW - 1):.3f} ms/token (the "
+                f"slowest rank's)")
+        if st["replay_decode_s"] is not None:
+            line += (f"; a second call, every round replayed: "
+                     f"{st['replay_decode_s'] * 1e3 / (MAX_NEW - 1):.3f} "
+                     f"ms/token")
+        g = run0["decode_graph"]
+        line += (f"; decode {g['mode']}: {g['captures']} captures, "
+                 f"{g['replays']} replays, {g['eager_rounds']} eager rounds")
+        decision = run0["split_tp"]
+        if decision:
+            line += (f"; gather site planned: {decision['plan']} predicted "
+                     f"{decision['predicted_us']:.1f} us vs baseline "
+                     f"{decision['baseline_us']:.1f} us")
+        print(line)
+        if label.endswith("auto") and decision is None:
+            failures.append(f"{label}: no split-TP gather decision")
+    ranked = r0["runs"][labels[0]]
+    ref = one_logits[0]
+    rel = ((ranked["prefill_logits"] - ref).abs().max()
+           / ref.abs().max()).item()
+    equal, gap = ranks.near_ties(range(PROMPTS), ranked["tokens"], expected,
+                                 one_logits)
+    print(f"  4 ranks vs one: last-position prefill logits {rel:.3e} of max "
+          f"|logit| (limit {REF_TOL}); {equal} of {PROMPTS} rows' tokens "
+          f"equal over {MAX_NEW}; a row parts at a gap of {gap:.3e} at most "
+          f"(limit {REF_TOL})")
+    if not rel < REF_TOL or gap > REF_TOL:
+        failures.append(f"4 ranks vs one: logits {rel:.3e}, gap {gap:.3e}")
+    del results
+    gc.collect()
+
+    # DBRX, 4 layers, over (1, 2, 2): TP inside the experts
+    dbrx = dataclasses.replace(serve_config("dbrx_132b", layers=4,
+                                            smoke=False), moe_capacity=RANKS_CF)
+    runs = [dict(label="per-expert all_reduce", deferred=False),
+            dict(label="deferred all_reduce", deferred=True)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        results = ranks.run_ranks(ranks.serve_worker, tp_spec(
+            tmp, DBRX_TP_MESH, backend, dbrx, runs,
+            prompts=make_prompts(dbrx, PROMPTS, PROMPT_LEN, seed=0)),
+            timeout_s=900)
+    print(f"  DBRX-132B, 4 layers, over (1, 2, 2), capacity factor "
+          f"{RANKS_CF}: 4 ranks spawned, served and joined in "
+          f"{time.monotonic() - t0:.1f} s")
+    failures += check_decode_mode(results, backend)
+    moe_layers = dbrx.n_layers - dbrx.first_k_dense
+    want = {"dispatch_pack": moe_layers * 3 * MAX_NEW,
+            "flash_attention": dbrx.n_layers, "mamba2_scan": 0,
+            "rwkv6_scan": 0}
+    for run in runs:
+        label = run["label"]
+        runs_ = [r["runs"][label] for r in results]
+        run0 = runs_[0]
+        if not all(np.array_equal(x["tokens"], run0["tokens"])
+                   for x in runs_):
+            failures.append(f"{label}: ranks returned different tokens")
+        packs = [p for x in runs_ for p in x["packs"]]
+        exact = all(p[-1] for p in packs)
+        if not packs or not exact:
+            failures.append(f"{label}: packs {len(packs)}, bit-exact {exact}")
+        for r, x in zip(results, runs_):
+            if x["launches"] != want or x["resolved"]["prefill"] != (
+                    "hierarchical", "hierarchical", 1):
+                failures.append(f"{label} rank {r['rank']}: launches "
+                                f"{x['launches']} != {want}, resolved "
+                                f"{x['resolved']}")
+            for name, n in x["launches"].items():
+                total[name] = total.get(name, 0) + n
+        st = max(runs_, key=lambda x: x["prefill_s"])
+        line = (f"  {label}: prefill {st['prefill_s'] * 1e3:.3f} ms, decode "
+                f"{st['decode_s'] * 1e3 / (MAX_NEW - 1):.3f} ms/token; "
+                f"{len(packs)} packs of the warm-ups, "
+                f"{'all bit-exact' if exact else 'NOT bit-exact'}; peak "
+                f"{max(r['peak_gb'] for r in results):.2f} GB a rank")
+        if label != runs[0]["label"]:
+            equal = sum(x["vs"]["rows_equal"] for x in runs_) // 2
+            gap = max(x["vs"]["widest_gap"] for x in runs_)
+            line += (f"; tokens vs {runs[0]['label']}: {equal} of {PROMPTS} "
+                     f"rows equal, widest near-tie gap {gap:.3e} (limit "
+                     f"{REF_TOL})")
+            if gap > REF_TOL:
+                failures.append(f"{label}: a token parts {gap:.3e} below")
+        print(line)
+    if failures:
+        raise AssertionError(f"phase 8: {failures}")
+    return total
 
 
 def report_planner(results: list, world: int) -> list:
@@ -1776,6 +2030,8 @@ def main(argv=None) -> None:
     ap.add_argument("--kimi-only", action="store_true",
                     help="phases 1, 2 and 7 only (on four cards: depth 4 "
                          "and 32 new tokens)")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="phases 1, 2 and 8 only (on four cards: nccl)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1795,9 +2051,13 @@ def main(argv=None) -> None:
     depth, kimi_new = KIMI_DEPTH[4 if torch.cuda.device_count() >= 4 else 1]
     kimi_title = (f"phase 7: Kimi-K2-1T over 2 pods x 8 ep ranks, depth "
                   f"{depth}")
+    tp_title = "phase 8: tensor parallelism, Mistral-NeMo-12B over (1, 1, 4)"
     if args.kimi_only:
         print(kimi_title)
         kimi_phase(depth, kimi_new)
+    elif args.tp_only:
+        print(tp_title)
+        tp_phase()
     elif args.ranks_only:
         for i, cf in enumerate(args.ranks_only):
             print(f"phase 6: DBRX over 2 pods x 2 ep ranks, capacity factor "
@@ -1819,6 +2079,8 @@ def main(argv=None) -> None:
         by_path["dbrx_132b_2x2_ranks"] = ranks_phase()
         print(kimi_title)
         by_path["kimi_k2_1t_2x8_ranks"] = kimi_phase(depth, kimi_new)
+        print(tp_title)
+        by_path["tp_ranks"] = tp_phase()
 
         for name, row in rows.items():
             row["launches"] = sum(c[name] for c in by_path.values())

@@ -112,10 +112,12 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
-ARCH_IDS = ["dbrx_132b", "kimi_k2_1t", "zamba2_7b", "rwkv6_7b"]
+ARCH_IDS = ["dbrx_132b", "kimi_k2_1t", "mistral_nemo_12b", "zamba2_7b",
+            "rwkv6_7b"]
 
 # canonical dash-style aliases
 ALIASES = {"dbrx-132b": "dbrx_132b", "kimi-k2-1t-a32b": "kimi_k2_1t",
+           "mistral-nemo-12b": "mistral_nemo_12b",
            "kimi-k2-1t": "kimi_k2_1t", "zamba2-7b": "zamba2_7b",
            "rwkv6-7b": "rwkv6_7b"}
 

@@ -11,7 +11,9 @@ rounded once to ``dtype``, which gives the values the reference's per-use
 (norms, router, ``A_log``, ``D``, ``dt_bias``, ``w0``, ``wA``, ``wB``,
 ``u``) stays fp32: each module creates those parameters in fp32.  With a
 ``pctx`` the result is one rank's shard: the experts ``[first, first +
-per_rank)`` of each MoE layer, everything else whole.
+per_rank)`` of each MoE layer and, over a model axis, the tensor-parallel
+block of each split parameter (a module's ``shards``), everything else
+whole.
 """
 
 from __future__ import annotations
@@ -41,11 +43,17 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *, device=None,
 
     def put_tree(module: nn.Module, tree: dict) -> None:
         """Each parameter from the tree entry of the same dotted name (the
-        port's modules name their parameters as the reference's keys)."""
+        port's modules name their parameters as the reference's keys), cut
+        to this rank's tensor-parallel block where its module splits it."""
+        shards = {f"{prefix}.{name}".lstrip("."): shard
+                  for prefix, sub in module.named_modules()
+                  for name, shard in getattr(sub, "shards", {}).items()}
         for name, dst in module.named_parameters():
             src = tree
             for key in name.split("."):
                 src = src[key]
+            if name in shards:
+                src = block_of(src, shards[name])
             put(dst, src)
 
     put(params.embed.emb, np_params["embed"]["emb"])
@@ -73,6 +81,15 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *, device=None,
                                     for key, val in tree["moe"].items()}}
         put_tree(blk, tree)
     return params
+
+
+def block_of(src, shard) -> np.ndarray:
+    """Block ``index`` of ``parts`` along ``dim`` of a whole array, for a
+    module's ``shards`` entry ``(dim, parts, index)``."""
+    dim, parts, index = shard
+    src = np.asarray(src)
+    size = src.shape[dim] // parts
+    return src.take(range(index * size, (index + 1) * size), axis=dim)
 
 
 def _tree_index(tree, i: int):

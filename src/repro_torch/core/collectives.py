@@ -1,6 +1,16 @@
-"""MultiWrite MoE dispatch / combine on tensors, over ``torch.distributed``.
+"""MultiWrite collectives on tensors, over ``torch.distributed``.
 
-Port of the MoE half of ``src/repro/core/collectives.py``.  The MultiWrite
+Port of ``src/repro/core/collectives.py``.  The AllGather half (§3.1,
+§5.2) gathers a model-axis-sharded activation within its split-TP domain:
+:func:`multiwrite_allgather` routes part of each fragment over the idle
+cross-domain links, one copy to the same-index partner, which relays it to
+its domain peers, in rounds of one permutation each
+(:meth:`~repro_torch.parallel.mesh.RankMesh.ppermute`);
+:func:`planned_allgather` takes its scheme and split from a planner
+decision; :func:`allgather_reference` is the plain domain ``all_gather``.
+All three return ``[domain_size, *x.shape]``, bit-identical.
+
+The MoE half: the MultiWrite
 dispatch sends ONE copy of each token per destination pod across the slow
 axis (stage 1), relays replicate it inside the pod (stage 2), and each rank
 groups its arrivals per local expert (stage 3); the combine walks the same
@@ -26,6 +36,156 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops
+
+
+# ===========================================================================
+# AllGather over split TP domains (§3.1, §5.2)
+# ===========================================================================
+
+def _domain_groups(n: int, num_domains: int) -> list[list[int]]:
+    d = n // num_domains
+    return [list(range(i * d, (i + 1) * d)) for i in range(num_domains)]
+
+
+def _my_domain(ranks, axis_name: str, num_domains: int) -> list[int]:
+    n = ranks.axis_size(axis_name)
+    me = ranks.axis_index(axis_name)
+    return _domain_groups(n, num_domains)[me // (n // num_domains)]
+
+
+def allgather_reference(x: torch.Tensor, ranks, axis_name: str,
+                        num_domains: int = 2) -> torch.Tensor:
+    """Baseline: all_gather over the local TP domain only (paper §5.2
+    traditional workflow), over the ``RankMesh`` ``ranks``.  Returns
+    [domain_size, *x.shape]."""
+    return ranks.all_gather(x, axis_name,
+                            _my_domain(ranks, axis_name, num_domains))
+
+
+def multiwrite_allgather(x: torch.Tensor, ranks, axis_name: str, *,
+                         num_domains: int = 2, split: float = 0.5,
+                         mode: str = "paired") -> torch.Tensor:
+    """MultiWrite AllGather over a split-TP axis (paper §5.2 optimized).
+
+    The axis of size ``n`` is split into ``num_domains`` equal TP domains
+    (blocked).  Each rank all-gathers within its own domain, but routes a
+    ``1 - split`` fraction of its fragment over the otherwise-idle
+    cross-domain links: ONE copy to the same-index partner (the relay),
+    which replicates to the source's domain peers.  The leading axis of
+    ``x`` is split; ``mode`` is "paired" (the partner relays the whole
+    cross chunk) or "full" (the cross chunk sliced over every
+    opposite-domain rank).  Returns [domain_size, *x.shape], bit-identical
+    to :func:`allgather_reference`."""
+    if num_domains != 2:
+        raise NotImplementedError("paired relaying is defined for 2 domains")
+    n = ranks.axis_size(axis_name)
+    half = n // 2
+    rows = x.shape[0]
+    cut = max(0, min(rows, int(round(rows * split))))
+    if cut == rows:  # pure baseline
+        return allgather_reference(x, ranks, axis_name, num_domains)
+    if mode not in ("paired", "full"):
+        raise ValueError(f"unknown mode {mode!r}")
+    xd, xc = x[:cut], x[cut:]
+    # direct part: intra-domain all_gather
+    gd = allgather_reference(xd, ranks, axis_name, num_domains)
+    relay = _paired_relay_gather if mode == "paired" else _full_relay_gather
+    gc = relay(xc, ranks, axis_name, n, half)
+    return torch.cat([gd, gc], dim=1)
+
+
+def planned_allgather(x: torch.Tensor, ranks, axis_name: str, *,
+                      num_domains: int = 2, planner=None, hw=None,
+                      decision=None) -> torch.Tensor:
+    """AllGather whose scheme and split come from a planner decision (§5.2
+    dynamic workflow): ``decision`` (a bound plan's per-site verdict), or
+    without one the process planner's choice for this fragment on the
+    split-TP topology of the axis."""
+    if decision is None:
+        from repro_torch.core import planner as _planner_mod
+        from repro_torch.core.topology import split_tp_full_mesh
+        n = ranks.axis_size(axis_name)
+        frag_bytes = x.numel() * x.element_size()
+        topo, _ = split_tp_full_mesh(n, tp=max(1, n // num_domains))
+        pl = planner or _planner_mod.default_planner()
+        decision = pl.choose("allgather", frag_bytes, topo, hw,
+                             executable_only=True, num_domains=num_domains)
+    kw = decision.shard_map_kwargs
+    if kw["mode"] is None:
+        return allgather_reference(x, ranks, axis_name, num_domains)
+    return multiwrite_allgather(x, ranks, axis_name, num_domains=num_domains,
+                                split=kw["split"], mode=kw["mode"])
+
+
+def _paired_relay_gather(xc: torch.Tensor, ranks, axis_name: str, n: int,
+                         half: int) -> torch.Tensor:
+    """Stage 1: swap cross chunks with the same-index partner (ONE copy on
+    each cross link).  Stage 2: each relay forwards its partner's chunk to
+    the partner's domain peers, one permutation round per peer offset —
+    distinct links per round (§3.1 paired relaying)."""
+    swap = [(i, (i + half) % n) for i in range(n)]
+    xr = ranks.ppermute(xc, axis_name, swap)   # chunk of source partner(i)
+    # round r: relay i, holding source s = (i + half) % n, forwards it to
+    # the peer at offset r of s's domain
+    received = []
+    for r in range(1, half):
+        perm = []
+        for i in range(n):
+            s = (i + half) % n
+            base, idx = (s // half) * half, s % half
+            perm.append((i, base + (idx + r) % half))
+        received.append(ranks.ppermute(xr, axis_name, perm))
+    # slots[r] holds source (idx - r) % half: source k sits at slot
+    # (idx - k) % half (the rank index is a host int: static indexing)
+    idx = ranks.axis_index(axis_name) % half
+    slots = [xc] + received
+    return torch.stack([slots[(idx - k) % half] for k in range(half)])
+
+
+def _full_relay_gather(xc: torch.Tensor, ranks, axis_name: str, n: int,
+                       half: int) -> torch.Tensor:
+    """Full multi-path relaying (§3.1): the cross chunk is sliced over ALL
+    ``half`` opposite-domain ranks; each relay forwards its slice to the
+    source's domain peers.
+
+    Stage 1, round r: rank i sends slice ``(idx(i) + r) % half`` to the
+    opposite-domain rank of that index, one slice copy per cross link.
+    Stage 2, round (r, f), f = 1..half-1: relay j forwards its round-r
+    slice to the source's peer ``(t - r + f) % half``; rank q (index iq)
+    thereby receives slice ``(iq + r - f) % half`` of its domain-mate
+    ``(iq - f) % half``: every slice of every peer exactly once."""
+    rows = xc.shape[0]
+    pad = (-rows) % half
+    if pad:
+        xc = torch.cat([xc, xc.new_zeros((pad,) + tuple(xc.shape[1:]))])
+    sliced = xc.reshape((half, xc.shape[0] // half) + tuple(xc.shape[1:]))
+    idx = ranks.axis_index(axis_name) % half
+
+    # stage 1
+    landed = []
+    for r in range(half):
+        perm = [(i, (((i // half) ^ 1) * half) + (i % half + r) % half)
+                for i in range(n)]
+        landed.append(ranks.ppermute(sliced[(idx + r) % half], axis_name,
+                                     perm))
+    # stage 2
+    out_rounds: list[list[torch.Tensor]] = [[] for _ in range(half)]
+    for r in range(half):
+        for f in range(1, half):
+            perm = [(j, (((j // half) ^ 1) * half) + (j % half - r + f)
+                     % half) for j in range(n)]
+            out_rounds[f].append(ranks.ppermute(landed[r], axis_name, perm))
+
+    # assembly: round r carries slice (idx + r - f) % half, so slice sl
+    # sits at round (sl - idx + f) % half; gathered[f] is the chunk of peer
+    # (idx - f) % half, so peer k sits at f = (idx - k) % half
+    tail = tuple(xc.shape[1:])
+    gathered = [sliced.reshape((-1,) + tail)]
+    for f in range(1, half):
+        gathered.append(torch.cat([out_rounds[f][(sl - idx + f) % half]
+                                   for sl in range(half)]))
+    out = torch.stack([gathered[(idx - k) % half] for k in range(half)])
+    return out[:, :rows] if pad else out
 
 
 # ===========================================================================

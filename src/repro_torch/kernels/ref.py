@@ -77,6 +77,38 @@ def decode_attention_ref(q, k, v, kv_len=None, *, scale=None, softcap=None,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def decode_attention_partial(q, k, v, kv_len, *, scale=None, softcap=None,
+                             window=None):
+    """:func:`decode_attention_ref` over one block of a KV cache, left
+    unnormalised for a merge across blocks (flash-decoding): returns the
+    scores' max [B, H], the sum of ``exp(s - max)`` [B, H] and the
+    exp-weighted values [B, H, D], all fp32.  ``kv_len`` counts the valid
+    positions from the block's start (any int, or a device scalar: at most
+    zero leaves the block empty, with max ``NEG_INF`` and zero sums).  The
+    weights are rounded to q's dtype before the value product, as the
+    one-block version rounds its probabilities."""
+    b, h, d = q.shape
+    t, g = k.shape[1], k.shape[2]
+    rep = h // g
+    if scale is None:
+        scale = d ** -0.5
+    qg = q.reshape(b, g, rep, d)
+    s = torch.einsum("bgrd,btgd->bgrt", qg.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(t, device=q.device)
+    mask = pos < kv_len
+    if window is not None:
+        mask &= pos >= (kv_len - window)
+    s = torch.where(mask[None, None, None, :], s, NEG_INF)
+    mx = s.max(dim=-1).values
+    p = torch.where(mask[None, None, None, :], torch.exp(s - mx[..., None]),
+                    0.0)
+    acc = torch.einsum("bgrt,btgd->bgrd", p.to(q.dtype).float(), v.float())
+    return (mx.reshape(b, h), p.sum(dim=-1).reshape(b, h),
+            acc.reshape(b, h, d))
+
+
 # ---------------------------------------------------------------------------
 # mamba2 (SSD)
 # ---------------------------------------------------------------------------

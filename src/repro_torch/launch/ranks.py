@@ -2,9 +2,12 @@
 host, spawned and joined with a deadline.
 
 ``chip_smoke.py`` spawns :func:`serve_worker` as 4 ranks (2 pods x 2 ep
-ranks) serving DBRX-132B and as 16 gloo ranks (2 pods x 8) serving
-Kimi-K2-1T on the card(s); the CPU tests spawn it and
-:func:`dispatch_worker` as 4 or 16 gloo ranks at small sizes.  The ranks
+ranks) serving DBRX-132B, as 16 gloo ranks (2 pods x 8) serving
+Kimi-K2-1T, and as 4 tensor-parallel ranks (1 x 1 x 4) serving
+Mistral-NeMo-12B and (1 x 2 x 2) serving DBRX on the card(s); the CPU
+tests spawn it, :func:`dispatch_worker` and :func:`gather_worker` as 4, 8
+or 16 gloo ranks at small sizes.  A spec's mesh is ``(pods, ep, tp)``
+(``tp`` default 1).  The ranks
 of one card can share one copy of the non-expert weights
 (:func:`shared_weights`, ``run_ranks(shared=...)``).
 
@@ -176,7 +179,7 @@ def shared_weights(spec: dict) -> dict:
 
 
 def init_rank(rank: int, spec: dict) -> RankMesh:
-    """Join the process group and build the (pods, ep, 1) rank mesh."""
+    """Join the process group and build the (pods, ep, tp) rank mesh."""
     torch.set_num_threads(spec.get("threads", 1))
     dev = rank_device(rank, spec)
     if dev.type == "cuda":
@@ -187,7 +190,8 @@ def init_rank(rank: int, spec: dict) -> RankMesh:
                             timeout=timeout,
                             device_id=dev if spec["backend"] == "nccl"
                             else None)
-    return RankMesh((spec["pods"], spec["ep"], 1), timeout=timeout)
+    return RankMesh((spec["pods"], spec["ep"], spec.get("tp", 1)),
+                    timeout=timeout)
 
 
 def _save(rank: int, spec: dict, result) -> None:
@@ -271,7 +275,9 @@ def run_context(mesh: RankMesh, pods: int, run: dict, *, fabric=None,
                 cfg=None, phases=None, itemsize: int = 2
                 ) -> ParallelContext:
     """The context a run executes under.  ``run``: ``scheme``/``combine``/
-    ``microbatch`` (the fixed knobs), ``policy`` ("fixed" or "auto"),
+    ``microbatch`` (the fixed knobs), ``tp_subgroups``,
+    ``seq_shard_decode`` and ``deferred`` (``moe_deferred_tp_reduce``) of
+    the model axis, ``policy`` ("fixed" or "auto"),
     ``fabric`` (a spec ``get_fabric`` takes, "measured" for ``fabric``, or
     None for the mesh-derived topology), ``plan`` (an ExecutionPlan to
     bind), ``program`` (a CollectiveProgram to plan on the context's
@@ -286,6 +292,9 @@ def run_context(mesh: RankMesh, pods: int, run: dict, *, fabric=None,
         moe_scheme=run.get("scheme", "hierarchical"),
         moe_combine=run.get("combine"),
         moe_microbatch=run.get("microbatch", 1),
+        tp_subgroups=run.get("tp_subgroups", 1),
+        seq_shard_decode=run.get("seq_shard_decode", True),
+        moe_deferred_tp_reduce=run.get("deferred", False),
         fabric=get_fabric(spec) if spec else None)
     if run.get("plan") is not None:
         pctx = pctx.bind(run["plan"])
@@ -300,8 +309,11 @@ def run_context(mesh: RankMesh, pods: int, run: dict, *, fabric=None,
 
 def resolved(pctx, cfg, phases: dict, itemsize: int) -> dict:
     """phase -> the ``(scheme, combine, G)`` an MoE layer of ``cfg`` runs
-    under ``pctx`` on one rank's rows of the phase's (batch, seq)."""
+    under ``pctx`` on one rank's rows of the phase's (batch, seq); none for
+    a dense ``cfg``."""
     out = {}
+    if not cfg.is_moe:
+        return out
     for phase, (batch, seq) in phases.items():
         n = max(1, batch * seq // pctx.dp_size)
         kw = M.pipeline_config(pctx, cfg, n, cfg.d_model, cfg.expert_d_ff,
@@ -484,7 +496,7 @@ def trace_moe_layer(moe, cfg, pctx, rows: int, device, path: str) -> dict:
             "gemm_streams": sorted({str(t) for *_, t in gemm})}
 
 
-def _near_ties(mine, tokens, ref_tokens, ref_logits) -> tuple[int, float]:
+def near_ties(mine, tokens, ref_tokens, ref_logits) -> tuple[int, float]:
     """(rows of ``mine`` whose tokens equal the reference run's, the widest
     gap) where a row parts from the reference at step t: the gap is how far
     below its best logit the reference run put the token this run took,
@@ -622,7 +634,16 @@ def serve_worker(rank: int, spec: dict) -> None:
     second call of the same shape, every round a replay
     (``replay_decode_s``); under a graph (nccl) the dispatch patches
     see the prefill and the first two decode rounds only, since a replay
-    runs no Python."""
+    runs no Python.  ``spec["weights"]`` (the reference's parameters as
+    numpy arrays) replaces the seeded draw (``convert.params_from_jax``,
+    this rank's shard).  Over a model axis a run records the decision of
+    its split-TP gather site (the plan report's ``split_tp_gather``), and
+    ``spec["gather"]`` times the gather alone (:func:`tp_gather_probe`);
+    ``spec["keep_logits"]`` keeps every step's logits of the rank's rows
+    (``step_logits``), and ``same_logits`` says whether they are the bits
+    of the run it is held against.
+    The MoE records (pairs, loads, pod bytes) are kept for MoE models, the
+    pod bytes with pods only."""
     mesh = init_rank(rank, spec)
     dev = rank_device(rank, spec)
     cfg, prompts = spec["cfg"], spec["prompts"]
@@ -648,6 +669,8 @@ def serve_worker(rank: int, spec: dict) -> None:
             mesh, spec["pods"], cfg, phases, want, itemsize))
     params = None
     contexts, refs = {}, {}
+    if spec.get("gather"):
+        results["gather"] = tp_gather_probe(mesh, dev, **spec["gather"])
     for run in runs:
         label = run_label(run)
         if "twin" in run:
@@ -659,9 +682,16 @@ def serve_worker(rank: int, spec: dict) -> None:
             itemsize=itemsize)
         model = build_model(cfg, device=dev, dtype=spec["dtype"], pctx=pctx)
         if params is None:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(spec["seed"])
-            params = model.init(gen, shared=spec.get("shared"))
+            if spec.get("weights") is not None:
+                from repro_torch.convert import params_from_jax
+                params = params_from_jax(spec["weights"], cfg, device=dev,
+                                         dtype=spec["dtype"], pctx=pctx)
+            else:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(spec["seed"])
+                params = model.init(gen, shared=spec.get("shared"))
+            if dev.type == "cuda":      # the draws' fp32 temporaries
+                torch.cuda.empty_cache()
             results["memory"] = _memory(params, dev)
         engine = RecordingEngine(
             model, params, ServeConfig(max_new_tokens=spec["max_new"],
@@ -701,15 +731,10 @@ def serve_worker(rank: int, spec: dict) -> None:
                 cache_dtype=spec["cache_dtype"]), device=dev, pctx=pctx)
             sampled = hot.generate(prompts, seed=spec["sample_seed"])
             hot.close()
-        whole, occupied = pod_send_bytes(record["state"],
-                                         record["row_bytes"])
-        base, mw = cl.dispatch_pod_bytes(
-            record["ids"], record["state"].cfg, record["state"].mesh,
-            record["row_bytes"], elem_bytes=1)
         refs[label] = (out, logits)
         against = run.get("twin", run_label(runs[0]))
-        equal, gap = _near_ties(mine, out, *refs[against])
-        results["runs"][label] = {
+        equal, gap = near_ties(mine, out, *refs[against])
+        res = results["runs"][label] = {
             "resolved": resolved(pctx, cfg, phases, itemsize),
             "plan": (pctx.execution_plan.fingerprint
                      if pctx.execution_plan is not None else None),
@@ -719,16 +744,30 @@ def serve_worker(rank: int, spec: dict) -> None:
             "replay_decode_s": stats.get("replay_decode_s"),
             "nonfinite_logits": stats["nonfinite_logits"],
             "prefill_logits": logits[0],
+            "step_logits": logits if spec.get("keep_logits") else None,
             "vs": {"run": against, "rows_equal": equal, "rows": len(mine),
                    "widest_gap": gap},
-            "pod_bytes": {"whole": whole, "occupied": occupied},
-            "analytic_pod_bytes": {"baseline": base, "multiwrite": mw},
-            "pairs": [(given, int(kept)) for given, kept in record["pairs"]],
-            "expert_load": torch.bincount(
-                record["ids"].reshape(-1).long(),
-                minlength=cfg.num_experts).cpu().numpy(),
+            "same_logits": len(logits) == len(refs[against][1]) and all(
+                torch.equal(a, b) for a, b in zip(logits, refs[against][1])),
             "pod": mesh.coords["pod"], "packs": packs, "sampled": sampled,
-            "decode_graph": dict(stats["decode_graph"])}
+            "decode_graph": dict(stats["decode_graph"]),
+            "split_tp": stats.get("plans", {}).get("prefill", {}).get(
+                "split_tp_gather")}
+        if "state" in record:
+            res.update(
+                pairs=[(given, int(kept)) for given, kept in record["pairs"]],
+                expert_load=torch.bincount(
+                    record["ids"].reshape(-1).long(),
+                    minlength=cfg.num_experts).cpu().numpy())
+            if spec["pods"] > 1:
+                whole, occupied = pod_send_bytes(record["state"],
+                                                 record["row_bytes"])
+                base, mw = cl.dispatch_pod_bytes(
+                    record["ids"], record["state"].cfg, record["state"].mesh,
+                    record["row_bytes"], elem_bytes=1)
+                res.update(pod_bytes={"whole": whole, "occupied": occupied},
+                           analytic_pod_bytes={"baseline": base,
+                                               "multiwrite": mw})
     if spec.get("continuous"):
         results["continuous"] = continuous_run(mesh, spec, params, dev,
                                                fabric)
@@ -757,8 +796,8 @@ def dispatch_worker(rank: int, spec: dict) -> None:
     the identity otherwise.  Saves every pack map, the expert gates and the
     combined output of each case."""
     mesh = init_rank(rank, spec)
-    data = np.load(spec["inputs"])
     results = {}
+    data = np.load(spec["inputs"]) if spec["cases"] else None
     for case in spec["cases"]:
         name, scheme, combine = case["name"], case["scheme"], case["combine"]
         cfg = cl.DispatchConfig(**case["dcfg"])
@@ -794,16 +833,21 @@ def dispatch_worker(rank: int, spec: dict) -> None:
 
 def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
     """``moe_ffn`` for each job of ``spec["moe"]``: the job's MoE layer
-    (``cfg``, its reference weights ``weights``) on this rank's rows of
-    ``x`` and its experts, under each run of ``runs`` (default: the fixed
-    scheme pairs at one chunk).  Returns per job and run label the output,
-    the aux and the resolved round trip."""
+    (``cfg``, its reference weights ``weights``) on this rank's
+    data-parallel rows of ``x``, its experts and, over a model axis, its
+    block of their hidden width, under each run of ``runs`` (default: the
+    fixed scheme pairs at one chunk).  Returns per job and run label the
+    output, the aux and the resolved round trip."""
+    from repro_torch.convert import block_of
+    from repro_torch.models.layers import tp_of
     out = {}
+    dp, dp_index = mesh.axis_size("pod", "data"), mesh.axis_index("pod",
+                                                                  "data")
     for job in spec["moe"]:
         cfg, weights = job["cfg"], job["weights"]
         x = torch.from_numpy(job["x"])
-        per = x.shape[0] // spec["world"]
-        x = x[rank * per:(rank + 1) * per]
+        per = x.shape[0] // dp
+        x = x[dp_index * per:(dp_index + 1) * per]
         layer = None
         res = out[job["name"]] = {}
         for run in job.get("runs") or fixed_runs():
@@ -813,16 +857,119 @@ def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
                 d_ff = weights["w1"].shape[-1]
                 layer = M.MoE(cfg.d_model, d_ff, cfg.num_experts,
                               device="cpu", dtype=torch.float32,
-                              first=first, local=local)
+                              first=first, local=local, tp=tp_of(pctx))
                 with torch.no_grad():
                     layer.router.copy_(torch.from_numpy(weights["router"]))
                     for key in ("w1", "w3", "w2"):
+                        w = weights[key][first:first + local]
+                        if key in layer.shards:
+                            w = block_of(w, layer.shards[key])
                         getattr(layer, key).copy_(torch.from_numpy(
-                            weights[key][first:first + local]))
+                            np.ascontiguousarray(w)))
             y, aux = M.moe_ffn(layer, x, cfg, pctx)
             kw = M.pipeline_config(pctx, cfg, x.shape[0] * x.shape[1],
-                                   cfg.d_model, layer.w1.shape[-1],
+                                   cfg.d_model, layer.d_ff,
                                    x.element_size())
             res[run_label(run)] = {"y": y.numpy(), "aux": float(aux),
                                    "resolved": kw}
     return out
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def tp_gather_probe(mesh: RankMesh, device, *, shape, dtype=torch.bfloat16,
+                    num_domains: int = 2, reps: int = 5) -> dict:
+    """The split-TP AllGather alone over the model axis in ``num_domains``
+    domains, at a fragment of ``shape`` a rank (random, seeded by rank):
+    the plain domain ``all_gather`` (``allgather_reference``), MultiWrite
+    paired relaying at the analytic split, full relaying at 0.5, and the
+    planner's choice for the fragment (``allgather_plan`` under "auto").
+    Returns the plan's name and split, whether each result is bit-exact
+    against the plain one, and each one's wall (ms, host clock: the median
+    of ``reps`` calls after a warm-up, each between a barrier and a
+    synchronisation; the slowest rank's)."""
+    from repro_torch.core.schedules import optimal_split
+    gen = torch.Generator(device=device)
+    gen.manual_seed(100 + mesh.rank)
+    x = torch.randn(tuple(shape), generator=gen, device=device).to(dtype)
+    pctx = ParallelContext(mesh, pod_axis="pod" if mesh.shape["pod"] > 1
+                           else None, tp_subgroups=num_domains,
+                           plan_policy="auto")
+    decision = pctx.allgather_plan(x.numel() * x.element_size(),
+                                   num_domains=num_domains)
+    kw = dict(num_domains=num_domains)
+    calls = {
+        "plain": lambda: cl.allgather_reference(x, mesh, "model",
+                                                num_domains),
+        "paired": lambda: cl.multiwrite_allgather(
+            x, mesh, "model", split=optimal_split("multiwrite_paired"),
+            mode="paired", **kw),
+        "full": lambda: cl.multiwrite_allgather(
+            x, mesh, "model", split=0.5, mode="full", **kw),
+        "planned": lambda: cl.planned_allgather(
+            x, mesh, "model", decision=decision, **kw)}
+    ref = calls["plain"]()
+    out = {"shape": list(shape), "bytes": x.numel() * x.element_size(),
+           "plan": decision.plan,
+           "split": decision.shard_map_kwargs.get("split"),
+           "mode": decision.shard_map_kwargs.get("mode"),
+           "exact": {}, "wall_ms": {}}
+    for name, fn in calls.items():
+        out["exact"][name] = _same_bits(fn(), ref)
+        walls = []
+        for _ in range(reps):
+            dist.barrier()
+            _sync(device)
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = torch.tensor([float(np.median(walls))], dtype=torch.float64,
+                            device=device)
+        dist.all_reduce(wall, op=dist.ReduceOp.MAX)
+        out["wall_ms"][name] = float(wall)
+    return out
+
+
+def gather_worker(rank: int, spec: dict) -> None:
+    """The AllGather half on this rank's block of each input of
+    ``spec["inputs"]`` (an ``.npz``), over the model axis of a (1, 1, world)
+    mesh: each case of ``spec["cases"]`` names its input ``x`` (all ranks'
+    rows), an ``op`` ("reference", "multiwrite", "planned" or "split_tp")
+    and its arguments (``mode``, ``split``, ``num_domains``, ``hw`` as a
+    name of ``core.latency_model``, ``policy``).  Saves each case's
+    result."""
+    from repro_torch.core import latency_model as lm
+    from repro_torch.models.layers import split_tp_allgather
+    mesh = init_rank(rank, spec)
+    data = np.load(spec["inputs"])
+    results = {}
+    for case in spec["cases"]:
+        x = torch.from_numpy(data[case["x"]])
+        per = x.shape[0] // spec["world"]
+        x = x[rank * per:(rank + 1) * per]
+        nd = case.get("num_domains", 2)
+        if case["op"] == "reference":
+            y = cl.allgather_reference(x, mesh, "model", nd)
+        elif case["op"] == "multiwrite":
+            y = cl.multiwrite_allgather(x, mesh, "model", num_domains=nd,
+                                        split=case["split"],
+                                        mode=case["mode"])
+        elif case["op"] == "planned":
+            hw = case.get("hw")
+            y = cl.planned_allgather(x, mesh, "model", num_domains=nd,
+                                     hw=getattr(lm, hw) if hw else None)
+        else:
+            pctx = ParallelContext(mesh, tp_subgroups=nd,
+                                   plan_policy=case["policy"])
+            y = split_tp_allgather(x, pctx)
+        results[case["name"]] = y.numpy()
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, results)

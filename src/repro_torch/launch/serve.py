@@ -1,7 +1,7 @@
 """Serving launcher: batched greedy generation with the port's ServeEngine.
 
 On the card, with random weights: DBRX-132B at full width with its depth
-cut to 4 layers, and Zamba2-7B and RWKV6-7B whole:
+cut to 4 layers, and Mistral-NeMo-12B, Zamba2-7B and RWKV6-7B whole:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \
       --layers 4 --prompts 4 --prompt-len 512 --max-new 32
@@ -13,9 +13,13 @@ On the CPU, the reduced config through the kernels' plain versions:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \
       --device cpu --smoke --prompt-len 16 --max-new 4
 
-Over ranks, under ``torchrun``: ``--pods P --ep D`` lays the P * D ranks out
-as P pods of D ep ranks (DBRX's 16 experts: 4 a rank over 2 x 2; Kimi's
-384: 24 a rank over 2 x 8), each rank serving its share of the prompts.
+Over ranks, under ``torchrun``: ``--pods P --ep D --tp M`` lays the
+P * D * M ranks out as P pods of D ep ranks of M tensor-parallel ranks
+(DBRX's 16 experts: 4 a rank over 2 x 2; Kimi's 384: 24 a rank over 2 x 8;
+Mistral-NeMo's 32 heads and 8 kv heads: 8 and 2 a rank over ``--tp 4``),
+each data-parallel group serving its share of the prompts.
+``--tp-subgroups 2`` divides the model axis into two split-TP domains, so
+each block's sequence gather runs the MultiWrite AllGather.
 ``--backend`` is required there: ``nccl`` gives each rank the card of its
 local rank (there must be that many cards), ``gloo`` puts every rank on the
 device ``--device`` names, and on a CUDA device without an index (the
@@ -28,6 +32,8 @@ cards at a cut depth:
   PYTHONPATH=src torchrun --nproc-per-node 16 -m repro_torch.launch.serve \
       --arch kimi_k2_1t --layers 4 --pods 2 --ep 8 --backend gloo \
       --prompts 16
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch mistral_nemo_12b --tp 4 --tp-subgroups 2 --backend nccl
 
 Over ranks the MoE round trip (dispatch scheme, return scheme, pipeline
 depth G) comes from the planner under ``--plan-policy auto`` (the default,
@@ -36,8 +42,10 @@ program, planned on ``--fabric`` (a registered name such as ``2x8``, or an
 inline ``SxP[rR][@INTER[:INTRA]]`` in GB/s) and bound before the model is
 built; rank 0 prints the plan.  Without ``--fabric`` the nccl ranks time
 their link and plan on it; gloo ranks plan on the reference's mesh-derived
-TPU fabric and say so.
-``--plan-policy fixed`` runs the hierarchical pair at one chunk.
+TPU fabric and say so.  With a model axis the program also declares the
+split-TP gather site of the prefill (two domains), planned on its split-TP
+topology.  ``--plan-policy fixed`` runs the hierarchical pair at one chunk
+and paired relaying at the analytic split.
 
 ``--continuous`` drains a seeded open-loop Poisson stream (``--requests``
 at ``--arrival-rate`` a second of the scheduler's virtual clock) through
@@ -112,13 +120,15 @@ def build_engine(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
                        device=dev, pctx=pctx)
 
 
-def join_ranks(pods: int, ep: int, backend: str | None, device):
+def join_ranks(pods: int, ep: int, backend: str | None, device, *,
+               tp: int = 1, tp_subgroups: int = 1):
     """Join the ``torchrun`` process group (its environment gives rank and
-    world size) as ``pods`` x ``ep`` ranks.  Returns (pctx, device); (None,
-    device) for one rank."""
+    world size) as ``pods`` x ``ep`` x ``tp`` ranks.  Returns (pctx,
+    device); (None, device) for one rank."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if pods * ep != world:
-        raise ValueError(f"--pods {pods} x --ep {ep} != world size {world}")
+    if pods * ep * tp != world:
+        raise ValueError(f"--pods {pods} x --ep {ep} x --tp {tp} != world "
+                         f"size {world}")
     if world == 1:
         return None, device
     if backend == "nccl":
@@ -141,9 +151,9 @@ def join_ranks(pods: int, ep: int, backend: str | None, device):
         raise ValueError("--backend nccl or gloo is required over ranks")
     dist.init_process_group(backend, timeout=COLLECTIVE_TIMEOUT,
                             device_id=device if backend == "nccl" else None)
-    mesh = RankMesh((pods, ep, 1), timeout=COLLECTIVE_TIMEOUT)
-    return ParallelContext(mesh, pod_axis="pod" if pods > 1 else None), \
-        device
+    mesh = RankMesh((pods, ep, tp), timeout=COLLECTIVE_TIMEOUT)
+    return ParallelContext(mesh, pod_axis="pod" if pods > 1 else None,
+                           tp_subgroups=tp_subgroups), device
 
 
 def planning_fabric(pctx, cfg: ModelConfig, args, device) -> str | None:
@@ -267,7 +277,8 @@ def make_prompts(cfg: ModelConfig, prompts: int, prompt_len: int,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="dbrx_132b, kimi_k2_1t, zamba2_7b or rwkv6_7b")
+                    help="dbrx_132b, kimi_k2_1t, mistral_nemo_12b, zamba2_7b "
+                         "or rwkv6_7b")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths stay "
                          "the published ones)")
@@ -284,6 +295,13 @@ def main(argv=None) -> dict:
                     help="pods of the rank mesh (under torchrun)")
     ap.add_argument("--ep", type=int, default=1,
                     help="ep ranks a pod (under torchrun)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks of the model axis (under "
+                         "torchrun)")
+    ap.add_argument("--tp-subgroups", type=int, default=1,
+                    help="split-TP domains of the model axis: 2 runs each "
+                         "block's sequence gather as the MultiWrite "
+                         "AllGather")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                     help="required over ranks: nccl (one card a rank) or "
                          "gloo (every rank on --device; without a card "
@@ -328,14 +346,16 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = serve_config(args.arch, layers=args.layers, smoke=args.smoke)
-    pctx, device = join_ranks(args.pods, args.ep, args.backend, args.device)
+    pctx, device = join_ranks(args.pods, args.ep, args.backend, args.device,
+                              tp=args.tp, tp_subgroups=args.tp_subgroups)
     plan = fabric = None
     if pctx is not None:
         pctx = dataclasses.replace(pctx, plan_policy=args.plan_policy)
-        if args.plan_policy == "auto" and cfg.is_moe:
-            fabric = planning_fabric(pctx, cfg, args, device)
-            pctx = dataclasses.replace(
-                pctx, fabric=get_fabric(fabric) if fabric else None)
+        if args.plan_policy == "auto" and (cfg.is_moe or args.tp > 1):
+            if cfg.is_moe:
+                fabric = planning_fabric(pctx, cfg, args, device)
+                pctx = dataclasses.replace(
+                    pctx, fabric=get_fabric(fabric) if fabric else None)
             # bind the plan of both phases before the model is built; site
             # keys embed the payload, so the itemsize is the model's
             budgets = ({"decode": args.decode_slo_us * 1e-6}
@@ -390,7 +410,7 @@ def main(argv=None) -> dict:
     st = engine.stats
     result = {
         "arch": cfg.name, "layers": cfg.n_layers, "device": str(engine.device),
-        "ranks": f"{args.pods} pods x {args.ep} ep",
+        "ranks": f"{args.pods} pods x {args.ep} ep x {args.tp} tp",
         "plan": plan.fingerprint if plan is not None else None,
         "fabric": fabric,
         "shape": list(out.shape), "prefill_s": st["prefill_s"],

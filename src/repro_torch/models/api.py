@@ -13,7 +13,9 @@
 Batches: ``{"tokens": [B, S] int}`` for prefill, ``{"tokens": [B, 1]}`` for
 decode.  The model runs on CUDA unless it is built with ``device="cpu"``.
 Built with a ``pctx`` (dense and moe families), a model holds one rank's
-experts and its batches are that rank's data-parallel rows.
+experts and tensor-parallel blocks, and its batches are that rank's
+data-parallel rows (every model rank of a data-parallel group takes the
+same rows).
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ class Model:
             return ssm.zamba2_init_state(self.cfg, batch, max_len, **kw)
         if self.cfg.family == "rwkv":
             return rwkv.rwkv6_init_state(self.cfg, batch, **kw)
-        return T.init_cache(self.cfg, batch, max_len, **kw)
+        return T.init_cache(self.cfg, batch, max_len, pctx=self.pctx, **kw)
 
     def prefill(self, params, batch: dict, cache: dict):
         toks = batch["tokens"]
@@ -127,9 +129,12 @@ class Model:
 def check_room(cache: dict) -> None:
     """Raise when a decode cache has no room for one more token's k, v."""
     kv = cache.get("k")
-    if kv and cache["len"] >= kv[0].shape[1]:
-        raise ValueError(f"decode cache full: {cache['len']} of "
-                         f"{kv[0].shape[1]} positions")
+    if not kv:
+        return
+    room = cache.get("max_len", kv[0].shape[1])
+    if cache["len"] >= room:
+        raise ValueError(f"decode cache full: {cache['len']} of {room} "
+                         f"positions")
 
 
 def build_model(cfg: ModelConfig, *, device=None,

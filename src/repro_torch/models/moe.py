@@ -17,6 +17,13 @@ reference's double-buffered chunk pipeline: chunk k+1's dispatch is issued
 before chunk k's expert FFN and combine.  On the card it runs on a second
 stream that the layer owns, so its packs and exchanges can overlap chunk
 k's expert products; each chunk's outputs equal the serial loop's.
+
+Over a model axis every model rank of a data-parallel group routes and
+dispatches the same rows (EP runs over the data axis of its own model
+coordinate) and holds its block of F/m columns of each expert's hidden
+width: the expert FFN ends in an ``all_reduce`` over the model axis, or,
+under ``moe_deferred_tp_reduce``, the combine (linear in the expert
+outputs) runs on the partial sums and one ``all_reduce`` follows it.
 """
 
 from __future__ import annotations
@@ -37,18 +44,23 @@ from repro_torch.models import layers as L
 class MoE(nn.Module):
     """Router [D, E] (fp32) and the gated-FFN weights of the experts
     ``[first, first + local)`` of E: w1/w3 [local, D, F], w2 [local, F, D]
-    (all E when ``local`` is None)."""
+    (all E when ``local`` is None); over ``tp = (m, r)`` model ranks, rank
+    r's block of F/m of each expert's hidden width."""
 
     def __init__(self, d: int, f: int, num_experts: int, *, device, dtype,
-                 first: int = 0, local: int | None = None):
+                 first: int = 0, local: int | None = None, tp=(1, 0)):
         super().__init__()
         local = num_experts if local is None else local
-        self.first = first
+        m, r = tp
+        self.first, self.d_ff = first, f
+        fl = L.shard_size(f, m, "expert FFN width")
         self.router = L.parameter((d, num_experts), device=device,
                                   dtype=torch.float32)
-        self.w1 = L.parameter((local, d, f), device=device, dtype=dtype)
-        self.w3 = L.parameter((local, d, f), device=device, dtype=dtype)
-        self.w2 = L.parameter((local, f, d), device=device, dtype=dtype)
+        self.w1 = L.parameter((local, d, fl), device=device, dtype=dtype)
+        self.w3 = L.parameter((local, d, fl), device=device, dtype=dtype)
+        self.w2 = L.parameter((local, fl, d), device=device, dtype=dtype)
+        self.shards = ({"w1": (2, m, r), "w3": (2, m, r), "w2": (1, m, r)}
+                       if m > 1 else {})
 
     def reset_parameters(self, generator: torch.Generator,
                          layer: int = 0) -> "MoE":
@@ -63,14 +75,21 @@ class MoE(nn.Module):
     def reset_experts(self, seed: int, layer: int = 0) -> "MoE":
         """This module's experts alone, each from its own generator seeded
         from (``seed``, ``layer``, expert index)."""
-        _, d, f = self.w1.shape
-        sc_d, sc_f = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+        d = self.w1.shape[1]
+        sc_d, sc_f = 1.0 / math.sqrt(d), 1.0 / math.sqrt(self.d_ff)
+
+        def per_expert(name):     # the shard of one expert's 2-d weight
+            sh = self.shards.get(name)
+            return None if sh is None else (sh[0] - 1,) + sh[1:]
         for i in range(self.w1.shape[0]):
             gen = torch.Generator(device=self.w1.device)
             gen.manual_seed(expert_seed(seed, layer, self.first + i))
-            L.truncated_normal_(self.w1[i], sc_d, gen)
-            L.truncated_normal_(self.w3[i], sc_d, gen)
-            L.truncated_normal_(self.w2[i], sc_f, gen)
+            L.truncated_normal_(self.w1[i], sc_d, gen,
+                                shard=per_expert("w1"))
+            L.truncated_normal_(self.w3[i], sc_d, gen,
+                                shard=per_expert("w3"))
+            L.truncated_normal_(self.w2[i], sc_f, gen,
+                                shard=per_expert("w2"))
         return self
 
     def dispatch_stream(self) -> torch.cuda.Stream:
@@ -111,11 +130,13 @@ def expert_shard(pctx, num_experts: int) -> tuple[int, int]:
     return pctx.mesh.axis_index(*ep_axes) * per_rank, per_rank
 
 
-def _expert_ffn(w1, w3, w2, x, act_name: str):
-    """Per-expert gated FFN on packed buffers x: [E, C, D]."""
+def _expert_ffn(w1, w3, w2, x, act_name: str, pctx=None):
+    """Per-expert gated FFN on packed buffers x: [E, C, D]; w*: this rank's
+    block of the hidden width, row-parallel over the model axis of
+    ``pctx`` (summed over it inside)."""
     act = L.activation(act_name)
     h = act(torch.bmm(x, w1)) * torch.bmm(x, w3)
-    return torch.bmm(h, w2)
+    return L.reduce_over_model(torch.bmm(h, w2), pctx)
 
 
 def balanced_capacities(n_tokens: int, k: int, p: int, d: int,
@@ -204,7 +225,7 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
                            ep_axis=pctx.data_axis,
                            num_pods=pctx.num_pods if use_pod else 1,
                            ep_per_pod=pctx.data_size, ranks=pctx.mesh)
-        kw = pipeline_config(pctx, cfg, n, d, params.w1.shape[-1],
+        kw = pipeline_config(pctx, cfg, n, d, params.d_ff,
                              x.element_size())
         scheme, combine_scheme = kw["moe_scheme"], kw["moe_combine"]
         g = kw["microbatch"]
@@ -226,6 +247,10 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
     dp_group = (pctx.mesh.group(*pctx.dp_axes)
                 if with_aux and pctx is not None and pctx.dp_size > 1
                 else None)
+    # deferred TP reduction: the combine is linear in the expert outputs,
+    # so the row-parallel sum commutes through it, once on [N, D]
+    deferred = pctx is not None and pctx.moe_deferred_tp_reduce
+    expert_ctx = None if deferred else pctx
 
     def dispatch_chunk(tok):
         """Router, top-k, the aux when asked for, and the dispatch."""
@@ -246,9 +271,12 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
         exp_tok, exp_gate, st = pack
         pack.clear()
         exp_out = _expert_ffn(params.w1, params.w3, params.w2, exp_tok,
-                              cfg.act)
+                              cfg.act, expert_ctx)
         del exp_tok
-        return combine(exp_out, exp_gate, st).to(x.dtype)
+        out = combine(exp_out, exp_gate, st)
+        if deferred:
+            out = L.reduce_over_model(out, pctx)
+        return out.to(x.dtype)
 
     if g == 1:
         pack, aux = dispatch_chunk(tokens)

@@ -5,8 +5,16 @@ dense and moe families.  The reference scans stacked [L, ...] parameters;
 the port keeps one ``Block`` module per layer (the converter unstacks the
 reference's pytree) and runs the layers in a Python loop.  Caches are
 per-layer buffers updated in place.  With a ``pctx`` each rank holds its
-data-parallel rows and its experts; every layer but the MoE exchange is
-rank-local (the model axis is 1).
+data-parallel rows, its experts and, over a model axis, its tensor-parallel
+blocks of the attention and FFN weights (``layers``); the embedding and
+unembedding stay whole on every rank.
+
+Sequence parallelism (the reference's ``shard_residual`` between blocks):
+when the prompt divides over the model axis, each rank keeps its block of
+the positions between blocks, and each block's entry gathers the sequence
+back (:func:`_split_tp_seq_gather`: through the split-TP MultiWrite
+AllGather with ``tp_subgroups > 1``, plainly otherwise).  The decode KV
+caches lie in ``layers.kv_layout``'s layout, which the prefill writes.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.parallel.context import seq_sharded, shard_residual
 
 BIG_WINDOW = 1 << 30
 
@@ -47,27 +56,30 @@ class Block(nn.Module):
     """One decoder layer: attention, then an MoE or dense FFN.  An MoE
     layer of a config with shared experts also holds ``shared_mlp``, the
     always-on experts as one MLP of width ``expert_d_ff *
-    n_shared_experts``, whole on every rank (EP does not shard it)."""
+    n_shared_experts``, on every EP rank (EP does not shard it; TP splits
+    it like a dense MLP)."""
 
     def __init__(self, cfg: ModelConfig, *, moe: bool, device, dtype,
                  pctx=None, experts: bool = True):
         super().__init__()
+        tp = L.tp_of(pctx)
         self.ln1 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
-        self.attn = L.Attention(_dims(cfg), device=device, dtype=dtype)
+        self.attn = L.Attention(_dims(cfg), device=device, dtype=dtype,
+                                tp=tp)
         self.ln2 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
         self.moe = self.mlp = self.shared_mlp = None
         if moe:
             first, local = M.expert_shard(pctx, cfg.num_experts)
             self.moe = M.MoE(cfg.d_model, cfg.expert_d_ff, cfg.num_experts,
                              device=device, dtype=dtype, first=first,
-                             local=local if experts else 0)
+                             local=local if experts else 0, tp=tp)
             if cfg.n_shared_experts:
                 self.shared_mlp = L.MLP(
                     cfg.d_model, cfg.expert_d_ff * cfg.n_shared_experts,
-                    cfg.mlp_gated, device=device, dtype=dtype)
+                    cfg.mlp_gated, device=device, dtype=dtype, tp=tp)
         else:
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated,
-                             device=device, dtype=dtype)
+                             device=device, dtype=dtype, tp=tp)
 
 
 class Transformer(nn.Module):
@@ -100,12 +112,17 @@ def init_transformer(cfg: ModelConfig, *, generator: torch.Generator,
     """Random weights drawn from ``generator`` (truncated normal at the
     reference's scales; norms start at zero), filled in place.  Experts
     come from generators of their own (``moe.expert_seed``), so a rank's
-    experts equal the one-rank model's.
+    experts equal the one-rank model's; a tensor-parallel block is drawn
+    whole and cut, so it equals the one-rank model's slice.
 
     With ``shared`` (:func:`shared_weights` of the same config and seed)
     the module holds those tensors themselves, copying nothing, and only
     this rank's experts are drawn (from ``generator``'s seed alone)."""
     if shared is not None:
+        if L.tp_of(pctx)[0] > 1:
+            raise NotImplementedError(
+                "shared non-expert weights are whole tensors; over a model "
+                "axis every rank draws its own blocks")
         return _around_shared(cfg, shared, generator.initial_seed(),
                               device=device, dtype=dtype, pctx=pctx)
     params = Transformer(cfg, device=device, dtype=dtype, pctx=pctx)
@@ -190,11 +207,12 @@ def window_schedule(cfg: ModelConfig, n_layers: int):
 # ---------------------------------------------------------------------------
 
 def _attn_part(lp: Block, x, positions, cfg, *, window, causal=True,
-               return_kv=False):
+               return_kv=False, pctx=None):
     h = lp.ln1(x)
     return L.attention(lp.attn, h, positions, _dims(cfg), causal=causal,
                        window=window, softcap=cfg.attn_softcap,
-                       rope_theta=cfg.rope_theta, return_kv=return_kv)
+                       rope_theta=cfg.rope_theta, return_kv=return_kv,
+                       pctx=pctx)
 
 
 def _ffn_part(lp: Block, x, cfg, pctx=None):
@@ -202,18 +220,46 @@ def _ffn_part(lp: Block, x, cfg, pctx=None):
     never computed (nor averaged over the ranks)."""
     h = lp.ln2(x)
     if lp.moe is None:
-        return L.mlp(lp.mlp, h, cfg.act)
+        return L.mlp(lp.mlp, h, cfg.act, pctx)
     out = M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=False)[0]
     if lp.shared_mlp is not None:
-        out = out + L.mlp(lp.shared_mlp, h, cfg.act)
+        out = out + L.mlp(lp.shared_mlp, h, cfg.act, pctx)
     return out
 
 
-def _decode_attn(lp: Block, x, ck, cv, pos, cfg, *, window):
+def _decode_attn(lp: Block, x, ck, cv, pos, cfg, *, window, pctx=None,
+                 layout="whole"):
     h = lp.ln1(x)
     return L.decode_attention_block(
         lp.attn, h, ck, cv, pos, _dims(cfg), window=window,
-        softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
+        softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta, pctx=pctx,
+        layout=layout)
+
+
+def _split_tp_seq_gather(x, pctx):
+    """SP -> TP boundary gather: this rank's block of positions [B, S/m, D]
+    back to the whole sequence [B, S, D].
+
+    With the model axis divided into ``tp_subgroups`` domains, each domain
+    reassembles its own span through :func:`layers.split_tp_allgather`
+    (which takes the bound plan's decision, or the planner's under
+    "auto"; its MultiWrite plans use the idle cross-domain links), then
+    ONE gather over the cross-domain group of the ranks with this rank's
+    index in their domain completes the sequence.  With one domain (or
+    domains that do not divide the axis) a plain ``all_gather`` over the
+    model axis.  Both move data only: the result is the same bits."""
+    mesh, axis = pctx.mesh, pctx.model_axis
+    m, nd = pctx.model_size, pctx.tp_subgroups
+    b, part, d = x.shape
+    if nd <= 1 or m % nd:
+        return mesh.all_gather(x, axis).transpose(0, 1).reshape(
+            b, m * part, d)
+    h = m // nd                                      # ranks a TP domain
+    frag = L.split_tp_allgather(x, pctx)             # [h, B, S/m, D]
+    dom = frag.transpose(0, 1).reshape(b, h * part, d)
+    cross = [dd * h + mesh.axis_index(axis) % h for dd in range(nd)]
+    full = mesh.all_gather(dom, axis, cross)         # [nd, B, S/nd, D]
+    return full.transpose(0, 1).reshape(b, m * part, d)
 
 
 def logits_fn(params: Transformer, cfg, x, last_only=False):
@@ -227,12 +273,14 @@ def logits_fn(params: Transformer, cfg, x, last_only=False):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
-               dtype=torch.bfloat16):
-    """Per-layer KV buffers [B, max_len, G, dh] and the filled length, as
+               dtype=torch.bfloat16, pctx=None):
+    """Per-layer KV buffers (this rank's, in ``layers.kv_layout``'s layout
+    ``layout``: [B, max_len, G, dh] on one rank) and the filled length, as
     an int64 scalar on the device (``pos``, what decode reads) and as a
-    host int (``len``, bookkeeping)."""
-    g, dh = cfg.n_kv_heads, cfg.head_dim
-    shape = (batch, max_len, g, dh)
+    host int (``len``, bookkeeping) of ``max_len`` positions."""
+    layout = L.kv_layout(cfg.n_kv_heads, pctx, max_len)
+    shape = L.kv_cache_shape(cfg.n_kv_heads, cfg.head_dim, batch, max_len,
+                             layout, L.tp_of(pctx)[0])
     return {
         "k": [torch.zeros(shape, dtype=dtype, device=device)
               for _ in range(cfg.n_layers)],
@@ -240,24 +288,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
               for _ in range(cfg.n_layers)],
         "pos": L.position(device),
         "len": 0,
+        "max_len": max_len,
+        "layout": layout,
     }
 
 
 def prefill(params: Transformer, cfg, x, positions, cache, pctx=None):
     """Forward pass over the prompt that also fills the cache (in place:
     the reference pads the new k, v into fresh buffers).  x: [B, S, D].
-    Returns (last-position logits [B, 1, V], cache)."""
+    Under sequence parallelism the residual is this rank's block of the
+    positions between blocks; the last block's output stays whole for the
+    final norm and the logits.  Returns (last-position logits [B, 1, V],
+    cache)."""
     wins = window_schedule(cfg, cfg.n_layers)
     seq = x.shape[1]
+    sp = seq_sharded(pctx, seq)
+    if sp:
+        x = shard_residual(x, pctx)
     for i, lp in enumerate(params.blocks):
+        if sp:
+            x = _split_tp_seq_gather(x, pctx)
         a, (k, v) = _attn_part(lp, x, positions, cfg,
                                window=None if wins is None else wins[i],
-                               return_kv=True)
+                               return_kv=True, pctx=pctx)
         x = x + a
         f = _ffn_part(lp, x, cfg, pctx)
         x = x + f
-        cache["k"][i][:, :seq] = k.to(cache["k"][i].dtype)
-        cache["v"][i][:, :seq] = v.to(cache["v"][i].dtype)
+        L.write_prefill_kv(lp.attn, cache["k"][i], cache["v"][i], k, v,
+                           cache["layout"], pctx)
+        if sp and i + 1 < len(params.blocks):
+            x = shard_residual(x, pctx)
     cache["pos"].fill_(seq)
     cache["len"] = seq
     x = params.final_norm(x)
@@ -272,7 +332,8 @@ def decode_step(params: Transformer, cfg, x, cache, pctx=None):
     pos = cache["pos"]
     for i, lp in enumerate(params.blocks):
         a = _decode_attn(lp, x, cache["k"][i], cache["v"][i], pos, cfg,
-                         window=None if wins is None else wins[i])
+                         window=None if wins is None else wins[i],
+                         pctx=pctx, layout=cache["layout"])
         x = x + a
         f = _ffn_part(lp, x, cfg, pctx)
         x = x + f

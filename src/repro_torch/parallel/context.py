@@ -7,7 +7,10 @@ rank.  Axis roles over a :class:`~repro_torch.parallel.mesh.RankMesh`:
   pod    slow axis: data parallel, and the outer level of the MultiWrite
          hierarchical EP dispatch;
   data   fast axis: data parallel, and EP for MoE layers;
-  model  tensor parallel (only a size of 1 is ported).
+  model  tensor parallel (Megatron column/row over the heads and the FFN
+         width, TP inside the experts), sequence parallel between blocks,
+         the decode KV length; optionally divided into ``tp_subgroups``
+         split-TP domains for the §3.1 MultiWrite AllGather.
 
 The MoE round trip (dispatch scheme, return-path scheme and the pipeline
 chunk count G) resolves as the reference resolves it: a bound
@@ -15,8 +18,8 @@ chunk count G) resolves as the reference resolves it: a bound
 ``plan_policy="auto"``, then the declared knobs.  The planner scores on the
 explicit ``fabric`` or, without one, on the reference's mesh-derived
 topology, so that both packages give the same plans for the same inputs.
-Telemetry calibration (queue 1 item 7) and tensor parallelism (item 6) are
-later slices of the port; asking for either raises.
+Telemetry calibration (queue 1 item 7) is a later slice of the port;
+asking for it raises.
 
 :class:`PlanBinder` is a verbatim copy of the reference's (``repro.`` read
 as ``repro_torch.``): the serving engine's double-buffered plan binding,
@@ -49,7 +52,12 @@ class ParallelContext:
     calibration: Optional[object] = None
     moe_skew: float = 0.0             # hot-expert routing skew the planner
     #                                   prices dispatch/combine under
-    moe_deferred_tp_reduce: bool = False
+    tp_subgroups: int = 1             # §3.1 split-TP domains on model axis
+    seq_shard_decode: bool = True     # shard decode KV length over model
+    seq_parallel: bool = True         # the residual's seq dim sharded over
+    #                                   model between blocks
+    moe_deferred_tp_reduce: bool = False  # one all_reduce over model after
+    #   the combine instead of one per expert FFN
     moe_microbatch: int = 1           # dispatch chunks G under "fixed"
     execution_plan: Optional[object] = None  # a bound
     #   core.plan.ExecutionPlan (install with ``pctx.bind(plan)``)
@@ -65,10 +73,8 @@ class ParallelContext:
             raise ValueError(f"plan_policy {self.plan_policy!r}")
         if int(self.moe_microbatch) < 1:
             raise ValueError(f"moe_microbatch {self.moe_microbatch}")
-        if self.moe_deferred_tp_reduce or self.model_size != 1:
-            raise NotImplementedError(
-                "tensor parallelism inside experts (model axis above 1, "
-                "moe_deferred_tp_reduce) is queue 1 item 6 of the port")
+        if int(self.tp_subgroups) < 1:
+            raise ValueError(f"tp_subgroups {self.tp_subgroups}")
         if self.moe_scheme not in ("hierarchical", "baseline"):
             raise ValueError(f"moe_scheme {self.moe_scheme!r}")
         if self.moe_combine not in (None, "hierarchical", "baseline"):
@@ -157,10 +163,21 @@ class ParallelContext:
 
     def split_tp_gather_site(self, phase: str, *, global_batch: int,
                              seq_len: int, d_model: int, itemsize: int = 2):
-        """The split-TP AllGather site of one phase: None.  The reference
-        declares one only with two TP subgroups on a model axis above 1,
-        and a model axis above 1 is queue 1 item 6 of the port."""
-        return None
+        """The §3.1 split-TP AllGather site this context's transformer
+        blocks issue for one phase (the SP -> TP boundary gather of
+        ``transformer._split_tp_seq_gather``), or None when the geometry
+        emits no split-TP gather: the same guards."""
+        m, nd = self.model_size, self.tp_subgroups
+        dp = self.num_pods * self.data_size
+        if (nd != 2 or not self.seq_parallel or m % nd or seq_len % m
+                or global_batch % dp):
+            return None
+        from repro_torch.core import plan as plan_ir
+        from repro_torch.core.topology import split_tp_full_mesh
+        frag = (global_batch // dp) * (seq_len // m) * d_model * itemsize
+        topo, _ = split_tp_full_mesh(m, tp=m // nd)
+        return plan_ir.allgather_site(phase, frag_bytes=frag,
+                                      num_domains=nd, topo=topo)
 
     def grad_sync_site(self, phase: str, *, num_params: int,
                        tokens_per_rank: int,
@@ -323,6 +340,26 @@ class ParallelContext:
         return default_planner().choose(
             "allgather", float(frag_bytes), topo, executable_only=True,
             num_domains=num_domains)
+
+
+def seq_sharded(pctx: Optional[ParallelContext], seq_len: int) -> bool:
+    """Whether the residual stream of ``seq_len`` positions lies sharded
+    over the model axis between blocks (the reference's
+    ``shard_residual`` rule: sequence parallelism on, and the length
+    divides over the model axis)."""
+    return (pctx is not None and pctx.model_size > 1 and pctx.seq_parallel
+            and seq_len % pctx.model_size == 0)
+
+
+def shard_residual(x, pctx: Optional[ParallelContext]):
+    """The between-block residual [B, S, D] as this rank holds it: its
+    block of S over the model axis when :func:`seq_sharded`, else all of
+    it (the reference's ``shard_residual`` constraint, on tensors)."""
+    if not seq_sharded(pctx, x.shape[1]):
+        return x
+    part = x.shape[1] // pctx.model_size
+    at = pctx.mesh.axis_index(pctx.model_axis) * part
+    return x[:, at:at + part]
 
 
 def param_count(cfg) -> int:

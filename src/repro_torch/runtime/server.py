@@ -19,10 +19,13 @@ given the GLOBAL prompts and returns the GLOBAL tokens, as the reference's
 GSPMD engine does.  Every rank runs the same scheduler over all B requests;
 the model step computes only the rank's data-parallel rows (dp index = pod
 * data_size + data), and the sampled tokens are gathered over the dp ranks
-before the scheduler sees them.  The phase walls are the slowest rank's, so
-every rank's scheduler clock, and so every admission decision, agrees: no
-rank skips a collective the others wait in, and every rank captures and
-replays its graphs in the same rounds.  ``generate`` is a thin client of
+before the scheduler sees them.  The model ranks of one data-parallel
+group take the same rows and compute the same logits (their row-parallel
+sums are ``all_reduce`` results, the same bits on every rank), so they
+sample the same tokens.  The phase walls are the slowest rank's of the
+whole mesh, so every rank's scheduler clock, and so every admission
+decision, agrees: no rank skips a collective the others wait in, and every
+rank captures and replays its graphs in the same rounds.  ``generate`` is a thin client of
 the continuous-batching scheduler: the whole batch arrives at t=0 and
 drains as one cohort through :meth:`ServeEngine.start_cohort` /
 :meth:`ServeEngine.step_cohort`, the loop the serving tier interleaves.
@@ -387,12 +390,13 @@ class ServeEngine:
         return self.pctx.mesh.group(*self.pctx.dp_axes)
 
     def _wall(self, t0: float) -> float:
-        """The phase wall since ``t0``: the slowest data-parallel rank's."""
+        """The phase wall since ``t0``: the slowest rank's of the mesh."""
         wall = time.monotonic() - t0
-        if self.pctx is None or self.pctx.dp_size == 1:
+        if self.pctx is None or self.pctx.mesh.axis_size(
+                "pod", "data", "model") == 1:
             return wall
         t = torch.tensor([wall], dtype=torch.float64, device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._dp_group())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return float(t.item())
 
     def _sample(self, state: CohortState) -> np.ndarray:

@@ -108,16 +108,20 @@ def test_dispatch_combine_match_reference(n, h, e, k, cf):
 def test_planner_and_tensor_parallel_slices_raise():
     """The context takes the planner's knobs; what it does not take raises,
     naming the slice of the port that brings it: calibration (telemetry,
-    item 7) and tensor parallelism (item 6)."""
+    item 7).  Tensor parallelism is taken: a model axis needs its ranks (a
+    mesh of 2 over a process group of 1 raises), and the deferred TP
+    reduction and split-TP domains are knobs of the context."""
     from repro_torch.parallel.context import ParallelContext
     from repro_torch.parallel.mesh import RankMesh
     mesh = RankMesh((1, 1, 1))
     with pytest.raises(NotImplementedError, match="item 7"):
         ParallelContext(mesh, calibration="calibration.jsonl")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="holds 2 ranks"):
         RankMesh((1, 1, 2))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ParallelContext(mesh, moe_deferred_tp_reduce=True)
+    pctx = ParallelContext(mesh, tp_subgroups=2, moe_deferred_tp_reduce=True)
+    assert (pctx.tp_subgroups, pctx.moe_deferred_tp_reduce) == (2, True)
+    with pytest.raises(ValueError, match="tp_subgroups"):
+        ParallelContext(mesh, tp_subgroups=0)
     with pytest.raises(ValueError, match="moe_microbatch"):
         ParallelContext(mesh, moe_microbatch=0)
     assert ParallelContext(mesh, plan_policy="auto").plan_policy == "auto"
@@ -197,8 +201,9 @@ def test_capacities_copy_reference(n_tokens, k, p, d, per_rank, cf):
 
 class _RankOf:
     """Just enough of a ParallelContext for the expert sharding: EP rank
-    ``index`` of ``ranks`` over (pod, data)."""
+    ``index`` of ``ranks`` over (pod, data), with a model axis of 1."""
     pod_axis, data_axis = "pod", "data"
+    model_size = 1
 
     def __init__(self, index: int, ranks: int):
         self.index, self.ranks, self.mesh = index, ranks, self
