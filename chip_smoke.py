@@ -63,7 +63,18 @@ Phases; any failure raises and the script exits non-zero:
    alone at the served fragment; then DBRX (4 layers) over (1, 2, 2) with
    the experts' TP reduction per expert and deferred.  Within a run every
    rank's tokens equal, the three Mistral runs bit-identical, near ties
-   against one rank, the gather bit-exact, every pack bit-exact.
+   against one rank, the gather bit-exact, every pack bit-exact;
+9. the telemetry loop over 4 spawned ranks (as phase 6 and 8 lay them
+   out): DBRX (4 layers) over 2 x 2 calibrates with a ``LiveProbe`` (the
+   dispatch and combine plans, the directed rail probes), plans its serve
+   program on the datasheet and on the fitted model and serves under the
+   calibrated plan beside its fixed twin and the fixed hierarchical and
+   baseline pairs; Mistral-NeMo's model axis over (1, 1, 4) sweeps the
+   AllGather plans and sets the planner's split-TP pick, datasheet
+   against calibrated, beside the gather's measured walls.  Every rank's
+   walls the same bits, no probe failed, the calibrated model differs
+   from the datasheet, every rank binds the same plan, every pack
+   bit-exact, the calibrated run's tokens its twin's up to near ties.
 
 Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
 2 x 2 ranks and of one Kimi-K2 prefill layer at 2 x 8 (capacity factors
@@ -85,7 +96,11 @@ tokens);
 
   python3 chip_smoke.py --tp-only
 
-runs phase 8 alone after them (on four cards over nccl, decode graphed).
+runs phase 8 alone after them (on four cards over nccl, decode graphed);
+
+  python3 chip_smoke.py --calibrate-only
+
+runs phase 9 alone after them (on four cards over nccl).
 """
 
 from __future__ import annotations
@@ -124,6 +139,11 @@ PROMPTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
 # Poisson at 500 a second of the virtual clock (cohorts of 1 to 3)
 CONTINUOUS = dict(requests=12, prompt_len=512, max_new=8, arrival_rate=500.0)
 # phase 6's: groups of one request a rank, a batch bucket crossed
+# phase 9: the dispatch/combine probes' tokens a rank, the AllGather probes'
+# bytes a rank (the reference's sweep below 64 MB), new tokens a served run
+CAL_TOKENS = (32, 128, 512)
+CAL_GATHER = (256 << 10, 1 << 20, 4 << 20, 16 << 20)
+CAL_NEW = 8
 RANKS_CONTINUOUS = dict(requests=12, prompt_len=512, max_new=8, rate=1e5,
                         capacity=8)
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 kernel vs fp32 plain
@@ -1807,7 +1827,8 @@ def report_planner(results: list, world: int) -> list:
 
 
 def check_served(results: list, runs: list, cfg, max_new: int, where: str,
-                 exact: bool) -> tuple[list, dict, dict]:
+                 exact: bool, pairs: list | None = None
+                 ) -> tuple[list, dict, dict]:
     """The gates of a served ranks phase, over every rank's results of each
     run: (a) every rank returns the same global tokens and resolves the
     same plan; (c) where ``exact`` (no stage of any run drops a pair) the
@@ -1817,8 +1838,10 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
     warm-up run bit-exact against its plain version; a twin runs its
     plan's prefill triple; (e) the occupied pod-group bytes of the first
     prefill dispatch equal ``dispatch_pod_bytes``, and MultiWrite's are
-    below the baseline's in whole buffers and occupied rows.  Prints each
-    run's plan, packs, walls and bytes.  Returns (failures, the kernel
+    below the baseline's in whole buffers and occupied rows.  ``pairs``:
+    the labels of the fixed scheme pairs (default: the first three runs'),
+    MultiWrite's first and the baseline's last.  Prints each run's plan,
+    packs, walls and bytes.  Returns (failures, the kernel
     launches summed over ranks and runs, the walls by run label)."""
     import numpy as np
 
@@ -1829,7 +1852,7 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
     moe_layers = cfg.n_layers - cfg.first_k_dense
     rows = len(r0["runs"][ranks.run_label(runs[0])]["tokens"])
     labels = [ranks.run_label(run) for run in runs]
-    pairs = labels[:3]
+    pairs = pairs or labels[:3]
     first = r0["runs"][labels[0]]["tokens"]
     packs = {"hierarchical": 3, "baseline": 2}   # packs a dispatch chunk
     walls = {}
@@ -1898,7 +1921,7 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
         # the G = 4 run against the first and the plan's twin against the
         # planned run: rows equal, and a row that parts does so at a near
         # tie of the other run's logits
-        if label not in pairs and label != "planned":
+        if label not in pairs and not runs[labels.index(label)].get("bind"):
             against = runs_[0]["vs"]["run"]
             equal = sum(run["vs"]["rows_equal"] for run in runs_)
             gap = max(run["vs"]["widest_gap"] for run in runs_)
@@ -1935,7 +1958,7 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
                                 f"bytes {b['occupied']} != dispatch_pod_bytes")
     for r in results:
         mw = r["runs"][pairs[0]]["pod_bytes"]
-        base = r["runs"][pairs[2]]["pod_bytes"]
+        base = r["runs"][pairs[-1]]["pod_bytes"]
         ok = all(mw[key] < base[key] for key in ("whole", "occupied"))
         print(f"  rank {r['rank']}: multiwrite {mw} vs baseline {base} pod-"
               f"group bytes: {'multiwrite < baseline' if ok else 'NOT LESS'}")
@@ -2004,6 +2027,203 @@ def check_continuous(results: list) -> list:
     return failures
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the telemetry loop on the card
+# ---------------------------------------------------------------------------
+
+def report_calibration(results: list, title: str) -> list:
+    """Print one live calibration of the ranks (``ranks.live_calibration``
+    reports): each record's predicted and measured us, the fits, the drift
+    at fit and the calibrated model against the datasheet.  Gates: every
+    rank's walls the same bits, no probe failed (after its retries, the
+    checking pass included), every checked pack bit-exact.  Returns the
+    failures."""
+    import numpy as np
+    failures = []
+    cal = results[0]["calibration"]
+    print(f"  {title}: {len(cal['records'])} records on {cal['fabric']}, "
+          f"the monitor's cycle {cal['wall_s']:.1f} s (rank 0)")
+    for rec in cal["records"]:
+        print(f"    {rec['op']}/{rec['plan']} {rec['payload_bytes']:.0f} B: "
+              f"predicted {rec['predicted_s'] * 1e6:.1f} us, measured "
+              f"{rec['measured_s'] * 1e6:.1f} us ({rec['bottleneck_role']})")
+    for name, f in cal["fits"].items():
+        print(f"    fit {name}: {f['bw_gbps']:.3f} GB/s, alpha "
+              f"{f['alpha_us']:.1f} us, r2 {f['r2']}, {f['n_used']} points"
+              f" ({f['n_rejected']} rejected), "
+              + ("trusted" if f["trusted"] else f"untrusted: {f['reason']}"))
+    rates = {k: round(v / 1e9, 3) for k, v in cal["link_bw"].items()}
+    print(f"    drift at fit {100 * cal['drift']:.1f}% (by op "
+          + ", ".join(f"{op} {100 * v:.1f}%"
+                      for op, v in cal["drift_by_op"].items())
+          + f"); {cal['measured_links']} link rates fitted, GB/s {rates}; "
+          f"alpha_base {cal['alpha_base'] * 1e6:.2f} us; the calibrated "
+          f"model {'differs from' if cal['hw'] != cal['default'] else 'is'} "
+          f"the datasheet")
+
+    def bits(r):
+        return [np.float64(rec["measured_s"]).tobytes()
+                for rec in r["calibration"]["records"]]
+    for r in results:
+        if bits(r) != bits(results[0]):
+            failures.append(f"{title}: rank {r['rank']} measured other "
+                            f"walls")
+        if r["calibration"]["failures"]:
+            failures.append(f"{title}: rank {r['rank']}: "
+                            f"{r['calibration']['failures']} probes failed")
+        if not all(ok for *_, ok in r["calibration"]["packs"]):
+            failures.append(f"{title}: rank {r['rank']}: a probe's pack "
+                            f"differs from pack_ref")
+    packs = [p for r in results for p in r["calibration"]["packs"]]
+    if packs:
+        print(f"    probe packs (an unrecorded checking pass of the MoE "
+              f"sweeps): {len(packs)} over the ranks, "
+              f"{sum(ok for *_, ok in packs)} bit-exact against pack_ref")
+    return failures
+
+
+def calibrate_phase() -> dict:
+    """The telemetry loop on the card, over 4 spawned ranks (nccl with a
+    card a rank where there are 4 cards, else gloo on card 0).
+
+    DBRX-132B (4 layers, full width) over 2 pods x 2 ep ranks, capacity
+    factor 4, a prompt of 512 tokens a rank: every rank runs one startup
+    calibration (``ranks.live_calibration``, the steps of
+    ``telemetry.startup_calibration`` with a ``LiveProbe`` over the rank
+    mesh) on the topology the context's planner scores on: the dispatch
+    and the combine, both plans each, at ``CAL_TOKENS`` tokens a rank of
+    the model's own token bytes, and the directed rail probes; then the
+    serve program planned on the datasheet and on the store's fitted model
+    (``calibration=``), and DBRX served under the calibrated plan, its
+    fixed twin and the fixed hierarchical and baseline pairs at G = 1.
+    Then Mistral-NeMo-12B's model axis over (1, 1, 4): a ``LiveProbe``
+    sweep of the AllGather plans on the split-TP topology, the planner's
+    split-TP pick at the served fragment on the datasheet and on the
+    fitted model, the serve program planned with and without the store,
+    and the gather alone at that fragment (plain, paired, full and the
+    datasheet's pick).
+
+    Gates: every rank's walls the same bits; no probe failed; every pack of
+    the probes and of the served warm-ups bit-exact; DBRX's calibrated
+    model differs from the datasheet (the store reached the planner's
+    topology key); every rank plans and binds the same plans; the served
+    runs' gates of phase 6 (the calibrated run held to its twin up to near
+    ties, exact launch counts); the gather bit-exact.  Returns the kernel
+    launches of the measured served runs, summed over ranks and runs."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.topology import split_tp_full_mesh
+    from repro_torch.launch import ranks
+    from repro_torch.launch.serve import make_prompts, serve_config
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 4 else "gloo"
+    where = ("nccl, one card a rank" if backend == "nccl" else
+             "gloo, 4 processes on one card, host-staged transport: the "
+             "probes time the host's copies")
+    cfg = dataclasses.replace(
+        serve_config("dbrx_132b", layers=4, smoke=False),
+        moe_capacity=RANKS_CF)
+    token_bytes = cfg.d_model * 2
+    world = RANKS[0] * RANKS[1]
+    print(f"  {cards} card(s): {world} ranks over {where}")
+    prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
+    runs = ranks.fixed_runs(pairs=(ranks.SCHEME_PAIRS[0],
+                                   ranks.SCHEME_PAIRS[2])) + [
+        dict(label="calibrated", policy="auto", calibrated=True, bind=True),
+        dict(label="calibrated-fixed", twin="calibrated")]
+    labels = [ranks.run_label(run) for run in runs]
+    sweep = tuple(n * token_bytes for n in CAL_TOKENS)
+    calibrate = dict(ops=("dispatch", "combine"), repeats=3,
+                     payloads={"dispatch": sweep, "combine": sweep},
+                     check_packs=True,
+                     scenario=dict(num_experts=cfg.num_experts,
+                                   top_k=cfg.top_k, token_bytes=token_bytes))
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(world=world, pods=RANKS[0], ep=RANKS[1], backend=backend,
+                    device="cuda:0", init_method=f"file://{tmp}/store",
+                    timeout_s=120, out_dir=f"{tmp}/out", threads=2, cfg=cfg,
+                    dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
+                    prompts=prompts, max_new=CAL_NEW, runs=runs, warmup=True,
+                    calibrate=calibrate)
+        t0 = time.monotonic()
+        results = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900)
+    print(f"  {world} ranks spawned, calibrated, served and joined in "
+          f"{time.monotonic() - t0:.1f} s")
+    failures = report_calibration(results, "DBRX over 2 x 2")
+    cal = results[0]["calibration"]
+    if cal["hw"] == cal["default"]:
+        failures.append("DBRX: the calibrated model is the datasheet's")
+    for dec in results[0]["decisions"]:
+        kind = "calibrated" if dec["calibrated"] else "datasheet"
+        print(f"  planner, {kind} [{dec['fingerprint']}]: " + "; ".join(
+                  f"{ph} {d['scheme']}+{d['combine']} G={d['microbatch']}, "
+                  f"predicted serial {d['serial_s'] * 1e6:.1f} us, pipelined "
+                  f"{d['pipelined_s'] * 1e6:.1f} us"
+                  for ph, d in dec["phases"].items()))
+    for r in results:
+        if [d["fingerprint"] for d in r["decisions"]] != \
+                [d["fingerprint"] for d in results[0]["decisions"]]:
+            failures.append(f"DBRX rank {r['rank']}: other plans")
+    found, total, walls = check_served(results, runs, cfg, CAL_NEW, where,
+                                       True, pairs=labels[:2])
+    failures += found
+    failures += check_decode_mode(results, backend)
+    print("  walls, prefill ms / decode ms a token: " + "; ".join(
+        f"{label} {walls[label][0]:.3f} / {walls[label][1]:.3f}"
+        for label in labels))
+
+    mcfg = serve_config("mistral_nemo_12b", layers=None, smoke=False)
+    topo, _ = split_tp_full_mesh(TP_MESH[2], tp=TP_MESH[2] // 2)
+    frag = (PROMPTS, PROMPT_LEN // TP_MESH[2], mcfg.d_model)
+    with tempfile.TemporaryDirectory() as tmp:
+        pods, ep, tp = TP_MESH
+        spec = dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
+                    backend=backend, device="cuda:0",
+                    init_method=f"file://{tmp}/store", timeout_s=120,
+                    out_dir=f"{tmp}/out", threads=2, topo=topo,
+                    calibrate=dict(ops=("allgather",), repeats=3,
+                                   payloads={"allgather": CAL_GATHER}),
+                    gather=dict(shape=frag, reps=5),
+                    split_tp=math.prod(frag) * 2,
+                    program=dict(cfg=mcfg, itemsize=2, tp_subgroups=2,
+                                 phases={"prefill": (PROMPTS, PROMPT_LEN),
+                                         "decode": (PROMPTS, 1)}))
+        t0 = time.monotonic()
+        mres = ranks.run_ranks(ranks.probe_worker, spec, timeout_s=600)
+    print(f"  Mistral-NeMo's model axis, {TP_MESH}: 4 ranks spawned, "
+          f"probed and joined in {time.monotonic() - t0:.1f} s")
+    failures += report_calibration(mres, "split-TP AllGather over (1, 1, 4)")
+    m0 = mres[0]
+    for name, d in m0["split_tp"].items():
+        print(f"  split-TP pick at {math.prod(frag) * 2} bytes a rank, "
+              f"{name}: {d['plan']} (split {d['split']}), predicted "
+              f"{d['predicted_s'] * 1e6:.1f} us")
+    for name, d in m0["program"].items():
+        print(f"  Mistral serve program, context {name} [{d['fingerprint']}]"
+              f": prefill/split_tp_gather {d['plan']} (split {d['split']}), "
+              f"predicted {d['predicted_s'] * 1e6:.1f} us; the context plans "
+              f"on {'a fitted' if d['hw_fitted'] else 'the datasheet'} "
+              f"model")
+    g = m0["gather"]
+    print(f"  the gather alone, {g['shape']} bf16 a rank: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in g["wall_ms"].items())
+        + f" (median of 5, the slowest rank's; planned = the datasheet's "
+        f"pick {g['plan']})")
+    for r in mres:
+        if not all(r["gather"]["exact"].values()):
+            failures.append(f"rank {r['rank']}: gather not bit-exact")
+        if r["program"] != m0["program"] or r["split_tp"] != m0["split_tp"]:
+            failures.append(f"Mistral rank {r['rank']}: other plans")
+    if failures:
+        raise AssertionError(f"phase 9: {failures}")
+    return total
+
+
 def build_phase() -> None:
     from repro_torch.kernels import _build
     t0 = time.monotonic()
@@ -2032,6 +2252,8 @@ def main(argv=None) -> None:
                          "and 32 new tokens)")
     ap.add_argument("--tp-only", action="store_true",
                     help="phases 1, 2 and 8 only (on four cards: nccl)")
+    ap.add_argument("--calibrate-only", action="store_true",
+                    help="phases 1, 2 and 9 only (on four cards: nccl)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2052,12 +2274,17 @@ def main(argv=None) -> None:
     kimi_title = (f"phase 7: Kimi-K2-1T over 2 pods x 8 ep ranks, depth "
                   f"{depth}")
     tp_title = "phase 8: tensor parallelism, Mistral-NeMo-12B over (1, 1, 4)"
+    cal_title = ("phase 9: the telemetry loop, DBRX over 2 x 2 and "
+                 "Mistral-NeMo over (1, 1, 4) calibrated on the card")
     if args.kimi_only:
         print(kimi_title)
         kimi_phase(depth, kimi_new)
     elif args.tp_only:
         print(tp_title)
         tp_phase()
+    elif args.calibrate_only:
+        print(cal_title)
+        calibrate_phase()
     elif args.ranks_only:
         for i, cf in enumerate(args.ranks_only):
             print(f"phase 6: DBRX over 2 pods x 2 ep ranks, capacity factor "
@@ -2081,6 +2308,8 @@ def main(argv=None) -> None:
         by_path["kimi_k2_1t_2x8_ranks"] = kimi_phase(depth, kimi_new)
         print(tp_title)
         by_path["tp_ranks"] = tp_phase()
+        print(cal_title)
+        by_path["dbrx_132b_2x2_calibrated"] = calibrate_phase()
 
         for name, row in rows.items():
             row["launches"] = sum(c[name] for c in by_path.values())

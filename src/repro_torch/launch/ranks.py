@@ -5,8 +5,9 @@ host, spawned and joined with a deadline.
 ranks) serving DBRX-132B, as 16 gloo ranks (2 pods x 8) serving
 Kimi-K2-1T, and as 4 tensor-parallel ranks (1 x 1 x 4) serving
 Mistral-NeMo-12B and (1 x 2 x 2) serving DBRX on the card(s); the CPU
-tests spawn it, :func:`dispatch_worker` and :func:`gather_worker` as 4, 8
-or 16 gloo ranks at small sizes.  A spec's mesh is ``(pods, ep, tp)``
+tests spawn it, :func:`dispatch_worker`, :func:`gather_worker` and
+:func:`probe_worker` (the telemetry's ``LiveProbe``) as 4, 8 or 16 gloo
+ranks at small sizes.  A spec's mesh is ``(pods, ep, tp)``
 (``tp`` default 1).  The ranks
 of one card can share one copy of the non-expert weights
 (:func:`shared_weights`, ``run_ranks(shared=...)``).
@@ -272,10 +273,11 @@ def _checked_packs(record: list):
 
 
 def run_context(mesh: RankMesh, pods: int, run: dict, *, fabric=None,
-                cfg=None, phases=None, itemsize: int = 2
+                cfg=None, phases=None, itemsize: int = 2, calibration=None
                 ) -> ParallelContext:
     """The context a run executes under.  ``run``: ``scheme``/``combine``/
-    ``microbatch`` (the fixed knobs), ``tp_subgroups``,
+    ``microbatch`` (the fixed knobs), ``calibrated`` (plan on the
+    ``calibration`` store's fitted model), ``tp_subgroups``,
     ``seq_shard_decode`` and ``deferred`` (``moe_deferred_tp_reduce``) of
     the model axis, ``policy`` ("fixed" or "auto"),
     ``fabric`` (a spec ``get_fabric`` takes, "measured" for ``fabric``, or
@@ -295,7 +297,8 @@ def run_context(mesh: RankMesh, pods: int, run: dict, *, fabric=None,
         tp_subgroups=run.get("tp_subgroups", 1),
         seq_shard_decode=run.get("seq_shard_decode", True),
         moe_deferred_tp_reduce=run.get("deferred", False),
-        fabric=get_fabric(spec) if spec else None)
+        fabric=get_fabric(spec) if spec else None,
+        calibration=calibration if run.get("calibrated") else None)
     if run.get("plan") is not None:
         pctx = pctx.bind(run["plan"])
     elif run.get("program") is not None:
@@ -368,19 +371,24 @@ def link_probe_bytes(cfg, rows: int, pods: int, ep: int,
 
 
 def plan_decisions(mesh: RankMesh, pods: int, cfg, phases: dict,
-                   spec: str | None, itemsize: int = 2) -> dict:
+                   spec: str | None, itemsize: int = 2,
+                   calibration=None) -> dict:
     """What the planner decides for ``cfg``'s serve program on fabric
-    ``spec`` (None: the mesh-derived topology): per phase the coupled
+    ``spec`` (None: the mesh-derived topology), on the datasheet or with a
+    ``calibration`` store on its fitted model: per phase the coupled
     (scheme, combine, G) and the modelled serial and pipelined seconds of
     the round trip, and the host time of one ``moe_pipeline_kwargs`` call
     under the bound plan and under ad-hoc ``auto`` (first call on a fresh
     context, then a repeated call)."""
-    auto = run_context(mesh, pods, {"policy": "auto", "fabric": spec})
+    want = {"policy": "auto", "fabric": spec,
+            "calibrated": calibration is not None}
+    auto = run_context(mesh, pods, want, calibration=calibration)
     program = build_collective_program(cfg, auto, "serve", phases,
                                        itemsize=itemsize)
     eplan = auto.plan_collectives(program)
     out = {"fabric": spec or "mesh-derived", "fingerprint":
-           eplan.fingerprint, "phases": {}, "host_us": {}}
+           eplan.fingerprint, "calibrated": calibration is not None,
+           "phases": {}, "host_us": {}}
     for phase in phases:
         anchor = f"{phase}/moe_dispatch"
         d = eplan.joint[anchor]
@@ -395,8 +403,8 @@ def plan_decisions(mesh: RankMesh, pods: int, cfg, phases: dict,
                compute_s=moe_compute_s(n, cfg.top_k, cfg.d_model,
                                        cfg.expert_d_ff))
     for name, pctx in (("bound", auto.bind(eplan)),
-                       ("auto", run_context(mesh, pods, {
-                           "policy": "auto", "fabric": spec}))):
+                       ("auto", run_context(mesh, pods, want,
+                                            calibration=calibration))):
         walls = []
         for _ in range(2):
             t0 = time.perf_counter()
@@ -598,6 +606,172 @@ def continuous_run(mesh: RankMesh, spec: dict, params, device, fabric
             "tokens": {r.rid: list(r.tokens) for r in sched.completed}}
 
 
+def _probe_failures() -> float:
+    """Probes failed so far in this process, over every reason and
+    fabric (``repro_probe_failures_total``)."""
+    from repro_torch.telemetry import default_registry
+    return sum(v for _, v in default_registry()[
+        "repro_probe_failures_total"].samples())
+
+
+def _live_probe(mesh: RankMesh, device, **kw):
+    """A ``LiveProbe`` of this rank mesh: the MoE over pod x data (pod
+    when the mesh has pods), the AllGather over the model axis."""
+    from repro_torch.telemetry import LiveProbe
+    return LiveProbe(mesh, pod_axis="pod" if mesh.shape["pod"] > 1 else None,
+                     device=device, **kw)
+
+
+def live_calibration(mesh: RankMesh, device, topo, opts: dict) -> tuple:
+    """One startup calibration on these ranks, the steps of
+    ``telemetry.startup_calibration`` with a ``LiveProbe``: a DriftMonitor
+    on a fresh Planner (the process planner keeps the datasheet) runs one
+    cycle of sweeps on ``topo`` into a ``:memory:`` store, then
+    recalibrates.  ``opts``: the probe's ``repeats``, the ``ops`` swept
+    (the AllGather over the model axis, the MoE over pod x data; the
+    directed rail probes follow), ``payloads`` (op -> sweep) and
+    ``scenario`` (``num_experts``, ``top_k``, ``token_bytes``).  With
+    ``check_packs`` the MoE sweeps first run once, unrecorded, with every
+    pack held against its plain version (:func:`_checked_packs`), so that
+    the timed sweeps carry no check.  Returns (store, report): every record, the fits and
+    the drift at fit, the calibrated model against the datasheet, the
+    probes that failed (the checking pass included) and the checked
+    packs."""
+    from repro_torch.core.latency_model import DEFAULT
+    from repro_torch.core.planner import Planner
+    from repro_torch.telemetry import (CalibrationStore, DriftMonitor,
+                                       calibrated_hw, probe_sweep, topo_key)
+
+    ops, payloads = tuple(opts["ops"]), opts.get("payloads")
+    scenario = opts.get("scenario", {})
+    before = _probe_failures()
+    packs: list = []
+    if opts.get("check_packs"):
+        with _checked_packs(packs):
+            probe_sweep(topo, _live_probe(mesh, device, repeats=1),
+                        ops=[op for op in ops if op in ("dispatch",
+                                                        "combine")],
+                        payloads=payloads, **scenario)
+    store = CalibrationStore(":memory:")
+    monitor = DriftMonitor(Planner(), store, topo)
+    t0 = time.perf_counter()
+    probe = _live_probe(mesh, device, repeats=opts.get("repeats", 3))
+    event = (monitor.run_cycle(probe, ops=ops, payloads=payloads, **scenario)
+             or monitor.recalibrate(force=True))
+    wall = time.perf_counter() - t0
+    hw = calibrated_hw(store, topo)
+    keep = ("op", "plan", "payload_bytes", "predicted_s", "measured_s",
+            "bottleneck_role", "source", "fabric")
+    return store, {
+        "fabric": topo_key(topo), "wall_s": wall,
+        "records": [{k: r[k] for k in keep} for r in store.records()],
+        "fits": event["fits"], "drift": event["drift"],
+        "drift_by_op": event["drift_by_op"],
+        "measured_links": event["measured_links"],
+        "hw": hw.fingerprint(), "default": DEFAULT.fingerprint(),
+        "link_bw": {f"{a}>{b}": bw for (a, b), bw in hw.link_bw},
+        "alpha_base": hw.alpha_base,
+        "failures": _probe_failures() - before,
+        "packs": packs}
+
+
+def probe_worker(rank: int, spec: dict) -> None:
+    """``LiveProbe`` on these ranks, for the tests and for chip_smoke's
+    phase 9.  ``spec["calibrate"]``: :func:`live_calibration` on
+    ``spec["topo"]``.  ``spec["timeout"]``: a sweep (``ops``, ``payloads``)
+    under a probe deadline of ``timeout_s`` and one attempt a probe: the
+    records kept and the probes failed.  ``spec["dispatch_bytes"]``: the
+    rows and row bytes that each dispatch probe of the calibration hands
+    the dispatch (a patch of both dispatches).  ``spec["scan"]``: one
+    ``FailureDetector`` scan of every rail of the topology through the
+    probe's single-rail ``linkprobe``: whether the dead set changed, and
+    the links declared dead.  ``spec["gather"]``:
+    :func:`tp_gather_probe`.  ``spec["split_tp"]`` (fragment bytes): the
+    planner's split-TP AllGather pick on the topology, on the datasheet
+    and on the calibrated model.  ``spec["program"]`` (``cfg``,
+    ``phases``, ``itemsize``, ``tp_subgroups``): the serve program planned
+    by a context without and with ``calibration=`` the store, its
+    fingerprint and split-TP decision each."""
+    from repro_torch.core.latency_model import DEFAULT
+    from repro_torch.core.planner import Planner
+    from repro_torch.telemetry import ProbePolicy, calibrated_hw, probe_sweep
+    mesh = init_rank(rank, spec)
+    dev = rank_device(rank, spec)
+    topo = spec.get("topo")
+    results: dict = {"rank": rank}
+    calls: list = []
+
+    def recording(fn):
+        def call(tokens, ids, gates, dcfg, epmesh):
+            calls.append((tokens.shape[0],
+                          tokens.shape[1] * tokens.element_size()))
+            return fn(tokens, ids, gates, dcfg, epmesh)
+        return call
+    patches = ([mock.patch.object(cl, name, recording(getattr(cl, name)))
+                for name in ("hierarchical_dispatch", "baseline_dispatch")]
+               if spec.get("dispatch_bytes") else [])
+    store = None
+    if spec.get("calibrate"):
+        for patch in patches:
+            patch.start()
+        try:
+            store, results["calibration"] = live_calibration(
+                mesh, dev, topo, spec["calibrate"])
+        finally:
+            for patch in patches:
+                patch.stop()
+        results["dispatch_calls"] = calls
+    if spec.get("timeout"):
+        opts = spec["timeout"]
+        before = _probe_failures()
+        probe = _live_probe(mesh, dev, repeats=1,
+                            timeout_s=opts["timeout_s"])
+        records = probe_sweep(topo, probe, ops=opts["ops"],
+                              payloads=opts["payloads"],
+                              policy=ProbePolicy(retries=0),
+                              **opts.get("scenario", {}))
+        results["timeout"] = {
+            "records": len(records),
+            "failures": _probe_failures() - before}
+    if spec.get("scan"):
+        from repro_torch.telemetry.failover import FailureDetector
+        detector = FailureDetector(topo)
+        changed = detector.scan(_live_probe(mesh, dev, repeats=1))
+        results["scan"] = {"changed": changed, "rails": len(detector.rails),
+                           "dead": sorted(detector.dead_links())}
+    if spec.get("gather"):
+        results["gather"] = tp_gather_probe(mesh, dev, **spec["gather"])
+    if spec.get("split_tp"):
+        results["split_tp"] = {}
+        for name, hw in (("datasheet", None),
+                         ("calibrated", calibrated_hw(store, topo))):
+            d = Planner().choose("allgather", float(spec["split_tp"]), topo,
+                                 hw, executable_only=True, num_domains=2)
+            results["split_tp"][name] = {
+                "plan": d.plan, "split": d.shard_map_kwargs.get("split"),
+                "predicted_s": d.predicted_s}
+    if spec.get("program"):
+        job = spec["program"]
+        results["program"] = {}
+        for name, cal in (("datasheet", None), ("calibrated", store)):
+            pctx = ParallelContext(mesh, tp_subgroups=job["tp_subgroups"],
+                                   plan_policy="auto", calibration=cal)
+            program = build_collective_program(
+                job["cfg"], pctx, "serve", job["phases"],
+                itemsize=job["itemsize"])
+            eplan = pctx.plan_collectives(program)
+            d = eplan.decision("prefill/split_tp_gather")
+            _, hw = pctx._plan_topo_hw(0)
+            results["program"][name] = {
+                "fingerprint": eplan.fingerprint, "plan": d.plan,
+                "split": d.shard_map_kwargs.get("split"),
+                "predicted_s": d.predicted_s,
+                "hw_fitted": hw not in (None, DEFAULT)}
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, results)
+
+
 def serve_worker(rank: int, spec: dict) -> None:
     """One rank of ``spec["cfg"]`` served through ``ServeEngine.generate``
     for each run of ``spec["runs"]`` (default: the fixed scheme pairs of
@@ -624,7 +798,11 @@ def serve_worker(rank: int, spec: dict) -> None:
     ``spec["measure_link"]`` (bytes a rank) the ranks first time the
     exchange (:func:`measure_link`), and ``spec["decide"]`` lists fabrics
     (specs, "measured", "measured-pod:<GB/s>", or None) whose planner
-    decisions are reported.  ``spec["trace"]``
+    decisions are reported.  ``spec["calibrate"]`` (:func:`live_calibration`
+    options) first calibrates on the topology the planner scores the
+    context on, reports the decisions on the datasheet and on the store's
+    fitted model, and gives the store to runs marked ``calibrated``.
+    ``spec["trace"]``
     (``{"run": label, "path": ...}``) times one MoE layer at the prefill
     rows under each run's context (:func:`layer_walls`) and traces it under
     that run's (:func:`trace_moe_layer`).  ``spec["continuous"]`` adds a
@@ -667,6 +845,16 @@ def serve_worker(rank: int, spec: dict) -> None:
                                float(pod) * 1e9 if pod else None)
         results["decisions"].append(plan_decisions(
             mesh, spec["pods"], cfg, phases, want, itemsize))
+    store = None
+    if spec.get("calibrate"):
+        topo, _ = run_context(mesh, spec["pods"], {})._plan_topo_hw(
+            cfg.num_experts)
+        store, results["calibration"] = live_calibration(
+            mesh, dev, topo, spec["calibrate"])
+        for cal in (None, store):
+            results["decisions"].append(plan_decisions(
+                mesh, spec["pods"], cfg, phases, None, itemsize,
+                calibration=cal))
     params = None
     contexts, refs = {}, {}
     if spec.get("gather"):
@@ -679,7 +867,7 @@ def serve_worker(rank: int, spec: dict) -> None:
             run = dict(run, scheme=scheme, combine=combine, microbatch=g)
         pctx = contexts[label] = run_context(
             mesh, spec["pods"], run, fabric=fabric, cfg=cfg, phases=phases,
-            itemsize=itemsize)
+            itemsize=itemsize, calibration=store)
         model = build_model(cfg, device=dev, dtype=spec["dtype"], pctx=pctx)
         if params is None:
             if spec.get("weights") is not None:

@@ -47,6 +47,16 @@ split-TP gather site of the prefill (two domains), planned on its split-TP
 topology.  ``--plan-policy fixed`` runs the hierarchical pair at one chunk
 and paired relaying at the analytic split.
 
+``--calibrate startup`` runs the telemetry loop before the plan is bound
+(a probe sweep of the collectives on the planning fabric, a fit, and the
+process planner recalibrated on the fitted model), as the reference's
+launcher does, with the reference's simulated probe (there is no flag for
+a live one: a deployment passes a ``telemetry.LiveProbe`` to
+``telemetry.startup_calibration``).  Records go to ``--calibration-store``
+(default ``results/calibration_torch/calibration.jsonl``); the plan report
+then carries the drift at fit.  ``--metrics-port`` serves the metrics
+registry over HTTP and ``--metrics-snapshot`` writes it at exit (rank 0).
+
 ``--continuous`` drains a seeded open-loop Poisson stream (``--requests``
 at ``--arrival-rate`` a second of the scheduler's virtual clock) through
 the continuous-batching scheduler under planner admission, ``--prompts``
@@ -74,6 +84,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core.h100 import fabric_spec
+from repro_torch.core.planner import _ep_topology, default_planner
 from repro_torch.core.topology import get_fabric
 from repro_torch.device import resolve_device
 from repro_torch.launch.ranks import link_probe_bytes, measure_link
@@ -82,6 +93,12 @@ from repro_torch.parallel.context import (ParallelContext,
                                           build_collective_program)
 from repro_torch.parallel.mesh import RankMesh
 from repro_torch.runtime.server import ServeConfig, ServeEngine
+from repro_torch.telemetry import (CalibrationStore, DriftMonitor,
+                                   GroundTruth, SimProbe,
+                                   startup_calibration)
+from repro_torch.telemetry.exporter import (add_metrics_args,
+                                            finish_exporter_from_args,
+                                            start_exporter_from_args)
 
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=120)
 
@@ -100,10 +117,11 @@ def serve_config(arch: str, *, layers: int | None, smoke: bool
 
 def build_engine(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
                  seed: int = 0, max_new: int = 32, temperature: float = 0.0,
-                 cache_dtype=torch.bfloat16, pctx=None) -> ServeEngine:
+                 cache_dtype=torch.bfloat16, pctx=None, calibration=None,
+                 monitor=None) -> ServeEngine:
     """Model with random weights from a seeded generator of ``device``
     (this rank's experts only, with a ``pctx``), wrapped in a
-    ServeEngine."""
+    ServeEngine (with the telemetry store and monitor, if any)."""
     dev = resolve_device(device)
     model = build_model(cfg, device=dev, dtype=dtype, pctx=pctx)
     gen = torch.Generator(device=dev)
@@ -117,7 +135,8 @@ def build_engine(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
                        ServeConfig(max_new_tokens=max_new,
                                    temperature=temperature,
                                    cache_dtype=cache_dtype),
-                       device=dev, pctx=pctx)
+                       device=dev, pctx=pctx, calibration=calibration,
+                       monitor=monitor)
 
 
 def join_ranks(pods: int, ep: int, backend: str | None, device, *,
@@ -181,6 +200,26 @@ def planning_fabric(pctx, cfg: ModelConfig, args, device) -> str | None:
     return spec
 
 
+def calibrate(pctx, topo, path):
+    """``--calibrate startup`` on ``topo``: ``startup_calibration`` with its
+    simulated probe, returning (store, monitor, event).  Over ranks every
+    rank reads the store's file before rank 0 appends this run's records
+    to it (the others keep theirs in memory), so every rank fits the same
+    records and binds the same plan."""
+    if pctx is None:
+        return startup_calibration(topo, path)
+    store = CalibrationStore(":memory:")
+    store.extend(CalibrationStore(path).records())
+    dist.barrier()
+    old = len(store)
+    monitor = DriftMonitor(default_planner(), store, topo)
+    event = (monitor.run_cycle(SimProbe(GroundTruth()))
+             or monitor.recalibrate(force=True))
+    if pctx.mesh.rank == 0:
+        CalibrationStore(path).extend(store.records()[old:])
+    return store, monitor, event
+
+
 def serve_continuous(args, cfg: ModelConfig, engine: ServeEngine,
                      pctx) -> dict:
     """Drain a seeded Poisson arrival stream through the continuous-
@@ -242,6 +281,13 @@ def print_plans(plans: dict) -> None:
                   f"{per_op['combos_scored']}/{per_op['product']} "
                   f"combination(s) scored across {per_op['phases']} "
                   f"phase(s) in {per_op['planning_wall_s'] * 1e3:.1f}ms")
+        elif phase == "calibration":
+            last = per_op.get("last_recalibration")
+            print(f"calibration: drift {per_op['drift_pct']:.1f}% over "
+                  f"{per_op['observations']} probe(s), "
+                  f"{per_op['recalibrations']} recalibration(s)"
+                  + (f", last refit {last['measured_links']} links"
+                     if last else ""))
         elif phase == "phases":
             for ph, rep in per_op.items():
                 line = (f"phase[{ph}]: {rep['score_s'] * 1e6:.1f}us "
@@ -343,38 +389,61 @@ def main(argv=None) -> dict:
                          "size whose predicted step meets it (default: "
                          "1.15 x the predicted step at the scheme-"
                          "crossover batch)")
+    ap.add_argument("--calibrate", choices=("off", "startup"),
+                    default="off",
+                    help="telemetry: probe sweep + fit before the plan is "
+                         "bound, so the planner scores on the fitted link "
+                         "rates; the plan report then carries the drift")
+    ap.add_argument("--calibration-store", default=None,
+                    help="calibration JSONL path (default "
+                         "results/calibration_torch/calibration.jsonl)")
+    add_metrics_args(ap)
     args = ap.parse_args(argv)
 
     cfg = serve_config(args.arch, layers=args.layers, smoke=args.smoke)
     pctx, device = join_ranks(args.pods, args.ep, args.backend, args.device,
                               tp=args.tp, tp_subgroups=args.tp_subgroups)
+    rank0 = pctx is None or pctx.mesh.rank == 0
+    exporter = start_exporter_from_args(args) if rank0 else None
     plan = fabric = None
     if pctx is not None:
         pctx = dataclasses.replace(pctx, plan_policy=args.plan_policy)
-        if args.plan_policy == "auto" and (cfg.is_moe or args.tp > 1):
-            if cfg.is_moe:
-                fabric = planning_fabric(pctx, cfg, args, device)
-                pctx = dataclasses.replace(
-                    pctx, fabric=get_fabric(fabric) if fabric else None)
-            # bind the plan of both phases before the model is built; site
-            # keys embed the payload, so the itemsize is the model's
-            budgets = ({"decode": args.decode_slo_us * 1e-6}
-                       if args.decode_slo_us else None)
-            program = build_collective_program(
-                cfg, pctx, "serve",
-                {"prefill": (args.prompts, args.prompt_len),
-                 "decode": (args.prompts, 1)},
-                itemsize=4 if args.smoke else 2, phase_budgets=budgets)
-            plan = pctx.plan_collectives(program)
-            pctx = pctx.bind(plan)
-            if pctx.mesh.rank == 0:
-                print(plan.summary())
+        if args.plan_policy == "auto" and cfg.is_moe:
+            fabric = planning_fabric(pctx, cfg, args, device)
+            pctx = dataclasses.replace(
+                pctx, fabric=get_fabric(fabric) if fabric else None)
+    # the fabric is resolved before telemetry: the probe's records and the
+    # planner's lookups share one topology key
+    store = monitor = None
+    if args.calibrate != "off":
+        topo = (_ep_topology(pctx.num_pods, pctx.data_size, pctx.fabric)
+                if pctx is not None else get_fabric(args.fabric or "2x8"))
+        store, monitor, event = calibrate(pctx, topo, args.calibration_store)
+        if rank0:
+            print(f"calibration: {len(store)} records, "
+                  f"recalibrated={bool(event)}"
+                  + (f", drift at fit {100 * event['drift']:.1f}%"
+                     if event else ""))
+    if (pctx is not None and args.plan_policy == "auto"
+            and (cfg.is_moe or args.tp > 1)):
+        # bind the plan of both phases before the model is built; site
+        # keys embed the payload, so the itemsize is the model's
+        budgets = ({"decode": args.decode_slo_us * 1e-6}
+                   if args.decode_slo_us else None)
+        program = build_collective_program(
+            cfg, pctx, "serve",
+            {"prefill": (args.prompts, args.prompt_len),
+             "decode": (args.prompts, 1)},
+            itemsize=4 if args.smoke else 2, phase_budgets=budgets)
+        plan = pctx.plan_collectives(program)
+        pctx = pctx.bind(plan)
+        if pctx.mesh.rank == 0:
+            print(plan.summary())
     engine = build_engine(
         cfg, device=device,
         dtype=torch.float32 if args.smoke else torch.bfloat16,
         seed=args.seed, max_new=args.max_new, temperature=args.temperature,
-        pctx=pctx)
-    rank0 = pctx is None or pctx.mesh.rank == 0
+        pctx=pctx, calibration=store, monitor=monitor)
     if args.continuous:
         rep = serve_continuous(args, cfg, engine, pctx)
         engine.close()
@@ -401,6 +470,7 @@ def main(argv=None) -> dict:
             print(f"measured walls: prefill {rep['wall']['prefill_s']:.3f} "
                   f"s, decode {rep['wall']['decode_s']:.3f} s")
             print(graph_line(engine.stats))
+            finish_exporter_from_args(args, exporter)
         return {"report": rep, "decode_graph": engine.stats["decode_graph"]}
     prompts = make_prompts(cfg, args.prompts, args.prompt_len, args.seed)
     out = engine.generate(prompts)
@@ -423,6 +493,7 @@ def main(argv=None) -> dict:
         print_plans(st.get("plans", {}))
         print(graph_line(st))
         print(json.dumps(result))
+        finish_exporter_from_args(args, exporter)
     return result
 
 

@@ -17,9 +17,9 @@ chunk count G) resolves as the reference resolves it: a bound
 :class:`~repro_torch.core.plan.ExecutionPlan` first, then the planner under
 ``plan_policy="auto"``, then the declared knobs.  The planner scores on the
 explicit ``fabric`` or, without one, on the reference's mesh-derived
-topology, so that both packages give the same plans for the same inputs.
-Telemetry calibration (queue 1 item 7) is a later slice of the port;
-asking for it raises.
+topology, so that both packages give the same plans for the same inputs;
+with a ``calibration`` store, under the store's fitted hardware model for
+that topology instead of the datasheet constants.
 
 :class:`PlanBinder` is a verbatim copy of the reference's (``repro.`` read
 as ``repro_torch.``): the serving engine's double-buffered plan binding,
@@ -49,7 +49,9 @@ class ParallelContext:
     fabric: Optional[object] = None   # core.topology.Topology the planner
     #   scores on (--fabric); None = derived from the mesh shape.  It
     #   changes which plan wins, not where the exchanges run.
-    calibration: Optional[object] = None
+    calibration: Optional[object] = None  # telemetry CalibrationStore (or
+    #   path): the planner scores on the store's fitted model for the
+    #   planning topology instead of the datasheet (--calibrate)
     moe_skew: float = 0.0             # hot-expert routing skew the planner
     #                                   prices dispatch/combine under
     tp_subgroups: int = 1             # §3.1 split-TP domains on model axis
@@ -65,10 +67,6 @@ class ParallelContext:
                                         repr=False, compare=False)
 
     def __post_init__(self):
-        if self.calibration is not None:
-            raise NotImplementedError(
-                "calibration (the telemetry CalibrationStore) is queue 1 "
-                "item 7 of the port")
         if self.plan_policy not in ("fixed", "auto"):
             raise ValueError(f"plan_policy {self.plan_policy!r}")
         if int(self.moe_microbatch) < 1:
@@ -120,13 +118,18 @@ class ParallelContext:
     # -- planner consumption -------------------------------------------------
     def _plan_topo_hw(self, num_experts: int):
         """(topology, hardware model) the EP planner ops score against: the
-        explicit ``fabric`` (or the reference's mesh-derived shape) and the
-        datasheet model (None; calibration is not ported)."""
+        explicit ``fabric`` (or the reference's mesh-derived shape), and
+        with a ``calibration`` store the store's fitted model for that
+        topology (None: the planner's own, the datasheet)."""
         from repro_torch.core.planner import _ep_topology
         use_pod, _ = self.ep_ranks(num_experts)
         topo = _ep_topology(self.num_pods if use_pod else 1,
                             self.data_size, self.fabric)
-        return topo, None
+        hw = None
+        if self.calibration is not None:
+            from repro_torch.telemetry import calibrated_hw, resolve_store
+            hw = calibrated_hw(resolve_store(self.calibration), topo)
+        return topo, hw
 
     # -- declarative collective programs -------------------------------------
     def bind(self, plan) -> "ParallelContext":
@@ -201,8 +204,8 @@ class ParallelContext:
                                       compute_s=compute, topo=topo)
 
     def plan_collectives(self, program):
-        """Jointly plan a declared program on this context's fabric
-        (``pctx = pctx.bind(pctx.plan_collectives(program))``)."""
+        """Jointly plan a declared program on this context's fabric and
+        calibration (``pctx = pctx.bind(pctx.plan_collectives(program))``)."""
         from repro_torch.core.planner import default_planner
         num_experts = max((dict(s.scenario_kw).get("num_experts", 0)
                            for s in program.sites), default=0)
@@ -235,9 +238,10 @@ class ParallelContext:
         actually runs (the best joint candidate at that G).
 
         Eager torch asks at every MoE call, where the reference asks once
-        at trace time; the answer for one set of arguments never changes
-        on a context (its plan is immutable and the planner has no
-        calibration), so it is kept on the context after the first call."""
+        at trace time; the first answer for one set of arguments is kept
+        on the context, as a jitted layer keeps its trace-time answer: a
+        recalibration reaches a layer through a re-bind, which makes a new
+        context."""
         key = (num_experts, top_k, tokens_per_rank, token_bytes,
                float(compute_s), microbatch)
         kw = self._resolved.get(key)

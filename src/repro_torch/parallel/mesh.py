@@ -146,23 +146,30 @@ class RankMesh:
         return out.view(len(members), *x.shape)
 
     def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
-        """``lax.ppermute(x, axis, perm)`` for a permutation ``perm`` of the
-        axis's coordinates (``(source, destination)`` pairs, every
-        coordinate once on each side): one ``all_to_all_single`` over the
-        axis in which each rank sends ``x`` to one rank and receives one
+        """``lax.ppermute(x, axis, perm)``: ``perm`` is ``(source,
+        destination)`` pairs of the axis's coordinates, each coordinate at
+        most once on each side; a rank that no pair names as destination
+        gets zeros.  One ``all_to_all_single`` over the axis in which each
+        rank sends ``x`` to at most one rank and receives at most one
         rank's, a single nonzero split each way."""
         n = self.shape[axis]
         dst = dict(perm)
         src = {d: s for s, d in perm}
-        if sorted(dst) != list(range(n)) or sorted(src) != list(range(n)):
+        if (len(dst) != len(perm) or len(src) != len(perm)
+                or not set(dst) | set(src) <= set(range(n))):
             raise ValueError(f"{perm} is not a permutation of {n} ranks")
         me = self.coords[axis]
         x = x.contiguous()
         rows = x.shape[0]
         send, recv = [0] * n, [0] * n
-        send[dst[me]] = recv[src[me]] = rows
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, recv, send, group=self.group(axis))
+        if me in dst:
+            send[dst[me]] = rows
+        if me in src:
+            recv[src[me]] = rows
+        out = torch.empty_like(x) if me in src else torch.zeros_like(x)
+        dist.all_to_all_single(out if me in src else out[:0],
+                               x if me in dst else x[:0], recv, send,
+                               group=self.group(axis))
         return out
 
 

@@ -99,25 +99,29 @@ class ServeEngine:
         (default: ``models.api.build_model`` of the same config, device
         and dtype) — what :meth:`rebind` builds when a new plan swaps
         in; the same ``params`` serve every plan, since a re-bound context
-        keeps its mesh and expert shard.  ``calibration`` and ``monitor``
-        (the telemetry loop) are queue 1 item 7 of the port."""
-        if calibration is not None or monitor is not None:
-            raise NotImplementedError(
-                "ServeEngine calibration= and monitor= (the telemetry "
-                "CalibrationStore and DriftMonitor) are queue 1 item 7 of "
-                "the port")
+        keeps its mesh and expert shard.  ``calibration``: a telemetry
+        CalibrationStore (or path) whose fitted hardware model the planner
+        scores on.  ``monitor``: a telemetry DriftMonitor whose
+        predicted-vs-measured state ``plan_report`` carries, and whose
+        retargeted plans a stale bound plan is re-staged from."""
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model built for {model.device}, engine on "
                              f"{self.device}")
         if model.pctx is not pctx:
             raise ValueError("the model was built for another ParallelContext")
-        if pctx is not None and fabric is not None:
+        if pctx is not None and (fabric is not None
+                                 or calibration is not None):
             from repro_torch.core.topology import get_fabric
-            pctx = dataclasses.replace(
-                pctx, fabric=get_fabric(fabric) if isinstance(fabric, str)
-                else fabric)
+            repl = {}
+            if fabric is not None:
+                repl["fabric"] = (get_fabric(fabric)
+                                  if isinstance(fabric, str) else fabric)
+            if calibration is not None:
+                repl["calibration"] = calibration
+            pctx = dataclasses.replace(pctx, **repl)
         self.pctx = pctx
+        self.monitor = monitor
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -246,8 +250,8 @@ class ServeEngine:
         return self._binder.prefetch(plan)
 
     def plan_probe(self, itemsize: int = 2):
-        """PlannerProbe over this engine's fabric — the admission
-        controller's latency oracle.  ``itemsize`` must match the
+        """PlannerProbe over this engine's fabric and calibration — the
+        admission controller's latency oracle.  ``itemsize`` must match the
         activation dtype (2 = bf16, 4 = fp32 smoke).  None without a
         parallel context."""
         if self._probe is not None:
@@ -268,11 +272,15 @@ class ServeEngine:
     def plan_report(self, batch: int, prompt_len: int) -> dict:
         """Per-phase view of the jointly planned serving program: each
         phase's dispatch and combine decisions plus the JOINT pipeline
-        verdict, resolved against the plan the MoE layers execute.  A
-        bound plan that a replan would change is reported (``stale``) and
-        warned about once; re-staging it is the drift monitor's, queue 1
-        item 7."""
+        verdict, resolved against the plan the MoE layers execute, and
+        with a ``monitor`` its drift report (``calibration``).  A bound
+        plan that a replan would change is reported (``stale``): when the
+        monitor retargeted its program (failover or failback) the
+        replacement is staged for a hot re-bind (``restaged``), else it is
+        warned about once."""
         out = {}
+        if self.monitor is not None:
+            out["calibration"] = self.monitor.report()
         eplan = self.execution_plan(batch, prompt_len)
         if eplan is None:
             return out
@@ -281,7 +289,12 @@ class ServeEngine:
             stale = self.pctx.bound_plan_stale()
             if stale is not None:
                 out["stale"] = stale
-                if stale and not self._stale_warned:
+                staged = None
+                if stale and self.monitor is not None:
+                    staged = self.monitor.staged_plan(eplan.program.name)
+                if staged is not None:
+                    out["restaged"] = self.rebind(staged)
+                elif stale and not self._stale_warned:
                     self._stale_warned = True
                     _metrics()["repro_plan_stale_total"].inc(
                         program=eplan.program.name,

@@ -106,16 +106,16 @@ def test_dispatch_combine_match_reference(n, h, e, k, cf):
 
 
 def test_planner_and_tensor_parallel_slices_raise():
-    """The context takes the planner's knobs; what it does not take raises,
-    naming the slice of the port that brings it: calibration (telemetry,
-    item 7).  Tensor parallelism is taken: a model axis needs its ranks (a
-    mesh of 2 over a process group of 1 raises), and the deferred TP
-    reduction and split-TP domains are knobs of the context."""
+    """The context takes the planner's knobs and, since the telemetry
+    slice, a calibration store; bad knobs raise.  Tensor parallelism is
+    taken: a model axis needs its ranks (a mesh of 2 over a process group
+    of 1 raises), and the deferred TP reduction and split-TP domains are
+    knobs of the context."""
     from repro_torch.parallel.context import ParallelContext
     from repro_torch.parallel.mesh import RankMesh
     mesh = RankMesh((1, 1, 1))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ParallelContext(mesh, calibration="calibration.jsonl")
+    assert ParallelContext(mesh, calibration=":memory:").calibration \
+        == ":memory:"
     with pytest.raises(ValueError, match="holds 2 ranks"):
         RankMesh((1, 1, 2))
     pctx = ParallelContext(mesh, tp_subgroups=2, moe_deferred_tp_reduce=True)

@@ -321,11 +321,20 @@ def test_prefetch_and_rebind_count_as_reference(monkeypatch):
 
 
 def test_engine_refuses_the_telemetry_loop():
+    """The engine refused a store and a monitor until the port had the
+    telemetry loop; it takes both now (parity with the reference's engine:
+    ``tests/test_torch_telemetry.py``), and without a context its report is
+    the monitor's alone, as the reference's."""
+    from repro_torch.telemetry import CalibrationStore, DriftMonitor
     model = build_model(get_config("dbrx_132b").reduced(), device="cpu",
                         dtype=torch.float32)
-    for kw in ({"calibration": object()}, {"monitor": object()}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ServeEngine(model, None, device="cpu", **kw)
+    store = CalibrationStore(":memory:")
+    monitor = DriftMonitor(tplanner.Planner(), store,
+                           ttopo.get_fabric("2x8"))
+    eng = ServeEngine(model, None, device="cpu", calibration=store,
+                      monitor=monitor)
+    assert eng.monitor is monitor and eng.pctx is None
+    assert eng.plan_report(4, 32) == {"calibration": monitor.report()}
 
 
 # ---------------------------------------------------------------------------
