@@ -74,7 +74,18 @@ Phases; any failure raises and the script exits non-zero:
    against calibrated, beside the gather's measured walls.  Every rank's
    walls the same bits, no probe failed, the calibrated model differs
    from the datasheet, every rank binds the same plan, every pack
-   bit-exact, the calibrated run's tokens its twin's up to near ties.
+   bit-exact, the calibrated run's tokens its twin's up to near ties;
+10. training: the two backward kernels (the pack's, attention's with the
+   forward's log-sum-exp) against their plain versions and against
+   autograd of the plain forwards, at the shapes of one DBRX prefill
+   layer of 4 x 512 tokens and at edge cases, timed beside
+   ``index_add_`` and the backward of ``scaled_dot_product_attention``; a
+   small DBRX-shaped model's loss and gradients in bf16 on the card
+   against fp32 on the CPU; then DBRX-132B at full width, depth cut to 2,
+   trained through ``Trainer`` for 8 steps of 4 x 512 tokens (AdamW with
+   bf16 state, cosine schedule), with a checkpoint after step 4 restored
+   into a fresh trainer that must reach the same losses.  Gates: finite
+   losses and gradient norms, a falling loss, exact launch counts.
 
 Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
 2 x 2 ranks and of one Kimi-K2 prefill layer at 2 x 8 (capacity factors
@@ -100,7 +111,11 @@ runs phase 8 alone after them (on four cards over nccl, decode graphed);
 
   python3 chip_smoke.py --calibrate-only
 
-runs phase 9 alone after them (on four cards over nccl).
+runs phase 9 alone after them (on four cards over nccl);
+
+  python3 chip_smoke.py --train-only
+
+runs phase 10 alone after them.
 """
 
 from __future__ import annotations
@@ -922,8 +937,8 @@ def compare_small_model(label: str, cfg, *, seed: int) -> None:
         card_ids.append(ids.cpu())
         return gates, ids
 
-    def card_dispatch(tokens, ids, gates, dcfg, mesh):
-        out = dispatch(tokens, ids, gates, dcfg, mesh)
+    def card_dispatch(tokens, ids, gates, dcfg, mesh, **kw):
+        out = dispatch(tokens, ids, gates, dcfg, mesh, **kw)
         tally["pairs"] += ids.numel()
         tally["kept"] += int((out[2].map_exp >= 0).sum())
         return out
@@ -990,13 +1005,22 @@ def compare_small_model(label: str, cfg, *, seed: int) -> None:
 # phase 5: serve each model at full width
 # ---------------------------------------------------------------------------
 
+def launch_counts(**counts) -> dict:
+    """A launch count for every kernel op of ``ops.KERNEL_OPS`` (the
+    backward kernels' included): ``counts``, zero for the rest.  The ranks'
+    counts are ``ops.launches()`` of their own processes."""
+    from repro_torch.kernels import ops
+    want = dict.fromkeys(ops.launches(), 0)
+    want.update(counts)
+    return want
+
+
 def expected_launches(cfg, forwards: int) -> dict:
     """Kernel launches of one ``generate``: ``forwards`` = 1 prefill plus
     the decode rounds.  Attention and the scans run at prefill only; the
     dispatch pack runs three times per MoE layer in every forward."""
-    from repro_torch.kernels import ops
     from repro_torch.models.ssm import n_shared_calls
-    want = dict.fromkeys(ops.launches(), 0)
+    want = launch_counts()
     if cfg.family == "moe":
         want["dispatch_pack"] = 3 * cfg.n_layers * forwards
         want["flash_attention"] = cfg.n_layers
@@ -1675,8 +1699,7 @@ def tp_phase() -> dict:
         if not all(r["gather"]["exact"].values()):
             failures.append(f"rank {r['rank']}: gather not bit-exact "
                             f"{r['gather']['exact']}")
-    want = {"dispatch_pack": 0, "flash_attention": cfg.n_layers,
-            "mamba2_scan": 0, "rwkv6_scan": 0}
+    want = launch_counts(dispatch_pack=0, flash_attention=cfg.n_layers)
     for label in labels:
         runs_ = [r["runs"][label] for r in results]
         run0 = runs_[0]
@@ -1748,9 +1771,8 @@ def tp_phase() -> dict:
           f"{time.monotonic() - t0:.1f} s")
     failures += check_decode_mode(results, backend)
     moe_layers = dbrx.n_layers - dbrx.first_k_dense
-    want = {"dispatch_pack": moe_layers * 3 * MAX_NEW,
-            "flash_attention": dbrx.n_layers, "mamba2_scan": 0,
-            "rwkv6_scan": 0}
+    want = launch_counts(dispatch_pack=moe_layers * 3 * MAX_NEW,
+                            flash_attention=dbrx.n_layers)
     for run in runs:
         label = run["label"]
         runs_ = [r["runs"][label] for r in results]
@@ -1875,10 +1897,10 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
                 not np.array_equal(runs_[0]["tokens"], first):
             failures.append(f"{label}: tokens differ from {labels[0]}")
         # (d) exact launch counts on each rank
-        want = {"dispatch_pack": moe_layers * (
-                    packs[ps] * pg + packs[ds] * dg * (max_new - 1)),
-                "flash_attention": cfg.n_layers, "mamba2_scan": 0,
-                "rwkv6_scan": 0}
+        want = launch_counts(
+            dispatch_pack=moe_layers * (packs[ps] * pg
+                                        + packs[ds] * dg * (max_new - 1)),
+            flash_attention=cfg.n_layers)
         warm = moe_layers * (packs[ps] * pg + packs[ds] * dg)
         for r, run in zip(results, runs_):
             if run["launches"] != want:
@@ -2224,6 +2246,454 @@ def calibrate_phase() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training, the backward kernels and DBRX at full width
+# ---------------------------------------------------------------------------
+
+# DBRX trained at full width with its depth cut to 2: batch 4 x 512 from
+# SyntheticLM seed 0, AdamW (bf16 state) on a cosine schedule, 8 steps, a
+# checkpoint after step 4 restored into a fresh trainer
+TRAIN_DEPTH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4, 512, 8, 1e-3
+TRAIN_SAVE_AT = 4
+GRAD_COSINE = 0.99                      # small model, bf16 card vs fp32 CPU
+LOSS_GAP = 5e-2
+RESTORE_RTOL = 1e-3
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    ints = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(ints), b.view(ints))
+
+
+def pack_bwd_checks(failures: list) -> dict:
+    """The pack's backward kernel against its plain version (bit-exact) and
+    against autograd of the plain pack (fp32 sums, 2e-2), at the three
+    packs of one DBRX prefill layer of 4 x 512 tokens and at edge cases;
+    the layer's three timed (kernel, plain, and ``index_add_`` of the same
+    rows as the library yardstick)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    h = 6144
+    bf16 = torch.bfloat16
+    layer = [
+        ("stage1", pack_inputs(2048, h, 1, bf16, valid_rows=2048), 1, 2560),
+        ("stage2", pack_inputs(2560, h, 1, bf16, valid_rows=2048, seed=1),
+         1, 3200),
+        ("stage3", pack_inputs(3200, h, 16, bf16, valid_rows=2048, k=4,
+                               seed=2), 16, 640),
+    ]
+    edge = [   # rows in several slots, empty slots, invalid rows, one row
+        ("d31-bf16", pack_inputs(1024, 256, 31, bf16, seed=3), 31, 40),
+        ("d31-f32", pack_inputs(1024, 256, 31, torch.float32, seed=4),
+         31, 40),
+        ("overflow", pack_inputs(4096, 128, 4, torch.float32, seed=5), 4, 100),
+        ("odd-rows", pack_inputs(300, 6, 5, bf16, seed=6), 5, 70),
+        ("n1", pack_inputs(1, 64, 3, bf16, seed=11), 3, 4),
+        ("empty-tail", pack_inputs(50, 128, 2, bf16, seed=12), 2, 200),
+    ]
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "max_abs_err": 0.0}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    for label, args, d, c in layer + edge:
+        tokens, bitmap, valid = args
+        n, width = tokens.shape
+        _, idx = ops.dispatch_pack(tokens, bitmap, valid, num_dests=d,
+                                   capacity=c)
+        grad = torch.randn((d, c, width), generator=gen,
+                           device="cuda").to(tokens.dtype)
+        got = ops.dispatch_pack_bwd(grad, idx, n)
+        exp = ref.pack_bwd_ref(grad, idx, n)
+        leaf = tokens.float().requires_grad_(True)
+        auto, = torch.autograd.grad(
+            ref.pack_ref(leaf, bitmap, valid, d, c)[0], leaf, grad.float())
+        torch.cuda.synchronize()
+        exact = _same_bits(got, exp)
+        err = (got.float() - auto).abs().max().item()
+        near = torch.allclose(got.float(), auto, **ATTN_TOL)
+        print(f"  dispatch_pack_bwd {label}: N={n} H={width} D={d} C={c} "
+              f"{tokens.dtype}: {'bit-exact' if exact else 'MISMATCH'} "
+              f"against the plain backward; max|err| {err:.3e} against "
+              f"autograd of the plain pack ({'within' if near else 'OUTSIDE'}"
+              f" atol=rtol=2e-2)")
+        if not (exact and near):
+            failures.append(f"dispatch_pack_bwd {label}")
+        if not label.startswith("stage"):
+            continue
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        held = idx >= 0
+        slots = int(held.sum())
+        esize = tokens.element_size()
+        # bytes: the occupied slots' rows and the slot map read, the rows'
+        # gradient written
+        nbytes = slots * width * esize + d * c * 4 + n * width * esize
+        ms = device_ms(lambda: ops.dispatch_pack_bwd(grad, idx, n))
+        plain = time_ms(lambda: ref.pack_bwd_ref(grad, idx, n), iters=5)
+        rows_in = grad.reshape(d * c, width)[held.reshape(-1)]
+        index = idx[held].long()
+        acc = torch.zeros((n, width), dtype=tokens.dtype, device="cuda")
+        lib = device_ms(lambda: acc.index_add_(0, index, rows_in))
+        bnd, _ = bound_ms(nbytes)
+        print(f"  dispatch_pack_bwd {label} time (device, CUDA graph of 20 "
+              f"calls): kernel {ms:.4f} ms, plain {plain:.4f} ms, index_add_ "
+              f"{lib:.4f} ms, bound {bnd:.4f} ms ({nbytes / 1e6:.3f} MB)")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", bnd)):
+            row[key] += val
+    print(f"  dispatch_pack_bwd one DBRX prefill layer (3 packs): "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, index_add_ "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+    return dict(name="dispatch_pack_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/dispatch_pack.cu",
+                replaces="src/repro/kernels/dispatch_pack.py:97",
+                bound_by="bytes", **row)
+
+
+def attention_bwd_checks(failures: list) -> dict:
+    """The attention backward kernel (and the forward's log-sum-exp)
+    against the plain backward and against autograd of the plain forward,
+    atol = rtol = 2e-2 of fp32, at DBRX's prefill shape and at edge cases;
+    DBRX's shape timed beside the backward of
+    ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_plain)
+    bf16 = torch.bfloat16
+    cases = [  # b, heads, kv heads, Sq, Sk, D, causal, window, softcap
+        ("dbrx", (4, 48, 8, 512, 512, 128), True, None, None),
+        ("window", (2, 4, 2, 100, 100, 128), True, 32, None),
+        ("softcap-64", (2, 4, 2, 64, 64, 64), True, None, 30.0),
+        ("ragged-112", (2, 8, 2, 300, 300, 112), True, None, None),
+        ("all-masks", (1, 4, 2, 96, 160, 128), True, 48, 20.0),
+        ("cross-112-g1", (2, 4, 1, 77, 133, 112), False, None, None),
+        ("one-q-tile", (1, 2, 2, 64, 64, 64), True, None, None),
+    ]
+    row = {}
+    for i, (label, shape, causal, window, softcap) in enumerate(cases):
+        b, hq, g, sq, t, d = shape
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(30 + i)
+
+        def rand(*size):
+            return torch.randn(size, generator=gen, device="cuda").to(bf16)
+        q = rand(b, sq, hq, d).transpose(1, 2)
+        k = rand(b, t, g, d).transpose(1, 2)
+        v = rand(b, t, g, d).transpose(1, 2)
+        do = rand(b, sq, hq, d).transpose(1, 2)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out, lse = _forward(q, k, v, (causal, window, softcap, None),
+                            with_lse=True)
+        lse_ref = ref.attention_lse(q, k, **kw)
+        got = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        plain = ref.attention_bwd_ref(q, k, v, out, do, lse_ref, **kw)
+        leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+        auto = torch.autograd.grad(flash_attention_plain(*leaves, **kw),
+                                   leaves, do.float())
+        torch.cuda.synchronize()
+        lse_err = (lse - lse_ref).abs().max().item()
+        errs = [(a.float() - e.float()).abs().max().item()
+                for a, e in zip(got, auto)]
+        ok = all(torch.allclose(a.float(), e.float(), **ATTN_TOL)
+                 for pair in (zip(got, auto), zip(got, plain))
+                 for a, e in pair) and lse_err < 1e-3
+        print(f"  flash_attention_bwd {label} {shape} causal={causal} "
+              f"window={window} softcap={softcap}: dq/dk/dv max|err| "
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} against autograd "
+              f"of the plain forward, forward lse {lse_err:.3e}: "
+              f"{'within' if ok else 'OUTSIDE'} atol=rtol=2e-2")
+        if not ok:
+            failures.append(f"flash_attention_bwd {label}")
+        if label != "dbrx":
+            continue
+        ms = device_ms(lambda: ops.flash_attention_bwd(q, k, v, out, do, lse,
+                                                       **kw))
+        plain_ms = time_ms(lambda: ref.attention_bwd_ref(
+            q, k, v, out, do, lse_ref, **kw), iters=5)
+        qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=True)
+        # the backward alone: forward and backward captured together (so
+        # the backward runs on the capturing stream), less the forward
+        lib = device_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs),
+                                                    do)) - device_ms(sdpa)
+        # q, k, v, o, do read, dq, dk, dv written, the lse read; the five
+        # products of the causal pairs
+        nbytes = 2 * (3 * b * hq * sq * d + 4 * b * g * t * d) \
+            + 4 * b * hq * sq
+        flops = 10 * b * hq * d * (sq * (sq + 1) // 2)
+        bnd, by = bound_ms(nbytes, flops)
+        print(f"  flash_attention_bwd dbrx time (device, CUDA graph of 20 "
+              f"calls): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the "
+              f"backward of scaled_dot_product_attention {lib:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP); kernel/sdpa {ms / lib:.2f}")
+        row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bnd, bound_by=by, library_ms=lib)
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:112", **row)
+
+
+def grad_reference_check() -> None:
+    """A reduced DBRX-shaped model (head_dim 128, 4 experts all active) in
+    bf16 on the card (kernels) against the same weights in fp32 on the CPU
+    (plain versions): one loss and backward each; the loss within
+    ``LOSS_GAP`` and every parameter's gradient at a cosine above
+    ``GRAD_COSINE``."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
+        batch_for_model
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.trainer import trainable
+
+    cfg = get_config("dbrx_132b").reduced(
+        d_model=512, n_heads=4, n_kv_heads=2, d_ff=256, vocab=1024,
+        num_experts=4, top_k=4)
+    gpu = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    params = gpu.init(gen)
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32)
+    cpu_params = T.Transformer(cfg, device="cpu", dtype=torch.float32)
+    cpu_params.load_state_dict({k: v.float().cpu()
+                                for k, v in params.state_dict().items()})
+    raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                 global_batch=4, seed=0)).batch(0)
+    losses = []
+    ops.reset_launches()
+    for model, p, dev in ((gpu, params, "cuda"), (cpu, cpu_params, "cpu")):
+        trainable(p)
+        loss, _ = model.loss(p, batch_for_model(cfg, raw, device=dev))
+        loss.backward()
+        losses.append(loss.item())
+    counts = {k: v for k, v in ops.launches().items() if v}
+    gap = abs(losses[0] - losses[1])
+    cosines = {}
+    for (name, a), (_, e) in zip(params.named_parameters(),
+                                 cpu_params.named_parameters()):
+        a, e = a.grad.double().cpu().flatten(), e.grad.double().flatten()
+        cosines[name] = (a @ e / (a.norm() * e.norm())).item()
+    worst = min(cosines, key=cosines.get)
+    print(f"  small DBRX-shaped model ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, head_dim {cfg.head_dim}, {cfg.num_experts} "
+          f"experts top-{cfg.top_k}), loss and backward of 4 x 64 tokens: "
+          f"card bf16 {losses[0]:.5f} vs CPU fp32 {losses[1]:.5f}, gap "
+          f"{gap:.3e} (limit {LOSS_GAP}); gradient cosines of "
+          f"{len(cosines)} parameters, lowest {cosines[worst]:.6f} "
+          f"({worst}; limit {GRAD_COSINE}); kernel launches {counts}")
+    low = {k: v for k, v in cosines.items() if not v > GRAD_COSINE}
+    if not gap < LOSS_GAP or low:
+        raise AssertionError(f"small-model gradients: loss gap {gap:.3e}, "
+                             f"cosines below {GRAD_COSINE}: {low}")
+    want = {"dispatch_pack": 3 * cfg.n_layers,
+            "dispatch_pack_bwd": 3 * cfg.n_layers,
+            "flash_attention": cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    if counts != want:
+        raise AssertionError(f"small model: launches {counts} != {want}")
+
+
+def train_full_width() -> dict:
+    """DBRX-132B at full width, depth ``TRAIN_DEPTH``, through ``Trainer``:
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, a
+    checkpoint after step ``TRAIN_SAVE_AT``, which a fresh trainer restores
+    and continues from.  Gates: finite losses and gradient norms, the mean
+    loss of the last 3 steps below that of the first 3, exact launch
+    counts, the restored run's losses within ``RESTORE_RTOL``.  Returns the
+    kernel launches of the 8 steps."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
+        batch_for_model
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model, param_count
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("dbrx_132b"), n_layers=TRAIN_DEPTH)
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+
+    def make_batch(step):
+        return batch_for_model(cfg, data.batch(step), device="cuda")
+
+    def optimizer():
+        return adamw(lr=cosine_schedule(TRAIN_LR, warmup=1,
+                                        total=TRAIN_STEPS),
+                     weight_decay=0.01)
+
+    ckpt_dir = ROOT / "build" / "train_checkpoint"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def trainer(total, ckpt):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        return Trainer(model, optimizer(), make_batch, TrainerConfig(
+            total_steps=total, checkpoint_every=TRAIN_SAVE_AT,
+            checkpoint_dir=str(ckpt_dir) if ckpt else None, log_every=1),
+            generator=gen)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.monotonic()
+    tr = trainer(TRAIN_SAVE_AT, ckpt=True)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9 - before_gb
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, {cfg.num_experts} "
+          f"experts top-{cfg.top_k} of d_ff {cfg.expert_d_ff}, vocab "
+          f"{cfg.vocab}: {param_count(tr.state.params) / 1e9:.3f} B "
+          f"parameters; bf16 parameters and AdamW state {state_gb:.2f} GB, "
+          f"set up in {time.monotonic() - t0:.1f} s ({before_gb:.2f} GB "
+          f"allocated before)")
+    timed = {}
+    save = tr.ckpt.save
+
+    def timed_save(*args, **kw):
+        t = time.monotonic()
+        out = save(*args, **kw)
+        timed["save_s"] = time.monotonic() - t
+        return out
+    tr.ckpt.save = timed_save
+    ops.reset_launches()
+    tr.run()                                   # steps 0-3, then the save
+    save_s = timed["save_s"]
+    tr.ckpt = None                             # no more saves
+    tr.cfg = dataclasses.replace(tr.cfg, total_steps=TRAIN_STEPS,
+                                 checkpoint_dir=None)
+    tr.run()                                   # steps 4-7
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = tr.metrics_history
+    for h in hist:
+        print(f"  step {h['step']}: loss {h['loss']:.5f} (ce {h['ce']:.5f}, "
+              f"aux {h['aux']:.5f}), grad norm {h['grad_norm']:.4f}, wall "
+              f"{h['wall'] * 1e3:.1f} ms")
+    walls = [h["wall"] for h in hist]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tps = tokens * (len(walls) - 1) / sum(walls[1:])
+    print(f"  first step {walls[0] * 1e3:.1f} ms; steps 2-{len(walls)} "
+          f"{sum(walls[1:]) / (len(walls) - 1) * 1e3:.1f} ms a step, "
+          f"{tps:.1f} tokens/s; peak memory {peak_gb:.2f} GB "
+          f"(max_memory_allocated); checkpoint of step {TRAIN_SAVE_AT} "
+          f"written in {save_s:.1f} s")
+    want = launch_counts(dispatch_pack=3 * cfg.n_layers * TRAIN_STEPS,
+                         dispatch_pack_bwd=3 * cfg.n_layers * TRAIN_STEPS,
+                         flash_attention=cfg.n_layers * TRAIN_STEPS,
+                         flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
+    print(f"  launches over {TRAIN_STEPS} steps: {counts} (expected {want}: "
+          f"per step and layer 3 packs and 3 pack backwards, 1 attention "
+          f"forward and 1 backward; nothing recomputed)")
+    failures = []
+    if counts != want:
+        failures.append(f"launches {counts} != {want}")
+    import math
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        failures.append("a non-finite loss or gradient norm")
+    first = sum(h["loss"] for h in hist[:3]) / 3
+    last = sum(h["loss"] for h in hist[-3:]) / 3
+    print(f"  mean loss of the first 3 steps {first:.5f}, of the last 3 "
+          f"{last:.5f}")
+    if not last < first:
+        failures.append(f"the loss did not fall: {first:.5f} -> {last:.5f}")
+    losses = [h["loss"] for h in hist]
+    update_ms, clip_ms = time_update(tr)
+    rest = sum(walls[1:]) / (len(walls) - 1) * 1e3 - update_ms - clip_ms
+    print(f"  where a step's time goes: the AdamW update {update_ms:.1f} ms "
+          f"and the clip {clip_ms:.1f} ms (each timed alone on the live "
+          f"state, with zero gradients), the forward, backward and "
+          f"cross-entropy {rest:.1f} ms (the rest of the step wall)")
+
+    # a fresh trainer (new random weights, then the checkpoint over them)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    tr = trainer(TRAIN_STEPS, ckpt=True)
+    restore_s = time.monotonic() - t0
+    tr.ckpt = None                             # continue without saving
+    if tr.state.step != TRAIN_SAVE_AT:
+        failures.append(f"the fresh trainer resumed at step {tr.state.step}")
+    tr.run()
+    again = [h["loss"] for h in tr.metrics_history]
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(again, losses[TRAIN_SAVE_AT:]))
+    print(f"  restored at step {TRAIN_SAVE_AT} into a fresh trainer "
+          f"(set-up and restore {restore_s:.1f} s): losses "
+          f"{[round(x, 5) for x in again]} against "
+          f"{[round(x, 5) for x in losses[TRAIN_SAVE_AT:]]}, largest "
+          f"relative gap {rel:.3e} (limit {RESTORE_RTOL})")
+    if len(again) != TRAIN_STEPS - TRAIN_SAVE_AT or not rel <= RESTORE_RTOL:
+        failures.append(f"restored run: {again} against "
+                        f"{losses[TRAIN_SAVE_AT:]}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"phase 10: {failures}")
+    return counts
+
+
+def time_update(tr) -> tuple[float, float]:
+    """Device ms of one optimizer update and one global-norm clip of the
+    trainer's live state (CUDA events around each, after a warm call),
+    with zero gradients of the parameters' shapes: the same arithmetic
+    as a step's."""
+    import torch
+
+    from repro_torch.optim.optimizers import clip_by_global_norm_
+    named = tr.state.named()
+    grads = {n: torch.zeros_like(p) for n, p in named.items()}
+
+    def timed(fn) -> float:
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+    with torch.no_grad():
+        update = timed(lambda: tr.optimizer.apply(grads, tr.state.opt_state,
+                                                  named, tr.state.step))
+        clip = timed(lambda: clip_by_global_norm_(grads, 1.0))
+    return update, clip
+
+
+def train_phase() -> tuple[dict, dict]:
+    """Phase 10.  Returns (the kernels JSON rows of the two backward
+    kernels, the launches of the full-width training run)."""
+    failures: list = []
+    rows = {"dispatch_pack_bwd": pack_bwd_checks(failures),
+            "flash_attention_bwd": attention_bwd_checks(failures)}
+    if failures:
+        raise AssertionError(f"backward kernels disagree: {failures}")
+    grad_reference_check()
+    return rows, train_full_width()
+
+
 def build_phase() -> None:
     from repro_torch.kernels import _build
     t0 = time.monotonic()
@@ -2254,6 +2724,8 @@ def main(argv=None) -> None:
                     help="phases 1, 2 and 8 only (on four cards: nccl)")
     ap.add_argument("--calibrate-only", action="store_true",
                     help="phases 1, 2 and 9 only (on four cards: nccl)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="phases 1, 2 and 10 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2276,6 +2748,8 @@ def main(argv=None) -> None:
     tp_title = "phase 8: tensor parallelism, Mistral-NeMo-12B over (1, 1, 4)"
     cal_title = ("phase 9: the telemetry loop, DBRX over 2 x 2 and "
                  "Mistral-NeMo over (1, 1, 4) calibrated on the card")
+    train_title = (f"phase 10: training, the backward kernels and "
+                   f"DBRX-132B at full width, depth {TRAIN_DEPTH}")
     if args.kimi_only:
         print(kimi_title)
         kimi_phase(depth, kimi_new)
@@ -2285,6 +2759,13 @@ def main(argv=None) -> None:
     elif args.calibrate_only:
         print(cal_title)
         calibrate_phase()
+    elif args.train_only:
+        print(train_title)
+        rows, counts = train_phase()
+        for name, row in rows.items():
+            row["launches"] = counts[name]
+            row["launches_by_path"] = {"dbrx_132b_train": counts[name]}
+        print(json.dumps({"kernels": list(rows.values())}))
     elif args.ranks_only:
         for i, cf in enumerate(args.ranks_only):
             print(f"phase 6: DBRX over 2 pods x 2 ep ranks, capacity factor "
@@ -2310,10 +2791,13 @@ def main(argv=None) -> None:
         by_path["tp_ranks"] = tp_phase()
         print(cal_title)
         by_path["dbrx_132b_2x2_calibrated"] = calibrate_phase()
+        print(train_title)
+        bwd_rows, by_path["dbrx_132b_train"] = train_phase()
+        rows.update(bwd_rows)
 
         for name, row in rows.items():
-            row["launches"] = sum(c[name] for c in by_path.values())
-            row["launches_by_path"] = {arch: c[name]
+            row["launches"] = sum(c.get(name, 0) for c in by_path.values())
+            row["launches_by_path"] = {arch: c.get(name, 0)
                                        for arch, c in by_path.items()}
         print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -129,3 +129,23 @@ def get_config(name: str) -> ModelConfig:
                          f"{ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+# ---------------------------------------------------------------------------
+# Shapes from the assignment (per-arch shape sets)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}

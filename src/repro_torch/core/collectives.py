@@ -313,10 +313,11 @@ class DispatchState:
 
 def hierarchical_dispatch(tokens: torch.Tensor, expert_ids: torch.Tensor,
                           gates: torch.Tensor, cfg: DispatchConfig,
-                          mesh: EPMesh):
+                          mesh: EPMesh, valid: torch.Tensor | None = None):
     """MultiWrite MoE dispatch (paper §3.2 / §4).
 
-    tokens [N, H]; expert_ids [N, K] int32; gates [N, K] fp32.
+    tokens [N, H]; expert_ids [N, K] int32; gates [N, K] fp32; valid [N]
+    bool (None: every row), the rows the first pack may take.
     Returns (expert_inputs [E_local, Ce, H], expert_gates [E_local, Ce],
     DispatchState with every pack map the combine needs).
     """
@@ -339,7 +340,8 @@ def hierarchical_dispatch(tokens: torch.Tensor, expert_ids: torch.Tensor,
     ep_bits = _bits(ep_onehot.any(dim=1))                           # [N, P]
 
     cp = max(1, int(round(n * cfg.pod_capacity)))
-    valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=dev)
     send_tok, map_pod = pack_by_bitmap(tokens, pod_bits, valid, p, cp)
     ep_bits_dst = torch.stack(
         [gather_rows(ep_bits[:, pp:pp + 1], map_pod[pp])[..., 0]
@@ -586,11 +588,12 @@ class BaselineState:
 
 def baseline_dispatch(tokens: torch.Tensor, expert_ids: torch.Tensor,
                       gates: torch.Tensor, cfg: DispatchConfig,
-                      mesh: EPMesh):
+                      mesh: EPMesh, valid: torch.Tensor | None = None):
     """Unicast dispatch: pack one copy per (token, destination RANK) and
     exchange over the flattened (pod, ep) domain, so each token's copies to
     every remote rank cross the pod axis (the paper's baseline).  Packs in
-    ``ceil(R / 31)`` bitmap words, then once per local expert."""
+    ``ceil(R / 31)`` bitmap words, then once per local expert.  ``valid``
+    as :func:`hierarchical_dispatch`'s."""
     n, h = tokens.shape
     k = expert_ids.shape[-1]
     dev = tokens.device
@@ -601,7 +604,8 @@ def baseline_dispatch(tokens: torch.Tensor, expert_ids: torch.Tensor,
     rank_any = (rank_of[..., None]
                 == torch.arange(r, device=dev)).any(dim=1)          # [N, R]
     cr = max(1, int(round(n * cfg.pod_capacity)))
-    valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=dev)
     outs, maps = [], []
     for w in range((r + 30) // 31):
         nd = min(31, r - w * 31)

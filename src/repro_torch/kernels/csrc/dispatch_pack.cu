@@ -30,6 +30,7 @@
 // is one block a slot.  The packed buffer is written with streaming stores,
 // so that L2 keeps the token rows that several destinations read.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -142,6 +143,95 @@ dispatch_pack_kernel(const uint8_t* __restrict__ tokens,
   }
 }
 
+// ---- the backward: grad_tokens[n] = sum over (d, c) with src_idx[d, c] = n
+//      of grad_out[d, c], in ascending d, in fp32, rounded once ----
+//
+// Replaces the gradient that JAX takes through the reference's
+// pack_by_bitmap (a gather, so a scatter-add back).  A row fills at most one
+// slot per destination, so the sum has at most D <= 31 terms.  No atomics:
+// the slot map is inverted first (slot_of [D, N], -1 where a row holds no
+// slot of d; every (d, n) is written at most once), then one block a source
+// row reads its D slot numbers into shared memory and adds its slots' rows in
+// ascending d, 16-byte words at a time.  So the sums come out in one fixed
+// order, bit-identical from run to run and to the plain version.  Bounded by
+// bytes, as the forward: the packed gradient read once, the rows written
+// once.
+
+__global__ void invert_slots_kernel(const int32_t* __restrict__ src_idx,
+                                    int32_t* __restrict__ slot_of, int n,
+                                    int capacity, long long slots) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= slots) return;
+  const int src = src_idx[e];
+  if (src < 0 || src >= n) return;
+  const int d = (int)(e / capacity);
+  slot_of[(long long)d * n + src] = (int)(e - (long long)d * capacity);
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// grid: one block per source row; row elements in units of kVec values
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dispatch_pack_bwd_kernel(const T* __restrict__ grad_out,
+                         const int32_t* __restrict__ slot_of,
+                         T* __restrict__ grad_tokens, int n, int h,
+                         int num_dests, int capacity, int vec16) {
+  __shared__ int slot[32];
+  const int row = blockIdx.x;
+  if (threadIdx.x < num_dests)
+    slot[threadIdx.x] = slot_of[(long long)threadIdx.x * n + row];
+  __syncthreads();
+  T* dst = grad_tokens + (long long)row * h;
+  if (vec16) {
+    constexpr int kVec = 16 / sizeof(T);
+    const int units = h / kVec;
+    for (int u = threadIdx.x; u < units; u += kThreads) {
+      float acc[kVec];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
+      for (int d = 0; d < num_dests; ++d) {
+        const int s = slot[d];
+        if (s < 0) continue;
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(
+            grad_out + ((long long)d * capacity + s) * h) + u);
+        const T* x = reinterpret_cast<const T*>(&w);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[i] += to_f32<T>(x[i]);
+      }
+      uint4 w;
+      T* y = reinterpret_cast<T*>(&w);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) y[i] = from_f32<T>(acc[i]);
+      reinterpret_cast<uint4*>(dst)[u] = w;
+    }
+  } else {
+    for (int e = threadIdx.x; e < h; e += kThreads) {
+      float acc = 0.f;
+      for (int d = 0; d < num_dests; ++d) {
+        const int s = slot[d];
+        if (s >= 0) acc += to_f32<T>(grad_out[((long long)d * capacity + s) * h + e]);
+      }
+      dst[e] = from_f32<T>(acc);
+    }
+  }
+}
+
 }  // namespace
 
 // tokens [n, row_bytes] (raw bytes), bitmap [n] int32, valid [n] bool,
@@ -170,6 +260,42 @@ extern "C" int dispatch_pack(const void* tokens, const void* bitmap,
       static_cast<const uint8_t*>(tokens), static_cast<const int32_t*>(bitmap),
       static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(out),
       static_cast<int32_t*>(src_idx), n, row_bytes, num_dests, capacity, slots, vec16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad_out [num_dests, capacity, h] (fp32 when fp32 != 0, else bf16),
+// src_idx [num_dests, capacity] int32, slot_of [num_dests, n] int32 scratch,
+// grad_tokens [n, h] in grad_out's type.  Three operations on `stream`: the
+// scratch set to -1, the slot map inverted, the rows summed.  Returns
+// cudaGetLastError() after the last launch.
+extern "C" int dispatch_pack_bwd(const void* grad_out, const void* src_idx,
+                                 void* slot_of, void* grad_tokens, int n, int h,
+                                 int num_dests, int capacity, int fp32,
+                                 void* stream) {
+  if (num_dests < 1 || num_dests > 31 || capacity < 1 || n < 1 || h < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(slot_of, 0xff,
+                                    (size_t)num_dests * n * sizeof(int32_t), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long slots = (long long)num_dests * capacity;
+  invert_slots_kernel<<<(unsigned)((slots + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      static_cast<const int32_t*>(src_idx), static_cast<int32_t*>(slot_of), n, capacity,
+      slots);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int esize = fp32 ? 4 : 2;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(grad_out) |
+                          reinterpret_cast<uintptr_t>(grad_tokens);
+  const int vec16 = ((long long)h * esize) % 16 == 0 && align % 16 == 0;
+  if (fp32)
+    dispatch_pack_bwd_kernel<float><<<n, kThreads, 0, st>>>(
+        static_cast<const float*>(grad_out), static_cast<const int32_t*>(slot_of),
+        static_cast<float*>(grad_tokens), n, h, num_dests, capacity, vec16);
+  else
+    dispatch_pack_bwd_kernel<__nv_bfloat16><<<n, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(grad_out), static_cast<const int32_t*>(slot_of),
+        static_cast<__nv_bfloat16*>(grad_tokens), n, h, num_dests, capacity, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 

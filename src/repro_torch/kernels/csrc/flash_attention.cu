@@ -70,6 +70,7 @@ constexpr int kStages = 2;     // kv ring depth
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 struct Layout {
@@ -89,6 +90,7 @@ struct Params {
   float scale_log2;  // scale * log2(e), no softcap
   float scale, softcap;  // softcap <= 0: none
   int causal, window;    // window <= 0: none
+  float* lse;            // [B, H, q_len] fp32, or null: not wanted
 };
 
 template <int HD>
@@ -299,6 +301,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv[r] = l > 0.f ? 1.f / l : 0.f;
+      // the row's log-sum-exp of its scores (natural log, after scale and
+      // softcap), which the backward recomputes P from; +inf where no key
+      // may attend, so that P is 0 there
+      const int row = r ? row1 : row0;
+      if (p.lse != nullptr && tig == 0 && row < p.q_len)
+        p.lse[((long long)b * p.heads + h) * p.q_len + row] =
+            l > 0.f ? m_run[r] * factor * kLn2 + logf(l) : INFINITY;
     }
     const int rl = 16 * warp + gid;   // local row; rl % 8 == gid
 #pragma unroll
@@ -386,8 +395,9 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorM
 // q [B, H, Sq, D], k/v [B, G, Sk, D], o [B, H, Sq, D], bf16, each given by
 // element strides (batch, head, seq) with a contiguous head dimension D in
 // {64, 112, 128}; every stride a multiple of 8 elements and every base
-// 16-byte aligned.  window <= 0 and softcap <= 0 mean none.  Launches on
-// `stream`; returns cudaGetLastError() after the launch.
+// 16-byte aligned.  window <= 0 and softcap <= 0 mean none.  lse, when not
+// null, receives each row's log-sum-exp [B, H, Sq] fp32 (for the backward).
+// Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss,
@@ -395,7 +405,7 @@ extern "C" int flash_attention(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     int batch, int heads, int kv_heads, int q_len, int kv_len, int head_dim,
-    float scale, float softcap, int causal, int window, void* stream) {
+    float scale, float softcap, int causal, int window, void* lse, void* stream) {
   if (head_dim != 64 && head_dim != 112 && head_dim != 128)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm, om;
@@ -409,11 +419,454 @@ extern "C" int flash_attention(
   p.q_tiles = (q_len + kBlockM - 1) / kBlockM;
   p.scale = scale; p.scale_log2 = scale * kLog2e; p.softcap = softcap;
   p.causal = causal; p.window = window;
+  p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (head_dim == 128) err = launch<128>(qm, km, vm, om, p, batch, s);
   else if (head_dim == 112) err = launch<112>(qm, km, vm, om, p, batch, s);
   else err = launch<64>(qm, km, vm, om, p, batch, s);
+  return static_cast<int>(err);
+}
+
+// ===========================================================================
+// The backward (FlashAttention-2's), for training.
+//
+// Replaces the gradient that JAX takes through the reference's attention
+// (src/repro/kernels/flash_attention.py:112 and its jnp twin); the TPU
+// kernel has no backward of its own.  From q, k, v, the forward's output o
+// and its per-row log-sum-exp, and the output gradient do:
+//
+//   P  = exp(s - lse)       s = scale * q k^T (then softcap * tanh(s / softcap))
+//   dV = P^T do             dP = do v^T,  delta = rowsum(do * o)
+//   dS = P * (dP - delta) * ds/d(qk^T)   (the chain rule through the softcap)
+//   dQ = dS k               dK = dS^T q
+//
+// Three launches: delta (one warp a row), then dK and dV with one block per
+// (batch, kv head, 64-row kv tile), which loops over 32-row q steps and the
+// rep = H / G q heads of its kv head and keeps dK and dV in fp32 registers:
+// summing over the q heads inside the block is what keeps GQA free of
+// atomics; then dQ with one block per (batch, q head, 64-row q tile), which
+// loops over 32-row kv steps.  P and dS are recomputed in each pass, so
+// nothing [S, T]-sized is written.  Every sum runs in one fixed order: the
+// result is the same bits from run to run.
+//
+// The products run on the tensor cores as mma.sync m16n8k16 (bf16 in, fp32
+// accumulate), fragments loaded with ldmatrix from bf16 tiles in shared
+// memory whose rows are padded by 16 bytes (8 rows of one ldmatrix fall on
+// distinct banks).  Each of a block's 4 warps owns 16 rows: in the dK/dV
+// pass 16 kv rows, computing S^T = K Q^T and dP^T = V dO^T for them against
+// 32 q rows a step, then P^T and dS^T in registers, which are repacked as
+// the A operands of dV += P^T dO and dK += dS^T Q (bf16, as
+// FlashAttention-2 rounds them); in the dQ pass 16 q rows against 32 kv
+// rows a step.  What bounds it: the products (about 2.5 times the
+// forward's), on mma.sync rather than wgmma, with no overlap of a step's
+// loads and its products; wgmma and TMA are later work.
+// ===========================================================================
+
+namespace {
+
+using namespace sm90;
+
+constexpr int kBwdThreads = 128;   // 4 warps, 16 rows each
+constexpr int kKvTile = 64;        // kv rows of a dK/dV block
+constexpr int kQStep = 32;         // q rows of one of its steps
+constexpr int kQTile = 64;         // q rows of a dQ block
+constexpr int kKvStep = 32;        // kv rows of one of its steps
+
+struct BwdParams {
+  const __nv_bfloat16 *q, *k, *v, *dout;
+  const float *lse, *delta;
+  __nv_bfloat16 *dq, *dk, *dv;
+  long long qs[3], ks[3], vs[3], dos[3], dqs[3], dks[3], dvs[3];  // batch, head, seq
+  int heads, kv_heads, q_len, kv_len;
+  float scale, softcap;  // softcap <= 0: none
+  int causal, window;    // window <= 0: none
+};
+
+template <int HD>
+struct BwdLayout {
+  static constexpr int kLd = HD + 8;      // bf16 row stride: 16-byte rows
+  static constexpr int kDkdvBytes = (2 * kKvTile + 2 * kQStep) * kLd * 2 + 2 * kQStep * 4;
+  static constexpr int kDqBytes = (2 * kQTile + 2 * kKvStep) * kLd * 2 + 2 * kQTile * 4;
+};
+
+// rows [row0, row0 + rows) of a [len, HD] bf16 matrix with row stride `ld`
+// (a multiple of 8 elements, 16-byte aligned) into a padded bf16 tile, 16
+// bytes a load; rows past `len` are zeros
+template <int HD>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long ld, int row0, int rows, int len) {
+  constexpr int kVecs = HD / 8;
+  for (int i = threadIdx.x; i < rows * kVecs; i += kBwdThreads) {
+    const int r = i / kVecs;
+    const int c = (i - r * kVecs) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < len)
+      v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ld + c);
+    *reinterpret_cast<uint4*>(dst + r * (HD + 8) + c) = v;
+  }
+}
+
+__device__ __forceinline__ void load_row_stats(const BwdParams& p, float* lse, float* delta,
+                                               int b, int hq, int q0, int rows) {
+  if (threadIdx.x < rows) {
+    const int r = q0 + threadIdx.x;
+    const long long at = ((long long)b * p.heads + hq) * p.q_len + r;
+    lse[threadIdx.x] = r < p.q_len ? p.lse[at] : INFINITY;
+    delta[threadIdx.x] = r < p.q_len ? p.delta[at] : 0.f;
+  }
+}
+
+// byte offsets, within a padded tile, of this lane's ldmatrix row address:
+// an A operand (16 rows x 16 k from a [row][k] tile at row r0, k k0), the B
+// operands of two n-tiles from an [n][k] tile (non-transposed: r[0], r[1]
+// the first n-tile's k halves, r[2], r[3] the second's), and from a [k][n]
+// tile (transposed, the same order)
+template <int HD>
+__device__ __forceinline__ uint32_t a_off(int lane, int r0, int k0) {
+  return ((r0 + (lane & 15)) * (HD + 8) + k0 + (lane >> 4) * 8) * 2;
+}
+template <int HD>
+__device__ __forceinline__ uint32_t b_off(int lane, int n0, int k0) {
+  return ((n0 + (lane & 7) + ((lane >> 4) << 3)) * (HD + 8) + k0 + ((lane >> 3) & 1) * 8) * 2;
+}
+template <int HD>
+__device__ __forceinline__ uint32_t bt_off(int lane, int k0, int n0) {
+  return ((k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * (HD + 8) + n0 + ((lane >> 4) << 3)) * 2;
+}
+
+// P and dS of one score from its raw product s = q.k and dp = do.v; q row
+// rg, key cg (absolute), the row's log-sum-exp and delta
+__device__ __forceinline__ void grad_score(const BwdParams& p, float s, float dp, float lse,
+                                           float delta, int rg, int cg, float& pr, float& ds) {
+  const bool ok = rg < p.q_len && cg < p.kv_len && (!p.causal || cg <= rg) &&
+                  (p.window <= 0 || rg - cg < p.window);
+  float x = s * p.scale;
+  float dx = p.scale;   // d(score) / d(q.k)
+  if (p.softcap > 0.f) {
+    const float t = tanhf(x / p.softcap);
+    x = p.softcap * t;
+    dx = p.scale * (1.f - t * t);
+  }
+  pr = ok ? expf(x - lse) : 0.f;
+  ds = pr * (dp - delta) * dx;
+}
+
+// the A operand of k-step j from the C fragments of n-tiles 2j and 2j + 1
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16x2(c0[0], c0[1]);
+  a[1] = pack_bf16x2(c0[2], c0[3]);
+  a[2] = pack_bf16x2(c1[0], c1[1]);
+  a[3] = pack_bf16x2(c1[2], c1[3]);
+}
+
+__global__ void __launch_bounds__(256)
+attn_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
+                      const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
+                      long long osb, long long osh, long long oss, long long dsb,
+                      long long dsh, long long dss, int heads, int q_len, int hd,
+                      long long rows) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const int s = (int)(row % q_len);
+  const long long bh = row / q_len;
+  const int h = (int)(bh % heads);
+  const int b = (int)(bh / heads);
+  const __nv_bfloat16* orow = o + b * osb + h * osh + s * oss;
+  const __nv_bfloat16* drow = dout + b * dsb + h * dsh + s * dss;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32)
+    acc = fmaf(__bfloat162float(orow[d]), __bfloat162float(drow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads) attn_bwd_dkdv_kernel(const BwdParams p) {
+  constexpr int kLd = BwdLayout<HD>::kLd;
+  constexpr int KT = HD / 16;   // k-steps over the head dim
+  constexpr int NT = HD / 8;    // n-tiles over the head dim
+  constexpr int QN = kQStep / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + kKvTile * kLd;
+  __nv_bfloat16* qs = vs + kKvTile * kLd;
+  __nv_bfloat16* dos = qs + kQStep * kLd;
+  float* lse = reinterpret_cast<float*>(dos + kQStep * kLd);
+  float* delta = lse + kQStep;
+
+  const int k0 = blockIdx.x * kKvTile;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int rep = p.heads / p.kv_heads;
+  load_rows<HD>(ks, p.k + b * p.ks[0] + g * p.ks[1], p.ks[2], k0, kKvTile, p.kv_len);
+  load_rows<HD>(vs, p.v + b * p.vs[0] + g * p.vs[1], p.vs[2], k0, kKvTile, p.kv_len);
+  const uint32_t ks_a = smem_addr(ks), vs_a = smem_addr(vs);
+  const uint32_t qs_a = smem_addr(qs), dos_a = smem_addr(dos);
+
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  // the q rows that may attend a key of this tile
+  const int q_begin = p.causal ? k0 : 0;
+  const int q_end = p.window > 0 ? min(p.q_len, k0 + kKvTile - 1 + p.window) : p.q_len;
+  const int t_begin = q_begin / kQStep;
+  const int t_end = q_end > q_begin ? (q_end + kQStep - 1) / kQStep : t_begin;
+  for (int hq = g * rep; hq < (g + 1) * rep; ++hq) {
+    for (int t = t_begin; t < t_end; ++t) {
+      const int q0 = t * kQStep;
+      __syncthreads();   // the last step's readers are done with qs, dos and the stats
+      load_rows<HD>(qs, p.q + b * p.qs[0] + hq * p.qs[1], p.qs[2], q0, kQStep, p.q_len);
+      load_rows<HD>(dos, p.dout + b * p.dos[0] + hq * p.dos[1], p.dos[2], q0, kQStep, p.q_len);
+      load_row_stats(p, lse, delta, b, hq, q0, kQStep);
+      __syncthreads();
+      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 kv rows
+      float s[QN][4], dp[QN][4];
+#pragma unroll
+      for (int n = 0; n < QN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t a[4], av[4];
+        ldmatrix_x4(a, ks_a + a_off<HD>(lane, 16 * warp, 16 * kk));
+        ldmatrix_x4(av, vs_a + a_off<HD>(lane, 16 * warp, 16 * kk));
+#pragma unroll
+        for (int np = 0; np < QN / 2; ++np) {
+          uint32_t bq[4], bd[4];
+          ldmatrix_x4(bq, qs_a + b_off<HD>(lane, 16 * np, 16 * kk));
+          ldmatrix_x4(bd, dos_a + b_off<HD>(lane, 16 * np, 16 * kk));
+          mma_m16n8k16(s[2 * np], a, bq[0], bq[1]);
+          mma_m16n8k16(s[2 * np + 1], a, bq[2], bq[3]);
+          mma_m16n8k16(dp[2 * np], av, bd[0], bd[1]);
+          mma_m16n8k16(dp[2 * np + 1], av, bd[2], bd[3]);
+        }
+      }
+      // P^T into s, dS^T into dp: element e of n-tile n is kv row
+      // k0 + 16 warp + gid (+ 8), q row q0 + 8 n + 2 tig (+ 1)
+#pragma unroll
+      for (int n = 0; n < QN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * n + 2 * tig + (e & 1);
+          grad_score(p, s[n][e], dp[n][e], lse[qi], delta[qi], q0 + qi,
+                     k0 + 16 * warp + gid + 8 * (e >> 1), s[n][e], dp[n][e]);
+        }
+      // dV += P^T dO, dK += dS^T Q over the step's q rows
+#pragma unroll
+      for (int kq = 0; kq < kQStep / 16; ++kq) {
+        uint32_t pa[4], sa[4];
+        c_to_a(pa, s[2 * kq], s[2 * kq + 1]);
+        c_to_a(sa, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+        for (int nd = 0; nd < NT / 2; ++nd) {
+          uint32_t bo[4], bq[4];
+          ldmatrix_x4_trans(bo, dos_a + bt_off<HD>(lane, 16 * kq, 16 * nd));
+          ldmatrix_x4_trans(bq, qs_a + bt_off<HD>(lane, 16 * kq, 16 * nd));
+          mma_m16n8k16(dv[2 * nd], pa, bo[0], bo[1]);
+          mma_m16n8k16(dv[2 * nd + 1], pa, bo[2], bo[3]);
+          mma_m16n8k16(dk[2 * nd], sa, bq[0], bq[1]);
+          mma_m16n8k16(dk[2 * nd + 1], sa, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + 16 * warp + gid + 8 * h;
+    if (row >= p.kv_len) continue;
+    __nv_bfloat16* dkr = p.dk + b * p.dks[0] + g * p.dks[1] + row * p.dks[2];
+    __nv_bfloat16* dvr = p.dv + b * p.dvs[0] + g * p.dvs[1] + row * p.dvs[2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<uint32_t*>(dkr + 8 * n + 2 * tig) =
+          pack_bf16x2(dk[n][2 * h], dk[n][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dvr + 8 * n + 2 * tig) =
+          pack_bf16x2(dv[n][2 * h], dv[n][2 * h + 1]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads) attn_bwd_dq_kernel(const BwdParams p) {
+  constexpr int kLd = BwdLayout<HD>::kLd;
+  constexpr int KT = HD / 16;
+  constexpr int NT = HD / 8;
+  constexpr int KN = kKvStep / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* dos = qs + kQTile * kLd;
+  __nv_bfloat16* ks = dos + kQTile * kLd;
+  __nv_bfloat16* vs = ks + kKvStep * kLd;
+  float* lse = reinterpret_cast<float*>(vs + kKvStep * kLd);
+  float* delta = lse + kQTile;
+
+  const int q0 = blockIdx.x * kQTile;
+  const int hq = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = hq / (p.heads / p.kv_heads);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  load_rows<HD>(qs, p.q + b * p.qs[0] + hq * p.qs[1], p.qs[2], q0, kQTile, p.q_len);
+  load_rows<HD>(dos, p.dout + b * p.dos[0] + hq * p.dos[1], p.dos[2], q0, kQTile, p.q_len);
+  load_row_stats(p, lse, delta, b, hq, q0, kQTile);
+  const uint32_t ks_a = smem_addr(ks), vs_a = smem_addr(vs);
+  const uint32_t qs_a = smem_addr(qs), dos_a = smem_addr(dos);
+
+  float dq[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  // the keys this tile's rows may attend
+  const int kv_end = p.causal ? min(p.kv_len, q0 + kQTile) : p.kv_len;
+  const int kv_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int t_begin = kv_begin / kKvStep;
+  const int t_end = kv_end > kv_begin ? (kv_end + kKvStep - 1) / kKvStep : t_begin;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kKvStep;
+    __syncthreads();   // the last step's readers are done with ks and vs
+    load_rows<HD>(ks, p.k + b * p.ks[0] + g * p.ks[1], p.ks[2], k0, kKvStep, p.kv_len);
+    load_rows<HD>(vs, p.v + b * p.vs[0] + g * p.vs[1], p.vs[2], k0, kKvStep, p.kv_len);
+    __syncthreads();
+    // S = Q K^T and dP = dO V^T for this warp's 16 q rows
+    float s[KN][4], dp[KN][4];
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t a[4], ad[4];
+      ldmatrix_x4(a, qs_a + a_off<HD>(lane, 16 * warp, 16 * kk));
+      ldmatrix_x4(ad, dos_a + a_off<HD>(lane, 16 * warp, 16 * kk));
+#pragma unroll
+      for (int np = 0; np < KN / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, ks_a + b_off<HD>(lane, 16 * np, 16 * kk));
+        ldmatrix_x4(bv, vs_a + b_off<HD>(lane, 16 * np, 16 * kk));
+        mma_m16n8k16(s[2 * np], a, bk[0], bk[1]);
+        mma_m16n8k16(s[2 * np + 1], a, bk[2], bk[3]);
+        mma_m16n8k16(dp[2 * np], ad, bv[0], bv[1]);
+        mma_m16n8k16(dp[2 * np + 1], ad, bv[2], bv[3]);
+      }
+    }
+    // dS into dp: element e of n-tile n is q row q0 + 16 warp + gid (+ 8),
+    // key k0 + 8 n + 2 tig (+ 1)
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 16 * warp + gid + 8 * (e >> 1);
+        float pr;   // P itself is not needed here
+        grad_score(p, s[n][e], dp[n][e], lse[qi], delta[qi], q0 + qi,
+                   k0 + 8 * n + 2 * tig + (e & 1), pr, dp[n][e]);
+      }
+    // dQ += dS K over the step's keys
+#pragma unroll
+    for (int kq = 0; kq < kKvStep / 16; ++kq) {
+      uint32_t sa[4];
+      c_to_a(sa, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int nd = 0; nd < NT / 2; ++nd) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, ks_a + bt_off<HD>(lane, 16 * kq, 16 * nd));
+        mma_m16n8k16(dq[2 * nd], sa, bk[0], bk[1]);
+        mma_m16n8k16(dq[2 * nd + 1], sa, bk[2], bk[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + gid + 8 * h;
+    if (row >= p.q_len) continue;
+    __nv_bfloat16* dqr = p.dq + b * p.dqs[0] + hq * p.dqs[1] + row * p.dqs[2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<uint32_t*>(dqr + 8 * n + 2 * tig) =
+          pack_bf16x2(dq[n][2 * h], dq[n][2 * h + 1]);
+  }
+}
+
+template <int HD>
+cudaError_t launch_bwd(const BwdParams& p, int batch, cudaStream_t stream) {
+  using L = BwdLayout<HD>;
+  static bool configured = false;   // once per process
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           L::kDkdvBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_dq_kernel<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDqBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 kv_grid((p.kv_len + kKvTile - 1) / kKvTile, p.kv_heads, batch);
+  attn_bwd_dkdv_kernel<HD><<<kv_grid, kBwdThreads, L::kDkdvBytes, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 q_grid((p.q_len + kQTile - 1) / kQTile, p.heads, batch);
+  attn_bwd_dq_kernel<HD><<<q_grid, kBwdThreads, L::kDqBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The backward of flash_attention.  q, dq [B, H, Sq, D]; k, v, dk, dv
+// [B, G, Sk, D]; o, dout [B, H, Sq, D]; all bf16 with a contiguous head
+// dimension, given by element strides (batch, head, seq): strides[24] holds
+// those of q, k, v, o, dout, dq, dk, dv in that order.  lse [B, H, Sq] fp32
+// from the forward; delta [B, H, Sq] fp32 scratch.  D in {64, 112, 128}.
+// Three launches on `stream`; returns cudaGetLastError() after the last.
+extern "C" int flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, const long long* strides,
+    int batch, int heads, int kv_heads, int q_len, int kv_len, int head_dim, float scale,
+    float softcap, int causal, int window, void* stream) {
+  if ((head_dim != 64 && head_dim != 112 && head_dim != 128) || batch < 1 || q_len < 1 ||
+      kv_len < 1 || kv_heads < 1 || heads % kv_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)batch * heads * q_len;
+  attn_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<float*>(delta), strides[9], strides[10], strides[11], strides[12],
+      strides[13], strides[14], heads, q_len, head_dim, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  BwdParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  long long* dsts[7] = {p.qs, p.ks, p.vs, p.dos, p.dqs, p.dks, p.dvs};
+  const int srcs[7] = {0, 1, 2, 4, 5, 6, 7};   // skip o's (3): delta read it
+  for (int t = 0; t < 7; ++t)
+    for (int i = 0; i < 3; ++i) dsts[t][i] = strides[3 * srcs[t] + i];
+  p.heads = heads; p.kv_heads = kv_heads; p.q_len = q_len; p.kv_len = kv_len;
+  p.scale = scale; p.softcap = softcap; p.causal = causal; p.window = window;
+  if (head_dim == 128) err = launch_bwd<128>(p, batch, st);
+  else if (head_dim == 112) err = launch_bwd<112>(p, batch, st);
+  else err = launch_bwd<64>(p, batch, st);
   return static_cast<int>(err);
 }
 

@@ -1,6 +1,6 @@
 // PTX wrappers for Hopper (sm_90a) shared by the port's kernels: mbarriers,
 // TMA tile loads and stores, wgmma descriptors and instructions, mma.sync,
-// ldmatrix, cp.async, and the swizzled 64 x 64 bf16 tile helpers of the two
+// ldmatrix (plain and transposed), cp.async, and the swizzled 64 x 64 bf16 tile helpers of the two
 // scans.  Header-only; every function is inline device code.
 //
 // The wgmma helpers below list every accumulator register by hand, as PTX
@@ -314,6 +314,15 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four 8 x 8 bf16 matrices from shared memory (lanes 8i .. 8i + 7 give the
+// row addresses of matrix i)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // four 8 x 8 bf16 matrices from shared memory, each transposed

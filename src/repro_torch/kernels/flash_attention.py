@@ -28,10 +28,19 @@ reference takes them.  The kernel describes each to TMA through its strides
 (4-D tensor maps made on every call), so views of [B, S, H, D] buffers
 need no copy; the output is such a view.
 
-For tensors on the CPU the wrapper runs the plain version (dense fp32
+The gradient (training): when q, k or v needs one, :func:`flash_attention`
+runs under a ``torch.autograd.Function`` whose forward also writes each
+row's log-sum-exp, and whose backward is :func:`flash_attention_bwd`, the
+FlashAttention-2 backward of the same source (``flash_attention_bwd``: a
+rowsum(do * o) pass, dK and dV with one block per kv tile summing over the
+q heads of its kv head, dQ with one block per q tile; no atomics).
+
+For tensors on the CPU each wrapper runs its plain version (dense fp32
 attention, :func:`repro_torch.kernels.ref.attention_ref`, over repeated kv
-heads); for CUDA tensors it launches the kernel (bf16, head_dim 64, 112 or
-128), or raises.  ``flash_attention.launches`` counts kernel launches.
+heads; :func:`~repro_torch.kernels.ref.attention_bwd_ref` for the
+gradient); for CUDA tensors it launches the kernel (bf16, head_dim 64, 112
+or 128), or raises.  ``flash_attention.launches`` and
+``flash_attention_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attention_ref
 
 NAME = "flash_attention"
@@ -52,9 +62,12 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([P] * 4 + [L] * 12 + [I] * 6
-                       + [ctypes.c_float, ctypes.c_float, I, I, P])
+        F = ctypes.c_float
+        fn.argtypes = [P] * 4 + [L] * 12 + [I] * 6 + [F, F, I, I, P, P]
         fn.restype = ctypes.c_int
+        bwd = lib.flash_attention_bwd
+        bwd.argtypes = [P] * 11 + [I] * 6 + [F, F, I, I, P]
+        bwd.restype = ctypes.c_int
     return lib
 
 
@@ -85,7 +98,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """Fused attention.  q [B, H, S, D]; k/v [B, G, T, D] with H % G == 0.
-    Returns [B, H, S, D] in q's dtype."""
+    Returns [B, H, S, D] in q's dtype.  Differentiable in q, k and v."""
+    mask = (causal, window, softcap, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, mask)
+    return _forward(q, k, v, mask, with_lse=False)[0]
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        out, lse = _forward(q, k, v, mask, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, softcap, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, grad_out, lse,
+                                         causal=causal, window=window,
+                                         softcap=softcap, scale=scale)
+        return dq, dk, dv, None
+
+
+def _forward(q, k, v, mask, *, with_lse: bool):
+    """The forward: (out, the rows' log-sum-exp [B, H, S] fp32 when
+    ``with_lse``, else None)."""
+    causal, window, softcap, scale = mask
     b, h, s, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
             or k.shape[3] != d or h % k.shape[1]:
@@ -98,8 +140,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: tensors on several devices "
                          f"{sorted(map(str, devices))}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        out = flash_attention_plain(q, k, v, **kw)
+        return out, ref.attention_lse(q, k, **kw) if with_lse else None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
@@ -113,6 +156,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # [B, S, H, D] storage seen as [B, H, S, D]: callers merge heads freely
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _lib()
     code = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -124,10 +169,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         d ** -0.5 if scale is None else scale,
         0.0 if softcap is None else softcap,
         int(causal), 0 if window is None else int(window),
-        _build.stream(q.device))
+        None if lse is None else lse.data_ptr(), _build.stream(q.device))
     _build.check(lib, NAME, code)
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, grad_out, lse, *, causal=True,
+                        window=None, softcap=None, scale=None):
+    """The backward of :func:`flash_attention`: from its inputs, its output
+    ``out``, the output's gradient and the forward's log-sum-exp ``lse``
+    [B, H, S], returns (dq, dk, dv) in the shapes and dtypes of q, k, v."""
+    b, h, s, d = q.shape
+    g, t = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if grad_out.shape != q.shape or out.shape != q.shape \
+            or lse.shape != (b, h, s):
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, out "
+                         f"{tuple(out.shape)}, grad {tuple(grad_out.shape)}, "
+                         f"lse {tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return ref.attention_bwd_ref(q, k, v, out, grad_out, lse, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    if grad_out.dtype != torch.bfloat16 or grad_out.stride(-1) != 1:
+        grad_out = grad_out.to(torch.bfloat16).contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("grad", grad_out)):
+        _check_operand(name, x)
+    # gradients in the [B, S, heads, D] layout the forward's inputs have
+    dq = torch.empty((b, s, h, d), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk = torch.empty((b, t, g, d), dtype=k.dtype,
+                     device=q.device).transpose(1, 2)
+    dv = torch.empty((b, t, g, d), dtype=v.dtype,
+                     device=q.device).transpose(1, 2)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[
+        st for x in (q, k, v, out, grad_out, dq, dk, dv)
+        for st in x.stride()[:3]])
+    lib = _lib()
+    code = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        grad_out.data_ptr(), lse.contiguous().data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
+        b, h, g, s, t, d, d ** -0.5 if scale is None else scale,
+        0.0 if softcap is None else softcap, int(causal),
+        0 if window is None else int(window), _build.stream(q.device))
+    _build.check(lib, "flash_attention_bwd", code)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -9,21 +9,30 @@ are the one-token Mamba2 and RWKV-6 state updates of decode
 (``ref.mamba2_decode_step``, ``ref.rwkv6_decode_step``), plain in both
 packages.
 
+The pack and attention are differentiable: their gradients run the
+backward kernels of the same sources (``dispatch_pack_bwd``,
+``flash_attention_bwd``; plain versions for CPU tensors).  The two scans
+have no backward kernel yet, so the hybrid and rwkv families do not train
+on the card (``models.api.Model.loss`` raises there).
+
 Launch counts: ``<op>.launches`` for each op of ``KERNEL_OPS``.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.dispatch_pack import dispatch_pack
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.dispatch_pack import dispatch_pack, dispatch_pack_bwd
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.mamba2_scan import mamba2_scan
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
-__all__ = ["dispatch_pack", "flash_attention", "mamba2_scan", "rwkv6_scan",
+__all__ = ["dispatch_pack", "dispatch_pack_bwd", "flash_attention",
+           "flash_attention_bwd", "mamba2_scan", "rwkv6_scan",
            "decode_attention", "reset_launches", "launches"]
 
-KERNEL_OPS = (dispatch_pack, flash_attention, mamba2_scan, rwkv6_scan)
+KERNEL_OPS = (dispatch_pack, flash_attention, mamba2_scan, rwkv6_scan,
+              dispatch_pack_bwd, flash_attention_bwd)
 
 
 def decode_attention(q, k, v, kv_len=None, *, scale=None, softcap=None,

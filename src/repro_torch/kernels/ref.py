@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
 These are the correctness references, written for clarity: dense masked
-attention, grouped decode attention over a KV cache, scatter-based
-packing, and the Mamba2 and RWKV-6 scans (per-step recurrences, their
+attention (and its backward, with the forward's log-sum-exp), grouped
+decode attention over a KV cache, scatter-based packing (and its
+backward), and the Mamba2 and RWKV-6 scans (per-step recurrences, their
 one-token decode steps, and the chunked forms that the reference's serving
 path runs), and, for the tests alone, the RWKV-6 kernel's sub-chunk
 factorisation.  A kernel wrapper runs its plain version for tensors on the CPU
@@ -43,6 +44,72 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.bmm(p, v.float()).to(q.dtype)
+
+
+def _grouped_scores(q, k, *, causal, window, softcap, scale):
+    """fp32 scores of q [B, H, S, D] against grouped k [B, G, T, D] (the kv
+    heads repeated), after scale and softcap; the mask where a key may
+    attend; and tanh of the capped scores (None without a softcap)."""
+    h, g = q.shape[1], k.shape[1]
+    d = q.shape[-1]
+    if scale is None:
+        scale = d ** -0.5
+    kx = k.float().repeat_interleave(h // g, dim=1)
+    s = torch.matmul(q.float(), kx.transpose(-1, -2)) * scale
+    th = None
+    if softcap is not None:
+        th = torch.tanh(s / softcap)
+        s = softcap * th
+    qlen, klen = q.shape[2], k.shape[2]
+    qpos = torch.arange(qlen, device=q.device)[:, None]
+    kpos = torch.arange(klen, device=q.device)[None, :]
+    mask = torch.ones((qlen, klen), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return s, mask, th, scale
+
+
+def attention_lse(q, k, *, causal=True, window=None, softcap=None,
+                  scale=None):
+    """Each query row's log-sum-exp of its scores over the keys it may
+    attend (natural log, fp32), what the kernel's forward hands its
+    backward.  q [B, H, S, D], k [B, G, T, D] -> [B, H, S]; +inf for a row
+    that attends no key."""
+    s, mask, _, _ = _grouped_scores(q, k, causal=causal, window=window,
+                                    softcap=softcap, scale=scale)
+    lse = torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1)
+    return torch.where(mask.any(dim=-1), lse, torch.inf)
+
+
+def attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=None,
+                      softcap=None, scale=None):
+    """The attention backward as explicit fp32 arithmetic (no autograd),
+    the kernel's algorithm: P recomputed from the log-sum-exp, then dV,
+    dP, dS and dQ, dK, the gradients of grouped kv summed over the q heads
+    of each kv head.  q, o, do [B, H, S, D]; k, v [B, G, T, D]; lse
+    [B, H, S].  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, h, _, d = q.shape
+    g, t = k.shape[1], k.shape[2]
+    s, mask, th, scale = _grouped_scores(q, k, causal=causal, window=window,
+                                         softcap=softcap, scale=scale)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    dof = do.float()
+    vx = v.float().repeat_interleave(h // g, dim=1)
+    kx = k.float().repeat_interleave(h // g, dim=1)
+    dv = torch.matmul(p.transpose(-1, -2), dof)              # [B, H, T, D]
+    dp = torch.matmul(dof, vx.transpose(-1, -2))              # [B, H, S, T]
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    ds = ds * scale
+    dq = torch.matmul(ds, kx)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dk = dk.reshape(b, g, h // g, t, d).sum(dim=2)
+    dv = dv.reshape(b, g, h // g, t, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k, v, kv_len=None, *, scale=None, softcap=None,
@@ -347,3 +414,24 @@ def pack_ref(tokens, bitmap, valid, num_dests, capacity):
                            tokens[src_idx.clamp(min=0).long()],
                            torch.zeros((), dtype=tokens.dtype, device=dev))
     return gathered, src_idx
+
+
+def pack_bwd_ref(grad_out, src_idx, n):
+    """The pack's backward: row n of the result sums the slots that hold
+    source row n (``src_idx[d, c] == n``), over the destinations in
+    ascending order, in fp32, rounded once to ``grad_out``'s dtype; zeros for
+    a row no slot holds.  A row fills at most one slot per destination, so
+    the map is inverted into ``slot_of`` [D, N] first (the kernel's
+    algorithm, in its order of sums).  grad_out [D, C, H] -> [N, H]."""
+    d, c, h = grad_out.shape
+    dev = grad_out.device
+    held = src_idx >= 0
+    slot_of = torch.full((d, n + 1), -1, dtype=torch.int64, device=dev)
+    slot_of.scatter_(1, torch.where(held, src_idx, n).long(),
+                     torch.arange(c, device=dev).expand(d, c).clone())
+    slot_of = slot_of[:, :n]
+    acc = torch.zeros((n, h), dtype=torch.float32, device=dev)
+    for dd in range(d):
+        rows = grad_out[dd].float()[slot_of[dd].clamp(min=0)]
+        acc = acc + torch.where((slot_of[dd] >= 0)[:, None], rows, 0.0)
+    return acc.to(grad_out.dtype)

@@ -238,8 +238,8 @@ def _dispatches(record: dict):
     record["pairs"] = []
 
     def wrap(fn):
-        def call(tokens, ids, gates, dcfg, mesh):
-            out = fn(tokens, ids, gates, dcfg, mesh)
+        def call(tokens, ids, gates, dcfg, mesh, **kw):
+            out = fn(tokens, ids, gates, dcfg, mesh, **kw)
             if "state" not in record:
                 record.update(ids=ids, state=out[2], row_bytes=tokens.shape[1]
                               * tokens.element_size())
@@ -565,14 +565,17 @@ def grouped_requests(cfg, *, requests: int, group: int, prompt_len: int,
 def continuous_run(mesh: RankMesh, spec: dict, params, device, fabric
                    ) -> dict:
     """Serve ``spec["continuous"]`` (``requests``, ``prompt_len``,
-    ``max_new``, ``rate``, ``capacity``) through the continuous-batching
-    scheduler under planner admission, with the plan bound for one row a
-    rank and the plan of each batch bucket the admission grows into staged
-    through the engine's ``PlanBinder`` (a TPOT SLO of twice the probe's
-    step at capacity, so nothing is held).  Returns the report, the decode
-    mode and counts, the walls and each request's tokens."""
+    ``max_new``, ``rate``, ``capacity``, and ``group``: requests arrive in
+    groups of that many, by default one a data-parallel rank; 1 leaves the
+    Poisson stream as it is, whose cohorts the engine pads over the ranks)
+    through the continuous-batching scheduler under planner admission,
+    with the plan bound for ``group`` rows and the plan of each batch
+    bucket the admission grows into staged through the engine's
+    ``PlanBinder`` (a TPOT SLO of twice the probe's step at capacity, so
+    nothing is held).  Returns the report, the decode mode and counts, the
+    walls, the rows of each cohort prefilled and each request's tokens."""
     cont, cfg = spec["continuous"], spec["cfg"]
-    group = mesh.axis_size("pod", "data")
+    group = cont.get("group", mesh.axis_size("pod", "data"))
     itemsize = spec["dtype"].itemsize
     phases = {"prefill": (group, cont["prompt_len"]), "decode": (group, 1)}
     pctx = run_context(mesh, spec["pods"], {
@@ -583,6 +586,13 @@ def continuous_run(mesh: RankMesh, spec: dict, params, device, fabric
     engine = ServeEngine(model, params, ServeConfig(
         max_new_tokens=cont["max_new"], cache_dtype=spec["cache_dtype"]),
         device=device, pctx=pctx)
+    cohorts = []
+    start = engine.start_cohort
+
+    def recording(prompts, *args, **kw):
+        cohorts.append(len(prompts))
+        return start(prompts, *args, **kw)
+    engine.start_cohort = recording
     probe = engine.plan_probe(itemsize)
     tpot_slo_s = 2.0 * probe.decode_step_s(cont["capacity"])
     queue = RequestQueue()
@@ -603,6 +613,7 @@ def continuous_run(mesh: RankMesh, spec: dict, params, device, fabric
     return {"report": sched.report(ttft_slo_s=0.08, tpot_slo_s=tpot_slo_s),
             "decode_graph": dict(engine.stats["decode_graph"]),
             "wall": dict(sched.wall), "bound_bucket": sched.bound_bucket,
+            "cohorts": cohorts,
             "tokens": {r.rid: list(r.tokens) for r in sched.completed}}
 
 
@@ -702,10 +713,10 @@ def probe_worker(rank: int, spec: dict) -> None:
     calls: list = []
 
     def recording(fn):
-        def call(tokens, ids, gates, dcfg, epmesh):
+        def call(tokens, ids, gates, dcfg, epmesh, **kw):
             calls.append((tokens.shape[0],
                           tokens.shape[1] * tokens.element_size()))
-            return fn(tokens, ids, gates, dcfg, epmesh)
+            return fn(tokens, ids, gates, dcfg, epmesh, **kw)
         return call
     patches = ([mock.patch.object(cl, name, recording(getattr(cl, name)))
                 for name in ("hierarchical_dispatch", "baseline_dispatch")]

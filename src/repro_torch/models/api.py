@@ -4,14 +4,19 @@
 ``build_model(cfg)`` returns a :class:`Model`:
 
   init(generator)                -> params (the family's ``nn.Module``)
+  loss(params, batch)            -> (ce + 0.01 * aux, {"ce", "aux"}),
+                                    differentiable in the parameters
   prefill(params, batch, cache)  -> (next-token logits [B, V], cache)
   decode(params, batch, cache)   -> (logits [B, V], cache)
   decode_step(params, batch, cache) -> the same, leaving the cache's host
                                     length alone (what a CUDA graph holds)
   init_cache(batch, max_len)     -> per-layer KV buffers or recurrent states
 
-Batches: ``{"tokens": [B, S] int}`` for prefill, ``{"tokens": [B, 1]}`` for
-decode.  The model runs on CUDA unless it is built with ``device="cpu"``.
+Batches: ``{"tokens": [B, S] int}`` for prefill (and ``"labels"`` [B, S]
+for the loss, -1 ignored), ``{"tokens": [B, 1]}`` for decode.  Training
+runs on one rank (``pctx=None``); on the card the hybrid and rwkv families
+do not train yet (their scans have no backward kernel).  The model runs
+on CUDA unless it is built with ``device="cpu"``.
 Built with a ``pctx`` (dense and moe families), a model holds one rank's
 experts and tensor-parallel blocks, and its batches are that rank's
 data-parallel rows (every model rank of a data-parallel group takes the
@@ -75,6 +80,47 @@ class Model:
         if self.cfg.tie_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
         return x
+
+    def hidden_train(self, params, batch: dict):
+        """The stack without a cache: (final-normed hidden [B, S, D], the
+        MoE aux losses summed, fp32)."""
+        fam = self.cfg.family
+        if self.pctx is not None:
+            raise NotImplementedError(
+                "training over ranks is not ported yet (ROADMAP.md queue 1 "
+                "item 8b)")
+        toks = batch["tokens"]
+        x = self._embed(params, toks)
+        if fam in ("hybrid", "rwkv"):
+            if self.device.type == "cuda":
+                scan = "mamba2_scan" if fam == "hybrid" else "rwkv6_scan"
+                raise NotImplementedError(
+                    f"{fam} training on the card needs the {scan} backward "
+                    f"kernel (ROADMAP.md queue 2 item 1)")
+            # the prefill, with a state that is thrown away: the plain
+            # scans run under autograd on the CPU
+            stack = ssm.zamba2_prefill if fam == "hybrid" else \
+                rwkv.rwkv6_prefill
+            cache = self.init_cache(*toks.shape, cache_dtype=self.dtype)
+            h, _ = stack(params, self.cfg, x, cache)
+            return h, torch.zeros((), dtype=torch.float32,
+                                  device=self.device)
+        return T.forward_hidden(params, self.cfg, x,
+                                _positions(*toks.shape, self.device))
+
+    def loss(self, params, batch: dict):
+        """Mean token cross-entropy of the labels plus 0.01 x the MoE aux
+        loss: (loss, {"ce", "aux"}), fp32 scalars."""
+        h, aux = self.hidden_train(params, batch)
+        if params.unembed is not None:
+            w, tied = params.unembed, False
+        else:
+            w, tied = params.embed.emb, True
+        ce = L.chunked_cross_entropy(h, w, batch["labels"].to(self.device),
+                                     tied=tied,
+                                     final_softcap=self.cfg.final_softcap)
+        total = ce + 0.01 * aux
+        return total, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, max_len: int,
                    cache_dtype=torch.bfloat16) -> dict:
@@ -163,3 +209,7 @@ def make_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
         return {"tokens": torch.from_numpy(toks[:, :1]).to(dev)}
     return {"tokens": torch.from_numpy(toks).to(dev),
             "labels": torch.from_numpy(labels).to(dev)}
+
+
+def param_count(params: nn.Module) -> int:
+    return sum(p.numel() for p in params.parameters())

@@ -82,7 +82,9 @@ def reduce_over_model(x: torch.Tensor, pctx) -> torch.Tensor:
 
 
 def parameter(shape, *, device, dtype) -> nn.Parameter:
-    """An uninitialised inference parameter (no gradient)."""
+    """An uninitialised parameter, made without ``requires_grad``: serving
+    keeps it so, and training turns it on for the whole module
+    (``runtime.trainer.trainable``)."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
@@ -92,7 +94,8 @@ def parameter(shape, *, device, dtype) -> nn.Parameter:
 # ---------------------------------------------------------------------------
 
 class RMSNorm(nn.Module):
-    """RMSNorm with a zero-initialised fp32 weight applied as ``1 + w``."""
+    """RMSNorm with a zero-initialised fp32 weight applied as ``1 + w``
+    (made without ``requires_grad``, as :func:`parameter`)."""
 
     def __init__(self, d: int, *, device, eps: float = 1e-5):
         super().__init__()
@@ -506,3 +509,58 @@ def unembed(p_emb: Embedding, x, out_proj=None, final_softcap=None):
         logits = final_softcap * torch.tanh(
             logits.float() / final_softcap).to(x.dtype)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, ignore: int = -1):
+    """Mean token CE in fp32; labels == ignore are masked."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = labels != ignore
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+
+
+def _chunk_loss(hh, emb, ll, tied: bool, final_softcap, ignore: int):
+    """(summed nll, count) of one sequence chunk: the unembedding product
+    in the activations' dtype, the softmax in fp32."""
+    logits = hh @ (emb.T if tied else emb).to(hh.dtype)       # [B, C, V]
+    lf = logits.float()
+    if final_softcap is not None:
+        lf = final_softcap * torch.tanh(lf / final_softcap)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, ll.clamp(min=0).long()[..., None])[..., 0]
+    mask = ll != ignore
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def chunked_cross_entropy(h, emb, labels, *, tied=True, chunk=512,
+                          final_softcap=None, ignore: int = -1):
+    """Sequence-chunked CE that never holds [B, S, V] logits.
+
+    The unembedding product and softmax run per S-chunk under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so the
+    forward and the backward hold one chunk of logits at a time.
+
+    h: [B, S, D]; emb: [V, D] (tied=True) or [D, V]; labels: [B, S].
+    Returns the mean token CE (fp32 scalar)."""
+    from torch.utils.checkpoint import checkpoint
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=ignore)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    for lo in range(0, h.shape[1], chunk):
+        dn, dc = checkpoint(_chunk_loss, h[:, lo:lo + chunk], emb,
+                            labels[:, lo:lo + chunk], tied, final_softcap,
+                            ignore, use_reentrant=False)
+        nll = nll + dn
+        cnt = cnt + dc
+    return nll / torch.clamp(cnt, min=1)

@@ -203,12 +203,19 @@ def pipeline_config(pctx, cfg, n: int, d: int, d_ff: int,
 
 
 def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
-            with_aux: bool = True):
+            with_aux: bool = True, valid=None):
     """x: [B, S, D] -> ([B, S, D], aux_loss).  With a ``pctx``, x holds this
     rank's data-parallel rows and ``params`` its experts.  ``with_aux=False``
     skips the aux loss (and its mean over the dp ranks) and returns None in
     its place: serving has no use for it.  With G > 1 chunks the aux is the
-    mean over the chunks of each chunk's dp-mean."""
+    mean over the chunks of each chunk's dp-mean.  ``valid`` [B] bool (None:
+    every row): a row that is not valid is dispatched to no expert (the
+    first pack's ``valid`` input), so it takes no capacity, and its output
+    is zero.
+
+    Differentiable in x, the router and the experts: the packs run their
+    backward kernel, and gather_rows, the gates and the fp32 sums of the
+    combine are autograd's own."""
     b, s, d = x.shape
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity
@@ -252,7 +259,10 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
     deferred = pctx is not None and pctx.moe_deferred_tp_reduce
     expert_ctx = None if deferred else pctx
 
-    def dispatch_chunk(tok):
+    rows_valid = (None if valid is None else
+                  valid.to(torch.bool).repeat_interleave(s))    # [N]
+
+    def dispatch_chunk(tok, tok_valid):
         """Router, top-k, the aux when asked for, and the dispatch."""
         logits = tok.float() @ params.router
         gates, ids = cl.route_topk(logits, cfg.top_k)
@@ -262,7 +272,8 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
             if dp_group is not None:              # lax.pmean over dp axes
                 dist.all_reduce(aux, group=dp_group)
                 aux = aux / pctx.dp_size
-        return list(dispatch(tok, ids, gates, dcfg, epmesh)), aux
+        return list(dispatch(tok, ids, gates, dcfg, epmesh,
+                             valid=tok_valid)), aux
 
     def finish_chunk(pack):
         """The expert FFN and the combine.  Empties ``pack``, so that the
@@ -279,11 +290,16 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
         return out.to(x.dtype)
 
     if g == 1:
-        pack, aux = dispatch_chunk(tokens)
+        pack, aux = dispatch_chunk(tokens, rows_valid)
         out = finish_chunk(pack)
     else:
         chunks = tokens.reshape(g, n // g, d)
-        issue, wait = _dispatch_hooks(chunks, dispatch_chunk, params)
+        # the chunks are issued once each, in order
+        chunk_valid = iter([None] * g if rows_valid is None
+                           else rows_valid.reshape(g, n // g))
+        issue, wait = _dispatch_hooks(
+            chunks, lambda tok: dispatch_chunk(tok, next(chunk_valid)),
+            params)
         outs, auxs = _pipeline(chunks, issue, wait, finish_chunk)
         out = torch.cat(outs)
         if with_aux:

@@ -234,7 +234,7 @@ def zamba2_prefill(params: Zamba2, cfg: ModelConfig, x, cache: dict):
             a, (k, v) = T._attn_part(params.shared, x, positions, cfg,
                                      window=None, return_kv=True)
             x = x + a
-            f = T._ffn_part(params.shared, x, cfg)
+            f, _ = T._ffn_part(params.shared, x, cfg)
             x = x + f
             cache["k"][si][:, :s] = k.to(cache["k"][si].dtype)
             cache["v"][si][:, :s] = v.to(cache["v"][si].dtype)
@@ -260,7 +260,7 @@ def zamba2_decode_step(params: Zamba2, cfg: ModelConfig, x, cache: dict):
             a = T._decode_attn(params.shared, x, cache["k"][si],
                                cache["v"][si], pos, cfg, window=None)
             x = x + a
-            f = T._ffn_part(params.shared, x, cfg)
+            f, _ = T._ffn_part(params.shared, x, cfg)
             x = x + f
             si += 1
     pos.add_(1)

@@ -19,6 +19,8 @@ caches lie in ``layers.kv_layout``'s layout, which the prefill writes.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -215,16 +217,21 @@ def _attn_part(lp: Block, x, positions, cfg, *, window, causal=True,
                        pctx=pctx)
 
 
-def _ffn_part(lp: Block, x, cfg, pctx=None):
-    """The FFN half of a block; serving drops the MoE aux loss, so it is
-    never computed (nor averaged over the ranks)."""
+def _ffn_part(lp: Block, x, cfg, pctx=None, *, with_aux=False,
+              valid=None):
+    """The FFN half of a block: (out, the MoE aux loss, or None for a dense
+    block or without ``with_aux``).  Serving drops the aux, so it is never
+    computed there (nor averaged over the ranks).  ``valid`` [B] bool: the
+    rows whose tokens take expert capacity (a cohort's padding rows do
+    not)."""
     h = lp.ln2(x)
     if lp.moe is None:
-        return L.mlp(lp.mlp, h, cfg.act, pctx)
-    out = M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=False)[0]
+        return L.mlp(lp.mlp, h, cfg.act, pctx), None
+    out, aux = M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=with_aux,
+                         valid=valid)
     if lp.shared_mlp is not None:
         out = out + L.mlp(lp.shared_mlp, h, cfg.act, pctx)
-    return out
+    return out, aux
 
 
 def _decode_attn(lp: Block, x, ck, cv, pos, cfg, *, window, pctx=None,
@@ -262,6 +269,41 @@ def _split_tp_seq_gather(x, pctx):
     return full.transpose(0, 1).reshape(b, m * part, d)
 
 
+def _remat(fn, pctx):
+    """The reference's remat wrapper: ``torch.utils.checkpoint`` (the
+    block's activations recomputed in the backward) when the context asks
+    for remat; none without a context, as the reference's one-device path.
+    Both of the reference's policies ("full", and dots saved) recompute the
+    whole block here."""
+    if pctx is None or getattr(pctx, "remat", "none") == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _train_block(lp: Block, x, positions, cfg, pctx, window):
+    """One block of :func:`forward_hidden`: (x, the MoE aux or None)."""
+    x = x + _attn_part(lp, x, positions, cfg, window=window, pctx=pctx)
+    f, aux = _ffn_part(lp, x, cfg, pctx, with_aux=True)
+    return x + f, aux
+
+
+def forward_hidden(params: Transformer, cfg, x, positions, pctx=None):
+    """Run the decoder stack on hidden states x [B, S, D] without a cache
+    (training).  Returns (final-normed hidden, the MoE aux losses summed,
+    fp32)."""
+    wins = window_schedule(cfg, cfg.n_layers)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(params.blocks):
+        block = _remat(functools.partial(
+            _train_block, lp, positions=positions, cfg=cfg, pctx=pctx,
+            window=None if wins is None else wins[i]), pctx)
+        x, aux = block(x)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return params.final_norm(x), aux_total
+
+
 def logits_fn(params: Transformer, cfg, x, last_only=False):
     if last_only:
         x = x[:, -1:]
@@ -277,11 +319,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     """Per-layer KV buffers (this rank's, in ``layers.kv_layout``'s layout
     ``layout``: [B, max_len, G, dh] on one rank) and the filled length, as
     an int64 scalar on the device (``pos``, what decode reads) and as a
-    host int (``len``, bookkeeping) of ``max_len`` positions."""
+    host int (``len``, bookkeeping) of ``max_len`` positions; ``valid`` [B]
+    bool marks the rows whose tokens take expert capacity (all of them
+    unless a server pads the cohort)."""
     layout = L.kv_layout(cfg.n_kv_heads, pctx, max_len)
     shape = L.kv_cache_shape(cfg.n_kv_heads, cfg.head_dim, batch, max_len,
                              layout, L.tp_of(pctx)[0])
     return {
+        "valid": torch.ones(batch, dtype=torch.bool, device=device),
         "k": [torch.zeros(shape, dtype=dtype, device=device)
               for _ in range(cfg.n_layers)],
         "v": [torch.zeros(shape, dtype=dtype, device=device)
@@ -312,7 +357,7 @@ def prefill(params: Transformer, cfg, x, positions, cache, pctx=None):
                                window=None if wins is None else wins[i],
                                return_kv=True, pctx=pctx)
         x = x + a
-        f = _ffn_part(lp, x, cfg, pctx)
+        f, _ = _ffn_part(lp, x, cfg, pctx, valid=cache.get("valid"))
         x = x + f
         L.write_prefill_kv(lp.attn, cache["k"][i], cache["v"][i], k, v,
                            cache["layout"], pctx)
@@ -335,7 +380,7 @@ def decode_step(params: Transformer, cfg, x, cache, pctx=None):
                          window=None if wins is None else wins[i],
                          pctx=pctx, layout=cache["layout"])
         x = x + a
-        f = _ffn_part(lp, x, cfg, pctx)
+        f, _ = _ffn_part(lp, x, cfg, pctx, valid=cache.get("valid"))
         x = x + f
     pos.add_(1)
     x = params.final_norm(x)

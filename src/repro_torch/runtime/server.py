@@ -348,6 +348,8 @@ class ServeEngine:
         rows = self._my_rows(prompts)
         slot = lowering.decode.start(len(rows), s + max_new,
                                      self.cfg.cache_dtype)
+        if "valid" in slot.cache:       # padding rows take no expert slot
+            slot.cache["valid"].copy_(torch.from_numpy(self._my_valid(b)))
         tokens = torch.from_numpy(np.ascontiguousarray(rows, np.int32))
         logits, _ = lowering.prefill(
             self.params, {"tokens": tokens.to(self.device)}, slot.cache)
@@ -389,15 +391,30 @@ class ServeEngine:
 
     # -- data-parallel rows over ranks -------------------------------------------
     def _my_rows(self, rows):
-        """This rank's block of the global batch rows."""
+        """This rank's block of the global batch rows (a numpy array or a
+        tensor).  A batch that does not divide over the data-parallel ranks
+        is padded with zero rows to the next multiple first: every rank
+        gets ``ceil(B / dp)`` rows (the reference refuses such a batch).
+        The padded rows' tokens are routed as invalid (``_my_valid``), so
+        they take no expert capacity, and their samples are dropped."""
         if self.pctx is None:
             return rows
         dp = self.pctx.dp_size
-        if len(rows) % dp:
-            raise ValueError(f"batch {len(rows)} does not divide over {dp} "
-                             f"data-parallel ranks")
-        per = len(rows) // dp
+        per = -(-len(rows) // dp)
+        pad = per * dp - len(rows)
+        if pad:
+            if isinstance(rows, torch.Tensor):
+                rows = torch.cat([rows, rows.new_zeros((pad,) + tuple(
+                    rows.shape[1:]))])
+            else:
+                rows = np.concatenate([rows, np.zeros(
+                    (pad,) + rows.shape[1:], rows.dtype)])
         return rows[self.pctx.dp_index * per:(self.pctx.dp_index + 1) * per]
+
+    def _my_valid(self, batch: int) -> np.ndarray:
+        """[this rank's rows] bool: the rows of :meth:`_my_rows` that are
+        requests, not padding (which comes as False)."""
+        return self._my_rows(np.ones(batch, dtype=bool))
 
     def _dp_group(self):
         return self.pctx.mesh.group(*self.pctx.dp_axes)
@@ -434,7 +451,7 @@ class ServeEngine:
         if self.pctx is not None and self.pctx.dp_size > 1:
             parts = [torch.empty_like(nxt) for _ in range(self.pctx.dp_size)]
             dist.all_gather(parts, nxt, group=self._dp_group())
-            nxt = torch.cat(parts)
+            nxt = torch.cat(parts)[:state.batch]     # the padding dropped
         return nxt.cpu().numpy()
 
     def generate(self, prompts: np.ndarray, max_new: Optional[int] = None,

@@ -404,7 +404,8 @@ def test_graph_launch_counts_are_exact_on_card():
         assert ops.launches() == {
             "dispatch_pack": 3 * cfg.n_layers * GRAPH_NEW,
             "flash_attention": cfg.n_layers, "mamba2_scan": 0,
-            "rwkv6_scan": 0}
+            "rwkv6_scan": 0, "dispatch_pack_bwd": 0,
+            "flash_attention_bwd": 0}
     assert engine.stats["decode_graph"]["captures"] == 1
 
 
@@ -427,3 +428,120 @@ def test_failed_capture_raises_on_card():
         engine.generate(prompts)
     g = engine.stats["decode_graph"]
     assert (g["eager_rounds"], g["captures"], g["replays"]) == (1, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (training)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,d,c,dtype", [
+    (2048, 6144, 1, 2560, torch.bfloat16),    # DBRX prefill, stage 1
+    (3200, 6144, 16, 640, torch.bfloat16),    # stage 3: rows in 4 slots
+    (1024, 256, 31, 40, torch.float32),       # 31 destinations, overflow
+    (300, 6, 5, 70, torch.bfloat16),          # rows not 16-byte wide
+    (1, 64, 3, 4, torch.bfloat16),            # one row
+    (50, 128, 2, 200, torch.bfloat16),        # empty slots
+])
+def test_pack_backward_kernel_on_card(n, h, d, c, dtype):
+    """The pack's backward kernel: bit-exact against its plain version
+    (the same fp32 sums in the same order), and within 2e-2 of autograd of
+    the plain pack in fp32; invalid rows get zeros."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(n + d)
+    tokens = torch.randn((n, h), generator=gen, device="cuda").to(dtype)
+    bitmap = torch.randint(0, 1 << d, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.25
+    _, idx = ops.dispatch_pack(tokens, bitmap, valid, num_dests=d,
+                               capacity=c)
+    grad = torch.randn((d, c, h), generator=gen, device="cuda").to(dtype)
+    got = ops.dispatch_pack_bwd(grad, idx, n)
+    exp = tref.pack_bwd_ref(grad, idx, n)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(ints), exp.view(ints))
+    leaf = tokens.float().requires_grad_(True)
+    auto, = torch.autograd.grad(tref.pack_ref(leaf, bitmap, valid, d, c)[0],
+                                leaf, grad.float())
+    torch.testing.assert_close(got.float(), auto, atol=2e-2, rtol=2e-2)
+    assert not got[~valid].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal,window,softcap", [
+    ((4, 48, 8, 512, 512, 128), True, None, None),     # DBRX prefill
+    ((2, 4, 2, 100, 100, 128), True, 32, None),         # a window
+    ((2, 4, 2, 64, 64, 64), True, None, 30.0),          # softcap, dh 64
+    ((2, 8, 2, 300, 300, 112), True, None, None),       # dh 112, ragged
+    ((1, 4, 2, 96, 160, 128), True, 48, 20.0),          # every mask
+    ((2, 4, 1, 77, 133, 112), False, None, None),       # cross, one kv head
+    ((1, 2, 2, 64, 64, 64), True, None, None),          # one q tile
+])
+def test_attention_backward_kernel_on_card(shape, causal, window, softcap):
+    """The attention backward kernel from the forward's own log-sum-exp:
+    dq, dk, dv within atol = rtol = 2e-2 of autograd of the plain forward
+    in fp32, and of the plain backward; the forward's log-sum-exp within
+    1e-3 of the plain one."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import _forward
+    b, hq, g, sq, t, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(sq + t)
+
+    def rand(*size):
+        return torch.randn(size, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    q = rand(b, sq, hq, d).transpose(1, 2)
+    k = rand(b, t, g, d).transpose(1, 2)
+    v = rand(b, t, g, d).transpose(1, 2)
+    do = rand(b, sq, hq, d).transpose(1, 2)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = _forward(q, k, v, (causal, window, softcap, None),
+                        with_lse=True)
+    lse_ref = tref.attention_lse(q, k, **kw)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-4)
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+    auto = torch.autograd.grad(flash_attention_plain(*leaves, **kw), leaves,
+                               do.float())
+    plain = tref.attention_bwd_ref(q, k, v, out, do, lse_ref, **kw)
+    for a, e, p in zip(got, auto, plain):
+        assert a.shape == e.shape and a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), e, atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(a.float(), p.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_attention_gradient_through_the_wrapper_on_card():
+    """``ops.flash_attention`` under autograd runs the forward kernel with
+    its log-sum-exp and the backward kernel, once each."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+        for s in ((2, 8, 128, 64), (2, 2, 128, 64), (2, 2, 128, 64)))
+    ops.reset_launches()
+    ops.flash_attention(q, k, v).sum().backward()
+    counts = ops.launches()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    assert all(x.grad is not None and torch.isfinite(x.grad).all()
+               for x in (q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2_7b", "rwkv6_7b"])
+def test_recurrent_training_raises_on_card(arch):
+    """The scans have no backward kernel yet: the hybrid and rwkv families'
+    loss raises on the card instead of running anything plain there."""
+    _need_cuda()
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError, match="backward kernel"):
+        model.loss(params, {"tokens": toks, "labels": toks})
+    assert not any(ops.launches().values())

@@ -148,7 +148,8 @@ def test_entry_points_default_to_cuda():
 
 def test_engine_over_ranks_checks_its_context_and_batch(engines):
     """The engine takes the model's own context, and a batch that does not
-    divide over the data-parallel ranks raises before any work."""
+    divide over the data-parallel ranks is padded with rows that are not
+    valid (they take no expert capacity; their samples are dropped)."""
     cfg, _, teng = engines
 
     class FourRanks:                   # dp rank 1 of 4, no plan bound
@@ -161,8 +162,12 @@ def test_engine_over_ranks_checks_its_context_and_batch(engines):
     model = build_model(cfg, device="cpu", dtype=torch.float32, pctx=pctx)
     eng = ServeEngine(model, teng.params, device="cpu", pctx=pctx)
     np.testing.assert_array_equal(eng._my_rows(np.arange(8)), [2, 3])
-    with pytest.raises(ValueError, match="does not divide"):
-        eng.start_cohort(np.zeros((3, 4), np.int32))
+    np.testing.assert_array_equal(eng._my_rows(np.arange(1, 4)), [2])
+    np.testing.assert_array_equal(eng._my_valid(3), [True])
+    np.testing.assert_array_equal(eng._my_rows(np.arange(1, 2)), [0])
+    np.testing.assert_array_equal(eng._my_valid(1), [False])
+    np.testing.assert_array_equal(eng._my_rows(np.arange(1, 6)), [3, 4])
+    np.testing.assert_array_equal(eng._my_valid(5), [True, True])
     with pytest.raises(NotImplementedError, match="ParallelContext"):
         build_model(get_config("zamba2_7b").reduced(), device="cpu",
                     pctx=pctx)
@@ -252,7 +257,10 @@ def test_importing_the_port_loads_no_jax():
         "        'repro_torch.core.schedules', 'repro_torch.core.topology',\n"
         "        'repro_torch.core.latency_model',\n"
         "        'repro_torch.core.multiwrite', 'repro_torch.core.h100',\n"
-        "        'repro_torch.telemetry.metrics'} <= set(mods), mods\n"
+        "        'repro_torch.telemetry.metrics',\n"
+        "        'repro_torch.optim.optimizers', 'repro_torch.data.pipeline',\n"
+        "        'repro_torch.checkpoint.store', 'repro_torch.runtime.trainer',\n"
+        "        'repro_torch.launch.train'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -280,7 +288,10 @@ def test_no_source_of_the_port_imports_jax_or_the_reference():
             PORT / "core" / "schedules.py", PORT / "core" / "topology.py",
             PORT / "core" / "latency_model.py",
             PORT / "core" / "multiwrite.py", PORT / "core" / "h100.py",
-            PORT / "telemetry" / "metrics.py"} <= set(files)
+            PORT / "telemetry" / "metrics.py",
+            PORT / "optim" / "optimizers.py", PORT / "data" / "pipeline.py",
+            PORT / "checkpoint" / "store.py", PORT / "runtime" / "trainer.py",
+            PORT / "launch" / "train.py"} <= set(files)
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
