@@ -8,9 +8,10 @@ Phases; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit (no CUDA device is an error);
 2. build: compile every kernel under ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` each, all started together; print ptxas's registers and
-   spills, and count the wgmma/TMA (flash attention) and tensor-core
-   (both scans) instructions in the SASS where the toolkit has
-   ``cuobjdump``;
+   spills for each kernel function, and count the wgmma/TMA (flash
+   attention) and tensor-core (both scans) instructions in the SASS where
+   the toolkit has ``cuobjdump``, and wgmma/TMA in each of the attention
+   backward's own kernel functions;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it plus edge cases (tile and chunk
    edges, no decay and fast decay, one row, empty and full slots), with its
@@ -79,7 +80,10 @@ Phases; any failure raises and the script exits non-zero:
    forward's log-sum-exp) against their plain versions and against
    autograd of the plain forwards, at the shapes of one DBRX prefill
    layer of 4 x 512 tokens and at edge cases, timed beside
-   ``index_add_`` and the backward of ``scaled_dot_product_attention``; a
+   ``index_add_`` and the backward of ``scaled_dot_product_attention``
+   (attention's also each pass's device time, its host issue, two calls
+   bit-identical, the dK/dV blocks' balance as they ran, and DBRX's heads
+   at 4,096 tokens, held against the plain backward); a
    small DBRX-shaped model's loss and gradients in bf16 on the card
    against fp32 on the CPU; then DBRX-132B at full width, depth cut to 2,
    trained through ``Trainer`` for 8 steps of 4 x 512 tokens (AdamW with
@@ -236,12 +240,47 @@ SASS_WANTS = {
     "mamba2_scan": ((), ("HMMA", "HGMMA")),
     "rwkv6_scan": ((), ("HMMA", "HGMMA")),
 }
+# kernel functions that must hold instructions in their own SASS: library
+# -> {a part of the function's name: all of}
+SASS_FUNCTION_WANTS = {
+    "flash_attention": {"attn_bwd_dq_kernel": ("HGMMA", "UTMALDG"),
+                        "attn_bwd_dkdv_kernel": ("HGMMA", "UTMALDG")},
+}
+
+
+def kernel_name(mangled: str) -> str:
+    """``attn_bwd_dq_kernel<128>`` from a mangled template instance's name,
+    ``dispatch_pack_kernel`` from a plain function's."""
+    import re
+    m = re.search(r"ILi(\d+)E", mangled)
+    if not m:
+        m = re.match(r"_Z(\d+)", mangled)
+        return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
+    end = m.start()
+    # the name before the template arguments is preceded by its length
+    for start in range(end - 1, 0, -1):
+        length = str(end - start)
+        if mangled[start - len(length):start] == length:
+            return f"{mangled[start:end]}<{m.group(1)}>"
+    return mangled
+
+
+def sass_functions(sass: str) -> dict:
+    """A ``cuobjdump -sass`` listing cut at its ``Function :`` headers:
+    mangled function name -> that function's SASS."""
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        out[name.strip()] = body
+    return out
 
 
 def sass_phase() -> None:
     """Count the tensor-core and TMA instructions in the built libraries
-    with ``cuobjdump -sass``; says "not checked" where the toolkit has no
-    ``cuobjdump``, and fails where an instruction is missing."""
+    with ``cuobjdump -sass``, and in each function of
+    ``SASS_FUNCTION_WANTS`` on its own; says "not checked" where the
+    toolkit has no ``cuobjdump``, and fails where an instruction is
+    missing."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -258,6 +297,17 @@ def sass_phase() -> None:
         if not all(counts[op] for op in every) or (
                 some and not any(counts[op] for op in some)):
             raise AssertionError(f"{name}: SASS lacks {every or some}")
+        functions = sass_functions(sass)
+        for part, ops in SASS_FUNCTION_WANTS.get(name, {}).items():
+            found = {f: b for f, b in functions.items() if part in f}
+            if not found:
+                raise AssertionError(f"{name}: no function {part} in SASS")
+            for fname, body in sorted(found.items()):
+                counts = {op: body.count(op) for op in ops}
+                print(f"  {name} {kernel_name(fname)} SASS: {counts}")
+                if not all(counts.values()):
+                    raise AssertionError(f"{kernel_name(fname)}: SASS lacks "
+                                         f"{ops}")
 
 
 def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
@@ -1487,7 +1537,8 @@ def kimi_phase(layers: int, max_new: int) -> dict:
         del shared
         torch.cuda.empty_cache()
     print(f"  {world} ranks spawned, served and joined in "
-          f"{time.monotonic() - t0:.1f} s")
+          f"{time.monotonic() - t0:.1f} s; this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB after them")
     failures = report_planner(results, world)
     failures += check_kimi(results, runs, cfg, max_new)
     found, total, _ = check_served(results, runs, cfg, max_new, where,
@@ -2351,14 +2402,120 @@ def pack_bwd_checks(failures: list) -> dict:
                 bound_by="bytes", **row)
 
 
+def kernel_ms_by_name(fn, calls: int = 10) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, by name,
+    from a ``torch.profiler`` trace of ``calls`` calls after a warm one."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            out[evt.name] += evt.time_range.elapsed_us() / 1e3 / calls
+    return dict(out)
+
+
+# the attention backward's two passes, by a part of their kernels' names
+BWD_PASSES = (("dQ", "attn_bwd_dq_kernel"), ("dK/dV", "attn_bwd_dkdv_kernel"))
+# DBRX's attention heads at train_4k's sequence length: b, heads, kv heads,
+# Sq, Sk, D
+ATTN_BWD_LONG = (1, 48, 8, 4096, 4096, 128)
+
+
+def time_attention_bwd(label: str, args: tuple, lse_ref, kw: dict) -> dict:
+    """The backward kernel's device time at one causal shape, each pass's
+    from a profiler trace, its host issue, the plain backward's time, the
+    backward of ``scaled_dot_product_attention`` on the same q, k, v, do
+    and the bound; printed and returned as a kernels-line row's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    q, k, v, out, do, lse = args
+    b, hq, sq, d = q.shape
+    g, t = k.shape[1], k.shape[2]
+
+    def call():
+        return ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    ms = device_ms(call)
+    by_name = kernel_ms_by_name(call)
+    passes = {p: sum(v for n, v in by_name.items() if part in n)
+              for p, part in BWD_PASSES}
+    issue = host_ms(call)
+    plain_ms = time_ms(lambda: ref.attention_bwd_ref(
+        q, k, v, out, do, lse_ref, **kw), iters=5, warmup=1)
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+    # the backward alone: forward and backward captured together (so the
+    # backward runs on the capturing stream), less the forward
+    lib = device_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do)) \
+        - device_ms(sdpa)
+    # q, o, do read and dq written; k, v read and dk, dv written; the lse
+    # read; the five products of the causal pairs
+    nbytes = 2 * (4 * b * hq * sq * d + 4 * b * g * t * d) + 4 * b * hq * sq
+    flops = 10 * b * hq * d * (sq * (sq + 1) // 2)
+    bnd, by = bound_ms(nbytes, flops)
+    shares = ", ".join(
+        f"{p} {v:.4f} ms ({v / sum(passes.values()):.0%})" if v else
+        f"{p} not measured (no device events)" for p, v in passes.items())
+    print(f"  flash_attention_bwd {label} time (device, CUDA graph of 20 "
+          f"calls): kernel {ms:.4f} ms (profiler: {shares}), plain "
+          f"{plain_ms:.4f} ms, the backward of scaled_dot_product_attention "
+          f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP); kernel/sdpa {ms / lib:.2f}, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; host issue {issue_text(issue)}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib, host_ms=issue[0],
+                pass_ms={p: v for p, v in passes.items()})
+
+
+def dkdv_balance(shape: tuple, args: tuple, kw: dict, failures: list) -> None:
+    """The dK/dV pass's balance as it ran: one call that has each block's
+    two consumer warpgroups record the q steps they walked and the SM clock
+    cycles they took; prints the heaviest over the mean of each (the aim
+    for the steps: 1.25).  Fails if a warpgroup recorded nothing or the
+    gradients differ from a call without the record."""
+    import torch
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import dkdv_blocks
+    b, _, g, _, t, _ = shape
+    record = torch.zeros((dkdv_blocks(b, g, t, causal=kw["causal"]), 2, 2),
+                         dtype=torch.int64, device="cuda")
+    got = ops.flash_attention_bwd(*args, record=record, **kw)
+    same = all(torch.equal(a, c) for a, c in
+               zip(got, ops.flash_attention_bwd(*args, **kw)))
+    steps, cycles = record[..., 0].float(), record[..., 1].float()
+    print(f"  dK/dV blocks at {shape} as they ran: {record.shape[0]} blocks "
+          f"of 2 consumer warpgroups on {_build.sm_count(0)} SMs; q steps a "
+          f"warpgroup {int(steps.min())}-{int(steps.max())}, heaviest/mean "
+          f"{(steps.max() / steps.mean()).item():.3f} (aim 1.25); cycles a "
+          f"warpgroup {int(cycles.min())}-{int(cycles.max())}, heaviest/mean "
+          f"{(cycles.max() / cycles.mean()).item():.3f}")
+    if not same or not (cycles > 0).all():
+        failures.append(f"flash_attention_bwd record at {shape}")
+
+
 def attention_bwd_checks(failures: list) -> dict:
     """The attention backward kernel (and the forward's log-sum-exp)
     against the plain backward and against autograd of the plain forward,
     atol = rtol = 2e-2 of fp32, at DBRX's prefill shape and at edge cases;
-    DBRX's shape timed beside the backward of
-    ``scaled_dot_product_attention``."""
+    at DBRX's shape also two calls bit-identical; DBRX's shape and
+    ``ATTN_BWD_LONG`` (held against the plain backward alone) timed beside
+    the backward of ``scaled_dot_product_attention``, with the dK/dV
+    blocks' balance as they ran."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (_forward,
@@ -2372,6 +2529,7 @@ def attention_bwd_checks(failures: list) -> dict:
         ("all-masks", (1, 4, 2, 96, 160, 128), True, 48, 20.0),
         ("cross-112-g1", (2, 4, 1, 77, 133, 112), False, None, None),
         ("one-q-tile", (1, 2, 2, 64, 64, 64), True, None, None),
+        ("long", ATTN_BWD_LONG, True, None, None),
     ]
     row = {}
     for i, (label, shape, causal, window, softcap) in enumerate(cases):
@@ -2391,51 +2549,47 @@ def attention_bwd_checks(failures: list) -> dict:
         lse_ref = ref.attention_lse(q, k, **kw)
         got = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
         plain = ref.attention_bwd_ref(q, k, v, out, do, lse_ref, **kw)
-        leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
-        auto = torch.autograd.grad(flash_attention_plain(*leaves, **kw),
-                                   leaves, do.float())
+        held = [plain]
+        if label != "long":   # autograd of the plain forward: 2 x the memory
+            leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+            held.append(torch.autograd.grad(
+                flash_attention_plain(*leaves, **kw), leaves, do.float()))
         torch.cuda.synchronize()
         lse_err = (lse - lse_ref).abs().max().item()
         errs = [(a.float() - e.float()).abs().max().item()
-                for a, e in zip(got, auto)]
+                for a, e in zip(got, held[-1])]
         ok = all(torch.allclose(a.float(), e.float(), **ATTN_TOL)
-                 for pair in (zip(got, auto), zip(got, plain))
-                 for a, e in pair) and lse_err < 1e-3
+                 for exp in held for a, e in zip(got, exp)) and lse_err < 1e-3
+        against = ("the plain backward" if label == "long" else
+                   "autograd of the plain forward")
         print(f"  flash_attention_bwd {label} {shape} causal={causal} "
               f"window={window} softcap={softcap}: dq/dk/dv max|err| "
-              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} against autograd "
-              f"of the plain forward, forward lse {lse_err:.3e}: "
-              f"{'within' if ok else 'OUTSIDE'} atol=rtol=2e-2")
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} against {against}, "
+              f"forward lse {lse_err:.3e}: {'within' if ok else 'OUTSIDE'} "
+              f"atol=rtol=2e-2")
         if not ok:
             failures.append(f"flash_attention_bwd {label}")
-        if label != "dbrx":
-            continue
-        ms = device_ms(lambda: ops.flash_attention_bwd(q, k, v, out, do, lse,
-                                                       **kw))
-        plain_ms = time_ms(lambda: ref.attention_bwd_ref(
-            q, k, v, out, do, lse_ref, **kw), iters=5)
-        qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                  enable_gqa=True)
-        # the backward alone: forward and backward captured together (so
-        # the backward runs on the capturing stream), less the forward
-        lib = device_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs),
-                                                    do)) - device_ms(sdpa)
-        # q, k, v, o, do read, dq, dk, dv written, the lse read; the five
-        # products of the causal pairs
-        nbytes = 2 * (3 * b * hq * sq * d + 4 * b * g * t * d) \
-            + 4 * b * hq * sq
-        flops = 10 * b * hq * d * (sq * (sq + 1) // 2)
-        bnd, by = bound_ms(nbytes, flops)
-        print(f"  flash_attention_bwd dbrx time (device, CUDA graph of 20 "
-              f"calls): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the "
-              f"backward of scaled_dot_product_attention {lib:.4f} ms, bound "
-              f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP); kernel/sdpa {ms / lib:.2f}")
-        row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                   bound_ms=bnd, bound_by=by, library_ms=lib)
+        del held, plain
+        if label == "dbrx":
+            again = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            print(f"  flash_attention_bwd dbrx called twice: dq, dk, dv "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+            if not same:
+                failures.append("flash_attention_bwd: two calls differ")
+            dkdv_balance(shape, (q, k, v, out, do, lse), kw, failures)
+            row = dict(max_abs_err=max(errs),
+                       **time_attention_bwd(label, (q, k, v, out, do, lse),
+                                            lse_ref, kw))
+        elif label == "long":
+            dkdv_balance(shape, (q, k, v, out, do, lse), kw, failures)
+            row["long"] = dict(shape=list(shape), max_abs_err=max(errs),
+                               **time_attention_bwd(
+                                   label, (q, k, v, out, do, lse), lse_ref,
+                                   kw))
+        # the long shape's plain backward holds about 20 GB of fp32 scores
+        del q, k, v, do, out, lse, lse_ref, got
+        torch.cuda.empty_cache()
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:112", **row)
@@ -2694,6 +2848,25 @@ def train_phase() -> tuple[dict, dict]:
     return rows, train_full_width()
 
 
+def ptxas_report(log: str) -> list:
+    """(function, registers, spill stores, spill loads) of each kernel
+    function in an ``nvcc -Xptxas -v`` log."""
+    import re
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), *spills))
+            name = None
+    return rows
+
+
 def build_phase() -> None:
     from repro_torch.kernels import _build
     t0 = time.monotonic()
@@ -2701,8 +2874,11 @@ def build_phase() -> None:
     print(f"  built {built or 'nothing (cached)'} in "
           f"{time.monotonic() - t0:.1f} s")
     for name, log in _build.build_logs.items():
+        for fname, regs, stores, loads in ptxas_report(log):
+            print(f"  {name}: {kernel_name(fname)}: {regs} registers, spill "
+                  f"stores {stores} bytes, spill loads {loads} bytes")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "wgmma" in line and "serialized" in line:
                 print(f"  {name}: {line.strip()}")
 
 

@@ -1,7 +1,8 @@
 // PTX wrappers for Hopper (sm_90a) shared by the port's kernels: mbarriers,
-// TMA tile loads and stores, wgmma descriptors and instructions, mma.sync,
-// ldmatrix (plain and transposed), cp.async, and the swizzled 64 x 64 bf16 tile helpers of the two
-// scans.  Header-only; every function is inline device code.
+// named barriers, TMA tile loads and stores and 1-D bulk loads, wgmma
+// descriptors and instructions, mma.sync, ldmatrix (transposed), cp.async,
+// and the swizzled 64 x 64 bf16 tile helpers of the two scans.
+// Header-only; every function is inline device code.
 //
 // The wgmma helpers below list every accumulator register by hand, as PTX
 // requires: wgmma_ss_n128 and wgmma_ss_n64 (both operands in shared memory,
@@ -67,6 +68,12 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrive at a named barrier without waiting (the waiting side calls
+// named_barrier with the same count)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- TMA --------------------------------------------------------------------
 
 // one box of a 4-D tensor map into shared memory, completing on `bar`
@@ -77,6 +84,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -127,6 +145,16 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for register A operands: a wgmma issued earlier may still read
+// them, so they stay allocated and unchanged up to this point
+template <int M, int N>
+__device__ __forceinline__ void fence_fragments(uint32_t (&a)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // d[64] (+)= A[64x16] B[128x16]^T, A and B from shared memory
@@ -316,16 +344,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// four 8 x 8 bf16 matrices from shared memory (lanes 8i .. 8i + 7 give the
-// row addresses of matrix i)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// four 8 x 8 bf16 matrices from shared memory, each transposed
+// four 8 x 8 bf16 matrices from shared memory, each transposed (lanes
+// 8i .. 8i + 7 give the row addresses of matrix i)
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"

@@ -31,9 +31,13 @@ need no copy; the output is such a view.
 The gradient (training): when q, k or v needs one, :func:`flash_attention`
 runs under a ``torch.autograd.Function`` whose forward also writes each
 row's log-sum-exp, and whose backward is :func:`flash_attention_bwd`, the
-FlashAttention-2 backward of the same source (``flash_attention_bwd``: a
-rowsum(do * o) pass, dK and dV with one block per kv tile summing over the
-q heads of its kv head, dQ with one block per q tile; no atomics).
+FlashAttention backward of the same source (``flash_attention_bwd``), in
+two passes shaped like the forward (TMA rings, wgmma): dQ, one persistent
+block an SM walking the 128-row q tiles, whose prologue also writes each
+row's delta = rowsum(do * o); then dK and dV with one block per pair of
+64-row kv tiles (:func:`dkdv_blocks`), whose two consumer warpgroups
+split the q heads' steps and sum their partials in a fixed order; no
+atomics.
 
 For tensors on the CPU each wrapper runs its plain version (dense fp32
 attention, :func:`repro_torch.kernels.ref.attention_ref`, over repeated kv
@@ -55,6 +59,7 @@ from repro_torch.kernels.ref import attention_ref
 
 NAME = "flash_attention"
 HEAD_DIMS = (64, 112, 128)
+BWD_ROWS = 64   # rows of the backward's tiles and steps (kBwdRows)
 
 
 def _lib() -> ctypes.CDLL:
@@ -68,6 +73,9 @@ def _lib() -> ctypes.CDLL:
         bwd = lib.flash_attention_bwd
         bwd.argtypes = [P] * 11 + [I] * 6 + [F, F, I, I, P]
         bwd.restype = ctypes.c_int
+        rec = lib.flash_attention_bwd_record
+        rec.argtypes = bwd.argtypes + [P, L]
+        rec.restype = ctypes.c_int
     return lib
 
 
@@ -179,10 +187,15 @@ flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, grad_out, lse, *, causal=True,
-                        window=None, softcap=None, scale=None):
+                        window=None, softcap=None, scale=None, record=None):
     """The backward of :func:`flash_attention`: from its inputs, its output
     ``out``, the output's gradient and the forward's log-sum-exp ``lse``
-    [B, H, S], returns (dq, dk, dv) in the shapes and dtypes of q, k, v."""
+    [B, H, S], returns (dq, dk, dv) in the shapes and dtypes of q, k, v.
+
+    ``record``, on the card only: an int64 tensor of
+    :func:`dkdv_blocks` x 2 x 2 into which each dK/dV block's two consumer
+    warpgroups write the q steps they walked and the SM clock cycles they
+    took, blocks in (batch, kv head, pair) order."""
     b, h, s, d = q.shape
     g, t = k.shape[1], k.shape[2]
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
@@ -191,11 +204,18 @@ def flash_attention_bwd(q, k, v, out, grad_out, lse, *, causal=True,
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, out "
                          f"{tuple(out.shape)}, grad {tuple(grad_out.shape)}, "
                          f"lse {tuple(lse.shape)}")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and record is None:
         return ref.attention_bwd_ref(q, k, v, out, grad_out, lse, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")
+    blocks = dkdv_blocks(b, g, t, causal=causal)
+    if record is not None and (record.shape != (blocks, 2, 2)
+                               or record.dtype != torch.int64
+                               or record.device != q.device
+                               or not record.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: record needs a contiguous "
+                         f"int64 tensor of ({blocks}, 2, 2) on {q.device}")
     if grad_out.dtype != torch.bfloat16 or grad_out.stride(-1) != 1:
         grad_out = grad_out.to(torch.bfloat16).contiguous()
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out),
@@ -208,21 +228,38 @@ def flash_attention_bwd(q, k, v, out, grad_out, lse, *, causal=True,
                      device=q.device).transpose(1, 2)
     dv = torch.empty((b, t, g, d), dtype=v.dtype,
                      device=q.device).transpose(1, 2)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    stats = torch.empty(bwd_stats_shape(b, h, s), dtype=torch.float32,
+                        device=q.device)
     strides = (ctypes.c_longlong * 24)(*[
         st for x in (q, k, v, out, grad_out, dq, dk, dv)
         for st in x.stride()[:3]])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            grad_out.data_ptr(), lse.contiguous().data_ptr(), stats.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
+            b, h, g, s, t, d, d ** -0.5 if scale is None else scale,
+            0.0 if softcap is None else softcap, int(causal),
+            0 if window is None else int(window), _build.stream(q.device))
     lib = _lib()
-    code = lib.flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        grad_out.data_ptr(), lse.contiguous().data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
-        b, h, g, s, t, d, d ** -0.5 if scale is None else scale,
-        0.0 if softcap is None else softcap, int(causal),
-        0 if window is None else int(window), _build.stream(q.device))
+    code = (lib.flash_attention_bwd(*args) if record is None else
+            lib.flash_attention_bwd_record(*args, record.data_ptr(), blocks))
     _build.check(lib, "flash_attention_bwd", code)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+
+
+def bwd_stats_shape(batch: int, heads: int, q_len: int) -> tuple:
+    """The backward's fp32 scratch: each q row's log-sum-exp times log2(e)
+    and its delta = rowsum(do * o), which the dQ pass writes and the dK/dV
+    pass loads a 64-row step at a time; rows padded to whole steps."""
+    return (2, batch, heads, -(-q_len // BWD_ROWS) * BWD_ROWS)
+
+
+def dkdv_blocks(batch: int, kv_heads: int, kv_len: int, *,
+                causal: bool = True) -> int:
+    """The backward's dK/dV blocks: one per (batch, kv head, pair of 64-row
+    kv tiles i and n - 1 - i) under a causal mask, else per kv tile."""
+    tiles = -(-kv_len // BWD_ROWS)
+    return batch * kv_heads * (-(-tiles // 2) if causal else tiles)

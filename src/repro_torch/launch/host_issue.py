@@ -5,11 +5,11 @@
 For each shape, times on the host clock runs of 40 wrapper calls issued
 back to back without waiting for the device (the launches queue up behind
 each other) and prints the median and the least of ``--repeats`` runs:
-the three packs of a DBRX decode round (N = 4 to 6 rows of 6144 bf16) and
-attention at the DBRX and Zamba2 prefill shapes.  ``--src`` names the
-``src`` directory whose ``repro_torch`` is timed (default: this
-checkout's), so that the wrappers of two checkouts are timed by the same
-code.  The host is shared and its noise moves between processes: run two
+the three packs of a DBRX decode round (N = 4 to 6 rows of 6144 bf16),
+attention at the DBRX and Zamba2 prefill shapes, and attention's backward
+at DBRX's.  ``--src`` names the ``src`` directory whose ``repro_torch`` is
+timed (default: this checkout's), so that the wrappers of two checkouts
+are timed by the same code.  The host is shared and its noise moves between processes: run two
 checkouts in alternating processes (A, B, B, A).  Needs a CUDA device.
 """
 
@@ -45,6 +45,7 @@ def _cases():
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import _forward
     bf16 = torch.bfloat16
     cases = []
     # a decode round's packs: 4 live tokens, top-4 of 16 experts, one slot
@@ -65,6 +66,14 @@ def _cases():
                    .transpose(1, 2) for heads in (hq, g, g))
         cases.append((label, lambda a=(q, k, v):
                       ops.flash_attention(*a, causal=True)))
+    # the attention backward at DBRX's shape (two passes, five tensor maps
+    # encoded a call), from the forward's own output and log-sum-exp
+    q, k, v = (torch.randn((4, 512, heads, 128), device="cuda").to(bf16)
+               .transpose(1, 2) for heads in (48, 8, 8))
+    out, lse = _forward(q, k, v, (True, None, None, None), with_lse=True)
+    do = torch.randn_like(out)
+    cases.append(("attention backward dbrx", lambda:
+                  ops.flash_attention_bwd(q, k, v, out, do, lse)))
     return cases
 
 

@@ -31,6 +31,7 @@ back once every rank has exited.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -93,7 +94,8 @@ def run_ranks(fn, spec: dict, *, timeout_s: float, shared=None) -> list:
     ``torch.multiprocessing`` as CUDA IPC handles (shared memory on the
     CPU).  A handle that does not open fails the rank.  The caller keeps
     ``shared`` referenced until this returns, when every rank has
-    exited."""
+    exited.  Every rank frees what it received before it exits, so the
+    caller's own last reference then frees the memory."""
     world = spec["world"]
     out_dir = Path(spec["out_dir"])
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -144,6 +146,11 @@ def _rank_main(fn, rank: int, spec: bytes) -> None:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     fn(rank, ForkingPickler.loads(spec))
+    # an engine and its PlanBinder hold each other: free them while the
+    # process lives, so that the tensors it received as CUDA IPC handles
+    # release the sender's memory (at exit the cycle would never be freed,
+    # and the sender would keep the memory for good)
+    gc.collect()
 
 
 def rank_device(rank: int, spec: dict) -> torch.device:

@@ -7,6 +7,7 @@ reference package, so it runs where only the port is installed:
   PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -476,12 +477,13 @@ def test_pack_backward_kernel_on_card(n, h, d, c, dtype):
     ((1, 4, 2, 96, 160, 128), True, 48, 20.0),          # every mask
     ((2, 4, 1, 77, 133, 112), False, None, None),       # cross, one kv head
     ((1, 2, 2, 64, 64, 64), True, None, None),          # one q tile
+    ((1, 48, 8, 4096, 4096, 128), True, None, None),    # DBRX at train_4k
 ])
 def test_attention_backward_kernel_on_card(shape, causal, window, softcap):
     """The attention backward kernel from the forward's own log-sum-exp:
     dq, dk, dv within atol = rtol = 2e-2 of autograd of the plain forward
     in fp32, and of the plain backward; the forward's log-sum-exp within
-    1e-3 of the plain one."""
+    1e-3 of the plain one; a second call gives the same bits."""
     _need_cuda()
     from repro_torch.kernels.flash_attention import _forward
     b, hq, g, sq, t, d = shape
@@ -500,6 +502,8 @@ def test_attention_backward_kernel_on_card(shape, causal, window, softcap):
     lse_ref = tref.attention_lse(q, k, **kw)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-4)
     got = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
     leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
     auto = torch.autograd.grad(flash_attention_plain(*leaves, **kw), leaves,
                                do.float())
@@ -509,6 +513,63 @@ def test_attention_backward_kernel_on_card(shape, causal, window, softcap):
         torch.testing.assert_close(a.float(), e, atol=2e-2, rtol=2e-2)
         torch.testing.assert_close(a.float(), p.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+def _live_blocks(heads, kv_heads, q_len, kv_len, causal, window):
+    """(q head, q step, kv tile) of every 64 x 64 block of one batch row's
+    scores with at least one element inside the mask."""
+    r = np.arange(q_len)[:, None]
+    c = np.arange(kv_len)[None, :]
+    ok = np.ones((q_len, kv_len), bool)
+    if causal:
+        ok &= c <= r
+    if window:
+        ok &= r - c < window
+    return {(hq, st, ti) for hq in range(heads)
+            for st in range(-(-q_len // 64)) for ti in range(-(-kv_len // 64))
+            if ok[64 * st:64 * st + 64, 64 * ti:64 * ti + 64].any()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal,window", [
+    ((4, 48, 8, 512, 512), True, None),     # DBRX's prefill
+    ((1, 48, 8, 4096, 4096), True, None),   # DBRX's heads at train_4k
+    ((2, 4, 2, 100, 100), True, 32),
+    ((2, 8, 2, 300, 300), True, None),      # an odd number of kv tiles
+    ((1, 4, 2, 96, 160), True, 48),
+    ((2, 4, 1, 77, 133), False, None),      # cross, one kv head
+    ((1, 6, 2, 200, 130), True, None),      # causal, kv shorter than q
+    ((1, 3, 3, 70, 300), True, None),       # kv tiles no q row attends
+])
+def test_attention_backward_dkdv_record_on_card(shape, causal, window):
+    """The dK/dV blocks as they ran: their warpgroups walked as many q
+    steps as there are 64 x 64 blocks of scores inside the mask, each
+    recorded the cycles it took, the gradients are those of a call without
+    the record, and at DBRX's heads the heaviest warpgroup walked at most
+    1.25 x the mean q steps."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import _forward, dkdv_blocks
+    b, hq, g, sq, t = shape
+    gen = torch.Generator(device="cuda").manual_seed(sq + t)
+
+    def rand(*size):
+        return torch.randn(size, generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+    q, k, v, do = (rand(b, n, h, 128) for n, h in
+                   ((sq, hq), (t, g), (t, g), (sq, hq)))
+    kw = dict(causal=causal, window=window)
+    out, lse = _forward(q, k, v, (causal, window, None, None), with_lse=True)
+    record = torch.zeros((dkdv_blocks(b, g, t, causal=causal), 2, 2),
+                         dtype=torch.int64, device="cuda")
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, record=record, **kw)
+    plain = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, plain))
+    steps, cycles = record[..., 0].cpu(), record[..., 1].cpu()
+    assert steps.sum().item() == b * len(_live_blocks(hq, g, sq, t, causal,
+                                                      window))
+    assert (cycles > 0).all()
+    if (hq, g) == (48, 8):
+        assert steps.max().item() <= 1.25 * steps.float().mean().item()
 
 
 @pytest.mark.gpu

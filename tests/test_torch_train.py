@@ -33,7 +33,9 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import collectives as tcl
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, batch_for_model
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import (bwd_stats_shape,
+                                                 dkdv_blocks,
+                                                 flash_attention_plain)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as T
@@ -163,6 +165,41 @@ def test_attention_lse_and_bwd_against_autograd():
     got = ref.attention_bwd_ref(q, k, v, out.detach(), do, lse, **kw)
     for a, e in zip(got, (qq.grad, kk.grad, vv.grad)):
         torch.testing.assert_close(a.double(), e, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,causal,blocks", [
+    ((4, 8, 512), True, 128),      # DBRX's prefill: 8 kv tiles, 4 pairs
+    ((1, 8, 4096), True, 256),     # DBRX's kv heads at train_4k
+    ((2, 2, 300), True, 12),       # 5 kv tiles: the middle one alone
+    ((2, 1, 133), False, 6),       # cross: one block a kv tile
+    ((1, 2, 64), True, 2),
+])
+def test_attention_bwd_dkdv_blocks(shape, causal, blocks):
+    """The dK/dV pass's blocks, which size the kernel's record: a block per
+    pair of 64-row kv tiles under a causal mask (the middle tile of an odd
+    count alone), else per kv tile; for each batch row and kv head."""
+    assert dkdv_blocks(*shape, causal=causal) == blocks
+
+
+def test_attention_bwd_record_needs_the_card():
+    """The dK/dV pass's record has no plain version: on the CPU asking for
+    it raises, while the backward alone runs the plain one."""
+    q, k, v, do = (torch.randn(1, h, 64, 64, dtype=torch.bfloat16)
+                   for h in (2, 1, 1, 2))
+    out, lse = ops.flash_attention(q, k, v), ref.attention_lse(q, k)
+    assert len(ops.flash_attention_bwd(q, k, v, out, do, lse)) == 3
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        ops.flash_attention_bwd(q, k, v, out, do, lse,
+                                record=torch.zeros((1, 2, 2), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("q_len,rows", [(1, 64), (64, 64), (77, 128),
+                                        (512, 512), (4097, 4160)])
+def test_attention_bwd_stats_scratch(q_len, rows):
+    """The backward's fp32 stats scratch: lse log2(e) and delta for every
+    q row, padded to whole 64-row steps (the dK/dV pass bulk-loads a step
+    of each at once)."""
+    assert bwd_stats_shape(3, 5, q_len) == (2, 3, 5, rows)
 
 
 @pytest.mark.parametrize("n,h,d,c,dtype", [
