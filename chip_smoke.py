@@ -89,7 +89,24 @@ Phases; any failure raises and the script exits non-zero:
    trained through ``Trainer`` for 8 steps of 4 x 512 tokens (AdamW with
    bf16 state, cosine schedule), with a checkpoint after step 4 restored
    into a fresh trainer that must reach the same losses.  Gates: finite
-   losses and gradient norms, a falling loss, exact launch counts.
+   losses and gradient norms, a falling loss, exact launch counts;
+11. training over ranks (nccl with a card a rank where there are 4 cards,
+   else 4 gloo processes on card 0): a reduced DBRX over 2 x 2 against
+   one rank on the card (step-0 ce and every synced gradient's cosine);
+   DBRX-132B at full width over 2 pods x 2 ep ranks, 4 x 512 tokens
+   (depth 1 and 6 steps on one card, depth 2 and 8 steps on four) under
+   the plan bound for its train program, the ``grad_sync`` verdict
+   running through ``planned_psum``, with every pack backward and
+   attention backward of its first step held against their plain
+   versions at the ranks' shapes and that step's gradients reduced once
+   by each scheme; then
+   Mistral-NeMo-12B over (1, 1, 4) at full width, depth 2, through the
+   split-TP MultiWrite gather, against one rank.  Each step's wall of the
+   slowest rank split by CUDA events into forward and backward, the
+   gradient mean, the clip and the update.  Gates: finite losses, a
+   falling DBRX loss, every replicated leaf bit-identical on every rank,
+   the same grad norm on every rank, exact launch counts, the kernels
+   against their plain versions.
 
 Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
 2 x 2 ranks and of one Kimi-K2 prefill layer at 2 x 8 (capacity factors
@@ -119,7 +136,11 @@ runs phase 9 alone after them (on four cards over nccl);
 
   python3 chip_smoke.py --train-only
 
-runs phase 10 alone after them.
+runs phase 10 alone after them;
+
+  python3 chip_smoke.py --train-ranks-only
+
+runs phase 11 alone after them (on four cards over nccl).
 """
 
 from __future__ import annotations
@@ -2848,6 +2869,313 @@ def train_phase() -> tuple[dict, dict]:
     return rows, train_full_width()
 
 
+
+# ---------------------------------------------------------------------------
+# phase 11: training over ranks
+# ---------------------------------------------------------------------------
+
+# DBRX over 2 pods x 2 ep ranks at full width: (depth, steps, tokens a
+# prompt) on one card (4 gloo processes) and on four (nccl, a card a rank);
+# 4 prompts of SyntheticLM seed 0, one a rank; AdamW (bf16 state) on a
+# cosine schedule; capacity factor RANKS_CF, so nothing is dropped
+TRAIN_RANKS = {1: (1, 6, 512), 4: (2, 8, 512)}
+# lr: at phase 10's 1e-3 the full-width models' loss spikes after the first
+# update on one rank as over ranks (12.0 -> 20.9 in phase 10, 11.9 -> 26.7
+# here), and 6 steps do not bring it back down
+TRAIN_RANKS_BATCH, TRAIN_RANKS_SEQ, TRAIN_RANKS_LR = 4, 512, 1e-4
+# Mistral-NeMo-12B over (1, 1, 4) TP ranks, full width
+TP_TRAIN_DEPTH, TP_TRAIN_STEPS = 2, 4
+TP_TRAIN_GAP = 2e-2           # step-1 loss and grad norm against one rank
+# the step-0 gradients reduced once by each scheme (their first 8 M
+# elements): layer 0's attention projections
+SCHEME_LEAVES = ("blocks.0.attn.wq", "blocks.0.attn.wo")
+
+
+def train_ranks_spec(tmp: str, mesh: tuple, backend: str, cfg, runs: list,
+                     steps: int, seq: int, **kw) -> dict:
+    import torch
+    pods, ep, tp = mesh
+    return dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
+                backend=backend, device="cuda",
+                init_method=f"file://{tmp}/store", timeout_s=600,
+                out_dir=f"{tmp}/out", threads=2, dp_servers=(pods,),
+                cfg=cfg, dtype=torch.bfloat16, seed=0,
+                batch=TRAIN_RANKS_BATCH, seq=seq, steps=steps,
+                lr=TRAIN_RANKS_LR, runs=runs, **kw)
+
+
+def one_rank_step0(cfg, seq: int, *, grads: bool) -> tuple:
+    """The step-0 loss, ce and global gradient norm of ``cfg`` on one rank
+    on the card (bf16, seed 0, ``TRAIN_RANKS_BATCH`` x ``seq`` tokens), and
+    with ``grads`` the ce gradients by name (fp32, host)."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
+        batch_for_model
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.runtime.trainer import trainable
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    named = trainable(params)
+    raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                 global_batch=TRAIN_RANKS_BATCH,
+                                 seed=0)).batch(0)
+    loss, met = model.loss(params, batch_for_model(cfg, raw, device="cuda"))
+    (met["ce"] if grads else loss).backward()
+    out = (loss.item(), met["ce"].item(),
+           global_norm({n: p.grad for n, p in named.items()}).item(),
+           {n: p.grad.float().cpu() for n, p in named.items()}
+           if grads else None)
+    del model, params, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_run_lines(label: str, runs: list, failures: list, *,
+                    where: str) -> dict:
+    """Print a trained run of every rank (losses, the slowest rank's step
+    split into its parts, the gradient sync, the peak memory) and gate
+    it: finite losses and norms, the same grad norm on every rank, every
+    replicated leaf the same bits on every rank, each backward kernel of
+    the checked step held against its plain version.  Returns the
+    kernel launches summed over the ranks."""
+    import math
+
+    from repro_torch.launch import ranks
+    hist = [r["history"] for r in runs]
+    first = runs[0]
+    for step in range(len(hist[0])):
+        slow = max(range(len(runs)), key=lambda i: hist[i][step]["wall"])
+        h = hist[slow][step]
+        print(f"  {label} step {h['step']}: loss {h['loss']:.5f} (ce "
+              f"{h['ce']:.5f}, aux {h['aux']:.5f}), grad norm "
+              f"{h['grad_norm']:.4f}; slowest rank {slow}: wall "
+              f"{h['wall'] * 1e3:.1f} ms = forward+backward "
+              f"{h['fwd_bwd_ms']:.1f} + gradient mean {h['sync_ms']:.1f} + "
+              f"clip {h['clip_ms']:.1f} + update {h['update_ms']:.1f} ms "
+              f"(CUDA events)")
+    sync = (f"gradient mean {first['scheme']} run once after the backward "
+            f"(the plan's grad_sync verdict: {first['decision']}; its "
+            f"G={first['sync_g']} is not executed), "
+            f"{first['sync_bytes'] / 1e9:.3f} GB of fp32 gradients a rank a "
+            f"step" if first["dp"] > 1 else
+            "no gradient mean (one data-parallel rank)")
+    print(f"  {label}: {sync}; MoE round trip {first['moe']}; peak memory a "
+          f"rank "
+          f"{max(r.get('peak_gb', 0.0) for r in runs):.2f} GB "
+          f"(max_memory_allocated; {first['params'] / 1e9:.3f} B "
+          f"parameters a rank); run {max(r['seconds'] for r in runs):.1f} "
+          f"s {where}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for hs in hist for h in hs):
+        failures.append(f"{label}: a non-finite loss or grad norm")
+    norms = [[h["grad_norm"] for h in hs] for hs in hist]
+    if any(n != norms[0] for n in norms):
+        failures.append(f"{label}: grad norms differ over ranks {norms}")
+    differ = sorted({n for r in runs for n in first["replicated"]
+                     if r["digest"][n] != first["digest"][n]})
+    print(f"  {label}: {len(first['replicated'])} replicated leaves "
+          f"{'bit-identical on every rank' if not differ else 'DIFFER'}"
+          f"{': ' + ', '.join(differ[:5]) if differ else ''}; grad norm the "
+          f"same bits on every rank: {all(n == norms[0] for n in norms)}")
+    if differ:
+        failures.append(f"{label}: replicated leaves differ: {differ[:5]}")
+    checks = [c for r in runs for c in r.get("kernel_checks", [])]
+    for name in ("dispatch_pack_bwd", "flash_attention_bwd"):
+        mine = [c for c in checks if c[0] == name]
+        if not mine:
+            continue
+        shapes = sorted({c[1] for c in mine})
+        worst = max(c[2] for c in mine)
+        rel = max(c[4] for c in mine)
+        held = all(c[3] for c in mine)
+        how = ("bit-exact" if name == "dispatch_pack_bwd" else
+               f"against autograd of the plain forward: max|err| under a "
+               f"unit-scale randn cotangent, atol=rtol=2e-2; under the "
+               f"loss's own cotangent {rel:.3e} of each gradient's largest "
+               f"element, limit {ranks.ATTN_BWD_REL}")
+        print(f"  {label}: {name} at {len(mine)} calls of shapes {shapes} "
+              f"against its plain version: max|err| {worst:.3e}, "
+              f"{'held' if held else 'NOT HELD'} ({how})")
+        if not held:
+            failures.append(f"{label}: {name} disagrees at {shapes}")
+    total = {}
+    for r in runs:
+        for name, n in r["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def train_ranks_phase() -> dict:
+    """Phase 11: training over ranks.
+
+    DBRX-132B over 2 pods x 2 ep ranks, one prompt a rank (``TRAIN_RANKS``:
+    nccl with a card a rank where there are 4 cards, else 4 gloo processes
+    on card 0): first the reduced DBRX, whose step-0 ce and
+    gradients (synced, gathered) are held against one rank on the card
+    (ce within ``LOSS_GAP``, every gradient's cosine above
+    ``GRAD_COSINE``); then the full width at ``TRAIN_RANKS``' depth,
+    trained under the plan bound for the train program (the MoE round
+    trip and the ``grad_sync`` verdict; over nccl on the fabric the ranks
+    measured), whose step-0 backward holds every pack backward bit-exact
+    and attention's backward within 2e-2 of autograd of its plain forward
+    at the ranks' shapes, and whose step-0 gradients of
+    ``SCHEME_LEAVES`` are reduced once by each scheme (each lossless one
+    the mean within fp32 sum order, ``compressed`` within its int8
+    tolerance).  Then Mistral-NeMo-12B over (1, 1, 4) at full width, depth
+    ``TP_TRAIN_DEPTH``, through the split-TP MultiWrite gather
+    (``tp_subgroups`` 2), against one rank's step-0 loss and grad norm.
+
+    Gates: finite losses, the mean loss of DBRX's last 3 steps below its
+    first 3, every replicated leaf bit-identical on every rank, the same
+    grad norm on every rank, exact launch counts a step, each kernel
+    against its plain version.  Returns the kernel launches of the
+    trained runs, summed over ranks."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import ranks
+    t_phase = time.monotonic()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 4 else "gloo"
+    depth, steps, seq = TRAIN_RANKS[4 if cards >= 4 else 1]
+    where = ("over nccl, a card a rank" if backend == "nccl" else
+             "over gloo, 4 processes on card 0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    print(f"  cards: {'; '.join(smi)} (every time below is on them)")
+    failures: list = []
+    total: dict = {}
+    small = get_config("dbrx_132b").reduced(
+        d_model=512, n_heads=4, n_kv_heads=2, d_ff=256, vocab=1024,
+        num_experts=8, top_k=2)
+    small = dataclasses.replace(small, moe_capacity=RANKS_CF)
+    cfg = dataclasses.replace(get_config("dbrx_132b"), n_layers=depth,
+                              moe_capacity=RANKS_CF)
+    link = 64 << 20 if backend == "nccl" else None
+    runs = [dict(label="reduced", cfg=small, grads=True, grad_of="ce",
+                 steps=1),
+            dict(label="dbrx", policy="auto", check_kernels=True,
+                 schemes=list(SCHEME_LEAVES),
+                 fabric="measured" if link else None)]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        spec = train_ranks_spec(tmp, (2, 2, 1), backend, cfg, runs, steps,
+                                seq, measure_link=link)
+        t0 = time.monotonic()
+        results = ranks.run_ranks(ranks.train_worker, spec, timeout_s=900)
+        spawn_s = time.monotonic() - t0
+    if link:
+        print(f"  link: {results[0]['link']}")
+    # the reduced model against one rank on the card
+    red = results[0]["runs"]["reduced"]
+    loss, ce, _, grads = one_rank_step0(small, seq, grads=True)
+    cosines = {}
+    for name, g in grads.items():
+        a = torch.from_numpy(red["grads"][name]).double().flatten()
+        e = g.double().flatten()
+        cosines[name] = (a @ e / (a.norm() * e.norm())).item()
+    worst = min(cosines, key=cosines.get)
+    gap = abs(red["step0"]["ce"] - ce)
+    print(f"  reduced DBRX ({small.n_layers} layers, d_model "
+          f"{small.d_model}, {small.num_experts} experts top-{small.top_k}) "
+          f"over 2 x 2 against one rank on the card, step-0 ce "
+          f"{red['step0']['ce']:.5f} vs {ce:.5f} (gap {gap:.3e}, limit "
+          f"{LOSS_GAP}); gradient cosines of {len(cosines)} parameters "
+          f"(synced over the ranks, gathered), lowest "
+          f"{cosines[worst]:.6f} ({worst}; limit {GRAD_COSINE})")
+    low = {k: v for k, v in cosines.items() if not v > GRAD_COSINE}
+    if not gap < LOSS_GAP or low:
+        failures.append(f"reduced DBRX over ranks: ce gap {gap:.3e}, "
+                        f"cosines {low}")
+    # DBRX at full width
+    runs_ = [r["runs"]["dbrx"] for r in results]
+    print(f"  DBRX-132B over 2 x 2, depth {depth}, {steps} steps of "
+          f"{TRAIN_RANKS_BATCH} x {seq} tokens, {where}; the "
+          f"ranks ran {spawn_s:.1f} s with set-up")
+    counts = train_run_lines("dbrx", runs_, failures, where=where)
+    hist = runs_[0]["history"]
+    head = sum(h["loss"] for h in hist[:3]) / 3
+    tail = sum(h["loss"] for h in hist[-3:]) / 3
+    print(f"  dbrx: mean loss of the first 3 steps {head:.5f}, of the last "
+          f"3 {tail:.5f}")
+    if not tail < head:
+        failures.append(f"dbrx: the loss did not fall: {head} -> {tail}")
+    scheme, _, g = runs_[0]["moe"]["train"]
+    per = {"hierarchical": 3, "baseline": 2}[scheme] * g * cfg.n_layers
+    want = launch_counts(dispatch_pack=per * steps,
+                         dispatch_pack_bwd=per * steps,
+                         flash_attention=cfg.n_layers * steps,
+                         flash_attention_bwd=cfg.n_layers * steps)
+    print(f"  dbrx launches a rank over {steps} steps: "
+          f"{runs_[0]['launches']} (expected {want}: a step and layer "
+          f"{per // cfg.n_layers} packs and as many pack backwards for "
+          f"{scheme} at G={g}, 1 attention forward and 1 backward)")
+    for r in runs_:
+        if r["launches"] != want:
+            failures.append(f"dbrx launches {r['launches']} != {want}")
+    for name, gapd in runs_[0]["schemes"].items():
+        ok = gapd["gap"] <= gapd["bound"]
+        print(f"  step-0 gradients of {', '.join(SCHEME_LEAVES)} (8 M "
+              f"elements each) by {name}: max|mean - fp64 mean| "
+              f"{gapd['gap']:.3e} of the largest mean (bound "
+              f"{gapd['bound']:.3e}: {'within' if ok else 'OUTSIDE'}), "
+              f"{gapd['ms']:.1f} ms (rank 0's wall)")
+        if not ok:
+            failures.append(f"scheme {name}: {gapd}")
+    total.update(counts)
+    del results, runs_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Mistral-NeMo over 4 TP ranks
+    tp_cfg = dataclasses.replace(get_config("mistral_nemo_12b"),
+                                 n_layers=TP_TRAIN_DEPTH)
+    tp_runs = [dict(label="tp", policy="auto", tp_subgroups=2,
+                    check_kernels=True)]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        spec = train_ranks_spec(tmp, TP_MESH, backend, tp_cfg, tp_runs,
+                                TP_TRAIN_STEPS, TRAIN_RANKS_SEQ)
+        t0 = time.monotonic()
+        results = ranks.run_ranks(ranks.train_worker, spec, timeout_s=900)
+        spawn_s = time.monotonic() - t0
+    runs_ = [r["runs"]["tp"] for r in results]
+    print(f"  Mistral-NeMo-12B over {TP_MESH}, depth {TP_TRAIN_DEPTH}, "
+          f"{TP_TRAIN_STEPS} steps, tp_subgroups 2, {where}; the ranks ran "
+          f"{spawn_s:.1f} s with set-up")
+    counts = train_run_lines("mistral", runs_, failures, where=where)
+    want = launch_counts(flash_attention=tp_cfg.n_layers * TP_TRAIN_STEPS,
+                         flash_attention_bwd=tp_cfg.n_layers
+                         * TP_TRAIN_STEPS)
+    for r in runs_:
+        if r["launches"] != want:
+            failures.append(f"mistral launches {r['launches']} != {want}")
+    loss, _, norm, _ = one_rank_step0(tp_cfg, TRAIN_RANKS_SEQ, grads=False)
+    h0 = runs_[0]["history"][0]
+    gaps = (abs(h0["loss"] - loss) / loss, abs(h0["grad_norm"] - norm)
+            / norm)
+    print(f"  mistral step 0 against one rank on the card: loss "
+          f"{h0['loss']:.5f} vs {loss:.5f}, grad norm {h0['grad_norm']:.4f} "
+          f"vs {norm:.4f} (relative gaps {gaps[0]:.3e}, {gaps[1]:.3e}; limit "
+          f"{TP_TRAIN_GAP}); launches a rank {runs_[0]['launches']}")
+    if not max(gaps) < TP_TRAIN_GAP:
+        failures.append(f"mistral against one rank: {gaps}")
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    print(f"  phase 11 took {time.monotonic() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 11: {failures}")
+    return total
+
+
 def ptxas_report(log: str) -> list:
     """(function, registers, spill stores, spill loads) of each kernel
     function in an ``nvcc -Xptxas -v`` log."""
@@ -2902,6 +3230,8 @@ def main(argv=None) -> None:
                     help="phases 1, 2 and 9 only (on four cards: nccl)")
     ap.add_argument("--train-only", action="store_true",
                     help="phases 1, 2 and 10 only")
+    ap.add_argument("--train-ranks-only", action="store_true",
+                    help="phases 1, 2 and 11 only (on four cards: nccl)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2926,6 +3256,10 @@ def main(argv=None) -> None:
                  "Mistral-NeMo over (1, 1, 4) calibrated on the card")
     train_title = (f"phase 10: training, the backward kernels and "
                    f"DBRX-132B at full width, depth {TRAIN_DEPTH}")
+    ranks_depth = TRAIN_RANKS[4 if torch.cuda.device_count() >= 4 else 1][0]
+    train_ranks_title = (f"phase 11: training over ranks, DBRX-132B over 2 "
+                         f"pods x 2 ep ranks at depth {ranks_depth} and "
+                         f"Mistral-NeMo-12B over (1, 1, 4)")
     if args.kimi_only:
         print(kimi_title)
         kimi_phase(depth, kimi_new)
@@ -2942,6 +3276,11 @@ def main(argv=None) -> None:
             row["launches"] = counts[name]
             row["launches_by_path"] = {"dbrx_132b_train": counts[name]}
         print(json.dumps({"kernels": list(rows.values())}))
+    elif args.train_ranks_only:
+        print(train_ranks_title)
+        counts = train_ranks_phase()
+        print(f"  launches of phase 11's trained runs, summed over ranks: "
+              f"{counts}")
     elif args.ranks_only:
         for i, cf in enumerate(args.ranks_only):
             print(f"phase 6: DBRX over 2 pods x 2 ep ranks, capacity factor "
@@ -2970,6 +3309,8 @@ def main(argv=None) -> None:
         print(train_title)
         bwd_rows, by_path["dbrx_132b_train"] = train_phase()
         rows.update(bwd_rows)
+        print(train_ranks_title)
+        by_path["train_ranks"] = train_ranks_phase()
 
         for name, row in rows.items():
             row["launches"] = sum(c.get(name, 0) for c in by_path.values())

@@ -15,6 +15,14 @@ one checkpoint, as the reference's:
 * **Integrity**: a crc32 of each leaf's bytes in the manifest; restore
   verifies it and raises ``IOError`` on a mismatch.
 * **keep_last_k GC** and optional asynchronous writes (one writer thread).
+* **Global leaves over ranks**: with a :class:`ShardLayout` (training over
+  a rank mesh) every leaf is stored at its global logical shape, as the
+  reference stores its arrays: rank 0 writes each leaf that the ranks
+  hold in blocks (experts over the EP ranks, tensor-parallel blocks over
+  the model axis) gathered from every rank, one leaf at a time, and a
+  restore cuts each rank's block out of the stored leaf.  So a checkpoint
+  written over 2 x 2 ranks restores onto one rank and one written on one
+  rank restores over 2 x 2.
 
 numpy has no bfloat16: a bf16 leaf is stored as its raw bytes viewed as
 ``uint16``, with ``bfloat16`` as its dtype in the manifest, so bf16
@@ -22,9 +30,9 @@ parameters and optimizer state round-trip bit for bit.  A synchronous save
 streams the leaves one at a time from the device into the archive (its
 host memory is one leaf), and :meth:`restore_into` copies each leaf into
 the tensors of a live tree in place, so a model whose state fills the card
-can be saved and restored.  There is one shard: the port's checkpoints are
-one process's (the reference's multi-host resharding is training over
-ranks, ROADMAP.md queue 1 item 8b).
+can be saved and restored.  There is one shard file, written by one
+process (rank 0 over ranks); the reference's multi-host writers and the
+FSDP layout (ROADMAP.md queue 1 item 8c) wait.
 """
 
 from __future__ import annotations
@@ -92,13 +100,120 @@ def _crc(arr: np.ndarray) -> int:
         & 0xFFFFFFFF
 
 
+class ShardLayout:
+    """Where one rank's leaves lie in the global ones: for each parameter
+    name, the dims cut over the rank mesh as ``(dim, axes, parts, index)``
+    (the experts of an MoE layer over its EP axes along dim 0; a
+    tensor-parallel block, a module's ``shards``, over the model axis).  A
+    leaf of a checkpointed tree is cut as the parameter its path names
+    (``params/<name>``, ``opt/m/<name>``); every other leaf is whole."""
+
+    def __init__(self, params, pctx):
+        from repro_torch.models import moe as M
+        from repro_torch.models.transformer import is_expert_weight
+        self.mesh = pctx.mesh
+        self.cuts: dict = {}
+        self.shapes = {n: tuple(p.shape)
+                       for n, p in params.named_parameters()}
+        for prefix, sub in params.named_modules():
+            for name, (dim, parts, index) in getattr(sub, "shards",
+                                                     {}).items():
+                self.cuts.setdefault(f"{prefix}.{name}".lstrip("."), []
+                                     ).append((dim, (pctx.model_axis,),
+                                               parts, index))
+        num_experts = M.num_experts(params)
+        if num_experts:
+            axes = M.expert_axes(pctx, num_experts)
+            ep = self.mesh.axis_size(*axes)
+            for name in self.shapes:
+                if is_expert_weight(name) and ep > 1:
+                    self.cuts.setdefault(name, []).append(
+                        (0, axes, ep, self.mesh.axis_index(*axes)))
+
+    def _cuts(self, key: str, shape) -> list:
+        for part in key.split("/"):
+            if part in self.cuts:
+                if tuple(shape) != self.shapes[part]:
+                    raise NotImplementedError(
+                        f"leaf {key} {tuple(shape)} of a parameter "
+                        f"{self.shapes[part]}: only leaves of a parameter's "
+                        f"shape are cut")
+                return self.cuts[part]
+        return []
+
+    def global_shape(self, key: str, shape) -> tuple:
+        out = list(shape)
+        for dim, _, parts, _ in self._cuts(key, shape):
+            out[dim] *= parts
+        return tuple(out)
+
+    def _index(self, rank: int, axes) -> int:
+        dims = tuple(self.mesh.shape.values())
+        coords = dict(zip(self.mesh.shape, _unravel(rank, dims)))
+        idx = 0
+        for a in axes:
+            idx = idx * self.mesh.shape[a] + coords[a]
+        return idx
+
+    def gather(self, key: str, leaf):
+        """The global leaf on rank 0 (None on the others): a leaf held in
+        blocks is gathered from every rank (``dist.gather``); a whole one
+        is rank 0's own.  Every rank calls it for every leaf, in one
+        order."""
+        import torch.distributed as dist
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
+        cuts = self._cuts(key, t.shape)
+        rank0 = self.mesh.rank == 0
+        if not cuts:
+            return t if rank0 else None
+        t = t.detach().contiguous()
+        world = dist.get_world_size()
+        pieces = [torch.empty_like(t) for _ in range(world)] if rank0 \
+            else None
+        dist.gather(t, pieces, dst=0)
+        if not rank0:
+            return None
+        out = torch.empty(self.global_shape(key, t.shape), dtype=t.dtype,
+                          device=t.device)
+        for rank, piece in enumerate(pieces):
+            out_view = out
+            for dim, axes, _, _ in cuts:
+                size = t.shape[dim]
+                out_view = out_view.narrow(dim, self._index(rank, axes) * size,
+                                           size)
+            out_view.copy_(piece)
+        return out
+
+    def cut(self, key: str, whole: torch.Tensor, shape) -> torch.Tensor:
+        """This rank's block of the global leaf ``whole`` for a leaf of
+        ``shape``."""
+        for dim, _, _, index in self._cuts(key, shape):
+            size = shape[dim]
+            whole = whole.narrow(dim, index * size, size)
+        return whole
+
+
+def _unravel(rank: int, dims) -> tuple:
+    out = []
+    for d in reversed(dims):
+        rank, c = divmod(rank, d)
+        out.append(c)
+    return tuple(reversed(out))
+
+
 @dataclasses.dataclass
 class CheckpointManager:
+    """``layout``: a :class:`ShardLayout` when the tree is one rank's part
+    of a model trained over ranks (every rank calls :meth:`save` and
+    :meth:`restore_into` alike; rank 0 writes)."""
     directory: str
     keep_last_k: int = 3
     async_write: bool = False
+    layout: Optional[ShardLayout] = None
 
     def __post_init__(self):
+        if self.layout is not None and self.async_write:
+            raise NotImplementedError("asynchronous writes over ranks")
         os.makedirs(self.directory, exist_ok=True)
         self._pool = (concurrent.futures.ThreadPoolExecutor(max_workers=1)
                       if self.async_write else None)
@@ -114,6 +229,8 @@ class CheckpointManager:
                     "time": time.time(), "format": 1}
         leaves = _flatten_with_paths(tree)
         final = os.path.join(self.directory, f"step_{step:08d}")
+        if self.layout is not None:
+            return self._save_global(final, manifest, leaves)
         if self._pool is not None:
             host = [(key, *_to_host(leaf)) for key, leaf in leaves]
             self.wait()
@@ -122,6 +239,22 @@ class CheckpointManager:
             return final
         return self._write(final, manifest,
                            ((key, *_to_host(leaf)) for key, leaf in leaves))
+
+    def _save_global(self, final: str, manifest: dict, leaves: list) -> str:
+        """Every leaf at its global shape, written by rank 0; the other
+        ranks take part in the gathers, then every rank waits until the
+        checkpoint is published."""
+        import torch.distributed as dist
+        gathered = ((key, self.layout.gather(key, leaf)) for key, leaf
+                    in leaves)
+        if self.layout.mesh.rank == 0:
+            self._write(final, manifest, ((key, *_to_host(whole))
+                                          for key, whole in gathered))
+        else:
+            for _ in gathered:
+                pass
+        dist.barrier()
+        return final
 
     def _write(self, final: str, manifest: dict, host: Iterator) -> str:
         tmp = final + f".tmp-{os.getpid()}-{int(time.time() * 1e6)}"
@@ -182,11 +315,17 @@ class CheckpointManager:
                 if _crc(arr) != info["crc"]:
                     raise IOError(f"checkpoint corruption in leaf {key}")
                 shape = tuple(getattr(tmpl, "shape", ()))
+                if self.layout is not None:
+                    shape = self.layout.global_shape(key, shape)
                 if tuple(arr.shape) != shape:
                     raise ValueError(
                         f"leaf {key}: stored {arr.shape} vs template "
                         f"{shape}")
-                yield tmpl, _from_host(arr, info["dtype"])
+                t = _from_host(arr, info["dtype"])
+                if self.layout is not None:
+                    t = self.layout.cut(key, t, tuple(getattr(tmpl, "shape",
+                                                              ())))
+                yield tmpl, t
 
     def restore(self, step: int, template: Any) -> tuple[Any, dict]:
         """New tensors in the structure of ``template`` (a tree of tensors),

@@ -19,6 +19,14 @@ bitmap-driven ``dispatch_pack`` kernel (three launches per dispatch).  The
 baseline (unicast) dispatch sends one copy per (token, destination rank)
 instead, ``ceil(R / 31)`` packs and one more for the experts.
 
+The planned gradient sync: :func:`planned_psum` is the mean over a
+data-parallel axis whose schedule a planner decision names (ring, tree,
+hierarchical, multiwrite, compressed), as the reference's.
+
+Training differentiates through all of it: the exchanges are
+``autograd.Function``s (``parallel.mesh``), the packs run their backward
+kernel, and the gathers and fp32 sums are autograd's own.
+
 Transports: the reference's ``lax.all_to_all(split_axis=0, concat_axis=0,
 tiled=True)`` on a named axis is :func:`_all_to_all`
 (``dist.all_to_all_single``) on that axis's subgroup of the
@@ -36,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import mesh as mesh_ops
 
 
 # ===========================================================================
@@ -261,11 +270,9 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """``lax.all_to_all(x, split_axis=0, concat_axis=0, tiled=True)`` over
     ``group``: the R equal blocks of dim 0 go one to each group rank, and
     the blocks received are stacked in group-rank order.  Metadata travels
-    in its own dtype (bool, int32)."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
+    in its own dtype (bool, int32).  Differentiable (its own transpose):
+    the cotangents of the rows a rank sent come back to it."""
+    return mesh_ops.all_to_all(x, group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -663,6 +670,98 @@ def baseline_combine(expert_out: torch.Tensor, exp_gate: torch.Tensor,
                               state.n_tokens, d)
         out = part if out is None else out + part
     return out
+
+
+# ===========================================================================
+# Planned gradient sync: AllReduce as a planner op
+# ===========================================================================
+
+def butterfly_psum(g: torch.Tensor, ranks, axis) -> torch.Tensor:
+    """Recursive-doubling tree AllReduce over ``axis`` of the ``RankMesh``
+    ``ranks``: log2(R) ppermute rounds, each exchanging the full payload
+    with the XOR partner and adding it (the ``tree`` plan).  Returns the
+    SUM over the axis.  Requires a power-of-two axis.  Every rank adds the
+    same values in the same tree, so every rank gets the same bits."""
+    n = ranks.axis_size(*mesh_ops.axis_names(axis))
+    if n & (n - 1):
+        raise ValueError(f"butterfly_psum needs a power-of-two axis "
+                         f"(got {n})")
+    out = g
+    k = 1
+    while k < n:
+        out = out + ranks.ppermute(out, axis, [(i, i ^ k) for i in range(n)])
+        k <<= 1
+    return out
+
+
+def planned_psum(g: torch.Tensor, ranks, axis, *, num_servers: int = 1,
+                 decision=None, reduce_scheme: str | None = None,
+                 planner=None, hw=None, compute_s: float = 0.0
+                 ) -> torch.Tensor:
+    """Gradient MEAN over ``axis`` of the ``RankMesh`` ``ranks`` (a name or
+    a tuple of names, such as the data-parallel pair) whose schedule comes
+    from a planner decision instead of a hard-coded all-reduce.
+
+    ``decision`` is the ``grad_sync`` verdict of a bound
+    :class:`~repro_torch.core.plan.ExecutionPlan`; ``reduce_scheme`` pins a
+    scheme directly (tests / operational override).  Without either, the
+    process planner decides here from the payload and the DP fabric
+    (``num_servers`` server groups of the axis, fabric order).
+
+    Scheme -> lowering, as the reference's:
+      ring          ``dist.all_reduce`` (the backend's flat ring)
+      tree          :func:`butterfly_psum` XOR-partner rounds; a
+                    non-power-of-two axis falls back to ``ring``
+      hierarchical  ``hierarchical_psum_flat`` (RS -> rail exchange -> AG)
+                    over ``num_servers`` servers; an axis that does not
+                    factor into them falls back to ``ring``
+      multiwrite    the same lowering as ``hierarchical`` (the planner's
+                    ledgers differ in the relay engine's accounting)
+      compressed    int8 error-feedback ``compressed_psum`` (LOSSY: never
+                    planner-chosen, an explicit opt-in; the residual is
+                    dropped here, ``compression.tree_compressed_psum``
+                    keeps it)
+
+    All lossless schemes equal the sum divided by R up to float summation
+    order, and each gives every rank the same bits.  An unknown scheme
+    raises."""
+    names = mesh_ops.axis_names(axis)
+    r = ranks.axis_size(*names)
+    scheme = reduce_scheme
+    if scheme is None:
+        if decision is None:
+            from repro_torch.core import planner as _planner_mod
+            payload = g.numel() * g.element_size()
+            pl = planner or _planner_mod.default_planner()
+            topo = _planner_mod._ep_topology(
+                max(1, num_servers), max(1, r // max(1, num_servers)))
+            decision = pl.choose("allreduce", payload, topo, hw,
+                                 executable_only=True, compute_s=compute_s)
+        scheme = decision.shard_map_kwargs.get("reduce_scheme", "ring")
+
+    def ring():
+        out = g.clone()
+        dist.all_reduce(out, group=ranks.group(*names))
+        return out / r
+
+    if scheme == "ring":
+        return ring()
+    if scheme == "tree":
+        if r & (r - 1):
+            return ring()                    # non-pow2: ring fallback
+        return butterfly_psum(g, ranks, names) / r
+    if scheme in ("hierarchical", "multiwrite"):
+        from repro_torch.parallel.compression import hierarchical_psum_flat
+        s = max(1, num_servers)
+        if r % s:
+            return ring()                    # unfactorable: fallback
+        out = hierarchical_psum_flat(g.reshape(-1), ranks, names, s)
+        return out.reshape(g.shape).to(g.dtype)
+    if scheme == "compressed":
+        from repro_torch.parallel.compression import compressed_psum
+        out, _ = compressed_psum(g.reshape(-1), ranks, names)
+        return out.reshape(g.shape).to(g.dtype)
+    raise ValueError(f"unknown reduce scheme {scheme!r}")
 
 
 # ===========================================================================

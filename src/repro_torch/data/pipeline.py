@@ -83,18 +83,31 @@ class SyntheticLM:
 
 
 def batch_for_model(cfg: ModelConfig, data: dict, rng_seed: int = 0, *,
-                    device=None) -> dict:
+                    device=None, pctx=None) -> dict:
     """Adapt a token batch to the model's input format, as torch tensors
-    on ``device`` (None: CUDA).  The families the port trains take tokens;
-    the reference's stub frontends (embeddings input, encdec) are later
-    slices of the port and raise here."""
+    on ``device`` (None: CUDA).  With a ``pctx`` the batch is the global
+    one and the result this rank's data-parallel rows, ``[dp_index * B/dp,
+    (dp_index + 1) * B/dp)`` (the order of the reference's
+    ``batch_specs``); every model rank of a data-parallel group takes the
+    same rows.  The families the port trains take tokens; the reference's
+    stub frontends (embeddings input, encdec) are later slices of the port
+    and raise here."""
     dev = resolve_device(device)
     if cfg.family == "encdec" or cfg.input_mode == "embeddings":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family}/{cfg.input_mode} input is not "
             f"ported yet (ROADMAP.md queue 1 item 9)")
-    return {"tokens": torch.from_numpy(data["tokens"]).to(dev),
-            "labels": torch.from_numpy(data["labels"]).to(dev)}
+    rows = slice(None)
+    if pctx is not None:
+        b, dp = data["tokens"].shape[0], pctx.dp_size
+        if b % dp:
+            raise ValueError(f"global batch {b} over {dp} data-parallel "
+                             f"ranks")
+        rows = slice(pctx.dp_index * (b // dp),
+                     (pctx.dp_index + 1) * (b // dp))
+    return {key: torch.from_numpy(
+        np.ascontiguousarray(data[key][rows])).to(dev)
+        for key in ("tokens", "labels")}
 
 
 def _stub_embed(tokens: np.ndarray, d: int) -> np.ndarray:

@@ -4,13 +4,14 @@ host, spawned and joined with a deadline.
 ``chip_smoke.py`` spawns :func:`serve_worker` as 4 ranks (2 pods x 2 ep
 ranks) serving DBRX-132B, as 16 gloo ranks (2 pods x 8) serving
 Kimi-K2-1T, and as 4 tensor-parallel ranks (1 x 1 x 4) serving
-Mistral-NeMo-12B and (1 x 2 x 2) serving DBRX on the card(s); the CPU
-tests spawn it, :func:`dispatch_worker`, :func:`gather_worker` and
-:func:`probe_worker` (the telemetry's ``LiveProbe``) as 4, 8 or 16 gloo
-ranks at small sizes.  A spec's mesh is ``(pods, ep, tp)``
-(``tp`` default 1).  The ranks
-of one card can share one copy of the non-expert weights
-(:func:`shared_weights`, ``run_ranks(shared=...)``).
+Mistral-NeMo-12B and (1 x 2 x 2) serving DBRX on the card(s), and
+:func:`train_worker` as 4 ranks training DBRX over 2 x 2 and Mistral-NeMo
+over (1, 1, 4); the CPU tests spawn them, :func:`dispatch_worker`,
+:func:`gather_worker` and :func:`probe_worker` (the telemetry's
+``LiveProbe``) as 3, 4, 8 or 16 gloo ranks at small sizes.  A spec's
+mesh is ``(pods, ep, tp)`` (``tp`` default 1).  The ranks of one card can
+share one copy of the non-expert weights (:func:`shared_weights`,
+``run_ranks(shared=...)``).
 
 A run names the MoE round trip it executes (:func:`run_context`): a fixed
 ``(scheme, combine, microbatch)`` triple, a bound ``ExecutionPlan``
@@ -30,6 +31,7 @@ back once every rank has exited.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import gc
 import os
@@ -199,7 +201,7 @@ def init_rank(rank: int, spec: dict) -> RankMesh:
                             device_id=dev if spec["backend"] == "nccl"
                             else None)
     return RankMesh((spec["pods"], spec["ep"], spec.get("tp", 1)),
-                    timeout=timeout)
+                    timeout=timeout, dp_servers=spec.get("dp_servers", ()))
 
 
 def _save(rank: int, spec: dict, result) -> None:
@@ -1043,7 +1045,9 @@ def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
     data-parallel rows of ``x``, its experts and, over a model axis, its
     block of their hidden width, under each run of ``runs`` (default: the
     fixed scheme pairs at one chunk).  Returns per job and run label the
-    output, the aux and the resolved round trip."""
+    output, the aux and the resolved round trip; with a cotangent ``ct``
+    (over every rank's rows) also the gradients of ``sum(y * ct)`` (the
+    aux left out) in the rank's rows of x, the router and its experts."""
     from repro_torch.convert import block_of
     from repro_torch.models.layers import tp_of
     out = {}
@@ -1072,12 +1076,28 @@ def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
                             w = block_of(w, layer.shards[key])
                         getattr(layer, key).copy_(torch.from_numpy(
                             np.ascontiguousarray(w)))
-            y, aux = M.moe_ffn(layer, x, cfg, pctx)
+            ct = job.get("ct")
+            if ct is not None:
+                xg = x.clone().requires_grad_(True)
+                for p in layer.parameters():
+                    p.requires_grad_(True)
+                    p.grad = None
+                y, aux = M.moe_ffn(layer, xg, cfg, pctx)
+                (y * torch.from_numpy(ct[dp_index * per:(dp_index + 1) * per])
+                 ).sum().backward()
+                grads = {"x": xg.grad.numpy(),
+                         **{k: p.grad.numpy().copy()
+                            for k, p in layer.named_parameters()}}
+                y = y.detach()
+            else:
+                y, aux = M.moe_ffn(layer, x, cfg, pctx)
+                grads = None
             kw = M.pipeline_config(pctx, cfg, x.shape[0] * x.shape[1],
                                    cfg.d_model, layer.d_ff,
                                    x.element_size())
             res[run_label(run)] = {"y": y.numpy(), "aux": float(aux),
-                                   "resolved": kw}
+                                   "resolved": kw, "grads": grads,
+                                   "experts": (first, local)}
     return out
 
 
@@ -1176,6 +1196,449 @@ def gather_worker(rank: int, spec: dict) -> None:
                                    plan_policy=case["policy"])
             y = split_tp_allgather(x, pctx)
         results[case["name"]] = y.numpy()
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, results)
+
+
+# ---------------------------------------------------------------------------
+# training over ranks
+# ---------------------------------------------------------------------------
+
+REDUCE_SCHEMES = ("ring", "tree", "hierarchical", "multiwrite", "compressed")
+
+
+def psum_checks(mesh: RankMesh, inputs: np.ndarray, device, *,
+                axes=("pod", "data"), num_servers: int = 2,
+                rounds: int = 0) -> dict:
+    """Each scheme of ``planned_psum`` (``reduce_scheme`` pinned) on this
+    rank's row of ``inputs`` [ranks, N] (fp32), over the data-parallel
+    ``axes``.  Returns every scheme's mean (numpy); with ``rounds``, also
+    the mean of ``rounds`` steps of ``compressed_psum`` on the same input
+    with its residual fed back (``compressed_ef``), which converges on
+    the exact mean."""
+    from repro_torch.parallel.compression import compressed_psum
+    me = mesh.axis_index(*axes)
+    g = torch.from_numpy(np.ascontiguousarray(inputs[me])).to(device)
+    out = {}
+    for scheme in REDUCE_SCHEMES:
+        out[scheme] = cl.planned_psum(g, mesh, axes, num_servers=num_servers,
+                                      reduce_scheme=scheme).cpu().numpy()
+    if rounds:
+        err, acc = None, torch.zeros_like(g)
+        for _ in range(rounds):
+            mean, err = compressed_psum(g, mesh, axes, err)
+            acc += mean
+        out["compressed_ef"] = (acc / rounds).cpu().numpy()
+    return out
+
+
+def leaf_digest(t: torch.Tensor) -> tuple:
+    """A fingerprint of a tensor's bits: the sums of its elements' integer
+    views, plain and weighted by a fixed pseudo-random sequence, a slice
+    at a time (exact integer arithmetic on the tensor's device)."""
+    from repro_torch.optim.optimizers import CHUNK
+    ints = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    flat = t.detach().contiguous().view(-1).view(ints)
+    gen = torch.Generator(device=t.device)
+    gen.manual_seed(1234)
+    weights = torch.randint(1, 1 << 30, (min(CHUNK, flat.numel()),),
+                            generator=gen, device=t.device)
+    plain = weighted = 0
+    for lo in range(0, flat.numel(), CHUNK):
+        part = flat[lo:lo + CHUNK].long()
+        plain += int(part.sum())
+        weighted += int((part * weights[:part.numel()]).sum())
+    return plain, weighted
+
+
+def _step0(mesh: RankMesh, model, params, sync, batch: dict,
+           run: dict) -> dict:
+    """One forward and backward on the step-0 batch, before training and
+    without an update (the gradients are freed on return): with
+    ``check_kernels`` each backward kernel held against its plain version
+    (:func:`_checked_backwards`), with ``schemes`` the raw gradients of
+    those leaves reduced by each scheme (:func:`_scheme_gaps`), then the
+    sync's losses and global norm, and with ``grads`` the synced gradients
+    at their global shapes (:func:`_global_grads`)."""
+    from repro_torch.runtime.trainer import trainable
+    named = trainable(params)
+    out: dict = {"kernel_checks": []}
+    patches = (_checked_backwards(out["kernel_checks"])
+               if run.get("check_kernels") else [])
+    for patch in patches:
+        patch.start()
+    try:
+        loss, met = model.loss(params, batch)
+        (met[run["grad_of"]] if "grad_of" in run else loss).backward()
+    finally:
+        for patch in patches:
+            patch.stop()
+    if run.get("schemes"):
+        out["schemes"] = _scheme_gaps(mesh, sync.pctx, named, run["schemes"])
+    step0 = sync.metrics({"loss": loss.detach(),
+                          **{k: v.detach() for k, v in met.items()}})
+    out["step0"] = {k: float(v) for k, v in step0.items()}
+    grads = sync({n: p.grad for n, p in named.items()})
+    out["step0"]["grad_norm"] = float(sync.global_norm(grads))
+    if run.get("grads"):
+        out["grads"] = _global_grads(sync, params)
+    for p in named.values():
+        p.grad = None
+    return out
+
+
+def _global_grads(sync, params) -> dict:
+    """Rank 0: every gradient at its global shape (numpy fp32), the
+    experts and model-axis blocks gathered; the others: an empty dict."""
+    from repro_torch.checkpoint.store import ShardLayout
+    layout = ShardLayout(params, sync.pctx)
+    out = {}
+    for name, p in params.named_parameters():
+        whole = layout.gather(f"params/{name}", p.grad)
+        if whole is not None:
+            out[name] = whole.float().cpu().numpy()
+    return out
+
+
+def train_worker(rank: int, spec: dict) -> None:
+    """One rank of ``spec["cfg"]`` trained over the (pods, ep, tp) mesh for
+    each run of ``spec["runs"]``, set up by ``launch.train.build_training``
+    as ``launch.train`` sets it up: the weights from ``spec["weights"]``
+    (the reference's parameters as numpy) or drawn from ``spec["seed"]``;
+    the global batch ``spec["batch"]`` x ``spec["seq"]`` of ``SyntheticLM``
+    seed 0, this rank's rows; AdamW on a cosine schedule at ``spec["lr"]``
+    (warm-up 1) for ``spec["steps"]`` steps through ``Trainer``.
+
+    A run may name its own ``cfg`` and ``weights``.  Its context is
+    :func:`run_context`'s with ``seq_parallel`` (default on); under
+    ``policy`` "auto" the train program's plan is bound and the gradient
+    mean runs its ``grad_sync`` verdict (the ring under "fixed");
+    ``grads`` first
+    records the step-0 gradients after the sync, gathered to their global
+    shapes on rank 0, and the step-0 losses, without updating (the
+    gradients of ``grad_of``, "ce" or "aux", instead of the loss's when
+    the run names it);
+    ``check_kernels`` holds each backward kernel of that step against its
+    plain version on the same inputs (:func:`_checked_backwards`);
+    ``ckpt`` (``{"dir", "every"}``) checkpoints; ``restore`` (a
+    directory) resumes from its latest checkpoint; ``fabric="measured"``
+    plans on the fabric :func:`measure_link` timed (``spec["measure_link"]``
+    bytes a rank).  A run's ``schemes``
+    (leaf names) reduces the step-0 gradients of those leaves once by each
+    scheme (:func:`_scheme_gaps`).  Per run it records the history
+    (losses, grad norms, each step's parts in ms), the kernel launches,
+    the resolved scheme, bytes and G of the sync, and a digest of every
+    leaf."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
+        batch_for_model
+    from repro_torch.launch.train import build_training
+    from repro_torch.models.api import param_count
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    mesh = init_rank(rank, spec)
+    dev = rank_device(rank, spec)
+    dtype = spec["dtype"]
+    results = {"rank": rank, "device": str(dev), "runs": {},
+               "coords": dict(mesh.coords)}
+    phases = {"train": (spec["batch"], spec["seq"])}
+    fabric = None
+    if spec.get("measure_link"):
+        rate = measure_link(mesh, spec["measure_link"], dev)
+        fabric = fabric_spec(spec["pods"], spec["ep"], rate)
+        results["link"] = {"bytes": spec["measure_link"], "pair_rate": rate,
+                           "fabric": fabric}
+    for run in spec["runs"]:
+        label = run["label"]
+        t0 = time.monotonic()
+        cfg = run.get("cfg", spec["cfg"])
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                                      global_batch=spec["batch"], seed=0))
+        if run.get("fabric") == "measured":
+            if fabric is None:
+                raise ValueError("fabric 'measured' needs measure_link")
+            run = dict(run, fabric=fabric)
+        steps = run.get("steps", spec["steps"])
+        pctx = dataclasses.replace(run_context(mesh, spec["pods"], run),
+                                   seq_parallel=run.get("seq_parallel",
+                                                        True))
+        built = build_training(
+            cfg, pctx, batch=spec["batch"],
+            seq=spec["seq"], dtype=dtype, device=dev, lr=spec["lr"],
+            steps=spec["steps"], warmup=1, seed=spec.get("seed", 0),
+            weights=run.get("weights", spec.get("weights")))
+        pctx, params, sync = built.pctx, built.params, built.sync
+        decision = built.decision
+        if dev.type == "cuda":          # the draws' fp32 temporaries
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        res = results["runs"][label] = {
+            "scheme": sync.scheme, "sync_bytes": sync.bytes,
+            "sync_g": (decision.shard_map_kwargs.get("microbatch", 1)
+                       if decision is not None else 1),
+            "decision": (None if decision is None else decision.plan),
+            "dp": pctx.dp_size,
+            "params": param_count(params),
+            "moe": resolved(pctx, cfg, phases, dtype.itemsize)}
+
+        def make_batch(step):
+            return batch_for_model(cfg, data.batch(step), device=dev,
+                                   pctx=pctx)
+        if run.get("grads") or run.get("check_kernels") or \
+                run.get("schemes"):
+            res.update(_step0(mesh, built.model, params, sync, make_batch(0),
+                              run))
+        ckpt = run.get("ckpt") or {}
+        directory = run.get("restore") or ckpt.get("dir")
+        trainer = Trainer(
+            built.model, built.opt, make_batch,
+            TrainerConfig(total_steps=steps,
+                          checkpoint_every=ckpt.get("every", 1 << 30),
+                          checkpoint_dir=directory, log_every=1 << 30),
+            params=params, train_step=built.train_step)
+        res["start_step"] = trainer.state.step
+        if run.get("restore"):
+            trainer.ckpt = None             # continue without saving
+        ops.reset_launches()
+        res["history"] = trainer.run()
+        res["launches"] = ops.launches()
+        res["digest"] = {n: leaf_digest(p)
+                         for n, p in params.named_parameters()}
+        res["replicated"] = sorted(n for n in res["digest"]
+                                   if n not in sync.expert
+                                   and n not in sync.split)
+        res["split"] = sorted(sync.split)
+        if dev.type == "cuda":
+            res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        res["seconds"] = time.monotonic() - t0
+        del trainer, params, sync, built
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, results)
+
+
+ATTN_BWD_TOL = dict(atol=2e-2, rtol=2e-2)     # as chip_smoke's phase 10
+# the loss's own cotangent: each of dq, dk, dv within this share of its
+# largest element (the loss's gradients are far below ATTN_BWD_TOL's atol)
+ATTN_BWD_REL = 2e-2
+
+
+def attention_bwd_check(backward, ctx, grad_out: torch.Tensor) -> tuple:
+    """Hold ``backward(ctx, cotangent)`` (attention's autograd backward on
+    the saved q, k, v, output and lse) against autograd of the plain
+    forward in fp32 on the same inputs, twice: for a unit-scale randn
+    cotangent (seed 0) of ``grad_out``'s layout, each of dq, dk, dv within
+    ``ATTN_BWD_TOL`` as phase 10 holds it; for ``grad_out`` itself, each
+    within ``ATTN_BWD_REL`` of its largest element.  Returns (the
+    backward's result for ``grad_out``, the unit cotangent's max |err|, the
+    largest of grad_out's three errors relative to their scales, held)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _, _ = ctx.saved_tensors
+    causal, window, softcap, scale = ctx.mask
+    gen = torch.Generator(device=grad_out.device)
+    gen.manual_seed(0)
+    unit = torch.empty_like(grad_out)
+    unit.copy_(torch.randn(grad_out.shape, generator=gen,
+                           device=grad_out.device))
+    with torch.enable_grad():
+        leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+        plain = fa.flash_attention_plain(*leaves, causal=causal,
+                                         window=window, softcap=softcap,
+                                         scale=scale)
+        want_unit = torch.autograd.grad(plain, leaves, unit.float(),
+                                        retain_graph=True)
+        want = torch.autograd.grad(plain, leaves, grad_out.float())
+    got_unit = backward(ctx, unit)[:3]
+    out = backward(ctx, grad_out)
+    err = max(float((a.float() - e).abs().max())
+              for a, e in zip(got_unit, want_unit))
+    held = all(torch.allclose(a.float(), e, **ATTN_BWD_TOL)
+               for a, e in zip(got_unit, want_unit))
+    rel = 0.0
+    for a, e in zip(out[:3], want):
+        big = float(e.abs().max())
+        gap = float((a.float() - e).abs().max())
+        rel = max(rel, gap / big if big > 0 else float("inf"))
+    return out, err, rel, held and rel <= ATTN_BWD_REL
+
+
+def _checked_backwards(record: list):
+    """Patches of the pack's and attention's autograd backward that hold
+    each call's result, as the path goes on with it, against the plain
+    version on the same inputs and append ``(kernel, shape, max |err|,
+    held, relative err)`` to ``record``: the pack's backward bit-exact
+    against ``ref.pack_bwd_ref`` (its error relative to the largest
+    element); attention's by :func:`attention_bwd_check`, each shape once.
+    The attention check launches the backward once more, for its unit
+    cotangent."""
+    from repro_torch.kernels import dispatch_pack as dp
+    from repro_torch.kernels import flash_attention as fa
+    pack_bwd, attn_bwd = dp._Pack.backward, fa._Attention.backward
+    seen = set()
+
+    def pack(ctx, grad_out, grad_idx):
+        out = pack_bwd(ctx, grad_out, grad_idx)
+        (src_idx,) = ctx.saved_tensors
+        want = ref.pack_bwd_ref(grad_out, src_idx, ctx.rows)
+        err = float((out[0].float() - want.float()).abs().max())
+        big = float(want.float().abs().max())
+        record.append(("dispatch_pack_bwd", tuple(grad_out.shape), err,
+                       _same_bits(out[0], want), err / big if big else err))
+        return out
+
+    def attention(ctx, grad_out):
+        q, k = ctx.saved_tensors[:2]
+        if tuple(q.shape) in seen:
+            return attn_bwd(ctx, grad_out)
+        seen.add(tuple(q.shape))
+        out, err, rel, held = attention_bwd_check(attn_bwd, ctx, grad_out)
+        record.append(("flash_attention_bwd", tuple(q.shape) + (
+            k.shape[1],), err, held, rel))
+        return out
+
+    return [mock.patch.object(dp._Pack, "backward", staticmethod(pack)),
+            mock.patch.object(fa._Attention, "backward",
+                              staticmethod(attention))]
+
+
+def _scheme_gaps(mesh: RankMesh, pctx, named: dict, leaves) -> dict:
+    """The step-0 gradients of ``leaves`` (their first 8 M elements, fp32)
+    reduced once by each scheme of ``planned_psum`` over the data-parallel
+    axes: each scheme's largest gap to the fp64 mean of every rank's
+    gradients (gathered), relative to the mean's largest magnitude, the
+    bound it is held to in the same unit (fp32 sum order for the lossless
+    schemes, the int8 tolerance for ``compressed``) and its wall (ms, this
+    rank)."""
+    out = {}
+    parts = [named[n].grad.reshape(-1)[:1 << 23].float() for n in leaves]
+    wanted, biggest = [], []
+    for part in parts:
+        every = mesh.all_gather(part, pctx.dp_axes)
+        wanted.append(every.double().mean(dim=0))
+        biggest.append(float(every.abs().max()))
+        del every
+    for scheme in REDUCE_SCHEMES:
+        gap = bound = 0.0
+        _sync(part.device)
+        t0 = time.perf_counter()
+        means = [cl.planned_psum(part, mesh, pctx.dp_axes,
+                                 num_servers=pctx.num_servers,
+                                 reduce_scheme=scheme) for part in parts]
+        _sync(part.device)
+        wall = (time.perf_counter() - t0) * 1e3
+        for mean, want, big in zip(means, wanted, biggest):
+            scale = max(float(want.abs().max()), 1e-30)
+            gap = max(gap, float((mean.double() - want).abs().max()) / scale)
+            # fp32 sums of R terms: R ulps of the largest term; int8: two
+            # quantisation steps of the largest term and of the mean
+            bound = max(bound, (
+                2 * (big / 127 + scale / 127) if scheme == "compressed"
+                else mesh.axis_size(*pctx.dp_axes)
+                * float(torch.finfo(torch.float32).eps) * big) / scale)
+        out[scheme] = {"gap": gap, "bound": bound, "ms": wall}
+    return out
+
+
+# the exchanges :func:`exchange_worker` differentiates, over a model axis
+# of 4 ranks: name -> (kind, arguments); the ppermute leaves rank 3 out
+EXCHANGE_PERM = ((0, 1), (1, 2), (2, 0))
+EXCHANGES = {"all_to_all": (), "all_gather": (), "ppermute": (),
+             "reduce_scatter": (), "mean": (),
+             "gather_reference": (2,),
+             "gather_paired": (0.25, "paired"),
+             "gather_full": (0.25, "full")}
+
+
+def exchange(name: str, x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """One exchange of :data:`EXCHANGES` of x over the model axis."""
+    from repro_torch.parallel import mesh as mesh_ops
+    group, n = mesh.group("model"), mesh.axis_size("model")
+    args = EXCHANGES[name]
+    if name == "all_to_all":
+        return mesh_ops.all_to_all(x, group)
+    if name == "all_gather":
+        return mesh.all_gather(x, "model")
+    if name == "ppermute":
+        return mesh.ppermute(x, "model", EXCHANGE_PERM)
+    if name == "reduce_scatter":
+        return mesh_ops.reduce_scatter(x, group, n)
+    if name == "mean":
+        return mesh_ops.mean(x, group, n)
+    if name == "gather_reference":
+        return cl.allgather_reference(x, mesh, "model", *args)
+    split, mode = args
+    return cl.multiwrite_allgather(x, mesh, "model", split=split, mode=mode)
+
+
+def exchange_worker(rank: int, spec: dict) -> None:
+    """Each exchange of :data:`EXCHANGES` on this rank's block of
+    ``spec["inputs"]`` (an ``.npz``: ``x`` [ranks, ...] and per exchange
+    ``<name>/ct`` [ranks, ...], each rank's cotangent of its output): the
+    output and the input's gradient.  Then the Megatron pair on a model
+    axis where every rank computes the same loss: ``y = g(f(h) @ w1_r)
+    @ w2_r`` summed, ``loss = sum(y * c)`` from ``spec["fg"]`` (``h``,
+    ``w1`` [D, F], ``w2`` [F, D], ``c``; rank r's column block of w1 and
+    row block of w2), with *f*/*g* (``fg``) and with
+    ``torch.distributed.nn.functional.all_reduce`` in place of *g* and no
+    *f* (``nn``): the gradients of ``h``, ``w1`` and ``w2``."""
+    import torch.distributed.nn.functional as dist_nn
+
+    from repro_torch.models import layers as L
+    mesh = init_rank(rank, spec)
+    data = np.load(spec["inputs"])
+    results = {}
+    for name in EXCHANGES:
+        x = torch.from_numpy(data["x"][rank]).requires_grad_(True)
+        y = exchange(name, x, mesh)
+        y.backward(torch.from_numpy(data[f"{name}/ct"][rank]))
+        results[name] = {"y": y.detach().numpy(), "dx": x.grad.numpy()}
+    fg = {k: torch.from_numpy(v) for k, v in spec["fg"].items()}
+    n = mesh.axis_size("model")
+    part = fg["w1"].shape[1] // n
+    cols = slice(rank * part, (rank + 1) * part)
+    pctx = ParallelContext(mesh)
+    for how in ("fg", "nn"):
+        h = fg["h"].clone().requires_grad_(True)
+        w1 = fg["w1"][:, cols].clone().requires_grad_(True)
+        w2 = fg["w2"][cols].clone().requires_grad_(True)
+        if how == "fg":
+            y = L.reduce_over_model(torch.tanh(L.to_model(h, pctx) @ w1)
+                                    @ w2, pctx)
+        else:
+            y = dist_nn.all_reduce(torch.tanh(h @ w1) @ w2,
+                                   group=mesh.group("model"))
+        (y * fg["c"]).sum().backward()
+        results[how] = {"h": h.grad.numpy(), "w1": w1.grad.numpy(),
+                        "w2": w2.grad.numpy()}
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, results)
+
+
+def psum_worker(rank: int, spec: dict) -> None:
+    """:func:`psum_checks` of ``spec["psum"]`` (an input [ranks, N]) over
+    the data-parallel axes of the (pods, ep) mesh; also the pod-aware
+    ``hierarchical_psum`` over (pod, data), and ``tree_compressed_psum``
+    of a dict of two leaves cut from the input (the first 600 elements as
+    [20, 30], the rest flat) with its residuals."""
+    from repro_torch.parallel.compression import (hierarchical_psum,
+                                                  tree_compressed_psum)
+    mesh = init_rank(rank, spec)
+    dev = rank_device(rank, spec)
+    axes = ("pod", "data")
+    results = psum_checks(mesh, spec["psum"], dev, axes=axes,
+                          **spec.get("psum_kw", {}))
+    g = torch.from_numpy(np.ascontiguousarray(
+        spec["psum"][mesh.axis_index(*axes)])).to(dev)
+    if spec["pods"] > 1 and spec["ep"] > 1:
+        results["pod_aware"] = hierarchical_psum(g, mesh, "pod",
+                                                 "data").cpu().numpy()
+    means, errs = tree_compressed_psum(
+        {"a": g[:600].reshape(20, 30), "b": g[600:]}, mesh, axes)
+    results["tree_compressed"] = {
+        k: (means[k].cpu().numpy(), errs[k].cpu().numpy()) for k in means}
     dist.barrier()
     dist.destroy_process_group()
     _save(rank, spec, results)

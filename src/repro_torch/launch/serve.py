@@ -140,10 +140,11 @@ def build_engine(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
 
 
 def join_ranks(pods: int, ep: int, backend: str | None, device, *,
-               tp: int = 1, tp_subgroups: int = 1):
+               tp: int = 1, tp_subgroups: int = 1, dp_servers=()):
     """Join the ``torchrun`` process group (its environment gives rank and
-    world size) as ``pods`` x ``ep`` x ``tp`` ranks.  Returns (pctx,
-    device); (None, device) for one rank."""
+    world size) as ``pods`` x ``ep`` x ``tp`` ranks (``dp_servers``: the
+    server counts whose data-parallel groups the mesh makes).  Returns
+    (pctx, device); (None, device) for one rank."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if pods * ep * tp != world:
         raise ValueError(f"--pods {pods} x --ep {ep} x --tp {tp} != world "
@@ -170,7 +171,8 @@ def join_ranks(pods: int, ep: int, backend: str | None, device, *,
         raise ValueError("--backend nccl or gloo is required over ranks")
     dist.init_process_group(backend, timeout=COLLECTIVE_TIMEOUT,
                             device_id=device if backend == "nccl" else None)
-    mesh = RankMesh((pods, ep, tp), timeout=COLLECTIVE_TIMEOUT)
+    mesh = RankMesh((pods, ep, tp), timeout=COLLECTIVE_TIMEOUT,
+                    dp_servers=dp_servers)
     return ParallelContext(mesh, pod_axis="pod" if pods > 1 else None,
                            tp_subgroups=tp_subgroups), device
 

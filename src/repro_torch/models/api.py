@@ -13,14 +13,17 @@
   init_cache(batch, max_len)     -> per-layer KV buffers or recurrent states
 
 Batches: ``{"tokens": [B, S] int}`` for prefill (and ``"labels"`` [B, S]
-for the loss, -1 ignored), ``{"tokens": [B, 1]}`` for decode.  Training
-runs on one rank (``pctx=None``); on the card the hybrid and rwkv families
-do not train yet (their scans have no backward kernel).  The model runs
-on CUDA unless it is built with ``device="cpu"``.
+for the loss, -1 ignored), ``{"tokens": [B, 1]}`` for decode.  On the
+card the hybrid and rwkv families do not train yet (their scans have no
+backward kernel).  The model runs on CUDA unless it is built with
+``device="cpu"``.
 Built with a ``pctx`` (dense and moe families), a model holds one rank's
 experts and tensor-parallel blocks, and its batches are that rank's
 data-parallel rows (every model rank of a data-parallel group takes the
-same rows).
+same rows).  Its loss is then the mean over this rank's rows (the same
+value on every model rank), differentiable through the exchanges: the
+trainer's gradient sync turns the ranks' gradients into the global
+batch's (``runtime.trainer.GradSync``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv, ssm
 from repro_torch.models import transformer as T
+from repro_torch.parallel.context import seq_sharded, shard_residual
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -85,10 +89,6 @@ class Model:
         """The stack without a cache: (final-normed hidden [B, S, D], the
         MoE aux losses summed, fp32)."""
         fam = self.cfg.family
-        if self.pctx is not None:
-            raise NotImplementedError(
-                "training over ranks is not ported yet (ROADMAP.md queue 1 "
-                "item 8b)")
         toks = batch["tokens"]
         x = self._embed(params, toks)
         if fam in ("hybrid", "rwkv"):
@@ -106,19 +106,32 @@ class Model:
             return h, torch.zeros((), dtype=torch.float32,
                                   device=self.device)
         return T.forward_hidden(params, self.cfg, x,
-                                _positions(*toks.shape, self.device))
+                                _positions(*toks.shape, self.device),
+                                self.pctx)
 
     def loss(self, params, batch: dict):
         """Mean token cross-entropy of the labels plus 0.01 x the MoE aux
-        loss: (loss, {"ce", "aux"}), fp32 scalars."""
+        loss: (loss, {"ce", "aux"}), fp32 scalars.  Under sequence
+        parallelism each model rank takes the cross-entropy of its own
+        positions, and the sums and counts are added over the model axis
+        (*g*), so the loss is the same on every model rank."""
         h, aux = self.hidden_train(params, batch)
         if params.unembed is not None:
             w, tied = params.unembed, False
         else:
             w, tied = params.embed.emb, True
-        ce = L.chunked_cross_entropy(h, w, batch["labels"].to(self.device),
+        labels = batch["labels"].to(self.device)
+        if seq_sharded(self.pctx, labels.shape[1]):
+            nll, cnt = L.chunked_nll(h, L.to_model(w, self.pctx),
+                                     shard_residual(labels, self.pctx),
                                      tied=tied,
                                      final_softcap=self.cfg.final_softcap)
+            tot = L.reduce_over_model(torch.stack([nll, cnt.to(nll.dtype)]),
+                                      self.pctx)
+            ce = tot[0] / torch.clamp(tot[1], min=1)
+        else:
+            ce = L.chunked_cross_entropy(h, w, labels, tied=tied,
+                                         final_softcap=self.cfg.final_softcap)
         total = ce + 0.01 * aux
         return total, {"ce": ce, "aux": aux}
 

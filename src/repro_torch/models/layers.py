@@ -16,6 +16,17 @@ divide over it, and replicated otherwise.  A module's ``shards`` maps each
 split parameter to ``(dim, parts, index)``: its block of the whole tensor.
 Random weights draw each tensor whole and keep the block, so a rank's
 weights equal the one-rank model's slices.
+
+Gradients over the model axis (training): every model rank computes the
+same loss, so a value whole on every model rank has the same cotangent on
+every rank too.  The row-parallel sum is *g* (:func:`reduce_over_model`:
+``all_reduce`` forward, identity backward); a column-parallel product
+takes its input through *f* (:func:`to_model`: identity forward,
+``all_reduce`` of the cotangent backward, since each rank's cotangent is
+the part its own block of the weights produced); and so does a whole
+weight that a rank uses only in part (the kv projections replicated over
+the model axis, of which a rank reads the heads of its own query heads),
+so that its gradient is again the same on every rank.
 """
 
 from __future__ import annotations
@@ -24,11 +35,11 @@ import dataclasses
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops, ref
+from repro_torch.parallel import mesh as mesh_ops
 
 
 def truncated_normal_(t: torch.Tensor, scale: float,
@@ -75,9 +86,19 @@ def shard_size(n: int, parts: int, what: str) -> int:
 
 def reduce_over_model(x: torch.Tensor, pctx) -> torch.Tensor:
     """The row-parallel sum: ``x`` summed over the model axis, in place
-    (``lax.psum(x, model)``); ``x`` itself without one."""
+    (``lax.psum(x, model)``); ``x`` itself without one.  *g* of the
+    Megatron pair: its backward is the identity."""
     if pctx is not None and pctx.model_size > 1:
-        dist.all_reduce(x, group=pctx.mesh.group(pctx.model_axis))
+        return mesh_ops.reduce_model(x, pctx.mesh.group(pctx.model_axis))
+    return x
+
+
+def to_model(x: torch.Tensor, pctx) -> torch.Tensor:
+    """*f*: ``x`` (whole on every model rank) as it is, entering a product
+    with this rank's block of the weights; its backward sums the
+    cotangents over the model axis.  ``x`` itself without one."""
+    if pctx is not None and pctx.model_size > 1:
+        return mesh_ops.copy_to_model(x, pctx.mesh.group(pctx.model_axis))
     return x
 
 
@@ -242,9 +263,13 @@ def attention(p: Attention, x, positions, dims: AttnDims, *, causal=True,
     row-parallel ``wo`` products are summed over the model axis."""
     b, s, _ = x.shape
     dh = dims.d_head
+    x = to_model(x, pctx)
+    wk, wv = p.wk, p.wv
+    if not p.kv_split:        # whole on every rank, read in part
+        wk, wv = to_model(wk, pctx), to_model(wv, pctx)
     q = (x @ p.wq).reshape(b, s, p.heads, dh)
-    k = (x @ p.wk).reshape(b, s, p.kv_heads, dh)
-    v = (x @ p.wv).reshape(b, s, p.kv_heads, dh)
+    k = (x @ wk).reshape(b, s, p.kv_heads, dh)
+    v = (x @ wv).reshape(b, s, p.kv_heads, dh)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     ka, va = _local_kv(p, k, v)
@@ -471,11 +496,15 @@ def init_mlp(d, f, gated: bool, *, generator, device, dtype,
                ).reset_parameters(generator)
 
 
-def mlp(p: MLP, x, act_name: str, pctx=None):
+def mlp(p: MLP, x, act_name: str, pctx=None, *, reduce: bool = True):
+    """The (gated) MLP; over a model axis summed over it, or with
+    ``reduce=False`` this rank's partial sum (the caller reduces it)."""
+    x = to_model(x, pctx)
     hidden = activation(act_name)(x @ p.w1)
     if p.w3 is not None:
         hidden = hidden * (x @ p.w3)
-    return reduce_over_model(hidden @ p.w2, pctx)
+    out = hidden @ p.w2
+    return reduce_over_model(out, pctx) if reduce else out
 
 
 # ---------------------------------------------------------------------------
@@ -538,16 +567,13 @@ def _chunk_loss(hh, emb, ll, tied: bool, final_softcap, ignore: int):
     return torch.sum((logz - gold) * mask), torch.sum(mask)
 
 
-def chunked_cross_entropy(h, emb, labels, *, tied=True, chunk=512,
-                          final_softcap=None, ignore: int = -1):
-    """Sequence-chunked CE that never holds [B, S, V] logits.
-
-    The unembedding product and softmax run per S-chunk under
-    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so the
-    forward and the backward hold one chunk of logits at a time.
-
-    h: [B, S, D]; emb: [V, D] (tied=True) or [D, V]; labels: [B, S].
-    Returns the mean token CE (fp32 scalar)."""
+def chunked_nll(h, emb, labels, *, tied=True, chunk=512,
+                final_softcap=None, ignore: int = -1):
+    """(summed token nll fp32, labelled token count) of h: [B, S, D] with
+    sequence-chunked logits: the unembedding product and softmax run per
+    S-chunk under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``), so the forward and the backward hold one chunk of
+    logits at a time.  emb: [V, D] (tied=True) or [D, V]; labels: [B, S]."""
     from torch.utils.checkpoint import checkpoint
     s = h.shape[1]
     chunk = min(chunk, s)
@@ -563,4 +589,13 @@ def chunked_cross_entropy(h, emb, labels, *, tied=True, chunk=512,
                             ignore, use_reentrant=False)
         nll = nll + dn
         cnt = cnt + dc
+    return nll, cnt
+
+
+def chunked_cross_entropy(h, emb, labels, *, tied=True, chunk=512,
+                          final_softcap=None, ignore: int = -1):
+    """Sequence-chunked CE that never holds [B, S, V] logits
+    (:func:`chunked_nll`).  Returns the mean token CE (fp32 scalar)."""
+    nll, cnt = chunked_nll(h, emb, labels, tied=tied, chunk=chunk,
+                           final_softcap=final_softcap, ignore=ignore)
     return nll / torch.clamp(cnt, min=1)

@@ -24,6 +24,15 @@ coordinate) and holds its block of F/m columns of each expert's hidden
 width: the expert FFN ends in an ``all_reduce`` over the model axis, or,
 under ``moe_deferred_tp_reduce``, the combine (linear in the expert
 outputs) runs on the partial sums and one ``all_reduce`` follows it.
+
+Gradients over ranks: the exchanges' backward returns each row's
+cotangent to the rank that sent it, so an expert's gradient arrives summed
+over the data-parallel ranks whose rows it served (the trainer divides it
+by their count and keeps it out of the data-parallel mean); the aux loss's
+mean over the dp ranks is differentiable (its backward the mean of the
+cotangents).  Over a model axis the expert rows enter the column-parallel
+products through *f*, and so do the gates where the combine runs on the
+partial sums (``layers.to_model``).
 """
 
 from __future__ import annotations
@@ -33,12 +42,12 @@ import math
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core import collectives as cl
 from repro_torch.core.h100 import moe_compute_s
 from repro_torch.models import layers as L
+from repro_torch.parallel import mesh as mesh_ops
 
 
 class MoE(nn.Module):
@@ -115,19 +124,34 @@ def init_moe(d: int, f: int, num_experts: int, *, generator, device,
                ).reset_parameters(generator)
 
 
+def num_experts(params: nn.Module) -> int:
+    """The experts of the MoE layers of a parameter module (0 without
+    one)."""
+    moe = next((sub for sub in params.modules() if isinstance(sub, MoE)),
+               None)
+    return 0 if moe is None else moe.router.shape[1]
+
+
+def expert_axes(pctx, num_experts: int) -> tuple[str, ...]:
+    """The axes the experts are sharded over (``moe_specs``' sharding):
+    (pod, data), or data alone when there are fewer experts than ranks
+    (the pods then hold the same experts)."""
+    use_pod, _ = pctx.ep_ranks(num_experts)
+    return (pctx.pod_axis, pctx.data_axis) if use_pod else (pctx.data_axis,)
+
+
 def expert_shard(pctx, num_experts: int) -> tuple[int, int]:
     """(first, count) of the experts a rank holds: ``per_rank`` in a
-    contiguous block, at the rank's EP index (``moe_specs``' sharding over
-    (pod, data) or data alone); all of them without a context."""
+    contiguous block, at the rank's EP index over :func:`expert_axes`; all
+    of them without a context."""
     if pctx is None:
         return 0, num_experts
-    use_pod, ranks = pctx.ep_ranks(num_experts)
+    _, ranks = pctx.ep_ranks(num_experts)
     if num_experts % ranks:
         raise ValueError(f"{num_experts} experts over {ranks} EP ranks")
     per_rank = num_experts // ranks
-    ep_axes = (pctx.pod_axis, pctx.data_axis) if use_pod else \
-        (pctx.data_axis,)
-    return pctx.mesh.axis_index(*ep_axes) * per_rank, per_rank
+    axes = expert_axes(pctx, num_experts)
+    return pctx.mesh.axis_index(*axes) * per_rank, per_rank
 
 
 def _expert_ffn(w1, w3, w2, x, act_name: str, pctx=None):
@@ -135,6 +159,7 @@ def _expert_ffn(w1, w3, w2, x, act_name: str, pctx=None):
     block of the hidden width, row-parallel over the model axis of
     ``pctx`` (summed over it inside)."""
     act = L.activation(act_name)
+    x = L.to_model(x, pctx)
     h = act(torch.bmm(x, w1)) * torch.bmm(x, w3)
     return L.reduce_over_model(torch.bmm(h, w2), pctx)
 
@@ -203,7 +228,7 @@ def pipeline_config(pctx, cfg, n: int, d: int, d_ff: int,
 
 
 def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
-            with_aux: bool = True, valid=None):
+            with_aux: bool = True, valid=None, reduce: bool = True):
     """x: [B, S, D] -> ([B, S, D], aux_loss).  With a ``pctx``, x holds this
     rank's data-parallel rows and ``params`` its experts.  ``with_aux=False``
     skips the aux loss (and its mean over the dp ranks) and returns None in
@@ -211,11 +236,14 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
     mean over the chunks of each chunk's dp-mean.  ``valid`` [B] bool (None:
     every row): a row that is not valid is dispatched to no expert (the
     first pack's ``valid`` input), so it takes no capacity, and its output
-    is zero.
+    is zero.  ``reduce=False`` under ``moe_deferred_tp_reduce`` returns
+    this rank's partial sum over the model axis (the caller reduces it);
+    otherwise the output is whole.
 
     Differentiable in x, the router and the experts: the packs run their
-    backward kernel, and gather_rows, the gates and the fp32 sums of the
-    combine are autograd's own."""
+    backward kernel, the exchanges theirs (``parallel.mesh``), and
+    gather_rows, the gates and the fp32 sums of the combine are autograd's
+    own."""
     b, s, d = x.shape
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity
@@ -270,8 +298,7 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
         if with_aux:
             aux = load_balance_loss(logits, ids, cfg.num_experts)
             if dp_group is not None:              # lax.pmean over dp axes
-                dist.all_reduce(aux, group=dp_group)
-                aux = aux / pctx.dp_size
+                aux = mesh_ops.mean(aux, dp_group, pctx.dp_size)
         return list(dispatch(tok, ids, gates, dcfg, epmesh,
                              valid=tok_valid)), aux
 
@@ -281,11 +308,14 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
         combine's exchanges (a Kimi-K2 rank's are 117 MB)."""
         exp_tok, exp_gate, st = pack
         pack.clear()
-        exp_out = _expert_ffn(params.w1, params.w3, params.w2, exp_tok,
-                              cfg.act, expert_ctx)
+        exp_out = _expert_ffn(params.w1, params.w3, params.w2,
+                              L.to_model(exp_tok, pctx) if deferred
+                              else exp_tok, cfg.act, expert_ctx)
         del exp_tok
+        if deferred:        # the combine multiplies partials by the gates
+            exp_gate = L.to_model(exp_gate, pctx)
         out = combine(exp_out, exp_gate, st)
-        if deferred:
+        if deferred and reduce:
             out = L.reduce_over_model(out, pctx)
         return out.to(x.dtype)
 

@@ -15,6 +15,18 @@ the positions between blocks, and each block's entry gathers the sequence
 back (:func:`_split_tp_seq_gather`: through the split-TP MultiWrite
 AllGather with ``tp_subgroups > 1``, plainly otherwise).  The decode KV
 caches lie in ``layers.kv_layout``'s layout, which the prefill writes.
+
+Training over a ``pctx`` (:func:`forward_hidden`) has the same structure:
+the embedded sequence is cut to this rank's block of positions, each block
+gathers it back at its entry, and each block's last row-parallel sum and
+the cut that follows it are one reduce-scatter (a whole FFN output, as the
+MoE's without ``moe_deferred_tp_reduce``, is cut).  Inside a block every
+value and every cotangent is the same on each model rank; the gather's
+backward is this rank's block of the cotangent, and the cut's is an
+all-gather of the blocks' cotangents.  The final norm and the
+cross-entropy run on this rank's positions (``api.Model.loss``), their
+weights through *f* (``layers.to_model``), so their gradients, summed over
+the model axis in the backward, are again the same on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.parallel import mesh as mesh_ops
 from repro_torch.parallel.context import seq_sharded, shard_residual
 
 BIG_WINDOW = 1 << 30
@@ -218,20 +231,30 @@ def _attn_part(lp: Block, x, positions, cfg, *, window, causal=True,
 
 
 def _ffn_part(lp: Block, x, cfg, pctx=None, *, with_aux=False,
-              valid=None):
+              valid=None, reduce=True):
     """The FFN half of a block: (out, the MoE aux loss, or None for a dense
     block or without ``with_aux``).  Serving drops the aux, so it is never
     computed there (nor averaged over the ranks).  ``valid`` [B] bool: the
     rows whose tokens take expert capacity (a cohort's padding rows do
-    not)."""
+    not).  ``reduce=False``: where :func:`_ffn_partial` says so, ``out`` is
+    this rank's partial sum over the model axis."""
     h = lp.ln2(x)
     if lp.moe is None:
-        return L.mlp(lp.mlp, h, cfg.act, pctx), None
+        return L.mlp(lp.mlp, h, cfg.act, pctx, reduce=reduce), None
     out, aux = M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=with_aux,
-                         valid=valid)
+                         valid=valid, reduce=reduce)
     if lp.shared_mlp is not None:
-        out = out + L.mlp(lp.shared_mlp, h, cfg.act, pctx)
+        out = out + L.mlp(lp.shared_mlp, h, cfg.act, pctx,
+                          reduce=reduce or not _ffn_partial(lp, pctx))
     return out, aux
+
+
+def _ffn_partial(lp: Block, pctx) -> bool:
+    """Whether the FFN half leaves partial sums over the model axis when
+    asked not to reduce: a dense MLP, and an MoE layer whose combine runs
+    on the partials (``moe_deferred_tp_reduce``)."""
+    return (pctx is not None and pctx.model_size > 1
+            and (lp.moe is None or pctx.moe_deferred_tp_reduce))
 
 
 def _decode_attn(lp: Block, x, ck, cv, pos, cfg, *, window, pctx=None,
@@ -271,36 +294,90 @@ def _split_tp_seq_gather(x, pctx):
 
 def _remat(fn, pctx):
     """The reference's remat wrapper: ``torch.utils.checkpoint`` (the
-    block's activations recomputed in the backward) when the context asks
-    for remat; none without a context, as the reference's one-device path.
+    block's activations recomputed in the backward) when the context's
+    ``remat`` field asks for it; none without a context, as the
+    reference's one-device path.
     Both of the reference's policies ("full", and dots saved) recompute the
     whole block here."""
-    if pctx is None or getattr(pctx, "remat", "none") == "none":
+    if pctx is None or pctx.remat == "none":
         return fn
     from torch.utils.checkpoint import checkpoint
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _train_block(lp: Block, x, positions, cfg, pctx, window):
-    """One block of :func:`forward_hidden`: (x, the MoE aux or None)."""
+class _SeqGather(torch.autograd.Function):
+    """:func:`_split_tp_seq_gather` in training: whatever schedule gathers,
+    the whole sequence's cotangent is the same on every model rank, so the
+    transpose (the reference's ``psum_scatter`` of the cotangent over the
+    ranks that share it) is this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, pctx):
+        ctx.part = x.shape[1]
+        ctx.at = pctx.mesh.axis_index(pctx.model_axis) * ctx.part
+        return _split_tp_seq_gather(x, pctx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, ctx.at:ctx.at + ctx.part], None
+
+
+def _cut(x, pctx):
+    """This rank's block of the positions of x [B, S, D], whole on every
+    model rank (backward: the blocks' cotangents all-gathered)."""
+    m = pctx.model_size
+    return mesh_ops.split(x, pctx.mesh.group(pctx.model_axis), m,
+                          pctx.mesh.axis_index(pctx.model_axis), dim=1)
+
+
+def _reduce_cut(x, pctx):
+    """This rank's block of the positions of the sum over the model axis of
+    the partials x [B, S, D]: one reduce-scatter (backward: the
+    all-gather of the cotangents)."""
+    m = pctx.model_size
+    b, s, d = x.shape
+    blocks = x.reshape(b, m, s // m, d).transpose(0, 1)    # [m, B, S/m, D]
+    return mesh_ops.reduce_scatter(blocks, pctx.mesh.group(pctx.model_axis),
+                                   m)
+
+
+def _train_block(lp: Block, x, positions, cfg, pctx, window, sp=False):
+    """One block of :func:`forward_hidden`: (x, the MoE aux or None).
+    ``sp``: x is this rank's block of the positions, gathered at the entry
+    and cut again at the exit."""
+    if sp:
+        x = (_SeqGather.apply(x, pctx) if x.requires_grad
+             else _split_tp_seq_gather(x, pctx))
     x = x + _attn_part(lp, x, positions, cfg, window=window, pctx=pctx)
-    f, aux = _ffn_part(lp, x, cfg, pctx, with_aux=True)
-    return x + f, aux
+    if not sp:
+        f, aux = _ffn_part(lp, x, cfg, pctx, with_aux=True)
+        return x + f, aux
+    f, aux = _ffn_part(lp, x, cfg, pctx, with_aux=True, reduce=False)
+    if _ffn_partial(lp, pctx):
+        return _cut(x, pctx) + _reduce_cut(f, pctx), aux
+    return _cut(x + f, pctx), aux
 
 
 def forward_hidden(params: Transformer, cfg, x, positions, pctx=None):
     """Run the decoder stack on hidden states x [B, S, D] without a cache
     (training).  Returns (final-normed hidden, the MoE aux losses summed,
-    fp32)."""
+    fp32).  Under sequence parallelism (``context.seq_sharded``) the
+    hidden is this rank's block of the positions."""
     wins = window_schedule(cfg, cfg.n_layers)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    sp = seq_sharded(pctx, x.shape[1])
+    if sp:
+        x = _cut(x, pctx)
     for i, lp in enumerate(params.blocks):
         block = _remat(functools.partial(
             _train_block, lp, positions=positions, cfg=cfg, pctx=pctx,
-            window=None if wins is None else wins[i]), pctx)
+            window=None if wins is None else wins[i], sp=sp), pctx)
         x, aux = block(x)
         if aux is not None:
             aux_total = aux_total + aux
+    if sp:
+        fn = params.final_norm
+        return L.rmsnorm(L.to_model(fn.w, pctx), x, fn.eps), aux_total
     return params.final_norm(x), aux_total
 
 

@@ -83,10 +83,15 @@ def clip_by_global_norm(grads: Tree, max_norm: float):
             for k, g in grads.items()}, norm
 
 
-def clip_by_global_norm_(grads: Tree, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Tree, max_norm: float,
+                         norm: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`clip_by_global_norm` in place, a slice at a time; returns the
-    norm before clipping."""
-    norm = global_norm(grads)
+    norm before clipping.  ``norm``: the norm to clip by, when the tree is
+    one rank's part of a larger one (over ranks every rank must clip its
+    part by the global gradient's norm); :func:`global_norm` of ``grads``
+    when None."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
     for g in grads.values():
         for part in _slices(g):

@@ -61,6 +61,10 @@ class ParallelContext:
     moe_deferred_tp_reduce: bool = False  # one all_reduce over model after
     #   the combine instead of one per expert FFN
     moe_microbatch: int = 1           # dispatch chunks G under "fixed"
+    remat: str = "none"               # none | selective | full: recompute
+    #   each block's activations in the backward (training); the reference
+    #   defaults to "full", the port to none (the state of a full-width
+    #   rank fits beside its activations)
     execution_plan: Optional[object] = None  # a bound
     #   core.plan.ExecutionPlan (install with ``pctx.bind(plan)``)
     _resolved: dict = dataclasses.field(default_factory=dict, init=False,
@@ -79,6 +83,8 @@ class ParallelContext:
             raise ValueError(f"moe_combine {self.moe_combine!r}")
         if self.pod_axis is None and self.mesh.axis_size("pod") != 1:
             raise ValueError("a mesh with pods needs pod_axis='pod'")
+        if self.remat not in ("none", "selective", "full"):
+            raise ValueError(f"remat {self.remat!r}")
 
     # -- derived -------------------------------------------------------------
     @property
@@ -106,6 +112,20 @@ class ParallelContext:
     def dp_index(self) -> int:
         """Which data-parallel rows are this rank's: pod * data + d."""
         return self.mesh.axis_index(*self.dp_axes)
+
+    @property
+    def dp_topology(self):
+        """The data-parallel fabric the gradient sync is planned on (the
+        ``grad_sync`` site's): the explicit ``fabric``, else the
+        mesh-derived shape."""
+        from repro_torch.core.planner import _ep_topology
+        return _ep_topology(self.num_pods, self.data_size, self.fabric)
+
+    @property
+    def num_servers(self) -> int:
+        """Server groups of the data-parallel ranks on :attr:`dp_topology`
+        (what ``planned_psum``'s two-level schedules group by)."""
+        return int(self.dp_topology.meta.num_servers)
 
     def ep_ranks(self, num_experts: int) -> tuple[bool, int]:
         """(use_pod_axis, total EP ranks) for an MoE layer: EP spans the pod
@@ -194,14 +214,38 @@ class ParallelContext:
             return None
         from repro_torch.core import plan as plan_ir
         from repro_torch.core.latency_model import backward_compute_s
-        from repro_torch.core.planner import _ep_topology
         payload = float(num_params) * 4.0 / max(1, self.model_size)
         compute = backward_compute_s(num_params, tokens_per_rank,
                                      tp=self.model_size,
                                      peak_flops=peak_flops)
-        topo = _ep_topology(self.num_pods, self.data_size, self.fabric)
         return plan_ir.grad_sync_site(phase, payload_bytes=payload,
-                                      compute_s=compute, topo=topo)
+                                      compute_s=compute,
+                                      topo=self.dp_topology)
+
+    def grad_sync_plan(self, *, num_params: int, tokens_per_rank: int,
+                       phase: str = "train",
+                       peak_flops: float = H100_BF16_PEAK_FLOPS):
+        """The gradient AllReduce decision of one training step, or None
+        without data-parallel replicas: the bound plan's site of this
+        workload, looked up by role as :meth:`moe_pipeline_kwargs` looks up
+        its own; then the planner under ``plan_policy="auto"``; None under
+        "fixed" (the flat ring)."""
+        site = self.grad_sync_site(phase, num_params=num_params,
+                                   tokens_per_rank=tokens_per_rank,
+                                   peak_flops=peak_flops)
+        if site is None:
+            return None
+        if self.execution_plan is not None:
+            role = self.execution_plan.find_role(
+                "allreduce", site.payload_bytes, compute_s=site.compute_ctx)
+            if role is not None:
+                return self.execution_plan.decision(role)
+        if self.plan_policy != "auto":
+            return None
+        from repro_torch.core import plan as plan_ir
+        eplan = self.plan_collectives(
+            plan_ir.CollectiveProgram(f"{phase}/grad_sync", (site,)))
+        return eplan.decision(site.role)
 
     def plan_collectives(self, program):
         """Jointly plan a declared program on this context's fabric and

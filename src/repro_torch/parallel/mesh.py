@@ -23,6 +23,33 @@ range(nd)] for i in range(h)]``, ``transformer._split_tp_seq_gather``).
 collectives on :meth:`RankMesh.group`; ``lax.all_gather(x, name,
 axis_index_groups=...)`` -> :meth:`RankMesh.all_gather`;
 ``lax.ppermute(x, name, perm)`` -> :meth:`RankMesh.ppermute`.
+An axis argument may also name several axes (``("pod", "data")``, the
+flattened data-parallel axis, row-major as ``axis_index`` counts it).
+
+With ``dp_servers`` the data-parallel pair also gets the groups that a
+two-level reduction over ``s`` servers of ``dp / s`` ranks needs, in fabric
+order (server-major, as ``ClusterSpec.build`` numbers its nodes): the
+``s`` server groups of consecutive dp indices and the rail groups of the
+ranks with one index inside their server (``compression.
+hierarchical_psum_flat``).
+
+Differentiable exchanges.  Training differentiates through the
+collectives, so each one that moves floating data is also an
+``autograd.Function`` whose backward is its transpose over the same
+members: the tiled :func:`all_to_all` is its own; :meth:`RankMesh.
+all_gather`'s is a reduce-scatter (sum); :meth:`RankMesh.ppermute`'s the
+inverse permutation; :func:`reduce_scatter`'s an all-gather.  These are the
+transposes of ``lax``'s collectives when every rank's cotangent is its own
+(the gradient of the sum of the ranks' objectives).  Over the model axis,
+where every rank computes the same loss, the two Megatron operators say
+how a value crosses between replicated and partial: :func:`reduce_model`
+(*g*: ``all_reduce`` forward, identity backward) ends a row-parallel
+product, and :func:`copy_to_model` (*f*: identity forward, ``all_reduce``
+backward) starts a column-parallel one on an input whole on every model
+rank.  ``torch.distributed.nn.functional.all_reduce`` sums the cotangents
+in its backward, so a loss that every model rank computes alike would get
+M times its gradient there.  Without ``requires_grad`` (serving) each call
+runs the plain collective and records nothing.
 """
 
 from __future__ import annotations
@@ -40,23 +67,16 @@ GROUPS = (("pod",), ("data",), ("model",), ("pod", "data"))
 # renamed it)
 _ALL_GATHER = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
+# and the summing reduce-scatter (``reduce_scatter_tensor`` before)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
 
 
 def split_tp_members(m: int) -> list[tuple[int, ...]]:
     """The member coordinates of every split-TP subgroup of a model axis of
     ``m``: for each domain count ``nd`` with ``1 < nd < m`` dividing ``m``,
     the domains (blocks of ``h = m / nd``) and the cross-domain groups."""
-    out: list[tuple[int, ...]] = []
-    for nd in range(2, m):
-        if m % nd:
-            continue
-        h = m // nd
-        for members in ([tuple(range(i * h, (i + 1) * h)) for i in range(nd)]
-                        + [tuple(dd * h + i for dd in range(nd))
-                           for i in range(h)]):
-            if len(members) > 1 and members not in out:
-                out.append(members)
-    return out
+    return two_level_members(m, range(2, m))
 
 
 class RankMesh:
@@ -65,7 +85,7 @@ class RankMesh:
     collectives (``dist.new_group``'s own default is the backend's, which
     may be far longer than the default group's)."""
 
-    def __init__(self, shape, *, timeout=None):
+    def __init__(self, shape, *, timeout=None, dp_servers=()):
         self.shape = dict(zip(AXES, (int(s) for s in shape), strict=True))
         size = math.prod(self.shape.values())
         world = dist.get_world_size() if dist.is_initialized() else 1
@@ -101,6 +121,15 @@ class RankMesh:
                 group = dist.new_group(ranks, timeout=timeout)
                 if self.rank in ranks:
                     self._groups[("model", members)] = group
+        dp = ("pod", "data")
+        self.dp_servers = tuple(sorted({int(s) for s in dp_servers}))
+        for members in two_level_members(self.axis_size(*dp),
+                                         self.dp_servers):
+            for m in range(self.shape["model"]):
+                ranks = [i * self.shape["model"] + m for i in members]
+                group = dist.new_group(ranks, timeout=timeout)
+                if self.rank in ranks:
+                    self._groups[(dp, members)] = group
 
     def axis_size(self, *names: str) -> int:
         return math.prod(self.shape[a] for a in names)
@@ -118,59 +147,291 @@ class RankMesh:
             raise ValueError(f"axis {names} has one rank: no group")
         return self._groups[tuple(names)]
 
-    def subgroup(self, axis: str, members) -> object:
-        """The group of the ranks at coordinates ``members`` of ``axis``
-        (this rank's among them), the others fixed at this rank's: the whole
-        axis's group, or a split-TP subgroup of the model axis."""
+    def subgroup(self, axis, members) -> object:
+        """The group of the ranks at coordinates ``members`` of ``axis`` (a
+        name or a tuple of names; this rank's coordinate among them), the
+        others fixed at this rank's: the whole axis's group, a split-TP
+        subgroup of the model axis, or a server or rail group of the
+        data-parallel pair."""
+        names = axis_names(axis)
         members = tuple(members)
-        if self.coords[axis] not in members:
-            raise ValueError(f"rank at {axis} {self.coords[axis]} is not in "
-                             f"{members}")
-        if members == tuple(range(self.shape[axis])):
-            return self.group(axis)
-        return self._groups[(axis, members)]
+        if self.axis_index(*names) not in members:
+            raise ValueError(f"rank at {names} {self.axis_index(*names)} is "
+                             f"not in {members}")
+        if members == tuple(range(self.axis_size(*names))):
+            return self.group(*names)
+        key = (names[0] if len(names) == 1 else names, members)
+        if key not in self._groups:
+            raise ValueError(f"no group of {names} members {members} (a "
+                             f"server count the mesh was not built with: "
+                             f"dp_servers={self.dp_servers})")
+        return self._groups[key]
 
-    def all_gather(self, x: torch.Tensor, axis: str,
+    def all_gather(self, x: torch.Tensor, axis,
                    members=None) -> torch.Tensor:
         """``lax.all_gather(x, axis, axis_index_groups=...)``: ``x`` of every
         rank of ``members`` (default: the whole axis), stacked in member
-        order: ``[len(members), *x.shape]``."""
-        members = tuple(range(self.shape[axis]) if members is None
+        order: ``[len(members), *x.shape]``.  Its backward sums each
+        member's cotangent of this rank's block (a reduce-scatter)."""
+        names = axis_names(axis)
+        members = tuple(range(self.axis_size(*names)) if members is None
                         else members)
         if len(members) == 1:
             return x[None]
-        flat = x.contiguous().reshape(-1)
-        out = torch.empty(len(members) * flat.numel(), dtype=x.dtype,
-                          device=x.device)
-        _ALL_GATHER(out, flat, group=self.subgroup(axis, members))
-        return out.view(len(members), *x.shape)
+        group = self.subgroup(names, members)
+        if x.requires_grad:
+            return _AllGather.apply(x, group, len(members))
+        return _all_gather(x, group, len(members))
 
-    def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
+    def ppermute(self, x: torch.Tensor, axis, perm) -> torch.Tensor:
         """``lax.ppermute(x, axis, perm)``: ``perm`` is ``(source,
         destination)`` pairs of the axis's coordinates, each coordinate at
         most once on each side; a rank that no pair names as destination
         gets zeros.  One ``all_to_all_single`` over the axis in which each
         rank sends ``x`` to at most one rank and receives at most one
-        rank's, a single nonzero split each way."""
-        n = self.shape[axis]
+        rank's, a single nonzero split each way.  Its backward is the
+        inverse permutation of the cotangents."""
+        names = axis_names(axis)
+        n = self.axis_size(*names)
         dst = dict(perm)
         src = {d: s for s, d in perm}
         if (len(dst) != len(perm) or len(src) != len(perm)
                 or not set(dst) | set(src) <= set(range(n))):
             raise ValueError(f"{perm} is not a permutation of {n} ranks")
-        me = self.coords[axis]
-        x = x.contiguous()
-        rows = x.shape[0]
-        send, recv = [0] * n, [0] * n
-        if me in dst:
-            send[dst[me]] = rows
-        if me in src:
-            recv[src[me]] = rows
-        out = torch.empty_like(x) if me in src else torch.zeros_like(x)
-        dist.all_to_all_single(out if me in src else out[:0],
-                               x if me in dst else x[:0], recv, send,
-                               group=self.group(axis))
-        return out
+        args = (self.group(*names), n, self.axis_index(*names), dst, src)
+        if x.requires_grad:
+            return _PPermute.apply(x, *args)
+        return _ppermute(x, *args)
+
+
+def axis_names(axis) -> tuple[str, ...]:
+    """An axis argument as a tuple of axis names."""
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def two_level_members(n: int, counts) -> list[tuple[int, ...]]:
+    """The member coordinates of the groups of an axis of ``n`` split into
+    two levels, for each count ``s`` of ``counts`` that does so (``1 < s <
+    n`` dividing ``n``): ``s`` blocks of ``p = n / s`` consecutive
+    coordinates (split-TP domains, servers), then ``p`` groups of the
+    coordinates with one position in their block (cross-domain groups,
+    rails)."""
+    out: list[tuple[int, ...]] = []
+    for s in counts:
+        if not 1 < s < n or n % s:
+            continue
+        p = n // s
+        for members in ([tuple(range(sv * p, (sv + 1) * p))
+                         for sv in range(s)]
+                        + [tuple(sv * p + i for sv in range(s))
+                           for i in range(p)]):
+            if len(members) > 1 and members not in out:
+                out.append(members)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the collectives and their transposes
+# ---------------------------------------------------------------------------
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    flat = x.contiguous().reshape(-1)
+    out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
+    _ALL_GATHER(out, flat, group=group)
+    return out.view(n, *x.shape)
+
+
+def _reduce_scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """[n, *rest] summed over the group, this member's block: [*rest]."""
+    x = x.contiguous()
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    _REDUCE_SCATTER(out.view(-1), x.view(-1), group=group)
+    return out
+
+
+def _ppermute(x, group, n, me, dst, src) -> torch.Tensor:
+    x = x.contiguous()
+    rows = x.shape[0]
+    send, recv = [0] * n, [0] * n
+    if me in dst:
+        send[dst[me]] = rows
+    if me in src:
+        recv[src[me]] = rows
+    out = torch.empty_like(x) if me in src else torch.zeros_like(x)
+    dist.all_to_all_single(out if me in src else out[:0],
+                           x if me in dst else x[:0], recv, send,
+                           group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _all_gather(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.n), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _reduce_scatter(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.n), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, me, dst, src):
+        ctx.args = (group, n, me, src, dst)      # the inverse permutation
+        return _ppermute(x, group, n, me, dst, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_ppermute(g, *ctx.args),) + (None,) * 5
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim):
+        ctx.args = (group, n, dim)
+        part = x.shape[dim] // n
+        return x.narrow(dim, index * part, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, dim = ctx.args
+        parts = _all_gather(g.movedim(dim, 0), group, n)  # [n, part, ...]
+        return (parts.flatten(0, 1).movedim(0, dim),) + (None,) * 4
+
+
+class _Mean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / ctx.n, None, None
+
+
+class _ReduceModel(torch.autograd.Function):
+    """*g*: the sum over the group forward (in place), the identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        dist.all_reduce(x, group=group)
+        ctx.mark_dirty(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """*f*: the identity forward, the sum over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``lax.all_to_all(x, split_axis=0, concat_axis=0, tiled=True)`` over
+    ``group``: the R equal blocks of dim 0 go one to each group rank, and
+    the blocks received are stacked in group-rank order.  Its own
+    transpose."""
+    if x.requires_grad:
+        return _AllToAll.apply(x, group)
+    return _all_to_all(x, group)
+
+
+def reduce_scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """x [n, *rest] summed over the ``n`` ranks of ``group``, this rank's
+    block [*rest] (``lax.psum_scatter(..., tiled=False)``); backward: the
+    all-gather of the cotangents."""
+    if x.requires_grad:
+        return _ReduceScatter.apply(x, group, n)
+    return _reduce_scatter(x, group, n)
+
+
+def split(x: torch.Tensor, group, n: int, index: int,
+          dim: int = 1) -> torch.Tensor:
+    """This rank's block ``index`` of ``n`` along ``dim`` of a tensor that
+    every rank of ``group`` holds alike; backward: the all-gather of the
+    blocks' cotangents, so the whole tensor's cotangent is again the same
+    on every rank."""
+    if x.requires_grad:
+        return _Split.apply(x, group, n, index, dim)
+    part = x.shape[dim] // n
+    return x.narrow(dim, index * part, part)
+
+
+def mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """``lax.pmean(x, axis)`` over the ``n`` ranks of ``group``; backward:
+    the mean of the cotangents (its transpose when each rank's cotangent is
+    its own objective's, as over data-parallel ranks)."""
+    if x.requires_grad:
+        return _Mean.apply(x, group, n)
+    out = x.clone()
+    dist.all_reduce(out, group=group)
+    return out / n
+
+
+def reduce_model(x: torch.Tensor, group) -> torch.Tensor:
+    """*g*: ``x`` summed over ``group``, in place; identity backward (the
+    sum's value is the same on every rank, and so is its cotangent)."""
+    if x.requires_grad:
+        return _ReduceModel.apply(x, group)
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """*f*: ``x`` as it is; backward: the cotangents summed over
+    ``group`` (each rank's holds the part its own shard of the weights
+    produced)."""
+    if x.requires_grad:
+        return _CopyToModel.apply(x, group)
+    return x
 
 
 def _unravel(rank: int, dims) -> tuple[int, ...]:

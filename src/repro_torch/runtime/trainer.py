@@ -1,4 +1,4 @@
-"""Fault-tolerant training loop on one rank.
+"""Fault-tolerant training loop, on one rank or over a rank mesh.
 
 Port of ``src/repro/runtime/trainer.py``.  The behaviours are the
 reference's:
@@ -26,6 +26,18 @@ from a ``torch.Generator`` on the model's device.  A step's wall is taken
 after its metrics are read to the host, so it is the step's device time
 too.  At the end of a run the final state is saved unless the periodic
 save has just written that step (the reference writes it twice).
+
+Over ranks (a model built with a ``pctx``) each rank's loss is its own
+rows' mean, and :class:`GradSync` is the ``grad_sync`` hook: the reference's
+closure over ``planned_psum``.  The gradients of the leaves replicated over
+the data-parallel ranks (everything but the experts) are averaged over
+them by the scheme of the planner's ``grad_sync`` verdict; an expert's
+gradient has come back summed over the data-parallel ranks whose rows it
+served (the exchanges' backward), so it is divided by their count instead.
+The clip uses the global gradient's norm, each expert shard and each
+model-axis block counted once, so every rank clips by the same factor and
+the replicas stay bit-identical.  Checkpoints hold every leaf at its
+global shape (:class:`~repro_torch.checkpoint.store.ShardLayout`).
 """
 
 from __future__ import annotations
@@ -36,10 +48,12 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from repro_torch.checkpoint.store import CheckpointManager
-from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm_
+from repro_torch.checkpoint.store import CheckpointManager, ShardLayout
+from repro_torch.optim.optimizers import (Optimizer, _slices,
+                                          clip_by_global_norm_, global_norm)
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -76,6 +90,121 @@ class TrainState:
                 "step": torch.tensor(self.step, dtype=torch.int64)}
 
 
+class GradSync:
+    """The planner-routed gradient reduction of training over ranks: called
+    on the gradient dict of one rank (in place, before clipping).
+
+    ``decision``: the ``grad_sync`` verdict (``ParallelContext.
+    grad_sync_plan``); its ``reduce_scheme`` runs through ``planned_psum``
+    over the data-parallel axes, a leaf at a time in fp32 slices of at most
+    ``CHUNK`` elements; None runs the flat ring.
+    :meth:`global_norm` is the global gradient's norm, :meth:`metrics` the
+    losses' means over the data-parallel ranks."""
+
+    def __init__(self, pctx, params: nn.Module, *, decision=None):
+        from repro_torch.models import moe as M
+        from repro_torch.models.transformer import is_expert_weight
+        self.pctx, self.mesh = pctx, pctx.mesh
+        self.decision = decision
+        self.scheme = (decision.shard_map_kwargs.get("reduce_scheme", "ring")
+                       if decision is not None else "ring")
+        named = dict(params.named_parameters())
+        self.expert = {n for n in named if is_expert_weight(n)}
+        self.split = {f"{prefix}.{name}".lstrip(".")
+                      for prefix, sub in params.named_modules()
+                      for name in getattr(sub, "shards", {})} - self.expert
+        # experts replicated over the pods when EP spans the data axis alone
+        experts = M.num_experts(params)
+        self.expert_pods = bool(experts) and pctx.num_pods > 1 and \
+            pctx.pod_axis not in M.expert_axes(pctx, experts)
+        self.bytes = 4 * sum(p.numel() for n, p in named.items()
+                             if n not in self.expert)
+
+    def __call__(self, grads: dict) -> dict:
+        from repro_torch.core.collectives import planned_psum
+        pctx, dp = self.pctx, self.pctx.dp_size
+        with torch.no_grad():
+            for name, g in grads.items():
+                if name in self.expert:
+                    if self.expert_pods:
+                        dist.all_reduce(g, group=self.mesh.group("pod"))
+                    g.div_(dp)
+                    continue
+                if dp == 1:
+                    continue
+                for part in _slices(g):
+                    part.copy_(planned_psum(part.float(), self.mesh,
+                                            pctx.dp_axes,
+                                            num_servers=pctx.num_servers,
+                                            reduce_scheme=self.scheme))
+        return grads
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """The norm of the global gradient, the same bits on every rank:
+        each rank adds the squares of the parts it is the first holder of
+        (the replicated leaves on rank 0, the model-axis blocks on the
+        first data-parallel rank, each expert shard on its first pod), and
+        one ``all_reduce`` over the world sums them."""
+        pctx = self.pctx
+        first_dp = pctx.dp_index == 0
+        first_pod = not self.expert_pods or self.mesh.coords["pod"] == 0
+        parts = {}
+        for name, g in grads.items():
+            if name in self.expert:
+                mine = first_pod
+            elif name in self.split:
+                mine = first_dp
+            else:
+                mine = self.mesh.rank == 0
+            if mine:
+                parts[name] = g
+        total = (global_norm(parts) ** 2 if parts else
+                 torch.zeros((), dtype=torch.float32,
+                             device=next(iter(grads.values())).device))
+        dist.all_reduce(total)
+        return torch.sqrt(total)
+
+    def metrics(self, metrics: dict) -> dict:
+        """Each metric's mean over the data-parallel ranks (a rank's loss
+        is its own rows' mean)."""
+        if self.pctx.dp_size == 1:
+            return metrics
+        keys = sorted(metrics)
+        vals = torch.stack([metrics[k].detach().float() for k in keys])
+        dist.all_reduce(vals, group=self.mesh.group(*self.pctx.dp_axes))
+        vals = vals / self.pctx.dp_size
+        return dict(zip(keys, vals))
+
+
+class _Marks:
+    """Points in a step's stream of work: CUDA events on the card, the
+    host clock on the CPU; :meth:`ms` gives the milliseconds between
+    consecutive marks (on the card it waits for the last)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+        self.mark()
+
+    def mark(self) -> None:
+        if self.cuda:
+            evt = torch.cuda.Event(enable_timing=True)
+            evt.record()
+            self.marks.append(evt)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self) -> list:
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks,
+                                                       self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+STEP_PARTS = ("fwd_bwd_ms", "sync_ms", "clip_ms", "update_ms")
+
+
 def make_train_step(model, optimizer: Optimizer, *, grad_accum: int = 1,
                     max_grad_norm: float = 1.0,
                     grad_sync: Optional[Callable[[dict], dict]] = None):
@@ -85,10 +214,16 @@ def make_train_step(model, optimizer: Optimizer, *, grad_accum: int = 1,
     the micro-batches are summed and divided by ``grad_accum``, as the
     reference's scan does.  ``grad_sync``: a callable on the gradient dict
     applied before clipping (the planner-routed gradient reduction of
-    training over ranks; None on one rank)."""
+    training over ranks, a :class:`GradSync`; None on one rank); when it
+    has ``global_norm`` the clip takes that norm, and its ``metrics``
+    averages the reported losses.  The metrics also hold the milliseconds
+    of the forward and backward, the gradient sync, the clip and the update
+    (``STEP_PARTS``; CUDA events on the card, which cost next to nothing:
+    the step waits for its metrics on the host anyway)."""
 
     def step_fn(state: TrainState, batch):
         named = state.named()
+        marks = _Marks(next(iter(named.values())).device)
         for p in named.values():
             p.grad = None
         if grad_accum == 1:
@@ -111,17 +246,27 @@ def make_train_step(model, optimizer: Optimizer, *, grad_accum: int = 1,
             grads = {n: g / grad_accum for n, g in gsum.items()}
             loss = lsum / grad_accum
             metrics = {}
+        marks.mark()
         if grad_sync is not None:
             grads = grad_sync(grads)
-        gnorm = clip_by_global_norm_(grads, max_grad_norm)
+        marks.mark()
+        norm_fn = getattr(grad_sync, "global_norm", None)
+        gnorm = clip_by_global_norm_(
+            grads, max_grad_norm, norm_fn(grads) if norm_fn else None)
+        marks.mark()
         with torch.no_grad():
             optimizer.apply(grads, state.opt_state, named, state.step)
         for p in named.values():
             p.grad = None
         del grads
         state.step += 1
-        out = {"loss": loss.detach(), "grad_norm": gnorm,
+        out = {"loss": loss.detach(),
                **{k: v.detach() for k, v in metrics.items()}}
+        if hasattr(grad_sync, "metrics"):
+            out = grad_sync.metrics(out)
+        out["grad_norm"] = gnorm
+        marks.mark()
+        out.update(zip(STEP_PARTS, marks.ms()))
         return state, out
 
     return step_fn
@@ -172,7 +317,9 @@ class Trainer:
     replays exactly).  ``params``: the parameter module to train (its
     floating parameters are made trainable); without it the model draws
     one from ``generator`` (a ``torch.Generator`` of the model's device;
-    seed 0 when None)."""
+    seed 0 when None).  Over ranks (a model with a ``pctx``) every rank
+    runs the same loop on its own shard, its checkpoints hold global
+    leaves, and ``train_step`` is a step with a :class:`GradSync`."""
 
     def __init__(self, model, optimizer: Optimizer, make_batch: Callable,
                  cfg: TrainerConfig, *, params: nn.Module | None = None,
@@ -190,9 +337,6 @@ class Trainer:
         # called after every completed step with (step, metrics row)
         self.step_hook = step_hook
         self.ledger = StragglerLedger()
-        self.ckpt = (CheckpointManager(cfg.checkpoint_dir,
-                                       keep_last_k=cfg.keep_last_k)
-                     if cfg.checkpoint_dir else None)
         # optional hot plan re-bind: a PlanBinder whose artifact IS the step
         # function; a re-bind staged mid-run swaps it in at a step boundary
         self.plan_binder = plan_binder
@@ -207,6 +351,11 @@ class Trainer:
             params = model.init(generator)
         named = trainable(params)
         self.state = TrainState(params, optimizer.init(named), 0)
+        pctx = getattr(model, "pctx", None)
+        self.ckpt = (CheckpointManager(
+            cfg.checkpoint_dir, keep_last_k=cfg.keep_last_k,
+            layout=None if pctx is None else ShardLayout(params, pctx))
+            if cfg.checkpoint_dir else None)
         self._maybe_resume()
 
     # -- checkpoint/restart ----------------------------------------------------

@@ -518,7 +518,7 @@ def test_device_rule():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "dbrx_132b", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         train.main(["--arch", "dbrx_132b", "--smoke", "--device", "cpu",
                     "--multi-pod"])
 
