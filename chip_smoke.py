@@ -24,8 +24,10 @@ Phases; any failure raises and the script exits non-zero:
    weights in fp32 on the CPU (plain versions): DBRX-shaped with every
    expert active and routed top-2 of 8 with overflow, Kimi-shaped (head_dim
    112 over one kv head, a dense first layer, 24 experts top-8, a shared
-   expert), then Zamba2-shaped (attention at head_dim 112) and
-   RWKV6-shaped;
+   expert), Gemma2-shaped (head_dim 256, post-norms, both softcaps, the
+   32-token window on alternate layers, an 80-token prompt) and
+   Qwen2-VL-shaped (M-RoPE, the embeddings input), then Zamba2-shaped
+   (attention at head_dim 112) and RWKV6-shaped;
 5. serve: through ``ServeEngine.generate``, random seeded weights, 4
    prompts x 512 tokens, 32 new tokens greedy, one model at a time, each
    freed before the next: DBRX-132B at full width with its depth cut to 4
@@ -106,12 +108,30 @@ Phases; any failure raises and the script exits non-zero:
    gradient mean, the clip and the update.  Gates: finite losses, a
    falling DBRX loss, every replicated leaf bit-identical on every rank,
    the same grad norm on every rank, exact launch counts, the kernels
-   against their plain versions.
+   against their plain versions;
+12. the decoder-only secondary families at full width and full depth,
+   through ``ServeEngine.generate`` as in phase 5, random seeded weights,
+   one at a time: Gemma2-9B (2 prompts x 8,160 tokens, so its 4,096-token
+   windows bite and the served length reaches 8,192), StarCoder2-15B,
+   Minitron-8B and Qwen2-VL-2B's backbone (4 x 512 tokens, Qwen2-VL's
+   through the stub frontend), 32 new tokens each: decode graphed and an
+   eager loop with equal greedy tokens, exact launch counts (42 attention
+   launches a Gemma2 prefill), walls and peak memory; then Gemma2's loss
+   with trainable parameters must raise ``NotImplementedError`` on the
+   card (no attention backward at head_dim 256).
 
 Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
 2 x 2 ranks and of one Kimi-K2 prefill layer at 2 x 8 (capacity factors
-2 and 1.25), and attention at Kimi's rank shape (GQA groups of 8) and at
-the tensor-parallel rank shapes of phase 8.
+2 and 1.25), and attention at Kimi's rank shape (GQA groups of 8), at
+the tensor-parallel rank shapes of phase 8, and at head_dim 256: Gemma2's
+served prefill (q [2, 16, 8160, 256] over 8 kv heads, softcap 50, window
+4,096 and global, with ``flex_attention`` under ``torch.compile`` as the
+library call, the same cap and mask, and ``scaled_dot_product_attention``
+without a softcap as a yardstick) and its edges (one q row, a ragged q
+length, a window under one kv tile).  At every head dim it holds the
+softcap where it bites (q x 10 under a cap of 50, or a cap of 3), each
+case first showing that the plain version without the cap lies outside
+the tolerance.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -140,7 +160,11 @@ runs phase 10 alone after them;
 
   python3 chip_smoke.py --train-ranks-only
 
-runs phase 11 alone after them (on four cards over nccl).
+runs phase 11 alone after them (on four cards over nccl);
+
+  python3 chip_smoke.py --families-only
+
+runs phase 12 alone after them.
 """
 
 from __future__ import annotations
@@ -161,6 +185,11 @@ BF16_FLOP_PER_S = 989e12
 
 # (arch, depth cut or None for the published depth), served in this order
 SERVES = (("dbrx_132b", 4), ("zamba2_7b", None), ("rwkv6_7b", None))
+# phase 12: (arch, prompts, prompt tokens, new tokens) at full width and
+# depth; Gemma2's 2 x 8,160 prompts reach its 8,192 positions with the new
+# tokens, so its 4,096-token windows bite
+FAMILIES = (("gemma2_9b", 2, 8160, 32), ("starcoder2_15b", 4, 512, 32),
+            ("minitron_8b", 4, 512, 32), ("qwen2_vl_2b", 4, 512, 32))
 KIMI_H = 7168                           # Kimi-K2's d_model
 RANKS = (2, 2)                          # phase 6: pods x ep ranks
 KIMI_RANKS = (2, 8)                     # phase 7: pods x ep ranks
@@ -187,6 +216,10 @@ CAL_NEW = 8
 RANKS_CONTINUOUS = dict(requests=12, prompt_len=512, max_new=8, rate=1e5,
                         capacity=8)
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 kernel vs fp32 plain
+# Gemma2's served prefill attention (phases 3 and 12): 2 prompts of 8,160
+# tokens, 16 q heads over 8 kv heads of 256; its softcap and local window
+GEMMA_ATTN = (2, 16, 8, 8160, 256)
+GEMMA_SOFTCAP, GEMMA_WINDOW = 50.0, 4096
 # bf16 scans vs the fp32 per-step recurrence: the reference kernel tests'
 # bf16 tolerance (tests/test_kernels.py)
 SCAN_TOL = dict(atol=5e-2, rtol=5e-2)
@@ -521,10 +554,11 @@ def kernel_phase() -> dict:
 
     # attention: the DBRX prefill shape in the main path's layout (views of
     # [B, S, heads, D] buffers), then small shapes over the mask set
-    def attn_inputs(b, hq, g, s, t, d, seed):
+    def attn_inputs(b, hq, g, s, t, d, seed, q_scale=1.0):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed)
-        q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(bf16)
+        q = (torch.randn((b, s, hq, d), generator=gen, device="cuda")
+             * q_scale).to(bf16)
         k = torch.randn((b, t, g, d), generator=gen, device="cuda").to(bf16)
         v = torch.randn((b, t, g, d), generator=gen, device="cuda").to(bf16)
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -539,6 +573,12 @@ def kernel_phase() -> dict:
         # at 2 prompts a data-parallel rank
         ("mistral-tp4", (4, 8, 2, 512, 512, 128), True, None, None),
         ("dbrx-tp2", (2, 24, 4, 512, 512, 128), True, None, None),
+        # phase 12's prefills at head_dim 128 (4 prompts of 512 tokens):
+        # StarCoder2 (48 heads over 4 kv), Minitron (32 over 8), Qwen2-VL
+        # (12 over 2)
+        ("starcoder2", (4, 48, 4, 512, 512, 128), True, None, None),
+        ("minitron", (4, 32, 8, 512, 512, 128), True, None, None),
+        ("qwen2-vl", (4, 12, 2, 512, 512, 128), True, None, None),
         ("window", (2, 4, 2, 100, 100, 128), True, 32, None),
         ("softcap", (2, 4, 2, 64, 64, 64), True, None, 30.0),
         ("cross", (2, 4, 1, 40, 72, 128), False, None, None),
@@ -552,7 +592,8 @@ def kernel_phase() -> dict:
         ("window-long", (1, 4, 2, 700, 700, 128), True, 150, None),
     ]
     attn_err = 0.0
-    rank_shapes = {}
+    rank_shapes, family_shapes = {}, {}
+    families = ("starcoder2", "minitron", "qwen2-vl")
     for i, (label, shape, causal, window, softcap) in enumerate(attn_cases):
         q, k, v = attn_inputs(*shape, seed=10 + i)
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -566,7 +607,8 @@ def kernel_phase() -> dict:
               f"{'within' if ok else 'OUTSIDE'} atol=rtol=2e-2")
         if not ok:
             failures.append(f"flash_attention {label}")
-        if label in ("dbrx", "zamba2", "kimi", "mistral-tp4", "dbrx-tp2"):
+        if label in ("dbrx", "zamba2", "kimi", "mistral-tp4",
+                     "dbrx-tp2") + families:
             b, hq, g, sq, t, d = shape
             ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw))
             plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
@@ -589,9 +631,23 @@ def kernel_phase() -> dict:
                 fa_ms, fa_plain, fa_lib, fa_bound, fa_by = \
                     ms, plain, lib, bnd, by
             elif label != "zamba2":
-                rank_shapes[label] = dict(
+                kept = family_shapes if label in families else rank_shapes
+                kept[label] = dict(
                     shape=list(shape), ms=ms, plain_ms=plain, bound_ms=bnd,
                     bound_by=by, library_ms=lib, max_abs_err=err)
+    # the softcap where it bites, at every head dim: scores several times
+    # the cap (q x 10 under Gemma2's 50) or a cap near the scores' own size
+    cap_cases = [  # b, heads, kv heads, Sq, Sk, D, window, softcap, q scale
+        ("cap-bites-64", (2, 4, 2, 200, 200, 64), None, 3.0, 1.0),
+        ("cap-bites-112", (2, 8, 2, 300, 300, 112), None, 50.0, 10.0),
+        ("cap-bites-128", (4, 48, 8, 512, 512, 128), None, 50.0, 10.0),
+        ("cap-bites-128-window", (2, 8, 2, 300, 300, 128), 32, 3.0, 1.0),
+    ]
+    for i, (label, shape, window, softcap, q_scale) in enumerate(cap_cases):
+        q, k, v = attn_inputs(*shape, seed=40 + i, q_scale=q_scale)
+        check_softcap_bites(label, q, k, v, dict(
+            causal=True, window=window, softcap=softcap), failures)
+    head256 = attention_256(attn_inputs, failures)
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
@@ -614,9 +670,193 @@ def kernel_phase() -> dict:
             replaces="src/repro/kernels/flash_attention.py:112",
             max_abs_err=attn_err, ms=fa_ms, plain_ms=fa_plain,
             bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib,
-            rank_shapes=rank_shapes),
+            rank_shapes=rank_shapes, family_shapes=family_shapes,
+            head_dim_256=head256),
     }
     return rows
+
+
+def causal_pairs(sq: int, window) -> int:
+    """(q, k) pairs a causal mask with an optional window lets attend, for
+    equal q and kv lengths: what the products of such attention need."""
+    if window is None or window >= sq:
+        return sq * (sq + 1) // 2
+    return window * (window + 1) // 2 + (sq - window) * window
+
+
+def check_softcap_bites(label: str, q, k, v, kw: dict,
+                        failures: list) -> float:
+    """The kernel against its plain version where the softcap bites: the
+    plain version without the cap must lie outside the tolerance of the
+    capped one (else the case could not tell a kernel that drops or
+    misplaces the cap), then the kernel must lie within it.  Returns the
+    kernel's max |err|."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    qf, kf, vf = q.float(), k.float(), v.float()
+    exp = flash_attention_plain(qf, kf, vf, **kw)
+    uncapped = flash_attention_plain(qf, kf, vf, **{**kw, "softcap": None})
+    bites = not torch.allclose(uncapped, exp, **ATTN_TOL)
+    cap_moves = (uncapped - exp).abs().max().item()
+    del uncapped, qf, kf, vf
+    got = ops.flash_attention(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    err = (got - exp).abs().max().item()
+    ok = torch.allclose(got, exp, **ATTN_TOL)
+    print(f"  flash_attention {label} {tuple(q.shape)} over {k.shape[1]} kv "
+          f"heads, max|q| {q.abs().max().item():.1f}, {kw}: the cap moves "
+          f"the plain output by {cap_moves:.3e} "
+          f"({'outside' if bites else 'WITHIN'} atol=rtol=2e-2); kernel "
+          f"max|err| {err:.3e} {'within' if ok else 'OUTSIDE'}")
+    if not bites:
+        failures.append(f"flash_attention {label}: the softcap does not bite")
+    if not ok:
+        failures.append(f"flash_attention {label}")
+    return err
+
+
+def flex_softcap(window, softcap: float, s: int):
+    """The library call that computes attention with a logit softcap:
+    ``flex_attention`` under ``torch.compile``, its score_mod the cap and
+    its block mask causal (within ``window``), for equal q and kv lengths
+    ``s``.  Timed as the library column only; the port never calls it.
+    Inductor's and Triton's caches go under the checkout's ``build/``."""
+    import os
+
+    import torch
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def cap(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def causal(b, h, qi, ki):
+        return qi >= ki
+
+    def windowed(b, h, qi, ki):
+        return (qi >= ki) & (qi - ki < window)
+
+    mask = create_block_mask(causal if window is None else windowed,
+                             None, None, s, s, device="cuda")
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda q, k, v: flex(q, k, v, score_mod=cap, block_mask=mask,
+                                enable_gqa=True)
+
+
+def attention_256(attn_inputs, failures: list) -> dict:
+    """Attention at head_dim 256 (Gemma2): its served prefill shape, q
+    [2, 16, 8160, 256] over 8 kv heads, softcap 50, with the local layers'
+    window of 4,096 and global, against the plain version, timed (device,
+    host issue, plain, bound, and ``flex_attention`` with the same cap and
+    mask as the library call); ``scaled_dot_product_attention`` without a
+    softcap, causal and global, is printed as a yardstick, not as the same
+    function.  The same shape with q x 10, where the cap bites.  Then edge
+    cases at 256: one q row, a q length off the tiles, a window smaller
+    than one kv tile, and the cap biting on a small shape.  Returns the
+    kernels line's ``head_dim_256`` entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    b, hq, g, s, d = GEMMA_ATTN
+    q, k, v = attn_inputs(b, hq, g, s, s, d, seed=60)
+    out = {"shape": [b, hq, g, s, s, d], "softcap": GEMMA_SOFTCAP,
+           "library": "flex_attention (torch.compile), score_mod "
+                      "c * tanh(s / c), causal block mask"}
+    for window in (GEMMA_WINDOW, None):
+        kw = dict(causal=True, window=window, softcap=GEMMA_SOFTCAP)
+        got = ops.flash_attention(q, k, v, **kw).float()
+        exp = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        err = (got - exp).abs().max().item()
+        ok = torch.allclose(got, exp, **ATTN_TOL)
+        del got
+        flex = flex_softcap(window, GEMMA_SOFTCAP, s)
+        lib_out = flex(q, k, v).float()
+        lib_err = (lib_out - exp).abs().max().item()
+        lib_ok = torch.allclose(lib_out, exp, **ATTN_TOL)
+        del lib_out, exp
+        ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        lib = device_ms(lambda: flex(q, k, v))
+        plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                        iters=2, warmup=1)
+        issue = host_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        nbytes = 2 * (2 * b * hq * s * d + 2 * b * g * s * d)
+        flops = 4 * b * hq * d * causal_pairs(s, window)
+        bnd, by = bound_ms(nbytes, flops)
+        tag = "global" if window is None else f"window {window}"
+        print(f"  flash_attention gemma2 {tag} [{b}, {hq}, {s}, {d}] over "
+              f"{g} kv heads, softcap {GEMMA_SOFTCAP}: max|err| {err:.3e} "
+              f"{'within' if ok else 'OUTSIDE'} atol=rtol=2e-2; time "
+              f"(device, CUDA graph of 20 calls): kernel {ms:.4f} ms, "
+              f"flex_attention {lib:.4f} ms (max|err| {lib_err:.3e} "
+              f"{'within' if lib_ok else 'OUTSIDE'}), plain {plain:.4f} ms, "
+              f"bound {bnd:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP), {flops / ms / 1e9:.1f} TFLOP/s; "
+              f"kernel/flex {ms / lib:.2f}; host issue {issue_text(issue)}")
+        if not ok:
+            failures.append(f"flash_attention gemma2 {tag}")
+        if not lib_ok:
+            failures.append(f"flex_attention gemma2 {tag}: not the plain "
+                            f"version's function")
+        key = "global" if window is None else "window"
+        out[key] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        library_ms=lib, max_abs_err=err, host_ms=issue[0])
+    sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    out["sdpa_yardstick_ms"] = sdpa
+    print(f"  yardstick, not the same function: scaled_dot_product_attention "
+          f"at the same shape, causal, global, no softcap: {sdpa:.4f} ms "
+          f"(the kernel, global with softcap: {out['global']['ms']:.4f})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = attn_inputs(b, hq, g, s, s, d, seed=61, q_scale=10.0)
+    out["cap_bites_max_abs_err"] = max(
+        check_softcap_bites(f"gemma2 q x 10 {tag}", q, k, v, dict(
+            causal=True, window=window, softcap=GEMMA_SOFTCAP), failures)
+        for window, tag in ((GEMMA_WINDOW, "window 4096"), (None, "global")))
+    del q, k, v
+    torch.cuda.empty_cache()
+    edges = [  # b, heads, kv heads, Sq, Sk, causal, window
+        ("256-one-row", (1, 16, 8, 1, 1), True, None),
+        ("256-ragged", (2, 16, 8, 200, 200), True, GEMMA_WINDOW),
+        ("256-window-under-tile", (2, 16, 8, 300, 300), True, 20),
+        ("256-cross", (1, 4, 2, 77, 333), False, None),
+    ]
+    worst = 0.0
+    for i, (label, (bb, h, gg, sq, sk), causal, window) in enumerate(edges):
+        q, k, v = attn_inputs(bb, h, gg, sq, sk, d, seed=70 + i)
+        kw = dict(causal=causal, window=window, softcap=GEMMA_SOFTCAP)
+        got = ops.flash_attention(q, k, v, **kw).float()
+        exp = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        err = (got - exp).abs().max().item()
+        ok = torch.allclose(got, exp, **ATTN_TOL)
+        worst = max(worst, err)
+        print(f"  flash_attention {label} {(bb, h, gg, sq, sk, d)} "
+              f"causal={causal} window={window} softcap={GEMMA_SOFTCAP}: "
+              f"max|err| {err:.3e} {'within' if ok else 'OUTSIDE'} "
+              f"atol=rtol=2e-2")
+        if not ok:
+            failures.append(f"flash_attention {label}")
+    # the cap biting on tile edges: a cap of 3 near the scores' own size,
+    # and q x 10 under 50 with a window under one kv tile
+    for i, (label, shape, window, softcap, q_scale) in enumerate([
+            ("256-cap-bites", (2, 16, 8, 200, 200, d), None, 3.0, 1.0),
+            ("256-cap-bites-window", (2, 16, 8, 300, 300, d), 20,
+             GEMMA_SOFTCAP, 10.0)]):
+        q, k, v = attn_inputs(*shape, seed=80 + i, q_scale=q_scale)
+        worst = max(worst, check_softcap_bites(label, q, k, v, dict(
+            causal=True, window=window, softcap=softcap), failures))
+    out["edges_max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return out
 
 
 def scan_inputs_mamba2(batch, heads, s, groups, seed):
@@ -892,6 +1132,16 @@ def reference_phase() -> None:
         d_model=896, n_heads=8, n_kv_heads=1, d_ff=512, vocab=1024,
         num_experts=24, top_k=8, moe_d_ff=256,
         moe_capacity=kimi.moe_capacity), seed=12)
+    # Gemma2-shaped: head_dim 256 as at full width, post-norms, both
+    # softcaps, the reduced 32-token window on alternate layers, a prompt
+    # of 80 tokens so the window bites
+    compare_small_model("Gemma2-shaped", get_config("gemma2_9b").reduced(
+        d_model=512, n_heads=2, d_head=256, d_ff=512, vocab=1024), seed=13,
+        seq=80)
+    # Qwen2-VL-shaped: M-RoPE sections over head_dim 128, the embeddings
+    # input (the stub frontend of the prompt and of each sampled token)
+    compare_small_model("Qwen2-VL-shaped", get_config("qwen2_vl_2b").reduced(
+        **small), seed=14)
     # Zamba2-shaped: mamba heads of 64 with ds 64 as at full width, and the
     # shared block at head_dim 112 (4 heads over d_model 448), shared after
     # every 2 of 4 mamba layers
@@ -915,16 +1165,19 @@ def logits_gap(label: str, card, host, toks) -> float:
     ``call(fn, *args)`` runs one model call.  Raises when the card's logits
     are off by ``REF_TOL`` of max |logit| at any step; returns the worst."""
     import torch
+
+    from repro_torch.data.pipeline import batch_for_model
     (gpu, params, on_card), (cpu, cpu_params, on_cpu) = card, host
     b, s = toks.shape
     worst = 0.0
+    batch = batch_for_model(cpu.cfg, {"tokens": toks.numpy()}, device="cpu")
     with torch.inference_mode():
         cache_g = gpu.init_cache(b, s + 16)
         cache_c = cpu.init_cache(b, s + 16)
-        lg, cache_g = on_card(gpu.prefill, params, {"tokens": toks.cuda()},
+        lg, cache_g = on_card(gpu.prefill, params,
+                              {k: v.cuda() for k, v in batch.items()},
                               cache_g)
-        lc, cache_c = on_cpu(cpu.prefill, cpu_params, {"tokens": toks},
-                             cache_c)
+        lc, cache_c = on_cpu(cpu.prefill, cpu_params, batch, cache_c)
         for step in range(4):
             rel = ((lg.float().cpu() - lc).abs().max()
                    / lc.abs().max()).item()
@@ -935,11 +1188,11 @@ def logits_gap(label: str, card, host, toks) -> float:
                                      f"|logit|")
             if step == 3:
                 return worst
-            nxt = lc.argmax(-1).to(torch.int32)[:, None]
+            nxt = lc.argmax(-1).to(torch.int32)
             lg, cache_g = on_card(gpu.decode, params,
-                                  {"tokens": nxt.cuda()}, cache_g)
-            lc, cache_c = on_cpu(cpu.decode, cpu_params, {"tokens": nxt},
-                                 cache_c)
+                                  gpu.decode_batch(nxt.cuda()), cache_g)
+            lc, cache_c = on_cpu(cpu.decode, cpu_params,
+                                 cpu.decode_batch(nxt), cache_c)
 
 
 def compare_small_recurrent(label: str, cfg, *, seed: int) -> None:
@@ -981,9 +1234,12 @@ def compare_small_recurrent(label: str, cfg, *, seed: int) -> None:
                              f"{cfg.n_layers}")
 
 
-def compare_small_model(label: str, cfg, *, seed: int) -> None:
-    """Prefill and 3 decode steps of ``cfg`` in bf16 on the card (kernels)
-    and in fp32 on the CPU (plain versions), same weights and tokens.
+def compare_small_model(label: str, cfg, *, seed: int, seq: int = 64,
+                        ) -> None:
+    """Prefill (``seq`` tokens, or their stub embeddings for the
+    embeddings input) and 3 decode steps of ``cfg`` in bf16 on the card
+    (kernels) and in fp32 on the CPU (plain versions), same weights and
+    tokens.
 
     bf16 rounding can flip an expert choice where two router logits nearly
     tie, and one flip changes which rows overflow.  So the CPU run takes the
@@ -996,6 +1252,7 @@ def compare_small_model(label: str, cfg, *, seed: int) -> None:
     import torch
 
     from repro_torch.core import collectives as cl
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.models.api import build_model
 
@@ -1034,9 +1291,8 @@ def compare_small_model(label: str, cfg, *, seed: int) -> None:
     cpu_params = T.Transformer(cfg, device="cpu", dtype=torch.float32)
     cpu_params.load_state_dict({k: v.float().cpu()
                                 for k, v in params.state_dict().items()})
-    b, s = 4, 64
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, size=(b, s)).astype(np.int32))
+        0, cfg.vocab, size=(4, seq)).astype(np.int32))
 
     def on_card(fn, *args):
         with mock.patch.object(cl, "route_topk", card_route), \
@@ -1047,15 +1303,21 @@ def compare_small_model(label: str, cfg, *, seed: int) -> None:
         with mock.patch.object(cl, "route_topk", cpu_route):
             return fn(*args)
 
+    ops.reset_launches()
     worst = logits_gap(label, (gpu, params, on_card),
                        (cpu, cpu_params, on_cpu), toks)
+    attn = ops.launches()["flash_attention"]
     dropped = tally["pairs"] - tally["kept"]
+    shape = (f"top-{cfg.top_k} of {cfg.num_experts}, {cfg.n_shared_experts} "
+             f"shared expert(s), capacity factor {cfg.moe_capacity}"
+             if cfg.is_moe else
+             f"dense, window {cfg.window}, softcaps {cfg.attn_softcap}/"
+             f"{cfg.final_softcap}, post_norm {cfg.post_norm}, M-RoPE "
+             f"{cfg.mrope_sections}, input {cfg.input_mode}")
     print(f"  small {cfg.name} model, {label} ({cfg.n_layers} layers, "
           f"{cfg.first_k_dense} dense, d_model {cfg.d_model}, {cfg.n_heads} "
-          f"heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, top-"
-          f"{cfg.top_k} of {cfg.num_experts}, {cfg.n_shared_experts} shared "
-          f"expert(s), capacity factor {cfg.moe_capacity}): card bf16 vs "
-          f"CPU fp32 "
+          f"heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, {shape}; "
+          f"prompt {toks.shape[1]}): card bf16 vs CPU fp32 "
           f"logits over prefill + 3 decode steps, worst {worst:.3e} of max "
           f"|logit| (limit {REF_TOL}); {tally['pairs']} token-expert pairs, "
           f"{dropped} dropped; {tally['flips']} rows where the CPU would "
@@ -1070,6 +1332,9 @@ def compare_small_model(label: str, cfg, *, seed: int) -> None:
                              f"below the CPU's k-th choice")
     if cfg.top_k < cfg.num_experts and dropped == 0:
         raise AssertionError(f"reference {label}: no expert overflowed")
+    if attn != cfg.n_layers:
+        raise AssertionError(f"reference {label}: flash_attention launched "
+                             f"{attn} times, not {cfg.n_layers}")
 
 
 # ---------------------------------------------------------------------------
@@ -1092,7 +1357,9 @@ def expected_launches(cfg, forwards: int) -> dict:
     dispatch pack runs three times per MoE layer in every forward."""
     from repro_torch.models.ssm import n_shared_calls
     want = launch_counts()
-    if cfg.family == "moe":
+    if cfg.family == "dense":
+        want["flash_attention"] = cfg.n_layers
+    elif cfg.family == "moe":
         want["dispatch_pack"] = 3 * cfg.n_layers * forwards
         want["flash_attention"] = cfg.n_layers
     elif cfg.family == "hybrid":
@@ -1103,7 +1370,9 @@ def expected_launches(cfg, forwards: int) -> dict:
     return want
 
 
-def serve_phase(arch: str, layers) -> dict:
+def serve_phase(arch: str, layers, *, prompts_n: int = PROMPTS,
+                prompt_len: int = PROMPT_LEN, max_new: int = MAX_NEW,
+                after=None) -> dict:
     """One model served at full width through ``ServeEngine.generate``,
     decode replayed from a CUDA graph: a warm-up call, the measured call
     (its first decode round eager, the second captured, the rest
@@ -1114,7 +1383,10 @@ def serve_phase(arch: str, layers) -> dict:
     tokens equal, ``captures >= 1`` and ``replays == rounds -
     eager_rounds`` in the measured call, no capture in the second.  DBRX
     also serves a continuous stream (:func:`continuous_phase`).  Returns
-    the kernel launches of the measured call."""
+    the kernel launches of the measured call.  ``prompts_n`` prompts of
+    ``prompt_len`` tokens, ``max_new`` new tokens (phase 12 gives each
+    family its own); ``after(engine, cfg)`` runs last, before the engine
+    is freed."""
     import numpy as np
     import torch
 
@@ -1126,7 +1398,7 @@ def serve_phase(arch: str, layers) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     engine = build_engine(cfg, device="cuda", dtype=torch.bfloat16, seed=0,
-                          max_new=MAX_NEW)
+                          max_new=max_new)
     torch.cuda.synchronize()
     nparams = sum(p.numel() for p in engine.params.parameters())
     nbytes = sum(p.numel() * p.element_size()
@@ -1137,13 +1409,18 @@ def serve_phase(arch: str, layers) -> dict:
              f"shared block every {cfg.shared_attn_every}, d_ff {cfg.d_ff}"
              if cfg.family == "hybrid" else
              f"wkv head_dim {cfg.rwkv_head_dim}, decay LoRA "
-             f"{cfg.rwkv_decay_lora}, d_ff {cfg.d_ff}")
+             f"{cfg.rwkv_decay_lora}, d_ff {cfg.d_ff}"
+             if cfg.family == "rwkv" else
+             f"d_ff {cfg.d_ff} ({'gated ' if cfg.mlp_gated else ''}"
+             f"{cfg.act}), window {cfg.window}, softcaps {cfg.attn_softcap}/"
+             f"{cfg.final_softcap}, post_norm {cfg.post_norm}, M-RoPE "
+             f"{cfg.mrope_sections}, input {cfg.input_mode}")
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv (head_dim "
           f"{cfg.head_dim}), {shape}, vocab {cfg.vocab}: "
           f"{nparams / 1e9:.2f} B parameters, {nbytes / 1e9:.2f} GB, random "
           f"init {time.monotonic() - t0:.1f} s")
-    prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
+    prompts = make_prompts(cfg, prompts_n, prompt_len, seed=0)
     engine.generate(prompts, max_new=2)          # warm-up, not counted
     engine.stats.update(prefill_s=0.0, decode_s=0.0, tokens=0)
     graph = engine.stats["decode_graph"]
@@ -1151,8 +1428,8 @@ def serve_phase(arch: str, layers) -> dict:
     if graph["mode"] != "graph":
         raise AssertionError(f"one rank on CUDA decodes {graph['mode']}")
     torch.cuda.reset_peak_memory_stats()
-    want = expected_launches(cfg, forwards=MAX_NEW)
-    rounds = MAX_NEW - 1
+    want = expected_launches(cfg, forwards=max_new)
+    rounds = max_new - 1
 
     before = dict(graph)
     ops.reset_launches()
@@ -1163,7 +1440,7 @@ def serve_phase(arch: str, layers) -> dict:
     captured = {key: graph[key] - before[key]
                 for key in ("captures", "replays", "eager_rounds",
                             "capture_s")}
-    if out.shape != (PROMPTS, MAX_NEW):
+    if out.shape != (prompts_n, max_new):
         raise AssertionError(f"generate returned {out.shape}")
     if not ((out >= 0) & (out < cfg.vocab)).all():
         raise AssertionError("token ids out of vocab range")
@@ -1183,10 +1460,10 @@ def serve_phase(arch: str, layers) -> dict:
                              f"rounds")
     decode_ms = st["decode_s"] * 1e3 / rounds
     total_s = st["prefill_s"] + st["decode_s"]
-    print(f"  generate [{PROMPTS} x {PROMPT_LEN}] -> {list(out.shape)}: "
+    print(f"  generate [{prompts_n} x {prompt_len}] -> {list(out.shape)}: "
           f"prefill {st['prefill_s'] * 1e3:.3f} ms, decode "
           f"{decode_ms:.3f} ms/token (one eager round and the capture "
-          f"included), {PROMPTS * MAX_NEW / total_s:.1f} tokens/s, peak "
+          f"included), {prompts_n * max_new / total_s:.1f} tokens/s, peak "
           f"memory {peak_gb:.2f} GB")
     print(f"  first tokens: {out[:, :8].tolist()}")
 
@@ -1207,13 +1484,13 @@ def serve_phase(arch: str, layers) -> dict:
                              f"{np.array_equal(again, out)}")
 
     # the eager loop: the model's own prefill and decode, argmax
-    eager, eager_ms, eager_counts = eager_loop(engine, prompts)
+    eager, eager_ms, eager_counts = eager_loop(engine, prompts, max_new)
     gap = max(((g - e).abs().max() / e.abs().max()).item()
               for g, e in zip(kept, eager["logits"]))
     same = np.array_equal(eager["tokens"], out)
     print(f"  graph vs eager loop: tokens {'equal' if same else 'DIFFER'} "
-          f"over {MAX_NEW}; logits max gap {gap:.3e} of max |logit| over "
-          f"{MAX_NEW} steps; decode {graph_ms:.3f} ms/token replayed "
+          f"over {max_new}; logits max gap {gap:.3e} of max |logit| over "
+          f"{max_new} steps; decode {graph_ms:.3f} ms/token replayed "
           f"against {eager_ms:.3f} eager (both keep the logits on the "
           f"host); launches of the loop {eager_counts}")
     if not same:
@@ -1225,6 +1502,8 @@ def serve_phase(arch: str, layers) -> dict:
         continuous_phase(engine, cfg)
     # the engine's plan binder calls back into the engine: a cycle, which
     # only the collector frees (with the weights it holds)
+    if after is not None:
+        after(engine, cfg)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1247,34 +1526,34 @@ def generate_keeping_logits(engine, prompts):
         del engine._sample
 
 
-def eager_loop(engine, prompts):
+def eager_loop(engine, prompts, max_new: int = MAX_NEW):
     """Greedy decoding by the engine's model directly: ``prefill`` on a
-    fresh cache, then ``MAX_NEW - 1`` calls of ``decode``, argmax after
+    fresh cache, then ``max_new - 1`` calls of ``decode``, argmax after
     each, every step's logits kept on the host.  Returns ({"tokens",
     "logits"}, decode ms a token, the kernel launches)."""
     import numpy as np
     import torch
 
+    from repro_torch.data.pipeline import batch_for_model
     from repro_torch.kernels import ops
     model, params = engine.model, engine.params
+    batch = batch_for_model(model.cfg, {"tokens": prompts}, device="cuda")
     ops.reset_launches()
     logits_kept = []
     with torch.inference_mode():
-        cache = model.init_cache(len(prompts), PROMPT_LEN + MAX_NEW)
-        logits, _ = model.prefill(
-            params, {"tokens": torch.from_numpy(prompts).cuda()}, cache)
+        cache = model.init_cache(len(prompts), prompts.shape[1] + max_new)
+        logits, _ = model.prefill(params, batch, cache)
         tok = torch.argmax(logits, dim=-1)
         logits_kept.append(logits.float().cpu())
         toks = [tok.cpu()]
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        for _ in range(MAX_NEW - 1):
-            logits, _ = model.decode(
-                params, {"tokens": tok.to(torch.int32)[:, None]}, cache)
+        for _ in range(max_new - 1):
+            logits, _ = model.decode(params, model.decode_batch(tok), cache)
             tok = torch.argmax(logits, dim=-1)
             logits_kept.append(logits.float().cpu())
             toks.append(tok.cpu())
-        ms = (time.monotonic() - t0) * 1e3 / (MAX_NEW - 1)
+        ms = (time.monotonic() - t0) * 1e3 / (max_new - 1)
     tokens = torch.stack(toks, dim=1).numpy().astype(np.int32)
     return {"tokens": tokens, "logits": logits_kept}, ms, ops.launches()
 
@@ -3176,6 +3455,55 @@ def train_ranks_phase() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the decoder-only secondary families at full width and depth
+# ---------------------------------------------------------------------------
+
+def families_phase() -> dict:
+    """Gemma2-9B, StarCoder2-15B, Minitron-8B and Qwen2-VL-2B's backbone
+    (``FAMILIES``) through :func:`serve_phase`, one at a time, each freed
+    before the next; then Gemma2's gradient on the card must raise
+    (:func:`gemma_gradient_raises`).  Returns the launches by model."""
+    t0 = time.monotonic()
+    by_path = {}
+    for arch, prompts_n, prompt_len, max_new in FAMILIES:
+        print(f"  {arch}: {prompts_n} prompts x {prompt_len} tokens, "
+              f"{max_new} new")
+        by_path[arch] = serve_phase(
+            arch, None, prompts_n=prompts_n, prompt_len=prompt_len,
+            max_new=max_new,
+            after=gemma_gradient_raises if arch == "gemma2_9b" else None)
+    print(f"  phase 12 took {time.monotonic() - t0:.1f} s")
+    return by_path
+
+
+def gemma_gradient_raises(engine, cfg) -> None:
+    """Gemma2 at full width on the card with its parameters trainable: the
+    loss must raise the attention wrapper's ``NotImplementedError`` (no
+    backward kernel at head_dim 256) before any attention kernel runs,
+    and nothing plain may run in its place."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.trainer import trainable
+    toks = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+    trainable(engine.params)
+    ops.reset_launches()
+    try:
+        engine.model.loss(engine.params, {"tokens": toks, "labels": toks})
+    except NotImplementedError as err:
+        if "queue 2" not in str(err):
+            raise
+        print(f"  {cfg.name} gradient on the card: NotImplementedError "
+              f"({err})")
+    else:
+        raise AssertionError(f"{cfg.name}: the loss ran on the card at "
+                             f"head_dim {cfg.head_dim}")
+    if any(ops.launches().values()):
+        raise AssertionError(f"{cfg.name}: kernels ran before the raise: "
+                             f"{ops.launches()}")
+
+
 def ptxas_report(log: str) -> list:
     """(function, registers, spill stores, spill loads) of each kernel
     function in an ``nvcc -Xptxas -v`` log."""
@@ -3232,6 +3560,8 @@ def main(argv=None) -> None:
                     help="phases 1, 2 and 10 only")
     ap.add_argument("--train-ranks-only", action="store_true",
                     help="phases 1, 2 and 11 only (on four cards: nccl)")
+    ap.add_argument("--families-only", action="store_true",
+                    help="phases 1, 2 and 12 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3260,9 +3590,15 @@ def main(argv=None) -> None:
     train_ranks_title = (f"phase 11: training over ranks, DBRX-132B over 2 "
                          f"pods x 2 ep ranks at depth {ranks_depth} and "
                          f"Mistral-NeMo-12B over (1, 1, 4)")
+    families_title = ("phase 12: Gemma2-9B, StarCoder2-15B, Minitron-8B and "
+                      "Qwen2-VL-2B's backbone at full width and depth")
     if args.kimi_only:
         print(kimi_title)
         kimi_phase(depth, kimi_new)
+    elif args.families_only:
+        print(families_title)
+        counts = families_phase()
+        print(f"  launches of phase 12's measured calls: {counts}")
     elif args.tp_only:
         print(tp_title)
         tp_phase()
@@ -3311,6 +3647,8 @@ def main(argv=None) -> None:
         rows.update(bwd_rows)
         print(train_ranks_title)
         by_path["train_ranks"] = train_ranks_phase()
+        print(families_title)
+        by_path.update(families_phase())
 
         for name, row in rows.items():
             row["launches"] = sum(c.get(name, 0) for c in by_path.values())

@@ -112,14 +112,16 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
-ARCH_IDS = ["dbrx_132b", "kimi_k2_1t", "mistral_nemo_12b", "zamba2_7b",
-            "rwkv6_7b"]
+ARCH_IDS = ["starcoder2_15b", "minitron_8b", "mistral_nemo_12b",
+            "gemma2_9b", "dbrx_132b", "kimi_k2_1t", "qwen2_vl_2b",
+            "zamba2_7b", "rwkv6_7b"]
 
 # canonical dash-style aliases
-ALIASES = {"dbrx-132b": "dbrx_132b", "kimi-k2-1t-a32b": "kimi_k2_1t",
-           "mistral-nemo-12b": "mistral_nemo_12b",
-           "kimi-k2-1t": "kimi_k2_1t", "zamba2-7b": "zamba2_7b",
-           "rwkv6-7b": "rwkv6_7b"}
+ALIASES = {"starcoder2-15b": "starcoder2_15b", "minitron-8b": "minitron_8b",
+           "mistral-nemo-12b": "mistral_nemo_12b", "gemma2-9b": "gemma2_9b",
+           "dbrx-132b": "dbrx_132b", "kimi-k2-1t-a32b": "kimi_k2_1t",
+           "kimi-k2-1t": "kimi_k2_1t", "qwen2-vl-2b": "qwen2_vl_2b",
+           "zamba2-7b": "zamba2_7b", "rwkv6-7b": "rwkv6_7b"}
 
 
 def get_config(name: str) -> ModelConfig:

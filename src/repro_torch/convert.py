@@ -5,7 +5,9 @@ arrays (``jax.tree_util.tree_map(np.asarray, params)`` on the caller's
 side) and returns the port's parameter module of the config's family with
 the same values: ``Transformer`` (dense, moe), ``Zamba2`` (hybrid: stacked
 ``mamba`` [L, ...], ``shared``) or ``RWKV6`` (rwkv: stacked ``layers``).
-Stacked [L, ...] trees are unstacked into one block per layer.  Matrices are
+Stacked [L, ...] trees are unstacked into one block per layer (with
+Gemma2's post-norms ``pn1``/``pn2``; a config with tied embeddings, as
+Gemma2's and Qwen2-VL's, has no ``unembed``).  Matrices are
 rounded once to ``dtype``, which gives the values the reference's per-use
 ``.astype(dt)`` gives; what the reference keeps or computes with in fp32
 (norms, router, ``A_log``, ``D``, ``dt_bias``, ``w0``, ``wA``, ``wB``,

@@ -8,7 +8,8 @@ token stream (restore at step k => skip k batches), on any host count.
 The token stream is a mixture of Zipf-distributed unigrams and repeated
 n-gram motifs, a learnable distribution whose loss goes down.
 :func:`batch_for_model` hands a batch to a model as torch tensors on an
-explicit device.
+explicit device, through the reference's stub frontend
+(:func:`_stub_embed`, numpy, so the same bits) for the embeddings input.
 """
 
 from __future__ import annotations
@@ -85,18 +86,22 @@ class SyntheticLM:
 def batch_for_model(cfg: ModelConfig, data: dict, rng_seed: int = 0, *,
                     device=None, pctx=None) -> dict:
     """Adapt a token batch to the model's input format, as torch tensors
-    on ``device`` (None: CUDA).  With a ``pctx`` the batch is the global
-    one and the result this rank's data-parallel rows, ``[dp_index * B/dp,
-    (dp_index + 1) * B/dp)`` (the order of the reference's
-    ``batch_specs``); every model rank of a data-parallel group takes the
-    same rows.  The families the port trains take tokens; the reference's
-    stub frontends (embeddings input, encdec) are later slices of the port
-    and raise here."""
+    on ``device`` (None: CUDA): the tokens and labels (a prompt batch
+    without labels gives none), or for
+    ``input_mode="embeddings"`` (Qwen2-VL's backbone) the reference's stub
+    frontend, ``{"embeds": _stub_embed(tokens) [B, S, D] fp32,
+    "positions": [B, S, 3] (one position id for every M-RoPE section),
+    "labels"}``.  With a ``pctx`` the batch is the global one and the
+    result this rank's data-parallel rows, ``[dp_index * B/dp, (dp_index +
+    1) * B/dp)`` (the order of the reference's ``batch_specs``); every
+    model rank of a data-parallel group takes the same rows.  The encdec
+    input waits for the encoder-decoder (ROADMAP.md queue 1 item 9b) and
+    raises here."""
     dev = resolve_device(device)
-    if cfg.family == "encdec" or cfg.input_mode == "embeddings":
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family}/{cfg.input_mode} input is not "
-            f"ported yet (ROADMAP.md queue 1 item 9)")
+            f"{cfg.name}: the encdec input is not ported yet (ROADMAP.md "
+            f"queue 1 item 9b)")
     rows = slice(None)
     if pctx is not None:
         b, dp = data["tokens"].shape[0], pctx.dp_size
@@ -105,9 +110,18 @@ def batch_for_model(cfg: ModelConfig, data: dict, rng_seed: int = 0, *,
                              f"ranks")
         rows = slice(pctx.dp_index * (b // dp),
                      (pctx.dp_index + 1) * (b // dp))
-    return {key: torch.from_numpy(
-        np.ascontiguousarray(data[key][rows])).to(dev)
-        for key in ("tokens", "labels")}
+    toks = np.asarray(data["tokens"])[rows]
+    if cfg.input_mode == "embeddings":
+        b, s = toks.shape
+        out = {"embeds": _stub_embed(toks, cfg.d_model),
+               "positions": np.broadcast_to(
+                   np.arange(s, dtype=np.int32)[None, :, None], (b, s, 3))}
+    else:
+        out = {"tokens": toks}
+    if "labels" in data:
+        out["labels"] = np.asarray(data["labels"])[rows]
+    return {key: torch.from_numpy(np.ascontiguousarray(val)).to(dev)
+            for key, val in out.items()}
 
 
 def _stub_embed(tokens: np.ndarray, d: int) -> np.ndarray:

@@ -51,6 +51,13 @@
 // batch) with their own strides, so [B, S, H, D] buffers are read and
 // written without a transposing copy.  Head dim 112 loads two 64-column
 // boxes; TMA zero-fills columns 112-127, which the products never read.
+//
+// Head dim 256 (Gemma2, compute-bound at its 8,192 tokens: the products
+// outweigh the bytes about 9 to 1) keeps this design with 64-row kv tiles
+// (kv_rows): Q's 64 KB and two stages of K and V at 32 KB each make 192
+// KB of shared memory, and a thread's 128 fp32 accumulators, 32 scores and
+// 16 P fragments fit its 240 registers.  S = Q K^T is m64n64k16 over 16
+// k-steps, O += P V one m64n256k16 (register A) a 16-row k-step.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -65,15 +72,21 @@ namespace {
 using namespace sm90;
 
 constexpr int kBlockM = 128;   // q rows per block: 64 per consumer warpgroup
-constexpr int kBlockN = 128;   // kv rows per tile
 constexpr int kStages = 2;     // kv ring depth
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// kv rows per tile: 128, or 64 at head_dim 256, where 128-row K and V
+// tiles in two stages (256 KB) and Q (64 KB) would not fit the 227 KB a
+// block may have, and a 64 x 128 score tile beside the 128 fp32
+// accumulators a thread would not fit 240 registers
+constexpr int kv_rows(int hd) { return hd > 128 ? 64 : 128; }
+
 template <int HD>
 struct Layout {
+  static constexpr int kBlockN = kv_rows(HD);
   static constexpr int kSub = (HD + 63) / 64;          // 64-column boxes
   static constexpr int kQSub = kBlockM * 128;          // bytes of one box
   static constexpr int kKVSub = kBlockN * 128;
@@ -89,16 +102,21 @@ struct Params {
   int heads, kv_heads, q_len, kv_len, q_tiles;
   float scale_log2;  // scale * log2(e), no softcap
   float scale, softcap;  // softcap <= 0: none
+  float cap_log2;    // 2 * log2(e) * scale / softcap: tanh's exp2 argument
   int causal, window;    // window <= 0: none
   float* lse;            // [B, H, q_len] fp32, or null: not wanted
 };
 
+// O += P V for one 16-row k-step of V at shared address `vd` (its
+// 64-column boxes kKVSub bytes apart, read N-major through the transpose bit)
 template <int HD>
 __device__ __forceinline__ void pv_product(float (&o)[HD / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
+                                           uint32_t vd) {
+  const uint64_t db = desc_sw128(vd, Layout<HD>::kKVSub);
   if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
   else if constexpr (HD == 112) wgmma_rs_n112(o, a, db);
-  else wgmma_rs_n128(o, a, db);
+  else if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n256(o, a, db);
 }
 
 template <int HD>
@@ -108,6 +126,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap v_map,
                        const __grid_constant__ CUtensorMap o_map, const Params p) {
   using L = Layout<HD>;
+  constexpr int kBlockN = L::kBlockN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -216,18 +235,25 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int kk = 0; kk < HD / 16; ++kk) {
           // k-step kk: 64-column box kk / 4, 32 bytes per step inside it
           const uint32_t off = (kk % 4) * 32;
-          wgmma_ss_n128(s, desc_sw128(q_base + (kk / 4) * L::kQSub + off, 16),
-                        desc_sw128(kd + (kk / 4) * L::kKVSub + off, 16), kk > 0);
+          const uint64_t da = desc_sw128(q_base + (kk / 4) * L::kQSub + off, 16);
+          const uint64_t dk = desc_sw128(kd + (kk / 4) * L::kKVSub + off, 16);
+          if constexpr (kBlockN == 128) wgmma_ss_n128(s, da, dk, kk > 0);
+          else wgmma_ss_n64(s, da, dk, kk > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
         fence_operands(s);
 
         // ---- softcap, mask; running max over the 4 threads of a row ----
+        // c tanh(x / c) = c - 2c / (e^(2x/c) + 1): one ex2 and one
+        // approximate reciprocal an element, absolute error about 1e-5 of
+        // the score (libm's tanhf and a division an element made the
+        // softmax, not the products, the bound at head_dim 256)
         if (p.softcap > 0.f) {
+          const float two_cap = 2.f * p.softcap;
 #pragma unroll
           for (int i = 0; i < kBlockN / 2; ++i)
-            s[i] = p.softcap * tanhf(s[i] * p.scale / p.softcap);
+            s[i] = p.softcap - __fdividef(two_cap, fast_exp2(s[i] * p.cap_log2) + 1.f);
         }
         if ((k0 + kBlockN > p.kv_len) || (p.causal && k0 + kBlockN - 1 > wrow0) ||
             (p.window > 0 && wrow0 + 63 - k0 >= p.window)) {
@@ -285,7 +311,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < kBlockN / 16; ++j)
-          pv_product<HD>(o, pa[j], desc_sw128(vd + j * 16 * 128, L::kKVSub));
+          pv_product<HD>(o, pa[j], vd + j * 16 * 128);
         wgmma_commit();
         wgmma_wait_all();
         fence_operands(o);
@@ -394,7 +420,7 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorM
 
 // q [B, H, Sq, D], k/v [B, G, Sk, D], o [B, H, Sq, D], bf16, each given by
 // element strides (batch, head, seq) with a contiguous head dimension D in
-// {64, 112, 128}; every stride a multiple of 8 elements and every base
+// {64, 112, 128, 256}; every stride a multiple of 8 elements and every base
 // 16-byte aligned.  window <= 0 and softcap <= 0 mean none.  lse, when not
 // null, receives each row's log-sum-exp [B, H, Sq] fp32 (for the backward).
 // Launches on `stream`; returns cudaGetLastError() after the launch.
@@ -406,23 +432,26 @@ extern "C" int flash_attention(
     long long o_sb, long long o_sh, long long o_ss,
     int batch, int heads, int kv_heads, int q_len, int kv_len, int head_dim,
     float scale, float softcap, int causal, int window, void* lse, void* stream) {
-  if (head_dim != 64 && head_dim != 112 && head_dim != 128)
+  if (head_dim != 64 && head_dim != 112 && head_dim != 128 && head_dim != 256)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int kv_tile = kv_rows(head_dim);
   CUtensorMap qm, km, vm, om;
   if (!make_map(&qm, q, batch, heads, q_len, head_dim, q_sb, q_sh, q_ss, kBlockM) ||
-      !make_map(&km, k, batch, kv_heads, kv_len, head_dim, k_sb, k_sh, k_ss, kBlockN) ||
-      !make_map(&vm, v, batch, kv_heads, kv_len, head_dim, v_sb, v_sh, v_ss, kBlockN) ||
+      !make_map(&km, k, batch, kv_heads, kv_len, head_dim, k_sb, k_sh, k_ss, kv_tile) ||
+      !make_map(&vm, v, batch, kv_heads, kv_len, head_dim, v_sb, v_sh, v_ss, kv_tile) ||
       !make_map(&om, o, batch, heads, q_len, head_dim, o_sb, o_sh, o_ss, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.heads = heads; p.kv_heads = kv_heads; p.q_len = q_len; p.kv_len = kv_len;
   p.q_tiles = (q_len + kBlockM - 1) / kBlockM;
   p.scale = scale; p.scale_log2 = scale * kLog2e; p.softcap = softcap;
+  p.cap_log2 = softcap > 0.f ? 2.f * kLog2e * scale / softcap : 0.f;
   p.causal = causal; p.window = window;
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (head_dim == 128) err = launch<128>(qm, km, vm, om, p, batch, s);
+  if (head_dim == 256) err = launch<256>(qm, km, vm, om, p, batch, s);
+  else if (head_dim == 128) err = launch<128>(qm, km, vm, om, p, batch, s);
   else if (head_dim == 112) err = launch<112>(qm, km, vm, om, p, batch, s);
   else err = launch<64>(qm, km, vm, om, p, batch, s);
   return static_cast<int>(err);

@@ -39,12 +39,20 @@ row's delta = rowsum(do * o); then dK and dV with one block per pair of
 split the q heads' steps and sum their partials in a fixed order; no
 atomics.
 
+Head_dim 256 (Gemma2): K and V come in 64-row tiles (``kv_rows`` in the
+source), since 128-row tiles in two stages beside Q would need 320 KB of
+shared memory and a 64 x 128 score tile beside the 128 fp32 accumulators
+a thread would not fit its 240 registers; O += P V is one
+``wgmma.m64n256k16`` a k-step.  The forward only: a gradient at head_dim
+256 on the card raises ``NotImplementedError`` before the forward runs.
+
 For tensors on the CPU each wrapper runs its plain version (dense fp32
 attention, :func:`repro_torch.kernels.ref.attention_ref`, over repeated kv
 heads; :func:`~repro_torch.kernels.ref.attention_bwd_ref` for the
-gradient); for CUDA tensors it launches the kernel (bf16, head_dim 64, 112
-or 128), or raises.  ``flash_attention.launches`` and
-``flash_attention_bwd.launches`` count kernel launches.
+gradient) at any head_dim; for CUDA tensors it launches the kernel (bf16,
+head_dim 64, 112, 128 or 256; the backward 64, 112 or 128), or raises.
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -58,7 +66,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attention_ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 112, 128, 256)
+BWD_HEAD_DIMS = (64, 112, 128)   # the backward kernel's
 BWD_ROWS = 64   # rows of the backward's tiles and steps (kBwdRows)
 
 
@@ -110,6 +119,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = (causal, window, softcap, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if q.device.type == "cuda" and q.shape[-1] not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention: no backward kernel at head_dim "
+                f"{q.shape[-1]} (it takes {BWD_HEAD_DIMS}); the attention "
+                f"backward at head_dim 256 is ROADMAP.md queue 2")
         return _Attention.apply(q, k, v, mask)
     return _forward(q, k, v, mask, with_lse=False)[0]
 

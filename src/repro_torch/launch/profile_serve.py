@@ -4,6 +4,11 @@
       --arch dbrx_132b --layers 4 --prompts 4 --prompt-len 512 --decode-steps 8
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch zamba2_7b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch rwkv6_7b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch gemma2_9b \
+      --prompts 2 --prompt-len 8160
+
+(any arch of ``configs.base.ARCH_IDS`` on one rank; Qwen2-VL's prompt
+tokens go through the reference's stub frontend, as in ``launch.serve``)
 
 Builds the engine of ``--arch`` as ``launch.serve`` does (published widths,
 full depth unless ``--layers`` cuts it, random weights from seed 0) and
@@ -30,6 +35,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.data.pipeline import batch_for_model
 from repro_torch.launch.serve import build_engine, make_prompts, serve_config
 
 TOP = 12           # kernels listed per phase
@@ -138,13 +144,13 @@ def main(argv=None) -> list:
     with torch.inference_mode():
         cache = model.init_cache(args.prompts,
                                  args.prompt_len + 2 * args.decode_steps)
-        logits, _ = model.prefill(
-            params, {"tokens": torch.from_numpy(prompts).cuda()}, cache)
+        batch = batch_for_model(cfg, {"tokens": prompts}, device="cuda")
+        logits, _ = model.prefill(params, batch, cache)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
 
         def eager_rounds(tok):
             for _ in range(args.decode_steps):
-                logits, _ = model.decode(params, {"tokens": tok[:, None]},
+                logits, _ = model.decode(params, model.decode_batch(tok),
                                          cache)
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)
                 tok.cpu()

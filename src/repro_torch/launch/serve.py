@@ -1,12 +1,19 @@
 """Serving launcher: batched greedy generation with the port's ServeEngine.
 
 On the card, with random weights: DBRX-132B at full width with its depth
-cut to 4 layers, and Mistral-NeMo-12B, Zamba2-7B and RWKV6-7B whole:
+cut to 4 layers, and Mistral-NeMo-12B, Zamba2-7B, RWKV6-7B, Gemma2-9B,
+StarCoder2-15B, Minitron-8B and Qwen2-VL-2B's backbone whole:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \
       --layers 4 --prompts 4 --prompt-len 512 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b \
+      --prompts 2 --prompt-len 8160
+
+Qwen2-VL's prompts are token ids that the reference's stub frontend
+(``data.pipeline._stub_embed``) turns into its embeddings input, in the
+prefill and for every sampled token.
 
 On the CPU, the reduced config through the kernels' plain versions:
 
@@ -82,7 +89,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.configs.base import ARCH_IDS, ModelConfig, get_config
 from repro_torch.core.h100 import fabric_spec
 from repro_torch.core.planner import _ep_topology, default_planner
 from repro_torch.core.topology import get_fabric
@@ -325,8 +332,8 @@ def make_prompts(cfg: ModelConfig, prompts: int, prompt_len: int,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="dbrx_132b, kimi_k2_1t, mistral_nemo_12b, zamba2_7b "
-                         "or rwkv6_7b")
+                    help="one of configs.base.ARCH_IDS: " + ", ".join(
+                        ARCH_IDS))
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths stay "
                          "the published ones)")

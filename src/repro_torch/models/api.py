@@ -13,10 +13,13 @@
   init_cache(batch, max_len)     -> per-layer KV buffers or recurrent states
 
 Batches: ``{"tokens": [B, S] int}`` for prefill (and ``"labels"`` [B, S]
-for the loss, -1 ignored), ``{"tokens": [B, 1]}`` for decode.  On the
-card the hybrid and rwkv families do not train yet (their scans have no
-backward kernel).  The model runs on CUDA unless it is built with
-``device="cpu"``.
+for the loss, -1 ignored), ``{"tokens": [B, 1]}`` for decode; a config
+with ``input_mode="embeddings"`` (Qwen2-VL's backbone behind the
+reference's stub frontend) also takes ``{"embeds": [B, S, D],
+"positions": [B, S, 3]}`` and ``{"embeds": [B, 1, D]}`` for decode
+(:meth:`Model.decode_inputs`), unscaled.  On the card the hybrid and rwkv
+families do not train yet (their scans have no backward kernel).  The
+model runs on CUDA unless it is built with ``device="cpu"``.
 Built with a ``pctx`` (dense and moe families), a model holds one rank's
 experts and tensor-parallel blocks, and its batches are that rank's
 data-parallel rows (every model rank of a data-parallel group takes the
@@ -35,6 +38,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import _stub_embed
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv, ssm
@@ -42,8 +46,12 @@ from repro_torch.models import transformer as T
 from repro_torch.parallel.context import seq_sharded, shard_residual
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+def _positions(cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
+    """[B, S] positions, or [B, S, 3] (one id a M-RoPE section, all
+    equal) under ``mrope_sections``, as the reference's
+    ``_positions_for``."""
+    pos = torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+    return pos[..., None].expand(b, s, 3) if cfg.mrope_sections else pos
 
 
 def param_module(cfg: ModelConfig, *, device, dtype,
@@ -85,12 +93,52 @@ class Model:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
         return x
 
+    def _embeds(self, batch: dict):
+        """The embeddings input of ``batch`` in the model's dtype (no
+        sqrt(d_model) scale), or None for a token batch."""
+        if self.cfg.input_mode == "embeddings" and "embeds" in batch:
+            return batch["embeds"].to(self.device, self.dtype)
+        return None
+
+    def embed_in(self, params, batch: dict):
+        """(x [B, S, D], positions): the tokens embedded, or the
+        embeddings input with its own positions (the reference's
+        ``embed_in``)."""
+        x = self._embeds(batch)
+        if x is None:
+            x = self._embed(params, batch["tokens"])
+            return x, _positions(self.cfg, *x.shape[:2], self.device)
+        pos = batch.get("positions")
+        if pos is None:
+            return x, _positions(self.cfg, *x.shape[:2], self.device)
+        return x, pos.to(self.device)
+
+    def decode_inputs(self, tokens: np.ndarray) -> dict:
+        """The decode batch of the sampled tokens [B] int32 (host), as
+        numpy arrays: ``{"tokens": [B, 1]}``, or for the embeddings input
+        the stub frontend's ``{"embeds": [B, 1, D]}`` fp32 (the reference's
+        ``ServeEngine._decode_batch``)."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1, 1)
+        if self.cfg.input_mode == "embeddings":
+            return {"embeds": _stub_embed(tokens, self.cfg.d_model)}
+        return {"tokens": tokens}
+
+    def decode_batch(self, tokens: torch.Tensor) -> dict:
+        """The decode batch of sampled tokens [B] on the model's device:
+        ``{"tokens": [B, 1] int32}``, or the stub embeddings of
+        :meth:`decode_inputs` (made on the host) for the embeddings
+        input."""
+        if self.cfg.input_mode != "embeddings":
+            return {"tokens": tokens.to(torch.int32)[:, None]}
+        return {name: torch.from_numpy(val).to(self.device)
+                for name, val in self.decode_inputs(
+                    tokens.cpu().numpy()).items()}
+
     def hidden_train(self, params, batch: dict):
         """The stack without a cache: (final-normed hidden [B, S, D], the
         MoE aux losses summed, fp32)."""
         fam = self.cfg.family
-        toks = batch["tokens"]
-        x = self._embed(params, toks)
+        x, positions = self.embed_in(params, batch)
         if fam in ("hybrid", "rwkv"):
             if self.device.type == "cuda":
                 scan = "mamba2_scan" if fam == "hybrid" else "rwkv6_scan"
@@ -101,13 +149,11 @@ class Model:
             # scans run under autograd on the CPU
             stack = ssm.zamba2_prefill if fam == "hybrid" else \
                 rwkv.rwkv6_prefill
-            cache = self.init_cache(*toks.shape, cache_dtype=self.dtype)
+            cache = self.init_cache(*x.shape[:2], cache_dtype=self.dtype)
             h, _ = stack(params, self.cfg, x, cache)
             return h, torch.zeros((), dtype=torch.float32,
                                   device=self.device)
-        return T.forward_hidden(params, self.cfg, x,
-                                _positions(*toks.shape, self.device),
-                                self.pctx)
+        return T.forward_hidden(params, self.cfg, x, positions, self.pctx)
 
     def loss(self, params, batch: dict):
         """Mean token cross-entropy of the labels plus 0.01 x the MoE aux
@@ -145,8 +191,7 @@ class Model:
         return T.init_cache(self.cfg, batch, max_len, pctx=self.pctx, **kw)
 
     def prefill(self, params, batch: dict, cache: dict):
-        toks = batch["tokens"]
-        x = self._embed(params, toks)
+        x, positions = self.embed_in(params, batch)
         fam = self.cfg.family
         if fam in ("hybrid", "rwkv"):
             stack = ssm.zamba2_prefill if fam == "hybrid" else \
@@ -154,8 +199,7 @@ class Model:
             h, cache = stack(params, self.cfg, x, cache)
             logits = T.logits_fn(params, self.cfg, h, last_only=True)
         else:
-            logits, cache = T.prefill(params, self.cfg, x,
-                                      _positions(*toks.shape, self.device),
+            logits, cache = T.prefill(params, self.cfg, x, positions,
                                       cache, self.pctx)
         return logits[:, 0], cache
 
@@ -172,7 +216,9 @@ class Model:
         """The device work of one decode token: reads the position from
         the cache's device scalar and advances it, and reads nothing of
         the host, so a CUDA graph of it replays at any position."""
-        x = self._embed(params, batch["tokens"])
+        x = self._embeds(batch)
+        if x is None:
+            x = self._embed(params, batch["tokens"])
         fam = self.cfg.family
         if fam in ("hybrid", "rwkv"):
             step = ssm.zamba2_decode_step if fam == "hybrid" else \
@@ -198,9 +244,9 @@ def check_room(cache: dict) -> None:
 
 def build_model(cfg: ModelConfig, *, device=None,
                 dtype: torch.dtype = torch.bfloat16, pctx=None) -> Model:
-    """Dense, moe, hybrid and rwkv families; encdec and the embeddings
-    input are later slices of the port, and so are the hybrid and rwkv
-    families over ranks."""
+    """Dense, moe, hybrid and rwkv families; encdec (ROADMAP.md queue 1
+    item 9b) and the hybrid and rwkv families over ranks (item 6) are
+    later slices of the port."""
     T.check_supported(cfg)
     if pctx is not None and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} over a "
@@ -211,17 +257,29 @@ def build_model(cfg: ModelConfig, *, device=None,
 
 def make_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
                rng_seed: int = 0, *, device=None) -> dict:
-    """Synthetic token batch from a numpy seed (the reference's token
-    stream for the same seed)."""
+    """Synthetic batch from a numpy seed: the reference's tokens, or for
+    the embeddings input its normal embeddings and [B, S, 3] positions,
+    for the same seed."""
     dev = resolve_device(device)
     rng = np.random.default_rng(rng_seed)
     toks = rng.integers(0, cfg.vocab, size=(batch, seq)).astype(np.int32)
     labels = np.roll(toks, -1, axis=1).astype(np.int32)
     labels[:, -1] = -1
+    embeds = cfg.input_mode == "embeddings"
     if kind == "decode":
-        return {"tokens": torch.from_numpy(toks[:, :1]).to(dev)}
-    return {"tokens": torch.from_numpy(toks).to(dev),
-            "labels": torch.from_numpy(labels).to(dev)}
+        out = ({"embeds": rng.normal(size=(batch, 1, cfg.d_model)).astype(
+            np.float32)} if embeds else {"tokens": toks[:, :1]})
+    elif embeds:
+        out = {"embeds": rng.normal(size=(batch, seq, cfg.d_model)).astype(
+                   np.float32),
+               "positions": np.broadcast_to(
+                   np.arange(seq, dtype=np.int32)[None, :, None],
+                   (batch, seq, 3)).copy(),
+               "labels": labels}
+    else:
+        out = {"tokens": toks, "labels": labels}
+    return {key: torch.from_numpy(np.ascontiguousarray(val)).to(dev)
+            for key, val in out.items()}
 
 
 def param_count(params: nn.Module) -> int:

@@ -1,4 +1,4 @@
-"""Shared neural layers: norms, RoPE, MLPs, GQA attention, KV caches.
+"""Shared neural layers: norms, RoPE/M-RoPE, MLPs, GQA attention, KV caches.
 
 Port of ``src/repro/models/layers.py``.  Each layer is a plain function on
 tensors whose first argument holds the parameters, plus an ``nn.Module``
@@ -160,11 +160,24 @@ def rope_freqs(head_dim, theta, device=None):
                                          device=device) / head_dim))
 
 
-def apply_rope(x, positions, theta=1e4):
-    """Rotary embedding.  x: [B, S, H, D]; positions: [B, S] int."""
+def apply_rope(x, positions, theta=1e4, mrope_sections=None):
+    """Rotary embedding.  x: [B, S, H, D]; positions: [B, S] int, or
+    [B, S, 3] with ``mrope_sections`` (Qwen2-VL's M-RoPE: the head-dim
+    halves are cut into (t, h, w) sections, each rotated by its own
+    position id)."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)                       # [d/2]
-    ang = positions[..., None].float() * inv                   # [B, S, d/2]
+    if mrope_sections is None:
+        ang = positions[..., None].float() * inv               # [B, S, d/2]
+    else:
+        if sum(mrope_sections) != d // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not sum "
+                             f"to half of head_dim {d}")
+        parts, off = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(positions[..., i, None].float() * inv[off:off + sec])
+            off += sec
+        ang = torch.cat(parts, dim=-1)                         # [B, S, d/2]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., : d // 2].float(), x[..., d // 2:].float()
@@ -255,8 +268,8 @@ def _local_kv(p: Attention, k, v):
 
 
 def attention(p: Attention, x, positions, dims: AttnDims, *, causal=True,
-              window=None, softcap=None, rope_theta=1e4, return_kv=False,
-              pctx=None):
+              window=None, softcap=None, rope_theta=1e4, mrope=None,
+              return_kv=False, pctx=None):
     """Prefill attention through the flash-attention kernel on grouped kv.
     x: [B, S, D] -> [B, S, D] (and the rotated k, v [B, S, kv_heads, dh]
     of this rank).  Over model ranks each runs its own heads, and the
@@ -270,8 +283,8 @@ def attention(p: Attention, x, positions, dims: AttnDims, *, causal=True,
     q = (x @ p.wq).reshape(b, s, p.heads, dh)
     k = (x @ wk).reshape(b, s, p.kv_heads, dh)
     v = (x @ wv).reshape(b, s, p.kv_heads, dh)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    q = apply_rope(q, positions, rope_theta, mrope)
+    k = apply_rope(k, positions, rope_theta, mrope)
     ka, va = _local_kv(p, k, v)
     # [B, S, heads, dh] viewed as [B, heads, S, dh]: the kernel reads
     # strides, so no transposed copies are made
@@ -341,8 +354,8 @@ def write_prefill_kv(p: Attention, cache_k, cache_v, k, v, layout: str,
 
 def decode_attention_block(p: Attention, x, cache_k, cache_v,
                            pos: torch.Tensor, dims: AttnDims, *, window=None,
-                           softcap=None, rope_theta=1e4, pctx=None,
-                           layout: str = "whole"):
+                           softcap=None, rope_theta=1e4, mrope=None,
+                           pctx=None, layout: str = "whole"):
     """Single-token decode.  x: [B, 1, D]; cache_[kv]: this rank's cache in
     ``layout`` (:func:`kv_layout`; [B, Smax, G, dh] on one rank); pos:
     int64 scalar tensor on x's device, the tokens already in the cache.
@@ -358,9 +371,10 @@ def decode_attention_block(p: Attention, x, cache_k, cache_v,
     q = (x @ p.wq).reshape(b, 1, p.heads, dh)
     k = (x @ p.wk).reshape(b, 1, p.kv_heads, dh)
     v = (x @ p.wv).reshape(b, 1, p.kv_heads, dh)
-    positions = pos.expand(b, 1)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    # M-RoPE: every section at the cache's position, as the reference's
+    positions = pos.expand(b, 1) if mrope is None else pos.expand(b, 1, 3)
+    q = apply_rope(q, positions, rope_theta, mrope)
+    k = apply_rope(k, positions, rope_theta, mrope)
     if layout == "seq":
         o = _decode_seq_sharded(p, q[:, 0], k[:, 0], v[:, 0], cache_k,
                                 cache_v, pos, pctx, window=window,

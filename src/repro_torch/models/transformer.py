@@ -50,17 +50,13 @@ def _dims(cfg: ModelConfig) -> L.AttnDims:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The families the port serves (dense, moe, hybrid, rwkv) and the
-    features of them it implements."""
+    """The families the port serves: dense, moe, hybrid and rwkv."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: family 'encdec' (the encoder, cross-attention and "
+            f"their cache) is not ported yet (ROADMAP.md queue 1 item 9b)")
     if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    missing = [name for name, on in (
-        ("post_norm", cfg.post_norm),
-        ("mrope_sections", cfg.mrope_sections),
-        ("input_mode=embeddings", cfg.input_mode != "tokens")) if on]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
-                                  f"ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +68,9 @@ class Block(nn.Module):
     layer of a config with shared experts also holds ``shared_mlp``, the
     always-on experts as one MLP of width ``expert_d_ff *
     n_shared_experts``, on every EP rank (EP does not shard it; TP splits
-    it like a dense MLP)."""
+    it like a dense MLP).  Under ``post_norm`` (Gemma2) ``pn1`` and
+    ``pn2`` norm the attention and FFN outputs before the residual adds;
+    else they are None."""
 
     def __init__(self, cfg: ModelConfig, *, moe: bool, device, dtype,
                  pctx=None, experts: bool = True):
@@ -82,6 +80,10 @@ class Block(nn.Module):
         self.attn = L.Attention(_dims(cfg), device=device, dtype=dtype,
                                 tp=tp)
         self.ln2 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
+        self.pn1 = self.pn2 = None
+        if cfg.post_norm:
+            self.pn1 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
+            self.pn2 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
         self.moe = self.mlp = self.shared_mlp = None
         if moe:
             first, local = M.expert_shard(pctx, cfg.num_experts)
@@ -223,11 +225,19 @@ def window_schedule(cfg: ModelConfig, n_layers: int):
 
 def _attn_part(lp: Block, x, positions, cfg, *, window, causal=True,
                return_kv=False, pctx=None):
+    """The attention half of a block, summed over the model axis (so
+    ``pn1``, which norms each position over the whole ``d_model``, sees
+    the whole output)."""
     h = lp.ln1(x)
-    return L.attention(lp.attn, h, positions, _dims(cfg), causal=causal,
-                       window=window, softcap=cfg.attn_softcap,
-                       rope_theta=cfg.rope_theta, return_kv=return_kv,
-                       pctx=pctx)
+    out = L.attention(lp.attn, h, positions, _dims(cfg), causal=causal,
+                      window=window, softcap=cfg.attn_softcap,
+                      rope_theta=cfg.rope_theta, mrope=cfg.mrope_sections,
+                      return_kv=return_kv, pctx=pctx)
+    if lp.pn1 is None:
+        return out
+    if return_kv:
+        return lp.pn1(out[0]), out[1]
+    return lp.pn1(out)
 
 
 def _ffn_part(lp: Block, x, cfg, pctx=None, *, with_aux=False,
@@ -237,15 +247,19 @@ def _ffn_part(lp: Block, x, cfg, pctx=None, *, with_aux=False,
     computed there (nor averaged over the ranks).  ``valid`` [B] bool: the
     rows whose tokens take expert capacity (a cohort's padding rows do
     not).  ``reduce=False``: where :func:`_ffn_partial` says so, ``out`` is
-    this rank's partial sum over the model axis."""
+    this rank's partial sum over the model axis, and ``pn2`` is left to
+    the caller (RMSNorm is not linear: it must see the sum)."""
     h = lp.ln2(x)
+    whole = reduce or not _ffn_partial(lp, pctx)
     if lp.moe is None:
-        return L.mlp(lp.mlp, h, cfg.act, pctx, reduce=reduce), None
-    out, aux = M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=with_aux,
-                         valid=valid, reduce=reduce)
-    if lp.shared_mlp is not None:
-        out = out + L.mlp(lp.shared_mlp, h, cfg.act, pctx,
-                          reduce=reduce or not _ffn_partial(lp, pctx))
+        out, aux = L.mlp(lp.mlp, h, cfg.act, pctx, reduce=reduce), None
+    else:
+        out, aux = M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=with_aux,
+                             valid=valid, reduce=reduce)
+        if lp.shared_mlp is not None:
+            out = out + L.mlp(lp.shared_mlp, h, cfg.act, pctx, reduce=whole)
+    if lp.pn2 is not None and whole:
+        out = lp.pn2(out)
     return out, aux
 
 
@@ -260,10 +274,11 @@ def _ffn_partial(lp: Block, pctx) -> bool:
 def _decode_attn(lp: Block, x, ck, cv, pos, cfg, *, window, pctx=None,
                  layout="whole"):
     h = lp.ln1(x)
-    return L.decode_attention_block(
+    out = L.decode_attention_block(
         lp.attn, h, ck, cv, pos, _dims(cfg), window=window,
-        softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta, pctx=pctx,
-        layout=layout)
+        softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+        mrope=cfg.mrope_sections, pctx=pctx, layout=layout)
+    return out if lp.pn1 is None else lp.pn1(out)
 
 
 def _split_tp_seq_gather(x, pctx):
@@ -354,7 +369,13 @@ def _train_block(lp: Block, x, positions, cfg, pctx, window, sp=False):
         return x + f, aux
     f, aux = _ffn_part(lp, x, cfg, pctx, with_aux=True, reduce=False)
     if _ffn_partial(lp, pctx):
-        return _cut(x, pctx) + _reduce_cut(f, pctx), aux
+        f = _reduce_cut(f, pctx)
+        if lp.pn2 is not None:
+            # the norm works per position over the whole d_model, so it
+            # may follow the cut; its weight through *f*, as the final
+            # norm's (each rank's gradient is of its own positions)
+            f = L.rmsnorm(L.to_model(lp.pn2.w, pctx), f, lp.pn2.eps)
+        return _cut(x, pctx) + f, aux
     return _cut(x + f, pctx), aux
 
 

@@ -9,8 +9,10 @@ step's thousand-odd kernels.  ``ServeEngine`` keeps one
 is captured once per (plan fingerprint, cohort rows, cache length).
 
 A **slot** holds what a graph reads and writes at fixed addresses: the
-cohort's cache (the prefill fills it in place), a static token buffer, the
-static logits the graph writes, and the graph.  ``start`` takes a free slot
+cohort's cache (the prefill fills it in place), static input buffers (the
+sampled tokens, or for the embeddings input their stub embeddings,
+``Model.decode_inputs``, copied in every round), the static logits the
+graph writes, and the graph.  ``start`` takes a free slot
 of the cohort's shape or makes one; ``release`` hands it back when its
 cohort retires, and a later cohort of the same shape replays the same graph.
 A slot's first round runs eagerly: it warms up what a capture cannot do
@@ -66,7 +68,7 @@ class Slot:
     """One cohort shape's decode buffers and graph."""
     key: tuple                      # (cohort rows, cache length)
     cache: dict
-    tokens: torch.Tensor            # [rows, 1] int32: the decode input
+    inputs: dict                    # the decode batch's static buffers
     logits: Optional[torch.Tensor] = None   # what the graph writes
     graph: Optional[object] = None  # torch.cuda.CUDAGraph
     launches: dict = dataclasses.field(default_factory=dict)
@@ -102,9 +104,11 @@ class DecodeGraphs:
                 slot.rounds = 0
                 return slot
         cache = self.model.init_cache(rows, max_len, cache_dtype)
-        tokens = torch.zeros((rows, 1), dtype=torch.int32,
-                             device=self.model.device)
-        return Slot(key=key, cache=cache, tokens=tokens)
+        inputs = {name: torch.zeros_like(torch.from_numpy(val),
+                                         device=self.model.device)
+                  for name, val in self.model.decode_inputs(
+                      np.zeros(rows, np.int32)).items()}
+        return Slot(key=key, cache=cache, inputs=inputs)
 
     def release(self, slot: Slot) -> None:
         """Keep ``slot`` for a later cohort of its shape (the oldest free
@@ -134,8 +138,8 @@ class DecodeGraphs:
         under a graph they are the slot's static buffer, which the next
         round overwrites."""
         check_room(slot.cache)
-        slot.tokens.copy_(torch.from_numpy(
-            np.ascontiguousarray(tokens, np.int32)).reshape(-1, 1))
+        for name, val in self.model.decode_inputs(tokens).items():
+            slot.inputs[name].copy_(torch.from_numpy(val))
         if self.mode == "eager":
             logits = self._step(slot)
             self.stats["eager_rounds"] += 1
@@ -158,8 +162,8 @@ class DecodeGraphs:
         return logits
 
     def _step(self, slot: Slot) -> torch.Tensor:
-        logits, _ = self.model.decode_step(
-            self.params, {"tokens": slot.tokens}, slot.cache)
+        logits, _ = self.model.decode_step(self.params, slot.inputs,
+                                           slot.cache)
         return logits
 
     def _side(self) -> torch.cuda.Stream:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.data.pipeline import batch_for_model
 from repro_torch.device import resolve_device
 from repro_torch.parallel.context import PlanBinder
 from repro_torch.runtime.graphs import DecodeGraphs, Slot, decode_mode
@@ -350,9 +351,10 @@ class ServeEngine:
                                      self.cfg.cache_dtype)
         if "valid" in slot.cache:       # padding rows take no expert slot
             slot.cache["valid"].copy_(torch.from_numpy(self._my_valid(b)))
-        tokens = torch.from_numpy(np.ascontiguousarray(rows, np.int32))
-        logits, _ = lowering.prefill(
-            self.params, {"tokens": tokens.to(self.device)}, slot.cache)
+        rows = np.asarray(rows, np.int32)
+        batch = batch_for_model(self.model.cfg, {"tokens": rows},
+                                device=self.device)
+        logits, _ = lowering.prefill(self.params, batch, slot.cache)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         state = CohortState(slot=slot, logits=logits, generator=gen,

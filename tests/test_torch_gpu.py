@@ -155,6 +155,72 @@ def test_attention_kernel_at_head_dim_112_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (300, 300, True, 32),        # Gemma2's local layers, reduced window
+    (300, 300, True, None),      # its global layers
+    (1, 1, True, None),          # one q row
+    (200, 200, True, None),      # q length off the 128-row and 64-row tiles
+    (150, 150, True, 20),        # a window smaller than one kv tile
+    (77, 333, False, None),      # cross lengths
+])
+def test_attention_kernel_at_head_dim_256_on_card(sq, sk, causal, window):
+    """Gemma2's head_dim 256 (64-row kv tiles): 16 q heads over 8 kv
+    heads, softcap 50, in the main path's [B, S, heads, D] layout."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((2, sq, 16, 256), generator=gen, device="cuda")
+    k = torch.randn((2, sk, 8, 256), generator=gen, device="cuda")
+    v = torch.randn((2, sk, 8, 256), generator=gen, device="cuda")
+    q, k, v = (x.to(torch.bfloat16).transpose(1, 2) for x in (q, k, v))
+    kw = dict(causal=causal, window=window, softcap=50.0)
+    got = ops.flash_attention(q, k, v, **kw).float()
+    exp = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got, exp, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
+@pytest.mark.parametrize("window,softcap,q_scale", [
+    (None, 50.0, 10.0),          # scores several times Gemma2's cap
+    (20, 3.0, 1.0),              # a cap near the scores' own size, windowed
+])
+def test_attention_kernel_where_the_softcap_bites_on_card(d, window, softcap,
+                                                          q_scale):
+    """The softcap where it changes the output: the plain version without
+    it lies outside the tolerance, so a kernel that dropped or misplaced
+    the cap would fail; the kernel lies within it."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn((2, 200, 8, d), generator=gen, device="cuda") * q_scale
+    k = torch.randn((2, 200, 2, d), generator=gen, device="cuda")
+    v = torch.randn((2, 200, 2, d), generator=gen, device="cuda")
+    q, k, v = (x.to(torch.bfloat16).transpose(1, 2) for x in (q, k, v))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    exp = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    uncapped = flash_attention_plain(q.float(), k.float(), v.float(),
+                                     causal=True, window=window)
+    assert not torch.allclose(uncapped, exp, atol=2e-2, rtol=2e-2)
+    got = ops.flash_attention(q, k, v, **kw).float()
+    torch.testing.assert_close(got, exp, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_attention_gradient_at_head_dim_256_raises_on_card():
+    """The backward kernel has no head_dim 256: a gradient asked for there
+    raises before the forward runs, and nothing plain runs instead."""
+    _need_cuda()
+    q, k, v = (torch.zeros((1, 2, 64, 256), device="cuda",
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    ops.reset_launches()
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        ops.flash_attention(q, k, v)
+    assert not any(ops.launches().values())
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).shape == q.shape
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("hq,g,sq,sk,d,causal", [
     (8, 2, 300, 300, 112, True),     # ragged last q and kv tiles
     (4, 1, 77, 333, 112, False),     # one kv head for every q head
@@ -312,6 +378,10 @@ SMALL = {
                       shared_attn_every=2),
     "rwkv6_7b": dict(n_layers=2, d_model=512, d_ff=1024, vocab=1024,
                      rwkv_head_dim=64, rwkv_decay_lora=64),
+    "gemma2_9b": dict(d_model=512, n_heads=2, d_head=256, d_ff=256,
+                      vocab=1024),
+    "qwen2_vl_2b": dict(d_model=512, n_heads=4, n_kv_heads=2, d_ff=256,
+                        vocab=1024),
 }
 
 
@@ -327,16 +397,17 @@ def _graph_engine(arch):
 def _eager_tokens(engine, prompts):
     """Greedy tokens and logits of the model's own prefill and decode on a
     fresh cache (no engine, no graph)."""
+    from repro_torch.data.pipeline import batch_for_model
     model, params = engine.model, engine.params
     logits_kept, toks = [], []
+    batch = batch_for_model(model.cfg, {"tokens": prompts}, device="cuda")
     with torch.inference_mode():
         cache = model.init_cache(len(prompts), prompts.shape[1] + GRAPH_NEW)
-        logits, _ = model.prefill(
-            params, {"tokens": torch.from_numpy(prompts).cuda()}, cache)
+        logits, _ = model.prefill(params, batch, cache)
         for step in range(GRAPH_NEW):
             if step:
-                logits, _ = model.decode(
-                    params, {"tokens": tok.to(torch.int32)[:, None]}, cache)
+                logits, _ = model.decode(params, model.decode_batch(tok),
+                                         cache)
             tok = torch.argmax(logits, dim=-1)
             logits_kept.append(logits.float().cpu())
             toks.append(tok.cpu())
@@ -344,10 +415,13 @@ def _eager_tokens(engine, prompts):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["dbrx_132b", "zamba2_7b", "rwkv6_7b"])
+@pytest.mark.parametrize("arch", ["dbrx_132b", "zamba2_7b", "rwkv6_7b",
+                                  "gemma2_9b", "qwen2_vl_2b"])
 def test_decode_graph_equals_eager_on_card(arch):
     """Graph decode gives the eager loop's greedy tokens; the logits' gap
-    is printed (a replay runs the captured kernels on the same inputs)."""
+    is printed (a replay runs the captured kernels on the same inputs).
+    Qwen2-VL's decode input is the stub embedding of each sampled token,
+    copied into the graph's static buffer every round."""
     _need_cuda()
     import numpy as np
 

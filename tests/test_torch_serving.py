@@ -174,17 +174,15 @@ def test_engine_over_ranks_checks_its_context_and_batch(engines):
 
 
 def test_unported_families_raise():
+    """The encoder-decoder is the one family left (item 9b); the
+    post_norm, M-RoPE and embeddings-input families build
+    (``tests/test_torch_families.py`` holds them to the reference)."""
     import dataclasses
     cfg = get_config("dbrx_132b").reduced()
-    with pytest.raises(NotImplementedError, match="family"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         build_model(dataclasses.replace(cfg, family="encdec"), device="cpu")
-    with pytest.raises(NotImplementedError, match="input_mode=embeddings"):
-        build_model(dataclasses.replace(cfg, input_mode="embeddings"),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="post_norm"):
-        build_model(dataclasses.replace(cfg, post_norm=True), device="cpu")
     with pytest.raises(ValueError, match="no config"):
-        get_config("gemma2_9b")
+        get_config("seamless_m4t_medium")
 
 
 def test_serve_cli_smoke(capsys):

@@ -1,4 +1,6 @@
-"""Training the reduced DBRX and Mistral-NeMo in both packages.
+"""Training the reduced DBRX, Mistral-NeMo, Gemma2 and Qwen2-VL in both
+packages (Gemma2's post-norms, windows and softcaps; Qwen2-VL's M-RoPE
+and its embeddings input through the stub frontend).
 
 The reference's parameters, carried across by ``convert.params_from_jax``,
 and the same ``SyntheticLM`` batches: ``Model.loss`` and every parameter's
@@ -29,7 +31,7 @@ from repro_torch.models.api import build_model
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.runtime.trainer import Trainer, TrainerConfig, trainable
 
-ARCHS = ["dbrx_132b", "mistral_nemo_12b"]
+ARCHS = ["dbrx_132b", "mistral_nemo_12b", "gemma2_9b", "qwen2_vl_2b"]
 BATCH, SEQ, STEPS, LR = 4, 32, 5, 3e-3
 
 
@@ -52,7 +54,7 @@ def _raw(cfg, step=0):
 def test_loss_and_every_gradient_match_reference(arch):
     jcfg, cfg, jmodel, np_params, model = _setup(arch)
     raw = _raw(cfg)
-    jbatch = {k: jnp.asarray(v) for k, v in raw.items()}
+    jbatch = jdata.batch_for_model(jcfg, raw)
     (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         jmodel.loss, has_aux=True))(jax.tree_util.tree_map(jnp.asarray,
                                                            np_params), jbatch)
