@@ -118,7 +118,17 @@ Phases; any failure raises and the script exits non-zero:
    eager loop with equal greedy tokens, exact launch counts (42 attention
    launches a Gemma2 prefill), walls and peak memory; then Gemma2's loss
    with trainable parameters must raise ``NotImplementedError`` on the
-   card (no attention backward at head_dim 256).
+   card (no attention backward at head_dim 256);
+13. the encoder-decoder, SeamlessM4T-medium at full width and depth (12
+   encoder and 12 decoder layers, 0.62 B parameters): served as in phase
+   12 (4 prompts x 512 tokens, 32 new; the encoder over the stub
+   frontend's embeddings of the prompt, the decoder over its tokens),
+   with exactly ``n_enc_layers + 2 * n_layers`` attention launches a
+   prefill and ``n_layers`` a decode round (the cross-attention, one q
+   row against the cache's 544 ``enc_out`` rows, replayed from the
+   graph): 408 a ``generate``; then trained through ``Trainer`` for 8
+   steps of 4 x 512 ``SyntheticLM`` tokens, with finite, falling losses
+   and 36 attention forwards and 36 backwards a step.
 
 Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
 2 x 2 ranks and of one Kimi-K2 prefill layer at 2 x 8 (capacity factors
@@ -131,7 +141,13 @@ without a softcap as a yardstick) and its edges (one q row, a ragged q
 length, a window under one kv tile).  At every head dim it holds the
 softcap where it bites (q x 10 under a cap of 50, or a cap of 3), each
 case first showing that the plain version without the cap lies outside
-the tolerance.
+the tolerance.  Phase 13's attention shapes are held and timed there too:
+SeamlessM4T's encoder, decoder and cross-attention at 4 x 512 (head_dim
+64, MHA, non-causal but the decoder's self-attention) and a decode step's
+cross-attention (one q row over 544 keys), and one q row over a ragged kv
+tile; phase 4 runs a small Seamless-shaped model, and phase 10 the
+attention backward non-causal at head_dim 64 with MHA, at equal lengths
+(timed) and with the q and kv lengths apart.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -164,7 +180,11 @@ runs phase 11 alone after them (on four cards over nccl);
 
   python3 chip_smoke.py --families-only
 
-runs phase 12 alone after them.
+runs phase 12 alone after them;
+
+  python3 chip_smoke.py --encdec-only
+
+runs phase 13 alone after them.
 """
 
 from __future__ import annotations
@@ -190,6 +210,12 @@ SERVES = (("dbrx_132b", 4), ("zamba2_7b", None), ("rwkv6_7b", None))
 # tokens, so its 4,096-token windows bite
 FAMILIES = (("gemma2_9b", 2, 8160, 32), ("starcoder2_15b", 4, 512, 32),
             ("minitron_8b", 4, 512, 32), ("qwen2_vl_2b", 4, 512, 32))
+# phase 13: SeamlessM4T-medium at full width and depth, served (arch,
+# prompts, prompt tokens, new tokens: the decode cache's enc_out of 544
+# rows), then trained through Trainer on SyntheticLM batches of 4 x 512
+# (AdamW, bf16 state, cosine schedule)
+ENCDEC = ("seamless_m4t_medium", 4, 512, 32)
+ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_LR = 8, 1e-4
 KIMI_H = 7168                           # Kimi-K2's d_model
 RANKS = (2, 2)                          # phase 6: pods x ep ranks
 KIMI_RANKS = (2, 8)                     # phase 7: pods x ep ranks
@@ -590,10 +616,23 @@ def kernel_phase() -> dict:
         ("cross-112-g1", (2, 4, 1, 77, 333, 112), False, None, None),
         ("q-short", (1, 4, 4, 129, 257, 64), False, None, None),
         ("window-long", (1, 4, 2, 700, 700, 128), True, 150, None),
+        # phase 13's SeamlessM4T prefill (4 prompts of 512 tokens, 16 heads
+        # of 64, MHA): the encoder's self-attention and the decoder's
+        # cross-attention non-causal, the decoder's self-attention causal;
+        # a decode step's cross-attention, one q row against the cache's
+        # 544 enc_out rows (the graph holds it); one q row over a ragged
+        # kv tile
+        ("seamless-enc", (4, 16, 16, 512, 512, 64), False, None, None),
+        ("seamless-dec", (4, 16, 16, 512, 512, 64), True, None, None),
+        ("seamless-cross", (4, 16, 16, 512, 512, 64), False, None, None),
+        ("decode-cross", (4, 16, 16, 1, 544, 64), False, None, None),
+        ("q1-ragged", (1, 4, 2, 1, 77, 64), False, None, None),
     ]
     attn_err = 0.0
-    rank_shapes, family_shapes = {}, {}
-    families = ("starcoder2", "minitron", "qwen2-vl")
+    rank_shapes, family_shapes, encdec_shapes = {}, {}, {}
+    families = ("zamba2", "starcoder2", "minitron", "qwen2-vl")
+    encdec = ("seamless-enc", "seamless-dec", "seamless-cross",
+              "decode-cross")
     for i, (label, shape, causal, window, softcap) in enumerate(attn_cases):
         q, k, v = attn_inputs(*shape, seed=10 + i)
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -607,17 +646,19 @@ def kernel_phase() -> dict:
               f"{'within' if ok else 'OUTSIDE'} atol=rtol=2e-2")
         if not ok:
             failures.append(f"flash_attention {label}")
-        if label in ("dbrx", "zamba2", "kimi", "mistral-tp4",
-                     "dbrx-tp2") + families:
+        if label in ("dbrx", "kimi", "mistral-tp4",
+                     "dbrx-tp2") + families + encdec:
             b, hq, g, sq, t, d = shape
             ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw))
             plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
                             iters=5)
             lib = device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
+                q, k, v, is_causal=causal, enable_gqa=True))
             issue = host_ms(lambda: ops.flash_attention(q, k, v, **kw))
             nbytes = 2 * (2 * b * hq * sq * d + 2 * b * g * t * d)
-            flops = 4 * b * hq * d * (sq * (sq + 1) // 2)   # causal pairs
+            # the (q, k) pairs that attend: causal (sq == t here) or all
+            pairs = causal_pairs(sq, None) if causal else sq * t
+            flops = 4 * b * hq * d * pairs
             bnd, by = bound_ms(nbytes, flops)
             print(f"  flash_attention {label} time (device, CUDA graph of "
                   f"20 calls): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
@@ -630,8 +671,9 @@ def kernel_phase() -> dict:
                 attn_err = err
                 fa_ms, fa_plain, fa_lib, fa_bound, fa_by = \
                     ms, plain, lib, bnd, by
-            elif label != "zamba2":
-                kept = family_shapes if label in families else rank_shapes
+            else:
+                kept = (family_shapes if label in families else
+                        encdec_shapes if label in encdec else rank_shapes)
                 kept[label] = dict(
                     shape=list(shape), ms=ms, plain_ms=plain, bound_ms=bnd,
                     bound_by=by, library_ms=lib, max_abs_err=err)
@@ -671,7 +713,7 @@ def kernel_phase() -> dict:
             max_abs_err=attn_err, ms=fa_ms, plain_ms=fa_plain,
             bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib,
             rank_shapes=rank_shapes, family_shapes=family_shapes,
-            head_dim_256=head256),
+            encdec_shapes=encdec_shapes, head_dim_256=head256),
     }
     return rows
 
@@ -1142,6 +1184,12 @@ def reference_phase() -> None:
     # input (the stub frontend of the prompt and of each sampled token)
     compare_small_model("Qwen2-VL-shaped", get_config("qwen2_vl_2b").reduced(
         **small), seed=14)
+    # Seamless-shaped: head_dim 64 with MHA as at full width, 2 encoder and
+    # 2 decoder layers, the stub frontend's source embeddings; decode's
+    # cross-attention one q row over the cache's 80 enc_out rows
+    compare_small_model("Seamless-shaped", get_config(
+        "seamless_m4t_medium").reduced(d_model=512, n_heads=8, n_kv_heads=8,
+                                       d_ff=512, vocab=1024), seed=15)
     # Zamba2-shaped: mamba heads of 64 with ds 64 as at full width, and the
     # shared block at head_dim 112 (4 heads over d_model 448), shared after
     # every 2 of 4 mamba layers
@@ -1307,10 +1355,13 @@ def compare_small_model(label: str, cfg, *, seed: int, seq: int = 64,
     worst = logits_gap(label, (gpu, params, on_card),
                        (cpu, cpu_params, on_cpu), toks)
     attn = ops.launches()["flash_attention"]
+    want_attn = attention_launches(cfg, forwards=4)
     dropped = tally["pairs"] - tally["kept"]
     shape = (f"top-{cfg.top_k} of {cfg.num_experts}, {cfg.n_shared_experts} "
              f"shared expert(s), capacity factor {cfg.moe_capacity}"
              if cfg.is_moe else
+             f"{cfg.n_enc_layers} encoder layers, cross-attention"
+             if cfg.family == "encdec" else
              f"dense, window {cfg.window}, softcaps {cfg.attn_softcap}/"
              f"{cfg.final_softcap}, post_norm {cfg.post_norm}, M-RoPE "
              f"{cfg.mrope_sections}, input {cfg.input_mode}")
@@ -1332,9 +1383,9 @@ def compare_small_model(label: str, cfg, *, seed: int, seq: int = 64,
                              f"below the CPU's k-th choice")
     if cfg.top_k < cfg.num_experts and dropped == 0:
         raise AssertionError(f"reference {label}: no expert overflowed")
-    if attn != cfg.n_layers:
+    if attn != want_attn:
         raise AssertionError(f"reference {label}: flash_attention launched "
-                             f"{attn} times, not {cfg.n_layers}")
+                             f"{attn} times, not {want_attn}")
 
 
 # ---------------------------------------------------------------------------
@@ -1351,14 +1402,28 @@ def launch_counts(**counts) -> dict:
     return want
 
 
+def attention_launches(cfg, forwards: int) -> int:
+    """``flash_attention`` launches of 1 prefill and ``forwards - 1``
+    decode steps of a dense, moe or encdec ``cfg``: one a layer at
+    prefill; the encoder-decoder's ``n_enc_layers + 2 * n_layers`` at
+    prefill (the encoder, the decoder's self- and cross-attention) and
+    ``n_layers`` a decode step (its cross-attention, one q row)."""
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers + 2 * cfg.n_layers
+                + cfg.n_layers * (forwards - 1))
+    return cfg.n_layers
+
+
 def expected_launches(cfg, forwards: int) -> dict:
     """Kernel launches of one ``generate``: ``forwards`` = 1 prefill plus
-    the decode rounds.  Attention and the scans run at prefill only; the
-    dispatch pack runs three times per MoE layer in every forward."""
+    the decode rounds.  Attention runs at prefill only (but the
+    encoder-decoder's cross-attention, every forward), the scans at
+    prefill only; the dispatch pack runs three times per MoE layer in
+    every forward."""
     from repro_torch.models.ssm import n_shared_calls
     want = launch_counts()
-    if cfg.family == "dense":
-        want["flash_attention"] = cfg.n_layers
+    if cfg.family in ("dense", "encdec"):
+        want["flash_attention"] = attention_launches(cfg, forwards)
     elif cfg.family == "moe":
         want["dispatch_pack"] = 3 * cfg.n_layers * forwards
         want["flash_attention"] = cfg.n_layers
@@ -1411,6 +1476,9 @@ def serve_phase(arch: str, layers, *, prompts_n: int = PROMPTS,
              f"wkv head_dim {cfg.rwkv_head_dim}, decay LoRA "
              f"{cfg.rwkv_decay_lora}, d_ff {cfg.d_ff}"
              if cfg.family == "rwkv" else
+             f"{cfg.n_enc_layers} encoder layers, cross-attention, d_ff "
+             f"{cfg.d_ff} ({cfg.act}), source input {cfg.input_mode}"
+             if cfg.family == "encdec" else
              f"d_ff {cfg.d_ff} ({'gated ' if cfg.mlp_gated else ''}"
              f"{cfg.act}), window {cfg.window}, softcaps {cfg.attn_softcap}/"
              f"{cfg.final_softcap}, post_norm {cfg.post_norm}, M-RoPE "
@@ -2731,10 +2799,11 @@ ATTN_BWD_LONG = (1, 48, 8, 4096, 4096, 128)
 
 
 def time_attention_bwd(label: str, args: tuple, lse_ref, kw: dict) -> dict:
-    """The backward kernel's device time at one causal shape, each pass's
-    from a profiler trace, its host issue, the plain backward's time, the
-    backward of ``scaled_dot_product_attention`` on the same q, k, v, do
-    and the bound; printed and returned as a kernels-line row's numbers."""
+    """The backward kernel's device time at one shape (causal with equal
+    lengths, or no mask), each pass's from a profiler trace, its host
+    issue, the plain backward's time, the backward of
+    ``scaled_dot_product_attention`` on the same q, k, v, do and the
+    bound; printed and returned as a kernels-line row's numbers."""
     import torch
     import torch.nn.functional as F
 
@@ -2755,16 +2824,17 @@ def time_attention_bwd(label: str, args: tuple, lse_ref, kw: dict) -> dict:
     qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=kw["causal"], enable_gqa=True)
     # the backward alone: forward and backward captured together (so the
     # backward runs on the capturing stream), less the forward
     lib = device_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do)) \
         - device_ms(sdpa)
     # q, o, do read and dq written; k, v read and dk, dv written; the lse
-    # read; the five products of the causal pairs
+    # read; the five products of the pairs that attend
     nbytes = 2 * (4 * b * hq * sq * d + 4 * b * g * t * d) + 4 * b * hq * sq
-    flops = 10 * b * hq * d * (sq * (sq + 1) // 2)
+    pairs = causal_pairs(sq, None) if kw["causal"] else sq * t
+    flops = 10 * b * hq * d * pairs
     bnd, by = bound_ms(nbytes, flops)
     shares = ", ".join(
         f"{p} {v:.4f} ms ({v / sum(passes.values()):.0%})" if v else
@@ -2814,7 +2884,9 @@ def attention_bwd_checks(failures: list) -> dict:
     at DBRX's shape also two calls bit-identical; DBRX's shape and
     ``ATTN_BWD_LONG`` (held against the plain backward alone) timed beside
     the backward of ``scaled_dot_product_attention``, with the dK/dV
-    blocks' balance as they ran."""
+    blocks' balance as they ran; SeamlessM4T's encoder and decoder
+    self-attention shapes (head_dim 64, non-causal and causal) timed as
+    well."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -2829,6 +2901,13 @@ def attention_bwd_checks(failures: list) -> dict:
         ("all-masks", (1, 4, 2, 96, 160, 128), True, 48, 20.0),
         ("cross-112-g1", (2, 4, 1, 77, 133, 112), False, None, None),
         ("one-q-tile", (1, 2, 2, 64, 64, 64), True, None, None),
+        # SeamlessM4T's training (phase 13) at head_dim 64 with MHA: the
+        # encoder's self-attention and the decoder's cross-attention
+        # non-causal, the decoder's self-attention causal over four q
+        # tiles; and cross lengths apart, q longer than kv
+        ("seamless-enc", (4, 16, 16, 512, 512, 64), False, None, None),
+        ("seamless-dec", (4, 16, 16, 512, 512, 64), True, None, None),
+        ("seamless-cross", (2, 16, 16, 300, 200, 64), False, None, None),
         ("long", ATTN_BWD_LONG, True, None, None),
     ]
     row = {}
@@ -2881,12 +2960,13 @@ def attention_bwd_checks(failures: list) -> dict:
             row = dict(max_abs_err=max(errs),
                        **time_attention_bwd(label, (q, k, v, out, do, lse),
                                             lse_ref, kw))
-        elif label == "long":
-            dkdv_balance(shape, (q, k, v, out, do, lse), kw, failures)
-            row["long"] = dict(shape=list(shape), max_abs_err=max(errs),
-                               **time_attention_bwd(
-                                   label, (q, k, v, out, do, lse), lse_ref,
-                                   kw))
+        elif label in ("long", "seamless-enc", "seamless-dec"):
+            if label == "long":
+                dkdv_balance(shape, (q, k, v, out, do, lse), kw, failures)
+            row[label] = dict(shape=list(shape), max_abs_err=max(errs),
+                              **time_attention_bwd(
+                                  label, (q, k, v, out, do, lse), lse_ref,
+                                  kw))
         # the long shape's plain backward holds about 20 GB of fp32 scores
         del q, k, v, do, out, lse, lse_ref, got
         torch.cuda.empty_cache()
@@ -2958,6 +3038,75 @@ def grad_reference_check() -> None:
         raise AssertionError(f"small model: launches {counts} != {want}")
 
 
+def synthetic_trainer(cfg, lr: float, steps: int, ckpt_dir=None,
+                      save_at: int = 1):
+    """The card's bf16 model of ``cfg`` and a function ``trainer(total,
+    ckpt=False)`` that makes a fresh ``Trainer`` of it: ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` SyntheticLM tokens (seed 0) a step through
+    ``batch_for_model``, AdamW (weight decay 0.01) on a cosine schedule of
+    ``lr`` over ``steps`` with one warm-up step, weights drawn from seed 0,
+    every step logged; with ``ckpt``, a checkpoint into ``ckpt_dir`` every
+    ``save_at`` steps, restored from there when one exists."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
+        batch_for_model
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+
+    def make_batch(step):
+        return batch_for_model(cfg, data.batch(step), device="cuda")
+
+    def trainer(total, ckpt=False):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        return Trainer(model, adamw(lr=cosine_schedule(lr, warmup=1,
+                                                       total=steps),
+                                    weight_decay=0.01),
+                       make_batch, TrainerConfig(
+                           total_steps=total, checkpoint_every=save_at,
+                           checkpoint_dir=str(ckpt_dir) if ckpt else None,
+                           log_every=1),
+                       generator=gen)
+    return trainer
+
+
+def train_gates(hist: list, counts: dict, want: dict) -> tuple[list, float]:
+    """Prints each step of a trainer's ``hist`` and the mean wall of steps 2
+    on with its tokens/s (``TRAIN_BATCH`` x ``TRAIN_SEQ`` a step).  Returns
+    the failures of the training gates (launches ``counts`` equal to
+    ``want``, finite losses and gradient norms, the mean loss of the last 3
+    steps below that of the first 3) and that mean wall in ms."""
+    import math
+    for h in hist:
+        print(f"  step {h['step']}: loss {h['loss']:.5f} (ce {h['ce']:.5f}, "
+              f"aux {h['aux']:.5f}), grad norm {h['grad_norm']:.4f}, wall "
+              f"{h['wall'] * 1e3:.1f} ms")
+    walls = [h["wall"] for h in hist]
+    step_ms = sum(walls[1:]) / (len(walls) - 1) * 1e3
+    print(f"  first step {walls[0] * 1e3:.1f} ms; steps 2-{len(walls)} "
+          f"{step_ms:.1f} ms a step, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s")
+    failures = []
+    if counts != want:
+        failures.append(f"launches {counts} != {want}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        failures.append("a non-finite loss or gradient norm")
+    first = sum(h["loss"] for h in hist[:3]) / 3
+    last = sum(h["loss"] for h in hist[-3:]) / 3
+    print(f"  mean loss of the first 3 steps {first:.5f}, of the last 3 "
+          f"{last:.5f}")
+    if not last < first:
+        failures.append(f"the loss did not fall: {first:.5f} -> {last:.5f}")
+    return failures, step_ms
+
+
 def train_full_width() -> dict:
     """DBRX-132B at full width, depth ``TRAIN_DEPTH``, through ``Trainer``:
     ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, a
@@ -2972,36 +3121,14 @@ def train_full_width() -> dict:
     import torch
 
     from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
-        batch_for_model
     from repro_torch.kernels import ops
-    from repro_torch.models.api import build_model, param_count
-    from repro_torch.optim import adamw, cosine_schedule
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.models.api import param_count
 
     cfg = dataclasses.replace(get_config("dbrx_132b"), n_layers=TRAIN_DEPTH)
-    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH, seed=0))
-
-    def make_batch(step):
-        return batch_for_model(cfg, data.batch(step), device="cuda")
-
-    def optimizer():
-        return adamw(lr=cosine_schedule(TRAIN_LR, warmup=1,
-                                        total=TRAIN_STEPS),
-                     weight_decay=0.01)
-
     ckpt_dir = ROOT / "build" / "train_checkpoint"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-
-    def trainer(total, ckpt):
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(0)
-        return Trainer(model, optimizer(), make_batch, TrainerConfig(
-            total_steps=total, checkpoint_every=TRAIN_SAVE_AT,
-            checkpoint_dir=str(ckpt_dir) if ckpt else None, log_every=1),
-            generator=gen)
+    trainer = synthetic_trainer(cfg, TRAIN_LR, TRAIN_STEPS, ckpt_dir,
+                                save_at=TRAIN_SAVE_AT)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3038,41 +3165,19 @@ def train_full_width() -> dict:
     counts = ops.launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = tr.metrics_history
-    for h in hist:
-        print(f"  step {h['step']}: loss {h['loss']:.5f} (ce {h['ce']:.5f}, "
-              f"aux {h['aux']:.5f}), grad norm {h['grad_norm']:.4f}, wall "
-              f"{h['wall'] * 1e3:.1f} ms")
-    walls = [h["wall"] for h in hist]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    tps = tokens * (len(walls) - 1) / sum(walls[1:])
-    print(f"  first step {walls[0] * 1e3:.1f} ms; steps 2-{len(walls)} "
-          f"{sum(walls[1:]) / (len(walls) - 1) * 1e3:.1f} ms a step, "
-          f"{tps:.1f} tokens/s; peak memory {peak_gb:.2f} GB "
-          f"(max_memory_allocated); checkpoint of step {TRAIN_SAVE_AT} "
-          f"written in {save_s:.1f} s")
     want = launch_counts(dispatch_pack=3 * cfg.n_layers * TRAIN_STEPS,
                          dispatch_pack_bwd=3 * cfg.n_layers * TRAIN_STEPS,
                          flash_attention=cfg.n_layers * TRAIN_STEPS,
                          flash_attention_bwd=cfg.n_layers * TRAIN_STEPS)
+    failures, step_ms = train_gates(hist, counts, want)
+    print(f"  peak memory {peak_gb:.2f} GB (max_memory_allocated); "
+          f"checkpoint of step {TRAIN_SAVE_AT} written in {save_s:.1f} s")
     print(f"  launches over {TRAIN_STEPS} steps: {counts} (expected {want}: "
           f"per step and layer 3 packs and 3 pack backwards, 1 attention "
           f"forward and 1 backward; nothing recomputed)")
-    failures = []
-    if counts != want:
-        failures.append(f"launches {counts} != {want}")
-    import math
-    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-               for h in hist):
-        failures.append("a non-finite loss or gradient norm")
-    first = sum(h["loss"] for h in hist[:3]) / 3
-    last = sum(h["loss"] for h in hist[-3:]) / 3
-    print(f"  mean loss of the first 3 steps {first:.5f}, of the last 3 "
-          f"{last:.5f}")
-    if not last < first:
-        failures.append(f"the loss did not fall: {first:.5f} -> {last:.5f}")
     losses = [h["loss"] for h in hist]
     update_ms, clip_ms = time_update(tr)
-    rest = sum(walls[1:]) / (len(walls) - 1) * 1e3 - update_ms - clip_ms
+    rest = step_ms - update_ms - clip_ms
     print(f"  where a step's time goes: the AdamW update {update_ms:.1f} ms "
           f"and the clip {clip_ms:.1f} ms (each timed alone on the live "
           f"state, with zero gradients), the forward, backward and "
@@ -3504,6 +3609,72 @@ def gemma_gradient_raises(engine, cfg) -> None:
                              f"{ops.launches()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the encoder-decoder at full width and depth
+# ---------------------------------------------------------------------------
+
+def encdec_phase() -> dict:
+    """SeamlessM4T-medium served through :func:`serve_phase` (``ENCDEC``:
+    the gates of phase 5, exactly ``n_enc_layers + 2 * n_layers``
+    attention launches a prefill and ``n_layers`` a decode round), freed,
+    then trained (:func:`train_encdec`).  Returns the launches by path."""
+    import torch
+    t0 = time.monotonic()
+    arch, prompts_n, prompt_len, max_new = ENCDEC
+    print(f"  {arch}: {prompts_n} prompts x {prompt_len} tokens, {max_new} "
+          f"new")
+    by_path = {arch: serve_phase(arch, None, prompts_n=prompts_n,
+                                 prompt_len=prompt_len, max_new=max_new)}
+    by_path[f"{arch}_train"] = train_encdec(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 13 took {time.monotonic() - t0:.1f} s")
+    return by_path
+
+
+def train_encdec(arch: str) -> dict:
+    """The encoder-decoder at full width and depth through ``Trainer``:
+    ``ENCDEC_TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    SyntheticLM tokens (the stub frontend's embeddings as the source, the
+    tokens as the target).  Gates: finite losses and gradient norms, the
+    mean loss of the last 3 steps below that of the first 3, and exact
+    launches: a step's forward runs attention ``n_enc_layers + 2 *
+    n_layers`` times (with the log-sum-exp) and its backward as many
+    backward kernels, nothing recomputed.  Returns the launches."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import param_count
+
+    cfg = get_config(arch)
+    trainer = synthetic_trainer(cfg, ENCDEC_TRAIN_LR, ENCDEC_TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer(ENCDEC_TRAIN_STEPS)
+    ops.reset_launches()
+    tr.run()
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    a_step = cfg.n_enc_layers + 2 * cfg.n_layers
+    want = launch_counts(flash_attention=a_step * ENCDEC_TRAIN_STEPS,
+                         flash_attention_bwd=a_step * ENCDEC_TRAIN_STEPS)
+    failures, _ = train_gates(tr.metrics_history, counts, want)
+    print(f"  {cfg.name} trained: {param_count(tr.state.params) / 1e9:.3f} B "
+          f"parameters, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, lr "
+          f"{ENCDEC_TRAIN_LR}; peak memory {peak_gb:.2f} GB "
+          f"(max_memory_allocated)")
+    print(f"  launches over {ENCDEC_TRAIN_STEPS} steps: {counts} (expected "
+          f"{want}: {a_step} attention forwards and {a_step} backwards a "
+          f"step)")
+    del tr, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"phase 13: {failures}")
+    return counts
+
+
 def ptxas_report(log: str) -> list:
     """(function, registers, spill stores, spill loads) of each kernel
     function in an ``nvcc -Xptxas -v`` log."""
@@ -3562,6 +3733,8 @@ def main(argv=None) -> None:
                     help="phases 1, 2 and 11 only (on four cards: nccl)")
     ap.add_argument("--families-only", action="store_true",
                     help="phases 1, 2 and 12 only")
+    ap.add_argument("--encdec-only", action="store_true",
+                    help="phases 1, 2 and 13 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3592,6 +3765,8 @@ def main(argv=None) -> None:
                          f"Mistral-NeMo-12B over (1, 1, 4)")
     families_title = ("phase 12: Gemma2-9B, StarCoder2-15B, Minitron-8B and "
                       "Qwen2-VL-2B's backbone at full width and depth")
+    encdec_title = ("phase 13: SeamlessM4T-medium, the encoder-decoder, "
+                    "served and trained at full width and depth")
     if args.kimi_only:
         print(kimi_title)
         kimi_phase(depth, kimi_new)
@@ -3599,6 +3774,11 @@ def main(argv=None) -> None:
         print(families_title)
         counts = families_phase()
         print(f"  launches of phase 12's measured calls: {counts}")
+    elif args.encdec_only:
+        print(encdec_title)
+        counts = encdec_phase()
+        print(f"  launches of phase 13's measured call and training: "
+              f"{counts}")
     elif args.tp_only:
         print(tp_title)
         tp_phase()
@@ -3649,6 +3829,8 @@ def main(argv=None) -> None:
         by_path["train_ranks"] = train_ranks_phase()
         print(families_title)
         by_path.update(families_phase())
+        print(encdec_title)
+        by_path.update(encdec_phase())
 
         for name, row in rows.items():
             row["launches"] = sum(c.get(name, 0) for c in by_path.values())

@@ -73,6 +73,14 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def with_depth(self, n_layers: int) -> "ModelConfig":
+        """This config with its depth cut to ``n_layers`` and its widths
+        kept; an encoder-decoder's encoder cut alike, as in ``reduced``."""
+        changes = dict(n_layers=n_layers)
+        if self.family == "encdec":
+            changes["n_enc_layers"] = n_layers
+        return dataclasses.replace(self, **changes)
+
     def reduced(self, *, n_layers=2, d_model=64, n_heads=4, n_kv_heads=None,
                 d_ff=128, vocab=512, num_experts=None, ssm_state=16,
                 **kw) -> "ModelConfig":
@@ -114,13 +122,14 @@ class ModelConfig:
 
 ARCH_IDS = ["starcoder2_15b", "minitron_8b", "mistral_nemo_12b",
             "gemma2_9b", "dbrx_132b", "kimi_k2_1t", "qwen2_vl_2b",
-            "zamba2_7b", "rwkv6_7b"]
+            "seamless_m4t_medium", "zamba2_7b", "rwkv6_7b"]
 
 # canonical dash-style aliases
 ALIASES = {"starcoder2-15b": "starcoder2_15b", "minitron-8b": "minitron_8b",
            "mistral-nemo-12b": "mistral_nemo_12b", "gemma2-9b": "gemma2_9b",
            "dbrx-132b": "dbrx_132b", "kimi-k2-1t-a32b": "kimi_k2_1t",
            "kimi-k2-1t": "kimi_k2_1t", "qwen2-vl-2b": "qwen2_vl_2b",
+           "seamless-m4t-medium": "seamless_m4t_medium",
            "zamba2-7b": "zamba2_7b", "rwkv6-7b": "rwkv6_7b"}
 
 

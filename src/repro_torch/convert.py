@@ -6,7 +6,9 @@ side) and returns the port's parameter module of the config's family with
 the same values: ``Transformer`` (dense, moe), ``Zamba2`` (hybrid: stacked
 ``mamba`` [L, ...], ``shared``) or ``RWKV6`` (rwkv: stacked ``layers``).
 Stacked [L, ...] trees are unstacked into one block per layer (with
-Gemma2's post-norms ``pn1``/``pn2``; a config with tied embeddings, as
+Gemma2's post-norms ``pn1``/``pn2``; the encoder-decoder's stacked
+``enc_layers`` into ``enc_blocks``, with ``enc_norm``, and each decoder
+block's ``lnx``/``xattn``/``pnx``; a config with tied embeddings, as
 Gemma2's and Qwen2-VL's, has no ``unembed``).  Matrices are
 rounded once to ``dtype``, which gives the values the reference's per-use
 ``.astype(dt)`` gives; what the reference keeps or computes with in fp32
@@ -72,6 +74,10 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *, device=None,
     else:
         blocks, stacked = params.blocks, np_params["layers"]
         prefix = np_params.get("layers_prefix", [])
+    if cfg.family == "encdec":
+        put(params.enc_norm.w, np_params["enc_norm"]["w"])
+        for i, blk in enumerate(params.enc_blocks):
+            put_tree(blk, _tree_index(np_params["enc_layers"], i))
     for i, blk in enumerate(blocks):
         tree = (prefix[i] if i < len(prefix)
                 else _tree_index(stacked, i - len(prefix)))

@@ -94,14 +94,11 @@ def batch_for_model(cfg: ModelConfig, data: dict, rng_seed: int = 0, *,
     "labels"}``.  With a ``pctx`` the batch is the global one and the
     result this rank's data-parallel rows, ``[dp_index * B/dp, (dp_index +
     1) * B/dp)`` (the order of the reference's ``batch_specs``); every
-    model rank of a data-parallel group takes the same rows.  The encdec
-    input waits for the encoder-decoder (ROADMAP.md queue 1 item 9b) and
-    raises here."""
+    model rank of a data-parallel group takes the same rows.  The
+    encoder-decoder (``family="encdec"``, SeamlessM4T) takes the stub
+    frontend's embeddings as its source and the tokens as its target:
+    ``{"src_embeds", "tgt_tokens", "labels"}``."""
     dev = resolve_device(device)
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encdec input is not ported yet (ROADMAP.md "
-            f"queue 1 item 9b)")
     rows = slice(None)
     if pctx is not None:
         b, dp = data["tokens"].shape[0], pctx.dp_size
@@ -111,7 +108,10 @@ def batch_for_model(cfg: ModelConfig, data: dict, rng_seed: int = 0, *,
         rows = slice(pctx.dp_index * (b // dp),
                      (pctx.dp_index + 1) * (b // dp))
     toks = np.asarray(data["tokens"])[rows]
-    if cfg.input_mode == "embeddings":
+    if cfg.family == "encdec":
+        out = {"src_embeds": _stub_embed(toks, cfg.d_model),
+               "tgt_tokens": toks}
+    elif cfg.input_mode == "embeddings":
         b, s = toks.shape
         out = {"embeds": _stub_embed(toks, cfg.d_model),
                "positions": np.broadcast_to(

@@ -6,6 +6,8 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch rwkv6_7b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch gemma2_9b \
       --prompts 2 --prompt-len 8160
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch seamless_m4t_medium
 
 (any arch of ``configs.base.ARCH_IDS`` on one rank; Qwen2-VL's prompt
 tokens go through the reference's stub frontend, as in ``launch.serve``)

@@ -2,7 +2,8 @@
 
 On the card, with random weights: DBRX-132B at full width with its depth
 cut to 4 layers, and Mistral-NeMo-12B, Zamba2-7B, RWKV6-7B, Gemma2-9B,
-StarCoder2-15B, Minitron-8B and Qwen2-VL-2B's backbone whole:
+StarCoder2-15B, Minitron-8B, Qwen2-VL-2B's backbone and SeamlessM4T-medium
+whole:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \
       --layers 4 --prompts 4 --prompt-len 512 --max-new 32
@@ -13,7 +14,10 @@ StarCoder2-15B, Minitron-8B and Qwen2-VL-2B's backbone whole:
 
 Qwen2-VL's prompts are token ids that the reference's stub frontend
 (``data.pipeline._stub_embed``) turns into its embeddings input, in the
-prefill and for every sampled token.
+prefill and for every sampled token.  SeamlessM4T's encoder takes the stub
+frontend's embeddings of the prompt, and its decoder the prompt's tokens,
+then each sampled token (``--arch seamless_m4t_medium``; ``--layers``
+cuts the encoder and the decoder alike).
 
 On the CPU, the reduced config through the kernels' plain versions:
 
@@ -118,7 +122,7 @@ def serve_config(arch: str, *, layers: int | None, smoke: bool
     if smoke:
         return cfg.reduced()
     if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = cfg.with_depth(layers)
     return cfg
 
 
@@ -336,7 +340,8 @@ def main(argv=None) -> dict:
                         ARCH_IDS))
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths stay "
-                         "the published ones)")
+                         "the published ones; an encoder-decoder's encoder "
+                         "too)")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config in fp32")
     ap.add_argument("--device", default=None,

@@ -18,6 +18,10 @@ hold ``train_4k``'s 256 x 4096, so ``--batch`` and ``--seq`` cut it, and
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx_132b \\
       --layers 2 --batch 4 --seq 512 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch seamless_m4t_medium --batch 4 --seq 512 --steps 8
+
+(``--layers`` cuts an encoder-decoder's encoder and decoder alike)
 
 and over four cards ``torchrun --nproc-per-node 4 ... --pods 2 --ep 2
 --backend nccl``.
@@ -77,7 +81,7 @@ def train_config(arch: str, *, smoke: bool, layers: int | None):
     if smoke:
         return cfg.reduced()
     if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = cfg.with_depth(layers)
     return cfg
 
 

@@ -1,5 +1,5 @@
-"""Model API over the families the port serves: dense, moe, hybrid
-(Zamba2) and rwkv (RWKV-6).
+"""Model API over the families the port serves: dense, moe, encdec
+(SeamlessM4T), hybrid (Zamba2) and rwkv (RWKV-6).
 
 ``build_model(cfg)`` returns a :class:`Model`:
 
@@ -17,7 +17,12 @@ for the loss, -1 ignored), ``{"tokens": [B, 1]}`` for decode; a config
 with ``input_mode="embeddings"`` (Qwen2-VL's backbone behind the
 reference's stub frontend) also takes ``{"embeds": [B, S, D],
 "positions": [B, S, 3]}`` and ``{"embeds": [B, 1, D]}`` for decode
-(:meth:`Model.decode_inputs`), unscaled.  On the card the hybrid and rwkv
+(:meth:`Model.decode_inputs`), unscaled.  The encoder-decoder (whose
+config also says ``input_mode="embeddings"``: its encoder's) takes
+``{"src_embeds": [B, S, D], "tgt_tokens": [B, S]}`` for prefill (and
+``"labels"``) and ``{"tokens": [B, 1]}`` for decode; as in the reference,
+its target tokens are embedded unscaled in prefill and training and
+scaled by sqrt(d_model) in decode.  On the card the hybrid and rwkv
 families do not train yet (their scans have no backward kernel).  The
 model runs on CUDA unless it is built with ``device="cpu"``.
 Built with a ``pctx`` (dense and moe families), a model holds one rank's
@@ -93,10 +98,17 @@ class Model:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
         return x
 
+    def _takes_tokens(self) -> bool:
+        """Whether decode takes token ids: every family but the
+        embeddings input of a decoder-only model (the encoder-decoder's
+        embeddings input is its encoder's)."""
+        return (self.cfg.input_mode != "embeddings"
+                or self.cfg.family == "encdec")
+
     def _embeds(self, batch: dict):
         """The embeddings input of ``batch`` in the model's dtype (no
         sqrt(d_model) scale), or None for a token batch."""
-        if self.cfg.input_mode == "embeddings" and "embeds" in batch:
+        if not self._takes_tokens() and "embeds" in batch:
             return batch["embeds"].to(self.device, self.dtype)
         return None
 
@@ -113,13 +125,22 @@ class Model:
             return x, _positions(self.cfg, *x.shape[:2], self.device)
         return x, pos.to(self.device)
 
+    def _encdec_in(self, params, batch: dict):
+        """(source embeddings, target, positions) of an encoder-decoder
+        batch: the target tokens embedded WITHOUT the sqrt(d_model) scale
+        (the reference's prefill and training; its decode scales)."""
+        toks = batch["tgt_tokens"]
+        return (batch["src_embeds"].to(self.device, self.dtype),
+                L.embed(params.embed, toks.to(self.device)),
+                _positions(self.cfg, *toks.shape, self.device))
+
     def decode_inputs(self, tokens: np.ndarray) -> dict:
         """The decode batch of the sampled tokens [B] int32 (host), as
         numpy arrays: ``{"tokens": [B, 1]}``, or for the embeddings input
         the stub frontend's ``{"embeds": [B, 1, D]}`` fp32 (the reference's
         ``ServeEngine._decode_batch``)."""
         tokens = np.asarray(tokens, np.int32).reshape(-1, 1)
-        if self.cfg.input_mode == "embeddings":
+        if not self._takes_tokens():
             return {"embeds": _stub_embed(tokens, self.cfg.d_model)}
         return {"tokens": tokens}
 
@@ -128,7 +149,7 @@ class Model:
         ``{"tokens": [B, 1] int32}``, or the stub embeddings of
         :meth:`decode_inputs` (made on the host) for the embeddings
         input."""
-        if self.cfg.input_mode != "embeddings":
+        if self._takes_tokens():
             return {"tokens": tokens.to(torch.int32)[:, None]}
         return {name: torch.from_numpy(val).to(self.device)
                 for name, val in self.decode_inputs(
@@ -138,6 +159,13 @@ class Model:
         """The stack without a cache: (final-normed hidden [B, S, D], the
         MoE aux losses summed, fp32)."""
         fam = self.cfg.family
+        if fam == "encdec":
+            src, tgt, positions = self._encdec_in(params, batch)
+            enc_out = T.encode(params, self.cfg, src, self.pctx)
+            h = T.forward_hidden_encdec(params, self.cfg, tgt, positions,
+                                        enc_out, self.pctx)
+            return h, torch.zeros((), dtype=torch.float32,
+                                  device=self.device)
         x, positions = self.embed_in(params, batch)
         if fam in ("hybrid", "rwkv"):
             if self.device.type == "cuda":
@@ -191,8 +219,12 @@ class Model:
         return T.init_cache(self.cfg, batch, max_len, pctx=self.pctx, **kw)
 
     def prefill(self, params, batch: dict, cache: dict):
-        x, positions = self.embed_in(params, batch)
         fam = self.cfg.family
+        if fam == "encdec":
+            logits, cache = T.prefill_encdec(
+                params, self.cfg, *self._encdec_in(params, batch), cache)
+            return logits[:, 0], cache
+        x, positions = self.embed_in(params, batch)
         if fam in ("hybrid", "rwkv"):
             stack = ssm.zamba2_prefill if fam == "hybrid" else \
                 rwkv.rwkv6_prefill
@@ -225,6 +257,8 @@ class Model:
                 rwkv.rwkv6_decode_step
             h, cache = step(params, self.cfg, x, cache)
             logits = T.logits_fn(params, self.cfg, h, last_only=True)
+        elif fam == "encdec":
+            logits, cache = T.decode_step_encdec(params, self.cfg, x, cache)
         else:
             logits, cache = T.decode_step(params, self.cfg, x, cache,
                                           self.pctx)
@@ -244,9 +278,9 @@ def check_room(cache: dict) -> None:
 
 def build_model(cfg: ModelConfig, *, device=None,
                 dtype: torch.dtype = torch.bfloat16, pctx=None) -> Model:
-    """Dense, moe, hybrid and rwkv families; encdec (ROADMAP.md queue 1
-    item 9b) and the hybrid and rwkv families over ranks (item 6) are
-    later slices of the port."""
+    """Dense, moe, encdec, hybrid and rwkv families; the encdec, hybrid
+    and rwkv families over ranks (ROADMAP.md queue 1 item 6) are a later
+    slice of the port."""
     T.check_supported(cfg)
     if pctx is not None and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} over a "
@@ -259,16 +293,22 @@ def make_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
                rng_seed: int = 0, *, device=None) -> dict:
     """Synthetic batch from a numpy seed: the reference's tokens, or for
     the embeddings input its normal embeddings and [B, S, 3] positions,
-    for the same seed."""
+    or for the encoder-decoder its normal source embeddings and target
+    tokens (a decode batch of tokens), for the same seed."""
     dev = resolve_device(device)
     rng = np.random.default_rng(rng_seed)
     toks = rng.integers(0, cfg.vocab, size=(batch, seq)).astype(np.int32)
     labels = np.roll(toks, -1, axis=1).astype(np.int32)
     labels[:, -1] = -1
-    embeds = cfg.input_mode == "embeddings"
+    encdec = cfg.family == "encdec"
+    embeds = cfg.input_mode == "embeddings" and not encdec
     if kind == "decode":
         out = ({"embeds": rng.normal(size=(batch, 1, cfg.d_model)).astype(
             np.float32)} if embeds else {"tokens": toks[:, :1]})
+    elif encdec:
+        out = {"src_embeds": rng.normal(
+                   size=(batch, seq, cfg.d_model)).astype(np.float32),
+               "tgt_tokens": toks, "labels": labels}
     elif embeds:
         out = {"embeds": rng.normal(size=(batch, seq, cfg.d_model)).astype(
                    np.float32),

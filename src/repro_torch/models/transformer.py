@@ -1,7 +1,7 @@
-"""Decoder-only transformer stacks (dense and MoE) with KV-cache serving.
+"""Transformer stacks (dense, MoE, encoder-decoder) with KV-cache serving.
 
-Port of the decoder half of ``src/repro/models/transformer.py`` for the
-dense and moe families.  The reference scans stacked [L, ...] parameters;
+Port of ``src/repro/models/transformer.py`` for the dense, moe and encdec
+families.  The reference scans stacked [L, ...] parameters;
 the port keeps one ``Block`` module per layer (the converter unstacks the
 reference's pytree) and runs the layers in a Python loop.  Caches are
 per-layer buffers updated in place.  With a ``pctx`` each rank holds its
@@ -15,6 +15,15 @@ the positions between blocks, and each block's entry gathers the sequence
 back (:func:`_split_tp_seq_gather`: through the split-TP MultiWrite
 AllGather with ``tp_subgroups > 1``, plainly otherwise).  The decode KV
 caches lie in ``layers.kv_layout``'s layout, which the prefill writes.
+
+The encoder-decoder (SeamlessM4T, one rank): ``enc_blocks`` run the source
+embeddings through non-causal self-attention (:func:`encode`); each decoder
+block adds cross-attention (``lnx``, ``xattn``, ``pnx``) over the encoder
+output, with no rope and no mask (:func:`_cross_attention`).  Its serving
+cache holds the encoder output ``enc_out`` [B, max_len, D] beside the
+decoder's k and v, zero past the source's rows, and decode attends over all
+of it, zeros included, as the reference does; the cross k and v are
+recomputed from ``enc_out`` every step, as there.
 
 Training over a ``pctx`` (:func:`forward_hidden`) has the same structure:
 the embedded sequence is cut to this rank's block of positions, each block
@@ -37,6 +46,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.parallel import mesh as mesh_ops
@@ -50,12 +60,9 @@ def _dims(cfg: ModelConfig) -> L.AttnDims:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The families the port serves: dense, moe, hybrid and rwkv."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: family 'encdec' (the encoder, cross-attention and "
-            f"their cache) is not ported yet (ROADMAP.md queue 1 item 9b)")
-    if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
+    """The families the port serves: dense, moe, encdec, hybrid and
+    rwkv."""
+    if cfg.family not in ("dense", "moe", "encdec", "hybrid", "rwkv"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
@@ -64,16 +71,19 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One decoder layer: attention, then an MoE or dense FFN.  An MoE
+    """One layer: attention, then an MoE or dense FFN.  An MoE
     layer of a config with shared experts also holds ``shared_mlp``, the
     always-on experts as one MLP of width ``expert_d_ff *
     n_shared_experts``, on every EP rank (EP does not shard it; TP splits
     it like a dense MLP).  Under ``post_norm`` (Gemma2) ``pn1`` and
     ``pn2`` norm the attention and FFN outputs before the residual adds;
-    else they are None."""
+    else they are None.  A decoder layer of the encoder-decoder
+    (``cross``) also holds ``lnx``, ``xattn`` (cross-attention) and, under
+    ``post_norm``, ``pnx``, the reference's ``_init_layer(cross=True)``
+    keys; else they are None."""
 
     def __init__(self, cfg: ModelConfig, *, moe: bool, device, dtype,
-                 pctx=None, experts: bool = True):
+                 pctx=None, experts: bool = True, cross: bool = False):
         super().__init__()
         tp = L.tp_of(pctx)
         self.ln1 = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
@@ -97,6 +107,14 @@ class Block(nn.Module):
         else:
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated,
                              device=device, dtype=dtype, tp=tp)
+        self.lnx = self.xattn = self.pnx = None
+        if cross:
+            self.lnx = L.RMSNorm(cfg.d_model, device=device, eps=cfg.norm_eps)
+            self.xattn = L.Attention(_dims(cfg), device=device, dtype=dtype,
+                                     tp=tp)
+            if cfg.post_norm:
+                self.pnx = L.RMSNorm(cfg.d_model, device=device,
+                                     eps=cfg.norm_eps)
 
 
 class Transformer(nn.Module):
@@ -104,24 +122,35 @@ class Transformer(nn.Module):
     ``first_k_dense`` dense layers of an MoE stack first), final norm and
     an untied unembedding [D, V] unless the config ties them.  With a
     ``pctx`` the MoE blocks hold this rank's experts only; with
-    ``experts=False`` they hold none (the weights every rank shares)."""
+    ``experts=False`` they hold none (the weights every rank shares).
+    The encoder-decoder also holds ``enc_blocks`` (``n_enc_layers`` dense
+    blocks) and ``enc_norm``, and its decoder blocks cross-attend; else
+    ``enc_blocks`` and ``enc_norm`` are None."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype, pctx=None,
                  experts: bool = True):
         super().__init__()
         check_supported(cfg)
         n_dense = cfg.first_k_dense if cfg.is_moe else cfg.n_layers
+        encdec = cfg.family == "encdec"
         self.embed = L.Embedding(cfg.vocab, cfg.d_model, device=device,
                                  dtype=dtype)
         self.blocks = nn.ModuleList(
             Block(cfg, moe=i >= n_dense, device=device, dtype=dtype,
-                  pctx=pctx, experts=experts)
+                  pctx=pctx, experts=experts, cross=encdec)
             for i in range(cfg.n_layers))
         self.final_norm = L.RMSNorm(cfg.d_model, device=device,
                                     eps=cfg.norm_eps)
         self.unembed = (None if cfg.tie_embeddings else
                         L.parameter((cfg.d_model, cfg.vocab), device=device,
                                     dtype=dtype))
+        self.enc_blocks = self.enc_norm = None
+        if encdec:
+            self.enc_blocks = nn.ModuleList(
+                Block(cfg, moe=False, device=device, dtype=dtype, pctx=pctx)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = L.RMSNorm(cfg.d_model, device=device,
+                                      eps=cfg.norm_eps)
 
 
 def init_transformer(cfg: ModelConfig, *, generator: torch.Generator,
@@ -158,6 +187,11 @@ def _draw(params: Transformer, cfg: ModelConfig,
                 blk.shared_mlp.reset_parameters(generator)
         else:
             blk.mlp.reset_parameters(generator)
+        if blk.xattn is not None:
+            blk.xattn.reset_parameters(generator)
+    for blk in params.enc_blocks or ():
+        blk.attn.reset_parameters(generator)
+        blk.mlp.reset_parameters(generator)
     if params.unembed is not None:
         L.truncated_normal_(params.unembed, cfg.d_model ** -0.5, generator)
 
@@ -409,6 +443,69 @@ def logits_fn(params: Transformer, cfg, x, last_only=False):
 
 
 # ---------------------------------------------------------------------------
+# encoder and cross-attention (enc-dec only)
+# ---------------------------------------------------------------------------
+
+def _cross_attention(p: L.Attention, x, enc_out, cfg):
+    """Decoder cross-attention (the reference's ``_cross_attention``): q
+    from x [B, S, D], k and v from the encoder output [B, T, D], no rope
+    and no mask, through the attention kernel on [B, heads, len, dh]
+    views of the projections (no transposed copies).  Returns [B, S, D]."""
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    enc_out = enc_out.to(x.dtype)
+    q = (x @ p.wq).reshape(b, s, p.heads, dh)
+    k = (enc_out @ p.wk).reshape(b, -1, p.kv_heads, dh)
+    v = (enc_out @ p.wv).reshape(b, -1, p.kv_heads, dh)
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=False)
+    return o.transpose(1, 2).reshape(b, s, p.heads * dh) @ p.wo
+
+
+def _cross_part(lp: Block, x, enc_out, cfg):
+    """The cross-attention half of a decoder block: ``lnx``, the
+    attention, then ``pnx`` under ``post_norm``."""
+    out = _cross_attention(lp.xattn, lp.lnx(x), enc_out, cfg)
+    return out if lp.pnx is None else lp.pnx(out)
+
+
+def encode(params: Transformer, cfg, src_embeds, pctx=None):
+    """The encoder over the source embeddings [B, S, D]: each block's
+    non-causal self-attention (rope over the source positions), then its
+    FFN; then ``enc_norm``.  Returns [B, S, D]."""
+    b, s, _ = src_embeds.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=src_embeds.device).expand(b, s)
+
+    def block(lp, x):
+        x = x + _attn_part(lp, x, positions, cfg, window=None, causal=False)
+        f, _ = _ffn_part(lp, x, cfg)
+        return x + f
+
+    x = src_embeds
+    for lp in params.enc_blocks:
+        x = _remat(functools.partial(block, lp), pctx)(x)
+    return params.enc_norm(x)
+
+
+def forward_hidden_encdec(params: Transformer, cfg, tgt_embeds, positions,
+                          enc_out, pctx=None):
+    """The decoder stack without a cache (training): causal
+    self-attention, cross-attention over ``enc_out``, FFN, a block at a
+    time.  Returns the final-normed hidden [B, S, D]."""
+    def block(lp, x):
+        x = x + _attn_part(lp, x, positions, cfg, window=None)
+        x = x + _cross_part(lp, x, enc_out, cfg)
+        f, _ = _ffn_part(lp, x, cfg)
+        return x + f
+
+    x = tgt_embeds
+    for lp in params.blocks:
+        x = _remat(functools.partial(block, lp), pctx)(x)
+    return params.final_norm(x)
+
+
+# ---------------------------------------------------------------------------
 # prefill / decode (KV caches)
 # ---------------------------------------------------------------------------
 
@@ -419,11 +516,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     an int64 scalar on the device (``pos``, what decode reads) and as a
     host int (``len``, bookkeeping) of ``max_len`` positions; ``valid`` [B]
     bool marks the rows whose tokens take expert capacity (all of them
-    unless a server pads the cohort)."""
+    unless a server pads the cohort).  The encoder-decoder's cache also
+    holds ``enc_out`` [B, max_len, D] (the reference's encdec cache)."""
     layout = L.kv_layout(cfg.n_kv_heads, pctx, max_len)
     shape = L.kv_cache_shape(cfg.n_kv_heads, cfg.head_dim, batch, max_len,
                              layout, L.tp_of(pctx)[0])
-    return {
+    cache = {
         "valid": torch.ones(batch, dtype=torch.bool, device=device),
         "k": [torch.zeros(shape, dtype=dtype, device=device)
               for _ in range(cfg.n_layers)],
@@ -434,6 +532,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
         "max_len": max_len,
         "layout": layout,
     }
+    if cfg.family == "encdec":
+        # a top-level tensor, so a reused decode slot zeroes it
+        cache["enc_out"] = torch.zeros((batch, max_len, cfg.d_model),
+                                       dtype=dtype, device=device)
+    return cache
 
 
 def prefill(params: Transformer, cfg, x, positions, cache, pctx=None):
@@ -479,6 +582,65 @@ def decode_step(params: Transformer, cfg, x, cache, pctx=None):
                          pctx=pctx, layout=cache["layout"])
         x = x + a
         f, _ = _ffn_part(lp, x, cfg, pctx, valid=cache.get("valid"))
+        x = x + f
+    pos.add_(1)
+    x = params.final_norm(x)
+    return logits_fn(params, cfg, x, last_only=True), cache
+
+
+# ---------------------------------------------------------------------------
+# enc-dec serving
+# ---------------------------------------------------------------------------
+
+def prefill_encdec(params: Transformer, cfg, src_embeds, tgt_embeds,
+                   positions, cache):
+    """Encode the source once, run the decoder over the target prefix,
+    fill the decoder's self-attention caches and write the encoder output
+    into ``enc_out`` (all in place).  ``enc_out``'s rows past the source
+    are zeroed: decode attends over all ``max_len`` rows of it, as the
+    reference's zero-padded buffer (whose prefill attends to the source
+    rows alone).  A source longer than the cache raises (the reference
+    returns an unpadded buffer of the source's length there, which fixed
+    buffers cannot hold).  Returns (last-position logits [B, 1, V],
+    cache)."""
+    src = src_embeds.shape[1]
+    buf = cache["enc_out"]
+    if src > buf.shape[1]:
+        raise ValueError(f"source of {src} rows longer than the cache's "
+                         f"{buf.shape[1]}")
+    enc_out = encode(params, cfg, src_embeds)
+    x = tgt_embeds
+    for i, lp in enumerate(params.blocks):
+        a, (k, v) = _attn_part(lp, x, positions, cfg, window=None,
+                               return_kv=True)
+        x = x + a
+        x = x + _cross_part(lp, x, enc_out, cfg)
+        f, _ = _ffn_part(lp, x, cfg)
+        x = x + f
+        L.write_prefill_kv(lp.attn, cache["k"][i], cache["v"][i], k, v,
+                           cache["layout"], None)
+    buf[:, :src] = enc_out.to(buf.dtype)
+    buf[:, src:].zero_()
+    seq = tgt_embeds.shape[1]
+    cache["pos"].fill_(seq)
+    cache["len"] = seq
+    x = params.final_norm(x)
+    return logits_fn(params, cfg, x, last_only=True), cache
+
+
+def decode_step_encdec(params: Transformer, cfg, x, cache):
+    """One decode token of the encoder-decoder: each block's self-attention
+    over its cache, cross-attention over the whole ``enc_out`` (its k and v
+    recomputed, as the reference does), FFN.  Reads the position from the
+    device scalar only, so a CUDA graph of it replays at any position.
+    Returns (logits [B, 1, V], cache)."""
+    pos = cache["pos"]
+    enc_out = cache["enc_out"]
+    for i, lp in enumerate(params.blocks):
+        x = x + _decode_attn(lp, x, cache["k"][i], cache["v"][i], pos, cfg,
+                             window=None, layout=cache["layout"])
+        x = x + _cross_part(lp, x, enc_out, cfg)
+        f, _ = _ffn_part(lp, x, cfg)
         x = x + f
     pos.add_(1)
     x = params.final_norm(x)

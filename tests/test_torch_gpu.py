@@ -226,6 +226,10 @@ def test_attention_gradient_at_head_dim_256_raises_on_card():
     (4, 1, 77, 333, 112, False),     # one kv head for every q head
     (4, 4, 129, 257, 64, False),     # one row / one key past a tile
     (4, 2, 1, 1, 128, True),         # a single query and key
+    (16, 16, 512, 512, 64, False),   # SeamlessM4T's encoder, its cross
+    (16, 16, 512, 512, 64, True),    # SeamlessM4T's decoder prefill
+    (16, 16, 1, 544, 64, False),     # a SeamlessM4T decode step's cross
+    (4, 2, 1, 77, 64, False),        # one q row under a 128-row tile
 ])
 def test_attention_kernel_at_tile_edges_on_card(hq, g, sq, sk, d, causal):
     _need_cuda()
@@ -238,6 +242,42 @@ def test_attention_kernel_at_tile_edges_on_card(hq, g, sq, sk, d, causal):
     exp = flash_attention_plain(q.float(), k.float(), v.float(),
                                 causal=causal)
     torch.testing.assert_close(got, exp, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_attention_kernel_replayed_from_a_cuda_graph_on_card():
+    """One query row against 544 keys (a SeamlessM4T decode step's
+    cross-attention) captured in a CUDA graph: the tensor maps are encoded
+    at capture, so a replay on new values in the same buffers must give
+    the plain version's output on those values.  (The capture's count is
+    taken back, as ``runtime/graphs.py`` does.)"""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def fill(*xs):
+        for x in xs:
+            x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+    q = torch.empty((4, 1, 16, 64), dtype=torch.bfloat16,
+                    device="cuda").transpose(1, 2)
+    k = torch.empty((4, 544, 16, 64), dtype=torch.bfloat16,
+                    device="cuda").transpose(1, 2)
+    v = torch.empty_like(k)
+    fill(q, k, v)
+    ops.flash_attention(q, k, v, causal=False)          # warm-up
+    launches = ops.flash_attention.launches
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.current_stream().wait_stream(side)
+    ops.flash_attention.launches = launches
+    for _ in range(2):
+        fill(q, k, v)
+        graph.replay()
+        exp = flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=False)
+        torch.testing.assert_close(out.float(), exp, atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.gpu
@@ -382,6 +422,8 @@ SMALL = {
                       vocab=1024),
     "qwen2_vl_2b": dict(d_model=512, n_heads=4, n_kv_heads=2, d_ff=256,
                         vocab=1024),
+    "seamless_m4t_medium": dict(d_model=512, n_heads=8, n_kv_heads=8,
+                                d_ff=256, vocab=1024),
 }
 
 
@@ -416,12 +458,15 @@ def _eager_tokens(engine, prompts):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["dbrx_132b", "zamba2_7b", "rwkv6_7b",
-                                  "gemma2_9b", "qwen2_vl_2b"])
+                                  "gemma2_9b", "qwen2_vl_2b",
+                                  "seamless_m4t_medium"])
 def test_decode_graph_equals_eager_on_card(arch):
     """Graph decode gives the eager loop's greedy tokens; the logits' gap
     is printed (a replay runs the captured kernels on the same inputs).
     Qwen2-VL's decode input is the stub embedding of each sampled token,
-    copied into the graph's static buffer every round."""
+    copied into the graph's static buffer every round; SeamlessM4T's
+    graph holds the cross-attention kernel at one query row over the
+    cache's ``enc_out``."""
     _need_cuda()
     import numpy as np
 
@@ -551,6 +596,9 @@ def test_pack_backward_kernel_on_card(n, h, d, c, dtype):
     ((1, 4, 2, 96, 160, 128), True, 48, 20.0),          # every mask
     ((2, 4, 1, 77, 133, 112), False, None, None),       # cross, one kv head
     ((1, 2, 2, 64, 64, 64), True, None, None),          # one q tile
+    ((4, 16, 16, 512, 512, 64), False, None, None),     # Seamless encoder
+    ((4, 16, 16, 512, 512, 64), True, None, None),      # Seamless decoder
+    ((2, 16, 16, 300, 200, 64), False, None, None),     # cross lengths, MHA
     ((1, 48, 8, 4096, 4096, 128), True, None, None),    # DBRX at train_4k
 ])
 def test_attention_backward_kernel_on_card(shape, causal, window, softcap):

@@ -87,8 +87,9 @@ def test_pack_bit_exact(n, h, d, c, br, dtype):
     dict(s=64, t=64, causal=True, softcap=30.0),
     dict(s=40, t=72, causal=False),                 # cross lengths
     dict(s=96, t=96, causal=True, window=24, softcap=20.0),
+    dict(s=1, t=77, causal=False),                  # a decode step's cross
 ], ids=["causal", "noncausal", "window16", "window64", "softcap", "cross",
-        "all-masks"])
+        "all-masks", "q1-cross"])
 def test_attention_matches_reference(case):
     b, hq, g, d = 2, 4, 2, 32
     s, t = case["s"], case["t"]

@@ -174,15 +174,23 @@ def test_engine_over_ranks_checks_its_context_and_batch(engines):
 
 
 def test_unported_families_raise():
-    """The encoder-decoder is the one family left (item 9b); the
-    post_norm, M-RoPE and embeddings-input families build
-    (``tests/test_torch_families.py`` holds them to the reference)."""
-    import dataclasses
-    cfg = get_config("dbrx_132b").reduced()
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        build_model(dataclasses.replace(cfg, family="encdec"), device="cpu")
+    """Every family of the reference builds on one rank (the
+    encoder-decoder since item 9b: ``tests/test_torch_encdec.py`` holds it
+    to the reference); over a ``ParallelContext`` the encoder-decoder
+    raises, as the hybrid and rwkv families do (item 6)."""
+    cfg = get_config("seamless_m4t_medium").reduced()
+    model = build_model(cfg, device="cpu")
+    assert model.cfg.family == "encdec"
+    assert model.init(torch.Generator().manual_seed(0)).enc_blocks
+
+    class TwoRanks:                    # dp rank 0 of 2, no plan bound
+        dp_size, dp_index = 2, 0
+        execution_plan = None
+
+    with pytest.raises(NotImplementedError, match="ParallelContext"):
+        build_model(cfg, device="cpu", pctx=TwoRanks())
     with pytest.raises(ValueError, match="no config"):
-        get_config("seamless_m4t_medium")
+        get_config("not_an_arch")
 
 
 def test_serve_cli_smoke(capsys):

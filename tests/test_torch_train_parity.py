@@ -1,6 +1,8 @@
-"""Training the reduced DBRX, Mistral-NeMo, Gemma2 and Qwen2-VL in both
-packages (Gemma2's post-norms, windows and softcaps; Qwen2-VL's M-RoPE
-and its embeddings input through the stub frontend).
+"""Training the reduced DBRX, Mistral-NeMo, Gemma2, Qwen2-VL and
+SeamlessM4T in both packages (Gemma2's post-norms, windows and softcaps;
+Qwen2-VL's M-RoPE and its embeddings input through the stub frontend;
+SeamlessM4T's encoder over the stub frontend's source embeddings, and its
+decoder's cross-attention).
 
 The reference's parameters, carried across by ``convert.params_from_jax``,
 and the same ``SyntheticLM`` batches: ``Model.loss`` and every parameter's
@@ -31,7 +33,8 @@ from repro_torch.models.api import build_model
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.runtime.trainer import Trainer, TrainerConfig, trainable
 
-ARCHS = ["dbrx_132b", "mistral_nemo_12b", "gemma2_9b", "qwen2_vl_2b"]
+ARCHS = ["dbrx_132b", "mistral_nemo_12b", "gemma2_9b", "qwen2_vl_2b",
+         "seamless_m4t_medium"]
 BATCH, SEQ, STEPS, LR = 4, 32, 5, 3e-3
 
 
