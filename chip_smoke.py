@@ -128,7 +128,30 @@ Phases; any failure raises and the script exits non-zero:
    row against the cache's 544 ``enc_out`` rows, replayed from the
    graph): 408 a ``generate``; then trained through ``Trainer`` for 8
    steps of 4 x 512 ``SyntheticLM`` tokens, with finite, falling losses
-   and 36 attention forwards and 36 backwards a step.
+   and 36 attention forwards and 36 backwards a step;
+14. the hybrid, rwkv and encoder-decoder families and a decoder whose kv
+   heads are replicated over the model axis, served over 4 spawned
+   tensor-parallel ranks (1, 1, 4) (nccl with a card a rank where there
+   are 4 cards, decode graphed; else 4 gloo processes on card 0, decode
+   eager), one spawn serving the four one after another at full width, 4
+   prompts x 512 tokens, seed-0 random weights, greedy: Zamba2-7B (28 of
+   112 SSM heads a rank, the SSD and conv states split, out_norm's sum of
+   squares summed over the ranks), RWKV6-7B (16 of 64 heads a rank),
+   SeamlessM4T-medium (4 of 16 heads a rank, cross-attention over the
+   whole encoder output) and Qwen2-VL-2B's backbone with the KV length
+   unsharded (its 2 kv heads over 4 ranks replicated); on four cards at
+   full depth with 32 new tokens, on one card Zamba2 at 24 of 81 blocks
+   and RWKV6 at 8 of 32 with 8 new tokens each.  Each model is held
+   against a one-rank run of the same weights on the card: every rank's
+   tokens equal, the prefill logits within 5e-2 of max |logit| and rows
+   parting only at near ties, exact scan and attention launches on each
+   rank; each rank's decode-state bytes beside one rank's.
+
+Every phase prints its wall (``phase N took X s``) and the script ends
+with all of them; each spawn of ranks prints where its wall went: spawn
+and import up to the first collective, the weights, each run, and the
+join, the slowest rank's; and each one-rank reference on the card its
+own.
 
 Phase 3 also holds the pack at the shapes of one DBRX prefill layer at
 2 x 2 ranks and of one Kimi-K2 prefill layer at 2 x 8 (capacity factors
@@ -147,7 +170,13 @@ SeamlessM4T's encoder, decoder and cross-attention at 4 x 512 (head_dim
 cross-attention (one q row over 544 keys), and one q row over a ragged kv
 tile; phase 4 runs a small Seamless-shaped model, and phase 10 the
 attention backward non-causal at head_dim 64 with MHA, at equal lengths
-(timed) and with the q and kv lengths apart.
+(timed) and with the q and kv lengths apart, and at the decoder's causal
+shape beside the errors of SDPA's bf16 backward and of the plain
+backward on the same inputs.  Phase 14's rank shapes are held and timed
+in phase 3 as well: attention at Seamless's [4, 4, 512, 64] (non-causal,
+causal, cross, and a decode step's cross), Zamba2's shared block [4, 8,
+512, 112] and Qwen2-VL's [4, 3, 512, 128] over one kv head, and both
+scans at the ranks' rows (4 x 28 heads of Zamba2, 4 x 16 of RWKV6).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -184,7 +213,11 @@ runs phase 12 alone after them;
 
   python3 chip_smoke.py --encdec-only
 
-runs phase 13 alone after them.
+runs phase 13 alone after them;
+
+  python3 chip_smoke.py --tp-families-only
+
+runs phase 14 alone after them (on four cards over nccl, full depth).
 """
 
 from __future__ import annotations
@@ -226,8 +259,12 @@ KIMI_DEPTH = {1: (2, 8), 4: (4, 32)}
 RANKS_CF = 4.0                          # phases 6, 8: num_experts / top_k
 TP_MESH = (1, 1, 4)                     # phase 8: pods x data x model
 DBRX_TP_MESH = (1, 2, 2)
-# phase 8's Mistral-NeMo depth on one card and on four
+# phase 8's Mistral-NeMo depth and new tokens on one card and on four:
+# over gloo a decode round of the 4 ranks takes about 1.1 s (80
+# host-staged all-reduces), so one card decodes 8 of the 32 tokens (each
+# run prints what that gives up); the one-rank reference keeps 32
 TP_DEPTH = {1: 40, 4: 40}
+TP_NEW = {1: 8, 4: 32}
 PIPE_G = 4                              # phase 6: chunks of the G > 1 run
 PROMPTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
 # phase 5's continuous DBRX stream: 12 requests of 512 tokens, 8 new each,
@@ -250,6 +287,24 @@ GEMMA_SOFTCAP, GEMMA_WINDOW = 50.0, 4096
 # bf16 tolerance (tests/test_kernels.py)
 SCAN_TOL = dict(atol=5e-2, rtol=5e-2)
 REF_TOL = 5e-2                          # of max |logit|, bf16 vs fp32 model
+
+
+def spawn_split(results: list, what: str) -> None:
+    """Print where the wall of one ``ranks.run_ranks`` spawn went: spawn
+    and import up to the first collective (the last rank's mark "ready"),
+    each stretch between the ranks' later marks (the slowest rank's), and
+    the join (the last mark to every process joined)."""
+    started, joined = results[0]["spawn"]
+    parts, prev = [], started
+    for i, (label, _) in enumerate(results[0]["marks"]):
+        at = max(r["marks"][i][1] for r in results)
+        name = {"ready": "spawn and import to the first collective",
+                "done": "the last barrier"}.get(label, label)
+        parts.append(f"{name} {at - prev:.1f}")
+        prev = at
+    parts.append(f"join {joined - prev:.1f}")
+    print(f"  {what}: {joined - started:.1f} s = " + ", ".join(parts)
+          + " s")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -627,12 +682,26 @@ def kernel_phase() -> dict:
         ("seamless-cross", (4, 16, 16, 512, 512, 64), False, None, None),
         ("decode-cross", (4, 16, 16, 1, 544, 64), False, None, None),
         ("q1-ragged", (1, 4, 2, 1, 77, 64), False, None, None),
+        # phase 14's ranks over 4 model ranks, 4 prompts of 512 tokens:
+        # SeamlessM4T's 4 of 16 heads (the encoder, the decoder's self-
+        # and cross-attention at prefill, and a decode step's cross over
+        # eager gloo decode), Zamba2's shared block (8 of 32 heads of 112)
+        # and Qwen2-VL's 3 of 12 q heads over the one kv head they read
+        ("seamless-enc-tp4", (4, 4, 4, 512, 512, 64), False, None, None),
+        ("seamless-dec-tp4", (4, 4, 4, 512, 512, 64), True, None, None),
+        ("seamless-cross-tp4", (4, 4, 4, 512, 512, 64), False, None,
+         None),
+        ("decode-cross-tp4", (4, 4, 4, 1, 544, 64), False, None, None),
+        ("zamba2-tp4", (4, 8, 8, 512, 512, 112), True, None, None),
+        ("qwen2-vl-tp4", (4, 3, 1, 512, 512, 128), True, None, None),
     ]
     attn_err = 0.0
-    rank_shapes, family_shapes, encdec_shapes = {}, {}, {}
+    rank_shapes, family_shapes, encdec_shapes, tp4_shapes = {}, {}, {}, {}
     families = ("zamba2", "starcoder2", "minitron", "qwen2-vl")
     encdec = ("seamless-enc", "seamless-dec", "seamless-cross",
               "decode-cross")
+    tp4 = ("seamless-enc-tp4", "seamless-dec-tp4", "seamless-cross-tp4",
+           "decode-cross-tp4", "zamba2-tp4", "qwen2-vl-tp4")
     for i, (label, shape, causal, window, softcap) in enumerate(attn_cases):
         q, k, v = attn_inputs(*shape, seed=10 + i)
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -647,7 +716,7 @@ def kernel_phase() -> dict:
         if not ok:
             failures.append(f"flash_attention {label}")
         if label in ("dbrx", "kimi", "mistral-tp4",
-                     "dbrx-tp2") + families + encdec:
+                     "dbrx-tp2") + families + encdec + tp4:
             b, hq, g, sq, t, d = shape
             ms = device_ms(lambda: ops.flash_attention(q, k, v, **kw))
             plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
@@ -673,7 +742,8 @@ def kernel_phase() -> dict:
                     ms, plain, lib, bnd, by
             else:
                 kept = (family_shapes if label in families else
-                        encdec_shapes if label in encdec else rank_shapes)
+                        encdec_shapes if label in encdec else
+                        tp4_shapes if label in tp4 else rank_shapes)
                 kept[label] = dict(
                     shape=list(shape), ms=ms, plain_ms=plain, bound_ms=bnd,
                     bound_by=by, library_ms=lib, max_abs_err=err)
@@ -713,7 +783,8 @@ def kernel_phase() -> dict:
             max_abs_err=attn_err, ms=fa_ms, plain_ms=fa_plain,
             bound_ms=fa_bound, bound_by=fa_by, library_ms=fa_lib,
             rank_shapes=rank_shapes, family_shapes=family_shapes,
-            encdec_shapes=encdec_shapes, head_dim_256=head256),
+            encdec_shapes=encdec_shapes, tp4_family_shapes=tp4_shapes,
+            head_dim_256=head256),
     }
     return rows
 
@@ -1006,6 +1077,8 @@ def scan_phase() -> dict:
     # group per sequence
     for label, (batch, heads, s, groups) in (
             ("zamba2", (4, 112, 512, "shared")),
+            # a rank of Zamba2 over 4 model ranks (phase 14): 28 heads
+            ("zamba2-tp4", (4, 28, 512, "shared")),
             ("ragged", (4, 112, 500, "shared")),
             ("per-head", (2, 16, 300, "per-head")),
             # edges of the 64-step chunk, and heads that do not pair up
@@ -1021,7 +1094,7 @@ def scan_phase() -> dict:
                              return_final=True)
         err = _check_scan(failures, "mamba2_scan", label,
                           ops.mamba2_scan(*args), exp)
-        if label != "zamba2":
+        if label not in ("zamba2", "zamba2-tp4"):
             continue
         ms = device_ms(lambda: ops.mamba2_scan(*args))
         issue = host_ms(lambda: ops.mamba2_scan(*args))
@@ -1033,10 +1106,16 @@ def scan_phase() -> dict:
         tri = MQ * (MQ + 1) // 2        # causal pairs of a chunk
         flops = 2 * n * chunks * (tri * ds + tri * dh + 2 * MQ * ds * dh)
         bnd, by = bound_ms(nbytes, flops)
-        print(f"  mamba2_scan zamba2 time (device): kernel {ms:.4f} ms, "
+        print(f"  mamba2_scan {label} time (device): kernel {ms:.4f} ms, "
               f"plain (chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        print(f"  mamba2_scan zamba2 host issue per call: {issue_text(issue)}")
+        print(f"  mamba2_scan {label} host issue per call: "
+              f"{issue_text(issue)}")
+        if label == "zamba2-tp4":
+            rows["mamba2_scan"]["tp4"] = dict(
+                shape=[batch, heads, s], max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bnd, bound_by=by)
+            continue
         rows["mamba2_scan"] = dict(
             name="mamba2_scan", route="cuda",
             source="src/repro_torch/kernels/csrc/mamba2_scan.cu",
@@ -1048,7 +1127,9 @@ def scan_phase() -> dict:
     # and decays fast enough that one 32-step chunk of logw sums below -89
     # (the reference's factorised chunked form overflows there)
     for label, (batch, heads, s) in (
-            ("rwkv6", (4, 64, 512)), ("ragged", (4, 64, 500)),
+            ("rwkv6", (4, 64, 512)),
+            # a rank of RWKV6 over 4 model ranks (phase 14): 16 heads
+            ("rwkv6-tp4", (4, 16, 512)), ("ragged", (4, 64, 500)),
             ("s1", (2, 4, 1)), ("s15", (2, 4, 15)), ("s17", (2, 4, 17)),
             ("s63", (2, 4, 63)), ("s65", (2, 4, 65)),
             ("no-decay", (2, 4, 130)), ("fast-decay", (6, 1, 100))):
@@ -1068,7 +1149,7 @@ def scan_phase() -> dict:
                             return_final=True)
         err = _check_scan(failures, "rwkv6_scan", label,
                           ops.rwkv6_scan(*args), exp)
-        if label != "rwkv6":
+        if label not in ("rwkv6", "rwkv6-tp4"):
             continue
         ms = device_ms(lambda: ops.rwkv6_scan(*args))
         issue = host_ms(lambda: ops.rwkv6_scan(*args))
@@ -1085,10 +1166,16 @@ def scan_phase() -> dict:
         flops = 2 * n * chunks * (low * dk + q * dk + (low + q) * dv
                                   + 2 * q * dk * dv)
         bnd, by = bound_ms(nbytes, flops)
-        print(f"  rwkv6_scan rwkv6 time (device): kernel {ms:.4f} ms, "
+        print(f"  rwkv6_scan {label} time (device): kernel {ms:.4f} ms, "
               f"plain (chunked) {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        print(f"  rwkv6_scan rwkv6 host issue per call: {issue_text(issue)}")
+        print(f"  rwkv6_scan {label} host issue per call: "
+              f"{issue_text(issue)}")
+        if label == "rwkv6-tp4":
+            rows["rwkv6_scan"]["tp4"] = dict(
+                shape=[batch, heads, s], max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bnd, bound_by=by)
+            continue
         # one block (one row) an SM, then two, as the serving shape's 256
         # rows run: twice the time means the second block found no idle
         # issue slots, so more warps an SM would not help
@@ -1662,7 +1749,14 @@ def continuous_phase(engine, cfg) -> None:
 # phase 6: DBRX over 4 ranks, 2 pods x 2 ep ranks
 # ---------------------------------------------------------------------------
 
-def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
+# what a phase's spawn served for a later phase over the same mesh, model
+# and seed (phase 6's spawn: phase 9's DBRX; phase 8's: phase 9's
+# Mistral-NeMo probes), by the later phase's key
+CARRIED: dict = {}
+
+
+def ranks_phase(cf: float = RANKS_CF, trace: str | None = None,
+                carry: bool = False) -> dict:
     """DBRX-132B (4 layers) served over 4 spawned ranks, 2 pods x 2 ep
     ranks with 4 experts each, at capacity factor ``cf``.
 
@@ -1692,8 +1786,10 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
     planned run and its twin still agree), and only the ranks are held
     to each other.  ``trace`` names a file for a ``torch.profiler`` trace of
     one G = 4 prefill layer (on the card, every rank traced, rank 0's
-    written).  Returns the kernel launches of the measured runs, summed
-    over ranks and runs."""
+    written).  With ``carry`` the same spawn then serves phase 9's DBRX
+    calibration and runs on the same weights (``CARRIED["dbrx"]``).
+    Returns the kernel launches of the measured runs, summed over ranks
+    and runs."""
     import dataclasses
     import tempfile
 
@@ -1720,6 +1816,7 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
 
     if exact:
         # the one-rank reference: the same weights, capacity factor, prompts
+        t_one = time.monotonic()
         model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
@@ -1741,6 +1838,8 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
         del one, model
         gc.collect()                    # the engine's binder cycle
         torch.cuda.empty_cache()
+        print(f"  the one-rank reference on the card: "
+              f"{time.monotonic() - t_one:.1f} s")
     else:
         print(f"  capacity factor {cf} < {cfg.num_experts // cfg.top_k}: the "
               f"paths drop different pairs, so no one-rank run is a "
@@ -1756,23 +1855,32 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None) -> dict:
         dict(label="planned", policy="auto",
              fabric="measured" if nccl else None, bind=True),
         dict(label="planned-fixed", twin="planned")]
+    mine = dict(name="phase 6", max_new=MAX_NEW, runs=runs,
+                measure_link=stage1 if nccl else None,
+                continuous=RANKS_CONTINUOUS,
+                decide=(["measured", "measured-pod:12.5"] if nccl
+                        else [None]),
+                trace=(dict(run=ranks.run_label(runs[3]), path=trace)
+                       if trace else None))
     with tempfile.TemporaryDirectory() as tmp:
         spec = dict(world=world, pods=RANKS[0], ep=RANKS[1], backend=backend,
                     device="cuda:0", init_method=f"file://{tmp}/store",
                     timeout_s=120, out_dir=f"{tmp}/out", threads=2, cfg=cfg,
                     dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
-                    prompts=prompts, max_new=MAX_NEW, runs=runs, warmup=True,
-                    measure_link=stage1 if nccl else None,
-                    continuous=RANKS_CONTINUOUS,
-                    decide=(["measured", "measured-pod:12.5"] if nccl
-                            else [None]),
-                    trace=(dict(run=ranks.run_label(runs[3]), path=trace)
-                           if trace else None))
+                    prompts=prompts, warmup=True,
+                    models=[mine] + ([calibration_entry(cfg)] if carry
+                                     else []))
         t0 = time.monotonic()
-        results = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900)
+        spawned = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900)
+    results = [r["models"]["phase 6"] for r in spawned]
+    if carry:
+        CARRIED["dbrx"] = [r["models"]["phase 9"] for r in spawned]
     print(f"  {world} ranks spawned, served and joined in "
-          f"{time.monotonic() - t0:.1f} s; peak memory a rank "
+          f"{time.monotonic() - t0:.1f} s"
+          + (" (phase 9's DBRX calibration and runs included)" if carry
+             else "") + f"; peak memory a rank "
           f"{max(r['peak_gb'] for r in results):.2f} GB")
+    spawn_split(spawned, "the spawn")
 
     failures = report_planner(results, world)
     found, total, walls = check_served(results, runs, cfg, MAX_NEW, where,
@@ -1907,6 +2015,7 @@ def kimi_phase(layers: int, max_new: int) -> dict:
     print(f"  {world} ranks spawned, served and joined in "
           f"{time.monotonic() - t0:.1f} s; this process holds "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB after them")
+    spawn_split(results, "the spawn")
     failures = report_planner(results, world)
     failures += check_kimi(results, runs, cfg, max_new)
     found, total, _ = check_served(results, runs, cfg, max_new, where,
@@ -2008,7 +2117,7 @@ def tp_spec(tmp: str, mesh: tuple, backend: str, cfg, runs: list,
                 max_new=MAX_NEW, runs=runs, warmup=True, **kw)
 
 
-def tp_phase() -> dict:
+def tp_phase(carry: bool = False) -> dict:
     """Tensor parallelism over 4 spawned ranks: nccl with a card a rank
     where there are 4 cards, else gloo with all ranks on card 0.
 
@@ -2032,8 +2141,9 @@ def tp_phase() -> dict:
     scheme; DBRX's deferred run equals its per-expert run up to near ties,
     and every pack of the warm-ups is bit-exact; exact launch counts;
     decode eager over gloo, graphed over nccl (captures and replays
-    counted).  Returns the kernel launches of the measured runs, summed
-    over ranks and runs."""
+    counted).  With ``carry`` the Mistral spawn then runs phase 9's probes
+    of the same mesh (``CARRIED["mistral"]``).  Returns the kernel
+    launches of the measured runs, summed over ranks and runs."""
     import dataclasses
     import tempfile
 
@@ -2048,6 +2158,7 @@ def tp_phase() -> dict:
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= 4 else "gloo"
     depth = TP_DEPTH[4 if cards >= 4 else 1]
+    new = TP_NEW[4 if cards >= 4 else 1]
     cfg = serve_config("mistral_nemo_12b", layers=depth, smoke=False)
     where = ("nccl, one card a rank" if backend == "nccl" else
              "gloo, 4 processes on one card, host-staged transport: the "
@@ -2060,6 +2171,7 @@ def tp_phase() -> dict:
 
     # the one-rank reference: the same weights (each rank draws every
     # tensor whole from the same seed and keeps its block)
+    t_one = time.monotonic()
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2085,19 +2197,29 @@ def tp_phase() -> dict:
     del one, model
     gc.collect()                        # the engine's binder cycle
     torch.cuda.empty_cache()
+    print(f"  the one-rank reference on the card: "
+          f"{time.monotonic() - t_one:.1f} s")
 
     runs = [dict(label="tp_subgroups=1", tp_subgroups=1),
             dict(label="tp_subgroups=2 fixed", tp_subgroups=2),
             dict(label="tp_subgroups=2 auto", tp_subgroups=2, policy="auto",
                  bind=True)]
     frag = (PROMPTS, PROMPT_LEN // 4, cfg.d_model)
+    mine = dict(name="phase 8", runs=runs, max_new=new,
+                gather=dict(shape=frag, reps=5))
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.monotonic()
-        results = ranks.run_ranks(ranks.serve_worker, tp_spec(
-            tmp, TP_MESH, backend, cfg, runs, prompts=prompts,
-            gather=dict(shape=frag, reps=5)), timeout_s=900)
+        spawned = ranks.run_ranks(ranks.serve_worker, tp_spec(
+            tmp, TP_MESH, backend, cfg, [], prompts=prompts,
+            models=[mine] + ([gather_probe_entry()] if carry else [])),
+            timeout_s=900)
+    results = [r["models"]["phase 8"] for r in spawned]
+    if carry:
+        CARRIED["mistral"] = [r["models"]["phase 9"] for r in spawned]
     print(f"  4 ranks spawned, served and joined in "
-          f"{time.monotonic() - t0:.1f} s")
+          f"{time.monotonic() - t0:.1f} s"
+          + (" (phase 9's probes of the mesh included)" if carry else ""))
+    spawn_split(spawned, "the spawn")
     failures = check_decode_mode(results, backend)
     total: dict = {}
     labels = [run["label"] for run in runs]
@@ -2142,11 +2264,11 @@ def tp_phase() -> dict:
                 failures.append(f"{label}: not the bits of {labels[0]}")
         st = max(runs_, key=lambda run: run["prefill_s"])
         line = (f"  {label}: prefill {st['prefill_s'] * 1e3:.3f} ms, decode "
-                f"{st['decode_s'] * 1e3 / (MAX_NEW - 1):.3f} ms/token (the "
+                f"{st['decode_s'] * 1e3 / (new - 1):.3f} ms/token (the "
                 f"slowest rank's)")
         if st["replay_decode_s"] is not None:
             line += (f"; a second call, every round replayed: "
-                     f"{st['replay_decode_s'] * 1e3 / (MAX_NEW - 1):.3f} "
+                     f"{st['replay_decode_s'] * 1e3 / (new - 1):.3f} "
                      f"ms/token")
         g = run0["decode_graph"]
         line += (f"; decode {g['mode']}: {g['captures']} captures, "
@@ -2159,15 +2281,23 @@ def tp_phase() -> dict:
         print(line)
         if label.endswith("auto") and decision is None:
             failures.append(f"{label}: no split-TP gather decision")
+        if new < MAX_NEW:
+            print(f"    the one-card cut to {new} new tokens gives up "
+                  f"{MAX_NEW - new} decode rounds of this run a rank, "
+                  f"{MAX_NEW - new} x 0 kernel launches (Mistral-NeMo's "
+                  f"decode runs the plain decode attention, no kernel) and "
+                  f"about {(MAX_NEW - new) * st['decode_s'] / (new - 1):.1f}"
+                  f" s of wall at this run's decode rate")
     ranked = r0["runs"][labels[0]]
     ref = one_logits[0]
     rel = ((ranked["prefill_logits"] - ref).abs().max()
            / ref.abs().max()).item()
-    equal, gap = ranks.near_ties(range(PROMPTS), ranked["tokens"], expected,
-                                 one_logits)
+    # the one-rank run keeps its MAX_NEW tokens; the ranks' are its first
+    equal, gap = ranks.near_ties(range(PROMPTS), ranked["tokens"],
+                                 expected[:, :new], one_logits[:new])
     print(f"  4 ranks vs one: last-position prefill logits {rel:.3e} of max "
           f"|logit| (limit {REF_TOL}); {equal} of {PROMPTS} rows' tokens "
-          f"equal over {MAX_NEW}; a row parts at a gap of {gap:.3e} at most "
+          f"equal over {new}; a row parts at a gap of {gap:.3e} at most "
           f"(limit {REF_TOL})")
     if not rel < REF_TOL or gap > REF_TOL:
         failures.append(f"4 ranks vs one: logits {rel:.3e}, gap {gap:.3e}")
@@ -2188,6 +2318,7 @@ def tp_phase() -> dict:
     print(f"  DBRX-132B, 4 layers, over (1, 2, 2), capacity factor "
           f"{RANKS_CF}: 4 ranks spawned, served and joined in "
           f"{time.monotonic() - t0:.1f} s")
+    spawn_split(results, "the spawn")
     failures += check_decode_mode(results, backend)
     moe_layers = dbrx.n_layers - dbrx.first_k_dense
     want = launch_counts(dispatch_pack=moe_layers * 3 * MAX_NEW,
@@ -2523,6 +2654,54 @@ def report_calibration(results: list, title: str) -> list:
     return failures
 
 
+def calibration_runs() -> list:
+    """Phase 9's served DBRX runs: the fixed hierarchical and baseline
+    pairs, the calibrated plan and its fixed twin."""
+    from repro_torch.launch import ranks
+    return ranks.fixed_runs(pairs=(ranks.SCHEME_PAIRS[0],
+                                   ranks.SCHEME_PAIRS[2])) + [
+        dict(label="calibrated", policy="auto", calibrated=True, bind=True),
+        dict(label="calibrated-fixed", twin="calibrated")]
+
+
+def calibration_entry(cfg) -> dict:
+    """Phase 9's DBRX over 2 x 2 as one model of a ``serve_worker`` spawn
+    (``ranks.serve_worker``'s ``models``): the calibration, then the
+    served runs of :func:`calibration_runs`."""
+    token_bytes = cfg.d_model * 2
+    sweep = tuple(n * token_bytes for n in CAL_TOKENS)
+    return dict(name="phase 9", max_new=CAL_NEW, runs=calibration_runs(),
+                calibrate=dict(ops=("dispatch", "combine"), repeats=3,
+                               payloads={"dispatch": sweep,
+                                         "combine": sweep},
+                               check_packs=True,
+                               scenario=dict(num_experts=cfg.num_experts,
+                                             top_k=cfg.top_k,
+                                             token_bytes=token_bytes)))
+
+
+def gather_probe_entry() -> dict:
+    """Phase 9's probes of Mistral-NeMo's model axis over (1, 1, 4) as one
+    entry of a ``serve_worker`` spawn (``probe``): the AllGather sweep on
+    the split-TP topology, the gather alone at the served fragment, the
+    split-TP pick and the serve program, datasheet and calibrated."""
+    import math
+
+    from repro_torch.core.topology import split_tp_full_mesh
+    from repro_torch.launch.serve import serve_config
+    mcfg = serve_config("mistral_nemo_12b", layers=None, smoke=False)
+    topo, _ = split_tp_full_mesh(TP_MESH[2], tp=TP_MESH[2] // 2)
+    frag = (PROMPTS, PROMPT_LEN // TP_MESH[2], mcfg.d_model)
+    return dict(name="phase 9", probe=True, topo=topo,
+                calibrate=dict(ops=("allgather",), repeats=3,
+                               payloads={"allgather": CAL_GATHER}),
+                gather=dict(shape=frag, reps=5),
+                split_tp=math.prod(frag) * 2,
+                program=dict(cfg=mcfg, itemsize=2, tp_subgroups=2,
+                             phases={"prefill": (PROMPTS, PROMPT_LEN),
+                                     "decode": (PROMPTS, 1)}))
+
+
 def calibrate_phase() -> dict:
     """The telemetry loop on the card, over 4 spawned ranks (nccl with a
     card a rank where there are 4 cards, else gloo on card 0).
@@ -2549,15 +2728,17 @@ def calibrate_phase() -> dict:
     model differs from the datasheet (the store reached the planner's
     topology key); every rank plans and binds the same plans; the served
     runs' gates of phase 6 (the calibrated run held to its twin up to near
-    ties, exact launch counts); the gather bit-exact.  Returns the kernel
-    launches of the measured served runs, summed over ranks and runs."""
+    ties, exact launch counts); the gather bit-exact.  Either part rides
+    an earlier phase's spawn when that phase carried it (``CARRIED``:
+    phase 6's over 2 x 2, phase 8's over (1, 1, 4)), else it spawns its
+    own.  Returns the kernel launches of the measured served runs, summed
+    over ranks and runs."""
     import dataclasses
     import math
     import tempfile
 
     import torch
 
-    from repro_torch.core.topology import split_tp_full_mesh
     from repro_torch.launch import ranks
     from repro_torch.launch.serve import make_prompts, serve_config
 
@@ -2569,32 +2750,30 @@ def calibrate_phase() -> dict:
     cfg = dataclasses.replace(
         serve_config("dbrx_132b", layers=4, smoke=False),
         moe_capacity=RANKS_CF)
-    token_bytes = cfg.d_model * 2
     world = RANKS[0] * RANKS[1]
     print(f"  {cards} card(s): {world} ranks over {where}")
-    prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
-    runs = ranks.fixed_runs(pairs=(ranks.SCHEME_PAIRS[0],
-                                   ranks.SCHEME_PAIRS[2])) + [
-        dict(label="calibrated", policy="auto", calibrated=True, bind=True),
-        dict(label="calibrated-fixed", twin="calibrated")]
+    runs = calibration_runs()
     labels = [ranks.run_label(run) for run in runs]
-    sweep = tuple(n * token_bytes for n in CAL_TOKENS)
-    calibrate = dict(ops=("dispatch", "combine"), repeats=3,
-                     payloads={"dispatch": sweep, "combine": sweep},
-                     check_packs=True,
-                     scenario=dict(num_experts=cfg.num_experts,
-                                   top_k=cfg.top_k, token_bytes=token_bytes))
-    with tempfile.TemporaryDirectory() as tmp:
-        spec = dict(world=world, pods=RANKS[0], ep=RANKS[1], backend=backend,
-                    device="cuda:0", init_method=f"file://{tmp}/store",
-                    timeout_s=120, out_dir=f"{tmp}/out", threads=2, cfg=cfg,
-                    dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
-                    prompts=prompts, max_new=CAL_NEW, runs=runs, warmup=True,
-                    calibrate=calibrate)
-        t0 = time.monotonic()
-        results = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900)
-    print(f"  {world} ranks spawned, calibrated, served and joined in "
-          f"{time.monotonic() - t0:.1f} s")
+    results = CARRIED.pop("dbrx", None)
+    if results is not None:
+        print("  DBRX over 2 x 2: calibrated and served on phase 6's spawn "
+              "and weights (its split above)")
+    else:
+        prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
+        with tempfile.TemporaryDirectory() as tmp:
+            spec = dict(world=world, pods=RANKS[0], ep=RANKS[1],
+                        backend=backend, device="cuda:0",
+                        init_method=f"file://{tmp}/store", timeout_s=120,
+                        out_dir=f"{tmp}/out", threads=2, cfg=cfg,
+                        dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                        seed=0, prompts=prompts, warmup=True,
+                        **calibration_entry(cfg))
+            t0 = time.monotonic()
+            results = ranks.run_ranks(ranks.serve_worker, spec,
+                                      timeout_s=900)
+        print(f"  {world} ranks spawned, calibrated, served and joined in "
+              f"{time.monotonic() - t0:.1f} s")
+        spawn_split(results, "the spawn")
     failures = report_calibration(results, "DBRX over 2 x 2")
     cal = results[0]["calibration"]
     if cal["hw"] == cal["default"]:
@@ -2618,26 +2797,24 @@ def calibrate_phase() -> dict:
         f"{label} {walls[label][0]:.3f} / {walls[label][1]:.3f}"
         for label in labels))
 
-    mcfg = serve_config("mistral_nemo_12b", layers=None, smoke=False)
-    topo, _ = split_tp_full_mesh(TP_MESH[2], tp=TP_MESH[2] // 2)
-    frag = (PROMPTS, PROMPT_LEN // TP_MESH[2], mcfg.d_model)
-    with tempfile.TemporaryDirectory() as tmp:
-        pods, ep, tp = TP_MESH
-        spec = dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
-                    backend=backend, device="cuda:0",
-                    init_method=f"file://{tmp}/store", timeout_s=120,
-                    out_dir=f"{tmp}/out", threads=2, topo=topo,
-                    calibrate=dict(ops=("allgather",), repeats=3,
-                                   payloads={"allgather": CAL_GATHER}),
-                    gather=dict(shape=frag, reps=5),
-                    split_tp=math.prod(frag) * 2,
-                    program=dict(cfg=mcfg, itemsize=2, tp_subgroups=2,
-                                 phases={"prefill": (PROMPTS, PROMPT_LEN),
-                                         "decode": (PROMPTS, 1)}))
-        t0 = time.monotonic()
-        mres = ranks.run_ranks(ranks.probe_worker, spec, timeout_s=600)
-    print(f"  Mistral-NeMo's model axis, {TP_MESH}: 4 ranks spawned, "
-          f"probed and joined in {time.monotonic() - t0:.1f} s")
+    entry = gather_probe_entry()
+    frag = entry["gather"]["shape"]
+    mres = CARRIED.pop("mistral", None)
+    if mres is not None:
+        print(f"  Mistral-NeMo's model axis, {TP_MESH}: probed on phase 8's "
+              f"spawn (its split above)")
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            pods, ep, tp = TP_MESH
+            spec = dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
+                        backend=backend, device="cuda:0",
+                        init_method=f"file://{tmp}/store", timeout_s=120,
+                        out_dir=f"{tmp}/out", threads=2, **entry)
+            t0 = time.monotonic()
+            mres = ranks.run_ranks(ranks.probe_worker, spec, timeout_s=600)
+        print(f"  Mistral-NeMo's model axis, {TP_MESH}: 4 ranks spawned, "
+              f"probed and joined in {time.monotonic() - t0:.1f} s")
+        spawn_split(mres, "the spawn")
     failures += report_calibration(mres, "split-TP AllGather over (1, 1, 4)")
     m0 = mres[0]
     for name, d in m0["split_tp"].items():
@@ -2877,6 +3054,30 @@ def dkdv_balance(shape: tuple, args: tuple, kw: dict, failures: list) -> None:
         failures.append(f"flash_attention_bwd record at {shape}")
 
 
+def rounding_yardsticks(q, k, v, do, kw: dict, plain, exact, errs) -> None:
+    """Beside the kernel's dq/dk/dv error ``errs`` against ``exact``
+    (autograd of the plain forward in fp32), the errors of two other bf16
+    backwards on the same inputs: the backward of
+    ``scaled_dot_product_attention`` and the plain backward (``plain``,
+    fp32 inside, bf16 out).  A kernel error within twice SDPA's is the
+    rounding of bf16 gradients; more points at the kernel."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    sdpa = torch.autograd.grad(F.scaled_dot_product_attention(
+        *leaves, is_causal=kw["causal"], enable_gqa=True), leaves, do)
+
+    def err(got):
+        return [(a.float() - e.float()).abs().max().item()
+                for a, e in zip(got, exact)]
+    lib, ref_ = err(sdpa), err(plain)
+    print(f"  beside it, against the same fp32 gradients: the backward of "
+          f"scaled_dot_product_attention (bf16) {lib[0]:.3e}/{lib[1]:.3e}/"
+          f"{lib[2]:.3e}, the plain backward (bf16 out) {ref_[0]:.3e}/"
+          f"{ref_[1]:.3e}/{ref_[2]:.3e}; kernel/sdpa "
+          + "/".join(f"{a / b:.2f}" for a, b in zip(errs, lib)))
+
+
 def attention_bwd_checks(failures: list) -> dict:
     """The attention backward kernel (and the forward's log-sum-exp)
     against the plain backward and against autograd of the plain forward,
@@ -2948,6 +3149,8 @@ def attention_bwd_checks(failures: list) -> dict:
               f"atol=rtol=2e-2")
         if not ok:
             failures.append(f"flash_attention_bwd {label}")
+        if label == "seamless-dec":
+            rounding_yardsticks(q, k, v, do, kw, plain, held[-1], errs)
         del held, plain
         if label == "dbrx":
             again = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
@@ -3426,7 +3629,6 @@ def train_ranks_phase() -> dict:
 
     from repro_torch.configs.base import get_config
     from repro_torch.launch import ranks
-    t_phase = time.monotonic()
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= 4 else "gloo"
     depth, steps, seq = TRAIN_RANKS[4 if cards >= 4 else 1]
@@ -3457,11 +3659,15 @@ def train_ranks_phase() -> dict:
         t0 = time.monotonic()
         results = ranks.run_ranks(ranks.train_worker, spec, timeout_s=900)
         spawn_s = time.monotonic() - t0
+    spawn_split(results, "DBRX's spawn")
     if link:
         print(f"  link: {results[0]['link']}")
     # the reduced model against one rank on the card
     red = results[0]["runs"]["reduced"]
+    t_one = time.monotonic()
     loss, ce, _, grads = one_rank_step0(small, seq, grads=True)
+    print(f"  the one-rank reference on the card (reduced DBRX): "
+          f"{time.monotonic() - t_one:.1f} s")
     cosines = {}
     for name, g in grads.items():
         a = torch.from_numpy(red["grads"][name]).double().flatten()
@@ -3531,6 +3737,7 @@ def train_ranks_phase() -> dict:
         t0 = time.monotonic()
         results = ranks.run_ranks(ranks.train_worker, spec, timeout_s=900)
         spawn_s = time.monotonic() - t0
+    spawn_split(results, "Mistral-NeMo's spawn")
     runs_ = [r["runs"]["tp"] for r in results]
     print(f"  Mistral-NeMo-12B over {TP_MESH}, depth {TP_TRAIN_DEPTH}, "
           f"{TP_TRAIN_STEPS} steps, tp_subgroups 2, {where}; the ranks ran "
@@ -3542,7 +3749,10 @@ def train_ranks_phase() -> dict:
     for r in runs_:
         if r["launches"] != want:
             failures.append(f"mistral launches {r['launches']} != {want}")
+    t_one = time.monotonic()
     loss, _, norm, _ = one_rank_step0(tp_cfg, TRAIN_RANKS_SEQ, grads=False)
+    print(f"  the one-rank reference on the card (Mistral-NeMo): "
+          f"{time.monotonic() - t_one:.1f} s")
     h0 = runs_[0]["history"][0]
     gaps = (abs(h0["loss"] - loss) / loss, abs(h0["grad_norm"] - norm)
             / norm)
@@ -3554,7 +3764,6 @@ def train_ranks_phase() -> dict:
         failures.append(f"mistral against one rank: {gaps}")
     for name, n in counts.items():
         total[name] = total.get(name, 0) + n
-    print(f"  phase 11 took {time.monotonic() - t_phase:.1f} s")
     if failures:
         raise AssertionError(f"phase 11: {failures}")
     return total
@@ -3569,7 +3778,6 @@ def families_phase() -> dict:
     (``FAMILIES``) through :func:`serve_phase`, one at a time, each freed
     before the next; then Gemma2's gradient on the card must raise
     (:func:`gemma_gradient_raises`).  Returns the launches by model."""
-    t0 = time.monotonic()
     by_path = {}
     for arch, prompts_n, prompt_len, max_new in FAMILIES:
         print(f"  {arch}: {prompts_n} prompts x {prompt_len} tokens, "
@@ -3578,7 +3786,6 @@ def families_phase() -> dict:
             arch, None, prompts_n=prompts_n, prompt_len=prompt_len,
             max_new=max_new,
             after=gemma_gradient_raises if arch == "gemma2_9b" else None)
-    print(f"  phase 12 took {time.monotonic() - t0:.1f} s")
     return by_path
 
 
@@ -3619,7 +3826,6 @@ def encdec_phase() -> dict:
     attention launches a prefill and ``n_layers`` a decode round), freed,
     then trained (:func:`train_encdec`).  Returns the launches by path."""
     import torch
-    t0 = time.monotonic()
     arch, prompts_n, prompt_len, max_new = ENCDEC
     print(f"  {arch}: {prompts_n} prompts x {prompt_len} tokens, {max_new} "
           f"new")
@@ -3628,7 +3834,6 @@ def encdec_phase() -> dict:
     by_path[f"{arch}_train"] = train_encdec(arch)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"  phase 13 took {time.monotonic() - t0:.1f} s")
     return by_path
 
 
@@ -3675,6 +3880,240 @@ def train_encdec(arch: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the hybrid, rwkv and encoder-decoder families over (1, 1, 4)
+# ---------------------------------------------------------------------------
+
+TP_FAMILIES_MESH = (1, 1, 4)
+# (arch, its depth on one card (None: the published depth), the depth of
+# its conditioned twin (None: none), the run's context knobs), served in
+# this order on one spawn; Qwen2-VL's 2 kv heads over 4 model ranks with
+# the KV length unsharded: the replicated layout.  A twin is the same
+# architecture cut to a depth where one rank's bf16 logits lie within
+# REF_TOL / 2 of its fp32 logits (Zamba2's first shared-block call comes
+# after 6 blocks)
+TP_FAMILIES = (("zamba2_7b", 24, 7, {}), ("rwkv6_7b", 8, 2, {}),
+               ("seamless_m4t_medium", None, None, {}),
+               ("qwen2_vl_2b", None, None, {"seq_shard_decode": False}))
+TP_FAMILIES_NEW = {1: 8, 4: 32}         # new tokens on one card, on four
+
+
+def tp_families_heading(four: bool) -> str:
+    """Phase 14's title, with the one-card cuts named."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.ssm import n_shared_calls
+    new = TP_FAMILIES_NEW[4 if four else 1]
+    cuts = []
+    for arch, depth, _, _ in TP_FAMILIES:
+        if depth is not None and not four:
+            cfg = get_config(arch)
+            cut = f"{arch} at {depth} of {cfg.n_layers} blocks"
+            if cfg.family == "hybrid":
+                cut += (f" ({n_shared_calls(cfg.with_depth(depth))} calls "
+                        f"of the shared block)")
+            cuts.append(cut)
+    return ("phase 14: Zamba2-7B, RWKV6-7B, SeamlessM4T-medium and "
+            "Qwen2-VL-2B's backbone (replicated kv heads) over (1, 1, 4) "
+            "at full width, " + (f"full depth, {new} new tokens" if four
+                                 else f"{new} new tokens, cut on one card: "
+                                 + "; ".join(cuts)))
+
+
+def _mamba2_steps(x, dt, a, b, c, d):
+    """``ops.mamba2_scan``'s contract through the fp32 per-step
+    recurrence."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba2_scan import expand_groups
+    n = x.shape[0]
+    return ref.mamba2_ref(x, dt, a, expand_groups(b, n), expand_groups(c, n),
+                          d, return_final=True)
+
+
+def _rwkv6_steps(r, k, v, logw, u):
+    """``ops.rwkv6_scan``'s contract through the fp32 per-step recurrence
+    (the chunked form overflows where a chunk's decays sum below -88)."""
+    from repro_torch.kernels import ref
+    return ref.rwkv6_ref(r, k, v, logw, u, return_final=True)
+
+
+def fp32_prefill(cfg, params, prompts, max_len: int):
+    """The last-position prefill logits [B, V] of ``params`` (bf16) cast to
+    fp32, through fp32 plain versions of the kernels on the card (the
+    scans' per-step recurrences): what one rank's bf16 run
+    approximates."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.api import build_model, param_module
+    model = build_model(cfg, device="cuda", dtype=torch.float32)
+    wide = param_module(cfg, device="cuda", dtype=torch.float32)
+    wide.load_state_dict(params.state_dict())
+    with torch.inference_mode(), mock.patch.multiple(
+            ops, flash_attention=flash_attention_plain,
+            mamba2_scan=_mamba2_steps, rwkv6_scan=_rwkv6_steps):
+        logits, _ = model.prefill(
+            wide, batch_for_model(cfg, {"tokens": prompts}, device="cuda"),
+            model.init_cache(prompts.shape[0], max_len, torch.float32))
+    out = logits.float().cpu()
+    del wide, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_families_phase() -> dict:
+    """The hybrid, rwkv and encoder-decoder families and Qwen2-VL's
+    backbone served over 4 tensor-parallel ranks (``TP_FAMILIES``; nccl
+    with a card a rank where there are 4 cards, decode graphed; else 4
+    gloo processes on card 0, decode eager), 4 prompts x 512 tokens,
+    greedy, seed-0 random weights, one spawn serving the models one after
+    another (each rank's weights freed before the next), each held
+    against a one-rank run of the same weights on the card.
+
+    Gates, each model: every rank's tokens equal; exact launches of
+    ``mamba2_scan``, ``rwkv6_scan`` and ``flash_attention`` on each rank;
+    the decode mode; finite logits; and phase 6's gate (the last-position
+    prefill logits within ``REF_TOL`` of max |logit| of one rank's, and a
+    row's tokens parting from one rank's only at a near tie below it)
+    where it is conditioned.  ``REF_TOL`` is a model's bf16 logits' gap
+    from its fp32 logits, so one rank's weights also prefill in fp32
+    (:func:`fp32_prefill`); a model whose one-rank bf16 logits lie further
+    than ``REF_TOL / 2`` from those at its served depth (the random-weight
+    Zamba2 and RWKV6 stacks: the reference's own Zamba2 at 24 blocks lies
+    past ``REF_TOL`` from its fp32 logits, while in fp32 the port's 4
+    ranks agree with one rank within 1e-4; ``tests/
+    test_torch_tp_families.py``) has its gaps printed there, and its twin
+    (the same architecture at the depth ``TP_FAMILIES`` names, served on
+    the same spawn) must be conditioned and pass phase 6's gate.  Each
+    rank's decode-state bytes print beside one rank's.  Returns the
+    launches of the measured runs by model, summed over ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import ranks
+    from repro_torch.launch.serve import make_prompts, serve_config
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.server import ServeConfig
+
+    cards = torch.cuda.device_count()
+    four = cards >= 4
+    backend = "nccl" if four else "gloo"
+    new = TP_FAMILIES_NEW[4 if four else 1]
+    pods, ep, tp = TP_FAMILIES_MESH
+    where = ("nccl, one card a rank" if four else
+             "gloo, 4 processes on one card, host-staged transport")
+    print(f"  {cards} card(s): {pods * ep * tp} ranks over {where}")
+    served = []                         # (name, cfg, knobs, twin of)
+    twins = {arch for arch, _, twin, _ in TP_FAMILIES if twin is not None}
+    for arch, depth, twin, knobs in TP_FAMILIES:
+        cfg = serve_config(arch, layers=None if four else depth,
+                           smoke=False)
+        served.append((arch, cfg, knobs, None))
+        if twin is not None:
+            served.append((f"{arch}@{twin}", cfg.with_depth(twin), knobs,
+                           arch))
+    models, refs = [], {}
+    for name, cfg, knobs, _ in served:
+        prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
+        t_one = time.monotonic()
+        model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        one = ranks.RecordingEngine(model, model.init(gen),
+                                    ServeConfig(max_new_tokens=new),
+                                    device="cuda")
+        expected = one.generate(prompts)
+        ref = one.step_logits[0]
+        wide = fp32_prefill(cfg, one.params, prompts, PROMPT_LEN + new)
+        bf16_rel = ((ref - wide).abs().max() / wide.abs().max()).item()
+        refs[name] = (cfg, expected, list(one.step_logits), one.state,
+                      bf16_rel)
+        one.close()
+        del one, model
+        gc.collect()                    # the engine's binder cycle
+        torch.cuda.empty_cache()
+        print(f"  {name}: the one-rank references on the card, bf16 and "
+              f"fp32 ({cfg.n_layers} blocks): "
+              f"{time.monotonic() - t_one:.1f} s")
+        models.append(dict(name=name, cfg=cfg, prompts=prompts,
+                           runs=[dict(label="tp4", **knobs)]))
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
+                    backend=backend, device="cuda:0",
+                    init_method=f"file://{tmp}/store", timeout_s=300,
+                    out_dir=f"{tmp}/out", threads=2, seed=0,
+                    dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                    max_new=new, models=models)
+        t0 = time.monotonic()
+        results = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900)
+    print(f"  4 ranks spawned, served the {len(models)} models and joined "
+          f"in {time.monotonic() - t0:.1f} s")
+    spawn_split(results, "the spawn")
+    failures, by_path = [], {}
+    for name, _, _, twin_of in served:
+        cfg, expected, one_logits, one_state, bf16_rel = refs[name]
+        per = [dict(r["models"][name], rank=r["rank"]) for r in results]
+        failures += check_decode_mode(per, backend)
+        runs_ = [r["runs"]["tp4"] for r in per]
+        run0 = runs_[0]
+        want = expected_launches(cfg, new)
+        total: dict = {}
+        for r, run in zip(per, runs_):
+            if not np.array_equal(run["tokens"], run0["tokens"]):
+                failures.append(f"{name} rank {r['rank']}: other tokens")
+            if run["launches"] != want:
+                failures.append(f"{name} rank {r['rank']}: launches "
+                                f"{run['launches']} != {want}")
+            if run["nonfinite_logits"]:
+                failures.append(f"{name} rank {r['rank']}: non-finite")
+            for kernel, n in run["launches"].items():
+                total[kernel] = total.get(kernel, 0) + n
+        by_path[f"{name}_tp4"] = total
+        ref = one_logits[0]
+        rel = ((run0["prefill_logits"] - ref).abs().max()
+               / ref.abs().max()).item()
+        equal, gap = ranks.near_ties(range(PROMPTS), run0["tokens"],
+                                     expected, one_logits)
+        st = max(runs_, key=lambda run: run["prefill_s"])
+        g = run0["decode_graph"]
+        mem = per[0]["memory"]
+        print(f"  {name} ({cfg.n_layers} blocks, {new} new): prefill "
+              f"{st['prefill_s'] * 1e3:.3f} ms, decode "
+              f"{st['decode_s'] * 1e3 / (new - 1):.3f} ms/token (the "
+              f"slowest rank's; decode {g['mode']}: {g['captures']} "
+              f"captures, {g['replays']} replays); weights a rank "
+              f"{mem['all_gb']:.2f} GB, peak "
+              f"{max(r['peak_gb'] for r in per):.2f} GB; launches a rank "
+              f"{ {k: v for k, v in run0['launches'].items() if v} }")
+        layout = ", ".join(f"{k} {list(v)}" for k, v in
+                           run0["state"]["shapes"].items() if k != "pos")
+        print(f"    decode state a rank {run0['state']['bytes'] / 1e6:.2f} "
+              f"MB against one rank's {one_state['bytes'] / 1e6:.2f} MB "
+              f"({layout})")
+        conditioned = bf16_rel < REF_TOL / 2
+        print(f"    4 ranks vs one: last-position prefill logits {rel:.3e} "
+              f"of max |logit|; {equal} of {PROMPTS} rows' tokens equal "
+              f"over {new}, a row parting at a gap of {gap:.3e} at most; "
+              f"one rank's bf16 logits vs its fp32 logits {bf16_rel:.3e}: "
+              + (f"held within {REF_TOL}" if conditioned else
+                 f"not conditioned (above {REF_TOL / 2}), so not held "
+                 f"here; its twin at fewer blocks is"))
+        if conditioned and (not rel < REF_TOL or gap > REF_TOL):
+            failures.append(f"{name}, 4 ranks vs one: logits {rel:.3e}, "
+                            f"gap {gap:.3e}")
+        if not conditioned and (twin_of is not None or name not in twins):
+            failures.append(f"{name}: not conditioned ({bf16_rel:.3e}) and "
+                            f"no conditioned twin holds it")
+    if failures:
+        raise AssertionError(f"phase 14: {failures}")
+    return by_path
+
+
 def ptxas_report(log: str) -> list:
     """(function, registers, spill stores, spill loads) of each kernel
     function in an ``nvcc -Xptxas -v`` log."""
@@ -3709,6 +4148,32 @@ def build_phase() -> None:
                 print(f"  {name}: {line.strip()}")
 
 
+class PhaseClock:
+    """Each phase's title, then its wall once it ends (``phase N took X
+    s``); ``summary`` prints every wall and the script's."""
+
+    def __init__(self):
+        self.started = time.monotonic()
+        self.walls: dict = {}
+
+    def __call__(self, n: int, title: str):
+        import contextlib
+
+        @contextlib.contextmanager
+        def timed():
+            print(title)
+            t0 = time.monotonic()
+            yield
+            self.walls[n] = time.monotonic() - t0
+            print(f"  phase {n} took {self.walls[n]:.1f} s")
+        return timed()
+
+    def summary(self) -> None:
+        print("phase walls, s: " + ", ".join(
+            f"{n} {w:.1f}" for n, w in self.walls.items())
+            + f"; the script {time.monotonic() - self.started:.1f}")
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -3735,31 +4200,39 @@ def main(argv=None) -> None:
                     help="phases 1, 2 and 12 only")
     ap.add_argument("--encdec-only", action="store_true",
                     help="phases 1, 2 and 13 only")
+    ap.add_argument("--tp-families-only", action="store_true",
+                    help="phases 1, 2 and 14 only (on four cards: nccl)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
 
-    print("phase 1: device")
-    kind = torch.cuda.get_device_name(0)
-    print(f"  torch {torch.__version__} cuda {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}, {kind}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    print(smi.strip())
+    clock = PhaseClock()
+    with clock(1, "phase 1: device"):
+        kind = torch.cuda.get_device_name(0)
+        print(f"  torch {torch.__version__} cuda {torch.version.cuda}, "
+              f"python {sys.version.split()[0]}, {kind}")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+        print(smi.strip())
 
-    print("phase 2: build")
-    build_phase()
-    depth, kimi_new = KIMI_DEPTH[4 if torch.cuda.device_count() >= 4 else 1]
+    with clock(2, "phase 2: build"):
+        build_phase()
+    cards = torch.cuda.device_count()
+    four = cards >= 4
+    depth, kimi_new = KIMI_DEPTH[4 if four else 1]
     kimi_title = (f"phase 7: Kimi-K2-1T over 2 pods x 8 ep ranks, depth "
                   f"{depth}")
-    tp_title = "phase 8: tensor parallelism, Mistral-NeMo-12B over (1, 1, 4)"
+    tp_new = TP_NEW[4 if four else 1]
+    tp_title = ("phase 8: tensor parallelism, Mistral-NeMo-12B over (1, 1, "
+                "4)" + ("" if tp_new == MAX_NEW else
+                        f", {tp_new} new tokens on one card"))
     cal_title = ("phase 9: the telemetry loop, DBRX over 2 x 2 and "
                  "Mistral-NeMo over (1, 1, 4) calibrated on the card")
     train_title = (f"phase 10: training, the backward kernels and "
                    f"DBRX-132B at full width, depth {TRAIN_DEPTH}")
-    ranks_depth = TRAIN_RANKS[4 if torch.cuda.device_count() >= 4 else 1][0]
+    ranks_depth = TRAIN_RANKS[4 if four else 1][0]
     train_ranks_title = (f"phase 11: training over ranks, DBRX-132B over 2 "
                          f"pods x 2 ep ranks at depth {ranks_depth} and "
                          f"Mistral-NeMo-12B over (1, 1, 4)")
@@ -3767,75 +4240,88 @@ def main(argv=None) -> None:
                       "Qwen2-VL-2B's backbone at full width and depth")
     encdec_title = ("phase 13: SeamlessM4T-medium, the encoder-decoder, "
                     "served and trained at full width and depth")
+    tp_families_title = tp_families_heading(four)
     if args.kimi_only:
-        print(kimi_title)
-        kimi_phase(depth, kimi_new)
+        with clock(7, kimi_title):
+            kimi_phase(depth, kimi_new)
     elif args.families_only:
-        print(families_title)
-        counts = families_phase()
-        print(f"  launches of phase 12's measured calls: {counts}")
+        with clock(12, families_title):
+            counts = families_phase()
+            print(f"  launches of phase 12's measured calls: {counts}")
     elif args.encdec_only:
-        print(encdec_title)
-        counts = encdec_phase()
-        print(f"  launches of phase 13's measured call and training: "
-              f"{counts}")
+        with clock(13, encdec_title):
+            counts = encdec_phase()
+            print(f"  launches of phase 13's measured call and training: "
+                  f"{counts}")
     elif args.tp_only:
-        print(tp_title)
-        tp_phase()
+        with clock(8, tp_title):
+            tp_phase()
     elif args.calibrate_only:
-        print(cal_title)
-        calibrate_phase()
+        with clock(9, cal_title):
+            calibrate_phase()
     elif args.train_only:
-        print(train_title)
-        rows, counts = train_phase()
+        with clock(10, train_title):
+            rows, counts = train_phase()
         for name, row in rows.items():
             row["launches"] = counts[name]
             row["launches_by_path"] = {"dbrx_132b_train": counts[name]}
-        print(json.dumps({"kernels": list(rows.values())}))
     elif args.train_ranks_only:
-        print(train_ranks_title)
-        counts = train_ranks_phase()
-        print(f"  launches of phase 11's trained runs, summed over ranks: "
-              f"{counts}")
+        with clock(11, train_ranks_title):
+            counts = train_ranks_phase()
+            print(f"  launches of phase 11's trained runs, summed over "
+                  f"ranks: {counts}")
+    elif args.tp_families_only:
+        with clock(14, tp_families_title):
+            counts = tp_families_phase()
+            print(f"  launches of phase 14's measured runs, summed over "
+                  f"ranks: {counts}")
     elif args.ranks_only:
         for i, cf in enumerate(args.ranks_only):
-            print(f"phase 6: DBRX over 2 pods x 2 ep ranks, capacity factor "
-                  f"{cf}")
-            ranks_phase(cf, trace=args.trace if i == 0 else None)
+            with clock(6, f"phase 6: DBRX over 2 pods x 2 ep ranks, "
+                          f"capacity factor {cf}"):
+                ranks_phase(cf, trace=args.trace if i == 0 else None)
     else:
-        sass_phase()
-        print("phase 3: kernels vs plain versions")
-        rows = kernel_phase()
-        rows.update(scan_phase())
-        combine_phase()
-        print("phase 4: small-model reference")
-        reference_phase()
-        print("phase 5: serve")
+        with clock(3, "phase 3: kernels vs plain versions"):
+            sass_phase()
+            rows = kernel_phase()
+            rows.update(scan_phase())
+            combine_phase()
+        with clock(4, "phase 4: small-model reference"):
+            reference_phase()
         by_path = {}
-        for arch, layers in SERVES:
-            by_path[arch] = serve_phase(arch, layers)
-        print("phase 6: DBRX over 2 pods x 2 ep ranks")
-        by_path["dbrx_132b_2x2_ranks"] = ranks_phase()
-        print(kimi_title)
-        by_path["kimi_k2_1t_2x8_ranks"] = kimi_phase(depth, kimi_new)
-        print(tp_title)
-        by_path["tp_ranks"] = tp_phase()
-        print(cal_title)
-        by_path["dbrx_132b_2x2_calibrated"] = calibrate_phase()
-        print(train_title)
-        bwd_rows, by_path["dbrx_132b_train"] = train_phase()
-        rows.update(bwd_rows)
-        print(train_ranks_title)
-        by_path["train_ranks"] = train_ranks_phase()
-        print(families_title)
-        by_path.update(families_phase())
-        print(encdec_title)
-        by_path.update(encdec_phase())
+        with clock(5, "phase 5: serve"):
+            for arch, layers in SERVES:
+                by_path[arch] = serve_phase(arch, layers)
+        with clock(6, "phase 6: DBRX over 2 pods x 2 ep ranks"):
+            # phase 9's DBRX rides this spawn, its Mistral probes phase 8's
+            by_path["dbrx_132b_2x2_ranks"] = ranks_phase(carry=True)
+        with clock(7, kimi_title):
+            by_path["kimi_k2_1t_2x8_ranks"] = kimi_phase(depth, kimi_new)
+        with clock(8, tp_title):
+            by_path["tp_ranks"] = tp_phase(carry=True)
+        with clock(9, cal_title):
+            by_path["dbrx_132b_2x2_calibrated"] = calibrate_phase()
+        with clock(10, train_title):
+            bwd_rows, by_path["dbrx_132b_train"] = train_phase()
+            rows.update(bwd_rows)
+        with clock(11, train_ranks_title):
+            by_path["train_ranks"] = train_ranks_phase()
+        with clock(12, families_title):
+            by_path.update(families_phase())
+        with clock(13, encdec_title):
+            by_path.update(encdec_phase())
+        with clock(14, tp_families_title):
+            by_path.update(tp_families_phase())
 
         for name, row in rows.items():
             row["launches"] = sum(c.get(name, 0) for c in by_path.values())
             row["launches_by_path"] = {arch: c.get(name, 0)
                                        for arch, c in by_path.items()}
+    clock.summary()
+    if args.train_only or not any(
+            (args.ranks_only, args.kimi_only, args.tp_only,
+             args.calibrate_only, args.train_ranks_only, args.families_only,
+             args.encdec_only, args.tp_families_only)):
         print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,8 +12,13 @@ one checkpoint, as the reference's:
 * **Atomic commit**: a checkpoint is written into ``step_X.tmp-<nonce>``
   and published by one ``rename``; a reader never sees a partial one, and
   a crashed writer leaves a .tmp dir that GC removes after an hour.
-* **Integrity**: a crc32 of each leaf's bytes in the manifest; restore
-  verifies it and raises ``IOError`` on a mismatch.
+* **Integrity**: a crc32 of each leaf's bytes in the manifest, as the
+  reference's.  Each way the bytes pass one CRC-32, the zip archive's own:
+  a save derives the leaf's crc from the CRC the zip writer computed over
+  the leaf's ``.npy`` member (its small header removed, by the linearity
+  of CRC-32), and a restore holds the member's recorded CRC to the
+  manifest's crc and lets the zip reader check the bytes against it as
+  it reads them; either mismatch raises ``IOError``.
 * **keep_last_k GC** and optional asynchronous writes (one writer thread).
 * **Global leaves over ranks**: with a :class:`ShardLayout` (training over
   a rank mesh) every leaf is stored at its global logical shape, as the
@@ -32,13 +37,14 @@ host memory is one leaf), and :meth:`restore_into` copies each leaf into
 the tensors of a live tree in place, so a model whose state fills the card
 can be saved and restored.  There is one shard file, written by one
 process (rank 0 over ranks); the reference's multi-host writers and the
-FSDP layout (ROADMAP.md queue 1 item 8c) wait.
+FSDP layout (ROADMAP.md queue 1 item 10) wait.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -51,6 +57,7 @@ import numpy as np
 import torch
 
 SHARD = "shard_00000.npz"
+READ_PIECE = 64 << 20             # bytes a read of a stored leaf takes
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> list:
@@ -95,9 +102,92 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _crc(arr: np.ndarray) -> int:
-    return zlib.crc32(memoryview(np.ascontiguousarray(arr)).cast("B")) \
-        & 0xFFFFFFFF
+def _bytes_of(arr: np.ndarray) -> memoryview:
+    return memoryview(np.asarray(arr, order="C").reshape(-1)).cast("B")
+
+
+_CRC_POLY = 0xEDB88320            # CRC-32, bit-reflected
+
+
+def _gf2_mult(a: int, b: int) -> int:
+    """a * b modulo the CRC-32 polynomial (zlib's ``multmodp``)."""
+    p, m = 0, 1 << 31
+    while m:
+        if a & m:
+            p ^= b
+        b = (b >> 1) ^ _CRC_POLY if b & 1 else b >> 1
+        m >>= 1
+    return p
+
+
+def _crc_shift(crc: int, nbytes: int) -> int:
+    """``crc32(a + b) ^ crc32(b)`` for ``crc32(a) = crc`` and ``len(b) =
+    nbytes``: CRC-32 is linear over GF(2), so the CRC of a prefix moves
+    through ``nbytes`` more bytes as a product by x^(8 nbytes) (zlib's
+    ``crc32_combine`` with a zero second CRC)."""
+    x8n, sq = 1 << 31, 1 << 23            # x^0, x^8
+    while nbytes:
+        if nbytes & 1:
+            x8n = _gf2_mult(sq, x8n)
+        sq = _gf2_mult(sq, sq)
+        nbytes >>= 1
+    return _gf2_mult(x8n, crc)
+
+
+def _npy_header(arr: np.ndarray) -> bytes:
+    """The ``.npy`` header ``np.save`` writes before ``arr``'s bytes."""
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(
+        buf, np.lib.format.header_data_from_array_1_0(arr))
+    return buf.getvalue()
+
+
+def _write_leaf(zf: zipfile.ZipFile, key: str, arr: np.ndarray) -> int:
+    """Write ``arr`` as the member ``<key>.npy`` (header, then its bytes
+    in one write) and return the crc32 of its bytes, derived from the CRC
+    the zip writer computed over the member: one pass over the bytes."""
+    arr = np.asarray(arr, order="C")
+    header = _npy_header(arr)
+    with zf.open(key + ".npy", "w", force_zip64=True) as f:
+        f.write(header)
+        f.write(_bytes_of(arr))
+    member = zf.getinfo(key + ".npy").CRC
+    return member ^ _crc_shift(zlib.crc32(header), arr.nbytes)
+
+
+def _read_leaf(zf: zipfile.ZipFile, key: str, crc: int) -> np.ndarray:
+    """The array stored as ``<key>.npy``: its member's recorded CRC held
+    to the manifest's ``crc`` of the bytes, then the bytes read in
+    ``READ_PIECE`` pieces into one array while the zip reader checks them
+    against that CRC.  A mismatch either way raises ``IOError``."""
+    name = key + ".npy"
+    try:
+        info = zf.getinfo(name)
+        with zf.open(info) as f:
+            head = f.read(10)              # magic, version, header length
+            if head[6] == 1:
+                size = 10 + int.from_bytes(head[8:10], "little")
+            else:
+                head += f.read(2)
+                size = 12 + int.from_bytes(head[8:12], "little")
+            head += f.read(size - len(head))
+            meta = io.BytesIO(head)
+            version = np.lib.format.read_magic(meta)
+            shape, fortran, dtype = (
+                np.lib.format.read_array_header_1_0(meta) if version == (1, 0)
+                else np.lib.format.read_array_header_2_0(meta))
+            arr = np.empty(shape, dtype, order="F" if fortran else "C")
+            if info.CRC != crc ^ _crc_shift(zlib.crc32(head), arr.nbytes):
+                raise IOError(f"checkpoint corruption in leaf {key}: the "
+                              f"archive's CRC is not the manifest's")
+            view = memoryview(arr.reshape(-1, order="A")).cast("B")
+            for lo in range(0, arr.nbytes, READ_PIECE):
+                piece = f.read(min(READ_PIECE, arr.nbytes - lo))
+                view[lo:lo + len(piece)] = piece
+            f.read()                      # at the end: the CRC checked
+    except zipfile.BadZipFile as err:
+        raise IOError(f"checkpoint corruption in leaf {key}") from err
+    return arr
 
 
 class ShardLayout:
@@ -259,16 +349,12 @@ class CheckpointManager:
     def _write(self, final: str, manifest: dict, host: Iterator) -> str:
         tmp = final + f".tmp-{os.getpid()}-{int(time.time() * 1e6)}"
         os.makedirs(tmp, exist_ok=True)
-        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as crcs, \
-                zipfile.ZipFile(os.path.join(tmp, SHARD), "w",
-                                allowZip64=True) as zf:
+        with zipfile.ZipFile(os.path.join(tmp, SHARD), "w",
+                             allowZip64=True) as zf:
             for key, arr, dtype in host:
-                crc = crcs.submit(_crc, arr)       # beside the write
-                with zf.open(key + ".npy", "w", force_zip64=True) as f:
-                    np.lib.format.write_array(f, arr, allow_pickle=False)
                 manifest["leaves"][key] = {"shape": list(arr.shape),
                                            "dtype": dtype,
-                                           "crc": crc.result()}
+                                           "crc": _write_leaf(zf, key, arr)}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -306,14 +392,12 @@ class CheckpointManager:
         """(template leaf, stored tensor on the host) for each leaf of
         ``template``, checked against the manifest."""
         d = os.path.join(self.directory, f"step_{step:08d}")
-        with np.load(os.path.join(d, SHARD)) as data:
+        with zipfile.ZipFile(os.path.join(d, SHARD)) as zf:
             for key, tmpl in _flatten_with_paths(template):
                 info = manifest["leaves"].get(key)
                 if info is None:
                     raise KeyError(f"checkpoint missing leaf {key}")
-                arr = data[key]
-                if _crc(arr) != info["crc"]:
-                    raise IOError(f"checkpoint corruption in leaf {key}")
+                arr = _read_leaf(zf, key, info["crc"])
                 shape = tuple(getattr(tmpl, "shape", ()))
                 if self.layout is not None:
                     shape = self.layout.global_shape(key, shape)

@@ -16,8 +16,8 @@ rounded once to ``dtype``, which gives the values the reference's per-use
 ``u``) stays fp32: each module creates those parameters in fp32.  With a
 ``pctx`` the result is one rank's shard: the experts ``[first, first +
 per_rank)`` of each MoE layer and, over a model axis, the tensor-parallel
-block of each split parameter (a module's ``shards``), everything else
-whole.
+cut of each split parameter (a module's ``shards``: a block, or Mamba2's
+``in_proj`` segments), everything else whole.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.api import param_module
+from repro_torch.models.layers import cut_segments
 
 
 def params_from_jax(np_params: dict, cfg: ModelConfig, *, device=None,
@@ -92,12 +93,19 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *, device=None,
 
 
 def block_of(src, shard) -> np.ndarray:
-    """Block ``index`` of ``parts`` along ``dim`` of a whole array, for a
-    module's ``shards`` entry ``(dim, parts, index)``."""
-    dim, parts, index = shard
+    """A module's ``shards`` entry's cut of a whole array
+    (``layers.cut_segments``): block ``index`` of ``parts`` along ``dim``
+    for ``(dim, parts, index)``, or the column segments of ``(dim, whole,
+    ((lo, hi), ...))`` concatenated in their order."""
     src = np.asarray(src)
-    size = src.shape[dim] // parts
-    return src.take(range(index * size, (index + 1) * size), axis=dim)
+    dim = shard[0]
+    local = src.shape[dim] // shard[1] if isinstance(shard[2], int) else 0
+    _, whole, segs = cut_segments(shard, local)
+    if src.shape[dim] != whole:
+        raise ValueError(f"shape {src.shape} for a cut of {whole} along "
+                         f"dim {dim}")
+    return np.concatenate([src.take(range(lo, hi), axis=dim)
+                           for lo, hi in segs], axis=dim)
 
 
 def _tree_index(tree, i: int):

@@ -3,8 +3,10 @@ host, spawned and joined with a deadline.
 
 ``chip_smoke.py`` spawns :func:`serve_worker` as 4 ranks (2 pods x 2 ep
 ranks) serving DBRX-132B, as 16 gloo ranks (2 pods x 8) serving
-Kimi-K2-1T, and as 4 tensor-parallel ranks (1 x 1 x 4) serving
-Mistral-NeMo-12B and (1 x 2 x 2) serving DBRX on the card(s), and
+Kimi-K2-1T, as 4 tensor-parallel ranks (1 x 1 x 4) serving
+Mistral-NeMo-12B and, one spawn for all four, Zamba2-7B, RWKV6-7B,
+SeamlessM4T-medium and Qwen2-VL-2B, and (1 x 2 x 2) serving DBRX on the
+card(s), and
 :func:`train_worker` as 4 ranks training DBRX over 2 x 2 and Mistral-NeMo
 over (1, 1, 4); the CPU tests spawn them, :func:`dispatch_worker`,
 :func:`gather_worker` and :func:`probe_worker` (the telemetry's
@@ -84,6 +86,18 @@ def run_label(run: dict) -> str:
             + (f"@G{g}" if g > 1 else ""))
 
 
+# wall-clock marks of this rank's process (``time.time()``, a clock its
+# parent shares), saved with its results under "marks"
+_MARKS: list = []
+
+
+def mark(label: str) -> None:
+    """Note the wall clock at ``label``: :func:`_save` keeps the marks
+    with the rank's results, beside :func:`run_ranks`' own spawn and join
+    times (``"spawn"``), so a caller can split a spawn's wall."""
+    _MARKS.append((label, time.time()))
+
+
 def run_ranks(fn, spec: dict, *, timeout_s: float, shared=None) -> list:
     """Spawn ``spec["world"]`` processes running ``fn(rank, spec)``, wait
     for all of them at most ``timeout_s`` seconds, and return each rank's
@@ -97,7 +111,11 @@ def run_ranks(fn, spec: dict, *, timeout_s: float, shared=None) -> list:
     CPU).  A handle that does not open fails the rank.  The caller keeps
     ``shared`` referenced until this returns, when every rank has
     exited.  Every rank frees what it received before it exits, so the
-    caller's own last reference then frees the memory."""
+    caller's own last reference then frees the memory.
+
+    A rank's results that are a dict gain ``"marks"`` (:func:`mark`) and
+    ``"spawn"``: this process's wall clock before the first start and
+    after the last exit."""
     world = spec["world"]
     out_dir = Path(spec["out_dir"])
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -116,6 +134,7 @@ def run_ranks(fn, spec: dict, *, timeout_s: float, shared=None) -> list:
                          args=(fn, rank, pickled(rank)))
              for rank in range(world)]
     deadline = time.monotonic() + timeout_s
+    started = time.time()
     try:
         with ThreadPoolExecutor(world) as pool:
             list(pool.map(lambda proc: proc.start(), procs))
@@ -137,8 +156,13 @@ def run_ranks(fn, spec: dict, *, timeout_s: float, shared=None) -> list:
                 proc.kill()
             if proc.pid is not None:
                 proc.join(timeout=30)
-    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
-            for r in range(world)]
+    joined = time.time()
+    results = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+               for r in range(world)]
+    for res in results:
+        if isinstance(res, dict):
+            res["spawn"] = (started, joined)
+    return results
 
 
 def _rank_main(fn, rank: int, spec: bytes) -> None:
@@ -147,6 +171,7 @@ def _rank_main(fn, rank: int, spec: bytes) -> None:
     # share one card's memory in chip_smoke's phase 7)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    _MARKS.clear()
     fn(rank, ForkingPickler.loads(spec))
     # an engine and its PlanBinder hold each other: free them while the
     # process lives, so that the tensors it received as CUDA IPC handles
@@ -200,11 +225,16 @@ def init_rank(rank: int, spec: dict) -> RankMesh:
                             timeout=timeout,
                             device_id=dev if spec["backend"] == "nccl"
                             else None)
-    return RankMesh((spec["pods"], spec["ep"], spec.get("tp", 1)),
+    mesh = RankMesh((spec["pods"], spec["ep"], spec.get("tp", 1)),
                     timeout=timeout, dp_servers=spec.get("dp_servers", ()))
+    mark("ready")
+    return mesh
 
 
 def _save(rank: int, spec: dict, result) -> None:
+    if isinstance(result, dict):
+        mark("done")
+        result["marks"] = list(_MARKS)
     path = Path(spec["out_dir"]) / f"rank{rank}.pt"
     torch.save(result, path.with_suffix(".tmp"))
     os.replace(path.with_suffix(".tmp"), path)
@@ -228,15 +258,34 @@ def pod_send_bytes(state, row_bytes: int) -> tuple[int, int]:
 
 class RecordingEngine(ServeEngine):
     """A ServeEngine that keeps the logits of this rank's rows at every
-    sampling step (host copies, fp32)."""
+    sampling step (host copies, fp32), and the shapes and bytes of the
+    decode state it sampled from (:func:`state_of`)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.step_logits: list = []
+        self.state: dict = {}
 
     def _sample(self, state):
         self.step_logits.append(state.logits.float().cpu())
+        self.state = state_of(state.slot.cache)
         return super()._sample(state)
+
+
+def state_of(cache: dict) -> dict:
+    """``{"shapes": {name: shape}, "bytes": total}`` of a decode cache's
+    tensors (a list of per-layer tensors by its first one's shape and its
+    length: ``(n, *shape)``); the host scalars left out."""
+    shapes, total = {}, 0
+    for name, val in cache.items():
+        if isinstance(val, torch.Tensor):
+            shapes[name] = tuple(val.shape)
+            total += val.numel() * val.element_size()
+        elif isinstance(val, list) and val and isinstance(val[0],
+                                                          torch.Tensor):
+            shapes[name] = (len(val),) + tuple(val[0].shape)
+            total += sum(t.numel() * t.element_size() for t in val)
+    return {"shapes": shapes, "bytes": total}
 
 
 def _dispatches(record: dict):
@@ -712,11 +761,18 @@ def probe_worker(rank: int, spec: dict) -> None:
     ``phases``, ``itemsize``, ``tp_subgroups``): the serve program planned
     by a context without and with ``calibration=`` the store, its
     fingerprint and split-TP decision each."""
+    mesh = init_rank(rank, spec)
+    results = _probe(mesh, rank, rank_device(rank, spec), spec)
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, results)
+
+
+def _probe(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
+    """:func:`probe_worker`'s work on the joined mesh."""
     from repro_torch.core.latency_model import DEFAULT
     from repro_torch.core.planner import Planner
     from repro_torch.telemetry import ProbePolicy, calibrated_hw, probe_sweep
-    mesh = init_rank(rank, spec)
-    dev = rank_device(rank, spec)
     topo = spec.get("topo")
     results: dict = {"rank": rank}
     calls: list = []
@@ -741,6 +797,7 @@ def probe_worker(rank: int, spec: dict) -> None:
             for patch in patches:
                 patch.stop()
         results["dispatch_calls"] = calls
+        mark("calibration")
     if spec.get("timeout"):
         opts = spec["timeout"]
         before = _probe_failures()
@@ -787,9 +844,7 @@ def probe_worker(rank: int, spec: dict) -> None:
                 "split": d.shard_map_kwargs.get("split"),
                 "predicted_s": d.predicted_s,
                 "hw_fitted": hw not in (None, DEFAULT)}
-    dist.barrier()
-    dist.destroy_process_group()
-    _save(rank, spec, results)
+    return results
 
 
 def serve_worker(rank: int, spec: dict) -> None:
@@ -841,9 +896,55 @@ def serve_worker(rank: int, spec: dict) -> None:
     (``step_logits``), and ``same_logits`` says whether they are the bits
     of the run it is held against.
     The MoE records (pairs, loads, pod bytes) are kept for MoE models, the
-    pod bytes with pods only."""
+    pod bytes with pods only.  Each run also records the rank's decode
+    state as it last sampled (``state``: :func:`state_of`).
+
+    ``spec["models"]``: a list of specs, each updating ``spec`` for one
+    model (its ``name``, ``cfg``, ``prompts``, ``runs``, ``weights``,
+    ...), served one after another on the one spawned mesh, each model's
+    weights freed before the next; the results are then ``{"models":
+    {name: that model's results}}``.  A model whose ``cfg``, ``seed``
+    and dtype equal the one before it, with no ``weights``, serves on the
+    same weights.  An entry with ``probe`` runs :func:`probe_worker`'s
+    work instead (its ``topo``, ``calibrate``, ``gather``, ...), so a
+    calibration of the same mesh needs no spawn of its own."""
     mesh = init_rank(rank, spec)
     dev = rank_device(rank, spec)
+    if not spec.get("models"):
+        results, _ = _serve(mesh, rank, dev, spec)
+    else:
+        results = {"rank": rank, "device": str(dev), "models": {}}
+        kept = key = None
+        for sub in spec["models"]:
+            one = {k: v for k, v in spec.items() if k != "models"}
+            one.update(sub)
+            if one.get("probe"):
+                results["models"][sub["name"]] = _probe(mesh, rank, dev, one)
+                mark(f"model {sub['name']}")
+                continue
+            same = (one.get("weights") is None
+                    and (one["cfg"], one["seed"], one["dtype"]) == key)
+            if not same:
+                kept = None
+                gc.collect()            # the engines' binder cycles
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            results["models"][sub["name"]], kept = _serve(
+                mesh, rank, dev, one, params=kept)
+            key = (one["cfg"], one["seed"], one["dtype"])
+            mark(f"model {sub['name']}")
+        del kept
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, results)
+
+
+def _serve(mesh: RankMesh, rank: int, dev, spec: dict, params=None
+           ) -> tuple:
+    """:func:`serve_worker`'s work for one model on the joined mesh:
+    (results, the rank's weights), on ``params`` when given."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     cfg, prompts = spec["cfg"], spec["prompts"]
     phases = {"prefill": prompts.shape, "decode": (prompts.shape[0], 1)}
     itemsize = spec["dtype"].itemsize
@@ -875,10 +976,11 @@ def serve_worker(rank: int, spec: dict) -> None:
             results["decisions"].append(plan_decisions(
                 mesh, spec["pods"], cfg, phases, None, itemsize,
                 calibration=cal))
-    params = None
+        mark("calibration")
     contexts, refs = {}, {}
     if spec.get("gather"):
         results["gather"] = tp_gather_probe(mesh, dev, **spec["gather"])
+        mark("gather")
     for run in runs:
         label = run_label(run)
         if "twin" in run:
@@ -889,7 +991,11 @@ def serve_worker(rank: int, spec: dict) -> None:
             mesh, spec["pods"], run, fabric=fabric, cfg=cfg, phases=phases,
             itemsize=itemsize, calibration=store)
         model = build_model(cfg, device=dev, dtype=spec["dtype"], pctx=pctx)
-        if params is None:
+        if "memory" in results:
+            pass
+        elif params is not None:        # the model before's, kept
+            results["memory"] = dict(_memory(params, dev), kept=True)
+        else:
             if spec.get("weights") is not None:
                 from repro_torch.convert import params_from_jax
                 params = params_from_jax(spec["weights"], cfg, device=dev,
@@ -901,6 +1007,7 @@ def serve_worker(rank: int, spec: dict) -> None:
             if dev.type == "cuda":      # the draws' fp32 temporaries
                 torch.cuda.empty_cache()
             results["memory"] = _memory(params, dev)
+            mark("weights")
         engine = RecordingEngine(
             model, params, ServeConfig(max_new_tokens=spec["max_new"],
                                        cache_dtype=spec["cache_dtype"]),
@@ -959,6 +1066,7 @@ def serve_worker(rank: int, spec: dict) -> None:
                 torch.equal(a, b) for a, b in zip(logits, refs[against][1])),
             "pod": mesh.coords["pod"], "packs": packs, "sampled": sampled,
             "decode_graph": dict(stats["decode_graph"]),
+            "state": engine.state,
             "split_tp": stats.get("plans", {}).get("prefill", {}).get(
                 "split_tp_gather")}
         if "state" in record:
@@ -976,9 +1084,11 @@ def serve_worker(rank: int, spec: dict) -> None:
                 res.update(pod_bytes={"whole": whole, "occupied": occupied},
                            analytic_pod_bytes={"baseline": base,
                                                "multiwrite": mw})
+        mark(f"run {label}")
     if spec.get("continuous"):
         results["continuous"] = continuous_run(mesh, spec, params, dev,
                                                fabric)
+        mark("continuous")
     if dev.type == "cuda":
         results["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     if spec.get("trace"):
@@ -990,9 +1100,7 @@ def serve_worker(rank: int, spec: dict) -> None:
         results["trace"] = trace_moe_layer(
             moe, cfg, contexts[spec["trace"]["run"]], rows, dev,
             spec["trace"]["path"])
-    dist.barrier()
-    dist.destroy_process_group()
-    _save(rank, spec, results)
+    return results, params
 
 
 def dispatch_worker(rank: int, spec: dict) -> None:
@@ -1410,6 +1518,7 @@ def train_worker(rank: int, spec: dict) -> None:
         if dev.type == "cuda":
             res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         res["seconds"] = time.monotonic() - t0
+        mark(f"run {label}")
         del trainer, params, sync, built
         gc.collect()
         if dev.type == "cuda":

@@ -50,7 +50,7 @@ data-parallel ranks is ``planned_psum`` with its scheme
 implicit GSPMD ring whatever the verdict.  ``--multi-pod`` and
 ``--variant`` read the dry run's production meshes and variants, which are
 not ported (ROADMAP.md queue 1 item 10); FSDP over the data axis waits for
-item 8c.
+the same item.
 """
 
 from __future__ import annotations

@@ -25,13 +25,16 @@ its target tokens are embedded unscaled in prefill and training and
 scaled by sqrt(d_model) in decode.  On the card the hybrid and rwkv
 families do not train yet (their scans have no backward kernel).  The
 model runs on CUDA unless it is built with ``device="cpu"``.
-Built with a ``pctx`` (dense and moe families), a model holds one rank's
-experts and tensor-parallel blocks, and its batches are that rank's
-data-parallel rows (every model rank of a data-parallel group takes the
-same rows).  Its loss is then the mean over this rank's rows (the same
-value on every model rank), differentiable through the exchanges: the
-trainer's gradient sync turns the ranks' gradients into the global
-batch's (``runtime.trainer.GradSync``).
+Built with a ``pctx``, a model holds one rank's experts and
+tensor-parallel parts (every family: the hybrid's Mamba2 blocks in
+``ssm``, RWKV-6's in ``rwkv``, the rest in ``layers``), and its batches
+are that rank's data-parallel rows (every model rank of a data-parallel
+group takes the same rows).  For the dense and moe families its loss is
+then the mean over this rank's rows (the same value on every model rank),
+differentiable through the exchanges: the trainer's gradient sync turns
+the ranks' gradients into the global batch's
+(``runtime.trainer.GradSync``); the hybrid, rwkv and encdec families
+serve over a model axis but do not train over one yet.
 """
 
 from __future__ import annotations
@@ -64,9 +67,9 @@ def param_module(cfg: ModelConfig, *, device, dtype,
     """The family's parameter module, uninitialised (one rank's shard of
     it with a ``pctx``)."""
     if cfg.family == "hybrid":
-        return ssm.Zamba2(cfg, device=device, dtype=dtype)
+        return ssm.Zamba2(cfg, device=device, dtype=dtype, pctx=pctx)
     if cfg.family == "rwkv":
-        return rwkv.RWKV6(cfg, device=device, dtype=dtype)
+        return rwkv.RWKV6(cfg, device=device, dtype=dtype, pctx=pctx)
     return T.Transformer(cfg, device=device, dtype=dtype, pctx=pctx)
 
 
@@ -84,10 +87,12 @@ class Model:
         held as they are; only this rank's experts are drawn."""
         if self.cfg.family == "hybrid":
             return ssm.init_zamba2(self.cfg, generator=generator,
-                                   device=self.device, dtype=self.dtype)
+                                   device=self.device, dtype=self.dtype,
+                                   pctx=self.pctx)
         if self.cfg.family == "rwkv":
             return rwkv.init_rwkv6(self.cfg, generator=generator,
-                                   device=self.device, dtype=self.dtype)
+                                   device=self.device, dtype=self.dtype,
+                                   pctx=self.pctx)
         return T.init_transformer(self.cfg, generator=generator,
                                   device=self.device, dtype=self.dtype,
                                   pctx=self.pctx, shared=shared)
@@ -159,6 +164,11 @@ class Model:
         """The stack without a cache: (final-normed hidden [B, S, D], the
         MoE aux losses summed, fp32)."""
         fam = self.cfg.family
+        if L.tp_of(self.pctx)[0] > 1 and fam in ("hybrid", "rwkv",
+                                                 "encdec"):
+            raise NotImplementedError(
+                f"{fam} training over a model axis is not ported (it "
+                f"serves over one)")
         if fam == "encdec":
             src, tgt, positions = self._encdec_in(params, batch)
             enc_out = T.encode(params, self.cfg, src, self.pctx)
@@ -213,22 +223,25 @@ class Model:
                    cache_dtype=torch.bfloat16) -> dict:
         kw = dict(device=self.device, dtype=cache_dtype)
         if self.cfg.family == "hybrid":
-            return ssm.zamba2_init_state(self.cfg, batch, max_len, **kw)
+            return ssm.zamba2_init_state(self.cfg, batch, max_len,
+                                         pctx=self.pctx, **kw)
         if self.cfg.family == "rwkv":
-            return rwkv.rwkv6_init_state(self.cfg, batch, **kw)
+            return rwkv.rwkv6_init_state(self.cfg, batch, pctx=self.pctx,
+                                         **kw)
         return T.init_cache(self.cfg, batch, max_len, pctx=self.pctx, **kw)
 
     def prefill(self, params, batch: dict, cache: dict):
         fam = self.cfg.family
         if fam == "encdec":
             logits, cache = T.prefill_encdec(
-                params, self.cfg, *self._encdec_in(params, batch), cache)
+                params, self.cfg, *self._encdec_in(params, batch), cache,
+                self.pctx)
             return logits[:, 0], cache
         x, positions = self.embed_in(params, batch)
         if fam in ("hybrid", "rwkv"):
             stack = ssm.zamba2_prefill if fam == "hybrid" else \
                 rwkv.rwkv6_prefill
-            h, cache = stack(params, self.cfg, x, cache)
+            h, cache = stack(params, self.cfg, x, cache, self.pctx)
             logits = T.logits_fn(params, self.cfg, h, last_only=True)
         else:
             logits, cache = T.prefill(params, self.cfg, x, positions,
@@ -255,10 +268,11 @@ class Model:
         if fam in ("hybrid", "rwkv"):
             step = ssm.zamba2_decode_step if fam == "hybrid" else \
                 rwkv.rwkv6_decode_step
-            h, cache = step(params, self.cfg, x, cache)
+            h, cache = step(params, self.cfg, x, cache, self.pctx)
             logits = T.logits_fn(params, self.cfg, h, last_only=True)
         elif fam == "encdec":
-            logits, cache = T.decode_step_encdec(params, self.cfg, x, cache)
+            logits, cache = T.decode_step_encdec(params, self.cfg, x, cache,
+                                                 self.pctx)
         else:
             logits, cache = T.decode_step(params, self.cfg, x, cache,
                                           self.pctx)
@@ -278,13 +292,9 @@ def check_room(cache: dict) -> None:
 
 def build_model(cfg: ModelConfig, *, device=None,
                 dtype: torch.dtype = torch.bfloat16, pctx=None) -> Model:
-    """Dense, moe, encdec, hybrid and rwkv families; the encdec, hybrid
-    and rwkv families over ranks (ROADMAP.md queue 1 item 6) are a later
-    slice of the port."""
+    """Dense, moe, encdec, hybrid and rwkv families, on one rank or over
+    the ranks of a ``pctx``."""
     T.check_supported(cfg)
-    if pctx is not None and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} over a "
-                                  f"ParallelContext is not ported yet")
     return Model(cfg=cfg, device=resolve_device(device), dtype=dtype,
                  pctx=pctx)
 

@@ -13,9 +13,11 @@ reference's layout (``src/repro/parallel/sharding.py::_rule_for``): wq, wk,
 wv, w1, w3 column-parallel, wo, w2 row-parallel and followed by an
 ``all_reduce`` over the model axis; the kv heads are split only when they
 divide over it, and replicated otherwise.  A module's ``shards`` maps each
-split parameter to ``(dim, parts, index)``: its block of the whole tensor.
-Random weights draw each tensor whole and keep the block, so a rank's
-weights equal the one-rank model's slices.
+split parameter to its cut of the whole tensor (:func:`cut_segments`):
+``(dim, parts, index)``, its block, or ``(dim, whole, ((lo, hi), ...))``,
+the column segments it keeps (Mamba2's ``in_proj``, whose output is
+``[z | x | B | C | dt]``).  Random weights draw each tensor whole and keep
+the cut, so a rank's weights equal the one-rank model's slices.
 
 Gradients over the model axis (training): every model rank computes the
 same loss, so a value whole on every model rank has the same cotangent on
@@ -42,28 +44,43 @@ from repro_torch.kernels import ops, ref
 from repro_torch.parallel import mesh as mesh_ops
 
 
+def cut_segments(shard, local: int) -> tuple:
+    """``(dim, whole size, ((lo, hi), ...))`` of a ``shards`` entry whose
+    kept part is ``local`` long along ``dim``: a block ``(dim, parts,
+    index)`` is the one segment ``[index * local, (index + 1) * local)`` of
+    ``parts * local``; segments ``(dim, whole, ((lo, hi), ...))`` are kept
+    in their order."""
+    dim, parts_or_whole, which = shard
+    if isinstance(which, int):
+        return dim, parts_or_whole * local, ((which * local,
+                                              (which + 1) * local),)
+    return dim, parts_or_whole, tuple(which)
+
+
 def truncated_normal_(t: torch.Tensor, scale: float,
                       generator: torch.Generator, *,
                       shard=None) -> torch.Tensor:
     """Fill ``t`` with N(0, 1) truncated to [-2, 2], times ``scale``.
     Drawn in fp32 one slice of dim 0 at a time for stacked 3-d weights, so
-    the fp32 temporary stays one expert's size.  ``shard`` = ``(dim, parts,
-    index)``: ``t`` is block ``index`` of ``parts`` along ``dim`` of the
-    tensor drawn, which is drawn whole (the generator advances as for the
-    whole tensor) and freed before the next."""
+    the fp32 temporary stays one expert's size.  ``shard``: a ``shards``
+    entry (:func:`cut_segments`) whose cut of the tensor drawn ``t`` is;
+    the tensor is drawn whole (the generator advances as for the whole
+    tensor) and freed before the next."""
     with torch.no_grad():
         stacked = t.dim() == 3
         for part in (t if stacked else (t,)):
             shape = list(part.shape)
             if shard is not None:
                 dim = shard[0] - stacked
-                shape[dim] *= shard[1]
+                _, whole, segs = cut_segments(shard, part.shape[dim])
+                shape[dim] = whole
             tmp = torch.empty(shape, dtype=torch.float32, device=part.device)
             nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
                                   generator=generator)
             if shard is not None:
-                size = part.shape[dim]
-                tmp = tmp.narrow(dim, shard[2] * size, size)
+                pieces = [tmp.narrow(dim, lo, hi - lo) for lo, hi in segs]
+                tmp = (pieces[0] if len(pieces) == 1
+                       else torch.cat(pieces, dim=dim))
             part.copy_(tmp.mul_(scale))
     return t
 
@@ -134,6 +151,22 @@ def rmsnorm(w, x, eps=1e-5):
     x = x.float()
     x = x * torch.rsqrt(x.pow(2).mean(dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w)).to(dt)
+
+
+def rmsnorm_over_model(w, x, width: int, pctx, eps=1e-5):
+    """RMSNorm over a width of ``width`` channels split over the model
+    axis: ``x`` [..., width / m] and ``w`` are this rank's channels; the
+    sum of squares ([..., 1] fp32) is summed over the model axis before
+    the rank's channels are scaled, so each is normed as on one rank (a
+    norm of the rank's channels alone would be a group norm).  Plain
+    :func:`rmsnorm` without a model axis."""
+    if x.shape[-1] == width:
+        return rmsnorm(w, x, eps)
+    dt = x.dtype
+    xf = x.float()
+    sq = reduce_over_model(xf.pow(2).sum(dim=-1, keepdim=True), pctx)
+    xf = xf * torch.rsqrt(sq / width + eps)
+    return (xf * (1.0 + w)).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -306,8 +339,10 @@ def kv_layout(n_kv: int, pctx, max_len: int) -> str:
     axis (the reference's cache rule, ``sharding.cache_specs``): "seq"
     (each rank a block of the length, every kv head: flash-decoding) under
     ``seq_shard_decode`` when the length divides; else "heads" (the whole
-    length, this rank's kv heads) when the heads divide; "whole" without a
-    model axis."""
+    length, this rank's kv heads) when the heads divide; else "replicated"
+    (the whole length and all kv heads on every rank, as the reference's
+    ``P(dp, None, None, None)``: each rank's query heads read theirs,
+    :meth:`Attention.kv_of_heads`); "whole" without a model axis."""
     m = 1 if pctx is None else pctx.model_size
     if m == 1:
         return "whole"
@@ -315,14 +350,14 @@ def kv_layout(n_kv: int, pctx, max_len: int) -> str:
         return "seq"
     if n_kv % m == 0:
         return "heads"
-    raise NotImplementedError(
-        f"decode with {n_kv} kv heads replicated over {m} model ranks and "
-        f"an unsharded KV length ({max_len} positions) is not ported "
-        f"(ROADMAP.md queue 1 item 6)")
+    return "replicated"
 
 
 def kv_cache_shape(n_kv: int, d_head: int, batch: int, max_len: int,
                    layout: str, parts: int) -> tuple:
+    """A rank's [B, length, kv heads, dh] cache in ``layout``: a "seq"
+    rank holds ``1/parts`` of the length, a "heads" rank ``1/parts`` of
+    the kv heads, a "replicated" (or "whole") rank all of both."""
     if layout == "seq":
         return (batch, max_len // parts, n_kv, d_head)
     if layout == "heads":
@@ -333,9 +368,9 @@ def kv_cache_shape(n_kv: int, d_head: int, batch: int, max_len: int,
 def write_prefill_kv(p: Attention, cache_k, cache_v, k, v, layout: str,
                      pctx) -> None:
     """Write a prefill's k, v [B, S, kv_heads, dh] into the caches in the
-    decode layout: this rank's kv heads ("heads", "whole"), or its block of
-    positions of every kv head ("seq"; split kv heads are gathered over the
-    model axis first)."""
+    decode layout: this rank's kv heads ("heads", "whole"; all of them,
+    "replicated"), or its block of positions of every kv head ("seq";
+    split kv heads are gathered over the model axis first)."""
     seq = k.shape[1]
     if layout != "seq":
         cache_k[:, :seq] = k.to(cache_k.dtype)
@@ -383,7 +418,10 @@ def decode_attention_block(p: Attention, x, cache_k, cache_v,
         at = pos.view(1)
         cache_k.index_copy_(1, at, k.to(cache_k.dtype))
         cache_v.index_copy_(1, at, v.to(cache_v.dtype))
-        o = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len=pos + 1,
+        # "replicated": this rank's query heads read their kv heads of all
+        # G (a view where they are whole groups); else the rank's own
+        ka, va = _local_kv(p, cache_k, cache_v)
+        o = ops.decode_attention(q[:, 0], ka, va, kv_len=pos + 1,
                                  softcap=softcap, window=window)
     return reduce_over_model(
         o.reshape(b, 1, p.heads * dh).to(x.dtype) @ p.wo, pctx)

@@ -16,6 +16,20 @@ Decode state per layer: the conv tail [B, conv-1, d_inner] (pre-SiLU x, in
 the cache dtype) and the SSD state [B, heads, ds, dh] (fp32), stacked over
 layers; one KV cache pair per shared-block invocation.  Caches are updated
 in place.
+
+Over the model axis of a ``pctx`` (``tp = (m, r)``), as the reference's
+``in_proj`` column / ``out_proj`` row split (``sharding.py``): a rank keeps
+the z, x and dt columns of its ``heads / m`` heads and the B and C columns
+whole (one group, read by every head) as three segments of ``in_proj``,
+its x channels of ``conv``, its heads of ``A_log``, ``D`` and ``dt_bias``,
+its channels of ``out_norm`` (an RMSNorm over all of ``d_inner``: the sum
+of squares is summed over the model axis, one [B, S, 1] fp32 tensor a
+block) and its rows of ``out_proj``, whose products are summed over the
+model axis.  The residual stays whole on every rank.  Its caches are
+``conv`` [B, K-1, d_inner / m] and ``ssd`` [B, heads / m, ds, dh]
+(``sharding.cache_specs``), and the scan runs at ``B * heads / m`` rows.
+The shared block takes the dense layers' tensor-parallel path, its KV
+cache in ``layers.kv_layout``'s layout.
 """
 
 from __future__ import annotations
@@ -32,10 +46,25 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
-def _inner_dims(cfg: ModelConfig):
+def _inner_dims(cfg: ModelConfig, m: int = 1):
+    """(d_inner, SSM heads), or a rank's of them over ``m`` model ranks."""
     d_inner = cfg.ssm_expand * cfg.d_model
-    heads = d_inner // cfg.ssm_head_dim
-    return d_inner, heads
+    heads = L.shard_size(d_inner // cfg.ssm_head_dim, m, "SSM heads")
+    return heads * cfg.ssm_head_dim, heads
+
+
+def in_proj_segments(cfg: ModelConfig, m: int, r: int) -> tuple:
+    """The column segments of ``in_proj`` (``[z | x | B | C | dt]``) that
+    model rank ``r`` of ``m`` keeps: the z and x channels and the dt
+    columns of its heads, B and C whole, in that order."""
+    d_inner, heads = _inner_dims(cfg)
+    di, hl = d_inner // m, heads // m
+    ds = cfg.ssm_state
+    return ((r * di, (r + 1) * di),                            # z
+            (d_inner + r * di, d_inner + (r + 1) * di),        # x
+            (2 * d_inner, 2 * d_inner + 2 * ds),               # B, C
+            (2 * d_inner + 2 * ds + r * hl,
+             2 * d_inner + 2 * ds + (r + 1) * hl))             # dt
 
 
 def n_shared_calls(cfg: ModelConfig) -> int:
@@ -50,12 +79,15 @@ def n_shared_calls(cfg: ModelConfig) -> int:
 class Mamba2Block(nn.Module):
     """Parameters of one Mamba2 block, named as the reference's pytree.
     Matrices and the conv kernel in the compute dtype; the norms,
-    ``A_log`` (A = -exp(A_log)), ``D`` and ``dt_bias`` in fp32."""
+    ``A_log`` (A = -exp(A_log)), ``D`` and ``dt_bias`` in fp32.  Over
+    ``tp = (m, r)`` model ranks, rank r's part (the module docstring)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, cfg: ModelConfig, *, device, dtype, tp=(1, 0)):
         super().__init__()
         d = cfg.d_model
-        d_inner, heads = _inner_dims(cfg)
+        m, r = tp
+        self.width = cfg.ssm_expand * d             # all of d_inner
+        d_inner, heads = _inner_dims(cfg, m)
         proj_out = 2 * d_inner + 2 * cfg.ssm_state + heads   # z, x, B, C, dt
         f32 = dict(device=device, dtype=torch.float32)
         self.ln = L.RMSNorm(d, device=device, eps=cfg.norm_eps)
@@ -67,12 +99,23 @@ class Mamba2Block(nn.Module):
         self.dt_bias = L.parameter((heads,), **f32)
         self.out_norm = L.RMSNorm(d_inner, device=device, eps=cfg.norm_eps)
         self.out_proj = L.parameter((d_inner, d), device=device, dtype=dtype)
+        self.shards = {}
+        if m > 1:
+            self.shards = {
+                "in_proj": (1, 2 * self.width + 2 * cfg.ssm_state
+                            + heads * m, in_proj_segments(cfg, m, r)),
+                "conv": (1, m, r), "A_log": (0, m, r), "D": (0, m, r),
+                "dt_bias": (0, m, r), "out_proj": (0, m, r)}
+            self.out_norm.shards = {"w": (0, m, r)}
 
     def reset_parameters(self, generator: torch.Generator) -> "Mamba2Block":
-        d, d_inner = self.in_proj.shape[0], self.out_proj.shape[0]
-        L.truncated_normal_(self.in_proj, 1 / math.sqrt(d), generator)
-        L.truncated_normal_(self.conv, 0.5, generator)
-        L.truncated_normal_(self.out_proj, 1 / math.sqrt(d_inner), generator)
+        d = self.in_proj.shape[0]
+        sh = self.shards.get
+        L.truncated_normal_(self.in_proj, 1 / math.sqrt(d), generator,
+                            shard=sh("in_proj"))
+        L.truncated_normal_(self.conv, 0.5, generator, shard=sh("conv"))
+        L.truncated_normal_(self.out_proj, 1 / math.sqrt(self.width),
+                            generator, shard=sh("out_proj"))
         with torch.no_grad():
             self.A_log.zero_()
             self.D.fill_(1.0)
@@ -82,26 +125,31 @@ class Mamba2Block(nn.Module):
 
 class Zamba2(nn.Module):
     """Embedding (tied), the mamba blocks, the one shared attention+MLP
-    block and the final norm."""
+    block and the final norm; with a ``pctx``, a model rank's part of the
+    blocks (the embedding and norms whole)."""
 
     unembed = None      # tied embeddings
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, cfg: ModelConfig, *, device, dtype, pctx=None):
         super().__init__()
+        tp = L.tp_of(pctx)
         self.embed = L.Embedding(cfg.vocab, cfg.d_model, device=device,
                                  dtype=dtype)
         self.final_norm = L.RMSNorm(cfg.d_model, device=device,
                                     eps=cfg.norm_eps)
         self.mamba = nn.ModuleList(
-            Mamba2Block(cfg, device=device, dtype=dtype)
+            Mamba2Block(cfg, device=device, dtype=dtype, tp=tp)
             for _ in range(cfg.n_layers))
-        self.shared = T.Block(cfg, moe=False, device=device, dtype=dtype)
+        self.shared = T.Block(cfg, moe=False, device=device, dtype=dtype,
+                              pctx=pctx)
 
 
 def init_zamba2(cfg: ModelConfig, *, generator: torch.Generator, device,
-                dtype) -> Zamba2:
-    """Random weights drawn from ``generator`` at the reference's scales."""
-    params = Zamba2(cfg, device=device, dtype=dtype)
+                dtype, pctx=None) -> Zamba2:
+    """Random weights drawn from ``generator`` at the reference's scales
+    (each split tensor drawn whole and cut: a rank's weights are the
+    one-rank model's slices)."""
+    params = Zamba2(cfg, device=device, dtype=dtype, pctx=pctx)
     params.embed.reset_parameters(generator)
     for blk in params.mamba:
         blk.reset_parameters(generator)
@@ -140,39 +188,47 @@ def _causal_conv(x, w, state=None):
     return F.silu(out), xp[:, -(k - 1):]
 
 
-def _gated_out(p: Mamba2Block, y, z, cfg):
-    y = L.rmsnorm(p.out_norm.w, y * F.silu(z), cfg.norm_eps)
-    return y @ p.out_proj
+def _gated_out(p: Mamba2Block, y, z, cfg, pctx=None):
+    """The z-gated RMSNorm over all of d_inner, then ``out_proj`` (over
+    the model axis: this rank's rows, the products summed)."""
+    y = L.rmsnorm_over_model(p.out_norm.w, y * F.silu(z), p.width, pctx,
+                             cfg.norm_eps)
+    return L.reduce_over_model(y @ p.out_proj, pctx)
 
 
-def mamba2_block_prefill(p: Mamba2Block, x, cfg: ModelConfig):
+def mamba2_block_prefill(p: Mamba2Block, x, cfg: ModelConfig, pctx=None):
     """x [B, S, D] -> (out [B, S, D], conv tail [B, K-1, d_inner], final
     SSD state [B, heads, ds, dh] fp32), through the ``mamba2_scan``
-    kernel."""
+    kernel (this rank's channels and heads over a model axis)."""
     b, s, _ = x.shape
-    d_inner, heads = _inner_dims(cfg)
+    d_inner, heads = _inner_dims(cfg, L.tp_of(pctx)[0])
     dh, ds = cfg.ssm_head_dim, cfg.ssm_state
-    proj = p.ln(x) @ p.in_proj
+    proj = L.to_model(p.ln(x), pctx) @ p.in_proj
     z, xc, bmat, cmat, dt_raw = _split_proj(proj, cfg, d_inner)
     xc, conv_tail = _causal_conv(xc, p.conv)
     dt = F.softplus(dt_raw.float() + p.dt_bias)              # [B, S, heads]
     a = -torch.exp(p.A_log)
     # head-major rows for the kernel: [B*heads, S, dh]
-    xh = xc.reshape(b, s, heads, dh).transpose(1, 2).reshape(b * heads, s, dh)
-    dth = dt.transpose(1, 2).reshape(b * heads, s)
+    # (a reshape of one sequence's transpose is a strided view: the kernel
+    # takes contiguous rows)
+    xh = xc.reshape(b, s, heads, dh).transpose(1, 2).reshape(
+        b * heads, s, dh).contiguous()
+    dth = dt.transpose(1, 2).reshape(b * heads, s).contiguous()
     # B, C: one group per sequence, read by all of its heads
     y, hf = ops.mamba2_scan(xh, dth, a.repeat(b), bmat.contiguous(),
                             cmat.contiguous(), p.D.repeat(b))
     y = y.reshape(b, heads, s, dh).transpose(1, 2).reshape(b, s, d_inner)
-    return _gated_out(p, y, z, cfg), conv_tail, hf.reshape(b, heads, ds, dh)
+    return (_gated_out(p, y, z, cfg, pctx), conv_tail,
+            hf.reshape(b, heads, ds, dh))
 
 
 def mamba2_block_decode(p: Mamba2Block, x, conv_state, ssd_state,
-                        cfg: ModelConfig):
+                        cfg: ModelConfig, pctx=None):
     """One token.  x [B, 1, D]; conv_state [B, K-1, d_inner]; ssd_state
-    [B, heads, ds, dh].  Returns (out, new conv tail, new SSD state)."""
+    [B, heads, ds, dh] (this rank's over a model axis).  Returns (out, new
+    conv tail, new SSD state)."""
     b = x.shape[0]
-    d_inner, heads = _inner_dims(cfg)
+    d_inner, heads = _inner_dims(cfg, L.tp_of(pctx)[0])
     dh, ds = cfg.ssm_head_dim, cfg.ssm_state
     proj = p.ln(x) @ p.in_proj
     z, xc, bmat, cmat, dt_raw = _split_proj(proj, cfg, d_inner)
@@ -186,7 +242,8 @@ def mamba2_block_decode(p: Mamba2Block, x, conv_state, ssd_state,
             b * heads, dh).float(), dt.reshape(b * heads), a.repeat(b),
         bh.float(), ch.float(), p.D.repeat(b))
     y = y.reshape(b, 1, d_inner).to(x.dtype)
-    return _gated_out(p, y, z, cfg), conv_tail, ssd.reshape(b, heads, ds, dh)
+    return (_gated_out(p, y, z, cfg, pctx), conv_tail,
+            ssd.reshape(b, heads, ds, dh))
 
 
 # ---------------------------------------------------------------------------
@@ -194,10 +251,16 @@ def mamba2_block_decode(p: Mamba2Block, x, conv_state, ssd_state,
 # ---------------------------------------------------------------------------
 
 def zamba2_init_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device, dtype=torch.bfloat16) -> dict:
-    d_inner, heads = _inner_dims(cfg)
+                      device, dtype=torch.bfloat16, pctx=None) -> dict:
+    """The decode state (a model rank's part of it with a ``pctx``): the
+    conv tails and SSD states of its channels and heads, and the shared
+    block's KV caches in ``layers.kv_layout``'s layout."""
+    m = L.tp_of(pctx)[0]
+    d_inner, heads = _inner_dims(cfg, m)
     n_shared = n_shared_calls(cfg)
-    kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    layout = L.kv_layout(cfg.n_kv_heads, pctx, max_len)
+    kv_shape = L.kv_cache_shape(cfg.n_kv_heads, cfg.head_dim, batch,
+                                max_len, layout, m)
     return {
         "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, d_inner),
                             dtype=dtype, device=device),
@@ -210,6 +273,8 @@ def zamba2_init_state(cfg: ModelConfig, batch: int, max_len: int, *,
               for _ in range(n_shared)],
         "pos": L.position(device),
         "len": 0,
+        "max_len": max_len,
+        "layout": layout,
     }
 
 
@@ -218,49 +283,54 @@ def _shared_after(li: int, cfg: ModelConfig) -> bool:
     return (li + 1) % cfg.shared_attn_every == 0 and li + 1 < cfg.n_layers
 
 
-def zamba2_prefill(params: Zamba2, cfg: ModelConfig, x, cache: dict):
+def zamba2_prefill(params: Zamba2, cfg: ModelConfig, x, cache: dict,
+                   pctx=None):
     """Prefill the hybrid stack, filling every layer's decode state in
     place.  x [B, S, D].  Returns (final-normed hidden [B, S, D], cache)."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    layout = cache.get("layout", "whole")
     si = 0
     for li, lp in enumerate(params.mamba):
-        y, conv_tail, ssd = mamba2_block_prefill(lp, x, cfg)
+        y, conv_tail, ssd = mamba2_block_prefill(lp, x, cfg, pctx)
         x = x + y
         cache["conv"][li] = conv_tail.to(cache["conv"].dtype)
         cache["ssd"][li] = ssd
         if _shared_after(li, cfg):
             a, (k, v) = T._attn_part(params.shared, x, positions, cfg,
-                                     window=None, return_kv=True)
+                                     window=None, return_kv=True, pctx=pctx)
             x = x + a
-            f, _ = T._ffn_part(params.shared, x, cfg)
+            f, _ = T._ffn_part(params.shared, x, cfg, pctx)
             x = x + f
-            cache["k"][si][:, :s] = k.to(cache["k"][si].dtype)
-            cache["v"][si][:, :s] = v.to(cache["v"][si].dtype)
+            L.write_prefill_kv(params.shared.attn, cache["k"][si],
+                               cache["v"][si], k, v, layout, pctx)
             si += 1
     cache["pos"].fill_(s)
     cache["len"] = s
     return params.final_norm(x), cache
 
 
-def zamba2_decode_step(params: Zamba2, cfg: ModelConfig, x, cache: dict):
+def zamba2_decode_step(params: Zamba2, cfg: ModelConfig, x, cache: dict,
+                       pctx=None):
     """One token through the hybrid stack; caches and the device position
     updated in place (the host ``len`` is the caller's).  x [B, 1, D].
     Returns (final-normed hidden [B, 1, D], cache)."""
     pos = cache["pos"]
+    layout = cache.get("layout", "whole")
     si = 0
     for li, lp in enumerate(params.mamba):
         y, conv_tail, ssd = mamba2_block_decode(
-            lp, x, cache["conv"][li], cache["ssd"][li], cfg)
+            lp, x, cache["conv"][li], cache["ssd"][li], cfg, pctx)
         x = x + y
         cache["conv"][li] = conv_tail.to(cache["conv"].dtype)
         cache["ssd"][li] = ssd
         if _shared_after(li, cfg):
             a = T._decode_attn(params.shared, x, cache["k"][si],
-                               cache["v"][si], pos, cfg, window=None)
+                               cache["v"][si], pos, cfg, window=None,
+                               pctx=pctx, layout=layout)
             x = x + a
-            f, _ = T._ffn_part(params.shared, x, cfg)
+            f, _ = T._ffn_part(params.shared, x, cfg, pctx)
             x = x + f
             si += 1
     pos.add_(1)

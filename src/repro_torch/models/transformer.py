@@ -16,14 +16,22 @@ back (:func:`_split_tp_seq_gather`: through the split-TP MultiWrite
 AllGather with ``tp_subgroups > 1``, plainly otherwise).  The decode KV
 caches lie in ``layers.kv_layout``'s layout, which the prefill writes.
 
-The encoder-decoder (SeamlessM4T, one rank): ``enc_blocks`` run the source
+The encoder-decoder (SeamlessM4T): ``enc_blocks`` run the source
 embeddings through non-causal self-attention (:func:`encode`); each decoder
 block adds cross-attention (``lnx``, ``xattn``, ``pnx``) over the encoder
 output, with no rope and no mask (:func:`_cross_attention`).  Its serving
 cache holds the encoder output ``enc_out`` [B, max_len, D] beside the
 decoder's k and v, zero past the source's rows, and decode attends over all
 of it, zeros included, as the reference does; the cross k and v are
-recomputed from ``enc_out`` every step, as there.
+recomputed from ``enc_out`` every step, as there.  Over a model axis the
+encoder's and the decoder's self-attention and FFN take the dense
+tensor-parallel path, and so does the cross-attention: each rank projects
+its query heads and its kv heads from the whole ``enc_out`` and sums its
+``wo`` rows' products over the axis.  ``enc_out`` therefore stays whole
+on every rank, its batch over the data axes; the reference's cache rule
+also shards its width over the model axis where that divides
+(``sharding.cache_specs``), but each rank's K/V projection reads all of
+D, so a rank would gather it back every step.
 
 Training over a ``pctx`` (:func:`forward_hidden`) has the same structure:
 the embedded sequence is cut to this rank's block of positions, each block
@@ -446,40 +454,50 @@ def logits_fn(params: Transformer, cfg, x, last_only=False):
 # encoder and cross-attention (enc-dec only)
 # ---------------------------------------------------------------------------
 
-def _cross_attention(p: L.Attention, x, enc_out, cfg):
+def _cross_attention(p: L.Attention, x, enc_out, cfg, pctx=None):
     """Decoder cross-attention (the reference's ``_cross_attention``): q
     from x [B, S, D], k and v from the encoder output [B, T, D], no rope
     and no mask, through the attention kernel on [B, heads, len, dh]
-    views of the projections (no transposed copies).  Returns [B, S, D]."""
+    views of the projections (no transposed copies).  Over a model axis
+    this rank's heads, from the whole ``enc_out``, and the row-parallel
+    ``wo`` products summed over the axis.  Returns [B, S, D]."""
     b, s, _ = x.shape
     dh = cfg.head_dim
-    enc_out = enc_out.to(x.dtype)
+    x = L.to_model(x, pctx)
+    enc_out = L.to_model(enc_out.to(x.dtype), pctx)
+    wk, wv = p.wk, p.wv
+    if not p.kv_split:        # whole on every rank, read in part
+        wk, wv = L.to_model(wk, pctx), L.to_model(wv, pctx)
     q = (x @ p.wq).reshape(b, s, p.heads, dh)
-    k = (enc_out @ p.wk).reshape(b, -1, p.kv_heads, dh)
-    v = (enc_out @ p.wv).reshape(b, -1, p.kv_heads, dh)
+    k = (enc_out @ wk).reshape(b, -1, p.kv_heads, dh)
+    v = (enc_out @ wv).reshape(b, -1, p.kv_heads, dh)
+    k, v = L._local_kv(p, k, v)
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=False)
-    return o.transpose(1, 2).reshape(b, s, p.heads * dh) @ p.wo
+    return L.reduce_over_model(
+        o.transpose(1, 2).reshape(b, s, p.heads * dh) @ p.wo, pctx)
 
 
-def _cross_part(lp: Block, x, enc_out, cfg):
+def _cross_part(lp: Block, x, enc_out, cfg, pctx=None):
     """The cross-attention half of a decoder block: ``lnx``, the
     attention, then ``pnx`` under ``post_norm``."""
-    out = _cross_attention(lp.xattn, lp.lnx(x), enc_out, cfg)
+    out = _cross_attention(lp.xattn, lp.lnx(x), enc_out, cfg, pctx)
     return out if lp.pnx is None else lp.pnx(out)
 
 
 def encode(params: Transformer, cfg, src_embeds, pctx=None):
     """The encoder over the source embeddings [B, S, D]: each block's
     non-causal self-attention (rope over the source positions), then its
-    FFN; then ``enc_norm``.  Returns [B, S, D]."""
+    FFN; then ``enc_norm``.  Returns [B, S, D] (whole on every model
+    rank)."""
     b, s, _ = src_embeds.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=src_embeds.device).expand(b, s)
 
     def block(lp, x):
-        x = x + _attn_part(lp, x, positions, cfg, window=None, causal=False)
-        f, _ = _ffn_part(lp, x, cfg)
+        x = x + _attn_part(lp, x, positions, cfg, window=None, causal=False,
+                           pctx=pctx)
+        f, _ = _ffn_part(lp, x, cfg, pctx)
         return x + f
 
     x = src_embeds
@@ -494,9 +512,9 @@ def forward_hidden_encdec(params: Transformer, cfg, tgt_embeds, positions,
     self-attention, cross-attention over ``enc_out``, FFN, a block at a
     time.  Returns the final-normed hidden [B, S, D]."""
     def block(lp, x):
-        x = x + _attn_part(lp, x, positions, cfg, window=None)
-        x = x + _cross_part(lp, x, enc_out, cfg)
-        f, _ = _ffn_part(lp, x, cfg)
+        x = x + _attn_part(lp, x, positions, cfg, window=None, pctx=pctx)
+        x = x + _cross_part(lp, x, enc_out, cfg, pctx)
+        f, _ = _ffn_part(lp, x, cfg, pctx)
         return x + f
 
     x = tgt_embeds
@@ -593,7 +611,7 @@ def decode_step(params: Transformer, cfg, x, cache, pctx=None):
 # ---------------------------------------------------------------------------
 
 def prefill_encdec(params: Transformer, cfg, src_embeds, tgt_embeds,
-                   positions, cache):
+                   positions, cache, pctx=None):
     """Encode the source once, run the decoder over the target prefix,
     fill the decoder's self-attention caches and write the encoder output
     into ``enc_out`` (all in place).  ``enc_out``'s rows past the source
@@ -608,17 +626,17 @@ def prefill_encdec(params: Transformer, cfg, src_embeds, tgt_embeds,
     if src > buf.shape[1]:
         raise ValueError(f"source of {src} rows longer than the cache's "
                          f"{buf.shape[1]}")
-    enc_out = encode(params, cfg, src_embeds)
+    enc_out = encode(params, cfg, src_embeds, pctx)
     x = tgt_embeds
     for i, lp in enumerate(params.blocks):
         a, (k, v) = _attn_part(lp, x, positions, cfg, window=None,
-                               return_kv=True)
+                               return_kv=True, pctx=pctx)
         x = x + a
-        x = x + _cross_part(lp, x, enc_out, cfg)
-        f, _ = _ffn_part(lp, x, cfg)
+        x = x + _cross_part(lp, x, enc_out, cfg, pctx)
+        f, _ = _ffn_part(lp, x, cfg, pctx)
         x = x + f
         L.write_prefill_kv(lp.attn, cache["k"][i], cache["v"][i], k, v,
-                           cache["layout"], None)
+                           cache["layout"], pctx)
     buf[:, :src] = enc_out.to(buf.dtype)
     buf[:, src:].zero_()
     seq = tgt_embeds.shape[1]
@@ -628,7 +646,7 @@ def prefill_encdec(params: Transformer, cfg, src_embeds, tgt_embeds,
     return logits_fn(params, cfg, x, last_only=True), cache
 
 
-def decode_step_encdec(params: Transformer, cfg, x, cache):
+def decode_step_encdec(params: Transformer, cfg, x, cache, pctx=None):
     """One decode token of the encoder-decoder: each block's self-attention
     over its cache, cross-attention over the whole ``enc_out`` (its k and v
     recomputed, as the reference does), FFN.  Reads the position from the
@@ -638,9 +656,9 @@ def decode_step_encdec(params: Transformer, cfg, x, cache):
     enc_out = cache["enc_out"]
     for i, lp in enumerate(params.blocks):
         x = x + _decode_attn(lp, x, cache["k"][i], cache["v"][i], pos, cfg,
-                             window=None, layout=cache["layout"])
-        x = x + _cross_part(lp, x, enc_out, cfg)
-        f, _ = _ffn_part(lp, x, cfg)
+                             window=None, pctx=pctx, layout=cache["layout"])
+        x = x + _cross_part(lp, x, enc_out, cfg, pctx)
+        f, _ = _ffn_part(lp, x, cfg, pctx)
         x = x + f
     pos.add_(1)
     x = params.final_norm(x)

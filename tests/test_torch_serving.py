@@ -168,16 +168,24 @@ def test_engine_over_ranks_checks_its_context_and_batch(engines):
     np.testing.assert_array_equal(eng._my_valid(1), [False])
     np.testing.assert_array_equal(eng._my_rows(np.arange(1, 6)), [3, 4])
     np.testing.assert_array_equal(eng._my_valid(5), [True, True])
-    with pytest.raises(NotImplementedError, match="ParallelContext"):
-        build_model(get_config("zamba2_7b").reduced(), device="cpu",
-                    pctx=pctx)
+    # the hybrid family builds over the context too, and its engine lays
+    # the rows out alike
+    zcfg = get_config("zamba2_7b").reduced()
+    zmodel = build_model(zcfg, device="cpu", pctx=pctx)
+    assert zmodel.pctx is pctx and zmodel.cfg.family == "hybrid"
+    zparams = build_model(zcfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    zeng = ServeEngine(zmodel, zparams, device="cpu", pctx=pctx)
+    np.testing.assert_array_equal(zeng._my_rows(np.arange(8)), [2, 3])
 
 
 def test_unported_families_raise():
     """Every family of the reference builds on one rank (the
     encoder-decoder since item 9b: ``tests/test_torch_encdec.py`` holds it
-    to the reference); over a ``ParallelContext`` the encoder-decoder
-    raises, as the hybrid and rwkv families do (item 6)."""
+    to the reference), and over a ``ParallelContext`` too (the
+    encoder-decoder, hybrid and rwkv families since item 6:
+    ``tests/test_torch_tp_families.py`` serves them over ranks); an
+    unknown arch still raises."""
     cfg = get_config("seamless_m4t_medium").reduced()
     model = build_model(cfg, device="cpu")
     assert model.cfg.family == "encdec"
@@ -187,8 +195,9 @@ def test_unported_families_raise():
         dp_size, dp_index = 2, 0
         execution_plan = None
 
-    with pytest.raises(NotImplementedError, match="ParallelContext"):
-        build_model(cfg, device="cpu", pctx=TwoRanks())
+    pctx = TwoRanks()
+    ranked = build_model(cfg, device="cpu", pctx=pctx)
+    assert ranked.pctx is pctx and ranked.cfg.family == "encdec"
     with pytest.raises(ValueError, match="no config"):
         get_config("not_an_arch")
 

@@ -486,8 +486,9 @@ def test_local_query_heads_read_their_reference_kv_heads(heads, kv, m, rank,
 
 def test_decode_cache_layout_follows_the_reference_rule():
     """Length-sharded under ``seq_shard_decode`` when the length divides,
-    else by kv head when the heads divide; replicated kv heads with an
-    unsharded length raise, naming the roadmap item."""
+    else by kv head when the heads divide; kv heads that do not divide
+    with an unsharded length are replicated, all of them on every rank
+    (the reference's ``P(dp, None, None, None)``)."""
     import types
 
     from repro_torch.models.layers import kv_cache_shape, kv_layout
@@ -499,8 +500,8 @@ def test_decode_cache_layout_follows_the_reference_rule():
     assert kv_cache_shape(8, 16, 2, 21, "heads", 4) == (2, 21, 2, 16)
     ctx.seq_shard_decode = False
     assert kv_layout(8, ctx, 20) == "heads"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        kv_layout(2, ctx, 20)
+    assert kv_layout(2, ctx, 20) == "replicated"
+    assert kv_cache_shape(2, 16, 2, 20, "replicated", 4) == (2, 20, 2, 16)
 
 
 # ---------------------------------------------------------------------------
