@@ -78,16 +78,25 @@ Phases; any failure raises and the script exits non-zero:
    walls the same bits, no probe failed, the calibrated model differs
    from the datasheet, every rank binds the same plan, every pack
    bit-exact, the calibrated run's tokens its twin's up to near ties;
-10. training: the two backward kernels (the pack's, attention's with the
-   forward's log-sum-exp) against their plain versions and against
-   autograd of the plain forwards, at the shapes of one DBRX prefill
-   layer of 4 x 512 tokens and at edge cases, timed beside
+10. training: the four backward kernels (the pack's, attention's with the
+   forward's log-sum-exp, the two scans') against their plain versions and
+   against autograd of the plain forwards, at the shapes of one DBRX
+   prefill layer of 4 x 512 tokens and at edge cases, timed beside
    ``index_add_`` and the backward of ``scaled_dot_product_attention``
    (attention's also each pass's device time, its host issue, two calls
    bit-identical, the dK/dV blocks' balance as they ran, and DBRX's heads
-   at 4,096 tokens, held against the plain backward); a
-   small DBRX-shaped model's loss and gradients in bf16 on the card
-   against fp32 on the CPU; then DBRX-132B at full width, depth cut to 2,
+   at 4,096 tokens, held against the plain backward); attention's at
+   head_dim 256, Gemma2's served shape (window 4,096 and global, softcap
+   50) held slice by slice against the plain backward, twice
+   bit-identical, timed beside the backward of ``flex_attention`` under
+   ``torch.compile``, and its edges (one row, ragged, a window under a
+   tile, no mask, the cap biting); the scans' at Zamba2's and RWKV6's
+   served shapes and edges (S off the chunks, one row, G = BH, a
+   final-state gradient, fast RWKV-6 decays) against autograd of the fp32
+   per-step recurrences within 5e-2 of each gradient's max |value|, twice
+   bit-identical, timed; small DBRX-, Zamba2-, RWKV6- and Gemma2-shaped
+   models' loss and gradients in bf16 on the card against fp32 on the
+   CPU; then DBRX-132B at full width, depth cut to 2,
    trained through ``Trainer`` for 8 steps of 4 x 512 tokens (AdamW with
    bf16 state, cosine schedule), with a checkpoint after step 4 restored
    into a fresh trainer that must reach the same losses.  Gates: finite
@@ -117,8 +126,9 @@ Phases; any failure raises and the script exits non-zero:
    through the stub frontend), 32 new tokens each: decode graphed and an
    eager loop with equal greedy tokens, exact launch counts (42 attention
    launches a Gemma2 prefill), walls and peak memory; then Gemma2's loss
-   with trainable parameters must raise ``NotImplementedError`` on the
-   card (no attention backward at head_dim 256);
+   and backward at full width and depth on the card, through the
+   attention backward at head_dim 256: finite, one forward and one
+   backward launch a layer;
 13. the encoder-decoder, SeamlessM4T-medium at full width and depth (12
    encoder and 12 decoder layers, 0.62 B parameters): served as in phase
    12 (4 prompts x 512 tokens, 32 new; the encoder over the stub
@@ -145,7 +155,16 @@ Phases; any failure raises and the script exits non-zero:
    against a one-rank run of the same weights on the card: every rank's
    tokens equal, the prefill logits within 5e-2 of max |logit| and rows
    parting only at near ties, exact scan and attention launches on each
-   rank; each rank's decode-state bytes beside one rank's.
+   rank; each rank's decode-state bytes beside one rank's;
+15. the hybrid, rwkv and Gemma2 families trained at full width, 8 steps
+   of ``SyntheticLM`` tokens each from seed-0 random weights (AdamW with
+   bf16 state, cosine schedule): Zamba2-7B at 24 of 81 blocks and
+   RWKV6-7B at 8 of 32 through ``Trainer`` (4 x 512 tokens), Gemma2-9B at
+   4 of 42 layers through ``launch.train.main`` (1 x 8,192 tokens, past
+   its 4,096 window); the memory arithmetic printed beside the measured
+   peak.  Gates: finite losses and gradient norms, a falling loss, exact
+   launches (each scan's forward and backward kernel once a layer and
+   step, attention's once a call).
 
 Every phase prints its wall (``phase N took X s``) and the script ends
 with all of them; each spawn of ranks prints where its wall went: spawn
@@ -217,7 +236,11 @@ runs phase 13 alone after them;
 
   python3 chip_smoke.py --tp-families-only
 
-runs phase 14 alone after them (on four cards over nccl, full depth).
+runs phase 14 alone after them (on four cards over nccl, full depth);
+
+  python3 chip_smoke.py --train-families-only
+
+runs phase 15 alone after them.
 """
 
 from __future__ import annotations
@@ -379,7 +402,10 @@ SASS_WANTS = {
 # -> {a part of the function's name: all of}
 SASS_FUNCTION_WANTS = {
     "flash_attention": {"attn_bwd_dq_kernel": ("HGMMA", "UTMALDG"),
-                        "attn_bwd_dkdv_kernel": ("HGMMA", "UTMALDG")},
+                        "attn_bwd_dkdv_kernel": ("HGMMA", "UTMALDG"),
+                        # head_dim 256's passes: mma.sync
+                        "bwd2569dq_kernel": ("HMMA",),
+                        "bwd25611dkdv_kernel": ("HMMA",)},
 }
 
 
@@ -3178,34 +3204,422 @@ def attention_bwd_checks(failures: list) -> dict:
                 replaces="src/repro/kernels/flash_attention.py:112", **row)
 
 
-def grad_reference_check() -> None:
-    """A reduced DBRX-shaped model (head_dim 128, 4 experts all active) in
-    bf16 on the card (kernels) against the same weights in fp32 on the CPU
-    (plain versions): one loss and backward each; the loss within
-    ``LOSS_GAP`` and every parameter's gradient at a cosine above
-    ``GRAD_COSINE``."""
+# ---------------------------------------------------------------------------
+# phase 10 (continued): the scans' backward kernels and attention's at 256
+# ---------------------------------------------------------------------------
+
+# the scans' backward kernels against autograd of the fp32 per-step
+# recurrence: within this share of each gradient's max |value|
+SCAN_BWD_REL = 5e-2
+
+
+def _rel_errs(got, exp) -> list:
+    """max |got - exp| / max |exp| of each gradient (inf where got is not
+    finite)."""
+    import torch
+    out = []
+    for a, e in zip(got, exp):
+        a, e = a.float(), e.float()
+        out.append((a - e).abs().max().item() / max(e.abs().max().item(),
+                                                    1e-30)
+                   if torch.isfinite(a).all() else float("inf"))
+    return out
+
+
+def _scan_bwd_case(failures, name, label, call, exp, names) -> list:
+    import torch
+    got = call()
+    torch.cuda.synchronize()
+    errs = _rel_errs(got, exp)
+    ok = all(e <= SCAN_BWD_REL for e in errs)
+    print(f"  {name} {label}: max|err| / max|grad| " + ", ".join(
+        f"d{n} {e:.2e}" for n, e in zip(names, errs))
+        + f": {'within' if ok else 'OUTSIDE'} {SCAN_BWD_REL} of autograd of "
+        f"the fp32 per-step recurrence")
+    if not ok:
+        failures.append(f"{name} {label}")
+    return got
+
+
+def _scan_bwd_row(name, source, replaces, call, again, plain, nbytes, flops,
+                  failures) -> dict:
+    """The served shape's two calls bit-identical, then its device time
+    (a CUDA graph of 20 calls), host issue, the plain backward's time and
+    the bound; no one library call computes a scan's gradient."""
+    import torch
+    same = all(torch.equal(a, b) for a, b in zip(again[0], again[1]))
+    print(f"  {name} called twice at the served shape: "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        failures.append(f"{name}: two calls differ")
+    ms = device_ms(call)
+    issue = host_ms(call)
+    plain_ms = time_ms(plain, iters=2, warmup=1)
+    bnd, by = bound_ms(nbytes, flops)
+    print(f"  {name} time (device, CUDA graph of 20 calls): kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of products), "
+          f"{bnd / ms:.1%} of the bound; library: none (no one PyTorch call "
+          f"computes a scan's gradient); host issue {issue_text(issue)}")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=None, host_ms=issue[0])
+
+
+def scan_bwd_checks(failures: list) -> dict:
+    """The two scans' backward kernels against autograd of the fp32
+    per-step recurrences (``ref.mamba2_ref``, ``ref.rwkv6_ref``) at the
+    served shapes (Zamba2's [448, 512, 64] with one B/C group a sequence,
+    RWKV6's [256, 512, 64]) and at edges: S off the 64-step chunks, one
+    row, a B/C group a row (G = BH), an incoming final-state gradient, and
+    RWKV-6's fast decays (chunk sums far below -88); each gradient within
+    ``SCAN_BWD_REL`` of its max |value|; at the served shapes two calls
+    bit-identical and timed.  Returns the kernels line's two rows."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mamba2_scan import (expand_groups,
+                                                 mamba2_scan_bwd_plain,
+                                                 sum_groups)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(90)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    rows = {}
+    worst = 0.0
+    m_cases = [  # label, (batch, heads, S, groups), final-state gradient
+        ("zamba2", (4, 112, 512, "shared"), False),
+        ("zamba2-dh-final", (1, 112, 512, "shared"), True),
+        ("S=500", (2, 8, 500, "shared"), True),
+        ("S=63", (2, 4, 63, "shared"), False),
+        ("one-row", (1, 1, 65, "per-head"), True),
+        ("G=BH", (2, 4, 130, "per-head"), True),
+    ]
+    for i, (label, (batch, heads, s, groups), final) in enumerate(m_cases):
+        x, dt, a, b, c, d = scan_inputs_mamba2(batch, heads, s, groups,
+                                               seed=91 + i)
+        n, g = x.shape[0], b.shape[0]
+        dy = rand(n, s, 64)
+        dh = rand(n, 64, 64, dtype=torch.float32) if final else None
+        exp = list(ref.grads_of(
+            lambda *t: ref.mamba2_ref(*t, return_final=True),
+            (x, dt, a, expand_groups(b, n), expand_groups(c, n), d), dy, dh))
+        exp[3], exp[4] = sum_groups(exp[3], g), sum_groups(exp[4], g)
+
+        def call():
+            return ops.mamba2_scan_bwd(x, dt, a, b, c, d, dy, dh)
+        got = _scan_bwd_case(failures, "mamba2_scan_bwd",
+                             f"{label} [{n}, {s}, 64] G={g}"
+                             + (" with dh_final" if final else ""), call, exp,
+                             ("x", "dt", "a", "b", "c", "d"))
+        worst = max(worst, max((a_.float() - e).abs().max().item()
+                               for a_, e in zip(got, exp)))
+        if label == "zamba2":
+            # x, dy, dx bf16; dt, ddt fp32; B, C and their gradients per
+            # group, bf16; a, d, da, dd; 10 products of 64^3 a chunk and
+            # row (the reverse walk's 9 and the states' recompute)
+            nbytes = (3 * n * s * 64 * 2 + 2 * n * s * 4 + 4 * g * s * 64 * 2
+                      + 4 * n * 4)
+            flops = 10 * 2 * 64 ** 3 * n * -(-s // 64)
+            rows["mamba2_scan_bwd"] = _scan_bwd_row(
+                "mamba2_scan_bwd",
+                "src/repro_torch/kernels/csrc/mamba2_scan.cu",
+                "src/repro/kernels/mamba2_scan.py:100", call,
+                (got, call()),
+                lambda: mamba2_scan_bwd_plain(x, dt, a, b, c, d, dy),
+                nbytes, flops, failures)
+        del x, dt, a, b, c, d, dy, dh, exp, got
+    rows["mamba2_scan_bwd"]["max_abs_err"] = worst
+    worst = 0.0
+    r_cases = [  # label, inputs, final-state gradient
+        ("rwkv6", lambda seed: scan_inputs_rwkv6(4, 64, 512, seed), False),
+        ("rwkv6-dstate", lambda seed: scan_inputs_rwkv6(1, 64, 512, seed),
+         True),
+        ("S=500", lambda seed: scan_inputs_rwkv6(2, 4, 500, seed), True),
+        ("S=63", lambda seed: scan_inputs_rwkv6(2, 4, 63, seed), False),
+        ("one-row", lambda seed: scan_inputs_rwkv6(1, 1, 65, seed), True),
+        ("fast-decays", lambda seed: rwkv6_fast_decay_inputs(8, 200, seed),
+         True),
+    ]
+    for i, (label, make, final) in enumerate(r_cases):
+        r, k, v, logw, u = make(101 + i)
+        n, s = r.shape[:2]
+        dy = rand(n, s, 64)
+        dst = rand(n, 64, 64, dtype=torch.float32) if final else None
+        exp = ref.grads_of(lambda *t: ref.rwkv6_ref(*t, return_final=True),
+                           (r, k, v, logw, u), dy, dst)
+
+        def call():
+            return ops.rwkv6_scan_bwd(r, k, v, logw, u, dy, dst)
+        sums = (torch.cumsum(logw[:, :32], 1)[:, -1].min().item())
+        got = _scan_bwd_case(failures, "rwkv6_scan_bwd",
+                             f"{label} [{n}, {s}, 64] (lowest 32-step logw "
+                             f"sum {sums:.1f})"
+                             + (" with dstate" if final else ""), call, exp,
+                             ("r", "k", "v", "logw", "u"))
+        worst = max(worst, max((a_.float() - e).abs().max().item()
+                               for a_, e in zip(got, exp)))
+        if label == "rwkv6":
+            # r, k, v, dy, dr, dk, dv bf16; logw, dlogw fp32; u, du; 10
+            # products of 64^3 a chunk and row
+            nbytes = 7 * n * s * 64 * 2 + 2 * n * s * 64 * 4 + 2 * n * 64 * 4
+            flops = 10 * 2 * 64 ** 3 * n * -(-s // 64)
+            rows["rwkv6_scan_bwd"] = _scan_bwd_row(
+                "rwkv6_scan_bwd",
+                "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                "src/repro/kernels/rwkv6_scan.py:97", call, (got, call()),
+                lambda: ref.rwkv6_chunked_bwd(r, k, v, logw, u, dy),
+                nbytes, flops, failures)
+        del r, k, v, logw, u, dy, dst, exp, got
+    rows["rwkv6_scan_bwd"]["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return rows
+
+
+def attention_bwd_256(failures: list) -> dict:
+    """The attention backward at head_dim 256: Gemma2's served prefill
+    shape (q [2, 16, 8160, 256] over 8 kv heads, softcap 50, its 4,096
+    window and global) against the plain backward, run a (batch, kv head)
+    slice at a time (whole, its fp32 scores would take tens of GB), within
+    atol = rtol = 2e-2; two calls bit-identical; timed (device, host issue
+    of 5 calls, the slices' plain backward, the bound, and the backward of
+    ``flex_attention`` under ``torch.compile`` with the same cap and mask
+    as the library call; the backward of ``scaled_dot_product_attention``
+    without the softcap printed as a yardstick, not the same function).
+    Then edges against autograd of the plain forward in fp32: one q row, a
+    ragged length, a window under one tile, no mask with lengths apart, and
+    q x 10 where the cap bites.  Returns the ``flash_attention_bwd`` row's
+    ``head_dim_256`` entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_plain)
+    from repro_torch.launch.host_issue import runs
+    bf16 = torch.bfloat16
+    b, hq, g, s, d = GEMMA_ATTN
+    rep = hq // g
+
+    def rand(seed, *shape, scale=1.0):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(bf16)
+    q = rand(110, b, s, hq, d).transpose(1, 2)
+    k = rand(111, b, s, g, d).transpose(1, 2)
+    v = rand(112, b, s, g, d).transpose(1, 2)
+    do = rand(113, b, s, hq, d).transpose(1, 2)
+    entry = {"shape": [b, hq, g, s, s, d], "softcap": GEMMA_SOFTCAP,
+             "library": "the backward of flex_attention (torch.compile), "
+                        "score_mod c * tanh(s / c), causal block mask"}
+    for window in (GEMMA_WINDOW, None):
+        kw = dict(causal=True, window=window, softcap=GEMMA_SOFTCAP)
+        tag = "global" if window is None else f"window {window}"
+        out, lse = _forward(q, k, v, (True, window, GEMMA_SOFTCAP, None),
+                            with_lse=True)
+
+        def call():
+            return ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+
+        def plain_slices(check=None):
+            for bb in range(b):
+                for gg in range(g):
+                    qs = slice(gg * rep, (gg + 1) * rep)
+                    one = (q[bb:bb + 1, qs], k[bb:bb + 1, gg:gg + 1],
+                           v[bb:bb + 1, gg:gg + 1])
+                    exp = ref.attention_bwd_ref(
+                        *one, out[bb:bb + 1, qs], do[bb:bb + 1, qs],
+                        ref.attention_lse(one[0], one[1], **kw), **kw)
+                    if check is not None:
+                        check(bb, gg, qs, exp)
+        got = call()
+        errs, oks = [0.0, 0.0, 0.0], [True]
+
+        def check(bb, gg, qs, exp):
+            mine = (got[0][bb:bb + 1, qs], got[1][bb:bb + 1, gg:gg + 1],
+                    got[2][bb:bb + 1, gg:gg + 1])
+            for j, (a_, e) in enumerate(zip(mine, exp)):
+                errs[j] = max(errs[j], (a_.float() - e.float()).abs().max()
+                              .item())
+                oks[0] &= torch.allclose(a_.float(), e.float(), **ATTN_TOL)
+        plain_slices(check)
+        torch.cuda.synchronize()
+        print(f"  flash_attention_bwd gemma2 {tag} [{b}, {hq}, {s}, {d}] over "
+              f"{g} kv heads, softcap {GEMMA_SOFTCAP}: dq/dk/dv max|err| "
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} against the plain "
+              f"backward ({b * g} slices): "
+              f"{'within' if oks[0] else 'OUTSIDE'} atol=rtol=2e-2")
+        if not oks[0]:
+            failures.append(f"flash_attention_bwd gemma2 {tag}")
+        if window is None:
+            same = all(torch.equal(a_, c_) for a_, c_ in zip(got, call()))
+            print(f"  flash_attention_bwd gemma2 global called twice: dq, "
+                  f"dk, dv {'bit-identical' if same else 'DIFFER'}")
+            if not same:
+                failures.append("flash_attention_bwd 256: two calls differ")
+        del got
+        ms = device_ms(call)
+        issue = runs(call, 1, calls=5)[0]
+        plain_ms = time_ms(plain_slices, iters=1, warmup=0)
+        qs_, ks_, vs_ = (x.detach().requires_grad_(True) for x in (q, k, v))
+        lib = None
+        try:
+            flex = flex_softcap(window, GEMMA_SOFTCAP, s)
+            lib = (time_ms(lambda: torch.autograd.grad(
+                flex(qs_, ks_, vs_), (qs_, ks_, vs_), do), iters=5)
+                - time_ms(lambda: flex(qs_, ks_, vs_), iters=5))
+        except Exception as err:  # the yardstick alone; the kernel is held
+            print(f"  the backward of flex_attention did not run: {err!r}")
+        sdpa = (time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qs_, ks_, vs_, is_causal=True,
+                                           enable_gqa=True),
+            (qs_, ks_, vs_), do), iters=5)
+            - time_ms(lambda: F.scaled_dot_product_attention(
+                qs_, ks_, vs_, is_causal=True, enable_gqa=True), iters=5))
+        del qs_, ks_, vs_
+        nbytes = 2 * (4 * b * hq * s * d + 4 * b * g * s * d) + 4 * b * hq * s
+        flops = 10 * b * hq * d * causal_pairs(s, window)
+        bnd, by = bound_ms(nbytes, flops)
+        lib_txt = "not measured" if lib is None else f"{lib:.4f} ms"
+        print(f"  flash_attention_bwd gemma2 {tag} time (device, CUDA graph "
+              f"of 20 calls): kernel {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+              f"TFLOP/s; plain ({b * g} slices) {plain_ms:.4f} ms; the "
+              f"backward of flex_attention {lib_txt}; bound {bnd:.4f} ms "
+              f"({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
+              f"{bnd / ms:.1%} of the bound; host issue {issue:.4f} ms a call "
+              f"(one run of 5 calls); yardstick, not the same function: the "
+              f"backward of scaled_dot_product_attention, causal, global, no "
+              f"softcap, {sdpa:.4f} ms")
+        entry["global" if window is None else "window"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+            library_ms=lib, max_abs_err=max(errs), host_ms=issue,
+            sdpa_yardstick_ms=sdpa)
+        del out, lse
+        torch.cuda.empty_cache()
+    del q, k, v, do
+    # label, (b, heads, kv heads, Sq, Sk), causal, window, softcap, q x;
+    # q x 10 scales dK with it (to about 10), so bf16's rounding of dS
+    # before dS^T Q alone moves dK by more than 2e-2: that case is held
+    # against the plain backward with P and dS rounded to bf16 where the
+    # kernel rounds them, its distance from fp32 printed beside
+    edges = [
+        ("256-one-row", (1, 16, 8, 1, 1), True, None, GEMMA_SOFTCAP, 1.0),
+        ("256-ragged", (2, 16, 8, 200, 200), True, GEMMA_WINDOW,
+         GEMMA_SOFTCAP, 1.0),
+        ("256-window-under-tile", (2, 16, 8, 300, 300), True, 20,
+         GEMMA_SOFTCAP, 1.0),
+        ("256-cross", (1, 4, 2, 77, 333), False, None, GEMMA_SOFTCAP, 1.0),
+        ("256-cap-bites", (2, 16, 8, 300, 300), True, 20, 3.0, 1.0),
+        ("256-cap-bites-q10", (2, 16, 8, 300, 300), True, 20, GEMMA_SOFTCAP,
+         10.0),
+    ]
+    worst = 0.0
+    for i, (label, (bb, h, gg, sq, sk), causal, window, cap, q_x) in \
+            enumerate(edges):
+        q = rand(120 + i, bb, sq, h, d, scale=q_x).transpose(1, 2)
+        k = rand(130 + i, bb, sk, gg, d).transpose(1, 2)
+        v = rand(140 + i, bb, sk, gg, d).transpose(1, 2)
+        do = rand(150 + i, bb, sq, h, d).transpose(1, 2)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out, lse = _forward(q, k, v, (causal, window, cap, None),
+                            with_lse=True)
+        got = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+        exact = torch.autograd.grad(flash_attention_plain(*leaves, **kw),
+                                    leaves, do.float())
+        exp, against, note = exact, "autograd of the plain forward", ""
+        if cap != GEMMA_SOFTCAP or q_x > 1.0:
+            leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+            uncapped = torch.autograd.grad(flash_attention_plain(
+                *leaves, **{**kw, "softcap": None}), leaves, do.float())
+            bites = not all(torch.allclose(a_, e, **ATTN_TOL)
+                            for a_, e in zip(uncapped, exact))
+            note = (f"; without the cap the gradients move "
+                    f"{'outside' if bites else 'WITHIN'} the tolerance")
+            if not bites:
+                failures.append(f"flash_attention_bwd {label}: the softcap "
+                                f"does not bite")
+        if q_x > 1.0:
+            exp = [x.float() for x in ref.attention_bwd_ref(
+                q, k, v, out, do, ref.attention_lse(q, k, **kw), **kw,
+                operands=bf16)]
+            against = "the plain backward with P and dS rounded to bf16"
+            far = [(a_.float() - e).abs().max().item()
+                   for a_, e in zip(got, exact)]
+            note += (f"; from fp32 autograd {far[0]:.3e}/{far[1]:.3e}/"
+                     f"{far[2]:.3e}, max|grad| " + "/".join(
+                         f"{e.abs().max().item():.2f}" for e in exact))
+        torch.cuda.synchronize()
+        errs = [(a_.float() - e).abs().max().item() for a_, e in zip(got, exp)]
+        ok = all(torch.allclose(a_.float(), e, **ATTN_TOL)
+                 for a_, e in zip(got, exp))
+        worst = max(worst, *errs)
+        print(f"  flash_attention_bwd {label} {(bb, h, gg, sq, sk, d)} "
+              f"causal={causal} window={window} softcap={cap}, q x {q_x:g}: "
+              f"dq/dk/dv max|err| {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
+              f"against {against}: {'within' if ok else 'OUTSIDE'} "
+              f"atol=rtol=2e-2{note}")
+        if not ok:
+            failures.append(f"flash_attention_bwd {label}")
+    entry["edges_max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return entry
+
+
+def small_family_configs() -> list:
+    """(label, config, sequence) of the small models whose bf16 gradients
+    on the card are held to fp32 on the CPU beside the small DBRX: the
+    Zamba2-, RWKV6- and Gemma2-shaped models of phase 4 (the scans at
+    heads of 64, the shared block at head_dim 112; Gemma2 at head_dim 256
+    with its softcaps and a 32-token window that 80 tokens overrun)."""
+    from repro_torch.configs.base import get_config
+    return [
+        ("Zamba2-shaped", get_config("zamba2_7b").reduced(
+            n_layers=4, d_model=448, n_heads=4, n_kv_heads=4, d_ff=512,
+            vocab=1024, ssm_state=64, ssm_head_dim=64, shared_attn_every=2),
+         100),
+        ("RWKV6-shaped", get_config("rwkv6_7b").reduced(
+            n_layers=2, d_model=512, d_ff=1024, vocab=1024,
+            rwkv_head_dim=64, rwkv_decay_lora=64), 100),
+        ("Gemma2-shaped", get_config("gemma2_9b").reduced(
+            d_model=512, n_heads=2, d_head=256, d_ff=512, vocab=1024), 80),
+    ]
+
+
+def grad_reference_check(label: str = "DBRX-shaped", cfg=None,
+                         seq: int = 64) -> None:
+    """A small model (by default DBRX-shaped: head_dim 128, 4 experts all
+    active) in bf16 on the card (kernels) against the same weights in fp32
+    on the CPU (plain versions): one loss and backward of 4 x ``seq``
+    tokens each; the loss within ``LOSS_GAP`` and every parameter's
+    gradient at a cosine above ``GRAD_COSINE``, and the kernels' launches
+    exactly one forward and one backward of each kernel a layer."""
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
         batch_for_model
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
-    from repro_torch.models.api import build_model
+    from repro_torch.models.api import build_model, param_module
+    from repro_torch.models.ssm import n_shared_calls
     from repro_torch.runtime.trainer import trainable
 
-    cfg = get_config("dbrx_132b").reduced(
-        d_model=512, n_heads=4, n_kv_heads=2, d_ff=256, vocab=1024,
-        num_experts=4, top_k=4)
+    if cfg is None:
+        cfg = get_config("dbrx_132b").reduced(
+            d_model=512, n_heads=4, n_kv_heads=2, d_ff=256, vocab=1024,
+            num_experts=4, top_k=4)
     gpu = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     params = gpu.init(gen)
     cpu = build_model(cfg, device="cpu", dtype=torch.float32)
-    cpu_params = T.Transformer(cfg, device="cpu", dtype=torch.float32)
+    cpu_params = param_module(cfg, device="cpu", dtype=torch.float32)
     cpu_params.load_state_dict({k: v.float().cpu()
                                 for k, v in params.state_dict().items()})
-    raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+    raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                  global_batch=4, seed=0)).batch(0)
     losses = []
     ops.reset_launches()
@@ -3222,30 +3636,46 @@ def grad_reference_check() -> None:
         a, e = a.grad.double().cpu().flatten(), e.grad.double().flatten()
         cosines[name] = (a @ e / (a.norm() * e.norm())).item()
     worst = min(cosines, key=cosines.get)
-    print(f"  small DBRX-shaped model ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, head_dim {cfg.head_dim}, {cfg.num_experts} "
-          f"experts top-{cfg.top_k}), loss and backward of 4 x 64 tokens: "
-          f"card bf16 {losses[0]:.5f} vs CPU fp32 {losses[1]:.5f}, gap "
-          f"{gap:.3e} (limit {LOSS_GAP}); gradient cosines of "
-          f"{len(cosines)} parameters, lowest {cosines[worst]:.6f} "
-          f"({worst}; limit {GRAD_COSINE}); kernel launches {counts}")
+    kind = {"moe": f", {cfg.num_experts} experts top-{cfg.top_k}",
+            "hybrid": f", mamba heads of {cfg.ssm_head_dim}, ds "
+                      f"{cfg.ssm_state}",
+            "rwkv": f", wkv heads of {cfg.rwkv_head_dim}"}.get(cfg.family, "")
+    print(f"  small {label} model ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, head_dim {cfg.head_dim}{kind}), loss and backward "
+          f"of 4 x {seq} tokens: card bf16 {losses[0]:.5f} vs CPU fp32 "
+          f"{losses[1]:.5f}, gap {gap:.3e} (limit {LOSS_GAP}); gradient "
+          f"cosines of {len(cosines)} parameters, lowest "
+          f"{cosines[worst]:.6f} ({worst}; limit {GRAD_COSINE}); kernel "
+          f"launches {counts}")
     low = {k: v for k, v in cosines.items() if not v > GRAD_COSINE}
     if not gap < LOSS_GAP or low:
-        raise AssertionError(f"small-model gradients: loss gap {gap:.3e}, "
+        raise AssertionError(f"small {label} gradients: loss gap {gap:.3e}, "
                              f"cosines below {GRAD_COSINE}: {low}")
-    want = {"dispatch_pack": 3 * cfg.n_layers,
-            "dispatch_pack_bwd": 3 * cfg.n_layers,
-            "flash_attention": cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
+    if cfg.family == "moe":
+        want = {"dispatch_pack": 3 * cfg.n_layers,
+                "dispatch_pack_bwd": 3 * cfg.n_layers,
+                "flash_attention": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+    elif cfg.family == "hybrid":
+        want = {"mamba2_scan": cfg.n_layers,
+                "mamba2_scan_bwd": cfg.n_layers,
+                "flash_attention": n_shared_calls(cfg),
+                "flash_attention_bwd": n_shared_calls(cfg)}
+    elif cfg.family == "rwkv":
+        want = {"rwkv6_scan": cfg.n_layers, "rwkv6_scan_bwd": cfg.n_layers}
+    else:
+        want = {"flash_attention": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
     if counts != want:
-        raise AssertionError(f"small model: launches {counts} != {want}")
+        raise AssertionError(f"small {label}: launches {counts} != {want}")
 
 
 def synthetic_trainer(cfg, lr: float, steps: int, ckpt_dir=None,
-                      save_at: int = 1):
+                      save_at: int = 1, batch: int = TRAIN_BATCH,
+                      seq: int = TRAIN_SEQ):
     """The card's bf16 model of ``cfg`` and a function ``trainer(total,
-    ckpt=False)`` that makes a fresh ``Trainer`` of it: ``TRAIN_BATCH`` x
-    ``TRAIN_SEQ`` SyntheticLM tokens (seed 0) a step through
+    ckpt=False)`` that makes a fresh ``Trainer`` of it: ``batch`` x
+    ``seq`` SyntheticLM tokens (seed 0) a step through
     ``batch_for_model``, AdamW (weight decay 0.01) on a cosine schedule of
     ``lr`` over ``steps`` with one warm-up step, weights drawn from seed 0,
     every step logged; with ``ckpt``, a checkpoint into ``ckpt_dir`` every
@@ -3259,8 +3689,8 @@ def synthetic_trainer(cfg, lr: float, steps: int, ckpt_dir=None,
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH, seed=0))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=0))
 
     def make_batch(step):
         return batch_for_model(cfg, data.batch(step), device="cuda")
@@ -3279,9 +3709,10 @@ def synthetic_trainer(cfg, lr: float, steps: int, ckpt_dir=None,
     return trainer
 
 
-def train_gates(hist: list, counts: dict, want: dict) -> tuple[list, float]:
+def train_gates(hist: list, counts: dict, want: dict,
+                tokens: int = TRAIN_BATCH * TRAIN_SEQ) -> tuple[list, float]:
     """Prints each step of a trainer's ``hist`` and the mean wall of steps 2
-    on with its tokens/s (``TRAIN_BATCH`` x ``TRAIN_SEQ`` a step).  Returns
+    on with its tokens/s (``tokens`` a step).  Returns
     the failures of the training gates (launches ``counts`` equal to
     ``want``, finite losses and gradient norms, the mean loss of the last 3
     steps below that of the first 3) and that mean wall in ms."""
@@ -3294,7 +3725,7 @@ def train_gates(hist: list, counts: dict, want: dict) -> tuple[list, float]:
     step_ms = sum(walls[1:]) / (len(walls) - 1) * 1e3
     print(f"  first step {walls[0] * 1e3:.1f} ms; steps 2-{len(walls)} "
           f"{step_ms:.1f} ms a step, "
-          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s")
+          f"{tokens / step_ms * 1e3:.1f} tokens/s")
     failures = []
     if counts != want:
         failures.append(f"launches {counts} != {want}")
@@ -3445,14 +3876,18 @@ def time_update(tr) -> tuple[float, float]:
 
 
 def train_phase() -> tuple[dict, dict]:
-    """Phase 10.  Returns (the kernels JSON rows of the two backward
+    """Phase 10.  Returns (the kernels JSON rows of the four backward
     kernels, the launches of the full-width training run)."""
     failures: list = []
     rows = {"dispatch_pack_bwd": pack_bwd_checks(failures),
             "flash_attention_bwd": attention_bwd_checks(failures)}
+    rows["flash_attention_bwd"]["head_dim_256"] = attention_bwd_256(failures)
+    rows.update(scan_bwd_checks(failures))
     if failures:
         raise AssertionError(f"backward kernels disagree: {failures}")
     grad_reference_check()
+    for label, cfg, seq in small_family_configs():
+        grad_reference_check(label, cfg, seq)
     return rows, train_full_width()
 
 
@@ -3776,8 +4211,8 @@ def train_ranks_phase() -> dict:
 def families_phase() -> dict:
     """Gemma2-9B, StarCoder2-15B, Minitron-8B and Qwen2-VL-2B's backbone
     (``FAMILIES``) through :func:`serve_phase`, one at a time, each freed
-    before the next; then Gemma2's gradient on the card must raise
-    (:func:`gemma_gradient_raises`).  Returns the launches by model."""
+    before the next; Gemma2's also takes a gradient on the card
+    (:func:`gemma_gradient_runs`).  Returns the launches by model."""
     by_path = {}
     for arch, prompts_n, prompt_len, max_new in FAMILIES:
         print(f"  {arch}: {prompts_n} prompts x {prompt_len} tokens, "
@@ -3785,35 +4220,50 @@ def families_phase() -> dict:
         by_path[arch] = serve_phase(
             arch, None, prompts_n=prompts_n, prompt_len=prompt_len,
             max_new=max_new,
-            after=gemma_gradient_raises if arch == "gemma2_9b" else None)
+            after=gemma_gradient_runs if arch == "gemma2_9b" else None)
     return by_path
 
 
-def gemma_gradient_raises(engine, cfg) -> None:
-    """Gemma2 at full width on the card with its parameters trainable: the
-    loss must raise the attention wrapper's ``NotImplementedError`` (no
-    backward kernel at head_dim 256) before any attention kernel runs,
-    and nothing plain may run in its place."""
+def gemma_gradient_runs(engine, cfg) -> None:
+    """Gemma2 at full width and depth on the card with its parameters
+    trainable: one loss and backward of 1 x 64 tokens through the attention
+    backward kernel at head_dim 256.  The loss and every gradient must be
+    finite, and the kernels launch exactly one attention forward and one
+    backward a layer (nothing plain in their place)."""
+    import math
+
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.runtime.trainer import trainable
-    toks = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
-    trainable(engine.params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    toks = torch.randint(0, cfg.vocab, (1, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    params = engine.params
+    trainable(params)
     ops.reset_launches()
-    try:
-        engine.model.loss(engine.params, {"tokens": toks, "labels": toks})
-    except NotImplementedError as err:
-        if "queue 2" not in str(err):
-            raise
-        print(f"  {cfg.name} gradient on the card: NotImplementedError "
-              f"({err})")
-    else:
-        raise AssertionError(f"{cfg.name}: the loss ran on the card at "
-                             f"head_dim {cfg.head_dim}")
-    if any(ops.launches().values()):
-        raise AssertionError(f"{cfg.name}: kernels ran before the raise: "
-                             f"{ops.launches()}")
+    loss, _ = engine.model.loss(params, {"tokens": toks, "labels": toks})
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launches().items() if v}
+    finite = all(torch.isfinite(p.grad).all().item()
+                 for p in params.parameters() if p.grad is not None)
+    missing = [n for n, p in params.named_parameters() if p.grad is None]
+    want = {"flash_attention": cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    print(f"  {cfg.name} gradient on the card at head_dim {cfg.head_dim}: "
+          f"loss {loss.item():.5f} of 1 x 64 tokens, every gradient "
+          f"{'finite' if finite else 'NOT FINITE'}, launches {counts} "
+          f"(expected {want})")
+    for p in params.parameters():
+        p.grad = None
+        p.requires_grad_(False)
+    if not (math.isfinite(loss.item()) and finite) or missing \
+            or counts != want:
+        raise AssertionError(f"{cfg.name} gradient: loss {loss.item()}, "
+                             f"finite {finite}, without a gradient "
+                             f"{missing[:4]}, launches {counts} != {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -4114,6 +4564,135 @@ def tp_families_phase() -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the hybrid, rwkv and Gemma2 families trained at full width
+# ---------------------------------------------------------------------------
+
+# (arch, depth, batch, sequence) at full width, each depth cut as far as one
+# card and the script's time ask (the arithmetic prints beside the measured
+# peak): Zamba2 at phase 14's 24 of 81 blocks (the shared block 3 times),
+# RWKV6 at phase 14's 8 of 32, Gemma2 at 4 of 42 layers (2 windowed, 2
+# global) over one sequence of 8,192 tokens, past its 4,096 window, through
+# the training launcher
+TRAIN_FAMILIES = (("zamba2_7b", 24, 4, 512), ("rwkv6_7b", 8, 4, 512),
+                  ("gemma2_9b", 4, 1, 8192))
+TRAIN_FAMILIES_STEPS, TRAIN_FAMILIES_LR = 8, 1e-4
+
+
+def family_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` training steps of ``cfg``: each layer's
+    forward once (the scans', or attention's with its log-sum-exp) and its
+    backward once, nothing recomputed."""
+    from repro_torch.models.ssm import n_shared_calls
+    if cfg.family == "hybrid":
+        per = dict(mamba2_scan=cfg.n_layers, mamba2_scan_bwd=cfg.n_layers,
+                   flash_attention=n_shared_calls(cfg),
+                   flash_attention_bwd=n_shared_calls(cfg))
+    elif cfg.family == "rwkv":
+        per = dict(rwkv6_scan=cfg.n_layers, rwkv6_scan_bwd=cfg.n_layers)
+    else:
+        per = dict(flash_attention=cfg.n_layers,
+                   flash_attention_bwd=cfg.n_layers)
+    return launch_counts(**{k: v * steps for k, v in per.items()})
+
+
+def launcher_history(argv: list) -> tuple[list, int]:
+    """``launch.train.main(argv)``, the training entry point a user calls,
+    with the history of its ``Trainer`` and the parameters it trained
+    (kept by wrapping ``Trainer.run`` for the call)."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.api import param_count
+    from repro_torch.runtime.trainer import Trainer
+    kept = {}
+    run = Trainer.run
+
+    def keep(self):
+        out = run(self)
+        kept["hist"] = list(self.metrics_history)
+        kept["params"] = param_count(self.state.params)
+        return out
+    Trainer.run = keep
+    try:
+        if launch_train.main(argv) != 0:
+            raise AssertionError(f"launch.train {argv} did not return 0")
+    finally:
+        Trainer.run = run
+    return kept["hist"], kept["params"]
+
+
+def train_family(arch: str, depth: int, batch: int, seq: int) -> dict:
+    """One family at full width, depth ``depth``, trained
+    ``TRAIN_FAMILIES_STEPS`` steps of ``batch`` x ``seq`` SyntheticLM
+    tokens (seed 0, seed-0 random weights, AdamW with bf16 state on a
+    cosine schedule of ``TRAIN_FAMILIES_LR``): Gemma2 through
+    ``launch.train.main``, the others through ``Trainer`` as phase 10.
+    Prints the memory arithmetic beside the measured peak.  Gates: finite
+    losses and gradient norms, the mean loss of the last 3 steps below
+    that of the first 3, exact launches.  Returns the launches."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import param_count
+
+    cfg = get_config(arch).with_depth(depth)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    ops.reset_launches()
+    t0 = time.monotonic()
+    if arch == "gemma2_9b":
+        how = "launch.train.main"
+        hist, n_params = launcher_history([
+            "--arch", arch, "--layers", str(depth), "--batch", str(batch),
+            "--seq", str(seq), "--steps", str(TRAIN_FAMILIES_STEPS),
+            "--lr", str(TRAIN_FAMILIES_LR), "--seed", "0"])
+    else:
+        how = "Trainer"
+        trainer = synthetic_trainer(cfg, TRAIN_FAMILIES_LR,
+                                    TRAIN_FAMILIES_STEPS, batch=batch,
+                                    seq=seq)
+        tr = trainer(TRAIN_FAMILIES_STEPS)
+        tr.run()
+        hist = tr.metrics_history
+        n_params = param_count(tr.state.params)
+        del tr, trainer
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    want = family_launches(cfg, TRAIN_FAMILIES_STEPS)
+    # bf16 parameters, AdamW's bf16 first and second moments, bf16
+    # gradients: 8 bytes a parameter; the rest of the peak is activations
+    state_gb = 8 * n_params / 1e9
+    print(f"  {cfg.name} at full width (d_model {cfg.d_model}), {depth} of "
+          f"{get_config(arch).n_layers} layers, {batch} x {seq} tokens a "
+          f"step, through {how}: {n_params / 1e9:.3f} B parameters; "
+          f"parameters 2 B + AdamW state 4 B + gradients 2 B a parameter = "
+          f"{state_gb:.2f} GB, measured peak {peak_gb:.2f} GB "
+          f"(max_memory_allocated over {base_gb:.2f} GB already held), so "
+          f"activations and scratch about {peak_gb - state_gb:.2f} GB; "
+          f"{TRAIN_FAMILIES_STEPS} steps and set-up {wall:.1f} s")
+    failures, _ = train_gates(hist, counts, want, tokens=batch * seq)
+    print(f"  launches over {TRAIN_FAMILIES_STEPS} steps: "
+          f"{ {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} })")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"phase 15 {arch}: {failures}")
+    return counts
+
+
+def train_families_phase() -> dict:
+    """Phase 15: Zamba2-7B, RWKV6-7B and Gemma2-9B trained at full width
+    (``TRAIN_FAMILIES``), one at a time, each freed before the next.
+    Returns the launches by path."""
+    return {f"{arch}_train": train_family(arch, depth, batch, seq)
+            for arch, depth, batch, seq in TRAIN_FAMILIES}
+
+
 def ptxas_report(log: str) -> list:
     """(function, registers, spill stores, spill loads) of each kernel
     function in an ``nvcc -Xptxas -v`` log."""
@@ -4202,6 +4781,8 @@ def main(argv=None) -> None:
                     help="phases 1, 2 and 13 only")
     ap.add_argument("--tp-families-only", action="store_true",
                     help="phases 1, 2 and 14 only (on four cards: nccl)")
+    ap.add_argument("--train-families-only", action="store_true",
+                    help="phases 1, 2 and 15 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -4241,6 +4822,8 @@ def main(argv=None) -> None:
     encdec_title = ("phase 13: SeamlessM4T-medium, the encoder-decoder, "
                     "served and trained at full width and depth")
     tp_families_title = tp_families_heading(four)
+    train_families_title = ("phase 15: Zamba2-7B, RWKV6-7B and Gemma2-9B "
+                            "trained at full width")
     if args.kimi_only:
         with clock(7, kimi_title):
             kimi_phase(depth, kimi_new)
@@ -4275,6 +4858,9 @@ def main(argv=None) -> None:
             counts = tp_families_phase()
             print(f"  launches of phase 14's measured runs, summed over "
                   f"ranks: {counts}")
+    elif args.train_families_only:
+        with clock(15, train_families_title):
+            counts = train_families_phase()
     elif args.ranks_only:
         for i, cf in enumerate(args.ranks_only):
             with clock(6, f"phase 6: DBRX over 2 pods x 2 ep ranks, "
@@ -4312,6 +4898,8 @@ def main(argv=None) -> None:
             by_path.update(encdec_phase())
         with clock(14, tp_families_title):
             by_path.update(tp_families_phase())
+        with clock(15, train_families_title):
+            by_path.update(train_families_phase())
 
         for name, row in rows.items():
             row["launches"] = sum(c.get(name, 0) for c in by_path.values())
@@ -4321,7 +4909,8 @@ def main(argv=None) -> None:
     if args.train_only or not any(
             (args.ranks_only, args.kimi_only, args.tp_only,
              args.calibrate_only, args.train_ranks_only, args.families_only,
-             args.encdec_only, args.tp_families_only)):
+             args.encdec_only, args.tp_families_only,
+             args.train_families_only)):
         print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

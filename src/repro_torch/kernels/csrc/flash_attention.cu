@@ -1212,6 +1212,374 @@ cudaError_t launch_bwd(const CUtensorMap& qm, const CUtensorMap& dom, const CUte
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The backward at head_dim 256 (Gemma2): mma.sync, plain loads.
+//
+// The two passes above do not fit at 256 columns: the dQ pass's Q and dO
+// slots and K/V rings would take 256 KB of shared memory and the dK/dV
+// pass's over 320 KB, against the 227 KB a block may have; and a consumer
+// warpgroup holding all of dK and dV of a 64-row kv tile would need 2 x 64
+// x 256 fp32 over 128 threads, 256 registers a thread, one more than
+// exist.  So at 256 the columns are split between warps:
+//
+//   * A block of 8 warps owns 64 rows (q rows in the dQ pass, kv rows in
+//     the dK/dV pass); warp w owns rows 16 (w % 4) .. + 15 and the
+//     128-column half w / 4 of the head dim.  Its gradient accumulators are
+//     16 x 128 fp32: 64 registers a thread in the dQ pass, 128 for dK and
+//     dV together in the dK/dV pass.
+//   * The scores of a 64 x 64 step, S = Q K^T and dP = dO V^T, sum over
+//     all 256 columns.  Each warp of a pair takes the products over its own
+//     half (split-K) and writes its partial tile to shared memory; after a
+//     barrier both read the two partials and add them, half 0 plus half 1,
+//     so the pair holds the same bits.  No product is done twice.
+//   * Shared memory: four 64 x 256 bf16 tiles (Q and dO, K and V) with rows
+//     padded to 264 elements (528 bytes, 132 words: the 8 rows and 4
+//     columns of a fragment load hit 32 distinct banks), 4 x 33 KB = 132
+//     KB, plus the partials of S and dP from both halves, 4 x 64 x 64 fp32
+//     = 64 KB, plus the step's lse log2(e) and delta: about 197 KB.
+//   * Products: mma.sync m16n8k16, bf16 in, fp32 accumulate; A fragments
+//     (Q, K, V, dO rows; P and dS repacked from the score fragments as
+//     flash attention does) and B fragments read from shared memory with
+//     plain 32-bit loads, or two 16-bit loads where B runs down the rows
+//     (dS K, P^T dO, dS^T Q).  Tiles arrive with 16-byte loads and a
+//     barrier, not overlapped with the products.
+//   * A first kernel writes each q row's lse log2(e) and delta =
+//     rowsum(dO * O) into the same padded fp32 scratch the passes above
+//     use; the dQ pass then runs a block per (q tile, head, batch) and the
+//     dK/dV pass a block per (kv tile, kv head, batch), which walks the q
+//     heads of its kv head in order and sums their terms: no atomics, the
+//     same bits every call.
+//
+// Operations bound it: at Gemma2's [2, 16, 8160, 256] causal the five
+// products are 2.7 TFLOP, 2.76 ms at 989 TFLOP/s.  This first version
+// trades speed for simplicity (mma.sync, loads not overlapped); making it
+// fast is later work.
+namespace bwd256 {
+
+using namespace sm90;
+
+constexpr int kRows = 64;                 // rows of a block, of a step
+constexpr int kHD = 256;
+constexpr int kLdB = kHD + 8;             // padded row of a bf16 tile, elements
+constexpr int kTileB = kRows * kLdB;      // bf16 elements of one tile
+constexpr int kLdX = kRows + 4;           // padded row of an fp32 partial tile
+constexpr int kTileX = kRows * kLdX;
+constexpr int kThreads = 256;
+constexpr int kSmem = 4 * kTileB * 2 + 4 * kTileX * 4 + 2 * kRows * 4;
+
+struct Args {
+  const __nv_bfloat16 *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* stats;                            // [2, B, H, q_pad]
+  __nv_bfloat16 *dq, *dk, *dv;
+  long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
+  int batch, heads, kv_heads, q_len, kv_len, q_pad;
+  float scale, softcap;                    // softcap <= 0: none
+  int causal, window;                      // window <= 0: none
+};
+
+// rows [r0, r0 + 64) of a [B, heads, len, 256] tensor into a padded tile,
+// zeros past len
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                          const long long (&st)[3], int b, int h, int r0,
+                                          int len) {
+  for (int e = threadIdx.x; e < kRows * kHD / 8; e += kThreads) {
+    const int r = e / (kHD / 8), c = (e % (kHD / 8)) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < len)
+      val = *reinterpret_cast<const uint4*>(base + b * st[0] + h * st[1] +
+                                            (long long)(r0 + r) * st[2] + c);
+    *reinterpret_cast<uint4*>(dst + r * kLdB + c) = val;
+  }
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two bf16 down a column: (p[0], p[ld]) as one B fragment register
+__device__ __forceinline__ uint32_t ld_col2(const __nv_bfloat16* p, int ld) {
+  const uint16_t lo = *reinterpret_cast<const uint16_t*>(p);
+  const uint16_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// acc[n] (+)= A[16 rows at a, 128 columns] B[64 rows at b, same columns]^T:
+// 16 x 64 scores over one column half (8 k-steps, 8 n-tiles)
+__device__ __forceinline__ void half_scores(float (&acc)[8][4], const __nv_bfloat16* a,
+                                            const __nv_bfloat16* b, int gid, int tig) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < 128; kk += 16) {
+    uint32_t af[4];
+    af[0] = ld32(a + gid * kLdB + kk + 2 * tig);
+    af[1] = ld32(a + (gid + 8) * kLdB + kk + 2 * tig);
+    af[2] = ld32(a + gid * kLdB + kk + 8 + 2 * tig);
+    af[3] = ld32(a + (gid + 8) * kLdB + kk + 8 + 2 * tig);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const __nv_bfloat16* br = b + (8 * n + gid) * kLdB + kk + 2 * tig;
+      mma_m16n8k16(acc[n], af, ld32(br), ld32(br + 8));
+    }
+  }
+}
+
+// acc[n] += F[16 x 64] M[64 rows, 128 columns at m]: F as four k-steps of
+// A fragments, M read down its rows
+__device__ __forceinline__ void half_update(float (&acc)[16][4], const uint32_t (&f)[4][4],
+                                            const __nv_bfloat16* m, int gid, int tig) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const __nv_bfloat16* col = m + (16 * j + 2 * tig) * kLdB + 8 * n + gid;
+      mma_m16n8k16(acc[n], f[j], ld_col2(col, kLdB), ld_col2(col + 8 * kLdB, kLdB));
+    }
+  }
+}
+
+// the partial tile of this warp (rows r16 .., fragment layout) to x
+__device__ __forceinline__ void put_partial(float* x, const float (&acc)[8][4], int r16,
+                                            int gid, int tig) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    *reinterpret_cast<float2*>(x + (r16 + gid) * kLdX + 8 * n + 2 * tig) =
+        make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(x + (r16 + gid + 8) * kLdX + 8 * n + 2 * tig) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// element e of n-tile n of rows r16 ..: half 0 plus half 1
+__device__ __forceinline__ float whole(const float* x0, const float* x1, int r16, int gid,
+                                       int tig, int n, int e) {
+  const int at = (r16 + gid + 8 * (e >> 1)) * kLdX + 8 * n + 2 * tig + (e & 1);
+  return x0[at] + x1[at];
+}
+
+template <bool kSoftcap>
+__device__ __forceinline__ void grad_score(const Args& p, float x, float dp, float lse2,
+                                           float delta, bool ok, float& pr, float& ds) {
+  if constexpr (kSoftcap) {
+    const float t = tanhf(x * p.scale / p.softcap);
+    pr = ok ? fast_exp2(p.softcap * t * kLog2e - lse2) : 0.f;
+    ds = pr * (dp - delta) * (p.scale * (1.f - t * t));
+  } else {
+    pr = ok ? fast_exp2(x * p.scale * kLog2e - lse2) : 0.f;
+    ds = pr * (dp - delta) * p.scale;
+  }
+}
+
+__device__ __forceinline__ bool inside(const Args& p, int qr, int kc) {
+  return qr < p.q_len && kc < p.kv_len && (!p.causal || kc <= qr) &&
+         (p.window <= 0 || qr - kc < p.window);
+}
+
+// each q row's lse log2(e) (+inf past q_len) and delta = rowsum(dO * O),
+// one warp a row
+__global__ void prep_kernel(const Args p) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  const int rows = p.batch * p.heads * p.q_pad;
+  if (warp >= rows) return;
+  const int r = warp % p.q_pad, bh = warp / p.q_pad;
+  const int b = bh / p.heads, h = bh % p.heads;
+  float acc = 0.f;
+  if (r < p.q_len) {
+    const uint4 dv = *reinterpret_cast<const uint4*>(p.dout + b * p.dos[0] + h * p.dos[1] +
+                                                     (long long)r * p.dos[2] + lane * 8);
+    const uint4 ov = *reinterpret_cast<const uint4*>(p.o + b * p.os[0] + h * p.os[1] +
+                                                     (long long)r * p.os[2] + lane * 8);
+    acc = dot8(dv, ov);
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (lane == 0) {
+    const long long at = (long long)bh * p.q_pad + r;
+    p.stats[at] = r < p.q_len ? p.lse[(long long)bh * p.q_len + r] * kLog2e : INFINITY;
+    p.stats[(long long)p.batch * p.heads * p.q_pad + at] = acc;
+  }
+}
+
+// dQ: a block per (64-row q tile, head, batch)
+template <bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16 *DOs = Qs + kTileB, *Ks = DOs + kTileB, *Vs = Ks + kTileB;
+  float* X = reinterpret_cast<float*>(Vs + kTileB);   // [half][S, dP]
+  float *lse2 = X + 4 * kTileX, *dlt = lse2 + kRows;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (p.heads / p.kv_heads);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r16 = 16 * (warp & 3), half = warp >> 2, c0 = 128 * half;
+  load_tile(Qs, p.q, p.qs, b, h, q0, p.q_len);
+  load_tile(DOs, p.dout, p.dos, b, h, q0, p.q_len);
+  if (threadIdx.x < kRows) {
+    const long long at = ((long long)b * p.heads + h) * p.q_pad + q0 + threadIdx.x;
+    lse2[threadIdx.x] = p.stats[at];
+    dlt[threadIdx.x] = p.stats[(long long)p.batch * p.heads * p.q_pad + at];
+  }
+  int kv_end = p.kv_len, kv_begin = 0;
+  if (p.causal) kv_end = min(kv_end, min(q0 + kRows, p.q_len));
+  if (p.window > 0) kv_begin = max(0, q0 - p.window + 1) / kRows * kRows;
+  float acc[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kRows) {
+    __syncthreads();
+    load_tile(Ks, p.k, p.ks, b, g, k0, p.kv_len);
+    load_tile(Vs, p.v, p.vs, b, g, k0, p.kv_len);
+    __syncthreads();
+    float part[8][4];
+    half_scores(part, Qs + r16 * kLdB + c0, Ks + c0, gid, tig);
+    put_partial(X + (2 * half) * kTileX, part, r16, gid, tig);
+    half_scores(part, DOs + r16 * kLdB + c0, Vs + c0, gid, tig);
+    put_partial(X + (2 * half + 1) * kTileX, part, r16, gid, tig);
+    __syncthreads();
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = r16 + gid + 8 * (e >> 1);
+        const int kc = k0 + 8 * n + 2 * tig + (e & 1);
+        float pr;
+        grad_score<kSoftcap>(p, whole(X, X + 2 * kTileX, r16, gid, tig, n, e),
+                             whole(X + kTileX, X + 3 * kTileX, r16, gid, tig, n, e),
+                             lse2[rr], dlt[rr], inside(p, q0 + rr, kc), pr, ds[e]);
+      }
+      sa[n / 2][(n % 2) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
+      sa[n / 2][(n % 2) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+    }
+    half_update(acc, sa, Ks + c0, gid, tig);
+  }
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = q0 + r16 + gid + 8 * hr;
+      if (r < p.q_len)
+        *reinterpret_cast<uint32_t*>(p.dq + b * p.dqs[0] + h * p.dqs[1] +
+                                     (long long)r * p.dqs[2] + c0 + 8 * n + 2 * tig) =
+            pack_bf16x2(acc[n][2 * hr], acc[n][2 * hr + 1]);
+    }
+}
+
+// dK and dV: a block per (64-row kv tile, kv head, batch), over the q heads
+// of its kv head in order
+template <bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16 *Vs = Ks + kTileB, *Qs = Vs + kTileB, *DOs = Qs + kTileB;
+  float* X = reinterpret_cast<float*>(DOs + kTileB);
+  float *lse2 = X + 4 * kTileX, *dlt = lse2 + kRows;
+  const int k0 = blockIdx.x * kRows, g = blockIdx.y, b = blockIdx.z;
+  const int rep = p.heads / p.kv_heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r16 = 16 * (warp & 3), half = warp >> 2, c0 = 128 * half;
+  load_tile(Ks, p.k, p.ks, b, g, k0, p.kv_len);
+  load_tile(Vs, p.v, p.vs, b, g, k0, p.kv_len);
+  int q_begin = 0, q_end = p.q_len;
+  if (p.causal) q_begin = k0 / kRows * kRows;
+  if (p.window > 0) q_end = min(q_end, k0 + kRows - 1 + p.window);
+  float dk[16][4], dv[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  for (int hh = 0; hh < rep; ++hh) {
+    const int h = g * rep + hh;
+    for (int q0 = q_begin; q0 < q_end; q0 += kRows) {
+      __syncthreads();
+      load_tile(Qs, p.q, p.qs, b, h, q0, p.q_len);
+      load_tile(DOs, p.dout, p.dos, b, h, q0, p.q_len);
+      if (threadIdx.x < kRows) {
+        const long long at = ((long long)b * p.heads + h) * p.q_pad + q0 + threadIdx.x;
+        lse2[threadIdx.x] = p.stats[at];
+        dlt[threadIdx.x] = p.stats[(long long)p.batch * p.heads * p.q_pad + at];
+      }
+      __syncthreads();
+      float part[8][4];
+      half_scores(part, Ks + r16 * kLdB + c0, Qs + c0, gid, tig);
+      put_partial(X + (2 * half) * kTileX, part, r16, gid, tig);
+      half_scores(part, Vs + r16 * kLdB + c0, DOs + c0, gid, tig);
+      put_partial(X + (2 * half + 1) * kTileX, part, r16, gid, tig);
+      __syncthreads();
+      // P^T and dS^T: element e of n-tile n is kv row r16 + gid + 8 (e >> 1),
+      // q row 8 n + 2 tig + (e & 1)
+      uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float pr[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = 8 * n + 2 * tig + (e & 1);
+          const int kc = k0 + r16 + gid + 8 * (e >> 1);
+          grad_score<kSoftcap>(p, whole(X, X + 2 * kTileX, r16, gid, tig, n, e),
+                               whole(X + kTileX, X + 3 * kTileX, r16, gid, tig, n, e),
+                               lse2[qr], dlt[qr], inside(p, q0 + qr, kc), pr[e], ds[e]);
+        }
+        pa[n / 2][(n % 2) * 2 + 0] = pack_bf16x2(pr[0], pr[1]);
+        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16x2(pr[2], pr[3]);
+        sa[n / 2][(n % 2) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
+        sa[n / 2][(n % 2) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+      }
+      half_update(dv, pa, DOs + c0, gid, tig);
+      half_update(dk, sa, Qs + c0, gid, tig);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = k0 + r16 + gid + 8 * hr;
+      if (r < p.kv_len) {
+        const int c = c0 + 8 * n + 2 * tig;
+        *reinterpret_cast<uint32_t*>(p.dk + b * p.dks[0] + g * p.dks[1] +
+                                     (long long)r * p.dks[2] + c) =
+            pack_bf16x2(dk[n][2 * hr], dk[n][2 * hr + 1]);
+        *reinterpret_cast<uint32_t*>(p.dv + b * p.dvs[0] + g * p.dvs[1] +
+                                     (long long)r * p.dvs[2] + c) =
+            pack_bf16x2(dv[n][2 * hr], dv[n][2 * hr + 1]);
+      }
+    }
+}
+
+template <bool kSoftcap>
+cudaError_t launch(const Args& p, cudaStream_t stream) {
+  static bool configured = false;   // once per process
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(dq_kernel<kSoftcap>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dkdv_kernel<kSoftcap>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int rows = p.batch * p.heads * p.q_pad;
+  prep_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<kSoftcap><<<dim3(p.q_pad / kRows, p.heads, p.batch), kThreads, kSmem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<kSoftcap><<<dim3((p.kv_len + kRows - 1) / kRows, p.kv_heads, p.batch),
+                          kThreads, kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd256
+
 namespace {
 
 int backward(const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -1219,10 +1587,33 @@ int backward(const void* q, const void* k, const void* v, const void* o, const v
              const long long* strides, int batch, int heads, int kv_heads, int q_len,
              int kv_len, int head_dim, float scale, float softcap, int causal, int window,
              void* stream, long long* record, long long record_blocks) {
-  if ((head_dim != 64 && head_dim != 112 && head_dim != 128) || batch < 1 || q_len < 1 ||
-      kv_len < 1 || kv_heads < 1 || heads % kv_heads)
+  if ((head_dim != 64 && head_dim != 112 && head_dim != 128 && head_dim != 256) ||
+      batch < 1 || q_len < 1 || kv_len < 1 || kv_heads < 1 || heads % kv_heads)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long* s = strides;
+  if (head_dim == 256) {        // mma.sync passes; no per-block record
+    if (record) return static_cast<int>(cudaErrorInvalidValue);
+    bwd256::Args a;
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k);
+    a.v = static_cast<const __nv_bfloat16*>(v);
+    a.o = static_cast<const __nv_bfloat16*>(o);
+    a.dout = static_cast<const __nv_bfloat16*>(dout);
+    a.lse = static_cast<const float*>(lse);
+    a.stats = static_cast<float*>(stats);
+    a.dq = static_cast<__nv_bfloat16*>(dq);
+    a.dk = static_cast<__nv_bfloat16*>(dk);
+    a.dv = static_cast<__nv_bfloat16*>(dv);
+    long long* dst[8] = {a.qs, a.ks, a.vs, a.os, a.dos, a.dqs, a.dks, a.dvs};
+    for (int t = 0; t < 8; ++t)
+      for (int i = 0; i < 3; ++i) dst[t][i] = s[3 * t + i];
+    a.batch = batch; a.heads = heads; a.kv_heads = kv_heads; a.q_len = q_len;
+    a.kv_len = kv_len; a.q_pad = (q_len + kBwdRows - 1) / kBwdRows * kBwdRows;
+    a.scale = scale; a.softcap = softcap; a.causal = causal; a.window = window;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(softcap > 0.f ? bwd256::launch<true>(a, st)
+                                          : bwd256::launch<false>(a, st));
+  }
   CUtensorMap qm, dom, km, vm, dqm;
   if (!make_map(&qm, q, batch, heads, q_len, head_dim, s[0], s[1], s[2], kBwdRows) ||
       !make_map(&km, k, batch, kv_heads, kv_len, head_dim, s[3], s[4], s[5], kBwdRows) ||
@@ -1270,8 +1661,9 @@ int backward(const void* q, const void* k, const void* v, const void* o, const v
 // those of q, k, v, o, dout, dq, dk, dv in that order, each a multiple of 8
 // elements and every base 16-byte aligned.  lse [B, H, Sq] fp32 from the
 // forward; stats fp32 scratch of 2 x B x H x Sq' elements (Sq' = Sq rounded
-// up to a multiple of 64), 16-byte aligned.  D in {64, 112, 128}.  Two
-// launches on `stream`; returns cudaGetLastError() after the last.
+// up to a multiple of 64), 16-byte aligned.  D in {64, 112, 128, 256}.
+// Two launches on `stream` (three at 256: the scratch's rows first);
+// returns cudaGetLastError() after the last.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* stats, void* dq, void* dk, void* dv, const long long* strides,
@@ -1285,7 +1677,8 @@ extern "C" int flash_attention_bwd(
 // rows of 4) each dK/dV block's two consumer warpgroups' q steps walked and
 // SM clock cycles taken.  Blocks are numbered (batch, kv head, pair) in
 // row-major order, B x G x P of them, P = ceil(Sk / 64) / 2 rounded up under
-// a causal mask, else ceil(Sk / 64); fewer rows is an invalid value.
+// a causal mask, else ceil(Sk / 64); fewer rows is an invalid value, and
+// so is head_dim 256, whose passes keep no record.
 extern "C" int flash_attention_bwd_record(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* stats, void* dq, void* dk, void* dv, const long long* strides,

@@ -68,6 +68,7 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tile64.cuh"
 
 namespace {
 
@@ -394,6 +395,342 @@ extern "C" int mamba2_scan(const void* x, const void* dt, const void* a,
   // two heads of one group per block where a group's heads pair up
   if (heads_per_group % 2 == 0) return static_cast<int>(launch<2>(p, rows, s));
   return static_cast<int>(launch<1>(p, rows, s));
+}
+
+// ---------------------------------------------------------------------------
+// The backward: mamba2_scan_bwd.
+//
+// The TPU kernel has no backward: the reference differentiates its jnp twin
+// (mamba2_chunked_jnp) with JAX.  This kernel computes the same gradients,
+// given dy and an optional gradient of the final state, chunk by chunk in
+// reverse.  Per chunk (Q = 64 steps, cum the inclusive cumsum of dt a, h0
+// the state at the chunk's start, g the gradient of the state at its end;
+// for j <= i, zero above: L_ij = exp(cum_i - cum_j), CBL_ij = (C_i . B_j)
+// L_ij, dML_ij = (dy_i . x_j) L_ij, P_ij = dML_ij (C_i . B_j)):
+//
+//   dx_j  = dt_j sum_i CBL_ij dy_i + D dy_j + w_j g^T B_j,   w_j = exp(cum_Q - cum_j) dt_j
+//   dC_i  = sum_j dML_ij dt_j B_j + exp(cum_i) h0 dy_i
+//   dB_j  = dt_j sum_i dML_ij C_i + w_j g x_j
+//   dcum_i = sum_j P_ij dt_j - dt_i sum_k P_ki + exp(cum_i) C_i . (h0 dy_i)
+//            - dt_i exp(cum_Q - cum_i) B_i^T g x_i  (+ <g, h_end> at i = Q - 1)
+//   ddt_i = sum_k P_ki + exp(cum_Q - cum_i) B_i^T g x_i + a R_i,   da += sum_i dt_i R_i
+//   g    <- exp(cum_Q) g + sum_i exp(cum_i) C_i dy_i^T
+//
+// with R the reverse cumsum of dcum inside the chunk (cum = a cumsum(dt)).
+// Every exponent is <= 0.  dD = sum dy . x.  B and C are read by group; dB
+// and dC leave as per-row fp32 partials [BH, S, ds], which the wrapper sums
+// over a group's rows in a fixed order (no float atomics).
+//
+// States: a first forward walk writes each chunk's starting state and the
+// final state into an fp32 scratch [BH, nc + 1, ds, dh] (recomputed rather
+// than saved by the forward: 58.7 MB at Zamba2's [448, 512, 64], which
+// training would hold from each layer's forward to its backward, 1.4 GB
+// over 24 layers; recomputing costs one state update per chunk, a ninth of
+// the backward's products, and the scratch lives only during the call).
+//
+// What bounds it on an H100: bytes, at Zamba2's shape about 91 MB read and
+// written (0.027 ms at 3.35 TB/s; the scratch adds 2 x 66 MB through L2)
+// against about 19 GFLOP of fp32 products.  This first version is plain
+// fp32 FMA: one block of 256 threads a row (Zamba2: 448 blocks), every
+// operand in shared memory as 64 x 64 fp32 tiles (tile64.cuh), each thread
+// a 4 x 4 register tile of each product; the rows' chains are serial, the
+// products run at the shared-memory load rate.  Making it fast (the
+// tensor-core products of the forward) is later work.
+namespace bwd {
+
+using tile64::block_sum;
+using tile64::col0;
+using tile64::kLd;
+using tile64::kQ;
+using tile64::kThreads;
+using tile64::kTile;
+using tile64::load;
+using tile64::product;
+using tile64::row0;
+using tile64::store;
+using tile64::zero;
+
+struct BwdParams {
+  const __nv_bfloat16 *x, *b, *c, *dy;
+  const float *dt, *a, *d, *dh_final;   // dh_final: null = zero
+  __nv_bfloat16* dx;
+  float *ddt, *da, *dd, *db, *dc, *states;
+  int seq, dh, ds, heads_per_group, chunks;
+};
+
+// shared memory: 9 fp32 tiles, then vectors of kQ floats, then kThreads
+constexpr int kTiles = 9;
+constexpr int kVecs = 10;
+constexpr int kSmem = (kTiles * kTile + kVecs * kQ + kThreads) * 4;
+
+__global__ void __launch_bounds__(kThreads, 1) mamba2_bwd_kernel(const BwdParams p) {
+  extern __shared__ float sm[];
+  float *X = sm, *DY = X + kTile, *Bt = DY + kTile, *Ct = Bt + kTile;
+  float *H0 = Ct + kTile, *G = H0 + kTile;
+  float *M1 = G + kTile, *M2 = M1 + kTile, *M3 = M2 + kTile;
+  float *dtv = M3 + kTile, *cum = dtv + kQ, *ecum = cum + kQ, *tail = ecum + kQ;
+  float *rowp = tail + kQ, *colp = rowp + kQ, *qv = colp + kQ, *czv = qv + kQ;
+  float *dcum = czv + kQ, *misc = dcum + kQ, *red = misc + kQ;
+
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int ti = row0(), tj = col0();
+  const int group = row / p.heads_per_group;
+  const long long xrow = (long long)row * p.seq;     // x, dy, dt, db, dc rows
+  const long long grow = (long long)group * p.seq;   // b, c rows
+  const float a = p.a[row], dskip = p.d[row];
+  const long long state_elems = (long long)p.ds * p.dh;
+  float* states = p.states + (long long)row * (p.chunks + 1) * state_elems;
+
+  // the chunk's dt and inclusive cumsum of dt a (one thread, in order)
+  auto chunk_scalars = [&](int base, int steps) {
+    if (tid < kQ) dtv[tid] = tid < steps ? p.dt[xrow + base + tid] : 0.f;
+    __syncthreads();
+    if (tid == 0) {
+      float run = 0.f;
+      for (int i = 0; i < kQ; ++i) {
+        run += dtv[i] * a;
+        cum[i] = run;
+      }
+    }
+    __syncthreads();
+  };
+
+  // --- the forward walk: each chunk's starting state, then the final one
+  for (int e = tid; e < kTile; e += kThreads) G[e] = 0.f;
+  for (int ci = 0; ci < p.chunks; ++ci) {
+    const int base = ci * kQ, steps = min(kQ, p.seq - base);
+    __syncthreads();
+    store(states + ci * state_elems, G, p.ds, p.dh);
+    load(X, p.x + (xrow + base) * p.dh, steps, p.dh);
+    load(Bt, p.b + (grow + base) * p.ds, steps, p.ds);
+    chunk_scalars(base, steps);
+    const float total = cum[kQ - 1];
+    if (tid < kQ) tail[tid] = __expf(total - cum[tid]) * dtv[tid];   // w_j
+    __syncthreads();
+    float acc[4][4];
+    const float decay = __expf(total);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[m][n] = decay * G[(ti + 16 * m) * kLd + tj + 16 * n];
+    product(acc, [&](int s, int j) { return Bt[j * kLd + s] * tail[j]; },
+            [&](int q, int j) { return X[j * kLd + q]; });
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) G[(ti + 16 * m) * kLd + tj + 16 * n] = acc[m][n];
+  }
+  __syncthreads();
+  store(states + p.chunks * state_elems, G, p.ds, p.dh);
+
+  // --- the reverse walk; G is now the gradient of the state
+  if (p.dh_final)
+    load(G, p.dh_final + (long long)row * state_elems, p.ds, p.dh);
+  else
+    for (int e = tid; e < kTile; e += kThreads) G[e] = 0.f;
+  float dd_part = 0.f, da_run = 0.f;
+  for (int ci = p.chunks - 1; ci >= 0; --ci) {
+    const int base = ci * kQ, steps = min(kQ, p.seq - base);
+    __syncthreads();
+    load(X, p.x + (xrow + base) * p.dh, steps, p.dh);
+    load(DY, p.dy + (xrow + base) * p.dh, steps, p.dh);
+    load(Bt, p.b + (grow + base) * p.ds, steps, p.ds);
+    load(Ct, p.c + (grow + base) * p.ds, steps, p.ds);
+    load(H0, states + ci * state_elems, p.ds, p.dh);
+    // <g, h_end>: the gradient of the chunk's total log-decay
+    const float* hend = states + (ci + 1) * state_elems;
+    float part = 0.f;
+    for (int e = tid; e < p.ds * p.dh; e += kThreads)
+      part += G[(e / p.dh) * kLd + e % p.dh] * hend[e];
+    const float g_hend = block_sum(part, red);
+    chunk_scalars(base, steps);
+    const float total = cum[kQ - 1];
+    if (tid < kQ) {
+      ecum[tid] = __expf(cum[tid]);
+      tail[tid] = __expf(total - cum[tid]);
+    }
+    // M1 = C B^T on and below the diagonal
+    float acc[4][4];
+    zero(acc);
+    product(acc, [&](int i, int s) { return Ct[i * kLd + s]; },
+            [&](int j, int s) { return Bt[j * kLd + s]; });
+    float cbv[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) cbv[m][n] = acc[m][n];
+    // dm = dy x^T; M1 = CBL, M2 = dML, M3 = P
+    zero(acc);
+    product(acc, [&](int i, int q) { return DY[i * kLd + q]; },
+            [&](int j, int q) { return X[j * kLd + q]; });
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = ti + 16 * m, j = tj + 16 * n;
+        const float l = j <= i ? __expf(cum[i] - cum[j]) : 0.f;
+        M1[i * kLd + j] = cbv[m][n] * l;
+        M2[i * kLd + j] = acc[m][n] * l;
+        M3[i * kLd + j] = acc[m][n] * l * cbv[m][n];
+      }
+    __syncthreads();
+    if (tid < kQ) {                       // sum_j P_ij dt_j
+      float s = 0.f;
+      for (int j = 0; j < kQ; ++j) s = fmaf(M3[tid * kLd + j], dtv[j], s);
+      rowp[tid] = s;
+    } else if (tid < 2 * kQ) {            // sum_i P_ij
+      const int j = tid - kQ;
+      float s = 0.f;
+      for (int i = 0; i < kQ; ++i) s += M3[i * kLd + j];
+      colp[j] = s;
+    }
+    // dx_j = dt_j sum_i CBL_ij dy_i + D dy_j + w_j g^T B_j
+    float gb[4][4];
+    zero(acc);
+    zero(gb);
+    product(acc, [&](int j, int i) { return M1[i * kLd + j]; },
+            [&](int q, int i) { return DY[i * kLd + q]; });
+    product(gb, [&](int j, int s) { return Bt[j * kLd + s]; },
+            [&](int q, int s) { return G[s * kLd + q]; });
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int j = ti + 16 * m, q = tj + 16 * n;
+        const float v = dtv[j] * (acc[m][n] + tail[j] * gb[m][n]) + dskip * DY[j * kLd + q];
+        if (j < steps && q < p.dh)
+          p.dx[(xrow + base + j) * p.dh + q] = __float2bfloat16(v);
+        dd_part = fmaf(DY[j * kLd + q], X[j * kLd + q], dd_part);
+      }
+    __syncthreads();                      // M1 and M3 are free
+    // dB_j = dt_j sum_i dML_ij C_i + w_j g x_j; M1 = B_j . g x_j terms
+    float gx[4][4];
+    zero(acc);
+    zero(gx);
+    product(acc, [&](int j, int i) { return M2[i * kLd + j]; },
+            [&](int s, int i) { return Ct[i * kLd + s]; });
+    product(gx, [&](int j, int q) { return X[j * kLd + q]; },
+            [&](int s, int q) { return G[s * kLd + q]; });
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int j = ti + 16 * m, s = tj + 16 * n;
+        const float v = dtv[j] * (acc[m][n] + tail[j] * gx[m][n]);
+        if (j < steps && s < p.ds) p.db[(xrow + base + j) * p.ds + s] = v;
+        M1[j * kLd + s] = Bt[j * kLd + s] * gx[m][n];
+      }
+    // dC_i = sum_j dML_ij dt_j B_j + exp(cum_i) h0 dy_i; M3 = C_i . h0 dy_i terms
+    float z[4][4];
+    zero(acc);
+    zero(z);
+    product(acc, [&](int i, int j) { return M2[i * kLd + j] * dtv[j]; },
+            [&](int s, int j) { return Bt[j * kLd + s]; });
+    product(z, [&](int i, int q) { return DY[i * kLd + q]; },
+            [&](int s, int q) { return H0[s * kLd + q]; });
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = ti + 16 * m, s = tj + 16 * n;
+        const float v = acc[m][n] + ecum[i] * z[m][n];
+        if (i < steps && s < p.ds) p.dc[(xrow + base + i) * p.ds + s] = v;
+        M3[i * kLd + s] = Ct[i * kLd + s] * z[m][n];
+      }
+    __syncthreads();
+    if (tid < kQ) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int s = 0; s < kQ; ++s) {
+        s1 += M1[tid * kLd + s];
+        s2 += M3[tid * kLd + s];
+      }
+      qv[tid] = s1;
+      czv[tid] = s2;
+    }
+    __syncthreads();
+    if (tid < kQ) {
+      const int i = tid;
+      dcum[i] = rowp[i] - dtv[i] * colp[i] + ecum[i] * czv[i] - dtv[i] * tail[i] * qv[i] +
+                (i == kQ - 1 ? g_hend : 0.f);
+    }
+    __syncthreads();
+    if (tid == 0) {                       // the reverse cumsum, in order
+      float rev = 0.f;
+      for (int i = kQ - 1; i >= 0; --i) {
+        rev += dcum[i];
+        misc[i] = rev;
+        da_run = fmaf(dtv[i], rev, da_run);
+      }
+    }
+    __syncthreads();
+    if (tid < steps)
+      p.ddt[xrow + base + tid] = colp[tid] + tail[tid] * qv[tid] + a * misc[tid];
+    // g <- exp(cum_Q) g + sum_i exp(cum_i) C_i dy_i^T
+    const float decay = __expf(total);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[m][n] = decay * G[(ti + 16 * m) * kLd + tj + 16 * n];
+    product(acc, [&](int s, int i) { return Ct[i * kLd + s] * ecum[i]; },
+            [&](int q, int i) { return DY[i * kLd + q]; });
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) G[(ti + 16 * m) * kLd + tj + 16 * n] = acc[m][n];
+  }
+  const float dd = block_sum(dd_part, red);
+  if (tid == 0) {
+    p.dd[row] = dd;
+    p.da[row] = da_run;
+  }
+}
+
+}  // namespace bwd
+
+// The backward of mamba2_scan.  Inputs as mamba2_scan's, plus dy [BH, S,
+// dh] bf16 and dh_final [BH, ds, dh] f32 (null: zero).  Writes dx [BH, S,
+// dh] bf16, ddt [BH, S], da and dd [BH], and per-row dB and dC partials
+// [BH, S, ds], all f32; states is f32 scratch of BH x (ceil(S / 64) + 1) x
+// ds x dh.  Launches on `stream`; returns cudaGetLastError() after the
+// launch.
+extern "C" int mamba2_scan_bwd(const void* x, const void* dt, const void* a,
+                               const void* b, const void* c, const void* d,
+                               const void* dy, const void* dh_final, void* dx,
+                               void* ddt, void* da, void* dd, void* db, void* dc,
+                               void* states, int rows, int seq, int dh, int ds,
+                               int heads_per_group, void* stream) {
+  if (dh < 8 || dh > kMaxD || dh % 8 || ds < 8 || ds > kMaxD || ds % 8 ||
+      heads_per_group < 1 || seq < 1 || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;   // once per process
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        bwd::mamba2_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  bwd::BwdParams p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.b = static_cast<const __nv_bfloat16*>(b);
+  p.c = static_cast<const __nv_bfloat16*>(c);
+  p.dy = static_cast<const __nv_bfloat16*>(dy);
+  p.dt = static_cast<const float*>(dt);
+  p.a = static_cast<const float*>(a);
+  p.d = static_cast<const float*>(d);
+  p.dh_final = static_cast<const float*>(dh_final);
+  p.dx = static_cast<__nv_bfloat16*>(dx);
+  p.ddt = static_cast<float*>(ddt);
+  p.da = static_cast<float*>(da);
+  p.dd = static_cast<float*>(dd);
+  p.db = static_cast<float*>(db);
+  p.dc = static_cast<float*>(dc);
+  p.states = static_cast<float*>(states);
+  p.seq = seq; p.dh = dh; p.ds = ds; p.heads_per_group = heads_per_group;
+  p.chunks = (seq + bwd::kQ - 1) / bwd::kQ;
+  bwd::mamba2_bwd_kernel<<<rows, bwd::kThreads, bwd::kSmem,
+                           static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* error_string(int code) {

@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tile64.cuh"
 
 namespace {
 
@@ -546,6 +547,378 @@ extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
   p.s_out = static_cast<float*>(s_out);
   p.seq = seq; p.dk = dk; p.dv = dv;
   rwkv6_scan_kernel<<<rows, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The backward: rwkv6_scan_bwd.
+//
+// The TPU kernel has no backward: the reference differentiates its jnp twin
+// (rwkv6_chunked_jnp) with JAX.  This kernel computes the same gradients,
+// given dy and an optional gradient of the final state, chunk by chunk in
+// reverse.  Per chunk (Q = 64 steps; cum the inclusive cumsum of logw, cp
+// the exclusive one, i.e. cum of the step before; S0 the state at the
+// chunk's start, G the gradient of the state at its end; E_ijc =
+// exp(cp_ic - cum_jc) for j < i, zero elsewhere):
+//
+//   A_ij  = sum_c r_ic k_jc E_ijc,        dA_ij = dy_i . v_j   (j < i)
+//   drs_i = sum_j E_ij k_j dA_ij + exp(cp_i) (S0 dy_i)           = S_{i-1} dy_i
+//   dks_j = sum_i E_ij r_i dA_ij + exp(cum_Q - cum_j) (G v_j)    = G_j v_j
+//   dr = drs + u k (v . dy),  dk = dks + u r (v . dy),  du = sum_i r_i k_i (v_i . dy_i)
+//   dv_j  = sum_i A_ij dy_i + (r_j . u k_j) dy_j + G^T (k_j exp(cum_Q - cum_j))
+//   G    <- exp(cum_Q) G + sum_i (r_i exp(cp_i)) dy_i^T
+//
+// The log-decays.  Per step, dlogw_t = w_t (S_{t-1} . G_t) summed over dv,
+// with G_t the gradient of S_t: one state product per step, or, chunked,
+// exponents of both signs.  With Phi_t = S_t . G_t (summed over dv), S_t =
+// w_t S_{t-1} + k_t v_t^T and G_{t-1} = w_t G_t + r_t dy_t^T give
+//
+//   Phi_t = dlogw_t + k_t dks_t,   Phi_{t-1} = dlogw_t + r_t drs_t
+//
+// so dlogw_t = F + sum_{m>t} r_m drs_m - sum_{m>=t} k_m dks_m, F = S_final
+// . dstate: a reverse running sum, per channel, of terms the walk already
+// has (the route of GLA-style scans).  No exponent enters it; the E above
+// and the tails exp(cum_Q - cum_j), exp(cp_i), exp(cum_Q) are all <= 1.
+// Where a chunk's log-decays sum below -88 they underflow to zero, as the
+// per-step recurrence's products do, and every gradient stays finite (the
+// reference twin's k exp(-cum) factor overflows there).
+//
+// States: a first forward walk writes each chunk's starting state and the
+// final one into an fp32 scratch [BH, nc + 1, dk, dv] (33.6 MB at
+// RWKV6-7B's [256, 512, 64]); recomputed rather than saved by the forward
+// so that training holds nothing from a layer's forward to its backward.
+//
+// What bounds it on an H100: bytes, at RWKV6-7B's shape about 185 MB read
+// and written (0.055 ms at 3.35 TB/s; the scratch adds 2 x 34 MB through
+// L2) against about 6 GFLOP and 0.4 G exponentials.  This first version is
+// plain fp32 FMA: one block of 256 threads a row, every operand in shared
+// memory as 64 x 64 fp32 tiles (tile64.cuh), each thread a 4 x 4 register
+// tile of each product, E computed where it is used (three uses, one exp
+// each: it would take 1 MB a chunk to keep).  Making it fast is later work.
+namespace bwd {
+
+using tile64::col0;
+using tile64::kLd;
+using tile64::kQ;
+using tile64::kThreads;
+using tile64::kTile;
+using tile64::load;
+using tile64::product;
+using tile64::row0;
+using tile64::store;
+using tile64::zero;
+
+struct BwdParams {
+  const __nv_bfloat16 *r, *k, *v, *dy;
+  const float *logw, *u, *dstate;   // dstate: null = zero
+  __nv_bfloat16 *dr, *dk, *dv;
+  float *dlogw, *du, *states;
+  int seq, dkd, dvd, chunks;
+};
+
+constexpr int kTiles = 9;
+constexpr int kVecs = 5;
+constexpr int kSmem = (kTiles * kTile + kVecs * kQ) * 4;
+
+__global__ void __launch_bounds__(kThreads, 1) rwkv6_bwd_kernel(const BwdParams p) {
+  extern __shared__ float sm[];
+  float *R = sm, *K = R + kTile, *V = K + kTile, *DY = V + kTile, *CUM = DY + kTile;
+  float *S0 = CUM + kTile, *G = S0 + kTile, *A = G + kTile, *DA = A + kTile;
+  float *uv = DA + kTile, *acc_c = uv + kQ, *du_c = acc_c + kQ, *bdot = du_c + kQ;
+  float *bonus = bdot + kQ;
+
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int ti = row0(), tj = col0();
+  const long long base_row = (long long)row * p.seq;
+  const long long state_elems = (long long)p.dkd * p.dvd;
+  float* states = p.states + (long long)row * (p.chunks + 1) * state_elems;
+  if (tid < kQ) {
+    uv[tid] = tid < p.dkd ? p.u[(long long)row * p.dkd + tid] : 0.f;
+    du_c[tid] = 0.f;
+  }
+
+  // the chunk's log-decays as their inclusive cumsum per channel (thread c
+  // walks channel c in order); steps past S load as logw = 0
+  auto chunk_cumsum = [&](int base, int steps) {
+    load(CUM, p.logw + (base_row + base) * p.dkd, steps, p.dkd);
+    __syncthreads();
+    if (tid < kQ) {
+      float run = 0.f;
+      for (int i = 0; i < kQ; ++i) {
+        run += CUM[i * kLd + tid];
+        CUM[i * kLd + tid] = run;
+      }
+    }
+    __syncthreads();
+  };
+  auto cp = [&](int i, int c) { return i > 0 ? CUM[(i - 1) * kLd + c] : 0.f; };
+
+  // --- the forward walk: each chunk's starting state, then the final one
+  for (int e = tid; e < kTile; e += kThreads) G[e] = 0.f;
+  for (int ci = 0; ci < p.chunks; ++ci) {
+    const int base = ci * kQ, steps = min(kQ, p.seq - base);
+    __syncthreads();
+    store(states + ci * state_elems, G, p.dkd, p.dvd);
+    load(K, p.k + (base_row + base) * p.dkd, steps, p.dkd);
+    load(V, p.v + (base_row + base) * p.dvd, steps, p.dvd);
+    chunk_cumsum(base, steps);
+    float acc[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = ti + 16 * m;
+        acc[m][n] = __expf(CUM[(kQ - 1) * kLd + c]) * G[c * kLd + tj + 16 * n];
+      }
+    product(acc,
+            [&](int c, int j) {
+              return K[j * kLd + c] * __expf(CUM[(kQ - 1) * kLd + c] - CUM[j * kLd + c]);
+            },
+            [&](int q, int j) { return V[j * kLd + q]; });
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) G[(ti + 16 * m) * kLd + tj + 16 * n] = acc[m][n];
+  }
+  __syncthreads();
+  store(states + p.chunks * state_elems, G, p.dkd, p.dvd);
+  __syncthreads();
+
+  // F = S_final . dstate per channel starts the running sum of dlogw; G is
+  // now the gradient of the state
+  if (p.dstate) {
+    const float* dst = p.dstate + (long long)row * state_elems;
+    if (tid < kQ) {
+      float f = 0.f;
+      for (int q = 0; q < p.dvd && tid < p.dkd; ++q)
+        f = fmaf(G[tid * kLd + q], dst[tid * p.dvd + q], f);
+      acc_c[tid] = f;
+    }
+    __syncthreads();
+    load(G, dst, p.dkd, p.dvd);
+  } else {
+    if (tid < kQ) acc_c[tid] = 0.f;
+    for (int e = tid; e < kTile; e += kThreads) G[e] = 0.f;
+  }
+  for (int ci = p.chunks - 1; ci >= 0; --ci) {
+    const int base = ci * kQ, steps = min(kQ, p.seq - base);
+    __syncthreads();
+    load(R, p.r + (base_row + base) * p.dkd, steps, p.dkd);
+    load(K, p.k + (base_row + base) * p.dkd, steps, p.dkd);
+    load(V, p.v + (base_row + base) * p.dvd, steps, p.dvd);
+    load(DY, p.dy + (base_row + base) * p.dvd, steps, p.dvd);
+    load(S0, states + ci * state_elems, p.dkd, p.dvd);
+    chunk_cumsum(base, steps);
+    if (tid < kQ) {                      // v_i . dy_i and r_i . u k_i
+      float s1 = 0.f, s2 = 0.f;
+      for (int q = 0; q < kQ; ++q) s1 = fmaf(V[tid * kLd + q], DY[tid * kLd + q], s1);
+      for (int c = 0; c < kQ; ++c) s2 = fmaf(R[tid * kLd + c] * uv[c], K[tid * kLd + c], s2);
+      bdot[tid] = s1;
+      bonus[tid] = s2;
+    }
+    // A and dA, strictly below the diagonal
+    float acc[4][4];
+    zero(acc);
+#pragma unroll 2
+    for (int c = 0; c < kQ; ++c) {
+      float rv[4], cpv[4], kv[4], cv[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        rv[m] = R[(ti + 16 * m) * kLd + c];
+        cpv[m] = cp(ti + 16 * m, c);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        kv[n] = K[(tj + 16 * n) * kLd + c];
+        cv[n] = CUM[(tj + 16 * n) * kLd + c];
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const bool low = tj + 16 * n < ti + 16 * m;
+          const float e = low ? __expf(cpv[m] - cv[n]) : 0.f;
+          acc[m][n] = fmaf(rv[m] * kv[n], e, acc[m][n]);
+        }
+    }
+    float dav[4][4];
+    zero(dav);
+    product(dav, [&](int i, int q) { return DY[i * kLd + q]; },
+            [&](int j, int q) { return V[j * kLd + q]; });
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = ti + 16 * m, j = tj + 16 * n;
+        A[i * kLd + j] = acc[m][n];
+        DA[i * kLd + j] = j < i ? dav[m][n] : 0.f;
+      }
+    __syncthreads();
+    // drs (rows i, channels c) and dks (rows j, channels c)
+    float drs[4][4], dks[4][4];
+    zero(drs);
+    zero(dks);
+    {
+      float cpi[4][4], cj[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          cpi[m][n] = cp(ti + 16 * m, tj + 16 * n);
+          cj[m][n] = CUM[(ti + 16 * m) * kLd + tj + 16 * n];
+        }
+#pragma unroll 2
+      for (int t = 0; t < kQ; ++t) {
+        // drs: t is j (< i); dks: t is i (> j)
+        float da_it[4], da_ti[4], kt[4], rt[4], ct[4], cpt[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          da_it[m] = DA[(ti + 16 * m) * kLd + t];
+          da_ti[m] = DA[t * kLd + ti + 16 * m];
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int c = tj + 16 * n;
+          kt[n] = K[t * kLd + c];
+          rt[n] = R[t * kLd + c];
+          ct[n] = CUM[t * kLd + c];
+          cpt[n] = cp(t, c);
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int i = ti + 16 * m;
+            const float e1 = t < i ? __expf(cpi[m][n] - ct[n]) : 0.f;
+            const float e2 = t > i ? __expf(cpt[n] - cj[m][n]) : 0.f;
+            drs[m][n] = fmaf(e1 * kt[n], da_it[m], drs[m][n]);
+            dks[m][n] = fmaf(e2 * rt[n], da_ti[m], dks[m][n]);
+          }
+      }
+      float s0dy[4][4], gv[4][4];
+      zero(s0dy);
+      zero(gv);
+      product(s0dy, [&](int i, int q) { return DY[i * kLd + q]; },
+              [&](int c, int q) { return S0[c * kLd + q]; });
+      product(gv, [&](int j, int q) { return V[j * kLd + q]; },
+              [&](int c, int q) { return G[c * kLd + q]; });
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int c = tj + 16 * n;
+          drs[m][n] = fmaf(__expf(cpi[m][n]), s0dy[m][n], drs[m][n]);
+          dks[m][n] = fmaf(__expf(CUM[(kQ - 1) * kLd + c] - cj[m][n]), gv[m][n], dks[m][n]);
+        }
+    }
+    __syncthreads();                     // S0 and DA are free
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = ti + 16 * m, c = tj + 16 * n;
+        const float rr = R[i * kLd + c], kk = K[i * kLd + c];
+        S0[i * kLd + c] = rr * drs[m][n];
+        DA[i * kLd + c] = kk * dks[m][n];
+        if (i < steps && c < p.dkd) {
+          const long long at = (base_row + base + i) * p.dkd + c;
+          p.dr[at] = __float2bfloat16(fmaf(uv[c] * kk, bdot[i], drs[m][n]));
+          p.dk[at] = __float2bfloat16(fmaf(uv[c] * rr, bdot[i], dks[m][n]));
+        }
+      }
+    __syncthreads();
+    if (tid < kQ) {                      // dlogw and du of channel tid, in order
+      const int c = tid;
+      float run = acc_c[c], dus = 0.f;
+      for (int i = kQ - 1; i >= 0; --i) {
+        run -= DA[i * kLd + c];
+        if (i < steps && c < p.dkd) p.dlogw[(base_row + base + i) * p.dkd + c] = run;
+        run += S0[i * kLd + c];
+        dus = fmaf(R[i * kLd + c] * K[i * kLd + c], bdot[i], dus);
+      }
+      acc_c[c] = run;
+      du_c[c] += dus;
+    }
+    // dv_j = sum_i A_ij dy_i + bonus_j dy_j + G^T (k_j exp(cum_Q - cum_j))
+    zero(acc);
+    product(acc, [&](int j, int i) { return A[i * kLd + j]; },
+            [&](int q, int i) { return DY[i * kLd + q]; });
+    product(acc,
+            [&](int j, int c) {
+              return K[j * kLd + c] * __expf(CUM[(kQ - 1) * kLd + c] - CUM[j * kLd + c]);
+            },
+            [&](int q, int c) { return G[c * kLd + q]; });
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int j = ti + 16 * m, q = tj + 16 * n;
+        if (j < steps && q < p.dvd)
+          p.dv[(base_row + base + j) * p.dvd + q] =
+              __float2bfloat16(fmaf(bonus[j], DY[j * kLd + q], acc[m][n]));
+      }
+    __syncthreads();                     // every read of G is done
+    // G <- exp(cum_Q) G + sum_i (r_i exp(cp_i)) dy_i^T
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = ti + 16 * m;
+        acc[m][n] = __expf(CUM[(kQ - 1) * kLd + c]) * G[c * kLd + tj + 16 * n];
+      }
+    product(acc, [&](int c, int i) { return R[i * kLd + c] * __expf(cp(i, c)); },
+            [&](int q, int i) { return DY[i * kLd + q]; });
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) G[(ti + 16 * m) * kLd + tj + 16 * n] = acc[m][n];
+  }
+  __syncthreads();
+  if (tid < p.dkd) p.du[(long long)row * p.dkd + tid] = du_c[tid];
+}
+
+}  // namespace bwd
+
+// The backward of rwkv6_scan.  Inputs as rwkv6_scan's, plus dy [BH, S, dv]
+// bf16 and dstate [BH, dk, dv] f32 (null: zero).  Writes dr, dk [BH, S,
+// dk] and dv [BH, S, dv] bf16, dlogw [BH, S, dk] and du [BH, dk] f32;
+// states is f32 scratch of BH x (ceil(S / 64) + 1) x dk x dv.  Launches on
+// `stream`; returns cudaGetLastError() after the launch.
+extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v,
+                              const void* logw, const void* u, const void* dy,
+                              const void* dstate, void* dr, void* dk, void* dv,
+                              void* dlogw, void* du, void* states, int rows, int seq,
+                              int dkd, int dvd, void* stream) {
+  if (dkd < 8 || dkd > kMaxD || dkd % 8 || dvd < 8 || dvd > kMaxD || dvd % 8 || seq < 1 ||
+      rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;   // once per process
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        bwd::rwkv6_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  bwd::BwdParams p;
+  p.r = static_cast<const __nv_bfloat16*>(r);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.dy = static_cast<const __nv_bfloat16*>(dy);
+  p.logw = static_cast<const float*>(logw);
+  p.u = static_cast<const float*>(u);
+  p.dstate = static_cast<const float*>(dstate);
+  p.dr = static_cast<__nv_bfloat16*>(dr);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dlogw = static_cast<float*>(dlogw);
+  p.du = static_cast<float*>(du);
+  p.states = static_cast<float*>(states);
+  p.seq = seq; p.dkd = dkd; p.dvd = dvd;
+  p.chunks = (seq + bwd::kQ - 1) / bwd::kQ;
+  bwd::rwkv6_bwd_kernel<<<rows, bwd::kThreads, bwd::kSmem,
+                          static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,14 +43,20 @@ Head_dim 256 (Gemma2): K and V come in 64-row tiles (``kv_rows`` in the
 source), since 128-row tiles in two stages beside Q would need 320 KB of
 shared memory and a 64 x 128 score tile beside the 128 fp32 accumulators
 a thread would not fit its 240 registers; O += P V is one
-``wgmma.m64n256k16`` a k-step.  The forward only: a gradient at head_dim
-256 on the card raises ``NotImplementedError`` before the forward runs.
+``wgmma.m64n256k16`` a k-step.  Its backward (``bwd256`` in the source)
+splits the 256 columns between warps: a block of 8 warps owns 64 rows,
+each warp 16 rows and one 128-column half of the gradients, so dK and dV
+of a warp take 128 fp32 registers a thread; the scores' two halves are
+summed through shared memory (split-K), about 197 KB of it.  Its products
+are ``mma.sync`` with plain loads, a first version that is right rather
+than fast; a first kernel writes the rows' lse and delta, then a dQ pass
+and a dK/dV pass, no atomics.
 
 For tensors on the CPU each wrapper runs its plain version (dense fp32
 attention, :func:`repro_torch.kernels.ref.attention_ref`, over repeated kv
 heads; :func:`~repro_torch.kernels.ref.attention_bwd_ref` for the
 gradient) at any head_dim; for CUDA tensors it launches the kernel (bf16,
-head_dim 64, 112, 128 or 256; the backward 64, 112 or 128), or raises.
+head_dim 64, 112, 128 or 256), or raises.
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
 kernel launches.
 """
@@ -66,8 +72,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attention_ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (64, 112, 128, 256)
-BWD_HEAD_DIMS = (64, 112, 128)   # the backward kernel's
+HEAD_DIMS = (64, 112, 128, 256)   # the forward's and the backward's
 BWD_ROWS = 64   # rows of the backward's tiles and steps (kBwdRows)
 
 
@@ -119,11 +124,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = (causal, window, softcap, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.device.type == "cuda" and q.shape[-1] not in BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"flash_attention: no backward kernel at head_dim "
-                f"{q.shape[-1]} (it takes {BWD_HEAD_DIMS}); the attention "
-                f"backward at head_dim 256 is ROADMAP.md queue 2")
         return _Attention.apply(q, k, v, mask)
     return _forward(q, k, v, mask, with_lse=False)[0]
 
@@ -223,6 +223,12 @@ def flash_attention_bwd(q, k, v, out, grad_out, lse, *, causal=True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if record is not None and d == 256:
+        raise ValueError("flash_attention_bwd: the head_dim 256 passes keep "
+                         "no record")
     blocks = dkdv_blocks(b, g, t, causal=causal)
     if record is not None and (record.shape != (blocks, 2, 2)
                                or record.dtype != torch.int64

@@ -21,10 +21,21 @@ weighted B, the state) enter as bf16 hi + lo pairs, so the result keeps
 fp32 accuracy up to the bf16 rounding of y (see the ``.cu``).  Two blocks
 per SM run Zamba2's 448 rows in one wave.
 
-For tensors on the CPU the wrapper runs the plain version (the chunked scan
-of :func:`repro_torch.kernels.ref.mamba2_chunked`); for CUDA tensors it
+The gradient (training): when an input needs one, :func:`mamba2_scan` runs
+under a ``torch.autograd.Function`` whose backward is
+:func:`mamba2_scan_bwd`, the ``mamba2_scan_bwd`` kernel of the same source:
+one block a row recomputes the chunk-start states, then walks the chunks in
+reverse with the state's gradient in shared memory (plain fp32 FMA; see the
+``.cu``).  It writes per-row partials of dB and dC, which the wrapper sums
+over each group's rows in a fixed order: the transpose of the broadcast of
+B/C to the heads.
+
+For tensors on the CPU each wrapper runs its plain version (the chunked
+scan of :func:`repro_torch.kernels.ref.mamba2_chunked`, and its gradient
+:func:`~repro_torch.kernels.ref.mamba2_chunked_bwd`); for CUDA tensors it
 launches the kernel (bf16 x/B/C, dh and ds multiples of 8 up to 64), or
-raises.  ``mamba2_scan.launches`` counts kernel launches.
+raises.  ``mamba2_scan.launches`` and ``mamba2_scan_bwd.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mamba2_chunked
+from repro_torch.kernels.ref import mamba2_chunked, mamba2_chunked_bwd
 
 NAME = "mamba2_scan"
 CHUNK = 64          # the kernel's chunk length, and the plain version's
@@ -48,6 +59,9 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P] * 8 + [I] * 5 + [P]
         fn.restype = ctypes.c_int
+        bwd = lib.mamba2_scan_bwd
+        bwd.argtypes = [P] * 15 + [I] * 5 + [P]
+        bwd.restype = ctypes.c_int
     return lib
 
 
@@ -73,34 +87,67 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     [G, S, ds] with BH % G == 0, row bh reading group bh // (BH // G)
     (G = BH: one group per head; G = batch: Mamba2's single group shared
     by every head).  Returns (y [BH, S, dh] in x's dtype, h [BH, ds, dh]
-    fp32).
+    fp32).  Differentiable in every input.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c, d)):
+        return _Mamba2Scan.apply(x, dt, a, b, c, d)
+    return _scan(x, dt, a, b, c, d)
+
+
+class _Mamba2Scan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d):
+        y, h = _scan(x, dt, a, b, c, d)
+        ctx.save_for_backward(x, dt, a, b, c, d)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, a, b, c, d = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        return mamba2_scan_bwd(x, dt, a, b, c, d, dy,
+                               None if dh is None else dh.contiguous())
+
+
+def _check(name, x, dt, a, b, c, d):
+    """Raise on inputs that do not match or that the kernel does not take
+    (for CUDA tensors)."""
     rows, s, dh = x.shape
     g, ds = b.shape[0], b.shape[-1]
     if (dt.shape != (rows, s) or a.shape != (rows,) or d.shape != (rows,)
             or b.shape != (g, s, ds) or c.shape != b.shape or rows % g):
-        raise ValueError(f"mamba2_scan: shapes x {tuple(x.shape)}, dt "
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}, c {tuple(c.shape)}, d "
                          f"{tuple(d.shape)} do not match")
     devices = {t.device for t in (x, dt, a, b, c, d)}
     if len(devices) != 1:
-        raise ValueError(f"mamba2_scan: tensors on several devices "
+        raise ValueError(f"{name}: tensors on several devices "
                          f"{sorted(map(str, devices))}")
     if x.device.type == "cpu":
-        return mamba2_scan_plain(x, dt, a, b, c, d)
+        return
     if x.device.type != "cuda":
-        raise ValueError(f"mamba2_scan: no kernel for device {x.device}")
+        raise ValueError(f"{name}: no kernel for device {x.device}")
     if not x.dtype == b.dtype == c.dtype == torch.bfloat16 or not (
             dt.dtype == a.dtype == d.dtype == torch.float32):
-        raise TypeError(f"mamba2_scan: the kernel takes bf16 x/b/c and fp32 "
+        raise TypeError(f"{name}: the kernel takes bf16 x/b/c and fp32 "
                         f"dt/a/d, got {x.dtype}, {b.dtype}, {c.dtype}, "
                         f"{dt.dtype}, {a.dtype}, {d.dtype}")
     if not (dh <= MAX_DIM and ds <= MAX_DIM and dh % 8 == ds % 8 == 0):
-        raise ValueError(f"mamba2_scan: dh {dh} and ds {ds} must be "
+        raise ValueError(f"{name}: dh {dh} and ds {ds} must be "
                          f"multiples of 8 up to {MAX_DIM}")
     if not all(t.is_contiguous() for t in (x, dt, a, b, c, d)):
-        raise ValueError("mamba2_scan: inputs must be contiguous")
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _scan(x, dt, a, b, c, d):
+    _check("mamba2_scan", x, dt, a, b, c, d)
+    if x.device.type == "cpu":
+        return mamba2_scan_plain(x, dt, a, b, c, d)
+    rows, s, dh = x.shape
+    g, ds = b.shape[0], b.shape[-1]
     y = torch.empty_like(x)
     h = torch.empty((rows, ds, dh), dtype=torch.float32, device=x.device)
     lib = _lib()
@@ -114,3 +161,75 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 mamba2_scan.launches = 0
+
+
+def sum_groups(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """[rows, S, ds] per-row partials -> [groups, S, ds]: each group the
+    sum of its rows in order (the transpose of :func:`expand_groups`)."""
+    rows = t.shape[0]
+    if groups == rows:
+        return t
+    return t.reshape(groups, rows // groups, *t.shape[1:]).sum(dim=1)
+
+
+def mamba2_scan_bwd_plain(x, dt, a, b, c, d, dy, dh_final=None):
+    """Plain version: the gradient of the chunked scan by autograd, with
+    b and c repeated per head and their gradients summed back over each
+    group's rows.  Returns fp32 (dx, ddt, da, db, dc, dd)."""
+    rows, g = x.shape[0], b.shape[0]
+    dx, ddt, da, db, dc, dd = mamba2_chunked_bwd(
+        x, dt, a, expand_groups(b, rows), expand_groups(c, rows), d, dy,
+        dh_final, chunk=CHUNK)
+    return dx, ddt, da, sum_groups(db, g), sum_groups(dc, g), dd
+
+
+def mamba2_scan_bwd(x, dt, a, b, c, d, dy, dh_final=None):
+    """The backward of :func:`mamba2_scan`: from its inputs, the gradient
+    ``dy`` [BH, S, dh] of y (x's dtype) and that of the final state
+    ``dh_final`` [BH, ds, dh] fp32 (None: zero), returns (dx, ddt, da, db,
+    dc, dd) in the shapes and dtypes of x, dt, a, b, c, d."""
+    _check("mamba2_scan_bwd", x, dt, a, b, c, d)
+    rows, s, dh = x.shape
+    g, ds = b.shape[0], b.shape[-1]
+    if dy.shape != x.shape or (dh_final is not None and dh_final.shape != (
+            rows, ds, dh)):
+        raise ValueError(f"mamba2_scan_bwd: dy {tuple(dy.shape)} and "
+                         f"dh_final {None if dh_final is None else tuple(dh_final.shape)} "
+                         f"do not match x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        grads = mamba2_scan_bwd_plain(x, dt, a, b, c, d, dy, dh_final)
+        return tuple(gr.to(t.dtype) for gr, t in
+                     zip(grads, (x, dt, a, b, c, d)))
+    if dy.device != x.device or dy.dtype != x.dtype or not dy.is_contiguous() \
+            or (dh_final is not None and (
+                dh_final.device != x.device or dh_final.dtype != torch.float32
+                or not dh_final.is_contiguous())):
+        raise ValueError("mamba2_scan_bwd: the kernel takes a contiguous dy "
+                         "in x's dtype and a contiguous fp32 dh_final on "
+                         "x's device")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((rows, s), **f32)
+    da = torch.empty((rows,), **f32)
+    dd = torch.empty((rows,), **f32)
+    db_rows = torch.empty((rows, s, ds), **f32)
+    dc_rows = torch.empty((rows, s, ds), **f32)
+    # each row's state at the start of each chunk and the final state,
+    # which the kernel's first walk writes and its reverse walk reads
+    states = torch.empty((rows, -(-s // CHUNK) + 1, ds, dh), **f32)
+    lib = _lib()
+    code = lib.mamba2_scan_bwd(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), d.data_ptr(), dy.data_ptr(),
+        None if dh_final is None else dh_final.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), da.data_ptr(), dd.data_ptr(), db_rows.data_ptr(),
+        dc_rows.data_ptr(), states.data_ptr(), rows, s, dh, ds, rows // g,
+        _build.stream(x.device))
+    _build.check(lib, "mamba2_scan_bwd", code)
+    mamba2_scan_bwd.launches += 1
+    return (dx, ddt, da, sum_groups(db_rows, g).to(b.dtype),
+            sum_groups(dc_rows, g).to(c.dtype), dd)
+
+
+mamba2_scan_bwd.launches = 0
+

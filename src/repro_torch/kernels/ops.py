@@ -9,11 +9,11 @@ are the one-token Mamba2 and RWKV-6 state updates of decode
 (``ref.mamba2_decode_step``, ``ref.rwkv6_decode_step``), plain in both
 packages.
 
-The pack and attention are differentiable: their gradients run the
+Every kernel op is differentiable: the pack, attention (at each head_dim
+it takes, 256 included) and the two scans run their gradients through the
 backward kernels of the same sources (``dispatch_pack_bwd``,
-``flash_attention_bwd``; plain versions for CPU tensors).  The two scans
-have no backward kernel yet, so the hybrid and rwkv families do not train
-on the card (``models.api.Model.loss`` raises there).
+``flash_attention_bwd``, ``mamba2_scan_bwd``, ``rwkv6_scan_bwd``; plain
+versions for CPU tensors), so every family trains on the card.
 
 Launch counts: ``<op>.launches`` for each op of ``KERNEL_OPS``.
 """
@@ -24,15 +24,17 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.dispatch_pack import dispatch_pack, dispatch_pack_bwd
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
-from repro_torch.kernels.mamba2_scan import mamba2_scan
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.mamba2_scan import mamba2_scan, mamba2_scan_bwd
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 
 __all__ = ["dispatch_pack", "dispatch_pack_bwd", "flash_attention",
-           "flash_attention_bwd", "mamba2_scan", "rwkv6_scan",
-           "decode_attention", "reset_launches", "launches"]
+           "flash_attention_bwd", "mamba2_scan", "mamba2_scan_bwd",
+           "rwkv6_scan", "rwkv6_scan_bwd", "decode_attention",
+           "reset_launches", "launches"]
 
 KERNEL_OPS = (dispatch_pack, flash_attention, mamba2_scan, rwkv6_scan,
-              dispatch_pack_bwd, flash_attention_bwd)
+              dispatch_pack_bwd, flash_attention_bwd, mamba2_scan_bwd,
+              rwkv6_scan_bwd)
 
 
 def decode_attention(q, k, v, kv_len=None, *, scale=None, softcap=None,

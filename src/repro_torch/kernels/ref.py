@@ -4,9 +4,10 @@ These are the correctness references, written for clarity: dense masked
 attention (and its backward, with the forward's log-sum-exp), grouped
 decode attention over a KV cache, scatter-based packing (and its
 backward), and the Mamba2 and RWKV-6 scans (per-step recurrences, their
-one-token decode steps, and the chunked forms that the reference's serving
-path runs), and, for the tests alone, the RWKV-6 kernel's sub-chunk
-factorisation.  A kernel wrapper runs its plain version for tensors on the CPU
+one-token decode steps, the chunked forms that the reference's serving
+path runs, and their gradients by autograd), and, for the tests alone,
+the RWKV-6 kernel's sub-chunk factorisation and the scans' backward
+kernels' algorithm.  A kernel wrapper runs its plain version for tensors on the CPU
 (the CPU tests, which hold it against the JAX package); for a CUDA tensor it
 launches the kernel.  ``chip_smoke.py`` holds each kernel against its plain
 version on the card.
@@ -84,12 +85,15 @@ def attention_lse(q, k, *, causal=True, window=None, softcap=None,
 
 
 def attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=None,
-                      softcap=None, scale=None):
+                      softcap=None, scale=None, operands=None):
     """The attention backward as explicit fp32 arithmetic (no autograd),
     the kernel's algorithm: P recomputed from the log-sum-exp, then dV,
     dP, dS and dQ, dK, the gradients of grouped kv summed over the q heads
     of each kv head.  q, o, do [B, H, S, D]; k, v [B, G, T, D]; lse
-    [B, H, S].  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    [B, H, S].  ``operands``: a dtype that P and dS are rounded to before
+    the products that take them, as the kernel's tensor cores take them
+    (None: fp32 throughout).  Returns (dq, dk, dv) in the dtypes of q, k,
+    v."""
     b, h, _, d = q.shape
     g, t = k.shape[1], k.shape[2]
     s, mask, th, scale = _grouped_scores(q, k, causal=causal, window=window,
@@ -98,13 +102,16 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=None,
     dof = do.float()
     vx = v.float().repeat_interleave(h // g, dim=1)
     kx = k.float().repeat_interleave(h // g, dim=1)
-    dv = torch.matmul(p.transpose(-1, -2), dof)              # [B, H, T, D]
+
+    def operand(x):
+        return x if operands is None else x.to(operands).float()
+    dv = torch.matmul(operand(p).transpose(-1, -2), dof)     # [B, H, T, D]
     dp = torch.matmul(dof, vx.transpose(-1, -2))              # [B, H, S, T]
     delta = (dof * o.float()).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     if th is not None:
         ds = ds * (1.0 - th * th)
-    ds = ds * scale
+    ds = operand(ds * scale)
     dq = torch.matmul(ds, kx)
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     dk = dk.reshape(b, g, h // g, t, d).sum(dim=2)
@@ -246,6 +253,112 @@ def mamba2_chunked(x, dt, a, b, c, d, *, chunk=64, return_final=False):
     return (y, h) if return_final else y
 
 
+def grads_of(fn, inputs, dy, dfinal):
+    """The gradients of ``fn(*leaves) -> (y, final)`` with respect to fp32
+    copies of ``inputs``, given dy and an optional gradient of the final
+    state, by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(True) for t in inputs]
+        y, final = fn(*leaves)
+        outs, cot = [y], [dy.float()]
+        if dfinal is not None:
+            outs.append(final)
+            cot.append(dfinal.float())
+        return torch.autograd.grad(outs, leaves, cot)
+
+
+def mamba2_chunked_bwd(x, dt, a, b, c, d, dy, dh_final=None, *, chunk=64):
+    """The plain backward of :func:`mamba2_chunked`: the gradients of y
+    (and of the final state, where ``dh_final`` is given) with respect to
+    x, dt, a, b, c, d, all fp32 in their shapes (b, c per row [BH, S,
+    ds])."""
+    return grads_of(lambda *t: mamba2_chunked(*t, chunk=chunk,
+                                               return_final=True),
+                     (x, dt, a, b, c, d), dy, dh_final)
+
+
+def _pad_steps(s, chunk, *ts):
+    pad = (-s) % chunk
+    return [torch.nn.functional.pad(t.float(), (0, 0, 0, pad)
+                                    if t.dim() == 3 else (0, pad))
+            for t in ts]
+
+
+def mamba2_bwd_chunks(x, dt, a, b, c, d, dy, dh_final=None, *, chunk=64):
+    """The CUDA backward kernel's algorithm in plain PyTorch, for the tests
+    only (no model calls it).  A first walk keeps each chunk's starting
+    state; the reverse walk over chunks carries g, the gradient of the state
+    at the chunk's end, and per chunk, with cum the inclusive cumsum of dt a
+    and, for j <= i (zero above the diagonal), L_ij = exp(cum_i - cum_j),
+    dML_ij = (dy_i . x_j) L_ij and P_ij = dML_ij (C_i . B_j):
+
+      dx_j  = dt_j sum_i (C_i . B_j) L_ij dy_i + D dy_j + w_j g^T B_j
+      dC_i  = sum_j dML_ij dt_j B_j + exp(cum_i) h0 dy_i
+      dB_j  = dt_j sum_i dML_ij C_i + w_j g x_j,       w_j = exp(cum_Q - cum_j) dt_j
+      g    <- exp(cum_Q) g + sum_i exp(cum_i) C_i dy_i^T
+
+    and dt through its two roles: directly (sum_i P_ij + exp(cum_Q - cum_j)
+    B_j^T g x_j) and through cum, whose gradient dcum is reverse-summed
+    over the chunk (ddt += a dcum_rev, da += dt dcum_rev).  No exponent is
+    positive.  Shapes as :func:`mamba2_chunked_bwd`."""
+    bh, s, dh = x.shape
+    xf, bf, cf, dyf = _pad_steps(s, chunk, x, b, c, dy)
+    dtf, = _pad_steps(s, chunk, dt)
+    af, df = a.float(), d.float()
+    nc = xf.shape[1] // chunk
+    ii = torch.arange(chunk, device=x.device)
+    tri = (ii[:, None] >= ii[None, :])[None]
+    h = torch.zeros((bh, b.shape[-1], dh), device=x.device)
+    starts = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        starts.append(h)
+        cum = torch.cumsum(dtf[:, sl] * af[:, None], dim=1)
+        w = torch.exp(cum[:, -1:] - cum) * dtf[:, sl]
+        h = (torch.exp(cum[:, -1])[:, None, None] * h
+             + (bf[:, sl] * w[..., None]).transpose(1, 2) @ xf[:, sl])
+    g = (torch.zeros_like(h) if dh_final is None else dh_final.float())
+    h_end = h
+    grads = [torch.zeros_like(t) for t in (xf, dtf, bf, cf)]
+    da = torch.zeros_like(af)
+    for ci in reversed(range(nc)):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        xq, dtq, bq, cq, dyq = (t[:, sl] for t in (xf, dtf, bf, cf, dyf))
+        h0 = starts[ci]
+        cum = torch.cumsum(dtq * af[:, None], dim=1)
+        gap = torch.where(tri, cum[:, :, None] - cum[:, None, :], -torch.inf)
+        decay = torch.exp(gap)
+        cb_raw = cq @ bq.transpose(1, 2)                  # C_i . B_j
+        cb = cb_raw * decay
+        dml = (dyq @ xq.transpose(1, 2)) * decay
+        p = dml * cb_raw
+        tail = torch.exp(cum[:, -1:] - cum)
+        w = tail * dtq
+        gx = xq @ g.transpose(1, 2)                      # g x_j  [Q, ds]
+        z = dyq @ h0.transpose(1, 2)                     # h0 dy_i [Q, ds]
+        ecum = torch.exp(cum)
+        dx = ((cb * dtq[:, None, :]).transpose(1, 2) @ dyq
+              + df[:, None, None] * dyq + w[..., None] * (bq @ g))
+        dc = (dml * dtq[:, None, :]) @ bq + ecum[..., None] * z
+        db = dtq[..., None] * (dml.transpose(1, 2) @ cq) + w[..., None] * gx
+        q = (bq * gx).sum(-1)
+        colp = p.sum(1)
+        dcum = ((p * dtq[:, None, :]).sum(2) - dtq * colp
+                + ecum * (cq * z).sum(-1) - dtq * tail * q)
+        dcum[:, -1] += (g * h_end).sum((1, 2))
+        rev = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        for grad, val in zip(grads, (dx, colp + tail * q + af[:, None] * rev,
+                                     db, dc)):
+            grad[:, sl] = val
+        da += (dtq * rev).sum(1)
+        g = (torch.exp(cum[:, -1])[:, None, None] * g
+             + (cq * ecum[..., None]).transpose(1, 2) @ dyq)
+        h_end = h0
+    dx, ddt, db, dc = (t[:, :s] for t in grads)
+    dd = (dyf * xf).sum((1, 2))
+    return dx, ddt, da, db, dc, dd
+
+
 # ---------------------------------------------------------------------------
 # rwkv6
 # ---------------------------------------------------------------------------
@@ -381,6 +494,91 @@ def rwkv6_subchunk(r, k, v, logw, u, *, chunk=64, sub=16,
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s].to(v.dtype)
     return (y, state) if return_final else y
+
+
+def rwkv6_chunked_bwd(r, k, v, logw, u, dy, dstate=None, *, chunk=32):
+    """The plain backward of :func:`rwkv6_chunked`: the gradients of y (and
+    of the final state, where ``dstate`` is given) with respect to r, k, v,
+    logw, u, all fp32 in their shapes.  It inherits the chunked form's
+    k exp(-cum) factor: where a chunk's log-decays sum below about -88 it
+    is not finite (the kernel's backward is)."""
+    return grads_of(lambda *t: rwkv6_chunked(*t, chunk=chunk,
+                                              return_final=True),
+                     (r, k, v, logw, u), dy, dstate)
+
+
+def rwkv6_bwd_chunks(r, k, v, logw, u, dy, dstate=None, *, chunk=64):
+    """The CUDA backward kernel's algorithm in plain PyTorch, for the tests
+    only (no model calls it).  A first walk keeps each chunk's starting
+    state S0; the reverse walk carries G, the gradient of the state at the
+    chunk's end.  With cum the inclusive cumsum of logw in the chunk, cp its
+    exclusive one (cum of the step before) and E_ijc = exp(cp_ic - cum_jc)
+    for j < i (never a positive exponent; zero elsewhere):
+
+      A_ij   = sum_c r_ic k_jc E_ijc,   dA_ij = dy_i . v_j
+      drs_i  = sum_j E_ij k_j dA_ij + exp(cp_i) * (S0 dy_i)       (= S_{i-1} dy_i)
+      dks_j  = sum_i E_ij r_i dA_ij + exp(cum_Q - cum_j) * (G v_j) (= G_j v_j)
+      dv_j   = sum_i A_ij dy_i + (r_j . u k_j) dy_j + G^T (k_j exp(cum_Q - cum_j))
+      dr = drs + u k (v . dy),  dk = dks + u r (v . dy),  du = sum r k (v . dy)
+      G     <- exp(cum_Q) G + sum_i (r_i exp(cp_i)) dy_i^T
+
+    and the log-decays' gradient as the reverse running sum
+    dlogw_t = F + sum_{m>t} r_m drs_m - sum_{m>=t} k_m dks_m, with F the
+    final state times its gradient summed over dv (from
+    dlogw_t = w_t S_{t-1} . G_t and the telescoping of S_t . G_t), so no
+    exponent enters it at all.  Shapes as :func:`rwkv6_chunked_bwd`."""
+    bh, s, dk = r.shape
+    rf, kf, vf, wf, dyf = _pad_steps(s, chunk, r, k, v, logw, dy)
+    uf = u.float()
+    nc = rf.shape[1] // chunk
+    ii = torch.arange(chunk, device=r.device)
+    lower = (ii[:, None] > ii[None, :])[None, :, :, None]
+    state = torch.zeros((bh, dk, v.shape[-1]), device=r.device)
+    starts = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        starts.append(state)
+        cum = torch.cumsum(wf[:, sl], dim=1)
+        k_up = kf[:, sl] * torch.exp(cum[:, -1:] - cum)
+        state = (torch.exp(cum[:, -1])[..., None] * state
+                 + k_up.transpose(1, 2) @ vf[:, sl])
+    g = torch.zeros_like(state) if dstate is None else dstate.float()
+    acc = (state * g).sum(-1)                            # F [bh, dk]
+    grads = [torch.zeros_like(t) for t in (rf, kf, vf, wf)]
+    du = torch.zeros_like(uf)
+    for ci in reversed(range(nc)):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        rq, kq, vq, dyq = (t[:, sl] for t in (rf, kf, vf, dyf))
+        s0 = starts[ci]
+        cum = torch.cumsum(wf[:, sl], dim=1)
+        cp = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=1)
+        e = torch.exp(torch.where(lower, cp[:, :, None] - cum[:, None],
+                                  -torch.inf))           # [bh, i, j, c]
+        att = torch.einsum("bic,bjc,bijc->bij", rq, kq, e)
+        da_ = torch.where(lower[..., 0], dyq @ vq.transpose(1, 2), 0.0)
+        tail = torch.exp(cum[:, -1:] - cum)
+        drs = (torch.einsum("bijc,bjc,bij->bic", e, kq, da_)
+               + torch.exp(cp) * (dyq @ s0.transpose(1, 2)))
+        dks = (torch.einsum("bijc,bic,bij->bjc", e, rq, da_)
+               + tail * (vq @ g.transpose(1, 2)))
+        bdot = (vq * dyq).sum(-1, keepdim=True)
+        bonus = (rq * uf[:, None] * kq).sum(-1, keepdim=True)
+        dv = (att.transpose(1, 2) @ dyq + bonus * dyq
+              + (kq * tail) @ g)
+        # dlogw: the running sum from the chunk's end back to its start
+        step = rq * drs - kq * dks
+        after = torch.flip(torch.cumsum(torch.flip(step, [1]), 1), [1])
+        dlogw = acc[:, None] + after - rq * drs
+        acc = acc + after[:, 0]
+        for grad, val in zip(grads, (drs + uf[:, None] * kq * bdot,
+                                     dks + uf[:, None] * rq * bdot, dv,
+                                     dlogw)):
+            grad[:, sl] = val
+        du += (rq * kq * bdot).sum(1)
+        g = (torch.exp(cum[:, -1])[..., None] * g
+             + (rq * torch.exp(cp)).transpose(1, 2) @ dyq)
+    dr, dk_, dv, dlogw = (t[:, :s] for t in grads)
+    return dr, dk_, dv, dlogw, du
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,23 @@ products A v, r~ S_prev and the state update are ``wgmma`` m64n64k16, with
 fp32-made operands split into hi + lo bf16 pairs; r, k, v, logw arrive by
 ``cp.async`` into a double buffer (see the ``.cu``).
 
-For tensors on the CPU the wrapper runs the plain version (the chunked scan
-of :func:`repro_torch.kernels.ref.rwkv6_chunked` at the reference's chunk
-of 32, whatever tile the kernel takes); for CUDA tensors it launches the
-kernel (bf16 r/k/v, fp32 logw/u, dk and dv multiples of 8 up to 64,
-contiguous and 16-byte aligned), or raises.  ``rwkv6_scan.launches``
-counts kernel launches.
+The gradient (training): when an input needs one, :func:`rwkv6_scan` runs
+under a ``torch.autograd.Function`` whose backward is
+:func:`rwkv6_scan_bwd`, the ``rwkv6_scan_bwd`` kernel of the same source:
+one block a row recomputes the chunk-start states, then walks the chunks in
+reverse with the state's gradient in shared memory (plain fp32 FMA).  The
+log-decays' gradient is a reverse running sum of r * dr and k * dk terms,
+so no exponent is ever positive and it stays finite where a chunk's decays
+sum below -88 (see the ``.cu``).
+
+For tensors on the CPU each wrapper runs its plain version (the chunked
+scan of :func:`repro_torch.kernels.ref.rwkv6_chunked` at the reference's
+chunk of 32, whatever tile the kernel takes, and its gradient
+:func:`~repro_torch.kernels.ref.rwkv6_chunked_bwd`); for CUDA tensors it
+launches the kernel (bf16 r/k/v, fp32 logw/u, dk and dv multiples of 8 up
+to 64, contiguous and 16-byte aligned), or raises.
+``rwkv6_scan.launches`` and ``rwkv6_scan_bwd.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import rwkv6_chunked
+from repro_torch.kernels.ref import rwkv6_chunked, rwkv6_chunked_bwd
 
 NAME = "rwkv6_scan"
 PLAIN_CHUNK = 32    # the plain version's chunk: the reference's default
@@ -51,6 +62,9 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P] * 7 + [I] * 4 + [P]
         fn.restype = ctypes.c_int
+        bwd = lib.rwkv6_scan_bwd
+        bwd.argtypes = [P] * 13 + [I] * 4 + [P]
+        bwd.restype = ctypes.c_int
     return lib
 
 
@@ -67,35 +81,69 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     r, k, logw [BH, S, dk] (logw <= 0); v [BH, S, dv]; u [BH, dk].
     Returns (y [BH, S, dv] in v's dtype, state [BH, dk, dv] fp32).
+    Differentiable in every input.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u)):
+        return _RWKV6Scan.apply(r, k, v, logw, u)
+    return _scan(r, k, v, logw, u)
+
+
+class _RWKV6Scan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u):
+        y, state = _scan(r, k, v, logw, u)
+        ctx.save_for_backward(r, k, v, logw, u)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, logw, u = ctx.saved_tensors
+        dy = torch.zeros_like(v) if dy is None else dy.contiguous()
+        return rwkv6_scan_bwd(r, k, v, logw, u, dy,
+                              None if dstate is None else dstate.contiguous())
+
+
+def _check(name, r, k, v, logw, u):
+    """Raise on inputs that do not match or that the kernel does not take
+    (for CUDA tensors)."""
     rows, s, dk = r.shape
     dv = v.shape[-1]
     if (k.shape != r.shape or logw.shape != r.shape
             or v.shape != (rows, s, dv) or u.shape != (rows, dk)):
-        raise ValueError(f"rwkv6_scan: shapes r {tuple(r.shape)}, k "
+        raise ValueError(f"{name}: shapes r {tuple(r.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, logw "
                          f"{tuple(logw.shape)}, u {tuple(u.shape)} do not "
                          f"match")
     devices = {t.device for t in (r, k, v, logw, u)}
     if len(devices) != 1:
-        raise ValueError(f"rwkv6_scan: tensors on several devices "
+        raise ValueError(f"{name}: tensors on several devices "
                          f"{sorted(map(str, devices))}")
     if r.device.type == "cpu":
-        return rwkv6_scan_plain(r, k, v, logw, u)
+        return
     if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
+        raise ValueError(f"{name}: no kernel for device {r.device}")
     if not r.dtype == k.dtype == v.dtype == torch.bfloat16 or not (
             logw.dtype == u.dtype == torch.float32):
-        raise TypeError(f"rwkv6_scan: the kernel takes bf16 r/k/v and fp32 "
+        raise TypeError(f"{name}: the kernel takes bf16 r/k/v and fp32 "
                         f"logw/u, got {r.dtype}, {k.dtype}, {v.dtype}, "
                         f"{logw.dtype}, {u.dtype}")
     if not (dk <= MAX_DIM and dv <= MAX_DIM and dk % 8 == dv % 8 == 0):
-        raise ValueError(f"rwkv6_scan: dk {dk} and dv {dv} must be "
+        raise ValueError(f"{name}: dk {dk} and dv {dv} must be "
                          f"multiples of 8 up to {MAX_DIM}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (r, k, v, logw, u)):
-        raise ValueError("rwkv6_scan: inputs must be contiguous and 16-byte "
-                         "aligned")
+        raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
+                         f"aligned")
+
+
+def _scan(r, k, v, logw, u):
+    _check("rwkv6_scan", r, k, v, logw, u)
+    if r.device.type == "cpu":
+        return rwkv6_scan_plain(r, k, v, logw, u)
+    rows, s, dk = r.shape
+    dv = v.shape[-1]
     y = torch.empty_like(v)
     state = torch.empty((rows, dk, dv), dtype=torch.float32, device=r.device)
     lib = _lib()
@@ -109,3 +157,50 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 rwkv6_scan.launches = 0
+
+BWD_CHUNK = 64      # the backward kernel's chunk
+
+
+def rwkv6_scan_bwd(r, k, v, logw, u, dy, dstate=None):
+    """The backward of :func:`rwkv6_scan`: from its inputs, the gradient
+    ``dy`` [BH, S, dv] of y (v's dtype) and that of the final state
+    ``dstate`` [BH, dk, dv] fp32 (None: zero), returns (dr, dk, dv, dlogw,
+    du) in the shapes and dtypes of r, k, v, logw, u."""
+    _check("rwkv6_scan_bwd", r, k, v, logw, u)
+    rows, s, dk = r.shape
+    dv = v.shape[-1]
+    if dy.shape != v.shape or (dstate is not None and dstate.shape != (
+            rows, dk, dv)):
+        raise ValueError(f"rwkv6_scan_bwd: dy {tuple(dy.shape)} and dstate "
+                         f"{None if dstate is None else tuple(dstate.shape)} "
+                         f"do not match v {tuple(v.shape)}")
+    if r.device.type == "cpu":
+        grads = rwkv6_chunked_bwd(r, k, v, logw, u, dy, dstate,
+                                  chunk=PLAIN_CHUNK)
+        return tuple(gr.to(t.dtype) for gr, t in
+                     zip(grads, (r, k, v, logw, u)))
+    if dy.device != r.device or dy.dtype != v.dtype or not dy.is_contiguous() \
+            or dy.data_ptr() % 16 or (dstate is not None and (
+                dstate.device != r.device or dstate.dtype != torch.float32
+                or not dstate.is_contiguous())):
+        raise ValueError("rwkv6_scan_bwd: the kernel takes a contiguous, "
+                         "16-byte aligned dy in v's dtype and a contiguous "
+                         "fp32 dstate on r's device")
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk_, dv_ = (torch.empty_like(t) for t in (r, k, v))
+    dlogw = torch.empty_like(logw)
+    du = torch.empty((rows, dk), **f32)
+    states = torch.empty((rows, -(-s // BWD_CHUNK) + 1, dk, dv), **f32)
+    lib = _lib()
+    code = lib.rwkv6_scan_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
+        dk_.data_ptr(), dv_.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
+        states.data_ptr(), rows, s, dk, dv, _build.stream(r.device))
+    _build.check(lib, "rwkv6_scan_bwd", code)
+    rwkv6_scan_bwd.launches += 1
+    return dr, dk_, dv_, dlogw, du
+
+
+rwkv6_scan_bwd.launches = 0

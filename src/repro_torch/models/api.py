@@ -178,13 +178,9 @@ class Model:
                                   device=self.device)
         x, positions = self.embed_in(params, batch)
         if fam in ("hybrid", "rwkv"):
-            if self.device.type == "cuda":
-                scan = "mamba2_scan" if fam == "hybrid" else "rwkv6_scan"
-                raise NotImplementedError(
-                    f"{fam} training on the card needs the {scan} backward "
-                    f"kernel (ROADMAP.md queue 2 item 1)")
-            # the prefill, with a state that is thrown away: the plain
-            # scans run under autograd on the CPU
+            # the prefill, with a state that is thrown away: the scans'
+            # autograd Functions run their backward kernels (plain versions
+            # on the CPU), the final states' gradients None
             stack = ssm.zamba2_prefill if fam == "hybrid" else \
                 rwkv.rwkv6_prefill
             cache = self.init_cache(*x.shape[:2], cache_dtype=self.dtype)

@@ -6,7 +6,10 @@ time-mix (WKV6 with a data-dependent per-channel decay from a rank-
 token-shift mixing coefficients as in the reference.
 
 Prefill runs the ``rwkv6_scan`` kernel, which also returns the final WKV
-state; decode is the plain one-token update.  Decode state per layer: two
+state; decode is the plain one-token update.  Training runs the same
+prefill through the scan's autograd Function, whose backward is the
+``rwkv6_scan_bwd`` kernel (the final state's gradient None: training
+throws the cache away).  Decode state per layer: two
 shift registers [B, D] (cache dtype) and the WKV state [B, H, dk, dv]
 (fp32), stacked over layers and updated in place.
 

@@ -10,7 +10,10 @@ Mamba2 block: in_proj -> (z gate, x, B, C, dt) -> causal depthwise conv on
 x -> SSD scan (the ``mamba2_scan`` kernel at prefill, the plain one-token
 update at decode) -> z-gated RMSNorm -> out_proj.  B and C are one group
 shared by every head; the kernel reads them per group instead of
-repeating them per head as the reference does.
+repeating them per head as the reference does.  Training runs the same
+prefill: the scan's autograd Function takes its backward kernel
+(``mamba2_scan_bwd``, which sums dB and dC over each group's heads), and
+the final state's gradient is None, since training throws the cache away.
 
 Decode state per layer: the conv tail [B, conv-1, d_inner] (pre-SiLU x, in
 the cache dtype) and the SSD state [B, heads, ds, dh] (fp32), stacked over

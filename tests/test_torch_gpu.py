@@ -205,19 +205,48 @@ def test_attention_kernel_where_the_softcap_bites_on_card(d, window, softcap,
 
 
 @pytest.mark.gpu
-def test_attention_gradient_at_head_dim_256_raises_on_card():
-    """The backward kernel has no head_dim 256: a gradient asked for there
-    raises before the forward runs, and nothing plain runs instead."""
+@pytest.mark.parametrize("causal,window,q_scale", [
+    (True, 64, 10.0),       # Gemma2's windowed layer, the softcap biting
+    (True, None, 1.0),      # its global layer
+    (False, None, 1.0),     # no mask
+])
+def test_attention_gradient_at_head_dim_256_on_card(causal, window,
+                                                    q_scale):
+    """A gradient at head_dim 256 (softcap 50) through the wrapper: one
+    forward and one backward kernel launch, nothing plain in their place,
+    and dq, dk, dv within atol = rtol = 2e-2 of autograd of the plain
+    forward in fp32; with q x 10, where the cap bites and dK grows with q
+    (to about 30), of the plain backward with P and dS rounded to bf16
+    where the kernel rounds them (bf16's rounding of dS alone moves dK by
+    more than 2e-2 there)."""
     _need_cuda()
-    q, k, v = (torch.zeros((1, 2, 64, 256), device="cuda",
-                           dtype=torch.bfloat16, requires_grad=True)
-               for _ in range(3))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = (torch.randn((2, 200, 4, 256), generator=gen, device="cuda")
+         * q_scale).to(torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((2, 200, 2, 256), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2))
+    do = torch.randn((2, 4, 200, 256), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=50.0)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     ops.reset_launches()
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        ops.flash_attention(q, k, v)
-    assert not any(ops.launches().values())
-    with torch.no_grad():
-        assert ops.flash_attention(q, k, v).shape == q.shape
+    got = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, do)
+    counts = ops.launches()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    if q_scale > 1.0:
+        from repro_torch.kernels.flash_attention import _forward
+        out, _ = _forward(q, k, v, (causal, window, 50.0, None),
+                          with_lse=False)
+        exp = [x.float() for x in tref.attention_bwd_ref(
+            q, k, v, out, do, tref.attention_lse(q, k, **kw), **kw,
+            operands=torch.bfloat16)]
+    else:
+        ref_leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+        exp = torch.autograd.grad(flash_attention_plain(*ref_leaves, **kw),
+                                  ref_leaves, do.float())
+    for a, e in zip(got, exp):
+        torch.testing.assert_close(a.float(), e, atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.gpu
@@ -525,7 +554,8 @@ def test_graph_launch_counts_are_exact_on_card():
             "dispatch_pack": 3 * cfg.n_layers * GRAPH_NEW,
             "flash_attention": cfg.n_layers, "mamba2_scan": 0,
             "rwkv6_scan": 0, "dispatch_pack_bwd": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "mamba2_scan_bwd": 0,
+            "rwkv6_scan_bwd": 0}
     assert engine.stats["decode_graph"]["captures"] == 1
 
 
@@ -600,6 +630,9 @@ def test_pack_backward_kernel_on_card(n, h, d, c, dtype):
     ((4, 16, 16, 512, 512, 64), True, None, None),      # Seamless decoder
     ((2, 16, 16, 300, 200, 64), False, None, None),     # cross lengths, MHA
     ((1, 48, 8, 4096, 4096, 128), True, None, None),    # DBRX at train_4k
+    ((1, 4, 2, 200, 200, 256), True, 64, 50.0),         # Gemma2, windowed
+    ((2, 16, 8, 300, 300, 256), True, None, 50.0),      # Gemma2, global
+    ((1, 2, 1, 77, 130, 256), False, None, None),       # dh 256, no mask
 ])
 def test_attention_backward_kernel_on_card(shape, causal, window, softcap):
     """The attention backward kernel from the forward's own log-sum-exp:
@@ -713,18 +746,129 @@ def test_attention_gradient_through_the_wrapper_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scan,s,final", [
+    ("mamba2", 512, False),     # Zamba2's sequences, one B/C group each
+    ("mamba2", 130, True),      # a ragged chunk, a final-state gradient
+    ("rwkv6", 512, False),
+    ("rwkv6", 100, True),
+])
+def test_scan_backward_kernels_match_plain_on_card(scan, s, final):
+    """The scans' backward kernels against autograd of the fp32 per-step
+    recurrences: every gradient within 5e-2 of its max |value|; two calls
+    give the same bits."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(s)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    bf16 = torch.bfloat16
+    if scan == "mamba2":
+        from repro_torch.kernels.mamba2_scan import expand_groups, sum_groups
+        batch, heads = 2, 8
+        rows = batch * heads
+        x = rn(rows, s, 64).to(bf16)
+        dt = torch.nn.functional.softplus(rn(rows, s) - 1.0)
+        a, d = -torch.exp(rn(rows) * 0.5), rn(rows)
+        b, c = (rn(batch, s, 64).to(bf16) for _ in range(2))
+        args = (x, dt, a, b, c, d)
+        dy = rn(rows, s, 64).to(bf16)
+        dfinal = rn(rows, 64, 64) if final else None
+        call = ops.mamba2_scan_bwd
+        exp = list(tref.grads_of(
+            lambda *t: tref.mamba2_ref(*t, return_final=True),
+            (x, dt, a, expand_groups(b, rows), expand_groups(c, rows), d),
+            dy, dfinal))
+        exp[3], exp[4] = sum_groups(exp[3], batch), sum_groups(exp[4], batch)
+    else:
+        rows = 8
+        r, k, v = (rn(rows, s, 64).to(bf16) for _ in range(3))
+        logw = -torch.exp(rn(rows, s, 64) - 1.0)
+        u = rn(rows, 64) * 0.3
+        args = (r, k, v, logw, u)
+        dy = rn(rows, s, 64).to(bf16)
+        dfinal = rn(rows, 64, 64) if final else None
+        call = ops.rwkv6_scan_bwd
+        exp = tref.grads_of(lambda *t: tref.rwkv6_ref(*t, return_final=True),
+                            args, dy, dfinal)
+    ops.reset_launches()
+    got = call(*args, dy, dfinal)
+    again = call(*args, dy, dfinal)
+    assert ops.launches()[f"{scan}_scan_bwd"] == 2
+    assert all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
+    for g_, e, t in zip(got, exp, args):
+        assert g_.shape == t.shape and g_.dtype == t.dtype
+        assert torch.isfinite(g_).all()
+        err = (g_.float() - e).abs().max().item()
+        assert err <= 5e-2 * e.abs().max().item()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["zamba2_7b", "rwkv6_7b"])
-def test_recurrent_training_raises_on_card(arch):
-    """The scans have no backward kernel yet: the hybrid and rwkv families'
-    loss raises on the card instead of running anything plain there."""
+def test_recurrent_training_on_card(arch, monkeypatch):
+    """The hybrid and rwkv families' loss and backward on the card: each
+    layer's scan forward and backward kernel once (and the shared block's
+    attention kernels), nothing plain in their place; and every
+    parameter's gradient at a cosine above 0.999 of the same step whose
+    scan backward is autograd of the fp32 per-step recurrence instead (the
+    same forward, bit for bit, so the comparison sees the backward kernel
+    and not the model's bf16 rounding, which moves a random-weight
+    Zamba2's gradients far more)."""
     _need_cuda()
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import mamba2_scan as m2, rwkv6_scan as r6
     from repro_torch.models.api import build_model
-    cfg = get_config(arch).reduced()
+    from repro_torch.models.ssm import n_shared_calls
+    from repro_torch.runtime.trainer import trainable
+    cfg = get_config(arch).reduced(
+        n_layers=2, d_model=256, vocab=512,
+        **({"ssm_state": 64, "ssm_head_dim": 64, "n_heads": 2,
+            "n_kv_heads": 2, "shared_attn_every": 1}
+           if arch == "zamba2_7b" else {"rwkv_head_dim": 64}))
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    toks = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
+    trainable(params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 70)).astype(np.int32)).cuda()
+
+    def grads():
+        for p in params.parameters():
+            p.grad = None
+        loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
+        loss.backward()
+        return {n: p.grad.double() for n, p in params.named_parameters()}
+
     ops.reset_launches()
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        model.loss(params, {"tokens": toks, "labels": toks})
-    assert not any(ops.launches().values())
+    got = grads()
+    counts = {k: v for k, v in ops.launches().items() if v}
+    if arch == "zamba2_7b":
+        calls = n_shared_calls(cfg)
+        want = {"mamba2_scan": cfg.n_layers,
+                "mamba2_scan_bwd": cfg.n_layers,
+                "flash_attention": calls, "flash_attention_bwd": calls}
+    else:
+        want = {"rwkv6_scan": cfg.n_layers, "rwkv6_scan_bwd": cfg.n_layers}
+    assert counts == want
+
+    def plain_mamba2(x, dt, a, b, c, d, dy, dh=None):
+        rows, g = x.shape[0], b.shape[0]
+        out = list(tref.grads_of(
+            lambda *t: tref.mamba2_ref(*t, return_final=True),
+            (x, dt, a, m2.expand_groups(b, rows), m2.expand_groups(c, rows),
+             d), dy, dh))
+        out[3], out[4] = m2.sum_groups(out[3], g), m2.sum_groups(out[4], g)
+        return tuple(o.to(t.dtype) for o, t in zip(out, (x, dt, a, b, c, d)))
+
+    def plain_rwkv6(r, k, v, logw, u, dy, dstate=None):
+        out = tref.grads_of(lambda *t: tref.rwkv6_ref(*t, return_final=True),
+                            (r, k, v, logw, u), dy, dstate)
+        return tuple(o.to(t.dtype) for o, t in zip(out, (r, k, v, logw, u)))
+    if arch == "zamba2_7b":
+        monkeypatch.setattr(m2, "mamba2_scan_bwd", plain_mamba2)
+    else:
+        monkeypatch.setattr(r6, "rwkv6_scan_bwd", plain_rwkv6)
+    exp = grads()
+    for name, a in got.items():
+        e = exp[name]
+        assert torch.isfinite(a).all(), name
+        cos = (a.flatten() @ e.flatten() / (a.norm() * e.norm())).item()
+        assert cos > 0.999, (name, cos)

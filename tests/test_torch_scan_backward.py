@@ -1,0 +1,234 @@
+"""The gradients of the port's two scans against ``jax.vjp`` of the
+reference's chunked jnp twins.
+
+The same numpy inputs (made from a seed) go through ``jax.vjp`` of
+``repro.kernels.ref.mamba2_chunked_jnp`` / ``rwkv6_chunked_jnp`` and
+through the port on the CPU: the scan wrappers' backward (``mamba2_scan_bwd``
+/ ``rwkv6_scan_bwd``, which run their plain versions, the gradients of the
+chunked scans) and ``ref.mamba2_bwd_chunks`` / ``ref.rwkv6_bwd_chunks``,
+plain models of the CUDA backward kernels' own algorithm (the reverse walk
+over 64-step chunks, and RWKV-6's log-decay gradient as a running sum).
+For the reference, B and C are broadcast to every head and their gradients
+summed over each group's rows.  Every gradient is held within 1e-4 of its
+largest |value| in fp32.
+
+The reference's masked upper triangle (``jnp.where(tri, exp(cum_i -
+cum_j), 0)`` in the Mamba2 twin, ``k exp(-cum)`` in the RWKV-6 one) takes
+exp of a positive exponent; where that overflows fp32 its gradient is not
+finite (0 x inf), so the decays drawn here keep it in range, and the
+kernel algorithms are held to autograd of the per-step recurrences at
+decays where the twins' gradients are not finite.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.mamba2_scan import (expand_groups, mamba2_scan_bwd,
+                                             sum_groups)
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd
+
+REL = 1e-4
+
+
+def _close(name, got, exp):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    scale = float(np.abs(exp).max())
+    err = float(np.abs(got - exp).max())
+    assert np.isfinite(got).all(), f"{name}: not finite"
+    assert err <= REL * scale, f"{name}: max|err| {err} > {REL} x {scale}"
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _mamba2_inputs(batch, heads, s, groups, final, seed, dh=16, ds=8,
+                   dt_shift=-2.5):
+    rng = np.random.default_rng(seed)
+    rows = batch * heads
+    g = {"shared": batch, "per-head": rows}[groups]
+    x = rng.normal(size=(rows, s, dh)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(rows, s)) + dt_shift)).astype(
+        np.float32)
+    a = (-np.exp(rng.normal(size=(rows,)) * 0.3)).astype(np.float32)
+    b, c = (rng.normal(size=(g, s, ds)).astype(np.float32) for _ in range(2))
+    d = rng.normal(size=(rows,)).astype(np.float32)
+    dy = rng.normal(size=(rows, s, dh)).astype(np.float32)
+    dh_final = (rng.normal(size=(rows, ds, dh)).astype(np.float32)
+                if final else None)
+    return (x, dt, a, b, c, d), dy, dh_final
+
+
+def _mamba2_reference_grads(args, dy, dh_final):
+    """jax.vjp of the twin with B/C broadcast per head, their gradients
+    summed back over each group's rows."""
+    x, dt, a, b, c, d = args
+    rows, g = x.shape[0], b.shape[0]
+    rep = rows // g
+    bh, ch = np.repeat(b, rep, 0), np.repeat(c, rep, 0)
+    (_, hf), vjp = jax.vjp(
+        lambda *t: jref.mamba2_chunked_jnp(*t, return_final=True),
+        *(jnp.asarray(t) for t in (x, dt, a, bh, ch, d)))
+    grads = [np.asarray(t) for t in vjp((
+        jnp.asarray(dy), jnp.zeros_like(hf) if dh_final is None
+        else jnp.asarray(dh_final)))]
+    for i in (3, 4):
+        grads[i] = grads[i].reshape(g, rep, *grads[i].shape[1:]).sum(1)
+    return grads
+
+
+MAMBA2_CASES = [  # batch, heads, S, groups, final-state gradient
+    (2, 2, 128, "shared", True),      # S a multiple of 64, 2 groups of 2
+    (1, 3, 100, "per-head", False),   # a ragged last chunk, G = BH
+    (2, 3, 37, "shared", True),       # one short chunk, 3 heads a group
+    (1, 2, 200, "per-head", True),    # four chunks, the last ragged
+]
+
+
+@pytest.mark.parametrize("batch,heads,s,groups,final", MAMBA2_CASES)
+def test_mamba2_plain_backward_matches_reference(batch, heads, s, groups,
+                                                 final):
+    args, dy, dh_final = _mamba2_inputs(batch, heads, s, groups, final, 1)
+    exp = _mamba2_reference_grads(args, dy, dh_final)
+    got = mamba2_scan_bwd(*map(_t, args), _t(dy), _t(dh_final))
+    for name, gr, e in zip("x dt a b c d".split(), got, exp):
+        _close(f"d{name}", gr, e)
+
+
+@pytest.mark.parametrize("batch,heads,s,groups,final", MAMBA2_CASES)
+def test_mamba2_kernel_algorithm_matches_reference(batch, heads, s, groups,
+                                                   final):
+    args, dy, dh_final = _mamba2_inputs(batch, heads, s, groups, final, 2)
+    exp = _mamba2_reference_grads(args, dy, dh_final)
+    x, dt, a, b, c, d = map(_t, args)
+    rows, g = x.shape[0], b.shape[0]
+    got = list(tref.mamba2_bwd_chunks(
+        x, dt, a, expand_groups(b, rows), expand_groups(c, rows), d, _t(dy),
+        _t(dh_final)))
+    got[3], got[4] = sum_groups(got[3], g), sum_groups(got[4], g)
+    for name, gr, e in zip("x dt a b c d".split(), got, exp):
+        _close(f"d{name}", gr, e)
+
+
+def test_mamba2_kernel_algorithm_where_the_twin_overflows():
+    """Decays whose masked upper triangle overflows fp32 in the twin (its
+    gradient is not finite there): the kernel's algorithm, whose exponents
+    are all <= 0, against autograd of the fp32 per-step recurrence."""
+    args, dy, dh_final = _mamba2_inputs(1, 2, 128, "per-head", True, 3,
+                                        dt_shift=3.0)
+    exp = _mamba2_reference_grads(args, dy, dh_final)
+    assert not all(np.isfinite(e).all() for e in exp)
+    x, dt, a, b, c, d = map(_t, args)
+    per_step = tref.grads_of(
+        lambda *t: tref.mamba2_ref(*t, return_final=True),
+        (x, dt, a, b, c, d), _t(dy), _t(dh_final))
+    got = tref.mamba2_bwd_chunks(x, dt, a, b, c, d, _t(dy), _t(dh_final))
+    for name, gr, e in zip("x dt a b c d".split(), got, per_step):
+        _close(f"d{name}", gr, e.numpy())
+
+
+def _rwkv6_inputs(rows, s, final, seed, dk=16, dv=8, spread=0.5,
+                  shift=-1.0):
+    rng = np.random.default_rng(seed)
+    r, k = (rng.normal(size=(rows, s, dk)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=(rows, s, dv)).astype(np.float32)
+    logw = (-np.exp(rng.normal(size=(rows, s, dk)) * spread + shift)).astype(
+        np.float32)
+    u = (rng.normal(size=(rows, dk)) * 0.3).astype(np.float32)
+    dy = rng.normal(size=(rows, s, dv)).astype(np.float32)
+    dstate = (rng.normal(size=(rows, dk, dv)).astype(np.float32)
+              if final else None)
+    return (r, k, v, logw, u), dy, dstate
+
+
+def _rwkv6_reference_grads(args, dy, dstate):
+    (_, st), vjp = jax.vjp(
+        lambda *t: jref.rwkv6_chunked_jnp(*t, return_final=True),
+        *(jnp.asarray(t) for t in args))
+    return [np.asarray(t) for t in vjp((
+        jnp.asarray(dy), jnp.zeros_like(st) if dstate is None
+        else jnp.asarray(dstate)))]
+
+
+RWKV6_CASES = [  # rows, S, final-state gradient
+    (3, 128, True),       # S a multiple of 64
+    (2, 100, False),      # a ragged last chunk
+    (2, 37, True),        # one short chunk
+    (1, 200, True),       # four chunks of the kernel, seven of the twin
+]
+
+
+@pytest.mark.parametrize("rows,s,final", RWKV6_CASES)
+def test_rwkv6_plain_backward_matches_reference(rows, s, final):
+    args, dy, dstate = _rwkv6_inputs(rows, s, final, 4)
+    exp = _rwkv6_reference_grads(args, dy, dstate)
+    got = rwkv6_scan_bwd(*map(_t, args), _t(dy), _t(dstate))
+    for name, gr, e in zip("r k v logw u".split(), got, exp):
+        _close(f"d{name}", gr, e)
+
+
+@pytest.mark.parametrize("rows,s,final", RWKV6_CASES)
+def test_rwkv6_kernel_algorithm_matches_reference(rows, s, final):
+    args, dy, dstate = _rwkv6_inputs(rows, s, final, 5)
+    exp = _rwkv6_reference_grads(args, dy, dstate)
+    got = tref.rwkv6_bwd_chunks(*map(_t, args), _t(dy), _t(dstate))
+    for name, gr, e in zip("r k v logw u".split(), got, exp):
+        _close(f"d{name}", gr, e)
+
+
+def test_rwkv6_kernel_algorithm_survives_chunk_sums_below_minus_88():
+    """Fast decays (a 32-step chunk of logw sums far below -88): the twin's
+    gradient is not finite, the kernel's algorithm equals autograd of the
+    fp32 per-step recurrence."""
+    args, dy, dstate = _rwkv6_inputs(2, 100, True, 6, spread=1.5, shift=0.0)
+    cum = np.cumsum(args[3][:, :32], axis=1)[:, -1]
+    assert cum.min() < -88
+    exp = _rwkv6_reference_grads(args, dy, dstate)
+    assert not all(np.isfinite(e).all() for e in exp)
+    targs = tuple(map(_t, args))
+    per_step = tref.grads_of(
+        lambda *t: tref.rwkv6_ref(*t, return_final=True), targs, _t(dy),
+        _t(dstate))
+    got = tref.rwkv6_bwd_chunks(*targs, _t(dy), _t(dstate))
+    for name, gr, e in zip("r k v logw u".split(), got, per_step):
+        _close(f"d{name}", gr, e.numpy())
+
+
+def test_scans_differentiate_through_their_autograd_functions():
+    """``ops.mamba2_scan`` and ``ops.rwkv6_scan`` on inputs that need a
+    gradient: autograd reaches every input through the wrappers' backward
+    (the final state's gradient None when the state is not used, as in
+    training), equal to the backward called with the same dy."""
+    args, dy, _ = _mamba2_inputs(2, 2, 70, "shared", False, 7)
+    leaves = [_t(t).requires_grad_(True) for t in args]
+    y, _ = ops.mamba2_scan(*leaves)
+    got = torch.autograd.grad(y, leaves, _t(dy))
+    exp = mamba2_scan_bwd(*map(_t, args), _t(dy))
+    for g_, e in zip(got, exp):
+        torch.testing.assert_close(g_, e, rtol=0, atol=0)
+    args, dy, _ = _rwkv6_inputs(2, 70, False, 8)
+    leaves = [_t(t).requires_grad_(True) for t in args]
+    y, _ = ops.rwkv6_scan(*leaves)
+    got = torch.autograd.grad(y, leaves, _t(dy))
+    exp = rwkv6_scan_bwd(*map(_t, args), _t(dy))
+    for g_, e in zip(got, exp):
+        torch.testing.assert_close(g_, e, rtol=0, atol=0)
+
+
+def test_backward_wrappers_check_their_inputs():
+    args, dy, _ = _mamba2_inputs(1, 2, 16, "per-head", False, 9)
+    with pytest.raises(ValueError, match="dy"):
+        mamba2_scan_bwd(*map(_t, args), _t(dy[:, :8]))
+    with pytest.raises(ValueError, match="do not match"):
+        mamba2_scan_bwd(*map(_t, args[:5]), _t(args[5][:1]), _t(dy))
+    args, dy, _ = _rwkv6_inputs(2, 16, False, 10)
+    with pytest.raises(ValueError, match="dstate"):
+        rwkv6_scan_bwd(*map(_t, args), _t(dy), torch.zeros(2, 3, 3))

@@ -526,8 +526,9 @@ def test_device_rule():
 @pytest.mark.parametrize("arch", ["zamba2_7b", "rwkv6_7b"])
 def test_recurrent_families_train_on_the_cpu(arch):
     """The hybrid and rwkv families take a gradient on the CPU through
-    their plain scans (one that raises on the card: the gpu tests hold
-    that), and their loss equals the reference's on the same weights."""
+    their scans' autograd Functions, whose backward is the plain backward
+    here (the backward kernels on the card: the gpu tests hold those), and
+    their loss equals the reference's on the same weights."""
     import jax.random as jr
 
     from repro.models.api import build_model as jax_build_model
