@@ -11,7 +11,8 @@ Phases; any failure raises and the script exits non-zero:
    spills for each kernel function, and count the wgmma/TMA (flash
    attention) and tensor-core (both scans) instructions in the SASS where
    the toolkit has ``cuobjdump``, and wgmma/TMA in each of the attention
-   backward's own kernel functions;
+   backward's own kernel functions (head_dim 256's too) and wgmma in the
+   Mamba2 backward's;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it plus edge cases (tile and chunk
    edges, no decay and fast decay, one row, empty and full slots), with its
@@ -87,14 +88,16 @@ Phases; any failure raises and the script exits non-zero:
    bit-identical, the dK/dV blocks' balance as they ran, and DBRX's heads
    at 4,096 tokens, held against the plain backward); attention's at
    head_dim 256, Gemma2's served shape (window 4,096 and global, softcap
-   50) held slice by slice against the plain backward, twice
-   bit-identical, timed beside the backward of ``flex_attention`` under
-   ``torch.compile``, and its edges (one row, ragged, a window under a
+   50) held slice by slice against the plain backward, at both masks
+   twice bit-identical, timed (each pass from a profiler trace) beside the
+   backward of ``flex_attention`` under ``torch.compile`` and beside the
+   first version's time, and its edges (one row, ragged, a window under a
    tile, no mask, the cap biting); the scans' at Zamba2's and RWKV6's
-   served shapes and edges (S off the chunks, one row, G = BH, a
-   final-state gradient, fast RWKV-6 decays) against autograd of the fp32
-   per-step recurrences within 5e-2 of each gradient's max |value|, twice
-   bit-identical, timed; small DBRX-, Zamba2-, RWKV6- and Gemma2-shaped
+   served shapes and edges (S off the chunks, one row, G = BH, three heads
+   a group, a final-state gradient, fast RWKV-6 decays) against autograd
+   of the fp32 per-step recurrences within 5e-2 of each gradient's max
+   |value|, twice bit-identical, timed (Mamba2's beside its first
+   version's time); small DBRX-, Zamba2-, RWKV6- and Gemma2-shaped
    models' loss and gradients in bf16 on the card against fp32 on the
    CPU; then DBRX-132B at full width, depth cut to 2,
    trained through ``Trainer`` for 8 steps of 4 x 512 tokens (AdamW with
@@ -164,7 +167,10 @@ Phases; any failure raises and the script exits non-zero:
    its 4,096 window); the memory arithmetic printed beside the measured
    peak.  Gates: finite losses and gradient norms, a falling loss, exact
    launches (each scan's forward and backward kernel once a layer and
-   step, attention's once a call).
+   step, attention's once a call).  The last step of each runs under
+   ``torch.profiler``, which gives the device ms of the family's backward
+   kernel in a step (``mamba2_scan_bwd``, ``rwkv6_scan_bwd``, attention's
+   at head_dim 256), printed beside the step wall.
 
 Every phase prints its wall (``phase N took X s``) and the script ends
 with all of them; each spawn of ranks prints where its wall went: spawn
@@ -403,17 +409,25 @@ SASS_WANTS = {
 SASS_FUNCTION_WANTS = {
     "flash_attention": {"attn_bwd_dq_kernel": ("HGMMA", "UTMALDG"),
                         "attn_bwd_dkdv_kernel": ("HGMMA", "UTMALDG"),
-                        # head_dim 256's passes: mma.sync
-                        "bwd2569dq_kernel": ("HMMA",),
-                        "bwd25611dkdv_kernel": ("HMMA",)},
+                        # head_dim 256's passes
+                        "bwd2569dq_kernel": ("HGMMA", "UTMALDG"),
+                        "bwd25611dkdv_kernel": ("HGMMA", "UTMALDG")},
+    "mamba2_scan": {"mamba2_bwd_kernel": ("HGMMA",)},
 }
+# the redesigned backward kernels' first versions' device ms (mma.sync at
+# head_dim 256, plain fp32 FMA for Mamba2; a whole-script run on an H100
+# 80GB HBM3 at 700 W), printed beside this run's
+EARLIER_MS = {"flash_attention_bwd 256 global": 46.2700,
+              "flash_attention_bwd 256 window 4096": 34.6647,
+              "mamba2_scan_bwd": 1.5333}
 
 
 def kernel_name(mangled: str) -> str:
-    """``attn_bwd_dq_kernel<128>`` from a mangled template instance's name,
-    ``dispatch_pack_kernel`` from a plain function's."""
+    """``attn_bwd_dq_kernel<128>`` from a mangled template instance's name
+    (``dq_kernel<1>`` for a bool argument), ``dispatch_pack_kernel`` from a
+    plain function's."""
     import re
-    m = re.search(r"ILi(\d+)E", mangled)
+    m = re.search(r"IL[ib](\d+)E", mangled)
     if not m:
         m = re.match(r"_Z(\d+)", mangled)
         return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
@@ -2973,17 +2987,18 @@ def pack_bwd_checks(failures: list) -> dict:
                 bound_by="bytes", **row)
 
 
-def kernel_ms_by_name(fn, calls: int = 10) -> dict:
+def kernel_ms_by_name(fn, calls: int = 10, warm: bool = True) -> dict:
     """Device ms per call of each kernel that ``fn`` launches, by name,
-    from a ``torch.profiler`` trace of ``calls`` calls after a warm one."""
+    from a ``torch.profiler`` trace of the device alone over ``calls``
+    calls (after a warm one, unless ``warm`` is false)."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -3256,8 +3271,12 @@ def _scan_bwd_row(name, source, replaces, call, again, plain, nbytes, flops,
     issue = host_ms(call)
     plain_ms = time_ms(plain, iters=2, warmup=1)
     bnd, by = bound_ms(nbytes, flops)
+    earlier = EARLIER_MS.get(name)
+    then = "" if earlier is None else (
+        f" (the first version: {earlier:.4f} ms, {earlier / ms:.2f}x "
+        f"this time)")
     print(f"  {name} time (device, CUDA graph of 20 calls): kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+          f"ms{then}, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
           f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of products), "
           f"{bnd / ms:.1%} of the bound; library: none (no one PyTorch call "
           f"computes a scan's gradient); host issue {issue_text(issue)}")
@@ -3274,7 +3293,9 @@ def scan_bwd_checks(failures: list) -> dict:
     row, a B/C group a row (G = BH), an incoming final-state gradient, and
     RWKV-6's fast decays (chunk sums far below -88); each gradient within
     ``SCAN_BWD_REL`` of its max |value|; at the served shapes two calls
-    bit-identical and timed.  Returns the kernels line's two rows."""
+    bit-identical and timed.  Mamba2 also with three heads a B/C group,
+    where the kernel's blocks own one head each.  Returns the kernels
+    line's two rows."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -3296,6 +3317,8 @@ def scan_bwd_checks(failures: list) -> dict:
         ("S=63", (2, 4, 63, "shared"), False),
         ("one-row", (1, 1, 65, "per-head"), True),
         ("G=BH", (2, 4, 130, "per-head"), True),
+        # three heads a group: a block of one warpgroup a head
+        ("odd-heads", (2, 3, 200, "shared"), True),
     ]
     for i, (label, (batch, heads, s, groups), final) in enumerate(m_cases):
         x, dt, a, b, c, d = scan_inputs_mamba2(batch, heads, s, groups,
@@ -3383,7 +3406,8 @@ def attention_bwd_256(failures: list) -> dict:
     shape (q [2, 16, 8160, 256] over 8 kv heads, softcap 50, its 4,096
     window and global) against the plain backward, run a (batch, kv head)
     slice at a time (whole, its fp32 scores would take tens of GB), within
-    atol = rtol = 2e-2; two calls bit-identical; timed (device, host issue
+    atol = rtol = 2e-2; two calls bit-identical at both masks; timed
+    (device, each pass from a profiler trace, host issue
     of 5 calls, the slices' plain backward, the bound, and the backward of
     ``flex_attention`` under ``torch.compile`` with the same cap and mask
     as the library call; the backward of ``scaled_dot_product_attention``
@@ -3454,14 +3478,16 @@ def attention_bwd_256(failures: list) -> dict:
               f"{'within' if oks[0] else 'OUTSIDE'} atol=rtol=2e-2")
         if not oks[0]:
             failures.append(f"flash_attention_bwd gemma2 {tag}")
-        if window is None:
-            same = all(torch.equal(a_, c_) for a_, c_ in zip(got, call()))
-            print(f"  flash_attention_bwd gemma2 global called twice: dq, "
-                  f"dk, dv {'bit-identical' if same else 'DIFFER'}")
-            if not same:
-                failures.append("flash_attention_bwd 256: two calls differ")
+        same = all(torch.equal(a_, c_) for a_, c_ in zip(got, call()))
+        print(f"  flash_attention_bwd gemma2 {tag} called twice: dq, dk, dv "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"flash_attention_bwd 256 {tag}: two calls differ")
         del got
         ms = device_ms(call)
+        by_name = kernel_ms_by_name(call, calls=3, warm=False)
+        passes = {part: sum(v for n, v in by_name.items() if part in n)
+                  for part in ("prep_kernel", "dq_kernel", "dkdv_kernel")}
         issue = runs(call, 1, calls=5)[0]
         plain_ms = time_ms(plain_slices, iters=1, warmup=0)
         qs_, ks_, vs_ = (x.detach().requires_grad_(True) for x in (q, k, v))
@@ -3483,12 +3509,20 @@ def attention_bwd_256(failures: list) -> dict:
         nbytes = 2 * (4 * b * hq * s * d + 4 * b * g * s * d) + 4 * b * hq * s
         flops = 10 * b * hq * d * causal_pairs(s, window)
         bnd, by = bound_ms(nbytes, flops)
-        lib_txt = "not measured" if lib is None else f"{lib:.4f} ms"
+        lib_txt = "not measured" if lib is None else (
+            f"{lib:.4f} ms (kernel/flex {ms / lib:.2f}: "
+            f"{'below' if ms < lib else 'NOT below'} it)")
+        earlier = EARLIER_MS[f"flash_attention_bwd 256 {tag}"]
+        split = ", ".join(f"{part.split('_')[0]} {v:.4f} ms" if v else
+                          f"{part.split('_')[0]} not measured"
+                          for part, v in passes.items())
         print(f"  flash_attention_bwd gemma2 {tag} time (device, CUDA graph "
-              f"of 20 calls): kernel {ms:.4f} ms, {flops / ms / 1e9:.1f} "
-              f"TFLOP/s; plain ({b * g} slices) {plain_ms:.4f} ms; the "
-              f"backward of flex_attention {lib_txt}; bound {bnd:.4f} ms "
-              f"({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
+              f"of 20 calls): kernel {ms:.4f} ms (profiler: {split}), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; the first version (mma.sync) "
+              f"{earlier:.4f} ms, {earlier / ms:.2f}x this time; plain "
+              f"({b * g} slices) {plain_ms:.4f} ms; the backward of "
+              f"flex_attention {lib_txt}; bound {bnd:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), "
               f"{bnd / ms:.1%} of the bound; host issue {issue:.4f} ms a call "
               f"(one run of 5 calls); yardstick, not the same function: the "
               f"backward of scaled_dot_product_attention, causal, global, no "
@@ -3496,7 +3530,8 @@ def attention_bwd_256(failures: list) -> dict:
         entry["global" if window is None else "window"] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
             library_ms=lib, max_abs_err=max(errs), host_ms=issue,
-            sdpa_yardstick_ms=sdpa)
+            sdpa_yardstick_ms=sdpa,
+            pass_ms={part.split("_")[0]: v for part, v in passes.items()})
         del out, lse
         torch.cuda.empty_cache()
     del q, k, v, do
@@ -4577,6 +4612,48 @@ def tp_families_phase() -> dict:
 TRAIN_FAMILIES = (("zamba2_7b", 24, 4, 512), ("rwkv6_7b", 8, 4, 512),
                   ("gemma2_9b", 4, 1, 8192))
 TRAIN_FAMILIES_STEPS, TRAIN_FAMILIES_LR = 8, 1e-4
+# each family's backward kernel of the training step whose share of a step
+# phase 15 reads from a profiler trace: (label, parts of its kernels' names)
+STEP_KERNELS = {"zamba2_7b": ("mamba2_scan_bwd", ("mamba2_bwd_kernel",)),
+                "rwkv6_7b": ("rwkv6_scan_bwd", ("rwkv6_bwd_kernel",)),
+                "gemma2_9b": ("flash_attention_bwd at head_dim 256",
+                              ("bwd256::",))}
+
+
+def profile_last_step(tr, steps: int):
+    """Arms a ``torch.profiler`` trace of the device over the last of the
+    trainer ``tr``'s ``steps`` steps: it starts in the trainer's step hook
+    once the step before is recorded and stops once the last is, so
+    neither falls inside a step's wall, and the step is one of those
+    trained and counted.  Returns ``finish()``, which gives each kernel's
+    device ms in that step by name (empty if the step did not run)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    hook, traced = tr.step_hook, []
+
+    def step_hook(step, row):
+        if hook:
+            hook(step, row)
+        if step in (steps - 2, steps - 1):
+            torch.cuda.synchronize()
+            if step == steps - 2:
+                prof.start()
+            elif traced:
+                prof.stop()
+            traced.append(step)
+    tr.step_hook = step_hook
+
+    def finish() -> dict:
+        out = collections.defaultdict(float)
+        if len(traced) == 2:
+            for evt in prof.events():
+                if evt.device_type == torch.autograd.DeviceType.CUDA:
+                    out[evt.name] += evt.time_range.elapsed_us() / 1e3
+        return dict(out)
+    return finish
 
 
 def family_launches(cfg, steps: int) -> dict:
@@ -4596,10 +4673,11 @@ def family_launches(cfg, steps: int) -> dict:
     return launch_counts(**{k: v * steps for k, v in per.items()})
 
 
-def launcher_history(argv: list) -> tuple[list, int]:
+def launcher_history(argv: list, before=None) -> tuple[list, int, object]:
     """``launch.train.main(argv)``, the training entry point a user calls,
-    with the history of its ``Trainer`` and the parameters it trained
-    (kept by wrapping ``Trainer.run`` for the call)."""
+    with the history of its ``Trainer``, the parameters it trained and what
+    ``before(trainer)`` returned, run once before its steps (kept by
+    wrapping ``Trainer.run`` for the call)."""
     from repro_torch.launch import train as launch_train
     from repro_torch.models.api import param_count
     from repro_torch.runtime.trainer import Trainer
@@ -4607,6 +4685,7 @@ def launcher_history(argv: list) -> tuple[list, int]:
     run = Trainer.run
 
     def keep(self):
+        kept["before"] = None if before is None else before(self)
         out = run(self)
         kept["hist"] = list(self.metrics_history)
         kept["params"] = param_count(self.state.params)
@@ -4617,7 +4696,7 @@ def launcher_history(argv: list) -> tuple[list, int]:
             raise AssertionError(f"launch.train {argv} did not return 0")
     finally:
         Trainer.run = run
-    return kept["hist"], kept["params"]
+    return kept["hist"], kept["params"], kept["before"]
 
 
 def train_family(arch: str, depth: int, batch: int, seq: int) -> dict:
@@ -4626,9 +4705,11 @@ def train_family(arch: str, depth: int, batch: int, seq: int) -> dict:
     tokens (seed 0, seed-0 random weights, AdamW with bf16 state on a
     cosine schedule of ``TRAIN_FAMILIES_LR``): Gemma2 through
     ``launch.train.main``, the others through ``Trainer`` as phase 10.
-    Prints the memory arithmetic beside the measured peak.  Gates: finite
-    losses and gradient norms, the mean loss of the last 3 steps below
-    that of the first 3, exact launches.  Returns the launches."""
+    Prints the memory arithmetic beside the measured peak, and the device
+    ms of the family's backward kernel (``STEP_KERNELS``) in the last step,
+    traced by the profiler (``profile_last_step``).  Gates: finite losses and gradient norms, the mean
+    loss of the last 3 steps below that of the first 3, exact launches.
+    Returns the launches."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -4642,18 +4723,22 @@ def train_family(arch: str, depth: int, batch: int, seq: int) -> dict:
     base_gb = torch.cuda.memory_allocated() / 1e9
     ops.reset_launches()
     t0 = time.monotonic()
+
+    def profiled(tr):
+        return profile_last_step(tr, TRAIN_FAMILIES_STEPS)
     if arch == "gemma2_9b":
         how = "launch.train.main"
-        hist, n_params = launcher_history([
+        hist, n_params, finish = launcher_history([
             "--arch", arch, "--layers", str(depth), "--batch", str(batch),
             "--seq", str(seq), "--steps", str(TRAIN_FAMILIES_STEPS),
-            "--lr", str(TRAIN_FAMILIES_LR), "--seed", "0"])
+            "--lr", str(TRAIN_FAMILIES_LR), "--seed", "0"], before=profiled)
     else:
         how = "Trainer"
         trainer = synthetic_trainer(cfg, TRAIN_FAMILIES_LR,
                                     TRAIN_FAMILIES_STEPS, batch=batch,
                                     seq=seq)
         tr = trainer(TRAIN_FAMILIES_STEPS)
+        finish = profiled(tr)
         tr.run()
         hist = tr.metrics_history
         n_params = param_count(tr.state.params)
@@ -4661,6 +4746,7 @@ def train_family(arch: str, depth: int, batch: int, seq: int) -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = ops.launches()
+    by_name = finish()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
     want = family_launches(cfg, TRAIN_FAMILIES_STEPS)
     # bf16 parameters, AdamW's bf16 first and second moments, bf16
@@ -4674,10 +4760,22 @@ def train_family(arch: str, depth: int, batch: int, seq: int) -> dict:
           f"(max_memory_allocated over {base_gb:.2f} GB already held), so "
           f"activations and scratch about {peak_gb - state_gb:.2f} GB; "
           f"{TRAIN_FAMILIES_STEPS} steps and set-up {wall:.1f} s")
-    failures, _ = train_gates(hist, counts, want, tokens=batch * seq)
+    failures, step_ms = train_gates(hist, counts, want, tokens=batch * seq)
     print(f"  launches over {TRAIN_FAMILIES_STEPS} steps: "
           f"{ {k: v for k, v in counts.items() if v} } (expected "
           f"{ {k: v for k, v in want.items() if v} })")
+    label, parts = STEP_KERNELS[arch]
+    total = sum(by_name.values())
+    mine = sum(v for n, v in by_name.items() if any(x in n for x in parts))
+    if total:
+        print(f"  step {TRAIN_FAMILIES_STEPS} under torch.profiler: its "
+              f"kernels' device time {total:.1f} ms, of which {label} "
+              f"{mine:.3f} ms ({mine / total:.1%}), {mine / step_ms:.1%} of "
+              f"the {step_ms:.1f} ms step wall of steps "
+              f"2-{TRAIN_FAMILIES_STEPS}")
+    else:
+        print(f"  step {TRAIN_FAMILIES_STEPS} under torch.profiler: no "
+              f"device events, {label}'s share of a step not measured")
     gc.collect()
     torch.cuda.empty_cache()
     if failures:

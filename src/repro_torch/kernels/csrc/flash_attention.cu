@@ -380,6 +380,29 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The tensors' device made current on the calling thread for the life of
+// an entry's call, and the thread's device before it put back afterwards:
+// the tensor maps' encoder needs the device's context, and a thread of
+// PyTorch's autograd engine (a backward, or a forward recomputed under a
+// checkpoint) may hold none before its first kernel.
+class DeviceBind {
+ public:
+  explicit DeviceBind(int device) {
+    if (cudaGetDevice(&before_) != cudaSuccess) before_ = -1;
+    status_ = cudaSetDevice(device);
+    restore_ = before_ >= 0 && before_ != device;
+  }
+  ~DeviceBind() {
+    if (restore_) cudaSetDevice(before_);
+  }
+  cudaError_t status() const { return status_; }
+
+ private:
+  int before_ = -1;
+  bool restore_ = false;
+  cudaError_t status_;
+};
+
 // A [B, H, S, D] bf16 view given by element strides (batch, head, seq) as a
 // 4-D tensor map (D, S, H, B) with boxes of 64 columns x `rows` rows.
 bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads, int seq, int hd,
@@ -423,6 +446,7 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorM
 // {64, 112, 128, 256}; every stride a multiple of 8 elements and every base
 // 16-byte aligned.  window <= 0 and softcap <= 0 mean none.  lse, when not
 // null, receives each row's log-sum-exp [B, H, Sq] fp32 (for the backward).
+// `device`: the CUDA device of the tensors, current for the call (DeviceBind).
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* o,
@@ -431,9 +455,12 @@ extern "C" int flash_attention(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     int batch, int heads, int kv_heads, int q_len, int kv_len, int head_dim,
-    float scale, float softcap, int causal, int window, void* lse, void* stream) {
+    float scale, float softcap, int causal, int window, void* lse, int device,
+    void* stream) {
   if (head_dim != 64 && head_dim != 112 && head_dim != 128 && head_dim != 256)
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceBind bind(device);
+  if (bind.status() != cudaSuccess) return static_cast<int>(bind.status());
   const int kv_tile = kv_rows(head_dim);
   CUtensorMap qm, km, vm, om;
   if (!make_map(&qm, q, batch, heads, q_len, head_dim, q_sb, q_sh, q_ss, kBlockM) ||
@@ -1213,169 +1240,122 @@ cudaError_t launch_bwd(const CUtensorMap& qm, const CUtensorMap& dom, const CUte
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The backward at head_dim 256 (Gemma2): mma.sync, plain loads.
+// The backward at head_dim 256 (Gemma2), on wgmma and TMA.
 //
 // The two passes above do not fit at 256 columns: the dQ pass's Q and dO
 // slots and K/V rings would take 256 KB of shared memory and the dK/dV
 // pass's over 320 KB, against the 227 KB a block may have; and a consumer
 // warpgroup holding all of dK and dV of a 64-row kv tile would need 2 x 64
 // x 256 fp32 over 128 threads, 256 registers a thread, one more than
-// exist.  So at 256 the columns are split between warps:
+// exist.  So at 256 the two consumer warpgroups of a block split the head
+// dim, and the score tile between them by columns:
 //
-//   * A block of 8 warps owns 64 rows (q rows in the dQ pass, kv rows in
-//     the dK/dV pass); warp w owns rows 16 (w % 4) .. + 15 and the
-//     128-column half w / 4 of the head dim.  Its gradient accumulators are
-//     16 x 128 fp32: 64 registers a thread in the dQ pass, 128 for dK and
-//     dV together in the dK/dV pass.
-//   * The scores of a 64 x 64 step, S = Q K^T and dP = dO V^T, sum over
-//     all 256 columns.  Each warp of a pair takes the products over its own
-//     half (split-K) and writes its partial tile to shared memory; after a
-//     barrier both read the two partials and add them, half 0 plus half 1,
-//     so the pair holds the same bits.  No product is done twice.
-//   * Shared memory: four 64 x 256 bf16 tiles (Q and dO, K and V) with rows
-//     padded to 264 elements (528 bytes, 132 words: the 8 rows and 4
-//     columns of a fragment load hit 32 distinct banks), 4 x 33 KB = 132
-//     KB, plus the partials of S and dP from both halves, 4 x 64 x 64 fp32
-//     = 64 KB, plus the step's lse log2(e) and delta: about 197 KB.
-//   * Products: mma.sync m16n8k16, bf16 in, fp32 accumulate; A fragments
-//     (Q, K, V, dO rows; P and dS repacked from the score fragments as
-//     flash attention does) and B fragments read from shared memory with
-//     plain 32-bit loads, or two 16-bit loads where B runs down the rows
-//     (dS K, P^T dO, dS^T Q).  Tiles arrive with 16-byte loads and a
-//     barrier, not overlapped with the products.
-//   * A first kernel writes each q row's lse log2(e) and delta =
-//     rowsum(dO * O) into the same padded fp32 scratch the passes above
-//     use; the dQ pass then runs a block per (q tile, head, batch) and the
-//     dK/dV pass a block per (kv tile, kv head, batch), which walks the q
-//     heads of its kv head in order and sums their terms: no atomics, the
-//     same bits every call.
+//   * Two passes, as above: dQ, a block per (64-row q tile, head, batch),
+//     the heaviest causal tiles first; then dK/dV, a block per (64-row kv
+//     tile, kv head, batch), which walks the q heads of its kv head and
+//     their q steps in order.  No atomics; every sum runs in one fixed
+//     order, so two calls give the same bits.  A first kernel (prep)
+//     writes each q row's lse log2(e) and delta = rowsum(dO * O) into the
+//     padded fp32 stats scratch.
+//   * The accumulators by head-dim halves.  Consumer warpgroup w owns the
+//     128 columns 128 w .. of the gradients: dQ, 64 fp32 registers a
+//     thread; dK and dV, 128.
+//   * The scores by columns.  Warpgroup w computes S and dP for its own 32
+//     columns of the 64 x 64 step over all 256 columns of the head
+//     (wgmma m64n32k16, both operands K-major in shared memory), applies
+//     the softcap and the mask and forms P and dS in registers, and writes
+//     its halves of them as bf16 into shared memory (64 x 64 tiles, two
+//     buffers).  After one named barrier a step, both warpgroups read the
+//     whole P and dS as the shared-memory A operand of the updates
+//     (m64n128k16, its head-dim half as N, B through the transpose bit):
+//     dQ += dS K; dV += P^T dO and dK += dS^T Q.  The updates run while
+//     the next step's S and dP are issued; the two buffers keep a step's
+//     writes off the tiles the other warpgroup's last updates still read.
+//   * Loads.  One producer thread issues TMA loads (64-column boxes,
+//     128-byte swizzle): the block's own 64-row tiles once (Q and dO, or
+//     K and V, 64 KB), the streamed pair (K and V, or Q, dO and their rows'
+//     stats) through a two-stage ring of 2 x 64 KB on mbarriers.
+//     setmaxnreg gives the producer warpgroup 40 registers a thread and
+//     the consumers 232.  Shared memory: 209 KB (dQ), 226 KB (dK/dV).
+//   * Score math as the forward's: the softcap's tanh by one ex2 and one
+//     approximate reciprocal, P by one fma and one ex2 in the log2 domain;
+//     the softcap and the mask test are template arguments, the mask
+//     tested only on steps that straddle an edge.
 //
-// Operations bound it: at Gemma2's [2, 16, 8160, 256] causal the five
-// products are 2.7 TFLOP, 2.76 ms at 989 TFLOP/s.  This first version
-// trades speed for simplicity (mma.sync, loads not overlapped); making it
-// fast is later work.
+// What bounds it: operations.  At Gemma2's [2, 16, 8160, 256] over 8 kv
+// heads the five products of the causal pairs are 2.7 TFLOP, 2.76 ms at
+// 989 TFLOP/s (the global mask); the two passes compute seven (S and dP
+// twice), so this design reaches at most 5/7 of the rate.  The steps of a
+// block are serial: its warpgroups wait for the scores before the softcap
+// math, which the tensor cores do not overlap.
 namespace bwd256 {
 
 using namespace sm90;
 
-constexpr int kRows = 64;                 // rows of a block, of a step
-constexpr int kHD = 256;
-constexpr int kLdB = kHD + 8;             // padded row of a bf16 tile, elements
-constexpr int kTileB = kRows * kLdB;      // bf16 elements of one tile
-constexpr int kLdX = kRows + 4;           // padded row of an fp32 partial tile
-constexpr int kTileX = kRows * kLdX;
-constexpr int kThreads = 256;
-constexpr int kSmem = 4 * kTileB * 2 + 4 * kTileX * 4 + 2 * kRows * 4;
+constexpr int kRows = 64;                 // rows of a block's tile, of a step
+constexpr int kTile = 4 * kBox;           // a 64 x 256 bf16 tile: four boxes
+constexpr int kStages = 2;                // the streamed pair's ring
+// dQ pass: Q, dO; the K and V rings; two dS tiles; barriers
+constexpr int kDqSmem = 2 * kTile + 2 * kStages * kTile + 2 * kBox + 128 + 1024;
+// dK/dV pass: K, V; the ring of (Q, dO); two P^T and two dS^T tiles; each
+// stage's lse log2(e) and delta; barriers
+constexpr int kKVSmem =
+    2 * kTile + 2 * kStages * kTile + 4 * kBox + kStages * 512 + 128 + 1024;
 
 struct Args {
-  const __nv_bfloat16 *q, *k, *v, *o, *dout;
-  const float* lse;
-  float* stats;                            // [2, B, H, q_pad]
+  const __nv_bfloat16 *o, *dout;           // for prep
+  const float* lse;                        // [B, H, q_len]
+  float* stats;   // [2, B, H, q_pad]: lse log2(e) (+inf past q_len), delta
+  long long stats_half;                    // B H q_pad: where delta starts
   __nv_bfloat16 *dq, *dk, *dv;
-  long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
-  int batch, heads, kv_heads, q_len, kv_len, q_pad;
-  float scale, softcap;                    // softcap <= 0: none
+  long long os[3], dos[3], dqs[3], dks[3], dvs[3];   // (batch, head, seq)
+  int batch, heads, kv_heads, q_len, kv_len, q_pad, q_tiles, kv_tiles;
+  float scale, scale_log2, softcap, cap_log2, inv_cap;   // softcap <= 0: none
   int causal, window;                      // window <= 0: none
 };
 
-// rows [r0, r0 + 64) of a [B, heads, len, 256] tensor into a padded tile,
-// zeros past len
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          const long long (&st)[3], int b, int h, int r0,
-                                          int len) {
-  for (int e = threadIdx.x; e < kRows * kHD / 8; e += kThreads) {
-    const int r = e / (kHD / 8), c = (e % (kHD / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < len)
-      val = *reinterpret_cast<const uint4*>(base + b * st[0] + h * st[1] +
-                                            (long long)(r0 + r) * st[2] + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdB + c) = val;
+// d[16] = A B^T over the 256 columns: A a 64-row tile at shared address
+// a, B the 32 rows of a tile at shared address b (both K-major, four boxes)
+__device__ __forceinline__ void half_scores(float (&d)[16], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    wgmma_ss_n32(d, desc_sw128(a + off, 16), desc_sw128(b + off, 16), kk > 0);
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// d[64] += A B: A a 64 x 64 bf16 tile at shared address a (K-major), B 64
+// rows of 128 columns, two boxes from shared address b (N-major)
+__device__ __forceinline__ void half_update(float (&d)[64], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_ss_n128_bt(d, desc_sw128(a + j * 32, 16), desc_sw128(b + j * 16 * 128, kBox), 1);
 }
 
-// two bf16 down a column: (p[0], p[ld]) as one B fragment register
-__device__ __forceinline__ uint32_t ld_col2(const __nv_bfloat16* p, int ld) {
-  const uint16_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint16_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-// acc[n] (+)= A[16 rows at a, 128 columns] B[64 rows at b, same columns]^T:
-// 16 x 64 scores over one column half (8 k-steps, 8 n-tiles)
-__device__ __forceinline__ void half_scores(float (&acc)[8][4], const __nv_bfloat16* a,
-                                            const __nv_bfloat16* b, int gid, int tig) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll 2
-  for (int kk = 0; kk < 128; kk += 16) {
-    uint32_t af[4];
-    af[0] = ld32(a + gid * kLdB + kk + 2 * tig);
-    af[1] = ld32(a + (gid + 8) * kLdB + kk + 2 * tig);
-    af[2] = ld32(a + gid * kLdB + kk + 8 + 2 * tig);
-    af[3] = ld32(a + (gid + 8) * kLdB + kk + 8 + 2 * tig);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const __nv_bfloat16* br = b + (8 * n + gid) * kLdB + kk + 2 * tig;
-      mma_m16n8k16(acc[n], af, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// acc[n] += F[16 x 64] M[64 rows, 128 columns at m]: F as four k-steps of
-// A fragments, M read down its rows
-__device__ __forceinline__ void half_update(float (&acc)[16][4], const uint32_t (&f)[4][4],
-                                            const __nv_bfloat16* m, int gid, int tig) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      const __nv_bfloat16* col = m + (16 * j + 2 * tig) * kLdB + 8 * n + gid;
-      mma_m16n8k16(acc[n], f[j], ld_col2(col, kLdB), ld_col2(col + 8 * kLdB, kLdB));
-    }
-  }
-}
-
-// the partial tile of this warp (rows r16 .., fragment layout) to x
-__device__ __forceinline__ void put_partial(float* x, const float (&acc)[8][4], int r16,
-                                            int gid, int tig) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    *reinterpret_cast<float2*>(x + (r16 + gid) * kLdX + 8 * n + 2 * tig) =
-        make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(x + (r16 + gid + 8) * kLdX + 8 * n + 2 * tig) =
-        make_float2(acc[n][2], acc[n][3]);
-  }
-}
-
-// element e of n-tile n of rows r16 ..: half 0 plus half 1
-__device__ __forceinline__ float whole(const float* x0, const float* x1, int r16, int gid,
-                                       int tig, int n, int e) {
-  const int at = (r16 + gid + 8 * (e >> 1)) * kLdX + 8 * n + 2 * tig + (e & 1);
-  return x0[at] + x1[at];
-}
-
+// P and dS of one score: raw product x = q.k, dp = do.v, the q row's lse
+// log2(e) and delta; ok = inside the mask.  Under a softcap c the score is
+// c tanh(x scale / c) = c - 2c / (2^(x cap_log2) + 1), as the forward
+// computes it.
 template <bool kSoftcap>
 __device__ __forceinline__ void grad_score(const Args& p, float x, float dp, float lse2,
                                            float delta, bool ok, float& pr, float& ds) {
   if constexpr (kSoftcap) {
-    const float t = tanhf(x * p.scale / p.softcap);
-    pr = ok ? fast_exp2(p.softcap * t * kLog2e - lse2) : 0.f;
+    const float sc = p.softcap - __fdividef(2.f * p.softcap, fast_exp2(x * p.cap_log2) + 1.f);
+    const float t = sc * p.inv_cap;
+    pr = ok ? fast_exp2(fmaf(sc, kLog2e, -lse2)) : 0.f;
     ds = pr * (dp - delta) * (p.scale * (1.f - t * t));
   } else {
-    pr = ok ? fast_exp2(x * p.scale * kLog2e - lse2) : 0.f;
+    pr = ok ? fast_exp2(fmaf(x, p.scale_log2, -lse2)) : 0.f;
     ds = pr * (dp - delta) * p.scale;
   }
 }
 
-__device__ __forceinline__ bool inside(const Args& p, int qr, int kc) {
-  return qr < p.q_len && kc < p.kv_len && (!p.causal || kc <= qr) &&
-         (p.window <= 0 || qr - kc < p.window);
+// a bf16 pair into a 64 x 64 tile with 128-byte rows, 128-byte swizzle:
+// row r, columns 8 c8 + 2 tig, +1
+__device__ __forceinline__ void put2(unsigned char* tile, int r, int c8, int tig, float a,
+                                     float b) {
+  *reinterpret_cast<uint32_t*>(tile + r * 128 + ((c8 ^ (r & 7)) * 16) + tig * 4) =
+      pack_bf16x2(a, b);
 }
 
 // each q row's lse log2(e) (+inf past q_len) and delta = rowsum(dO * O),
@@ -1399,170 +1379,359 @@ __global__ void prep_kernel(const Args p) {
   if (lane == 0) {
     const long long at = (long long)bh * p.q_pad + r;
     p.stats[at] = r < p.q_len ? p.lse[(long long)bh * p.q_len + r] * kLog2e : INFINITY;
-    p.stats[(long long)p.batch * p.heads * p.q_pad + at] = acc;
+    p.stats[p.stats_half + at] = acc;
   }
 }
 
-// dQ: a block per (64-row q tile, head, batch)
-template <bool kSoftcap>
-__global__ void __launch_bounds__(kThreads, 1) dq_kernel(const Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16 *DOs = Qs + kTileB, *Ks = DOs + kTileB, *Vs = Ks + kTileB;
-  float* X = reinterpret_cast<float*>(Vs + kTileB);   // [half][S, dP]
-  float *lse2 = X + 4 * kTileX, *dlt = lse2 + kRows;
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (p.heads / p.kv_heads);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r16 = 16 * (warp & 3), half = warp >> 2, c0 = 128 * half;
-  load_tile(Qs, p.q, p.qs, b, h, q0, p.q_len);
-  load_tile(DOs, p.dout, p.dos, b, h, q0, p.q_len);
-  if (threadIdx.x < kRows) {
-    const long long at = ((long long)b * p.heads + h) * p.q_pad + q0 + threadIdx.x;
-    lse2[threadIdx.x] = p.stats[at];
-    dlt[threadIdx.x] = p.stats[(long long)p.batch * p.heads * p.q_pad + at];
+// dS of one dQ step from this warpgroup's S and dP (element e of n-tile n:
+// q row rl[e >> 1] of the tile, key k0 + 32 wg + 8 n + 2 tig + (e & 1))
+// into the dS tile; kEdge: the step straddles a mask edge
+template <bool kSoftcap, bool kEdge>
+__device__ __forceinline__ void dq_step(const Args& p, const float (&s)[16],
+                                        const float (&dp)[16], const float (&lse2)[2],
+                                        const float (&dlt)[2], const int (&lo)[2],
+                                        const int (&hi)[2], int k0, int wg, int rl, int tig,
+                                        unsigned char* tile) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const int c = k0 + 32 * wg + 8 * n + 2 * tig + (e & 1);
+      float pr;
+      grad_score<kSoftcap>(p, s[4 * n + e], dp[4 * n + e], lse2[r], dlt[r],
+                           !kEdge || (c >= lo[r] && c < hi[r]), pr, ds[e]);
+    }
+    put2(tile, rl, 4 * wg + n, tig, ds[0], ds[1]);
+    put2(tile, rl + 8, 4 * wg + n, tig, ds[2], ds[3]);
   }
-  int kv_end = p.kv_len, kv_begin = 0;
+}
+
+// P^T and dS^T of one dK/dV step (element e of n-tile n: kv row c0 + 8 (e
+// >> 1), q row q0 + 32 wg + 8 n + 2 tig + (e & 1)) into their tiles; the
+// step's lse log2(e) and delta from shared memory
+template <bool kSoftcap, bool kEdge>
+__device__ __forceinline__ void dkdv_step(const Args& p, const float (&s)[16],
+                                          const float (&dp)[16], const float* lse2,
+                                          const float* delta, int q0, int c0, int wg, int rl,
+                                          int tig, unsigned char* pt, unsigned char* dst) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int ql = 32 * wg + 8 * n + 2 * tig;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + ql);
+    const float2 dl = *reinterpret_cast<const float2*>(delta + ql);
+    float pr[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = q0 + ql + (e & 1);
+      const int c = c0 + 8 * (e >> 1);
+      const bool ok =
+          !kEdge || ((!p.causal || c <= r) && (p.window <= 0 || r - c < p.window));
+      grad_score<kSoftcap>(p, s[4 * n + e], dp[4 * n + e], (e & 1) ? l2.y : l2.x,
+                           (e & 1) ? dl.y : dl.x, ok, pr[e], ds[e]);
+    }
+    put2(pt, rl, 4 * wg + n, tig, pr[0], pr[1]);
+    put2(pt, rl + 8, 4 * wg + n, tig, pr[2], pr[3]);
+    put2(dst, rl, 4 * wg + n, tig, ds[0], ds[1]);
+    put2(dst, rl + 8, 4 * wg + n, tig, ds[2], ds[3]);
+  }
+}
+
+// 64 fp32 gradients of this thread (rows rl, rl + 8 of the tile from row0,
+// columns 128 wg + 8 n + 2 tig, +1) as bf16 into a [B, heads, len, 256]
+// tensor, rows past len not written
+__device__ __forceinline__ void store_half(__nv_bfloat16* out, const long long (&st)[3], int b,
+                                           int h, int row0, int len, const float (&d)[64],
+                                           int wg, int rl, int tig) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + rl + 8 * r;
+    if (row >= len) continue;
+    __nv_bfloat16* dst = out + b * st[0] + h * st[1] + (long long)row * st[2] + 128 * wg;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n + 2 * tig) =
+          pack_bf16x2(d[4 * n + 2 * r], d[4 * n + 2 * r + 1]);
+  }
+}
+
+// the q steps that may attend kv tile k0: [first, first + count)
+__device__ __forceinline__ void q_steps(const Args& p, int k0, int& first, int& count) {
+  const int q_begin = p.causal ? k0 : 0;
+  const int q_end = p.window > 0 ? min(p.q_len, k0 + kRows - 1 + p.window) : p.q_len;
+  first = q_begin / kRows;
+  count = q_end > q_begin ? (q_end + kRows - 1) / kRows - first : 0;
+}
+
+// dQ: a block per (64-row q tile, head, batch), the q tile the slowest
+// index, heaviest causal tiles first
+template <bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
+          const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
+          const Args p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base, do_s = base + kTile;
+  const uint32_t k_s = base + 2 * kTile, v_s = k_s + kStages * kTile;
+  const uint32_t ds_s = v_s + kStages * kTile;        // [2] 64 x 64 bf16
+  const uint32_t q_full = ds_s + 2 * kBox;
+  const uint32_t k_full = q_full + 8;                 // [kStages]
+  const uint32_t v_full = k_full + 8 * kStages;       // [kStages]
+  const uint32_t kv_empty = v_full + 8 * kStages;     // [kStages]
+
+  const int per = p.heads * p.batch;
+  const int z = blockIdx.x / per;
+  const int h = (blockIdx.x % per) % p.heads, b = (blockIdx.x % per) / p.heads;
+  const int q0 = (p.causal ? p.q_tiles - 1 - z : z) * kRows;
+  const int g = h / (p.heads / p.kv_heads);
+  int kv_begin = 0, kv_end = p.kv_len;
   if (p.causal) kv_end = min(kv_end, min(q0 + kRows, p.q_len));
   if (p.window > 0) kv_begin = max(0, q0 - p.window + 1) / kRows * kRows;
-  float acc[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kRows) {
-    __syncthreads();
-    load_tile(Ks, p.k, p.ks, b, g, k0, p.kv_len);
-    load_tile(Vs, p.v, p.vs, b, g, k0, p.kv_len);
-    __syncthreads();
-    float part[8][4];
-    half_scores(part, Qs + r16 * kLdB + c0, Ks + c0, gid, tig);
-    put_partial(X + (2 * half) * kTileX, part, r16, gid, tig);
-    half_scores(part, DOs + r16 * kLdB + c0, Vs + c0, gid, tig);
-    put_partial(X + (2 * half + 1) * kTileX, part, r16, gid, tig);
-    __syncthreads();
-    uint32_t sa[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = r16 + gid + 8 * (e >> 1);
-        const int kc = k0 + 8 * n + 2 * tig + (e & 1);
-        float pr;
-        grad_score<kSoftcap>(p, whole(X, X + 2 * kTileX, r16, gid, tig, n, e),
-                             whole(X + kTileX, X + 3 * kTileX, r16, gid, tig, n, e),
-                             lse2[rr], dlt[rr], inside(p, q0 + rr, kc), pr, ds[e]);
-      }
-      sa[n / 2][(n % 2) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
-      sa[n / 2][(n % 2) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + kRows - 1) / kRows : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, kConsumers);
     }
-    half_update(acc, sa, Ks + c0, gid, tig);
+    fence_barrier_init();
   }
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = q0 + r16 + gid + 8 * hr;
-      if (r < p.q_len)
-        *reinterpret_cast<uint32_t*>(p.dq + b * p.dqs[0] + h * p.dqs[1] +
-                                     (long long)r * p.dqs[2] + c0 + 8 * n + 2 * tig) =
-            pack_bf16x2(acc[n][2 * hr], acc[n][2 * hr + 1]);
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---------------- producer warpgroup: one thread issues ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_full, 2 * kTile);
+      for (int c = 0; c < 4; ++c) {
+        tma_load_4d(q_s + c * kBox, &q_map, q_full, 64 * c, q0, h, b);
+        tma_load_4d(do_s + c * kBox, &do_map, q_full, 64 * c, q0, h, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        const int use = it / kStages;
+        if (use > 0) mbar_wait(kv_empty + 8 * st, (use - 1) & 1);
+        const int k0 = kv_begin + it * kRows;
+        const uint32_t kd = k_s + st * kTile, vd = v_s + st * kTile;
+        mbar_expect_tx(k_full + 8 * st, kTile);
+        for (int c = 0; c < 4; ++c)
+          tma_load_4d(kd + c * kBox, &k_map, k_full + 8 * st, 64 * c, k0, g, b);
+        mbar_expect_tx(v_full + 8 * st, kTile);
+        for (int c = 0; c < 4; ++c)
+          tma_load_4d(vd + c * kBox, &v_map, v_full + 8 * st, 64 * c, k0, g, b);
+      }
     }
+    return;
+  }
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128;
+  const int tw = threadIdx.x % 128;
+  const int lane = tw % 32;
+  const int rl = 16 * (tw / 32) + lane / 4;   // this thread's tile rows rl, rl + 8
+  const int tig = lane % 4;
+  const long long bh = (long long)b * p.heads + h;
+  float lse2[2], dlt[2];
+  int hi[2], lo[2];   // keys row r may attend: lo[r] <= c < hi[r]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + rl + 8 * r;
+    lse2[r] = p.stats[bh * p.q_pad + row];
+    dlt[r] = p.stats[p.stats_half + bh * p.q_pad + row];
+    hi[r] = p.causal ? min(p.kv_len, row + 1) : p.kv_len;
+    lo[r] = p.window > 0 ? row - p.window + 1 : 0;
+  }
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  mbar_wait(q_full, 0);
+  // the dQ update of a step runs while the next step's S and dP are
+  // issued: `pending` is the stage whose K that update still reads
+  int pending = -1;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    const uint32_t par = (it / kStages) & 1;
+    const int k0 = kv_begin + it * kRows;
+    const uint32_t kd = k_s + st * kTile, vd = v_s + st * kTile;
+    float s[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(k_full + 8 * st, par);
+    wgmma_fence();
+    half_scores(s, q_s, kd + 32 * wg * 128);      // S = Q K^T, 32 columns
+    wgmma_commit();
+    mbar_wait(v_full + 8 * st, par);
+    half_scores(dp, do_s, vd + 32 * wg * 128);    // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait_all();                             // and the last step's update
+    fence_operands(s);
+    fence_operands(dp);
+    fence_operands(dq);
+    if (pending >= 0) mbar_arrive(kv_empty + 8 * pending);
+    pending = st;
+
+    unsigned char* tile = smem + (ds_s - base) + (it & 1) * kBox;
+    const bool edge = (k0 + kRows > p.kv_len) || (p.causal && k0 + kRows - 1 > q0) ||
+                      (p.window > 0 && q0 + kRows - 1 - k0 >= p.window);
+    if (edge) dq_step<kSoftcap, true>(p, s, dp, lse2, dlt, lo, hi, k0, wg, rl, tig, tile);
+    else dq_step<kSoftcap, false>(p, s, dp, lse2, dlt, lo, hi, k0, wg, rl, tig, tile);
+    fence_proxy_async();
+    named_barrier(1, kConsumers);                 // both halves of dS written
+    // ---- dQ[:, 128 wg ..] += dS K[:, 128 wg ..], waited for at the next step ----
+    wgmma_fence();
+    half_update(dq, ds_s + (it & 1) * kBox, kd + 2 * wg * kBox);
+    wgmma_commit();
+  }
+  wgmma_wait_all();
+  fence_operands(dq);
+  if (pending >= 0) mbar_arrive(kv_empty + 8 * pending);
+  store_half(p.dq, p.dqs, b, h, q0, p.q_len, dq, wg, rl, tig);
 }
 
-// dK and dV: a block per (64-row kv tile, kv head, batch), over the q heads
-// of its kv head in order
+// dK and dV: a block per (64-row kv tile, kv head, batch), the kv tile the
+// slowest index (tile 0 has the most causal q steps), over the q heads of
+// its kv head and their q steps in order
 template <bool kSoftcap>
-__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16 *Vs = Ks + kTileB, *Qs = Vs + kTileB, *DOs = Qs + kTileB;
-  float* X = reinterpret_cast<float*>(DOs + kTileB);
-  float *lse2 = X + 4 * kTileX, *dlt = lse2 + kRows;
-  const int k0 = blockIdx.x * kRows, g = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
+            const __grid_constant__ CUtensorMap do_map,
+            const __grid_constant__ CUtensorMap k_map,
+            const __grid_constant__ CUtensorMap v_map, const Args p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t k_s = base, v_s = base + kTile;
+  const uint32_t ring = base + 2 * kTile;             // [kStages] (Q, dO)
+  const uint32_t pt_s = ring + kStages * 2 * kTile;   // [2] P^T, 64 x 64 bf16
+  const uint32_t dst_s = pt_s + 2 * kBox;             // [2] dS^T
+  const uint32_t stats_s = dst_s + 2 * kBox;          // [kStages] lse2[64], delta[64]
+  const uint32_t kv_full = stats_s + kStages * 512;
+  const uint32_t full = kv_full + 8;                  // [kStages]
+  const uint32_t empty = full + 8 * kStages;          // [kStages]
+
+  const int per = p.kv_heads * p.batch;
+  const int k0 = (blockIdx.x / per) * kRows;
+  const int g = (blockIdx.x % per) % p.kv_heads, b = (blockIdx.x % per) / p.kv_heads;
   const int rep = p.heads / p.kv_heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r16 = 16 * (warp & 3), half = warp >> 2, c0 = 128 * half;
-  load_tile(Ks, p.k, p.ks, b, g, k0, p.kv_len);
-  load_tile(Vs, p.v, p.vs, b, g, k0, p.kv_len);
-  int q_begin = 0, q_end = p.q_len;
-  if (p.causal) q_begin = k0 / kRows * kRows;
-  if (p.window > 0) q_end = min(q_end, k0 + kRows - 1 + p.window);
-  float dk[16][4], dv[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = g * rep + hh;
-    for (int q0 = q_begin; q0 < q_end; q0 += kRows) {
-      __syncthreads();
-      load_tile(Qs, p.q, p.qs, b, h, q0, p.q_len);
-      load_tile(DOs, p.dout, p.dos, b, h, q0, p.q_len);
-      if (threadIdx.x < kRows) {
-        const long long at = ((long long)b * p.heads + h) * p.q_pad + q0 + threadIdx.x;
-        lse2[threadIdx.x] = p.stats[at];
-        dlt[threadIdx.x] = p.stats[(long long)p.batch * p.heads * p.q_pad + at];
-      }
-      __syncthreads();
-      float part[8][4];
-      half_scores(part, Ks + r16 * kLdB + c0, Qs + c0, gid, tig);
-      put_partial(X + (2 * half) * kTileX, part, r16, gid, tig);
-      half_scores(part, Vs + r16 * kLdB + c0, DOs + c0, gid, tig);
-      put_partial(X + (2 * half + 1) * kTileX, part, r16, gid, tig);
-      __syncthreads();
-      // P^T and dS^T: element e of n-tile n is kv row r16 + gid + 8 (e >> 1),
-      // q row 8 n + 2 tig + (e & 1)
-      uint32_t pa[4][4], sa[4][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        float pr[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qr = 8 * n + 2 * tig + (e & 1);
-          const int kc = k0 + r16 + gid + 8 * (e >> 1);
-          grad_score<kSoftcap>(p, whole(X, X + 2 * kTileX, r16, gid, tig, n, e),
-                               whole(X + kTileX, X + 3 * kTileX, r16, gid, tig, n, e),
-                               lse2[qr], dlt[qr], inside(p, q0 + qr, kc), pr[e], ds[e]);
-        }
-        pa[n / 2][(n % 2) * 2 + 0] = pack_bf16x2(pr[0], pr[1]);
-        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16x2(pr[2], pr[3]);
-        sa[n / 2][(n % 2) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
-        sa[n / 2][(n % 2) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
-      }
-      half_update(dv, pa, DOs + c0, gid, tig);
-      half_update(dk, sa, Qs + c0, gid, tig);
+  int first, count;
+  q_steps(p, k0, first, count);
+  const int units = rep * count;   // (q head, q step), q head the slower
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
     }
+    fence_barrier_init();
   }
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = k0 + r16 + gid + 8 * hr;
-      if (r < p.kv_len) {
-        const int c = c0 + 8 * n + 2 * tig;
-        *reinterpret_cast<uint32_t*>(p.dk + b * p.dks[0] + g * p.dks[1] +
-                                     (long long)r * p.dks[2] + c) =
-            pack_bf16x2(dk[n][2 * hr], dk[n][2 * hr + 1]);
-        *reinterpret_cast<uint32_t*>(p.dv + b * p.dvs[0] + g * p.dvs[1] +
-                                     (long long)r * p.dvs[2] + c) =
-            pack_bf16x2(dv[n][2 * hr], dv[n][2 * hr + 1]);
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---------------- producer warpgroup: one thread issues ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(kv_full, 2 * kTile);
+      for (int c = 0; c < 4; ++c) {
+        tma_load_4d(k_s + c * kBox, &k_map, kv_full, 64 * c, k0, g, b);
+        tma_load_4d(v_s + c * kBox, &v_map, kv_full, 64 * c, k0, g, b);
+      }
+      for (int u = 0; u < units; ++u) {
+        const int hq = g * rep + u / count;
+        const int q0 = (first + u % count) * kRows;
+        const int st = u % kStages;
+        const int use = u / kStages;
+        if (use > 0) mbar_wait(empty + 8 * st, (use - 1) & 1);
+        const uint32_t qd = ring + st * 2 * kTile;
+        mbar_expect_tx(full + 8 * st, 2 * kTile + 512);
+        for (int c = 0; c < 4; ++c) {
+          tma_load_4d(qd + c * kBox, &q_map, full + 8 * st, 64 * c, q0, hq, b);
+          tma_load_4d(qd + kTile + c * kBox, &do_map, full + 8 * st, 64 * c, q0, hq, b);
+        }
+        const float* lse2 = p.stats + ((long long)b * p.heads + hq) * p.q_pad + q0;
+        bulk_load(stats_s + st * 512, lse2, 256, full + 8 * st);
+        bulk_load(stats_s + st * 512 + 256, lse2 + p.stats_half, 256, full + 8 * st);
       }
     }
+    return;
+  }
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128;
+  const int tw = threadIdx.x % 128;
+  const int lane = tw % 32;
+  const int rl = 16 * (tw / 32) + lane / 4;   // this thread's kv rows k0 + rl, + 8
+  const int tig = lane % 4;
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  // the updates of a step run while the next step's S^T and dP^T are
+  // issued: `pending` is the stage whose Q and dO they still read
+  int pending = -1;
+  for (int u = 0; u < units; ++u) {
+    const int q0 = (first + u % count) * kRows;
+    const int st = u % kStages;
+    const uint32_t qd = ring + st * 2 * kTile, dod = qd + kTile;
+    float s[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(full + 8 * st, (u / kStages) & 1);
+    wgmma_fence();
+    half_scores(s, k_s, qd + 32 * wg * 128);      // S^T = K Q^T, 32 q columns
+    half_scores(dp, v_s, dod + 32 * wg * 128);    // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait_all();                             // and the last step's updates
+    fence_operands(s);
+    fence_operands(dp);
+    fence_operands(dk);
+    fence_operands(dv);
+    if (pending >= 0) mbar_arrive(empty + 8 * pending);
+    pending = st;
+
+    const float* lse2 = reinterpret_cast<const float*>(smem + (stats_s - base) + st * 512);
+    unsigned char* pt = smem + (pt_s - base) + (u & 1) * kBox;
+    unsigned char* dst = smem + (dst_s - base) + (u & 1) * kBox;
+    const bool edge = (p.causal && q0 < k0 + kRows - 1) ||
+                      (p.window > 0 && q0 + kRows - 1 - k0 >= p.window);
+    if (edge)
+      dkdv_step<kSoftcap, true>(p, s, dp, lse2, lse2 + 64, q0, k0 + rl, wg, rl, tig, pt, dst);
+    else
+      dkdv_step<kSoftcap, false>(p, s, dp, lse2, lse2 + 64, q0, k0 + rl, wg, rl, tig, pt, dst);
+    fence_proxy_async();
+    named_barrier(1, kConsumers);                 // both halves of P^T and dS^T written
+    // ---- dV += P^T dO, dK += dS^T Q on this warpgroup's 128 columns ----
+    wgmma_fence();
+    half_update(dv, pt_s + (u & 1) * kBox, dod + 2 * wg * kBox);
+    half_update(dk, dst_s + (u & 1) * kBox, qd + 2 * wg * kBox);
+    wgmma_commit();
+  }
+  wgmma_wait_all();
+  fence_operands(dk);
+  fence_operands(dv);
+  if (pending >= 0) mbar_arrive(empty + 8 * pending);
+  store_half(p.dk, p.dks, b, g, k0, p.kv_len, dk, wg, rl, tig);
+  store_half(p.dv, p.dvs, b, g, k0, p.kv_len, dv, wg, rl, tig);
 }
 
 template <bool kSoftcap>
-cudaError_t launch(const Args& p, cudaStream_t stream) {
+cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& dom, const CUtensorMap& km,
+                   const CUtensorMap& vm, const Args& p, cudaStream_t stream) {
   static bool configured = false;   // once per process
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(dq_kernel<kSoftcap>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kDqSmem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(dkdv_kernel<kSoftcap>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kKVSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -1570,11 +1739,12 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
   prep_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<kSoftcap><<<dim3(p.q_pad / kRows, p.heads, p.batch), kThreads, kSmem, stream>>>(p);
+  dq_kernel<kSoftcap><<<p.q_tiles * p.heads * p.batch, kThreads, kDqSmem, stream>>>(
+      qm, dom, km, vm, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<kSoftcap><<<dim3((p.kv_len + kRows - 1) / kRows, p.kv_heads, p.batch),
-                          kThreads, kSmem, stream>>>(p);
+  dkdv_kernel<kSoftcap><<<p.kv_tiles * p.kv_heads * p.batch, kThreads, kKVSmem, stream>>>(
+      qm, dom, km, vm, p);
   return cudaGetLastError();
 }
 
@@ -1586,34 +1756,13 @@ int backward(const void* q, const void* k, const void* v, const void* o, const v
              const void* lse, void* stats, void* dq, void* dk, void* dv,
              const long long* strides, int batch, int heads, int kv_heads, int q_len,
              int kv_len, int head_dim, float scale, float softcap, int causal, int window,
-             void* stream, long long* record, long long record_blocks) {
+             int device, void* stream, long long* record, long long record_blocks) {
   if ((head_dim != 64 && head_dim != 112 && head_dim != 128 && head_dim != 256) ||
       batch < 1 || q_len < 1 || kv_len < 1 || kv_heads < 1 || heads % kv_heads)
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceBind bind(device);
+  if (bind.status() != cudaSuccess) return static_cast<int>(bind.status());
   const long long* s = strides;
-  if (head_dim == 256) {        // mma.sync passes; no per-block record
-    if (record) return static_cast<int>(cudaErrorInvalidValue);
-    bwd256::Args a;
-    a.q = static_cast<const __nv_bfloat16*>(q);
-    a.k = static_cast<const __nv_bfloat16*>(k);
-    a.v = static_cast<const __nv_bfloat16*>(v);
-    a.o = static_cast<const __nv_bfloat16*>(o);
-    a.dout = static_cast<const __nv_bfloat16*>(dout);
-    a.lse = static_cast<const float*>(lse);
-    a.stats = static_cast<float*>(stats);
-    a.dq = static_cast<__nv_bfloat16*>(dq);
-    a.dk = static_cast<__nv_bfloat16*>(dk);
-    a.dv = static_cast<__nv_bfloat16*>(dv);
-    long long* dst[8] = {a.qs, a.ks, a.vs, a.os, a.dos, a.dqs, a.dks, a.dvs};
-    for (int t = 0; t < 8; ++t)
-      for (int i = 0; i < 3; ++i) dst[t][i] = s[3 * t + i];
-    a.batch = batch; a.heads = heads; a.kv_heads = kv_heads; a.q_len = q_len;
-    a.kv_len = kv_len; a.q_pad = (q_len + kBwdRows - 1) / kBwdRows * kBwdRows;
-    a.scale = scale; a.softcap = softcap; a.causal = causal; a.window = window;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return static_cast<int>(softcap > 0.f ? bwd256::launch<true>(a, st)
-                                          : bwd256::launch<false>(a, st));
-  }
   CUtensorMap qm, dom, km, vm, dqm;
   if (!make_map(&qm, q, batch, heads, q_len, head_dim, s[0], s[1], s[2], kBwdRows) ||
       !make_map(&km, k, batch, kv_heads, kv_len, head_dim, s[3], s[4], s[5], kBwdRows) ||
@@ -1621,6 +1770,33 @@ int backward(const void* q, const void* k, const void* v, const void* o, const v
       !make_map(&dom, dout, batch, heads, q_len, head_dim, s[12], s[13], s[14], kBwdRows) ||
       !make_map(&dqm, dq, batch, heads, q_len, head_dim, s[15], s[16], s[17], kBwdRows))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim == 256) {        // the split-head-dim passes; no per-block record
+    if (record) return static_cast<int>(cudaErrorInvalidValue);
+    bwd256::Args a;
+    a.o = static_cast<const __nv_bfloat16*>(o);
+    a.dout = static_cast<const __nv_bfloat16*>(dout);
+    a.lse = static_cast<const float*>(lse);
+    a.stats = static_cast<float*>(stats);
+    a.dq = static_cast<__nv_bfloat16*>(dq);
+    a.dk = static_cast<__nv_bfloat16*>(dk);
+    a.dv = static_cast<__nv_bfloat16*>(dv);
+    long long* dst[5] = {a.os, a.dos, a.dqs, a.dks, a.dvs};
+    const int src[5] = {3, 4, 5, 6, 7};   // o, dout, dq, dk, dv in strides[]
+    for (int t = 0; t < 5; ++t)
+      for (int i = 0; i < 3; ++i) dst[t][i] = s[3 * src[t] + i];
+    a.batch = batch; a.heads = heads; a.kv_heads = kv_heads; a.q_len = q_len;
+    a.kv_len = kv_len; a.q_pad = (q_len + kBwdRows - 1) / kBwdRows * kBwdRows;
+    a.q_tiles = a.q_pad / kBwdRows;
+    a.kv_tiles = (kv_len + kBwdRows - 1) / kBwdRows;
+    a.stats_half = (long long)batch * heads * a.q_pad;
+    a.scale = scale; a.scale_log2 = scale * kLog2e; a.softcap = softcap;
+    a.cap_log2 = softcap > 0.f ? 2.f * kLog2e * scale / softcap : 0.f;
+    a.inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+    a.causal = causal; a.window = window;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(softcap > 0.f ? bwd256::launch<true>(qm, dom, km, vm, a, st)
+                                          : bwd256::launch<false>(qm, dom, km, vm, a, st));
+  }
   BwdParams p;
   p.batch = batch; p.heads = heads; p.kv_heads = kv_heads; p.q_len = q_len;
   p.kv_len = kv_len;
@@ -1662,15 +1838,17 @@ int backward(const void* q, const void* k, const void* v, const void* o, const v
 // elements and every base 16-byte aligned.  lse [B, H, Sq] fp32 from the
 // forward; stats fp32 scratch of 2 x B x H x Sq' elements (Sq' = Sq rounded
 // up to a multiple of 64), 16-byte aligned.  D in {64, 112, 128, 256}.
-// Two launches on `stream` (three at 256: the scratch's rows first);
-// returns cudaGetLastError() after the last.
+// `device`: the CUDA device of the tensors, current for the call.  Two
+// launches on `stream` (three at 256: the scratch's rows first); returns
+// cudaGetLastError() after the last.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* stats, void* dq, void* dk, void* dv, const long long* strides,
     int batch, int heads, int kv_heads, int q_len, int kv_len, int head_dim, float scale,
-    float softcap, int causal, int window, void* stream) {
+    float softcap, int causal, int window, int device, void* stream) {
   return backward(q, k, v, o, dout, lse, stats, dq, dk, dv, strides, batch, heads, kv_heads,
-                  q_len, kv_len, head_dim, scale, softcap, causal, window, stream, nullptr, 0);
+                  q_len, kv_len, head_dim, scale, softcap, causal, window, device, stream,
+                  nullptr, 0);
 }
 
 // flash_attention_bwd, which also writes into `record` (int64, `blocks`
@@ -1683,9 +1861,10 @@ extern "C" int flash_attention_bwd_record(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* stats, void* dq, void* dk, void* dv, const long long* strides,
     int batch, int heads, int kv_heads, int q_len, int kv_len, int head_dim, float scale,
-    float softcap, int causal, int window, void* stream, void* record, long long blocks) {
+    float softcap, int causal, int window, int device, void* stream, void* record,
+    long long blocks) {
   return backward(q, k, v, o, dout, lse, stats, dq, dk, dv, strides, batch, heads, kv_heads,
-                  q_len, kv_len, head_dim, scale, softcap, causal, window, stream,
+                  q_len, kv_len, head_dim, scale, softcap, causal, window, device, stream,
                   static_cast<long long*>(record), blocks);
 }
 

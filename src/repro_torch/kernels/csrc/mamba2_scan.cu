@@ -68,7 +68,6 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
-#include "tile64.cuh"
 
 namespace {
 
@@ -398,7 +397,7 @@ extern "C" int mamba2_scan(const void* x, const void* dt, const void* a,
 }
 
 // ---------------------------------------------------------------------------
-// The backward: mamba2_scan_bwd.
+// The backward: mamba2_scan_bwd, on the tensor cores.
 //
 // The TPU kernel has no backward: the reference differentiates its jnp twin
 // (mamba2_chunked_jnp) with JAX.  This kernel computes the same gradients,
@@ -417,299 +416,717 @@ extern "C" int mamba2_scan(const void* x, const void* dt, const void* a,
 //   g    <- exp(cum_Q) g + sum_i exp(cum_i) C_i dy_i^T
 //
 // with R the reverse cumsum of dcum inside the chunk (cum = a cumsum(dt)).
-// Every exponent is <= 0.  dD = sum dy . x.  B and C are read by group; dB
-// and dC leave as per-row fp32 partials [BH, S, ds], which the wrapper sums
-// over a group's rows in a fixed order (no float atomics).
+// Every exponent is <= 0.  dD = sum dy . x.  B and C are read by group.
 //
-// States: a first forward walk writes each chunk's starting state and the
-// final state into an fp32 scratch [BH, nc + 1, ds, dh] (recomputed rather
-// than saved by the forward: 58.7 MB at Zamba2's [448, 512, 64], which
-// training would hold from each layer's forward to its backward, 1.4 GB
-// over 24 layers; recomputing costs one state update per chunk, a ninth of
-// the backward's products, and the scratch lives only during the call).
+// What bounds it on an H100: bytes, at Zamba2's [448, 512, 64] about 91 MB
+// of inputs and gradients read and written once (0.027 ms at 3.35 TB/s)
+// against about 19 GFLOP of chunk products (ten 64^3 products a chunk, the
+// state's recompute included; 0.019 ms at the bf16 rate); each row's
+// chunk chain is serial, so what sets the time is the instructions and
+// latencies of each chunk step.  The design is the forward's:
 //
-// What bounds it on an H100: bytes, at Zamba2's shape about 91 MB read and
-// written (0.027 ms at 3.35 TB/s; the scratch adds 2 x 66 MB through L2)
-// against about 19 GFLOP of fp32 products.  This first version is plain
-// fp32 FMA: one block of 256 threads a row (Zamba2: 448 blocks), every
-// operand in shared memory as 64 x 64 fp32 tiles (tile64.cuh), each thread
-// a 4 x 4 register tile of each product; the rows' chains are serial, the
-// products run at the shared-memory load rate.  Making it fast (the
-// tensor-core products of the forward) is later work.
+//   * Tensor cores.  One warpgroup owns one head; every product is wgmma
+//     m64n64k16, fp32 accumulate.  x, dy, B and C enter exactly (bf16).
+//     The operands made in fp32 enter as a split pair hi + lo of bf16
+//     (split2: two products each, about 2^-16 of their value): the
+//     decayed CBL^T dt and dML^T (for dx and dB) and dML dt (for dC), kept
+//     in registers as the A operand, re-packed from the accumulators of
+//     B C^T, x dy^T and dy x^T, as the forward does with M; (C exp(cum))^T,
+//     read transposed with ldmatrix and scaled in registers; the state
+//     gradient g, kept as tiles in shared memory where it is a B operand
+//     (B g).  Two operands take three parts (split3, three products,
+//     about 2^-24): (B w)^T in the states' recompute, and g in x g^T and
+//     in its carry from chunk to chunk.  Both reach dcum (through the
+//     states in <g, h_end>, and through q_j = B_j . (x g^T)_j), whose
+//     terms cancel, so as pairs each put about 2^-16 of its value into
+//     da: 2e-5 of max |da| in the plain model of these operands
+//     (ref.mamba2_bwd_chunks), against 1e-6 to 5e-6 with three parts.
+//   * Scratch.  A forward walk recomputes each chunk's starting state h0
+//     (the forward's state update) and writes it to an fp32 scratch with
+//     z = dy h0^T, the one product that needs h0; the reverse walk loads z
+//     into registers at a chunk's start, ahead of dC, and each state ahead
+//     of <g, h_end>, so h0 never takes shared memory there.  Both are kept
+//     in the accumulators' own register order (coalesced 16-byte stores
+//     and loads): (2 chunks + 1) x 16 KB a row, 125 MB at Zamba2's shape,
+//     read within the call.
+//   * Registers over occupancy.  A block of two warpgroups owns two heads
+//     of one B/C group, sharing each chunk's B and C loads, and may use
+//     255 registers a thread, so one block runs on an SM: Zamba2's 448
+//     rows take 224 blocks, 1.7 waves of 132.  Two blocks an SM (four
+//     heads, one wave) would cap a thread at 128 registers: that version
+//     spilled 0.8-1.7 KB a thread, and each reverse chunk step took 3.4 x
+//     as long (71k cycles against 21k, H100).
+//   * Loads behind the products.  Each chunk step's B (C), x and dy tiles
+//     arrive by cp.async into one of two buffers (128-byte swizzle) while
+//     the step before computes, the next chunk's dt in registers.  Shared
+//     memory: two buffers of 48 KB, g's three tiles (48 KB), a 16 KB
+//     exchange and the chunk's vectors, about 166 KB.  Where a group's
+//     heads are odd in number a block of one warpgroup owns one head.
+//   * Sums in a fixed order, no float atomics: the block adds its two
+//     heads' dB and dC through the exchange and writes one fp32 partial
+//     [rows / 2, S, ds] a pair, which the wrapper
+//     sums over each group's pairs in order; dt, a and D's gradients are
+//     fp32 sums in fixed trees.  Two calls give the same bits.
 namespace bwd {
 
-using tile64::block_sum;
-using tile64::col0;
-using tile64::kLd;
-using tile64::kQ;
-using tile64::kThreads;
-using tile64::kTile;
-using tile64::load;
-using tile64::product;
-using tile64::row0;
-using tile64::store;
-using tile64::zero;
+using namespace sm90;
 
 struct BwdParams {
   const __nv_bfloat16 *x, *b, *c, *dy;
   const float *dt, *a, *d, *dh_final;   // dh_final: null = zero
   __nv_bfloat16* dx;
-  float *ddt, *da, *dd, *db, *dc, *states;
+  float *ddt, *da, *dd;
+  float *db, *dc;       // per block (a pair of heads, or one) [rows / HPB, S, ds]
+  float* scratch;       // per row (2 chunks + 1) x 4096: states, then z
   int seq, dh, ds, heads_per_group, chunks;
 };
 
-// shared memory: 9 fp32 tiles, then vectors of kQ floats, then kThreads
-constexpr int kTiles = 9;
-constexpr int kVecs = 10;
-constexpr int kSmem = (kTiles * kTile + kVecs * kQ + kThreads) * 4;
+constexpr int kFrag = 4096;   // floats of one 64 x 64 fp32 tile in the scratch
+// per head, fp32: cum2, dt, colp, q, czv [64] each, rowp [4][64], misc [16]
+constexpr int kVec = 5 * kQ + 4 * kQ + 16;
 
-__global__ void __launch_bounds__(kThreads, 1) mamba2_bwd_kernel(const BwdParams p) {
-  extern __shared__ float sm[];
-  float *X = sm, *DY = X + kTile, *Bt = DY + kTile, *Ct = Bt + kTile;
-  float *H0 = Ct + kTile, *G = H0 + kTile;
-  float *M1 = G + kTile, *M2 = M1 + kTile, *M3 = M2 + kTile;
-  float *dtv = M3 + kTile, *cum = dtv + kQ, *ecum = cum + kQ, *tail = ecum + kQ;
-  float *rowp = tail + kQ, *colp = rowp + kQ, *qv = colp + kQ, *czv = qv + kQ;
-  float *dcum = czv + kQ, *misc = dcum + kQ, *red = misc + kQ;
+template <int HPB>
+struct BwdSmem {
+  // two buffers of (B, C, then x and dy a head); g hi, lo and a third a head
+  static constexpr int kBufTiles = 2 + 2 * HPB;
+  static constexpr int kTiles = 2 * kBufTiles + 3 * HPB;
+  static constexpr int kXBytes = HPB == 2 ? 128 * 32 * 4 : 0;   // the pair's exchange
+  static constexpr int kBytes = kTiles * kTile * 2 + kXBytes + HPB * kVec * 4 + 1024;
+};
 
-  const int row = blockIdx.x, tid = threadIdx.x;
-  const int ti = row0(), tj = col0();
-  const int group = row / p.heads_per_group;
-  const long long xrow = (long long)row * p.seq;     // x, dy, dt, db, dc rows
-  const long long grow = (long long)group * p.seq;   // b, c rows
-  const float a = p.a[row], dskip = p.d[row];
-  const long long state_elems = (long long)p.ds * p.dh;
-  float* states = p.states + (long long)row * (p.chunks + 1) * state_elems;
+// a 64 x 64 fp32 accumulator of this thread to / from the scratch, in
+// register order: float4 j of thread tw at (128 j + tw) 4
+__device__ __forceinline__ void frag_store(float* dst, const float (&v)[32], int tw) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    reinterpret_cast<float4*>(dst)[j * 128 + tw] =
+        make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+}
+__device__ __forceinline__ void frag_load(float (&v)[32], const float* src, int tw) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 f = reinterpret_cast<const float4*>(src)[j * 128 + tw];
+    v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z; v[4 * j + 3] = f.w;
+  }
+}
 
-  // the chunk's dt and inclusive cumsum of dt a (one thread, in order)
-  auto chunk_scalars = [&](int base, int steps) {
-    if (tid < kQ) dtv[tid] = tid < steps ? p.dt[xrow + base + tid] : 0.f;
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// A operands (T w)^T of a 64 x 64 bf16 tile T (rows k), rows s = 16 w ..
+// read transposed with ldmatrix and scaled by weight(k), as a split pair,
+// or with `third` as three parts hi + lo + third (split3)
+template <typename F>
+__device__ __forceinline__ void scaled_transpose(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                                 const __nv_bfloat16* t, int w, int lane,
+                                                 int tig, F weight,
+                                                 uint32_t (*third)[4] = nullptr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t ab[4];
+    ldmatrix_x4_trans(ab, smem_addr(t + swz(16 * kk + (lane & 7) + (lane >> 4) * 8,
+                                            16 * w + ((lane >> 3) & 1) * 8)));
+    const int j0 = 16 * kk + 2 * tig;
+    const float w0 = weight(j0), w1 = weight(j0 + 1), w8 = weight(j0 + 8),
+                w9 = weight(j0 + 9);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 v = unpack2(ab[e]);
+      const float v0 = v.x * ((e < 2) ? w0 : w8), v1 = v.y * ((e < 2) ? w1 : w9);
+      if (third) split3(v0, v1, hi[kk][e], lo[kk][e], third[kk][e]);
+      else split2(v0, v1, hi[kk][e], lo[kk][e]);
+    }
+  }
+}
+
+// d (+)= A B over k = 64: A a K-major tile at shared address a, B a tile at
+// b, K-major or (kBT) N-major through the transpose bit
+template <bool kBT>
+__device__ __forceinline__ void ss_product(float (&d)[32], uint32_t a, uint32_t b, bool acc) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = desc_sw128(a + kk * 32, 16);
+    if constexpr (kBT) wgmma_ss_n64_bt(d, da, desc_sw128(b + kk * 2048, 8192), acc || kk > 0);
+    else wgmma_ss_n64(d, da, desc_sw128(b + kk * 32, 16), acc || kk > 0);
+  }
+}
+
+// d += A B over k = 64: A a split pair in registers (and `third`, the
+// third part of split3's), B N-major at b
+__device__ __forceinline__ void rs_product(float (&d)[32], const uint32_t (&hi)[4][4],
+                                           const uint32_t (&lo)[4][4], uint32_t b,
+                                           const uint32_t (*third)[4] = nullptr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 2048, 8192);
+    wgmma_rs_n64(d, hi[kk], db);
+    wgmma_rs_n64(d, lo[kk], db);
+    if (third) wgmma_rs_n64(d, third[kk], db);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ void wait_products(float (&d)[32]) {
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_operands(d);
+}
+
+template <int HPB>
+__global__ void __launch_bounds__(128 * HPB, 1) mamba2_bwd_kernel(const BwdParams p) {
+  using SM = BwdSmem<HPB>;
+  constexpr int kThreads = 128 * HPB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
+  float4* xbuf = reinterpret_cast<float4*>(tiles + SM::kTiles * kTile);
+
+  const int tid = threadIdx.x;
+  const int hh = tid / 128;     // head of this warpgroup within the block
+  const int tw = tid % 128;
+  const int w = tw / 32;        // rows 16 w .. 16 w + 15 of every accumulator
+  const int lane = tid % 32;
+  const int gid = lane / 4;
+  const int tig = lane % 4;
+  const int row_base = blockIdx.x * HPB;
+  const int row = row_base + hh;
+  const int grp = row_base / p.heads_per_group;
+  const int S = p.seq;
+  const int nc = p.chunks;
+
+  // buffer `buf`'s B, C, and this head's x and dy tiles
+  const __nv_bfloat16 *Bs, *Cs, *Xs, *DYs;
+  uint32_t bs, cs, xs, dys;
+  auto use_buffer = [&](int buf) {
+    Bs = tiles + buf * SM::kBufTiles * kTile;
+    Cs = Bs + kTile;
+    Xs = Bs + (2 + 2 * hh) * kTile;
+    DYs = Xs + kTile;
+    bs = smem_addr(Bs); cs = smem_addr(Cs); xs = smem_addr(Xs); dys = smem_addr(DYs);
+  };
+  __nv_bfloat16* Ghi = tiles + (2 * SM::kBufTiles + 3 * hh) * kTile;
+  __nv_bfloat16* Glo = Ghi + kTile;
+  __nv_bfloat16* Gl3 = Glo + kTile;   // g's third part (split3); unused forward
+  const uint32_t ghi = smem_addr(Ghi), glo = smem_addr(Glo), gl3 = smem_addr(Gl3);
+  auto put_g = [&](int at, float v0, float v1) {   // g's three parts at `at`
+    split3(v0, v1, *reinterpret_cast<uint32_t*>(Ghi + at), *reinterpret_cast<uint32_t*>(Glo + at),
+           *reinterpret_cast<uint32_t*>(Gl3 + at));
+  };
+  float* vec = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(xbuf) + SM::kXBytes) +
+               hh * kVec;
+  float *cum2 = vec, *dts = vec + kQ, *colp = vec + 2 * kQ, *qv = vec + 3 * kQ,
+        *czv = vec + 4 * kQ, *rowp = vec + 5 * kQ, *misc = vec + 9 * kQ;
+
+  // step k of the two walks' 2 nc chunk steps (the forward walk's chunk k,
+  // then the reverse walk's 2 nc - 1 - k): its B (C in reverse), x and dy
+  // tiles into buffer k & 1, 16 bytes a copy, zero past S and past ds / dh
+  auto issue = [&](int k) {
+    if (k >= 2 * nc) return;
+    const bool with_c = k >= nc;
+    const int t0 = (with_c ? 2 * nc - 1 - k : k) * kQ;
+    __nv_bfloat16* buf = tiles + (k & 1) * SM::kBufTiles * kTile;
+    for (int e = tid; e < (2 + 2 * HPB) * kQ * 8; e += kThreads) {
+      const int slot = e / (kQ * 8);
+      if (slot == 1 && !with_c) continue;
+      const int r = (e / 8) % kQ;
+      const int col = (e % 8) * 8;
+      const __nv_bfloat16* src;
+      int width;
+      if (slot < 2) {
+        src = (slot ? p.c : p.b) + ((long long)grp * S + t0 + r) * p.ds + col;
+        width = p.ds;
+      } else {
+        const int h = (slot - 2) / 2;
+        src = ((slot & 1) ? p.dy : p.x) + ((long long)(row_base + h) * S + t0 + r) * p.dh + col;
+        width = p.dh;
+      }
+      const bool in = (t0 + r < S) && (col < width);
+      cp_async16(smem_addr(buf + slot * kTile + swz(r, col)), in ? src : p.x, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  const float* dt_row = p.dt + (long long)row * S;
+  const float a = p.a[row];
+  const float a2 = a * kLog2e;
+  // warp 0 of a head: a chunk's two dt of this lane, loaded a chunk ahead
+  float dtn[2] = {0.f, 0.f};
+  auto load_dt = [&](int chunk) {
+    if (w != 0 || chunk < 0 || chunk >= nc) return;
+    const int t = chunk * kQ + 2 * lane;
+    dtn[0] = t < S ? dt_row[t] : 0.f;
+    dtn[1] = t + 1 < S ? dt_row[t + 1] : 0.f;
+  };
+  // warp 0 of a head: the chunk's dt and log2-domain inclusive cumsum of dt a
+  auto chunk_scalars = [&]() {
+    if (w != 0) return;
+    const float l0 = dtn[0] * a2, l1 = dtn[1] * a2;
+    float incl = l0 + l1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    cum2[2 * lane] = incl - l1;
+    cum2[2 * lane + 1] = incl;
+    dts[2 * lane] = dtn[0];
+    dts[2 * lane + 1] = dtn[1];
+  };
+  float* scratch = p.scratch + (long long)row * (2 * nc + 1) * kFrag;
+  const int r0 = 16 * w + gid;   // this thread's accumulator rows r0, r0 + 8
+
+  // ---- the forward walk: each chunk's starting state and its z = dy h0^T
+  //      into the scratch; h in registers (rows s, columns q) and as hi + lo
+  //      tiles in the g tiles ----
+  float h[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) h[i] = 0.f;
+  for (int e = tw; e < kTile; e += 128) Ghi[e] = Glo[e] = __float2bfloat16(0.f);
+  load_dt(0);
+  issue(0);
+  for (int ci = 0; ci < nc; ++ci) {
+    chunk_scalars();
+    cp_async_wait<0>();
+    fence_proxy_async();   // the copies and the state writes, to wgmma's reads
     __syncthreads();
-    if (tid == 0) {
-      float run = 0.f;
-      for (int i = 0; i < kQ; ++i) {
-        run += dtv[i] * a;
-        cum[i] = run;
+    issue(ci + 1);         // the next step's tiles load while this one computes
+    use_buffer(ci & 1);
+    load_dt(ci + 1 < nc ? ci + 1 : nc - 1);
+    frag_store(scratch + ci * kFrag, h, tw);
+    float acc[32];
+    zero(acc);
+    wgmma_fence();
+    ss_product<false>(acc, dys, ghi, false);   // z = dy h0^T
+    ss_product<false>(acc, dys, glo, true);
+    wait_products(acc);
+    frag_store(scratch + (nc + 1 + ci) * kFrag, acc, tw);
+    const float cq = cum2[kQ - 1];
+    // (B w)^T, w_j = exp(cum_Q - cum_j) dt_j, in three parts: the states
+    // feed <g, h_end> and z, and so dcum, whose terms cancel
+    uint32_t shi[4][4], slo[4][4], s3[4][4];
+    scaled_transpose(shi, slo, Bs, w, lane, tig,
+                     [&](int j) { return fast_exp2(cq - cum2[j]) * dts[j]; }, s3);
+    zero(acc);
+    wgmma_fence();
+    rs_product(acc, shi, slo, xs, s3);         // (B w)^T x
+    wait_products(acc);
+    fence_fragments(shi);
+    fence_fragments(slo);
+    fence_fragments(s3);
+    const float decay = fast_exp2(cq);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = 4 * n + 2 * half;
+        h[i] = fmaf(decay, h[i], acc[i]);
+        h[i + 1] = fmaf(decay, h[i + 1], acc[i + 1]);
+        const int at = swz(r0 + 8 * half, 8 * n + 2 * tig);
+        split2(h[i], h[i + 1], *reinterpret_cast<uint32_t*>(Ghi + at),
+               *reinterpret_cast<uint32_t*>(Glo + at));
+      }
+    __syncthreads();   // every warp is done with this chunk's tiles
+  }
+  frag_store(scratch + nc * kFrag, h, tw);
+
+  // ---- the reverse walk; the g tiles hold the state's gradient ----
+  {
+    float gi[32];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int s = r0 + 8 * half, q = 8 * n + 2 * tig;
+        float2 v = make_float2(0.f, 0.f);
+        if (p.dh_final && s < p.ds && q < p.dh)
+          v = *reinterpret_cast<const float2*>(p.dh_final +
+                                               ((long long)row * p.ds + s) * p.dh + q);
+        gi[4 * n + 2 * half] = v.x;
+        gi[4 * n + 2 * half + 1] = v.y;
+        put_g(swz(s, q), v.x, v.y);
+      }
+    // <g, h_end> of the last chunk, as four warp partials
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) part = fmaf(gi[i], h[i], part);
+    part = warp_sum(part);
+    if (lane == 0) misc[1 + 4 * ((nc - 1) & 1) + w] = part;
+  }
+  float dd_part = 0.f, da_run = 0.f;
+  const float dskip = p.d[row];
+  // this head's part of a dB or dC tile (rows r0, r0 + 8 of the chunk,
+  // columns s) summed with the other head's through xbuf and written as
+  // the block's partial by head `reader` (dB head 0 on named barrier 3, dC
+  // head 1 on barrier 4, so each head writes half the sums).  A head's
+  // write follows its own read of the exchange before, and the two
+  // exchanges of a chunk take two barriers, so a head that runs ahead
+  // cannot complete a barrier with its own two arrivals; the chunk's last
+  // __syncthreads keeps chunks apart.  a + b == b + a in fp32: the bits do
+  // not depend on which head adds.
+  auto put_sum = [&](float* out, float (&v)[32], int t0, int reader) {
+    if constexpr (HPB == 2) {
+      if (hh != reader) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          xbuf[j * 128 + tw] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+        named_barrier_arrive(3 + reader, 256);
+        return;
+      }
+      named_barrier(3 + reader, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = xbuf[j * 128 + tw];
+        v[4 * j] += x.x; v[4 * j + 1] += x.y; v[4 * j + 2] += x.z; v[4 * j + 3] += x.w;
       }
     }
-    __syncthreads();
+    float* base = out + (long long)blockIdx.x * S * p.ds;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = t0 + r0 + 8 * half;
+      if (t >= S) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int s = 8 * n + 2 * tig;
+        if (s < p.ds)
+          *reinterpret_cast<float2*>(base + (long long)t * p.ds + s) =
+              make_float2(v[4 * n + 2 * half], v[4 * n + 2 * half + 1]);
+      }
+    }
   };
 
-  // --- the forward walk: each chunk's starting state, then the final one
-  for (int e = tid; e < kTile; e += kThreads) G[e] = 0.f;
-  for (int ci = 0; ci < p.chunks; ++ci) {
-    const int base = ci * kQ, steps = min(kQ, p.seq - base);
+  for (int ci = nc - 1; ci >= 0; --ci) {
+    const int t0 = ci * kQ;
+    const int step = 2 * nc - 1 - ci;
+    chunk_scalars();
+    cp_async_wait<0>();
+    fence_proxy_async();
     __syncthreads();
-    store(states + ci * state_elems, G, p.ds, p.dh);
-    load(X, p.x + (xrow + base) * p.dh, steps, p.dh);
-    load(Bt, p.b + (grow + base) * p.ds, steps, p.ds);
-    chunk_scalars(base, steps);
-    const float total = cum[kQ - 1];
-    if (tid < kQ) tail[tid] = __expf(total - cum[tid]) * dtv[tid];   // w_j
-    __syncthreads();
-    float acc[4][4];
-    const float decay = __expf(total);
+    issue(step + 1);
+    use_buffer(step & 1);
+    load_dt(ci - 1);
+    float zr[32];   // this chunk's dy h0^T, loaded ahead of dC
+    frag_load(zr, scratch + (nc + 1 + ci) * kFrag, tw);
+    const float cq = cum2[kQ - 1];
+    float cr[2], dtr[2], tail[2], ecum[2];   // this thread's two rows
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) acc[m][n] = decay * G[(ti + 16 * m) * kLd + tj + 16 * n];
-    product(acc, [&](int s, int j) { return Bt[j * kLd + s] * tail[j]; },
-            [&](int q, int j) { return X[j * kLd + q]; });
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) G[(ti + 16 * m) * kLd + tj + 16 * n] = acc[m][n];
-  }
-  __syncthreads();
-  store(states + p.chunks * state_elems, G, p.ds, p.dh);
+    for (int r = 0; r < 2; ++r) {
+      cr[r] = cum2[r0 + 8 * r];
+      dtr[r] = dts[r0 + 8 * r];
+      tail[r] = fast_exp2(cq - cr[r]);
+      ecum[r] = fast_exp2(cr[r]);
+    }
 
-  // --- the reverse walk; G is now the gradient of the state
-  if (p.dh_final)
-    load(G, p.dh_final + (long long)row * state_elems, p.ds, p.dh);
-  else
-    for (int e = tid; e < kTile; e += kThreads) G[e] = 0.f;
-  float dd_part = 0.f, da_run = 0.f;
-  for (int ci = p.chunks - 1; ci >= 0; --ci) {
-    const int base = ci * kQ, steps = min(kQ, p.seq - base);
-    __syncthreads();
-    load(X, p.x + (xrow + base) * p.dh, steps, p.dh);
-    load(DY, p.dy + (xrow + base) * p.dh, steps, p.dh);
-    load(Bt, p.b + (grow + base) * p.ds, steps, p.ds);
-    load(Ct, p.c + (grow + base) * p.ds, steps, p.ds);
-    load(H0, states + ci * state_elems, p.ds, p.dh);
-    // <g, h_end>: the gradient of the chunk's total log-decay
-    const float* hend = states + (ci + 1) * state_elems;
-    float part = 0.f;
-    for (int e = tid; e < p.ds * p.dh; e += kThreads)
-      part += G[(e / p.dh) * kLd + e % p.dh] * hend[e];
-    const float g_hend = block_sum(part, red);
-    chunk_scalars(base, steps);
-    const float total = cum[kQ - 1];
-    if (tid < kQ) {
-      ecum[tid] = __expf(cum[tid]);
-      tail[tid] = __expf(total - cum[tid]);
-    }
-    // M1 = C B^T on and below the diagonal
-    float acc[4][4];
-    zero(acc);
-    product(acc, [&](int i, int s) { return Ct[i * kLd + s]; },
-            [&](int j, int s) { return Bt[j * kLd + s]; });
-    float cbv[4][4];
+    // ---- B C^T and x dy^T (rows j, columns i): CBL^T dt and dML^T as
+    //      split A operands; P's row and column sums ----
+    uint32_t chi[4][4], clo[4][4], mhi[4][4], mlo[4][4];
+    {
+      float cb[32], dm[32];
+      zero(cb);
+      zero(dm);
+      wgmma_fence();
+      ss_product<false>(cb, bs, cs, false);
+      ss_product<false>(dm, xs, dys, false);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(cb);
+      fence_operands(dm);
+      float colp_part[2] = {0.f, 0.f};
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+      for (int n = 0; n < 8; ++n) {
+        const float2 ci2 = *reinterpret_cast<const float2*>(cum2 + 8 * n + 2 * tig);
+        float cv[4], mv[4], rp[2] = {0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < 4; ++n) cbv[m][n] = acc[m][n];
-    // dm = dy x^T; M1 = CBL, M2 = dML, M3 = P
-    zero(acc);
-    product(acc, [&](int i, int q) { return DY[i * kLd + q]; },
-            [&](int j, int q) { return X[j * kLd + q]; });
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int i = 8 * n + 2 * tig + (e & 1);
+          const float l =
+              i >= r0 + 8 * r ? fast_exp2(((e & 1) ? ci2.y : ci2.x) - cr[r]) : 0.f;
+          const float pv = dm[4 * n + e] * l * cb[4 * n + e];
+          colp_part[r] += pv;
+          rp[e & 1] = fmaf(pv, dtr[r], rp[e & 1]);
+          cv[e] = cb[4 * n + e] * l * dtr[r];
+          mv[e] = dm[4 * n + e] * l;
+        }
+        // n-tiles (2 kk, 2 kk + 1) are the A operand of k-step kk
+        const int kk = n / 2, at = 2 * (n % 2);
+        split2(cv[0], cv[1], chi[kk][at], clo[kk][at]);
+        split2(cv[2], cv[3], chi[kk][at + 1], clo[kk][at + 1]);
+        split2(mv[0], mv[1], mhi[kk][at], mlo[kk][at]);
+        split2(mv[2], mv[3], mhi[kk][at + 1], mlo[kk][at + 1]);
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int i = ti + 16 * m, j = tj + 16 * n;
-        const float l = j <= i ? __expf(cum[i] - cum[j]) : 0.f;
-        M1[i * kLd + j] = cbv[m][n] * l;
-        M2[i * kLd + j] = acc[m][n] * l;
-        M3[i * kLd + j] = acc[m][n] * l * cbv[m][n];
+        for (int k = 0; k < 2; ++k) {   // this warp's column sums, over gid
+          float v = rp[k];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (gid == 0) rowp[w * kQ + 8 * n + 2 * tig + k] = v;
+        }
       }
-    __syncthreads();
-    if (tid < kQ) {                       // sum_j P_ij dt_j
-      float s = 0.f;
-      for (int j = 0; j < kQ; ++j) s = fmaf(M3[tid * kLd + j], dtv[j], s);
-      rowp[tid] = s;
-    } else if (tid < 2 * kQ) {            // sum_i P_ij
-      const int j = tid - kQ;
-      float s = 0.f;
-      for (int i = 0; i < kQ; ++i) s += M3[i * kLd + j];
-      colp[j] = s;
-    }
-    // dx_j = dt_j sum_i CBL_ij dy_i + D dy_j + w_j g^T B_j
-    float gb[4][4];
-    zero(acc);
-    zero(gb);
-    product(acc, [&](int j, int i) { return M1[i * kLd + j]; },
-            [&](int q, int i) { return DY[i * kLd + q]; });
-    product(gb, [&](int j, int s) { return Bt[j * kLd + s]; },
-            [&](int q, int s) { return G[s * kLd + q]; });
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int j = ti + 16 * m, q = tj + 16 * n;
-        const float v = dtv[j] * (acc[m][n] + tail[j] * gb[m][n]) + dskip * DY[j * kLd + q];
-        if (j < steps && q < p.dh)
-          p.dx[(xrow + base + j) * p.dh + q] = __float2bfloat16(v);
-        dd_part = fmaf(DY[j * kLd + q], X[j * kLd + q], dd_part);
-      }
-    __syncthreads();                      // M1 and M3 are free
-    // dB_j = dt_j sum_i dML_ij C_i + w_j g x_j; M1 = B_j . g x_j terms
-    float gx[4][4];
-    zero(acc);
-    zero(gx);
-    product(acc, [&](int j, int i) { return M2[i * kLd + j]; },
-            [&](int s, int i) { return Ct[i * kLd + s]; });
-    product(gx, [&](int j, int q) { return X[j * kLd + q]; },
-            [&](int s, int q) { return G[s * kLd + q]; });
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int j = ti + 16 * m, s = tj + 16 * n;
-        const float v = dtv[j] * (acc[m][n] + tail[j] * gx[m][n]);
-        if (j < steps && s < p.ds) p.db[(xrow + base + j) * p.ds + s] = v;
-        M1[j * kLd + s] = Bt[j * kLd + s] * gx[m][n];
-      }
-    // dC_i = sum_j dML_ij dt_j B_j + exp(cum_i) h0 dy_i; M3 = C_i . h0 dy_i terms
-    float z[4][4];
-    zero(acc);
-    zero(z);
-    product(acc, [&](int i, int j) { return M2[i * kLd + j] * dtv[j]; },
-            [&](int s, int j) { return Bt[j * kLd + s]; });
-    product(z, [&](int i, int q) { return DY[i * kLd + q]; },
-            [&](int s, int q) { return H0[s * kLd + q]; });
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int i = ti + 16 * m, s = tj + 16 * n;
-        const float v = acc[m][n] + ecum[i] * z[m][n];
-        if (i < steps && s < p.ds) p.dc[(xrow + base + i) * p.ds + s] = v;
-        M3[i * kLd + s] = Ct[i * kLd + s] * z[m][n];
-      }
-    __syncthreads();
-    if (tid < kQ) {
-      float s1 = 0.f, s2 = 0.f;
-      for (int s = 0; s < kQ; ++s) {
-        s1 += M1[tid * kLd + s];
-        s2 += M3[tid * kLd + s];
-      }
-      qv[tid] = s1;
-      czv[tid] = s2;
-    }
-    __syncthreads();
-    if (tid < kQ) {
-      const int i = tid;
-      dcum[i] = rowp[i] - dtv[i] * colp[i] + ecum[i] * czv[i] - dtv[i] * tail[i] * qv[i] +
-                (i == kQ - 1 ? g_hend : 0.f);
-    }
-    __syncthreads();
-    if (tid == 0) {                       // the reverse cumsum, in order
-      float rev = 0.f;
-      for (int i = kQ - 1; i >= 0; --i) {
-        rev += dcum[i];
-        misc[i] = rev;
-        da_run = fmaf(dtv[i], rev, da_run);
+      for (int r = 0; r < 2; ++r) {
+        float v = colp_part[r];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (tig == 0) colp[r0 + 8 * r] = v;
       }
     }
-    __syncthreads();
-    if (tid < steps)
-      p.ddt[xrow + base + tid] = colp[tid] + tail[tid] * qv[tid] + a * misc[tid];
-    // g <- exp(cum_Q) g + sum_i exp(cum_i) C_i dy_i^T
-    const float decay = __expf(total);
+
+    // ---- dx = w_j (B g)_j + sum_i CBL_ij dt_j dy_i + D dy_j ----
+    {
+      float acc[32];
+      zero(acc);
+      wgmma_fence();
+      ss_product<true>(acc, bs, ghi, false);
+      ss_product<true>(acc, bs, glo, true);
+      wait_products(acc);
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+      for (int i = 0; i < 32; ++i) acc[i] *= tail[(i >> 1) & 1] * dtr[(i >> 1) & 1];
+      wgmma_fence();
+      rs_product(acc, chi, clo, dys);
+      wait_products(acc);
+      fence_fragments(chi);
+      fence_fragments(clo);
+      __nv_bfloat16* dxb = p.dx + (long long)row * S * p.dh;
 #pragma unroll
-      for (int n = 0; n < 4; ++n) acc[m][n] = decay * G[(ti + 16 * m) * kLd + tj + 16 * n];
-    product(acc, [&](int s, int i) { return Ct[i * kLd + s] * ecum[i]; },
-            [&](int q, int i) { return DY[i * kLd + q]; });
+      for (int yh = 0; yh < 2; ++yh) {
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+        for (int half = 0; half < 2; ++half) {
+          const int i = r0 + 8 * half;
+          uint32_t v[4];
 #pragma unroll
-      for (int n = 0; n < 4; ++n) G[(ti + 16 * m) * kLd + tj + 16 * n] = acc[m][n];
+          for (int t = 0; t < 4; ++t) {
+            const int n = 4 * yh + t;
+            const int col = 8 * n + 2 * tig;
+            const float2 dyv = unpack2(*reinterpret_cast<const uint32_t*>(DYs + swz(i, col)));
+            const float2 xv = unpack2(*reinterpret_cast<const uint32_t*>(Xs + swz(i, col)));
+            dd_part = fmaf(dyv.x, xv.x, fmaf(dyv.y, xv.y, dd_part));
+            v[t] = pack_bf16x2(fmaf(dskip, dyv.x, acc[4 * n + 2 * half]),
+                               fmaf(dskip, dyv.y, acc[4 * n + 2 * half + 1]));
+          }
+          transpose_quad(v, tig);
+          const int col = 32 * yh + 8 * tig;
+          if (t0 + i < S && col < p.dh)
+            *reinterpret_cast<uint4*>(dxb + (long long)(t0 + i) * p.dh + col) =
+                make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+
+    // ---- dB = dt_j (tail_j (x g^T)_j + sum_i dML_ij C_i); q_j = B_j . (x g^T)_j ----
+    {
+      float acc[32];
+      zero(acc);
+      wgmma_fence();
+      ss_product<false>(acc, xs, ghi, false);
+      ss_product<false>(acc, xs, glo, true);
+      ss_product<false>(acc, xs, gl3, true);
+      wait_products(acc);
+      float qp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 bv = unpack2(
+              *reinterpret_cast<const uint32_t*>(Bs + swz(r0 + 8 * half, 8 * n + 2 * tig)));
+          qp[half] = fmaf(bv.x, acc[4 * n + 2 * half],
+                          fmaf(bv.y, acc[4 * n + 2 * half + 1], qp[half]));
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = qp[r];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (tig == 0) qv[r0 + 8 * r] = v;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= tail[(i >> 1) & 1];
+      wgmma_fence();
+      rs_product(acc, mhi, mlo, cs);
+      wait_products(acc);
+      fence_fragments(mhi);
+      fence_fragments(mlo);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= dtr[(i >> 1) & 1];
+      put_sum(p.db, acc, t0, 0);
+    }
+
+    // ---- dC = exp(cum_i) z_i + sum_j dML_ij dt_j B_j; czv_i = C_i . z_i ----
+    float he[32];   // the state at this chunk's start: h_end of the chunk before
+    if (ci > 0) frag_load(he, scratch + ci * kFrag, tw);
+    {
+      uint32_t dhi[4][4], dlo[4][4];
+      {
+        float dm[32];
+        zero(dm);
+        wgmma_fence();
+        ss_product<false>(dm, dys, xs, false);   // dy x^T, rows i, columns j
+        wait_products(dm);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 cj = *reinterpret_cast<const float2*>(cum2 + 8 * n + 2 * tig);
+          const float2 dj = *reinterpret_cast<const float2*>(dts + 8 * n + 2 * tig);
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const int j = 8 * n + 2 * tig + (e & 1);
+            v[e] = j <= r0 + 8 * r ? dm[4 * n + e] *
+                                         fast_exp2(cr[r] - ((e & 1) ? cj.y : cj.x)) *
+                                         ((e & 1) ? dj.y : dj.x)
+                                   : 0.f;
+          }
+          const int kk = n / 2, at = 2 * (n % 2);
+          split2(v[0], v[1], dhi[kk][at], dlo[kk][at]);
+          split2(v[2], v[3], dhi[kk][at + 1], dlo[kk][at + 1]);
+        }
+      }
+      float acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = zr[i];
+      float zp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 cv = unpack2(
+              *reinterpret_cast<const uint32_t*>(Cs + swz(r0 + 8 * half, 8 * n + 2 * tig)));
+          zp[half] = fmaf(cv.x, acc[4 * n + 2 * half],
+                          fmaf(cv.y, acc[4 * n + 2 * half + 1], zp[half]));
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = zp[r];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (tig == 0) czv[r0 + 8 * r] = v;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= ecum[(i >> 1) & 1];
+      wgmma_fence();
+      rs_product(acc, dhi, dlo, bs);
+      wait_products(acc);
+      fence_fragments(dhi);
+      fence_fragments(dlo);
+      put_sum(p.dc, acc, t0, 1);
+    }
+    named_barrier(1 + hh, 128);   // this head's colp, q, czv and rowp are written
+
+    // ---- dcum, its reverse cumsum R, ddt and da (warp 0 of the head) ----
+    if (w == 0) {
+      const float gh = misc[1 + 4 * (ci & 1)] + misc[2 + 4 * (ci & 1)] +
+                       misc[3 + 4 * (ci & 1)] + misc[4 + 4 * (ci & 1)];
+      float dc[2], tl[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int i = 2 * lane + k;
+        const float rpi = rowp[i] + rowp[kQ + i] + rowp[2 * kQ + i] + rowp[3 * kQ + i];
+        tl[k] = fast_exp2(cq - cum2[i]);
+        dc[k] = rpi - dts[i] * colp[i] + fast_exp2(cum2[i]) * czv[i] - dts[i] * tl[k] * qv[i] +
+                (i == kQ - 1 ? gh : 0.f);
+      }
+      const float pair = dc[0] + dc[1];
+      float suf = pair;   // sum of the pairs of this lane and the lanes above
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float v = __shfl_down_sync(0xffffffffu, suf, off);
+        if (lane + off < 32) suf += v;
+      }
+      const float rev[2] = {suf, suf - dc[0]};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int i = 2 * lane + k;
+        if (t0 + i < S) p.ddt[(long long)row * S + t0 + i] = colp[i] + tl[k] * qv[i] + a * rev[k];
+        da_run = fmaf(dts[i], rev[k], da_run);
+      }
+    }
+
+    // ---- g <- exp(cum_Q) g + (C exp(cum))^T dy; <g, h_end> of the chunk before ----
+    {
+      uint32_t shi[4][4], slo[4][4];
+      scaled_transpose(shi, slo, Cs, w, lane, tig, [&](int i) { return fast_exp2(cum2[i]); });
+      const float decay = fast_exp2(cq);
+      float acc[32];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int at = swz(r0 + 8 * half, 8 * n + 2 * tig);
+          const float2 oh = unpack2(*reinterpret_cast<const uint32_t*>(Ghi + at));
+          const float2 ol = unpack2(*reinterpret_cast<const uint32_t*>(Glo + at));
+          const float2 o3 = unpack2(*reinterpret_cast<const uint32_t*>(Gl3 + at));
+          acc[4 * n + 2 * half] = decay * (oh.x + (ol.x + o3.x));
+          acc[4 * n + 2 * half + 1] = decay * (oh.y + (ol.y + o3.y));
+        }
+      wgmma_fence();
+      rs_product(acc, shi, slo, dys);
+      wait_products(acc);
+      fence_fragments(shi);
+      fence_fragments(slo);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          put_g(swz(r0 + 8 * half, 8 * n + 2 * tig), acc[4 * n + 2 * half],
+                acc[4 * n + 2 * half + 1]);
+        }
+      if (ci > 0) {
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) part = fmaf(acc[i], he[i], part);
+        part = warp_sum(part);
+        if (lane == 0) misc[1 + 4 * ((ci - 1) & 1) + w] = part;
+      }
+    }
+    __syncthreads();   // every warp is done with this chunk's tiles and vectors
   }
-  const float dd = block_sum(dd_part, red);
-  if (tid == 0) {
-    p.dd[row] = dd;
-    p.da[row] = da_run;
+  dd_part = warp_sum(dd_part);
+  const float da = warp_sum(da_run);   // da_run is 0 outside warp 0
+  if (lane == 0) misc[9 + w] = dd_part;
+  named_barrier(1 + hh, 128);
+  if (tw == 0) {
+    p.dd[row] = misc[9] + misc[10] + misc[11] + misc[12];
+    p.da[row] = da;
   }
+}
+
+template <int HPB>
+cudaError_t launch(const BwdParams& p, int rows, cudaStream_t stream) {
+  static bool configured = false;   // once per process
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(mamba2_bwd_kernel<HPB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           BwdSmem<HPB>::kBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  mamba2_bwd_kernel<HPB><<<rows / HPB, 128 * HPB, BwdSmem<HPB>::kBytes, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace bwd
 
 // The backward of mamba2_scan.  Inputs as mamba2_scan's, plus dy [BH, S,
 // dh] bf16 and dh_final [BH, ds, dh] f32 (null: zero).  Writes dx [BH, S,
-// dh] bf16, ddt [BH, S], da and dd [BH], and per-row dB and dC partials
-// [BH, S, ds], all f32; states is f32 scratch of BH x (ceil(S / 64) + 1) x
-// ds x dh.  Launches on `stream`; returns cudaGetLastError() after the
-// launch.
+// dh] bf16, ddt [BH, S], da and dd [BH], all f32, and dB and dC as f32
+// partials [BH / P, S, ds], each the sum over P consecutive rows of one
+// group (P = 2 where heads_per_group is even, else 1); scratch is f32 of
+// BH x (2 ceil(S / 64) + 1) x 4096.  Launches on `stream`; returns
+// cudaGetLastError() after the launch.
 extern "C" int mamba2_scan_bwd(const void* x, const void* dt, const void* a,
                                const void* b, const void* c, const void* d,
                                const void* dy, const void* dh_final, void* dx,
                                void* ddt, void* da, void* dd, void* db, void* dc,
-                               void* states, int rows, int seq, int dh, int ds,
+                               void* scratch, int rows, int seq, int dh, int ds,
                                int heads_per_group, void* stream) {
   if (dh < 8 || dh > kMaxD || dh % 8 || ds < 8 || ds > kMaxD || ds % 8 ||
-      heads_per_group < 1 || seq < 1 || rows < 1)
+      heads_per_group < 1 || seq < 1 || rows < 1 || rows % heads_per_group)
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool configured = false;   // once per process
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bwd::mamba2_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
   bwd::BwdParams p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.b = static_cast<const __nv_bfloat16*>(b);
@@ -725,12 +1142,12 @@ extern "C" int mamba2_scan_bwd(const void* x, const void* dt, const void* a,
   p.dd = static_cast<float*>(dd);
   p.db = static_cast<float*>(db);
   p.dc = static_cast<float*>(dc);
-  p.states = static_cast<float*>(states);
+  p.scratch = static_cast<float*>(scratch);
   p.seq = seq; p.dh = dh; p.ds = ds; p.heads_per_group = heads_per_group;
-  p.chunks = (seq + bwd::kQ - 1) / bwd::kQ;
-  bwd::mamba2_bwd_kernel<<<rows, bwd::kThreads, bwd::kSmem,
-                           static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.chunks = (seq + kQ - 1) / kQ;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (heads_per_group % 2 == 0) return static_cast<int>(bwd::launch<2>(p, rows, s));
+  return static_cast<int>(bwd::launch<1>(p, rows, s));
 }
 
 extern "C" const char* error_string(int code) {

@@ -5,9 +5,9 @@
 // Header-only; every function is inline device code.
 //
 // The wgmma helpers below list every accumulator register by hand, as PTX
-// requires: wgmma_ss_n128 and wgmma_ss_n64 (both operands in shared memory,
-// B K-major), wgmma_ss_n64_bt (B N-major through the transpose bit) and
-// wgmma_rs_n{64,112,128,256} (A in registers, B N-major).
+// requires: wgmma_ss_n{128,64,32} (both operands in shared memory, B
+// K-major), wgmma_ss_n{64,128}_bt (B N-major through the transpose bit)
+// and wgmma_rs_n{64,112,128,256} (A in registers, B N-major).
 
 #pragma once
 
@@ -232,6 +232,55 @@ __device__ __forceinline__ void wgmma_ss_n64_bt(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[16] (+)= A[64x16] B, A and B from shared memory, B K-major (32 columns)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64] (+)= A[64x16] B[16x128], A from shared memory (K-major), B
+// (N-major) from shared memory through the descriptor's transpose bit
+__device__ __forceinline__ void wgmma_ss_n128_bt(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[32] += A[64x16] B[16x64], A from registers, B (N-major) from
 // shared memory through the descriptor's transpose bit
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -418,6 +467,16 @@ __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16x2(v0 - hf.x, v1 - hf.y);
+}
+
+// (v0, v1) as three bf16x2 words hi + mid + lo, v = their sum to about 2^-24
+// of v: hi rounded, then the rest (exact in fp32) as split2's pair
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  split2(v0 - hf.x, v1 - hf.y, mid, lo);
 }
 
 // v[t] of lane tig holds columns 8t + 2tig, +1 of a row; afterwards v[k] of

@@ -44,13 +44,15 @@ source), since 128-row tiles in two stages beside Q would need 320 KB of
 shared memory and a 64 x 128 score tile beside the 128 fp32 accumulators
 a thread would not fit its 240 registers; O += P V is one
 ``wgmma.m64n256k16`` a k-step.  Its backward (``bwd256`` in the source)
-splits the 256 columns between warps: a block of 8 warps owns 64 rows,
-each warp 16 rows and one 128-column half of the gradients, so dK and dV
-of a warp take 128 fp32 registers a thread; the scores' two halves are
-summed through shared memory (split-K), about 197 KB of it.  Its products
-are ``mma.sync`` with plain loads, a first version that is right rather
-than fast; a first kernel writes the rows' lse and delta, then a dQ pass
-and a dK/dV pass, no atomics.
+keeps the two passes on wgmma and TMA with the head dim split between a
+block's two consumer warpgroups: each owns one 128-column half of dQ (64
+fp32 registers a thread) or of dK and dV (128), computes S and dP for its
+own 32 columns of each 64 x 64 step over all 256 columns, and writes its
+half of P and dS as bf16 into shared memory, from which both warpgroups
+take them as the A operand of their updates; K and V (or Q and dO) stay
+resident while the streamed pair comes through a two-stage TMA ring.  A
+first kernel writes the rows' lse and delta, then a dQ pass and a dK/dV
+pass (:func:`bwd256_schedule`), no atomics.
 
 For tensors on the CPU each wrapper runs its plain version (dense fp32
 attention, :func:`repro_torch.kernels.ref.attention_ref`, over repeated kv
@@ -82,10 +84,10 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         F = ctypes.c_float
-        fn.argtypes = [P] * 4 + [L] * 12 + [I] * 6 + [F, F, I, I, P, P]
+        fn.argtypes = [P] * 4 + [L] * 12 + [I] * 6 + [F, F, I, I, P, I, P]
         fn.restype = ctypes.c_int
         bwd = lib.flash_attention_bwd
-        bwd.argtypes = [P] * 11 + [I] * 6 + [F, F, I, I, P]
+        bwd.argtypes = [P] * 11 + [I] * 6 + [F, F, I, I, I, P]
         bwd.restype = ctypes.c_int
         rec = lib.flash_attention_bwd_record
         rec.argtypes = bwd.argtypes + [P, L]
@@ -191,7 +193,8 @@ def _forward(q, k, v, mask, *, with_lse: bool):
         d ** -0.5 if scale is None else scale,
         0.0 if softcap is None else softcap,
         int(causal), 0 if window is None else int(window),
-        None if lse is None else lse.data_ptr(), _build.stream(q.device))
+        None if lse is None else lse.data_ptr(), q.device.index,
+        _build.stream(q.device))
     _build.check(lib, NAME, code)
     flash_attention.launches += 1
     return out, lse
@@ -258,7 +261,8 @@ def flash_attention_bwd(q, k, v, out, grad_out, lse, *, causal=True,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
             b, h, g, s, t, d, d ** -0.5 if scale is None else scale,
             0.0 if softcap is None else softcap, int(causal),
-            0 if window is None else int(window), _build.stream(q.device))
+            0 if window is None else int(window), q.device.index,
+            _build.stream(q.device))
     lib = _lib()
     code = (lib.flash_attention_bwd(*args) if record is None else
             lib.flash_attention_bwd_record(*args, record.data_ptr(), blocks))
@@ -283,3 +287,44 @@ def dkdv_blocks(batch: int, kv_heads: int, kv_len: int, *,
     kv tiles i and n - 1 - i) under a causal mask, else per kv tile."""
     tiles = -(-kv_len // BWD_ROWS)
     return batch * kv_heads * (-(-tiles // 2) if causal else tiles)
+
+
+def bwd256_schedule(batch: int, heads: int, kv_heads: int, q_len: int,
+                    kv_len: int, *, causal: bool = True,
+                    window: int | None = None) -> tuple[list, list]:
+    """The work of the head_dim 256 backward's blocks in launch order, by
+    the kernels' own index arithmetic (``bwd256`` in the source), 64-row
+    tiles: the dQ pass's blocks as (batch, head, q tile, [kv tiles]), the
+    q tile the slowest index, descending under a causal mask; the dK/dV
+    pass's as (batch, kv head, kv tile, [(q head, q tile)]), the kv tile
+    the slowest index, ascending.  A model for the tests: each pass walks
+    every pair of tiles that the mask lets attend once, heaviest blocks
+    first."""
+    rows, per_q, per_kv = BWD_ROWS, heads * batch, kv_heads * batch
+    q_tiles, kv_tiles = -(-q_len // rows), -(-kv_len // rows)
+    w = window or 0
+    dq = []
+    for block in range(q_tiles * per_q):
+        z, rest = divmod(block, per_q)
+        h, b = rest % heads, rest // heads
+        q0 = (q_tiles - 1 - z if causal else z) * rows
+        kv_begin, kv_end = 0, kv_len
+        if causal:
+            kv_end = min(kv_end, q0 + rows, q_len)
+        if w > 0:
+            kv_begin = max(0, q0 - w + 1) // rows * rows
+        n = -(-(kv_end - kv_begin) // rows) if kv_end > kv_begin else 0
+        dq.append((b, h, q0 // rows,
+                   [kv_begin // rows + i for i in range(n)]))
+    dkdv, rep = [], heads // kv_heads
+    for block in range(kv_tiles * per_kv):
+        kt, rest = divmod(block, per_kv)
+        g, b = rest % kv_heads, rest // kv_heads
+        k0 = kt * rows
+        q_begin = k0 if causal else 0
+        q_end = min(q_len, k0 + rows - 1 + w) if w > 0 else q_len
+        first = q_begin // rows
+        count = -(-q_end // rows) - first if q_end > q_begin else 0
+        dkdv.append((b, g, kt, [(g * rep + u // count, first + u % count)
+                                for u in range(rep * count)]))
+    return dq, dkdv

@@ -23,12 +23,18 @@ per SM run Zamba2's 448 rows in one wave.
 
 The gradient (training): when an input needs one, :func:`mamba2_scan` runs
 under a ``torch.autograd.Function`` whose backward is
-:func:`mamba2_scan_bwd`, the ``mamba2_scan_bwd`` kernel of the same source:
-one block a row recomputes the chunk-start states, then walks the chunks in
-reverse with the state's gradient in shared memory (plain fp32 FMA; see the
-``.cu``).  It writes per-row partials of dB and dC, which the wrapper sums
-over each group's rows in a fixed order: the transpose of the broadcast of
-B/C to the heads.
+:func:`mamba2_scan_bwd`, the ``mamba2_scan_bwd`` kernel of the same source,
+shaped like the forward: a warpgroup a head, two heads of a group a block,
+``wgmma`` products with the operands made in fp32 as bf16 hi + lo pairs
+(three parts for the weighted B of the states' recompute and the state's
+gradient in x g^T, which reach dt's and A's gradients through sums whose
+terms cancel).  A
+forward walk recomputes each chunk's starting state and ``dy h0^T`` into a
+scratch, then a reverse walk carries the state's gradient in shared memory
+(see the ``.cu``).  dB and dC leave as one fp32 partial a block (the sum of
+its pair of heads, or its one head), which the wrapper sums over each
+group's partials in a fixed order: the transpose of the broadcast of B/C
+to the heads.
 
 For tensors on the CPU each wrapper runs its plain version (the chunked
 scan of :func:`repro_torch.kernels.ref.mamba2_chunked`, and its gradient
@@ -163,9 +169,16 @@ def _scan(x, dt, a, b, c, d):
 mamba2_scan.launches = 0
 
 
+def block_heads(heads_per_group: int) -> int:
+    """Heads a block of the backward kernel owns: two of one group where
+    the group's heads pair up, else one."""
+    return 2 if heads_per_group % 2 == 0 else 1
+
+
 def sum_groups(t: torch.Tensor, groups: int) -> torch.Tensor:
-    """[rows, S, ds] per-row partials -> [groups, S, ds]: each group the
-    sum of its rows in order (the transpose of :func:`expand_groups`)."""
+    """[n, S, ds] partials, n a multiple of ``groups`` -> [groups, S, ds]:
+    each group the sum of its n / groups partials in order (over rows, the
+    transpose of :func:`expand_groups`)."""
     rows = t.shape[0]
     if groups == rows:
         return t
@@ -212,23 +225,28 @@ def mamba2_scan_bwd(x, dt, a, b, c, d, dy, dh_final=None):
     ddt = torch.empty((rows, s), **f32)
     da = torch.empty((rows,), **f32)
     dd = torch.empty((rows,), **f32)
-    db_rows = torch.empty((rows, s, ds), **f32)
-    dc_rows = torch.empty((rows, s, ds), **f32)
-    # each row's state at the start of each chunk and the final state,
-    # which the kernel's first walk writes and its reverse walk reads
-    states = torch.empty((rows, -(-s // CHUNK) + 1, ds, dh), **f32)
+    # dB and dC leave as one partial a block: the sum of a pair of heads of
+    # one group where the group's heads pair up, else of one head
+    parts = rows // block_heads(rows // g)
+    db_parts = torch.empty((parts, s, ds), **f32)
+    dc_parts = torch.empty((parts, s, ds), **f32)
+    # each row's state at the start of each chunk and the final state, then
+    # each chunk's dy h0^T, which the kernel's first walk writes and its
+    # reverse walk reads (64 x 64 fp32 tiles)
+    chunks = -(-s // CHUNK)
+    scratch = torch.empty((rows, 2 * chunks + 1, CHUNK * MAX_DIM), **f32)
     lib = _lib()
     code = lib.mamba2_scan_bwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), d.data_ptr(), dy.data_ptr(),
         None if dh_final is None else dh_final.data_ptr(), dx.data_ptr(),
-        ddt.data_ptr(), da.data_ptr(), dd.data_ptr(), db_rows.data_ptr(),
-        dc_rows.data_ptr(), states.data_ptr(), rows, s, dh, ds, rows // g,
+        ddt.data_ptr(), da.data_ptr(), dd.data_ptr(), db_parts.data_ptr(),
+        dc_parts.data_ptr(), scratch.data_ptr(), rows, s, dh, ds, rows // g,
         _build.stream(x.device))
     _build.check(lib, "mamba2_scan_bwd", code)
     mamba2_scan_bwd.launches += 1
-    return (dx, ddt, da, sum_groups(db_rows, g).to(b.dtype),
-            sum_groups(dc_rows, g).to(c.dtype), dd)
+    return (dx, ddt, da, sum_groups(db_parts, g).to(b.dtype),
+            sum_groups(dc_parts, g).to(c.dtype), dd)
 
 
 mamba2_scan_bwd.launches = 0

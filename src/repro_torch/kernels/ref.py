@@ -284,7 +284,24 @@ def _pad_steps(s, chunk, *ts):
             for t in ts]
 
 
-def mamba2_bwd_chunks(x, dt, a, b, c, d, dy, dh_final=None, *, chunk=64):
+def split_pair(t, dtype=torch.bfloat16):
+    """``t`` as the sum of a pair hi + lo of ``dtype`` (hi = t rounded, lo =
+    the rest rounded), in fp32: how the CUDA scans feed an operand made in
+    fp32 to the tensor cores (``split2`` in ``csrc/sm90.cuh``)."""
+    hi = t.to(dtype).float()
+    return hi + (t - hi).to(dtype).float()
+
+
+def split_three(t, dtype=torch.bfloat16):
+    """``t`` as the sum of three parts of ``dtype`` (hi = t rounded, then
+    the rest as :func:`split_pair`), in fp32: ``split3`` in
+    ``csrc/sm90.cuh``."""
+    hi = t.to(dtype).float()
+    return hi + split_pair(t - hi, dtype)
+
+
+def mamba2_bwd_chunks(x, dt, a, b, c, d, dy, dh_final=None, *, chunk=64,
+                      operands=None):
     """The CUDA backward kernel's algorithm in plain PyTorch, for the tests
     only (no model calls it).  A first walk keeps each chunk's starting
     state; the reverse walk over chunks carries g, the gradient of the state
@@ -300,7 +317,21 @@ def mamba2_bwd_chunks(x, dt, a, b, c, d, dy, dh_final=None, *, chunk=64):
     and dt through its two roles: directly (sum_i P_ij + exp(cum_Q - cum_j)
     B_j^T g x_j) and through cum, whose gradient dcum is reverse-summed
     over the chunk (ddt += a dcum_rev, da += dt dcum_rev).  No exponent is
-    positive.  Shapes as :func:`mamba2_chunked_bwd`."""
+    positive.  ``operands``: a dtype that models the CUDA kernel's tensor-core
+    operands (None: fp32 throughout): x, B, C and dy are taken as they are
+    (the kernel reads them in bf16, exactly), and each operand that the
+    kernel makes in fp32 enters as a pair hi + lo of that dtype
+    (:func:`split_pair`): the state h0 in dy h0^T, CBL^T dt, dML^T and dML
+    dt, the gradient g of the state in B g, and (C exp(cum))^T in its
+    update; (B w)^T in the state update, and g in x g^T and as it is
+    carried from chunk to chunk, enter as three parts
+    (:func:`split_three`), since both reach dcum, whose terms cancel.
+    Shapes as :func:`mamba2_chunked_bwd`."""
+    def op(t):
+        return t if operands is None else split_pair(t, operands)
+
+    def op3(t):
+        return t if operands is None else split_three(t, operands)
     bh, s, dh = x.shape
     xf, bf, cf, dyf = _pad_steps(s, chunk, x, b, c, dy)
     dtf, = _pad_steps(s, chunk, dt)
@@ -316,7 +347,7 @@ def mamba2_bwd_chunks(x, dt, a, b, c, d, dy, dh_final=None, *, chunk=64):
         cum = torch.cumsum(dtf[:, sl] * af[:, None], dim=1)
         w = torch.exp(cum[:, -1:] - cum) * dtf[:, sl]
         h = (torch.exp(cum[:, -1])[:, None, None] * h
-             + (bf[:, sl] * w[..., None]).transpose(1, 2) @ xf[:, sl])
+             + op3((bf[:, sl] * w[..., None]).transpose(1, 2)) @ xf[:, sl])
     g = (torch.zeros_like(h) if dh_final is None else dh_final.float())
     h_end = h
     grads = [torch.zeros_like(t) for t in (xf, dtf, bf, cf)]
@@ -334,13 +365,15 @@ def mamba2_bwd_chunks(x, dt, a, b, c, d, dy, dh_final=None, *, chunk=64):
         p = dml * cb_raw
         tail = torch.exp(cum[:, -1:] - cum)
         w = tail * dtq
-        gx = xq @ g.transpose(1, 2)                      # g x_j  [Q, ds]
-        z = dyq @ h0.transpose(1, 2)                     # h0 dy_i [Q, ds]
+        gs, g3 = op(g), op3(g)
+        gx = xq @ g3.transpose(1, 2)                     # g x_j  [Q, ds]
+        z = dyq @ op(h0).transpose(1, 2)                 # h0 dy_i [Q, ds]
         ecum = torch.exp(cum)
-        dx = ((cb * dtq[:, None, :]).transpose(1, 2) @ dyq
-              + df[:, None, None] * dyq + w[..., None] * (bq @ g))
-        dc = (dml * dtq[:, None, :]) @ bq + ecum[..., None] * z
-        db = dtq[..., None] * (dml.transpose(1, 2) @ cq) + w[..., None] * gx
+        dx = (op((cb * dtq[:, None, :]).transpose(1, 2)) @ dyq
+              + df[:, None, None] * dyq + w[..., None] * (bq @ gs))
+        dc = op(dml * dtq[:, None, :]) @ bq + ecum[..., None] * z
+        db = dtq[..., None] * (op(dml.transpose(1, 2)) @ cq
+                               + tail[..., None] * gx)
         q = (bq * gx).sum(-1)
         colp = p.sum(1)
         dcum = ((p * dtq[:, None, :]).sum(2) - dtq * colp
@@ -351,8 +384,8 @@ def mamba2_bwd_chunks(x, dt, a, b, c, d, dy, dh_final=None, *, chunk=64):
                                      db, dc)):
             grad[:, sl] = val
         da += (dtq * rev).sum(1)
-        g = (torch.exp(cum[:, -1])[:, None, None] * g
-             + (cq * ecum[..., None]).transpose(1, 2) @ dyq)
+        g = (torch.exp(cum[:, -1])[:, None, None] * g3
+             + op((cq * ecum[..., None]).transpose(1, 2)) @ dyq)
         h_end = h0
     dx, ddt, db, dc = (t[:, :s] for t in grads)
     dd = (dyf * xf).sum((1, 2))

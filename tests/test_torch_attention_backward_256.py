@@ -20,6 +20,7 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import bwd256_schedule
 
 D = 256
 REL = 1e-4
@@ -112,3 +113,69 @@ def test_plain_backward_rounds_p_and_ds_where_asked():
         assert torch.equal(e, a)
         gap = float((r - e).abs().max() / e.abs().max())
         assert 0 < gap < 2e-2
+
+
+def _attending_tiles(q_len, kv_len, causal, window):
+    """{(q tile, kv tile)} of 64-row tiles holding a (q row, key) pair the
+    mask lets attend, by the tiles' ranges of q row - key."""
+    out = set()
+    for i in range(-(-q_len // 64)):
+        r0, r1 = 64 * i, min(64 * i + 63, q_len - 1)
+        for j in range(-(-kv_len // 64)):
+            c0, c1 = 64 * j, min(64 * j + 63, kv_len - 1)
+            lo, hi = r0 - c1, r1 - c0          # q row - key over the pair
+            if causal:
+                lo = max(lo, 0)
+            if window:
+                hi = min(hi, window - 1)
+            if lo <= hi:
+                out.add((i, j))
+    return out
+
+
+SCHEDULE_CASES = [  # Sq, Sk, causal, window
+    (8160, 8160, True, None),    # Gemma2's served prompt, global
+    (8160, 8160, True, 4096),    # and its windowed layers
+    (8192, 8192, True, None),    # phase 15's training sequence
+    (8192, 8192, True, 4096),
+    (200, 200, True, 20),        # ragged, a window under a tile
+    (77, 333, False, None),      # no mask, lengths apart
+    (300, 150, True, 64),        # more q rows than keys
+]
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", SCHEDULE_CASES)
+def test_backward_256_schedule_walks_each_attending_pair_once(sq, sk, causal,
+                                                              window):
+    """The head_dim 256 backward's two passes (``bwd256_schedule``, the
+    kernels' index arithmetic): the dQ blocks walk each (q tile, kv tile)
+    pair of each (batch, head) that the mask lets attend exactly once, and
+    no other; so do the dK/dV blocks over each kv head's q heads; every
+    block is launched once; and under self-attention the blocks run
+    heaviest first (their walks never lengthen in launch order), so no
+    long block starts last."""
+    b, h, g = 2, 4, 2
+    dq, dkdv = bwd256_schedule(b, h, g, sq, sk, causal=causal, window=window)
+    want = _attending_tiles(sq, sk, causal, window)
+    walked = {}
+    for bb, hh, qt, kv in dq:
+        assert len(set(kv)) == len(kv)
+        walked.setdefault((bb, hh), []).extend((qt, kt) for kt in kv)
+    assert len(dq) == b * h * -(-sq // 64)
+    assert sorted(walked) == [(bb, hh) for bb in range(b) for hh in range(h)]
+    for pairs in walked.values():
+        assert len(pairs) == len(set(pairs)) and set(pairs) == want
+    walked = {}
+    for bb, gg, kt, units in dkdv:
+        for hh, qt in units:
+            assert hh // (h // g) == gg
+            walked.setdefault((bb, hh), []).append((qt, kt))
+    assert len(dkdv) == b * g * -(-sk // 64)
+    for bb in range(b):
+        for hh in range(h):
+            pairs = walked.get((bb, hh), [])
+            assert len(pairs) == len(set(pairs)) and set(pairs) == want
+    if sq == sk:   # self-attention; past the keys q rows walk nothing
+        for blocks in (dq, dkdv):
+            steps = [len(x[-1]) for x in blocks]
+            assert steps == sorted(steps, reverse=True)

@@ -218,7 +218,8 @@ def test_attention_gradient_at_head_dim_256_on_card(causal, window,
     forward in fp32; with q x 10, where the cap bites and dK grows with q
     (to about 30), of the plain backward with P and dS rounded to bf16
     where the kernel rounds them (bf16's rounding of dS alone moves dK by
-    more than 2e-2 there)."""
+    more than 2e-2 there); and a second call bit-identical, the windowed
+    shape included."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(9)
     q = (torch.randn((2, 200, 4, 256), generator=gen, device="cuda")
@@ -234,6 +235,10 @@ def test_attention_gradient_at_head_dim_256_on_card(causal, window,
     counts = ops.launches()
     assert counts["flash_attention"] == 1
     assert counts["flash_attention_bwd"] == 1
+    # a second call gives the same bits (no atomics, fixed sum orders)
+    again = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves,
+                                do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     if q_scale > 1.0:
         from repro_torch.kernels.flash_attention import _forward
         out, _ = _forward(q, k, v, (causal, window, 50.0, None),
@@ -749,22 +754,25 @@ def test_attention_gradient_through_the_wrapper_on_card():
 @pytest.mark.parametrize("scan,s,final", [
     ("mamba2", 512, False),     # Zamba2's sequences, one B/C group each
     ("mamba2", 130, True),      # a ragged chunk, a final-state gradient
+    ("mamba2-odd", 200, True),  # 3 heads a group: a block a head
     ("rwkv6", 512, False),
     ("rwkv6", 100, True),
 ])
 def test_scan_backward_kernels_match_plain_on_card(scan, s, final):
     """The scans' backward kernels against autograd of the fp32 per-step
     recurrences: every gradient within 5e-2 of its max |value|; two calls
-    give the same bits."""
+    give the same bits.  Mamba2 with 8 heads a B/C group (the kernel's
+    blocks of two heads) and with 3 (``mamba2-odd``: blocks of one)."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(s)
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     bf16 = torch.bfloat16
-    if scan == "mamba2":
+    kind = scan.split("-")[0]
+    if kind == "mamba2":
         from repro_torch.kernels.mamba2_scan import expand_groups, sum_groups
-        batch, heads = 2, 8
+        batch, heads = 2, 3 if scan == "mamba2-odd" else 8
         rows = batch * heads
         x = rn(rows, s, 64).to(bf16)
         dt = torch.nn.functional.softplus(rn(rows, s) - 1.0)
@@ -793,7 +801,7 @@ def test_scan_backward_kernels_match_plain_on_card(scan, s, final):
     ops.reset_launches()
     got = call(*args, dy, dfinal)
     again = call(*args, dy, dfinal)
-    assert ops.launches()[f"{scan}_scan_bwd"] == 2
+    assert ops.launches()[f"{kind}_scan_bwd"] == 2
     assert all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
     for g_, e, t in zip(got, exp, args):
         assert g_.shape == t.shape and g_.dtype == t.dtype

@@ -7,7 +7,9 @@ through the port on the CPU: the scan wrappers' backward (``mamba2_scan_bwd``
 / ``rwkv6_scan_bwd``, which run their plain versions, the gradients of the
 chunked scans) and ``ref.mamba2_bwd_chunks`` / ``ref.rwkv6_bwd_chunks``,
 plain models of the CUDA backward kernels' own algorithm (the reverse walk
-over 64-step chunks, and RWKV-6's log-decay gradient as a running sum).
+over 64-step chunks, and RWKV-6's log-decay gradient as a running sum),
+the Mamba2 one also with the kernel's tensor-core operands (bf16 inputs,
+hi + lo pairs of bf16, or three parts, for the operands made in fp32).
 For the reference, B and C are broadcast to every head and their gradients
 summed over each group's rows.  Every gradient is held within 1e-4 of its
 largest |value| in fp32.
@@ -132,6 +134,102 @@ def test_mamba2_kernel_algorithm_where_the_twin_overflows():
     got = tref.mamba2_bwd_chunks(x, dt, a, b, c, d, _t(dy), _t(dh_final))
     for name, gr, e in zip("x dt a b c d".split(), got, per_step):
         _close(f"d{name}", gr, e.numpy())
+
+
+def _bf16_values(x):
+    """``x`` rounded to the nearest bf16 values, kept as fp32 numpy: the
+    inputs the CUDA kernel reads exactly."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _bf16_inputs(args, dy):
+    """x, B, C and dy at bf16 values; dt, a, D left in fp32."""
+    return (tuple(_bf16_values(t) if i in (0, 3, 4) else t
+                  for i, t in enumerate(args)), _bf16_values(dy))
+
+
+@pytest.mark.parametrize("batch,heads,s,groups,final", MAMBA2_CASES)
+def test_mamba2_tensor_core_operands_match_reference(batch, heads, s, groups,
+                                                     final):
+    """The kernel's algorithm with its tensor-core operands
+    (``ref.mamba2_bwd_chunks(operands=bf16)``: bf16 inputs exact, each
+    operand made in fp32 as a hi + lo pair of bf16 or three parts) against
+    ``jax.vjp`` of the twin at realistic decays, on inputs at bf16 values:
+    within 1e-4 of each gradient's max |value|, and not the fp32 result bit
+    for bit."""
+    args, dy, dh_final = _mamba2_inputs(batch, heads, s, groups, final, 11)
+    args, dy = _bf16_inputs(args, dy)
+    exp = _mamba2_reference_grads(args, dy, dh_final)
+    x, dt, a, b, c, d = map(_t, args)
+    rows, g = x.shape[0], b.shape[0]
+    full = (x, dt, a, expand_groups(b, rows), expand_groups(c, rows), d,
+            _t(dy), _t(dh_final))
+    got = list(tref.mamba2_bwd_chunks(*full, operands=torch.bfloat16))
+    exact = tref.mamba2_bwd_chunks(*full)
+    assert any(not torch.equal(a_, e_) for a_, e_ in zip(got, exact))
+    got[3], got[4] = sum_groups(got[3], g), sum_groups(got[4], g)
+    for name, gr, e in zip("x dt a b c d".split(), got, exp):
+        _close(f"d{name}", gr, e)
+
+
+@pytest.mark.parametrize("s,final", [(200, True), (128, False)])
+def test_mamba2_tensor_core_operands_at_served_widths(s, final):
+    """The same at Zamba2's widths (dh = ds = 64, two heads of one B/C
+    group) against autograd of the fp32 per-step recurrence: within 1e-4
+    of each gradient's max |value|."""
+    args, dy, dh_final = _mamba2_inputs(1, 2, s, "shared", final, 12, dh=64,
+                                        ds=64)
+    args, dy = _bf16_inputs(args, dy)
+    x, dt, a, b, c, d = map(_t, args)
+    rows = x.shape[0]
+    full = (x, dt, a, expand_groups(b, rows), expand_groups(c, rows), d)
+    per_step = tref.grads_of(
+        lambda *t: tref.mamba2_ref(*t, return_final=True), full, _t(dy),
+        _t(dh_final))
+    got = tref.mamba2_bwd_chunks(*full, _t(dy), _t(dh_final),
+                                 operands=torch.bfloat16)
+    for name, gr, e in zip("x dt a b c d".split(), got, per_step):
+        _close(f"d{name}", gr, e.numpy())
+
+
+# dt's, a's and D's gradients (they reach A_log, dt_bias and D) against the
+# per-step recurrence: within this share of their max |value|
+SCALAR_GRAD_REL = 1e-5
+
+
+@pytest.mark.parametrize("seed,final", [(1, True), (2, False)])
+def test_mamba2_tensor_core_operands_keep_scalar_grads_near_fp32(seed,
+                                                                 final):
+    """The kernel's algorithm with its tensor-core operands at Zamba2's
+    widths over 512 steps, its decays drawn as the card script draws them
+    (dt a softplus of a unit normal less 1, a = -exp(0.5 z)): ddt, da and
+    dD within ``SCALAR_GRAD_REL`` of their max |value| from autograd of the
+    fp32 per-step recurrence.  dcum's terms cancel, so da is the gradient
+    that an operand taken as a pair hi + lo instead of three parts moves
+    (to 2.3e-5 and 1.9e-5 of max |da| at these seeds)."""
+    rng = np.random.default_rng(seed)
+    rows, s = 4, 512
+
+    def bf16(*shape):
+        return _t(_bf16_values(rng.normal(size=shape).astype(np.float32)))
+    x = bf16(rows, s, 64)
+    dt = torch.nn.functional.softplus(_t(rng.normal(size=(rows, s)).astype(
+        np.float32)) - 1.0)
+    a = -torch.exp(_t(rng.normal(size=(rows,)).astype(np.float32)) * 0.5)
+    b, c = bf16(rows, s, 64), bf16(rows, s, 64)
+    d = _t(rng.normal(size=(rows,)).astype(np.float32))
+    dy = bf16(rows, s, 64)
+    dh_final = (_t(rng.normal(size=(rows, 64, 64)).astype(np.float32))
+                if final else None)
+    full = (x, dt, a, b, c, d)
+    per_step = tref.grads_of(
+        lambda *t: tref.mamba2_ref(*t, return_final=True), full, dy, dh_final)
+    got = tref.mamba2_bwd_chunks(*full, dy, dh_final, operands=torch.bfloat16)
+    for name, i in (("ddt", 1), ("da", 2), ("dD", 5)):
+        scale = per_step[i].abs().max().item()
+        err = (got[i] - per_step[i]).abs().max().item()
+        assert err <= SCALAR_GRAD_REL * scale, \
+            f"{name}: max|err| {err} > {SCALAR_GRAD_REL} x {scale}"
 
 
 def _rwkv6_inputs(rows, s, final, seed, dk=16, dv=8, spread=0.5,
