@@ -413,13 +413,14 @@ SASS_FUNCTION_WANTS = {
                         "bwd2569dq_kernel": ("HGMMA", "UTMALDG"),
                         "bwd25611dkdv_kernel": ("HGMMA", "UTMALDG")},
     "mamba2_scan": {"mamba2_bwd_kernel": ("HGMMA",)},
+    "rwkv6_scan": {"rwkv6_bwd_kernel": ("HGMMA",)},
 }
 # the redesigned backward kernels' first versions' device ms (mma.sync at
-# head_dim 256, plain fp32 FMA for Mamba2; a whole-script run on an H100
-# 80GB HBM3 at 700 W), printed beside this run's
+# head_dim 256, plain fp32 FMA for Mamba2 and RWKV-6; a whole-script run on
+# an H100 80GB HBM3 at 700 W), printed beside this run's
 EARLIER_MS = {"flash_attention_bwd 256 global": 46.2700,
               "flash_attention_bwd 256 window 4096": 34.6647,
-              "mamba2_scan_bwd": 1.5333}
+              "mamba2_scan_bwd": 1.5333, "rwkv6_scan_bwd": 1.8701}
 
 
 def kernel_name(mangled: str) -> str:
@@ -1789,9 +1790,10 @@ def continuous_phase(engine, cfg) -> None:
 # phase 6: DBRX over 4 ranks, 2 pods x 2 ep ranks
 # ---------------------------------------------------------------------------
 
-# what a phase's spawn served for a later phase over the same mesh, model
-# and seed (phase 6's spawn: phase 9's DBRX; phase 8's: phase 9's
-# Mistral-NeMo probes), by the later phase's key
+# what a phase's spawn ran for a later phase over the same mesh and backend
+# (phase 6's spawn: phase 9's DBRX and phase 11's DBRX training; phase 8's:
+# phase 9's Mistral-NeMo probes, phase 14's four models and phase 11's
+# Mistral-NeMo training), by the later phase's key
 CARRIED: dict = {}
 
 
@@ -1827,9 +1829,10 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None,
     to each other.  ``trace`` names a file for a ``torch.profiler`` trace of
     one G = 4 prefill layer (on the card, every rank traced, rank 0's
     written).  With ``carry`` the same spawn then serves phase 9's DBRX
-    calibration and runs on the same weights (``CARRIED["dbrx"]``).
-    Returns the kernel launches of the measured runs, summed over ranks
-    and runs."""
+    calibration and runs on the same weights (``CARRIED["dbrx"]``) and,
+    the served state freed, trains phase 11's DBRX (``CARRIED["train
+    dbrx"]``).  Returns the kernel launches of the measured runs, summed
+    over ranks and runs."""
     import dataclasses
     import tempfile
 
@@ -1902,23 +1905,28 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None,
                         else [None]),
                 trace=(dict(run=ranks.run_label(runs[3]), path=trace)
                        if trace else None))
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         spec = dict(world=world, pods=RANKS[0], ep=RANKS[1], backend=backend,
                     device="cuda:0", init_method=f"file://{tmp}/store",
-                    timeout_s=120, out_dir=f"{tmp}/out", threads=2, cfg=cfg,
-                    dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
-                    prompts=prompts, warmup=True,
-                    models=[mine] + ([calibration_entry(cfg)] if carry
-                                     else []))
+                    timeout_s=600 if carry else 120, out_dir=f"{tmp}/out",
+                    threads=2, cfg=cfg, dtype=torch.bfloat16,
+                    cache_dtype=torch.bfloat16, seed=0, prompts=prompts,
+                    warmup=True, dp_servers=(RANKS[0],) if carry else (),
+                    models=[mine] + ([calibration_entry(cfg),
+                                      train_entry("dbrx", backend)]
+                                     if carry else []))
         t0 = time.monotonic()
-        spawned = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900)
+        spawned = ranks.run_ranks(ranks.serve_worker, spec,
+                                  timeout_s=1800 if carry else 900)
     results = [r["models"]["phase 6"] for r in spawned]
     if carry:
         CARRIED["dbrx"] = [r["models"]["phase 9"] for r in spawned]
+        CARRIED["train dbrx"] = [r["models"]["phase 11 dbrx"]
+                                 for r in spawned]
     print(f"  {world} ranks spawned, served and joined in "
           f"{time.monotonic() - t0:.1f} s"
-          + (" (phase 9's DBRX calibration and runs included)" if carry
-             else "") + f"; peak memory a rank "
+          + (" (phase 9's DBRX calibration and runs and phase 11's DBRX "
+             "training included)" if carry else "") + f"; peak memory a rank "
           f"{max(r['peak_gb'] for r in results):.2f} GB")
     spawn_split(spawned, "the spawn")
 
@@ -2182,8 +2190,10 @@ def tp_phase(carry: bool = False) -> dict:
     and every pack of the warm-ups is bit-exact; exact launch counts;
     decode eager over gloo, graphed over nccl (captures and replays
     counted).  With ``carry`` the Mistral spawn then runs phase 9's probes
-    of the same mesh (``CARRIED["mistral"]``).  Returns the kernel
-    launches of the measured runs, summed over ranks and runs."""
+    of the same mesh (``CARRIED["mistral"]``), serves phase 14's models
+    (``CARRIED["tp families"]``) and trains phase 11's Mistral-NeMo
+    (``CARRIED["train mistral"]``).  Returns the kernel launches of the
+    measured runs, summed over ranks and runs."""
     import dataclasses
     import tempfile
 
@@ -2247,18 +2257,28 @@ def tp_phase(carry: bool = False) -> dict:
     frag = (PROMPTS, PROMPT_LEN // 4, cfg.d_model)
     mine = dict(name="phase 8", runs=runs, max_new=new,
                 gather=dict(shape=frag, reps=5))
-    with tempfile.TemporaryDirectory() as tmp:
+    carried = ([gather_probe_entry()]
+               + tp_families_models(tp_families_served(cards >= 4),
+                                    TP_FAMILIES_NEW[4 if cards >= 4 else 1])
+               + [train_entry("mistral", backend)]) if carry else []
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.monotonic()
-        spawned = ranks.run_ranks(ranks.serve_worker, tp_spec(
-            tmp, TP_MESH, backend, cfg, [], prompts=prompts,
-            models=[mine] + ([gather_probe_entry()] if carry else [])),
-            timeout_s=900)
+        spec = tp_spec(tmp, TP_MESH, backend, cfg, [], prompts=prompts,
+                       models=[mine] + carried)
+        if carry:   # phase 11's training: the gradient mean's groups
+            spec.update(timeout_s=600, dp_servers=(TP_MESH[0],))
+        spawned = ranks.run_ranks(ranks.serve_worker, spec,
+                                  timeout_s=1800 if carry else 900)
     results = [r["models"]["phase 8"] for r in spawned]
     if carry:
         CARRIED["mistral"] = [r["models"]["phase 9"] for r in spawned]
+        CARRIED["tp families"] = spawned
+        CARRIED["train mistral"] = [r["models"]["phase 11 mistral"]
+                                    for r in spawned]
     print(f"  4 ranks spawned, served and joined in "
           f"{time.monotonic() - t0:.1f} s"
-          + (" (phase 9's probes of the mesh included)" if carry else ""))
+          + (" (phase 9's probes of the mesh, phase 14's models and phase "
+             "11's Mistral-NeMo training included)" if carry else ""))
     spawn_split(spawned, "the spawn")
     failures = check_decode_mode(results, backend)
     total: dict = {}
@@ -3385,10 +3405,15 @@ def scan_bwd_checks(failures: list) -> dict:
         worst = max(worst, max((a_.float() - e).abs().max().item()
                                for a_, e in zip(got, exp)))
         if label == "rwkv6":
-            # r, k, v, dy, dr, dk, dv bf16; logw, dlogw fp32; u, du; 10
-            # products of 64^3 a chunk and row
+            # r, k, v, dy, dr, dk, dv bf16; logw, dlogw fp32; u, du; a
+            # chunk and row: 8 products of 64^3 (the state's update and dy
+            # S0^T in the forward walk; dy v^T, v dy^T, v G^T, A^T dy, k~ G
+            # and G's update), and the sub-chunk products of drs, dks and
+            # A^T (6 blocks of 16 x 16 x 64 each) and their quadrants (12
+            # of 8 x 8 x 64)
             nbytes = 7 * n * s * 64 * 2 + 2 * n * s * 64 * 4 + 2 * n * 64 * 4
-            flops = 10 * 2 * 64 ** 3 * n * -(-s // 64)
+            flops = 2 * n * -(-s // 64) * (8 * 64 ** 3 + 3 * 6 * 16 * 16 * 64
+                                           + 12 * 8 * 8 * 64)
             rows["rwkv6_scan_bwd"] = _scan_bwd_row(
                 "rwkv6_scan_bwd",
                 "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
@@ -3961,6 +3986,46 @@ def train_ranks_spec(tmp: str, mesh: tuple, backend: str, cfg, runs: list,
                 lr=TRAIN_RANKS_LR, runs=runs, **kw)
 
 
+def train_ranks_plan(which: str, backend: str) -> dict:
+    """Phase 11's training ``which`` ("dbrx": the reduced DBRX and DBRX at
+    full width over 2 x 2; "mistral": Mistral-NeMo over ``TP_MESH``) as
+    the keys of a :func:`ranks.train_worker` spec: ``cfg``, ``runs``,
+    ``steps``, ``seq`` and, over nccl, DBRX's ``measure_link``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    if which == "mistral":
+        cfg = dataclasses.replace(get_config("mistral_nemo_12b"),
+                                  n_layers=TP_TRAIN_DEPTH)
+        return dict(cfg=cfg, steps=TP_TRAIN_STEPS, seq=TRAIN_RANKS_SEQ,
+                    runs=[dict(label="tp", policy="auto", tp_subgroups=2,
+                               check_kernels=True)])
+    depth, steps, seq = TRAIN_RANKS[4 if backend == "nccl" else 1]
+    small = get_config("dbrx_132b").reduced(
+        d_model=512, n_heads=4, n_kv_heads=2, d_ff=256, vocab=1024,
+        num_experts=8, top_k=2)
+    small = dataclasses.replace(small, moe_capacity=RANKS_CF)
+    cfg = dataclasses.replace(get_config("dbrx_132b"), n_layers=depth,
+                              moe_capacity=RANKS_CF)
+    link = 64 << 20 if backend == "nccl" else None
+    return dict(cfg=cfg, steps=steps, seq=seq, measure_link=link,
+                runs=[dict(label="reduced", cfg=small, grads=True,
+                           grad_of="ce", steps=1),
+                      dict(label="dbrx", policy="auto", check_kernels=True,
+                           schemes=list(SCHEME_LEAVES),
+                           fabric="measured" if link else None)])
+
+
+def train_entry(which: str, backend: str) -> dict:
+    """Phase 11's training ``which`` as an entry of a serving spawn's
+    ``models`` (:func:`ranks.serve_worker`), run after that spawn's
+    serving on the same mesh."""
+    import torch
+    return dict(name=f"phase 11 {which}", train=True, dtype=torch.bfloat16,
+                seed=0, batch=TRAIN_RANKS_BATCH, lr=TRAIN_RANKS_LR,
+                **train_ranks_plan(which, backend))
+
+
 def one_rank_step0(cfg, seq: int, *, grads: bool) -> tuple:
     """The step-0 loss, ce and global gradient norm of ``cfg`` on one rank
     on the card (bf16, seed 0, ``TRAIN_RANKS_BATCH`` x ``seq`` tokens), and
@@ -4090,20 +4155,42 @@ def train_ranks_phase() -> dict:
     Gates: finite losses, the mean loss of DBRX's last 3 steps below its
     first 3, every replicated leaf bit-identical on every rank, the same
     grad norm on every rank, exact launch counts a step, each kernel
-    against its plain version.  Returns the kernel launches of the
-    trained runs, summed over ranks."""
-    import dataclasses
+    against its plain version.  Each training rides an earlier phase's
+    spawn when that phase carried it (``CARRIED``: DBRX phase 6's,
+    Mistral-NeMo phase 8's), else it spawns its own.  Returns the kernel
+    launches of the trained runs, summed over ranks."""
     import tempfile
 
     import torch
 
-    from repro_torch.configs.base import get_config
     from repro_torch.launch import ranks
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= 4 else "gloo"
     depth, steps, seq = TRAIN_RANKS[4 if cards >= 4 else 1]
     where = ("over nccl, a card a rank" if backend == "nccl" else
              "over gloo, 4 processes on card 0")
+
+    def trained(which: str, mesh: tuple, title: str, phase: int) -> tuple:
+        """The ranks' results of training ``which``, carried or spawned,
+        and how long the ranks ran it."""
+        results = CARRIED.pop(f"train {which}", None)
+        if results is not None:
+            print(f"  {title}: trained on phase {phase}'s spawn (its split "
+                  f"above)")
+            ran = max(sum(x["seconds"] for x in r["runs"].values())
+                      for r in results)
+            return results, f"{ran:.1f} s on phase {phase}'s spawn"
+        plan = train_ranks_plan(which, backend)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            spec = train_ranks_spec(tmp, mesh, backend, plan.pop("cfg"),
+                                    plan.pop("runs"), plan.pop("steps"),
+                                    plan.pop("seq"), **plan)
+            t0 = time.monotonic()
+            results = ranks.run_ranks(ranks.train_worker, spec,
+                                      timeout_s=900)
+            spent = time.monotonic() - t0
+        spawn_split(results, f"{title}'s spawn")
+        return results, f"{spent:.1f} s with set-up"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4111,26 +4198,10 @@ def train_ranks_phase() -> dict:
     print(f"  cards: {'; '.join(smi)} (every time below is on them)")
     failures: list = []
     total: dict = {}
-    small = get_config("dbrx_132b").reduced(
-        d_model=512, n_heads=4, n_kv_heads=2, d_ff=256, vocab=1024,
-        num_experts=8, top_k=2)
-    small = dataclasses.replace(small, moe_capacity=RANKS_CF)
-    cfg = dataclasses.replace(get_config("dbrx_132b"), n_layers=depth,
-                              moe_capacity=RANKS_CF)
-    link = 64 << 20 if backend == "nccl" else None
-    runs = [dict(label="reduced", cfg=small, grads=True, grad_of="ce",
-                 steps=1),
-            dict(label="dbrx", policy="auto", check_kernels=True,
-                 schemes=list(SCHEME_LEAVES),
-                 fabric="measured" if link else None)]
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        spec = train_ranks_spec(tmp, (2, 2, 1), backend, cfg, runs, steps,
-                                seq, measure_link=link)
-        t0 = time.monotonic()
-        results = ranks.run_ranks(ranks.train_worker, spec, timeout_s=900)
-        spawn_s = time.monotonic() - t0
-    spawn_split(results, "DBRX's spawn")
-    if link:
+    plan = train_ranks_plan("dbrx", backend)
+    cfg, small = plan["cfg"], plan["runs"][0]["cfg"]
+    results, spawn_s = trained("dbrx", (2, 2, 1), "DBRX", 6)
+    if plan["measure_link"]:
         print(f"  link: {results[0]['link']}")
     # the reduced model against one rank on the card
     red = results[0]["runs"]["reduced"]
@@ -4160,7 +4231,7 @@ def train_ranks_phase() -> dict:
     runs_ = [r["runs"]["dbrx"] for r in results]
     print(f"  DBRX-132B over 2 x 2, depth {depth}, {steps} steps of "
           f"{TRAIN_RANKS_BATCH} x {seq} tokens, {where}; the "
-          f"ranks ran {spawn_s:.1f} s with set-up")
+          f"ranks ran {spawn_s}")
     counts = train_run_lines("dbrx", runs_, failures, where=where)
     hist = runs_[0]["history"]
     head = sum(h["loss"] for h in hist[:3]) / 3
@@ -4197,21 +4268,12 @@ def train_ranks_phase() -> dict:
     torch.cuda.empty_cache()
 
     # Mistral-NeMo over 4 TP ranks
-    tp_cfg = dataclasses.replace(get_config("mistral_nemo_12b"),
-                                 n_layers=TP_TRAIN_DEPTH)
-    tp_runs = [dict(label="tp", policy="auto", tp_subgroups=2,
-                    check_kernels=True)]
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        spec = train_ranks_spec(tmp, TP_MESH, backend, tp_cfg, tp_runs,
-                                TP_TRAIN_STEPS, TRAIN_RANKS_SEQ)
-        t0 = time.monotonic()
-        results = ranks.run_ranks(ranks.train_worker, spec, timeout_s=900)
-        spawn_s = time.monotonic() - t0
-    spawn_split(results, "Mistral-NeMo's spawn")
+    tp_cfg = train_ranks_plan("mistral", backend)["cfg"]
+    results, spawn_s = trained("mistral", TP_MESH, "Mistral-NeMo", 8)
     runs_ = [r["runs"]["tp"] for r in results]
     print(f"  Mistral-NeMo-12B over {TP_MESH}, depth {TP_TRAIN_DEPTH}, "
           f"{TP_TRAIN_STEPS} steps, tp_subgroups 2, {where}; the ranks ran "
-          f"{spawn_s:.1f} s with set-up")
+          f"{spawn_s}")
     counts = train_run_lines("mistral", runs_, failures, where=where)
     want = launch_counts(flash_attention=tp_cfg.n_layers * TP_TRAIN_STEPS,
                          flash_attention_bwd=tp_cfg.n_layers
@@ -4449,6 +4511,33 @@ def fp32_prefill(cfg, params, prompts, max_len: int):
     return out
 
 
+def tp_families_served(four: bool) -> list:
+    """Phase 14's models in serving order: (name, cfg, knobs, the name of
+    the model it is the twin of, or None)."""
+    from repro_torch.launch.serve import serve_config
+    served = []
+    for arch, depth, twin, knobs in TP_FAMILIES:
+        cfg = serve_config(arch, layers=None if four else depth,
+                           smoke=False)
+        served.append((arch, cfg, knobs, None))
+        if twin is not None:
+            served.append((f"{arch}@{twin}", cfg.with_depth(twin), knobs,
+                           arch))
+    return served
+
+
+def tp_families_models(served: list, new: int) -> list:
+    """Phase 14's models as entries of a serving spawn's ``models``
+    (:func:`ranks.serve_worker`): prompts of seed 0, one run each of
+    ``new`` tokens, no warm-up."""
+    from repro_torch.launch.serve import make_prompts
+    return [dict(name=name, cfg=cfg,
+                 prompts=make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0),
+                 runs=[dict(label="tp4", **knobs)], warmup=False,
+                 max_new=new)
+            for name, cfg, knobs, _ in served]
+
+
 def tp_families_phase() -> dict:
     """The hybrid, rwkv and encoder-decoder families and Qwen2-VL's
     backbone served over 4 tensor-parallel ranks (``TP_FAMILIES``; nccl
@@ -4474,14 +4563,16 @@ def tp_families_phase() -> dict:
     (the same architecture at the depth ``TP_FAMILIES`` names, served on
     the same spawn) must be conditioned and pass phase 6's gate.  Each
     rank's decode-state bytes print beside one rank's.  Returns the
-    launches of the measured runs by model, summed over ranks."""
+    launches of the measured runs by model, summed over ranks.  The
+    ranks' work rides phase 8's spawn when that phase carried it
+    (``CARRIED``), else it spawns its own."""
     import tempfile
 
     import numpy as np
     import torch
 
     from repro_torch.launch import ranks
-    from repro_torch.launch.serve import make_prompts, serve_config
+    from repro_torch.launch.serve import make_prompts
     from repro_torch.models.api import build_model
     from repro_torch.runtime.server import ServeConfig
 
@@ -4493,17 +4584,10 @@ def tp_families_phase() -> dict:
     where = ("nccl, one card a rank" if four else
              "gloo, 4 processes on one card, host-staged transport")
     print(f"  {cards} card(s): {pods * ep * tp} ranks over {where}")
-    served = []                         # (name, cfg, knobs, twin of)
+    served = tp_families_served(four)
     twins = {arch for arch, _, twin, _ in TP_FAMILIES if twin is not None}
-    for arch, depth, twin, knobs in TP_FAMILIES:
-        cfg = serve_config(arch, layers=None if four else depth,
-                           smoke=False)
-        served.append((arch, cfg, knobs, None))
-        if twin is not None:
-            served.append((f"{arch}@{twin}", cfg.with_depth(twin), knobs,
-                           arch))
-    models, refs = [], {}
-    for name, cfg, knobs, _ in served:
+    refs = {}
+    for name, cfg, _, _ in served:
         prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
         t_one = time.monotonic()
         model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
@@ -4525,20 +4609,25 @@ def tp_families_phase() -> dict:
         print(f"  {name}: the one-rank references on the card, bf16 and "
               f"fp32 ({cfg.n_layers} blocks): "
               f"{time.monotonic() - t_one:.1f} s")
-        models.append(dict(name=name, cfg=cfg, prompts=prompts,
-                           runs=[dict(label="tp4", **knobs)]))
-    with tempfile.TemporaryDirectory() as tmp:
-        spec = dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
-                    backend=backend, device="cuda:0",
-                    init_method=f"file://{tmp}/store", timeout_s=300,
-                    out_dir=f"{tmp}/out", threads=2, seed=0,
-                    dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-                    max_new=new, models=models)
-        t0 = time.monotonic()
-        results = ranks.run_ranks(ranks.serve_worker, spec, timeout_s=900)
-    print(f"  4 ranks spawned, served the {len(models)} models and joined "
-          f"in {time.monotonic() - t0:.1f} s")
-    spawn_split(results, "the spawn")
+    results = CARRIED.pop("tp families", None)
+    if results is not None:
+        print(f"  the {len(served)} models over {TP_FAMILIES_MESH}: served "
+              f"on phase 8's spawn (its split above)")
+    else:
+        models = tp_families_models(served, new)
+        with tempfile.TemporaryDirectory() as tmp:
+            spec = dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
+                        backend=backend, device="cuda:0",
+                        init_method=f"file://{tmp}/store", timeout_s=300,
+                        out_dir=f"{tmp}/out", threads=2, seed=0,
+                        dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                        models=models)
+            t0 = time.monotonic()
+            results = ranks.run_ranks(ranks.serve_worker, spec,
+                                      timeout_s=900)
+        print(f"  4 ranks spawned, served the {len(models)} models and "
+              f"joined in {time.monotonic() - t0:.1f} s")
+        spawn_split(results, "the spawn")
     failures, by_path = [], {}
     for name, _, _, twin_of in served:
         cfg, expected, one_logits, one_state, bf16_rel = refs[name]

@@ -494,28 +494,6 @@ struct BwdSmem {
   static constexpr int kBytes = kTiles * kTile * 2 + kXBytes + HPB * kVec * 4 + 1024;
 };
 
-// a 64 x 64 fp32 accumulator of this thread to / from the scratch, in
-// register order: float4 j of thread tw at (128 j + tw) 4
-__device__ __forceinline__ void frag_store(float* dst, const float (&v)[32], int tw) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    reinterpret_cast<float4*>(dst)[j * 128 + tw] =
-        make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-}
-__device__ __forceinline__ void frag_load(float (&v)[32], const float* src, int tw) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float4 f = reinterpret_cast<const float4*>(src)[j * 128 + tw];
-    v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z; v[4 * j + 3] = f.w;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // A operands (T w)^T of a 64 x 64 bf16 tile T (rows k), rows s = 16 w ..
 // read transposed with ldmatrix and scaled by weight(k), as a split pair,
 // or with `third` as three parts hi + lo + third (split3)
@@ -540,43 +518,6 @@ __device__ __forceinline__ void scaled_transpose(uint32_t (&hi)[4][4], uint32_t 
       else split2(v0, v1, hi[kk][e], lo[kk][e]);
     }
   }
-}
-
-// d (+)= A B over k = 64: A a K-major tile at shared address a, B a tile at
-// b, K-major or (kBT) N-major through the transpose bit
-template <bool kBT>
-__device__ __forceinline__ void ss_product(float (&d)[32], uint32_t a, uint32_t b, bool acc) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t da = desc_sw128(a + kk * 32, 16);
-    if constexpr (kBT) wgmma_ss_n64_bt(d, da, desc_sw128(b + kk * 2048, 8192), acc || kk > 0);
-    else wgmma_ss_n64(d, da, desc_sw128(b + kk * 32, 16), acc || kk > 0);
-  }
-}
-
-// d += A B over k = 64: A a split pair in registers (and `third`, the
-// third part of split3's), B N-major at b
-__device__ __forceinline__ void rs_product(float (&d)[32], const uint32_t (&hi)[4][4],
-                                           const uint32_t (&lo)[4][4], uint32_t b,
-                                           const uint32_t (*third)[4] = nullptr) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = desc_sw128(b + kk * 2048, 8192);
-    wgmma_rs_n64(d, hi[kk], db);
-    wgmma_rs_n64(d, lo[kk], db);
-    if (third) wgmma_rs_n64(d, third[kk], db);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-}
-
-__device__ __forceinline__ void wait_products(float (&d)[32]) {
-  wgmma_commit();
-  wgmma_wait_all();
-  fence_operands(d);
 }
 
 template <int HPB>

@@ -540,16 +540,18 @@ def rwkv6_chunked_bwd(r, k, v, logw, u, dy, dstate=None, *, chunk=32):
                      (r, k, v, logw, u), dy, dstate)
 
 
-def rwkv6_bwd_chunks(r, k, v, logw, u, dy, dstate=None, *, chunk=64):
+def rwkv6_bwd_chunks(r, k, v, logw, u, dy, dstate=None, *, chunk=64,
+                     sub=None, operands=None):
     """The CUDA backward kernel's algorithm in plain PyTorch, for the tests
     only (no model calls it).  A first walk keeps each chunk's starting
-    state S0; the reverse walk carries G, the gradient of the state at the
-    chunk's end.  With cum the inclusive cumsum of logw in the chunk, cp its
-    exclusive one (cum of the step before) and E_ijc = exp(cp_ic - cum_jc)
-    for j < i (never a positive exponent; zero elsewhere):
+    state S0 and z = dy S0^T; the reverse walk carries G, the gradient of
+    the state at the chunk's end.  With cum the inclusive cumsum of logw in
+    the chunk, cp its exclusive one (cum of the step before) and E_ijc =
+    exp(cp_ic - cum_jc) for j < i (never a positive exponent; zero
+    elsewhere):
 
       A_ij   = sum_c r_ic k_jc E_ijc,   dA_ij = dy_i . v_j
-      drs_i  = sum_j E_ij k_j dA_ij + exp(cp_i) * (S0 dy_i)       (= S_{i-1} dy_i)
+      drs_i  = sum_j E_ij k_j dA_ij + exp(cp_i) * z_i              (= S_{i-1} dy_i)
       dks_j  = sum_i E_ij r_i dA_ij + exp(cum_Q - cum_j) * (G v_j) (= G_j v_j)
       dv_j   = sum_i A_ij dy_i + (r_j . u k_j) dy_j + G^T (k_j exp(cum_Q - cum_j))
       dr = drs + u k (v . dy),  dk = dks + u r (v . dy),  du = sum r k (v . dy)
@@ -559,22 +561,43 @@ def rwkv6_bwd_chunks(r, k, v, logw, u, dy, dstate=None, *, chunk=64):
     dlogw_t = F + sum_{m>t} r_m drs_m - sum_{m>=t} k_m dks_m, with F the
     final state times its gradient summed over dv (from
     dlogw_t = w_t S_{t-1} . G_t and the telescoping of S_t . G_t), so no
-    exponent enters it at all.  Shapes as :func:`rwkv6_chunked_bwd`."""
+    exponent enters it at all.
+
+    ``sub``: the kernel's sub-chunk reference points (16 there; None: E
+    formed whole).  Rows i of sub-chunk a against the columns j before it
+    take E_ijc = exp(cp_ic - ref_c) exp(ref_c - cum_jc) around ref = cum at
+    the step before a (drs: exp(cp - ref) (dA k^), k^ = k exp(ref - cum));
+    the columns j of sub-chunk b against the rows after it, around ref' =
+    cum at b's last step (dks: exp(ref' - cum_j) (dA^T r^), r^ = r exp(cp -
+    ref'); A^T = k^ r^^T); inside each diagonal block the rows of its
+    second half against its first half's columns around the cum at its
+    middle; the two triangles of sub / 2 steps left on the diagonal form E
+    per channel.  ``operands``: a dtype that models the kernel's
+    tensor-core operands (None: fp32 throughout): r, k, v and dy are taken
+    as they are (the kernel reads them in bf16, exactly), and each operand
+    the kernel makes in fp32 enters as a pair hi + lo of that dtype
+    (:func:`split_pair`): the state in dy S0^T and (k exp(cum_Q -
+    cum))^T in its update; dA, k^ and r^ in the sub-chunk products; A^T
+    (the bonus on its diagonal), k exp(cum_Q - cum) and G in dv; G in
+    v G^T; (r exp(cp))^T in G's update, and G as it is carried from chunk
+    to chunk.  Shapes as :func:`rwkv6_chunked_bwd`."""
+    def op(t):
+        return t if operands is None else split_pair(t, operands)
     bh, s, dk = r.shape
     rf, kf, vf, wf, dyf = _pad_steps(s, chunk, r, k, v, logw, dy)
     uf = u.float()
     nc = rf.shape[1] // chunk
     ii = torch.arange(chunk, device=r.device)
-    lower = (ii[:, None] > ii[None, :])[None, :, :, None]
+    low = ii[:, None] > ii[None, :]
     state = torch.zeros((bh, dk, v.shape[-1]), device=r.device)
-    starts = []
+    zs = []
     for ci in range(nc):
         sl = slice(ci * chunk, (ci + 1) * chunk)
-        starts.append(state)
+        zs.append(dyf[:, sl] @ op(state).transpose(1, 2))
         cum = torch.cumsum(wf[:, sl], dim=1)
         k_up = kf[:, sl] * torch.exp(cum[:, -1:] - cum)
         state = (torch.exp(cum[:, -1])[..., None] * state
-                 + k_up.transpose(1, 2) @ vf[:, sl])
+                 + op(k_up.transpose(1, 2)) @ vf[:, sl])
     g = torch.zeros_like(state) if dstate is None else dstate.float()
     acc = (state * g).sum(-1)                            # F [bh, dk]
     grads = [torch.zeros_like(t) for t in (rf, kf, vf, wf)]
@@ -582,22 +605,27 @@ def rwkv6_bwd_chunks(r, k, v, logw, u, dy, dstate=None, *, chunk=64):
     for ci in reversed(range(nc)):
         sl = slice(ci * chunk, (ci + 1) * chunk)
         rq, kq, vq, dyq = (t[:, sl] for t in (rf, kf, vf, dyf))
-        s0 = starts[ci]
         cum = torch.cumsum(wf[:, sl], dim=1)
         cp = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=1)
-        e = torch.exp(torch.where(lower, cp[:, :, None] - cum[:, None],
-                                  -torch.inf))           # [bh, i, j, c]
-        att = torch.einsum("bic,bjc,bijc->bij", rq, kq, e)
-        da_ = torch.where(lower[..., 0], dyq @ vq.transpose(1, 2), 0.0)
         tail = torch.exp(cum[:, -1:] - cum)
-        drs = (torch.einsum("bijc,bjc,bij->bic", e, kq, da_)
-               + torch.exp(cp) * (dyq @ s0.transpose(1, 2)))
-        dks = (torch.einsum("bijc,bic,bij->bjc", e, rq, da_)
-               + tail * (vq @ g.transpose(1, 2)))
+        da_ = torch.where(low, dyq @ vq.transpose(1, 2), 0.0)
+        drs = torch.exp(cp) * zs[ci]
+        dks = tail * (vq @ op(g).transpose(1, 2))
+        if sub is None:
+            e = torch.exp(torch.where(low[None, :, :, None],
+                                      cp[:, :, None] - cum[:, None],
+                                      -torch.inf))       # [bh, i, j, c]
+            att_t = torch.einsum("bic,bjc,bijc->bji", rq, kq, e)
+            drs = drs + torch.einsum("bijc,bjc,bij->bic", e, kq, da_)
+            dks = dks + torch.einsum("bijc,bic,bij->bjc", e, rq, da_)
+        else:
+            att_t = torch.zeros_like(da_)                # A^T: [bh, j, i]
+            drs, dks = _rwkv6_subchunk_terms(rq, kq, cum, cp, da_, drs, dks,
+                                             att_t, chunk, sub, op)
         bdot = (vq * dyq).sum(-1, keepdim=True)
-        bonus = (rq * uf[:, None] * kq).sum(-1, keepdim=True)
-        dv = (att.transpose(1, 2) @ dyq + bonus * dyq
-              + (kq * tail) @ g)
+        bonus = (rq * uf[:, None] * kq).sum(-1)
+        att_t = att_t + torch.diag_embed(bonus)
+        dv = op(att_t) @ dyq + op(kq * tail) @ op(g)
         # dlogw: the running sum from the chunk's end back to its start
         step = rq * drs - kq * dks
         after = torch.flip(torch.cumsum(torch.flip(step, [1]), 1), [1])
@@ -608,10 +636,57 @@ def rwkv6_bwd_chunks(r, k, v, logw, u, dy, dstate=None, *, chunk=64):
                                      dlogw)):
             grad[:, sl] = val
         du += (rq * kq * bdot).sum(1)
-        g = (torch.exp(cum[:, -1])[..., None] * g
-             + (rq * torch.exp(cp)).transpose(1, 2) @ dyq)
+        g = (torch.exp(cum[:, -1])[..., None] * op(g)
+             + op((rq * torch.exp(cp)).transpose(1, 2)) @ dyq)
     dr, dk_, dv, dlogw = (t[:, :s] for t in grads)
     return dr, dk_, dv, dlogw, du
+
+
+def _rwkv6_subchunk_terms(rq, kq, cum, cp, da_, drs, dks, att_t, chunk, sub,
+                          op):
+    """:func:`rwkv6_bwd_chunks`' chunk-local terms around the kernel's
+    sub-chunk reference points: returns drs and dks with them added, and
+    fills ``att_t`` (A^T) in place."""
+    half = sub // 2
+    ar = torch.arange(half, device=rq.device)
+    tri = (ar[:, None] > ar[None, :])[
+        None, :, :, None]
+    drs, dks = drs.clone(), dks.clone()
+    for a0 in range(0, chunk, sub):
+        blk = slice(a0, a0 + sub)
+        if a0:      # rows of this sub-chunk against the columns before it
+            ref = cum[:, a0 - 1, None]
+            kh = kq[:, :a0] * torch.exp(ref - cum[:, :a0])
+            drs[:, blk] += torch.exp(cp[:, blk] - ref) * (
+                op(da_[:, blk, :a0]) @ op(kh))
+        if a0 + sub < chunk:    # its columns against the rows after it
+            ref = cum[:, a0 + sub - 1, None]
+            later = slice(a0 + sub, chunk)
+            rh = rq[:, later] * torch.exp(cp[:, later] - ref)
+            kh = kq[:, blk] * torch.exp(ref - cum[:, blk])
+            dks[:, blk] += torch.exp(ref - cum[:, blk]) * (
+                op(da_[:, later, blk].transpose(1, 2)) @ op(rh))
+            att_t[:, blk, later] = op(kh) @ op(rh).transpose(1, 2)
+        # the quadrant: the block's second half against its first half
+        lo, hi = slice(a0, a0 + half), slice(a0 + half, a0 + sub)
+        ref = cum[:, a0 + half - 1, None]
+        rh = rq[:, hi] * torch.exp(cp[:, hi] - ref)
+        kh = kq[:, lo] * torch.exp(ref - cum[:, lo])
+        drs[:, hi] += torch.exp(cp[:, hi] - ref) * (
+            op(da_[:, hi, lo]) @ op(kh))
+        dks[:, lo] += torch.exp(ref - cum[:, lo]) * (
+            op(da_[:, hi, lo].transpose(1, 2)) @ op(rh))
+        att_t[:, lo, hi] = op(kh) @ op(rh).transpose(1, 2)
+        for t0 in (a0, a0 + half):      # the two triangles, E per channel
+            tr = slice(t0, t0 + half)
+            e = torch.exp(torch.where(tri, cp[:, tr, None] - cum[:, None, tr],
+                                      -torch.inf))
+            d8 = da_[:, tr, tr]
+            drs[:, tr] += torch.einsum("bijc,bjc,bij->bic", e, kq[:, tr], d8)
+            dks[:, tr] += torch.einsum("bijc,bic,bij->bjc", e, rq[:, tr], d8)
+            att_t[:, tr, tr] = torch.einsum("bijc,bic,bjc->bji", e,
+                                            rq[:, tr], kq[:, tr])
+    return drs, dks
 
 
 # ---------------------------------------------------------------------------

@@ -25,11 +25,14 @@ fp32-made operands split into hi + lo bf16 pairs; r, k, v, logw arrive by
 The gradient (training): when an input needs one, :func:`rwkv6_scan` runs
 under a ``torch.autograd.Function`` whose backward is
 :func:`rwkv6_scan_bwd`, the ``rwkv6_scan_bwd`` kernel of the same source:
-one block a row recomputes the chunk-start states, then walks the chunks in
-reverse with the state's gradient in shared memory (plain fp32 FMA).  The
+one warpgroup a row walks the chunks forward, writing each chunk's
+dy S0^T to a scratch, then in reverse with the state's gradient as hi + lo
+bf16 tiles in shared memory, on the tensor cores (``wgmma`` for the chunk
+products, ``mma.sync`` for the sub-chunk ones around the forward's
+reference points, fp32-made operands as hi + lo bf16 pairs).  The
 log-decays' gradient is a reverse running sum of r * dr and k * dk terms,
-so no exponent is ever positive and it stays finite where a chunk's decays
-sum below -88 (see the ``.cu``).
+so no exponent is ever positive and it stays finite where a chunk's
+decays sum below -88 (see the ``.cu``).
 
 For tensors on the CPU each wrapper runs its plain version (the chunked
 scan of :func:`repro_torch.kernels.ref.rwkv6_chunked` at the reference's
@@ -159,6 +162,7 @@ def _scan(r, k, v, logw, u):
 rwkv6_scan.launches = 0
 
 BWD_CHUNK = 64      # the backward kernel's chunk
+BWD_SCRATCH = 64 * 64   # fp32 a chunk and row: its dy S0^T
 
 
 def rwkv6_scan_bwd(r, k, v, logw, u, dy, dstate=None):
@@ -190,14 +194,14 @@ def rwkv6_scan_bwd(r, k, v, logw, u, dy, dstate=None):
     dr, dk_, dv_ = (torch.empty_like(t) for t in (r, k, v))
     dlogw = torch.empty_like(logw)
     du = torch.empty((rows, dk), **f32)
-    states = torch.empty((rows, -(-s // BWD_CHUNK) + 1, dk, dv), **f32)
+    scratch = torch.empty((rows, -(-s // BWD_CHUNK), BWD_SCRATCH), **f32)
     lib = _lib()
     code = lib.rwkv6_scan_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), dy.data_ptr(),
         None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
         dk_.data_ptr(), dv_.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
-        states.data_ptr(), rows, s, dk, dv, _build.stream(r.device))
+        scratch.data_ptr(), rows, s, dk, dv, _build.stream(r.device))
     _build.check(lib, "rwkv6_scan_bwd", code)
     rwkv6_scan_bwd.launches += 1
     return dr, dk_, dv_, dlogw, du

@@ -907,7 +907,12 @@ def serve_worker(rank: int, spec: dict) -> None:
     and dtype equal the one before it, with no ``weights``, serves on the
     same weights.  An entry with ``probe`` runs :func:`probe_worker`'s
     work instead (its ``topo``, ``calibrate``, ``gather``, ...), so a
-    calibration of the same mesh needs no spawn of its own."""
+    calibration of the same mesh needs no spawn of its own; an entry with
+    ``train`` runs :func:`train_worker`'s (its ``cfg``, ``runs``,
+    ``batch``, ``seq``, ``steps``, ``lr``, ...) after the served weights
+    and engines are freed, so a training run over the same mesh needs
+    none either (the mesh is built with the top-level ``dp_servers`` that
+    its gradient mean needs)."""
     mesh = init_rank(rank, spec)
     dev = rank_device(rank, spec)
     if not spec.get("models"):
@@ -920,6 +925,14 @@ def serve_worker(rank: int, spec: dict) -> None:
             one.update(sub)
             if one.get("probe"):
                 results["models"][sub["name"]] = _probe(mesh, rank, dev, one)
+                mark(f"model {sub['name']}")
+                continue
+            if one.get("train"):
+                kept = key = None       # the served weights and engines
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                results["models"][sub["name"]] = _train(mesh, rank, dev, one)
                 mark(f"model {sub['name']}")
                 continue
             same = (one.get("weights") is None
@@ -1438,13 +1451,21 @@ def train_worker(rank: int, spec: dict) -> None:
     (losses, grad norms, each step's parts in ms), the kernel launches,
     the resolved scheme, bytes and G of the sync, and a digest of every
     leaf."""
+    mesh = init_rank(rank, spec)
+    results = _train(mesh, rank, rank_device(rank, spec), spec)
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, results)
+
+
+def _train(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
+    """:func:`train_worker`'s work on the joined mesh: the rank's
+    results."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
         batch_for_model
     from repro_torch.launch.train import build_training
     from repro_torch.models.api import param_count
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
-    mesh = init_rank(rank, spec)
-    dev = rank_device(rank, spec)
     dtype = spec["dtype"]
     results = {"rank": rank, "device": str(dev), "runs": {},
                "coords": dict(mesh.coords)}
@@ -1523,9 +1544,7 @@ def train_worker(rank: int, spec: dict) -> None:
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    dist.barrier()
-    dist.destroy_process_group()
-    _save(rank, spec, results)
+    return results
 
 
 ATTN_BWD_TOL = dict(atol=2e-2, rtol=2e-2)     # as chip_smoke's phase 10

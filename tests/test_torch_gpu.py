@@ -757,12 +757,15 @@ def test_attention_gradient_through_the_wrapper_on_card():
     ("mamba2-odd", 200, True),  # 3 heads a group: a block a head
     ("rwkv6", 512, False),
     ("rwkv6", 100, True),
+    ("rwkv6-wide", 100, True),  # 265 rows: past one wave of 2 blocks an SM
 ])
 def test_scan_backward_kernels_match_plain_on_card(scan, s, final):
     """The scans' backward kernels against autograd of the fp32 per-step
     recurrences: every gradient within 5e-2 of its max |value|; two calls
     give the same bits.  Mamba2 with 8 heads a B/C group (the kernel's
-    blocks of two heads) and with 3 (``mamba2-odd``: blocks of one)."""
+    blocks of two heads) and with 3 (``mamba2-odd``: blocks of one);
+    RWKV-6 at 8 rows and at 265 (``rwkv6-wide``: an odd count past the
+    264 blocks two an SM hold at once on an H100)."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(s)
 
@@ -788,7 +791,7 @@ def test_scan_backward_kernels_match_plain_on_card(scan, s, final):
             dy, dfinal))
         exp[3], exp[4] = sum_groups(exp[3], batch), sum_groups(exp[4], batch)
     else:
-        rows = 8
+        rows = 265 if scan == "rwkv6-wide" else 8
         r, k, v = (rn(rows, s, 64).to(bf16) for _ in range(3))
         logw = -torch.exp(rn(rows, s, 64) - 1.0)
         u = rn(rows, 64) * 0.3

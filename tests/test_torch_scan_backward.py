@@ -8,8 +8,9 @@ through the port on the CPU: the scan wrappers' backward (``mamba2_scan_bwd``
 chunked scans) and ``ref.mamba2_bwd_chunks`` / ``ref.rwkv6_bwd_chunks``,
 plain models of the CUDA backward kernels' own algorithm (the reverse walk
 over 64-step chunks, and RWKV-6's log-decay gradient as a running sum),
-the Mamba2 one also with the kernel's tensor-core operands (bf16 inputs,
-hi + lo pairs of bf16, or three parts, for the operands made in fp32).
+both also with the kernels' tensor-core operands (bf16 inputs, hi + lo
+pairs of bf16, or three parts, for the operands made in fp32), the RWKV-6
+one also around the kernel's sub-chunk reference points (``sub=16``).
 For the reference, B and C are broadcast to every head and their gradients
 summed over each group's rows.  Every gradient is held within 1e-4 of its
 largest |value| in fp32.
@@ -298,6 +299,114 @@ def test_rwkv6_kernel_algorithm_survives_chunk_sums_below_minus_88():
     got = tref.rwkv6_bwd_chunks(*targs, _t(dy), _t(dstate))
     for name, gr, e in zip("r k v logw u".split(), got, per_step):
         _close(f"d{name}", gr, e.numpy())
+
+
+@pytest.mark.parametrize("rows,s,final", RWKV6_CASES)
+def test_rwkv6_subchunk_algorithm_matches_reference(rows, s, final):
+    """The kernel's algorithm around its sub-chunk reference points
+    (``sub=16``), in fp32, against ``jax.vjp`` of the twin."""
+    args, dy, dstate = _rwkv6_inputs(rows, s, final, 13)
+    exp = _rwkv6_reference_grads(args, dy, dstate)
+    got = tref.rwkv6_bwd_chunks(*map(_t, args), _t(dy), _t(dstate), sub=16)
+    for name, gr, e in zip("r k v logw u".split(), got, exp):
+        _close(f"d{name}", gr, e)
+
+
+def _rwkv6_bf16_inputs(args, dy):
+    """r, k, v and dy at bf16 values; logw and u left in fp32."""
+    return (tuple(_bf16_values(t) if i < 3 else t
+                  for i, t in enumerate(args)), _bf16_values(dy))
+
+
+@pytest.mark.parametrize("rows,s,final", RWKV6_CASES)
+def test_rwkv6_tensor_core_operands_match_reference(rows, s, final):
+    """The kernel's algorithm with its sub-chunk reference points and its
+    tensor-core operands (``ref.rwkv6_bwd_chunks(sub=16,
+    operands=bf16)``: bf16 inputs exact, each operand made in fp32 as a hi
+    + lo pair of bf16) against ``jax.vjp`` of the twin at realistic
+    decays, on inputs at bf16 values: within 1e-4 of each gradient's max
+    |value|, and not the fp32 result bit for bit."""
+    args, dy, dstate = _rwkv6_inputs(rows, s, final, 14)
+    args, dy = _rwkv6_bf16_inputs(args, dy)
+    exp = _rwkv6_reference_grads(args, dy, dstate)
+    full = (*map(_t, args), _t(dy), _t(dstate))
+    got = tref.rwkv6_bwd_chunks(*full, sub=16, operands=torch.bfloat16)
+    exact = tref.rwkv6_bwd_chunks(*full, sub=16)
+    assert any(not torch.equal(a_, e_) for a_, e_ in zip(got, exact))
+    for name, gr, e in zip("r k v logw u".split(), got, exp):
+        _close(f"d{name}", gr, e)
+
+
+@pytest.mark.parametrize("operands", [None, torch.bfloat16])
+def test_rwkv6_subchunk_algorithm_survives_chunk_sums_below_minus_88(
+        operands):
+    """Fast decays (a 32-step chunk of logw sums far below -88): the
+    kernel's algorithm around its reference points, in fp32 and with its
+    tensor-core operands, against autograd of the fp32 per-step
+    recurrence, every gradient finite."""
+    args, dy, dstate = _rwkv6_inputs(2, 100, True, 15, spread=1.5, shift=0.0)
+    assert np.cumsum(args[3][:, :32], axis=1)[:, -1].min() < -88
+    if operands is not None:
+        args, dy = _rwkv6_bf16_inputs(args, dy)
+    targs = tuple(map(_t, args))
+    per_step = tref.grads_of(
+        lambda *t: tref.rwkv6_ref(*t, return_final=True), targs, _t(dy),
+        _t(dstate))
+    got = tref.rwkv6_bwd_chunks(*targs, _t(dy), _t(dstate), sub=16,
+                                operands=operands)
+    for name, gr, e in zip("r k v logw u".split(), got, per_step):
+        _close(f"d{name}", gr, e.numpy())
+
+
+def _rwkv6_served_inputs(seed, final):
+    """RWKV6-7B's widths (dk = dv = 64) over 512 steps, 4 rows: r, k, v,
+    dy at bf16 values, u of scale 0.3, and logw made as the card script
+    makes it from the model's decay LoRA (``-exp(tanh(x wa) wb)``, the
+    reference's init scales), so one 32-step chunk sums to about -50."""
+    rng = np.random.default_rng(seed)
+    rows, s, d, lora = 4, 512, 64, 64
+
+    def tn(*shape):
+        return np.clip(rng.normal(size=shape), -2, 2)
+    wa, wb = tn(rows * d, lora) * (rows * d) ** -0.5, tn(lora, rows * d) \
+        * lora ** -0.5
+    logw = -np.exp(np.tanh(rng.normal(size=(s, rows * d)) @ wa) @ wb)
+    logw = logw.reshape(s, rows, d).transpose(1, 0, 2).astype(np.float32)
+    r, k, v, dy = (_bf16_values(rng.normal(size=(rows, s, d)).astype(
+        np.float32)) for _ in range(4))
+    u = (rng.normal(size=(rows, d)) * 0.3).astype(np.float32)
+    dstate = (rng.normal(size=(rows, d, d)).astype(np.float32) if final
+              else None)
+    return tuple(map(_t, (r, k, v, logw, u))), _t(dy), _t(dstate)
+
+
+@pytest.mark.parametrize("seed,final", [(1, True), (2, False)])
+def test_rwkv6_tensor_core_operands_keep_dlogw_and_du_near_fp32(
+        seed, final, monkeypatch):
+    """The kernel's algorithm with its tensor-core operands at RWKV6's
+    widths over 512 steps: dlogw and du within ``SCALAR_GRAD_REL`` of their
+    max |value| from autograd of the fp32 per-step recurrence (dlogw is a
+    running sum over the steps of r drs - k dks).  Every operand made in
+    fp32 is a hi + lo pair, none takes three parts: pairs keep dlogw within
+    5.3e-6 and 6.5e-6 of its max at these seeds (three parts everywhere
+    2.4e-6 and 3.6e-6, no one operand ahead of the others).  With one part
+    (bf16 alone) in place of each pair dlogw lies outside the limit (3.5e-3
+    and 4.7e-3)."""
+    args, dy, dstate = _rwkv6_served_inputs(seed, final)
+    per_step = tref.grads_of(
+        lambda *t: tref.rwkv6_ref(*t, return_final=True), args, dy, dstate)
+
+    def errs():
+        got = tref.rwkv6_bwd_chunks(*args, dy, dstate, sub=16,
+                                    operands=torch.bfloat16)
+        return {name: ((got[i] - per_step[i]).abs().max()
+                       / per_step[i].abs().max()).item()
+                for name, i in (("dlogw", 3), ("du", 4))}
+    for name, err in errs().items():
+        assert err <= SCALAR_GRAD_REL, f"{name}: {err} > {SCALAR_GRAD_REL}"
+    monkeypatch.setattr(tref, "split_pair",
+                        lambda t, dtype=torch.bfloat16: t.to(dtype).float())
+    assert errs()["dlogw"] > SCALAR_GRAD_REL
 
 
 def test_scans_differentiate_through_their_autograd_functions():
