@@ -158,7 +158,19 @@ Phases; any failure raises and the script exits non-zero:
    against a one-rank run of the same weights on the card: every rank's
    tokens equal, the prefill logits within 5e-2 of max |logit| and rows
    parting only at near ties, exact scan and attention launches on each
-   rank; each rank's decode-state bytes beside one rank's;
+   rank; each rank's decode-state bytes beside one rank's.  Then the
+   same ranks train Zamba2-7B at 7 blocks, RWKV6-7B at 2 and
+   SeamlessM4T-medium at full width over (1, 1, 4), 4 ``Trainer`` steps
+   of 4 x 512 tokens each, every step's wall printed.  Gates: finite
+   losses; step 0's loss within 2e-2 of one rank's (on rank 0 of the
+   spawn, the same weights); every gradient, gathered to its global
+   shape, at a cosine above 0.99 to one rank's in fp32 (each rank's
+   fp32 copy of its weights through the plain versions) and, where one
+   rank's bf16 gradient of that leaf is conditioned, in bf16; every
+   replicated leaf
+   bit-identical over the ranks and one gradient norm on every rank; the
+   scans' and attention's backward kernels held against their plain
+   versions at the ranks' shapes; exact launches;
 15. the hybrid, rwkv and Gemma2 families trained at full width, 8 steps
    of ``SyntheticLM`` tokens each from seed-0 random weights (AdamW with
    bf16 state, cosine schedule): Zamba2-7B at 24 of 81 blocks and
@@ -170,7 +182,17 @@ Phases; any failure raises and the script exits non-zero:
    step, attention's once a call).  The last step of each runs under
    ``torch.profiler``, which gives the device ms of the family's backward
    kernel in a step (``mamba2_scan_bwd``, ``rwkv6_scan_bwd``, attention's
-   at head_dim 256), printed beside the step wall.
+   at head_dim 256), printed beside the step wall;
+16. the dry run (``launch/dryrun.py``, meta tensors on the host) against
+   the card: (a) DBRX at full width on a ``ShapeMesh`` of (2, 2, 1),
+   4 x 512 prefill, the MultiWrite and the baseline pair: each rank's
+   pod-crossing bytes of the first prefill dispatch's token exchange
+   equal to phase 6's measured ``pod_bytes["whole"]`` of that rank (hard);
+   (b) DBRX at depth 2 on one rank, training on 4 x 512: the weight,
+   gradient and AdamW-state bytes equal to what phase 10's trainer holds
+   (hard), the predicted peak beside phase 10's ``max_memory_allocated``
+   with their ratio (recorded, not gated); (c) one (16, 16) ``mw`` cell of
+   each family, its roofline line (H100 data sheet) printed.
 
 Every phase prints its wall (``phase N took X s``) and the script ends
 with all of them; each spawn of ranks prints where its wall went: spawn
@@ -1792,9 +1814,13 @@ def continuous_phase(engine, cfg) -> None:
 
 # what a phase's spawn ran for a later phase over the same mesh and backend
 # (phase 6's spawn: phase 9's DBRX and phase 11's DBRX training; phase 8's:
-# phase 9's Mistral-NeMo probes, phase 14's four models and phase 11's
-# Mistral-NeMo training), by the later phase's key
+# phase 9's Mistral-NeMo probes, phase 14's four models and their
+# training and phase 11's Mistral-NeMo training), by the later phase's key
 CARRIED: dict = {}
+# what an earlier phase measured that phase 16 holds the dry run to: phase
+# 6's pod-group bytes of the first prefill dispatch by scheme pair and
+# rank, phase 10's trainer's state bytes and peak
+MEASURED: dict = {}
 
 
 def ranks_phase(cf: float = RANKS_CF, trace: str | None = None,
@@ -1939,6 +1965,9 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None,
     r0 = results[0]
     labels = [ranks.run_label(run) for run in runs]
     pairs = labels[:3]
+    MEASURED["pod bytes"] = {
+        pair: {r["rank"]: r["runs"][pair]["pod_bytes"]["whole"]
+               for r in results} for pair in (pairs[0], pairs[-1])}
     first = r0["runs"][labels[0]]["tokens"]
     g4 = labels[3]
     print(f"  {g4} against {labels[0]}: prefill {walls[g4][0]:.3f} against "
@@ -2191,8 +2220,9 @@ def tp_phase(carry: bool = False) -> dict:
     decode eager over gloo, graphed over nccl (captures and replays
     counted).  With ``carry`` the Mistral spawn then runs phase 9's probes
     of the same mesh (``CARRIED["mistral"]``), serves phase 14's models
-    (``CARRIED["tp families"]``) and trains phase 11's Mistral-NeMo
-    (``CARRIED["train mistral"]``).  Returns the kernel launches of the
+    (``CARRIED["tp families"]``), trains phase 11's Mistral-NeMo
+    (``CARRIED["train mistral"]``) and phase 14's models
+    (``CARRIED["train tp families"]``).  Returns the kernel launches of the
     measured runs, summed over ranks and runs."""
     import dataclasses
     import tempfile
@@ -2260,7 +2290,8 @@ def tp_phase(carry: bool = False) -> dict:
     carried = ([gather_probe_entry()]
                + tp_families_models(tp_families_served(cards >= 4),
                                     TP_FAMILIES_NEW[4 if cards >= 4 else 1])
-               + [train_entry("mistral", backend)]) if carry else []
+               + [train_entry("mistral", backend),
+                  train_entry("tp families", backend, 14)]) if carry else []
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.monotonic()
         spec = tp_spec(tmp, TP_MESH, backend, cfg, [], prompts=prompts,
@@ -2275,10 +2306,13 @@ def tp_phase(carry: bool = False) -> dict:
         CARRIED["tp families"] = spawned
         CARRIED["train mistral"] = [r["models"]["phase 11 mistral"]
                                     for r in spawned]
+        CARRIED["train tp families"] = [
+            r["models"]["phase 14 tp families"] for r in spawned]
     print(f"  4 ranks spawned, served and joined in "
           f"{time.monotonic() - t0:.1f} s"
-          + (" (phase 9's probes of the mesh, phase 14's models and phase "
-             "11's Mistral-NeMo training included)" if carry else ""))
+          + (" (phase 9's probes of the mesh, phase 14's models and their "
+             "training and phase 11's Mistral-NeMo training included)"
+             if carry else ""))
     spawn_split(spawned, "the spawn")
     failures = check_decode_mode(results, backend)
     total: dict = {}
@@ -3848,8 +3882,15 @@ def train_full_width() -> dict:
         timed["save_s"] = time.monotonic() - t
         return out
     tr.ckpt.save = timed_save
+    grad_bytes = {}                            # each gradient as made
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: grad_bytes.__setitem__(
+            n, p.grad.numel() * p.grad.element_size()))
+        for n, p in tr.state.named().items()]
     ops.reset_launches()
     tr.run()                                   # steps 0-3, then the save
+    for hook in hooks:
+        hook.remove()
     save_s = timed["save_s"]
     tr.ckpt = None                             # no more saves
     tr.cfg = dataclasses.replace(tr.cfg, total_steps=TRAIN_STEPS,
@@ -3859,6 +3900,14 @@ def train_full_width() -> dict:
     counts = ops.launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = tr.metrics_history
+    named = tr.state.named()
+    MEASURED["phase 10"] = dict(
+        cfg=cfg, peak=torch.cuda.max_memory_allocated(),
+        weights=sum(p.numel() * p.element_size() for p in named.values()),
+        grads=sum(grad_bytes.values()),
+        opt_state=sum(t.numel() * t.element_size() for t in
+                      torch.utils._pytree.tree_leaves(tr.state.opt_state)
+                      if isinstance(t, torch.Tensor)))
     want = launch_counts(dispatch_pack=3 * cfg.n_layers * TRAIN_STEPS,
                          dispatch_pack_bwd=3 * cfg.n_layers * TRAIN_STEPS,
                          flash_attention=cfg.n_layers * TRAIN_STEPS,
@@ -3968,6 +4017,10 @@ TRAIN_RANKS_BATCH, TRAIN_RANKS_SEQ, TRAIN_RANKS_LR = 4, 512, 1e-4
 # Mistral-NeMo-12B over (1, 1, 4) TP ranks, full width
 TP_TRAIN_DEPTH, TP_TRAIN_STEPS = 2, 4
 TP_TRAIN_GAP = 2e-2           # step-1 loss and grad norm against one rank
+# attention's backward under the loss's own cotangent, where it misses
+# ranks.ATTN_BWD_REL: at most this many times SDPA's backward's error on
+# the same inputs (phase 14; ROADMAP.md §3)
+ATTN_BWD_SDPA = 2.0
 # the step-0 gradients reduced once by each scheme (their first 8 M
 # elements): layer 0's attention projections
 SCHEME_LEAVES = ("blocks.0.attn.wq", "blocks.0.attn.wo")
@@ -3988,12 +4041,23 @@ def train_ranks_spec(tmp: str, mesh: tuple, backend: str, cfg, runs: list,
 
 def train_ranks_plan(which: str, backend: str) -> dict:
     """Phase 11's training ``which`` ("dbrx": the reduced DBRX and DBRX at
-    full width over 2 x 2; "mistral": Mistral-NeMo over ``TP_MESH``) as
+    full width over 2 x 2; "mistral": Mistral-NeMo over ``TP_MESH``), or
+    phase 14's ("tp families": ``TP_FAMILIES_TRAIN`` over
+    ``TP_FAMILIES_MESH``, each against one rank on rank 0) as
     the keys of a :func:`ranks.train_worker` spec: ``cfg``, ``runs``,
     ``steps``, ``seq`` and, over nccl, DBRX's ``measure_link``."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
+    if which == "tp families":
+        runs = []
+        for arch, depth in TP_FAMILIES_TRAIN:
+            cfg = get_config(arch)
+            runs.append(dict(label=arch, cfg=cfg if depth is None else
+                             cfg.with_depth(depth), check_kernels=True,
+                             one_rank=0))
+        return dict(cfg=runs[0]["cfg"], steps=TP_FAMILIES_STEPS,
+                    seq=TRAIN_RANKS_SEQ, runs=runs)
     if which == "mistral":
         cfg = dataclasses.replace(get_config("mistral_nemo_12b"),
                                   n_layers=TP_TRAIN_DEPTH)
@@ -4016,12 +4080,13 @@ def train_ranks_plan(which: str, backend: str) -> dict:
                            fabric="measured" if link else None)])
 
 
-def train_entry(which: str, backend: str) -> dict:
-    """Phase 11's training ``which`` as an entry of a serving spawn's
-    ``models`` (:func:`ranks.serve_worker`), run after that spawn's
-    serving on the same mesh."""
+def train_entry(which: str, backend: str, phase: int = 11) -> dict:
+    """Phase ``phase``'s training ``which`` (:func:`train_ranks_plan`) as
+    an entry of a serving spawn's ``models`` (:func:`ranks.serve_worker`),
+    run after that spawn's serving on the same mesh."""
     import torch
-    return dict(name=f"phase 11 {which}", train=True, dtype=torch.bfloat16,
+    return dict(name=f"phase {phase} {which}", train=True,
+                dtype=torch.bfloat16,
                 seed=0, batch=TRAIN_RANKS_BATCH, lr=TRAIN_RANKS_LR,
                 **train_ranks_plan(which, backend))
 
@@ -4058,12 +4123,15 @@ def one_rank_step0(cfg, seq: int, *, grads: bool) -> tuple:
 
 
 def train_run_lines(label: str, runs: list, failures: list, *,
-                    where: str) -> dict:
+                    where: str, yardstick: bool = False) -> dict:
     """Print a trained run of every rank (losses, the slowest rank's step
     split into its parts, the gradient sync, the peak memory) and gate
     it: finite losses and norms, the same grad norm on every rank, every
     replicated leaf the same bits on every rank, each backward kernel of
-    the checked step held against its plain version.  Returns the
+    the checked step held against its plain version (with ``yardstick``
+    attention's also where, under the loss's own cotangent, it lies no
+    further from the plain version than ``ATTN_BWD_SDPA`` times SDPA's
+    backward on the same inputs, ROADMAP.md §3's rule).  Returns the
     kernel launches summed over the ranks."""
     import math
 
@@ -4107,19 +4175,29 @@ def train_run_lines(label: str, runs: list, failures: list, *,
     if differ:
         failures.append(f"{label}: replicated leaves differ: {differ[:5]}")
     checks = [c for r in runs for c in r.get("kernel_checks", [])]
-    for name in ("dispatch_pack_bwd", "flash_attention_bwd"):
+    for name in ("dispatch_pack_bwd", "flash_attention_bwd",
+                 "mamba2_scan_bwd", "rwkv6_scan_bwd"):
         mine = [c for c in checks if c[0] == name]
         if not mine:
             continue
         shapes = sorted({c[1] for c in mine})
         worst = max(c[2] for c in mine)
         rel = max(c[4] for c in mine)
-        held = all(c[3] for c in mine)
+        lib = {c[1]: c[4] for c in checks if c[0] == "sdpa_bwd"}
+        held = all(c[3] or (yardstick and c[1] in lib
+                            and c[4] <= ATTN_BWD_SDPA * lib[c[1]])
+                   for c in mine)
+        sdpa = [lib[c[1]] for c in mine if c[1] in lib]
         how = ("bit-exact" if name == "dispatch_pack_bwd" else
+               f"against the plain backward on the inputs in fp32: each "
+               f"gradient within {ranks.SCAN_BWD_REL} of its largest "
+               f"element, worst {rel:.3e}" if "scan" in name else
                f"against autograd of the plain forward: max|err| under a "
                f"unit-scale randn cotangent, atol=rtol=2e-2; under the "
                f"loss's own cotangent {rel:.3e} of each gradient's largest "
-               f"element, limit {ranks.ATTN_BWD_REL}")
+               f"element, limit {ranks.ATTN_BWD_REL}"
+               + (f"; SDPA's backward on the same inputs {max(sdpa):.3e}"
+                  if sdpa else ""))
         print(f"  {label}: {name} at {len(mine)} calls of shapes {shapes} "
               f"against its plain version: max|err| {worst:.3e}, "
               f"{'held' if held else 'NOT HELD'} ({how})")
@@ -4443,6 +4521,14 @@ TP_FAMILIES = (("zamba2_7b", 24, 7, {}), ("rwkv6_7b", 8, 2, {}),
                ("seamless_m4t_medium", None, None, {}),
                ("qwen2_vl_2b", None, None, {"seq_shard_decode": False}))
 TP_FAMILIES_NEW = {1: 8, 4: 32}         # new tokens on one card, on four
+# phase 14's training over TP_FAMILIES_MESH at full width: (arch, depth
+# (None: the published depth)), the ill-conditioned stacks at their
+# serving twins' depths (Zamba2's 7 blocks reach its shared block once);
+# 4 Trainer steps of TRAIN_RANKS_BATCH x TRAIN_RANKS_SEQ tokens
+TP_FAMILIES_TRAIN = (("zamba2_7b", 7), ("rwkv6_7b", 2),
+                     ("seamless_m4t_medium", None))
+TP_FAMILIES_STEPS = 4
+TP_FAMILIES_GAP = 2e-2        # step-0 loss against one rank, relative
 
 
 def tp_families_heading(four: bool) -> str:
@@ -4685,7 +4771,252 @@ def tp_families_phase() -> dict:
                             f"no conditioned twin holds it")
     if failures:
         raise AssertionError(f"phase 14: {failures}")
+    by_path.update(tp_families_train(backend, where))
     return by_path
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` training steps of ``cfg`` on a
+    rank: a forward and a backward of each scan a block, of attention a
+    call (the shared block's calls, the encoder-decoder's three a decoder
+    layer and one an encoder layer)."""
+    from repro_torch.models.ssm import n_shared_calls
+    if cfg.family == "hybrid":
+        scans = dict(mamba2_scan=cfg.n_layers)
+        attn = n_shared_calls(cfg)
+    elif cfg.family == "rwkv":
+        scans, attn = dict(rwkv6_scan=cfg.n_layers), 0
+    else:
+        scans = {}
+        attn = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers
+                               if cfg.family == "encdec" else 0)
+    counts = {k: v * steps for k, v in scans.items()}
+    counts.update({f"{k}_bwd": v * steps for k, v in scans.items()})
+    return launch_counts(flash_attention=attn * steps,
+                         flash_attention_bwd=attn * steps, **counts)
+
+
+def one_rank_lines(label: str, loss: float, one: dict) -> list:
+    """Print phase 14's step 0 of the ranks (``loss``) against one rank
+    (``ranks._against_one_rank``'s ``one``) and return its failures: the
+    loss's relative gap, an fp32 cosine, a conditioned leaf's bf16 cosine,
+    a leaf zero on both sides."""
+    def lowest(cos: dict) -> str:
+        name = min(cos, key=cos.get)
+        return f"{cos[name]:.6f} ({name})"
+    c32, c16, cond = one["cosines_fp32"], one["cosines"], one["conditioning"]
+    unreached = sorted({n for c in (c32, c16, cond) for n, v in c.items()
+                        if v is None})
+    c32 = {n: v for n, v in c32.items() if n not in unreached}
+    held = {n: c16[n] for n in c16
+            if n not in unreached and cond[n] > GRAD_COSINE}
+    loose = {n: cond[n] for n in cond
+             if n not in unreached and n not in held}
+    gap = abs(loss - one["loss"]) / abs(one["loss"])
+    print(f"  {label} step 0 against one rank on the card (rank 0, the "
+          f"same weights and batch): loss {loss:.5f} vs {one['loss']:.5f} "
+          f"(relative gap {gap:.3e}, limit {TP_FAMILIES_GAP}); "
+          f"{len(c32)} gradients gathered to their global shapes; in fp32 "
+          f"(the ranks' copies through the plain versions, one rank's "
+          f"loss {one['fp32_loss']:.5f}) lowest cosine {lowest(c32)}; in "
+          f"bf16 {len(held)} whose one-rank gradient is conditioned, "
+          + (f"lowest cosine {lowest(held)}" if held else "none")
+          + f"; {len(loose)} not conditioned, not held in bf16"
+          + (f" (lowest one-rank bf16 against fp32 {lowest(loose)})"
+             if loose else "") + f" (limit {GRAD_COSINE})")
+    failures = []
+    if not gap < TP_FAMILIES_GAP:
+        failures.append(f"{label}: loss gap {gap:.3e} against one rank")
+    for kind, cos in (("fp32", c32), ("bf16 conditioned", held)):
+        low = {n: v for n, v in cos.items() if not v > GRAD_COSINE}
+        if low:
+            failures.append(f"{label}: {kind} cosines to one rank {low}")
+    if unreached:
+        failures.append(f"{label}: gradients zero on both sides, not "
+                        f"compared: {unreached}")
+    return failures
+
+
+def tp_families_train(backend: str, where: str) -> dict:
+    """Phase 14's training: ``TP_FAMILIES_TRAIN`` at full width over
+    ``TP_FAMILIES_MESH``, ``TP_FAMILIES_STEPS`` ``Trainer`` steps of
+    ``TRAIN_RANKS_BATCH`` x ``TRAIN_RANKS_SEQ`` ``SyntheticLM`` tokens
+    each (AdamW, bf16 state, seed-0 weights), on phase 8's spawn when it
+    carried them (``CARRIED``), else on a spawn of its own.  Rank 0 also
+    runs one rank's step 0 of the same weights and batch on the card
+    (``ranks._against_one_rank``).
+
+    Gates, each model: finite losses, the same grad norm and every
+    replicated leaf the same bits on every rank, each backward kernel of
+    step 0 against its plain version at the ranks' shapes
+    (:func:`train_run_lines`; attention's under the loss's own cotangent
+    within ``ranks.ATTN_BWD_REL`` or within ``ATTN_BWD_SDPA`` times
+    SDPA's backward's error on the same inputs: a non-causal attention
+    over nearly uniform weights loses dq to bf16 cancellation in either);
+    step 0's loss within
+    ``TP_FAMILIES_GAP`` of one rank's; exact launches
+    (:func:`train_launches`); every gradient gathered to its global shape
+    at a cosine above ``GRAD_COSINE`` to one rank's in fp32 (the ranks'
+    fp32 copies of their weights through the plain versions, against one
+    rank's: the model-axis backward where no dtype makes the gradients
+    ill-conditioned, ROADMAP.md §3); in bf16 each gradient whose one-rank
+    bf16 value is conditioned (at a cosine above ``GRAD_COSINE`` to the
+    same weights' fp32 one) at a cosine above ``GRAD_COSINE`` to one
+    rank's, the others counted and printed; a gradient zero on both
+    sides (a leaf the loss does not reach) fails.  Returns the launches
+    by model, summed over ranks."""
+    import tempfile
+
+    from repro_torch.launch import ranks
+    results = CARRIED.pop("train tp families", None)
+    plan = train_ranks_plan("tp families", backend)
+    models = [(run["label"], run["cfg"], run.get("steps", plan["steps"]))
+              for run in plan["runs"]]
+    if results is not None:
+        print(f"  training the {len(models)} models over "
+              f"{TP_FAMILIES_MESH}: on phase 8's spawn (its split above)")
+    else:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            spec = train_ranks_spec(tmp, TP_FAMILIES_MESH, backend,
+                                    plan.pop("cfg"), plan.pop("runs"),
+                                    plan.pop("steps"), plan.pop("seq"),
+                                    **plan)
+            t0 = time.monotonic()
+            results = ranks.run_ranks(ranks.train_worker, spec,
+                                      timeout_s=900)
+        print(f"  4 ranks spawned, trained the {len(models)} models and "
+              f"joined in {time.monotonic() - t0:.1f} s")
+        spawn_split(results, "the training spawn")
+    failures, by_path = [], {}
+    for label, cfg, steps in models:
+        runs_ = [r["runs"][label] for r in results]
+        print(f"  {label} at full width, {cfg.n_layers} blocks, trained "
+              f"over {TP_FAMILIES_MESH}: {steps} step(s) of "
+              f"{TRAIN_RANKS_BATCH} x {TRAIN_RANKS_SEQ} tokens, {where}")
+        counts = train_run_lines(label, runs_, failures, where=where,
+                                 yardstick=True)
+        failures += one_rank_lines(label, runs_[0]["step0"]["loss"],
+                                   runs_[0]["one_rank"])
+        want = train_launches(cfg, steps)
+        print(f"  {label} launches a rank: {runs_[0]['launches']} "
+              f"(expected {want})")
+        for r in runs_:
+            if r["launches"] != want:
+                failures.append(f"{label} launches {r['launches']} != "
+                                f"{want}")
+        by_path[f"{label}_tp4_train"] = counts
+    if failures:
+        raise AssertionError(f"phase 14 training: {failures}")
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# (c): one (16, 16) "mw" cell of each family (decode: the cheapest cell on
+# the host; every family's model runs its rank's part of one step)
+DRYRUN_CELLS = (("mistral_nemo_12b", "decode_32k"), ("dbrx_132b", "decode_32k"),
+                ("zamba2_7b", "decode_32k"), ("rwkv6_7b", "decode_32k"),
+                ("seamless_m4t_medium", "decode_32k"))
+
+
+def dryrun_phase() -> None:
+    """The dry run (``repro_torch.launch.dryrun``: the model code on meta
+    tensors, on the host) held to what the card measured.
+
+    (a) DBRX at phase 6's width, depth and capacity factor on a
+    ``ShapeMesh`` of (2, 2, 1), phase 6's 4 x 512 prefill, the MultiWrite
+    pair (variant ``mw``) and the baseline pair (``baseline``), each rank
+    in turn: the pod-crossing bytes of the first prefill dispatch's token
+    exchange (the first all-to-all on the pod axis of rows of d_model:
+    its bytes times (pods - 1) / pods) equal to phase 6's
+    ``pod_bytes["whole"]`` of that rank, hard.  (b) DBRX at phase 10's
+    depth on one rank, training on phase 10's batch without recompute:
+    the weight, gradient and AdamW-state bytes equal to phase 10's
+    trainer's (its live state, and each gradient as autograd made it),
+    hard; the predicted peak printed beside phase 10's
+    ``max_memory_allocated`` with their ratio, recorded.  (c) One
+    (16, 16) cell of each family (``DRYRUN_CELLS``), its memory, FLOPs,
+    collective bytes and roofline line (the H100's data sheet)."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import serve_config
+    failures = []
+    # (a)
+    cfg = dataclasses.replace(serve_config("dbrx_132b", layers=4,
+                                           smoke=False),
+                              moe_capacity=RANKS_CF)
+    shape = ShapeSpec("phase 6", PROMPT_LEN, PROMPTS, "prefill")
+    pods = RANKS[0]
+    for pair, variant in zip(MEASURED["pod bytes"], ("mw", "baseline")):
+        measured = MEASURED["pod bytes"][pair]
+        for rank in range(RANKS[0] * RANKS[1]):
+            t0 = time.monotonic()
+            r = dryrun.run_cell("dbrx_132b", shape, multi_pod=True,
+                                rank=rank, mesh_shape=(*RANKS, 1),
+                                config=cfg, variant=variant, verbose=False,
+                                fabrics=())
+            first = next(rec for rec in r["collectives"]["log"]
+                         if rec[:2] == ["all-to-all", "pod"]
+                         and rec[4][-1] == cfg.d_model)
+            crossing = first[3] * (pods - 1) // pods
+            print(f"  (a) {pair} ({variant}), rank {rank}: the dry run's "
+                  f"pod-crossing bytes of the first prefill dispatch "
+                  f"{crossing} ({first[0]} of {first[4]} over {first[1]}), "
+                  f"phase 6 measured {measured[rank]}: "
+                  f"{'equal' if crossing == measured[rank] else 'DIFFER'}; "
+                  f"pod-axis bytes of the prefill {r['collectives']['by_axis'].get('pod', 0)} "
+                  f"over {r['collectives']['num_ops']} exchanges "
+                  f"({time.monotonic() - t0:.1f} s on the host)")
+            if crossing != measured[rank]:
+                failures.append(f"(a) {pair} rank {rank}: {crossing} != "
+                                f"{measured[rank]}")
+    # (b)
+    ten = MEASURED["phase 10"]
+    shape = ShapeSpec("phase 10", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.monotonic()
+    r = dryrun.run_cell("dbrx_132b", shape, multi_pod=False,
+                        mesh_shape=(1, 1, 1), config=ten["cfg"],
+                        knobs={"remat": "none"}, verbose=False, fabrics=())
+    args = r["memory"]["arguments"]
+    for part in ("weights", "grads", "opt_state"):
+        same = args[part] == ten[part]
+        print(f"  (b) {part}: the dry run {args[part]} bytes, phase 10's "
+              f"trainer {ten[part]}: {'equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"(b) {part}: {args[part]} != {ten[part]}")
+    peak = r["memory"]["peak_live_bytes"]
+    print(f"  (b) DBRX-132B at depth {ten['cfg'].n_layers}, one rank, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: predicted peak "
+          f"{peak / 1e9:.3f} GB (arguments {r['memory']['argument_bytes'] / 1e9:.3f}"
+          f" + live tensors {r['memory']['temp_bytes'] / 1e9:.3f}), phase "
+          f"10's max_memory_allocated {ten['peak'] / 1e9:.3f} GB: ratio "
+          f"{peak / ten['peak']:.4f} (recorded, not gated); "
+          f"{r['cost']['flops_per_device']:.4e} FLOPs, "
+          f"{r['cost']['bytes_per_device']:.4e} bytes a step "
+          f"({time.monotonic() - t0:.1f} s on the host)")
+    # (c)
+    for arch, shape_name in DRYRUN_CELLS:
+        t0 = time.monotonic()
+        r = dryrun.run_cell(arch, shape_name, multi_pod=False,
+                            verbose=False)
+        rl, mm = r["roofline"], r["memory"]
+        print(f"  (c) {arch} x {shape_name} x (16, 16) x mw, {r['kind']}: "
+              f"argument {mm['argument_bytes'] / 2**30:.2f} GiB, peak "
+              f"{mm['peak_live_bytes'] / 2**30:.2f} GiB a rank; "
+              f"{r['cost']['flops_per_device']:.3e} FLOPs, "
+              f"{r['cost']['bytes_per_device']:.3e} bytes a rank; "
+              f"collective bytes by axis {r['collectives']['by_axis']}; "
+              f"roofline (H100 data sheet): compute "
+              f"{rl['compute_term_s'] * 1e3:.3f} ms, memory "
+              f"{rl['memory_term_s'] * 1e3:.3f} ms, collective "
+              f"{rl['collective_term_s'] * 1e3:.3f} ms -> {rl['dominant']} "
+              f"({time.monotonic() - t0:.1f} s on the host)")
+    if failures:
+        raise AssertionError(f"phase 16: {failures}")
 
 
 # ---------------------------------------------------------------------------
@@ -5087,6 +5418,8 @@ def main(argv=None) -> None:
             by_path.update(tp_families_phase())
         with clock(15, train_families_title):
             by_path.update(train_families_phase())
+        with clock(16, "phase 16: the dry run against the card"):
+            dryrun_phase()
 
         for name, row in rows.items():
             row["launches"] = sum(c.get(name, 0) for c in by_path.values())

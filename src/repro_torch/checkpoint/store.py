@@ -194,8 +194,11 @@ class ShardLayout:
     """Where one rank's leaves lie in the global ones: for each parameter
     name, the dims cut over the rank mesh as ``(dim, axes, parts, index)``
     (the experts of an MoE layer over its EP axes along dim 0; a
-    tensor-parallel block, a module's ``shards``, over the model axis).  A
-    leaf of a checkpointed tree is cut as the parameter its path names
+    tensor-parallel block, a module's ``shards``, over the model axis), or
+    as ``(dim, axes, whole, segments)`` for a ``shards`` entry of column
+    segments (Mamba2's ``in_proj``), where ``segments`` gives the
+    segments of each model rank (the module's ``segments_of``).  A leaf of
+    a checkpointed tree is cut as the parameter its path names
     (``params/<name>``, ``opt/m/<name>``); every other leaf is whole."""
 
     def __init__(self, params, pctx):
@@ -208,6 +211,8 @@ class ShardLayout:
         for prefix, sub in params.named_modules():
             for name, (dim, parts, index) in getattr(sub, "shards",
                                                      {}).items():
+                if not isinstance(index, int):
+                    index = sub.segments_of[name]
                 self.cuts.setdefault(f"{prefix}.{name}".lstrip("."), []
                                      ).append((dim, (pctx.model_axis,),
                                                parts, index))
@@ -233,8 +238,8 @@ class ShardLayout:
 
     def global_shape(self, key: str, shape) -> tuple:
         out = list(shape)
-        for dim, _, parts, _ in self._cuts(key, shape):
-            out[dim] *= parts
+        for dim, _, parts, index in self._cuts(key, shape):
+            out[dim] = out[dim] * parts if isinstance(index, int) else parts
         return tuple(out)
 
     def _index(self, rank: int, axes) -> int:
@@ -266,20 +271,35 @@ class ShardLayout:
         out = torch.empty(self.global_shape(key, t.shape), dtype=t.dtype,
                           device=t.device)
         for rank, piece in enumerate(pieces):
-            out_view = out
-            for dim, axes, _, _ in cuts:
+            out_view, segs = out, None
+            for dim, axes, _, index in cuts:
+                if not isinstance(index, int):
+                    segs = dim, index(self._index(rank, axes))
+                    continue
                 size = t.shape[dim]
                 out_view = out_view.narrow(dim, self._index(rank, axes) * size,
                                            size)
-            out_view.copy_(piece)
+            if segs is None:
+                out_view.copy_(piece)
+                continue
+            dim, at = segs[0], 0
+            for lo, hi in segs[1]:
+                out_view.narrow(dim, lo, hi - lo).copy_(
+                    piece.narrow(dim, at, hi - lo))
+                at += hi - lo
         return out
 
     def cut(self, key: str, whole: torch.Tensor, shape) -> torch.Tensor:
         """This rank's block of the global leaf ``whole`` for a leaf of
         ``shape``."""
-        for dim, _, _, index in self._cuts(key, shape):
-            size = shape[dim]
-            whole = whole.narrow(dim, index * size, size)
+        for dim, axes, _, index in self._cuts(key, shape):
+            if isinstance(index, int):
+                size = shape[dim]
+                whole = whole.narrow(dim, index * size, size)
+            else:
+                whole = torch.cat([
+                    whole.narrow(dim, lo, hi - lo) for lo, hi in index(
+                        self.mesh.axis_index(*axes))], dim=dim)
         return whole
 
 

@@ -160,3 +160,21 @@ SHAPES = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+# long_500k needs a sub-quadratic decode path: run only for SSM/hybrid.
+LONG_CONTEXT_ARCHS = {"zamba2_7b", "rwkv6_7b"}
+
+
+def shapes_for(arch: str) -> list[str]:
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if ALIASES.get(arch, arch) in LONG_CONTEXT_ARCHS:
+        out.append("long_500k")
+    return out
+
+
+def cell_is_skipped(arch: str, shape: str) -> str | None:
+    """Returns a skip reason, or None if the (arch, shape) cell runs."""
+    if shape == "long_500k" and ALIASES.get(arch, arch) not in LONG_CONTEXT_ARCHS:
+        return ("full-attention arch: 524k dense-KV decode is "
+                "quadratic-history; no sub-quadratic path in published form")
+    return None

@@ -41,7 +41,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import pack_bwd_ref, pack_ref
 
 NAME = "dispatch_pack"
@@ -110,6 +110,15 @@ def _pack(tokens, bitmap, valid, num_dests, capacity):
                          f"capacity >= 1, got {num_dests}, {capacity}")
     if device.type == "cpu":
         return pack_ref(tokens, bitmap, valid, num_dests, capacity)
+    if device.type == "meta":
+        n, h = tokens.shape
+        esize = tokens.element_size()
+        # every slot filled (a meta tensor has no data): the bitmap and
+        # valid flags, the rows read once, the buffer and slot map written
+        cost.record(NAME, 0, n * 5 + min(n, num_dests * capacity) * h * esize
+                    + num_dests * capacity * (h * esize + 4))
+        return (tokens.new_empty((num_dests, capacity, h)),
+                bitmap.new_empty((num_dests, capacity)))
     if device.type != "cuda":
         raise ValueError(f"dispatch_pack: no kernel for device {device}")
     n, h = tokens.shape
@@ -160,6 +169,13 @@ def dispatch_pack_bwd(grad_out: torch.Tensor, src_idx: torch.Tensor,
                          f"slot map {tuple(src_idx.shape)}, {n} rows")
     if device.type == "cpu":
         return pack_bwd_ref(grad_out, src_idx, n)
+    if device.type == "meta":
+        # every slot occupied: its row and the slot map read, the rows'
+        # gradient written
+        esize = grad_out.element_size()
+        cost.record("dispatch_pack_bwd", 0, d * c * (h * esize + 4)
+                    + n * h * esize)
+        return grad_out.new_empty((n, h))
     if device.type != "cuda":
         raise ValueError(f"dispatch_pack_bwd: no kernel for device {device}")
     if grad_out.dtype not in DTYPES or src_idx.dtype != torch.int32:

@@ -69,7 +69,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import attention_ref
 
@@ -167,6 +167,16 @@ def _forward(q, k, v, mask, *, with_lse: bool):
         kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
         out = flash_attention_plain(q, k, v, **kw)
         return out, ref.attention_lse(q, k, **kw) if with_lse else None
+    if q.device.type == "meta":
+        g, t = k.shape[1], k.shape[2]
+        cost.record(NAME, 4 * b * h * d * cost.attended_pairs(
+            s, t, causal, window), q.element_size() * (
+                2 * b * h * s * d + 2 * b * g * t * d)
+            + (4 * b * h * s if with_lse else 0))
+        return (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+                .transpose(1, 2),
+                torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+                if with_lse else None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
@@ -223,6 +233,14 @@ def flash_attention_bwd(q, k, v, out, grad_out, lse, *, causal=True,
                          f"lse {tuple(lse.shape)}")
     if q.device.type == "cpu" and record is None:
         return ref.attention_bwd_ref(q, k, v, out, grad_out, lse, **kw)
+    if q.device.type == "meta":
+        # q, o, do read and dq written; k, v read and dk, dv written; the
+        # lse read; the five products of the pairs that attend
+        cost.record("flash_attention_bwd", 10 * b * h * d * cost.
+                    attended_pairs(s, t, causal, window), q.element_size() * (
+                        4 * b * h * s * d + 4 * b * g * t * d)
+                    + 4 * b * h * s)
+        return tuple(torch.empty_like(x) for x in (q, k, v))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")

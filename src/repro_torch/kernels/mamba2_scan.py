@@ -50,7 +50,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import mamba2_chunked, mamba2_chunked_bwd
 
 NAME = "mamba2_scan"
@@ -134,7 +134,7 @@ def _check(name, x, dt, a, b, c, d):
                          f"{sorted(map(str, devices))}")
     if x.device.type == "cpu":
         return
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if not x.dtype == b.dtype == c.dtype == torch.bfloat16 or not (
             dt.dtype == a.dtype == d.dtype == torch.float32):
@@ -156,6 +156,14 @@ def _scan(x, dt, a, b, c, d):
     g, ds = b.shape[0], b.shape[-1]
     y = torch.empty_like(x)
     h = torch.empty((rows, ds, dh), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        tri = CHUNK * (CHUNK + 1) // 2      # causal pairs of a chunk
+        cost.record(NAME, 2 * rows * -(-s // CHUNK) * (
+            tri * ds + tri * dh + 2 * CHUNK * ds * dh),
+            2 * x.numel() * x.element_size() + 4 * dt.numel() + 4 * (
+                a.numel() + d.numel()) + (b.numel() + c.numel())
+            * b.element_size() + 4 * rows * ds * dh)
+        return y, h
     lib = _lib()
     code = lib.mamba2_scan(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -213,6 +221,14 @@ def mamba2_scan_bwd(x, dt, a, b, c, d, dy, dh_final=None):
         grads = mamba2_scan_bwd_plain(x, dt, a, b, c, d, dy, dh_final)
         return tuple(gr.to(t.dtype) for gr, t in
                      zip(grads, (x, dt, a, b, c, d)))
+    if x.device.type == "meta":
+        # x, dy, dx; dt, ddt fp32; B, C and their gradients; a, d, da, dd;
+        # 10 products of a chunk x ds x dh a chunk and row
+        cost.record("mamba2_scan_bwd", 10 * 2 * CHUNK * ds * dh * rows
+                    * -(-s // CHUNK), 3 * x.numel() * x.element_size()
+                    + 8 * rows * s + 4 * g * s * ds * b.element_size()
+                    + 16 * rows)
+        return tuple(torch.empty_like(t) for t in (x, dt, a, b, c, d))
     if dy.device != x.device or dy.dtype != x.dtype or not dy.is_contiguous() \
             or (dh_final is not None and (
                 dh_final.device != x.device or dh_final.dtype != torch.float32

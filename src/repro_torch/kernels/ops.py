@@ -1,8 +1,10 @@
 """The kernels the models call.
 
 Each op goes by the device of its tensors alone: the hand-written CUDA
-kernel for CUDA tensors, its plain PyTorch version for CPU tensors.  There
-is no switch and no fallback.  Decode attention is a plain op on every
+kernel for CUDA tensors, its plain PyTorch version for CPU tensors, and
+for meta tensors (the dry run, ``launch/dryrun.py``) outputs of the right
+shapes, with the launch's FLOPs and bytes recorded (``kernels/cost.py``).
+There is no switch and no fallback.  Decode attention is a plain op on every
 device, as in the reference (``src/repro/kernels/ops.py::decode_attention``):
 one query token per sequence is a memory-bound matrix-vector product.  So
 are the one-token Mamba2 and RWKV-6 state updates of decode
@@ -15,7 +17,8 @@ backward kernels of the same sources (``dispatch_pack_bwd``,
 ``flash_attention_bwd``, ``mamba2_scan_bwd``, ``rwkv6_scan_bwd``; plain
 versions for CPU tensors), so every family trains on the card.
 
-Launch counts: ``<op>.launches`` for each op of ``KERNEL_OPS``.
+Launch counts: ``<op>.launches`` for each op of ``KERNEL_OPS``, real launches
+only.
 """
 
 from __future__ import annotations

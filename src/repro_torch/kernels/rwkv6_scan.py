@@ -50,7 +50,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import rwkv6_chunked, rwkv6_chunked_bwd
 
 NAME = "rwkv6_scan"
@@ -125,7 +125,7 @@ def _check(name, r, k, v, logw, u):
                          f"{sorted(map(str, devices))}")
     if r.device.type == "cpu":
         return
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {r.device}")
     if not r.dtype == k.dtype == v.dtype == torch.bfloat16 or not (
             logw.dtype == u.dtype == torch.float32):
@@ -135,7 +135,7 @@ def _check(name, r, k, v, logw, u):
     if not (dk <= MAX_DIM and dv <= MAX_DIM and dk % 8 == dv % 8 == 0):
         raise ValueError(f"{name}: dk {dk} and dv {dv} must be "
                          f"multiples of 8 up to {MAX_DIM}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+    if not all(t.is_contiguous() and (t.is_meta or t.data_ptr() % 16 == 0)
                for t in (r, k, v, logw, u)):
         raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
                          f"aligned")
@@ -149,6 +149,15 @@ def _scan(r, k, v, logw, u):
     dv = v.shape[-1]
     y = torch.empty_like(v)
     state = torch.empty((rows, dk, dv), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":
+        # the work of the chunked form at the reference's chunk of 32
+        q = PLAIN_CHUNK
+        low = q * (q - 1) // 2          # strictly-lower pairs of a chunk
+        cost.record(NAME, 2 * rows * -(-s // q) * (
+            low * dk + q * dk + (low + q) * dv + 2 * q * dk * dv),
+            (r.numel() + k.numel() + 2 * v.numel()) * r.element_size()
+            + 4 * logw.numel() + 4 * u.numel() + 4 * rows * dk * dv)
+        return y, state
     lib = _lib()
     code = lib.rwkv6_scan(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
@@ -183,6 +192,15 @@ def rwkv6_scan_bwd(r, k, v, logw, u, dy, dstate=None):
                                   chunk=PLAIN_CHUNK)
         return tuple(gr.to(t.dtype) for gr, t in
                      zip(grads, (r, k, v, logw, u)))
+    if r.device.type == "meta":
+        # r, k, v, dy, dr, dk, dv; logw, dlogw fp32; u, du; a chunk and
+        # row: 8 chunk products and the sub-chunk ones (chip_smoke.py)
+        c = BWD_CHUNK
+        cost.record("rwkv6_scan_bwd", 2 * rows * -(-s // c) * (
+            8 * c * dk * dv + 3 * 6 * 16 * 16 * dk + 12 * 8 * 8 * dk),
+            7 * r.numel() * r.element_size() + 8 * logw.numel()
+            + 8 * rows * dk)
+        return tuple(torch.empty_like(t) for t in (r, k, v, logw, u))
     if dy.device != r.device or dy.dtype != v.dtype or not dy.is_contiguous() \
             or dy.data_ptr() % 16 or (dstate is not None and (
                 dstate.device != r.device or dstate.dtype != torch.float32

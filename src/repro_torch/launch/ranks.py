@@ -231,6 +231,17 @@ def init_rank(rank: int, spec: dict) -> RankMesh:
     return mesh
 
 
+def call_worker(rank: int, spec: dict) -> None:
+    """One rank that joins the mesh and saves ``spec["call"](mesh, device,
+    spec)``: a module-level function (pickled by reference) for a check
+    that needs no worker of its own."""
+    mesh = init_rank(rank, spec)
+    result = spec["call"](mesh, rank_device(rank, spec), spec)
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, result)
+
+
 def _save(rank: int, spec: dict, result) -> None:
     if isinstance(result, dict):
         mark("done")
@@ -1382,7 +1393,7 @@ def _step0(mesh: RankMesh, model, params, sync, batch: dict,
     those leaves reduced by each scheme (:func:`_scheme_gaps`), then the
     sync's losses and global norm, and with ``grads`` the synced gradients
     at their global shapes (:func:`_global_grads`)."""
-    from repro_torch.runtime.trainer import trainable
+    from repro_torch.runtime.trainer import fill_missing_grads, trainable
     named = trainable(params)
     out: dict = {"kernel_checks": []}
     patches = (_checked_backwards(out["kernel_checks"])
@@ -1395,6 +1406,7 @@ def _step0(mesh: RankMesh, model, params, sync, batch: dict,
     finally:
         for patch in patches:
             patch.stop()
+    fill_missing_grads(named)
     if run.get("schemes"):
         out["schemes"] = _scheme_gaps(mesh, sync.pctx, named, run["schemes"])
     step0 = sync.metrics({"loss": loss.detach(),
@@ -1404,13 +1416,21 @@ def _step0(mesh: RankMesh, model, params, sync, batch: dict,
     out["step0"]["grad_norm"] = float(sync.global_norm(grads))
     if run.get("grads"):
         out["grads"] = _global_grads(sync, params)
+    if run.get("one_rank") is not None:
+        whole = _global_grads(sync, params, host=False)
+        whole32 = _fp32_grads(model.cfg, sync, params, batch)
+        if mesh.rank == 0:
+            out["one_rank"] = _against_one_rank(model.cfg, batch, whole,
+                                                run["one_rank"], whole32)
+        del whole, whole32
     for p in named.values():
         p.grad = None
     return out
 
 
-def _global_grads(sync, params) -> dict:
-    """Rank 0: every gradient at its global shape (numpy fp32), the
+def _global_grads(sync, params, host: bool = True) -> dict:
+    """Rank 0: every gradient at its global shape (numpy fp32, or with
+    ``host`` False a tensor on the gradient's device in its dtype), the
     experts and model-axis blocks gathered; the others: an empty dict."""
     from repro_torch.checkpoint.store import ShardLayout
     layout = ShardLayout(params, sync.pctx)
@@ -1418,7 +1438,97 @@ def _global_grads(sync, params) -> dict:
     for name, p in params.named_parameters():
         whole = layout.gather(f"params/{name}", p.grad)
         if whole is not None:
-            out[name] = whole.float().cpu().numpy()
+            out[name] = whole.float().cpu().numpy() if host else whole
+    return out
+
+
+def _plain_kernels():
+    """The kernel ops patched to their plain versions (fp32 on the card)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.mamba2_scan import mamba2_scan_plain
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+    return mock.patch.multiple(ops, flash_attention=flash_attention_plain,
+                               mamba2_scan=mamba2_scan_plain,
+                               rwkv6_scan=rwkv6_scan_plain)
+
+
+def _fp32_grads(cfg, sync, params, batch: dict) -> dict:
+    """Every rank's step-0 gradients of an fp32 copy of its own weights,
+    through the kernels' plain versions over the same mesh, gathered to
+    their global shapes on rank 0 (tensors on its device; an empty dict
+    on the others): the ranks' model-axis backward where no dtype makes
+    its gradients ill-conditioned."""
+    from repro_torch.models.api import param_module
+    from repro_torch.runtime.trainer import fill_missing_grads, trainable
+    dev = next(params.parameters()).device
+    wide = param_module(cfg, device=dev, dtype=torch.float32, pctx=sync.pctx)
+    wide.load_state_dict(params.state_dict())
+    named = trainable(wide)
+    with _plain_kernels():
+        loss, _ = build_model(cfg, device=dev, dtype=torch.float32,
+                              pctx=sync.pctx).loss(wide, batch)
+        loss.backward()
+    fill_missing_grads(named)
+    sync({n: p.grad for n, p in named.items()})
+    out = _global_grads(sync, wide, host=False)
+    del wide, named, loss
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def cosines(a: dict, b: dict) -> dict:
+    """Each gradient's cosine of ``a`` to ``b`` (in fp64, a leaf at a
+    time), None where both are zero (a leaf the loss does not reach: not
+    compared)."""
+    out = {}
+    for n in b:
+        x, y = a[n].double().flatten(), b[n].double().flatten()
+        out[n] = (float(x @ y / (x.norm() * y.norm()))
+                  if x.any() or y.any() else None)
+        del x, y
+    return out
+
+
+def _against_one_rank(cfg, batch: dict, grads: dict, seed: int,
+                      grads32: dict) -> dict:
+    """One rank's step-0 loss and gradients of ``cfg`` (weights drawn from
+    ``seed`` on this rank's device, as every rank draws them whole and
+    keeps its cut) on the whole batch ``batch`` (a model rank's rows are
+    the whole batch when the data axis has one rank), against the
+    gathered ``grads``: the loss and each gradient's cosine
+    (:func:`cosines`).  Also how well the model's dtype conditions its
+    gradients: the cosine of each of one rank's gradients to those of the
+    same weights in fp32 through the kernels' plain versions
+    (``conditioning``); and the ranks' own fp32 gradients ``grads32``
+    (:func:`_fp32_grads`) against those (``cosines_fp32``)."""
+    from repro_torch.models.api import param_module
+    from repro_torch.runtime.trainer import fill_missing_grads, trainable
+    dev = next(iter(grads.values())).device
+
+    def step(params, dtype) -> tuple:
+        named = trainable(params)
+        loss, _ = build_model(cfg, device=dev, dtype=dtype).loss(params,
+                                                                 batch)
+        loss.backward()
+        fill_missing_grads(named)
+        return loss.item(), {n: p.grad for n, p in named.items()}
+    dtype = next(iter(grads.values())).dtype
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = build_model(cfg, device=dev, dtype=dtype).init(gen)
+    loss, mine = step(params, dtype)
+    out = {"loss": loss, "cosines": cosines(grads, mine)}
+    wide = param_module(cfg, device=dev, dtype=torch.float32)
+    wide.load_state_dict(params.state_dict())
+    del params
+    with _plain_kernels():
+        out["fp32_loss"], exact = step(wide, torch.float32)
+    out["conditioning"] = cosines(mine, exact)
+    out["cosines_fp32"] = cosines(grads32, exact)
+    del wide, mine, exact
+    gc.collect()
     return out
 
 
@@ -1442,7 +1552,9 @@ def train_worker(rank: int, spec: dict) -> None:
     the run names it);
     ``check_kernels`` holds each backward kernel of that step against its
     plain version on the same inputs (:func:`_checked_backwards`);
-    ``ckpt`` (``{"dir", "every"}``) checkpoints; ``restore`` (a
+    ``one_rank`` (a seed) has rank 0 run that step on one rank of the
+    seed's weights and hold the gathered gradients to it
+    (:func:`_against_one_rank`); ``ckpt`` (``{"dir", "every"}``) checkpoints; ``restore`` (a
     directory) resumes from its latest checkpoint; ``fabric="measured"``
     plans on the fabric :func:`measure_link` timed (``spec["measure_link"]``
     bytes a rank).  A run's ``schemes``
@@ -1450,7 +1562,9 @@ def train_worker(rank: int, spec: dict) -> None:
     scheme (:func:`_scheme_gaps`).  Per run it records the history
     (losses, grad norms, each step's parts in ms), the kernel launches,
     the resolved scheme, bytes and G of the sync, and a digest of every
-    leaf."""
+    leaf and of every segment of a split leaf that each model rank holds
+    whole (``GradSync.whole_parts``), these listed with the replicated
+    leaves."""
     mesh = init_rank(rank, spec)
     results = _train(mesh, rank, rank_device(rank, spec), spec)
     dist.barrier()
@@ -1513,7 +1627,7 @@ def _train(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
             return batch_for_model(cfg, data.batch(step), device=dev,
                                    pctx=pctx)
         if run.get("grads") or run.get("check_kernels") or \
-                run.get("schemes"):
+                run.get("schemes") or run.get("one_rank") is not None:
             res.update(_step0(mesh, built.model, params, sync, make_batch(0),
                               run))
         ckpt = run.get("ckpt") or {}
@@ -1535,6 +1649,15 @@ def _train(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
         res["replicated"] = sorted(n for n in res["digest"]
                                    if n not in sync.expert
                                    and n not in sync.split)
+        # the segments of a split leaf that every model rank holds whole
+        # (Mamba2's in_proj B/C columns), meant to stay the same bits too
+        named = dict(params.named_parameters())
+        for n, (dim, local) in sync.whole_parts.items():
+            for lo, hi in local:
+                key = f"{n}[{dim}:{lo}:{hi}]"
+                res["digest"][key] = leaf_digest(
+                    named[n].narrow(dim, lo, hi - lo))
+                res["replicated"].append(key)
         res["split"] = sorted(sync.split)
         if dev.type == "cuda":
             res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1561,7 +1684,8 @@ def attention_bwd_check(backward, ctx, grad_out: torch.Tensor) -> tuple:
     ``ATTN_BWD_TOL`` as phase 10 holds it; for ``grad_out`` itself, each
     within ``ATTN_BWD_REL`` of its largest element.  Returns (the
     backward's result for ``grad_out``, the unit cotangent's max |err|, the
-    largest of grad_out's three errors relative to their scales, held)."""
+    largest of grad_out's three errors relative to their scales, whether
+    the unit cotangent's are within ``ATTN_BWD_TOL``)."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v, _, _ = ctx.saved_tensors
     causal, window, softcap, scale = ctx.mask
@@ -1589,21 +1713,75 @@ def attention_bwd_check(backward, ctx, grad_out: torch.Tensor) -> tuple:
         big = float(e.abs().max())
         gap = float((a.float() - e).abs().max())
         rel = max(rel, gap / big if big > 0 else float("inf"))
-    return out, err, rel, held and rel <= ATTN_BWD_REL
+    return out, err, rel, held
+
+
+SCAN_BWD_REL = 5e-2     # as chip_smoke's phase 10: of each gradient's max
+
+
+def _scan_bwd_check(name: str, got: tuple, plain, inputs: tuple) -> tuple:
+    """A scan's backward kernel result ``got`` against its plain version
+    ``plain`` on the same inputs in fp32: (max |err|, the largest error
+    relative to its gradient's largest element)."""
+    want = plain(*(None if t is None else t.float() for t in inputs))
+    err = rel = 0.0
+    for a, e in zip(got, want):
+        gap = float((a.float() - e).abs().max())
+        big = float(e.abs().max())
+        err = max(err, gap)
+        rel = max(rel, gap / big if big > 0 else (0.0 if gap == 0 else
+                                                  float("inf")))
+    return err, rel
+
+
+def sdpa_bwd_rel(ctx, grad_out: torch.Tensor):
+    """The yardstick of :func:`attention_bwd_check`'s relative error under
+    the loss's own cotangent: the backward of
+    ``scaled_dot_product_attention`` in the saved tensors' dtype on the
+    same q, k, v and cotangent, its largest error against autograd of the
+    plain forward in fp32 relative to each gradient's largest element
+    (None where the mask has a window or a softcap SDPA does not take)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = ctx.saved_tensors[:3]
+    causal, window, softcap, scale = ctx.mask
+    if window is not None or softcap is not None:
+        return None
+    with torch.enable_grad():
+        exact = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+        want = torch.autograd.grad(fa.flash_attention_plain(
+            *exact, causal=causal, scale=scale), exact, grad_out.float())
+        lib = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        got = torch.autograd.grad(F.scaled_dot_product_attention(
+            *lib, is_causal=causal, scale=scale, enable_gqa=True), lib,
+            grad_out.to(q.dtype))
+    return max(float((a.float() - e).abs().max() / e.abs().max())
+               for a, e in zip(got, want))
 
 
 def _checked_backwards(record: list):
-    """Patches of the pack's and attention's autograd backward that hold
-    each call's result, as the path goes on with it, against the plain
-    version on the same inputs and append ``(kernel, shape, max |err|,
-    held, relative err)`` to ``record``: the pack's backward bit-exact
-    against ``ref.pack_bwd_ref`` (its error relative to the largest
-    element); attention's by :func:`attention_bwd_check`, each shape once.
-    The attention check launches the backward once more, for its unit
-    cotangent."""
+    """Patches of the kernels' autograd backward that hold each call's
+    result, as the path goes on with it, against the plain version on the
+    same inputs and append ``(kernel, shape, max |err|, held, relative
+    err)`` to ``record``: the pack's backward bit-exact against
+    ``ref.pack_bwd_ref`` (its error relative to the largest element);
+    attention's by :func:`attention_bwd_check`, and where only its
+    relative error misses ``ATTN_BWD_REL``, SDPA's relative error on the
+    same inputs as ``("sdpa_bwd", shape, rel, True, rel)``
+    (:func:`sdpa_bwd_rel`); each scan's against its plain backward on the inputs in fp32, every gradient within
+    ``SCAN_BWD_REL`` of its largest element; attention and the scans each
+    shape once.  The attention check launches the backward once more, for
+    its unit cotangent."""
     from repro_torch.kernels import dispatch_pack as dp
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
     pack_bwd, attn_bwd = dp._Pack.backward, fa._Attention.backward
+    scan_bwds = {m2._Mamba2Scan: ("mamba2_scan_bwd", m2._Mamba2Scan.backward,
+                                  m2.mamba2_scan_bwd_plain),
+                 r6._RWKV6Scan: ("rwkv6_scan_bwd", r6._RWKV6Scan.backward,
+                                 _rwkv6_bwd_plain)}
     seen = set()
 
     def pack(ctx, grad_out, grad_idx):
@@ -1621,14 +1799,48 @@ def _checked_backwards(record: list):
         if tuple(q.shape) in seen:
             return attn_bwd(ctx, grad_out)
         seen.add(tuple(q.shape))
-        out, err, rel, held = attention_bwd_check(attn_bwd, ctx, grad_out)
-        record.append(("flash_attention_bwd", tuple(q.shape) + (
-            k.shape[1],), err, held, rel))
+        out, err, rel, unit = attention_bwd_check(attn_bwd, ctx, grad_out)
+        shape = tuple(q.shape) + (k.shape[1],)
+        record.append(("flash_attention_bwd", shape, err,
+                       unit and rel <= ATTN_BWD_REL, rel))
+        if unit and rel > ATTN_BWD_REL:
+            lib = sdpa_bwd_rel(ctx, grad_out)
+            if lib is not None:
+                record.append(("sdpa_bwd", shape, lib, True, lib))
         return out
+
+    def scan(fn):
+        name, backward, plain = scan_bwds[fn]
+
+        def check(ctx, dy, dstate):
+            out = backward(ctx, dy, dstate)
+            x = ctx.saved_tensors[0]
+            if (name, tuple(x.shape)) in seen:
+                return out
+            seen.add((name, tuple(x.shape)))
+            dy = torch.zeros_like(x if fn is m2._Mamba2Scan
+                                  else ctx.saved_tensors[2]) \
+                if dy is None else dy
+            err, rel = _scan_bwd_check(name, out, plain, (
+                *ctx.saved_tensors, dy, dstate))
+            record.append((name, tuple(x.shape), err, rel <= SCAN_BWD_REL,
+                           rel))
+            return out
+        return check
 
     return [mock.patch.object(dp._Pack, "backward", staticmethod(pack)),
             mock.patch.object(fa._Attention, "backward",
-                              staticmethod(attention))]
+                              staticmethod(attention))] + [
+        mock.patch.object(fn, "backward", staticmethod(scan(fn)))
+        for fn in scan_bwds]
+
+
+def _rwkv6_bwd_plain(r, k, v, logw, u, dy, dstate=None):
+    """RWKV-6's plain backward (the CPU path of ``rwkv6_scan_bwd``) on any
+    device."""
+    from repro_torch.kernels.rwkv6_scan import PLAIN_CHUNK
+    return ref.rwkv6_chunked_bwd(r, k, v, logw, u, dy, dstate,
+                                 chunk=PLAIN_CHUNK)
 
 
 def _scheme_gaps(mesh: RankMesh, pctx, named: dict, leaves) -> dict:

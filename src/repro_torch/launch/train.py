@@ -47,10 +47,17 @@ pipelined MoE decision (``telemetry.StepAttribution``).  The plan's
 ``grad_sync`` verdict RUNS: every step's gradient mean over the
 data-parallel ranks is ``planned_psum`` with its scheme
 (``runtime.trainer.GradSync``), where the reference's jitted step runs the
-implicit GSPMD ring whatever the verdict.  ``--multi-pod`` and
-``--variant`` read the dry run's production meshes and variants, which are
-not ported (ROADMAP.md queue 1 item 10); FSDP over the data axis waits for
-the same item.
+implicit GSPMD ring whatever the verdict.  ``--variant`` applies one of
+the dry run's ``VARIANTS`` (``launch/dryrun.py``) to the context, as the
+reference's launcher does; ``--multi-pod`` asks for the production mesh
+(2, 16, 16) of ``launch/mesh.py`` (the mesh's ``ValueError`` on any other
+world size).  A variant's ``fsdp`` is read by the dry run's sharding
+alone: the port's ranks never shard weights over the data axis when they
+run, so ``--variant nofsdp`` raises ``ValueError`` here.
+
+  PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch zamba2_7b --smoke --device cpu \\
+      --tp 2 --backend gloo --variant baseline --steps 3
 """
 
 from __future__ import annotations
@@ -65,7 +72,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import SHAPES, get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, batch_for_model
 from repro_torch.device import resolve_device
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_model, param_count_shape_only
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.runtime.trainer import (GradSync, Trainer, TrainerConfig,
                                          make_train_step)
@@ -159,7 +166,6 @@ def build_training(cfg, pctx, *, batch: int, seq: int, dtype, device,
     from ``seed``), the ``grad_sync`` verdict (``ParallelContext.
     grad_sync_plan``) and its :class:`GradSync`, AdamW on the cosine
     schedule (weight decay 0.01) and ``make_train_step``."""
-    from repro_torch.parallel.context import param_count
     log = log or logging.getLogger("repro_torch.train")
     plan = None
     if pctx is not None:
@@ -177,7 +183,7 @@ def build_training(cfg, pctx, *, batch: int, seq: int, dtype, device,
     decision = sync = None
     if pctx is not None:
         dp = pctx.dp_size
-        decision = pctx.grad_sync_plan(num_params=param_count(cfg),
+        decision = pctx.grad_sync_plan(num_params=param_count_shape_only(cfg),
                                        tokens_per_rank=batch * seq // dp)
         sync = GradSync(pctx, params, decision=decision)
         if decision is not None:
@@ -193,7 +199,40 @@ def build_training(cfg, pctx, *, batch: int, seq: int, dtype, device,
     return Training(pctx, plan, model, params, decision, sync, opt, step)
 
 
+# the context's knobs that a running rank does not execute (FSDP is priced
+# by the dry run alone, ``parallel/sharding.py``)
+DRY_RUN_ONLY = frozenset({"fsdp"})
+
+
+def variant_context(pctx, variant: str, plan_policy, cfg, batch: int,
+                    seq: int):
+    """``pctx`` with the knobs of the dry run's ``VARIANTS[variant]``, as
+    the reference's launcher applies them: the plan policy ``plan_policy``
+    if given, else auto unless the variant pins a scheme or a policy (an
+    explicit ablation); ``moe_microbatch="plan"`` is the G of the train
+    program's joint decision at ``batch`` x ``seq``.  A variant that sets a
+    knob of ``DRY_RUN_ONLY`` (``nofsdp``) raises ``ValueError``."""
+    from repro_torch.launch.dryrun import VARIANTS, planned_microbatch
+    kw = dict(VARIANTS[variant])
+    if set(kw) & DRY_RUN_ONLY:
+        raise ValueError(
+            f"--variant {variant} sets {sorted(set(kw) & DRY_RUN_ONLY)}, "
+            "which only the dry run's per-rank shapes read: the port's "
+            "ranks never shard weights over the data axis when they run, "
+            "so the variant would change nothing here")
+    pins = {"moe_scheme", "plan_policy"} & set(kw)
+    planned = kw.pop("moe_microbatch", None) == "plan"
+    pctx = dataclasses.replace(pctx, **kw)
+    pctx = dataclasses.replace(pctx, plan_policy=plan_policy or (
+        pctx.plan_policy if pins else "auto"))
+    if planned:
+        pctx = dataclasses.replace(pctx, moe_microbatch=planned_microbatch(
+            pctx, cfg, "train", batch, seq))
+    return pctx
+
+
 def main(argv=None) -> int:
+    from repro_torch.launch.dryrun import VARIANTS
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="train_4k")
@@ -230,11 +269,12 @@ def main(argv=None) -> int:
                     help="required over ranks: nccl (one card a rank) or "
                          "gloo")
     ap.add_argument("--plan-policy", choices=("auto", "fixed"),
-                    default="auto",
-                    help="over ranks, auto: the planner picks the MoE round "
-                         "trip, the split-TP gather and the gradient sync's "
-                         "scheme; fixed: the hierarchical pair at one chunk "
-                         "and the ring")
+                    default=None,
+                    help="over ranks, auto (the default): the planner picks "
+                         "the MoE round trip, the split-TP gather and the "
+                         "gradient sync's scheme; fixed: the hierarchical "
+                         "pair at one chunk and the ring (or the "
+                         "--variant's knobs)")
     ap.add_argument("--fabric", default=None,
                     help="fabric the planner scores on: a registered name "
                          "or 'SxP[rR][@INTER[:INTRA]]' in GB/s (default: "
@@ -249,21 +289,22 @@ def main(argv=None) -> int:
     ap.add_argument("--calibration-store", default=None,
                     help="calibration JSONL path (default "
                          "results/calibration_torch/calibration.jsonl)")
-    for flag in ("--multi-pod", "--variant"):
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help="the dry run's production meshes and variants: "
-                             "not ported yet")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the production mesh (2, 16, 16) instead of "
+                         "--pods/--ep/--tp (under torchrun, 512 ranks)")
+    ap.add_argument("--variant", default=None, choices=list(VARIANTS),
+                    help="over ranks, one of the dry run's VARIANTS: its "
+                         "knobs on the context (plan policy auto unless "
+                         "it pins a scheme or a policy)")
     add_metrics_args(ap)
     args = ap.parse_args(argv)
-    for flag in ("multi_pod", "variant"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: the dry run's production "
-                f"meshes and variants are not ported yet (ROADMAP item 10)")
 
     from repro_torch.core.planner import _ep_topology, default_planner
     from repro_torch.core.topology import get_fabric
+    from repro_torch.launch.mesh import production_shape
     from repro_torch.launch.serve import calibrate, join_ranks
+    if args.multi_pod:
+        args.pods, args.ep, args.tp = production_shape(multi_pod=True)
     fabric = get_fabric(args.fabric) if args.fabric else None
     servers = _ep_topology(args.pods, args.ep, fabric).meta.num_servers
     pctx, dev = join_ranks(args.pods, args.ep, args.backend, args.device,
@@ -289,8 +330,12 @@ def main(argv=None) -> int:
                          f"data-parallel ranks of {args.grad_accum} "
                          f"micro-batches")
     if pctx is not None:
-        pctx = dataclasses.replace(pctx, plan_policy=args.plan_policy,
-                                   fabric=fabric)
+        pctx = dataclasses.replace(pctx, plan_policy=args.plan_policy or
+                                   "auto", fabric=fabric)
+        if args.variant is not None:
+            pctx = variant_context(pctx, args.variant, args.plan_policy,
+                                   cfg, batch, seq)
+            log.info("variant %s: %s", args.variant, VARIANTS[args.variant])
 
     monitor = probe = None
     if args.calibrate != "off":

@@ -22,9 +22,9 @@ config also says ``input_mode="embeddings"``: its encoder's) takes
 ``{"src_embeds": [B, S, D], "tgt_tokens": [B, S]}`` for prefill (and
 ``"labels"``) and ``{"tokens": [B, 1]}`` for decode; as in the reference,
 its target tokens are embedded unscaled in prefill and training and
-scaled by sqrt(d_model) in decode.  On the card the hybrid and rwkv
-families do not train yet (their scans have no backward kernel).  The
-model runs on CUDA unless it is built with ``device="cpu"``.
+scaled by sqrt(d_model) in decode.  The model runs on CUDA unless it
+is built with ``device="cpu"``, or on ``"meta"`` (shapes only, the dry
+run: ``launch/dryrun.py``).
 Built with a ``pctx``, a model holds one rank's experts and
 tensor-parallel parts (every family: the hybrid's Mamba2 blocks in
 ``ssm``, RWKV-6's in ``rwkv``, the rest in ``layers``), and its batches
@@ -34,7 +34,8 @@ then the mean over this rank's rows (the same value on every model rank),
 differentiable through the exchanges: the trainer's gradient sync turns
 the ranks' gradients into the global batch's
 (``runtime.trainer.GradSync``); the hybrid, rwkv and encdec families
-serve over a model axis but do not train over one yet.
+keep the residual whole on every model rank, so their loss is the whole
+rows' mean on each.
 """
 
 from __future__ import annotations
@@ -164,11 +165,6 @@ class Model:
         """The stack without a cache: (final-normed hidden [B, S, D], the
         MoE aux losses summed, fp32)."""
         fam = self.cfg.family
-        if L.tp_of(self.pctx)[0] > 1 and fam in ("hybrid", "rwkv",
-                                                 "encdec"):
-            raise NotImplementedError(
-                f"{fam} training over a model axis is not ported (it "
-                f"serves over one)")
         if fam == "encdec":
             src, tgt, positions = self._encdec_in(params, batch)
             enc_out = T.encode(params, self.cfg, src, self.pctx)
@@ -184,7 +180,7 @@ class Model:
             stack = ssm.zamba2_prefill if fam == "hybrid" else \
                 rwkv.rwkv6_prefill
             cache = self.init_cache(*x.shape[:2], cache_dtype=self.dtype)
-            h, _ = stack(params, self.cfg, x, cache)
+            h, _ = stack(params, self.cfg, x, cache, self.pctx)
             return h, torch.zeros((), dtype=torch.float32,
                                   device=self.device)
         return T.forward_hidden(params, self.cfg, x, positions, self.pctx)
@@ -192,16 +188,19 @@ class Model:
     def loss(self, params, batch: dict):
         """Mean token cross-entropy of the labels plus 0.01 x the MoE aux
         loss: (loss, {"ce", "aux"}), fp32 scalars.  Under sequence
-        parallelism each model rank takes the cross-entropy of its own
-        positions, and the sums and counts are added over the model axis
-        (*g*), so the loss is the same on every model rank."""
+        parallelism (the dense and moe families, whose stacks leave the
+        hidden sharded over the model axis) each model rank takes the
+        cross-entropy of its own positions, and the sums and counts are
+        added over the model axis (*g*), so the loss is the same on every
+        model rank."""
         h, aux = self.hidden_train(params, batch)
         if params.unembed is not None:
             w, tied = params.unembed, False
         else:
             w, tied = params.embed.emb, True
         labels = batch["labels"].to(self.device)
-        if seq_sharded(self.pctx, labels.shape[1]):
+        if self.cfg.family in ("dense", "moe") and seq_sharded(
+                self.pctx, labels.shape[1]):
             nll, cnt = L.chunked_nll(h, L.to_model(w, self.pctx),
                                      shard_residual(labels, self.pctx),
                                      tied=tied,
@@ -330,3 +329,10 @@ def make_batch(cfg: ModelConfig, kind: str, batch: int, seq: int,
 
 def param_count(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+def param_count_shape_only(cfg: ModelConfig) -> int:
+    """Parameters of the whole model for ``cfg``, counted on the meta
+    device (nothing allocated, nothing drawn)."""
+    return param_count(param_module(cfg, device="meta",
+                                    dtype=torch.float32))

@@ -110,6 +110,16 @@ def reduce_over_model(x: torch.Tensor, pctx) -> torch.Tensor:
     return x
 
 
+def sum_over_model(x: torch.Tensor, pctx) -> torch.Tensor:
+    """A partial summed over the model axis whose backward sums the
+    cotangents over it too (``parallel.mesh.sum_model``): for a sum that
+    each model rank then applies to its own channels only.  ``x`` itself
+    without a model axis."""
+    if pctx is not None and pctx.model_size > 1:
+        return mesh_ops.sum_model(x, pctx.mesh.group(pctx.model_axis))
+    return x
+
+
 def to_model(x: torch.Tensor, pctx) -> torch.Tensor:
     """*f*: ``x`` (whole on every model rank) as it is, entering a product
     with this rank's block of the weights; its backward sums the
@@ -158,13 +168,17 @@ def rmsnorm_over_model(w, x, width: int, pctx, eps=1e-5):
     axis: ``x`` [..., width / m] and ``w`` are this rank's channels; the
     sum of squares ([..., 1] fp32) is summed over the model axis before
     the rank's channels are scaled, so each is normed as on one rank (a
-    norm of the rank's channels alone would be a group norm).  Plain
-    :func:`rmsnorm` without a model axis."""
+    norm of the rank's channels alone would be a group norm).  The sum
+    goes through :func:`sum_over_model`: each rank scales only its own
+    channels by it, so each rank's cotangent of the sum is different, and
+    the gradient of a rank's partial is the sum of them all (*g*'s
+    identity backward would keep the rank's own).  Plain :func:`rmsnorm`
+    without a model axis."""
     if x.shape[-1] == width:
         return rmsnorm(w, x, eps)
     dt = x.dtype
     xf = x.float()
-    sq = reduce_over_model(xf.pow(2).sum(dim=-1, keepdim=True), pctx)
+    sq = sum_over_model(xf.pow(2).sum(dim=-1, keepdim=True), pctx)
     xf = xf * torch.rsqrt(sq / width + eps)
     return (xf * (1.0 + w)).to(dt)
 

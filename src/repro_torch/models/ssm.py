@@ -28,7 +28,11 @@ its x channels of ``conv``, its heads of ``A_log``, ``D`` and ``dt_bias``,
 its channels of ``out_norm`` (an RMSNorm over all of ``d_inner``: the sum
 of squares is summed over the model axis, one [B, S, 1] fp32 tensor a
 block) and its rows of ``out_proj``, whose products are summed over the
-model axis.  The residual stays whole on every rank.  Its caches are
+model axis.  The residual stays whole on every rank.  In training the B/C
+product takes its cotangent summed over the axis (``_in_proj``) and the
+norm's sum of squares its cotangents summed too
+(``layers.rmsnorm_over_model``), so every rank's gradient of a whole
+leaf is the whole gradient, the same bits on every rank.  Its caches are
 ``conv`` [B, K-1, d_inner / m] and ``ssd`` [B, heads / m, ds, dh]
 (``sharding.cache_specs``), and the scan runs at ``B * heads / m`` rows.
 The shared block takes the dense layers' tensor-parallel path, its KV
@@ -37,6 +41,7 @@ cache in ``layers.kv_layout``'s layout.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -109,6 +114,10 @@ class Mamba2Block(nn.Module):
                             + heads * m, in_proj_segments(cfg, m, r)),
                 "conv": (1, m, r), "A_log": (0, m, r), "D": (0, m, r),
                 "dt_bias": (0, m, r), "out_proj": (0, m, r)}
+            # every model rank's segments (checkpoint.store.ShardLayout,
+            # runtime.trainer.GradSync)
+            self.segments_of = {"in_proj": functools.partial(
+                in_proj_segments, cfg, m)}
             self.out_norm.shards = {"w": (0, m, r)}
 
     def reset_parameters(self, generator: torch.Generator) -> "Mamba2Block":
@@ -175,6 +184,28 @@ def _split_proj(proj, cfg: ModelConfig, d_inner: int):
     return z, x, b, c, dt
 
 
+def _in_proj(p: Mamba2Block, h, cfg: ModelConfig, d_inner: int,
+             pctx=None):
+    """(z, x, B, C, dt) of the normed input ``h`` [B, S, D].  Over a model
+    axis the z, x and dt columns are this rank's heads', a column-parallel
+    product whose input takes *f* (``to_model``); B and C are whole on
+    every rank but read by its own heads alone, so their product takes
+    *f* on its output instead: their cotangent is summed over the axis
+    before it reaches ``in_proj``'s B/C columns (whose gradient is then
+    whole, the same on every rank) and ``h`` (whose cotangent from them is
+    then whole too, so it must not pass ``to_model``'s sum again)."""
+    if L.tp_of(pctx)[0] == 1:
+        return _split_proj(h @ p.in_proj, cfg, d_inner)
+    lo, hi = 2 * d_inner, 2 * d_inner + 2 * cfg.ssm_state
+    w = p.in_proj
+    hm = L.to_model(h, pctx)
+    zx = hm @ w[:, :lo]
+    bc = L.to_model(h @ w[:, lo:hi], pctx)
+    dt = hm @ w[:, hi:]
+    return (zx[..., :d_inner], zx[..., d_inner:],
+            bc[..., :cfg.ssm_state], bc[..., cfg.ssm_state:], dt)
+
+
 def _causal_conv(x, w, state=None):
     """Depthwise causal conv.  x [B, S, C]; w [K, C]; state [B, K-1, C],
     the tail of earlier tokens (decode), or None.  Returns (SiLU of the
@@ -206,8 +237,7 @@ def mamba2_block_prefill(p: Mamba2Block, x, cfg: ModelConfig, pctx=None):
     b, s, _ = x.shape
     d_inner, heads = _inner_dims(cfg, L.tp_of(pctx)[0])
     dh, ds = cfg.ssm_head_dim, cfg.ssm_state
-    proj = L.to_model(p.ln(x), pctx) @ p.in_proj
-    z, xc, bmat, cmat, dt_raw = _split_proj(proj, cfg, d_inner)
+    z, xc, bmat, cmat, dt_raw = _in_proj(p, p.ln(x), cfg, d_inner, pctx)
     xc, conv_tail = _causal_conv(xc, p.conv)
     dt = F.softplus(dt_raw.float() + p.dt_bias)              # [B, S, heads]
     a = -torch.exp(p.A_log)

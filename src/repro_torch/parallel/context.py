@@ -61,6 +61,10 @@ class ParallelContext:
     moe_deferred_tp_reduce: bool = False  # one all_reduce over model after
     #   the combine instead of one per expert FFN
     moe_microbatch: int = 1           # dispatch chunks G under "fixed"
+    fsdp: bool = True                 # shard weights over data (ZeRO-3-ish)
+    #   in the dry run's per-rank shapes (``parallel/sharding.py``) only:
+    #   the port's ranks hold their model-axis part whole when they run,
+    #   and ``launch.train`` refuses a variant that sets it
     remat: str = "none"               # none | selective | full: recompute
     #   each block's activations in the backward (training); the reference
     #   defaults to "full", the port to none (the state of a full-width
@@ -410,16 +414,6 @@ def shard_residual(x, pctx: Optional[ParallelContext]):
     return x[:, at:at + part]
 
 
-def param_count(cfg) -> int:
-    """Parameters of the port's model for ``cfg``, counted on the meta
-    device (nothing allocated)."""
-    import torch
-
-    from repro_torch.models.api import param_module
-    return sum(p.numel() for p in param_module(
-        cfg, device="meta", dtype=torch.float32).parameters())
-
-
 def build_collective_program(cfg, pctx: ParallelContext, name: str,
                              phases: dict, *, itemsize: int = 2,
                              phase_budgets: Optional[dict] = None,
@@ -457,7 +451,9 @@ def build_collective_program(cfg, pctx: ParallelContext, name: str,
             if ag is not None:
                 sites.append(ag)
         if phase == "train":
-            gs = pctx.grad_sync_site(phase, num_params=param_count(cfg),
+            from repro_torch.models.api import param_count_shape_only
+            gs = pctx.grad_sync_site(phase,
+                                     num_params=param_count_shape_only(cfg),
                                      tokens_per_rank=n_rank,
                                      peak_flops=peak_flops)
             if gs is not None:

@@ -48,8 +48,26 @@ product, and :func:`copy_to_model` (*f*: identity forward, ``all_reduce``
 backward) starts a column-parallel one on an input whole on every model
 rank.  ``torch.distributed.nn.functional.all_reduce`` sums the cotangents
 in its backward, so a loss that every model rank computes alike would get
-M times its gradient there.  Without ``requires_grad`` (serving) each call
+M times its gradient there.  A partial sum that each model rank then uses
+differently (the sum of squares of a norm over channels split on the
+model axis, which scales only the rank's own channels) takes
+:func:`sum_model`: the sum forward and the sum backward, since each
+rank's cotangent of the sum is its own channels' and the gradient of its
+partial is all of them.  Without ``requires_grad`` (serving) each call
 runs the plain collective and records nothing.
+
+:class:`ShapeMesh` is a :class:`RankMesh` of the same axes and shape seen
+from one chosen rank, with no process group: its groups are
+:class:`ShapeGroup` objects, on which every exchange of this module (and its
+autograd transpose) returns a tensor of the right shape on the input's
+device (the meta device, in the dry run) without moving data, and
+appends ``(kind, axis, wire bytes, bytes, shape)`` to the mesh's ``log``:
+the output's, and
+kind as XLA names it, the slowest axis the group spans, and the bytes
+this rank puts on the wire by the ring and pairwise factors of the
+reference's HLO reader (``src/repro/launch/hlo_analysis.py``):
+all-gather out x (g-1)/g, reduce-scatter out x (g-1), all-reduce 2 x
+(g-1)/g, all-to-all (g-1)/g, collective-permute the bytes a rank sends.
 """
 
 from __future__ import annotations
@@ -79,7 +97,61 @@ def split_tp_members(m: int) -> list[tuple[int, ...]]:
     return two_level_members(m, range(2, m))
 
 
-class RankMesh:
+class _Axes:
+    """The axes of a mesh seen from one rank: sizes, coordinates, and the
+    exchanges that take a group of it (``group`` / ``subgroup``)."""
+
+    shape: dict
+    coords: dict
+
+    def axis_size(self, *names: str) -> int:
+        return math.prod(self.shape[a] for a in names)
+
+    def axis_index(self, *names: str) -> int:
+        """This rank's coordinate along ``names`` (row-major over them)."""
+        idx = 0
+        for a in names:
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def all_gather(self, x: torch.Tensor, axis,
+                   members=None) -> torch.Tensor:
+        """``lax.all_gather(x, axis, axis_index_groups=...)``: ``x`` of every
+        rank of ``members`` (default: the whole axis), stacked in member
+        order: ``[len(members), *x.shape]``.  Its backward sums each
+        member's cotangent of this rank's block (a reduce-scatter)."""
+        names = axis_names(axis)
+        members = tuple(range(self.axis_size(*names)) if members is None
+                        else members)
+        if len(members) == 1:
+            return x[None]
+        group = self.subgroup(names, members)
+        if x.requires_grad:
+            return _AllGather.apply(x, group, len(members))
+        return _all_gather(x, group, len(members))
+
+    def ppermute(self, x: torch.Tensor, axis, perm) -> torch.Tensor:
+        """``lax.ppermute(x, axis, perm)``: ``perm`` is ``(source,
+        destination)`` pairs of the axis's coordinates, each coordinate at
+        most once on each side; a rank that no pair names as destination
+        gets zeros.  One ``all_to_all_single`` over the axis in which each
+        rank sends ``x`` to at most one rank and receives at most one
+        rank's, a single nonzero split each way.  Its backward is the
+        inverse permutation of the cotangents."""
+        names = axis_names(axis)
+        n = self.axis_size(*names)
+        dst = dict(perm)
+        src = {d: s for s, d in perm}
+        if (len(dst) != len(perm) or len(src) != len(perm)
+                or not set(dst) | set(src) <= set(range(n))):
+            raise ValueError(f"{perm} is not a permutation of {n} ranks")
+        args = (self.group(*names), n, self.axis_index(*names), dst, src)
+        if x.requires_grad:
+            return _PPermute.apply(x, *args)
+        return _ppermute(x, *args)
+
+
+class RankMesh(_Axes):
     """``shape`` = (pods, data, model) over the default process group (a
     mesh of one rank needs none); ``timeout`` bounds each subgroup's
     collectives (``dist.new_group``'s own default is the backend's, which
@@ -131,16 +203,6 @@ class RankMesh:
                 if self.rank in ranks:
                     self._groups[(dp, members)] = group
 
-    def axis_size(self, *names: str) -> int:
-        return math.prod(self.shape[a] for a in names)
-
-    def axis_index(self, *names: str) -> int:
-        """This rank's coordinate along ``names`` (row-major over them)."""
-        idx = 0
-        for a in names:
-            idx = idx * self.shape[a] + self.coords[a]
-        return idx
-
     def group(self, *names: str):
         """The subgroup of the ranks that differ only along ``names``."""
         if self.axis_size(*names) == 1:
@@ -167,41 +229,74 @@ class RankMesh:
                              f"dp_servers={self.dp_servers})")
         return self._groups[key]
 
-    def all_gather(self, x: torch.Tensor, axis,
-                   members=None) -> torch.Tensor:
-        """``lax.all_gather(x, axis, axis_index_groups=...)``: ``x`` of every
-        rank of ``members`` (default: the whole axis), stacked in member
-        order: ``[len(members), *x.shape]``.  Its backward sums each
-        member's cotangent of this rank's block (a reduce-scatter)."""
-        names = axis_names(axis)
-        members = tuple(range(self.axis_size(*names)) if members is None
-                        else members)
-        if len(members) == 1:
-            return x[None]
-        group = self.subgroup(names, members)
-        if x.requires_grad:
-            return _AllGather.apply(x, group, len(members))
-        return _all_gather(x, group, len(members))
 
-    def ppermute(self, x: torch.Tensor, axis, perm) -> torch.Tensor:
-        """``lax.ppermute(x, axis, perm)``: ``perm`` is ``(source,
-        destination)`` pairs of the axis's coordinates, each coordinate at
-        most once on each side; a rank that no pair names as destination
-        gets zeros.  One ``all_to_all_single`` over the axis in which each
-        rank sends ``x`` to at most one rank and receives at most one
-        rank's, a single nonzero split each way.  Its backward is the
-        inverse permutation of the cotangents."""
+class ShapeMesh(_Axes):
+    """A :class:`RankMesh`'s axes and shape seen from rank ``rank``, with
+    no process group: the dry run's mesh.  Its groups are
+    :class:`ShapeGroup` objects (any member set of an axis, as the split-TP,
+    server and rail groups of a real mesh), and every exchange over them
+    appends its record to :attr:`log` (the module docstring)."""
+
+    def __init__(self, shape, *, rank: int = 0, dp_servers=()):
+        self.shape = dict(zip(AXES, (int(s) for s in shape), strict=True))
+        size = math.prod(self.shape.values())
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} of a mesh of {size}")
+        self.rank = rank
+        self.coords = dict(zip(AXES, _unravel(rank, tuple(
+            self.shape.values()))))
+        self.dp_servers = tuple(sorted({int(s) for s in dp_servers}))
+        self.log: list[tuple] = []
+
+    def group(self, *names: str) -> "ShapeGroup":
+        if self.axis_size(*names) == 1:
+            raise ValueError(f"axis {names} has one rank: no group")
+        return ShapeGroup(self, tuple(names),
+                          tuple(range(self.axis_size(*names))))
+
+    def subgroup(self, axis, members) -> "ShapeGroup":
         names = axis_names(axis)
-        n = self.axis_size(*names)
-        dst = dict(perm)
-        src = {d: s for s, d in perm}
-        if (len(dst) != len(perm) or len(src) != len(perm)
-                or not set(dst) | set(src) <= set(range(n))):
-            raise ValueError(f"{perm} is not a permutation of {n} ranks")
-        args = (self.group(*names), n, self.axis_index(*names), dst, src)
-        if x.requires_grad:
-            return _PPermute.apply(x, *args)
-        return _ppermute(x, *args)
+        members = tuple(members)
+        if self.axis_index(*names) not in members:
+            raise ValueError(f"rank at {names} {self.axis_index(*names)} is "
+                             f"not in {members}")
+        return ShapeGroup(self, names, members)
+
+    def bytes_by(self, what: str = "axis") -> dict:
+        """The log's wire bytes summed by ``axis`` or by ``kind``."""
+        col = {"kind": 0, "axis": 1}[what]
+        out: dict = {}
+        for rec in self.log:
+            out[rec[col]] = out.get(rec[col], 0) + rec[2]
+        return out
+
+
+class ShapeGroup:
+    """The members ``members`` of the axes ``names`` of a
+    :class:`ShapeMesh`, the other coordinates at its rank's."""
+
+    def __init__(self, mesh: ShapeMesh, names: tuple, members: tuple):
+        self.mesh, self.names, self.members = mesh, names, members
+        # the slowest axis the members span (the reference's
+        # ``MeshLayout.classify``)
+        dims = tuple(mesh.shape[a] for a in names)
+        spans = [len({c[i] for c in (_unravel(m, dims) for m in members)})
+                 for i in range(len(names))]
+        self.axis = next((a for a, n in zip(names, spans) if n > 1),
+                         names[-1])
+
+    def record(self, kind: str, out: torch.Tensor,
+               sends: bool = True) -> torch.Tensor:
+        g = len(self.members)
+        nbytes = out.numel() * out.element_size()
+        wire = {"all-gather": nbytes * (g - 1) // g,
+                "reduce-scatter": nbytes * (g - 1),
+                "all-reduce": 2 * nbytes * (g - 1) // g,
+                "all-to-all": nbytes * (g - 1) // g,
+                "collective-permute": nbytes if sends else 0}[kind]
+        self.mesh.log.append((kind, self.axis, wire, nbytes,
+                              tuple(out.shape)))
+        return out
 
 
 def axis_names(axis) -> tuple[str, ...]:
@@ -234,9 +329,19 @@ def two_level_members(n: int, counts) -> list[tuple[int, ...]]:
 # the collectives and their transposes
 # ---------------------------------------------------------------------------
 
+def _all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, in place."""
+    if isinstance(group, ShapeGroup):
+        return group.record("all-reduce", x)
+    dist.all_reduce(x, group=group)
+    return x
+
+
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
+    if isinstance(group, ShapeGroup):
+        return group.record("all-to-all", out)
     dist.all_to_all_single(out, x, group=group)
     return out
 
@@ -244,7 +349,10 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 def _all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
     flat = x.contiguous().reshape(-1)
     out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
-    _ALL_GATHER(out, flat, group=group)
+    if isinstance(group, ShapeGroup):
+        group.record("all-gather", out)
+    else:
+        _ALL_GATHER(out, flat, group=group)
     return out.view(n, *x.shape)
 
 
@@ -252,12 +360,17 @@ def _reduce_scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
     """[n, *rest] summed over the group, this member's block: [*rest]."""
     x = x.contiguous()
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    if isinstance(group, ShapeGroup):
+        return group.record("reduce-scatter", out)
     _REDUCE_SCATTER(out.view(-1), x.view(-1), group=group)
     return out
 
 
 def _ppermute(x, group, n, me, dst, src) -> torch.Tensor:
     x = x.contiguous()
+    if isinstance(group, ShapeGroup):
+        return group.record("collective-permute", torch.empty_like(x),
+                            sends=me in dst)
     rows = x.shape[0]
     send, recv = [0] * n, [0] * n
     if me in dst:
@@ -333,15 +446,11 @@ class _Mean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n):
         ctx.group, ctx.n = group, n
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out / n
+        return _all_reduce_(x.clone(), group) / n
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g / ctx.n, None, None
+        return _all_reduce_(g.clone(), ctx.group) / ctx.n, None, None
 
 
 class _ReduceModel(torch.autograd.Function):
@@ -350,13 +459,27 @@ class _ReduceModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        dist.all_reduce(x, group=group)
+        _all_reduce_(x, group)
         ctx.mark_dirty(x)
         return x
 
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumModel(torch.autograd.Function):
+    """The sum over the group forward and backward: for a partial that
+    every rank of the group then uses differently."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.clone(), ctx.group), None
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -369,9 +492,7 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _all_reduce_(g.clone(), ctx.group), None
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -411,9 +532,7 @@ def mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
     its own objective's, as over data-parallel ranks)."""
     if x.requires_grad:
         return _Mean.apply(x, group, n)
-    out = x.clone()
-    dist.all_reduce(out, group=group)
-    return out / n
+    return _all_reduce_(x.clone(), group) / n
 
 
 def reduce_model(x: torch.Tensor, group) -> torch.Tensor:
@@ -421,8 +540,19 @@ def reduce_model(x: torch.Tensor, group) -> torch.Tensor:
     sum's value is the same on every rank, and so is its cotangent)."""
     if x.requires_grad:
         return _ReduceModel.apply(x, group)
-    dist.all_reduce(x, group=group)
-    return x
+    return _all_reduce_(x, group)
+
+
+def sum_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (a new tensor); backward: the
+    cotangents summed over ``group`` too.  For a partial that each rank
+    then uses on its own part only, so that each rank's cotangent of the
+    sum differs and the gradient of every partial is their sum (where
+    what follows the sum is replicated, :func:`reduce_model`'s identity
+    backward is the one)."""
+    if x.requires_grad:
+        return _SumModel.apply(x, group)
+    return _all_reduce_(x.clone(), group)
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:

@@ -73,6 +73,15 @@ def trainable(params: nn.Module) -> dict:
     return named
 
 
+def fill_missing_grads(named: dict) -> None:
+    """Give each parameter that the loss does not reach a zero gradient,
+    as ``jax.grad`` gives it (Zamba2 cut below its first shared-block
+    call leaves the shared block unused)."""
+    for p in named.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 @dataclasses.dataclass
 class TrainState:
     params: nn.Module
@@ -113,6 +122,22 @@ class GradSync:
         self.split = {f"{prefix}.{name}".lstrip(".")
                       for prefix, sub in params.named_modules()
                       for name in getattr(sub, "shards", {})} - self.expert
+        # the column segments of a split leaf that every model rank holds
+        # whole (Mamba2's in_proj B/C), as (dim, [(lo, hi)] of the rank's
+        # own columns): the norm takes them from the first model rank only
+        self.whole_parts = {}
+        for prefix, sub in params.named_modules():
+            for name, segs_of in getattr(sub, "segments_of", {}).items():
+                dim, _, mine = sub.shards[name]
+                common = set.intersection(*(set(segs_of(q)) for q in range(
+                    pctx.model_size)))
+                local, at = [], 0
+                for lo, hi in mine:
+                    if (lo, hi) in common:
+                        local.append((at, at + hi - lo))
+                    at += hi - lo
+                self.whole_parts[f"{prefix}.{name}".lstrip(".")] = \
+                    dim, local
         # experts replicated over the pods when EP spans the data axis alone
         experts = M.num_experts(params)
         self.expert_pods = bool(experts) and pctx.num_pods > 1 and \
@@ -143,10 +168,12 @@ class GradSync:
         """The norm of the global gradient, the same bits on every rank:
         each rank adds the squares of the parts it is the first holder of
         (the replicated leaves on rank 0, the model-axis blocks on the
-        first data-parallel rank, each expert shard on its first pod), and
-        one ``all_reduce`` over the world sums them."""
+        first data-parallel rank, of these the segments every model rank
+        holds whole on the first model rank only, each expert shard on its
+        first pod), and one ``all_reduce`` over the world sums them."""
         pctx = self.pctx
         first_dp = pctx.dp_index == 0
+        first_model = self.mesh.coords[pctx.model_axis] == 0
         first_pod = not self.expert_pods or self.mesh.coords["pod"] == 0
         parts = {}
         for name, g in grads.items():
@@ -154,6 +181,14 @@ class GradSync:
                 mine = first_pod
             elif name in self.split:
                 mine = first_dp
+                if mine and not first_model and name in self.whole_parts:
+                    dim, skip = self.whole_parts[name]
+                    at = 0
+                    for i, (lo, hi) in enumerate(skip + [(g.shape[dim],) * 2]):
+                        if lo > at:
+                            parts[f"{name}/{i}"] = g.narrow(dim, at, lo - at)
+                        at = hi
+                    continue
             else:
                 mine = self.mesh.rank == 0
             if mine:
@@ -229,6 +264,7 @@ def make_train_step(model, optimizer: Optimizer, *, grad_accum: int = 1,
         if grad_accum == 1:
             loss, metrics = model.loss(state.params, batch)
             loss.backward()
+            fill_missing_grads(named)
             grads = {n: p.grad for n, p in named.items()}
         else:
             gsum = {n: torch.zeros(p.shape, dtype=torch.float32,
@@ -239,6 +275,7 @@ def make_train_step(model, optimizer: Optimizer, *, grad_accum: int = 1,
                 mb = {k: v[i] for k, v in batch.items()}
                 mloss, _ = model.loss(state.params, mb)
                 mloss.backward()
+                fill_missing_grads(named)
                 for n, p in named.items():
                     gsum[n] += p.grad.float()
                     p.grad = None

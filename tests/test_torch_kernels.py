@@ -140,13 +140,28 @@ def test_decode_attention_matches_reference(kv_len, window, softcap):
 # wrapper contract: device picks the path, no fallback
 # ---------------------------------------------------------------------------
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device that has no kernel and no plain version (XLA's
+    device type; the meta device is the dry run's, which the wrappers
+    take): it carries a shape and a dtype and runs no op."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype=torch.float32):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=dtype, device=torch.device("xla"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise NotImplementedError(func)
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
-    tok = torch.zeros((4, 8), device="meta")
-    bits = torch.zeros(4, dtype=torch.int32, device="meta")
-    valid = torch.ones(4, dtype=torch.bool, device="meta")
+    tok = _Elsewhere((4, 8))
+    bits = _Elsewhere((4,), torch.int32)
+    valid = _Elsewhere((4,), torch.bool)
     with pytest.raises(ValueError, match="no kernel"):
         ops.dispatch_pack(tok, bits, valid, num_dests=2, capacity=2)
-    q = torch.zeros((1, 2, 4, 64), device="meta")
+    q = _Elsewhere((1, 2, 4, 64), torch.bfloat16)
     with pytest.raises(ValueError, match="no kernel"):
         ops.flash_attention(q, q, q)
 

@@ -34,6 +34,8 @@ from repro_torch.core import h100
 from repro_torch.core import plan as plan_ir
 from repro_torch.core import planner as tplanner
 from repro_torch.core import topology as ttopo
+from repro_torch.models.api import \
+    param_count_shape_only as torch_param_count
 from repro_torch.parallel import context as tctx
 from repro_torch.parallel.mesh import AXES, RankMesh
 
@@ -150,7 +152,7 @@ def test_train_program_counts_the_port_models_parameters(reduced):
     jcfg, tcfg = jax_get_config("dbrx_132b"), get_config("dbrx_132b")
     if reduced:
         jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
-    assert tctx.param_count(tcfg) == param_count_shape_only(jcfg)
+    assert torch_param_count(tcfg) == param_count_shape_only(jcfg)
     jp, tp = contexts(named("2x8"))
     jsite = jctx.build_collective_program(jcfg, jp, "t", {"train": (8, 64)}
                                           ).site("train/grad_sync")

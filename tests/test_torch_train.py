@@ -518,7 +518,8 @@ def test_device_rule():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "dbrx_132b", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the production mesh's 512 ranks, not this one process
+    with pytest.raises(ValueError, match="--pods 2 x --ep 16 x --tp 16"):
         train.main(["--arch", "dbrx_132b", "--smoke", "--device", "cpu",
                     "--multi-pod"])
 
