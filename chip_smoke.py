@@ -4055,7 +4055,10 @@ def train_ranks_plan(which: str, backend: str) -> dict:
             cfg = get_config(arch)
             runs.append(dict(label=arch, cfg=cfg if depth is None else
                              cfg.with_depth(depth), check_kernels=True,
-                             one_rank=0))
+                             one_rank=0,
+                             remat_twin=arch in TP_FAMILIES_REMAT))
+        runs.append(dict(label=REPLICATED_TWIN, cfg=replicated_twin(),
+                         check_kernels=True, one_rank=0))
         return dict(cfg=runs[0]["cfg"], steps=TP_FAMILIES_STEPS,
                     seq=TRAIN_RANKS_SEQ, runs=runs)
     if which == "mistral":
@@ -4521,12 +4524,34 @@ TP_FAMILIES = (("zamba2_7b", 24, 7, {}), ("rwkv6_7b", 8, 2, {}),
                ("seamless_m4t_medium", None, None, {}),
                ("qwen2_vl_2b", None, None, {"seq_shard_decode": False}))
 TP_FAMILIES_NEW = {1: 8, 4: 32}         # new tokens on one card, on four
+# the replicated twin: Qwen2-VL-2B's widths (d_model 1536, head_dim 128,
+# M-RoPE, 2 kv heads, 151,936 vocab, tied) with 6 query heads and an FFN
+# width of 8,962, neither of which divides over 4 model ranks, so its
+# attention and MLP are whole on every rank (layers.splits), at depth 2;
+# served (the KV length sharded) and trained on phase 14's spawns
+REPLICATED_TWIN = "qwen2_vl_2b@6heads"
+REPLICATED_LEAVES = ("blocks.0.attn.wq", "blocks.0.attn.wk",
+                     "blocks.0.attn.wo", "blocks.0.mlp.w1", "blocks.0.mlp.w2")
 # phase 14's training over TP_FAMILIES_MESH at full width: (arch, depth
 # (None: the published depth)), the ill-conditioned stacks at their
 # serving twins' depths (Zamba2's 7 blocks reach its shared block once);
 # 4 Trainer steps of TRAIN_RANKS_BATCH x TRAIN_RANKS_SEQ tokens
 TP_FAMILIES_TRAIN = (("zamba2_7b", 7), ("rwkv6_7b", 2),
                      ("seamless_m4t_medium", None))
+# the stacks whose step 0 also runs under remat="full" beside "none" on the
+# same weights and batch (ranks._remat_twin), and the scans whose forward
+# launches remat doubles
+TP_FAMILIES_REMAT = {"zamba2_7b": "mamba2_scan", "rwkv6_7b": "rwkv6_scan"}
+
+
+def replicated_twin():
+    """:data:`REPLICATED_TWIN`'s config."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config("qwen2_vl_2b")
+    return dataclasses.replace(cfg, name=REPLICATED_TWIN, n_layers=2,
+                               n_heads=6, d_head=128, d_ff=8962)
 TP_FAMILIES_STEPS = 4
 TP_FAMILIES_GAP = 2e-2        # step-0 loss against one rank, relative
 
@@ -4545,11 +4570,12 @@ def tp_families_heading(four: bool) -> str:
                 cut += (f" ({n_shared_calls(cfg.with_depth(depth))} calls "
                         f"of the shared block)")
             cuts.append(cut)
-    return ("phase 14: Zamba2-7B, RWKV6-7B, SeamlessM4T-medium and "
-            "Qwen2-VL-2B's backbone (replicated kv heads) over (1, 1, 4) "
-            "at full width, " + (f"full depth, {new} new tokens" if four
-                                 else f"{new} new tokens, cut on one card: "
-                                 + "; ".join(cuts)))
+    return ("phase 14: Zamba2-7B, RWKV6-7B, SeamlessM4T-medium, "
+            "Qwen2-VL-2B's backbone (replicated kv heads) and its 6-head "
+            "twin (attention and MLP replicated) over (1, 1, 4) at full "
+            "width, " + (f"full depth, {new} new tokens" if four
+                         else f"{new} new tokens, cut on one card: "
+                         + "; ".join(cuts)))
 
 
 def _mamba2_steps(x, dt, a, b, c, d):
@@ -4609,6 +4635,7 @@ def tp_families_served(four: bool) -> list:
         if twin is not None:
             served.append((f"{arch}@{twin}", cfg.with_depth(twin), knobs,
                            arch))
+    served.append((REPLICATED_TWIN, replicated_twin(), {}, None))
     return served
 
 
@@ -4905,9 +4932,60 @@ def tp_families_train(backend: str, where: str) -> dict:
                 failures.append(f"{label} launches {r['launches']} != "
                                 f"{want}")
         by_path[f"{label}_tp4_train"] = counts
+        if label in TP_FAMILIES_REMAT:
+            failures += remat_lines(label, TP_FAMILIES_REMAT[label],
+                                    [r["remat"] for r in runs_])
+        if label == REPLICATED_TWIN:
+            whole = [n for n in REPLICATED_LEAVES
+                     if n not in runs_[0]["replicated"]]
+            print(f"  {label}: {len(REPLICATED_LEAVES) - len(whole)} of "
+                  f"{len(REPLICATED_LEAVES)} leaves of the replicated "
+                  f"attention and MLP among the replicated leaves, the "
+                  f"same bits on every rank (above)")
+            if whole:
+                failures.append(f"{label}: split, not replicated: {whole}")
     if failures:
         raise AssertionError(f"phase 14 training: {failures}")
     return by_path
+
+
+def remat_lines(label: str, scan: str, twins: list) -> list:
+    """Print and gate the step 0 of ``label`` under ``remat="full"`` beside
+    ``"none"`` on every rank (``ranks._remat_twin``): the loss and every
+    raw gradient the same bits (the kernels are deterministic and every
+    rank recomputes the same exchanges in the same order), ``scan``'s
+    forward launches doubled and its backward's unchanged.  Returns the
+    failures."""
+    failures, same = [], True
+    for rank, twin in enumerate(twins):
+        none, full = twin["none"], twin["full"]
+        differ = sorted(n for n in none["digest"]
+                        if full["digest"][n] != none["digest"][n])
+        if full["loss"] != none["loss"] or differ:
+            same = False
+            failures.append(f"{label} rank {rank}: remat full vs none: loss "
+                            f"{full['loss']} vs {none['loss']}, gradients "
+                            f"differ: {differ[:5]}")
+        fwd, bwd = none["launches"][scan], none["launches"][scan + "_bwd"]
+        if not (fwd > 0 and full["launches"][scan] == 2 * fwd
+                and full["launches"][scan + "_bwd"] == bwd):
+            failures.append(f"{label} rank {rank}: launches under remat "
+                            f"{full['launches']} against {none['launches']}")
+    none, full = twins[0]["none"], twins[0]["full"]
+    print(f"  {label} step 0 under remat=\"full\" beside \"none\" (same "
+          f"weights and batch): loss {full['loss']:.6f} vs "
+          f"{none['loss']:.6f}, {len(none['digest'])} gradients on each of "
+          f"{len(twins)} ranks "
+          f"{'bit-identical' if same else 'NOT bit-identical'}; "
+          f"{scan} launches a rank {full['launches'][scan]} forward, "
+          f"{full['launches'][scan + '_bwd']} backward (none: "
+          f"{none['launches'][scan]}, {none['launches'][scan + '_bwd']}); "
+          f"flash_attention {full['launches']['flash_attention']} vs "
+          f"{none['launches']['flash_attention']}; peak memory a rank "
+          f"{max(t['full']['peak_gb'] for t in twins):.2f} GB vs "
+          f"{max(t['none']['peak_gb'] for t in twins):.2f} GB "
+          f"(max_memory_allocated over the step, weights included)")
+    return failures
 
 
 # ---------------------------------------------------------------------------
@@ -4918,7 +4996,9 @@ def tp_families_train(backend: str, where: str) -> dict:
 # the host; every family's model runs its rank's part of one step)
 DRYRUN_CELLS = (("mistral_nemo_12b", "decode_32k"), ("dbrx_132b", "decode_32k"),
                 ("zamba2_7b", "decode_32k"), ("rwkv6_7b", "decode_32k"),
-                ("seamless_m4t_medium", "decode_32k"))
+                ("seamless_m4t_medium", "decode_32k"),
+                # 12 query heads over 16 model ranks: attention replicated
+                ("qwen2_vl_2b", "decode_32k"))
 
 
 def dryrun_phase() -> None:

@@ -432,6 +432,41 @@ SUM_BLOCK_BYTES = 64 << 20    # a block of gathered rows in _sum_rows_into
 def _sum_rows_into(index: torch.Tensor, rows: torch.Tensor, num_slots: int,
                    width: int) -> torch.Tensor:
     """fp32 [num_slots, H]: slot m holds the sum of the ``rows`` whose
+    ``index`` is m (:func:`_sum_rows_plain`).  In training it runs under
+    :class:`_SumRows`, whose backward is one gather of the cotangent."""
+    if rows.requires_grad:
+        return _SumRows.apply(index, rows, num_slots, width)
+    return _sum_rows_plain(index, rows, num_slots, width)
+
+
+class _SumRows(torch.autograd.Function):
+    """:func:`_sum_rows_plain` with the transpose of the reference's
+    ``.at[].add`` as its backward: a row lands in one slot at most, so its
+    gradient is that slot's cotangent (zero for index -1 and for the spill
+    slot ``num_slots``), one gather of the cotangent.  Autograd through
+    the blocked gathers would build a zero-filled [R * C, H] gradient for
+    each block and each column and add them up: the same values (each
+    element gets one addend and zeros), many times the bytes."""
+
+    @staticmethod
+    def forward(ctx, index, rows, num_slots, width):
+        ctx.save_for_backward(index)
+        ctx.num_slots, ctx.shape, ctx.dtype = num_slots, rows.shape, \
+            rows.dtype
+        return _sum_rows_plain(index, rows, num_slots, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        index, = ctx.saved_tensors
+        slot = index.reshape(-1)
+        slot = torch.where(slot < ctx.num_slots, slot, -1)
+        grad = gather_rows(g, slot).to(ctx.dtype).reshape(ctx.shape)
+        return None, grad, None, None
+
+
+def _sum_rows_plain(index: torch.Tensor, rows: torch.Tensor,
+                    num_slots: int, width: int) -> torch.Tensor:
+    """fp32 [num_slots, H]: slot m holds the sum of the ``rows`` whose
     ``index`` is m (the reference's ``.at[].add`` into ``num_slots + 1``
     rows, the last, for index -1, cut off).
 

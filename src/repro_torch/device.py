@@ -14,3 +14,9 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: the port runs on CUDA unless device='cpu' is "
             "passed explicitly")
     return dev
+
+
+def model_dtype(device: torch.device) -> torch.dtype:
+    """The weights' and caches' dtype on ``device``: bf16 on the card,
+    whose kernels take bf16, fp32 on the CPU."""
+    return torch.bfloat16 if device.type == "cuda" else torch.float32

@@ -17,8 +17,9 @@ storage, nothing allocated on any device.
     cache of the prompt's length; for a decode cell one
     ``Model.decode_step`` over a cache of the shape's length;
   * under four counters:
-      - FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` plus the
-        kernels' own (their wrappers' meta branches, ``kernels/cost.py``);
+      - FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` without its
+        module tracker (:class:`Flops`) plus the kernels' own (their
+        wrappers' meta branches, ``kernels/cost.py``);
       - HBM bytes: every op's inputs and outputs (the traffic of eager
         PyTorch; allocations and views move nothing), plus the kernels';
       - peak live bytes of the meta tensors made in the cell, on top of
@@ -39,8 +40,10 @@ storage, nothing allocated on any device.
     the H100's peak unless ``peak_flops`` says otherwise.
 
 A width that does not divide over the model axis (Qwen2-VL-2B's 12 heads
-over 16 ranks) makes the port's modules raise (``layers.shard_size``);
-the cell is recorded as an ``error`` naming it.  Results go to
+over 16 ranks) leaves its module whole on every model rank
+(``layers.splits``), where the reference's GSPMD cuts the matrix's
+columns in the middle of a head.  A cell that fails for another reason is
+recorded as an ``error`` naming it.  Results go to
 ``results/dryrun_torch/``.
 
 Usage (on the CPU; nothing is allocated):
@@ -413,6 +416,30 @@ class Traffic(TorchDispatchMode):
         return out
 
 
+class _Global:
+    """A module tracker that tracks nothing: every FLOP under "Global"."""
+    parents = ("Global",)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *args):
+        return None
+
+
+class Flops(FlopCounterMode):
+    """``FlopCounterMode`` with its module tracker left out.  The tracker
+    hooks the gradients of every module's inputs and outputs, and under
+    remat those hooks hold each recomputed block's graph, with its
+    recomputed activations, in a reference cycle until Python's collector
+    runs, so :class:`Traffic`'s peak would count blocks whose backward has
+    ended.  The totals are the same; there is no per-module table."""
+
+    def __init__(self):
+        super().__init__(display=False)
+        self.mod_tracker = _Global()
+
+
 def _tree_bytes(tree) -> int:
     return sum(_nbytes(t) for t in tree_leaves(tree)
                if isinstance(t, torch.Tensor))
@@ -519,7 +546,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     kind, argb, outb, fn = _run(model, params, cfg, shape, pctx,
                                 VARIANT_OPT_DTYPE.get(variant))
     pctx.mesh.log.clear()
-    traffic, flops = Traffic(), FlopCounterMode(display=False)
+    traffic, flops = Traffic(), Flops()
     with cost.recording() as kernels, flops, traffic:
         fn()
     t_run = time.monotonic() - t0

@@ -1173,7 +1173,8 @@ def dispatch_worker(rank: int, spec: dict) -> None:
 
 def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
     """``moe_ffn`` for each job of ``spec["moe"]``: the job's MoE layer
-    (``cfg``, its reference weights ``weights``) on this rank's
+    (``cfg``, its reference weights ``weights``) on the rank's device
+    (:func:`rank_device`), on this rank's
     data-parallel rows of ``x``, its experts and, over a model axis, its
     block of their hidden width, under each run of ``runs`` (default: the
     fixed scheme pairs at one chunk).  Returns per job and run label the
@@ -1183,11 +1184,12 @@ def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
     from repro_torch.convert import block_of
     from repro_torch.models.layers import tp_of
     out = {}
+    dev = rank_device(rank, spec)
     dp, dp_index = mesh.axis_size("pod", "data"), mesh.axis_index("pod",
                                                                   "data")
     for job in spec["moe"]:
         cfg, weights = job["cfg"], job["weights"]
-        x = torch.from_numpy(job["x"])
+        x = torch.from_numpy(job["x"]).to(dev)
         per = x.shape[0] // dp
         x = x[dp_index * per:(dp_index + 1) * per]
         layer = None
@@ -1198,16 +1200,17 @@ def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
                 first, local = M.expert_shard(pctx, cfg.num_experts)
                 d_ff = weights["w1"].shape[-1]
                 layer = M.MoE(cfg.d_model, d_ff, cfg.num_experts,
-                              device="cpu", dtype=torch.float32,
+                              device=dev, dtype=torch.float32,
                               first=first, local=local, tp=tp_of(pctx))
                 with torch.no_grad():
-                    layer.router.copy_(torch.from_numpy(weights["router"]))
+                    layer.router.copy_(torch.from_numpy(weights["router"])
+                                       .to(dev))
                     for key in ("w1", "w3", "w2"):
                         w = weights[key][first:first + local]
                         if key in layer.shards:
                             w = block_of(w, layer.shards[key])
                         getattr(layer, key).copy_(torch.from_numpy(
-                            np.ascontiguousarray(w)))
+                            np.ascontiguousarray(w)).to(dev))
             ct = job.get("ct")
             if ct is not None:
                 xg = x.clone().requires_grad_(True)
@@ -1215,10 +1218,10 @@ def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
                     p.requires_grad_(True)
                     p.grad = None
                 y, aux = M.moe_ffn(layer, xg, cfg, pctx)
-                (y * torch.from_numpy(ct[dp_index * per:(dp_index + 1) * per])
-                 ).sum().backward()
-                grads = {"x": xg.grad.numpy(),
-                         **{k: p.grad.numpy().copy()
+                (y * torch.from_numpy(ct[dp_index * per:(dp_index + 1) * per]
+                                      ).to(dev)).sum().backward()
+                grads = {"x": xg.grad.cpu().numpy(),
+                         **{k: p.grad.cpu().numpy().copy()
                             for k, p in layer.named_parameters()}}
                 y = y.detach()
             else:
@@ -1227,7 +1230,7 @@ def _moe_ffn_case(rank: int, spec: dict, mesh: RankMesh) -> dict:
             kw = M.pipeline_config(pctx, cfg, x.shape[0] * x.shape[1],
                                    cfg.d_model, layer.d_ff,
                                    x.element_size())
-            res[run_label(run)] = {"y": y.numpy(), "aux": float(aux),
+            res[run_label(run)] = {"y": y.cpu().numpy(), "aux": float(aux),
                                    "resolved": kw, "grads": grads,
                                    "experts": (first, local)}
     return out
@@ -1428,6 +1431,35 @@ def _step0(mesh: RankMesh, model, params, sync, batch: dict,
     return out
 
 
+def _remat_twin(model, params, batch: dict, dev) -> dict:
+    """The step-0 forward and backward of ``model`` under ``remat`` "none",
+    then "full", on the same weights and batch, without an update: per
+    setting the loss, the kernel launches, each raw gradient's
+    :func:`leaf_digest` and, on the card, the step's
+    ``max_memory_allocated`` in GB (its peak, weights included)."""
+    from repro_torch.runtime.trainer import fill_missing_grads, trainable
+    named = trainable(params)
+    out = {}
+    for remat in ("none", "full"):
+        step = dataclasses.replace(
+            model, pctx=dataclasses.replace(model.pctx, remat=remat))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        loss, _ = step.loss(params, batch)
+        loss.backward()
+        fill_missing_grads(named)
+        out[remat] = {"loss": float(loss.detach()), "launches": ops.launches(),
+                      "digest": {n: leaf_digest(p.grad)
+                                 for n, p in named.items()}}
+        if dev.type == "cuda":
+            out[remat]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        for p in named.values():
+            p.grad = None
+    return out
+
+
 def _global_grads(sync, params, host: bool = True) -> dict:
     """Rank 0: every gradient at its global shape (numpy fp32, or with
     ``host`` False a tensor on the gradient's device in its dtype), the
@@ -1554,7 +1586,8 @@ def train_worker(rank: int, spec: dict) -> None:
     plain version on the same inputs (:func:`_checked_backwards`);
     ``one_rank`` (a seed) has rank 0 run that step on one rank of the
     seed's weights and hold the gathered gradients to it
-    (:func:`_against_one_rank`); ``ckpt`` (``{"dir", "every"}``) checkpoints; ``restore`` (a
+    (:func:`_against_one_rank`); ``remat_twin`` runs that step's forward
+    and backward under ``remat`` "none" and "full" (:func:`_remat_twin`); ``ckpt`` (``{"dir", "every"}``) checkpoints; ``restore`` (a
     directory) resumes from its latest checkpoint; ``fabric="measured"``
     plans on the fabric :func:`measure_link` timed (``spec["measure_link"]``
     bytes a rank).  A run's ``schemes``
@@ -1630,6 +1663,12 @@ def _train(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
                 run.get("schemes") or run.get("one_rank") is not None:
             res.update(_step0(mesh, built.model, params, sync, make_batch(0),
                               run))
+        before = 0          # the run's peak so far: the twin resets it
+        if run.get("remat_twin"):
+            if dev.type == "cuda":
+                before = torch.cuda.max_memory_allocated(dev)
+            res["remat"] = _remat_twin(built.model, params, make_batch(0),
+                                       dev)
         ckpt = run.get("ckpt") or {}
         directory = run.get("restore") or ckpt.get("dir")
         trainer = Trainer(
@@ -1660,7 +1699,8 @@ def _train(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
                 res["replicated"].append(key)
         res["split"] = sorted(sync.split)
         if dev.type == "cuda":
-            res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            res["peak_gb"] = max(before, torch.cuda.max_memory_allocated(
+                dev)) / 1e9
         res["seconds"] = time.monotonic() - t0
         mark(f"run {label}")
         del trainer, params, sync, built

@@ -174,15 +174,13 @@ class Model:
                                   device=self.device)
         x, positions = self.embed_in(params, batch)
         if fam in ("hybrid", "rwkv"):
-            # the prefill, with a state that is thrown away: the scans'
+            # the cache-free stacks, each block under remat: the scans'
             # autograd Functions run their backward kernels (plain versions
-            # on the CPU), the final states' gradients None
-            stack = ssm.zamba2_prefill if fam == "hybrid" else \
-                rwkv.rwkv6_prefill
-            cache = self.init_cache(*x.shape[:2], cache_dtype=self.dtype)
-            h, _ = stack(params, self.cfg, x, cache, self.pctx)
-            return h, torch.zeros((), dtype=torch.float32,
-                                  device=self.device)
+            # on the CPU)
+            stack = ssm.zamba2_hidden if fam == "hybrid" else \
+                rwkv.rwkv6_hidden
+            return stack(params, self.cfg, x, self.pctx), torch.zeros(
+                (), dtype=torch.float32, device=self.device)
         return T.forward_hidden(params, self.cfg, x, positions, self.pctx)
 
     def loss(self, params, batch: dict):

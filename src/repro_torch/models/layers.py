@@ -12,7 +12,10 @@ Tensor parallelism over the model axis of a ``pctx`` follows the
 reference's layout (``src/repro/parallel/sharding.py::_rule_for``): wq, wk,
 wv, w1, w3 column-parallel, wo, w2 row-parallel and followed by an
 ``all_reduce`` over the model axis; the kv heads are split only when they
-divide over it, and replicated otherwise.  A module's ``shards`` maps each
+divide over it, and replicated otherwise.  A module whose width does not
+divide over the axis (query heads, FFN width; :func:`splits`) is
+replicated: whole on every rank, run through :func:`model_ctx` without
+*f* and without the row-parallel sum.  A module's ``shards`` maps each
 split parameter to its cut of the whole tensor (:func:`cut_segments`):
 ``(dim, parts, index)``, its block, or ``(dim, whole, ((lo, hi), ...))``,
 the column segments it keeps (Mamba2's ``in_proj``, whose output is
@@ -93,12 +96,21 @@ def tp_of(pctx) -> tuple[int, int]:
     return pctx.model_size, pctx.mesh.axis_index(pctx.model_axis)
 
 
-def shard_size(n: int, parts: int, what: str) -> int:
-    """``n`` over ``parts`` model ranks (raises unless it divides)."""
-    if n % parts:
-        raise ValueError(f"{what} {n} does not divide over {parts} model "
-                         f"ranks")
-    return n // parts
+def splits(n: int, parts: int) -> bool:
+    """Whether a module cuts a width of ``n`` over ``parts`` model ranks:
+    where it divides, as the reference's ``_guard`` splits a dim only
+    where the axis divides it.  Otherwise the module is replicated: it
+    keeps the width whole on every model rank, has no ``shards`` entry
+    for it, and its functions run with :func:`model_ctx`'s None, so that
+    its input takes no *f* and its output no row-parallel sum."""
+    return parts > 1 and n % parts == 0
+
+
+def model_ctx(split: bool, pctx):
+    """The context a module's products and sums over the model axis take:
+    ``pctx`` where the module is split (its ``split``), None where it is
+    replicated (every product whole, nothing summed)."""
+    return pctx if split else None
 
 
 def reduce_over_model(x: torch.Tensor, pctx) -> torch.Tensor:
@@ -248,15 +260,18 @@ class Attention(nn.Module):
     """Projections of one GQA attention block: wq [D, H*dh], wk/wv
     [D, G*dh], wo [H*dh, D]; over ``tp = (m, r)`` model ranks, rank r's
     ``heads = H / m`` query heads and ``kv_heads`` = G / m kv heads (all G,
-    replicated, when G does not divide over m)."""
+    replicated, when G does not divide over m).  When H does not divide
+    over m (nor then G) the block is replicated (:func:`splits`): every
+    rank holds all four matrices whole and runs every head."""
 
     def __init__(self, dims: AttnDims, *, device, dtype, tp=(1, 0)):
         super().__init__()
         d, h, g, dh = dims.d_model, dims.n_heads, dims.n_kv, dims.d_head
         m, r = tp
         self.dims, self.tp = dims, (m, r)
-        self.heads = shard_size(h, m, "query heads")
-        self.kv_split = g % m == 0
+        self.split = splits(h, m)
+        self.heads = h // m if self.split else h
+        self.kv_split = self.split and g % m == 0
         self.kv_heads = g // m if self.kv_split else g
         self.wq = parameter((d, self.heads * dh), device=device, dtype=dtype)
         self.wk = parameter((d, self.kv_heads * dh), device=device,
@@ -265,7 +280,7 @@ class Attention(nn.Module):
                             dtype=dtype)
         self.wo = parameter((self.heads * dh, d), device=device, dtype=dtype)
         self.shards = {}
-        if m > 1:
+        if self.split:
             self.shards = {"wq": (1, m, r), "wo": (0, m, r)}
             if self.kv_split:
                 self.shards.update(wk=(1, m, r), wv=(1, m, r))
@@ -282,10 +297,11 @@ class Attention(nn.Module):
 
     def kv_of_heads(self):
         """The kv heads this rank's query heads read, as a slice of its own
-        (``(first, count)``: whole GQA groups) or, when its heads cut a
-        group, one kv head index per query head (a list)."""
+        (``(first, count)``: whole GQA groups; all of them where the rank's
+        kv heads are its own or the block is replicated) or, when its heads
+        cut a group, one kv head index per query head (a list)."""
         m, r = self.tp
-        if self.kv_split:
+        if self.kv_split or not self.split:
             return 0, self.kv_heads
         rep = self.dims.n_heads // self.dims.n_kv
         wanted = [(r * self.heads + i) // rep for i in range(self.heads)]
@@ -320,9 +336,11 @@ def attention(p: Attention, x, positions, dims: AttnDims, *, causal=True,
     """Prefill attention through the flash-attention kernel on grouped kv.
     x: [B, S, D] -> [B, S, D] (and the rotated k, v [B, S, kv_heads, dh]
     of this rank).  Over model ranks each runs its own heads, and the
-    row-parallel ``wo`` products are summed over the model axis."""
+    row-parallel ``wo`` products are summed over the model axis; a
+    replicated block runs every head on every rank, its output whole."""
     b, s, _ = x.shape
     dh = dims.d_head
+    pctx = model_ctx(p.split, pctx)
     x = to_model(x, pctx)
     wk, wv = p.wk, p.wv
     if not p.kv_split:        # whole on every rank, read in part
@@ -414,7 +432,9 @@ def decode_attention_block(p: Attention, x, cache_k, cache_v,
     later position.  The new k, v are written into the caches IN PLACE at
     ``pos`` (the reference returns updated caches from
     ``dynamic_update_slice``), and attention masks over the whole cache by
-    comparison, so every shape is static.  Returns out [B, 1, D]."""
+    comparison, so every shape is static.  A replicated block runs every
+    head on every rank and sums nothing after ``wo``.  Returns out
+    [B, 1, D]."""
     b = x.shape[0]
     dh = dims.d_head
     q = (x @ p.wq).reshape(b, 1, p.heads, dh)
@@ -437,8 +457,8 @@ def decode_attention_block(p: Attention, x, cache_k, cache_v,
         ka, va = _local_kv(p, cache_k, cache_v)
         o = ops.decode_attention(q[:, 0], ka, va, kv_len=pos + 1,
                                  softcap=softcap, window=window)
-    return reduce_over_model(
-        o.reshape(b, 1, p.heads * dh).to(x.dtype) @ p.wo, pctx)
+    return reduce_over_model(o.reshape(b, 1, p.heads * dh).to(x.dtype)
+                             @ p.wo, model_ctx(p.split, pctx))
 
 
 def _decode_seq_sharded(p: Attention, q, k, v, cache_k, cache_v, pos,
@@ -447,18 +467,22 @@ def _decode_seq_sharded(p: Attention, q, k, v, cache_k, cache_v, pos,
     [B, heads, dh], k/v [B, kv_heads, dh] of this rank; the caches hold
     positions [r * L, (r + 1) * L) of every kv head.
 
-    The new token's q (and split k, v) are gathered over the model axis;
+    The new token's q (and split k, v) are gathered over the model axis
+    (a replicated block's are whole on every rank already);
     the rank that owns ``pos`` writes k, v there (every rank writes at its
     clamped index, the others their old values back: no host branch on
     the position); each rank attends over its block; the partial (max,
     sum, o) of the ranks are merged in rank order; and this rank's heads
-    of the result go on to its rows of ``wo``.  Returns [B, heads, dh]."""
+    of the result (a replicated block's: all of them) go on to its rows
+    of ``wo``.  Returns [B, heads, dh]."""
     mesh, axis = pctx.mesh, pctx.model_axis
     m, r = p.tp
     b, hl, dh = q.shape
-    parts = [q] + ([k, v] if p.kv_split else [])
-    got = mesh.all_gather(torch.cat(parts, dim=1), axis)    # [m, B, ., dh]
-    q_all = got[:, :, :hl].transpose(0, 1).reshape(b, m * hl, dh)
+    q_all = q
+    if p.split:
+        parts = [q] + ([k, v] if p.kv_split else [])
+        got = mesh.all_gather(torch.cat(parts, dim=1), axis)  # [m, B, ., dh]
+        q_all = got[:, :, :hl].transpose(0, 1).reshape(b, m * hl, dh)
     if p.kv_split:
         gl = p.kv_heads
         k = got[:, :, hl:hl + gl].transpose(0, 1).reshape(b, m * gl, dh)
@@ -484,7 +508,7 @@ def _decode_seq_sharded(p: Attention, q, k, v, cache_k, cache_v, pos,
         num = num + stats[i, ..., 2:] * w[..., None]
         den = den + stats[i, ..., 1] * w
     o = (num / den[..., None]).to(q.dtype)                # [B, H, dh]
-    return o[:, r * hl:(r + 1) * hl]
+    return o[:, r * hl:(r + 1) * hl] if p.split else o
 
 
 # ---------------------------------------------------------------------------
@@ -529,20 +553,22 @@ def split_tp_allgather(x, pctx, *, axis_name=None):
 
 class MLP(nn.Module):
     """w1/w3 [D, F], w2 [F, D]; over ``tp = (m, r)`` model ranks, rank r's
-    block of F/m columns of w1/w3 and rows of w2."""
+    block of F/m columns of w1/w3 and rows of w2, or all of them where F
+    does not divide over m (replicated, :func:`splits`)."""
 
     def __init__(self, d: int, f: int, gated: bool, *, device, dtype,
                  tp=(1, 0)):
         super().__init__()
         m, r = tp
         self.d, self.f = d, f
-        fl = shard_size(f, m, "FFN width")
+        self.split = splits(f, m)
+        fl = f // m if self.split else f
         self.w1 = parameter((d, fl), device=device, dtype=dtype)
         self.w2 = parameter((fl, d), device=device, dtype=dtype)
         self.w3 = (parameter((d, fl), device=device, dtype=dtype)
                    if gated else None)
         self.shards = ({"w1": (1, m, r), "w3": (1, m, r), "w2": (0, m, r)}
-                       if m > 1 else {})
+                       if self.split else {})
 
     def reset_parameters(self, generator: torch.Generator) -> "MLP":
         sh = self.shards.get
@@ -564,7 +590,10 @@ def init_mlp(d, f, gated: bool, *, generator, device, dtype,
 
 def mlp(p: MLP, x, act_name: str, pctx=None, *, reduce: bool = True):
     """The (gated) MLP; over a model axis summed over it, or with
-    ``reduce=False`` this rank's partial sum (the caller reduces it)."""
+    ``reduce=False`` this rank's partial sum (the caller reduces it).  A
+    replicated MLP's output is whole either way (the caller asks it for
+    no partial: ``transformer._ffn_partial``)."""
+    pctx = model_ctx(p.split, pctx)
     x = to_model(x, pctx)
     hidden = activation(act_name)(x @ p.w1)
     if p.w3 is not None:

@@ -54,7 +54,8 @@ class MoE(nn.Module):
     """Router [D, E] (fp32) and the gated-FFN weights of the experts
     ``[first, first + local)`` of E: w1/w3 [local, D, F], w2 [local, F, D]
     (all E when ``local`` is None); over ``tp = (m, r)`` model ranks, rank
-    r's block of F/m of each expert's hidden width."""
+    r's block of F/m of each expert's hidden width, or all of it where F
+    does not divide over m (replicated, ``layers.splits``)."""
 
     def __init__(self, d: int, f: int, num_experts: int, *, device, dtype,
                  first: int = 0, local: int | None = None, tp=(1, 0)):
@@ -62,14 +63,15 @@ class MoE(nn.Module):
         local = num_experts if local is None else local
         m, r = tp
         self.first, self.d_ff = first, f
-        fl = L.shard_size(f, m, "expert FFN width")
+        self.split = L.splits(f, m)
+        fl = f // m if self.split else f
         self.router = L.parameter((d, num_experts), device=device,
                                   dtype=torch.float32)
         self.w1 = L.parameter((local, d, fl), device=device, dtype=dtype)
         self.w3 = L.parameter((local, d, fl), device=device, dtype=dtype)
         self.w2 = L.parameter((local, fl, d), device=device, dtype=dtype)
         self.shards = ({"w1": (2, m, r), "w3": (2, m, r), "w2": (1, m, r)}
-                       if m > 1 else {})
+                       if self.split else {})
 
     def reset_parameters(self, generator: torch.Generator,
                          layer: int = 0) -> "MoE":
@@ -238,7 +240,7 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
     first pack's ``valid`` input), so it takes no capacity, and its output
     is zero.  ``reduce=False`` under ``moe_deferred_tp_reduce`` returns
     this rank's partial sum over the model axis (the caller reduces it);
-    otherwise the output is whole.
+    otherwise, and for a replicated expert width, the output is whole.
 
     Differentiable in x, the router and the experts: the packs run their
     backward kernel, the exchanges theirs (``parallel.mesh``), and
@@ -283,9 +285,11 @@ def moe_ffn(params: MoE, x, cfg, pctx=None, capacity_factor=None, *,
                 if with_aux and pctx is not None and pctx.dp_size > 1
                 else None)
     # deferred TP reduction: the combine is linear in the expert outputs,
-    # so the row-parallel sum commutes through it, once on [N, D]
-    deferred = pctx is not None and pctx.moe_deferred_tp_reduce
-    expert_ctx = None if deferred else pctx
+    # so the row-parallel sum commutes through it, once on [N, D]; a
+    # replicated expert width leaves no partial sums
+    deferred = (pctx is not None and pctx.moe_deferred_tp_reduce
+                and params.split)
+    expert_ctx = None if deferred else L.model_ctx(params.split, pctx)
 
     rows_valid = (None if valid is None else
                   valid.to(torch.bool).repeat_interleave(s))    # [N]

@@ -1,15 +1,17 @@
-"""RWKV-6 ("Finch") blocks and stack, on the serving path.
+"""RWKV-6 ("Finch") blocks and stack.
 
-Port of ``src/repro/models/rwkv.py`` (prefill and decode with states):
+Port of ``src/repro/models/rwkv.py`` (training, prefill and decode with
+states):
 time-mix (WKV6 with a data-dependent per-channel decay from a rank-
 ``rwkv_decay_lora`` LoRA) and channel-mix (squared ReLU), with static
 token-shift mixing coefficients as in the reference.
 
 Prefill runs the ``rwkv6_scan`` kernel, which also returns the final WKV
-state; decode is the plain one-token update.  Training runs the same
-prefill through the scan's autograd Function, whose backward is the
-``rwkv6_scan_bwd`` kernel (the final state's gradient None: training
-throws the cache away).  Decode state per layer: two
+state; decode is the plain one-token update.  Training runs the blocks
+without a state (:func:`rwkv6_hidden`, each block under
+``transformer._remat``) through the scan's autograd Function, whose
+backward is the ``rwkv6_scan_bwd`` kernel (the final state's gradient
+None).  Decode state per layer: two
 shift registers [B, D] (cache dtype) and the WKV state [B, H, dk, dv]
 (fp32), stacked over layers and updated in place.
 
@@ -26,11 +28,14 @@ model axis before ``sigmoid(xr @ cr)`` gates it; ``cr`` stays whole on
 every rank (D x D, 33.6 MB a layer in bf16 at RWKV6-7B's width), so the
 gate needs no gather.  The residual and the shift registers stay whole;
 ``wkv`` is [B, H / m, dk, dv] (``sharding.cache_specs``), and the scan
-runs at ``B * H / m`` rows.
+runs at ``B * H / m`` rows.  Where the heads (or the channel-mix width) do
+not divide over the model axis, the time mix (or the channel mix) is
+replicated (``layers.splits``): whole on every rank, nothing summed.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -40,12 +45,16 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 
 def _dims(cfg: ModelConfig, m: int = 1):
-    """(heads, head dim), or a rank's heads over ``m`` model ranks."""
+    """(heads, head dim), or a rank's heads over ``m`` model ranks (all
+    of them where they do not divide over ``m``: the time mix is then
+    replicated, ``layers.splits``)."""
     dk = cfg.rwkv_head_dim
-    return L.shard_size(cfg.d_model // dk, m, "RWKV heads"), dk
+    heads = cfg.d_model // dk
+    return (heads // m if L.splits(heads, m) else heads), dk
 
 
 # ---------------------------------------------------------------------------
@@ -64,7 +73,9 @@ class RWKVBlock(nn.Module):
         d, f = cfg.d_model, cfg.d_ff
         m, r = tp
         heads, dk = _dims(cfg, m)
-        dl, fl = heads * dk, L.shard_size(f, m, "channel-mix width")
+        self.split = L.splits(cfg.d_model // dk, m)       # the time mix
+        self.cmix_split = L.splits(f, m)                 # the channel mix
+        dl, fl = heads * dk, (f // m if self.cmix_split else f)
         self.d, self.f = d, f
         lora = cfg.rwkv_decay_lora
         mat = dict(device=device, dtype=dtype)
@@ -87,12 +98,13 @@ class RWKVBlock(nn.Module):
         self.cr = L.parameter((d, d), **mat)
         self.cv = L.parameter((fl, d), **mat)
         self.shards = {}
-        if m > 1:
-            col, row = (1, m, r), (0, m, r)
+        col, row = (1, m, r), (0, m, r)
+        if self.split:
             self.shards = {"wr": col, "wk": col, "wv": col, "wg": col,
-                           "w0": row, "wB": col, "u": row, "wo": row,
-                           "ck": col, "cv": row}
+                           "w0": row, "wB": col, "u": row, "wo": row}
             self.gn.shards = {"w": row}
+        if self.cmix_split:
+            self.shards.update(ck=col, cv=row)
 
     def reset_parameters(self, generator: torch.Generator) -> "RWKVBlock":
         d, f = self.d, self.f
@@ -177,6 +189,7 @@ def time_mix(p: RWKVBlock, x, cfg: ModelConfig, pctx=None):
     d = heads * dk
     xx = _shift_train(x)
     xr, xk, xv, xw, xg = (_mix(x, xx, p.mu[i]) for i in range(5))
+    pctx = L.model_ctx(p.split, pctx)
     r, k, v, g = (L.to_model(t, pctx) @ w for t, w in (
         (xr, p.wr), (xk, p.wk), (xv, p.wv), (xg, p.wg)))
     logw = _decay_logw(p, xw, pctx)                        # [B, S, D] fp32
@@ -214,7 +227,8 @@ def time_mix_decode(p: RWKVBlock, x, shift, wkv, cfg: ModelConfig,
         to_heads(k.float()), to_heads(v.float()), to_heads(logw),
         p.u.repeat(b, 1))
     return (_gated_out(p, y.reshape(b, 1, d).to(x.dtype), g[:, None], cfg,
-                       pctx), x[:, -1], state.reshape(b, heads, dk, dk))
+                       L.model_ctx(p.split, pctx)), x[:, -1],
+            state.reshape(b, heads, dk, dk))
 
 
 def channel_mix(p: RWKVBlock, x, shift=None, pctx=None):
@@ -225,9 +239,31 @@ def channel_mix(p: RWKVBlock, x, shift=None, pctx=None):
     xx = _shift_train(x) if shift is None else shift[:, None].to(x.dtype)
     xk = _mix(x, xx, p.cmu[0])
     xr = _mix(x, xx, p.cmu[1])
+    pctx = L.model_ctx(p.cmix_split, pctx)
     k = torch.square(F.relu(L.to_model(xk, pctx) @ p.ck))
     return (torch.sigmoid(xr @ p.cr)
             * L.reduce_over_model(k @ p.cv, pctx)), x[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# stack: training without a state
+# ---------------------------------------------------------------------------
+
+def _block(lp: RWKVBlock, x, cfg: ModelConfig, pctx):
+    x = x + time_mix(lp, lp.ln1(x), cfg, pctx)[0]
+    return x + channel_mix(lp, lp.ln2(x), pctx=pctx)[0]
+
+
+def rwkv6_hidden(params: RWKV6, cfg: ModelConfig, x, pctx=None):
+    """The stack without a state (training; the reference's
+    ``rwkv6_hidden``): ``ln_in``, each block under ``transformer._remat``,
+    the final norm.  x [B, S, D].  Returns the final-normed hidden
+    [B, S, D]."""
+    x = params.ln_in(x)
+    for lp in params.layers:
+        x = T._remat(functools.partial(_block, lp, cfg=cfg, pctx=pctx),
+                   pctx)(x)
+    return params.final_norm(x)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Mamba2 blocks and the Zamba2 hybrid stack, on the serving path.
+"""Mamba2 blocks and the Zamba2 hybrid stack.
 
-Port of ``src/repro/models/ssm.py`` (prefill and decode with caches).
+Port of ``src/repro/models/ssm.py`` (training, prefill and decode with
+caches).
 Zamba2 interleaves a backbone of Mamba2 (SSD) blocks with ONE shared
 attention+MLP block (``transformer.Block(moe=False)``) applied after every
 ``shared_attn_every`` mamba layers, as long as layers remain: 13 times for
@@ -10,10 +11,11 @@ Mamba2 block: in_proj -> (z gate, x, B, C, dt) -> causal depthwise conv on
 x -> SSD scan (the ``mamba2_scan`` kernel at prefill, the plain one-token
 update at decode) -> z-gated RMSNorm -> out_proj.  B and C are one group
 shared by every head; the kernel reads them per group instead of
-repeating them per head as the reference does.  Training runs the same
-prefill: the scan's autograd Function takes its backward kernel
-(``mamba2_scan_bwd``, which sums dB and dC over each group's heads), and
-the final state's gradient is None, since training throws the cache away.
+repeating them per head as the reference does.  Training runs the
+blocks without a cache (:func:`zamba2_hidden`, each block under
+``transformer._remat``): the scan's autograd Function takes its backward
+kernel (``mamba2_scan_bwd``, which sums dB and dC over each group's
+heads), and the final state's gradient is None.
 
 Decode state per layer: the conv tail [B, conv-1, d_inner] (pre-SiLU x, in
 the cache dtype) and the SSD state [B, heads, ds, dh] (fp32), stacked over
@@ -36,7 +38,9 @@ leaf is the whole gradient, the same bits on every rank.  Its caches are
 ``conv`` [B, K-1, d_inner / m] and ``ssd`` [B, heads / m, ds, dh]
 (``sharding.cache_specs``), and the scan runs at ``B * heads / m`` rows.
 The shared block takes the dense layers' tensor-parallel path, its KV
-cache in ``layers.kv_layout``'s layout.
+cache in ``layers.kv_layout``'s layout.  Where the SSM heads do not divide
+over the model axis the block is replicated (``layers.splits``): every
+rank holds and runs all of it, and nothing is summed.
 """
 
 from __future__ import annotations
@@ -55,9 +59,12 @@ from repro_torch.models import transformer as T
 
 
 def _inner_dims(cfg: ModelConfig, m: int = 1):
-    """(d_inner, SSM heads), or a rank's of them over ``m`` model ranks."""
-    d_inner = cfg.ssm_expand * cfg.d_model
-    heads = L.shard_size(d_inner // cfg.ssm_head_dim, m, "SSM heads")
+    """(d_inner, SSM heads), or a rank's of them over ``m`` model ranks
+    (all of them where the heads do not divide over ``m``: the block is
+    then replicated, ``layers.splits``)."""
+    heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    if L.splits(heads, m):
+        heads //= m
     return heads * cfg.ssm_head_dim, heads
 
 
@@ -95,6 +102,7 @@ class Mamba2Block(nn.Module):
         d = cfg.d_model
         m, r = tp
         self.width = cfg.ssm_expand * d             # all of d_inner
+        self.split = L.splits(self.width // cfg.ssm_head_dim, m)
         d_inner, heads = _inner_dims(cfg, m)
         proj_out = 2 * d_inner + 2 * cfg.ssm_state + heads   # z, x, B, C, dt
         f32 = dict(device=device, dtype=torch.float32)
@@ -108,7 +116,7 @@ class Mamba2Block(nn.Module):
         self.out_norm = L.RMSNorm(d_inner, device=device, eps=cfg.norm_eps)
         self.out_proj = L.parameter((d_inner, d), device=device, dtype=dtype)
         self.shards = {}
-        if m > 1:
+        if self.split:
             self.shards = {
                 "in_proj": (1, 2 * self.width + 2 * cfg.ssm_state
                             + heads * m, in_proj_segments(cfg, m, r)),
@@ -193,8 +201,9 @@ def _in_proj(p: Mamba2Block, h, cfg: ModelConfig, d_inner: int,
     *f* on its output instead: their cotangent is summed over the axis
     before it reaches ``in_proj``'s B/C columns (whose gradient is then
     whole, the same on every rank) and ``h`` (whose cotangent from them is
-    then whole too, so it must not pass ``to_model``'s sum again)."""
-    if L.tp_of(pctx)[0] == 1:
+    then whole too, so it must not pass ``to_model``'s sum again).  A
+    replicated block takes the whole product, as on one rank."""
+    if not p.split:
         return _split_proj(h @ p.in_proj, cfg, d_inner)
     lo, hi = 2 * d_inner, 2 * d_inner + 2 * cfg.ssm_state
     w = p.in_proj
@@ -224,7 +233,9 @@ def _causal_conv(x, w, state=None):
 
 def _gated_out(p: Mamba2Block, y, z, cfg, pctx=None):
     """The z-gated RMSNorm over all of d_inner, then ``out_proj`` (over
-    the model axis: this rank's rows, the products summed)."""
+    the model axis: this rank's rows, the products summed; a replicated
+    block's whole, nothing summed)."""
+    pctx = L.model_ctx(p.split, pctx)
     y = L.rmsnorm_over_model(p.out_norm.w, y * F.silu(z), p.width, pctx,
                              cfg.norm_eps)
     return L.reduce_over_model(y @ p.out_proj, pctx)
@@ -255,6 +266,13 @@ def mamba2_block_prefill(p: Mamba2Block, x, cfg: ModelConfig, pctx=None):
             hf.reshape(b, heads, ds, dh))
 
 
+def mamba2_block(p: Mamba2Block, x, cfg: ModelConfig, pctx=None):
+    """The block's output alone, x [B, S, D] -> [B, S, D] (training: the
+    reference's ``mamba2_block``): :func:`mamba2_block_prefill` with its
+    states dropped."""
+    return mamba2_block_prefill(p, x, cfg, pctx)[0]
+
+
 def mamba2_block_decode(p: Mamba2Block, x, conv_state, ssd_state,
                         cfg: ModelConfig, pctx=None):
     """One token.  x [B, 1, D]; conv_state [B, K-1, d_inner]; ssd_state
@@ -277,6 +295,42 @@ def mamba2_block_decode(p: Mamba2Block, x, conv_state, ssd_state,
     y = y.reshape(b, 1, d_inner).to(x.dtype)
     return (_gated_out(p, y, z, cfg, pctx), conv_tail,
             ssd.reshape(b, heads, ds, dh))
+
+
+# ---------------------------------------------------------------------------
+# the Zamba2 stack: training without a cache
+# ---------------------------------------------------------------------------
+
+def _mamba_residual(lp: Mamba2Block, x, cfg: ModelConfig, pctx):
+    return x + mamba2_block(lp, x, cfg, pctx)
+
+
+def _shared_block(shared: T.Block, x, positions, cfg: ModelConfig, pctx):
+    x = x + T._attn_part(shared, x, positions, cfg, window=None, pctx=pctx)
+    f, _ = T._ffn_part(shared, x, cfg, pctx)
+    return x + f
+
+
+def zamba2_hidden(params: Zamba2, cfg: ModelConfig, x, pctx=None):
+    """The hybrid stack without a cache (training; the reference's
+    ``zamba2_hidden``): each Mamba2 block, and the shared block after each
+    group of ``shared_attn_every`` (:func:`_shared_after`), each call under
+    ``transformer._remat``.  The reference leaves its shared block's calls
+    outside remat; here they are recomputed too, so that no call keeps its
+    activations for the backward.  x [B, S, D].  Returns the final-normed
+    hidden [B, S, D]."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    shared = T._remat(functools.partial(
+        _shared_block, params.shared, positions=positions, cfg=cfg,
+        pctx=pctx), pctx)
+    for li, lp in enumerate(params.mamba):
+        x = T._remat(functools.partial(_mamba_residual, lp, cfg=cfg,
+                                       pctx=pctx), pctx)(x)
+        if _shared_after(li, cfg):
+            x = shared(x)
+    return params.final_norm(x)
 
 
 # ---------------------------------------------------------------------------

@@ -294,10 +294,10 @@ def _ffn_part(lp: Block, x, cfg, pctx=None, *, with_aux=False,
     h = lp.ln2(x)
     whole = reduce or not _ffn_partial(lp, pctx)
     if lp.moe is None:
-        out, aux = L.mlp(lp.mlp, h, cfg.act, pctx, reduce=reduce), None
+        out, aux = L.mlp(lp.mlp, h, cfg.act, pctx, reduce=whole), None
     else:
         out, aux = M.moe_ffn(lp.moe, h, cfg, pctx, with_aux=with_aux,
-                             valid=valid, reduce=reduce)
+                             valid=valid, reduce=whole)
         if lp.shared_mlp is not None:
             out = out + L.mlp(lp.shared_mlp, h, cfg.act, pctx, reduce=whole)
     if lp.pn2 is not None and whole:
@@ -308,8 +308,12 @@ def _ffn_part(lp: Block, x, cfg, pctx=None, *, with_aux=False,
 def _ffn_partial(lp: Block, pctx) -> bool:
     """Whether the FFN half leaves partial sums over the model axis when
     asked not to reduce: a dense MLP, and an MoE layer whose combine runs
-    on the partials (``moe_deferred_tp_reduce``)."""
+    on the partials (``moe_deferred_tp_reduce``), unless one of its parts
+    is replicated (``layers.splits``): its output is whole, so the half
+    reduces the others' itself."""
+    parts = [m for m in (lp.mlp, lp.moe, lp.shared_mlp) if m is not None]
     return (pctx is not None and pctx.model_size > 1
+            and all(m.split for m in parts)
             and (lp.moe is None or pctx.moe_deferred_tp_reduce))
 
 
@@ -460,9 +464,11 @@ def _cross_attention(p: L.Attention, x, enc_out, cfg, pctx=None):
     and no mask, through the attention kernel on [B, heads, len, dh]
     views of the projections (no transposed copies).  Over a model axis
     this rank's heads, from the whole ``enc_out``, and the row-parallel
-    ``wo`` products summed over the axis.  Returns [B, S, D]."""
+    ``wo`` products summed over the axis (a replicated block: every head,
+    nothing summed).  Returns [B, S, D]."""
     b, s, _ = x.shape
     dh = cfg.head_dim
+    pctx = L.model_ctx(p.split, pctx)
     x = L.to_model(x, pctx)
     enc_out = L.to_model(enc_out.to(x.dtype), pctx)
     wk, wv = p.wk, p.wv

@@ -29,7 +29,17 @@ heads and channels as it executes), the port's is reported:
   replicates them);
 - RWKV-6's ``wA`` and ``cr`` stay whole (``rwkv.py``'s docstring); its
   ``w0``, ``u`` and ``gn`` are the rank's heads' (the reference replicates
-  them).
+  them);
+- a module whose split width does not divide over the model axis is
+  replicated (``layers.splits``), where the reference splits any dim the
+  axis divides, mid-head if need be: an attention block whose query
+  heads do not divide (``wq``, ``wk``, ``wv``, ``wo`` whole: Qwen2-VL-2B's
+  12 heads over 16 ranks, whose ``wq`` [1536, 1536] GSPMD cuts into 96
+  columns a rank), an MLP or the experts whose FFN width does not divide
+  (``w1``, ``w3``, ``w2``), a Mamba2 block whose SSM heads do not (all of
+  it), an RWKV-6 time mix whose heads do not (``wr``, ``wk``, ``wv``,
+  ``wg``, ``w0``, ``wB``, ``u``, ``gn``, ``wo``) and a channel mix whose
+  width does not (``ck``, ``cv``).
 
 Batches: the batch dim over the data-parallel ranks when it divides
 (``batch_specs``).  Caches: the reference's ``cache_specs`` rules on the

@@ -119,9 +119,13 @@ class GradSync:
                        if decision is not None else "ring")
         named = dict(params.named_parameters())
         self.expert = {n for n in named if is_expert_weight(n)}
-        self.split = {f"{prefix}.{name}".lstrip(".")
-                      for prefix, sub in params.named_modules()
-                      for name in getattr(sub, "shards", {})} - self.expert
+        split = {f"{prefix}.{name}".lstrip(".")
+                 for prefix, sub in params.named_modules()
+                 for name in getattr(sub, "shards", {})}
+        # the expert leaves whose width is cut over the model axis (the
+        # others are whole on every model rank: ``layers.splits``)
+        self.expert_split = split & self.expert
+        self.split = split - self.expert
         # the column segments of a split leaf that every model rank holds
         # whole (Mamba2's in_proj B/C), as (dim, [(lo, hi)] of the rank's
         # own columns): the norm takes them from the first model rank only
@@ -170,7 +174,9 @@ class GradSync:
         (the replicated leaves on rank 0, the model-axis blocks on the
         first data-parallel rank, of these the segments every model rank
         holds whole on the first model rank only, each expert shard on its
-        first pod), and one ``all_reduce`` over the world sums them."""
+        first pod, and on its first model rank too where the expert width
+        is whole on every model rank), and one ``all_reduce`` over the
+        world sums them."""
         pctx = self.pctx
         first_dp = pctx.dp_index == 0
         first_model = self.mesh.coords[pctx.model_axis] == 0
@@ -178,7 +184,8 @@ class GradSync:
         parts = {}
         for name, g in grads.items():
             if name in self.expert:
-                mine = first_pod
+                mine = first_pod and (first_model or
+                                      name in self.expert_split)
             elif name in self.split:
                 mine = first_dp
                 if mine and not first_model and name in self.whole_parts:

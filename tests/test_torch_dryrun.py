@@ -12,8 +12,9 @@ shape on one rank under ``param_specs`` on (16, 16) and (2, 16, 16), and
   ``cell_is_skipped`` too);
 - each leaf's shape on one rank equal, but for the leaves whose
   model-axis cut the port makes otherwise (``DEVIATIONS``, each with its
-  reason); Qwen2-VL-2B's 12 heads do not divide over 16 model ranks, and
-  the port's dry run records its cells as errors that name the width;
+  reason); Qwen2-VL-2B's 12 heads do not divide over 16 model ranks, so
+  its attention is replicated (``layers.splits``), and its dry-run cells
+  run;
 - the plan fingerprints and decisions equal, the compute priced at the
   reference's TPU peak.
 
@@ -151,11 +152,16 @@ DEVIATIONS = {
     "w0": "an RWKV-6 rank keeps its heads' base decay",
     "u": "an RWKV-6 rank keeps its heads' bonus",
     "gn.w": "an RWKV-6 rank keeps its channels' of the group norm",
+    # an arch's own, as "arch:leaf"
+    "qwen2_vl_2b:attn.wq": "Qwen2-VL's 12 query heads do not divide over "
+                           "16 model ranks: the attention block stays "
+                           "whole on every rank (layers.splits), where "
+                           "GSPMD cuts wq's 1,536 columns mid-head",
+    "qwen2_vl_2b:attn.wo": "the replicated attention block's wo",
 }
 # kv projections replicated where the kv heads do not divide over the
 # model axis (layers.kv_layout)
 KV = ("wk", "wv")
-NO_DIVIDE = {"qwen2_vl_2b": "heads 12 does not divide over 16"}
 
 
 @pytest.fixture(scope="module")
@@ -206,11 +212,12 @@ def _ref_key(name: str, cfg) -> tuple[str, bool]:
     return f"{top}/{rest}", True
 
 
-def _deviates(name: str, cfg) -> bool:
+def _deviates(name: str, cfg, arch: str) -> bool:
     keys = [k for k in name.split(".") if not k.isdigit()]
     if keys[-1] in KV and cfg.n_kv_heads % 16:
         return True
-    return keys[-1] in DEVIATIONS or ".".join(keys[-2:]) in DEVIATIONS
+    return (keys[-1] in DEVIATIONS or ".".join(keys[-2:]) in DEVIATIONS
+            or f"{arch}:{'.'.join(keys[-2:])}" in DEVIATIONS)
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
@@ -218,11 +225,6 @@ def _deviates(name: str, cfg) -> bool:
 def test_leaf_shapes_on_one_rank_equal_param_specs(reference, arch, mesh):
     cfg = cbase.get_config(arch)
     pctx = shape_pctx(multi_pod=MESHES[mesh])
-    if arch in NO_DIVIDE:
-        with pytest.raises(ValueError, match=NO_DIVIDE[arch]):
-            param_module(cfg, device="meta", dtype=torch.bfloat16,
-                         pctx=pctx)
-        return
     params = param_module(cfg, device="meta", dtype=torch.bfloat16,
                           pctx=pctx)
     want = reference["params"][f"{arch}/{mesh}"]
@@ -231,9 +233,9 @@ def test_leaf_shapes_on_one_rank_equal_param_specs(reference, arch, mesh):
         key, stacked = _ref_key(name, cfg)
         ref = want[key][1:] if stacked else want[key]
         seen.add(key)
-        if _deviates(name, cfg):
+        if _deviates(name, cfg, arch):
             if list(shape) != ref:
-                DEVIATED.add(_leaf_key(name))
+                DEVIATED.add(_leaf_key(name, arch))
             continue
         assert list(shape) == ref, (name, shape, ref)
     assert seen == set(want)
@@ -242,10 +244,12 @@ def test_leaf_shapes_on_one_rank_equal_param_specs(reference, arch, mesh):
 DEVIATED: set = set()
 
 
-def _leaf_key(name: str) -> str:
+def _leaf_key(name: str, arch: str) -> str:
     keys = [k for k in name.split(".") if not k.isdigit()]
-    return ".".join(keys[-2:]) if ".".join(keys[-2:]) in DEVIATIONS \
-        else keys[-1]
+    for key in (f"{arch}:{'.'.join(keys[-2:])}", ".".join(keys[-2:])):
+        if key in DEVIATIONS:
+            return key
+    return keys[-1]
 
 
 def test_every_listed_deviation_is_one():
@@ -268,10 +272,18 @@ def test_planner_report_equals_reference(reference, cell):
 
 
 def test_width_not_dividing_is_an_error_naming_it(tmp_path, monkeypatch):
+    """Qwen2-VL-2B's 12 query heads over 16 model ranks: the cell runs
+    (its attention replicated, ``layers.splits``) and saves a result
+    without an ``error``; the name is kept from when such a width
+    raised."""
     monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
     r = dryrun.run_and_save("qwen2_vl_2b", "decode_32k", False, force=True)
-    assert "does not divide over 16" in r["error"]
-    assert (tmp_path / "qwen2_vl_2b__decode_32k__single__mw.json").exists()
+    assert "error" not in r
+    assert r["memory"]["argument_bytes"] > 0
+    saved = json.loads((tmp_path / "qwen2_vl_2b__decode_32k__single__mw.json"
+                        ).read_text())
+    assert "error" not in saved
+    assert saved["collectives"]["by_kind"] == r["collectives"]["by_kind"]
 
 
 # ---------------------------------------------------------------------------
@@ -407,6 +419,9 @@ def test_meta_train_cell_of_each_family(arch):
     # meta launches are counted from their cost records; the wrappers'
     # counters count real launches only
     assert ops.launches() == before
+    # a cell of one rank builds its model without a context, so no block
+    # runs under remat and each forward kernel runs once (remat="full"
+    # doubles them over a model axis: test_torch_train_stacks.py)
     kernel = {"zamba2_7b": "mamba2_scan", "rwkv6_7b": "rwkv6_scan",
               "seamless_m4t_medium": "flash_attention"}[arch]
     assert r["launches"][kernel] == r["launches"][kernel + "_bwd"] > 0
