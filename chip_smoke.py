@@ -108,7 +108,9 @@ Phases; any failure raises and the script exits non-zero:
    else 4 gloo processes on card 0): a reduced DBRX over 2 x 2 against
    one rank on the card (step-0 ce and every synced gradient's cosine);
    DBRX-132B at full width over 2 pods x 2 ep ranks, 4 x 512 tokens
-   (depth 1 and 6 steps on one card, depth 2 and 8 steps on four) under
+   (depth 1 and 6 steps on one card, depth 2 and 8 steps on four), FSDP
+   over the data axis (the reference's default; each rank's weight,
+   gradient and AdamW-state bytes and the steps' peak printed), under
    the plan bound for its train program, the ``grad_sync`` verdict
    running through ``planned_psum``, with every pack backward and
    attention backward of its first step held against their plain
@@ -118,9 +120,9 @@ Phases; any failure raises and the script exits non-zero:
    split-TP MultiWrite gather, against one rank.  Each step's wall of the
    slowest rank split by CUDA events into forward and backward, the
    gradient mean, the clip and the update.  Gates: finite losses, a
-   falling DBRX loss, every replicated leaf bit-identical on every rank,
-   the same grad norm on every rank, exact launch counts, the kernels
-   against their plain versions;
+   falling DBRX loss, every replicated leaf bit-identical on every rank
+   and every FSDP shard on its pod replicas, the same grad norm on every
+   rank, exact launch counts, the kernels against their plain versions;
 12. the decoder-only secondary families at full width and full depth,
    through ``ServeEngine.generate`` as in phase 5, random seeded weights,
    one at a time: Gemma2-9B (2 prompts x 8,160 tokens, so its 4,096-token
@@ -190,9 +192,15 @@ Phases; any failure raises and the script exits non-zero:
    equal to phase 6's measured ``pod_bytes["whole"]`` of that rank (hard);
    (b) DBRX at depth 2 on one rank, training on 4 x 512: the weight,
    gradient and AdamW-state bytes equal to what phase 10's trainer holds
-   (hard), the predicted peak beside phase 10's ``max_memory_allocated``
-   with their ratio (recorded, not gated); (c) one (16, 16) ``mw`` cell of
-   each family, its roofline line (H100 data sheet) printed.
+   (hard), the predicted peak (each storage counted once, split by
+   category) within 10% of phase 10's ``max_memory_allocated`` (hard);
+   (c) one (16, 16) ``mw`` cell of each family, its roofline line (H100
+   data sheet) printed; (d) phase 11's DBRX training under FSDP on a
+   ``ShapeMesh`` of (2, 2, 1), each rank: its weight, gradient and
+   AdamW-state bytes equal to phase 11's rank's (hard), the predicted
+   peak beside its ``max_memory_allocated`` (recorded: four processes
+   share the card).  ``--train-only`` and ``--train-ranks-only`` run (b)
+   and (d) after their phase.
 
 Every phase prints its wall (``phase N took X s``) and the script ends
 with all of them; each spawn of ranks prints where its wall went: spawn
@@ -4154,8 +4162,13 @@ def train_run_lines(label: str, runs: list, failures: list, *,
     sync = (f"gradient mean {first['scheme']} run once after the backward "
             f"(the plan's grad_sync verdict: {first['decision']}; its "
             f"G={first['sync_g']} is not executed), "
-            f"{first['sync_bytes'] / 1e9:.3f} GB of fp32 gradients a rank a "
-            f"step" if first["dp"] > 1 else
+            f"{first['sync_bytes'] / 1e9:.3f} GB of gradients all-reduced "
+            f"a rank a step: "
+            + ", ".join(f"{part} {v / 1e9:.3f}"
+                        for part, v in first["sync_parts"].items())
+            + " GB (the FSDP shards' and experts' over the pods alone; the "
+            f"shards reduce-scattered over data in the backward)"
+            if first["dp"] > 1 else
             "no gradient mean (one data-parallel rank)")
     print(f"  {label}: {sync}; MoE round trip {first['moe']}; peak memory a "
           f"rank "
@@ -4171,12 +4184,27 @@ def train_run_lines(label: str, runs: list, failures: list, *,
         failures.append(f"{label}: grad norms differ over ranks {norms}")
     differ = sorted({n for r in runs for n in first["replicated"]
                      if r["digest"][n] != first["digest"][n]})
-    print(f"  {label}: {len(first['replicated'])} replicated leaves "
-          f"{'bit-identical on every rank' if not differ else 'DIFFER'}"
+    # an FSDP shard is the same bits on the ranks of its (data, model)
+    # coordinate: its pod replicas
+    differ += sorted({n for r in runs for q in runs for n in first["fsdp"]
+                      if (r["coords"]["data"], r["coords"]["model"])
+                      == (q["coords"]["data"], q["coords"]["model"])
+                      and r["digest"][n] != q["digest"][n]})
+    # a segment of an FSDP shard that every model rank holds whole: the
+    # same bits on the ranks of its data coordinate
+    differ += sorted({n for r in runs for q in runs
+                      for n in first["data_replicated"]
+                      if r["coords"]["data"] == q["coords"]["data"]
+                      and r["digest"][n] != q["digest"][n]})
+    fsdp = (f", {len(first['fsdp'])} FSDP shards on their pod replicas"
+            if first["fsdp"] else "")
+    print(f"  {label}: {len(first['replicated'])} replicated leaves on "
+          f"every rank{fsdp} "
+          f"{'bit-identical' if not differ else 'DIFFER'}"
           f"{': ' + ', '.join(differ[:5]) if differ else ''}; grad norm the "
           f"same bits on every rank: {all(n == norms[0] for n in norms)}")
     if differ:
-        failures.append(f"{label}: replicated leaves differ: {differ[:5]}")
+        failures.append(f"{label}: replicas differ: {differ[:5]}")
     checks = [c for r in runs for c in r.get("kernel_checks", [])]
     for name in ("dispatch_pack_bwd", "flash_attention_bwd",
                  "mamba2_scan_bwd", "rwkv6_scan_bwd"):
@@ -4311,9 +4339,24 @@ def train_ranks_phase() -> dict:
     # DBRX at full width
     runs_ = [r["runs"]["dbrx"] for r in results]
     print(f"  DBRX-132B over 2 x 2, depth {depth}, {steps} steps of "
-          f"{TRAIN_RANKS_BATCH} x {seq} tokens, {where}; the "
-          f"ranks ran {spawn_s}")
+          f"{TRAIN_RANKS_BATCH} x {seq} tokens, {where}, FSDP over the "
+          f"data axis ({len(runs_[0]['fsdp'])} leaves a rank cut in 2); "
+          f"the ranks ran {spawn_s}")
     counts = train_run_lines("dbrx", runs_, failures, where=where)
+    for r in results:
+        run = r["runs"]["dbrx"]
+        state = run["state_bytes"]
+        print(f"  dbrx rank {r['rank']} {r['coords']}: weights "
+              f"{state['weights'] / 1e9:.4f} GB, gradients "
+              f"{state['grads'] / 1e9:.4f} GB, AdamW state "
+              f"{state['opt_state'] / 1e9:.4f} GB; max_memory_allocated "
+              f"of the steps {run['step_peak_bytes'] / 1e9:.3f} GB, of the "
+              f"run {run['peak_gb']:.3f} GB")
+    MEASURED["phase 11"] = dict(
+        cfg=cfg, seq=seq, mesh=(2, 2, 1),
+        ranks=[dict(r["runs"]["dbrx"]["state_bytes"],
+                    peak=r["runs"]["dbrx"]["step_peak_bytes"])
+               for r in sorted(results, key=lambda r: r["rank"])])
     hist = runs_[0]["history"]
     head = sum(h["loss"] for h in hist[:3]) / 3
     tail = sum(h["loss"] for h in hist[-3:]) / 3
@@ -5001,9 +5044,13 @@ DRYRUN_CELLS = (("mistral_nemo_12b", "decode_32k"), ("dbrx_132b", "decode_32k"),
                 ("qwen2_vl_2b", "decode_32k"))
 
 
-def dryrun_phase() -> None:
+PEAK_RATIO = (0.9, 1.1)          # (b): predicted over measured peak
+
+
+def dryrun_phase(parts: str = "abcd") -> None:
     """The dry run (``repro_torch.launch.dryrun``: the model code on meta
-    tensors, on the host) held to what the card measured.
+    tensors, on the host) held to what the card measured; ``parts``: which
+    of (a)-(d) run (each needs its phase's measurements).
 
     (a) DBRX at phase 6's width, depth and capacity factor on a
     ``ShapeMesh`` of (2, 2, 1), phase 6's 4 x 512 prefill, the MultiWrite
@@ -5015,10 +5062,16 @@ def dryrun_phase() -> None:
     depth on one rank, training on phase 10's batch without recompute:
     the weight, gradient and AdamW-state bytes equal to phase 10's
     trainer's (its live state, and each gradient as autograd made it),
-    hard; the predicted peak printed beside phase 10's
-    ``max_memory_allocated`` with their ratio, recorded.  (c) One
-    (16, 16) cell of each family (``DRYRUN_CELLS``), its memory, FLOPs,
-    collective bytes and roofline line (the H100's data sheet)."""
+    hard; the predicted peak (each storage counted once) within
+    ``PEAK_RATIO`` of phase 10's ``max_memory_allocated``, hard, printed
+    split by category.  (c) One (16, 16) cell of each family
+    (``DRYRUN_CELLS``), its memory, FLOPs, collective bytes and roofline
+    line (the H100's data sheet).  (d) Phase 11's DBRX training (FSDP over
+    the data axis) on a ``ShapeMesh`` of its (2, 2, 1), each rank in turn:
+    the weight, gradient and AdamW-state bytes equal to that rank's in
+    phase 11, hard; the predicted peak printed beside the rank's
+    ``max_memory_allocated`` of its steps with their ratio, recorded (four
+    processes share one card there)."""
     import dataclasses
 
     from repro_torch.configs.base import ShapeSpec, get_config
@@ -5031,7 +5084,8 @@ def dryrun_phase() -> None:
                               moe_capacity=RANKS_CF)
     shape = ShapeSpec("phase 6", PROMPT_LEN, PROMPTS, "prefill")
     pods = RANKS[0]
-    for pair, variant in zip(MEASURED["pod bytes"], ("mw", "baseline")):
+    pairs = MEASURED["pod bytes"] if "a" in parts else {}
+    for pair, variant in zip(pairs, ("mw", "baseline")):
         measured = MEASURED["pod bytes"][pair]
         for rank in range(RANKS[0] * RANKS[1]):
             t0 = time.monotonic()
@@ -5055,31 +5109,56 @@ def dryrun_phase() -> None:
                 failures.append(f"(a) {pair} rank {rank}: {crossing} != "
                                 f"{measured[rank]}")
     # (b)
-    ten = MEASURED["phase 10"]
-    shape = ShapeSpec("phase 10", TRAIN_SEQ, TRAIN_BATCH, "train")
-    t0 = time.monotonic()
-    r = dryrun.run_cell("dbrx_132b", shape, multi_pod=False,
-                        mesh_shape=(1, 1, 1), config=ten["cfg"],
-                        knobs={"remat": "none"}, verbose=False, fabrics=())
-    args = r["memory"]["arguments"]
-    for part in ("weights", "grads", "opt_state"):
-        same = args[part] == ten[part]
-        print(f"  (b) {part}: the dry run {args[part]} bytes, phase 10's "
-              f"trainer {ten[part]}: {'equal' if same else 'DIFFER'}")
-        if not same:
-            failures.append(f"(b) {part}: {args[part]} != {ten[part]}")
-    peak = r["memory"]["peak_live_bytes"]
-    print(f"  (b) DBRX-132B at depth {ten['cfg'].n_layers}, one rank, "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: predicted peak "
-          f"{peak / 1e9:.3f} GB (arguments {r['memory']['argument_bytes'] / 1e9:.3f}"
-          f" + live tensors {r['memory']['temp_bytes'] / 1e9:.3f}), phase "
-          f"10's max_memory_allocated {ten['peak'] / 1e9:.3f} GB: ratio "
-          f"{peak / ten['peak']:.4f} (recorded, not gated); "
-          f"{r['cost']['flops_per_device']:.4e} FLOPs, "
-          f"{r['cost']['bytes_per_device']:.4e} bytes a step "
-          f"({time.monotonic() - t0:.1f} s on the host)")
+    if "b" in parts:
+        ten = MEASURED["phase 10"]
+        shape = ShapeSpec("phase 10", TRAIN_SEQ, TRAIN_BATCH, "train")
+        t0 = time.monotonic()
+        r = dryrun.run_cell("dbrx_132b", shape, multi_pod=False,
+                            mesh_shape=(1, 1, 1), config=ten["cfg"],
+                            knobs={"remat": "none"}, verbose=False,
+                            fabrics=())
+        failures += _state_bytes("(b)", r, ten, "phase 10's trainer")
+        peak = r["memory"]["peak_live_bytes"]
+        ratio = peak / ten["peak"]
+        held = PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]
+        print(f"  (b) DBRX-132B at depth {ten['cfg'].n_layers}, one rank, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: predicted peak "
+              f"{peak / 1e9:.3f} GB ({_peak_parts(r)}), phase 10's "
+              f"max_memory_allocated {ten['peak'] / 1e9:.3f} GB: ratio "
+              f"{ratio:.4f} ({'within' if held else 'OUTSIDE'} "
+              f"{PEAK_RATIO}, hard); "
+              f"{r['cost']['flops_per_device']:.4e} FLOPs, "
+              f"{r['cost']['bytes_per_device']:.4e} bytes a step "
+              f"({time.monotonic() - t0:.1f} s on the host)")
+        if not held:
+            failures.append(f"(b) peak ratio {ratio:.4f} outside "
+                            f"{PEAK_RATIO}")
+    # (d)
+    if "d" in parts:
+        eleven = MEASURED["phase 11"]
+        shape = ShapeSpec("phase 11", eleven["seq"], TRAIN_RANKS_BATCH,
+                          "train")
+        for rank, got in enumerate(eleven["ranks"]):
+            t0 = time.monotonic()
+            r = dryrun.run_cell("dbrx_132b", shape, multi_pod=True,
+                                rank=rank, mesh_shape=eleven["mesh"],
+                                config=eleven["cfg"], variant="auto",
+                                knobs={"remat": "none"}, verbose=False,
+                                fabrics=())
+            failures += _state_bytes(f"(d) rank {rank}", r, got,
+                                     "phase 11's rank")
+            peak = r["memory"]["peak_live_bytes"]
+            fsdp = r["collectives"]["fsdp"]
+            print(f"  (d) DBRX-132B at depth {eleven['cfg'].n_layers} over "
+                  f"{eleven['mesh']}, FSDP, rank {rank}: predicted peak "
+                  f"{peak / 1e9:.3f} GB ({_peak_parts(r)}), phase 11's "
+                  f"max_memory_allocated of the steps "
+                  f"{got['peak'] / 1e9:.3f} GB: ratio "
+                  f"{peak / got['peak']:.4f} (recorded, not gated: four "
+                  f"processes share the card); FSDP wire bytes a step "
+                  f"{fsdp} ({time.monotonic() - t0:.1f} s on the host)")
     # (c)
-    for arch, shape_name in DRYRUN_CELLS:
+    for arch, shape_name in DRYRUN_CELLS if "c" in parts else ():
         t0 = time.monotonic()
         r = dryrun.run_cell(arch, shape_name, multi_pod=False,
                             verbose=False)
@@ -5097,6 +5176,26 @@ def dryrun_phase() -> None:
               f"({time.monotonic() - t0:.1f} s on the host)")
     if failures:
         raise AssertionError(f"phase 16: {failures}")
+
+
+def _state_bytes(label: str, r: dict, measured: dict, where: str) -> list:
+    """Print a dry-run train cell's weight, gradient and AdamW-state bytes
+    beside ``measured``'s; the failures where they differ."""
+    args, failures = r["memory"]["arguments"], []
+    for part in ("weights", "grads", "opt_state"):
+        same = args[part] == measured[part]
+        print(f"  {label} {part}: the dry run {args[part]} bytes, {where} "
+              f"{measured[part]}: {'equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"{label} {part}: {args[part]} != "
+                            f"{measured[part]}")
+    return failures
+
+
+def _peak_parts(r: dict) -> str:
+    """A dry-run cell's live bytes at its peak by category, in GB."""
+    return ", ".join(f"{part} {v / 1e9:.3f}"
+                     for part, v in r["memory"]["peak_parts"].items())
 
 
 # ---------------------------------------------------------------------------
@@ -5370,9 +5469,10 @@ def main(argv=None) -> None:
     ap.add_argument("--calibrate-only", action="store_true",
                     help="phases 1, 2 and 9 only (on four cards: nccl)")
     ap.add_argument("--train-only", action="store_true",
-                    help="phases 1, 2 and 10 only")
+                    help="phases 1, 2, 10 and 16 (b) only")
     ap.add_argument("--train-ranks-only", action="store_true",
-                    help="phases 1, 2 and 11 only (on four cards: nccl)")
+                    help="phases 1, 2, 11 and 16 (d) only (on four cards: "
+                         "nccl)")
     ap.add_argument("--families-only", action="store_true",
                     help="phases 1, 2 and 12 only")
     ap.add_argument("--encdec-only", action="store_true",
@@ -5443,6 +5543,8 @@ def main(argv=None) -> None:
     elif args.train_only:
         with clock(10, train_title):
             rows, counts = train_phase()
+        with clock(16, "phase 16 (b): the dry run against phase 10"):
+            dryrun_phase("b")
         for name, row in rows.items():
             row["launches"] = counts[name]
             row["launches_by_path"] = {"dbrx_132b_train": counts[name]}
@@ -5451,6 +5553,8 @@ def main(argv=None) -> None:
             counts = train_ranks_phase()
             print(f"  launches of phase 11's trained runs, summed over "
                   f"ranks: {counts}")
+        with clock(16, "phase 16 (d): the dry run against phase 11"):
+            dryrun_phase("d")
     elif args.tp_families_only:
         with clock(14, tp_families_title):
             counts = tp_families_phase()

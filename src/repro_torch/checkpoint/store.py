@@ -24,10 +24,11 @@ one checkpoint, as the reference's:
   a rank mesh) every leaf is stored at its global logical shape, as the
   reference stores its arrays: rank 0 writes each leaf that the ranks
   hold in blocks (experts over the EP ranks, tensor-parallel blocks over
-  the model axis) gathered from every rank, one leaf at a time, and a
-  restore cuts each rank's block out of the stored leaf.  So a checkpoint
-  written over 2 x 2 ranks restores onto one rank and one written on one
-  rank restores over 2 x 2.
+  the model axis, FSDP shards over the data axis) gathered from every
+  rank, one leaf at a time, and a restore cuts each rank's block out of
+  the stored leaf.  So a checkpoint written over 2 x 2 ranks restores onto
+  one rank and one written on one rank restores over 2 x 2, and one
+  written under FSDP restores under ``nofsdp`` and the reverse.
 
 numpy has no bfloat16: a bf16 leaf is stored as its raw bytes viewed as
 ``uint16``, with ``bfloat16`` as its dtype in the manifest, so bf16
@@ -36,8 +37,7 @@ streams the leaves one at a time from the device into the archive (its
 host memory is one leaf), and :meth:`restore_into` copies each leaf into
 the tensors of a live tree in place, so a model whose state fills the card
 can be saved and restored.  There is one shard file, written by one
-process (rank 0 over ranks); the reference's multi-host writers and the
-FSDP layout (ROADMAP.md queue 1 item 10) wait.
+process (rank 0 over ranks); the reference's multi-host writers wait.
 """
 
 from __future__ import annotations
@@ -194,10 +194,12 @@ class ShardLayout:
     """Where one rank's leaves lie in the global ones: for each parameter
     name, the dims cut over the rank mesh as ``(dim, axes, parts, index)``
     (the experts of an MoE layer over its EP axes along dim 0; a
-    tensor-parallel block, a module's ``shards``, over the model axis), or
-    as ``(dim, axes, whole, segments)`` for a ``shards`` entry of column
-    segments (Mamba2's ``in_proj``), where ``segments`` gives the
-    segments of each model rank (the module's ``segments_of``).  A leaf of
+    tensor-parallel block, a module's ``shards``, over the model axis; an
+    FSDP shard, a module's ``fsdp_dims``, over the data axis, cut from the
+    model-axis block), or as ``(dim, axes, whole, segments)`` for a
+    ``shards`` entry of column segments (Mamba2's ``in_proj``), where
+    ``segments`` gives the segments of each model rank (the module's
+    ``segments_of``).  A leaf of
     a checkpointed tree is cut as the parameter its path names
     (``params/<name>``, ``opt/m/<name>``); every other leaf is whole."""
 
@@ -216,6 +218,13 @@ class ShardLayout:
                 self.cuts.setdefault(f"{prefix}.{name}".lstrip("."), []
                                      ).append((dim, (pctx.model_axis,),
                                                parts, index))
+        for prefix, sub in params.named_modules():
+            for name, dim in getattr(sub, "fsdp_dims", {}).items():
+                self.cuts.setdefault(f"{prefix}.{name}".lstrip("."), []
+                                     ).append((dim, (pctx.data_axis,),
+                                               pctx.data_size,
+                                               pctx.mesh.axis_index(
+                                                   pctx.data_axis)))
         num_experts = M.num_experts(params)
         if num_experts:
             axes = M.expert_axes(pctx, num_experts)

@@ -41,7 +41,6 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.parallel import mesh as mesh_ops
@@ -775,9 +774,7 @@ def planned_psum(g: torch.Tensor, ranks, axis, *, num_servers: int = 1,
         scheme = decision.shard_map_kwargs.get("reduce_scheme", "ring")
 
     def ring():
-        out = g.clone()
-        dist.all_reduce(out, group=ranks.group(*names))
-        return out / r
+        return mesh_ops._all_reduce_(g.clone(), ranks.group(*names)) / r
 
     if scheme == "ring":
         return ring()

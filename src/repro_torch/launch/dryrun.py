@@ -11,10 +11,15 @@ storage, nothing allocated on any device.
     :class:`~repro_torch.parallel.mesh.ShapeMesh` (the production mesh
     seen from one rank, no process group), so each module holds the
     rank's cut as it does when it runs;
-  * the cell's function runs: for a train cell the loss, its backward and
-    the AdamW update (``runtime.trainer.make_train_step``, the optimizer
-    state made on ``meta``); for a prefill cell ``Model.prefill`` into a
-    cache of the prompt's length; for a decode cell one
+  * the cell's function runs: for a train cell the training step of
+    ``launch.train.build_training``: the rank's parameters FSDP-sharded
+    over ``data`` (``parallel.sharding.shard_fsdp``, ZeRO-3 under the
+    context's ``fsdp``: each data-cut leaf gathered whenever it is read,
+    its gradient reduce-scattered), the loss, its backward, the gradient
+    sync (``runtime.trainer.GradSync``) and the AdamW update
+    (``runtime.trainer.make_train_step``, the optimizer state made on
+    ``meta`` at the shards' shapes); for a prefill cell ``Model.prefill``
+    into a cache of the prompt's length; for a decode cell one
     ``Model.decode_step`` over a cache of the shape's length;
   * under four counters:
       - FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` without its
@@ -22,16 +27,17 @@ storage, nothing allocated on any device.
         wrappers' meta branches, ``kernels/cost.py``);
       - HBM bytes: every op's inputs and outputs (the traffic of eager
         PyTorch; allocations and views move nothing), plus the kernels';
-      - peak live bytes of the meta tensors made in the cell, on top of
-        the argument bytes (weights, gradients, optimizer state, batch,
-        cache);
+      - the peak of the live bytes, each storage counted once: the
+        arguments (weights, optimizer state, batch, cache: the storages
+        that exist before the step, which an in-place write or an
+        ``out=`` op does not count again) plus the storages the step makes
+        (:class:`Traffic`: the gradients as autograd makes them, the
+        activations saved for the backward, the gathered FSDP weights, and
+        transients), split by those categories at the peak;
       - collective wire bytes by mesh axis and by kind, from the
-        ``ShapeMesh``'s log of every exchange the model ran.
-  * FSDP (ZeRO-3 over the data axis, the context's ``fsdp``) is not
-    executed by the port: its weight all-gathers and gradient
-    reduce-scatters, and the gradient sync over the data-parallel ranks,
-    are computed from ``parallel/sharding.py``'s per-rank shapes and
-    reported apart (``fsdp_analytic``), and enter the collective term.
+        ``ShapeMesh``'s log of every exchange the step ran: the model's,
+        the FSDP gathers and reduce-scatters (``collectives["fsdp"]``) and
+        the gradient sync's (``collectives["grad_sync"]``).
   * the roofline's three terms use the H100's data-sheet figures (H100
     SXM5 80GB at 700 W, labelled in every result): dense bf16 989.4
     TFLOP/s, HBM3 3.35 TB/s, NVLink 450 GB/s a direction inside a node of
@@ -56,6 +62,7 @@ Usage (on the CPU; nothing is allocated):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -360,28 +367,97 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+_ALIASING: dict = {}
+
+
+def _may_alias(func) -> bool:
+    """Whether ``func`` may return a storage it was given: a view, an
+    in-place or ``out=`` op (its schema marks the alias), or
+    ``_unsafe_view``, whose schema does not.  Any other op returns new
+    storages."""
+    if func not in _ALIASING:
+        _ALIASING[func] = (func.is_view or func._schema.is_mutable or any(
+            r.alias_info is not None for r in func._schema.returns)
+            or func.overloadpacket.__name__ == "_unsafe_view")
+    return _ALIASING[func]
+
+
+PEAK_PARTS = ("gradients", "saved activations", "gathered weights",
+              "transients")
+
+
 class Traffic(TorchDispatchMode):
     """Every op's input and output bytes (views and allocations aside),
     and the peak of the bytes of the storages made inside, alive at once:
     each storage is held by a weak reference and counted until it dies.
-    The dead are swept out, and the peak read, whenever the count has
-    grown by 1/64 of the peak since the last reading (a sweep every op
+    A storage is made inside when an op returns it without taking it as an
+    input: a view, an in-place op or an ``out=`` op returns a storage it
+    was given, so a storage that existed when the mode started (a weight,
+    an optimizer moment, the cache) is never counted, however often it is
+    written.  The dead are swept out, and the peak read, whenever the count
+    has grown by 1/64 of the peak since the last reading (a sweep every op
     would cost the square of the live storages), so the peak may be short
-    by that much.  An indexing op is counted by the rows it reads or
-    writes, not by the whole tensor it indexes."""
+    by that much.  At each new peak the live bytes are split by
+    ``PEAK_PARTS`` (:attr:`at_peak`): the storages of the ``.grad`` of
+    ``params``, those :meth:`tag` named (saved for the backward, gathered
+    FSDP weights), and the rest; with ``makers`` also by the op and the
+    model code that made each storage (:attr:`makers_at_peak`: "op @ the
+    innermost three frames of the port's code", bytes).  An indexing op is
+    counted by the rows it reads or writes, not by the whole tensor it
+    indexes."""
 
-    def __init__(self):
+    def __init__(self, params=(), makers: bool = False):
         super().__init__()
         self.bytes = 0
         self.ops = 0
         self.now = 0
         self.peak = 0
+        self.at_peak = dict.fromkeys(PEAK_PARTS, 0)
+        self.makers_at_peak: dict = {}
+        self.params = list(params)
         self._next = 0
         self._live: dict = {}
+        self._tags: dict = {}
+        self._makers = {} if makers else None
+
+    def tag(self, t: torch.Tensor, part: str) -> None:
+        """Count ``t``'s storage as ``part`` at the peak, if it was made
+        inside and has no part yet."""
+        key = t.untyped_storage()._cdata
+        if key in self._live:
+            self._tags.setdefault(key, part)
+
+    def _forget(self, key) -> None:
+        self.now -= self._live.pop(key)[1]
+        self._tags.pop(key, None)
+        if self._makers is not None:
+            self._makers.pop(key, None)
 
     def _sweep(self) -> None:
         for key in [k for k, (ref, _) in self._live.items() if ref.expired()]:
-            self.now -= self._live.pop(key)[1]
+            self._forget(key)
+
+    @staticmethod
+    def _maker(name: str) -> str:
+        """``name`` @ the innermost three frames of the port's model code
+        on the stack."""
+        frames, f = [], sys._getframe(2)
+        while f is not None and len(frames) < 3:
+            path = f.f_code.co_filename
+            if "repro_torch" in path and not path.endswith("dryrun.py"):
+                frames.append(f"{f.f_code.co_name}:{f.f_lineno}")
+            f = f.f_back
+        return f"{name} @ {' < '.join(frames)}"
+
+    def _split(self) -> dict:
+        out = dict.fromkeys(PEAK_PARTS, 0)
+        grads = {p.grad.untyped_storage()._cdata for p in self.params
+                 if p.grad is not None}
+        for key, (_, nbytes) in self._live.items():
+            part = ("gradients" if key in grads
+                    else self._tags.get(key, "transients"))
+            out[part] += nbytes
+        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -403,17 +479,42 @@ class Traffic(TorchDispatchMode):
                     (_nbytes(t) for t in src), default=0)
             else:
                 self.bytes += sum(_nbytes(t) for t in ins + outs)
+        given = None
         for t in outs:
             st = t.untyped_storage()
-            if st._cdata in self._live:
+            key = st._cdata
+            seen = self._live.get(key)
+            if seen is not None and not seen[0].expired():
                 continue
-            self._live[st._cdata] = (StorageWeakRef(st), st.nbytes())
+            if given is None:
+                given = ({a.untyped_storage()._cdata
+                          for a in tree_leaves((args, kwargs))
+                          if isinstance(a, torch.Tensor)}
+                         if _may_alias(func) else ())
+            if key in given:
+                continue                   # a view, in place, or out=
+            if seen is not None:           # a dead storage's address
+                self._forget(key)
+            self._live[key] = (StorageWeakRef(st), st.nbytes())
             self.now += st.nbytes()
+            if self._makers is not None:
+                self._makers[key] = self._maker(name)
             if self.now > self._next:
                 self._sweep()
-                self.peak = max(self.peak, self.now)
-                self._next = max(self.peak, self.now) + self.peak // 64
+                if self.now > self.peak:
+                    self.peak = self.now
+                    self.at_peak = self._split()
+                    if self._makers is not None:
+                        self.makers_at_peak = self._by_maker()
+                self._next = self.peak + self.peak // 64
         return out
+
+    def _by_maker(self) -> dict:
+        out: dict = {}
+        for key, (_, nbytes) in self._live.items():
+            maker = self._makers.get(key, "?")
+            out[maker] = out.get(maker, 0) + nbytes
+        return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 class _Global:
@@ -451,77 +552,113 @@ def _meta_batch(cfg, shape: ShapeSpec, pctx) -> dict:
                 batch_shapes(cfg, shape), pctx).items()}
 
 
-def _fsdp_analytic(params, cfg, pctx, kind: str) -> dict:
-    """The collectives FSDP and the data-parallel gradient sync would run,
-    which the port does not execute: each data-cut leaf's weight
-    all-gather over ``data`` (forward), and in a train cell its
-    gradient's reduce-scatter over ``data``; every other gradient's
-    all-reduce over the data-parallel ranks, and with pods the data-cut
-    leaves' all-reduce over ``pod``.  Wire bytes by the factors of
-    ``parallel.mesh``'s docstring."""
-    from repro_torch.models.transformer import is_expert_weight
-    data, pods = pctx.data_size, pctx.num_pods
-    dp = data * pods
-    parts = sharding.fsdp_parts(params, cfg, pctx) if pctx.fsdp else {}
-    by_axis, by_kind = {}, {}
-
-    def add(axis, kind_, wire):
-        if wire:
-            by_axis[axis] = by_axis.get(axis, 0) + int(wire)
-            by_kind[kind_] = by_kind.get(kind_, 0) + int(wire)
-    gather = sum(whole * (data - 1) // data for _, whole in parts.values())
-    add("data", "all-gather", gather)
-    if kind == "train":
-        add("data", "reduce-scatter", sum(
-            held * (data - 1) for held, _ in parts.values()))
-        add("pod", "all-reduce", sum(
-            2 * held * (pods - 1) // pods for held, _ in parts.values()))
-        whole = sum(p.numel() * p.element_size()
-                    for n, p in params.named_parameters()
-                    if n not in parts and not is_expert_weight(n))
-        add("pod" if pods > 1 else "data", "all-reduce",
-            2 * whole * (dp - 1) // dp)
-    return {"by_axis": by_axis, "by_kind": by_kind,
-            "leaves": len(parts),
-            "weight_gather_bytes": gather}
-
-
 def _run(model, params, cfg, shape: ShapeSpec, pctx, opt_dtype):
     """The cell's function on the meta device; returns (kind, the argument
-    bytes by part, the output bytes)."""
+    bytes by part, the output bytes, the function, the parameters whose
+    gradients it makes, its gradient sync or None).  A train cell over
+    ranks shards the parameters
+    as ``launch.train.build_training`` does (FSDP under the context's
+    ``fsdp``) and syncs the gradients by its ``GradSync``; its
+    ``arguments["grads"]`` is the gradients' bytes, which the step makes
+    (the peak counts them as they are made, not as an argument)."""
+    from repro_torch.launch.train import grad_sync_for
     from repro_torch.optim import adamw
     from repro_torch.runtime.trainer import (TrainState, make_train_step,
                                              trainable)
     batch = _meta_batch(cfg, shape, pctx)
     rows = next(iter(batch.values())).shape[0]
-    args = {"weights": _tree_bytes(list(params.parameters())),
-            "batch": _tree_bytes(batch)}
     if shape.kind == "train":
+        sync = None
+        if model.pctx is not None:
+            params = sharding.shard_fsdp(params, cfg, pctx)
+            tokens = math.prod(next(iter(batch.values())).shape[:2])
+            sync = _Marked(grad_sync_for(cfg, pctx, params, tokens)[1],
+                           pctx.mesh)
         named = trainable(params)
         opt = adamw(lr=1e-4, opt_dtype=opt_dtype)
         state = TrainState(params, opt.init(named), 0)
-        args["opt_state"] = _tree_bytes(state.opt_state)
-        args["grads"] = args["weights"]
-        return "train", args, 0, lambda: make_train_step(model, opt)(
-            state, batch)
+        args = {"weights": _tree_bytes(list(params.parameters())),
+                "batch": _tree_bytes(batch),
+                "opt_state": _tree_bytes(state.opt_state),
+                "grads": _tree_bytes(list(named.values()))}
+        step = make_train_step(model, opt, grad_sync=sync)
+        return ("train", args, 0, lambda: step(state, batch),
+                list(named.values()), sync)
+    args = {"weights": _tree_bytes(list(params.parameters())),
+            "batch": _tree_bytes(batch)}
     cache_len = shape.seq_len
     cache = model.init_cache(rows, cache_len)
     args["cache"] = _tree_bytes(cache)
     fn = model.prefill if shape.kind == "prefill" else model.decode_step
-    return shape.kind, args, args["cache"], lambda: fn(params, batch, cache)
+    return (shape.kind, args, args["cache"],
+            lambda: fn(params, batch, cache), [], None)
+
+
+@contextlib.contextmanager
+def _watching_gathers(seen):
+    """Show ``seen`` each FSDP leaf ``sharding.gather_leaf`` gathers whole
+    while the block runs (the dry run counts their bytes apart)."""
+    real = sharding.gather_leaf
+
+    def watched(shard, dim, pctx):
+        whole = real(shard, dim, pctx)
+        seen(whole)
+        return whole
+    sharding.gather_leaf = watched
+    try:
+        yield
+    finally:
+        sharding.gather_leaf = real
+
+
+class _Marked:
+    """A ``GradSync`` that notes where the mesh's log stood when the
+    gradient sync began, so the exchanges of the forward and backward and
+    those of the sync are told apart."""
+
+    def __init__(self, sync, mesh):
+        self.sync, self.mesh, self.at = sync, mesh, None
+
+    def __call__(self, grads):
+        self.at = len(self.mesh.log)
+        return self.sync(grads)
+
+    def __getattr__(self, name):
+        return getattr(self.sync, name)
+
+
+def _collective_parts(log: list, sync_at, regather: int) -> dict:
+    """The wire bytes of the FSDP exchanges (the data axis's all-gathers
+    and reduce-scatters before the gradient sync: the weights gathered in
+    the forward, gathered again by a block's recompute in the backward,
+    ``regather``, and the gradients reduce-scattered) and of the gradient
+    sync by axis."""
+    step = log if sync_at is None else log[:sync_at]
+    fsdp = {"all-gather": -regather, "regather": regather,
+            "reduce-scatter": 0}
+    for kind, axis, wire, _, _ in step:
+        if axis == "data" and kind in fsdp:
+            fsdp[kind] += wire
+    sync: dict = {}
+    for kind, axis, wire, _, _ in ([] if sync_at is None else log[sync_at:]):
+        sync[axis] = sync.get(axis, 0) + wire
+    return {"fsdp": fsdp, "grad_sync": sync}
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              variant: str = "mw", verbose: bool = True,
              fabrics=DEFAULT_REPORT_FABRICS, calibration=None,
              budget_s=None, rank: int = 0, mesh_shape=None, config=None,
-             knobs=None, peak_flops: float = PEAK_FLOPS) -> dict:
+             knobs=None, peak_flops: float = PEAK_FLOPS,
+             makers: int = 0) -> dict:
     """One cell: the rank ``rank`` of the production mesh (or of
     ``mesh_shape``) runs the cell's function on ``meta`` (``shape_name``:
     a name of ``SHAPES`` or a ``ShapeSpec``); ``config``
     replaces the arch's config (a cut depth or a reduced width, for the
     card script's and the tests' checks; the model FLOPs are then not
-    reported); ``knobs`` override the variant's.  On a mesh of one rank
+    reported); ``knobs`` override the variant's; ``makers``: report
+    the live bytes at the peak of the ``makers`` largest makers (op and
+    model code, :class:`Traffic`; slower).  On a mesh of one rank
     the model is built without a context, as one rank trains and serves.
     The reference's result keys where the quantity is the same."""
     from repro_torch.kernels import cost
@@ -540,14 +677,25 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                       peak_flops=peak_flops)
     chips = math.prod(pctx.mesh.shape.values())
     mctx = pctx if chips > 1 else None
+    # bf16 parameters, as the card trains and serves
     model = build_model(cfg, device="meta", dtype=torch.bfloat16, pctx=mctx)
     params = param_module(cfg, device="meta", dtype=torch.bfloat16,
                           pctx=mctx)
-    kind, argb, outb, fn = _run(model, params, cfg, shape, pctx,
-                                VARIANT_OPT_DTYPE.get(variant))
+    kind, argb, outb, fn, grads_of, sync = _run(
+        model, params, cfg, shape, pctx, VARIANT_OPT_DTYPE.get(variant))
     pctx.mesh.log.clear()
-    traffic, flops = Traffic(), Flops()
-    with cost.recording() as kernels, flops, traffic:
+    traffic, flops = Traffic(grads_of, makers=bool(makers)), Flops()
+    saved = torch.autograd.graph.saved_tensors_hooks(
+        lambda t: (traffic.tag(t, "saved activations"), t)[1], lambda t: t)
+    regather = []
+
+    def gathered(t):
+        traffic.tag(t, "gathered weights")
+        if torch._C._current_graph_task_id() != -1:    # a recompute
+            regather.append(_nbytes(t) * (pctx.data_size - 1)
+                            // pctx.data_size)
+    with _watching_gathers(gathered), cost.recording() as kernels, flops, \
+            traffic, saved:
         fn()
     t_run = time.monotonic() - t0
     per_kernel: dict = {}
@@ -564,12 +712,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     log = pctx.mesh.log
     executed = {"by_axis": pctx.mesh.bytes_by("axis"),
                 "by_kind": pctx.mesh.bytes_by("kind"), "num_ops": len(log),
-                "log": [list(rec) for rec in log]}
-    fsdp = _fsdp_analytic(params, cfg, pctx, kind)
-    by_axis = dict(executed["by_axis"])
-    for ax, v in fsdp["by_axis"].items():
-        by_axis[ax] = by_axis.get(ax, 0) + v
-    argument = sum(argb.values())
+                "log": [list(rec) for rec in log],
+                **_collective_parts(log, None if sync is None else sync.at,
+                                    sum(regather))}
+    by_axis = executed["by_axis"]
+    argument = sum(v for k, v in argb.items() if k != "grads")
     compute_term = flops_dev / PEAK_FLOPS
     memory_term = bytes_dev / HBM_BW
     inter = by_axis.get("pod", 0)
@@ -583,16 +730,16 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "layers": cfg.n_layers, "trace_s": round(t_run, 1),
         "hardware": HARDWARE,
         "memory": {
+            # the storages that exist before the step (the gradients, in
+            # ``arguments`` for the record, are made by it)
             "argument_bytes": argument, "arguments": argb,
             "output_bytes": outb,
             "peak_live_bytes": argument + traffic.peak,
             "temp_bytes": traffic.peak,
-            # the weights a rank would hold under the reference's FSDP rule,
-            # and for a serving cell its cache under the reference's layout
-            "weights_fsdp_bytes": sum(
-                math.prod(shape) * p.element_size() for shape, p in zip(
-                    sharding.param_shapes(params, cfg, pctx).values(),
-                    params.parameters())),
+            "peak_parts": {"arguments": argument, **traffic.at_peak},
+            "peak_makers": dict(list(traffic.makers_at_peak.items())[
+                :makers]),
+            # a serving cell's cache under the reference's layout
             "cache_reference_layout_bytes": _reference_cache_bytes(
                 model, cfg, shape, pctx),
         },
@@ -602,8 +749,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                  "ops": traffic.ops, "kernels": per_kernel},
         "launches": {name: row["launches"]
                      for name, row in per_kernel.items()},
-        "collectives": {**executed, "by_axis_with_fsdp": by_axis},
-        "fsdp_analytic": fsdp,
+        "collectives": executed,
         "planner": planner_cell_report(arch, shape, pctx, fabrics=fabrics,
                                        calibration=calibration,
                                        budget_s=budget_s,
@@ -656,11 +802,17 @@ def _print_cell(result: dict) -> None:
     print(f"  memory/rank: args={_gb(mm['argument_bytes'])} "
           f"peak={_gb(mm['peak_live_bytes'])} "
           f"out={_gb(mm['output_bytes'])}")
+    print("  at the peak: " + ", ".join(
+        f"{part} {_gb(v)}" for part, v in mm["peak_parts"].items()))
+    for maker, v in mm.get("peak_makers", {}).items():
+        print(f"    {_gb(v)}  {maker}")
     print(f"  flops/rank={result['cost']['flops_per_device']:.3e} "
           f"bytes/rank={result['cost']['bytes_per_device']:.3e}")
+    col = result["collectives"]
     print(f"  collective bytes by axis: "
-          f"{ {k: _gb(v) for k, v in result['collectives']['by_axis'].items()} }"
-          f" (+ FSDP/DP sync {result['fsdp_analytic']['by_axis']})")
+          f"{ {k: _gb(v) for k, v in col['by_axis'].items()} } (FSDP "
+          f"{ {k: _gb(v) for k, v in col['fsdp'].items()} }, gradient sync "
+          f"{ {k: _gb(v) for k, v in col['grad_sync'].items()} })")
     print(f"  roofline (H100 data sheet): "
           f"compute={r['compute_term_s'] * 1e3:.2f}ms "
           f"memory={r['memory_term_s'] * 1e3:.2f}ms "
@@ -694,13 +846,13 @@ def cell_path(arch, shape_name, multi_pod, variant):
 
 def run_and_save(arch, shape_name, multi_pod, variant="mw", force=False,
                  fabrics=DEFAULT_REPORT_FABRICS, calibration=None,
-                 budget_s=None) -> dict:
+                 budget_s=None, makers: int = 0) -> dict:
     """:func:`run_cell` cached as JSON under ``results/dryrun_torch/``; a
     failed cell is recorded as an ``error`` entry.  A cached cell's
     planner section is refreshed when the fabrics, a calibration store or
-    a phase budget ask for it."""
+    a phase budget ask for it; ``makers`` runs the cell again."""
     path = cell_path(arch, shape_name, multi_pod, variant)
-    if os.path.exists(path) and not force:
+    if os.path.exists(path) and not force and not makers:
         with open(path) as f:
             result = json.load(f)
         cached = set(result.get("planner", {}).get("fabrics", {}))
@@ -717,7 +869,8 @@ def run_and_save(arch, shape_name, multi_pod, variant="mw", force=False,
     try:
         result = run_cell(arch, shape_name, multi_pod=multi_pod,
                           variant=variant, fabrics=fabrics,
-                          calibration=calibration, budget_s=budget_s)
+                          calibration=calibration, budget_s=budget_s,
+                          makers=makers)
     except Exception as e:  # record failures — they are bugs to fix
         result = {"arch": arch, "shape": shape_name,
                   "mesh": "multi" if multi_pod else "single",
@@ -749,6 +902,10 @@ def main(argv=None):
                     help="latency budget (us) for each cell's phase: the "
                          "contention-aware sweep reports whether any "
                          "feasible plan combination met it")
+    ap.add_argument("--peak-makers", type=int, default=0, metavar="N",
+                    help="print the live bytes at the peak of the N "
+                         "largest makers (op and model code; slower; a "
+                         "cached cell runs again)")
     ap.add_argument("--all", action="store_true",
                     help="run every (arch x shape x mesh) cell")
     ap.add_argument("--force", action="store_true")
@@ -780,7 +937,7 @@ def main(argv=None):
     for arch, shape, mp, variant in cells:
         r = run_and_save(arch, shape, mp, variant, force=args.force,
                          fabrics=fabrics, calibration=args.calibration,
-                         budget_s=budget_s)
+                         budget_s=budget_s, makers=args.peak_makers)
         if "error" in r:
             failures += 1
     print(f"\n{len(cells) - failures}/{len(cells)} cells OK")

@@ -58,6 +58,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.api import build_model
 from repro_torch.parallel.context import (ParallelContext,
                                           build_collective_program)
+from repro_torch.checkpoint.store import CheckpointManager, ShardLayout
+from repro_torch.parallel import sharding
 from repro_torch.parallel.mesh import RankMesh
 from repro_torch.runtime.server import ServeConfig, ServeEngine
 from repro_torch.serving import (AdmissionController, BatchScheduler,
@@ -1011,6 +1013,8 @@ def _serve(mesh: RankMesh, rank: int, dev, spec: dict, params=None
             scheme, combine, g = \
                 results["runs"][run["twin"]]["resolved"]["prefill"]
             run = dict(run, scheme=scheme, combine=combine, microbatch=g)
+        # serving never shards weights over the data axis (the reference's
+        # serving cells turn FSDP off): only ``_train`` runs ``shard_fsdp``
         pctx = contexts[label] = run_context(
             mesh, spec["pods"], run, fabric=fabric, cfg=cfg, phases=phases,
             itemsize=itemsize, calibration=store)
@@ -1464,13 +1468,25 @@ def _global_grads(sync, params, host: bool = True) -> dict:
     """Rank 0: every gradient at its global shape (numpy fp32, or with
     ``host`` False a tensor on the gradient's device in its dtype), the
     experts and model-axis blocks gathered; the others: an empty dict."""
-    from repro_torch.checkpoint.store import ShardLayout
     layout = ShardLayout(params, sync.pctx)
     out = {}
     for name, p in params.named_parameters():
         whole = layout.gather(f"params/{name}", p.grad)
         if whole is not None:
             out[name] = whole.float().cpu().numpy() if host else whole
+    return out
+
+
+def global_state(layout, tree) -> dict:
+    """Rank 0: every leaf of a checkpointed tree (parameters, optimizer
+    state, step) at its global shape, by its path, as fp32 numpy (every
+    rank calls it; the others get an empty dict)."""
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    out = {}
+    for key, leaf in _flatten_with_paths(tree):
+        whole = layout.gather(key, leaf)
+        if whole is not None:
+            out[key] = whole.detach().float().cpu().numpy()
     return out
 
 
@@ -1493,7 +1509,8 @@ def _fp32_grads(cfg, sync, params, batch: dict) -> dict:
     from repro_torch.models.api import param_module
     from repro_torch.runtime.trainer import fill_missing_grads, trainable
     dev = next(params.parameters()).device
-    wide = param_module(cfg, device=dev, dtype=torch.float32, pctx=sync.pctx)
+    wide = sharding.shard_fsdp(param_module(
+        cfg, device=dev, dtype=torch.float32, pctx=sync.pctx), cfg, sync.pctx)
     wide.load_state_dict(params.state_dict())
     named = trainable(wide)
     with _plain_kernels():
@@ -1574,7 +1591,9 @@ def train_worker(rank: int, spec: dict) -> None:
     (warm-up 1) for ``spec["steps"]`` steps through ``Trainer``.
 
     A run may name its own ``cfg`` and ``weights``.  Its context is
-    :func:`run_context`'s with ``seq_parallel`` (default on); under
+    :func:`run_context`'s with ``seq_parallel`` (default on), ``fsdp``
+    (default on, the reference's) and ``remat`` (default "none"), and it
+    clips at ``max_grad_norm`` (default 1.0); under
     ``policy`` "auto" the train program's plan is bound and the gradient
     mean runs its ``grad_sync`` verdict (the ring under "fixed");
     ``grads`` first
@@ -1582,6 +1601,10 @@ def train_worker(rank: int, spec: dict) -> None:
     shapes on rank 0, and the step-0 losses, without updating (the
     gradients of ``grad_of``, "ce" or "aux", instead of the loss's when
     the run names it);
+    ``state`` records every leaf of the trained state (parameters, AdamW
+    state) at its global shape on rank 0 (:func:`global_state`), and
+    ``resave`` (a directory) checkpoints the state there at the end of the
+    run (after a ``restore`` and no steps: the restored state);
     ``check_kernels`` holds each backward kernel of that step against its
     plain version on the same inputs (:func:`_checked_backwards`);
     ``one_rank`` (a seed) has rank 0 run that step on one rank of the
@@ -1594,10 +1617,16 @@ def train_worker(rank: int, spec: dict) -> None:
     (leaf names) reduces the step-0 gradients of those leaves once by each
     scheme (:func:`_scheme_gaps`).  Per run it records the history
     (losses, grad norms, each step's parts in ms), the kernel launches,
-    the resolved scheme, bytes and G of the sync, and a digest of every
-    leaf and of every segment of a split leaf that each model rank holds
-    whole (``GradSync.whole_parts``), these listed with the replicated
-    leaves."""
+    the resolved scheme, bytes (all-reduced a step, and by part:
+    ``GradSync.bytes_parts``) and G of the sync, the rank's weight,
+    gradient (as autograd made them) and AdamW-state bytes
+    (``state_bytes``), on the card the peak of its steps alone
+    (``step_peak_bytes``) and of the whole run (``peak_gb``), the rank's
+    mesh coordinates, the FSDP shards (``fsdp``: under the context's
+    ``fsdp`` over more than one data rank, ``sharding.shard_fsdp``), and a
+    digest of every leaf and of every segment of a split leaf that each
+    model rank holds whole (``GradSync.whole_parts``), these listed with
+    the replicated leaves (``data_replicated`` for an FSDP shard's)."""
     mesh = init_rank(rank, spec)
     results = _train(mesh, rank, rank_device(rank, spec), spec)
     dist.barrier()
@@ -1634,14 +1663,16 @@ def _train(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
                 raise ValueError("fabric 'measured' needs measure_link")
             run = dict(run, fabric=fabric)
         steps = run.get("steps", spec["steps"])
-        pctx = dataclasses.replace(run_context(mesh, spec["pods"], run),
-                                   seq_parallel=run.get("seq_parallel",
-                                                        True))
+        pctx = run_context(mesh, spec["pods"], run)
+        pctx = dataclasses.replace(
+            pctx, seq_parallel=run.get("seq_parallel", True),
+            fsdp=run.get("fsdp", True), remat=run.get("remat", pctx.remat))
         built = build_training(
             cfg, pctx, batch=spec["batch"],
             seq=spec["seq"], dtype=dtype, device=dev, lr=spec["lr"],
             steps=spec["steps"], warmup=1, seed=spec.get("seed", 0),
-            weights=run.get("weights", spec.get("weights")))
+            weights=run.get("weights", spec.get("weights")),
+            max_grad_norm=run.get("max_grad_norm", 1.0))
         pctx, params, sync = built.pctx, built.params, built.sync
         decision = built.decision
         if dev.type == "cuda":          # the draws' fp32 temporaries
@@ -1649,6 +1680,7 @@ def _train(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
             torch.cuda.reset_peak_memory_stats(dev)
         res = results["runs"][label] = {
             "scheme": sync.scheme, "sync_bytes": sync.bytes,
+            "sync_parts": sync.bytes_parts,
             "sync_g": (decision.shard_map_kwargs.get("microbatch", 1)
                        if decision is not None else 1),
             "decision": (None if decision is None else decision.plan),
@@ -1680,27 +1712,62 @@ def _train(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
         res["start_step"] = trainer.state.step
         if run.get("restore"):
             trainer.ckpt = None             # continue without saving
+        named = trainer.state.named()
+        made = {}                           # each gradient as autograd made it
+        hooks = [p.register_post_accumulate_grad_hook(
+            lambda p, n=n: made.__setitem__(
+                n, p.grad.numel() * p.grad.element_size()))
+            for n, p in named.items()]
+        if dev.type == "cuda":          # the steps' own peak from here
+            before = max(before, torch.cuda.max_memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
         res["history"] = trainer.run()
         res["launches"] = ops.launches()
+        if dev.type == "cuda":
+            res["step_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        for hook in hooks:
+            hook.remove()
+        res["state_bytes"] = {
+            "weights": sum(p.numel() * p.element_size()
+                           for p in named.values()),
+            "grads": sum(made.values()),
+            "opt_state": sum(t.numel() * t.element_size() for t in
+                             torch.utils._pytree.tree_leaves(
+                                 trainer.state.opt_state)
+                             if isinstance(t, torch.Tensor))}
+        res["shapes"] = {n: tuple(p.shape) for n, p in named.items()}
+        if run.get("state") or run.get("resave"):
+            layout = ShardLayout(params, pctx)
+            if run.get("state"):
+                res["state"] = global_state(layout, trainer.state.tree())
+            if run.get("resave"):
+                CheckpointManager(run["resave"], layout=layout).save(
+                    trainer.state.step, trainer.state.tree())
         res["digest"] = {n: leaf_digest(p)
                          for n, p in params.named_parameters()}
+        res["fsdp"] = sorted(sync.fsdp)
+        res["coords"] = dict(mesh.coords)
         res["replicated"] = sorted(n for n in res["digest"]
                                    if n not in sync.expert
-                                   and n not in sync.split)
+                                   and n not in sync.split
+                                   and n not in sync.fsdp)
         # the segments of a split leaf that every model rank holds whole
-        # (Mamba2's in_proj B/C columns), meant to stay the same bits too
+        # (Mamba2's in_proj B/C columns), meant to stay the same bits too:
+        # on every rank, or, of an FSDP shard (cut over ``data`` along
+        # another dim), on every rank of its data coordinate
         named = dict(params.named_parameters())
+        res["data_replicated"] = []
         for n, (dim, local) in sync.whole_parts.items():
             for lo, hi in local:
                 key = f"{n}[{dim}:{lo}:{hi}]"
                 res["digest"][key] = leaf_digest(
                     named[n].narrow(dim, lo, hi - lo))
-                res["replicated"].append(key)
+                res["data_replicated" if n in sync.fsdp
+                    else "replicated"].append(key)
         res["split"] = sorted(sync.split)
         if dev.type == "cuda":
-            res["peak_gb"] = max(before, torch.cuda.max_memory_allocated(
-                dev)) / 1e9
+            res["peak_gb"] = max(before, res["step_peak_bytes"]) / 1e9
         res["seconds"] = time.monotonic() - t0
         mark(f"run {label}")
         del trainer, params, sync, built

@@ -421,6 +421,8 @@ def main(argv=None) -> dict:
     exporter = start_exporter_from_args(args) if rank0 else None
     plan = fabric = None
     if pctx is not None:
+        # serving never shards weights over the data axis (the reference's
+        # serving cells turn FSDP off): only training runs ``shard_fsdp``
         pctx = dataclasses.replace(pctx, plan_policy=args.plan_policy)
         if args.plan_policy == "auto" and cfg.is_moe:
             fabric = planning_fabric(pctx, cfg, args, device)

@@ -51,9 +51,16 @@ implicit GSPMD ring whatever the verdict.  ``--variant`` applies one of
 the dry run's ``VARIANTS`` (``launch/dryrun.py``) to the context, as the
 reference's launcher does; ``--multi-pod`` asks for the production mesh
 (2, 16, 16) of ``launch/mesh.py`` (the mesh's ``ValueError`` on any other
-world size).  A variant's ``fsdp`` is read by the dry run's sharding
-alone: the port's ranks never shard weights over the data axis when they
-run, so ``--variant nofsdp`` raises ``ValueError`` here.
+world size).  Over more than one data rank the parameters are FSDP-sharded
+(ZeRO-3 over ``data``, the context's ``fsdp``, the reference's default:
+``parallel.sharding.shard_fsdp``): each data-cut leaf, its gradient and
+its AdamW state are the rank's ``1/data`` slice, gathered over ``data``
+whenever the model reads the leaf; ``--variant nofsdp`` trains with every
+leaf replicated over the data-parallel ranks instead:
+
+  PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch mistral_nemo_12b --smoke \\
+      --device cpu --ep 2 --tp 2 --backend gloo --steps 3 [--variant nofsdp]
 
   PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 2 \\
       -m repro_torch.launch.train --arch zamba2_7b --smoke --device cpu \\
@@ -74,6 +81,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM, batch_for_model
 from repro_torch.device import resolve_device
 from repro_torch.models.api import build_model, param_count_shape_only
 from repro_torch.optim import adamw, cosine_schedule
+from repro_torch.parallel import sharding
 from repro_torch.runtime.trainer import (GradSync, Trainer, TrainerConfig,
                                          make_train_step)
 from repro_torch.telemetry.exporter import (add_metrics_args,
@@ -139,6 +147,15 @@ def plan_training(cfg, pctx, batch: int, seq: int, itemsize: int, log):
     return pctx, eplan
 
 
+def grad_sync_for(cfg, pctx, params, tokens_per_rank: int) -> tuple:
+    """(the ``grad_sync`` verdict, the :class:`GradSync` running it) of
+    training ``cfg``'s rank module ``params`` over ``pctx`` on
+    ``tokens_per_rank`` tokens a step."""
+    decision = pctx.grad_sync_plan(num_params=param_count_shape_only(cfg),
+                                   tokens_per_rank=tokens_per_rank)
+    return decision, GradSync(pctx, params, decision=decision)
+
+
 @dataclasses.dataclass
 class Training:
     """What :func:`build_training` sets up: the context with its plan
@@ -157,15 +174,18 @@ class Training:
 
 def build_training(cfg, pctx, *, batch: int, seq: int, dtype, device,
                    lr: float, steps: int, warmup: int, grad_accum: int = 1,
-                   seed: int = 0, weights=None, log=None) -> Training:
+                   seed: int = 0, weights=None, log=None,
+                   max_grad_norm: float = 1.0) -> Training:
     """Set up training of ``cfg`` on ``batch`` x ``seq`` global tokens,
     on one rank (``pctx`` None) or over ``pctx``'s mesh: the training
     program's plan bound under ``plan_policy="auto"``
     (:func:`plan_training`), the model, its parameters (``weights``: the
     reference's as numpy, through ``convert.params_from_jax``; else drawn
-    from ``seed``), the ``grad_sync`` verdict (``ParallelContext.
+    from ``seed``; FSDP-sharded over ``data`` under the context's
+    ``fsdp``, ``sharding.shard_fsdp``), the ``grad_sync`` verdict (``ParallelContext.
     grad_sync_plan``) and its :class:`GradSync`, AdamW on the cosine
-    schedule (weight decay 0.01) and ``make_train_step``."""
+    schedule (weight decay 0.01) and ``make_train_step`` (clipping at
+    ``max_grad_norm``, the reference's)."""
     log = log or logging.getLogger("repro_torch.train")
     plan = None
     if pctx is not None:
@@ -183,9 +203,14 @@ def build_training(cfg, pctx, *, batch: int, seq: int, dtype, device,
     decision = sync = None
     if pctx is not None:
         dp = pctx.dp_size
-        decision = pctx.grad_sync_plan(num_params=param_count_shape_only(cfg),
-                                       tokens_per_rank=batch * seq // dp)
-        sync = GradSync(pctx, params, decision=decision)
+        params = sharding.shard_fsdp(params, cfg, pctx)
+        decision, sync = grad_sync_for(cfg, pctx, params, batch * seq // dp)
+        if sync.fsdp:
+            log.info("parameters: FSDP over %d data ranks (%d leaves a rank "
+                     "holds its slice of)", pctx.data_size, len(sync.fsdp))
+        elif dp > 1:
+            log.info("parameters: replicated over the %d data-parallel "
+                     "ranks", dp)
         if decision is not None:
             log.info(grad_sync_line(decision, sync.scheme))
         elif dp > 1:
@@ -195,13 +220,9 @@ def build_training(cfg, pctx, *, batch: int, seq: int, dtype, device,
             log.info("gradient sync: none (one data-parallel rank)")
     opt = adamw(lr=cosine_schedule(lr, warmup=warmup, total=steps),
                 weight_decay=0.01)
-    step = make_train_step(model, opt, grad_accum=grad_accum, grad_sync=sync)
+    step = make_train_step(model, opt, grad_accum=grad_accum, grad_sync=sync,
+                           max_grad_norm=max_grad_norm)
     return Training(pctx, plan, model, params, decision, sync, opt, step)
-
-
-# the context's knobs that a running rank does not execute (FSDP is priced
-# by the dry run alone, ``parallel/sharding.py``)
-DRY_RUN_ONLY = frozenset({"fsdp"})
 
 
 def variant_context(pctx, variant: str, plan_policy, cfg, batch: int,
@@ -210,16 +231,9 @@ def variant_context(pctx, variant: str, plan_policy, cfg, batch: int,
     the reference's launcher applies them: the plan policy ``plan_policy``
     if given, else auto unless the variant pins a scheme or a policy (an
     explicit ablation); ``moe_microbatch="plan"`` is the G of the train
-    program's joint decision at ``batch`` x ``seq``.  A variant that sets a
-    knob of ``DRY_RUN_ONLY`` (``nofsdp``) raises ``ValueError``."""
+    program's joint decision at ``batch`` x ``seq``."""
     from repro_torch.launch.dryrun import VARIANTS, planned_microbatch
     kw = dict(VARIANTS[variant])
-    if set(kw) & DRY_RUN_ONLY:
-        raise ValueError(
-            f"--variant {variant} sets {sorted(set(kw) & DRY_RUN_ONLY)}, "
-            "which only the dry run's per-rank shapes read: the port's "
-            "ranks never shard weights over the data axis when they run, "
-            "so the variant would change nothing here")
     pins = {"moe_scheme", "plan_policy"} & set(kw)
     planned = kw.pop("moe_microbatch", None) == "plan"
     pctx = dataclasses.replace(pctx, **kw)

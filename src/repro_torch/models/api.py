@@ -98,8 +98,12 @@ class Model:
                                   device=self.device, dtype=self.dtype,
                                   pctx=self.pctx, shared=shared)
 
-    def _embed(self, params, tokens) -> torch.Tensor:
-        x = L.embed(params.embed, tokens.to(self.device))
+    def _embed(self, params, tokens, emb=None) -> torch.Tensor:
+        """The tokens' embeddings; ``emb``: the table as the caller read
+        it (under FSDP a read gathers it, so the loss reads a tied table
+        once for the lookup and the unembedding)."""
+        x = L.embed(params.embed.emb if emb is None else emb,
+                    tokens.to(self.device))
         if self.cfg.tie_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
         return x
@@ -118,26 +122,28 @@ class Model:
             return batch["embeds"].to(self.device, self.dtype)
         return None
 
-    def embed_in(self, params, batch: dict):
-        """(x [B, S, D], positions): the tokens embedded, or the
-        embeddings input with its own positions (the reference's
-        ``embed_in``)."""
+    def embed_in(self, params, batch: dict, emb=None):
+        """(x [B, S, D], positions): the tokens embedded (by ``emb`` if
+        given, :meth:`_embed`), or the embeddings input with its own
+        positions (the reference's ``embed_in``)."""
         x = self._embeds(batch)
         if x is None:
-            x = self._embed(params, batch["tokens"])
+            x = self._embed(params, batch["tokens"], emb)
             return x, _positions(self.cfg, *x.shape[:2], self.device)
         pos = batch.get("positions")
         if pos is None:
             return x, _positions(self.cfg, *x.shape[:2], self.device)
         return x, pos.to(self.device)
 
-    def _encdec_in(self, params, batch: dict):
+    def _encdec_in(self, params, batch: dict, emb=None):
         """(source embeddings, target, positions) of an encoder-decoder
         batch: the target tokens embedded WITHOUT the sqrt(d_model) scale
-        (the reference's prefill and training; its decode scales)."""
+        (the reference's prefill and training; its decode scales), by
+        ``emb`` if given."""
         toks = batch["tgt_tokens"]
         return (batch["src_embeds"].to(self.device, self.dtype),
-                L.embed(params.embed, toks.to(self.device)),
+                L.embed(params.embed.emb if emb is None else emb,
+                        toks.to(self.device)),
                 _positions(self.cfg, *toks.shape, self.device))
 
     def decode_inputs(self, tokens: np.ndarray) -> dict:
@@ -161,18 +167,19 @@ class Model:
                 for name, val in self.decode_inputs(
                     tokens.cpu().numpy()).items()}
 
-    def hidden_train(self, params, batch: dict):
+    def hidden_train(self, params, batch: dict, emb=None):
         """The stack without a cache: (final-normed hidden [B, S, D], the
-        MoE aux losses summed, fp32)."""
+        MoE aux losses summed, fp32); ``emb``: the embedding table as the
+        caller read it."""
         fam = self.cfg.family
         if fam == "encdec":
-            src, tgt, positions = self._encdec_in(params, batch)
+            src, tgt, positions = self._encdec_in(params, batch, emb)
             enc_out = T.encode(params, self.cfg, src, self.pctx)
             h = T.forward_hidden_encdec(params, self.cfg, tgt, positions,
                                         enc_out, self.pctx)
             return h, torch.zeros((), dtype=torch.float32,
                                   device=self.device)
-        x, positions = self.embed_in(params, batch)
+        x, positions = self.embed_in(params, batch, emb)
         if fam in ("hybrid", "rwkv"):
             # the cache-free stacks, each block under remat: the scans'
             # autograd Functions run their backward kernels (plain versions
@@ -190,12 +197,12 @@ class Model:
         hidden sharded over the model axis) each model rank takes the
         cross-entropy of its own positions, and the sums and counts are
         added over the model axis (*g*), so the loss is the same on every
-        model rank."""
-        h, aux = self.hidden_train(params, batch)
-        if params.unembed is not None:
-            w, tied = params.unembed, False
-        else:
-            w, tied = params.embed.emb, True
+        model rank.  A tied table is read once, for the lookup and the
+        unembedding (under FSDP each read is a gather)."""
+        tied = params._parameters.get("unembed") is None    # not read
+        emb = params.embed.emb if tied else None
+        h, aux = self.hidden_train(params, batch, emb)
+        w = emb if tied else params.unembed
         labels = batch["labels"].to(self.device)
         if self.cfg.family in ("dense", "moe") and seq_sharded(
                 self.pctx, labels.shape[1]):

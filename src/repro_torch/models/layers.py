@@ -560,7 +560,7 @@ class MLP(nn.Module):
                  tp=(1, 0)):
         super().__init__()
         m, r = tp
-        self.d, self.f = d, f
+        self.d, self.f, self.gated = d, f, gated
         self.split = splits(f, m)
         fl = f // m if self.split else f
         self.w1 = parameter((d, fl), device=device, dtype=dtype)
@@ -596,7 +596,7 @@ def mlp(p: MLP, x, act_name: str, pctx=None, *, reduce: bool = True):
     pctx = model_ctx(p.split, pctx)
     x = to_model(x, pctx)
     hidden = activation(act_name)(x @ p.w1)
-    if p.w3 is not None:
+    if p.gated:                   # (reading w3 would gather an FSDP shard)
         hidden = hidden * (x @ p.w3)
     out = hidden @ p.w2
     return reduce_over_model(out, pctx) if reduce else out
@@ -621,8 +621,10 @@ def init_embedding(vocab, d, *, generator, device, dtype) -> Embedding:
         generator)
 
 
-def embed(p: Embedding, tokens):
-    return F.embedding(tokens.long(), p.emb)
+def embed(w, tokens):
+    """The rows of the table ``w`` [V, D] at ``tokens`` (the caller reads
+    the table: under FSDP each read is a gather)."""
+    return F.embedding(tokens.long(), w)
 
 
 def unembed(p_emb: Embedding, x, out_proj=None, final_softcap=None):
@@ -651,15 +653,53 @@ def cross_entropy(logits, labels, ignore: int = -1):
 
 def _chunk_loss(hh, emb, ll, tied: bool, final_softcap, ignore: int):
     """(summed nll, count) of one sequence chunk: the unembedding product
-    in the activations' dtype, the softmax in fp32."""
+    in the activations' dtype, the softmax in fp32 (:class:`_ChunkNLL`)."""
     logits = hh @ (emb.T if tied else emb).to(hh.dtype)       # [B, C, V]
-    lf = logits.float()
-    if final_softcap is not None:
-        lf = final_softcap * torch.tanh(lf / final_softcap)
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, ll.clamp(min=0).long()[..., None])[..., 0]
     mask = ll != ignore
-    return torch.sum((logz - gold) * mask), torch.sum(mask)
+    return _ChunkNLL.apply(logits, ll, mask, final_softcap), torch.sum(mask)
+
+
+def _softcapped(logits, cap):
+    """(the fp32 logits under the final softcap, tanh of them over the cap
+    or None without one)."""
+    lf = logits.float()
+    if cap is None:
+        return lf, None
+    t = torch.tanh(lf / cap)
+    return cap * t, t
+
+
+class _ChunkNLL(torch.autograd.Function):
+    """The summed token nll of a chunk's logits [B, C, V]: logsumexp less
+    the gold logit, in fp32, masked.  Its backward is the one autograd
+    derives, op for op (the softmax times the cotangent, the gold logit's
+    cotangent added, the softcap's chain rule, the cast), but it runs in
+    one fp32 buffer of the logits' size, where autograd's holds the fp32
+    logits and each of its intermediates (five such buffers at once): the
+    chunk's backward was the largest transient of a training step."""
+
+    @staticmethod
+    def forward(ctx, logits, ll, mask, cap):
+        lf, _ = _softcapped(logits, cap)
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, ll.clamp(min=0).long()[..., None])[..., 0]
+        del lf
+        ctx.cap = cap
+        ctx.save_for_backward(logits, logz, ll, mask)
+        return torch.sum((logz - gold) * mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, ll, mask = ctx.saved_tensors
+        dl = g.expand(logz.shape) * mask              # the sum's, the mask's
+        lf, t = _softcapped(logits, ctx.cap)
+        grad = lf.sub_(logz[..., None]).exp_().mul_(dl[..., None])
+        grad.scatter_add_(-1, ll.clamp(min=0).long()[..., None],
+                          (-dl)[..., None])           # the gold logit's
+        if ctx.cap is not None:
+            grad = torch.ops.aten.tanh_backward(grad.mul_(ctx.cap), t)
+            grad = grad.div_(ctx.cap)
+        return grad.to(logits.dtype), None, None, None
 
 
 def chunked_nll(h, emb, labels, *, tied=True, chunk=512,

@@ -30,7 +30,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.parallel import mesh as mesh_ops
@@ -102,7 +101,7 @@ def hierarchical_psum(g: torch.Tensor, ranks, pod_axis: str,
     mine = (mesh_ops.reduce_scatter(gp, ranks.group(data_axis), d)
             if d > 1 else gp[0].clone())                      # [N/D]
     if pods > 1:
-        dist.all_reduce(mine, group=ranks.group(pod_axis))
+        mesh_ops._all_reduce_(mine, ranks.group(pod_axis))
     full = ranks.all_gather(mine, data_axis).reshape(-1)[:n]
     return full / (d * pods)
 
@@ -126,15 +125,14 @@ def hierarchical_psum_flat(g: torch.Tensor, ranks, axis,
     gf = g.float()
     if p == 1 or s == 1:
         # one level is trivial: a flat sum IS the two-level schedule
-        out = gf.clone()
-        dist.all_reduce(out, group=ranks.group(*names))
+        out = mesh_ops._all_reduce_(gf.clone(), ranks.group(*names))
         return out / r
     me = ranks.axis_index(*names)
     intra = tuple(range((me // p) * p, (me // p + 1) * p))
     inter = tuple(sv * p + me % p for sv in range(s))
     gp = F.pad(gf, (0, (-n) % p)).reshape(p, -1)
     mine = mesh_ops.reduce_scatter(gp, ranks.subgroup(names, intra), p)
-    dist.all_reduce(mine, group=ranks.subgroup(names, inter))
+    mesh_ops._all_reduce_(mine, ranks.subgroup(names, inter))
     full = ranks.all_gather(mine, names, intra).reshape(-1)[:n]
     return full / r
 

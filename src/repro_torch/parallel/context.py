@@ -61,10 +61,9 @@ class ParallelContext:
     moe_deferred_tp_reduce: bool = False  # one all_reduce over model after
     #   the combine instead of one per expert FFN
     moe_microbatch: int = 1           # dispatch chunks G under "fixed"
-    fsdp: bool = True                 # shard weights over data (ZeRO-3-ish)
-    #   in the dry run's per-rank shapes (``parallel/sharding.py``) only:
-    #   the port's ranks hold their model-axis part whole when they run,
-    #   and ``launch.train`` refuses a variant that sets it
+    fsdp: bool = True                 # shard weights over data (ZeRO-3)
+    #   when training over more than one data rank
+    #   (``parallel.sharding.shard_fsdp``); serving never does
     remat: str = "none"               # none | selective | full: recompute
     #   each block's activations in the backward (training); the reference
     #   defaults to "full", the port to none (the state of a full-width

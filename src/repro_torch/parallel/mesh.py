@@ -209,6 +209,10 @@ class RankMesh(_Axes):
             raise ValueError(f"axis {names} has one rank: no group")
         return self._groups[tuple(names)]
 
+    def world_group(self):
+        """The group of every rank: the default process group (None)."""
+        return None
+
     def subgroup(self, axis, members) -> object:
         """The group of the ranks at coordinates ``members`` of ``axis`` (a
         name or a tuple of names; this rank's coordinate among them), the
@@ -253,6 +257,10 @@ class ShapeMesh(_Axes):
             raise ValueError(f"axis {names} has one rank: no group")
         return ShapeGroup(self, tuple(names),
                           tuple(range(self.axis_size(*names))))
+
+    def world_group(self) -> "ShapeGroup":
+        """The group of every rank of the mesh."""
+        return ShapeGroup(self, AXES, tuple(range(self.axis_size(*AXES))))
 
     def subgroup(self, axis, members) -> "ShapeGroup":
         names = axis_names(axis)
@@ -350,9 +358,8 @@ def _all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
     flat = x.contiguous().reshape(-1)
     out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
     if isinstance(group, ShapeGroup):
-        group.record("all-gather", out)
-    else:
-        _ALL_GATHER(out, flat, group=group)
+        return group.record("all-gather", out.view(n, *x.shape))
+    _ALL_GATHER(out, flat, group=group)
     return out.view(n, *x.shape)
 
 
@@ -428,12 +435,19 @@ class _PPermute(torch.autograd.Function):
         return (_ppermute(g, *ctx.args),) + (None,) * 5
 
 
+def _block(x: torch.Tensor, n: int, index: int, dim: int) -> torch.Tensor:
+    """Block ``index`` of ``n`` along ``dim`` of ``x``, as a tensor of its
+    own: a view would keep all of ``x`` alive as long as the block lives
+    (under remat each block's output is kept for the backward)."""
+    part = x.shape[dim] // n
+    return x.narrow(dim, index * part, part).contiguous()
+
+
 class _Split(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n, index, dim):
         ctx.args = (group, n, dim)
-        part = x.shape[dim] // n
-        return x.narrow(dim, index * part, part)
+        return _block(x, n, index, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -522,8 +536,7 @@ def split(x: torch.Tensor, group, n: int, index: int,
     on every rank."""
     if x.requires_grad:
         return _Split.apply(x, group, n, index, dim)
-    part = x.shape[dim] // n
-    return x.narrow(dim, index * part, part)
+    return _block(x, n, index, dim)
 
 
 def mean(x: torch.Tensor, group, n: int) -> torch.Tensor:

@@ -1,18 +1,21 @@
-"""Each leaf's shape on one rank, for the dry run.
+"""Each leaf's shape on one rank, and the FSDP shard a training rank holds.
 
 The counterpart of the reference's ``src/repro/parallel/sharding.py``,
 which assigns ``PartitionSpec`` objects that GSPMD executes.  The port has no
 GSPMD: a rank's model is built with its own model-axis cut (each module's
 ``shards``, the experts of an MoE layer over their EP axes), and that is
-what it executes.  So a leaf's shape on one rank is the port's module's
-shape on that rank, and on top of it the data-axis rule of the
+what it executes.  On top of it comes the data-axis rule of the
 reference's ``_rule_for`` (FSDP / ZeRO-3 over ``data`` when the context's
 ``fsdp`` is on), with the reference's divisibility guard: an axis that
-does not divide a dim leaves it whole.  The port does not execute that
-FSDP cut (its ranks hold their model-axis part whole, as the reference's
-trainer holds its parameters replicated); the dry run prices its weight
-gathers and gradient reduce-scatters from these shapes
-(``launch/dryrun.py``, ``fsdp_analytic``).
+does not divide a dim leaves it whole.  :func:`leaf_shape` is that rule,
+and :func:`shard_fsdp` executes it: training over ranks with ``fsdp`` and
+more than one data rank (``launch.train.build_training``, and the dry
+run's train cells) keeps each data-cut leaf's ``1/data`` slice, and the
+module gathers the leaf over ``data`` whenever its code reads it
+(:class:`Gathering`); the gather's backward is the reduce-scatter, so the
+gradient comes back at the shard's shape, summed over ``data``, and
+AdamW's state is made at the shard's shapes.  Serving never shards over
+``data`` (the reference's serving cells turn FSDP off).
 
 Where the port's model-axis cut differs from the reference's spec (the
 reference splits any dim the model axis divides; the port splits by
@@ -51,6 +54,8 @@ from __future__ import annotations
 
 import math
 from typing import Optional
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.context import ParallelContext
@@ -131,6 +136,86 @@ def leaf_shape(name: str, shape, cfg: ModelConfig,
         if ax == pctx.data_axis and out[i] % _axis_size(pctx, ax) == 0:
             out[i] //= _axis_size(pctx, ax)
     return tuple(out)
+
+
+def fsdp_dims(params, cfg: ModelConfig, pctx: ParallelContext) -> dict:
+    """{name: the dim the data axis cuts} of the leaves of a rank's
+    parameter module (its model-axis cut) that :func:`leaf_shape` cuts
+    over ``data``: at most one dim a leaf."""
+    out = {}
+    for n, p in params.named_parameters():
+        held = leaf_shape(n, tuple(p.shape), cfg, pctx)
+        cut = [i for i, (a, b) in enumerate(zip(held, p.shape)) if a != b]
+        if cut:
+            (out[n],) = cut
+    return out
+
+
+class Gathering:
+    """The mixin of a module that holds FSDP shards (``fsdp_dims``:
+    {leaf: dim}): reading such a leaf as an attribute gathers it over the
+    context's data axis (``parallel.mesh``'s differentiable ``all_gather``,
+    whose backward is the reduce-scatter), every read of it, so that under
+    ``remat="full"`` a block's recompute gathers again and a gathered weight
+    lives only while its block runs.  ``named_parameters``, ``state_dict``
+    and the optimizer see the shards under their own names."""
+
+    def __getattr__(self, name: str):
+        dims = self.__dict__.get("fsdp_dims")
+        if dims is not None and name in dims:
+            return gather_leaf(self._parameters[name], dims[name],
+                               self.__dict__["fsdp_pctx"])
+        return super().__getattr__(name)
+
+
+def gather_leaf(shard, dim: int, pctx: ParallelContext):
+    """The whole leaf of ``shard``, this rank's ``1/data`` slice of it
+    along ``dim``: the data ranks' slices in order."""
+    parts = pctx.mesh.all_gather(shard, pctx.data_axis)   # [data, *shard]
+    return parts.movedim(0, dim).flatten(dim, dim + 1)
+
+
+_GATHERING: dict = {}
+
+
+def _gathering_class(cls: type) -> type:
+    """``cls`` with :class:`Gathering` first in its bases (one class a
+    module class, named in this module)."""
+    if cls not in _GATHERING:
+        name = f"Gathering{cls.__name__}"
+        _GATHERING[cls] = type(name, (Gathering, cls), {
+            "__module__": __name__, "__qualname__": name})
+        globals()[name] = _GATHERING[cls]
+    return _GATHERING[cls]
+
+
+def shard_fsdp(params, cfg: ModelConfig, pctx: ParallelContext):
+    """Turn a rank's parameter module, built with its model-axis cut, into
+    its FSDP shard, in place (and return it): each leaf that
+    :func:`leaf_shape` cuts over ``data`` keeps this rank's ``1/data``
+    slice of the dim :func:`fsdp_dims` names (a new parameter of the same
+    name, ``requires_grad`` kept), and its module gathers it whenever it
+    is read (:class:`Gathering`).  Expert weights (EP-cut), norms, scalars,
+    routers and every leaf the rule leaves whole stay as they are.  A
+    no-op without ``fsdp`` or with one data rank."""
+    if not pctx.fsdp or pctx.data_size == 1:
+        return params
+    n = pctx.data_size
+    at = pctx.mesh.axis_index(pctx.data_axis)
+    for name, dim in fsdp_dims(params, cfg, pctx).items():
+        prefix, _, leaf = name.rpartition(".")
+        mod = params.get_submodule(prefix)
+        whole = mod._parameters[leaf]
+        size = whole.shape[dim] // n
+        mod._parameters[leaf] = torch.nn.Parameter(
+            whole.detach().narrow(dim, at * size, size).clone(),
+            requires_grad=whole.requires_grad)
+        if not isinstance(mod, Gathering):
+            mod.__class__ = _gathering_class(type(mod))
+            mod.__dict__["fsdp_dims"] = {}
+            mod.__dict__["fsdp_pctx"] = pctx
+        mod.__dict__["fsdp_dims"][leaf] = dim
+    return params
 
 
 def param_shapes(params, cfg: ModelConfig, pctx: ParallelContext) -> dict:

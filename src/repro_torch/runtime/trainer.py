@@ -30,13 +30,15 @@ save has just written that step (the reference writes it twice).
 Over ranks (a model built with a ``pctx``) each rank's loss is its own
 rows' mean, and :class:`GradSync` is the ``grad_sync`` hook: the reference's
 closure over ``planned_psum``.  The gradients of the leaves replicated over
-the data-parallel ranks (everything but the experts) are averaged over
-them by the scheme of the planner's ``grad_sync`` verdict; an expert's
-gradient has come back summed over the data-parallel ranks whose rows it
-served (the exchanges' backward), so it is divided by their count instead.
-The clip uses the global gradient's norm, each expert shard and each
-model-axis block counted once, so every rank clips by the same factor and
-the replicas stay bit-identical.  Checkpoints hold every leaf at its
+the data-parallel ranks are averaged over them by the scheme of the
+planner's ``grad_sync`` verdict; an expert's gradient has come back summed
+over the data-parallel ranks whose rows it served (the exchanges'
+backward), so it is divided by their count instead; an FSDP shard's
+(``parallel.sharding.shard_fsdp``) has come back summed over ``data`` by
+its gather's reduce-scatter, so it is divided by ``data`` and averaged
+over the pods alone.  The clip uses the global gradient's norm, each
+expert shard, FSDP shard and model-axis block counted once, so every rank
+clips by the same factor and the replicas stay bit-identical.  Checkpoints hold every leaf at its
 global shape (:class:`~repro_torch.checkpoint.store.ShardLayout`).
 """
 
@@ -48,12 +50,12 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from repro_torch.checkpoint.store import CheckpointManager, ShardLayout
 from repro_torch.optim.optimizers import (Optimizer, _slices,
                                           clip_by_global_norm_, global_norm)
+from repro_torch.parallel import mesh as mesh_ops
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -105,8 +107,11 @@ class GradSync:
 
     ``decision``: the ``grad_sync`` verdict (``ParallelContext.
     grad_sync_plan``); its ``reduce_scheme`` runs through ``planned_psum``
-    over the data-parallel axes, a leaf at a time in fp32 slices of at most
-    ``CHUNK`` elements; None runs the flat ring.
+    over the data-parallel axes (over the pod axis alone for an FSDP
+    shard), a leaf at a time in fp32 slices of at most ``CHUNK`` elements;
+    None runs the flat ring.  Every exchange goes through
+    ``parallel.mesh``, so on a ``ShapeMesh`` (the dry run) each is
+    logged.
     :meth:`global_norm` is the global gradient's norm, :meth:`metrics` the
     losses' means over the data-parallel ranks."""
 
@@ -126,6 +131,10 @@ class GradSync:
         # others are whole on every model rank: ``layers.splits``)
         self.expert_split = split & self.expert
         self.split = split - self.expert
+        # the FSDP shards (``sharding.shard_fsdp``), cut over ``data``
+        self.fsdp = {f"{prefix}.{name}".lstrip(".")
+                     for prefix, sub in params.named_modules()
+                     for name in getattr(sub, "fsdp_dims", {})}
         # the column segments of a split leaf that every model rank holds
         # whole (Mamba2's in_proj B/C), as (dim, [(lo, hi)] of the rank's
         # own columns): the norm takes them from the first model rank only
@@ -146,18 +155,41 @@ class GradSync:
         experts = M.num_experts(params)
         self.expert_pods = bool(experts) and pctx.num_pods > 1 and \
             pctx.pod_axis not in M.expert_axes(pctx, experts)
-        self.bytes = 4 * sum(p.numel() for n, p in named.items()
-                             if n not in self.expert)
+        # the bytes this rank all-reduces a step, by part: the leaves
+        # replicated over the data-parallel ranks (fp32, over them), the
+        # FSDP shards (fp32; their reduce-scatter over ``data`` runs in the
+        # backward) and the experts (in their dtype, where EP leaves the
+        # pods out) over the pods alone
+        self.bytes_parts = {
+            "replicated": 4 * sum(
+                p.numel() for n, p in named.items()
+                if n not in self.expert and n not in self.fsdp)
+            if pctx.dp_size > 1 else 0,
+            "fsdp": 4 * sum(named[n].numel() for n in self.fsdp)
+            if pctx.num_pods > 1 else 0,
+            "experts": sum(named[n].numel() * named[n].element_size()
+                           for n in self.expert) if self.expert_pods else 0}
+        self.bytes = sum(self.bytes_parts.values())
 
     def __call__(self, grads: dict) -> dict:
         from repro_torch.core.collectives import planned_psum
         pctx, dp = self.pctx, self.pctx.dp_size
+        data, pods = pctx.data_size, pctx.num_pods
         with torch.no_grad():
             for name, g in grads.items():
                 if name in self.expert:
                     if self.expert_pods:
-                        dist.all_reduce(g, group=self.mesh.group("pod"))
+                        mesh_ops._all_reduce_(g, self.mesh.group("pod"))
                     g.div_(dp)
+                    continue
+                if name in self.fsdp:
+                    for part in _slices(g):
+                        mean = part.float() / data
+                        if pods > 1:
+                            mean = planned_psum(mean, self.mesh,
+                                                pctx.pod_axis,
+                                                reduce_scheme=self.scheme)
+                        part.copy_(mean)
                     continue
                 if dp == 1:
                     continue
@@ -173,21 +205,24 @@ class GradSync:
         each rank adds the squares of the parts it is the first holder of
         (the replicated leaves on rank 0, the model-axis blocks on the
         first data-parallel rank, of these the segments every model rank
-        holds whole on the first model rank only, each expert shard on its
-        first pod, and on its first model rank too where the expert width
-        is whole on every model rank), and one ``all_reduce`` over the
-        world sums them."""
+        holds whole on the first model rank only, each FSDP shard on its
+        first pod (on every data rank, each its own slice), each expert
+        shard on its first pod, and on its first model rank too where the
+        expert width is whole on every model rank), and one ``all_reduce``
+        over the world sums them."""
         pctx = self.pctx
         first_dp = pctx.dp_index == 0
         first_model = self.mesh.coords[pctx.model_axis] == 0
         first_pod = not self.expert_pods or self.mesh.coords["pod"] == 0
+        pod0 = self.mesh.coords["pod"] == 0
         parts = {}
         for name, g in grads.items():
+            first = pod0 if name in self.fsdp else first_dp
             if name in self.expert:
                 mine = first_pod and (first_model or
                                       name in self.expert_split)
             elif name in self.split:
-                mine = first_dp
+                mine = first
                 if mine and not first_model and name in self.whole_parts:
                     dim, skip = self.whole_parts[name]
                     at = 0
@@ -197,13 +232,13 @@ class GradSync:
                         at = hi
                     continue
             else:
-                mine = self.mesh.rank == 0
+                mine = first and first_model
             if mine:
                 parts[name] = g
         total = (global_norm(parts) ** 2 if parts else
                  torch.zeros((), dtype=torch.float32,
                              device=next(iter(grads.values())).device))
-        dist.all_reduce(total)
+        mesh_ops._all_reduce_(total, self.mesh.world_group())
         return torch.sqrt(total)
 
     def metrics(self, metrics: dict) -> dict:
@@ -213,7 +248,7 @@ class GradSync:
             return metrics
         keys = sorted(metrics)
         vals = torch.stack([metrics[k].detach().float() for k in keys])
-        dist.all_reduce(vals, group=self.mesh.group(*self.pctx.dp_axes))
+        mesh_ops._all_reduce_(vals, self.mesh.group(*self.pctx.dp_axes))
         vals = vals / self.pctx.dp_size
         return dict(zip(keys, vals))
 

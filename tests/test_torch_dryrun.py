@@ -123,6 +123,7 @@ if __name__ == "__main__":
 # ---------------------------------------------------------------------------
 
 import dataclasses  # noqa: E402
+import math  # noqa: E402
 
 import pytest  # noqa: E402
 import torch  # noqa: E402
@@ -301,20 +302,26 @@ def _reduced_dbrx():
 
 def exchanges_on_ranks(mesh, dev, spec) -> dict:
     """On each of 4 gloo ranks of (2, 2, 1): the reduced DBRX's prefill
-    and a training step's loss and backward, every exchange recorded as a
+    and a training step (FSDP over the data axis, the loss, its backward,
+    the gradient sync and the update), every exchange recorded as a
     ``ShapeMesh`` of the same rank records it."""
     from unittest import mock
 
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
         batch_for_model
+    from repro_torch.launch.train import grad_sync_for
     from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
     from repro_torch.parallel import mesh as mesh_ops
     from repro_torch.parallel.context import ParallelContext
-    from repro_torch.runtime.trainer import trainable
+    from repro_torch.runtime.trainer import (TrainState, make_train_step,
+                                             trainable)
     twin = mesh_ops.ShapeMesh(tuple(mesh.shape.values()), rank=mesh.rank)
     names = {id(g): key for key, g in mesh._groups.items()}
 
     def group_of(group):
+        if group is None:                       # the world
+            return twin.world_group()
         key = names[id(group)]
         axes, members = ((key, tuple(range(mesh.axis_size(*key))))
                          if all(isinstance(k, str) for k in key)
@@ -353,10 +360,15 @@ def exchanges_on_ranks(mesh, dev, spec) -> dict:
                                          seq_len, global_batch=shape.
                                          global_batch, seed=0)).batch(0)
             batch = batch_for_model(cfg, raw, device="cpu", pctx=pctx)
+            if shape.kind == "train":           # the step the dry run runs
+                params = sharding.shard_fsdp(params, cfg, pctx)
+                sync = grad_sync_for(cfg, pctx, params, shape.global_batch
+                                     * shape.seq_len // pctx.dp_size)[1]
+                opt = adamw(lr=1e-4)
+                state = TrainState(params, opt.init(trainable(params)), 0)
             twin.log.clear()
             if shape.kind == "train":
-                trainable(params)
-                model.loss(params, batch)[0].backward()
+                make_train_step(model, opt, grad_sync=sync)(state, batch)
             else:
                 batch.pop("labels", None)
                 cache = model.init_cache(batch["tokens"].shape[0],
@@ -436,8 +448,11 @@ def test_meta_train_cell_of_each_family(arch):
     assert args["batch"] == sum(
         torch.Size(s).numel() * dt.itemsize
         for s, dt in dryrun.batch_shapes(cfg, SMALL).values())
-    assert r["memory"]["argument_bytes"] == sum(args.values())
+    # the gradients are made by the step: reported, not an argument
+    assert r["memory"]["argument_bytes"] == sum(args.values()) - weights
     assert r["memory"]["peak_live_bytes"] >= r["memory"]["argument_bytes"]
+    assert sum(r["memory"]["peak_parts"].values()) == \
+        r["memory"]["peak_live_bytes"]
     # the parameters outside the embedding table (a lookup costs no FLOPs)
     n = sum(p.numel() for p in params.parameters()) - params.embed.emb.numel()
     assert r["cost"]["flops_per_device"] > 6 * n * 4 * 32
@@ -461,15 +476,229 @@ def test_launch_train_variant_over_ranks(tmp_path):
     assert "final loss" in out
 
 
-def test_launch_train_refuses_a_variant_it_would_not_run():
-    """``nofsdp`` sets only ``fsdp``, which the running ranks never read:
-    the launcher raises rather than run as if it applied."""
+def test_traffic_counts_storages_made_before_it_once():
+    """Storages that exist when the mode starts (weights, optimizer
+    moments, a cache) count nothing, however an op writes them: in place,
+    through a view, or as an ``out=`` tensor; a storage made inside counts
+    once while it lives."""
+    w = torch.empty(1 << 20, device="meta")
+    m = torch.empty(1 << 20, device="meta")
+    with dryrun.Traffic() as t:
+        w.add_(1)
+        m.mul_(0.9)
+        torch.add(w, 1, out=m)
+        w[:10].zero_()
+        m.view(2, -1).t().mul_(2)
+    assert t.peak == 0
+    with dryrun.Traffic() as t:
+        x = w * 2                       # made inside: 4 MiB
+        x.add_(1)                       # in place: nothing more
+        y = x.view(-1)                  # a view: nothing more
+        del x, y
+        z = torch.empty(1 << 19, device="meta")   # 2 MiB, the first freed
+        z.zero_()
+    assert t.peak == 4 << 20
+
+
+def test_meta_train_cell_counts_gradients_once():
+    """A train cell on one rank: the gradients are made by the step, so
+    they are not in the argument bytes, and the peak holds each once: it
+    falls at the update for a step this small, where every gradient is
+    alive beside the arguments, and its split counts each byte in one
+    part."""
+    cfg = cbase.get_config("mistral_nemo_12b").reduced()
+    r = dryrun.run_cell("mistral_nemo_12b", cbase.ShapeSpec("tiny", 4, 1,
+                                                            "train"),
+                        multi_pod=False, mesh_shape=(1, 1, 1), config=cfg,
+                        verbose=False, fabrics=(), makers=3)
+    mm = r["memory"]
+    args = mm["arguments"]
+    assert mm["argument_bytes"] == (args["weights"] + args["opt_state"]
+                                    + args["batch"])
+    assert mm["peak_parts"]["gradients"] == args["grads"]
+    assert sum(mm["peak_parts"].values()) == mm["peak_live_bytes"]
+    # the largest makers of the bytes at the peak, by op and model code
+    assert len(mm["peak_makers"]) == 3
+    assert all(" @ " in maker for maker in mm["peak_makers"])
+    assert sum(mm["peak_makers"].values()) <= mm["temp_bytes"]
+
+
+def _cpu_peak(cfg, batch: int, seq: int) -> int:
+    """The peak of the bytes the CPU allocator holds over one fp32 train
+    step of ``cfg`` on one rank, from ``torch.profiler``'s allocation
+    events (those made before the step aside)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, \
+        batch_for_model
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import (TrainState, make_train_step,
+                                             trainable)
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    params = model.init(torch.Generator().manual_seed(0))
+    opt = adamw(lr=1e-4)
+    state = TrainState(params, opt.init(trainable(params)), 0)
+    raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                 global_batch=batch, seed=0)).batch(0)
+    data = batch_for_model(cfg, raw, device="cpu")
+    step = make_train_step(model, opt)
+    with profile(activities=[ProfilerActivity.CPU],
+                 profile_memory=True) as prof:
+        step(state, data)
+    now = peak = 0
+    for e in sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.name() == "[memory]"), key=lambda e: e.start_ns()):
+        now += e.nbytes()
+        peak = max(peak, now)
+    return peak
+
+
+@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "gemma2_9b",
+                                  "dbrx_132b", "zamba2_7b", "rwkv6_7b",
+                                  "seamless_m4t_medium"])
+def test_predicted_peak_matches_the_cpu_allocator(arch, monkeypatch):
+    """A small fp32 model's train step on one rank: the meta prediction's
+    peak (arguments plus :class:`~repro_torch.launch.dryrun.Traffic`'s
+    peak) within 10% of the arguments plus the peak the CPU allocator
+    held over the same step (``torch.profiler``'s memory events).  Both
+    run the kernels' plain versions, the CPU's program; the dry run's
+    modules are built in fp32 (``models.api``'s builders patched)."""
+    from repro_torch.models import api
+    for name in ("build_model", "param_module"):
+        monkeypatch.setattr(api, name, lambda *a, real=getattr(api, name),
+                            **kw: real(*a, **dict(kw, dtype=torch.float32)))
+    cfg = cbase.get_config(arch).reduced()
+    with ranks._plain_kernels():
+        r = dryrun.run_cell(arch, cbase.ShapeSpec("small", 64, 8, "train"),
+                            multi_pod=False, mesh_shape=(1, 1, 1),
+                            config=cfg, verbose=False, fabrics=())
+        held = _cpu_peak(cfg, 8, 64)
+    mm = r["memory"]
+    ratio = mm["peak_live_bytes"] / (mm["argument_bytes"] + held)
+    assert 0.9 <= ratio <= 1.1, ratio
+
+
+def _fsdp_analytic(params, cfg, pctx) -> dict:
+    """The FSDP exchanges of one train step on paper: each data-cut
+    leaf's weight all-gather over ``data`` in the forward and its
+    gradient's reduce-scatter, wire bytes by ``parallel.mesh``'s factors
+    (the dry run's own pricing before it executed FSDP)."""
+    data = pctx.data_size
+    parts = sharding.fsdp_parts(params, cfg, pctx) if pctx.fsdp else {}
+    return {"all-gather": sum(whole * (data - 1) // data
+                              for _, whole in parts.values()),
+            "reduce-scatter": sum(held * (data - 1)
+                                  for held, _ in parts.values())}
+
+
+@pytest.mark.parametrize("mesh", [(1, 2, 2), (2, 2, 1), (1, 4, 1)])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_executed_fsdp_bytes_equal_the_analytic(arch, mesh):
+    """Each family's reduced train cell under FSDP (remat "full", the dry
+    run's default): the data axis's all-gathers of the forward and
+    reduce-scatters of the backward equal the analytic figures, and each
+    block's recompute gathers its weights again (``regather``); the
+    weights a rank holds are ``sharding.param_shapes``'."""
+    cfg = cbase.get_config(arch).reduced()
+    pctx = shape_pctx(shape=mesh)
+    whole = param_module(cfg, device="meta", dtype=torch.bfloat16, pctx=pctx)
+    r = dryrun.run_cell(arch, SMALL, multi_pod=mesh[0] > 1, mesh_shape=mesh,
+                        config=cfg, verbose=False, fabrics=())
+    got = r["collectives"]["fsdp"]
+    want = _fsdp_analytic(whole, cfg, pctx)
+    assert want["all-gather"] > 0
+    assert {k: got[k] for k in want} == want
+    assert got["regather"] > 0
+    assert r["memory"]["arguments"]["weights"] == sum(
+        math.prod(s) * p.element_size() for s, p in zip(
+            sharding.param_shapes(whole, cfg, pctx).values(),
+            whole.parameters()))
+
+
+def _chunk_loss_by_autograd(hh, emb, ll, tied, final_softcap, ignore):
+    """The chunk's summed nll as plain ops, differentiated by autograd."""
+    logits = hh @ (emb.T if tied else emb).to(hh.dtype)
+    lf = logits.float()
+    if final_softcap is not None:
+        lf = final_softcap * torch.tanh(lf / final_softcap)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, ll.clamp(min=0).long()[..., None])[..., 0]
+    mask = ll != ignore
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("cap", [None, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_nll_backward_is_autograds(dtype, cap, tied):
+    """``layers._ChunkNLL``'s backward in one fp32 buffer gives autograd's
+    bits: the nll, and the gradients of the activations and the table."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(3)
+    hh = torch.randn(3, 8, 16, generator=gen).to(dtype).requires_grad_(True)
+    emb = torch.randn(*((50, 16) if tied else (16, 50)), generator=gen
+                      ).to(dtype).requires_grad_(True)
+    ll = torch.randint(0, 50, (3, 8), generator=gen)
+    ll[0, :3] = -1
+    got = []
+    for fn in (_chunk_loss_by_autograd, L._chunk_loss):
+        hh.grad = emb.grad = None
+        nll, count = fn(hh, emb, ll, tied, cap, -1)
+        (0.37 * nll).backward()
+        got.append((nll.detach(), count, hh.grad, emb.grad))
+    for want, mine in zip(*got):
+        assert torch.equal(want, mine)
+
+
+def test_sequence_cut_is_a_tensor_of_its_own():
+    """A rank's block of the positions (``parallel.mesh.split``, the
+    residual's cut between blocks) does not share the whole sequence's
+    storage, with and without a gradient: under remat a block's output is
+    kept for the backward, and a view of it kept every block's whole
+    sequence (DBRX ``train_4k``: 30 GB a rank)."""
+    from repro_torch.parallel import mesh as mesh_ops
+    group = shape_pctx(shape=(1, 1, 4)).mesh.group("model")
+    for grad in (False, True):
+        x = torch.randn(2, 8, 3, requires_grad=grad)
+        part = mesh_ops.split(x, group, 4, 2, dim=1)
+        assert torch.equal(part, x[:, 4:6])
+        assert part.untyped_storage().data_ptr() != \
+            x.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("variant", ["default", "nofsdp"])
+def test_launch_train_nofsdp_trains_replicated(tmp_path, variant):
+    """``launch.train`` over 2 data ranks: by default (the reference's
+    ``fsdp=True``) the parameters are FSDP-sharded over ``data``; under
+    ``--variant nofsdp`` every leaf is replicated; both train."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           "--arch", "mistral_nemo_12b", "--smoke", "--device", "cpu",
+           "--ep", "2", "--backend", "gloo", "--steps", "2", "--batch", "2",
+           "--seq", "16"] + ([] if variant == "default"
+                             else ["--variant", variant])
+    res = subprocess.run(cmd, env=env, cwd=tmp_path, capture_output=True,
+                         text=True, timeout=240)
+    out = res.stdout + res.stderr
+    assert res.returncode == 0, out[-4000:]
+    assert "final loss" in out
+    if variant == "default":
+        assert "parameters: FSDP over 2 data ranks" in out
+    else:
+        assert "parameters: replicated over the 2 data-parallel ranks" in out
     from repro_torch.launch import train
-    cfg = cbase.get_config("zamba2_7b").reduced()
-    pctx = shape_pctx(shape=(1, 1, 2))
-    with pytest.raises(ValueError, match="fsdp"):
-        train.variant_context(pctx, "nofsdp", None, cfg, 2, 16)
-    got = train.variant_context(pctx, "nosp", None, cfg, 2, 16)
+    cfg = cbase.get_config("mistral_nemo_12b").reduced()
+    pctx = train.variant_context(shape_pctx(shape=(1, 2, 1)), variant if
+                                 variant != "default" else "mw", None, cfg,
+                                 2, 16)
+    assert pctx.fsdp == (variant == "default")
+    # ``nosp`` turns sequence parallelism off; the plan policy is "auto"
+    # unless pinned
+    got = train.variant_context(shape_pctx(shape=(1, 1, 2)), "nosp", None,
+                                cfg, 2, 16)
     assert not got.seq_parallel and got.plan_policy == "auto"
 
 

@@ -185,7 +185,7 @@ def test_target_embedding_scale_bites(seamless, reference):
         assert np.abs(_np(scaled[:, 0]) - want[0]).max() > 100 * TOL["atol"]
         cache = model.init_cache(B, S + ROOM, torch.float32)
         model.prefill(tparams, tbatch, cache)
-        x = L.embed(tparams.embed, torch.from_numpy(nxt[0])[:, None])
+        x = L.embed(tparams.embed.emb, torch.from_numpy(nxt[0])[:, None])
         unscaled, _ = T.decode_step_encdec(tparams, cfg, x, cache)
     assert np.abs(_np(unscaled[:, 0]) - want[1]).max() > 100 * TOL["atol"]
 
