@@ -43,39 +43,50 @@ Phases; any failure raises and the script exits non-zero:
    size);
 6. ranks: DBRX-132B (4 layers) over 4 spawned ranks, 2 pods x 2 ep ranks
    of 4 experts, one prompt a rank (nccl with a card a rank where there are
-   4 cards, else gloo with all ranks on card 0): the three MoE scheme pairs
+   4 cards, else all ranks on card 0 over the card transport: the
+   exchanges through the card's memory, gloo for control; there the spawn
+   first holds each of the five exchanges against gloo's on the same
+   ranks at the served and trained shapes, the byte movers bit-exact, the
+   sums the same bits on every member in group-rank order within the
+   summation bound of the fp64 sum): the three MoE scheme pairs
    at one chunk, the hierarchical pair at G = 4 chunks, and a run under the
    planner's plan for the fabric the ranks measured, with the planner's
    decisions on that fabric and on a slow pod link; every rank's tokens
    equal, equal across the pairs and to a one-rank run up to near ties,
    exact launch counts, every pack of each warm-up bit-exact, and the
    pod-group bytes of one prefill dispatch below the baseline's; decode
-   eager over gloo (its exchanges are host-staged) and graphed over nccl;
+   eager over the card transport (its exchanges meet at host barriers)
+   and graphed over nccl;
    and a continuous run under planner admission whose batch crosses a
    bucket: every request completed, a plan swap and no cold retrace;
 7. Kimi-K2-1T at full width (depth 2 on one card, 4 on four) over 16
-   spawned gloo ranks, 2 pods x 8 ep ranks of 24 experts, laid over the
+   spawned ranks (the card transport on one card, gloo over four), 2 pods
+   x 8 ep ranks of 24 experts, laid over the
    cards present, the non-expert weights made once a card and shared with
    its ranks as CUDA IPC handles: the three scheme pairs, a planned run
    and its fixed twin, one prompt of 512 tokens a rank, capacity factor 2;
    gates as phase 6's where they apply, plus the pairs each run drops and
    each rank's memory;
 8. tensor parallelism over 4 spawned ranks (nccl with a card a rank where
-   there are 4 cards, else gloo on card 0): Mistral-NeMo-12B at full width
+   there are 4 cards, else the card transport on card 0): Mistral-NeMo-12B
+   at full width
    over (1, 1, 4) at ``tp_subgroups`` 1, 2 fixed and 2 planned, against a
    one-rank run of the same weights, and the split-TP MultiWrite gather
-   alone at the served fragment; then DBRX (4 layers) over (1, 2, 2) with
-   the experts' TP reduction per expert and deferred.  Within a run every
+   alone at the served fragment; then, on the same spawn over a mesh of
+   its own, DBRX (4 layers) over (1, 2, 2) with the experts' TP
+   reduction per expert and deferred.  Within a run every
    rank's tokens equal, the three Mistral runs bit-identical, near ties
    against one rank, the gather bit-exact, every pack bit-exact;
 9. the telemetry loop over 4 spawned ranks (as phase 6 and 8 lay them
    out): DBRX (4 layers) over 2 x 2 calibrates with a ``LiveProbe`` (the
-   dispatch and combine plans, the directed rail probes), plans its serve
+   dispatch and combine plans, the directed rail probes at 32 to 512 MB,
+   where the card transport's rate shows beside its fixed cost), plans its serve
    program on the datasheet and on the fitted model and serves under the
-   calibrated plan beside its fixed twin and the fixed hierarchical and
-   baseline pairs; Mistral-NeMo's model axis over (1, 1, 4) sweeps the
-   AllGather plans and sets the planner's split-TP pick, datasheet
-   against calibrated, beside the gather's measured walls.  Every rank's
+   calibrated plan beside its fixed twin (their walls beside phase 6's
+   fixed pairs on the same spawn and weights); Mistral-NeMo's model axis
+   over (1, 1, 4) sweeps the AllGather plans and sets the planner's
+   split-TP pick, datasheet against calibrated, beside the gather's
+   measured walls.  Every rank's
    walls the same bits, no probe failed, the calibrated model differs
    from the datasheet, every rank binds the same plan, every pack
    bit-exact, the calibrated run's tokens its twin's up to near ties;
@@ -105,8 +116,9 @@ Phases; any failure raises and the script exits non-zero:
    into a fresh trainer that must reach the same losses.  Gates: finite
    losses and gradient norms, a falling loss, exact launch counts;
 11. training over ranks (nccl with a card a rank where there are 4 cards,
-   else 4 gloo processes on card 0): a reduced DBRX over 2 x 2 against
-   one rank on the card (step-0 ce and every synced gradient's cosine);
+   else 4 processes on card 0 over the card transport): a reduced DBRX
+   over 2 x 2 against one rank on the card (step-0 ce and every synced
+   gradient's cosine);
    DBRX-132B at full width over 2 pods x 2 ep ranks, 4 x 512 tokens
    (depth 1 and 6 steps on one card, depth 2 and 8 steps on four), FSDP
    over the data axis (the reference's default; each rank's weight,
@@ -147,12 +159,12 @@ Phases; any failure raises and the script exits non-zero:
 14. the hybrid, rwkv and encoder-decoder families and a decoder whose kv
    heads are replicated over the model axis, served over 4 spawned
    tensor-parallel ranks (1, 1, 4) (nccl with a card a rank where there
-   are 4 cards, decode graphed; else 4 gloo processes on card 0, decode
-   eager), one spawn serving the four one after another at full width, 4
-   prompts x 512 tokens, seed-0 random weights, greedy: Zamba2-7B (28 of
-   112 SSM heads a rank, the SSD and conv states split, out_norm's sum of
-   squares summed over the ranks), RWKV6-7B (16 of 64 heads a rank),
-   SeamlessM4T-medium (4 of 16 heads a rank, cross-attention over the
+   are 4 cards, decode graphed; else 4 processes on card 0 over the card
+   transport, decode eager), one spawn serving the four one after another
+   at full width, 4 prompts x 512 tokens, seed-0 random weights, greedy:
+   Zamba2-7B (28 of 112 SSM heads a rank, the SSD and conv states split,
+   out_norm's sum of squares summed over the ranks), RWKV6-7B (16 of 64
+   heads a rank), SeamlessM4T-medium (4 of 16 heads a rank, cross-attention over the
    whole encoder output) and Qwen2-VL-2B's backbone with the KV length
    unsharded (its 2 kv heads over 4 ranks replicated); on four cards at
    full depth with 32 new tokens, on one card Zamba2 at 24 of 81 blocks
@@ -316,6 +328,12 @@ KIMI_PROMPT_LEN = 512                   # phase 7: one prompt a rank
 # phase 7's (depth, new tokens) on one card and on four
 KIMI_DEPTH = {1: (2, 8), 4: (4, 32)}
 RANKS_CF = 4.0                          # phases 6, 8: num_experts / top_k
+# over ranks: nccl with a card a rank where there are as many cards as
+# ranks, else every rank on card 0 over the card transport
+# (``RankMesh(transport="card")``: the exchanges through the card's memory
+# beside a gloo group for control traffic)
+CARD_WHERE = ("the card transport, {world} processes on one card: "
+              "exchanges through the card's memory, gloo for control")
 TP_MESH = (1, 1, 4)                     # phase 8: pods x data x model
 DBRX_TP_MESH = (1, 2, 2)
 # phase 8's Mistral-NeMo depth and new tokens on one card and on four:
@@ -330,9 +348,13 @@ PROMPTS, PROMPT_LEN, MAX_NEW = 4, 512, 32
 # Poisson at 500 a second of the virtual clock (cohorts of 1 to 3)
 CONTINUOUS = dict(requests=12, prompt_len=512, max_new=8, arrival_rate=500.0)
 # phase 6's: groups of one request a rank, a batch bucket crossed
-# phase 9: the dispatch/combine probes' tokens a rank, the AllGather probes'
-# bytes a rank (the reference's sweep below 64 MB), new tokens a served run
+# phase 9: the dispatch/combine probes' tokens a rank, the directed rail
+# probes' bytes (above the card transport's 64 MB piece, where its rate
+# shows beside the fixed cost of an exchange, about 0.8 ms with four
+# processes on one card), the AllGather probes' bytes a rank (the
+# reference's sweep below 64 MB), new tokens a served run
 CAL_TOKENS = (32, 128, 512)
+CAL_DIRECTIONS = (32 << 20, 128 << 20, 256 << 20, 512 << 20)
 CAL_GATHER = (256 << 10, 1 << 20, 4 << 20, 16 << 20)
 CAL_NEW = 8
 RANKS_CONTINUOUS = dict(requests=12, prompt_len=512, max_new=8, rate=1e5,
@@ -346,6 +368,20 @@ GEMMA_SOFTCAP, GEMMA_WINDOW = 50.0, 4096
 # bf16 tolerance (tests/test_kernels.py)
 SCAN_TOL = dict(atol=5e-2, rtol=5e-2)
 REF_TOL = 5e-2                          # of max |logit|, bf16 vs fp32 model
+
+
+def ranks_backend(cards: int, world: int = 4) -> str:
+    """How ``world`` ranks run on ``cards`` cards: ``"nccl"`` (a card a
+    rank) or ``"card"`` (every rank on card 0 over the card transport)."""
+    return "nccl" if cards >= world else "card"
+
+
+def backend_keys(backend: str) -> dict:
+    """A rank spec's ``backend`` (and ``transport``) for
+    :func:`ranks_backend`'s answer."""
+    if backend == "nccl":
+        return dict(backend="nccl")
+    return dict(backend="gloo", transport="card")
 
 
 def spawn_split(results: list, what: str) -> None:
@@ -1882,11 +1918,10 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None,
     exact = cf >= cfg.num_experts / cfg.top_k
     world = RANKS[0] * RANKS[1]
     cards = torch.cuda.device_count()
-    backend = "nccl" if cards >= world else "gloo"
+    backend = ranks_backend(cards, world)
     where = ("nccl, one card a rank over NVLink: no pod link is slower"
              if backend == "nccl" else
-             f"gloo, {world} processes on one card, host-staged transport: "
-             f"no fabric measured")
+             CARD_WHERE.format(world=world) + ": no fabric measured")
     print(f"  {cards} card(s): {world} ranks over {where}; capacity factor "
           f"{cf}")
     prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
@@ -1940,15 +1975,19 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None,
                 trace=(dict(run=ranks.run_label(runs[3]), path=trace)
                        if trace else None))
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        spec = dict(world=world, pods=RANKS[0], ep=RANKS[1], backend=backend,
-                    device="cuda:0", init_method=f"file://{tmp}/store",
+        spec = dict(world=world, pods=RANKS[0], ep=RANKS[1],
+                    **backend_keys(backend), device="cuda:0",
+                    init_method=f"file://{tmp}/store",
                     timeout_s=600 if carry else 120, out_dir=f"{tmp}/out",
                     threads=2, cfg=cfg, dtype=torch.bfloat16,
                     cache_dtype=torch.bfloat16, seed=0, prompts=prompts,
                     warmup=True, dp_servers=(RANKS[0],) if carry else (),
-                    models=[mine] + ([calibration_entry(cfg),
-                                      train_entry("dbrx", backend)]
-                                     if carry else []))
+                    models=([transport_entry(cfg, serve_config(
+                        "mistral_nemo_12b", layers=None, smoke=False))]
+                        if backend == "card" else []) + [mine]
+                    + ([calibration_entry(cfg),
+                        train_entry("dbrx", backend)]
+                       if carry else []))
         t0 = time.monotonic()
         spawned = ranks.run_ranks(ranks.serve_worker, spec,
                                   timeout_s=1800 if carry else 900)
@@ -1964,12 +2003,21 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None,
           f"{max(r['peak_gb'] for r in results):.2f} GB")
     spawn_split(spawned, "the spawn")
 
-    failures = report_planner(results, world)
+    failures = []
+    if backend == "card":
+        print("  the card transport against gloo on the same 4 ranks, "
+              "before the served runs:")
+        failures += report_transport([r["models"]["transport"]
+                                      for r in spawned])
+    staged = max(sum(r["staging"].values()) for r in results)
+    print(f"  staging a rank after the served runs: {staged / 1e6:.1f} MB")
+    failures += report_planner(results, world)
     found, total, walls = check_served(results, runs, cfg, MAX_NEW, where,
                                        exact)
     failures += found
     failures += check_decode_mode(results, backend)
     failures += check_continuous(results)
+    MEASURED["phase 6 walls"] = walls
     r0 = results[0]
     labels = [ranks.run_label(run) for run in runs]
     pairs = labels[:3]
@@ -2022,6 +2070,125 @@ def ranks_phase(cf: float = RANKS_CF, trace: str | None = None,
 
 
 # ---------------------------------------------------------------------------
+# phase 6's check of the card transport against gloo
+# ---------------------------------------------------------------------------
+
+# the GradSync slice (32 M fp32 elements) and the barriers timed
+GRAD_SLICE = 32 << 20
+TRANSPORT_BARRIERS = 2000
+
+
+def transport_entry(cfg, mistral) -> dict:
+    """The exchanges phase 6's spawn holds on the card transport against
+    gloo, as a ``ranks.serve_worker`` entry, at the shapes the served and
+    trained runs give them: the three token exchanges of a DBRX prefill
+    dispatch over 2 x 2 (4 x 512 tokens, capacity factor ``RANKS_CF``:
+    MultiWrite's stage 1 over the pod axis and stage 2 over the data axis,
+    the baseline's over the data-parallel pair) and its expert ids and
+    slot flags; FSDP's gather and reduce-scatter of DBRX's unembedding
+    shard over the data axis (phase 11) and a ``GradSync`` slice's
+    all-reduce over the pods; over a (1, 1, 4) mesh of the same processes
+    Mistral-NeMo's row-parallel all-reduce at 4 x 512 tokens, a split-TP
+    domain's gather of the served fragment ([4, 128, 5120] a rank, phase
+    8) and a ppermute of it."""
+    from repro_torch.models import moe as M
+    p, d = RANKS
+    rows = PROMPTS * PROMPT_LEN // (p * d)
+    k, h = cfg.top_k, cfg.d_model
+    dcfg = M.balanced_capacities(rows, k, p, d, cfg.num_experts // (p * d),
+                                 cfg.moe_capacity)
+    cp = max(1, int(round(rows * dcfg.pod_capacity)))
+    cd = max(1, int(round(p * cp * dcfg.ep_capacity)))
+    cr = max(1, int(round(rows * min(1.0, k / (p * d))
+                          * cfg.moe_capacity)))
+    shard = (cfg.vocab // d, h)
+    tp = (1, 1, 4)
+    frag = (PROMPTS, PROMPT_LEN // 4, mistral.d_model)
+    cases = [
+        ("stage 1 tokens", "all_to_all", "pod", None, (p, cp, h),
+         "bfloat16"),
+        ("stage 1 expert ids", "all_to_all", "pod", None, (p, cp, k),
+         "int32"),
+        ("stage 2 tokens", "all_to_all", "data", None, (d, cd, h),
+         "bfloat16"),
+        ("stage 2 slot flags", "all_to_all", "data", None, (d, cd), "bool"),
+        ("baseline tokens", "all_to_all", ("pod", "data"), None,
+         (p * d, cr, h), "bfloat16"),
+        ("FSDP unembedding gather", "all_gather", "data", None, shard,
+         "bfloat16"),
+        ("FSDP unembedding reduce-scatter", "reduce_scatter", "data", None,
+         (d, *shard), "bfloat16"),
+        ("GradSync slice all-reduce", "all_reduce", "pod", None,
+         (GRAD_SLICE,), "float32"),
+    ]
+    out = [dict(name=n, kind=kd, axis=a, members=m, shape=sh, dtype=dt)
+           for n, kd, a, m, sh, dt in cases]
+    out += [dict(name="TP row-parallel all-reduce", kind="all_reduce",
+                 mesh=tp, axis="model", shape=(PROMPTS, PROMPT_LEN,
+                                               mistral.d_model),
+                 dtype="bfloat16"),
+            dict(name="split-TP domain gather", kind="all_gather", mesh=tp,
+                 axis="model", members=((0, 1), (2, 3)), shape=frag,
+                 dtype="bfloat16"),
+            dict(name="model-axis ppermute", kind="ppermute", mesh=tp,
+                 axis="model", shape=frag, dtype="bfloat16")]
+    return dict(name="transport", transport_check=dict(
+        cases=out, barriers=TRANSPORT_BARRIERS))
+
+
+def report_transport(results: list) -> list:
+    """Print phase 6's transport check (:func:`transport_entry`) and gate
+    it: each byte mover's output the bits of gloo's on every rank; each
+    sum the same bits on every member (an all-reduce's digest; every
+    member's reduce-scatter block), in group-rank order, and within the
+    recursive summation bound ``(n - 1) u sum|x|`` of the fp64 sum in the
+    tensor's dtype.  Returns the failures."""
+    failures = []
+    r0 = results[0]
+    for name, c in r0["cases"].items():
+        per = [r["cases"][name] for r in results]
+        line = (f"    {name}: {c['kind']} over {len(c['group'])}, "
+                f"{list(c['shape'])} {c['dtype']} a rank "
+                f"({c['bytes'] / 1e6:.2f} MB): card {c['card_ms']:.3f} ms, "
+                f"gloo {c['gloo_ms']:.3f} ms (x"
+                f"{c['gloo_ms'] / max(c['card_ms'], 1e-9):.1f}); ")
+        if c["kind"] in ("all_reduce", "reduce_scatter"):
+            err = max(x["fp64_err"] for x in per)
+            gerr = max(x["gloo_fp64_err"] for x in per)
+            order = all(x["rank_order"] for x in per)
+            over = sum(x["over_bound"] for x in per)
+            digests: dict = {}
+            for x in per:
+                digests.setdefault(tuple(x["group"]), set()).add(x["digest"])
+            same = (c["kind"] == "reduce_scatter"
+                    or all(len(v) == 1 for v in digests.values()))
+            agree = ("the same bits on every member" if same
+                     else "members DIFFER")
+            line += (f"group-rank order {'yes' if order else 'NO'}, {agree}"
+                     f", |err| vs fp64 {err:.3e} (gloo's {gerr:.3e}), "
+                     f"{over} elements past the summation bound")
+            if not (order and same and over == 0):
+                failures.append(f"transport {name}: order {order}, same "
+                                f"{same}, past the bound {over}")
+        else:
+            exact = all(x["same_bits"] for x in per)
+            line += f"{'bit-exact' if exact else 'NOT bit-exact'} vs gloo"
+            if not exact:
+                failures.append(f"transport {name}: not gloo's bits")
+        print(line)
+    b = r0["barrier_us"]
+    print(f"    one barrier of the 4 ranks: the card transport's flags "
+          f"{b['card']:.1f} us (mean of {b['card_n']}), gloo's "
+          f"{b['gloo']:.1f} us (mean of {b['gloo_n']}); the slowest rank's")
+    for rank, r in enumerate(results):
+        st = r["staging"]
+        print(f"    rank {rank} staging after the check: " + ", ".join(
+            f"mesh {k}: card {v['card'] / 1e6:.1f} MB, host "
+            f"{v['host'] / 1e6:.1f} MB" for k, v in st.items()))
+    return failures
+
+
+# ---------------------------------------------------------------------------
 # phase 7: Kimi-K2-1T over 16 ranks, 2 pods x 8 ep ranks
 # ---------------------------------------------------------------------------
 
@@ -2063,8 +2230,12 @@ def kimi_phase(layers: int, max_new: int) -> dict:
                               moe_capacity=KIMI_CF)
     world = KIMI_RANKS[0] * KIMI_RANKS[1]
     cards = torch.cuda.device_count()
-    where = (f"gloo, {world} processes over {cards} card(s), host-staged "
-             f"transport: no fabric measured")
+    # every rank on one card: the card transport; over several cards
+    # gloo, which stages each exchange through the host
+    backend = "card" if cards == 1 else "gloo"
+    where = (CARD_WHERE.format(world=world) if backend == "card" else
+             f"gloo, {world} processes over {cards} cards, host-staged "
+             f"transport") + ": no fabric measured"
     print(f"  {cfg.name}: {cfg.n_layers} layers ({cfg.first_k_dense} "
           f"dense), d_model {cfg.d_model}, {cfg.n_heads} heads / "
           f"{cfg.n_kv_heads} kv (head_dim {cfg.head_dim}), {cfg.num_experts}"
@@ -2078,7 +2249,8 @@ def kimi_phase(layers: int, max_new: int) -> dict:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         spec = dict(world=world, pods=KIMI_RANKS[0], ep=KIMI_RANKS[1],
-                    backend="gloo", device="cuda",
+                    **(backend_keys("card") if backend == "card" else
+                       dict(backend="gloo")), device="cuda",
                     init_method=f"file://{tmp}/store", timeout_s=300,
                     out_dir=f"{tmp}/out", threads=1, cfg=cfg,
                     dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
@@ -2126,7 +2298,8 @@ def check_kimi(results: list, runs: list, cfg, max_new: int) -> list:
               f"GB, allocated by the rank after building them "
               f"{mem['own_gb']:.2f} GB (reserved {mem['reserved_gb']:.2f}); "
               f"card free once all ranks built {mem['card_free_gb']:.2f} GB;"
-              f" peak {r['peak_gb']:.2f} GB")
+              f" peak {r['peak_gb']:.2f} GB; its card-transport staging "
+              f"{r['staging']['card'] / 1e9:.3f} GB (within the peak)")
         # the shared weights were opened, not copied: the rank allocated
         # little beyond its experts
         if mem["own_gb"] > mem["experts_gb"] + 1.0:
@@ -2195,7 +2368,7 @@ def tp_spec(tmp: str, mesh: tuple, backend: str, cfg, runs: list,
     import torch
     pods, ep, tp = mesh
     return dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
-                backend=backend, device="cuda:0",
+                **backend_keys(backend), device="cuda:0",
                 init_method=f"file://{tmp}/store", timeout_s=300,
                 out_dir=f"{tmp}/out", threads=2, cfg=cfg,
                 dtype=torch.bfloat16, cache_dtype=torch.bfloat16, seed=0,
@@ -2204,7 +2377,8 @@ def tp_spec(tmp: str, mesh: tuple, backend: str, cfg, runs: list,
 
 def tp_phase(carry: bool = False) -> dict:
     """Tensor parallelism over 4 spawned ranks: nccl with a card a rank
-    where there are 4 cards, else gloo with all ranks on card 0.
+    where there are 4 cards, else all ranks on card 0 over the card
+    transport.
 
     Mistral-NeMo-12B at full width over (1, 1, 4), 4 prompts x 512 tokens,
     32 new, greedy, seed 0 (``TP_DEPTH``: 40 layers on four cards, cut on
@@ -2244,13 +2418,12 @@ def tp_phase(carry: bool = False) -> dict:
     from repro_torch.runtime.server import ServeConfig
 
     cards = torch.cuda.device_count()
-    backend = "nccl" if cards >= 4 else "gloo"
+    backend = ranks_backend(cards)
     depth = TP_DEPTH[4 if cards >= 4 else 1]
     new = TP_NEW[4 if cards >= 4 else 1]
     cfg = serve_config("mistral_nemo_12b", layers=depth, smoke=False)
     where = ("nccl, one card a rank" if backend == "nccl" else
-             "gloo, 4 processes on one card, host-staged transport: the "
-             "walls time the host's copies")
+             CARD_WHERE.format(world=4))
     print(f"  {cards} card(s): 4 ranks over {where}; Mistral-NeMo-12B at "
           f"full width, depth {depth} of 40"
           + ("" if depth == 40 else " (cut on one card to stay within the "
@@ -2295,6 +2468,18 @@ def tp_phase(carry: bool = False) -> dict:
     frag = (PROMPTS, PROMPT_LEN // 4, cfg.d_model)
     mine = dict(name="phase 8", runs=runs, max_new=new,
                 gather=dict(shape=frag, reps=5))
+    # DBRX, 4 layers, over (1, 2, 2): TP inside the experts, on the same
+    # spawn over a mesh of its own
+    dbrx = dataclasses.replace(
+        serve_config("dbrx_132b", layers=4, smoke=False),
+        moe_capacity=RANKS_CF)
+    dbrx_runs = [dict(label="per-expert all_reduce", deferred=False),
+                 dict(label="deferred all_reduce", deferred=True)]
+    pods, ep, tp = DBRX_TP_MESH
+    dbrx_entry = dict(name="phase 8 dbrx", mesh=DBRX_TP_MESH, pods=pods,
+                      ep=ep, tp=tp, cfg=dbrx, runs=dbrx_runs,
+                      max_new=MAX_NEW,
+                      prompts=make_prompts(dbrx, PROMPTS, PROMPT_LEN, seed=0))
     carried = ([gather_probe_entry()]
                + tp_families_models(tp_families_served(cards >= 4),
                                     TP_FAMILIES_NEW[4 if cards >= 4 else 1])
@@ -2303,7 +2488,7 @@ def tp_phase(carry: bool = False) -> dict:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.monotonic()
         spec = tp_spec(tmp, TP_MESH, backend, cfg, [], prompts=prompts,
-                       models=[mine] + carried)
+                       models=[mine, dbrx_entry] + carried)
         if carry:   # phase 11's training: the gradient mean's groups
             spec.update(timeout_s=600, dp_servers=(TP_MESH[0],))
         spawned = ranks.run_ranks(ranks.serve_worker, spec,
@@ -2317,10 +2502,10 @@ def tp_phase(carry: bool = False) -> dict:
         CARRIED["train tp families"] = [
             r["models"]["phase 14 tp families"] for r in spawned]
     print(f"  4 ranks spawned, served and joined in "
-          f"{time.monotonic() - t0:.1f} s"
-          + (" (phase 9's probes of the mesh, phase 14's models and their "
-             "training and phase 11's Mistral-NeMo training included)"
-             if carry else ""))
+          f"{time.monotonic() - t0:.1f} s (DBRX over {DBRX_TP_MESH}"
+          + (", phase 9's probes of the mesh, phase 14's models and their "
+             "training and phase 11's Mistral-NeMo training" if carry
+             else "") + " included)")
     spawn_split(spawned, "the spawn")
     failures = check_decode_mode(results, backend)
     total: dict = {}
@@ -2332,8 +2517,9 @@ def tp_phase(carry: bool = False) -> dict:
               f"{mem['all_gb']:.2f} GB, peak {r['peak_gb']:.2f} GB")
     g = r0["gather"]
     print(f"  split-TP gather alone, {g['shape']} bf16 a rank "
-          f"({g['bytes'] / 1e6:.2f} MB), 2 domains of 2: walls ({backend}"
-          f"{', host-staged' if backend == 'gloo' else ''}; median of 5, "
+          f"({g['bytes'] / 1e6:.2f} MB), 2 domains of 2: walls ("
+          f"{'the card transport' if backend == 'card' else backend}; "
+          f"median of 5, "
           f"the slowest rank's) " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in g["wall_ms"].items())
           + f"; the planner picks {g['plan']} (mode {g['mode']}, split "
@@ -2403,24 +2589,13 @@ def tp_phase(carry: bool = False) -> dict:
           f"(limit {REF_TOL})")
     if not rel < REF_TOL or gap > REF_TOL:
         failures.append(f"4 ranks vs one: logits {rel:.3e}, gap {gap:.3e}")
-    del results
-    gc.collect()
 
-    # DBRX, 4 layers, over (1, 2, 2): TP inside the experts
-    dbrx = dataclasses.replace(serve_config("dbrx_132b", layers=4,
-                                            smoke=False), moe_capacity=RANKS_CF)
-    runs = [dict(label="per-expert all_reduce", deferred=False),
-            dict(label="deferred all_reduce", deferred=True)]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.monotonic()
-        results = ranks.run_ranks(ranks.serve_worker, tp_spec(
-            tmp, DBRX_TP_MESH, backend, dbrx, runs,
-            prompts=make_prompts(dbrx, PROMPTS, PROMPT_LEN, seed=0)),
-            timeout_s=900)
-    print(f"  DBRX-132B, 4 layers, over (1, 2, 2), capacity factor "
-          f"{RANKS_CF}: 4 ranks spawned, served and joined in "
-          f"{time.monotonic() - t0:.1f} s")
-    spawn_split(results, "the spawn")
+    # DBRX, 4 layers, over (1, 2, 2), served on the same spawn
+    results = [r["models"]["phase 8 dbrx"] for r in spawned]
+    runs = dbrx_runs
+    print(f"  DBRX-132B, 4 layers, over {DBRX_TP_MESH}, capacity factor "
+          f"{RANKS_CF}: served on the spawn above over a mesh of its own "
+          f"(its stretch \"model phase 8 dbrx\" in the split)")
     failures += check_decode_mode(results, backend)
     moe_layers = dbrx.n_layers - dbrx.first_k_dense
     want = launch_counts(dispatch_pack=moe_layers * 3 * MAX_NEW,
@@ -2478,9 +2653,9 @@ def report_planner(results: list, world: int) -> list:
               f"the slowest rank's) -> fabric "
               f"{link['fabric']}")
     else:
-        print("  link: no fabric measured (gloo stages every exchange "
-              "through the host); the planner scores on the reference's "
-              "default, the mesh-derived topology")
+        print("  link: no fabric measured (the ranks share one card: no "
+              "link between them to time); the planner scores on the "
+              "reference's default, the mesh-derived topology")
     for dec in r0["decisions"]:
         host = dec["host_us"]
         print(f"  planner on {dec['fabric']} [{dec['fingerprint']}] (model "
@@ -2514,7 +2689,9 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
     prefill dispatch equal ``dispatch_pod_bytes``, and MultiWrite's are
     below the baseline's in whole buffers and occupied rows.  ``pairs``:
     the labels of the fixed scheme pairs (default: the first three runs'),
-    MultiWrite's first and the baseline's last.  Prints each run's plan,
+    MultiWrite's first and the baseline's last; ``[]`` when the runs hold
+    no fixed pairs (no gate (c), nor (e)'s comparison of the pairs).
+    Prints each run's plan,
     packs, walls and bytes.  Returns (failures, the kernel
     launches summed over ranks and runs, the walls by run label)."""
     import numpy as np
@@ -2526,7 +2703,7 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
     moe_layers = cfg.n_layers - cfg.first_k_dense
     rows = len(r0["runs"][ranks.run_label(runs[0])]["tokens"])
     labels = [ranks.run_label(run) for run in runs]
-    pairs = pairs or labels[:3]
+    pairs = labels[:3] if pairs is None else pairs
     first = r0["runs"][labels[0]]["tokens"]
     packs = {"hierarchical": 3, "baseline": 2}   # packs a dispatch chunk
     walls = {}
@@ -2630,7 +2807,7 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
                     run["analytic_pod_bytes"][kind]:
                 failures.append(f"{label} rank {r['rank']}: occupied pod "
                                 f"bytes {b['occupied']} != dispatch_pod_bytes")
-    for r in results:
+    for r in results if pairs else ():
         mw = r["runs"][pairs[0]]["pod_bytes"]
         base = r["runs"][pairs[-1]]["pod_bytes"]
         ok = all(mw[key] < base[key] for key in ("whole", "occupied"))
@@ -2643,17 +2820,19 @@ def check_served(results: list, runs: list, cfg, max_new: int, where: str,
 
 
 def check_decode_mode(results: list, backend: str) -> list:
-    """Every rank's engines decode by the rule: eager over gloo (its
-    exchanges are staged through the host), a CUDA graph over nccl.
-    Returns the failures."""
+    """Every rank's engines decode by the rule: a CUDA graph over nccl;
+    eager over gloo (its exchanges are staged through the host) and over
+    the card transport (its exchanges meet at host barriers).  Returns the
+    failures."""
     want = "graph" if backend == "nccl" else "eager"
+    over = "the card transport" if backend == "card" else backend
     failures = []
     modes = {(run["decode_graph"]["mode"], run["decode_graph"]["reason"])
              for r in results for run in r["runs"].values()}
     for mode, reason in sorted(modes):
-        print(f"  decode over {backend}: {mode} ({reason})")
+        print(f"  decode over {over}: {mode} ({reason})")
         if mode != want:
-            failures.append(f"decode {mode} over {backend}, not {want}")
+            failures.append(f"decode {mode} over {over}, not {want}")
     if want == "graph":
         for r in results:
             for label, run in r["runs"].items():
@@ -2757,25 +2936,28 @@ def report_calibration(results: list, title: str) -> list:
 
 
 def calibration_runs() -> list:
-    """Phase 9's served DBRX runs: the fixed hierarchical and baseline
-    pairs, the calibrated plan and its fixed twin."""
-    from repro_torch.launch import ranks
-    return ranks.fixed_runs(pairs=(ranks.SCHEME_PAIRS[0],
-                                   ranks.SCHEME_PAIRS[2])) + [
-        dict(label="calibrated", policy="auto", calibrated=True, bind=True),
-        dict(label="calibrated-fixed", twin="calibrated")]
+    """Phase 9's served DBRX runs: the calibrated plan and its fixed twin
+    (phase 6 runs the fixed pairs on the same spawn and weights)."""
+    return [dict(label="calibrated", policy="auto", calibrated=True,
+                 bind=True),
+            dict(label="calibrated-fixed", twin="calibrated")]
 
 
 def calibration_entry(cfg) -> dict:
     """Phase 9's DBRX over 2 x 2 as one model of a ``serve_worker`` spawn
     (``ranks.serve_worker``'s ``models``): the calibration, then the
-    served runs of :func:`calibration_runs`."""
+    served runs of :func:`calibration_runs`.  The directed rail probes
+    sweep ``CAL_DIRECTIONS``: over the card transport an exchange costs
+    about 0.8 ms whatever its bytes up to a 64 MB piece (four processes
+    taking turns on the card), so the monitor's own sweep (256 KB to
+    16 MB) is flat in the bytes and no fit clears the fitter's floor."""
     token_bytes = cfg.d_model * 2
     sweep = tuple(n * token_bytes for n in CAL_TOKENS)
     return dict(name="phase 9", max_new=CAL_NEW, runs=calibration_runs(),
                 calibrate=dict(ops=("dispatch", "combine"), repeats=3,
                                payloads={"dispatch": sweep,
                                          "combine": sweep},
+                               directions=CAL_DIRECTIONS,
                                check_packs=True,
                                scenario=dict(num_experts=cfg.num_experts,
                                              top_k=cfg.top_k,
@@ -2806,7 +2988,7 @@ def gather_probe_entry() -> dict:
 
 def calibrate_phase() -> dict:
     """The telemetry loop on the card, over 4 spawned ranks (nccl with a
-    card a rank where there are 4 cards, else gloo on card 0).
+    card a rank where there are 4 cards, else the card transport on card 0).
 
     DBRX-132B (4 layers, full width) over 2 pods x 2 ep ranks, capacity
     factor 4, a prompt of 512 tokens a rank: every rank runs one startup
@@ -2816,8 +2998,9 @@ def calibrate_phase() -> dict:
     and the combine, both plans each, at ``CAL_TOKENS`` tokens a rank of
     the model's own token bytes, and the directed rail probes; then the
     serve program planned on the datasheet and on the store's fitted model
-    (``calibration=``), and DBRX served under the calibrated plan, its
-    fixed twin and the fixed hierarchical and baseline pairs at G = 1.
+    (``calibration=``), and DBRX served under the calibrated plan and its
+    fixed twin (their walls printed beside phase 6's fixed pairs when
+    phase 6 ran on the same spawn and weights).
     Then Mistral-NeMo-12B's model axis over (1, 1, 4): a ``LiveProbe``
     sweep of the AllGather plans on the split-TP topology, the planner's
     split-TP pick at the served fragment on the datasheet and on the
@@ -2845,10 +3028,9 @@ def calibrate_phase() -> dict:
     from repro_torch.launch.serve import make_prompts, serve_config
 
     cards = torch.cuda.device_count()
-    backend = "nccl" if cards >= 4 else "gloo"
+    backend = ranks_backend(cards)
     where = ("nccl, one card a rank" if backend == "nccl" else
-             "gloo, 4 processes on one card, host-staged transport: the "
-             "probes time the host's copies")
+             CARD_WHERE.format(world=4))
     cfg = dataclasses.replace(
         serve_config("dbrx_132b", layers=4, smoke=False),
         moe_capacity=RANKS_CF)
@@ -2864,12 +3046,12 @@ def calibrate_phase() -> dict:
         prompts = make_prompts(cfg, PROMPTS, PROMPT_LEN, seed=0)
         with tempfile.TemporaryDirectory() as tmp:
             spec = dict(world=world, pods=RANKS[0], ep=RANKS[1],
-                        backend=backend, device="cuda:0",
+                        **backend_keys(backend), device="cuda:0",
                         init_method=f"file://{tmp}/store", timeout_s=120,
                         out_dir=f"{tmp}/out", threads=2, cfg=cfg,
                         dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-                        seed=0, prompts=prompts, warmup=True,
-                        **calibration_entry(cfg))
+                        seed=0, prompts=prompts, warmup=True)
+            spec.update(calibration_entry(cfg, backend))
             t0 = time.monotonic()
             results = ranks.run_ranks(ranks.serve_worker, spec,
                                       timeout_s=900)
@@ -2891,13 +3073,18 @@ def calibrate_phase() -> dict:
         if [d["fingerprint"] for d in r["decisions"]] != \
                 [d["fingerprint"] for d in results[0]["decisions"]]:
             failures.append(f"DBRX rank {r['rank']}: other plans")
-    found, total, walls = check_served(results, runs, cfg, CAL_NEW, where,
-                                       True, pairs=labels[:2])
+    found, total, walls = check_served(results, runs, cfg, CAL_NEW,
+                                       where, True, pairs=[])
     failures += found
     failures += check_decode_mode(results, backend)
+    fixed = MEASURED.get("phase 6 walls", {})
     print("  walls, prefill ms / decode ms a token: " + "; ".join(
         f"{label} {walls[label][0]:.3f} / {walls[label][1]:.3f}"
-        for label in labels))
+        for label in labels) + (
+        f" ({CAL_NEW} new tokens); phase 6's fixed pairs on the same spawn "
+        f"and weights ({MAX_NEW} new tokens): " + "; ".join(
+            f"{label} {w[0]:.3f} / {w[1]:.3f}"
+            for label, w in list(fixed.items())[:3]) if fixed else ""))
 
     entry = gather_probe_entry()
     frag = entry["gather"]["shape"]
@@ -2909,7 +3096,7 @@ def calibrate_phase() -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             pods, ep, tp = TP_MESH
             spec = dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
-                        backend=backend, device="cuda:0",
+                        **backend_keys(backend), device="cuda:0",
                         init_method=f"file://{tmp}/store", timeout_s=120,
                         out_dir=f"{tmp}/out", threads=2, **entry)
             t0 = time.monotonic()
@@ -3941,6 +4128,9 @@ def train_full_width() -> dict:
     t0 = time.monotonic()
     tr = trainer(TRAIN_STEPS, ckpt=True)
     restore_s = time.monotonic() - t0
+    timed["restore_s"] = tr.ckpt.last_restore_s
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                     if f.is_file())
     tr.ckpt = None                             # continue without saving
     if tr.state.step != TRAIN_SAVE_AT:
         failures.append(f"the fresh trainer resumed at step {tr.state.step}")
@@ -3949,7 +4139,10 @@ def train_full_width() -> dict:
     rel = max(abs(a - b) / abs(b) for a, b in
               zip(again, losses[TRAIN_SAVE_AT:]))
     print(f"  restored at step {TRAIN_SAVE_AT} into a fresh trainer "
-          f"(set-up and restore {restore_s:.1f} s): losses "
+          f"(set-up and restore {restore_s:.1f} s, the restore alone "
+          f"{timed['restore_s']:.1f} s: {ckpt_bytes / 1e9:.2f} GB on disk, "
+          f"{ckpt_bytes / 1e9 / timed['restore_s']:.2f} GB/s; written at "
+          f"{ckpt_bytes / 1e9 / save_s:.2f} GB/s): losses "
           f"{[round(x, 5) for x in again]} against "
           f"{[round(x, 5) for x in losses[TRAIN_SAVE_AT:]]}, largest "
           f"relative gap {rel:.3e} (limit {RESTORE_RTOL})")
@@ -3960,9 +4153,58 @@ def train_full_width() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    disk = disk_rate(ckpt_dir, ckpt_bytes)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"  the disk where the checkpoint was written, a file of its "
+          f"{disk['bytes'] / 1e9:.2f} GB in 64 MB pieces: written at "
+          f"{disk['write_gb_s']:.2f} GB/s (no fsync, as the checkpoint), "
+          f"read back at {disk['read_warm_gb_s']:.2f} GB/s (warm: the file "
+          f"cache not dropped), zlib.crc32 at {disk['crc32_gb_s']:.2f} GB/s "
+          f"(one pass each way); the checkpoint written at "
+          f"{ckpt_bytes / 1e9 / save_s:.2f} GB/s and restored at "
+          f"{ckpt_bytes / 1e9 / timed['restore_s']:.2f} GB/s")
+    MEASURED["phase 10 disk"] = disk
     if failures:
         raise AssertionError(f"phase 10: {failures}")
     return counts
+
+
+def disk_rate(directory, nbytes: int) -> dict:
+    """The disk's own rates in ``directory``, for a checkpoint's write and
+    restore to be read against: a file of ``nbytes`` of random bytes
+    written in 64 MB pieces, as the checkpoint's zip writer writes (no
+    ``fsync``, as it makes none), read back in 64 MB pieces (warm: the
+    file cache is not dropped, so the read comes largely from memory), and
+    ``zlib.crc32`` over a piece in memory: the one CRC pass the checkpoint
+    makes each way.  The file is removed.  GB/s."""
+    import os
+    import zlib
+    piece = 64 << 20
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"disk_rate.{os.getpid()}.bin")
+    pieces = max(1, int(nbytes) // piece)
+    data = os.urandom(piece)
+    out = {"bytes": pieces * piece}
+    try:
+        t0 = time.monotonic()
+        with open(path, "wb") as f:
+            for _ in range(pieces):
+                f.write(data)
+        out["write_gb_s"] = pieces * piece / 1e9 / (time.monotonic() - t0)
+        t0 = time.monotonic()
+        with open(path, "rb") as f:
+            while f.read(piece):
+                pass
+        out["read_warm_gb_s"] = pieces * piece / 1e9 / (time.monotonic()
+                                                        - t0)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.monotonic()
+    for _ in range(16):
+        zlib.crc32(data)
+    out["crc32_gb_s"] = 16 * piece / 1e9 / (time.monotonic() - t0)
+    return out
 
 
 def time_update(tr) -> tuple[float, float]:
@@ -4014,7 +4256,8 @@ def train_phase() -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 # DBRX over 2 pods x 2 ep ranks at full width: (depth, steps, tokens a
-# prompt) on one card (4 gloo processes) and on four (nccl, a card a rank);
+# prompt) on one card (4 processes over the card transport) and on four
+# (nccl, a card a rank);
 # 4 prompts of SyntheticLM seed 0, one a rank; AdamW (bf16 state) on a
 # cosine schedule; capacity factor RANKS_CF, so nothing is dropped
 TRAIN_RANKS = {1: (1, 6, 512), 4: (2, 8, 512)}
@@ -4039,7 +4282,7 @@ def train_ranks_spec(tmp: str, mesh: tuple, backend: str, cfg, runs: list,
     import torch
     pods, ep, tp = mesh
     return dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
-                backend=backend, device="cuda",
+                **backend_keys(backend), device="cuda",
                 init_method=f"file://{tmp}/store", timeout_s=600,
                 out_dir=f"{tmp}/out", threads=2, dp_servers=(pods,),
                 cfg=cfg, dtype=torch.bfloat16, seed=0,
@@ -4245,9 +4488,9 @@ def train_ranks_phase() -> dict:
     """Phase 11: training over ranks.
 
     DBRX-132B over 2 pods x 2 ep ranks, one prompt a rank (``TRAIN_RANKS``:
-    nccl with a card a rank where there are 4 cards, else 4 gloo processes
-    on card 0): first the reduced DBRX, whose step-0 ce and
-    gradients (synced, gathered) are held against one rank on the card
+    nccl with a card a rank where there are 4 cards, else 4 processes on
+    card 0 over the card transport): first the reduced DBRX, whose step-0
+    ce and gradients (synced, gathered) are held against one rank on the card
     (ce within ``LOSS_GAP``, every gradient's cosine above
     ``GRAD_COSINE``); then the full width at ``TRAIN_RANKS``' depth,
     trained under the plan bound for the train program (the MoE round
@@ -4274,10 +4517,10 @@ def train_ranks_phase() -> dict:
 
     from repro_torch.launch import ranks
     cards = torch.cuda.device_count()
-    backend = "nccl" if cards >= 4 else "gloo"
+    backend = ranks_backend(cards)
     depth, steps, seq = TRAIN_RANKS[4 if cards >= 4 else 1]
     where = ("over nccl, a card a rank" if backend == "nccl" else
-             "over gloo, 4 processes on card 0")
+             "over " + CARD_WHERE.format(world=4))
 
     def trained(which: str, mesh: tuple, title: str, phase: int) -> tuple:
         """The ranks' results of training ``which``, carried or spawned,
@@ -4355,7 +4598,8 @@ def train_ranks_phase() -> dict:
     MEASURED["phase 11"] = dict(
         cfg=cfg, seq=seq, mesh=(2, 2, 1),
         ranks=[dict(r["runs"]["dbrx"]["state_bytes"],
-                    peak=r["runs"]["dbrx"]["step_peak_bytes"])
+                    peak=r["runs"]["dbrx"]["step_peak_bytes"],
+                    staging=r["runs"]["dbrx"]["staging"]["card"])
                for r in sorted(results, key=lambda r: r["rank"])])
     hist = runs_[0]["history"]
     head = sum(h["loss"] for h in hist[:3]) / 3
@@ -4698,7 +4942,8 @@ def tp_families_phase() -> dict:
     """The hybrid, rwkv and encoder-decoder families and Qwen2-VL's
     backbone served over 4 tensor-parallel ranks (``TP_FAMILIES``; nccl
     with a card a rank where there are 4 cards, decode graphed; else 4
-    gloo processes on card 0, decode eager), 4 prompts x 512 tokens,
+    processes on card 0 over the card transport, decode eager), 4 prompts
+    x 512 tokens,
     greedy, seed-0 random weights, one spawn serving the models one after
     another (each rank's weights freed before the next), each held
     against a one-rank run of the same weights on the card.
@@ -4734,11 +4979,11 @@ def tp_families_phase() -> dict:
 
     cards = torch.cuda.device_count()
     four = cards >= 4
-    backend = "nccl" if four else "gloo"
+    backend = ranks_backend(cards)
     new = TP_FAMILIES_NEW[4 if four else 1]
     pods, ep, tp = TP_FAMILIES_MESH
     where = ("nccl, one card a rank" if four else
-             "gloo, 4 processes on one card, host-staged transport")
+             CARD_WHERE.format(world=4))
     print(f"  {cards} card(s): {pods * ep * tp} ranks over {where}")
     served = tp_families_served(four)
     twins = {arch for arch, _, twin, _ in TP_FAMILIES if twin is not None}
@@ -4773,7 +5018,7 @@ def tp_families_phase() -> dict:
         models = tp_families_models(served, new)
         with tempfile.TemporaryDirectory() as tmp:
             spec = dict(world=pods * ep * tp, pods=pods, ep=ep, tp=tp,
-                        backend=backend, device="cuda:0",
+                        **backend_keys(backend), device="cuda:0",
                         init_method=f"file://{tmp}/store", timeout_s=300,
                         out_dir=f"{tmp}/out", threads=2, seed=0,
                         dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
@@ -5149,14 +5394,18 @@ def dryrun_phase(parts: str = "abcd") -> None:
                                      "phase 11's rank")
             peak = r["memory"]["peak_live_bytes"]
             fsdp = r["collectives"]["fsdp"]
+            bare = got["peak"] - got["staging"]
             print(f"  (d) DBRX-132B at depth {eleven['cfg'].n_layers} over "
                   f"{eleven['mesh']}, FSDP, rank {rank}: predicted peak "
                   f"{peak / 1e9:.3f} GB ({_peak_parts(r)}), phase 11's "
                   f"max_memory_allocated of the steps "
-                  f"{got['peak'] / 1e9:.3f} GB: ratio "
-                  f"{peak / got['peak']:.4f} (recorded, not gated: four "
-                  f"processes share the card); FSDP wire bytes a step "
-                  f"{fsdp} ({time.monotonic() - t0:.1f} s on the host)")
+                  f"{got['peak'] / 1e9:.3f} GB, of which the card "
+                  f"transport's staging {got['staging'] / 1e9:.3f} GB (the "
+                  f"dry run prices none): ratio {peak / got['peak']:.4f}, "
+                  f"{peak / bare:.4f} without the staging (recorded, not "
+                  f"gated: four processes share the card); FSDP wire bytes "
+                  f"a step {fsdp} ({time.monotonic() - t0:.1f} s on the "
+                  f"host)")
     # (c)
     for arch, shape_name in DRYRUN_CELLS if "c" in parts else ():
         t0 = time.monotonic()

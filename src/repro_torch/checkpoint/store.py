@@ -33,11 +33,15 @@ one checkpoint, as the reference's:
 numpy has no bfloat16: a bf16 leaf is stored as its raw bytes viewed as
 ``uint16``, with ``bfloat16`` as its dtype in the manifest, so bf16
 parameters and optimizer state round-trip bit for bit.  A synchronous save
-streams the leaves one at a time from the device into the archive (its
-host memory is one leaf), and :meth:`restore_into` copies each leaf into
-the tensors of a live tree in place, so a model whose state fills the card
-can be saved and restored.  There is one shard file, written by one
-process (rank 0 over ranks); the reference's multi-host writers wait.
+streams the leaves one at a time from the device into the archive in
+``PIECE`` pieces through two pinned host buffers, the next piece's copy
+from the card in flight while the zip writer takes this one (its host
+memory is two pieces; the file's bytes are those of one write of the
+whole leaf), and :meth:`restore_into` copies each leaf into the tensors of
+a live tree in place while a reader thread reads the next leaf ahead, so
+a model whose state fills the card can be saved and restored.  There is
+one shard file, written by one process (rank 0 over ranks); the
+reference's multi-host writers wait.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ import torch
 
 SHARD = "shard_00000.npz"
 READ_PIECE = 64 << 20             # bytes a read of a stored leaf takes
+PIECE = 64 << 20                  # bytes a copy of a device leaf takes
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> list:
@@ -136,10 +141,77 @@ def _crc_shift(crc: int, nbytes: int) -> int:
 
 def _npy_header(arr: np.ndarray) -> bytes:
     """The ``.npy`` header ``np.save`` writes before ``arr``'s bytes."""
+    return _header_of(arr.shape, arr.dtype)
+
+
+def _header_of(shape, dtype: np.dtype) -> bytes:
+    """The ``.npy`` header of a C-ordered array of ``shape`` and
+    ``dtype``, as ``np.save`` writes it."""
     buf = io.BytesIO()
-    np.lib.format.write_array_header_1_0(
-        buf, np.lib.format.header_data_from_array_1_0(arr))
+    np.lib.format.write_array_header_1_0(buf, {
+        "descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
+        "fortran_order": False, "shape": tuple(shape)})
     return buf.getvalue()
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a leaf of ``dtype`` is stored as (bf16 as
+    ``uint16``)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+class _Pinned:
+    """Two pinned host buffers of ``PIECE`` bytes and a side stream: the
+    bytes of a device tensor come to the host a piece at a time, the next
+    piece's copy in flight while the caller takes this one."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.bufs = [torch.empty(PIECE, dtype=torch.uint8, pin_memory=True)
+                     for _ in range(2)]
+        self.done = [torch.cuda.Event() for _ in range(2)]
+
+    def _copy(self, flat: torch.Tensor, i: int, lo: int) -> None:
+        hi = min(flat.numel(), lo + PIECE)
+        with torch.cuda.stream(self.stream):
+            self.bufs[i][:hi - lo].copy_(flat[lo:hi], non_blocking=True)
+            self.done[i].record(self.stream)
+
+    def pieces(self, t: torch.Tensor) -> Iterator[memoryview]:
+        """The bytes of ``t`` (C order) in pieces, each valid until the
+        next is asked for."""
+        t = t.detach().contiguous()
+        flat = t.view(-1).view(torch.uint8) if t.numel() else \
+            torch.empty(0, dtype=torch.uint8, device=t.device)
+        # the copies wait for the work that made t on its own stream
+        self.stream.wait_stream(torch.cuda.current_stream(t.device))
+        starts = list(range(0, flat.numel(), PIECE))
+        if starts:
+            self._copy(flat, 0, 0)
+        for j, lo in enumerate(starts):
+            if j + 1 < len(starts):
+                self._copy(flat, (j + 1) % 2, starts[j + 1])
+            self.done[j % 2].synchronize()
+            n = min(flat.numel(), lo + PIECE) - lo
+            yield memoryview(self.bufs[j % 2][:n].numpy())
+
+
+def _write_device_leaf(zf: zipfile.ZipFile, key: str, t: torch.Tensor,
+                       pinned: _Pinned) -> tuple[list, str, int]:
+    """Write the CUDA tensor ``t`` as :func:`_write_leaf` writes its host
+    copy (the same bytes), its bytes through ``pinned``: (shape, dtype
+    name, crc32 of its bytes)."""
+    header = _header_of(t.shape, _np_dtype(t.dtype))
+    with zf.open(key + ".npy", "w", force_zip64=True) as f:
+        f.write(header)
+        for piece in pinned.pieces(t):
+            f.write(piece)
+    member = zf.getinfo(key + ".npy").CRC
+    nbytes = t.numel() * t.element_size()
+    return (list(t.shape), str(t.dtype).removeprefix("torch."),
+            member ^ _crc_shift(zlib.crc32(header), nbytes))
 
 
 def _write_leaf(zf: zipfile.ZipFile, key: str, arr: np.ndarray) -> int:
@@ -337,6 +409,7 @@ class CheckpointManager:
         self._pool = (concurrent.futures.ThreadPoolExecutor(max_workers=1)
                       if self.async_write else None)
         self._pending: Optional[concurrent.futures.Future] = None
+        self.last_restore_s: Optional[float] = None
 
     # -- write ---------------------------------------------------------------
     def save(self, step: int, tree: Any, extra: dict | None = None) -> str:
@@ -351,13 +424,12 @@ class CheckpointManager:
         if self.layout is not None:
             return self._save_global(final, manifest, leaves)
         if self._pool is not None:
-            host = [(key, *_to_host(leaf)) for key, leaf in leaves]
+            host = [(key, _to_host(leaf)) for key, leaf in leaves]
             self.wait()
             self._pending = self._pool.submit(self._write, final, manifest,
                                               iter(host))
             return final
-        return self._write(final, manifest,
-                           ((key, *_to_host(leaf)) for key, leaf in leaves))
+        return self._write(final, manifest, iter(leaves))
 
     def _save_global(self, final: str, manifest: dict, leaves: list) -> str:
         """Every leaf at its global shape, written by rank 0; the other
@@ -367,23 +439,33 @@ class CheckpointManager:
         gathered = ((key, self.layout.gather(key, leaf)) for key, leaf
                     in leaves)
         if self.layout.mesh.rank == 0:
-            self._write(final, manifest, ((key, *_to_host(whole))
-                                          for key, whole in gathered))
+            self._write(final, manifest, gathered)
         else:
             for _ in gathered:
                 pass
         dist.barrier()
         return final
 
-    def _write(self, final: str, manifest: dict, host: Iterator) -> str:
+    def _write(self, final: str, manifest: dict, leaves: Iterator) -> str:
+        """Write ``(key, leaf)`` pairs: a CUDA tensor streamed in pieces
+        through pinned buffers, anything else (or a ``_to_host`` pair)
+        through one host copy."""
         tmp = final + f".tmp-{os.getpid()}-{int(time.time() * 1e6)}"
         os.makedirs(tmp, exist_ok=True)
+        pinned = None
         with zipfile.ZipFile(os.path.join(tmp, SHARD), "w",
                              allowZip64=True) as zf:
-            for key, arr, dtype in host:
-                manifest["leaves"][key] = {"shape": list(arr.shape),
-                                           "dtype": dtype,
-                                           "crc": _write_leaf(zf, key, arr)}
+            for key, leaf in leaves:
+                if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                    pinned = pinned or _Pinned(leaf.device)
+                    shape, dtype, crc = _write_device_leaf(zf, key, leaf,
+                                                           pinned)
+                else:
+                    arr, dtype = (leaf if isinstance(leaf, tuple)
+                                  else _to_host(leaf))
+                    shape, crc = list(arr.shape), _write_leaf(zf, key, arr)
+                manifest["leaves"][key] = {"shape": shape, "dtype": dtype,
+                                           "crc": crc}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -419,14 +501,25 @@ class CheckpointManager:
 
     def _leaves(self, step: int, template, manifest: dict) -> Iterator:
         """(template leaf, stored tensor on the host) for each leaf of
-        ``template``, checked against the manifest."""
+        ``template``, checked against the manifest; a reader thread reads
+        the next leaf while the caller takes this one."""
         d = os.path.join(self.directory, f"step_{step:08d}")
-        with zipfile.ZipFile(os.path.join(d, SHARD)) as zf:
-            for key, tmpl in _flatten_with_paths(template):
-                info = manifest["leaves"].get(key)
-                if info is None:
-                    raise KeyError(f"checkpoint missing leaf {key}")
-                arr = _read_leaf(zf, key, info["crc"])
+        items = _flatten_with_paths(template)
+
+        def read(zf, i: int) -> np.ndarray:
+            key = items[i][0]
+            info = manifest["leaves"].get(key)
+            if info is None:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            return _read_leaf(zf, key, info["crc"])
+        with zipfile.ZipFile(os.path.join(d, SHARD)) as zf, \
+                concurrent.futures.ThreadPoolExecutor(max_workers=1) as ahead:
+            nxt = ahead.submit(read, zf, 0) if items else None
+            for i, (key, tmpl) in enumerate(items):
+                arr = nxt.result()
+                nxt = (ahead.submit(read, zf, i + 1) if i + 1 < len(items)
+                       else None)
+                info = manifest["leaves"][key]
                 shape = tuple(getattr(tmpl, "shape", ()))
                 if self.layout is not None:
                     shape = self.layout.global_shape(key, shape)
@@ -456,11 +549,20 @@ class CheckpointManager:
 
     def restore_into(self, step: int, tree: Any) -> dict:
         """Copy checkpoint ``step`` into the tensors of ``tree`` in place,
-        one leaf at a time.  Returns the checkpoint's extra."""
+        one leaf at a time.  Returns the checkpoint's extra; the wall of
+        the restore, the copies to a device finished, is kept as
+        :attr:`last_restore_s`."""
+        t0 = time.monotonic()
         manifest = self._manifest(step)
+        cards = set()
         with torch.no_grad():
             for dst, t in self._leaves(step, tree, manifest):
                 dst.copy_(t)
+                if dst.is_cuda:
+                    cards.add(dst.device)
+        for dev in cards:
+            torch.cuda.synchronize(dev)
+        self.last_restore_s = time.monotonic() - t0
         return manifest.get("extra", {})
 
     # -- GC --------------------------------------------------------------------

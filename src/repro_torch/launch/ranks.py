@@ -59,8 +59,10 @@ from repro_torch.models.api import build_model
 from repro_torch.parallel.context import (ParallelContext,
                                           build_collective_program)
 from repro_torch.checkpoint.store import CheckpointManager, ShardLayout
+from repro_torch.parallel import mesh as mesh_ops
 from repro_torch.parallel import sharding
-from repro_torch.parallel.mesh import RankMesh
+from repro_torch.parallel.mesh import (RankMesh, axis_names,
+                                       process_group)
 from repro_torch.runtime.server import ServeConfig, ServeEngine
 from repro_torch.serving import (AdmissionController, BatchScheduler,
                                  RequestQueue, TrafficConfig,
@@ -115,13 +117,18 @@ def run_ranks(fn, spec: dict, *, timeout_s: float, shared=None) -> list:
     exited.  Every rank frees what it received before it exits, so the
     caller's own last reference then frees the memory.
 
-    A rank's results that are a dict gain ``"marks"`` (:func:`mark`) and
-    ``"spawn"``: this process's wall clock before the first start and
-    after the last exit."""
+    The ranks are forked from a fork server that imported this module
+    once (started at the first call, with this process's environment then,
+    and ending with this process).  A rank's results that are a dict gain
+    ``"marks"`` (:func:`mark`) and ``"spawn"``: this process's wall clock
+    before the first start and after the last exit."""
     world = spec["world"]
     out_dir = Path(spec["out_dir"])
     out_dir.mkdir(parents=True, exist_ok=True)
-    ctx = mp.get_context("spawn")
+    # a fork server imports torch and this package once, before any CUDA
+    # call (it makes none), and forks every rank from there
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload([__name__])
 
     def pickled(rank: int) -> bytes:
         mine = spec if shared is None else dict(
@@ -215,8 +222,31 @@ def shared_weights(spec: dict) -> dict:
     return out
 
 
+def transport_of(spec: dict) -> str:
+    """The mesh's transport a spec asks for: ``spec["transport"]``
+    ("card": the exchanges through the memory of the one device every rank
+    lies on, beside a gloo group; valid only with the gloo backend and
+    every rank of the world on one device, else it raises), by default the
+    backend's own collectives."""
+    transport = spec.get("transport", "backend")
+    if transport == "card":
+        if spec["backend"] != "gloo":
+            raise ValueError(f"the card transport runs beside gloo, not "
+                             f"{spec['backend']}")
+        devices = {rank_device(r, spec) for r in range(spec["world"])}
+        if len(devices) != 1:
+            raise ValueError(f"the card transport needs every rank on one "
+                             f"device; the spec lays its {spec['world']} "
+                             f"ranks over {sorted(map(str, devices))}")
+    elif transport != "backend":
+        raise ValueError(f"transport {transport!r}: 'backend' or 'card'")
+    return transport
+
+
 def init_rank(rank: int, spec: dict) -> RankMesh:
-    """Join the process group and build the (pods, ep, tp) rank mesh."""
+    """Join the process group and build the (pods, ep, tp) rank mesh over
+    the spec's transport (:func:`transport_of`)."""
+    transport = transport_of(spec)
     torch.set_num_threads(spec.get("threads", 1))
     dev = rank_device(rank, spec)
     if dev.type == "cuda":
@@ -228,7 +258,8 @@ def init_rank(rank: int, spec: dict) -> RankMesh:
                             device_id=dev if spec["backend"] == "nccl"
                             else None)
     mesh = RankMesh((spec["pods"], spec["ep"], spec.get("tp", 1)),
-                    timeout=timeout, dp_servers=spec.get("dp_servers", ()))
+                    timeout=timeout, dp_servers=spec.get("dp_servers", ()),
+                    transport=transport)
     mark("ready")
     return mesh
 
@@ -711,7 +742,8 @@ def live_calibration(mesh: RankMesh, device, topo, opts: dict) -> tuple:
     cycle of sweeps on ``topo`` into a ``:memory:`` store, then
     recalibrates.  ``opts``: the probe's ``repeats``, the ``ops`` swept
     (the AllGather over the model axis, the MoE over pod x data; the
-    directed rail probes follow), ``payloads`` (op -> sweep) and
+    directed rail probes follow), ``payloads`` (op -> sweep),
+    ``directions`` (the directed probes' sweep; default the monitor's) and
     ``scenario`` (``num_experts``, ``top_k``, ``token_bytes``).  With
     ``check_packs`` the MoE sweeps first run once, unrecorded, with every
     pack held against its plain version (:func:`_checked_packs`), so that
@@ -722,7 +754,9 @@ def live_calibration(mesh: RankMesh, device, topo, opts: dict) -> tuple:
     from repro_torch.core.latency_model import DEFAULT
     from repro_torch.core.planner import Planner
     from repro_torch.telemetry import (CalibrationStore, DriftMonitor,
-                                       calibrated_hw, probe_sweep, topo_key)
+                                       calibrated_hw, probe_link_directions,
+                                       probe_sweep, topo_key)
+    from repro_torch.telemetry.probe import DIRECTION_SWEEP
 
     ops, payloads = tuple(opts["ops"]), opts.get("payloads")
     scenario = opts.get("scenario", {})
@@ -738,8 +772,16 @@ def live_calibration(mesh: RankMesh, device, topo, opts: dict) -> tuple:
     monitor = DriftMonitor(Planner(), store, topo)
     t0 = time.perf_counter()
     probe = _live_probe(mesh, device, repeats=opts.get("repeats", 3))
-    event = (monitor.run_cycle(probe, ops=ops, payloads=payloads, **scenario)
-             or monitor.recalibrate(force=True))
+    # ``DriftMonitor.run_cycle``'s steps, the directed probes at their sweep
+    records = probe_sweep(topo, probe, ops=ops, payloads=payloads,
+                          hw=monitor.planner.hw, **scenario)
+    records += probe_link_directions(
+        topo, probe, payloads=opts.get("directions", DIRECTION_SWEEP),
+        hw=monitor.planner.hw)
+    monitor.store.extend(records)
+    for r in records:
+        monitor.observe(r)
+    event = monitor.check() or monitor.recalibrate(force=True)
     wall = time.perf_counter() - t0
     hw = calibrated_hw(store, topo)
     keep = ("op", "plan", "payload_bytes", "predicted_s", "measured_s",
@@ -916,9 +958,15 @@ def serve_worker(rank: int, spec: dict) -> None:
     model (its ``name``, ``cfg``, ``prompts``, ``runs``, ``weights``,
     ...), served one after another on the one spawned mesh, each model's
     weights freed before the next; the results are then ``{"models":
-    {name: that model's results}}``.  A model whose ``cfg``, ``seed``
-    and dtype equal the one before it, with no ``weights``, serves on the
-    same weights.  An entry with ``probe`` runs :func:`probe_worker`'s
+    {name: that model's results}}``.  A model whose ``cfg``, ``seed``,
+    dtype and mesh equal the one before it, with no ``weights``, serves on
+    the same weights.  An entry with ``mesh`` (``(pods, ep, tp)``, with its
+    ``pods``, ``ep`` and ``tp``) runs over a mesh of that shape made over
+    the same processes, on the spawn's transport.  An entry with ``transport_check``
+    (``{"cases", "barriers"}``) runs :func:`transport_check` over the
+    spawn's transport (each case's ``mesh`` a shape; default the spawn's);
+    a mesh made for it alone frees its staging after.  An entry with
+    ``probe`` runs :func:`probe_worker`'s
     work instead (its ``topo``, ``calibrate``, ``gather``, ...), so a
     calibration of the same mesh needs no spawn of its own; an entry with
     ``train`` runs :func:`train_worker`'s (its ``cfg``, ``runs``,
@@ -933,11 +981,37 @@ def serve_worker(rank: int, spec: dict) -> None:
     else:
         results = {"rank": rank, "device": str(dev), "models": {}}
         kept = key = None
+        meshes = {(tuple(mesh.shape.values()), mesh.transport): mesh}
+
+        def mesh_of(shape):
+            """The spawn's mesh of ``shape`` over the same processes, on
+            the spawn's transport (made once)."""
+            key = (tuple(shape), mesh.transport)
+            if key not in meshes:
+                meshes[key] = RankMesh(
+                    key[0], transport=mesh.transport,
+                    dp_servers=spec.get("dp_servers", ()),
+                    timeout=datetime.timedelta(seconds=spec["timeout_s"]))
+            return meshes[key]
         for sub in spec["models"]:
             one = {k: v for k, v in spec.items() if k != "models"}
             one.update(sub)
+            if one.get("transport_check"):
+                check = one["transport_check"]
+                cases = [dict(c, mesh=tuple(c.get("mesh", mesh.shape.values()
+                                                  ))) for c in check["cases"]]
+                own = {s: mesh_of(s) for s in sorted({c["mesh"]
+                                                     for c in cases})}
+                results["models"][sub["name"]] = transport_check(
+                    own, dev, cases, barriers=check.get("barriers", 0))
+                for s, m in own.items():       # extra meshes' staging
+                    if m is not mesh:
+                        m.close()
+                mark(f"model {sub['name']}")
+                continue
+            here = mesh_of(one.get("mesh", mesh.shape.values()))
             if one.get("probe"):
-                results["models"][sub["name"]] = _probe(mesh, rank, dev, one)
+                results["models"][sub["name"]] = _probe(here, rank, dev, one)
                 mark(f"model {sub['name']}")
                 continue
             if one.get("train"):
@@ -945,19 +1019,21 @@ def serve_worker(rank: int, spec: dict) -> None:
                 gc.collect()
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
-                results["models"][sub["name"]] = _train(mesh, rank, dev, one)
+                results["models"][sub["name"]] = _train(here, rank, dev, one)
                 mark(f"model {sub['name']}")
                 continue
             same = (one.get("weights") is None
-                    and (one["cfg"], one["seed"], one["dtype"]) == key)
+                    and (one["cfg"], one["seed"], one["dtype"],
+                         tuple(here.shape.values())) == key)
             if not same:
                 kept = None
                 gc.collect()            # the engines' binder cycles
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
             results["models"][sub["name"]], kept = _serve(
-                mesh, rank, dev, one, params=kept)
-            key = (one["cfg"], one["seed"], one["dtype"])
+                here, rank, dev, one, params=kept)
+            key = (one["cfg"], one["seed"], one["dtype"],
+                   tuple(here.shape.values()))
             mark(f"model {sub['name']}")
         del kept
     dist.barrier()
@@ -1119,6 +1195,7 @@ def _serve(mesh: RankMesh, rank: int, dev, spec: dict, params=None
         mark("continuous")
     if dev.type == "cuda":
         results["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    results["staging"] = mesh.staging_bytes()
     if spec.get("trace"):
         moe = next(b.moe for b in params.blocks if b.moe is not None)
         rows = prompts.size // mesh.axis_size("pod", "data")
@@ -1768,6 +1845,7 @@ def _train(mesh: RankMesh, rank: int, dev, spec: dict) -> dict:
         res["split"] = sorted(sync.split)
         if dev.type == "cuda":
             res["peak_gb"] = max(before, res["step_peak_bytes"]) / 1e9
+        res["staging"] = mesh.staging_bytes()
         res["seconds"] = time.monotonic() - t0
         mark(f"run {label}")
         del trainer, params, sync, built
@@ -2055,7 +2133,7 @@ def exchange_worker(rank: int, spec: dict) -> None:
                                     @ w2, pctx)
         else:
             y = dist_nn.all_reduce(torch.tanh(h @ w1) @ w2,
-                                   group=mesh.group("model"))
+                                   group=process_group(mesh.group("model")))
         (y * fg["c"]).sum().backward()
         results[how] = {"h": h.grad.numpy(), "w1": w1.grad.numpy(),
                         "w2": w2.grad.numpy()}
@@ -2086,6 +2164,232 @@ def psum_worker(rank: int, spec: dict) -> None:
         {"a": g[:600].reshape(20, 30), "b": g[600:]}, mesh, axes)
     results["tree_compressed"] = {
         k: (means[k].cpu().numpy(), errs[k].cpu().numpy()) for k in means}
+    dist.barrier()
+    dist.destroy_process_group()
+    _save(rank, spec, results)
+
+
+# ---------------------------------------------------------------------------
+# the card transport against gloo on the same ranks
+# ---------------------------------------------------------------------------
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int32": torch.int32, "bool": torch.bool}
+# unit roundoff of a sum's dtype: (n - 1) u sum|x| bounds a sum of n terms
+# added one after another (the recursive summation bound)
+UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
+
+
+def case_input(case: dict, member: int, device, seed: int = 0
+               ) -> torch.Tensor:
+    """Member ``member``'s input of a :func:`transport_check` case, drawn
+    from ``seed``, the case's ``index`` and the member: every rank can draw
+    every member's."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed * 1_000_003 + case["index"] * 1009 + member)
+    dtype, shape = DTYPES[case["dtype"]], tuple(case["shape"])
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device=device, dtype=dtype)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=gen,
+                             device=device).bool()
+    return torch.randint(-(1 << 20), 1 << 20, shape, generator=gen,
+                         device=device, dtype=dtype)
+
+
+def _collective(kind: str, x: torch.Tensor, group, n: int, me: int):
+    if kind == "all_to_all":
+        return mesh_ops._all_to_all(x, group)
+    if kind == "all_gather":
+        return mesh_ops._all_gather(x, group, n)
+    if kind == "reduce_scatter":
+        return mesh_ops._reduce_scatter(x, group, n)
+    if kind == "all_reduce":
+        return mesh_ops._all_reduce_(x.clone(), group)
+    if kind == "ppermute":           # each member to the next
+        perm = [(i, (i + 1) % n) for i in range(n)]
+        return mesh_ops._ppermute(x, group, n, me, dict(perm),
+                                  {d: s for s, d in perm})
+    raise ValueError(kind)
+
+
+def _sum_check(case: dict, got: torch.Tensor, n: int, me: int, device,
+               seed: int) -> dict:
+    """A sum's output against every member's input drawn again here: the
+    bits of the sum in group-rank order in the dtype, and the largest
+    error against the fp64 sum beside the recursive summation bound
+    ``(n - 1) u sum|x|``, in pieces of 16 M elements."""
+    parts = [case_input(case, m, device, seed) for m in range(n)]
+    if case["kind"] == "reduce_scatter":
+        parts = [p[me] for p in parts]
+    order = parts[0].clone()
+    for p in parts[1:]:
+        order += p
+    u = UNIT_ROUNDOFF[got.dtype]
+    flat = [p.reshape(-1) for p in parts]
+    g = got.reshape(-1)
+    err, over, step = 0.0, 0, 1 << 24
+    for lo in range(0, g.numel(), step):
+        hi = min(g.numel(), lo + step)
+        exact = sum(f[lo:hi].double() for f in flat)
+        mag = sum(f[lo:hi].double().abs() for f in flat)
+        e = (g[lo:hi].double() - exact).abs()
+        err = max(err, float(e.max()))
+        over += int((e > (n - 1) * u * mag).sum())
+    return {"rank_order": _same_bits(got, order), "fp64_err": err,
+            "over_bound": over}
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _slowest_ms(wall: float, group) -> float:
+    """The largest of the group's walls (seconds -> ms), over gloo."""
+    t = torch.tensor([wall], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=process_group(group))
+    return float(t) * 1e3
+
+
+def transport_check(meshes: dict, device, cases: list, *, seed: int = 0,
+                    reps: int = 3, barriers: int = 0) -> dict:
+    """Each case of ``cases`` run on the card transport and on gloo, on the
+    same ranks.  A case: ``name``, ``kind`` (all_to_all, all_gather,
+    reduce_scatter, all_reduce, ppermute: each member to the next),
+    ``mesh`` (a key of ``meshes``, card-transport ``RankMesh`` es of the
+    one world), ``axis`` and ``members`` (blocks of the axis's
+    coordinates, each rank in the one that holds it; default: the whole
+    axis),
+    ``shape`` (a member's input) and ``dtype``; a card-transport mesh
+    lends each group its gloo subgroup (``pg``); its input drawn by
+    :func:`case_input`.  Per case: the card's output bit for bit against
+    gloo's (``same_bits``; gloo runs the group's own gloo subgroup), for a
+    sum also :func:`_sum_check` and the output's digest (every member's
+    must agree for an all-reduce), and the walls of the slowest member
+    (ms): gloo's one call, the card's median of ``reps`` after a first
+    call.  With ``barriers``, the cost of one barrier of the first mesh's
+    world: ``barriers`` of the card transport's flags and a tenth as many
+    of gloo's own (us, the slowest rank's mean)."""
+    out = {"cases": {}}
+    sync = (lambda: torch.cuda.synchronize(device)) \
+        if device.type == "cuda" else (lambda: None)
+    for index, case in enumerate(cases):
+        case = dict(case, index=index)
+        mesh = meshes[case["mesh"]]
+        names = axis_names(case["axis"])
+        group = mesh.group(*names)
+        if case.get("members") is not None:     # the block holding me
+            group = mesh.subgroup(names, next(
+                m for m in case["members"] if mesh.axis_index(*names) in m))
+        n, me = group.size, group.me
+        x = case_input(case, me, device, seed)
+        sync()
+        dist.barrier(group=group.pg)
+        t0 = time.perf_counter()
+        ref = _collective(case["kind"], x, group.pg, n, me)
+        sync()
+        gloo_ms = _slowest_ms(time.perf_counter() - t0, group)
+        got = _collective(case["kind"], x, group, n, me)
+        walls = []
+        for _ in range(reps):
+            sync()
+            dist.barrier(group=group.pg)
+            t0 = time.perf_counter()
+            again = _collective(case["kind"], x, group, n, me)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            same = _same_bits(again, got)
+            del again
+            if not same:
+                raise AssertionError(f"{case['name']}: two card calls differ")
+        res = {"kind": case["kind"], "group": list(group.ranks),
+               "shape": tuple(x.shape), "dtype": case["dtype"],
+               "bytes": x.numel() * x.element_size(),
+               "same_bits": _same_bits(got, ref), "gloo_ms": gloo_ms,
+               "card_ms": _slowest_ms(float(np.median(walls)), group)}
+        if case["kind"] in ("all_reduce", "reduce_scatter"):
+            res.update(_sum_check(case, got, n, me, device, seed),
+                       digest=_digest(got))
+            res["gloo_fp64_err"] = _sum_check(case, ref, n, me, device,
+                                              seed)["fp64_err"]
+        out["cases"][case["name"]] = res
+        del x, ref, got
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if barriers:
+        world = next(iter(meshes.values())).world_group()
+        world.barrier()
+        t0 = time.perf_counter()
+        for _ in range(barriers):
+            world.barrier()
+        card_us = (time.perf_counter() - t0) / barriers
+        k = max(1, barriers // 10)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            dist.barrier()
+        gloo_us = (time.perf_counter() - t0) / k
+        out["barrier_us"] = {"card": _slowest_ms(card_us, world) * 1e3,
+                             "gloo": _slowest_ms(gloo_us, world) * 1e3,
+                             "card_n": barriers, "gloo_n": k}
+    out["staging"] = {str(key): m.staging_bytes()
+                      for key, m in meshes.items()}
+    return out
+
+
+def card_transport_worker(rank: int, spec: dict) -> None:
+    """The card transport held against gloo on the same ranks (``spec``'s
+    world over gloo, ``spec["transport"]`` ignored): :func:`transport_check`
+    of ``spec["cases"]`` on card meshes of the shapes the cases name
+    (``spec["barriers"]`` too; ``spec["piece_bytes"]``, default
+    ``mesh.PIECE_BYTES``, is the card meshes' piece); with ``spec["exchanges"]`` (the inputs of
+    :func:`exchange_worker`) every exchange of :data:`EXCHANGES` and its
+    gradient over the model axis of (1, 1, 4) on each transport; with
+    ``spec["serve"]`` (a spec update) that model served by :func:`_serve`
+    over 2 x 2 on each transport; with ``spec["train"]`` that training run
+    by :func:`_train` over (1, 2, 2) on each.  Results by transport
+    ("gloo", "card")."""
+    base = init_rank(rank, dict(spec, transport="backend", pods=1, ep=1,
+                                tp=spec["world"]))
+    dev = rank_device(rank, spec)
+    timeout = datetime.timedelta(seconds=spec["timeout_s"])
+
+    def meshes(shape):
+        return {"gloo": RankMesh(shape, timeout=timeout,
+                                 dp_servers=spec.get("dp_servers", ())),
+                "card": RankMesh(shape, timeout=timeout, transport="card",
+                                 dp_servers=spec.get("dp_servers", ()),
+                                 piece_bytes=spec.get(
+                                     "piece_bytes", mesh_ops.PIECE_BYTES))}
+    results: dict = {"rank": rank}
+    if spec.get("cases"):
+        shapes = {tuple(c["mesh"]) for c in spec["cases"]}
+        card = {s: meshes(s)["card"] for s in sorted(shapes)}
+        results["check"] = transport_check(card, dev, spec["cases"],
+                                           barriers=spec.get("barriers", 0))
+    if spec.get("exchanges"):
+        data = np.load(spec["exchanges"])
+        results["exchanges"] = {}
+        for how, mesh in (("gloo", base), *meshes((1, 1, spec["world"]))
+                          .items()):
+            got = results["exchanges"].setdefault(how, {})
+            for name in EXCHANGES:
+                x = torch.from_numpy(data["x"][rank]).requires_grad_(True)
+                y = exchange(name, x, mesh)
+                y.backward(torch.from_numpy(data[f"{name}/ct"][rank]))
+                got[name] = {"y": y.detach().numpy(), "dx": x.grad.numpy()}
+    for key, shape, work in (("serve", (2, 2, 1), _serve),
+                             ("train", (1, 2, 2), _train)):
+        if not spec.get(key):
+            continue
+        sub = dict(spec, **spec[key], pods=shape[0], ep=shape[1],
+                   tp=shape[2])
+        results[key] = {}
+        for how, mesh in meshes(shape).items():
+            got = work(mesh, rank, dev, sub)
+            results[key][how] = got[0] if key == "serve" else got
     dist.barrier()
     dist.destroy_process_group()
     _save(rank, spec, results)

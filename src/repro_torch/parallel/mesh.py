@@ -56,6 +56,19 @@ rank's cotangent of the sum is its own channels' and the gradient of its
 partial is all of them.  Without ``requires_grad`` (serving) each call
 runs the plain collective and records nothing.
 
+Transports.  A :class:`RankMesh` built with ``transport="card"`` (every
+rank of the world on one device, under a gloo process group) wraps each of
+its groups in a :class:`CardGroup`: the five exchanges below then move
+their bytes through memory the group's processes share instead of through
+gloo, which stages every CUDA tensor through the host and sends it over
+TCP loopback.  A CUDA tensor goes through a staging buffer on the card a
+member (a tensor of PyTorch's allocator, opened by its peers from CUDA IPC
+handles), a CPU tensor through
+host shared memory; the members meet at barriers on a flag array in host
+shared memory.  The gloo subgroup stays beside it for control traffic
+(:func:`process_group`).  :meth:`CardGroup.exchange` spells out one
+exchange.
+
 :class:`ShapeMesh` is a :class:`RankMesh` of the same axes and shape seen
 from one chosen rank, with no process group: its groups are
 :class:`ShapeGroup` objects, on which every exchange of this module (and its
@@ -74,11 +87,21 @@ from __future__ import annotations
 
 import itertools
 import math
+import mmap
+import os
+import secrets
+import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
+import torch.multiprocessing  # noqa: F401 — registers the tensor reductions
+from multiprocessing.reduction import ForkingPickler
 
 AXES = ("pod", "data", "model")
+TRANSPORTS = ("backend", "card")
+# the most bytes a member stages in one exchange of the card transport
+PIECE_BYTES = 64 << 20
 # the groups every rank makes, in this order
 GROUPS = (("pod",), ("data",), ("model",), ("pod", "data"))
 # the concatenating all-gather (``all_gather_into_tensor`` before torch
@@ -155,9 +178,25 @@ class RankMesh(_Axes):
     """``shape`` = (pods, data, model) over the default process group (a
     mesh of one rank needs none); ``timeout`` bounds each subgroup's
     collectives (``dist.new_group``'s own default is the backend's, which
-    may be far longer than the default group's)."""
+    may be far longer than the default group's).  ``transport``:
+    "backend" (the process group's own collectives) or "card" (every group
+    a :class:`CardGroup`; the caller vouches that every rank lies on one
+    device, as ``launch.ranks.init_rank`` checks; ``piece_bytes`` its
+    exchanges' piece)."""
 
-    def __init__(self, shape, *, timeout=None, dp_servers=()):
+    def __init__(self, shape, *, timeout=None, dp_servers=(),
+                 transport: str = "backend",
+                 piece_bytes: int = PIECE_BYTES):
+        if transport not in TRANSPORTS:
+            raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
+        if transport == "card" and dist.is_initialized() and \
+                dist.get_backend() != "gloo":
+            raise ValueError(f"the card transport runs beside gloo, not "
+                             f"{dist.get_backend()}")
+        self.transport = transport
+        self._piece_bytes = int(piece_bytes)
+        self._timeout_s = (timeout.total_seconds() if timeout is not None
+                           else 1800.0)
         self.shape = dict(zip(AXES, (int(s) for s in shape), strict=True))
         size = math.prod(self.shape.values())
         world = dist.get_world_size() if dist.is_initialized() else 1
@@ -180,7 +219,7 @@ class RankMesh(_Axes):
                          if all(coords[r][a] == c for a, c in pin.items())]
                 group = dist.new_group(ranks, timeout=timeout)
                 if self.rank in ranks:
-                    self._groups[names] = group
+                    self._groups[names] = self._wrap(group, ranks)
                     if dist.get_rank(group) != self.axis_index(*names):
                         raise AssertionError(
                             f"group rank {dist.get_rank(group)} of rank "
@@ -192,7 +231,8 @@ class RankMesh(_Axes):
                          * self.shape["model"] + c for c in members]
                 group = dist.new_group(ranks, timeout=timeout)
                 if self.rank in ranks:
-                    self._groups[("model", members)] = group
+                    self._groups[("model", members)] = self._wrap(group,
+                                                                  ranks)
         dp = ("pod", "data")
         self.dp_servers = tuple(sorted({int(s) for s in dp_servers}))
         for members in two_level_members(self.axis_size(*dp),
@@ -201,7 +241,32 @@ class RankMesh(_Axes):
                 ranks = [i * self.shape["model"] + m for i in members]
                 group = dist.new_group(ranks, timeout=timeout)
                 if self.rank in ranks:
-                    self._groups[(dp, members)] = group
+                    self._groups[(dp, members)] = self._wrap(group, ranks)
+        self._world = (self._wrap(dist.group.WORLD, list(range(size)))
+                       if transport == "card" and size > 1 else None)
+
+    def _wrap(self, group, ranks):
+        if self.transport != "card":
+            return group
+        return CardGroup(group, ranks, timeout_s=self._timeout_s,
+                         piece_bytes=self._piece_bytes)
+
+    def staging_bytes(self) -> dict:
+        """The card transport's staging this rank holds over its groups
+        (:meth:`CardGroup.staging_bytes`, summed)."""
+        out = {"card": 0, "host": 0}
+        for g in [*self._groups.values(), self._world]:
+            if isinstance(g, CardGroup):
+                for k, v in g.staging_bytes().items():
+                    out[k] += v
+        return out
+
+    def close(self) -> None:
+        """Free every group's staging (collective over the world, each
+        rank's groups in one order)."""
+        for g in [*self._groups.values(), self._world]:
+            if isinstance(g, CardGroup):
+                g.close()
 
     def group(self, *names: str):
         """The subgroup of the ranks that differ only along ``names``."""
@@ -210,8 +275,9 @@ class RankMesh(_Axes):
         return self._groups[tuple(names)]
 
     def world_group(self):
-        """The group of every rank: the default process group (None)."""
-        return None
+        """The group of every rank: the default process group (None), or
+        its :class:`CardGroup` under the card transport."""
+        return self._world
 
     def subgroup(self, axis, members) -> object:
         """The group of the ranks at coordinates ``members`` of ``axis`` (a
@@ -307,6 +373,330 @@ class ShapeGroup:
         return out
 
 
+class CardGroup:
+    """The members ``ranks`` (world ranks, in group-rank order) of the gloo
+    subgroup ``pg``, all on one device, exchanging through memory their
+    processes share; ``pg`` stays for the setup and for control traffic.
+
+    One exchange (:meth:`exchange`): a member copies its input into its own
+    staging slot (a CUDA tensor on its current stream, which it then
+    synchronises), meets the group at a barrier, and then copies the blocks
+    it takes out of every member's slot into its output, on the device.
+    Each member's slot has two halves used in turn, so the next exchange's
+    barrier is also the one that comes before this half is written again:
+    a member synchronises the reads of its last exchange before it enters
+    a barrier.  An exchange moves at most ``piece_bytes`` a member
+    (:data:`PIECE_BYTES` by default); a larger collective runs as pieces
+    along its elements.  The slots are
+    kept for the group and grown on demand to a power of two (every member
+    of a collective passes the same bytes, so the members grow together),
+    so handles pass once a size.
+
+    On the card a slot is a tensor of each member from PyTorch's
+    allocator, opened by its peers from the CUDA IPC handle its pickle
+    carries (as ``torch.multiprocessing`` passes CUDA tensors); on the host
+    it is shared memory.
+    The barrier is a flag a member in host shared memory: a member raises
+    its own to the barrier's count and waits until every flag has reached
+    it (at most ``timeout_s``, then it raises).  The byte movers give the
+    bits gloo gives; the sums add the members' blocks in group-rank order
+    in the tensor's dtype, so every member holds the same bits."""
+
+    LEAST_SLOT = 1 << 20
+
+    def __init__(self, pg, ranks, *, timeout_s: float = 1800.0,
+                 piece_bytes: int = PIECE_BYTES):
+        self.pg = pg
+        self.piece_bytes = int(piece_bytes)
+        self.ranks = tuple(int(r) for r in ranks)
+        self.size = len(self.ranks)
+        self.me = dist.get_rank(pg)
+        self.timeout_s = float(timeout_s)
+        self.barriers = 0           # met so far: the flags' count
+        self._flags = None          # (segment, int64 view), a line a member
+        self._host = None           # (slot bytes, segment, uint8 tensor)
+        self._card = None           # _CardSlots
+        self._half = 0
+
+    def _shared_host(self, nbytes: int) -> mmap.mmap:
+        """Host shared memory every member maps (collective): made by
+        member 0, opened by name by the others and unlinked once all have
+        it, so nothing outlives the processes."""
+        import _posixshmem
+        name = [f"/repro_card_{os.getpid()}_{secrets.token_hex(8)}"
+                if self.me == 0 else None]
+        if self.me == 0:
+            fd = _posixshmem.shm_open(name[0], os.O_CREAT | os.O_EXCL
+                                      | os.O_RDWR, mode=0o600)
+            os.ftruncate(fd, nbytes)
+        dist.broadcast_object_list(name, src=self.ranks[0], group=self.pg)
+        if self.me != 0:
+            fd = _posixshmem.shm_open(name[0], os.O_RDWR, mode=0o600)
+        try:
+            seg = mmap.mmap(fd, nbytes)
+        finally:
+            os.close(fd)
+        dist.barrier(group=self.pg)
+        if self.me == 0:
+            _posixshmem.shm_unlink(name[0])
+        return seg
+
+    def barrier(self) -> None:
+        """Meet every member: raise this member's flag to the next count,
+        then wait until every flag has reached it."""
+        if self._flags is None:
+            seg = self._shared_host(64 * self.size)
+            self._flags = (seg, np.frombuffer(seg, dtype=np.int64)[::8])
+        flags = self._flags[1]
+        self.barriers += 1
+        count = self.barriers
+        flags[self.me] = count
+        polls, deadline = 0, None
+        while flags.min() < count:
+            polls += 1
+            if polls < 64:
+                continue
+            now = time.monotonic()
+            if deadline is None:
+                deadline = now + self.timeout_s
+            elif now > deadline:
+                raise TimeoutError(
+                    f"card transport: group members "
+                    f"{np.flatnonzero(flags < count).tolist()} of "
+                    f"{self.ranks} missed barrier {count} for "
+                    f"{self.timeout_s} s")
+            if polls < 4096:
+                os.sched_yield()
+            else:
+                time.sleep(2e-5)
+
+    def exchange(self, src: torch.Tensor, write: bool = True) -> list:
+        """Stage ``src`` (at most ``piece_bytes``; any strides) in this
+        member's slot of the current half, unless ``write`` is False, meet
+        the group, and return every member's slot as a contiguous tensor of
+        ``src``'s dtype and shape, in group-rank order, for the caller to
+        read on the device (on its current stream) before its next
+        exchange."""
+        nbytes = src.numel() * src.element_size()
+        slot = _slot_bytes(nbytes, self.LEAST_SLOT)
+        if src.is_cuda:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("card transport: an exchange meets its "
+                                   "group at a host barrier, which a CUDA "
+                                   "graph cannot capture")
+            if self._card is None or self._card.slot < nbytes:
+                old = self._card
+                self._card = _CardSlots(self, src.device, slot)
+                if old is not None:
+                    self._retire(old)
+            slot = self._card.slot
+            base = [v[self._half * slot:(self._half + 1) * slot]
+                    for v in self._card.views]
+        elif src.device.type == "cpu":
+            if self._host is None or self._host[0] < nbytes:
+                seg = self._shared_host(2 * self.size * slot)
+                self._host = (slot, seg, torch.frombuffer(seg,
+                                                          dtype=torch.uint8))
+            slot, mem = self._host[0], self._host[2]
+            at = self._half * self.size
+            base = [mem[(at + m) * slot:(at + m + 1) * slot]
+                    for m in range(self.size)]
+        else:
+            raise ValueError(f"card transport: no exchange on {src.device}")
+        slots = [b[:nbytes].view(src.dtype).view(src.shape) for b in base]
+        if write and nbytes:
+            slots[self.me].copy_(src)
+        if src.is_cuda:
+            self._card.quiesce()    # the staged bytes and the last reads
+        self.barrier()
+        self._half ^= 1
+        return slots
+
+    def _retire(self, slots: "_CardSlots") -> None:
+        """Free ``slots`` (collective): every member's reads of them done,
+        its peers' mappings closed, then its own buffer."""
+        slots.quiesce()
+        self.barrier()
+        slots.unmap()
+        self.barrier()
+        slots.release()
+
+    def close(self) -> None:
+        """Free this group's staging (collective: every member calls it);
+        a later exchange makes it again."""
+        if self._card is not None:
+            self._retire(self._card)
+            self._card = None
+        self._host = None
+
+    def staging_bytes(self) -> dict:
+        """Bytes this member's staging holds: its own slots on the card,
+        and the group's host shared memory it maps."""
+        return {"card": 2 * self._card.slot if self._card else 0,
+                "host": 2 * self.size * self._host[0] if self._host else 0}
+
+    def _pieces(self, length: int, rows: int, itemsize: int):
+        step = max(1, self.piece_bytes // (rows * itemsize))
+        return [(lo, min(length, lo + step))
+                for lo in range(0, length, step)] or [(0, 0)]
+
+    # the five collectives, each on [rows, L] views pieced along L
+    def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.view(-1) if x.is_contiguous() else x.contiguous().view(-1)
+        out = x.view(-1) if x.is_contiguous() else torch.empty_like(flat)
+        for lo, hi in self._pieces(flat.numel(), 1, x.element_size()):
+            _sum_into(out[lo:hi], self.exchange(flat[lo:hi]))
+        if not x.is_contiguous():
+            x.copy_(out.view(x.shape))
+        return x
+
+    def all_to_all(self, x: torch.Tensor, out: torch.Tensor
+                   ) -> torch.Tensor:
+        n, me = self.size, self.me
+        x2, out2 = x.view(n, x.numel() // n), out.view(n, x.numel() // n)
+        for lo, hi in self._pieces(x2.shape[1], n, x.element_size()):
+            slots = self.exchange(x2[:, lo:hi])
+            if hi - lo == x2.shape[1]:
+                torch.cat([s[me:me + 1] for s in slots], out=out2)
+            else:
+                for m, s in enumerate(slots):
+                    out2[m, lo:hi].copy_(s[me])
+        return out
+
+    def all_gather(self, flat: torch.Tensor, out: torch.Tensor
+                   ) -> torch.Tensor:
+        out2 = out.view(self.size, flat.numel())
+        for lo, hi in self._pieces(flat.numel(), 1, flat.element_size()):
+            slots = self.exchange(flat[lo:hi])
+            if hi - lo == flat.numel():
+                torch.cat(slots, out=out)
+            else:
+                for m, s in enumerate(slots):
+                    out2[m, lo:hi].copy_(s)
+        return out
+
+    def reduce_scatter(self, x: torch.Tensor, out: torch.Tensor
+                       ) -> torch.Tensor:
+        x2, flat = x.view(self.size, out.numel()), out.view(-1)
+        for lo, hi in self._pieces(x2.shape[1], self.size, x.element_size()):
+            slots = self.exchange(x2[:, lo:hi])
+            _sum_into(flat[lo:hi], [s[self.me] for s in slots])
+        return out
+
+    def ppermute(self, x: torch.Tensor, out: torch.Tensor, me: int,
+                 dst: dict, src: dict) -> torch.Tensor:
+        flat, oflat = x.view(-1), out.view(-1)
+        for lo, hi in self._pieces(flat.numel(), 1, x.element_size()):
+            slots = self.exchange(flat[lo:hi], write=me in dst)
+            if me in src:
+                oflat[lo:hi].copy_(slots[src[me]])
+        return out
+
+
+def _slot_bytes(need: int, least: int) -> int:
+    """The slot a member keeps for ``need`` bytes: a power of two."""
+    return max(least, 1 << max(0, need - 1).bit_length())
+
+
+def _sum_into(out: torch.Tensor, parts: list) -> torch.Tensor:
+    """``out`` = parts[0] + parts[1] + ..., added in this order in
+    ``out``'s dtype."""
+    if len(parts) == 1:
+        return out.copy_(parts[0])
+    torch.add(parts[0], parts[1], out=out)
+    for p in parts[2:]:
+        out.add_(p)
+    return out
+
+
+def _device_key(device: torch.device) -> tuple:
+    p = torch.cuda.get_device_properties(device)
+    return (str(getattr(p, "uuid", "")), getattr(p, "pci_domain_id", -1),
+            getattr(p, "pci_bus_id", -1), getattr(p, "pci_device_id", -1),
+            p.name)
+
+
+def _allocate_shareable(nbytes: int, device: torch.device) -> torch.Tensor:
+    """``nbytes`` of uint8 on ``device`` from PyTorch's allocator, in a
+    segment CUDA IPC can share: with expandable segments on (as the rank
+    launcher sets them) the allocator is switched to plain segments for
+    this one allocation."""
+    conf = (os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "") + ","
+            + os.environ.get("PYTORCH_ALLOC_CONF", ""))
+    expandable = "expandable_segments:True" in conf.replace(" ", "")
+    if expandable:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    try:
+        return torch.empty(nbytes, dtype=torch.uint8, device=device)
+    finally:
+        if expandable:
+            torch.cuda.memory._set_allocator_settings(
+                "expandable_segments:True")
+
+
+def _open_slot(raw: bytes, member: int, ranks: tuple) -> torch.Tensor:
+    """A peer's slot from its pickled CUDA tensor (``ForkingPickler``: a
+    CUDA IPC handle); a handle that does not open raises."""
+    try:
+        return ForkingPickler.loads(raw)
+    except Exception as e:      # noqa: BLE001 — re-raised with the group
+        raise RuntimeError(f"card transport: the slot of member {member} "
+                           f"of group {list(ranks)} did not open: {e}"
+                           ) from e
+
+
+class _CardSlots:
+    """One :class:`CardGroup`'s staging on the card (made collectively):
+    this member's buffer of two halves of ``slot`` bytes (``mine``, a
+    uint8 tensor of PyTorch's allocator) and every member's (``views``,
+    in group-rank order), its peers' opened from the CUDA IPC handles
+    their pickled tensors carry."""
+
+    def __init__(self, group: CardGroup, device: torch.device, slot: int):
+        self.slot, self.device = slot, device
+        self._streams: list = []
+        self.mine = _allocate_shareable(2 * slot, device)
+        every = [None] * group.size
+        dist.all_gather_object(every, (_device_key(device), slot, bytes(
+            ForkingPickler.dumps(self.mine))), group=group.pg)
+        if len({e[0] for e in every}) != 1:
+            raise RuntimeError(f"card transport: the members of group "
+                               f"{group.ranks} lie on different devices: "
+                               f"{[e[0] for e in every]}")
+        if len({e[1] for e in every}) != 1:
+            raise RuntimeError(f"card transport: the members of group "
+                               f"{group.ranks} passed different bytes: "
+                               f"slots {[e[1] for e in every]}")
+        self.views = [self.mine if m == group.me else
+                      _open_slot(raw, m, group.ranks)
+                      for m, (*_, raw) in enumerate(every)]
+
+    def quiesce(self) -> None:
+        """Wait for this member's queued copies: the current stream (the
+        bytes just staged) and the stream of its last exchange's reads."""
+        now = torch.cuda.current_stream(self.device)
+        now.synchronize()
+        for s in self._streams:
+            if s != now:
+                s.synchronize()
+        self._streams = [now]
+
+    def unmap(self) -> None:
+        """Drop the peers' buffers this member opened."""
+        self.views = []
+
+    def release(self) -> None:
+        """Drop this member's own buffer (once no peer maps it)."""
+        self.mine = None
+
+
+def process_group(group):
+    """The process group behind a mesh group, for control traffic through
+    ``torch.distributed``: a :class:`CardGroup`'s gloo subgroup, else the
+    group itself."""
+    return group.pg if isinstance(group, CardGroup) else group
+
+
 def axis_names(axis) -> tuple[str, ...]:
     """An axis argument as a tuple of axis names."""
     return (axis,) if isinstance(axis, str) else tuple(axis)
@@ -341,6 +731,8 @@ def _all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group``, in place."""
     if isinstance(group, ShapeGroup):
         return group.record("all-reduce", x)
+    if isinstance(group, CardGroup):
+        return group.all_reduce_(x)
     dist.all_reduce(x, group=group)
     return x
 
@@ -350,6 +742,8 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(x)
     if isinstance(group, ShapeGroup):
         return group.record("all-to-all", out)
+    if isinstance(group, CardGroup):
+        return group.all_to_all(x, out)
     dist.all_to_all_single(out, x, group=group)
     return out
 
@@ -359,6 +753,8 @@ def _all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
     out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
     if isinstance(group, ShapeGroup):
         return group.record("all-gather", out.view(n, *x.shape))
+    if isinstance(group, CardGroup):
+        return group.all_gather(flat, out).view(n, *x.shape)
     _ALL_GATHER(out, flat, group=group)
     return out.view(n, *x.shape)
 
@@ -369,6 +765,8 @@ def _reduce_scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
     if isinstance(group, ShapeGroup):
         return group.record("reduce-scatter", out)
+    if isinstance(group, CardGroup):
+        return group.reduce_scatter(x, out)
     _REDUCE_SCATTER(out.view(-1), x.view(-1), group=group)
     return out
 
@@ -385,6 +783,8 @@ def _ppermute(x, group, n, me, dst, src) -> torch.Tensor:
     if me in src:
         recv[src[me]] = rows
     out = torch.empty_like(x) if me in src else torch.zeros_like(x)
+    if isinstance(group, CardGroup):
+        return group.ppermute(x, out, me, dst, src)
     dist.all_to_all_single(out if me in src else out[:0],
                            x if me in dst else x[:0], recv, send,
                            group=group)

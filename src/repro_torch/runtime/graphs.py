@@ -54,6 +54,10 @@ def decode_mode(device: torch.device, pctx=None) -> tuple[str, str]:
     ``pctx``: the rule, not a switch."""
     if device.type != "cuda":
         return "eager", f"{device.type} tensors: no CUDA graph"
+    if pctx is not None and getattr(pctx.mesh, "transport", None) == "card":
+        return "eager", ("the card transport's exchanges meet their group "
+                         "at host barriers, which a CUDA graph cannot "
+                         "capture")
     if pctx is None or not dist.is_initialized():
         return "graph", "one rank on CUDA"
     backend = dist.get_backend()

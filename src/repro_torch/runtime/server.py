@@ -44,6 +44,7 @@ import torch.distributed as dist
 
 from repro_torch.data.pipeline import batch_for_model
 from repro_torch.device import resolve_device
+from repro_torch.parallel import mesh as mesh_ops
 from repro_torch.parallel.context import PlanBinder
 from repro_torch.runtime.graphs import DecodeGraphs, Slot, decode_mode
 from repro_torch.serving.admission import AdmissionController
@@ -452,7 +453,8 @@ class ServeEngine:
         nxt = nxt.to(torch.int32)
         if self.pctx is not None and self.pctx.dp_size > 1:
             parts = [torch.empty_like(nxt) for _ in range(self.pctx.dp_size)]
-            dist.all_gather(parts, nxt, group=self._dp_group())
+            dist.all_gather(parts, nxt,
+                            group=mesh_ops.process_group(self._dp_group()))
             nxt = torch.cat(parts)[:state.batch]     # the padding dropped
         return nxt.cpu().numpy()
 

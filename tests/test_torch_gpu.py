@@ -883,3 +883,103 @@ def test_recurrent_training_on_card(arch, monkeypatch):
         assert torch.isfinite(a).all(), name
         cos = (a.flatten() @ e.flatten() / (a.norm() * e.norm())).item()
         assert cos > 0.999, (name, cos)
+
+
+@pytest.mark.gpu
+def test_card_transport_against_gloo_on_card(tmp_path):
+    """The card transport's CUDA flavour (staging buffers on the card,
+    opened by the peers from CUDA IPC handles) against gloo on 4 ranks of
+    one card: the byte movers bit for bit, the sums the same bits on every
+    member and in group-rank order, large inputs in pieces of 4 KB."""
+    _need_cuda()
+    from repro_torch.launch import ranks
+    cases = [
+        dict(name="a2a", kind="all_to_all", mesh=(2, 2, 1),
+             axis=("pod", "data"), shape=(4, 700, 3), dtype="bfloat16"),
+        dict(name="gather", kind="all_gather", mesh=(1, 1, 4),
+             axis="model", members=((0, 1), (2, 3)), shape=(3000,),
+             dtype="bfloat16"),
+        dict(name="permute", kind="ppermute", mesh=(1, 1, 4), axis="model",
+             shape=(2100,), dtype="float32"),
+        dict(name="reduce-scatter", kind="reduce_scatter", mesh=(2, 2, 1),
+             axis="data", shape=(2, 3000), dtype="float32"),
+        dict(name="all-reduce", kind="all_reduce", mesh=(2, 2, 1),
+             axis=("pod", "data"), shape=(5000,), dtype="float32")]
+    spec = dict(world=4, pods=1, ep=1, tp=4, backend="gloo",
+                device="cuda:0", init_method=f"file://{tmp_path}/store",
+                timeout_s=120, out_dir=str(tmp_path / "out"), threads=1,
+                piece_bytes=4096, cases=cases, barriers=100)
+    got = ranks.run_ranks(ranks.card_transport_worker, spec, timeout_s=300)
+    for r in got:
+        for name, c in r["check"]["cases"].items():
+            if c["kind"] in ("all_reduce", "reduce_scatter"):
+                assert c["rank_order"] and c["over_bound"] == 0, (name, c)
+            else:
+                assert c["same_bits"], (name, c)
+        assert all(s["card"] > 0 for s in r["check"]["staging"].values())
+    digests = {r["check"]["cases"]["all-reduce"]["digest"] for r in got}
+    assert len(digests) == 1
+
+
+class _Forged:
+    """Pickles as the reduction it is given."""
+
+    def __init__(self, reduced):
+        self.reduced = reduced
+
+    def __reduce__(self):
+        return self.reduced
+
+
+@pytest.mark.gpu
+def test_card_transport_handle_that_does_not_open_raises():
+    """A slot whose pickled CUDA IPC handle is zeroed does not open: the
+    card transport raises, naming the member and its group."""
+    _need_cuda()
+    import pickle
+
+    from torch.multiprocessing import reductions
+
+    from repro_torch.parallel import mesh
+    slot = mesh._allocate_shareable(1 << 20, torch.device("cuda"))
+    rebuild, args = reductions.reduce_tensor(slot)
+    args = list(args)
+    args[7] = bytes(len(args[7]))           # the storage's IPC handle
+    raw = pickle.dumps(_Forged((rebuild, tuple(args))))
+    with pytest.raises(RuntimeError, match="member 1 of group"):
+        mesh._open_slot(raw, 1, (0, 1))
+
+
+@pytest.mark.gpu
+def test_checkpoint_of_device_leaves_has_the_host_writers_bytes(tmp_path):
+    """A tree of CUDA tensors (leaves above and below the writer's 64 MB
+    piece, bf16 among them) streamed through the pinned buffers gives the
+    bytes of the same tree written from host copies, and restores into
+    CUDA tensors bit for bit."""
+    _need_cuda()
+    import hashlib
+    import os
+    import time
+    from unittest import mock
+
+    from repro_torch.checkpoint import store
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tree = {"big": torch.randn((9, 1 << 22), generator=gen, device="cuda"
+                               ).to(torch.bfloat16),
+            "f": torch.randn((33, 7), generator=gen, device="cuda"),
+            "n": torch.tensor(3, device="cuda"),
+            "empty": torch.empty((0, 4), device="cuda")}
+    clock = time.struct_time((2026, 1, 2, 3, 4, 5, 4, 2, 0))
+
+    def digest(tr, where):
+        with mock.patch("time.time", return_value=1.7e9), \
+                mock.patch("time.localtime", return_value=clock):
+            path = store.CheckpointManager(str(where)).save(1, tr)
+        with open(os.path.join(path, store.SHARD), "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+    host = {k: v.cpu() for k, v in tree.items()}
+    assert digest(tree, tmp_path / "card") == digest(host, tmp_path / "host")
+    into = {k: torch.zeros_like(v) for k, v in tree.items()}
+    store.CheckpointManager(str(tmp_path / "card")).restore_into(1, into)
+    for k, v in tree.items():
+        assert torch.equal(into[k], v), k

@@ -7,7 +7,8 @@ temporary directory) lay out 2 pods x 2 ep ranks x 2 model ranks and run
 one startup calibration on the paper's two-server fabric of 2 x 2 NPUs,
 at tiny payloads and one repeat: every executable plan of the AllGather
 (over the model axis), the dispatch and the combine (over pod x ep) is
-timed, and both rail directions come out of ``probe_link_directions``.
+timed, and both rail directions come out of ``probe_link_directions`` at
+the calibration's own sweep (``directions``).
 Every rank returns the same walls to the bit; a deadline far below any
 wall makes every rank skip every record; the dispatch probe hands the
 dispatch the bytes its ledger charges; every pack of the probes equals its
@@ -33,6 +34,8 @@ PAYLOADS = {"allgather": (1 << 14, 1 << 16, 1 << 18),
             "dispatch": tuple(n * TOKEN_BYTES for n in (8, 32, 64)),
             "combine": tuple(n * TOKEN_BYTES for n in (8, 32, 64))}
 OPS = ("allgather", "dispatch", "combine")
+# the directed rail probes' sweep (the calibration's ``directions``)
+DIRECTIONS = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
 SPAWN_TIMEOUT_S = 120
 
 
@@ -46,7 +49,8 @@ def probed(tmp_path_factory):
         out_dir=str(tmp / "out"), threads=1,
         topo=two_server_cluster(npus_per_server=2, num_servers=2),
         calibrate=dict(ops=OPS, payloads=PAYLOADS, repeats=1,
-                       check_packs=True, scenario=SCENARIO),
+                       check_packs=True, scenario=SCENARIO,
+                       directions=DIRECTIONS),
         dispatch_bytes=True, scan=True,
         timeout=dict(timeout_s=1e-9, ops=("dispatch", "allgather"),
                      payloads=PAYLOADS, scenario=SCENARIO))
@@ -71,6 +75,15 @@ def test_link_directions_cover_both_rails(probed):
                     for r in probed[0]["calibration"]["records"]
                     if r["op"] == "linkprobe"})
     assert roles == ["inter:0>1", "inter:1>0"]
+
+
+def test_link_directions_sweep_the_given_payloads(probed):
+    for role in ("inter:0>1", "inter:1>0"):
+        got = sorted(r["payload_bytes"]
+                     for r in probed[0]["calibration"]["records"]
+                     if r["op"] == "linkprobe"
+                     and r["bottleneck_role"] == role)
+        assert got == [float(b) for b in DIRECTIONS], role
 
 
 def test_walls_are_bit_identical_on_every_rank(probed):
